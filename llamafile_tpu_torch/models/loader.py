@@ -1,0 +1,98 @@
+"""GGUF -> device parameters for the port (llama / mistral, dense FFN).
+
+Counterpart of llamafile_tpu/models/loader.py: tensor bytes flow mmap ->
+repack (numpy) -> device; `fuse_projections` then builds the fused qkv and
+the GU_STRIPE-interleaved gate|up that the decode kernels take.
+"""
+from __future__ import annotations
+
+import dataclasses as dc
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from ..gguf.reader import GGUFReader
+from ..ops.repack import QTensor, concat_qtensors, interleave_gateup, repack
+from ..runtime.tokenizer import Tokenizer
+from .llama import LlamaConfig, LlamaLayer, LlamaParams
+
+
+def _load_qtensor(reader: GGUFReader, name: str, device) -> QTensor:
+    t = reader.tensors[name]
+    n, k = int(np.prod(t.shape[:-1])), t.shape[-1]
+    return repack(reader.tensor_bytes(name), t.type_name, (n, k), device=device)
+
+
+def _load_vec(reader: GGUFReader, name: str, device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(reader.tensor_f32(name))).to(device)
+
+
+def fuse_projections(params: LlamaParams, cfg: LlamaConfig) -> LlamaParams:
+    """Fuse q|k|v into one QTensor and gate|up into one: GU_STRIPE-
+    interleaved when both are q4b with d_ff a multiple of 1024 (the fused
+    FFN kernel's layout), plainly concatenated otherwise."""
+    layers = []
+    for layer in params.layers:
+        kw = {}
+        if layer.wqkv is None and layer.wk is not None:
+            try:
+                kw["wqkv"] = concat_qtensors([layer.wq, layer.wk, layer.wv])
+                kw["wq"] = kw["wk"] = kw["wv"] = None
+            except ValueError:
+                pass                        # mixed formats stay unfused
+        g_qt, u_qt = layer.w_gate, layer.w_up
+        if g_qt is not None and u_qt is not None:
+            try:
+                if (g_qt.kind == "q4b" and u_qt.kind == "q4b"
+                        and g_qt.g == u_qt.g and g_qt.shape == u_qt.shape
+                        and g_qt.shape[0] % 1024 == 0
+                        and (g_qt.bias is None) == (u_qt.bias is None)):
+                    kw["w_gate_up"] = interleave_gateup(g_qt, u_qt)
+                else:
+                    kw["w_gate_up"] = concat_qtensors([g_qt, u_qt])
+                kw["w_gate"] = kw["w_up"] = None
+            except ValueError:
+                pass
+        layers.append(dc.replace(layer, **kw) if kw else layer)
+    return dc.replace(params, layers=layers)
+
+
+def load_llama(path: str, device="cuda", fuse: bool = True):
+    """Load a llama/mistral GGUF into (config, params, tokenizer, reader) on
+    `device`. Tensor formats other than F32/F16/BF16/Q4_K raise
+    NotImplementedError naming the format."""
+    dev = resolve_device(device)
+    reader = GGUFReader(path)
+    cfg = LlamaConfig.from_gguf(reader)
+    tok = Tokenizer(reader.metadata)
+    layers = []
+    for i in range(cfg.n_layers):
+        p = f"blk.{i}."
+        if p + "ffn_gate.weight" not in reader:
+            raise NotImplementedError(f"{p}: only the gated (SwiGLU) dense "
+                                      "FFN of llama/mistral is ported")
+        for unported in ("attn_q.bias", "attn_qkv.weight", "attn_norm.bias"):
+            if p + unported in reader:
+                raise NotImplementedError(f"{p}{unported} is not ported yet")
+        layers.append(LlamaLayer(
+            attn_norm=_load_vec(reader, p + "attn_norm.weight", dev),
+            ffn_norm=_load_vec(reader, p + "ffn_norm.weight", dev),
+            wq=_load_qtensor(reader, p + "attn_q.weight", dev),
+            wk=_load_qtensor(reader, p + "attn_k.weight", dev),
+            wv=_load_qtensor(reader, p + "attn_v.weight", dev),
+            wo=_load_qtensor(reader, p + "attn_output.weight", dev),
+            w_gate=_load_qtensor(reader, p + "ffn_gate.weight", dev),
+            w_up=_load_qtensor(reader, p + "ffn_up.weight", dev),
+            w_down=_load_qtensor(reader, p + "ffn_down.weight", dev),
+        ))
+    embd = torch.from_numpy(reader.tensor_f32("token_embd.weight")).to(
+        dev).to(torch.bfloat16)
+    out_name = "output.weight" if "output.weight" in reader else "token_embd.weight"
+    params = LlamaParams(
+        tok_embd=embd, layers=layers,
+        out_norm=_load_vec(reader, "output_norm.weight", dev),
+        output=_load_qtensor(reader, out_name, dev))
+    if fuse:
+        params = fuse_projections(params, cfg)
+    return cfg, params, tok, reader

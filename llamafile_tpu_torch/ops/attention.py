@@ -1,0 +1,144 @@
+"""Attention paths of the port: fused decode with the KV-row write, and the
+einsum prefill.
+
+Counterpart of llamafile_tpu/ops/attention.py for what the slice reaches:
+
+  flash_decode_write_stacked <- _flash_decode_write_kernel (kernel
+      flash_decode_write, csrc/flash_decode_write.cu): T = 1 GQA attention
+      over layer li of the flat [L, B, S, Hkv*D] bf16 cache, with the new
+      row written in place at pos.
+  flash_prefill: the einsum path only. On the TPU, prompts of T < 128 take
+      the same einsum; T >= 128 without a window or softcap ran the upstream
+      Pallas flash_attention, which is not ported yet and raises here.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from . import _build
+from ._build import F, I, P
+
+NEG_INF = -1e30
+
+
+def flash_prefill(q, k, v, scale: float, window=None, softcap: float = 0.0):
+    """Causal self-attention over fresh prompt tokens (einsum path).
+
+    q: [B, T, Hq, D]; k, v: [B, T, Hkv, D]. Returns [B, T, Hq, D] f32."""
+    b, t, hq, d = q.shape
+    hkv = k.shape[2]
+    if t >= 128 and window is None and not softcap:
+        raise NotImplementedError(
+            f"prefill attention over T={t} >= 128 tokens waits for the port "
+            "of the upstream Pallas flash_attention "
+            "(llamafile_tpu/ops/attention.py:57)")
+    group = hq // hkv
+    qg = q.reshape(b, t, hkv, group, d).float()
+    scores = torch.einsum("bthgd,bshd->bhgts", qg, k.float()) * scale
+    if softcap:
+        scores = softcap * torch.tanh(scores / softcap)
+    i = torch.arange(t, device=q.device)[:, None]
+    j = torch.arange(t, device=q.device)[None, :]
+    mask = j <= i
+    if window is not None:
+        mask = mask & (j > i - window)
+    scores = torch.where(mask[None, None, None], scores,
+                         torch.full_like(scores, NEG_INF))
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhgts,bshd->bthgd", probs, v.float())
+    return out.reshape(b, t, hq, d)
+
+
+def flash_decode_write_plain(q, k3, v3, k_new, v_new, li: int, pos,
+                             scale: float, hkv: int, s_eff: int,
+                             win_l=None, softcap: float = 0.0):
+    """Plain version of the flash_decode_write kernel, in its numerics: q in
+    bf16, f32 scores, bf16 p before P.V (l sums the f32 p), cache rows
+    j <= pos-1 (and inside the window), the f32 new token merged last, out
+    divided by max(l, 1e-30). Writes the new rows into k3/v3 in place."""
+    b, hq, d = q.shape
+    group = hq // hkv
+    qb = q.to(torch.bfloat16).float().reshape(b, hkv, group, d)
+    kc = k3[li, :, :s_eff].float().reshape(b, s_eff, hkv, d)
+    vc = v3[li, :, :s_eff].float().reshape(b, s_eff, hkv, d)
+    kn = k_new.float().reshape(b, hkv, d)
+    vn = v_new.float().reshape(b, hkv, d)
+    s = torch.einsum("bhgd,bshd->bhgs", qb, kc) * scale
+    sn = torch.einsum("bhgd,bhd->bhg", qb, kn) * scale
+    if softcap:
+        s = softcap * torch.tanh(s / softcap)
+        sn = softcap * torch.tanh(sn / softcap)
+    j = torch.arange(s_eff, device=q.device)
+    p_ = pos.to(q.device).long()[:, None]
+    vis = j[None, :] <= p_ - 1
+    if win_l is not None:
+        vis = vis & (j[None, :] > p_ - win_l)
+    s = torch.where(vis[:, None, None, :], s, torch.full_like(s, NEG_INF))
+    mx = torch.maximum(s.amax(dim=-1), sn)                       # [B, H, G]
+    p = torch.where(vis[:, None, None, :], torch.exp(s - mx[..., None]),
+                    torch.zeros_like(s))
+    pn = torch.exp(sn - mx)
+    l = p.sum(-1) + pn
+    acc = (torch.einsum("bhgs,bshd->bhgd", p.to(torch.bfloat16).float(), vc)
+           + pn[..., None] * vn[:, :, None, :])
+    out = (acc / torch.clamp(l, min=1e-30)[..., None]).reshape(b, hq, d)
+    rows = torch.arange(b, device=q.device)
+    k3[li, rows, pos.long()] = k_new.reshape(b, -1).to(k3.dtype)
+    v3[li, rows, pos.long()] = v_new.reshape(b, -1).to(v3.dtype)
+    return out
+
+
+def flash_decode_write_stacked(q, k3, v3, k_new, v_new, li: int, pos,
+                               scale: float, hkv: int,
+                               s_limit: Optional[int] = None, win_l=None,
+                               softcap: float = 0.0):
+    """Decode attention (T = 1) with the fused cache-row write.
+
+    q [B, Hq, D] f32; k3/v3 [L, B, S, Hkv*D] bf16, updated IN PLACE at
+    [li, b, pos[b]] (the JAX package donated and aliased these buffers);
+    k_new/v_new [B, Hkv, D] roped new rows; li a Python int; pos int32 [B]
+    on the cache's device. s_limit bounds the streamed positions (the
+    attn_len bucket). Returns attn [B, Hq, D] f32."""
+    b, hq, d = q.shape
+    n_l, _, s_len, _ = k3.shape
+    s_eff = s_limit if s_limit is not None and s_limit < s_len else s_len
+    if q.device.type == "cpu":
+        return flash_decode_write_plain(q, k3, v3, k_new, v_new, li, pos,
+                                        scale, hkv, s_eff, win_l, softcap)
+    if win_l is not None or softcap:
+        raise NotImplementedError(
+            "the sliding window and softcap of _flash_decode_write_kernel are "
+            "not in the CUDA kernel yet")
+    if d != 128 or hq % hkv or hq // hkv not in (1, 2, 4, 8):
+        raise ValueError(f"flash_decode_write takes D=128 and Hq/Hkv in "
+                         f"(1, 2, 4, 8), got D={d}, Hq={hq}, Hkv={hkv}")
+    qf = q.float().contiguous()
+    kn = k_new.float().reshape(b, hkv * d).contiguous()
+    vn = v_new.float().reshape(b, hkv * d).contiguous()
+    pos32 = pos.to(torch.int32).contiguous()
+    for name, t in (("k3", k3), ("v3", v3), ("pos", pos32), ("q", qf)):
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+    if k3.dtype != torch.bfloat16 or v3.dtype != torch.bfloat16 \
+            or not k3.is_contiguous() or not v3.is_contiguous() \
+            or k3.shape != v3.shape or k3.shape[-1] != hkv * d \
+            or k3.shape[1] != b or not 0 <= li < n_l:
+        raise ValueError("caches must be contiguous bf16 [L, B, S, Hkv*D] "
+                         "matching q and li")
+    out = torch.empty((b, hq, d), dtype=torch.float32, device=q.device)
+    f = _build.fn("flash_decode_write", "flash_decode_write",
+                  [P] * 7 + [I] * 6 + [F, P])
+    _build.check(f(qf.data_ptr(), k3.data_ptr(), v3.data_ptr(), kn.data_ptr(),
+                   vn.data_ptr(), pos32.data_ptr(), out.data_ptr(), li, b,
+                   s_len, hq, hkv, s_eff, float(scale),
+                   torch.cuda.current_stream(q.device).cuda_stream),
+                 "flash_decode_write")
+    flash_decode_write_stacked.launches += 1
+    return out
+
+
+flash_decode_write_stacked.launches = 0
+
+KERNELS = (flash_decode_write_stacked,)

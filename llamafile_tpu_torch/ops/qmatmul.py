@@ -1,0 +1,369 @@
+"""Quantized matmuls of the port: dispatch, activation prep, three kernels.
+
+Counterpart of llamafile_tpu/ops/qmatmul.py for what the Q4_K llama slice
+reaches. The TPU kernels become CUDA kernels for Hopper (csrc/):
+
+  qmm_txn_m1  <- _qmm_kernel_txn_m1(_l)  (M = 1 decode: qkv, o, lm head)
+  qmm_txn     <- _qmm_kernel_txn(_l)     (2 <= M <= 32: prefill, batches)
+  qmm_moe_m1  <- _qmm_kernel_moe_m1      (fused M = 1 FFN, layer as expert)
+
+Each kernel has a wrapper and a plain PyTorch version beside it. The wrapper
+runs the plain version only for tensors that lie on the CPU (the tests); for
+CUDA tensors it launches the kernel or raises. `wrapper.launches` counts
+kernel launches (qmm_moe_m1 adds two a call: its gate|up and down kernels).
+
+Weight math shared by all three (the TPU kernels'):
+    y[m, n] = sum_g (float(sum_{k in g} xq[m,k] * w[k,n]) * scale[g,n]) * sx[m,g]
+            + sum_g bf16(float(sum_{k in g} xq[m,k]) * sx[m,g]) * bias[g,n]
+with xq, sx from quantize_activations_g32 and w the 4-bit codes (lo plane q,
+hi plane 16q - 128; the fold lives in the stored scales and bias).
+"""
+from __future__ import annotations
+
+from typing import List, Optional, Sequence
+
+import torch
+
+from . import _build
+from ._build import F, I, P
+from .repack import GU_STRIPE, QTensor, q4b_codes
+
+# ---------------------------------------------------------------------------
+# Activation prep (plain torch: XLA code on the TPU, not a kernel there)
+# ---------------------------------------------------------------------------
+
+
+def quantize_activations_g32(x: torch.Tensor, nrm=None, eps: float = 0.0):
+    """x [M, K] float -> (xq int8 [M, K], sx f32 [M, K//32]) per-32 absmax.
+
+    nrm (f32 [K]) folds an RMSNorm of x into the quantization exactly: the
+    codes depend only on the per-group absmax of x*nrm, and the positive
+    rsqrt(mean(x^2)+eps) rides in the scales."""
+    m, k = x.shape
+    x32 = x.float()
+    if nrm is not None:
+        xw = x32 * nrm.float()
+        r = torch.rsqrt((x32 * x32).mean(dim=-1, keepdim=True) + eps)
+    else:
+        xw = x32
+        r = None
+    xg = xw.reshape(m, k // 32, 32)
+    amax = xg.abs().amax(dim=2)
+    sx = amax / 127.0
+    if r is not None:
+        sx = sx * r
+    inv = torch.where(amax > 0, 127.0 / torch.where(amax > 0, amax, 1.0),
+                      torch.zeros_like(amax))
+    xq = torch.clamp(torch.round(xg * inv[:, :, None]), -127, 127).to(torch.int8)
+    return xq.reshape(m, k), sx
+
+
+def apply_rmsnorm(x: torch.Tensor, nrm, eps: float) -> torch.Tensor:
+    """Plain RMSNorm (prenorm for the dense path)."""
+    x32 = x.float()
+    var = (x32 * x32).mean(dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps)) * nrm
+
+
+def split_gu(gu: torch.Tensor, dff: int, interleaved: bool):
+    """Split a fused gate|up output [..., 2*dff] into (g, u): plain halves, or
+    de-interleave the GU_STRIPE-striped layout."""
+    if not interleaved:
+        return gu[..., :dff], gu[..., dff:]
+    lead = gu.shape[:-1]
+    p = gu.reshape(*lead, dff // GU_STRIPE, 2, GU_STRIPE)
+    return (p[..., 0, :].reshape(*lead, dff), p[..., 1, :].reshape(*lead, dff))
+
+
+# ---------------------------------------------------------------------------
+# Plain versions (the CPU path of the wrappers; the card's yardstick)
+# ---------------------------------------------------------------------------
+
+
+def q4b_plain(xq: torch.Tensor, sx: torch.Tensor, qs: torch.Tensor,
+              scales: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.Tensor:
+    """Plain q4b product of one layer's weights: f32 [M, Ns].
+
+    The group dots run as an f32 batched product of integer codes: every
+    partial sum is an integer below 2**24, so they are exact in any order."""
+    m, k = xq.shape
+    ns = qs.shape[-1]
+    g = k // 32
+    xg = xq.float().reshape(m, g, 32).transpose(0, 1)           # [G, M, 32]
+    wg = q4b_codes(qs).float().reshape(g, 32, ns)               # [G, 32, Ns]
+    parts = torch.bmm(xg, wg)                                   # [G, M, Ns]
+    y = ((parts * scales.float()[:, None, :]) * sx.t()[:, :, None]).sum(0)
+    if bias is not None:
+        xsum = xq.float().reshape(m, g, 32).sum(-1)             # exact
+        bsx = (xsum * sx).to(torch.bfloat16).float()
+        y = y + bsx @ bias.float()
+    return y
+
+
+qmm_txn_m1_plain = q4b_plain     # the M = 1 kernel computes the same function
+qmm_txn_plain = q4b_plain
+
+
+def qmm_moe_m1_plain(xq, sx, gu_qs, gu_sc, gu_b, dn_qs, dn_sc, dn_b,
+                     topw: float = 1.0) -> torch.Tensor:
+    """Plain fused FFN of one slot: f32 [1, Nd]."""
+    dff = dn_qs.shape[-2] * 2
+    g, u = split_gu(q4b_plain(xq, sx, gu_qs, gu_sc, gu_b), dff, True)
+    y = (g * torch.sigmoid(g)) * u
+    yq, sy = quantize_activations_g32(y)
+    return q4b_plain(yq, sy * topw, dn_qs, dn_sc, dn_b)
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
+
+_TARGET_BLOCKS_PER_SM = 3
+_counters = {}           # device index -> int32 counters (kernels leave them 0)
+
+
+def _counter_buf(device: torch.device, n: int) -> torch.Tensor:
+    """Split-K tile counters for `device`. The kernels return every counter
+    to zero, so one buffer serves every launch on the device's stream."""
+    buf = _counters.get(device.index)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
+        _counters[device.index] = buf
+    return buf
+
+
+def _n_split(device: torch.device, tiles: int, chunks: int, cap: int) -> int:
+    """K splits so that tiles x splits fills the SMs a few blocks deep."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    want = -(-_TARGET_BLOCKS_PER_SM * sms // tiles)
+    return max(1, min(want, cap, chunks))
+
+
+def _check_q4b(xq, sx, qs, scales, bias, ns_multiple: int):
+    dev = xq.device
+    if dev.type != "cuda":
+        raise ValueError(f"kernel inputs must be CUDA tensors, got {dev}")
+    m, k = xq.shape
+    for name, t, dt in (("xq", xq, torch.int8), ("sx", sx, torch.float32),
+                        ("qs", qs, torch.uint8), ("scales", scales, torch.bfloat16),
+                        ("bias", bias, torch.bfloat16)):
+        if t is None:
+            continue
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, xq on {dev}")
+        if t.dtype != dt:
+            raise TypeError(f"{name} must be {dt}, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    ns = qs.shape[-1]
+    if k % 256 or tuple(qs.shape) != (k // 2, ns) or ns % ns_multiple:
+        raise ValueError(f"q4b shapes: xq {tuple(xq.shape)}, qs {tuple(qs.shape)}"
+                         f" (K % 256 == 0, Ns % {ns_multiple} == 0)")
+    if tuple(sx.shape) != (m, k // 32) or tuple(scales.shape) != (k // 32, ns) \
+            or (bias is not None and bias.shape != scales.shape):
+        raise ValueError("sx/scales/bias shapes do not match xq and qs")
+
+
+def _stream(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def qmm_txn_m1(xq: torch.Tensor, sx: torch.Tensor, qs: torch.Tensor,
+               scales: torch.Tensor, bias: Optional[torch.Tensor] = None
+               ) -> torch.Tensor:
+    """M = 1 q4b GEMV (kernel qmm_txn_m1): xq int8 [1, K], sx f32 [1, K/32],
+    one layer's qs/scales/bias -> f32 [1, Ns]."""
+    if xq.device.type == "cpu":
+        return qmm_txn_m1_plain(xq, sx, qs, scales, bias)
+    _check_q4b(xq, sx, qs, scales, bias, 4)
+    if xq.shape[0] != 1:
+        raise ValueError(f"qmm_txn_m1 takes one row, got {xq.shape[0]}")
+    k, ns = xq.shape[1], qs.shape[-1]
+    tiles = -(-ns // 128)
+    s = _n_split(xq.device, tiles, k // 64, k // 64 // 8)
+    y = torch.empty((1, ns), dtype=torch.float32, device=xq.device)
+    partial = torch.empty((s, ns), dtype=torch.float32, device=xq.device)
+    f = _build.fn("qmm_txn_m1", "qmm_txn_m1", [P] * 8 + [I, I, I, P])
+    _build.check(f(xq.data_ptr(), sx.data_ptr(), qs.data_ptr(),
+                   scales.data_ptr(), _ptr(bias), y.data_ptr(),
+                   partial.data_ptr(),
+                   _counter_buf(xq.device, tiles).data_ptr(), k, ns, s,
+                   _stream(xq.device)), "qmm_txn_m1")
+    qmm_txn_m1.launches += 1
+    return y
+
+
+qmm_txn_m1.launches = 0
+
+
+def qmm_txn(xq: torch.Tensor, sx: torch.Tensor, qs: torch.Tensor,
+            scales: torch.Tensor, bias: Optional[torch.Tensor] = None
+            ) -> torch.Tensor:
+    """q4b product for 1 <= M <= 32 rows (kernel qmm_txn) -> f32 [M, Ns]."""
+    if xq.device.type == "cpu":
+        return qmm_txn_plain(xq, sx, qs, scales, bias)
+    _check_q4b(xq, sx, qs, scales, bias, 16)
+    m, k = xq.shape
+    if not 1 <= m <= 32:
+        raise ValueError(f"qmm_txn takes 1..32 rows, got {m}")
+    ns = qs.shape[-1]
+    tiles = -(-ns // 128)
+    s = _n_split(xq.device, tiles, k // 64, k // 64)
+    y = torch.empty((m, ns), dtype=torch.float32, device=xq.device)
+    partial = torch.empty((s, m, ns), dtype=torch.float32, device=xq.device)
+    f = _build.fn("qmm_txn", "qmm_txn", [P] * 8 + [I, I, I, I, P])
+    _build.check(f(xq.data_ptr(), sx.data_ptr(), qs.data_ptr(),
+                   scales.data_ptr(), _ptr(bias), y.data_ptr(),
+                   partial.data_ptr(),
+                   _counter_buf(xq.device, tiles).data_ptr(), m, k, ns, s,
+                   _stream(xq.device)), "qmm_txn")
+    qmm_txn.launches += 1
+    return y
+
+
+qmm_txn.launches = 0
+
+
+def qmm_moe_m1(xq, sx, gu_qs, gu_sc, gu_b, dn_qs, dn_sc, dn_b,
+               topw: float = 1.0) -> torch.Tensor:
+    """Fused M = 1 FFN of one slot (kernel qmm_moe_m1): gate|up on the
+    GU_STRIPE-interleaved weights, silu(g)*u requantized per 32 with topw in
+    its scales, then down. One layer's (expert's) weights -> f32 [1, Nd]."""
+    if xq.device.type == "cpu":
+        return qmm_moe_m1_plain(xq, sx, gu_qs, gu_sc, gu_b, dn_qs, dn_sc,
+                                dn_b, topw)
+    _check_q4b(xq, sx, gu_qs, gu_sc, gu_b, 2048)
+    dev = xq.device
+    k = xq.shape[1]
+    dff = dn_qs.shape[0] * 2
+    n_gu, nd = gu_qs.shape[-1], dn_qs.shape[-1]
+    if xq.shape[0] != 1 or n_gu != 2 * dff or dff % GU_STRIPE:
+        raise ValueError(f"qmm_moe_m1: one row, gate|up width {n_gu} = 2 x "
+                         f"d_ff {dff}, d_ff a multiple of {GU_STRIPE}")
+    yq = torch.empty((1, dff), dtype=torch.int8, device=dev)
+    sy = torch.empty((1, dff // 32), dtype=torch.float32, device=dev)
+    _check_q4b(yq, sy, dn_qs, dn_sc, dn_b, 4)
+    tiles_a, tiles_b = n_gu // 128, -(-nd // 128)
+    sa = _n_split(dev, tiles_a, k // 64, k // 64 // 8)
+    sb = _n_split(dev, tiles_b, dff // 64, dff // 64 // 8)
+    out = torch.empty((1, nd), dtype=torch.float32, device=dev)
+    part_a = torch.empty((sa, n_gu), dtype=torch.float32, device=dev)
+    part_b = torch.empty((sb, nd), dtype=torch.float32, device=dev)
+    f = _build.fn("qmm_moe_m1", "qmm_moe_m1",
+                  [P] * 14 + [I, I, I, I, I, F, P])
+    _build.check(f(xq.data_ptr(), sx.data_ptr(), gu_qs.data_ptr(),
+                   gu_sc.data_ptr(), _ptr(gu_b), dn_qs.data_ptr(),
+                   dn_sc.data_ptr(), _ptr(dn_b), yq.data_ptr(), sy.data_ptr(),
+                   out.data_ptr(), part_a.data_ptr(), part_b.data_ptr(),
+                   _counter_buf(dev, max(tiles_a, tiles_b)).data_ptr(),
+                   k, dff, nd, sa, sb, float(topw), _stream(dev)), "qmm_moe_m1")
+    qmm_moe_m1.launches += 2
+    return out
+
+
+qmm_moe_m1.launches = 0
+
+KERNELS = (qmm_txn_m1, qmm_txn, qmm_moe_m1)
+
+
+# ---------------------------------------------------------------------------
+# Dispatch (the JAX package's order, for the branches this slice reaches)
+# ---------------------------------------------------------------------------
+
+
+def _layer(t: Optional[torch.Tensor], li):
+    """Layer li of a stacked leaf: a view, no copy (the kernels take its
+    pointer)."""
+    return t if (t is None or li is None) else t[li]
+
+
+def qmatmul(x: torch.Tensor, qt: QTensor, li=None, prenorm=None) -> torch.Tensor:
+    """y[M, N] = x[M, K] @ W.T for a GGML weight W[N, K] stored K-major.
+
+    x float [M, K]; returns f32 [M, N]. With li (a Python int), qt holds
+    layer-stacked leaves and layer li is used in place. prenorm=(w, eps)
+    applies RMSNorm(x)*w first; on the q4b paths it folds into the
+    activation quantization (exact, see quantize_activations_g32)."""
+    if qt.kind == "dense":
+        w = _layer(qt.qs, li)
+        if prenorm is not None:
+            x = apply_rmsnorm(x, *prenorm)
+        # f32 product of bf16-rounded operands (jnp.dot with f32 accumulation)
+        return x.to(torch.bfloat16).float() @ w.float()
+    if qt.kind == "q8b":
+        raise NotImplementedError(
+            "int8-stored weights (Q6_K, Q8_0, ...) wait for the port of "
+            "_qmm_kernel_q8_m1 (llamafile_tpu/ops/qmatmul.py:684) and of "
+            "_qmm_kernel (:1761)")
+    if qt.kind != "q4b":
+        raise NotImplementedError(f"QTensor kind {qt.kind!r}")
+    m, k = x.shape
+    if k % 256:
+        raise NotImplementedError(
+            f"q4b with K={k} not a multiple of 256 waits for the port of "
+            "_qmm_kernel (llamafile_tpu/ops/qmatmul.py:1761)")
+    if m > 32:
+        raise NotImplementedError(
+            f"a q4b product of M={m} > 32 rows waits for the port of "
+            "_qmm_kernel (llamafile_tpu/ops/qmatmul.py:1761)")
+    nrm, eps = (None, 0.0) if prenorm is None else (prenorm[0], float(prenorm[1]))
+    xq, sx = quantize_activations_g32(x, nrm, eps)
+    qs, sc, b = _layer(qt.qs, li), _layer(qt.scales, li), _layer(qt.bias, li)
+    y = qmm_txn_m1(xq, sx, qs, sc, b) if m == 1 else qmm_txn(xq, sx, qs, sc, b)
+    n = qt.shape[0]
+    return y[:, :n] if y.shape[1] > n else y
+
+
+def qmatmul_fallback(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
+    """Reference path with the dequantized weight materialized (tests)."""
+    from .repack import dequant_qtensor
+    w = dequant_qtensor(qt)                                       # [N, K]
+    return x.to(torch.bfloat16).float() @ w.to(torch.bfloat16).float().t()
+
+
+def moe_fusable(gu_qt, dn_qt, k: int, dff: int) -> bool:
+    """Shape/kind gate for the fused FFN kernel (stacked q4b, il layout)."""
+    if gu_qt is None or dn_qt is None:
+        return False
+    if gu_qt.kind != "q4b" or dn_qt.kind != "q4b":
+        return False
+    if gu_qt.qs.ndim != 3 or dn_qt.qs.ndim != 3:
+        return False
+    n_gu, d_out = gu_qt.qs.shape[2], dn_qt.qs.shape[2]
+    ok = (k % 256 == 0 and dff % 1024 == 0 and n_gu == 2 * dff
+          and n_gu % 2048 == 0 and dff % 256 == 0 and d_out % 256 == 0)
+    kd = dn_qt.qs.shape[1] * 2
+    if ok and kd != dff:
+        # the reference reads phase B's depth from the down stack unchecked
+        raise ValueError(f"down stack depth {kd} != d_ff {dff}")
+    return ok
+
+
+def qmatmul_moe(x: torch.Tensor, gu_qt: QTensor, dn_qt: QTensor,
+                expert_ids: Sequence[int], topw: Sequence[float],
+                row_map: Optional[List[int]] = None, prenorm=None) -> torch.Tensor:
+    """Fused FFN entry: out[s] = (silu(g)*u*topw[s]) @ Wdn[e].T with
+    [g|u] = x[row_map[s]] @ Wgu[e].T and e = expert_ids[s] (host ints; the
+    dense llama FFN passes its layer id). Returns f32 [S, d]. Callers check
+    moe_fusable first."""
+    m = x.shape[0]
+    s_n = len(expert_ids)
+    if row_map is None:
+        row_map = [i // (s_n // m) for i in range(s_n)]
+    nrm, eps = (None, 0.0) if prenorm is None else (prenorm[0], float(prenorm[1]))
+    xq, sx = quantize_activations_g32(x, nrm, eps)
+    outs = []
+    for e, r, w in zip(expert_ids, row_map, topw):
+        outs.append(qmm_moe_m1(xq[r:r + 1], sx[r:r + 1], gu_qt.qs[e],
+                               gu_qt.scales[e], _layer(gu_qt.bias, e),
+                               dn_qt.qs[e], dn_qt.scales[e],
+                               _layer(dn_qt.bias, e), float(w)))
+    y = torch.cat(outs, dim=0)
+    n = dn_qt.shape[0]
+    return y[:, :n] if y.shape[1] > n else y

@@ -1,0 +1,221 @@
+"""Repack GGUF block formats into the kernels' quantized tensors (QTensor).
+
+Counterpart of llamafile_tpu/ops/repack.py for the formats this slice loads
+(Q4_K, F32, F16, BF16). The device layout is byte-identical to the JAX
+package's `repack_numpy` + `repack` (held so by tests/test_torch_repack.py):
+
+  kind "q4b":   qs uint8 [K/2, Ns] -- nibble-planar per 256-superblock:
+                byte 128*sb+i = q[256sb+i] | q[256sb+128+i] << 4
+                scales/bias bf16 [K/32, Ns], the hi-plane groups folded
+                (a' = a/16, b' = b + 8a) so a kernel reads the hi nibble as
+                int8((p ^ 0x80) & 0xF0) = 16q - 128
+  kind "dense": qs bf16 [K, N]
+
+Ns is N padded to a multiple of 2048 (logical N stays in QTensor.shape;
+qmatmul slices the output). A leading layer axis L appears after
+models.llama.stack_layers.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..gguf import quants as Q
+
+# 1024-wide gate|up stripes ([g0|u0|g1|u1|...]): each 2048-wide column tile
+# holds one g/u pair, so the fused FFN kernel forms silu(g)*u in its epilogue
+GU_STRIPE = 1024
+
+
+@dataclass
+class QTensor:
+    """Device-resident quantized weight (torch leaves)."""
+    kind: str                    # "q4b" | "dense"
+    shape: tuple                 # logical (N, K), GGML convention
+    g: int                       # scale group size along K (0 for dense)
+    qs: torch.Tensor             # uint8 [(L,) K/2, Ns] | bf16 [(L,) K, N]
+    scales: Optional[torch.Tensor] = None   # bf16 [(L,) K/g, Ns]
+    bias: Optional[torch.Tensor] = None     # bf16 [(L,) K/g, Ns]
+    il: bool = False             # columns are GU_STRIPE-interleaved gate|up
+
+    @property
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size()
+                   for t in (self.qs, self.scales, self.bias) if t is not None)
+
+    def to(self, device) -> "QTensor":
+        mv = lambda t: None if t is None else t.to(device)
+        return QTensor(self.kind, self.shape, self.g, mv(self.qs),
+                       mv(self.scales), mv(self.bias), self.il)
+
+
+# ---------------------------------------------------------------------------
+# Host-side (numpy) extraction: own copies of the reference's helpers
+# ---------------------------------------------------------------------------
+
+def _pack_nibbles_sb128(qT: np.ndarray) -> np.ndarray:
+    """int (K, N) values 0..15 -> uint8 (K/2, N), planar per 256-superblock."""
+    k, n = qT.shape
+    assert k % 256 == 0
+    sb = qT.reshape(k // 256, 2, 128, n).astype(np.uint8)
+    return (sb[:, 0] | (sb[:, 1] << 4)).reshape(k // 2, n)
+
+
+def _fold_hi_plane(a: np.ndarray, b: Optional[np.ndarray], g: int):
+    """Fold the hi nibble's 16x and -128 into the group metadata: for hi-plane
+    groups a' = a/16, b' = b + 8a, so a'*(16q - 128) + b' = a*q + b exactly."""
+    kg, n = a.shape
+    rows_per_sb = 256 // g                 # groups per superblock
+    hi = (np.arange(kg) % rows_per_sb) >= rows_per_sb // 2
+    if b is None:
+        b = np.zeros_like(a)
+    b = b + np.where(hi[:, None], 8.0 * a, 0.0)
+    a = np.where(hi[:, None], a / 16.0, a)
+    return a.astype(np.float32), b.astype(np.float32)
+
+
+def _extract_q4_k(b):
+    d = Q._f16(b[:, 0:2])[:, 0]
+    dmin = Q._f16(b[:, 2:4])[:, 0]
+    sc, mn = Q._scale_min_k4(b[:, 4:16])
+    qs = b[:, 16:144]
+    nb = b.shape[0]
+    q = np.empty((nb, 256), np.uint8)
+    for blk in range(4):
+        g = qs[:, 32 * blk:32 * blk + 32]
+        q[:, 64 * blk:64 * blk + 32] = g & 0xF
+        q[:, 64 * blk + 32:64 * blk + 64] = g >> 4
+    a = d[:, None] * sc
+    bb = -dmin[:, None] * mn
+    return q, a, bb, 32
+
+
+def repack_numpy(raw: np.ndarray, type_name: str, shape: tuple):
+    """Raw block bytes -> (kind, qs, scales, bias, g) numpy arrays, unpadded.
+
+    shape = (N, K) with K contiguous (GGML weight W[N, K], y = x @ W.T).
+    """
+    Q.check_supported(type_name)
+    n, k = int(np.prod(shape[:-1])), shape[-1]
+    spec = Q.TYPE_BY_NAME[type_name]
+    if type_name in ("F32", "F16", "BF16"):
+        w = Q.dequantize(raw, spec.type_id, (n, k))
+        return "dense", np.ascontiguousarray(w.T), None, None, 0
+    if k % 256:
+        raise NotImplementedError(
+            f"Q4_K with K={k} (not a multiple of 256) needs the int8-stored "
+            "q8b path, which is not ported yet")
+    nblocks = n * k // spec.block_elems
+    blocks = (np.frombuffer(raw, np.uint8) if not isinstance(raw, np.ndarray)
+              else raw).reshape(nblocks, spec.block_bytes)
+    q, a, b, g = _extract_q4_k(blocks)
+    qT = np.ascontiguousarray(q.reshape(n, k).T)                  # (K, N)
+    a = np.ascontiguousarray(a.reshape(n, k // g).T, dtype=np.float32)
+    b = np.ascontiguousarray(b.reshape(n, k // g).T, dtype=np.float32)
+    a, b = _fold_hi_plane(a, b, g)
+    return "q4b", _pack_nibbles_sb128(qT), a, b, g
+
+
+def _pad_n(arrs, n: int, multiple: int = 2048):
+    """Pad the N (last) axis of K-major arrays to a multiple of 2048."""
+    pad = (-n) % multiple
+    if pad == 0:
+        return arrs
+    return [None if a is None else
+            np.pad(a, [(0, 0)] * (a.ndim - 1) + [(0, pad)]) for a in arrs]
+
+
+def repack(raw: np.ndarray, type_name: str, shape: tuple,
+           device="cpu") -> QTensor:
+    """Repack raw GGUF bytes to a QTensor on `device` (scales/bias bf16)."""
+    kind, qs, a, b, g = repack_numpy(raw, type_name, shape)
+    n, k = int(np.prod(shape[:-1])), shape[-1]
+    if kind == "dense":
+        return QTensor("dense", (n, k), 0,
+                       torch.from_numpy(qs).to(device).to(torch.bfloat16))
+    qs, a, b = _pad_n([qs, a, b], n)
+    bf = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(device).to(
+        torch.bfloat16)
+    return QTensor(kind, (n, k), g, torch.from_numpy(qs).to(device), bf(a),
+                   bf(b))
+
+
+# ---------------------------------------------------------------------------
+# Device-side helpers (plain torch)
+# ---------------------------------------------------------------------------
+
+def q4b_codes(qs: torch.Tensor) -> torch.Tensor:
+    """uint8 [..., K/2, Ns] packed nibbles -> int8 [..., K, Ns] codes in the
+    kernels' convention: lo plane q (0..15), hi plane 16q - 128."""
+    *lead, k2, ns = qs.shape
+    lo = (qs & 0x0F).view(torch.int8)
+    hi = ((qs ^ 0x80) & 0xF0).view(torch.int8)
+    lo = lo.reshape(*lead, k2 // 128, 1, 128, ns)
+    hi = hi.reshape(*lead, k2 // 128, 1, 128, ns)
+    return torch.cat([lo, hi], dim=-3).reshape(*lead, 2 * k2, ns)
+
+
+def dequant_qtensor(qt: QTensor) -> torch.Tensor:
+    """Reconstruct f32 weights [N, K] (logical N) of an unstacked QTensor."""
+    n, k = qt.shape
+    if qt.kind == "dense":
+        return qt.qs.float().t()[:n]
+    q = q4b_codes(qt.qs).float()                         # [K, Ns]
+    ns = q.shape[-1]
+    w = (q.reshape(k // qt.g, qt.g, ns) * qt.scales.float()[:, None, :])
+    if qt.bias is not None:
+        w = w + qt.bias.float()[:, None, :]
+    return w.reshape(k, ns)[:, :n].t()
+
+
+def concat_qtensors(qts) -> QTensor:
+    """Fuse column-parallel projections along N (storage axis -1). Storage
+    padding is stripped to each tensor's logical N first; missing biases
+    become zeros so the fused tensor has one bias path."""
+    kind, g = qts[0].kind, qts[0].g
+    k = qts[0].shape[1]
+    if not all(q.kind == kind and q.g == g and q.shape[1] == k for q in qts):
+        raise ValueError("concat_qtensors needs one kind, group size and K")
+    n_total = sum(q.shape[0] for q in qts)
+
+    def logical(arr, qt):
+        return arr[..., : qt.shape[0]]
+
+    qs = torch.cat([logical(q.qs, q) for q in qts], dim=-1)
+    if kind == "dense":
+        return QTensor(kind, (n_total, k), g, qs)
+    scales = torch.cat([logical(q.scales, q) for q in qts], dim=-1)
+    bias = None
+    if any(q.bias is not None for q in qts):
+        bias = torch.cat([logical(q.bias if q.bias is not None
+                                  else torch.zeros_like(q.scales), q)
+                          for q in qts], dim=-1)
+    return QTensor(kind, (n_total, k), g, qs, scales, bias)
+
+
+def interleave_gateup(g_qt: QTensor, u_qt: QTensor) -> QTensor:
+    """Fuse a dense-FFN gate/up pair into one GU_STRIPE-interleaved QTensor:
+    columns [g0|u0|g1|u1|...] in 1024-wide stripes. Outputs de-interleave
+    with qmatmul.split_gu."""
+    dff = g_qt.shape[0]
+    if not (g_qt.kind == u_qt.kind == "q4b" and g_qt.g == u_qt.g
+            and g_qt.shape == u_qt.shape and dff % GU_STRIPE == 0):
+        raise ValueError("interleave_gateup needs matching q4b gate/up with "
+                         f"d_ff a multiple of {GU_STRIPE}")
+
+    def cat(a, b):
+        if a is None:
+            return None
+        lead = a.shape[:-1]
+        p = torch.stack(
+            [a[..., :dff].reshape(*lead, dff // GU_STRIPE, GU_STRIPE),
+             b[..., :dff].reshape(*lead, dff // GU_STRIPE, GU_STRIPE)],
+            dim=-2)
+        return p.reshape(*lead, 2 * dff)
+
+    return QTensor(g_qt.kind, (2 * dff, g_qt.shape[1]), g_qt.g,
+                   cat(g_qt.qs, u_qt.qs), cat(g_qt.scales, u_qt.scales),
+                   cat(g_qt.bias, u_qt.bias), True)

@@ -1,0 +1,47 @@
+"""The port's synthetic models against the JAX package's, and on its Engine.
+
+make_synthetic_llama builds the weights of chip_smoke.py's main path; here
+the `tiny` preset checks on the CPU that its layout carries the reference's
+byte counts (the decode roofline's numerator) and that it runs end to end.
+"""
+import pytest
+import torch
+
+from llamafile_tpu.models import synthetic as JS
+from llamafile_tpu_torch.models import synthetic as TS
+from llamafile_tpu_torch.runtime.engine import Engine
+from llamafile_tpu_torch.runtime.sampling import SamplingParams
+from llamafile_tpu_torch.runtime.tokenizer import Tokenizer
+
+
+@pytest.mark.parametrize("fuse", [False, True])
+def test_byte_counts_match_reference(fuse):
+    jcfg, jparams = JS.make_synthetic_llama("tiny", "Q4_K", seed=0, fuse=fuse)
+    cfg, params = TS.make_synthetic_llama("tiny", "Q4_K", seed=0, fuse=fuse,
+                                          device="cpu")
+    assert cfg == type(cfg)(**{f: getattr(jcfg, f) for f in cfg.__dataclass_fields__})
+    assert TS.param_bytes(params) == JS.param_bytes(jparams)
+    assert TS.decode_read_bytes(params, cfg) == JS.decode_read_bytes(jparams, jcfg)
+
+
+def test_fused_model_generates_on_the_cpu():
+    """Greedy generation through Engine on the fused, stacked tiny model:
+    the tokens are in range and the same on a second run."""
+    cfg, params = TS.make_synthetic_llama("tiny", "Q4_K", seed=1, fuse=True,
+                                          device="cpu")
+    eng = Engine(cfg, params, Tokenizer({}), max_seq_len=256, device="cpu")
+    prompt = [5, 17, 300, 41, 9, 1000, 2]
+    runs = [[t for t, _ in eng.generate("", max_tokens=12,
+                                        sampling=SamplingParams(temperature=0.0),
+                                        stop_on_eog=False, prompt_ids=prompt)]
+            for _ in range(2)]
+    assert len(runs[0]) == 12
+    assert all(0 <= t < cfg.n_vocab for t in runs[0])
+    assert runs[0] == runs[1]
+
+
+def test_cuda_model_raises_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    with pytest.raises(RuntimeError, match="is_available"):
+        TS.make_synthetic_llama("tiny", device="cuda")
