@@ -56,10 +56,11 @@ def _t(a: Optional[np.ndarray], device, dtype=None) -> Optional[torch.Tensor]:
 def _qt(d: Optional[dict], device) -> Optional[QTensor]:
     if d is None:
         return None
-    if d["kind"] not in ("q4b", "dense"):
+    codes = {"q4b": torch.uint8, "q8b": torch.int8, "dense": torch.bfloat16}
+    if d["kind"] not in codes:
         raise NotImplementedError(f"QTensor kind {d['kind']!r} is not ported yet")
     bf = torch.bfloat16
-    qs = _t(d["qs"], device, bf if d["kind"] == "dense" else torch.uint8)
+    qs = _t(d["qs"], device, codes[d["kind"]])
     return QTensor(d["kind"], tuple(d["shape"]), int(d["g"]), qs,
                    _t(d.get("scales"), device, bf), _t(d.get("bias"), device, bf),
                    bool(d.get("il", False)))

@@ -1,11 +1,10 @@
 """GGML block-format registry and the host dequantizers this port loads.
 
-Own copy of the parts of llamafile_tpu/gguf/quants.py that the Q4_K llama
-slice needs: the full type table (so a reader can size every tensor of a
-file), and dequantization for F32, F16, BF16 and Q4_K. Every other format
-raises NotImplementedError naming the type: a real Q4_K_M file also carries
-Q6_K tensors, whose decode kernel (the TPU's `_qmm_kernel_q8_m1`) is not
-ported yet.
+Own copy of the parts of llamafile_tpu/gguf/quants.py that the port loads:
+the full type table (so a reader can size every tensor of a file), and
+dequantization for F32, F16, BF16, Q8_0, Q4_K and Q6_K (the formats of Q4_K
+and Q8_0 llama files, Q6_K being the output head of a Q4_K_M file). Every
+other format raises NotImplementedError naming the type.
 
 Dequantizers take raw little-endian block bytes shaped (nblocks, block_bytes)
 as uint8 and return float32 (nblocks, block_elems); layouts follow
@@ -44,6 +43,13 @@ def _scale_min_k4(scales: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     return sc, mn
 
 
+def dequant_q8_0(b: np.ndarray) -> np.ndarray:
+    # block: half d; int8 qs[32]
+    d = _f16(b[:, 0:2])
+    qs = b[:, 2:34].view(np.int8)
+    return d * qs.astype(np.float32)
+
+
 def dequant_q4_k(b: np.ndarray) -> np.ndarray:
     # block: half d; half dmin; uint8 scales[12]; uint8 qs[128]
     n = b.shape[0]
@@ -63,6 +69,34 @@ def dequant_q4_k(b: np.ndarray) -> np.ndarray:
     return y
 
 
+def q6_k_codes(b: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Q6_K blocks -> (codes int8 (nblocks, 256) in -32..31, per-16 scales
+    d * scale f32 (nblocks, 16)); element i of a block is codes[i] * a[i // 16]."""
+    # block: uint8 ql[128]; uint8 qh[64]; int8 scales[16]; half d
+    ql = b[:, 0:128]
+    qh = b[:, 128:192]
+    scales = b[:, 192:208].view(np.int8).astype(np.float32)
+    d = _f16(b[:, 208:210])[:, 0]
+    q = np.empty((b.shape[0], QK_K), np.int8)
+    for half in range(2):                # 128-element halves
+        lq = ql[:, 64 * half:64 * half + 64]
+        hq = qh[:, 32 * half:32 * half + 32]
+        # l in 0..32 -> 4 output rows at offsets 0,32,64,96 within the half
+        rows = ((lq[:, 0:32] & 0xF) | (((hq >> 0) & 3) << 4),
+                (lq[:, 32:64] & 0xF) | (((hq >> 2) & 3) << 4),
+                (lq[:, 0:32] >> 4) | (((hq >> 4) & 3) << 4),
+                (lq[:, 32:64] >> 4) | (((hq >> 6) & 3) << 4))
+        for row, r in enumerate(rows):
+            q[:, 128 * half + 32 * row:128 * half + 32 * row + 32] = r.astype(np.int16) - 32
+    return q, d[:, None] * scales
+
+
+def dequant_q6_k(b: np.ndarray) -> np.ndarray:
+    q, a = q6_k_codes(b)
+    n = b.shape[0]
+    return (a[:, :, None] * q.reshape(n, 16, 16).astype(np.float32)).reshape(n, QK_K)
+
+
 @dataclass(frozen=True)
 class QuantSpec:
     name: str
@@ -79,13 +113,13 @@ GGML_TYPES = [
     QuantSpec("Q4_1", 3, QK, 20),
     QuantSpec("Q5_0", 6, QK, 22),
     QuantSpec("Q5_1", 7, QK, 24),
-    QuantSpec("Q8_0", 8, QK, 34),
+    QuantSpec("Q8_0", 8, QK, 34, dequant_q8_0),
     QuantSpec("Q8_1", 9, QK, 36),
     QuantSpec("Q2_K", 10, QK_K, 84),
     QuantSpec("Q3_K", 11, QK_K, 110),
     QuantSpec("Q4_K", 12, QK_K, 144, dequant_q4_k),
     QuantSpec("Q5_K", 13, QK_K, 176),
-    QuantSpec("Q6_K", 14, QK_K, 210),
+    QuantSpec("Q6_K", 14, QK_K, 210, dequant_q6_k),
     QuantSpec("Q8_K", 15, QK_K, 292),
     QuantSpec("IQ2_XXS", 16, QK_K, 66),
     QuantSpec("IQ2_XS", 17, QK_K, 74),
@@ -107,14 +141,14 @@ GGML_TYPES = [
 TYPE_BY_ID: Dict[int, QuantSpec] = {s.type_id: s for s in GGML_TYPES}
 TYPE_BY_NAME: Dict[str, QuantSpec] = {s.name: s for s in GGML_TYPES}
 
-# formats this slice loads; anything else raises NotImplementedError
-SUPPORTED = ("F32", "F16", "BF16", "Q4_K")
+# formats the port loads; anything else raises NotImplementedError
+SUPPORTED = ("F32", "F16", "BF16", "Q8_0", "Q4_K", "Q6_K")
 
 
 def check_supported(type_name: str) -> None:
     if type_name not in SUPPORTED:
         raise NotImplementedError(
-            f"GGML type {type_name} is not ported yet: this slice loads "
+            f"GGML type {type_name} is not ported yet: the port loads "
             f"{', '.join(SUPPORTED)} only")
 
 

@@ -7,9 +7,10 @@ every kernel indexes layer li by pointer offset (no per-layer slice copy),
 and the KV cache is updated in place.
 
 Per layer: RMSNorm folded into the fused qkv product -> rope -> attention
-(fused decode kernel with the KV-row write at T = 1; einsum over the fresh
-tokens at prefill) -> o -> RMSNorm folded into the FFN (one fused kernel
-call at M = 1, gate|up + down products otherwise).
+(fused decode kernel with the KV-row write at T = 1; over the fresh tokens
+at prefill, the flash_prefill kernel from 128 tokens and the einsum below)
+-> o -> RMSNorm folded into the FFN (one fused kernel call at M = 1 for an
+interleaved q4b gate|up, gate|up + down products otherwise).
 """
 from __future__ import annotations
 

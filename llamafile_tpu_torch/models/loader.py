@@ -60,7 +60,7 @@ def fuse_projections(params: LlamaParams, cfg: LlamaConfig) -> LlamaParams:
 
 def load_llama(path: str, device="cuda", fuse: bool = True):
     """Load a llama/mistral GGUF into (config, params, tokenizer, reader) on
-    `device`. Tensor formats other than F32/F16/BF16/Q4_K raise
+    `device`. Tensor formats other than F32/F16/BF16/Q8_0/Q4_K/Q6_K raise
     NotImplementedError naming the format."""
     dev = resolve_device(device)
     reader = GGUFReader(path)

@@ -37,10 +37,18 @@ def _rand_qtensor(gen: torch.Generator, n: int, k: int, quant: str,
     if quant in ("F16", "BF16", "F32"):
         qs = torch.randn((k, n), generator=gen, device=device) * 0.02
         return QTensor("dense", (n, k), 0, qs.to(torch.bfloat16))
-    if quant != "Q4_K":
-        raise NotImplementedError(f"synthetic {quant} weights: this slice "
-                                  "builds Q4_K (and dense) only")
     ns = -(-n // 2048) * 2048
+    if quant in ("Q8_0", "Q6_K"):
+        # int8 codes with per-32 (Q8_0) or per-16 (Q6_K) scales, no bias
+        g = 16 if quant == "Q6_K" else 32
+        qs = torch.randint(-127, 128, (k, ns), generator=gen, device=device,
+                           dtype=torch.int8)
+        scales = torch.empty((k // g, ns), device=device).uniform_(
+            1e-3, 2e-2, generator=gen)
+        return QTensor("q8b", (n, k), g, qs, scales.to(torch.bfloat16))
+    if quant != "Q4_K":
+        raise NotImplementedError(f"synthetic {quant} weights: the port "
+                                  "builds Q4_K, Q8_0, Q6_K (and dense)")
     qs = torch.randint(0, 256, (k // 2, ns), generator=gen, device=device,
                        dtype=torch.uint8)
     scales = torch.empty((k // 32, ns), device=device).uniform_(

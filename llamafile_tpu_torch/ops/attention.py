@@ -1,15 +1,16 @@
 """Attention paths of the port: fused decode with the KV-row write, and the
-einsum prefill.
+causal prefill over fresh prompt tokens.
 
-Counterpart of llamafile_tpu/ops/attention.py for what the slice reaches:
+Counterpart of llamafile_tpu/ops/attention.py for what the port reaches:
 
   flash_decode_write_stacked <- _flash_decode_write_kernel (kernel
       flash_decode_write, csrc/flash_decode_write.cu): T = 1 GQA attention
       over layer li of the flat [L, B, S, Hkv*D] bf16 cache, with the new
       row written in place at pos.
-  flash_prefill: the einsum path only. On the TPU, prompts of T < 128 take
-      the same einsum; T >= 128 without a window or softcap ran the upstream
-      Pallas flash_attention, which is not ported yet and raises here.
+  flash_prefill <- the upstream Pallas flash_attention (kernel
+      flash_prefill, csrc/flash_prefill.cu) for T >= 128, T % 128 == 0,
+      D in (64, 128, 256), no window and no softcap, in its numerics; the
+      f32 einsum otherwise (the reference's routing).
 """
 from __future__ import annotations
 
@@ -23,17 +24,61 @@ from ._build import F, I, P
 NEG_INF = -1e30
 
 
-def flash_prefill(q, k, v, scale: float, window=None, softcap: float = 0.0):
-    """Causal self-attention over fresh prompt tokens (einsum path).
+def _use_flash(t: int, d: int) -> bool:
+    """The reference's routing (llamafile_tpu/ops/attention.py _use_flash)."""
+    return t >= 128 and t % 128 == 0 and d in (64, 128, 256)
 
-    q: [B, T, Hq, D]; k, v: [B, T, Hkv, D]. Returns [B, T, Hq, D] f32."""
+
+def flash_prefill_plain(q, k, v, scale: float):
+    """Plain version of the flash_prefill kernel, in the upstream Pallas
+    flash_attention's numerics: q, k, v rounded to bf16; f32 scores scaled
+    after the dot; causal mask; f32 softmax statistics; p rounded to bf16
+    before P.V with f32 accumulation; the output rounded to bf16 (q's dtype
+    there) and returned as f32. One softmax over all keys stands in for the
+    kernel's running max, so p rounds against another maximum (2e-2)."""
     b, t, hq, d = q.shape
     hkv = k.shape[2]
-    if t >= 128 and window is None and not softcap:
-        raise NotImplementedError(
-            f"prefill attention over T={t} >= 128 tokens waits for the port "
-            "of the upstream Pallas flash_attention "
-            "(llamafile_tpu/ops/attention.py:57)")
+    bf = lambda a: a.to(torch.bfloat16).float()
+    qg = bf(q).reshape(b, t, hkv, hq // hkv, d)
+    s = torch.einsum("bthgd,bshd->bhgts", qg, bf(k)) * scale
+    i = torch.arange(t, device=q.device)
+    mask = i[None, :] <= i[:, None]
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    mx = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - mx)
+    l = p.sum(-1, keepdim=True)
+    acc = torch.einsum("bhgts,bshd->bhgtd", bf(p), bf(v))
+    out = bf(acc / l)                                       # [B, Hkv, G, T, D]
+    return out.permute(0, 3, 1, 2, 4).reshape(b, t, hq, d)
+
+
+def flash_prefill(q, k, v, scale: float, window=None, softcap: float = 0.0):
+    """Causal self-attention over fresh prompt tokens.
+
+    q: [B, T, Hq, D]; k, v: [B, T, Hkv, D]. Returns [B, T, Hq, D] f32.
+    T >= 128 (multiple of 128, D 64/128/256) without window or softcap runs
+    the flash_prefill kernel (its plain version for CPU tensors); every
+    other case runs the f32 einsum, as the reference does."""
+    b, t, hq, d = q.shape
+    hkv = k.shape[2]
+    if window is None and not softcap and _use_flash(t, d):
+        if q.device.type == "cpu":
+            return flash_prefill_plain(q, k, v, scale)
+        if hq % hkv:
+            raise ValueError(f"flash_prefill: Hq={hq} is not a multiple of Hkv={hkv}")
+        qb, kb, vb = (a.to(torch.bfloat16).contiguous() for a in (q, k, v))
+        for name, a in (("k", kb), ("v", vb)):
+            if a.device != q.device or a.shape != (b, t, hkv, d):
+                raise ValueError(f"flash_prefill: {name} {tuple(a.shape)} on "
+                                 f"{a.device} does not match q {tuple(q.shape)}")
+        out = torch.empty((b, t, hq, d), dtype=torch.float32, device=q.device)
+        f = _build.fn("flash_prefill", "flash_prefill", [P] * 4 + [I] * 5 + [F, P])
+        _build.check(f(qb.data_ptr(), kb.data_ptr(), vb.data_ptr(),
+                       out.data_ptr(), b, t, hq, hkv, d, float(scale),
+                       torch.cuda.current_stream(q.device).cuda_stream),
+                     "flash_prefill")
+        flash_prefill.launches += 1
+        return out
     group = hq // hkv
     qg = q.reshape(b, t, hkv, group, d).float()
     scores = torch.einsum("bthgd,bshd->bhgts", qg, k.float()) * scale
@@ -49,6 +94,9 @@ def flash_prefill(q, k, v, scale: float, window=None, softcap: float = 0.0):
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhgts,bshd->bthgd", probs, v.float())
     return out.reshape(b, t, hq, d)
+
+
+flash_prefill.launches = 0
 
 
 def flash_decode_write_plain(q, k3, v3, k_new, v_new, li: int, pos,
@@ -141,4 +189,4 @@ def flash_decode_write_stacked(q, k3, v3, k_new, v_new, li: int, pos,
 
 flash_decode_write_stacked.launches = 0
 
-KERNELS = (flash_decode_write_stacked,)
+KERNELS = (flash_decode_write_stacked, flash_prefill)

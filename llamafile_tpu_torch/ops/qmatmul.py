@@ -1,22 +1,28 @@
-"""Quantized matmuls of the port: dispatch, activation prep, three kernels.
+"""Quantized matmuls of the port: dispatch, activation prep, five kernels.
 
-Counterpart of llamafile_tpu/ops/qmatmul.py for what the Q4_K llama slice
+Counterpart of llamafile_tpu/ops/qmatmul.py for what the stacked llama path
 reaches. The TPU kernels become CUDA kernels for Hopper (csrc/):
 
-  qmm_txn_m1  <- _qmm_kernel_txn_m1(_l)  (M = 1 decode: qkv, o, lm head)
-  qmm_txn     <- _qmm_kernel_txn(_l)     (2 <= M <= 32: prefill, batches)
-  qmm_moe_m1  <- _qmm_kernel_moe_m1      (fused M = 1 FFN, layer as expert)
+  qmm_txn_m1  <- _qmm_kernel_txn_m1(_l)  (q4b M = 1 decode: qkv, o, lm head)
+  qmm_txn     <- _qmm_kernel_txn(_l)     (q4b 2 <= M <= 32: short prefill)
+  qmm_moe_m1  <- _qmm_kernel_moe_m1      (fused q4b M = 1 FFN, layer as expert)
+  qmm_q8_m1   <- _qmm_kernel_q8_m1(_l)   (q8b M = 1 decode, g 16 or 32)
+  qmm_dequant <- _qmm_kernel             (bf16-dequant GEMM: q4b M > 32,
+                                          q8b M >= 2)
 
 Each kernel has a wrapper and a plain PyTorch version beside it. The wrapper
 runs the plain version only for tensors that lie on the CPU (the tests); for
 CUDA tensors it launches the kernel or raises. `wrapper.launches` counts
 kernel launches (qmm_moe_m1 adds two a call: its gate|up and down kernels).
 
-Weight math shared by all three (the TPU kernels'):
+Weight math of the int8-activation kernels (txn_m1, txn, moe_m1, q8_m1):
     y[m, n] = sum_g (float(sum_{k in g} xq[m,k] * w[k,n]) * scale[g,n]) * sx[m,g]
             + sum_g bf16(float(sum_{k in g} xq[m,k]) * sx[m,g]) * bias[g,n]
-with xq, sx from quantize_activations_g32 and w the 4-bit codes (lo plane q,
-hi plane 16q - 128; the fold lives in the stored scales and bias).
+with xq, sx from quantize_activations_g32 and w the stored codes (q4b: lo
+plane q, hi plane 16q - 128, the fold living in the stored scales and bias;
+q8b: int8 codes, one per-32 sx spanning two groups when g = 16).
+The dequant GEMM instead computes y = bf16(xn) @ bf16(code * scale) in f32,
+with the bias term groupsum_g(xn) @ bias added outside, as the reference.
 """
 from __future__ import annotations
 
@@ -104,6 +110,47 @@ qmm_txn_m1_plain = q4b_plain     # the M = 1 kernel computes the same function
 qmm_txn_plain = q4b_plain
 
 
+def qmm_q8_m1_plain(xq: torch.Tensor, sx: torch.Tensor, qs: torch.Tensor,
+                    scales: torch.Tensor, bias: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
+    """Plain q8b product of one layer's int8 codes [K, Ns]: f32 [M, Ns].
+
+    g = K / scales rows (16 or 32); for g = 16 each per-32 activation scale
+    covers two weight groups (_qmm_kernel_q8_m1). The group dots are exact
+    integers in f32, as in q4b_plain."""
+    m, k = xq.shape
+    ns = qs.shape[-1]
+    ng = scales.shape[-2]
+    g = k // ng
+    xg = xq.float().reshape(m, ng, g)
+    parts = torch.bmm(xg.transpose(0, 1), qs.float().reshape(ng, g, ns))  # [G, M, Ns]
+    sxg = sx.repeat_interleave(32 // g, dim=1)                  # [M, G]
+    y = ((parts * scales.float()[:, None, :]) * sxg.t()[:, :, None]).sum(0)
+    if bias is not None:
+        bsx = (xg.sum(-1) * sxg).to(torch.bfloat16).float()
+        y = y + bsx @ bias.float()
+    return y
+
+
+def dequant_bf16(qs: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """One layer's weights as the dequant GEMM sees them: bf16 [K, Ns] with
+    W[k, n] = bf16(code[k, n] * scale[k // g, n]), the product rounded once
+    (_dequant_tile multiplies in bf16). qs uint8 [K/2, Ns] is q4b, int8
+    [K, Ns] is q8b."""
+    codes = q4b_codes(qs) if qs.dtype == torch.uint8 else qs
+    k, ns = codes.shape
+    ng = scales.shape[-2]
+    w = codes.float().reshape(ng, k // ng, ns) * scales.float()[:, None, :]
+    return w.to(torch.bfloat16).reshape(k, ns)
+
+
+def qmm_dequant_plain(x: torch.Tensor, qs: torch.Tensor,
+                      scales: torch.Tensor) -> torch.Tensor:
+    """Plain bf16-dequant product: f32 [M, Ns] = bf16(x) @ dequant_bf16(W),
+    every product of two bf16 values exact in f32 and summed in f32."""
+    return x.to(torch.bfloat16).float() @ dequant_bf16(qs, scales).float()
+
+
 def qmm_moe_m1_plain(xq, sx, gu_qs, gu_sc, gu_b, dn_qs, dn_sc, dn_b,
                      topw: float = 1.0) -> torch.Tensor:
     """Plain fused FFN of one slot: f32 [1, Nd]."""
@@ -139,24 +186,30 @@ def _n_split(device: torch.device, tiles: int, chunks: int, cap: int) -> int:
     return max(1, min(want, cap, chunks))
 
 
-def _check_q4b(xq, sx, qs, scales, bias, ns_multiple: int):
-    dev = xq.device
+def _check_tensors(dev: torch.device, named) -> None:
+    """Device, dtype, contiguity and 16-byte alignment of kernel inputs;
+    named = ((name, tensor or None, dtype), ...)."""
     if dev.type != "cuda":
         raise ValueError(f"kernel inputs must be CUDA tensors, got {dev}")
-    m, k = xq.shape
-    for name, t, dt in (("xq", xq, torch.int8), ("sx", sx, torch.float32),
-                        ("qs", qs, torch.uint8), ("scales", scales, torch.bfloat16),
-                        ("bias", bias, torch.bfloat16)):
+    for name, t, dt in named:
         if t is None:
             continue
         if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, xq on {dev}")
+            raise ValueError(f"{name} is on {t.device}, expected {dev}")
         if t.dtype != dt:
             raise TypeError(f"{name} must be {dt}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
+
+
+def _check_q4b(xq, sx, qs, scales, bias, ns_multiple: int):
+    m, k = xq.shape
+    _check_tensors(xq.device, (
+        ("xq", xq, torch.int8), ("sx", sx, torch.float32),
+        ("qs", qs, torch.uint8), ("scales", scales, torch.bfloat16),
+        ("bias", bias, torch.bfloat16)))
     ns = qs.shape[-1]
     if k % 256 or tuple(qs.shape) != (k // 2, ns) or ns % ns_multiple:
         raise ValueError(f"q4b shapes: xq {tuple(xq.shape)}, qs {tuple(qs.shape)}"
@@ -269,11 +322,86 @@ def qmm_moe_m1(xq, sx, gu_qs, gu_sc, gu_b, dn_qs, dn_sc, dn_b,
 
 qmm_moe_m1.launches = 0
 
-KERNELS = (qmm_txn_m1, qmm_txn, qmm_moe_m1)
+
+def qmm_q8_m1(xq: torch.Tensor, sx: torch.Tensor, qs: torch.Tensor,
+              scales: torch.Tensor, bias: Optional[torch.Tensor] = None
+              ) -> torch.Tensor:
+    """M = 1 q8b GEMV (kernel qmm_q8_m1): xq int8 [1, K], sx f32 [1, K/32],
+    one layer's int8 codes [K, Ns], bf16 scales (and bias) [K/g, Ns] with
+    g 16 or 32 -> f32 [1, Ns]."""
+    if xq.device.type == "cpu":
+        return qmm_q8_m1_plain(xq, sx, qs, scales, bias)
+    _check_tensors(xq.device, (
+        ("xq", xq, torch.int8), ("sx", sx, torch.float32),
+        ("qs", qs, torch.int8), ("scales", scales, torch.bfloat16),
+        ("bias", bias, torch.bfloat16)))
+    m, k = xq.shape
+    ns = qs.shape[-1]
+    g = k // max(scales.shape[0], 1)
+    if m != 1 or k % 32 or tuple(qs.shape) != (k, ns) or ns % 4 \
+            or g not in (16, 32) or tuple(scales.shape) != (k // g, ns) \
+            or tuple(sx.shape) != (1, k // 32) \
+            or (bias is not None and bias.shape != scales.shape):
+        raise ValueError(f"qmm_q8_m1 shapes: xq {tuple(xq.shape)}, qs "
+                         f"{tuple(qs.shape)}, scales {tuple(scales.shape)} "
+                         "(one row, K % 32 == 0, g 16 or 32, Ns % 4 == 0)")
+    tiles = -(-ns // 128)
+    s = _n_split(xq.device, tiles, k // 32, k // 32 // 8)
+    y = torch.empty((1, ns), dtype=torch.float32, device=xq.device)
+    partial = torch.empty((s, ns), dtype=torch.float32, device=xq.device)
+    f = _build.fn("qmm_q8_m1", "qmm_q8_m1", [P] * 8 + [I] * 4 + [P])
+    _build.check(f(xq.data_ptr(), sx.data_ptr(), qs.data_ptr(),
+                   scales.data_ptr(), _ptr(bias), y.data_ptr(),
+                   partial.data_ptr(),
+                   _counter_buf(xq.device, tiles).data_ptr(), k, ns, g, s,
+                   _stream(xq.device)), "qmm_q8_m1")
+    qmm_q8_m1.launches += 1
+    return y
+
+
+qmm_q8_m1.launches = 0
+
+
+def qmm_dequant(x: torch.Tensor, qs: torch.Tensor, scales: torch.Tensor
+                ) -> torch.Tensor:
+    """bf16-dequant GEMM (kernel qmm_dequant): x float [M, K] (rounded to
+    bf16 here), one layer's q4b (uint8 [K/2, Ns], g 32) or q8b (int8
+    [K, Ns], g 16 or 32) codes and bf16 scales [K/g, Ns] -> f32 [M, Ns].
+    The bias term stays with the caller (qmatmul)."""
+    if x.device.type == "cpu":
+        return qmm_dequant_plain(x, qs, scales)
+    xb = x.to(torch.bfloat16).contiguous()
+    q4 = qs.dtype == torch.uint8
+    _check_tensors(x.device, (("x", xb, torch.bfloat16),
+                              ("qs", qs, torch.uint8 if q4 else torch.int8),
+                              ("scales", scales, torch.bfloat16)))
+    m, k = xb.shape
+    ns = qs.shape[-1]
+    g = k // max(scales.shape[0], 1)
+    if m < 1 or k % (256 if q4 else 64) or ns % 16 \
+            or tuple(qs.shape) != ((k // 2) if q4 else k, ns) \
+            or g not in ((32,) if q4 else (16, 32)) \
+            or tuple(scales.shape) != (k // g, ns):
+        raise ValueError(f"qmm_dequant shapes: x {tuple(xb.shape)}, qs "
+                         f"{tuple(qs.shape)} {qs.dtype}, scales "
+                         f"{tuple(scales.shape)} (q4b K % 256, q8b K % 64, "
+                         "Ns % 16 == 0, g 32 or q8b 16)")
+    y = torch.empty((m, ns), dtype=torch.float32, device=x.device)
+    f = _build.fn("qmm_dequant", "qmm_dequant", [P] * 4 + [I] * 5 + [P])
+    _build.check(f(xb.data_ptr(), qs.data_ptr(), scales.data_ptr(),
+                   y.data_ptr(), m, k, ns, g, int(q4), _stream(x.device)),
+                 "qmm_dequant")
+    qmm_dequant.launches += 1
+    return y
+
+
+qmm_dequant.launches = 0
+
+KERNELS = (qmm_txn_m1, qmm_txn, qmm_moe_m1, qmm_q8_m1, qmm_dequant)
 
 
 # ---------------------------------------------------------------------------
-# Dispatch (the JAX package's order, for the branches this slice reaches)
+# Dispatch (the JAX package's order, for the branches the port reaches)
 # ---------------------------------------------------------------------------
 
 
@@ -288,34 +416,37 @@ def qmatmul(x: torch.Tensor, qt: QTensor, li=None, prenorm=None) -> torch.Tensor
 
     x float [M, K]; returns f32 [M, N]. With li (a Python int), qt holds
     layer-stacked leaves and layer li is used in place. prenorm=(w, eps)
-    applies RMSNorm(x)*w first; on the q4b paths it folds into the
-    activation quantization (exact, see quantize_activations_g32)."""
+    applies RMSNorm(x)*w first; on the int8-activation paths it folds into
+    the activation quantization (exact, see quantize_activations_g32).
+
+    Branches, in the reference's order (llamafile_tpu/ops/qmatmul.py
+    qmatmul): q8b M = 1 -> qmm_q8_m1; q4b M = 1 -> qmm_txn_m1; q4b
+    2 <= M <= 32 -> qmm_txn; every other q4b/q8b product -> qmm_dequant on
+    the normed x, plus the bias term on the f32 group sums of that x."""
     if qt.kind == "dense":
         w = _layer(qt.qs, li)
         if prenorm is not None:
             x = apply_rmsnorm(x, *prenorm)
         # f32 product of bf16-rounded operands (jnp.dot with f32 accumulation)
         return x.to(torch.bfloat16).float() @ w.float()
-    if qt.kind == "q8b":
-        raise NotImplementedError(
-            "int8-stored weights (Q6_K, Q8_0, ...) wait for the port of "
-            "_qmm_kernel_q8_m1 (llamafile_tpu/ops/qmatmul.py:684) and of "
-            "_qmm_kernel (:1761)")
-    if qt.kind != "q4b":
+    if qt.kind not in ("q4b", "q8b"):
         raise NotImplementedError(f"QTensor kind {qt.kind!r}")
     m, k = x.shape
-    if k % 256:
-        raise NotImplementedError(
-            f"q4b with K={k} not a multiple of 256 waits for the port of "
-            "_qmm_kernel (llamafile_tpu/ops/qmatmul.py:1761)")
-    if m > 32:
-        raise NotImplementedError(
-            f"a q4b product of M={m} > 32 rows waits for the port of "
-            "_qmm_kernel (llamafile_tpu/ops/qmatmul.py:1761)")
     nrm, eps = (None, 0.0) if prenorm is None else (prenorm[0], float(prenorm[1]))
-    xq, sx = quantize_activations_g32(x, nrm, eps)
     qs, sc, b = _layer(qt.qs, li), _layer(qt.scales, li), _layer(qt.bias, li)
-    y = qmm_txn_m1(xq, sx, qs, sc, b) if m == 1 else qmm_txn(xq, sx, qs, sc, b)
+    if qt.kind == "q8b" and m == 1 and qt.g in (16, 32) and k % (8 * qt.g) == 0:
+        xq, sx = quantize_activations_g32(x, nrm, eps)
+        y = qmm_q8_m1(xq, sx, qs, sc, b)
+    elif qt.kind == "q4b" and m <= 32 and k % 256 == 0:
+        xq, sx = quantize_activations_g32(x, nrm, eps)
+        y = qmm_txn_m1(xq, sx, qs, sc, b) if m == 1 else qmm_txn(xq, sx, qs, sc, b)
+    else:
+        xn = x.float() if nrm is None else apply_rmsnorm(x, nrm, eps)
+        y = qmm_dequant(xn, qs, sc)
+        if b is not None:
+            # outside the kernel, as the reference: f32 sums of the
+            # un-rounded normed x against the bias rows, added in place
+            y.addmm_(xn.reshape(m, k // qt.g, qt.g).sum(-1), b.float())
     n = qt.shape[0]
     return y[:, :n] if y.shape[1] > n else y
 

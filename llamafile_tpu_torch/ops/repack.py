@@ -1,14 +1,17 @@
 """Repack GGUF block formats into the kernels' quantized tensors (QTensor).
 
-Counterpart of llamafile_tpu/ops/repack.py for the formats this slice loads
-(Q4_K, F32, F16, BF16). The device layout is byte-identical to the JAX
-package's `repack_numpy` + `repack` (held so by tests/test_torch_repack.py):
+Counterpart of llamafile_tpu/ops/repack.py for the formats the port loads
+(Q4_K, Q8_0, Q6_K, F32, F16, BF16). The device layout is byte-identical to
+the JAX package's `repack_numpy` + `repack` (held so by
+tests/test_torch_repack.py):
 
   kind "q4b":   qs uint8 [K/2, Ns] -- nibble-planar per 256-superblock:
                 byte 128*sb+i = q[256sb+i] | q[256sb+128+i] << 4
                 scales/bias bf16 [K/32, Ns], the hi-plane groups folded
                 (a' = a/16, b' = b + 8a) so a kernel reads the hi nibble as
                 int8((p ^ 0x80) & 0xF0) = 16q - 128
+  kind "q8b":   qs int8 [K, Ns] codes, scales bf16 [K/g, Ns] (g 32 for Q8_0,
+                16 for Q6_K), no bias for these two formats
   kind "dense": qs bf16 [K, N]
 
 Ns is N padded to a multiple of 2048 (logical N stays in QTensor.shape;
@@ -33,10 +36,11 @@ GU_STRIPE = 1024
 @dataclass
 class QTensor:
     """Device-resident quantized weight (torch leaves)."""
-    kind: str                    # "q4b" | "dense"
+    kind: str                    # "q4b" | "q8b" | "dense"
     shape: tuple                 # logical (N, K), GGML convention
     g: int                       # scale group size along K (0 for dense)
-    qs: torch.Tensor             # uint8 [(L,) K/2, Ns] | bf16 [(L,) K, N]
+    qs: torch.Tensor             # uint8 [(L,) K/2, Ns] | int8 [(L,) K, Ns]
+    #                              | bf16 [(L,) K, N]
     scales: Optional[torch.Tensor] = None   # bf16 [(L,) K/g, Ns]
     bias: Optional[torch.Tensor] = None     # bf16 [(L,) K/g, Ns]
     il: bool = False             # columns are GU_STRIPE-interleaved gate|up
@@ -93,6 +97,21 @@ def _extract_q4_k(b):
     return q, a, bb, 32
 
 
+def _extract_q8_0(b):
+    d = Q._f16(b[:, 0:2])
+    q = b[:, 2:34].view(np.int8)
+    return q, d, None, 32
+
+
+def _extract_q6_k(b):
+    q, a = Q.q6_k_codes(b)
+    return q, a, None, 16
+
+
+_EXTRACTORS = {"Q8_0": _extract_q8_0, "Q4_K": _extract_q4_k,
+               "Q6_K": _extract_q6_k}
+
+
 def repack_numpy(raw: np.ndarray, type_name: str, shape: tuple):
     """Raw block bytes -> (kind, qs, scales, bias, g) numpy arrays, unpadded.
 
@@ -104,19 +123,18 @@ def repack_numpy(raw: np.ndarray, type_name: str, shape: tuple):
     if type_name in ("F32", "F16", "BF16"):
         w = Q.dequantize(raw, spec.type_id, (n, k))
         return "dense", np.ascontiguousarray(w.T), None, None, 0
-    if k % 256:
-        raise NotImplementedError(
-            f"Q4_K with K={k} (not a multiple of 256) needs the int8-stored "
-            "q8b path, which is not ported yet")
     nblocks = n * k // spec.block_elems
     blocks = (np.frombuffer(raw, np.uint8) if not isinstance(raw, np.ndarray)
               else raw).reshape(nblocks, spec.block_bytes)
-    q, a, b, g = _extract_q4_k(blocks)
+    q, a, b, g = _EXTRACTORS[type_name](blocks)
     qT = np.ascontiguousarray(q.reshape(n, k).T)                  # (K, N)
     a = np.ascontiguousarray(a.reshape(n, k // g).T, dtype=np.float32)
-    b = np.ascontiguousarray(b.reshape(n, k // g).T, dtype=np.float32)
-    a, b = _fold_hi_plane(a, b, g)
-    return "q4b", _pack_nibbles_sb128(qT), a, b, g
+    if b is not None:
+        b = np.ascontiguousarray(b.reshape(n, k // g).T, dtype=np.float32)
+    if type_name == "Q4_K" and k % 256 == 0:
+        a, b = _fold_hi_plane(a, b, g)
+        return "q4b", _pack_nibbles_sb128(qT), a, b, g
+    return "q8b", np.ascontiguousarray(qT.astype(np.int8)), a, b, g
 
 
 def _pad_n(arrs, n: int, multiple: int = 2048):
@@ -137,8 +155,8 @@ def repack(raw: np.ndarray, type_name: str, shape: tuple,
         return QTensor("dense", (n, k), 0,
                        torch.from_numpy(qs).to(device).to(torch.bfloat16))
     qs, a, b = _pad_n([qs, a, b], n)
-    bf = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(device).to(
-        torch.bfloat16)
+    bf = lambda x: None if x is None else torch.from_numpy(
+        np.ascontiguousarray(x)).to(device).to(torch.bfloat16)
     return QTensor(kind, (n, k), g, torch.from_numpy(qs).to(device), bf(a),
                    bf(b))
 
@@ -163,7 +181,7 @@ def dequant_qtensor(qt: QTensor) -> torch.Tensor:
     n, k = qt.shape
     if qt.kind == "dense":
         return qt.qs.float().t()[:n]
-    q = q4b_codes(qt.qs).float()                         # [K, Ns]
+    q = (q4b_codes(qt.qs) if qt.kind == "q4b" else qt.qs).float()   # [K, Ns]
     ns = q.shape[-1]
     w = (q.reshape(k // qt.g, qt.g, ns) * qt.scales.float()[:, None, :])
     if qt.bias is not None:

@@ -6,9 +6,10 @@ here `prefill` is one forward over the bucketed prompt and the decode chunk
 is a loop of `decode_chunk` steps whose tokens stay on the device and are
 read back once per chunk.
 
-This slice runs prompts whose bucket is at most 32 tokens: longer prompts
-need the M > 32 prefill kernels (the TPU's `_qmm_kernel` and the upstream
-`flash_attention`), which are not ported yet and raise NotImplementedError.
+A prompt runs as one prefill over its bucket (PREFILL_BUCKETS, then
+multiples of 4096), up to max_seq_len tokens: buckets of 16 and 32 take the
+q4b txn kernel, longer ones the dequant GEMM and, from 128 tokens, the
+flash_prefill kernel.
 """
 from __future__ import annotations
 
@@ -26,7 +27,6 @@ PREFILL_BUCKETS = (16, 32, 64, 128, 256, 512, 1024, 2048, 4096)
 # every bucket is a multiple of 256 so a decode KV block divides it
 ATTN_BUCKETS = (256, 512, 768, 1024, 1536, 2048, 3072, 4096, 6144, 8192,
                 12288, 16384, 24576, 32768)
-MAX_PREFILL_BUCKET = 32          # the txn kernel's M limit
 
 
 def attn_bucket(needed: int, max_len: int) -> int:
@@ -75,12 +75,6 @@ class Engine:
         """Feed prompt tokens; returns (last_logits f32 [V], cache)."""
         n = len(token_ids)
         b = bucket_len(n)
-        if b > MAX_PREFILL_BUCKET:
-            raise NotImplementedError(
-                f"a prompt of {n} tokens (bucket {b}) needs the M > 32 prefill "
-                "path: _qmm_kernel (llamafile_tpu/ops/qmatmul.py:1761) and the "
-                "upstream flash_attention (llamafile_tpu/ops/attention.py:57) "
-                "are not ported yet")
         toks = torch.zeros((self.batch_size, b), dtype=torch.int32)
         toks[0, :n] = torch.tensor(token_ids, dtype=torch.int32)
         pos = torch.full((self.batch_size,), pos0, dtype=torch.int32,

@@ -1,0 +1,68 @@
+"""Random kernel inputs and error measures shared by the card tests
+(tests/test_torch_cuda.py), the CPU parity tests and chip_smoke.py.
+
+Nothing of the model path imports this module.
+"""
+from __future__ import annotations
+
+import torch
+
+from .ops.attention import NEG_INF
+
+
+def rand_q4b(gen: torch.Generator, layers: int, n: int, k: int, device):
+    """Stacked random Q4_K weights in the production layout: (qs uint8
+    [L, K/2, N], scales bf16 [L, K/32, N], bias bf16 [L, K/32, N])."""
+    qs = torch.randint(0, 256, (layers, k // 2, n), generator=gen, device=device,
+                       dtype=torch.uint8)
+    sc = torch.empty((layers, k // 32, n), device=device).uniform_(1e-3, 2e-2, generator=gen)
+    b = torch.empty((layers, k // 32, n), device=device).uniform_(-0.1, 0.0, generator=gen)
+    return qs, sc.to(torch.bfloat16), b.to(torch.bfloat16)
+
+
+def rand_q8b(gen: torch.Generator, layers: int, n: int, k: int, g: int, device):
+    """Stacked random int8-stored weights (Q8_0: g 32, Q6_K: g 16): (qs int8
+    [L, K, N], scales bf16 [L, K/g, N], bias bf16 [L, K/g, N]); the bias
+    feeds the fused bias term of qmm_q8_m1, the model's q8b leaves have none."""
+    qs = torch.randint(-127, 128, (layers, k, n), generator=gen, device=device,
+                       dtype=torch.int8)
+    sc = torch.empty((layers, k // g, n), device=device).uniform_(1e-3, 2e-2, generator=gen)
+    b = torch.empty((layers, k // g, n), device=device).uniform_(-0.1, 0.0, generator=gen)
+    return qs, sc.to(torch.bfloat16), b.to(torch.bfloat16)
+
+
+def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| over the tensor, in units of max |want|."""
+    err = (got.float() - want.float()).abs().max().item()
+    return err / max(want.float().abs().max().item(), 1e-30)
+
+
+def row_rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The largest over rows (every index but the last) of max |got - want|
+    within the row, in units of that row's max |want|. For attention a row
+    is one query's output for one head, so a fault in a few rows is not
+    hidden behind the largest output of the tensor."""
+    err = (got.float() - want.float()).abs().amax(-1)
+    return (err / want.float().abs().amax(-1).clamp_min(1e-30)).max().item()
+
+
+def flash_prefill_tile_fault(q, k, v, scale: float, tile: int = 64):
+    """A faulty causal attention, the control that the flash prefill's
+    tolerance must reject: each query past the first `tile` rows loses the
+    keys of its own diagonal tile before itself, as a kernel that skipped
+    the diagonal tile would (the query's own key is kept, so every row stays
+    finite). Otherwise the numerics of flash_prefill_plain."""
+    b, t, hq, d = q.shape
+    hkv = k.shape[2]
+    bf = lambda a: a.to(torch.bfloat16).float()
+    s = torch.einsum("bthgd,bshd->bhgts",
+                     bf(q).reshape(b, t, hkv, hq // hkv, d), bf(k)) * scale
+    i = torch.arange(t, device=q.device)
+    keep = i[None, :] <= i[:, None]
+    own_tile = (i[None, :] // tile == i[:, None] // tile) & (i[None, :] < i[:, None])
+    keep &= ~(own_tile & (i[:, None] >= tile))
+    s = torch.where(keep, s, torch.full_like(s, NEG_INF))
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    acc = torch.einsum("bhgts,bshd->bhgtd", bf(p), bf(v))
+    out = bf(acc / p.sum(-1, keepdim=True))
+    return out.permute(0, 3, 1, 2, 4).reshape(b, t, hq, d)

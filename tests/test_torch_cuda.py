@@ -5,17 +5,26 @@ nor the JAX package, so they run on a machine without them:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Tolerances are those of the CPU parity tests: q4b products within 1e-5 of
-their largest magnitude (exact int32 group dots, f32 sums in another order),
-the fused FFN within 2e-3 (one requantized code may move by one step),
-attention within 2e-2 (bf16 p rounded against another running max) with the
-written cache rows exactly equal.
+Tolerances are those of the CPU parity tests: int8-activation products
+(q4b and q8b) within 1e-5 of their largest magnitude (exact int32 group
+dots, f32 sums in another order), the fused FFN within 2e-3 (one requantized
+code may move by one step), decode attention within 2e-2 (bf16 p rounded
+against another running max) with the written cache rows exactly equal. The dequant
+GEMM is held within 1e-3 of its largest magnitude: its bf16 products are
+exact, but the tensor cores sum up to 14336 of them in f32 in their own
+order against cuBLAS's f32 product. The flash prefill is held row by row
+(testing.row_rel_err) within 1.5e-2, two bf16 steps of an output: the
+kernel rounds p against its running max, the plain version against the
+row's maximum, and both round the output to bf16; a kernel that skipped the
+diagonal key tile reads above 0.75 and is rejected.
 """
 import pytest
 import torch
 
 from llamafile_tpu_torch.ops import attention as A
 from llamafile_tpu_torch.ops import qmatmul as Q
+from llamafile_tpu_torch.testing import (flash_prefill_tile_fault, rand_q4b, rand_q8b,
+                                         rel_err, row_rel_err)
 
 pytestmark = pytest.mark.cuda
 
@@ -28,17 +37,9 @@ def dev():
     return resolve_device("cuda")
 
 
-def rand_q4b(gen, layers, n, k, dev):
-    qs = torch.randint(0, 256, (layers, k // 2, n), generator=gen, device=dev,
-                       dtype=torch.uint8)
-    sc = torch.empty((layers, k // 32, n), device=dev).uniform_(1e-3, 2e-2, generator=gen)
-    b = torch.empty((layers, k // 32, n), device=dev).uniform_(-0.1, 0.0, generator=gen)
-    return qs, sc.to(torch.bfloat16), b.to(torch.bfloat16)
-
-
 def assert_close(got, want, rel):
-    err = (got.float() - want.float()).abs().max().item()
-    assert err <= rel * want.float().abs().max().item(), err
+    err = rel_err(got, want)
+    assert err <= rel, err
 
 
 @pytest.mark.parametrize("n,k", [(4096, 4096), (6144, 1024), (1044, 512), (2048, 14336)])
@@ -103,6 +104,54 @@ def test_flash_decode_write_matches_plain(dev, hq, hkv, pos, s_limit):
     assert torch.equal(k3, k3b) and torch.equal(v3, v3b)
 
 
+@pytest.mark.parametrize("n,k", [(4096, 4096), (6144, 1024), (1044, 512), (2048, 14336)])
+@pytest.mark.parametrize("g", [16, 32])
+@pytest.mark.parametrize("bias", [True, False])
+def test_q8_m1_matches_plain(dev, n, k, g, bias):
+    gen = torch.Generator(device=dev).manual_seed(n + k + g)
+    qs, sc, b = rand_q8b(gen, 2, n, k, g, dev)
+    b = b[1] if bias else None
+    xq, sx = Q.quantize_activations_g32(torch.randn(1, k, generator=gen, device=dev),
+                                        torch.rand(k, generator=gen, device=dev) + 0.5, 1e-5)
+    n0 = Q.qmm_q8_m1.launches
+    got = Q.qmm_q8_m1(xq, sx, qs[1], sc[1], b)
+    assert Q.qmm_q8_m1.launches == n0 + 1
+    assert_close(got, Q.qmm_q8_m1_plain(xq, sx, qs[1], sc[1], b), 1e-5)
+
+
+@pytest.mark.parametrize("kind", ["q4b", "q8b32", "q8b16"])
+@pytest.mark.parametrize("m", [1, 33, 64, 200, 512])
+@pytest.mark.parametrize("n,k", [(4096, 4096), (1040, 1024), (512, 14336)])
+def test_dequant_matches_plain(dev, kind, m, n, k):
+    gen = torch.Generator(device=dev).manual_seed(m * n + k)
+    if kind == "q4b":
+        qs, sc, _ = rand_q4b(gen, 2, n, k, dev)
+    else:
+        qs, sc, _ = rand_q8b(gen, 2, n, k, int(kind[3:]), dev)
+    x = torch.randn(m, k, generator=gen, device=dev)
+    n0 = Q.qmm_dequant.launches
+    got = Q.qmm_dequant(x, qs[1], sc[1])
+    assert Q.qmm_dequant.launches == n0 + 1
+    assert_close(got, Q.qmm_dequant_plain(x, qs[1], sc[1]), 1e-3)
+
+
+@pytest.mark.parametrize("t", [128, 384, 512])
+@pytest.mark.parametrize("hq,hkv,d", [(32, 8, 128), (4, 4, 64), (4, 2, 256)])
+def test_flash_prefill_matches_plain(dev, t, hq, hkv, d):
+    gen = torch.Generator(device=dev).manual_seed(t + hq + d)
+    q = torch.randn((2, t, hq, d), generator=gen, device=dev)
+    k = torch.randn((2, t, hkv, d), generator=gen, device=dev)
+    v = torch.randn((2, t, hkv, d), generator=gen, device=dev)
+    n0 = A.flash_prefill.launches
+    got = A.flash_prefill(q, k, v, d ** -0.5)
+    assert A.flash_prefill.launches == n0 + 1
+    assert bool(torch.isfinite(got).all())
+    want = A.flash_prefill_plain(q, k, v, d ** -0.5)
+    assert row_rel_err(got, want) <= 1.5e-2
+    fault = flash_prefill_tile_fault(q, k, v, d ** -0.5)
+    assert row_rel_err(fault, want) > 0.75          # the control fails the bound
+
+
 def test_wrapper_rejects_bad_inputs(dev):
     xq = torch.zeros(1, 256, dtype=torch.int8, device=dev)
     sx = torch.zeros(1, 8, device=dev)
@@ -112,3 +161,7 @@ def test_wrapper_rejects_bad_inputs(dev):
         Q.qmm_txn_m1(xq, sx, qs, sc)
     with pytest.raises(ValueError):
         Q.qmm_txn_m1(xq, sx, qs.cpu(), sc.to(torch.bfloat16).cpu())
+    with pytest.raises(ValueError):                           # Ns % 16 != 0
+        Q.qmm_dequant(torch.zeros(40, 256, device=dev),
+                      torch.zeros(256, 520, dtype=torch.int8, device=dev),
+                      torch.zeros(8, 520, dtype=torch.bfloat16, device=dev))

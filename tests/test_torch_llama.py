@@ -62,23 +62,20 @@ def qt_dict(qt):
             "scales": np32(qt.scales), "bias": np32(qt.bias), "il": qt.il}
 
 
-def jax_model(seed=0):
+def jax_model(seed=0, quant="Q4_K"):
     cfg = JL.LlamaConfig(n_layers=NL, d_model=D, n_heads=H, n_kv_heads=HKV,
                          head_dim=D // H, d_ff=DFF, n_vocab=V, max_context=MAX_LEN)
     rng = np.random.default_rng(seed)
     nrm = lambda: jnp.asarray(1 + 0.1 * rng.standard_normal(D), jnp.float32)
+    rq = lambda n, k: _rand_qtensor(rng, n, k, quant)
     layers = [JL.LlamaLayer(
         attn_norm=nrm(), ffn_norm=nrm(),
-        wq=_rand_qtensor(rng, H * 128, D, "Q4_K"),
-        wk=_rand_qtensor(rng, HKV * 128, D, "Q4_K"),
-        wv=_rand_qtensor(rng, HKV * 128, D, "Q4_K"),
-        wo=_rand_qtensor(rng, D, H * 128, "Q4_K"),
-        w_gate=_rand_qtensor(rng, DFF, D, "Q4_K"),
-        w_up=_rand_qtensor(rng, DFF, D, "Q4_K"),
-        w_down=_rand_qtensor(rng, D, DFF, "Q4_K")) for _ in range(NL)]
+        wq=rq(H * 128, D), wk=rq(HKV * 128, D), wv=rq(HKV * 128, D),
+        wo=rq(D, H * 128), w_gate=rq(DFF, D), w_up=rq(DFF, D),
+        w_down=rq(D, DFF)) for _ in range(NL)]
     embd = jnp.asarray(rng.standard_normal((V, D)), jnp.bfloat16)
     params = JL.LlamaParams(tok_embd=embd, layers=layers, out_norm=nrm(),
-                            output=_rand_qtensor(rng, V, D, "Q4_K"))
+                            output=rq(V, D))
     return cfg, j_fuse(params, cfg)
 
 
@@ -136,6 +133,39 @@ def test_prefill_then_decode_matches_jax(pallas_kernels, t):
     assert sum(e <= 1e-4 for e in errs) >= len(errs) // 2, errs
     close(tc.k.float().numpy()[:, :, :t + 8],
           np.asarray(jc.k.astype(jnp.float32))[:, :, :t + 8])
+
+
+@pytest.mark.parametrize("quant", ["Q4_K", "Q8_0"])
+def test_long_prefill_matches_jax(pallas_kernels, quant):
+    """A 200-token prefill (qkv, o, gate|up and down on the dequant GEMM) and
+    4 decode steps; for Q8_0 the lm head and every decode product run the
+    q8b GEMV and the FFN takes the concatenated gate|up."""
+    jcfg, jp = jax_model(seed=7, quant=quant)
+    tcfg, tp = carry_across(jcfg, jp)
+    jst, tst = JL.stack_layers(jp), TL.stack_layers(tp)
+    assert tst.layers.w_gate_up.il == (quant == "Q4_K")
+    t = 200
+    toks = np.random.default_rng(t).integers(3, V, (1, t + 4)).astype(np.int32)
+    jc, tc = JL.init_cache(jcfg, 1, MAX_LEN), TL.init_cache(tcfg, 1, MAX_LEN)
+    last = np.asarray([t - 1], np.int32)
+    jlg, jc = j_forward(jst, jcfg, jnp.asarray(toks[:, :t]), jnp.zeros((1,), jnp.int32),
+                        jc, fresh_prefill=True, last_idx=jnp.asarray(last))
+    tlg, tc = TL.forward(tst, tcfg, torch.from_numpy(toks[:, :t]),
+                         torch.zeros(1, dtype=torch.int32), tc, fresh_prefill=True,
+                         last_idx=torch.from_numpy(last))
+    errs = [close(tlg.numpy(), jlg)]
+    assert np.argmax(tlg.numpy()) == np.argmax(np.asarray(jlg))
+    for i in range(t, t + 4):
+        tok = toks[:, i:i + 1]
+        jlg, jc = j_forward(jst, jcfg, jnp.asarray(tok), jnp.asarray([i], jnp.int32),
+                            jc, attn_len=MAX_LEN)
+        tlg, tc = TL.forward(tst, tcfg, torch.from_numpy(tok),
+                             torch.tensor([i], dtype=torch.int32), tc, attn_len=MAX_LEN)
+        errs.append(close(tlg.numpy(), jlg))
+        assert np.argmax(tlg.numpy()) == np.argmax(np.asarray(jlg))
+    assert sum(e <= 1e-4 for e in errs) >= len(errs) // 2, errs
+    close(tc.k.float().numpy()[:, :, :t + 4],
+          np.asarray(jc.k.astype(jnp.float32))[:, :, :t + 4])
 
 
 def test_second_prefill_chunk_matches_jax(pallas_kernels):

@@ -7,7 +7,11 @@ The same numpy-seeded weights and activations go to both. Tolerances:
   * txn_m1 / txn: rtol 1e-5 with atol 1e-5 x max|y|: the int32 group dots
     are exact on both sides, only the order of the f32 group sums differs;
   * moe_m1: atol 2e-3 x max|y|: on top of that, an ulp of difference in
-    silu(g)*u can move one requantized code by one step.
+    silu(g)*u can move one requantized code by one step;
+  * q8_m1: as txn_m1 (exact int32 group dots, f32 group sums reordered);
+  * dequant: rtol 1e-5 with atol 1e-5 x max|y|: the bf16 weight products
+    are exact in f32 on both sides and only their f32 sums are reordered
+    (measured: within 3.4e-7 of max|y|, prenormed or not).
 """
 import numpy as np
 import pytest
@@ -39,11 +43,11 @@ def to_torch(qt):
     return TQT(qt.kind, qt.shape, qt.g, tt(qt.qs), tt(qt.scales), tt(qt.bias), qt.il)
 
 
-def stacked(rng, n, k, layers=L):
-    qts = [_rand_qtensor(rng, n, k, "Q4_K") for _ in range(layers)]
-    return JR.QTensor("q4b", (n, k), 32, jnp.stack([q.qs for q in qts]),
-                      jnp.stack([q.scales for q in qts]),
-                      jnp.stack([q.bias for q in qts]))
+def stacked(rng, n, k, layers=L, quant="Q4_K"):
+    qts = [_rand_qtensor(rng, n, k, quant) for _ in range(layers)]
+    st = lambda a: None if a[0] is None else jnp.stack(a)
+    return JR.QTensor(qts[0].kind, (n, k), qts[0].g, st([q.qs for q in qts]),
+                      st([q.scales for q in qts]), st([q.bias for q in qts]))
 
 
 def close(got, want, rel):
@@ -141,11 +145,73 @@ def test_moe_fusable_checks_down_depth():
         TQ.moe_fusable(to_torch(gu), to_torch(bad_dn), D, DFF)
 
 
-def test_dispatch_reaches_the_ported_branches(monkeypatch):
-    """Q4_K fixtures reach exactly the branches of this slice; the others
-    raise NotImplementedError naming the kernel they wait for."""
+@pytest.mark.parametrize("stack", [False, True])
+@pytest.mark.parametrize("quant,with_bias", [("Q8_0", False), ("Q6_K", False),
+                                             ("Q8_0", True)])
+def test_q8_m1_plain_matches_pallas(stack, quant, with_bias):
+    rng = np.random.default_rng(31 + stack)
+    x = rng.standard_normal((1, D)).astype(np.float32)
+    nrm = (1 + 0.1 * rng.standard_normal(D)).astype(np.float32)
+    qt = stacked(rng, 512, D, quant=quant) if stack else _rand_qtensor(rng, 1000, D, quant)
+    bias = None
+    if with_bias:                    # a q8b format with mins (Q5_1, Q2_K, ...)
+        bias = jnp.asarray(rng.uniform(-0.1, 0.0, qt.scales.shape), jnp.bfloat16)
+    pn = dict(nrm=jnp.asarray(nrm), eps=1e-5, g=qt.g, interpret=True)
+    if stack:
+        want = JQ._qmm_call_q8_m1_stacked(jnp.asarray(x), qt.qs, qt.scales,
+                                          jnp.int32(1), bias, **pn)
+    else:
+        want = JQ._qmm_call_q8_m1(jnp.asarray(x), qt.qs, qt.scales, bias, **pn)
+    tq, tb = to_torch(qt), tt(bias)
+    w = ((tq.qs[1], tq.scales[1], None if tb is None else tb[1]) if stack
+         else (tq.qs, tq.scales, tb))
+    xq, sx = TQ.quantize_activations_g32(torch.from_numpy(x),
+                                         torch.from_numpy(nrm), 1e-5)
+    close(TQ.qmm_q8_m1(xq, sx, *w), want, 1e-5)
+
+
+@pytest.mark.parametrize("m", [64, 128])
+@pytest.mark.parametrize("quant,prenorm", [("Q4_K", False), ("Q4_K", True),
+                                           ("Q8_0", True), ("Q6_K", False)])
+def test_dequant_plain_matches_pallas(m, quant, prenorm):
+    """qmatmul on stacked weights at M > 32: the reference runs _qmm_call
+    (the _qmm_kernel slice-copy branch) in interpret mode and adds the bias
+    outside; the port runs qmm_dequant's plain version the same way."""
+    rng = np.random.default_rng(m + len(quant))
+    qt = stacked(rng, 512, 2 * D, quant=quant)
+    x = rng.standard_normal((m, 2 * D)).astype(np.float32)
+    nrm = (1 + 0.1 * rng.standard_normal(2 * D)).astype(np.float32)
+    jpn = (jnp.asarray(nrm), 1e-5) if prenorm else None
+    tpn = (torch.from_numpy(nrm), 1e-5) if prenorm else None
+    want = JQ.qmatmul(jnp.asarray(x), qt, li=jnp.int32(2), prenorm=jpn)
+    got = TQ.qmatmul(torch.from_numpy(x), to_torch(qt), li=2, prenorm=tpn)
+    assert tuple(got.shape) == tuple(want.shape) == (m, 512)
+    close(got, want, 1e-5)
+
+
+@pytest.mark.parametrize("quant", ["Q4_K", "Q8_0", "Q6_K"])
+def test_dispatch_by_rows(monkeypatch, quant):
+    """The reference's branch order at M in (1, 16, 64, 128) for each kind."""
     calls = []
-    for name in ("qmm_txn_m1", "qmm_txn", "qmm_moe_m1"):
+    for name in ("qmm_txn_m1", "qmm_txn", "qmm_q8_m1", "qmm_dequant"):
+        real = getattr(TQ, name)
+
+        def spy(*a, _real=real, _name=name, **kw):
+            calls.append(_name)
+            return _real(*a, **kw)
+        monkeypatch.setattr(TQ, name, spy)
+    qt = to_torch(stacked(np.random.default_rng(4), 512, D, quant=quant))
+    for m in (1, 16, 64, 128):
+        assert TQ.qmatmul(torch.randn(m, D), qt, li=1).shape == (m, 512)
+    small = ["qmm_txn_m1", "qmm_txn"] if quant == "Q4_K" else ["qmm_q8_m1", "qmm_dequant"]
+    assert calls == small + ["qmm_dequant", "qmm_dequant"]
+
+
+def test_dispatch_reaches_the_ported_branches(monkeypatch):
+    """Q4_K and q8b fixtures reach exactly the ported branches, unstacked
+    and stacked, and what is still unported raises NotImplementedError."""
+    calls = []
+    for name in ("qmm_txn_m1", "qmm_txn", "qmm_moe_m1", "qmm_q8_m1", "qmm_dequant"):
         real = getattr(TQ, name)
 
         def spy(*a, _real=real, _name=name, **kw):
@@ -163,21 +229,24 @@ def test_dispatch_reaches_the_ported_branches(monkeypatch):
     assert TQ.qmatmul(x16, un).shape == (16, 512)
     TQ.qmatmul_moe(x1, gu, dn, [0], [1.0])
     assert calls == ["qmm_txn_m1", "qmm_txn_m1", "qmm_txn", "qmm_txn", "qmm_moe_m1"]
-    with pytest.raises(NotImplementedError, match="_qmm_kernel"):
-        TQ.qmatmul(torch.randn(33, D), st, li=0)
+    del calls[:]
+    assert TQ.qmatmul(torch.randn(33, D), st, li=0).shape == (33, 512)
     q8 = TQT("q8b", (512, D), 32, torch.zeros(D, 512, dtype=torch.int8),
              torch.ones(D // 32, 512, dtype=torch.bfloat16))
-    with pytest.raises(NotImplementedError, match="_qmm_kernel_q8_m1"):
-        TQ.qmatmul(x1, q8)
+    assert TQ.qmatmul(x1, q8).shape == (1, 512)
+    assert TQ.qmatmul(x16, q8).shape == (16, 512)
+    assert calls == ["qmm_dequant", "qmm_q8_m1", "qmm_dequant"]
+    with pytest.raises(NotImplementedError, match="kind"):
+        TQ.qmatmul(x1, TQT("q2x", (512, D), 32, q8.qs))
     with pytest.raises(NotImplementedError, match="int8 KV"):
         init_kv(2, 1, 64, 2, 128, dtype="int8")
 
 
-@pytest.mark.parametrize("kind", ["q4b", "dense"])
+@pytest.mark.parametrize("kind", ["q4b", "dense", "q8b"])
 def test_qmatmul_fallback_matches_reference(kind):
     """The materialized-dequant reference path, both packages."""
     rng = np.random.default_rng(13)
-    qt = _rand_qtensor(rng, 300, D, "Q4_K" if kind == "q4b" else "F16")
+    qt = _rand_qtensor(rng, 300, D, {"q4b": "Q4_K", "dense": "F16", "q8b": "Q6_K"}[kind])
     x = rng.standard_normal((4, D)).astype(np.float32)
     want = JQ.qmatmul_fallback(jnp.asarray(x), qt)
     got = TQ.qmatmul_fallback(torch.from_numpy(x), to_torch(qt))

@@ -112,7 +112,59 @@ def test_dequant_matches_reference():
     np.testing.assert_allclose(got, want, rtol=0, atol=2e-2 * np.abs(want).max())
 
 
-@pytest.mark.parametrize("type_name", ["Q6_K", "Q8_0"])
+def int8_blocks(rng, type_name, n, k):
+    """Random Q8_0 / Q6_K blocks with a moderate f16 d (its high byte's
+    exponent bits kept small, as q4k_blocks does)."""
+    spec = JQ.TYPE_BY_NAME[type_name]
+    raw = rng.integers(0, 256, size=(n * k // spec.block_elems, spec.block_bytes),
+                       dtype=np.uint8)
+    d_hi = 1 if type_name == "Q8_0" else 209          # high byte of the f16 d
+    raw[:, d_hi] &= 0x3B
+    return raw
+
+
+@pytest.mark.parametrize("type_name,g", [("Q8_0", 32), ("Q6_K", 16)])
+@pytest.mark.parametrize("n,k", [(300, 512), (64, 1024)])
+def test_int8_repack_numpy_identical(type_name, g, n, k):
+    raw = int8_blocks(np.random.default_rng(n + k), type_name, n, k)
+    want = JR.repack_numpy(raw, type_name, (n, k))
+    got = TR.repack_numpy(raw, type_name, (n, k))
+    assert got[0] == want[0] == "q8b" and got[4] == want[4] == g
+    assert got[3] is None and want[3] is None                 # no bias
+    for a, b in zip(got[1:3], want[1:3]):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        np.testing.assert_array_equal(a.view(np.uint8), b.view(np.uint8))
+
+
+@pytest.mark.parametrize("type_name", ["Q8_0", "Q6_K"])
+def test_int8_device_layout_and_dequant(type_name):
+    """Padded device layout byte-identical to the reference's, q8b concat
+    identical, and the dequantized weights equal to the GGUF dequantizer's
+    within bf16 rounding of the scales (the host dequantizers agree
+    exactly)."""
+    n, k = 300, 512
+    rng = np.random.default_rng(17)
+    raw = int8_blocks(rng, type_name, n, k)
+    jqt = JR.repack(raw, type_name, (n, k))
+    tqt = TR.repack(raw, type_name, (n, k), device="cpu")
+    assert (tqt.kind, tqt.shape, tqt.g, tqt.bias) == (jqt.kind, jqt.shape, jqt.g, None)
+    assert tqt.qs.dtype == torch.int8 and tqt.qs.shape[-1] % 2048 == 0
+    for t, j in ((tqt.qs, jqt.qs), (tqt.scales, jqt.scales)):
+        np.testing.assert_array_equal(bits(t), bits(j))
+    spec = TQ.TYPE_BY_NAME[type_name]
+    ref = TQ.dequantize(raw, spec.type_id, (n, k))
+    np.testing.assert_array_equal(ref, JQ.dequantize(raw, spec.type_id, (n, k)))
+    got = TR.dequant_qtensor(tqt).numpy()
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-2 * np.abs(ref).max())
+    raw2 = int8_blocks(rng, type_name, 128, k)
+    jc = JR.concat_qtensors([jqt, JR.repack(raw2, type_name, (128, k))])
+    tc = TR.concat_qtensors([tqt, TR.repack(raw2, type_name, (128, k), device="cpu")])
+    assert tc.shape == jc.shape and tc.bias is None
+    for t, j in ((tc.qs, jc.qs), (tc.scales, jc.scales)):
+        np.testing.assert_array_equal(bits(t), bits(j))
+
+
+@pytest.mark.parametrize("type_name", ["Q5_K", "Q4_0"])
 def test_unported_format_raises(type_name):
     spec = TQ.TYPE_BY_NAME[type_name]
     raw = np.zeros(4 * 256 // spec.block_elems * spec.block_bytes, np.uint8)

@@ -24,6 +24,27 @@ def test_byte_counts_match_reference(fuse):
     assert TS.decode_read_bytes(params, cfg) == JS.decode_read_bytes(jparams, jcfg)
 
 
+@pytest.mark.parametrize("quant", ["Q8_0", "Q6_K"])
+def test_int8_byte_counts_match_reference(quant):
+    """int8-stored synthetic weights (g 32 for Q8_0, 16 for Q6_K) carry the
+    reference's layout and byte counts, and the fused model concatenates
+    (not interleaves) its gate|up."""
+    jcfg, jparams = JS.make_synthetic_llama("tiny", quant, seed=0, fuse=True)
+    cfg, params = TS.make_synthetic_llama("tiny", quant, seed=0, fuse=True,
+                                          device="cpu")
+    assert TS.param_bytes(params) == JS.param_bytes(jparams)
+    assert TS.decode_read_bytes(params, cfg) == JS.decode_read_bytes(jparams, jcfg)
+    l0 = params.layers[0]
+    assert (l0.wqkv.kind, l0.wqkv.g) == ("q8b", 16 if quant == "Q6_K" else 32)
+    assert l0.wqkv.qs.dtype == torch.int8 and l0.wqkv.bias is None
+    assert not l0.w_gate_up.il and l0.w_gate_up.shape == (2 * cfg.d_ff, cfg.d_model)
+    eng = Engine(cfg, params, Tokenizer({}), max_seq_len=256, device="cpu")
+    ids = [t for t, _ in eng.generate("", max_tokens=4,
+                                      sampling=SamplingParams(temperature=0.0),
+                                      stop_on_eog=False, prompt_ids=list(range(3, 140)))]
+    assert len(ids) == 4 and all(0 <= t < cfg.n_vocab for t in ids)
+
+
 def test_fused_model_generates_on_the_cpu():
     """Greedy generation through Engine on the fused, stacked tiny model:
     the tokens are in range and the same on a second run."""
