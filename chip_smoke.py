@@ -6,9 +6,10 @@
 1. Set-up: the card's name and power limit, torch/CUDA/nvcc versions, and a
    parallel build of every CUDA kernel from llamafile_tpu_torch/csrc/.
 2. Each kernel at the shapes of the llama3-8b main paths (Q4_K decode and
-   prefill, Q8_0 and Q6_K decode, long-prompt prefill), held against its
-   plain PyTorch version on the same inputs (the tolerances of the CPU and
-   card tests) and timed on the device: a run of launches cycling over
+   prefill, Q8_0 and Q6_K decode, long-prompt prefill, the serving step at
+   8 rows: qmm_txn at M = 8 and paged_attention over bf16 and int8 pages),
+   held against its plain PyTorch version on the same inputs (the
+   tolerances of the CPU and card tests) and timed on the device: a run of launches cycling over
    enough layers of weights to spill the 50 MB L2 (as decode does) is
    captured in a CUDA graph and replayed between CUDA events, median of 25
    replays, so the host's dispatch cost is left out. Timed: the kernel, its
@@ -18,10 +19,12 @@
 3. Whole paths at two layers of llama3-8b width, card (kernels) against the
    same model on the CPU (plain versions): Q4_K with a 32-token prompt and 8
    decode steps, Q4_K with a 300-token prompt (bucket 512) and 2 decode
-   steps, Q8_0 with a 24-token prompt (bucket 32) and 4 decode steps. Each
-   is traced op by op: for each step, the first product, quantization or
-   attention call where card and CPU part, and the largest parting; a
-   product whose input codes agree on both sides must agree within 1e-5.
+   steps, Q8_0 with a 24-token prompt (bucket 32) and 4 decode steps, and
+   the paged decode (forward_paged_decode) of 4 rows admitted at prompts of
+   24, 64, 200 and 300 tokens, 4 steps. Each is traced op by op: for each step, the first product, quantization or
+   attention call where card and CPU part, and the largest parting; every
+   product is rerun through its plain version on the card's own inputs and
+   must agree within its phase-2 limit.
 4. The main paths at full width through Engine.generate, each with every
    launch count set to 0 just before it and read just after, and checked
    exactly:
@@ -33,36 +36,58 @@
    4c. make_synthetic_llama("llama3-8b", Q8_0, fused, 32 layers): greedy
       generate of 64 tokens from a 24-token prompt; decode rate against its
       weight-read bound, and time to first token.
+5. Serving at full width: the port's HTTP Server (8 slots, paged bf16 KV)
+   over phase 4's Q4_K engine, in process on 127.0.0.1; 8 client threads
+   send 16 requests (prompts of 24, 128, 500 and 1000 tokens, 64 new
+   tokens, 12 greedy and 4 sampled, half streamed, 2 through the chat
+   endpoint). Wall time, output tok/s, TTFT by prompt length, the fused
+   decode step at 8 rows against its bound, peak memory; exact launches
+   from the batcher's own tallies; six requests served again one at a time
+   by a fresh batcher must give the same token ids.
    Then, after every timed run (so that no profiler session of the process
    precedes a timing), profiles: one 8-step decode chunk of
    each model under torch.profiler (the device's busy share of a step) and
-   under cProfile (host time by function), and one 1000-token prefill
-   (device time by kernel).
+   under cProfile (host time by function), one 1000-token prefill (device
+   time by kernel), and one fused 8-row serving chunk (busy share).
 
 Any failure raises and exits non-zero. The last line of standard output is
 {"ok": true, "device": {...}}; the lines before it hold the kernel table
 (one JSON object with an entry a kernel: the numbers of its first shape, the
 main path's heaviest, every measured shape under "shapes", and its launches
-summed over the runs of phase 4) and the card's name and power limit.
+summed over the runs of phases 4 and 5) and the card's name and power limit.
 """
 from __future__ import annotations
 
 import contextlib
+import copy
 import cProfile
 import json
 import os
 import pstats
+import re
+import socket
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 # Published peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
 BF16_FLOP_PER_S = 989e12
+F32_FLOP_PER_S = 67e12            # outside the tensor cores
 SAMPLES = 25
 FLASH_ROW_TOL = 1.5e-2
+PAGED_ROW_TOL = 1e-5              # of each (row, head)'s largest output
+# On the serving path's own inputs the synthetic weights give attention
+# scores of std 1e3 to 1e5, so f32 sums in another order move a score by
+# about 1e-2: the kernel and its plain version part by up to 2.3e-4 of a
+# row's max there (H100 readings), and the limit keeps room over that. Near
+# one-hot softmax also hides the faulty controls there (a key made visible
+# or a page dropped carries no weight): phase 2 holds those.
+PAGED_PATH_TOL = 1e-3
+KV_BYTES_PER_TOKEN = 32 * 8 * 128 * 2 * 2    # llama3-8b bf16 K and V, 32 layers
 
 
 def log(*a):
@@ -129,7 +154,8 @@ def kernel_phases(torch, dev, gen):
     from llamafile_tpu_torch.ops import qmatmul as Q
     from llamafile_tpu_torch.ops import attention as A
     from llamafile_tpu_torch.ops.repack import q4b_codes
-    from llamafile_tpu_torch.testing import (flash_prefill_tile_fault, rand_q4b, rand_q8b,
+    from llamafile_tpu_torch.testing import (flash_prefill_tile_fault, paged_case,
+                                             paged_controls, rand_q4b, rand_q8b,
                                              row_rel_err)
     rows = {}
 
@@ -177,13 +203,19 @@ def kernel_phases(torch, dev, gen):
         del qs, sc, b
 
     # --- qmm_txn: prefill products of a 32- and a 16-token bucket ---------
-    # (the main path's 24-token prompt runs all four at M = 32)
+    # (the main path's 24-token prompt runs all four at M = 32), and the
+    # serving step's products at M = 8 rows, the unstacked lm head too
     for m, label, n, k, layers in ((32, "gate_up", 28672, 4096, 2),
                                    (32, "down", 4096, 14336, 3),
                                    (32, "qkv", 6144, 4096, 8),
                                    (32, "o", 4096, 4096, 12),
                                    (16, "gate_up", 28672, 4096, 2),
-                                   (16, "down", 4096, 14336, 3)):
+                                   (16, "down", 4096, 14336, 3),
+                                   (8, "qkv", 6144, 4096, 8),
+                                   (8, "o", 4096, 4096, 12),
+                                   (8, "gate_up", 28672, 4096, 2),
+                                   (8, "down", 4096, 14336, 3),
+                                   (8, "lm_head", 129024, 4096, 1)):
         qs, sc, b = rand_q4b(gen, layers, n, k, dev)
         x = torch.randn((m, k), generator=gen, device=dev)
         xq, sx = Q.quantize_activations_g32(x)
@@ -198,7 +230,8 @@ def kernel_phases(torch, dev, gen):
         lib = time_ms(torch, lambda i: torch.matmul(xb, w[i]), layers)
         del w
         entry("qmm_txn", "llamafile_tpu_torch/csrc/qmm_txn.cu",
-              "llamafile_tpu/ops/qmatmul.py:276", f"{label} M={m} N={n} K={k}",
+              "llamafile_tpu/ops/qmatmul.py:276", f"{label} M={m} N={n} K={k}"
+              + (" (unstacked)" if label == "lm_head" else ""),
               err, ms, plain, lib,
               q4b_bytes(qs, sc, b) + m * (k + k // 8) + 4 * m * n, 2 * m * n * k)
         del qs, sc, b
@@ -372,6 +405,63 @@ def kernel_phases(torch, dev, gen):
           4 * pos * hq * hd, BF16_FLOP_PER_S)
     del k3, v3
     torch.cuda.empty_cache()
+
+    # --- paged_attention: the serving decode attention, 8 rows ------------
+    # a pool of 32 layers, so the replays over layers spill the L2 as the
+    # fused step does; tables shuffled over the pool's pages
+    nl, r, hq, hkv, hd, ps, maxp = 32, 8, 32, 8, 128, 64, 2048 // 64
+    for label, lengths, int8 in (
+            ("bf16, every length 1024", [1024] * r, False),
+            ("bf16, lengths 1..2048", [1, 63, 64, 65, 700, 1024, 1500, 2048], False),
+            ("int8 + f32 scales, every length 1024", [1024] * r, True)):
+        q, kp, vp, ks, vs, lens, tables = paged_case(
+            gen, lengths, hq, hkv, hd, ps, maxp, n_layers=nl, int8=int8, device=dev)
+        sc = (lambda t, i: None) if ks is None else (lambda t, i: t[i])
+        lay = lambda i: (q, kp[i], vp[i], lens, tables, sc(ks, i), sc(vs, i))
+        got = A.paged_attention(*lay(5))
+        want = A.paged_attention_plain(*lay(5))
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        row = row_rel_err(got, want)
+        ctl = [row_rel_err(c, want) for c in paged_controls(
+            q, kp[5], vp[5], sc(ks, 5), sc(vs, 5), lens, tables, ps)]
+        log(f"  paged_attention/{label}: max_abs_err {err:.6g}; per (row, head) "
+            f"{row:.6g} of its max (tol {PAGED_ROW_TOL}); controls (one masked key "
+            f"visible, last page dropped) {ctl[0]:.6g}, {ctl[1]:.6g}")
+        if not row <= PAGED_ROW_TOL < min(ctl):
+            raise AssertionError(f"paged_attention {label}: row error {row}, "
+                                 f"controls {ctl}")
+        if not torch.equal(got, A.paged_attention(*lay(5))):
+            raise AssertionError("paged_attention: two runs on the same inputs differ")
+        ms = time_ms(torch, lambda i: A.paged_attention(*lay(i)), nl)
+        plain = time_ms(torch, lambda i: A.paged_attention_plain(*lay(i)), nl)
+        # the library yardstick: sdpa over K/V gathered to dense [R, Hkv, S, D]
+        # bf16 beforehand (the gather is not timed) with a length mask; the G
+        # query heads of a KV head ride as G queries
+        t = tables.long()
+
+        def dense(pages, scales, i):
+            x = pages[i][:, t]                                 # [Hkv, R, MAXP, ps, D]
+            if scales is not None:
+                x = x.float() * scales[i][:, t]
+            return x.permute(1, 0, 2, 3, 4).reshape(r, hkv, maxp * ps, hd).to(torch.bfloat16)
+        kd = [dense(kp, ks, i) for i in range(nl)]
+        vd = [dense(vp, vs, i) for i in range(nl)]
+        mask = (torch.arange(maxp * ps, device=dev)[None, :] < lens[:, None].long())[:, None, None]
+        qg = q.to(torch.bfloat16).reshape(r, hkv, hq // hkv, hd)
+        lib_fn = lambda i: sdpa(qg, kd[i], vd[i], attn_mask=mask, scale=1.0)
+        lib = time_ms(torch, lib_fn, nl)
+        check_close(f"paged_attention/{label} vs sdpa (yardstick sanity)",
+                    got.reshape(r, hkv, hq // hkv, hd), lib_fn(5), 2e-2)
+        kv_bytes = sum(lengths) * hkv * hd * 2 * (1 + 4 / hd if int8 else 2)
+        entry("paged_attention", "llamafile_tpu_torch/csrc/paged_attention.cu",
+              "llamafile_tpu/runtime/paged.py:277",
+              f"R={r} Hq={hq} Hkv={hkv} D={hd} ps={ps} {label} (library: sdpa on "
+              "K/V gathered beforehand, gather not timed)", err, ms, plain, lib,
+              kv_bytes + 2 * r * hq * hd * 4, 4 * sum(lengths) * hq * hd,
+              F32_FLOP_PER_S)
+        del q, kp, vp, ks, vs, kd, vd, got, want
+        torch.cuda.empty_cache()
     return list(rows.values())
 
 
@@ -390,12 +480,15 @@ def _to(params, dev):
 def op_trace(rec):
     """While open, every product (qmatmul, qmatmul_moe), activation
     quantization (its int8 codes) and attention call of the forward appends
-    (label, output on the CPU, inputs) to the list rec[-1], in call order;
-    inputs (on the CPU) are kept for the prefill attention only. Nothing
-    inside the fused FFN is kept: its plain version quantizes its hidden
-    activations in torch, the kernel inside itself."""
+    (label, output on the CPU, inputs) to the list rec[-1], in call order.
+    Inputs are kept for the prefill and paged attention (on the CPU) and
+    for the products (x on the CPU, the other arguments as they are), so
+    that each can be rerun on the other side's inputs. Nothing inside the
+    fused FFN is kept: its plain version quantizes its hidden activations
+    in torch, the kernel inside itself."""
     from llamafile_tpu_torch.models import llama as LM
     from llamafile_tpu_torch.ops import qmatmul as Q
+    from llamafile_tpu_torch.runtime import paged as PG
     saved, inside = [], [0]
 
     def wrap(mod, name, label, opaque=False, keep_inputs=False):
@@ -409,17 +502,21 @@ def op_trace(rec):
             finally:
                 inside[0] -= opaque
             if not inside[0]:
-                ins = [t.cpu() if hasattr(t, "cpu") else t for t in a] if keep_inputs else None
+                ins = ({"x": a[0].cpu(), "args": a[1:], "kw": kw} if keep_inputs == "call"
+                       else [t.cpu() if hasattr(t, "cpu") else t for t in a]
+                       if keep_inputs else None)
                 rec[-1].append((label(*a), (out[0] if isinstance(out, tuple) else out).cpu(),
                                 ins))
             return out
         setattr(mod, name, traced)
     wrap(LM, "qmatmul", lambda x, qt, li=None, *_: "lm head" if li is None
-         else f"L{li} product N={qt.shape[0]}")
-    wrap(LM, "qmatmul_moe", lambda x, gu, dn, rows, *_: f"L{rows[0]} fused ffn", True)
+         else f"L{li} product N={qt.shape[0]}", keep_inputs="call")
+    wrap(LM, "qmatmul_moe", lambda x, gu, dn, rows, *_: f"L{rows[0]} fused ffn", True,
+         keep_inputs="call")
     wrap(Q, "quantize_activations_g32", lambda x, *_: f"codes M={x.shape[0]} K={x.shape[1]}")
     wrap(LM, "flash_prefill", lambda *_: "prefill attention", keep_inputs=True)
     wrap(LM, "flash_decode_write_stacked", lambda *a: f"L{a[5]} decode attention")
+    wrap(PG, "paged_attend", lambda *a, **kw: "paged attention", keep_inputs=True)
     try:
         yield
     finally:
@@ -430,20 +527,33 @@ def op_trace(rec):
 def trace_report(steps_card, steps_cpu):
     """One line a forward call: where card and CPU first part, and how far.
     A quantization's int8 codes are compared code by code; every other
-    output by max |diff| / max |CPU value|. Returns (lines, the largest
-    parting of a product whose input codes agree on both sides): a fault in
-    an int8-activation kernel shows there, whatever parted before it."""
+    output by max |diff| / max |CPU value|. Every product of the card is
+    also rerun through its plain version on the CPU, on the card's own
+    input and the CPU's copy of the weights. Returns (lines, {route: the
+    largest parting of a product from its plain version on the same
+    inputs}) for the int8-activation GEMVs and qmm_txn ("int8"), the
+    dequant GEMM ("dequant") and the fused FFN ("ffn"): a fault in a product
+    kernel shows there, whatever parted before it."""
+    from llamafile_tpu_torch.models import llama as LM
     from llamafile_tpu_torch.testing import rel_err
-    lines, same_in = [], 0.0
+    lines, same = [], {"int8": 0.0, "dequant": 0.0, "ffn": 0.0}
     for i, (card, cpu) in enumerate(zip(steps_card, steps_cpu)):
         n_q = flips = q_flipped = 0
-        first, worst, codes_agree = None, (0.0, ""), False
-        for j, ((lab, a, _), (lab_b, b, _)) in enumerate(zip(card, cpu)):
+        first, worst = None, (0.0, "")
+        for j, ((lab, a, ia), (lab_b, b, ib)) in enumerate(zip(card, cpu)):
             assert lab == lab_b, (lab, lab_b)
+            if isinstance(ia, dict):             # a product: rerun plain on the card's x
+                fn = LM.qmatmul_moe if "fused ffn" in lab else LM.qmatmul
+                e_same = rel_err(a, fn(ia["x"], *ib["args"], **ib["kw"]))
+                qt, m = ib["args"][0], ia["x"].shape[0]
+                route = ("ffn" if "fused ffn" in lab else None if qt.kind == "dense"
+                         else "int8" if m == 1 or (qt.kind == "q4b" and m <= 32)
+                         else "dequant")
+                if route:
+                    same[route] = max(same[route], e_same)
             if not a.dtype.is_floating_point:
                 n_q += 1
                 nf = int((a != b).sum())
-                codes_agree = nf == 0
                 if nf:
                     q_flipped += 1
                     flips += nf
@@ -455,13 +565,23 @@ def trace_report(steps_card, steps_cpu):
             worst = max(worst, (e, f"call {j} {lab}"))
             if first is None and e > 1e-4:
                 first = f"call {j} {lab}: {e:.3g}"
-            if codes_agree and ("product" in lab or lab == "lm head"):
-                same_in = max(same_in, e)
-            codes_agree = False
         lines.append(f"step {i}: {len(card)} calls; codes differ in {q_flipped} of {n_q} "
                      f"quantizations ({flips} codes); first parting (codes, or > 1e-4): "
                      f"{first}; largest {worst[0]:.3g} at {worst[1]}")
-    return lines, same_in
+    return lines, same
+
+
+SAME_INPUT_TOL = {"int8": 1e-5, "dequant": 1e-3, "ffn": 2e-3}   # phase 2's limits
+
+
+def check_same_input(what, same):
+    log(f"  {what} trace: each product against its plain version on the card's own "
+        "inputs: " + ", ".join(f"{k} {v:.3g} (tol {SAME_INPUT_TOL[k]})"
+                               for k, v in same.items()))
+    bad = {k: v for k, v in same.items() if v > SAME_INPUT_TOL[k]}
+    if bad:
+        raise AssertionError(f"{what}: a product kernel parts from its plain version "
+                             f"on the same inputs: {bad}")
 
 
 def prefill_attention_report(torch, dev, card, cpu):
@@ -475,7 +595,8 @@ def prefill_attention_report(torch, dev, card, cpu):
     from llamafile_tpu_torch.testing import row_rel_err
     lines = []
     for j, ((lab, got, ins), (_, want, _)) in enumerate(zip(card, cpu)):
-        if ins is None or not A._use_flash(ins[0].shape[1], ins[0].shape[3]):
+        if lab != "prefill attention" or not A._use_flash(ins[0].shape[1],
+                                                          ins[0].shape[3]):
             continue
         q, k, v, scale = ins[:4]
         on_card = [t.to(dev) for t in (q, k, v)]
@@ -485,7 +606,7 @@ def prefill_attention_report(torch, dev, card, cpu):
         t, h = divmod(int(part.argmax()), part.shape[1])
         bf = lambda a: a.to(torch.bfloat16).float()
         s = bf(q[0, t, h]) @ bf(k[0, :t + 1, h // (q.shape[2] // k.shape[2])]).T * scale
-        top = torch.topk(s, 2).values.tolist()
+        top = torch.topk(s, min(2, s.numel())).values.tolist() + [float("nan")]
         lines.append(f"call {j} {lab}: kernel vs plain on the card's inputs {same:.3g} "
                      f"per row (tol {FLASH_ROW_TOL}); card vs CPU part most at row {t} "
                      f"head {h} ({part[t, h].item() / want[0, t, h].abs().max().item():.3g} "
@@ -531,13 +652,10 @@ def whole_path_check(torch, dev, quant="Q4_K", n_prompt=32, n_decode=8):
         for d, p in (("cuda", gpu), ("cpu", cpu)):
             run(d, p, torch.tensor([[nxt]]), n_prompt + step, attn_len=max_len)
         nxt = int(logits["cuda"][-1].argmax())
-    lines, same_in = trace_report(rec["cuda"], rec["cpu"])
+    lines, same = trace_report(rec["cuda"], rec["cpu"])
     for line in lines:
         log(f"  {quant} trace {line}")
-    log(f"  {quant} trace: products on agreeing input codes part by at most "
-        f"{same_in:.3g} (tol 1e-5, the int8 kernels' own)")
-    if same_in > 1e-5:
-        raise AssertionError(f"whole path {quant}: a product parts on equal inputs")
+    check_same_input(f"{quant} prompt {n_prompt}", same)
     for line in prefill_attention_report(torch, dev, rec["cuda"][0], rec["cpu"][0]):
         log(f"  {quant} trace {line}")
     del rec
@@ -548,6 +666,97 @@ def whole_path_check(torch, dev, quant="Q4_K", n_prompt=32, n_decode=8):
         if int(a.argmax()) != int(b.argmax()) or rel > 2e-2:
             raise AssertionError(f"whole path {quant} step {i}: card and CPU disagree")
     del gpu, cpu, params
+    torch.cuda.empty_cache()
+
+
+def paged_path_check(torch, dev, prompts=(24, 64, 200, 300), n_decode=4):
+    """The serving decode at two layers of llama3-8b width, card (kernels)
+    against the same model on the CPU (plain versions): 4 rows admitted at
+    `prompts` tokens (a dense row prefill each on the card, copied into a
+    paged pool with shuffled page ids), then n_decode steps of
+    forward_paged_decode over all rows, teacher-forced with the card's
+    greedy tokens. Both sides start each step from the card's pool, so a
+    step's parting is that step's own (the prefill's is phase 3's other
+    checks'). Logits per row within 2e-2 of the largest with the same
+    top-1; each paged attention call of the card's trace rerun through the
+    kernel and its plain version on its own inputs, within PAGED_ROW_TOL."""
+    from llamafile_tpu_torch.models.llama import (forward, forward_paged_decode,
+                                                  init_cache, stack_layers)
+    from llamafile_tpu_torch.models.synthetic import make_synthetic_llama
+    from llamafile_tpu_torch.ops import attention as A
+    from llamafile_tpu_torch.runtime.engine import bucket_len
+    from llamafile_tpu_torch.runtime.paged import PageAllocator, copy_row_to_pages, init_paged
+    from llamafile_tpu_torch.testing import paged_controls, row_rel_err
+    cfg, params = make_synthetic_llama("llama3-8b-2l", "Q4_K", seed=1, fuse=True, device=dev)
+    gpu = stack_layers(params)
+    cpu = _to(gpu, "cpu")
+    r, ps, max_len = len(prompts), 64, 512
+    maxp = max_len // ps
+    n_pages = 1 + r * maxp
+    alloc = PageAllocator(n_pages, ps, r, max_len)
+    alloc.free = [int(p) for p in torch.randperm(n_pages - 1, generator=torch.Generator().manual_seed(5)) + 1]
+    for i, n in enumerate(prompts):
+        alloc.ensure(i, n + n_decode + 1)
+    tables = {d: alloc.device_tables(r, device=d) for d in ("cuda", "cpu")}
+    pools = {d: init_paged(cfg.n_layers, cfg.n_kv_heads, n_pages, ps, cfg.head_dim,
+                           device=d) for d in ("cuda", "cpu")}
+    gen = torch.Generator().manual_seed(6)
+    last = []
+    for i, n in enumerate(prompts):
+        toks = torch.zeros((1, bucket_len(n)), dtype=torch.int64)
+        toks[0, :n] = torch.randint(3, cfg.n_vocab, (n,), generator=gen)
+        rc = init_cache(cfg, 1, max_len, device=dev)
+        lg, _ = forward(gpu, cfg, toks.to(dev), torch.zeros(1, dtype=torch.int32, device=dev),
+                        rc, fresh_prefill=True, last_idx=torch.tensor([n - 1], device=dev))
+        copy_row_to_pages(pools["cuda"], rc.k, rc.v,
+                          torch.tensor(alloc.tables[i], dtype=torch.int32), ps)
+        last.append(int(lg[0, 0].argmax()))
+    tok = torch.tensor(last, dtype=torch.int32)
+    pos = torch.tensor(prompts, dtype=torch.int32)
+    rec = {"cuda": [], "cpu": []}
+    worst, bad = 0.0, []
+    for step in range(n_decode):
+        out = {}
+        for name in ("k_pages", "v_pages"):
+            getattr(pools["cpu"], name).copy_(getattr(pools["cuda"], name))
+        for d, p in (("cuda", gpu), ("cpu", cpu)):
+            rec[d].append([])
+            with op_trace(rec[d]):
+                lg, _ = forward_paged_decode(p, cfg, tok.to(d), (pos + step).to(d),
+                                             pools[d], tables[d])
+            out[d] = lg.float().cpu()
+        a, b = out["cuda"], out["cpu"]
+        for i in range(r):
+            rel = ((a[i] - b[i]).abs().max() / b[i].abs().max()).item()
+            worst = max(worst, rel)
+            log(f"  paged step {step} row {i} (prompt {prompts[i]}): top-1 card "
+                f"{int(a[i].argmax())} cpu {int(b[i].argmax())}, max |diff| / max |logit| "
+                f"= {rel:.3g}")
+            if int(a[i].argmax()) != int(b[i].argmax()) or rel > 2e-2:
+                bad.append(f"step {step} row {i}")
+        tok = a.argmax(-1).to(torch.int32)
+    lines, same = trace_report(rec["cuda"], rec["cpu"])
+    for line in lines:
+        log(f"  paged trace {line}")
+    check_same_input("paged decode", same)
+    same, ctl = 0.0, float("inf")
+    for step in rec["cuda"]:
+        for lab, _, ins in step:
+            if lab != "paged attention":
+                continue
+            q, kp, vp, lens, tbl = [t.to(dev) for t in ins[:5]]
+            want = A.paged_attention_plain(q, kp, vp, lens, tbl)
+            same = max(same, row_rel_err(A.paged_attention(q, kp, vp, lens, tbl), want))
+            ctl = min([ctl] + [row_rel_err(c, want) for c in
+                               paged_controls(q, kp, vp, None, None, lens, tbl, ps)])
+    log(f"  paged attention on the path's own inputs: kernel vs plain {same:.3g} per "
+        f"(row, head) (tol {PAGED_PATH_TOL}); the controls there {ctl:.3g} at least "
+        f"(not held: near one-hot softmax); logits card vs CPU at most {worst:.3g}")
+    if same > PAGED_PATH_TOL:
+        raise AssertionError(f"paged_attention on the path's inputs: {same}")
+    if bad:
+        raise AssertionError(f"paged decode: card and CPU disagree at {bad}")
+    del rec, gpu, cpu, params, pools
     torch.cuda.empty_cache()
 
 
@@ -642,6 +851,8 @@ def main_path(torch, dev):
         ttfts.append(ttft_b * 1e3)
     log(f"  time to first token, 1000-token prompt: {statistics.median(ttfts):.2f} ms "
         f"(median of {', '.join(f'{t:.2f}' for t in ttfts)} ms)")
+    log("phase 5: serving, the port's HTTP server over the same engine, 8 slots")
+    counts_5, step_5 = serving_phase(torch, eng, read)
     del eng
     torch.cuda.empty_cache()
 
@@ -661,9 +872,263 @@ def main_path(torch, dev):
     eng, _ = build_engine(torch, dev, "Q4_K")
     device_busy(torch, eng, prompt, sp, step_q4)
     prefill_profile(torch, eng, long_prompt)
+    fused_profile(torch, eng, step_5)
     del eng
     torch.cuda.empty_cache()
-    return [counts, counts_b, counts_c]
+    return [counts, counts_b, counts_c, counts_5]
+
+
+SERVE_LENGTHS = (24, 128, 500, 1000)
+SERVE_SAMPLED = (1, 6, 11, 12)        # request indices sampled at temperature 0.8
+SERVE_CHAT = (14, 15)                 # request indices sent as chat messages
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _serve_request(base, i, ids, chat):
+    """Request i of phase 5 over HTTP; returns (token ids, usage, client TTFT
+    s or None, error or None). Streamed requests take their TTFT at the
+    first token event."""
+    import urllib.request
+    body = {"max_tokens": 64, "stream": i % 2 == 0}
+    if i in SERVE_SAMPLED:
+        body.update(temperature=0.8, top_k=40, seed=i)
+    else:
+        body.update(temperature=0.0)
+    if chat:
+        # Tokenizer({}) maps each byte to one token: a message of about the
+        # prompt length (the chat template adds its own tokens)
+        body["messages"] = [{"role": "user", "content": "x" * (len(ids) - 40)}]
+        path = "/v1/chat/completions"
+    else:
+        body["prompt"] = ids
+        path = "/v1/completions"
+    req = urllib.request.Request(base + path, data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    ttft, text, usage = None, "", None
+    try:
+        with urllib.request.urlopen(req, timeout=900) as r:
+            if not body["stream"]:
+                out = json.loads(r.read())
+                ch = out["choices"][0]
+                text = ch["message"]["content"] if chat else ch["text"]
+                usage = out["usage"]
+            else:
+                for raw in r:
+                    line = raw.decode().strip()
+                    if not line.startswith("data: ") or line == "data: [DONE]":
+                        continue
+                    evt = json.loads(line[6:])
+                    if "error" in evt:
+                        return [], None, None, evt["error"]
+                    ch = evt["choices"][0]
+                    piece = (ch.get("delta") or {}).get("content", "") if chat \
+                        else ch.get("text", "")
+                    if piece and ttft is None:
+                        ttft = time.perf_counter() - t0
+                    text += piece
+                    usage = evt.get("usage", usage)
+    except Exception as e:                     # noqa: BLE001 — reported, then raised
+        return [], None, None, repr(e)
+    # Tokenizer({}) decodes token t as "<t>": the text carries the ids
+    return [int(t) for t in re.findall(r"<(\d+)>", text)], usage, ttft, None
+
+
+def _alone_tokens(batcher, ids, sp):
+    toks = []
+    req = batcher.submit(ids, sp, 64)
+    while True:
+        kind, val = req.out.get(timeout=900)
+        if kind == "token":
+            toks.append(val)
+        elif kind == "done":
+            return toks
+        elif kind == "error":
+            raise AssertionError(f"alone run: {val}")
+
+
+def serving_phase(torch, eng, read):
+    """Phase 5: the port's Server at full width, 8 slots, 16 requests from 8
+    client threads. Returns (the launch counts of the counted run, the fused
+    8-row step's time in ms)."""
+    import asyncio
+    from concurrent.futures import ThreadPoolExecutor
+    from llamafile_tpu_torch.ops import kernel_wrappers, reset_launch_counts
+    from llamafile_tpu_torch.server.batcher import Batcher
+    from llamafile_tpu_torch.server.http import Server, _amain
+    from llamafile_tpu_torch.utils.flags import Flags
+    srv = Server(Flags(model="synthetic-llama3-8b-q4k", slots=8, temp=0.0), eng)
+    port = _free_port()
+    loop = asyncio.new_event_loop()
+
+    def run():
+        asyncio.set_event_loop(loop)
+        try:
+            loop.run_until_complete(_amain(srv, "127.0.0.1", port))
+        except RuntimeError:
+            pass                               # loop.stop() at the end
+    th = threading.Thread(target=run, daemon=True)
+    th.start()
+    base = f"http://127.0.0.1:{port}"
+    gen = torch.Generator().manual_seed(7)
+    prompts = [torch.randint(3, eng.cfg.n_vocab, (SERVE_LENGTHS[i % 4],),
+                             generator=gen).tolist() for i in range(16)]
+    try:
+        import urllib.request
+        for _ in range(600):
+            try:
+                urllib.request.urlopen(base + "/health", timeout=5)
+                break
+            except Exception:
+                time.sleep(0.1)
+        # warm-up (first launches at these shapes, allocator): not counted
+        warm = torch.randint(3, eng.cfg.n_vocab, (40,), generator=gen).tolist()
+        _serve_request(base, 0, warm, False)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        st0 = copy.deepcopy(srv.batcher.stats)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(8) as ex:
+            results = list(ex.map(lambda i: _serve_request(base, i, prompts[i],
+                                                           i in SERVE_CHAT), range(16)))
+        wall = time.perf_counter() - t0
+        counts = {w.__name__: w.launches for w in kernel_wrappers()}
+        st1 = srv.batcher.stats
+        errors = [(i, e) for i, (_, _, _, e) in enumerate(results) if e]
+        if errors:
+            raise AssertionError(f"phase 5 requests failed: {errors}")
+        n_out = sum(u["completion_tokens"] for _, u, _, _ in results)
+        log(f"  16 requests, {n_out} tokens out in {wall:.3f} s: {n_out / wall:.2f} "
+            f"output tok/s (8 slots, prompts {SERVE_LENGTHS} x 4, 64 new tokens)")
+        for n in SERVE_LENGTHS:
+            sel = [(i, results[i]) for i in range(16) if SERVE_LENGTHS[i % 4] == n]
+            ttfts = sorted((res[2] if res[2] is not None else res[1]["ttft_ms"] / 1e3)
+                           for _, res in sel)
+            log(f"  prompt {n}: TTFT p50 {statistics.median(ttfts) * 1e3:.2f} ms, max "
+                f"{max(ttfts) * 1e3:.2f} ms (streamed: client first token event; plain: "
+                f"the server's ttft_ms); prompt tokens "
+                f"{[res[1]['prompt_tokens'] for _, res in sel]}")
+        log(f"  peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+        delta = lambda k: {b: n - st0[k].get(b, 0) for b, n in st1[k].items()}
+        steps = st1["decode_steps"] - st0["decode_steps"]
+        sl, fr = delta("slices_by_bucket"), delta("fresh_slices_by_bucket")
+        allb = {b: sl.get(b, 0) + fr.get(b, 0) for b in set(sl) | set(fr)}
+        small = sum(n for b, n in allb.items() if b <= 32)
+        big = sum(n for b, n in allb.items() if b >= 64)
+        n_layers = eng.cfg.n_layers
+        expect = {"paged_attention": n_layers * steps,
+                  "qmm_txn": (4 * n_layers + 1) * steps + 4 * n_layers * small,
+                  "qmm_dequant": 4 * n_layers * big,
+                  "flash_prefill": n_layers * sum(n for b, n in fr.items() if b >= 128),
+                  "qmm_txn_m1": small + big}
+        log(f"  batcher tallies: {steps} fused decode steps, admission slices by bucket "
+            f"{allb} (fresh {fr})")
+        check_counts(counts, expect, "phase 5")
+        if not srv.batcher.alive():
+            raise AssertionError("phase 5: the batcher's device thread died")
+    finally:
+        loop.call_soon_threadsafe(loop.stop)
+        th.join(timeout=30)
+        srv.batcher.shutdown()
+        srv.pool.shutdown(wait=False)
+    # the same requests alone, one after another, on a fresh 8-slot batcher
+    greedy = [next(i for i in range(16) if SERVE_LENGTHS[i % 4] == n and i not in
+                   SERVE_SAMPLED and i not in SERVE_CHAT) for n in SERVE_LENGTHS]
+    check_ids = greedy + list(SERVE_SAMPLED[:2])
+    alone = Batcher(eng, rows=8)
+    try:
+        for i in check_ids:
+            sp = srv._sp({"temperature": 0.8, "top_k": 40, "seed": i}
+                         if i in SERVE_SAMPLED else {"temperature": 0.0})
+            toks = _alone_tokens(alone, prompts[i], sp)
+            same = toks == results[i][0]
+            log(f"  request {i} (prompt {SERVE_LENGTHS[i % 4]}, "
+                f"{'sampled' if i in SERVE_SAMPLED else 'greedy'}): alone "
+                f"{len(toks)} tokens, {'the same ids' if same else 'DIFFERENT ids'} "
+                "as served beside the others")
+            if not same:
+                raise AssertionError(f"request {i}: {toks} alone, {results[i][0]} served")
+    finally:
+        alone.shutdown()
+    del srv, alone
+    torch.cuda.empty_cache()
+    return counts, fused_step(torch, eng, read)
+
+
+FUSED_LENGTHS = (88, 192, 564, 1064) * 2      # the phase's prompts + 64 tokens
+
+
+def _fused_setup(torch, eng):
+    """A pool, tables and row state for one fused decode chunk at 8 rows."""
+    from llamafile_tpu_torch.runtime.paged import PageAllocator, init_paged
+    from llamafile_tpu_torch.runtime.sampling import (PenaltyWindow, SamplingParams,
+                                                      row_params_from_sp)
+    dev, cfg, r, ps = eng.device, eng.cfg, len(FUSED_LENGTHS), 64
+    maxp = eng.max_seq_len // ps
+    pool = init_paged(cfg.n_layers, cfg.n_kv_heads, 1 + r * maxp, ps, cfg.head_dim,
+                      device=dev)
+    alloc = PageAllocator(1 + r * maxp, ps, r, eng.max_seq_len)
+    for i, n in enumerate(FUSED_LENGTHS):
+        alloc.ensure(i, n + 16)
+    z = lambda shape: torch.zeros(shape, dtype=torch.int32, device=dev)
+    pw = PenaltyWindow(torch.zeros((r, cfg.n_vocab), device=dev), z((r, 256)), z((r,)),
+                       z((r,)))
+    rp = row_params_from_sp([SamplingParams(temperature=0.0)] * r, cfg.n_vocab, device=dev)
+    tok = torch.full((r,), 5, dtype=torch.int32, device=dev)
+    pos = torch.tensor(FUSED_LENGTHS, dtype=torch.int32, device=dev)
+    return pool, alloc.device_tables(r, device=dev), pw, rp, tok, pos
+
+
+def fused_step(torch, eng, read):
+    """The batcher's fused decode at 8 rows (rows at the phase's lengths),
+    timed by the host clock around synchronized 8-step chunks, against its
+    bound: the weights plus every row's K/V read once a step."""
+    from llamafile_tpu_torch.server.batcher import _fused_decode_paged
+    pool, tables, pw, rp, tok, pos = _fused_setup(torch, eng)
+    run = lambda: _fused_decode_paged(eng, tok, pos, pool, tables, pw, [None] * 8, rp, 8)
+    run()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) / 8 * 1e3)
+    step_ms = statistics.median(times)
+    kv = sum(FUSED_LENGTHS) * KV_BYTES_PER_TOKEN
+    bound = (read + kv) / HBM_BYTES_PER_S * 1e3
+    log(f"  fused decode step at 8 rows (lengths {FUSED_LENGTHS}): {step_ms:.3f} ms "
+        f"(median of {', '.join(f'{t:.3f}' for t in times)}) against a "
+        f"{bound:.3f} ms bound ({read / 1e9:.3f} GB weights + {kv / 1e9:.3f} GB KV): "
+        f"{bound / step_ms:.1%}; {8 / step_ms * 1e3:.1f} tokens/s over 8 rows")
+    return step_ms
+
+
+def fused_profile(torch, eng, step_ms):
+    """Device busy share of one fused 8-row decode chunk under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    from llamafile_tpu_torch.server.batcher import _fused_decode_paged
+    pool, tables, pw, rp, tok, pos = _fused_setup(torch, eng)
+    _fused_decode_paged(eng, tok, pos, pool, tables, pw, [None] * 8, rp, 8)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _fused_decode_paged(eng, tok, pos, pool, tables, pw, [None] * 8, rp, 8)
+        torch.cuda.synchronize()
+    by_name, n_act = device_kernels(prof)
+    busy_ms = sum(by_name.values()) / 1e3 / 8
+    if busy_ms == 0:
+        log("  fused step busy share: not measured (the profiler recorded no kernels)")
+        return
+    log(f"  fused 8-row step: device busy {busy_ms:.3f} ms of a {step_ms:.3f} ms step "
+        f"({busy_ms / step_ms:.1%}); {n_act / 8:.1f} device activities a step")
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+        log(f"    {us / 8 / 1e3:8.4f} ms/step  {name[:90]}")
 
 
 def device_kernels(prof):
@@ -774,6 +1239,7 @@ def main() -> int:
     whole_path_check(torch, dev)
     whole_path_check(torch, dev, "Q4_K", n_prompt=300, n_decode=2)
     whole_path_check(torch, dev, "Q8_0", n_prompt=24, n_decode=4)
+    paged_path_check(torch, dev)
     log("phase 4: main path, llama3-8b Q4_K, 32 layers, Engine.generate")
     runs = main_path(torch, dev)
     for r in rows:
@@ -781,6 +1247,8 @@ def main() -> int:
         r["launches"] = sum(c[key] for c in runs)
         if r["launches"] == 0:
             raise AssertionError(f"{r['name']} was launched by no main-path run")
+    if len(rows) != len(_build.SOURCES):
+        raise AssertionError(f"{len(rows)} kernels measured, {len(_build.SOURCES)} built")
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

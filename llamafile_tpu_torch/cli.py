@@ -1,11 +1,14 @@
-"""Command line of the port: raw completion.
+"""Command line of the port: raw completion and the HTTP server.
 
   python -m llamafile_tpu_torch.cli --model m.gguf --cli -p "..." -n 32
   python -m llamafile_tpu_torch.cli --model m.gguf --cli -p "..." --device cpu
+  python -m llamafile_tpu_torch.cli --server -m m.gguf --slots 8 \
+      --listen 127.0.0.1:8080 [--ctx-size N] [--kv-dtype bf16|int8] \
+      [--preempt SECONDS] [--device cpu] [--temp ... sampling defaults]
 
-Counterpart of the `--cli` path of llamafile_tpu/cli.py. Generation runs on
-the card unless `--device cpu` is given. The chat REPL, the HTTP server and
-the other modes of the reference are not ported yet and exit with an error.
+Counterpart of the `--cli` and `--server` paths of llamafile_tpu/cli.py.
+Both run on the card unless `--device cpu` is given. The chat REPL,
+--tokenize and --version are not ported yet and exit with an error.
 """
 from __future__ import annotations
 
@@ -14,7 +17,7 @@ import sys
 import time
 from typing import List, Optional
 
-_UNPORTED_MODES = ("chat", "server", "tokenize", "version")
+_UNPORTED_MODES = ("chat", "tokenize", "version")
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -46,6 +49,14 @@ def main(argv: Optional[List[str]] = None) -> int:
             print(f"error: --{mode} is not yet ported to llamafile_tpu_torch "
                   "(use --cli)", file=sys.stderr)
             return 2
+    if "--server" in argv:
+        from .utils.flags import parse_flags
+        flags = parse_flags(argv)
+        if not flags.model:
+            print("error: --model required", file=sys.stderr)
+            return 1
+        from .server.http import serve
+        return serve(flags)
     args = _parser().parse_args(argv)
     if not args.model:
         print("error: --model required", file=sys.stderr)

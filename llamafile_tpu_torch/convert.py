@@ -13,6 +13,8 @@ leaves as plain dicts of numpy arrays, so the port never sees a JAX object
 
 bf16 leaves (embedding, dense weights, scales, bias) arrive as float32
 arrays holding bf16 values (exact) and are stored as bf16 again.
+
+`paged_from_numpy` carries a paged KV pool across the same way.
 """
 from __future__ import annotations
 
@@ -87,3 +89,15 @@ def params_from_numpy(cfg_fields: dict, tree: dict, device="cuda"):
                          out_norm=_t(tree["out_norm"], dev, torch.float32),
                          output=_qt(tree["output"], dev))
     return cfg, params
+
+
+def paged_from_numpy(k_pages, v_pages, k_scale=None, v_scale=None,
+                     device="cuda"):
+    """A port PagedKV from the JAX package's pool as numpy: pages
+    [L, Hkv, P, ps, D] (bf16 as float32 values, or int8 codes) and, for an
+    int8 pool, f32 scales [L, Hkv, P, ps, 1]."""
+    from .runtime.paged import PagedKV
+    dev = resolve_device(device)
+    dt = torch.int8 if np.asarray(k_pages).dtype == np.int8 else torch.bfloat16
+    return PagedKV(_t(k_pages, dev, dt), _t(v_pages, dev, dt),
+                   _t(k_scale, dev, torch.float32), _t(v_scale, dev, torch.float32))

@@ -339,7 +339,83 @@ def forward(params: LlamaParams, cfg: LlamaConfig, tokens: torch.Tensor,
     return logits.reshape(b, t_out, -1), cache
 
 
+@torch.no_grad()
+def forward_paged_decode(params: LlamaParams, cfg: LlamaConfig,
+                         tok: torch.Tensor, pos: torch.Tensor, paged,
+                         tables: torch.Tensor):
+    """One decode step (T = 1 a row) over a paged KV cache, stacked layers.
+
+    Counterpart of the stacked llama/mistral branch of the JAX package's
+    forward_paged_decode. tok/pos int32 [R]; paged a runtime.paged.PagedKV,
+    updated IN PLACE (each row's new K/V at page tables[r, pos // ps],
+    offset pos % ps); tables int32 [R, MAXP]. Each row attends to its
+    pos + 1 positions through the paged_attention kernel, which reads layer
+    li of the pool by pointer (`pool[li]` is a view). As in the reference,
+    the norms run before each product (not folded into it). Returns
+    (logits f32 [R, V], paged)."""
+    from ..runtime.paged import paged_attend, write_token_kv
+    if not isinstance(params.layers, LlamaLayer):
+        raise NotImplementedError("paged decode of unrolled layers is not "
+                                  "ported yet: call stack_layers first")
+    for name in ("swa_window", "alibi", "kv_lora_rank"):
+        if getattr(cfg, name, 0):
+            raise NotImplementedError(f"paged decode with {name} is not ported")
+    sl = params.layers
+    r = tok.shape[0]
+    ps = paged.page_size
+    dev = tok.device
+    p64 = pos.long()
+    x = params.tok_embd[tok.long()].float()                       # [R, d]
+    cos, sin = rope_cos_sin(p64[:, None], cfg.head_dim, cfg.rope_theta,
+                            cfg.rope_scale, cfg)                  # [R, 1, D/2]
+    pages = torch.gather(tables.long(), 1, (p64 // ps)[:, None])[:, 0]
+    offs = p64 % ps
+    lengths = (pos + 1).to(torch.int32).to(dev)
+    tables = tables.to(torch.int32).contiguous()
+    scale = cfg.attn_scale or 1.0 / math.sqrt(cfg.head_dim)
+    nq = cfg.n_heads * cfg.head_dim
+    nkv = cfg.n_kv_heads * cfg.head_dim
+    quant = paged.quantized
+    for li in range(cfg.n_layers):
+        h = rmsnorm(x, sl.attn_norm[li], cfg.rms_eps)
+        if sl.wqkv is not None:
+            qkv = qmatmul(h, sl.wqkv, li)
+            q, k, v = qkv[:, :nq], qkv[:, nq:nq + nkv], qkv[:, nq + nkv:nq + 2 * nkv]
+        else:
+            q, k, v = (qmatmul(h, sl.wq, li), qmatmul(h, sl.wk, li),
+                       qmatmul(h, sl.wv, li))
+        q = apply_rope(q.reshape(r, cfg.n_heads, cfg.head_dim), cos, sin,
+                       cfg.rope_neox)
+        k = apply_rope(k.reshape(r, cfg.n_kv_heads, cfg.head_dim), cos, sin,
+                       cfg.rope_neox)
+        v = v.reshape(r, cfg.n_kv_heads, cfg.head_dim)
+        ksl = paged.k_scale[li] if quant else None
+        vsl = paged.v_scale[li] if quant else None
+        write_token_kv(paged.k_pages[li], paged.v_pages[li], k, v, pages, offs,
+                       ksl, vsl)
+        attn = paged_attend((q * scale).float(), paged.k_pages[li],
+                            paged.v_pages[li], lengths, tables,
+                            k_scale_l=ksl, v_scale_l=vsl)
+        x = x + qmatmul(attn.reshape(r, nq), sl.wo, li)
+        h = rmsnorm(x, sl.ffn_norm[li], cfg.rms_eps)
+        if sl.w_gate_up is not None:
+            if r == 1 and sl.w_gate_up.il and moe_fusable(
+                    sl.w_gate_up, sl.w_down, cfg.d_model, cfg.d_ff):
+                # single-row paged decode: the fused FFN, layer id as expert
+                f = qmatmul_moe(h, sl.w_gate_up, sl.w_down, [li], [1.0])
+            else:
+                g, u = split_gu(qmatmul(h, sl.w_gate_up, li), cfg.d_ff,
+                                sl.w_gate_up.il)
+                f = qmatmul(torch.nn.functional.silu(g) * u, sl.w_down, li)
+        else:
+            g, u = qmatmul(h, sl.w_gate, li), qmatmul(h, sl.w_up, li)
+            f = qmatmul(torch.nn.functional.silu(g) * u, sl.w_down, li)
+        x = x + f
+    logits = qmatmul(rmsnorm(x, params.out_norm, cfg.rms_eps), params.output)
+    return logits, paged
+
+
 def init_cache(cfg: LlamaConfig, batch: int, max_len: int,
-               dtype=torch.bfloat16, device="cpu") -> KVCache:
+               dtype=torch.bfloat16, device="cuda") -> KVCache:
     return init_kv(cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim,
                    dtype, device=device)

@@ -31,7 +31,7 @@ BUILD = os.path.join(_PKG, "build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 SOURCES = ("qmm_txn_m1", "qmm_txn", "qmm_moe_m1", "flash_decode_write",
-           "qmm_q8_m1", "qmm_dequant", "flash_prefill")
+           "qmm_q8_m1", "qmm_dequant", "flash_prefill", "paged_attention")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

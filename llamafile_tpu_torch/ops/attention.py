@@ -11,6 +11,10 @@ Counterpart of llamafile_tpu/ops/attention.py for what the port reaches:
       flash_prefill, csrc/flash_prefill.cu) for T >= 128, T % 128 == 0,
       D in (64, 128, 256), no window and no softcap, in its numerics; the
       f32 einsum otherwise (the reference's routing).
+  paged_attention <- the upstream Pallas paged_attention that
+      llamafile_tpu/runtime/paged.py paged_attend calls (kernel
+      paged_attention, csrc/paged_attention.cu): batched T = 1 GQA
+      attention over block tables, bf16 or int8 pages, all in f32.
 """
 from __future__ import annotations
 
@@ -189,4 +193,93 @@ def flash_decode_write_stacked(q, k3, v3, k_new, v_new, li: int, pos,
 
 flash_decode_write_stacked.launches = 0
 
-KERNELS = (flash_decode_write_stacked, flash_prefill)
+def paged_attention_plain(q, k_pages_l, v_pages_l, lengths, tables,
+                          k_scale_l=None, v_scale_l=None):
+    """Plain version of the paged_attention kernel, the gather + mask + f32
+    softmax of llamafile_tpu/runtime/paged.py:281-300: every table entry's
+    page is gathered, keys j >= lengths[r] are masked."""
+    r, hq, d = q.shape
+    hkv, _, ps, _ = k_pages_l.shape
+    dv = v_pages_l.shape[-1]
+    maxp = tables.shape[1]
+    t = tables.long()
+    k = k_pages_l[:, t]                                   # [Hkv, R, MAXP, ps, D]
+    v = v_pages_l[:, t]
+    if k_scale_l is not None:
+        k = k.float() * k_scale_l[:, t]
+        v = v.float() * v_scale_l[:, t]
+    k = k.permute(1, 0, 2, 3, 4).reshape(r, hkv, maxp * ps, d).float()
+    v = v.permute(1, 0, 2, 3, 4).reshape(r, hkv, maxp * ps, dv).float()
+    qg = q.reshape(r, hkv, hq // hkv, d).float()
+    scores = torch.einsum("rhgd,rhsd->rhgs", qg, k)
+    j = torch.arange(maxp * ps, device=q.device)[None, :]
+    mask = j < lengths.to(q.device).long()[:, None]
+    scores = torch.where(mask[:, None, None, :], scores,
+                         torch.full_like(scores, NEG_INF))
+    out = torch.einsum("rhgs,rhsd->rhgd", torch.softmax(scores, dim=-1), v)
+    return out.reshape(r, hq, dv)
+
+
+def paged_attention(q, k_pages_l, v_pages_l, lengths, tables,
+                    k_scale_l=None, v_scale_l=None):
+    """Decode attention of one layer over a paged KV pool.
+
+    q [R, Hq, D] f32, already scaled by 1/sqrt(D) (the kernel applies no
+    scale); k_pages_l/v_pages_l [Hkv, P, ps, D] bf16, or int8 with
+    [Hkv, P, ps, 1] f32 scales; lengths int32 [R] (>= 1); tables int32
+    [R, MAXP]. Layer li of a pool is `pool[li]`, a view: the kernel reads it
+    by pointer, nothing is copied. Returns [R, Hq, D] f32. CPU tensors take
+    the plain version; CUDA tensors launch the kernel (D = 128, Hq/Hkv in
+    1, 2, 4, 8) or raise."""
+    if q.device.type == "cpu":
+        return paged_attention_plain(q, k_pages_l, v_pages_l, lengths, tables,
+                                     k_scale_l, v_scale_l)
+    r, hq, d = q.shape
+    hkv, n_pages, ps, dk = k_pages_l.shape
+    quant = k_scale_l is not None
+    if d != 128 or dk != d or hq % hkv or hq // hkv not in (1, 2, 4, 8):
+        raise ValueError(f"paged_attention takes D=128 and Hq/Hkv in (1, 2, 4, "
+                         f"8), got D={d} (pages {dk}), Hq={hq}, Hkv={hkv}")
+    page_t = torch.int8 if quant else torch.bfloat16
+    maxp = tables.shape[-1]
+    named = [("q", q, torch.float32, (r, hq, d)),
+             ("k_pages", k_pages_l, page_t, (hkv, n_pages, ps, d)),
+             ("v_pages", v_pages_l, page_t, (hkv, n_pages, ps, d)),
+             ("lengths", lengths, torch.int32, (r,)),
+             ("tables", tables, torch.int32, (r, maxp))]
+    if quant:
+        named += [("k_scale", k_scale_l, torch.float32, (hkv, n_pages, ps, 1)),
+                  ("v_scale", v_scale_l, torch.float32, (hkv, n_pages, ps, 1))]
+    elif v_scale_l is not None:
+        raise ValueError("v_scale given without k_scale")
+    for name, t, dt, shape in named:
+        if t.device != q.device or t.dtype != dt or tuple(t.shape) != shape \
+                or not t.is_contiguous():
+            raise ValueError(f"paged_attention: {name} must be a contiguous "
+                             f"{dt} {shape} on {q.device}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    n_split = min(maxp, max(1, -(-4 * sms // (r * hkv))))
+    pps = -(-maxp // n_split)                    # pages a split
+    n_split = -(-maxp // pps)
+    out = torch.empty((r, hq, d), dtype=torch.float32, device=q.device)
+    m_part = torch.empty((r, hq, n_split), dtype=torch.float32, device=q.device)
+    l_part = torch.empty_like(m_part)
+    acc_part = torch.empty((r, hq, n_split, d), dtype=torch.float32,
+                           device=q.device)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    f = _build.fn("paged_attention", "paged_attention", [P] * 11 + [I] * 9 + [P])
+    _build.check(f(q.data_ptr(), k_pages_l.data_ptr(), v_pages_l.data_ptr(),
+                   ptr(k_scale_l), ptr(v_scale_l), lengths.data_ptr(),
+                   tables.data_ptr(), out.data_ptr(), m_part.data_ptr(),
+                   l_part.data_ptr(), acc_part.data_ptr(), r, hq, hkv, n_pages,
+                   ps, maxp, pps, n_split, int(quant),
+                   torch.cuda.current_stream(q.device).cuda_stream),
+                 "paged_attention")
+    paged_attention.launches += 1
+    return out
+
+
+paged_attention.launches = 0
+
+KERNELS = (flash_decode_write_stacked, flash_prefill, paged_attention)

@@ -147,7 +147,7 @@ def _pad_n(arrs, n: int, multiple: int = 2048):
 
 
 def repack(raw: np.ndarray, type_name: str, shape: tuple,
-           device="cpu") -> QTensor:
+           device="cuda") -> QTensor:
     """Repack raw GGUF bytes to a QTensor on `device` (scales/bias bf16)."""
     kind, qs, a, b, g = repack_numpy(raw, type_name, shape)
     n, k = int(np.prod(shape[:-1])), shape[-1]

@@ -10,6 +10,10 @@ A prompt runs as one prefill over its bucket (PREFILL_BUCKETS, then
 multiples of 4096), up to max_seq_len tokens: buckets of 16 and 32 take the
 q4b txn kernel, longer ones the dequant GEMM and, from 128 tokens, the
 flash_prefill kernel.
+
+The continuous batcher (server/batcher.py) drives the engine through its
+serving hooks: `new_row_cache` and `row_prefill` for admission, and the
+paged pool it keeps itself (kv_dtype bf16, or int8 for the pool only).
 """
 from __future__ import annotations
 
@@ -64,12 +68,42 @@ class Engine:
         self.tokenizer = tokenizer
         self.max_seq_len = min(max_seq_len, cfg.max_context)
         self.batch_size = batch_size
+        if isinstance(kv_dtype, str):
+            kv_dtype = {"bf16": torch.bfloat16, "int8": torch.int8,
+                        "i8": torch.int8}[kv_dtype]
+        if kv_dtype not in (torch.bfloat16, torch.int8):
+            raise NotImplementedError(f"kv_dtype {kv_dtype}: bf16, or int8 "
+                                      "for the server's paged pool")
+        # int8 applies to the batcher's paged pool; the dense caches of
+        # generate() and admission stay bf16 (new_cache raises for int8)
         self.kv_dtype = kv_dtype
         self.decode_chunk = 8        # tokens per device-resident decode chunk
 
     def new_cache(self):
         return init_cache(self.cfg, self.batch_size, self.max_seq_len,
                           self.kv_dtype, device=self.device)
+
+    # -- serving hooks (driven by server.batcher.Batcher) -------------------
+
+    supports_paged = True          # the batcher keeps a paged KV pool
+    recurrent = False
+
+    def init_row_cache(self, rows: int, dtype=None):
+        raise NotImplementedError("the dense row-batched cache of the "
+                                  "batcher is not ported: it runs paged")
+
+    def new_row_cache(self, dtype=None):
+        """Single-row admission cache [L, 1, S, Hkv*D]."""
+        return init_cache(self.cfg, 1, self.max_seq_len,
+                          dtype or self.kv_dtype, device=self.device)
+
+    def row_prefill(self, tokens, pos0, row_cache, fresh=False,
+                    attn_len=None, last_idx=None):
+        """One admission slice into the row cache (updated in place);
+        returns (logits [1, 1 or T, V], row_cache)."""
+        return forward(self.params, self.cfg, tokens, pos0, row_cache,
+                       fresh_prefill=fresh, attn_len=attn_len,
+                       last_idx=last_idx)
 
     def prefill(self, cache, token_ids: List[int], pos0: int = 0):
         """Feed prompt tokens; returns (last_logits f32 [V], cache)."""

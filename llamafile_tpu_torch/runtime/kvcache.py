@@ -25,7 +25,7 @@ class KVCache:
 
 
 def init_kv(n_layers: int, batch: int, max_len: int, n_kv: int, head_dim: int,
-            dtype=torch.bfloat16, device="cpu") -> KVCache:
+            dtype=torch.bfloat16, device="cuda") -> KVCache:
     if dtype in (torch.int8, "i8", "int8"):
         raise NotImplementedError(
             "the int8 KV cache (and the decode kernels that read it, "

@@ -66,3 +66,48 @@ def flash_prefill_tile_fault(q, k, v, scale: float, tile: int = 64):
     acc = torch.einsum("bhgts,bshd->bhgtd", bf(p), bf(v))
     out = bf(acc / p.sum(-1, keepdim=True))
     return out.permute(0, 3, 1, 2, 4).reshape(b, t, hq, d)
+
+
+def paged_case(gen: torch.Generator, lengths, hq: int, hkv: int, d: int,
+               ps: int, maxp: int, n_layers: int = 1, int8: bool = False,
+               device="cpu"):
+    """Random inputs of paged attention over a pool of n_layers layers:
+    (q f32 [R, Hq, D], k_pages, v_pages [L, Hkv, P, ps, D] bf16 or int8,
+    k_scale, v_scale [L, Hkv, P, ps, 1] f32 or None, lengths int32 [R],
+    tables int32 [R, maxp]). The pool has 1 + R*maxp pages; each row's
+    pages are drawn from a random permutation of pages 1.. (page 0 is the
+    trash page, left in unused table entries), so a kernel that read the
+    pages in order would read another row's."""
+    r = len(lengths)
+    n_pages = 1 + r * maxp
+    q = torch.randn((r, hq, d), generator=gen, device=device) * d ** -0.5
+    shape = (n_layers, hkv, n_pages, ps, d)
+    if int8:
+        kp, vp = (torch.randint(-127, 128, shape, generator=gen, device=device,
+                                dtype=torch.int8) for _ in range(2))
+        ks, vs = (torch.empty(shape[:-1] + (1,), device=device).uniform_(
+            2e-3, 2e-2, generator=gen) for _ in range(2))
+    else:
+        kp, vp = (torch.randn(shape, generator=gen, device=device).to(torch.bfloat16)
+                  for _ in range(2))
+        ks = vs = None
+    perm = torch.randperm(n_pages - 1, generator=gen, device=device) + 1
+    tables = torch.zeros((r, maxp), dtype=torch.int32, device=device)
+    for i, n in enumerate(lengths):
+        used = -(-int(n) // ps)
+        tables[i, :used] = perm[i * maxp:i * maxp + used].to(torch.int32)
+    lens = torch.tensor(list(lengths), dtype=torch.int32, device=device)
+    return q, kp, vp, ks, vs, lens, tables
+
+
+def paged_controls(q, kp, vp, ks, vs, lengths, tables, ps: int):
+    """The two faulty paged attentions that the kernel's tolerance must
+    reject, from the plain version: (one masked key made visible: lengths
+    + 1; each row's last page dropped from its table: that entry sent to
+    the trash page 0)."""
+    from .ops.attention import paged_attention_plain
+    more = paged_attention_plain(q, kp, vp, lengths + 1, tables, ks, vs)
+    dropped = tables.clone()
+    rows = torch.arange(tables.shape[0], device=tables.device)
+    dropped[rows, ((lengths.long() - 1) // ps)] = 0
+    return more, paged_attention_plain(q, kp, vp, lengths, dropped, ks, vs)

@@ -1,0 +1,1 @@
+"""Flags and logging of the port (own copies of the JAX package's)."""

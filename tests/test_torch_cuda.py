@@ -16,14 +16,18 @@ order against cuBLAS's f32 product. The flash prefill is held row by row
 (testing.row_rel_err) within 1.5e-2, two bf16 steps of an output: the
 kernel rounds p against its running max, the plain version against the
 row's maximum, and both round the output to bf16; a kernel that skipped the
-diagonal key tile reads above 0.75 and is rejected.
+diagonal key tile reads above 0.75 and is rejected. Paged attention is
+f32 on both sides over the same page values: it is held row by row within
+1e-5 of each (row, head)'s largest output, and its two faulty versions (one
+masked key made visible, each row's last page dropped) must fail that.
 """
 import pytest
 import torch
 
 from llamafile_tpu_torch.ops import attention as A
 from llamafile_tpu_torch.ops import qmatmul as Q
-from llamafile_tpu_torch.testing import (flash_prefill_tile_fault, rand_q4b, rand_q8b,
+from llamafile_tpu_torch.testing import (flash_prefill_tile_fault, paged_case,
+                                         paged_controls, rand_q4b, rand_q8b,
                                          rel_err, row_rel_err)
 
 pytestmark = pytest.mark.cuda
@@ -152,6 +156,31 @@ def test_flash_prefill_matches_plain(dev, t, hq, hkv, d):
     assert row_rel_err(fault, want) > 0.75          # the control fails the bound
 
 
+PAGED_LENGTHS = {1: [64], 3: [1, 63, 65],
+                 8: [1, 63, 64, 65, 700, 1024, 1500, 2048]}
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("r", [1, 3, 8])
+@pytest.mark.parametrize("hq,hkv", [(32, 8), (8, 8), (16, 4), (4, 2)])
+def test_paged_attention_matches_plain(dev, int8, r, hq, hkv):
+    gen = torch.Generator(device=dev).manual_seed(r * 100 + hq + hkv + int8)
+    ps, maxp = 64, 32
+    q, kp, vp, ks, vs, lens, tables = paged_case(
+        gen, PAGED_LENGTHS[r], hq, hkv, 128, ps, maxp, n_layers=2, int8=int8,
+        device=dev)
+    sc = (lambda t: None) if ks is None else (lambda t: t[1])
+    args = (q, kp[1], vp[1], lens, tables, sc(ks), sc(vs))
+    n0 = A.paged_attention.launches
+    got = A.paged_attention(*args)
+    assert A.paged_attention.launches == n0 + 1
+    want = A.paged_attention_plain(*args)
+    assert row_rel_err(got, want) <= 1e-5
+    for control in paged_controls(q, kp[1], vp[1], sc(ks), sc(vs), lens, tables, ps):
+        assert row_rel_err(control, want) > 1e-5
+    assert torch.equal(got, A.paged_attention(*args))    # fixed-order combine
+
+
 def test_wrapper_rejects_bad_inputs(dev):
     xq = torch.zeros(1, 256, dtype=torch.int8, device=dev)
     sx = torch.zeros(1, 8, device=dev)
@@ -165,3 +194,10 @@ def test_wrapper_rejects_bad_inputs(dev):
         Q.qmm_dequant(torch.zeros(40, 256, device=dev),
                       torch.zeros(256, 520, dtype=torch.int8, device=dev),
                       torch.zeros(8, 520, dtype=torch.bfloat16, device=dev))
+    q, kp, vp, _, _, lens, tables = paged_case(
+        torch.Generator(device=dev), [5], 8, 8, 128, 64, 4, device=dev)
+    with pytest.raises(ValueError):                           # D = 64
+        A.paged_attention(q[..., :64].contiguous(), kp[0, ..., :64].contiguous(),
+                          vp[0, ..., :64].contiguous(), lens, tables)
+    with pytest.raises(ValueError):                           # int64 tables
+        A.paged_attention(q, kp[0], vp[0], lens, tables.long())

@@ -158,7 +158,7 @@ def test_long_prompt_raises(engine, jax_long_generation):
 
 
 @pytest.mark.parametrize("option", [dict(repeat_penalty=1.1), dict(mirostat=2),
-                                    dict(tfs_z=0.9)])
+                                    dict(presence_penalty=0.5)])
 def test_unported_samplers_raise(engine, option):
     with pytest.raises(NotImplementedError):
         list(engine.generate(PROMPT, 4, SamplingParams(**option)))
@@ -166,7 +166,7 @@ def test_unported_samplers_raise(engine, option):
 
 def test_cli_unported_mode_exits(gguf):
     from llamafile_tpu_torch.cli import main
-    assert main(["--server", "-m", gguf]) == 2
+    assert main(["--chat", "-m", gguf]) == 2
 
 
 def test_cuda_engine_raises_without_a_card(engine):

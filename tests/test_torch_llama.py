@@ -115,7 +115,7 @@ def test_prefill_then_decode_matches_jax(pallas_kernels, t):
     jst, tst = JL.stack_layers(jp), TL.stack_layers(tp)
     toks = np.random.default_rng(t).integers(3, V, (1, t + 8)).astype(np.int32)
     jc = JL.init_cache(jcfg, 1, MAX_LEN)
-    tc = TL.init_cache(tcfg, 1, MAX_LEN)
+    tc = TL.init_cache(tcfg, 1, MAX_LEN, device="cpu")
     jlg, jc = j_forward(jst, jcfg, jnp.asarray(toks[:, :t]),
                         jnp.zeros((1,), jnp.int32), jc, fresh_prefill=True)
     tlg, tc = TL.forward(tst, tcfg, torch.from_numpy(toks[:, :t]),
@@ -146,7 +146,7 @@ def test_long_prefill_matches_jax(pallas_kernels, quant):
     assert tst.layers.w_gate_up.il == (quant == "Q4_K")
     t = 200
     toks = np.random.default_rng(t).integers(3, V, (1, t + 4)).astype(np.int32)
-    jc, tc = JL.init_cache(jcfg, 1, MAX_LEN), TL.init_cache(tcfg, 1, MAX_LEN)
+    jc, tc = JL.init_cache(jcfg, 1, MAX_LEN), TL.init_cache(tcfg, 1, MAX_LEN, device="cpu")
     last = np.asarray([t - 1], np.int32)
     jlg, jc = j_forward(jst, jcfg, jnp.asarray(toks[:, :t]), jnp.zeros((1,), jnp.int32),
                         jc, fresh_prefill=True, last_idx=jnp.asarray(last))
@@ -174,7 +174,7 @@ def test_second_prefill_chunk_matches_jax(pallas_kernels):
     tcfg, tp = carry_across(jcfg, jp)
     jst, tst = JL.stack_layers(jp), TL.stack_layers(tp)
     toks = np.random.default_rng(3).integers(3, V, (1, 32)).astype(np.int32)
-    jc, tc = JL.init_cache(jcfg, 1, MAX_LEN), TL.init_cache(tcfg, 1, MAX_LEN)
+    jc, tc = JL.init_cache(jcfg, 1, MAX_LEN), TL.init_cache(tcfg, 1, MAX_LEN, device="cpu")
     for p0, fresh in ((0, True), (16, False)):
         jlg, jc = j_forward(jst, jcfg, jnp.asarray(toks[:, p0:p0 + 16]),
                             jnp.asarray([p0], jnp.int32), jc, fresh_prefill=fresh)
@@ -189,4 +189,5 @@ def test_forward_rejects_unstacked_layers():
     tcfg, tp = carry_across(jcfg, jp)
     with pytest.raises(NotImplementedError, match="stack_layers"):
         TL.forward(tp, tcfg, torch.zeros((1, 16), dtype=torch.int32),
-                   torch.zeros(1, dtype=torch.int32), TL.init_cache(tcfg, 1, 64))
+                   torch.zeros(1, dtype=torch.int32),
+                   TL.init_cache(tcfg, 1, 64, device="cpu"))
