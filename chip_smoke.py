@@ -7,7 +7,8 @@
    parallel build of every CUDA kernel from llamafile_tpu_torch/csrc/.
 2. Each kernel at the shapes of the llama3-8b main paths (Q4_K decode and
    prefill, Q8_0 and Q6_K decode, long-prompt prefill, the serving step at
-   8 rows: qmm_txn at M = 8 and paged_attention over bf16 and int8 pages),
+   8 rows: qmm_txn at M = 8 and paged_attention over bf16 and int8 pages;
+   the unrolled prefill's qmm_planes; flash_decode over bf16 and int8),
    held against its plain PyTorch version on the same inputs (the
    tolerances of the CPU and card tests) and timed on the device: a run of launches cycling over
    enough layers of weights to spill the 50 MB L2 (as decode does) is
@@ -21,10 +22,14 @@
    decode steps, Q4_K with a 300-token prompt (bucket 512) and 2 decode
    steps, Q8_0 with a 24-token prompt (bucket 32) and 4 decode steps, and
    the paged decode (forward_paged_decode) of 4 rows admitted at prompts of
-   24, 64, 200 and 300 tokens, 4 steps. Each is traced op by op: for each step, the first product, quantization or
+   24, 64, 200 and 300 tokens, 4 steps; the Q4_K_M recipe at two layers
+   (layer 1 Q6_K V and down, unrolled) with a 300-token prompt and 4 decode
+   steps; Q4_K with a dense int8 KV cache, 32-token prompt, 4 steps. Each
+   is traced op by op: for each step, the first product, quantization or
    attention call where card and CPU part, and the largest parting; every
    product is rerun through its plain version on the card's own inputs and
-   must agree within its phase-2 limit.
+   must agree within its phase-2 limit, and so must every int8-cache
+   decode attention.
 4. The main paths at full width through Engine.generate, each with every
    launch count set to 0 just before it and read just after, and checked
    exactly:
@@ -33,6 +38,8 @@
       first token and the weight-read bound;
    4b. the same engine, a 1000-token prompt (bucket 1024): time to first
       token through the dequant GEMM and the flash prefill;
+   4d. phase 4's weights with a dense int8 KV cache: 64 tokens, decode
+      attention on flash_decode (32 launches a step);
    4c. make_synthetic_llama("llama3-8b", Q8_0, fused, 32 layers): greedy
       generate of 64 tokens from a 24-token prompt; decode rate against its
       weight-read bound, and time to first token.
@@ -44,6 +51,11 @@
    decode step at 8 rows against its bound, peak memory; exact launches
    from the batcher's own tallies; six requests served again one at a time
    by a fresh batcher must give the same token ids.
+6. llama3-8b by llama.cpp's Q4_K_M recipe (testing.make_q4_k_m_llama: 16
+   of 32 layers with Q6_K V and down, Q6_K head), unrolled, through
+   Engine.generate (64 tokens from a 24-token prompt, then the 1000-token
+   prompt's TTFT on qmm_planes) and the HTTP server at 4 slots (4 greedy
+   requests, each against itself served alone), launches exact.
    Then, after every timed run (so that no profiler session of the process
    precedes a timing), profiles: one 8-step decode chunk of
    each model under torch.profiler (the device's busy share of a step) and
@@ -51,10 +63,11 @@
    time by kernel), and one fused 8-row serving chunk (busy share).
 
 Any failure raises and exits non-zero. The last line of standard output is
-{"ok": true, "device": {...}}; the lines before it hold the kernel table
-(one JSON object with an entry a kernel: the numbers of its first shape, the
-main path's heaviest, every measured shape under "shapes", and its launches
-summed over the runs of phases 4 and 5) and the card's name and power limit.
+{"ok": true, "device": {...}}; the lines before it hold every kernel's
+launches summed over the counted runs of phases 4 to 6 ({"launches": ...}),
+the kernel table (one JSON object with an entry a kernel: the numbers of
+its first shape, the main path's heaviest, every measured shape under
+"shapes", and those launches) and the card's name and power limit.
 """
 from __future__ import annotations
 
@@ -87,6 +100,10 @@ PAGED_ROW_TOL = 1e-5              # of each (row, head)'s largest output
 # one-hot softmax also hides the faulty controls there (a key made visible
 # or a page dropped carries no weight): phase 2 holds those.
 PAGED_PATH_TOL = 1e-3
+PLANES_TOL = 1e-3                 # f32 out, as the dequant GEMM
+PLANES_BF16_TOL = 2 ** -7         # bf16 out: one bf16 step of the largest
+DECODE_BF16_ROW_TOL = 2e-2        # p rounded to bf16 against another max
+DECODE_INT8_ROW_TOL = 1e-5        # all f32 on the same values
 KV_BYTES_PER_TOKEN = 32 * 8 * 128 * 2 * 2    # llama3-8b bf16 K and V, 32 layers
 
 
@@ -155,8 +172,8 @@ def kernel_phases(torch, dev, gen):
     from llamafile_tpu_torch.ops import attention as A
     from llamafile_tpu_torch.ops.repack import q4b_codes
     from llamafile_tpu_torch.testing import (flash_prefill_tile_fault, paged_case,
-                                             paged_controls, rand_q4b, rand_q8b,
-                                             row_rel_err)
+                                             paged_controls, planes_fault, rand_q4b,
+                                             rand_q8b, rel_err, row_rel_err)
     rows = {}
 
     def dequant_bf16(qs, sc, b):
@@ -279,6 +296,40 @@ def kernel_phases(torch, dev, gen):
               "llamafile_tpu/ops/qmatmul.py:1761", f"{kind} {label} M={m} N={n} K={k}",
               err, ms, plain, lib, wbytes + 2 * m * k + 4 * m * n, 2 * m * n * k,
               BF16_FLOP_PER_S)
+        del qs, sc
+        torch.cuda.empty_cache()
+
+    # --- qmm_planes: the unrolled (Q4_K_M) prefill GEMM, unstacked q4b ---
+    # phase 6's 1000-token prompt runs all four at M = 1024 (bf16 out);
+    # M = 128 is a 128-token bucket (f32 out). The control swaps each
+    # superblock's lo and hi scale rows.
+    for m, label, n, k, layers in ((1024, "gate_up", 28672, 4096, 2),
+                                   (1024, "down", 4096, 14336, 3),
+                                   (1024, "qkv", 6144, 4096, 8),
+                                   (1024, "o", 4096, 4096, 12),
+                                   (128, "qkv", 6144, 4096, 8)):
+        qs, sc, _ = rand_q4b(gen, layers, n, k, dev)
+        x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+        got = Q.qmm_planes(x, qs[0], sc[0])
+        want = Q.qmm_planes_plain(x, qs[0], sc[0])
+        torch.cuda.synchronize()
+        tol = PLANES_TOL if m < 256 else PLANES_BF16_TOL
+        err = check_close(f"qmm_planes/{label}/M={m} ({got.dtype})", got, want, tol)
+        ctl = rel_err(planes_fault(x, qs[0], sc[0]), want)
+        log(f"  qmm_planes/{label}/M={m}: swapped-scale-rows control {ctl:.6g} (must exceed {tol})")
+        if not ctl > tol:
+            raise AssertionError(f"qmm_planes {label}: the faulty control passes")
+        del got, want
+        ms = time_ms(torch, lambda i: Q.qmm_planes(x, qs[i], sc[i]), layers)
+        plain = time_ms(torch, lambda i: Q.qmm_planes_plain(x, qs[i], sc[i]), layers)
+        w = torch.stack([Q.dequant_bf16(qs[i], sc[i]) for i in range(layers)])
+        lib = time_ms(torch, lambda i: torch.matmul(x, w[i]), layers)
+        del w
+        entry("qmm_planes", "llamafile_tpu_torch/csrc/qmm_planes.cu",
+              "llamafile_tpu/ops/qmatmul.py:117", f"{label} M={m} N={n} K={k}",
+              err, ms, plain, lib,
+              qs[0].numel() + sc[0].numel() * 2 + 2 * m * k + (2 if m >= 256 else 4) * m * n,
+              2 * m * n * k, BF16_FLOP_PER_S)
         del qs, sc
         torch.cuda.empty_cache()
 
@@ -406,6 +457,77 @@ def kernel_phases(torch, dev, gen):
     del k3, v3
     torch.cuda.empty_cache()
 
+    # --- flash_decode: decode attention over one layer of a dense cache ---
+    # bf16 flat [L, B, S, Hkv*D] (the qt contract, flash_decode_stacked) and
+    # int8 [L, B, S, Hkv, D] codes with f32 scales (phase 4d's cache), 32
+    # layers so the replays spill the L2; pos near the end of s_eff. The
+    # controls: one masked key made visible, and the second half of the
+    # visible keys dropped.
+    nl, hq, hkv, hd = 32, 32, 8, 128
+    scale = hd ** -0.5
+    for int8 in (False, True):
+        for s_eff in (1024, 2048):
+            pos = s_eff - 5
+            label = f"{'int8 + f32 scales' if int8 else 'bf16 flat'}, s_eff={s_eff} pos={pos}"
+            q = torch.randn((1, hq, hd), generator=gen, device=dev)
+            p = torch.tensor([pos], dtype=torch.int32, device=dev)
+            if int8:
+                kc, vc = (torch.randint(-127, 128, (nl, 1, s_eff, hkv, hd), generator=gen,
+                                        device=dev, dtype=torch.int8) for _ in range(2))
+                ksc, vsc = (torch.empty((nl, 1, s_eff, hkv), device=dev).uniform_(
+                    2e-3, 2e-2, generator=gen) for _ in range(2))
+                run = lambda i, pp=p: A.flash_decode(q, kc[i], vc[i], pp, scale,
+                                                     k_scale=ksc[i], v_scale=vsc[i])
+                plain_fn = lambda i, pp=p: A.flash_decode_plain(q, kc[i], vc[i], pp, scale,
+                                                                k_scale=ksc[i], v_scale=vsc[i])
+                kv_bytes = 2 * (pos + 1) * hkv * (hd + 4)
+                tol = DECODE_INT8_ROW_TOL
+            else:
+                kc, vc = ((torch.randn((nl, 1, s_eff, hkv * hd), generator=gen, device=dev)
+                           ).to(torch.bfloat16) for _ in range(2))
+                run = lambda i, pp=p: A.flash_decode_stacked(q, kc, vc, i, pp, scale, hkv)
+                plain_fn = lambda i, pp=p: A.flash_decode_stacked_plain(
+                    q, kc, vc, i, pp, scale, hkv, s_eff)
+                kv_bytes = 2 * (pos + 1) * hkv * hd * 2
+                tol = DECODE_BF16_ROW_TOL
+            got, want = run(5), plain_fn(5)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            row = row_rel_err(got, want)
+            ctl = [row_rel_err(plain_fn(5, p + 1), want), row_rel_err(plain_fn(5, p // 2), want)]
+            held = ctl if int8 else ctl[1:]       # bf16: one key moves less than p's rounding
+            log(f"  flash_decode/{label}: max_abs_err {err:.6g}; per row {row:.6g} of the "
+                f"row's max (tol {tol}); controls (one masked key visible, half the keys "
+                f"dropped) {ctl[0]:.6g}, {ctl[1]:.6g}")
+            if not row <= tol < min(held):
+                raise AssertionError(f"flash_decode {label}: row error {row}, controls {ctl}")
+            if not torch.equal(got, run(5)):
+                raise AssertionError("flash_decode: two runs on the same inputs differ")
+            ms = time_ms(torch, run, nl)
+            plain = time_ms(torch, plain_fn, nl)
+            # the library yardstick: sdpa over the visible K/V, dequantized to
+            # f32 (int8) or kept bf16 beforehand (not timed)
+            def dense(c, s, i):
+                x = c[i, 0, :pos + 1].reshape(pos + 1, hkv, hd)
+                x = x.float() * s[i, 0, :pos + 1][..., None] if s is not None else x
+                return x.transpose(0, 1)[None]                     # [1, Hkv, S, D]
+            kd = [dense(kc, ksc if int8 else None, i) for i in range(nl)]
+            vd = [dense(vc, vsc if int8 else None, i) for i in range(nl)]
+            qd = (q if int8 else q.to(torch.bfloat16)).reshape(1, hq, 1, hd)
+            lib_fn = lambda i: sdpa(qd, kd[i], vd[i], scale=scale, enable_gqa=True)
+            lib = time_ms(torch, lib_fn, nl)
+            check_close(f"flash_decode/{label} vs sdpa (yardstick sanity)",
+                        got.reshape(1, hq, 1, hd), lib_fn(5), 2e-2)
+            entry("flash_decode", "llamafile_tpu_torch/csrc/flash_decode.cu",
+                  "llamafile_tpu/ops/attention.py:117",
+                  f"B=1 Hq={hq} Hkv={hkv} D={hd} {label} (library: sdpa on K/V "
+                  "dequantized beforehand)", err, ms, plain, lib,
+                  kv_bytes + 2 * hq * hd * 4 + 4, 4 * (pos + 1) * hq * hd, F32_FLOP_PER_S)
+            del kc, vc, kd, vd, got, want
+            if int8:
+                del ksc, vsc
+            torch.cuda.empty_cache()
+
     # --- paged_attention: the serving decode attention, 8 rows ------------
     # a pool of 32 layers, so the replays over layers spill the L2 as the
     # fused step does; tables shuffled over the pool's pages
@@ -466,12 +588,14 @@ def kernel_phases(torch, dev, gen):
 
 
 def _to(params, dev):
+    """A copy of params on dev, stacked (one LlamaLayer) or unrolled (a list)."""
     import dataclasses
     from llamafile_tpu_torch.models.llama import LlamaParams
     mv = lambda v: None if v is None else v.to(dev)
-    layers = dataclasses.replace(params.layers, **{
-        f.name: mv(getattr(params.layers, f.name))
-        for f in dataclasses.fields(params.layers)})
+    layer_to = lambda l: dataclasses.replace(l, **{
+        f.name: mv(getattr(l, f.name)) for f in dataclasses.fields(l)})
+    layers = ([layer_to(l) for l in params.layers] if isinstance(params.layers, list)
+              else layer_to(params.layers))
     return LlamaParams(params.tok_embd.to(dev), layers, params.out_norm.to(dev),
                        params.output.to(dev))
 
@@ -481,8 +605,9 @@ def op_trace(rec):
     """While open, every product (qmatmul, qmatmul_moe), activation
     quantization (its int8 codes) and attention call of the forward appends
     (label, output on the CPU, inputs) to the list rec[-1], in call order.
-    Inputs are kept for the prefill and paged attention (on the CPU) and
-    for the products (x on the CPU, the other arguments as they are), so
+    Inputs are kept for the prefill, int8-cache decode and paged attention
+    (on the CPU: the positional arguments, then a dict of the keyword ones)
+    and for the products (x on the CPU, the other arguments as they are), so
     that each can be rerun on the other side's inputs. Nothing inside the
     fused FFN is kept: its plain version quantizes its hidden activations
     in torch, the kernel inside itself."""
@@ -502,20 +627,22 @@ def op_trace(rec):
             finally:
                 inside[0] -= opaque
             if not inside[0]:
+                cpu = lambda t: t.cpu() if hasattr(t, "cpu") else t
                 ins = ({"x": a[0].cpu(), "args": a[1:], "kw": kw} if keep_inputs == "call"
-                       else [t.cpu() if hasattr(t, "cpu") else t for t in a]
+                       else [cpu(t) for t in a] + [{k: cpu(t) for k, t in kw.items()}]
                        if keep_inputs else None)
                 rec[-1].append((label(*a), (out[0] if isinstance(out, tuple) else out).cpu(),
                                 ins))
             return out
         setattr(mod, name, traced)
-    wrap(LM, "qmatmul", lambda x, qt, li=None, *_: "lm head" if li is None
-         else f"L{li} product N={qt.shape[0]}", keep_inputs="call")
+    wrap(LM, "qmatmul", lambda x, qt, li=None, *_: f"product N={qt.shape[0]}"
+         + ("" if li is None else f" layer {li}"), keep_inputs="call")
     wrap(LM, "qmatmul_moe", lambda x, gu, dn, rows, *_: f"L{rows[0]} fused ffn", True,
          keep_inputs="call")
     wrap(Q, "quantize_activations_g32", lambda x, *_: f"codes M={x.shape[0]} K={x.shape[1]}")
     wrap(LM, "flash_prefill", lambda *_: "prefill attention", keep_inputs=True)
     wrap(LM, "flash_decode_write_stacked", lambda *a: f"L{a[5]} decode attention")
+    wrap(LM, "flash_decode", lambda *a, **kw: "int8 decode attention", keep_inputs=True)
     wrap(PG, "paged_attend", lambda *a, **kw: "paged attention", keep_inputs=True)
     try:
         yield
@@ -532,11 +659,12 @@ def trace_report(steps_card, steps_cpu):
     input and the CPU's copy of the weights. Returns (lines, {route: the
     largest parting of a product from its plain version on the same
     inputs}) for the int8-activation GEMVs and qmm_txn ("int8"), the
-    dequant GEMM ("dequant") and the fused FFN ("ffn"): a fault in a product
-    kernel shows there, whatever parted before it."""
+    dequant GEMM ("dequant"), the two-plane GEMM of unstacked q4b weights
+    ("planes") and the fused FFN ("ffn"): a fault in a product kernel shows
+    there, whatever parted before it."""
     from llamafile_tpu_torch.models import llama as LM
     from llamafile_tpu_torch.testing import rel_err
-    lines, same = [], {"int8": 0.0, "dequant": 0.0, "ffn": 0.0}
+    lines, same = [], {"int8": 0.0, "dequant": 0.0, "planes": 0.0, "ffn": 0.0}
     for i, (card, cpu) in enumerate(zip(steps_card, steps_cpu)):
         n_q = flips = q_flipped = 0
         first, worst = None, (0.0, "")
@@ -548,6 +676,7 @@ def trace_report(steps_card, steps_cpu):
                 qt, m = ib["args"][0], ia["x"].shape[0]
                 route = ("ffn" if "fused ffn" in lab else None if qt.kind == "dense"
                          else "int8" if m == 1 or (qt.kind == "q4b" and m <= 32)
+                         else "planes" if qt.kind == "q4b" and qt.qs.ndim == 2
                          else "dequant")
                 if route:
                     same[route] = max(same[route], e_same)
@@ -571,7 +700,10 @@ def trace_report(steps_card, steps_cpu):
     return lines, same
 
 
-SAME_INPUT_TOL = {"int8": 1e-5, "dequant": 1e-3, "ffn": 2e-3}   # phase 2's limits
+# phase 2's limits; planes: its bf16 output, then the bias term added in
+# bf16, each a rounding of up to one bf16 step of the largest output
+SAME_INPUT_TOL = {"int8": 1e-5, "dequant": 1e-3, "planes": 2 * PLANES_BF16_TOL,
+                  "ffn": 2e-3}
 
 
 def check_same_input(what, same):
@@ -617,24 +749,32 @@ def prefill_attention_report(torch, dev, card, cpu):
     return lines
 
 
-def whole_path_check(torch, dev, quant="Q4_K", n_prompt=32, n_decode=8):
+def whole_path_check(torch, dev, quant="Q4_K", n_prompt=32, n_decode=8,
+                     kv_dtype="bf16"):
     """Two layers at llama3-8b width: card (kernels) vs CPU (plain versions).
-    The prompt is padded to its prefill bucket, as Engine.prefill does.
-    Every op's output is kept on both sides, and trace_report's lines are
-    logged: the op at which card and CPU first part in each step."""
+    quant "Q4_K_M" is the Q4_K_M recipe at two layers (layer 1 holds the
+    Q6_K V and down), unrolled; the others are stacked. The prompt is padded
+    to its prefill bucket, as Engine.prefill does. Every op's output is kept
+    on both sides, and trace_report's lines are logged: the op at which card
+    and CPU first part in each step."""
     from llamafile_tpu_torch.models.llama import forward, init_cache, stack_layers
     from llamafile_tpu_torch.models.synthetic import make_synthetic_llama
     from llamafile_tpu_torch.runtime.engine import bucket_len
-    cfg, params = make_synthetic_llama("llama3-8b-2l", quant, seed=1, fuse=True,
-                                       device=dev)
+    from llamafile_tpu_torch.testing import make_q4_k_m_llama
+    if quant == "Q4_K_M":
+        cfg, params = make_q4_k_m_llama("llama3-8b-2l", seed=1, device=dev)
+    else:
+        cfg, params = make_synthetic_llama("llama3-8b-2l", quant, seed=1, fuse=True,
+                                           device=dev)
     gpu = stack_layers(params)
+    what = f"{quant}{'' if kv_dtype == 'bf16' else ' ' + kv_dtype + ' KV'}"
     cpu = _to(gpu, "cpu")
     bucket = bucket_len(n_prompt)
     toks = torch.zeros((1, bucket), dtype=torch.int64)
     toks[0, :n_prompt] = torch.randint(3, cfg.n_vocab, (n_prompt,),
                                        generator=torch.Generator().manual_seed(2))
     max_len = max(256, bucket + n_decode)
-    caches = {d: init_cache(cfg, 1, max_len, device=d) for d in ("cuda", "cpu")}
+    caches = {d: init_cache(cfg, 1, max_len, kv_dtype, device=d) for d in ("cuda", "cpu")}
     logits = {"cuda": [], "cpu": []}
     rec = {"cuda": [], "cpu": []}
 
@@ -654,19 +794,43 @@ def whole_path_check(torch, dev, quant="Q4_K", n_prompt=32, n_decode=8):
         nxt = int(logits["cuda"][-1].argmax())
     lines, same = trace_report(rec["cuda"], rec["cpu"])
     for line in lines:
-        log(f"  {quant} trace {line}")
-    check_same_input(f"{quant} prompt {n_prompt}", same)
+        log(f"  {what} trace {line}")
+    check_same_input(f"{what} prompt {n_prompt}", same)
     for line in prefill_attention_report(torch, dev, rec["cuda"][0], rec["cpu"][0]):
-        log(f"  {quant} trace {line}")
+        log(f"  {what} trace {line}")
+    for line in decode_attention_report(torch, dev, rec["cuda"]):
+        log(f"  {what} trace {line}")
     del rec
     for i, (a, b) in enumerate(zip(logits["cuda"], logits["cpu"])):
         rel = ((a - b).abs().max() / b.abs().max()).item()
-        log(f"  {quant} prompt {n_prompt} (bucket {bucket}) step {i}: top-1 card "
+        log(f"  {what} prompt {n_prompt} (bucket {bucket}) step {i}: top-1 card "
             f"{int(a.argmax())} cpu {int(b.argmax())}, max |diff| / max |logit| = {rel:.3g}")
         if int(a.argmax()) != int(b.argmax()) or rel > 2e-2:
-            raise AssertionError(f"whole path {quant} step {i}: card and CPU disagree")
+            raise AssertionError(f"whole path {what} step {i}: card and CPU disagree")
     del gpu, cpu, params
     torch.cuda.empty_cache()
+
+
+def decode_attention_report(torch, dev, steps):
+    """Each int8-cache decode attention call of a traced run (flash_decode)
+    rerun through the kernel and its plain version on the card's own inputs:
+    within DECODE_INT8_ROW_TOL per row."""
+    from llamafile_tpu_torch.ops import attention as A
+    from llamafile_tpu_torch.testing import row_rel_err
+    worst, n = 0.0, 0
+    for step in steps:
+        for lab, _, ins in step:
+            if lab != "int8 decode attention":
+                continue
+            q, k, v, pos, scale = [t.to(dev) if hasattr(t, "to") else t for t in ins[:5]]
+            kw = {name: t.to(dev) for name, t in ins[5].items()}
+            worst = max(worst, row_rel_err(A.flash_decode(q, k, v, pos, scale, **kw),
+                                           A.flash_decode_plain(q, k, v, pos, scale, **kw)))
+            n += 1
+    if n and worst > DECODE_INT8_ROW_TOL:
+        raise AssertionError(f"flash_decode on the path's inputs: {worst}")
+    return [f"{n} int8 decode attention calls: kernel vs plain on the card's inputs "
+            f"{worst:.3g} per row (tol {DECODE_INT8_ROW_TOL})"] if n else []
 
 
 def paged_path_check(torch, dev, prompts=(24, 64, 200, 300), n_decode=4):
@@ -851,6 +1015,16 @@ def main_path(torch, dev):
         ttfts.append(ttft_b * 1e3)
     log(f"  time to first token, 1000-token prompt: {statistics.median(ttfts):.2f} ms "
         f"(median of {', '.join(f'{t:.2f}' for t in ttfts)} ms)")
+    log("phase 4d: the same stacked Q4_K weights, dense int8 KV cache, Engine.generate")
+    from llamafile_tpu_torch.runtime.engine import Engine
+    eng8 = Engine(eng.cfg, eng.params, eng.tokenizer, max_seq_len=2048, kv_dtype="int8",
+                  device=dev)
+    _, counts_d, ttft, decode_s = counted_generate(torch, eng8, prompt, n_new)
+    check_counts(counts_d, {"qmm_txn_m1": 1 + 65 * steps, "qmm_txn": 4 * n_layers,
+                            "qmm_moe_m1": 64 * steps, "flash_decode": n_layers * steps},
+                 "phase 4d")
+    decode_report(torch, read, steps, ttft, decode_s, "24-token prompt, bucket 32, int8 KV")
+    del eng8
     log("phase 5: serving, the port's HTTP server over the same engine, 8 slots")
     counts_5, step_5 = serving_phase(torch, eng, read)
     del eng
@@ -864,6 +1038,10 @@ def main_path(torch, dev):
                             "flash_decode_write_stacked": n_layers * steps}, "phase 4c")
     step_q8 = decode_report(torch, read, steps, ttft, decode_s, "24-token prompt, bucket 32")
 
+    log("phase 6: main path, llama3-8b Q4_K_M, 32 layers unrolled, Engine.generate "
+        "and the HTTP server")
+    counts_6 = q4km_phase(torch, dev, prompt, long_prompt, n_new)
+
     log("profiles of phase 4c's Q8_0 decode, then of phase 4 and 4b on a rebuilt "
         "Q4_K engine")
     device_busy(torch, eng, prompt, sp, step_q8)
@@ -875,7 +1053,7 @@ def main_path(torch, dev):
     fused_profile(torch, eng, step_5)
     del eng
     torch.cuda.empty_cache()
-    return [counts, counts_b, counts_c, counts_5]
+    return [counts, counts_b, counts_d, counts_c, counts_5] + counts_6
 
 
 SERVE_LENGTHS = (24, 128, 500, 1000)
@@ -952,17 +1130,13 @@ def _alone_tokens(batcher, ids, sp):
             raise AssertionError(f"alone run: {val}")
 
 
-def serving_phase(torch, eng, read):
-    """Phase 5: the port's Server at full width, 8 slots, 16 requests from 8
-    client threads. Returns (the launch counts of the counted run, the fused
-    8-row step's time in ms)."""
+@contextlib.contextmanager
+def running_server(srv):
+    """The port's HTTP server srv on a free 127.0.0.1 port, in a thread of
+    this process, until the block ends; yields its base URL."""
     import asyncio
-    from concurrent.futures import ThreadPoolExecutor
-    from llamafile_tpu_torch.ops import kernel_wrappers, reset_launch_counts
-    from llamafile_tpu_torch.server.batcher import Batcher
-    from llamafile_tpu_torch.server.http import Server, _amain
-    from llamafile_tpu_torch.utils.flags import Flags
-    srv = Server(Flags(model="synthetic-llama3-8b-q4k", slots=8, temp=0.0), eng)
+    import urllib.request
+    from llamafile_tpu_torch.server.http import _amain
     port = _free_port()
     loop = asyncio.new_event_loop()
 
@@ -975,17 +1149,35 @@ def serving_phase(torch, eng, read):
     th = threading.Thread(target=run, daemon=True)
     th.start()
     base = f"http://127.0.0.1:{port}"
-    gen = torch.Generator().manual_seed(7)
-    prompts = [torch.randint(3, eng.cfg.n_vocab, (SERVE_LENGTHS[i % 4],),
-                             generator=gen).tolist() for i in range(16)]
     try:
-        import urllib.request
         for _ in range(600):
             try:
                 urllib.request.urlopen(base + "/health", timeout=5)
                 break
             except Exception:
                 time.sleep(0.1)
+        yield base
+    finally:
+        loop.call_soon_threadsafe(loop.stop)
+        th.join(timeout=30)
+        srv.batcher.shutdown()
+        srv.pool.shutdown(wait=False)
+
+
+def serving_phase(torch, eng, read):
+    """Phase 5: the port's Server at full width, 8 slots, 16 requests from 8
+    client threads. Returns (the launch counts of the counted run, the fused
+    8-row step's time in ms)."""
+    from concurrent.futures import ThreadPoolExecutor
+    from llamafile_tpu_torch.ops import kernel_wrappers, reset_launch_counts
+    from llamafile_tpu_torch.server.batcher import Batcher
+    from llamafile_tpu_torch.server.http import Server
+    from llamafile_tpu_torch.utils.flags import Flags
+    srv = Server(Flags(model="synthetic-llama3-8b-q4k", slots=8, temp=0.0), eng)
+    gen = torch.Generator().manual_seed(7)
+    prompts = [torch.randint(3, eng.cfg.n_vocab, (SERVE_LENGTHS[i % 4],),
+                             generator=gen).tolist() for i in range(16)]
+    with running_server(srv) as base:
         # warm-up (first launches at these shapes, allocator): not counted
         warm = torch.randint(3, eng.cfg.n_vocab, (40,), generator=gen).tolist()
         _serve_request(base, 0, warm, False)
@@ -1032,11 +1224,6 @@ def serving_phase(torch, eng, read):
         check_counts(counts, expect, "phase 5")
         if not srv.batcher.alive():
             raise AssertionError("phase 5: the batcher's device thread died")
-    finally:
-        loop.call_soon_threadsafe(loop.stop)
-        th.join(timeout=30)
-        srv.batcher.shutdown()
-        srv.pool.shutdown(wait=False)
     # the same requests alone, one after another, on a fresh 8-slot batcher
     greedy = [next(i for i in range(16) if SERVE_LENGTHS[i % 4] == n and i not in
                    SERVE_SAMPLED and i not in SERVE_CHAT) for n in SERVE_LENGTHS]
@@ -1059,6 +1246,117 @@ def serving_phase(torch, eng, read):
     del srv, alone
     torch.cuda.empty_cache()
     return counts, fused_step(torch, eng, read)
+
+
+Q4KM_SERVED = (0, 2, 3, 5)          # phase 5's greedy request indices: 2 streamed
+
+
+def q4km_phase(torch, dev, prompt, long_prompt, n_new):
+    """Phase 6: llama3-8b by the Q4_K_M recipe, 32 layers, unrolled, through
+    Engine.generate (24-token prompt, n_new greedy tokens; then the
+    1000-token prompt's TTFT) and the HTTP server at 4 slots (4 greedy
+    requests, each against the same request served alone). Launch counts
+    exact, from the recipe's layer list. Returns the counted runs' counts."""
+    from concurrent.futures import ThreadPoolExecutor
+    from llamafile_tpu_torch.models.synthetic import decode_read_bytes
+    from llamafile_tpu_torch.ops import kernel_wrappers, reset_launch_counts
+    from llamafile_tpu_torch.runtime.engine import Engine
+    from llamafile_tpu_torch.runtime.tokenizer import Tokenizer
+    from llamafile_tpu_torch.server.batcher import Batcher
+    from llamafile_tpu_torch.server.http import Server
+    from llamafile_tpu_torch.testing import make_q4_k_m_llama, use_more_bits
+    from llamafile_tpu_torch.utils.flags import Flags
+    t0 = time.time()
+    cfg, params = make_q4_k_m_llama("llama3-8b", seed=0, device=dev)
+    eng = Engine(cfg, params, Tokenizer({}), max_seq_len=2048, device=dev)
+    del params
+    n = cfg.n_layers
+    six = [i for i in range(n) if use_more_bits(i, n)]
+    n6 = len(six)
+    if not isinstance(eng.params.layers, list):
+        raise AssertionError("phase 6: the Q4_K_M layers were stacked")
+    torch.cuda.synchronize()
+    read = decode_read_bytes(eng.params, cfg)
+    log(f"  built llama3-8b Q4_K_M ({n} layers, unrolled; attn_v and ffn_down Q6_K "
+        f"in layers {six}, output Q6_K) in {time.time() - t0:.1f} s; decode reads "
+        f"{read / 1e9:.3f} GB of weights a step")
+    steps = n_new - 1
+    # a step: four q4b GEMVs a layer (qkv or q and k, o, gate|up, down of the
+    # Q4_K layers), the Q6_K V and down and the head on the q8b GEMV; a
+    # bucket-32 prompt: the same products on qmm_txn and the dequant GEMM
+    _, counts, ttft, decode_s = counted_generate(torch, eng, prompt, n_new)
+    check_counts(counts, {"qmm_txn_m1": 4 * n * steps, "qmm_q8_m1": 1 + (2 * n6 + 1) * steps,
+                          "flash_decode_write_stacked": n * steps, "qmm_txn": 4 * n,
+                          "qmm_dequant": 2 * n6}, "phase 6")
+    decode_report(torch, read, steps, ttft, decode_s, "24-token prompt, bucket 32")
+    ttfts = []
+    for _ in range(3):
+        _, counts_b, ttft_b, _ = counted_generate(torch, eng, long_prompt, 1)
+        check_counts(counts_b, {"qmm_planes": 4 * n, "qmm_dequant": 2 * n6,
+                                "flash_prefill": n, "qmm_q8_m1": 1}, "phase 6, 1000 tokens")
+        ttfts.append(ttft_b * 1e3)
+    log(f"  time to first token, 1000-token prompt: {statistics.median(ttfts):.2f} ms "
+        f"(median of {', '.join(f'{t:.2f}' for t in ttfts)} ms)")
+
+    log("  the HTTP server on this engine, 4 slots, 4 greedy requests")
+    srv = Server(Flags(model="synthetic-llama3-8b-q4_k_m", slots=4, temp=0.0), eng)
+    gen = torch.Generator().manual_seed(8)
+    prompts = {i: torch.randint(3, cfg.n_vocab, (SERVE_LENGTHS[k],), generator=gen).tolist()
+               for k, i in enumerate(Q4KM_SERVED)}
+    with running_server(srv) as base:
+        # warm-up (not counted), a prompt that shares no prefix with the
+        # requests: a reused prefix would admit request 0 by another path
+        _serve_request(base, 0, torch.randint(3, cfg.n_vocab, (40,), generator=gen).tolist(),
+                       False)
+        torch.cuda.synchronize()
+        st0 = copy.deepcopy(srv.batcher.stats)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(4) as ex:
+            results = dict(zip(Q4KM_SERVED, ex.map(
+                lambda i: _serve_request(base, i, prompts[i], False), Q4KM_SERVED)))
+        wall = time.perf_counter() - t0
+        counts_s = {w.__name__: w.launches for w in kernel_wrappers()}
+        st1 = srv.batcher.stats
+        errors = [(i, r[3]) for i, r in results.items() if r[3]]
+        if errors:
+            raise AssertionError(f"phase 6 requests failed: {errors}")
+        n_out = sum(r[1]["completion_tokens"] for r in results.values())
+        log(f"  4 requests (prompts {SERVE_LENGTHS}), {n_out} tokens out in {wall:.3f} s: "
+            f"{n_out / wall:.2f} output tok/s")
+        delta = lambda k: {b: c - st0[k].get(b, 0) for b, c in st1[k].items()}
+        dsteps = st1["decode_steps"] - st0["decode_steps"]
+        sl, fr = delta("slices_by_bucket"), delta("fresh_slices_by_bucket")
+        allb = {b: sl.get(b, 0) + fr.get(b, 0) for b in set(sl) | set(fr)}
+        small = sum(c for b, c in allb.items() if b <= 32)
+        big = sum(c for b, c in allb.items() if b >= 64)
+        log(f"  batcher tallies: {dsteps} fused decode steps at 4 rows, admission slices "
+            f"by bucket {allb} (fresh {fr})")
+        # a 4-row step: q4b products on qmm_txn, Q6_K ones and the head on
+        # the dequant GEMM; a slice: qmm_txn (bucket <= 32) or qmm_planes
+        # (>= 64) and the dequant GEMM, the head at M = 1 on the q8b GEMV
+        check_counts(counts_s, {
+            "paged_attention": n * dsteps,
+            "qmm_txn": 4 * n * (dsteps + small),
+            "qmm_dequant": (2 * n6 + 1) * dsteps + 2 * n6 * (small + big),
+            "qmm_planes": 4 * n * big,
+            "flash_prefill": n * sum(c for b, c in fr.items() if b >= 128),
+            "qmm_q8_m1": small + big}, "phase 6 serving")
+    alone = Batcher(eng, rows=4)
+    try:
+        for i in Q4KM_SERVED:
+            toks = _alone_tokens(alone, prompts[i], srv._sp({"temperature": 0.0}))
+            same = toks == results[i][0]
+            log(f"  request {i} (prompt {len(prompts[i])}): alone {len(toks)} tokens, "
+                f"{'the same ids' if same else 'DIFFERENT ids'} as served beside the others")
+            if not same:
+                raise AssertionError(f"phase 6 request {i}: {toks} alone, "
+                                     f"{results[i][0]} served")
+    finally:
+        alone.shutdown()
+    del srv, alone, eng
+    torch.cuda.empty_cache()
+    return [counts, counts_b, counts_s]
 
 
 FUSED_LENGTHS = (88, 192, 564, 1064) * 2      # the phase's prompts + 64 tokens
@@ -1240,15 +1538,19 @@ def main() -> int:
     whole_path_check(torch, dev, "Q4_K", n_prompt=300, n_decode=2)
     whole_path_check(torch, dev, "Q8_0", n_prompt=24, n_decode=4)
     paged_path_check(torch, dev)
+    whole_path_check(torch, dev, "Q4_K_M", n_prompt=300, n_decode=4)
+    whole_path_check(torch, dev, "Q4_K", n_prompt=32, n_decode=4, kv_dtype="int8")
     log("phase 4: main path, llama3-8b Q4_K, 32 layers, Engine.generate")
     runs = main_path(torch, dev)
+    launched = {name: sum(c[name] for c in runs) for name in runs[0]}
     for r in rows:
         key = "flash_decode_write_stacked" if r["name"] == "flash_decode_write" else r["name"]
-        r["launches"] = sum(c[key] for c in runs)
+        r["launches"] = launched[key]
         if r["launches"] == 0:
             raise AssertionError(f"{r['name']} was launched by no main-path run")
     if len(rows) != len(_build.SOURCES):
         raise AssertionError(f"{len(rows)} kernels measured, {len(_build.SOURCES)} built")
+    print(json.dumps({"launches": launched}))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

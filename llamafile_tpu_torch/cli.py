@@ -2,6 +2,7 @@
 
   python -m llamafile_tpu_torch.cli --model m.gguf --cli -p "..." -n 32
   python -m llamafile_tpu_torch.cli --model m.gguf --cli -p "..." --device cpu
+      [--kv-dtype bf16|int8]
   python -m llamafile_tpu_torch.cli --server -m m.gguf --slots 8 \
       --listen 127.0.0.1:8080 [--ctx-size N] [--kv-dtype bf16|int8] \
       [--preempt SECONDS] [--device cpu] [--temp ... sampling defaults]
@@ -28,6 +29,8 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("-n", "--n-predict", type=int, dest="n_predict", default=-1)
     p.add_argument("-c", "--ctx-size", type=int, dest="ctx_size", default=8192)
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
+    p.add_argument("--kv-dtype", dest="kv_dtype", choices=["bf16", "int8"],
+                   default="bf16")
     p.add_argument("--temp", type=float, default=0.8)
     p.add_argument("--top-k", type=int, dest="top_k", default=40)
     p.add_argument("--top-p", type=float, dest="top_p", default=0.95)
@@ -73,7 +76,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     t0 = time.time()
     try:
         eng = load_engine(args.model, device=args.device,
-                          max_seq_len=args.ctx_size)
+                          max_seq_len=args.ctx_size, kv_dtype=args.kv_dtype)
         print(f"loaded {args.model}: {eng.cfg.n_layers}L d{eng.cfg.d_model} "
               f"vocab {eng.cfg.n_vocab} on {eng.device} in "
               f"{time.time() - t0:.1f}s", file=sys.stderr)

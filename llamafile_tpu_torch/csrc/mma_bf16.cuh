@@ -1,5 +1,5 @@
 // Tensor-core building blocks shared by the bf16 mma.sync kernels
-// (qmm_dequant.cu, flash_prefill.cu): cp.async copies into shared memory,
+// (qmm_gemm.cuh, flash_prefill.cu): cp.async copies into shared memory,
 // ldmatrix fragment loads and the m16n8k16 bf16 product with f32
 // accumulation.
 //

@@ -2,9 +2,10 @@
 
 Own copy of the parts of llamafile_tpu/gguf/quants.py that the port loads:
 the full type table (so a reader can size every tensor of a file), and
-dequantization for F32, F16, BF16, Q8_0, Q4_K and Q6_K (the formats of Q4_K
-and Q8_0 llama files, Q6_K being the output head of a Q4_K_M file). Every
-other format raises NotImplementedError naming the type.
+dequantization for F32, F16, BF16, Q8_0, Q4_K, Q5_K and Q6_K: the formats
+of Q8_0, Q4_K_M, Q4_K_S and Q5_K_M llama files (Q4_K_M and Q5_K_M mix
+their main format with Q6_K layers and head; Q4_K_S mixes Q4_K and Q5_K).
+Every other format raises NotImplementedError naming the type.
 
 Dequantizers take raw little-endian block bytes shaped (nblocks, block_bytes)
 as uint8 and return float32 (nblocks, block_elems); layouts follow
@@ -69,6 +70,31 @@ def dequant_q4_k(b: np.ndarray) -> np.ndarray:
     return y
 
 
+def q5_k_codes(b: np.ndarray) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Q5_K blocks -> (codes uint8 (nblocks, 256) in 0..31, per-32 scales
+    d * sc and offsets -dmin * mn, f32 (nblocks, 8)); element i of a block
+    is codes[i] * a[i // 32] + b[i // 32]."""
+    # block: half d; half dmin; uint8 scales[12]; uint8 qh[32]; uint8 qs[128]
+    d = _f16(b[:, 0:2])[:, 0]
+    dmin = _f16(b[:, 2:4])[:, 0]
+    sc, mn = _scale_min_k4(b[:, 4:16])
+    qh = b[:, 16:48]
+    qs = b[:, 48:176]
+    q = np.empty((b.shape[0], QK_K), np.uint8)
+    for blk in range(4):                 # 64-element chunks, two 32-groups each
+        g = qs[:, 32 * blk:32 * blk + 32]
+        q[:, 64 * blk:64 * blk + 32] = (g & 0xF) | (((qh >> (2 * blk)) & 1) << 4)
+        q[:, 64 * blk + 32:64 * blk + 64] = (g >> 4) | (((qh >> (2 * blk + 1)) & 1) << 4)
+    return q, d[:, None] * sc, -dmin[:, None] * mn
+
+
+def dequant_q5_k(b: np.ndarray) -> np.ndarray:
+    q, a, m = q5_k_codes(b)
+    n = b.shape[0]
+    return (a[:, :, None] * q.reshape(n, 8, 32).astype(np.float32)
+            + m[:, :, None]).reshape(n, QK_K)
+
+
 def q6_k_codes(b: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     """Q6_K blocks -> (codes int8 (nblocks, 256) in -32..31, per-16 scales
     d * scale f32 (nblocks, 16)); element i of a block is codes[i] * a[i // 16]."""
@@ -118,7 +144,7 @@ GGML_TYPES = [
     QuantSpec("Q2_K", 10, QK_K, 84),
     QuantSpec("Q3_K", 11, QK_K, 110),
     QuantSpec("Q4_K", 12, QK_K, 144, dequant_q4_k),
-    QuantSpec("Q5_K", 13, QK_K, 176),
+    QuantSpec("Q5_K", 13, QK_K, 176, dequant_q5_k),
     QuantSpec("Q6_K", 14, QK_K, 210, dequant_q6_k),
     QuantSpec("Q8_K", 15, QK_K, 292),
     QuantSpec("IQ2_XXS", 16, QK_K, 66),
@@ -142,7 +168,7 @@ TYPE_BY_ID: Dict[int, QuantSpec] = {s.type_id: s for s in GGML_TYPES}
 TYPE_BY_NAME: Dict[str, QuantSpec] = {s.name: s for s in GGML_TYPES}
 
 # formats the port loads; anything else raises NotImplementedError
-SUPPORTED = ("F32", "F16", "BF16", "Q8_0", "Q4_K", "Q6_K")
+SUPPORTED = ("F32", "F16", "BF16", "Q8_0", "Q4_K", "Q5_K", "Q6_K")
 
 
 def check_supported(type_name: str) -> None:

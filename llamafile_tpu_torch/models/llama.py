@@ -1,16 +1,19 @@
-"""Llama-family forward of the port (llama / mistral), over stacked layers.
+"""Llama-family forward of the port (llama / mistral), stacked or unrolled.
 
-Counterpart of llamafile_tpu/models/llama.py for the dense llama branch of
-`_layer_fwd` and the stacked branch of `forward`. The JAX layer scan becomes
-a Python loop over the layer id `li`: the stacked weights stay whole and
-every kernel indexes layer li by pointer offset (no per-layer slice copy),
-and the KV cache is updated in place.
+Counterpart of llamafile_tpu/models/llama.py for the dense llama branches
+of `_layer_fwd` and `forward`. The JAX layer scan becomes a Python loop over
+the layer id `li`. Homogeneous layers are stacked: the weights stay whole
+and every kernel indexes layer li by pointer offset (no per-layer slice
+copy). Layers that differ in format (a Q4_K_M file) stay a list and run
+unrolled, as in the reference. The KV cache is updated in place.
 
-Per layer: RMSNorm folded into the fused qkv product -> rope -> attention
-(fused decode kernel with the KV-row write at T = 1; over the fresh tokens
-at prefill, the flash_prefill kernel from 128 tokens and the einsum below)
--> o -> RMSNorm folded into the FFN (one fused kernel call at M = 1 for an
-interleaved q4b gate|up, gate|up + down products otherwise).
+Per layer: RMSNorm folded into the qkv product(s) -> rope -> attention
+(fused decode kernel with the KV-row write at T = 1 on a bf16 cache; the
+flash_decode kernel over an int8 cache on stacked layers, the einsum on
+unrolled ones; over the fresh tokens at prefill, the flash_prefill kernel
+from 128 tokens and the einsum below) -> o -> RMSNorm folded into the FFN
+(one fused kernel call at M = 1 for an interleaved q4b gate|up of stacked
+layers, gate|up + down products otherwise).
 """
 from __future__ import annotations
 
@@ -21,11 +24,11 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..ops.attention import flash_decode_write_stacked, flash_prefill
+from ..ops.attention import flash_decode, flash_decode_write_stacked, flash_prefill
 from ..ops.qmatmul import apply_rmsnorm as rmsnorm  # noqa: F401 (the reference's name)
 from ..ops.qmatmul import moe_fusable, qmatmul, qmatmul_moe, split_gu
 from ..ops.repack import QTensor
-from ..runtime.kvcache import KVCache, init_kv
+from ..runtime.kvcache import KVCache, init_kv, read_layer, update_layer
 
 
 @dataclass(frozen=True)
@@ -201,17 +204,15 @@ def attention(q, k_cache, v_cache, pos, t_pos, scale, window=None,
 # ---------------------------------------------------------------------------
 
 def _stack_leaf(vals):
-    if vals[0] is None:
+    if any(v is None for v in vals):
         if any(v is not None for v in vals):
-            raise NotImplementedError("layers differ in which weights they hold")
+            raise ValueError("layers differ in which weights they hold")
         return None
     if isinstance(vals[0], QTensor):
         q0 = vals[0]
         if any((v.kind, v.shape, v.g, v.il, v.bias is None)
                != (q0.kind, q0.shape, q0.g, q0.il, q0.bias is None) for v in vals):
-            raise NotImplementedError(
-                "layers with differing weight formats cannot be stacked; the "
-                "unrolled forward is not ported yet")
+            raise ValueError("layers differ in weight format")
         st = lambda a: None if a[0] is None else torch.stack(a)
         return QTensor(q0.kind, q0.shape, q0.g, st([v.qs for v in vals]),
                        st([v.scales for v in vals]), st([v.bias for v in vals]),
@@ -221,86 +222,105 @@ def _stack_leaf(vals):
 
 def stack_layers(params: LlamaParams) -> LlamaParams:
     """Stack the per-layer weights into one LlamaLayer with a leading L axis
-    (the Engine's default layout). Idempotent."""
+    (the Engine's layout where it can). As the reference, returns params
+    unchanged when they are stacked already, hold fewer than two layers, or
+    when the layers differ in weight format or in which weights they hold
+    (a Q4_K_M file mixes Q4_K and Q6_K): those run unrolled."""
     ls = params.layers
-    if isinstance(ls, LlamaLayer):
+    if not isinstance(ls, list) or len(ls) < 2:
         return params
-    stacked = LlamaLayer(**{f.name: _stack_leaf([getattr(l, f.name) for l in ls])
-                            for f in fields(LlamaLayer)})
+    try:
+        stacked = LlamaLayer(**{f.name: _stack_leaf([getattr(l, f.name) for l in ls])
+                                for f in fields(LlamaLayer)})
+    except (ValueError, RuntimeError):      # formats, or shapes torch.stack refuses
+        return params
     return LlamaParams(params.tok_embd, stacked, params.out_norm, params.output)
 
 
-def _put(buf: torch.Tensor, li: int, pos: torch.Tensor, t_pos: torch.Tensor,
-         new: torch.Tensor) -> None:
-    """Write rows new [B, T, H, D] at positions pos + t of layer li, in
-    place; positions past the cache are dropped (prefill bucket padding)."""
-    b, t = new.shape[:2]
-    idx = pos.long()[:, None] + t_pos[None, :]
-    bidx = torch.arange(b, device=buf.device)[:, None].expand(b, t)
-    keep = idx < buf.shape[2]
-    buf[li, bidx[keep], idx[keep]] = new.reshape(b, t, -1)[keep].to(buf.dtype)
+def _qkv(h2d, layer: LlamaLayer, cfg: LlamaConfig, wl, prenorm=None):
+    """q, k, v [M, H*D] of h2d: the fused q|k|v product, or three."""
+    nq = cfg.n_heads * cfg.head_dim
+    nkv = cfg.n_kv_heads * cfg.head_dim
+    if layer.wqkv is not None:
+        qkv = qmatmul(h2d, layer.wqkv, wl, prenorm=prenorm)
+        return qkv[:, :nq], qkv[:, nq:nq + nkv], qkv[:, nq + nkv:nq + 2 * nkv]
+    return tuple(qmatmul(h2d, w, wl, prenorm=prenorm)
+                 for w in (layer.wq, layer.wk, layer.wv))
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """x * sigmoid(x) as the reference computes it: jax.nn.silu's logistic
+    expands to 1 / (1 + exp(-x)), each op rounded in x's dtype. For the bf16
+    products of an unrolled prefill at M >= 256 this matches XLA's bf16
+    result bit for bit, where a single rounding of the f32 silu would not."""
+    return x * torch.reciprocal(1 + torch.exp(-x))
+
+
+def _ffn(h2d, layer: LlamaLayer, cfg: LlamaConfig, wl, prenorm=None):
+    """SwiGLU FFN of h2d [M, d]: one fused kernel call at M = 1 for an
+    interleaved q4b gate|up of stacked layers (wl the layer id), otherwise
+    gate|up (or gate and up), silu(g) * u, down (the reference's _ffn_core:
+    the unrolled path never fuses). The products' dtype carries through, so
+    bf16 q4b outputs at M >= 256 meet silu and the product in bf16."""
+    if layer.w_gate_up is not None:
+        if (h2d.shape[0] == 1 and wl is not None and layer.w_gate_up.il
+                and moe_fusable(layer.w_gate_up, layer.w_down, cfg.d_model, cfg.d_ff)):
+            # the whole FFN in one fused kernel call, the layer id as expert
+            return qmatmul_moe(h2d, layer.w_gate_up, layer.w_down, [wl], [1.0],
+                               prenorm=prenorm)
+        g, u = split_gu(qmatmul(h2d, layer.w_gate_up, wl, prenorm=prenorm),
+                        cfg.d_ff, layer.w_gate_up.il)
+    else:
+        g = qmatmul(h2d, layer.w_gate, wl, prenorm=prenorm)
+        u = qmatmul(h2d, layer.w_up, wl, prenorm=prenorm)
+    return qmatmul(silu(g) * u, layer.w_down, wl)
 
 
 def _layer_fwd(x, layer: LlamaLayer, cfg: LlamaConfig, cos, sin, pos, t_pos,
-               scale, cache: KVCache, attn_len, fresh: bool, li: int):
-    """One llama layer on stacked weights (layer li). Updates cache in place."""
+               scale, cache: KVCache, attn_len, fresh: bool, li: int,
+               stacked: bool):
+    """One llama layer, updating layer li of the cache in place. stacked:
+    `layer` holds all layers' weights and li indexes them (the reference's
+    scanned _layer_fwd); else `layer` is layer li's own (its unrolled loop).
+
+    Both fold the RMSNorms into the products' activation prep and write the
+    new K/V rows first, except where the fused decode kernel writes them
+    (T = 1 on a bf16 cache). An int8 cache decodes through the flash_decode
+    kernel on stacked layers and the f32 einsum on unrolled ones, as the
+    reference routes it."""
     b, t, d = x.shape
     s = cache.max_len
-    nq = cfg.n_heads * cfg.head_dim
-    nkv = cfg.n_kv_heads * cfg.head_dim
-    pn = (layer.attn_norm[li], cfg.rms_eps)
-    h2d = x.reshape(b * t, d)
-    if layer.wqkv is not None:
-        qkv = qmatmul(h2d, layer.wqkv, li, prenorm=pn)
-        q, k, v = qkv[:, :nq], qkv[:, nq:nq + nkv], qkv[:, nq + nkv:nq + 2 * nkv]
-    else:
-        q = qmatmul(h2d, layer.wq, li, prenorm=pn)
-        k = qmatmul(h2d, layer.wk, li, prenorm=pn)
-        v = qmatmul(h2d, layer.wv, li, prenorm=pn)
-    q = q.reshape(b, t, cfg.n_heads, cfg.head_dim)
-    k = k.reshape(b, t, cfg.n_kv_heads, cfg.head_dim)
+    wl = li if stacked else None
+    pick = (lambda a: a[li]) if stacked else (lambda a: a)
+    q, k, v = _qkv(x.reshape(b * t, d), layer, cfg, wl,
+                   (pick(layer.attn_norm), cfg.rms_eps))
+    q = apply_rope(q.reshape(b, t, cfg.n_heads, cfg.head_dim), cos, sin, cfg.rope_neox)
+    k = apply_rope(k.reshape(b, t, cfg.n_kv_heads, cfg.head_dim), cos, sin,
+                   cfg.rope_neox)
     v = v.reshape(b, t, cfg.n_kv_heads, cfg.head_dim)
-    q = apply_rope(q, cos, sin, cfg.rope_neox)
-    k = apply_rope(k, cos, sin, cfg.rope_neox)
-
-    fused_write = t == 1 and not fresh
-    if not fused_write:
-        _put(cache.k, li, pos, t_pos, k)
-        _put(cache.v, li, pos, t_pos, v)
-    if fresh:
-        attn = flash_prefill(q, k, v, scale)
-    elif fused_write:
+    alen = attn_len if (attn_len is not None and attn_len < s) else s
+    if t == 1 and not fresh and not cache.quantized:
         # the fused kernel reads layer li of the flat cache in place and
         # writes the new row at pos itself
         attn = flash_decode_write_stacked(
             q[:, 0], cache.k, cache.v, k[:, 0], v[:, 0], li, pos, scale,
-            hkv=cfg.n_kv_heads,
-            s_limit=attn_len if (attn_len is not None and attn_len < s) else None)
-        attn = attn[:, None]
+            hkv=cfg.n_kv_heads, s_limit=alen if alen < s else None)[:, None]
     else:
-        alen = attn_len if (attn_len is not None and attn_len < s) else s
-        kci = cache.k[li, :, :alen].reshape(b, alen, cfg.n_kv_heads, cfg.head_dim)
-        vci = cache.v[li, :, :alen].reshape(b, alen, cfg.n_kv_heads, cfg.head_dim)
-        attn = attention(q, kci, vci, pos, t_pos, scale)
-    o = qmatmul(attn.reshape(b * t, nq), layer.wo, li)
-    x = x + o.reshape(b, t, d)
-
-    pn_f = (layer.ffn_norm[li], cfg.rms_eps)
-    h2d = x.reshape(b * t, d)
-    if layer.w_gate_up is not None:
-        if (b * t == 1 and layer.w_gate_up.il
-                and moe_fusable(layer.w_gate_up, layer.w_down, d, cfg.d_ff)):
-            # the whole FFN in one fused kernel call, the layer id as expert
-            f = qmatmul_moe(h2d, layer.w_gate_up, layer.w_down, [li], [1.0],
-                            prenorm=pn_f)
+        update_layer(cache, li, pos, t_pos, k, v)
+        if fresh:
+            attn = flash_prefill(q, k, v, scale)
+        elif t == 1 and stacked:
+            # int8 codes and scales of layer li, read in place
+            sl = lambda a: a[li, :, :alen]
+            attn = flash_decode(q[:, 0], sl(cache.k), sl(cache.v), pos, scale,
+                                k_scale=sl(cache.k_scale),
+                                v_scale=sl(cache.v_scale))[:, None]
         else:
-            gu = qmatmul(h2d, layer.w_gate_up, li, prenorm=pn_f)
-            g, u = split_gu(gu, cfg.d_ff, layer.w_gate_up.il)
-            f = qmatmul(torch.nn.functional.silu(g) * u, layer.w_down, li)
-    else:
-        g = qmatmul(h2d, layer.w_gate, li, prenorm=pn_f)
-        u = qmatmul(h2d, layer.w_up, li, prenorm=pn_f)
-        f = qmatmul(torch.nn.functional.silu(g) * u, layer.w_down, li)
+            kci, vci = read_layer(cache, li, cfg.n_kv_heads)
+            attn = attention(q, kci[:, :alen], vci[:, :alen], pos, t_pos, scale)
+    o = qmatmul(attn.reshape(b * t, cfg.n_heads * cfg.head_dim), layer.wo, wl)
+    x = x + o.reshape(b, t, d)
+    f = _ffn(x.reshape(b * t, d), layer, cfg, wl, (pick(layer.ffn_norm), cfg.rms_eps))
     return x + f.reshape(b, t, d)
 
 
@@ -309,15 +329,13 @@ def forward(params: LlamaParams, cfg: LlamaConfig, tokens: torch.Tensor,
             pos: torch.Tensor, cache: KVCache, fresh_prefill: bool = False,
             attn_len: Optional[int] = None,
             last_idx: Optional[torch.Tensor] = None):
-    """One forward pass over new tokens on stacked layers.
+    """One forward pass over new tokens, on stacked layers (a LlamaLayer
+    with a leading L axis) or unrolled ones (a list, one LlamaLayer each).
 
-    tokens int [B, T]; pos int32 [B] index of tokens[:, 0]; cache is updated
-    in place. attn_len (decode) bounds the streamed cache positions;
-    last_idx [B] keeps only that position's logits (prefill).
+    tokens int [B, T]; pos int32 [B] index of tokens[:, 0]; cache (bf16 or
+    int8) is updated in place. attn_len (decode) bounds the streamed cache
+    positions; last_idx [B] keeps only that position's logits (prefill).
     Returns (logits f32 [B, T or 1, n_vocab], cache)."""
-    if not isinstance(params.layers, LlamaLayer):
-        raise NotImplementedError("the port's forward runs stacked layers: "
-                                  "call stack_layers first")
     b, t = tokens.shape
     dev = tokens.device
     t_pos = torch.arange(t, device=dev)
@@ -326,9 +344,11 @@ def forward(params: LlamaParams, cfg: LlamaConfig, tokens: torch.Tensor,
     cos, sin = cos[:, :, None, :], sin[:, :, None, :]
     scale = cfg.attn_scale or 1.0 / math.sqrt(cfg.head_dim)
     x = params.tok_embd[tokens.long()].float()
+    stacked = isinstance(params.layers, LlamaLayer)
     for li in range(cfg.n_layers):
-        x = _layer_fwd(x, params.layers, cfg, cos, sin, pos, t_pos, scale,
-                       cache, attn_len, fresh_prefill, li)
+        layer = params.layers if stacked else params.layers[li]
+        x = _layer_fwd(x, layer, cfg, cos, sin, pos, t_pos, scale, cache,
+                       attn_len, fresh_prefill, li, stacked)
     t_out = t
     if last_idx is not None:
         # only the next-token logits: slice before the lm head
@@ -343,24 +363,23 @@ def forward(params: LlamaParams, cfg: LlamaConfig, tokens: torch.Tensor,
 def forward_paged_decode(params: LlamaParams, cfg: LlamaConfig,
                          tok: torch.Tensor, pos: torch.Tensor, paged,
                          tables: torch.Tensor):
-    """One decode step (T = 1 a row) over a paged KV cache, stacked layers.
+    """One decode step (T = 1 a row) over a paged KV cache, stacked or
+    unrolled layers.
 
-    Counterpart of the stacked llama/mistral branch of the JAX package's
+    Counterpart of the llama/mistral branches of the JAX package's
     forward_paged_decode. tok/pos int32 [R]; paged a runtime.paged.PagedKV,
     updated IN PLACE (each row's new K/V at page tables[r, pos // ps],
     offset pos % ps); tables int32 [R, MAXP]. Each row attends to its
     pos + 1 positions through the paged_attention kernel, which reads layer
     li of the pool by pointer (`pool[li]` is a view). As in the reference,
-    the norms run before each product (not folded into it). Returns
-    (logits f32 [R, V], paged)."""
+    the attention norm runs before the products; the FFN norm does too on
+    stacked layers and folds into the FFN's products on unrolled ones.
+    Returns (logits f32 [R, V], paged)."""
     from ..runtime.paged import paged_attend, write_token_kv
-    if not isinstance(params.layers, LlamaLayer):
-        raise NotImplementedError("paged decode of unrolled layers is not "
-                                  "ported yet: call stack_layers first")
     for name in ("swa_window", "alibi", "kv_lora_rank"):
         if getattr(cfg, name, 0):
             raise NotImplementedError(f"paged decode with {name} is not ported")
-    sl = params.layers
+    stacked = isinstance(params.layers, LlamaLayer)
     r = tok.shape[0]
     ps = paged.page_size
     dev = tok.device
@@ -373,17 +392,13 @@ def forward_paged_decode(params: LlamaParams, cfg: LlamaConfig,
     lengths = (pos + 1).to(torch.int32).to(dev)
     tables = tables.to(torch.int32).contiguous()
     scale = cfg.attn_scale or 1.0 / math.sqrt(cfg.head_dim)
-    nq = cfg.n_heads * cfg.head_dim
-    nkv = cfg.n_kv_heads * cfg.head_dim
     quant = paged.quantized
     for li in range(cfg.n_layers):
-        h = rmsnorm(x, sl.attn_norm[li], cfg.rms_eps)
-        if sl.wqkv is not None:
-            qkv = qmatmul(h, sl.wqkv, li)
-            q, k, v = qkv[:, :nq], qkv[:, nq:nq + nkv], qkv[:, nq + nkv:nq + 2 * nkv]
-        else:
-            q, k, v = (qmatmul(h, sl.wq, li), qmatmul(h, sl.wk, li),
-                       qmatmul(h, sl.wv, li))
+        layer = params.layers if stacked else params.layers[li]
+        wl = li if stacked else None
+        pick = (lambda a: a[li]) if stacked else (lambda a: a)
+        h = rmsnorm(x, pick(layer.attn_norm), cfg.rms_eps)
+        q, k, v = _qkv(h, layer, cfg, wl)
         q = apply_rope(q.reshape(r, cfg.n_heads, cfg.head_dim), cos, sin,
                        cfg.rope_neox)
         k = apply_rope(k.reshape(r, cfg.n_kv_heads, cfg.head_dim), cos, sin,
@@ -396,20 +411,11 @@ def forward_paged_decode(params: LlamaParams, cfg: LlamaConfig,
         attn = paged_attend((q * scale).float(), paged.k_pages[li],
                             paged.v_pages[li], lengths, tables,
                             k_scale_l=ksl, v_scale_l=vsl)
-        x = x + qmatmul(attn.reshape(r, nq), sl.wo, li)
-        h = rmsnorm(x, sl.ffn_norm[li], cfg.rms_eps)
-        if sl.w_gate_up is not None:
-            if r == 1 and sl.w_gate_up.il and moe_fusable(
-                    sl.w_gate_up, sl.w_down, cfg.d_model, cfg.d_ff):
-                # single-row paged decode: the fused FFN, layer id as expert
-                f = qmatmul_moe(h, sl.w_gate_up, sl.w_down, [li], [1.0])
-            else:
-                g, u = split_gu(qmatmul(h, sl.w_gate_up, li), cfg.d_ff,
-                                sl.w_gate_up.il)
-                f = qmatmul(torch.nn.functional.silu(g) * u, sl.w_down, li)
+        x = x + qmatmul(attn.reshape(r, cfg.n_heads * cfg.head_dim), layer.wo, wl)
+        if stacked:
+            f = _ffn(rmsnorm(x, pick(layer.ffn_norm), cfg.rms_eps), layer, cfg, wl)
         else:
-            g, u = qmatmul(h, sl.w_gate, li), qmatmul(h, sl.w_up, li)
-            f = qmatmul(torch.nn.functional.silu(g) * u, sl.w_down, li)
+            f = _ffn(x, layer, cfg, None, (layer.ffn_norm, cfg.rms_eps))
         x = x + f
     logits = qmatmul(rmsnorm(x, params.out_norm, cfg.rms_eps), params.output)
     return logits, paged

@@ -60,8 +60,10 @@ def fuse_projections(params: LlamaParams, cfg: LlamaConfig) -> LlamaParams:
 
 def load_llama(path: str, device="cuda", fuse: bool = True):
     """Load a llama/mistral GGUF into (config, params, tokenizer, reader) on
-    `device`. Tensor formats other than F32/F16/BF16/Q8_0/Q4_K/Q6_K raise
-    NotImplementedError naming the format."""
+    `device`. Tensor formats other than F32/F16/BF16/Q8_0/Q4_K/Q5_K/Q6_K
+    raise NotImplementedError naming the format. Files whose layers mix
+    formats (Q4_K_M, Q4_K_S, Q5_K_M) give per-layer weights that the
+    forward runs unrolled."""
     dev = resolve_device(device)
     reader = GGUFReader(path)
     cfg = LlamaConfig.from_gguf(reader)

@@ -31,7 +31,8 @@ BUILD = os.path.join(_PKG, "build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 SOURCES = ("qmm_txn_m1", "qmm_txn", "qmm_moe_m1", "flash_decode_write",
-           "qmm_q8_m1", "qmm_dequant", "flash_prefill", "paged_attention")
+           "qmm_q8_m1", "qmm_dequant", "flash_prefill", "paged_attention",
+           "qmm_planes", "flash_decode")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -125,4 +126,5 @@ def check(err: int, what: str) -> None:
 
 P = ctypes.c_void_p
 I = ctypes.c_int
+L = ctypes.c_longlong
 F = ctypes.c_float

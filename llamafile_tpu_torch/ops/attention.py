@@ -15,6 +15,10 @@ Counterpart of llamafile_tpu/ops/attention.py for what the port reaches:
       llamafile_tpu/runtime/paged.py paged_attend calls (kernel
       paged_attention, csrc/paged_attention.cu): batched T = 1 GQA
       attention over block tables, bf16 or int8 pages, all in f32.
+  flash_decode, flash_decode_stacked <- _flash_decode_kernel and
+      _flash_decode_qt_kernel (kernel flash_decode, csrc/flash_decode.cu):
+      T = 1 GQA attention over one layer of a dense cache, bf16 or int8
+      codes with f32 scales, read in place.
 """
 from __future__ import annotations
 
@@ -23,7 +27,7 @@ from typing import Optional
 import torch
 
 from . import _build
-from ._build import F, I, P
+from ._build import F, I, L, P
 
 NEG_INF = -1e30
 
@@ -33,26 +37,52 @@ def _use_flash(t: int, d: int) -> bool:
     return t >= 128 and t % 128 == 0 and d in (64, 128, 256)
 
 
+FLASH_BLOCK = 256                   # the reference's block_q = block_k
+_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)   # upstream's
+
+
 def flash_prefill_plain(q, k, v, scale: float):
     """Plain version of the flash_prefill kernel, in the upstream Pallas
-    flash_attention's numerics: q, k, v rounded to bf16; f32 scores scaled
-    after the dot; causal mask; f32 softmax statistics; p rounded to bf16
-    before P.V with f32 accumulation; the output rounded to bf16 (q's dtype
-    there) and returned as f32. One softmax over all keys stands in for the
-    kernel's running max, so p rounds against another maximum (2e-2)."""
+    flash_attention's numerics at the reference's 256-wide blocks: q, k, v
+    rounded to bf16; f32 scores scaled after the dot, the causal mask added
+    as -0.7 * f32 max. Within one key block (T <= 256, the upstream
+    single-step kernel) p is normalized by l before its bf16 rounding; over
+    several, each query block runs the upstream online softmax over the key
+    blocks on or below its diagonal (running max, bf16 p, acc rescaled by
+    l_corr / l_next and P.V added times 1 / l_next). The output is rounded
+    to bf16 (q's dtype there) and returned as f32."""
     b, t, hq, d = q.shape
     hkv = k.shape[2]
     bf = lambda a: a.to(torch.bfloat16).float()
     qg = bf(q).reshape(b, t, hkv, hq // hkv, d)
+    vb = bf(v)
     s = torch.einsum("bthgd,bshd->bhgts", qg, bf(k)) * scale
     i = torch.arange(t, device=q.device)
-    mask = i[None, :] <= i[:, None]
-    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
-    mx = s.amax(dim=-1, keepdim=True)
-    p = torch.exp(s - mx)
-    l = p.sum(-1, keepdim=True)
-    acc = torch.einsum("bhgts,bshd->bhgtd", bf(p), bf(v))
-    out = bf(acc / l)                                       # [B, Hkv, G, T, D]
+    s = s + torch.where(i[None, :] <= i[:, None], 0.0, _MASK_VALUE)
+    blk = min(FLASH_BLOCK, t)
+    if t == blk:
+        p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+        p = p / p.sum(-1, keepdim=True)
+        acc = torch.einsum("bhgts,bshd->bhgtd", bf(p), vb)
+    else:
+        acc = torch.empty(s.shape[:-1] + (d,), device=q.device)
+        for q0 in range(0, t, blk):
+            m = torch.full(s.shape[:-2] + (min(blk, t - q0), 1), float("-inf"),
+                           device=q.device)
+            l = torch.zeros_like(m)
+            a = torch.zeros(m.shape[:-1] + (d,), device=q.device)
+            for k0 in range(0, q0 + blk, blk):
+                sb = s[..., q0:q0 + blk, k0:k0 + blk]
+                m_next = torch.maximum(m, sb.amax(dim=-1, keepdim=True))
+                p = torch.exp(sb - m_next)
+                l_corr = torch.exp(m - m_next) * l
+                l_next = p.sum(-1, keepdim=True) + l_corr
+                inv = torch.where(l_next == 0, 1.0, 1.0 / l_next)
+                a = a * (l_corr * inv) + torch.einsum(
+                    "bhgts,bshd->bhgtd", bf(p), vb[:, k0:k0 + blk]) * inv
+                m, l = m_next, l_next
+            acc[..., q0:q0 + blk, :] = a
+    out = bf(acc)                                           # [B, Hkv, G, T, D]
     return out.permute(0, 3, 1, 2, 4).reshape(b, t, hq, d)
 
 
@@ -193,6 +223,159 @@ def flash_decode_write_stacked(q, k3, v3, k_new, v_new, li: int, pos,
 
 flash_decode_write_stacked.launches = 0
 
+
+def flash_decode_plain(q, k, v, pos, scale: float, window: int = 0,
+                       softcap: float = 0.0, k_scale=None, v_scale=None):
+    """Plain version of the flash_decode kernel, in its numerics: a bf16
+    cache rounds q and p to bf16 (l sums the f32 p); an int8 cache (codes
+    with k_scale/v_scale) or an f32 one computes in f32 on the dequantized
+    K/V. f32 scores times scale, -1e30 mask of keys j > pos (and j <=
+    pos - window), softmax over all keys at once, out / max(l, 1e-30)."""
+    b, hq, d = q.shape
+    s, hkv = k.shape[1], k.shape[2]
+    if k_scale is not None:
+        k = k.float() * k_scale[..., None]
+        v = v.float() * v_scale[..., None]
+    rnd = ((lambda a: a.to(torch.bfloat16).float()) if k.dtype == torch.bfloat16
+           else (lambda a: a.float()))
+    qg = rnd(q).reshape(b, hkv, hq // hkv, d)
+    sc = torch.einsum("bhgd,bshd->bhgs", qg, k.float()) * scale
+    if softcap:
+        sc = softcap * torch.tanh(sc / softcap)
+    j = torch.arange(s, device=q.device)[None, :]
+    p_ = pos.to(q.device).long()[:, None]
+    vis = j <= p_
+    if window:
+        vis = vis & (j > p_ - window)
+    sc = torch.where(vis[:, None, None, :], sc, torch.full_like(sc, NEG_INF))
+    p = torch.exp(sc - sc.amax(dim=-1, keepdim=True))
+    acc = torch.einsum("bhgs,bshd->bhgd", rnd(p), v.float())
+    return (acc / torch.clamp(p.sum(-1), min=1e-30)[..., None]).reshape(b, hq, d)
+
+
+def flash_decode_stacked_plain(q, k3, v3, li: int, pos, scale: float, hkv: int,
+                               s_eff: int, win_l=None, softcap: float = 0.0):
+    """Plain version of flash_decode_stacked: flash_decode_plain on the first
+    s_eff positions of layer li of the flat [L, B, S, Hkv*D] cache."""
+    b, _, d = q.shape
+    kc = k3[li, :, :s_eff].reshape(b, s_eff, hkv, d)
+    vc = v3[li, :, :s_eff].reshape(b, s_eff, hkv, d)
+    return flash_decode_plain(q, kc, vc, pos, scale, win_l or 0, softcap)
+
+
+def _decode_einsum(q, k, v, pos, scale, window, softcap):
+    """The reference's decode fallback for shapes its kernel does not take
+    (S % 256, D % 128, Hq > 256): the f32 einsum attention."""
+    from ..models.llama import attention
+    return attention(q[:, None], k, v, pos, torch.arange(1, device=q.device),
+                     scale, window=window or None, softcap=softcap)[:, 0]
+
+
+def _flash_decode_launch(q, k, v, k_scale, v_scale, pos, scale: float,
+                         window: int, softcap: float):
+    """Launch the flash_decode kernel on k, v [B, s_eff, Hkv, D] views whose
+    last three axes are contiguous (a slice of a layer of the cache: the
+    kernel reads it in place), bf16, or int8 with [B, s_eff, Hkv] f32
+    scales."""
+    if softcap:
+        raise NotImplementedError("the softcap of _flash_decode_kernel is not "
+                                  "in the CUDA kernel yet")
+    b, hq, d = q.shape
+    _, s_eff, hkv, dk = k.shape
+    quant = k_scale is not None
+    if d != 128 or dk != d or hq % hkv or hq // hkv not in (1, 2, 4, 8):
+        raise ValueError(f"flash_decode takes D=128 and Hq/Hkv in (1, 2, 4, 8), "
+                         f"got D={d} (cache {dk}), Hq={hq}, Hkv={hkv}")
+    qf = q.float().contiguous()
+    pos32 = pos.to(torch.int32).contiguous()
+    cache_t = torch.int8 if quant else torch.bfloat16
+    named = [("k", k, cache_t, (hkv * d, d, 1)), ("v", v, cache_t, (hkv * d, d, 1))]
+    if quant:
+        named += [("k_scale", k_scale, torch.float32, (hkv, 1)),
+                  ("v_scale", v_scale, torch.float32, (hkv, 1))]
+    elif v_scale is not None:
+        raise ValueError("v_scale given without k_scale")
+    for name, t, dt, inner in named:
+        if t.device != q.device or t.dtype != dt or tuple(t.shape[:2]) != (b, s_eff) \
+                or t.stride()[1:] != inner:
+            raise ValueError(f"flash_decode: {name} must be a {dt} [B, S, Hkv(, D)] "
+                             f"view with contiguous inner axes on {q.device}")
+    if v.stride(0) != k.stride(0) or (quant and v_scale.stride(0) != k_scale.stride(0)):
+        raise ValueError("flash_decode: k and v (and their scales) differ in batch stride")
+    if pos32.device != q.device or pos32.shape != (b,):
+        raise ValueError(f"flash_decode: pos must be int32 [{b}] on {q.device}")
+    # splits of 16 positions or more, enough to fill the SMs a few blocks deep
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    per_split = -(-s_eff // max(1, -(-4 * sms // (b * hkv))))
+    chunk = max(16, -(-per_split // 16) * 16)
+    n_split = -(-s_eff // chunk)
+    out = torch.empty((b, hq, d), dtype=torch.float32, device=q.device)
+    m_part = torch.empty((b, hq, n_split), dtype=torch.float32, device=q.device)
+    l_part = torch.empty_like(m_part)
+    acc_part = torch.empty((b, hq, n_split, d), dtype=torch.float32, device=q.device)
+    f = _build.fn("flash_decode", "flash_decode",
+                  [P] * 10 + [I] * 4 + [L, L] + [I] * 4 + [F, P])
+    _build.check(f(qf.data_ptr(), k.data_ptr(), v.data_ptr(),
+                   k_scale.data_ptr() if quant else None,
+                   v_scale.data_ptr() if quant else None, pos32.data_ptr(),
+                   out.data_ptr(), m_part.data_ptr(), l_part.data_ptr(),
+                   acc_part.data_ptr(), b, hq, hkv, s_eff, k.stride(0),
+                   k_scale.stride(0) if quant else 0, int(window or 0), chunk,
+                   n_split, int(quant), float(scale),
+                   torch.cuda.current_stream(q.device).cuda_stream), "flash_decode")
+    flash_decode.launches += 1
+    return out
+
+
+def flash_decode(q, k, v, pos, scale: float, window: int = 0,
+                 softcap: float = 0.0, k_scale=None, v_scale=None):
+    """Decode attention (T = 1) of one layer of a dense cache.
+
+    q [B, Hq, D] f32; k, v [B, S, Hkv, D] bf16, or int8 codes with k_scale,
+    v_scale [B, S, Hkv] f32 (the reference's f32 dequantized K/V, computed
+    in the kernel's registers); views of a cache layer are read in place.
+    pos int32 [B] is each row's last visible index. Returns [B, Hq, D] f32.
+    The reference's routing: S % 256, D % 128 or Hq > 256 take the f32
+    einsum; otherwise the flash_decode kernel, its plain version for CPU
+    tensors."""
+    b, hq, d = q.shape
+    s = k.shape[1]
+    if s % 256 or d % 128 or hq > 256:
+        if k_scale is not None:
+            k, v = k.float() * k_scale[..., None], v.float() * v_scale[..., None]
+        return _decode_einsum(q, k, v, pos, scale, window, softcap)
+    if q.device.type == "cpu":
+        return flash_decode_plain(q, k, v, pos, scale, window, softcap,
+                                  k_scale, v_scale)
+    return _flash_decode_launch(q, k, v, k_scale, v_scale, pos, scale, window,
+                                softcap)
+
+
+flash_decode.launches = 0
+
+
+def flash_decode_stacked(q, k3, v3, li: int, pos, scale: float, hkv: int,
+                         s_limit: Optional[int] = None, win_l=None,
+                         softcap: float = 0.0):
+    """Decode attention (T = 1) over layer li (a Python int) of the flat
+    [L, B, S, Hkv*D] bf16 cache, streaming its first s_limit positions (all
+    when None). The flash_decode kernel reads layer li in place (the TPU's
+    layer-indexed _flash_decode_qt_kernel); the reference's routing as in
+    flash_decode. Returns [B, Hq, D] f32."""
+    b, hq, d = q.shape
+    s_len = k3.shape[2]
+    s_eff = s_limit if s_limit is not None and s_limit < s_len else s_len
+    kc = k3[li, :, :s_eff].reshape(b, s_eff, hkv, d)
+    vc = v3[li, :, :s_eff].reshape(b, s_eff, hkv, d)
+    if s_eff % 256 or d % 128 or hq > 256:
+        return _decode_einsum(q, kc, vc, pos, scale, win_l, softcap)
+    if q.device.type == "cpu":
+        return flash_decode_stacked_plain(q, k3, v3, li, pos, scale, hkv, s_eff,
+                                          win_l, softcap)
+    return _flash_decode_launch(q, kc, vc, None, None, pos, scale, win_l or 0,
+                                softcap)
+
+
 def paged_attention_plain(q, k_pages_l, v_pages_l, lengths, tables,
                           k_scale_l=None, v_scale_l=None):
     """Plain version of the paged_attention kernel, the gather + mask + f32
@@ -282,4 +465,4 @@ def paged_attention(q, k_pages_l, v_pages_l, lengths, tables,
 
 paged_attention.launches = 0
 
-KERNELS = (flash_decode_write_stacked, flash_prefill, paged_attention)
+KERNELS = (flash_decode_write_stacked, flash_prefill, paged_attention, flash_decode)

@@ -1,14 +1,18 @@
-"""Quantized matmuls of the port: dispatch, activation prep, five kernels.
+"""Quantized matmuls of the port: dispatch, activation prep, six kernels.
 
-Counterpart of llamafile_tpu/ops/qmatmul.py for what the stacked llama path
-reaches. The TPU kernels become CUDA kernels for Hopper (csrc/):
+Counterpart of llamafile_tpu/ops/qmatmul.py for what the stacked and the
+unrolled llama paths reach. The TPU kernels become CUDA kernels for Hopper
+(csrc/):
 
   qmm_txn_m1  <- _qmm_kernel_txn_m1(_l)  (q4b M = 1 decode: qkv, o, lm head)
   qmm_txn     <- _qmm_kernel_txn(_l)     (q4b 2 <= M <= 32: short prefill)
   qmm_moe_m1  <- _qmm_kernel_moe_m1      (fused q4b M = 1 FFN, layer as expert)
   qmm_q8_m1   <- _qmm_kernel_q8_m1(_l)   (q8b M = 1 decode, g 16 or 32)
-  qmm_dequant <- _qmm_kernel             (bf16-dequant GEMM: q4b M > 32,
-                                          q8b M >= 2)
+  qmm_dequant <- _qmm_kernel             (bf16-dequant GEMM: stacked q4b
+                                          M > 32, q8b M >= 2)
+  qmm_planes  <- _qmm_kernel_planes      (unstacked q4b M > 32: the prefill
+                                          of unrolled layers; bf16 out from
+                                          M = 256)
 
 Each kernel has a wrapper and a plain PyTorch version beside it. The wrapper
 runs the plain version only for tensors that lie on the CPU (the tests); for
@@ -149,6 +153,34 @@ def qmm_dequant_plain(x: torch.Tensor, qs: torch.Tensor,
     """Plain bf16-dequant product: f32 [M, Ns] = bf16(x) @ dequant_bf16(W),
     every product of two bf16 values exact in f32 and summed in f32."""
     return x.to(torch.bfloat16).float() @ dequant_bf16(qs, scales).float()
+
+
+def planes_bf16_out(m: int) -> bool:
+    """The planes kernel's output dtype rule: bf16 once the row count,
+    padded to a multiple of 8 as the reference pads it, reaches 256."""
+    return -(-m // 8) * 8 >= 256
+
+
+def qmm_planes_plain(x: torch.Tensor, qs: torch.Tensor,
+                     scales: torch.Tensor) -> torch.Tensor:
+    """Plain two-plane product (_qmm_kernel_planes): x_even @ W_lo + x_odd @
+    W_hi, with x_even/x_odd the even and odd 128-wide K chunks of each
+    256-superblock of bf16(x), W_lo = bf16(lo * s_lo), W_hi = bf16(hi * s_hi)
+    from the nibble planes of qs uint8 [K/2, Ns] and the scale rows r % 8 < 4
+    (lo) and r % 8 >= 4 (hi) of scales [K/32, Ns]. Two f32 products summed;
+    f32 [M, Ns], or bf16 when planes_bf16_out(M)."""
+    m, k = x.shape
+    ns = qs.shape[-1]
+    x4 = x.to(torch.bfloat16).float().reshape(m, k // 256, 2, 128)
+    xe, xo = x4[:, :, 0].reshape(m, k // 2), x4[:, :, 1].reshape(m, k // 2)
+    sc3 = scales.float().reshape(k // 256, 8, ns)
+    y = None
+    for codes, sc in (((qs & 0x0F).view(torch.int8), sc3[:, :4]),
+                      (((qs ^ 0x80) & 0xF0).view(torch.int8), sc3[:, 4:])):
+        w = (codes.float().reshape(k // 64, 32, ns) * sc.reshape(k // 64, 1, ns))
+        part = (xe if y is None else xo) @ w.to(torch.bfloat16).float().reshape(k // 2, ns)
+        y = part if y is None else y + part
+    return y.to(torch.bfloat16) if planes_bf16_out(m) else y
 
 
 def qmm_moe_m1_plain(xq, sx, gu_qs, gu_sc, gu_b, dn_qs, dn_sc, dn_b,
@@ -397,7 +429,38 @@ def qmm_dequant(x: torch.Tensor, qs: torch.Tensor, scales: torch.Tensor
 
 qmm_dequant.launches = 0
 
-KERNELS = (qmm_txn_m1, qmm_txn, qmm_moe_m1, qmm_q8_m1, qmm_dequant)
+
+def qmm_planes(x: torch.Tensor, qs: torch.Tensor, scales: torch.Tensor
+               ) -> torch.Tensor:
+    """q4b two-plane GEMM (kernel qmm_planes): x float [M, K] (rounded to
+    bf16 here), one unstacked q4b weight (qs uint8 [K/2, Ns], bf16 scales
+    [K/32, Ns]) -> f32 [M, Ns], or bf16 when planes_bf16_out(M), rounded in
+    the kernel. The bias term stays with the caller (qmatmul)."""
+    if x.device.type == "cpu":
+        return qmm_planes_plain(x, qs, scales)
+    xb = x.to(torch.bfloat16).contiguous()
+    _check_tensors(x.device, (("x", xb, torch.bfloat16), ("qs", qs, torch.uint8),
+                              ("scales", scales, torch.bfloat16)))
+    m, k = xb.shape
+    ns = qs.shape[-1]
+    if m < 1 or k % 256 or ns % 16 or tuple(qs.shape) != (k // 2, ns) \
+            or tuple(scales.shape) != (k // 32, ns):
+        raise ValueError(f"qmm_planes shapes: x {tuple(xb.shape)}, qs "
+                         f"{tuple(qs.shape)}, scales {tuple(scales.shape)} "
+                         "(K % 256 == 0, Ns % 16 == 0, g 32)")
+    bf = planes_bf16_out(m)
+    y = torch.empty((m, ns), dtype=torch.bfloat16 if bf else torch.float32,
+                    device=x.device)
+    f = _build.fn("qmm_planes", "qmm_planes", [P] * 4 + [I] * 4 + [P])
+    _build.check(f(xb.data_ptr(), qs.data_ptr(), scales.data_ptr(), y.data_ptr(),
+                   m, k, ns, int(bf), _stream(x.device)), "qmm_planes")
+    qmm_planes.launches += 1
+    return y
+
+
+qmm_planes.launches = 0
+
+KERNELS = (qmm_txn_m1, qmm_txn, qmm_moe_m1, qmm_q8_m1, qmm_dequant, qmm_planes)
 
 
 # ---------------------------------------------------------------------------
@@ -414,15 +477,18 @@ def _layer(t: Optional[torch.Tensor], li):
 def qmatmul(x: torch.Tensor, qt: QTensor, li=None, prenorm=None) -> torch.Tensor:
     """y[M, N] = x[M, K] @ W.T for a GGML weight W[N, K] stored K-major.
 
-    x float [M, K]; returns f32 [M, N]. With li (a Python int), qt holds
-    layer-stacked leaves and layer li is used in place. prenorm=(w, eps)
-    applies RMSNorm(x)*w first; on the int8-activation paths it folds into
-    the activation quantization (exact, see quantize_activations_g32).
+    x float [M, K]; returns f32 [M, N], or bf16 where the reference's is
+    (an unstacked q4b product at M >= 256). With li (a Python int), qt
+    holds layer-stacked leaves and layer li is used in place. prenorm=(w,
+    eps) applies RMSNorm(x)*w first; on the int8-activation paths it folds
+    into the activation quantization (exact, see quantize_activations_g32).
 
     Branches, in the reference's order (llamafile_tpu/ops/qmatmul.py
     qmatmul): q8b M = 1 -> qmm_q8_m1; q4b M = 1 -> qmm_txn_m1; q4b
-    2 <= M <= 32 -> qmm_txn; every other q4b/q8b product -> qmm_dequant on
-    the normed x, plus the bias term on the f32 group sums of that x."""
+    2 <= M <= 32 -> qmm_txn; unstacked q4b M > 32 -> qmm_planes; every
+    other q4b/q8b product -> qmm_dequant. The last two run on the normed x,
+    and the bias term on the f32 group sums of that x is added in the
+    product's dtype."""
     if qt.kind == "dense":
         w = _layer(qt.qs, li)
         if prenorm is not None:
@@ -442,11 +508,15 @@ def qmatmul(x: torch.Tensor, qt: QTensor, li=None, prenorm=None) -> torch.Tensor
         y = qmm_txn_m1(xq, sx, qs, sc, b) if m == 1 else qmm_txn(xq, sx, qs, sc, b)
     else:
         xn = x.float() if nrm is None else apply_rmsnorm(x, nrm, eps)
-        y = qmm_dequant(xn, qs, sc)
+        if qt.kind == "q4b" and li is None and k % 256 == 0:
+            y = qmm_planes(xn, qs, sc)
+        else:
+            y = qmm_dequant(xn, qs, sc)
         if b is not None:
             # outside the kernel, as the reference: f32 sums of the
-            # un-rounded normed x against the bias rows, added in place
-            y.addmm_(xn.reshape(m, k // qt.g, qt.g).sum(-1), b.float())
+            # un-rounded normed x against the bias rows, in y's dtype
+            bias = xn.reshape(m, k // qt.g, qt.g).sum(-1) @ b.float()
+            y = y + bias.to(y.dtype)
     n = qt.shape[0]
     return y[:, :n] if y.shape[1] > n else y
 

@@ -1,7 +1,7 @@
 """Repack GGUF block formats into the kernels' quantized tensors (QTensor).
 
 Counterpart of llamafile_tpu/ops/repack.py for the formats the port loads
-(Q4_K, Q8_0, Q6_K, F32, F16, BF16). The device layout is byte-identical to
+(Q4_K, Q5_K, Q8_0, Q6_K, F32, F16, BF16). The device layout is byte-identical to
 the JAX package's `repack_numpy` + `repack` (held so by
 tests/test_torch_repack.py):
 
@@ -10,8 +10,9 @@ tests/test_torch_repack.py):
                 scales/bias bf16 [K/32, Ns], the hi-plane groups folded
                 (a' = a/16, b' = b + 8a) so a kernel reads the hi nibble as
                 int8((p ^ 0x80) & 0xF0) = 16q - 128
-  kind "q8b":   qs int8 [K, Ns] codes, scales bf16 [K/g, Ns] (g 32 for Q8_0,
-                16 for Q6_K), no bias for these two formats
+  kind "q8b":   qs int8 [K, Ns] codes, scales bf16 [K/g, Ns] (g 32 for Q8_0
+                and Q5_K, 16 for Q6_K); Q5_K's codes 0..31 carry a bias
+                bf16 [K/32, Ns] (-dmin * min), Q8_0 and Q6_K none
   kind "dense": qs bf16 [K, N]
 
 Ns is N padded to a multiple of 2048 (logical N stays in QTensor.shape;
@@ -103,13 +104,18 @@ def _extract_q8_0(b):
     return q, d, None, 32
 
 
+def _extract_q5_k(b):
+    q, a, bb = Q.q5_k_codes(b)
+    return q, a, bb, 32
+
+
 def _extract_q6_k(b):
     q, a = Q.q6_k_codes(b)
     return q, a, None, 16
 
 
 _EXTRACTORS = {"Q8_0": _extract_q8_0, "Q4_K": _extract_q4_k,
-               "Q6_K": _extract_q6_k}
+               "Q5_K": _extract_q5_k, "Q6_K": _extract_q6_k}
 
 
 def repack_numpy(raw: np.ndarray, type_name: str, shape: tuple):

@@ -11,9 +11,11 @@ multiples of 4096), up to max_seq_len tokens: buckets of 16 and 32 take the
 q4b txn kernel, longer ones the dequant GEMM and, from 128 tokens, the
 flash_prefill kernel.
 
-The continuous batcher (server/batcher.py) drives the engine through its
-serving hooks: `new_row_cache` and `row_prefill` for admission, and the
-paged pool it keeps itself (kv_dtype bf16, or int8 for the pool only).
+The KV cache follows kv_dtype: bf16, or int8 codes with per-row scales
+(runtime/kvcache.py). The continuous batcher (server/batcher.py) drives the
+engine through its serving hooks: `new_row_cache` and `row_prefill` for
+admission (bf16 row caches, as the reference's), and the paged pool it
+keeps itself (bf16 or int8 pages by kv_dtype).
 """
 from __future__ import annotations
 
@@ -63,7 +65,8 @@ class Engine:
             raise NotImplementedError("batched decode belongs to the serving "
                                       "slice; the engine runs batch_size=1")
         self.cfg = cfg
-        # the layer loop indexes stacked weights by layer id (no slice copy)
+        # the layer loop indexes stacked weights by layer id (no slice
+        # copy); layers of differing formats stay unrolled
         self.params = stack_layers(params)
         self.tokenizer = tokenizer
         self.max_seq_len = min(max_seq_len, cfg.max_context)
@@ -72,10 +75,7 @@ class Engine:
             kv_dtype = {"bf16": torch.bfloat16, "int8": torch.int8,
                         "i8": torch.int8}[kv_dtype]
         if kv_dtype not in (torch.bfloat16, torch.int8):
-            raise NotImplementedError(f"kv_dtype {kv_dtype}: bf16, or int8 "
-                                      "for the server's paged pool")
-        # int8 applies to the batcher's paged pool; the dense caches of
-        # generate() and admission stay bf16 (new_cache raises for int8)
+            raise NotImplementedError(f"kv_dtype {kv_dtype}: bf16 or int8")
         self.kv_dtype = kv_dtype
         self.decode_chunk = 8        # tokens per device-resident decode chunk
 

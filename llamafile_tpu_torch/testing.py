@@ -31,6 +31,37 @@ def rand_q8b(gen: torch.Generator, layers: int, n: int, k: int, g: int, device):
     return qs, sc.to(torch.bfloat16), b.to(torch.bfloat16)
 
 
+def use_more_bits(i: int, n: int) -> bool:
+    """llama.cpp's use_more_bits (its quantizer's llama_tensor_get_type):
+    the layers of n that a Q4_K_M file stores attn_v and ffn_down of in
+    Q6_K: the first and last eighth, and every third layer between."""
+    return i < n // 8 or i >= 7 * n // 8 or (i - n // 8) % 3 == 2
+
+
+def make_q4_k_m_llama(preset: str = "llama3-8b", seed: int = 0, device="cuda"):
+    """(cfg, params) of a synthetic model by llama.cpp's Q4_K_M recipe:
+    attn_v and ffn_down Q6_K in the layers where use_more_bits(i, n), every
+    other matrix Q4_K, the output head Q6_K; random weights from a seed
+    (models.synthetic), fused as the loader fuses them. The layers differ
+    in format, so the params stay a list (the unrolled forward)."""
+    import dataclasses
+    from .models.loader import fuse_projections
+    from .models.synthetic import _rand_qtensor, make_synthetic_llama
+    cfg, params = make_synthetic_llama(preset, "Q4_K", seed=seed, device=device)
+    gen = torch.Generator(device=params.tok_embd.device)
+    gen.manual_seed(seed + 1)
+    dev = params.tok_embd.device
+    q6 = lambda n, k: _rand_qtensor(gen, n, k, "Q6_K", dev)
+    nkv = cfg.n_kv_heads * cfg.head_dim
+    layers = [dataclasses.replace(l, wv=q6(nkv, cfg.d_model),
+                                  w_down=q6(cfg.d_model, cfg.d_ff))
+              if use_more_bits(i, cfg.n_layers) else l
+              for i, l in enumerate(params.layers)]
+    params = dataclasses.replace(params, layers=layers,
+                                 output=q6(cfg.n_vocab, cfg.d_model))
+    return cfg, fuse_projections(params, cfg)
+
+
 def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
     """max |got - want| over the tensor, in units of max |want|."""
     err = (got.float() - want.float()).abs().max().item()
@@ -66,6 +97,15 @@ def flash_prefill_tile_fault(q, k, v, scale: float, tile: int = 64):
     acc = torch.einsum("bhgts,bshd->bhgtd", bf(p), bf(v))
     out = bf(acc / p.sum(-1, keepdim=True))
     return out.permute(0, 3, 1, 2, 4).reshape(b, t, hq, d)
+
+
+def planes_fault(x, qs, scales):
+    """A faulty two-plane product, the control that qmm_planes' tolerance
+    must reject: each superblock's lo and hi scale rows swapped."""
+    from .ops.qmatmul import qmm_planes_plain
+    k, ns = qs.shape[0] * 2, qs.shape[1]
+    sw = scales.reshape(k // 256, 2, 4, ns).flip(1).reshape(k // 32, ns)
+    return qmm_planes_plain(x, qs, sw)
 
 
 def paged_case(gen: torch.Generator, lengths, hq: int, hkv: int, d: int,

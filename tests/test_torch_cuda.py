@@ -16,7 +16,15 @@ order against cuBLAS's f32 product. The flash prefill is held row by row
 (testing.row_rel_err) within 1.5e-2, two bf16 steps of an output: the
 kernel rounds p against its running max, the plain version against the
 row's maximum, and both round the output to bf16; a kernel that skipped the
-diagonal key tile reads above 0.75 and is rejected. Paged attention is
+diagonal key tile reads above 0.75 and is rejected. The two-plane GEMM
+(qmm_planes) is held as the dequant GEMM, within 1e-3 of its largest
+magnitude; its bf16 output (M >= 256) within one bf16 step of that
+magnitude (2**-7 of it at most), as the sums in another order may round an
+element to the neighbouring bf16 value. A faulty control that swaps the lo and hi scale rows must fail
+that. The dense-cache decode attention (flash_decode) is held row by row:
+within 2e-2 of a row's max over a bf16 cache (p rounded to bf16 against
+another running max) and 1e-5 over an int8 cache (all f32); a control with
+one masked key made visible must fail the int8 bound. Paged attention is
 f32 on both sides over the same page values: it is held row by row within
 1e-5 of each (row, head)'s largest output, and its two faulty versions (one
 masked key made visible, each row's last page dropped) must fail that.
@@ -27,8 +35,8 @@ import torch
 from llamafile_tpu_torch.ops import attention as A
 from llamafile_tpu_torch.ops import qmatmul as Q
 from llamafile_tpu_torch.testing import (flash_prefill_tile_fault, paged_case,
-                                         paged_controls, rand_q4b, rand_q8b,
-                                         rel_err, row_rel_err)
+                                         paged_controls, planes_fault, rand_q4b,
+                                         rand_q8b, rel_err, row_rel_err)
 
 pytestmark = pytest.mark.cuda
 
@@ -137,6 +145,62 @@ def test_dequant_matches_plain(dev, kind, m, n, k):
     got = Q.qmm_dequant(x, qs[1], sc[1])
     assert Q.qmm_dequant.launches == n0 + 1
     assert_close(got, Q.qmm_dequant_plain(x, qs[1], sc[1]), 1e-3)
+
+
+@pytest.mark.parametrize("m", [33, 64, 200, 256, 1024])
+@pytest.mark.parametrize("n,k", [(4096, 4096), (1040, 1024), (512, 14336)])
+def test_planes_matches_plain(dev, m, n, k):
+    gen = torch.Generator(device=dev).manual_seed(m * n + k + 1)
+    qs, sc, _ = rand_q4b(gen, 2, n, k, dev)
+    x = torch.randn(m, k, generator=gen, device=dev)
+    n0 = Q.qmm_planes.launches
+    got = Q.qmm_planes(x, qs[1], sc[1])
+    assert Q.qmm_planes.launches == n0 + 1
+    want = Q.qmm_planes_plain(x, qs[1], sc[1])
+    assert got.dtype == want.dtype == (torch.bfloat16 if m >= 256 else torch.float32)
+    tol = 1e-3 if m < 256 else 2 ** -7       # bf16 out: one step of the largest
+    assert_close(got, want, tol)
+    assert rel_err(planes_fault(x, qs[1], sc[1]), want) > tol
+
+
+def decode_case(gen, dev, b, s, hq, hkv, int8):
+    """q f32 [B, Hq, D]; a 3-layer cache (bf16 flat [L, B, S, Hkv*D], or
+    int8 [L, B, S, Hkv, D] with f32 scales [L, B, S, Hkv])."""
+    q = torch.randn((b, hq, 128), generator=gen, device=dev)
+    if int8:
+        kv = [torch.randint(-127, 128, (3, b, s, hkv, 128), generator=gen, device=dev,
+                            dtype=torch.int8) for _ in range(2)]
+        sc = [torch.empty((3, b, s, hkv), device=dev).uniform_(2e-3, 2e-2, generator=gen)
+              for _ in range(2)]
+        return q, kv, sc
+    kv = [torch.randn((3, b, s, hkv * 128), generator=gen, device=dev).to(torch.bfloat16)
+          for _ in range(2)]
+    return q, kv, [None, None]
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("hq,hkv", [(32, 8), (8, 8), (16, 4), (4, 2)])
+@pytest.mark.parametrize("pos,s_eff", [((0, 5), 256), ((700, 1023), 1024), ((1, 2047), 2048)])
+def test_flash_decode_matches_plain(dev, int8, hq, hkv, pos, s_eff):
+    gen = torch.Generator(device=dev).manual_seed(hq * 10 + hkv + s_eff + int8)
+    q, (k, v), (ks, vs) = decode_case(gen, dev, 2, 2048, hq, hkv, int8)
+    p = torch.tensor(pos, dtype=torch.int32, device=dev)
+    n0 = A.flash_decode.launches
+    if int8:
+        sl = lambda t: t[1, :, :s_eff]
+        args = (q, sl(k), sl(v), p, 0.088)
+        got = A.flash_decode(*args, k_scale=sl(ks), v_scale=sl(vs))
+        want = A.flash_decode_plain(*args, k_scale=sl(ks), v_scale=sl(vs))
+        assert row_rel_err(got, want) <= 1e-5
+        more = A.flash_decode_plain(q, sl(k), sl(v), p + 1, 0.088, k_scale=sl(ks),
+                                    v_scale=sl(vs))
+        assert row_rel_err(more, want) > 1e-5           # one masked key made visible
+    else:
+        got = A.flash_decode_stacked(q, k, v, 1, p, 0.088, hkv, s_limit=s_eff)
+        want = A.flash_decode_stacked_plain(q, k, v, 1, p, 0.088, hkv, s_eff)
+        assert row_rel_err(got, want) <= 2e-2
+    assert A.flash_decode.launches == n0 + 1
+    assert bool(torch.isfinite(got).all())
 
 
 @pytest.mark.parametrize("t", [128, 384, 512])

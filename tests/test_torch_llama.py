@@ -185,9 +185,21 @@ def test_second_prefill_chunk_matches_jax(pallas_kernels):
 
 
 def test_forward_rejects_unstacked_layers():
+    """Unstacked layers are no longer refused: they run the unrolled path.
+    A 16-token prefill takes the same products on both layouts (equal
+    logits); a decode step runs the fused FFN when stacked and the three
+    products unrolled, within the fused FFN's 2e-3 (one requantized code)."""
     jcfg, jp = jax_model()
     tcfg, tp = carry_across(jcfg, jp)
-    with pytest.raises(NotImplementedError, match="stack_layers"):
-        TL.forward(tp, tcfg, torch.zeros((1, 16), dtype=torch.int32),
-                   torch.zeros(1, dtype=torch.int32),
-                   TL.init_cache(tcfg, 1, 64, device="cpu"))
+    st = TL.stack_layers(tp)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(3, V, (1, 17)))
+    out = []
+    for p in (tp, st):
+        c = TL.init_cache(tcfg, 1, MAX_LEN, device="cpu")
+        lg0, _ = TL.forward(p, tcfg, toks[:, :16], torch.zeros(1, dtype=torch.int32),
+                            c, fresh_prefill=True)
+        lg1, _ = TL.forward(p, tcfg, toks[:, 16:], torch.tensor([16], dtype=torch.int32),
+                            c, attn_len=MAX_LEN)
+        out.append((lg0, lg1))
+    assert torch.equal(out[0][0], out[1][0])
+    close(out[0][1].numpy(), out[1][1].numpy(), 2e-3)

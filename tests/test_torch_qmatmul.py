@@ -238,8 +238,10 @@ def test_dispatch_reaches_the_ported_branches(monkeypatch):
     assert calls == ["qmm_dequant", "qmm_q8_m1", "qmm_dequant"]
     with pytest.raises(NotImplementedError, match="kind"):
         TQ.qmatmul(x1, TQT("q2x", (512, D), 32, q8.qs))
-    with pytest.raises(NotImplementedError, match="int8 KV"):
-        init_kv(2, 1, 64, 2, 128, dtype="int8")
+    # the int8 KV cache is ported; an f16 cache is not
+    assert init_kv(2, 1, 64, 2, 128, dtype="int8", device="cpu").k.dtype == torch.int8
+    with pytest.raises(NotImplementedError, match="bf16 or int8"):
+        init_kv(2, 1, 64, 2, 128, dtype="f16")
 
 
 @pytest.mark.parametrize("kind", ["q4b", "dense", "q8b"])

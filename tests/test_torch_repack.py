@@ -164,7 +164,7 @@ def test_int8_device_layout_and_dequant(type_name):
         np.testing.assert_array_equal(bits(t), bits(j))
 
 
-@pytest.mark.parametrize("type_name", ["Q5_K", "Q4_0"])
+@pytest.mark.parametrize("type_name", ["Q2_K", "Q4_0"])
 def test_unported_format_raises(type_name):
     spec = TQ.TYPE_BY_NAME[type_name]
     raw = np.zeros(4 * 256 // spec.block_elems * spec.block_bytes, np.uint8)
