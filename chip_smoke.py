@@ -8,7 +8,11 @@
 2. Each kernel at the shapes of the llama3-8b main paths (Q4_K decode and
    prefill, Q8_0 and Q6_K decode, long-prompt prefill, the serving step at
    8 rows: qmm_txn at M = 8 and paged_attention over bf16 and int8 pages;
-   the unrolled prefill's qmm_planes; flash_decode over bf16 and int8),
+   the unrolled prefill's qmm_planes; flash_decode over bf16 and int8; the
+   MoE kernels at Mixtral-8x7B width: the routed fused FFN and the routed
+   q4b and q8b GEMVs at a decode step's 2 slots, qmm_txn_g at 16 and 512
+   slots, qmm_planes_g at 2048, each with a control whose expert ids are
+   swapped),
    held against its plain PyTorch version on the same inputs (the
    tolerances of the CPU and card tests) and timed on the device: a run of launches cycling over
    enough layers of weights to spill the 50 MB L2 (as decode does) is
@@ -18,13 +22,22 @@
    there is one, and the bound (bytes over the card's memory rate, or
    operations over its peak rate, whichever is larger).
 3. Whole paths at two layers of llama3-8b width, card (kernels) against the
-   same model on the CPU (plain versions): Q4_K with a 32-token prompt and 8
+   same model on the CPU (plain versions): Q4_K with a 32-token prompt and 4
    decode steps, Q4_K with a 300-token prompt (bucket 512) and 2 decode
    steps, Q8_0 with a 24-token prompt (bucket 32) and 4 decode steps, and
    the paged decode (forward_paged_decode) of 4 rows admitted at prompts of
    24, 64, 200 and 300 tokens, 4 steps; the Q4_K_M recipe at two layers
    (layer 1 Q6_K V and down, unrolled) with a 300-token prompt and 4 decode
-   steps; Q4_K with a dense int8 KV cache, 32-token prompt, 4 steps. Each
+   steps; Q4_K with a dense int8 KV cache, 32-token prompt, 4 steps; two
+   layers at Mixtral-8x7B width (mixtral-8x7b-2l): Q4_K stacked (24- and
+   300-token prompts: qmm_txn_g and qmm_planes_g; 4 decode steps on the
+   routed fused FFN), the Q4_K_M recipe unrolled (layer 1's Q6_K experts'
+   down: the routed GEMVs at decode, the dense expert loop at prefill), and
+   the paged decode at 4 rows (the fused FFN) and 8 rows (qmm_txn_g); the
+   routers held on the card's own inputs and their choices compared row by
+   row (a row routed otherwise on the two sides is reported, its logits not
+   held), and one decode step's MoE FFN calls run under
+   torch.cuda.set_sync_debug_mode("error"). Each
    is traced op by op: for each step, the first product, quantization or
    attention call where card and CPU part, and the largest parting; every
    product is rerun through its plain version on the card's own inputs and
@@ -56,15 +69,23 @@
    Engine.generate (64 tokens from a 24-token prompt, then the 1000-token
    prompt's TTFT on qmm_planes) and the HTTP server at 4 slots (4 greedy
    requests, each against itself served alone), launches exact.
-   Then, after every timed run (so that no profiler session of the process
-   precedes a timing), profiles: one 8-step decode chunk of
-   each model under torch.profiler (the device's busy share of a step) and
+7. mixtral-8x7b-8l (Mixtral-8x7B's widths, top-2 of 8 experts, 8 layers):
+   7a Q4_K stacked through Engine.generate (64 tokens from a 24-token
+   prompt; the 1000-token prompt's TTFT), 7b the same by the Q4_K_M recipe
+   (unrolled), 7c the HTTP server at 8 slots over 7a's engine, 8 greedy
+   requests (prompts of 24, 128, 500 and 1000 tokens, two each), each
+   against itself served alone; launches exact, the decode rate against the
+   routed weight-read bound (models.synthetic.decode_read_bytes).
+   Phases run in the order 4, 4b, 4d, 5, 4c, 6, 7. Then, after every timed
+   run (so that no profiler session of the process precedes a timing),
+   profiles: one 8-step decode chunk of each model (7a, 7b, and 4c and 4 on
+   rebuilt engines) under torch.profiler (the device's busy share of a step) and
    under cProfile (host time by function), one 1000-token prefill (device
    time by kernel), and one fused 8-row serving chunk (busy share).
 
 Any failure raises and exits non-zero. The last line of standard output is
 {"ok": true, "device": {...}}; the lines before it hold every kernel's
-launches summed over the counted runs of phases 4 to 6 ({"launches": ...}),
+launches summed over the counted runs of phases 4 to 7 ({"launches": ...}),
 the kernel table (one JSON object with an entry a kernel: the numbers of
 its first shape, the main path's heaviest, every measured shape under
 "shapes", and those launches) and the card's name and power limit.
@@ -107,8 +128,16 @@ DECODE_INT8_ROW_TOL = 1e-5        # all f32 on the same values
 KV_BYTES_PER_TOKEN = 32 * 8 * 128 * 2 * 2    # llama3-8b bf16 K and V, 32 layers
 
 
+T0 = time.time()
+
+
 def log(*a):
     print(*a, flush=True)
+
+
+def phase(msg):
+    """A phase header, with the seconds since the script started."""
+    log(f"{msg} [{time.time() - T0:.1f} s]")
 
 
 def nvidia_smi() -> str:
@@ -405,7 +434,9 @@ def kernel_phases(torch, dev, gen):
     dq, ds, db = rand_q4b(gen, layers, d, dff, dev)
     x = torch.randn((1, d), generator=gen, device=dev)
     xq, sx = Q.quantize_activations_g32(x, 1 + 0.1 * torch.randn(d, generator=gen, device=dev), 1e-5)
-    args = lambda i: (xq, sx, gq[i], gs[i], gb[i], dq[i], ds[i], db[i])
+    ids = torch.arange(layers, dtype=torch.int32, device=dev)   # the layer id as expert
+    one = torch.ones(1, device=dev)
+    args = lambda i: (xq, sx, gq, gs, gb, dq, ds, db, ids[i:i + 1], None, one)
     got = Q.qmm_moe_m1(*args(0))
     want = Q.qmm_moe_m1_plain(*args(0))
     torch.cuda.synchronize()
@@ -584,14 +615,153 @@ def kernel_phases(torch, dev, gen):
               F32_FLOP_PER_S)
         del q, kp, vp, ks, vs, kd, vd, got, want
         torch.cuda.empty_cache()
+    moe_kernel_phases(torch, dev, gen, entry, dequant_bf16)
     return list(rows.values())
+
+
+MOE_E, MOE_D, MOE_DFF = 8, 4096, 14336      # Mixtral-8x7B: top-2 of 8 experts
+SWAP_CONTROL_MIN = 0.1     # a control with expert ids swapped must part this far
+
+
+def swap_control(name, bad, want):
+    from llamafile_tpu_torch.testing import rel_err
+    ctl = rel_err(bad, want)
+    log(f"  {name}: swapped-expert-ids control {ctl:.6g} (must exceed {SWAP_CONTROL_MIN})")
+    if not ctl > SWAP_CONTROL_MIN:
+        raise AssertionError(f"{name}: the control with swapped expert ids passes")
+
+
+def moe_slots(torch, n_tok, seed):
+    """Top-2 expert ids of n_tok tokens, distinct within a token: int64 [2 n_tok]."""
+    g = torch.Generator().manual_seed(seed)
+    return torch.stack([torch.randperm(MOE_E, generator=g)[:2]
+                        for _ in range(n_tok)]).reshape(-1)
+
+
+def moe_kernel_phases(torch, dev, gen, entry, dequant_bf16):
+    """Phase 2 for the MoE kernels at Mixtral-8x7B width (d 4096, d_ff 14336,
+    8 experts): the routed fused FFN and the routed GEMVs at a decode step's
+    2 slots, the grouped products at 8 serving rows (16 slots, tm 8), a
+    256-token prompt (512 slots, tm 32) and a 1024-token prompt (2048 slots,
+    tm 128), each against its plain version, with a control whose expert ids
+    are swapped. Library: torch.bmm on the routed (or each tile's) experts
+    dequantized to bf16 beforehand; none for the fused FFN."""
+    from llamafile_tpu_torch.models.llama import group_layout
+    from llamafile_tpu_torch.ops import qmatmul as Q
+    from llamafile_tpu_torch.testing import rand_q4b, rand_q8b
+    E, d, dff = MOE_E, MOE_D, MOE_DFF
+    gq, gs, gb = rand_q4b(gen, E, 2 * dff, d, dev)      # gate|up stacks (interleaved width)
+    dq, ds, db = rand_q4b(gen, E, d, dff, dev)
+    d8, d8s, _ = rand_q8b(gen, E, d, dff, 16, dev)      # Q4_K_M's Q6_K down stacks
+    gu_e, dn_e = q4b_bytes(gq, gs, gb), q4b_bytes(dq, ds, db)
+    d8_e = d8[0].numel() + d8s[0].numel() * 2
+    pairs = [torch.tensor(p, dtype=torch.int32, device=dev) for p in ((0, 1), (2, 3), (4, 5),
+                                                                     (6, 7))]
+    ti = torch.zeros(2, dtype=torch.int32, device=dev)
+    x1 = torch.randn((1, d), generator=gen, device=dev)
+    xq, sx = Q.quantize_activations_g32(x1, 1 + 0.1 * torch.randn(d, generator=gen, device=dev),
+                                        1e-5)
+
+    # --- qmm_moe_m1, routed: one launch pair for the decode step's 2 slots
+    topw = torch.tensor([0.6, 0.4], device=dev)
+    margs = lambda ei: (xq, sx, gq, gs, gb, dq, ds, db, ei, ti, topw)
+    got, want = Q.qmm_moe_m1(*margs(pairs[0])), Q.qmm_moe_m1_plain(*margs(pairs[0]))
+    torch.cuda.synchronize()
+    err = check_close("qmm_moe_m1/routed S=2", got, want, 2e-3)
+    swap_control("qmm_moe_m1/routed S=2", Q.qmm_moe_m1_plain(*margs(pairs[0].flip(0))), want)
+    ms = time_ms(torch, lambda i: Q.qmm_moe_m1(*margs(pairs[i])), 4)
+    plain = time_ms(torch, lambda i: Q.qmm_moe_m1_plain(*margs(pairs[i])), 4)
+    entry("qmm_moe_m1", "llamafile_tpu_torch/csrc/qmm_moe_m1.cu",
+          "llamafile_tpu/ops/qmatmul.py:1037",
+          f"routed ffn S=2 of E={E} d={d} d_ff={dff} (2 distinct experts)", err, ms, plain,
+          None, 2 * (gu_e + dn_e) + d + d // 8 + 4 * 2 * d, 2 * 2 * (2 * dff * d + d * dff))
+
+    # --- the routed GEMVs: gate|up and down of a decode step's 2 slots ----
+    def dq_all(qs, sc, b):
+        return torch.stack([dequant_bf16(qs[e:e + 1], sc[e:e + 1], b[e:e + 1])[0]
+                            if b is not None else Q.dequant_bf16(qs[e], sc[e])
+                            for e in range(E)])
+    for name, label, (qs, sc, b), k, ebytes in (
+            ("qmm_txn_m1_r", "gate_up", (gq, gs, gb), d, gu_e),
+            ("qmm_txn_m1_r", "down", (dq, ds, db), dff, dn_e),
+            ("qmm_q8_m1_r", "down Q6_K", (d8, d8s, None), dff, d8_e)):
+        fn, plain_fn = getattr(Q, name), getattr(Q, name + "_plain")
+        n = qs.shape[-1]
+        x = torch.randn((1, k), generator=gen, device=dev)
+        rq, rs = Q.quantize_activations_g32(x)
+        got, want = fn(rq, rs, qs, sc, b, pairs[0], ti), plain_fn(rq, rs, qs, sc, b, pairs[0], ti)
+        torch.cuda.synchronize()
+        err = check_close(f"{name}/{label} S=2", got, want, 1e-5)
+        swap_control(f"{name}/{label} S=2", plain_fn(rq, rs, qs, sc, b, pairs[0].flip(0), ti),
+                     want)
+        ms = time_ms(torch, lambda i: fn(rq, rs, qs, sc, b, pairs[i], ti), 4)
+        plain = time_ms(torch, lambda i: plain_fn(rq, rs, qs, sc, b, pairs[i], ti), 4)
+        w_all = dq_all(qs, sc, b)
+        w2 = [w_all.index_select(0, pr) for pr in pairs]
+        xb = x.to(torch.bfloat16).expand(2, 1, k).contiguous()
+        lib = time_ms(torch, lambda i: torch.bmm(xb, w2[i]), 4)
+        del w_all, w2
+        entry(name, "llamafile_tpu_torch/csrc/qmm_routed.cu",
+              "llamafile_tpu/ops/qmatmul.py:" + ("867" if name == "qmm_txn_m1_r" else "948"),
+              f"{label} S=2 of E={E} N={n} K={k} (library: bmm on the 2 experts "
+              "dequantized beforehand)", err, ms, plain, lib,
+              2 * ebytes + k + k // 8 + 4 * 2 * n, 2 * 2 * n * k)
+        torch.cuda.empty_cache()
+
+    # --- the grouped products: serving at 8 rows, prompts of 256 and 1024 --
+    for name, n_tok, tm in (("qmm_txn_g", 8, 8), ("qmm_txn_g", 256, 32),
+                            ("qmm_planes_g", 1024, 128)):
+        gid = moe_slots(torch, n_tok, n_tok).to(dev)
+        order, pos, te, n_tiles = group_layout(gid, E, tm)
+        te = te.to(torch.int32)
+        n_exp = int(te.unique().numel())
+        swapped = te.clone()
+        j = int((te != te[0]).nonzero()[0, 0])          # the first tile of another expert
+        swapped[0], swapped[j] = te[j], te[0]
+        for label, (qs, sc, b), k, ebytes in (("gate_up", (gq, gs, gb), d, gu_e),
+                                             ("down", (dq, ds, db), dff, dn_e)):
+            n = qs.shape[-1]
+            x = torch.zeros((n_tiles * tm, k), device=dev).index_copy_(
+                0, pos, torch.randn((gid.shape[0], k), generator=gen, device=dev))
+            if name == "qmm_txn_g":
+                rq, rs = Q.quantize_activations_g32(x)
+                run = lambda t: Q.qmm_txn_g(rq, rs, qs, sc, b, t, tm)
+                plain_fn = lambda t: Q.qmm_txn_g_plain(rq, rs, qs, sc, b, t, tm)
+                tol, rate, out_b = 1e-5, INT8_OPS_PER_S, 4
+            else:
+                run = lambda t: Q.qmm_planes_g(x, qs, sc, b, t)
+                plain_fn = lambda t: Q.qmm_planes_g_plain(x, qs, sc, b, t)
+                tol, rate, out_b = PLANES_BF16_TOL, BF16_FLOP_PER_S, 2
+            got, want = run(te), plain_fn(te)
+            torch.cuda.synchronize()
+            what = f"{name}/{label} S={gid.shape[0]} tm={tm} ({n_tiles} tiles)"
+            err = check_close(what, got, want, tol)
+            swap_control(what, plain_fn(swapped), want)
+            del got, want
+            ms = time_ms(torch, lambda i: run(te), 1)
+            plain = time_ms(torch, lambda i: plain_fn(te), 1)
+            wt = dq_all(qs, sc, b).index_select(0, te.long())      # each tile's expert
+            xt = x.to(torch.bfloat16).reshape(n_tiles, tm, k)
+            lib = time_ms(torch, lambda i: torch.bmm(xt, wt), 1)
+            del wt, xt
+            entry(name, f"llamafile_tpu_torch/csrc/{name}.cu",
+                  "llamafile_tpu/ops/qmatmul.py:" + ("1373" if name == "qmm_txn_g" else "1432"),
+                  f"{label} S={gid.shape[0]} tm={tm} {n_tiles} tiles of {n_exp} experts "
+                  f"N={n} K={k} (library: bmm on each tile's expert dequantized beforehand)",
+                  err, ms, plain, lib,
+                  n_exp * ebytes + n_tiles * tm * (k + k // 8 if tm <= 32 else 2 * k)
+                  + out_b * n_tiles * tm * n, 2 * n_tiles * tm * n * k, rate)
+            torch.cuda.empty_cache()
+    del gq, gs, gb, dq, ds, db, d8, d8s
+    torch.cuda.empty_cache()
 
 
 def _to(params, dev):
     """A copy of params on dev, stacked (one LlamaLayer) or unrolled (a list)."""
     import dataclasses
     from llamafile_tpu_torch.models.llama import LlamaParams
-    mv = lambda v: None if v is None else v.to(dev)
+    mv = lambda v: (None if v is None else {k: q.to(dev) for k, q in v.items()}
+                    if isinstance(v, dict) else v.to(dev))
     layer_to = lambda l: dataclasses.replace(l, **{
         f.name: mv(getattr(l, f.name)) for f in dataclasses.fields(l)})
     layers = ([layer_to(l) for l in params.layers] if isinstance(params.layers, list)
@@ -602,7 +772,8 @@ def _to(params, dev):
 
 @contextlib.contextmanager
 def op_trace(rec):
-    """While open, every product (qmatmul, qmatmul_moe), activation
+    """While open, every product (qmatmul, qmatmul_moe and the MoE's routed
+    and grouped products), activation
     quantization (its int8 codes) and attention call of the forward appends
     (label, output on the CPU, inputs) to the list rec[-1], in call order.
     Inputs are kept for the prefill, int8-cache decode and paged attention
@@ -631,17 +802,22 @@ def op_trace(rec):
                 ins = ({"x": a[0].cpu(), "args": a[1:], "kw": kw} if keep_inputs == "call"
                        else [cpu(t) for t in a] + [{k: cpu(t) for k, t in kw.items()}]
                        if keep_inputs else None)
-                rec[-1].append((label(*a), (out[0] if isinstance(out, tuple) else out).cpu(),
+                rec[-1].append((label(*a, **kw), (out[0] if isinstance(out, tuple) else out).cpu(),
                                 ins))
             return out
         setattr(mod, name, traced)
-    wrap(LM, "qmatmul", lambda x, qt, li=None, *_: f"product N={qt.shape[0]}"
+    wrap(LM, "qmatmul", lambda x, qt, li=None, *_, **_kw: f"product N={qt.shape[0]}"
          + ("" if li is None else f" layer {li}"), keep_inputs="call")
-    wrap(LM, "qmatmul_moe", lambda x, gu, dn, rows, *_: f"L{rows[0]} fused ffn", True,
-         keep_inputs="call")
-    wrap(Q, "quantize_activations_g32", lambda x, *_: f"codes M={x.shape[0]} K={x.shape[1]}")
-    wrap(LM, "flash_prefill", lambda *_: "prefill attention", keep_inputs=True)
-    wrap(LM, "flash_decode_write_stacked", lambda *a: f"L{a[5]} decode attention")
+    wrap(LM, "qmatmul_moe", lambda x, gu, dn, ids, *_, **kw: f"fused ffn S={ids.shape[0]}",
+         True, keep_inputs="call")
+    wrap(LM, "qmatmul_routed", lambda x, qt, ids, *_, **kw:
+         f"routed product N={qt.shape[0]} S={ids.shape[0]}", keep_inputs="call")
+    wrap(LM, "qmatmul_grouped", lambda x, qt, te, *_, **kw:
+         f"grouped product N={qt.shape[0]} rows={x.shape[0]} tm={kw['tm']}", keep_inputs="call")
+    wrap(Q, "quantize_activations_g32",
+         lambda x, *_, **_kw: f"codes M={x.shape[0]} K={x.shape[1]}")
+    wrap(LM, "flash_prefill", lambda *_, **_kw: "prefill attention", keep_inputs=True)
+    wrap(LM, "flash_decode_write_stacked", lambda *a, **_kw: f"L{a[5]} decode attention")
     wrap(LM, "flash_decode", lambda *a, **kw: "int8 decode attention", keep_inputs=True)
     wrap(PG, "paged_attend", lambda *a, **kw: "paged attention", keep_inputs=True)
     try:
@@ -662,19 +838,38 @@ def trace_report(steps_card, steps_cpu):
     dequant GEMM ("dequant"), the two-plane GEMM of unstacked q4b weights
     ("planes") and the fused FFN ("ffn"): a fault in a product kernel shows
     there, whatever parted before it."""
+    import torch
     from llamafile_tpu_torch.models import llama as LM
     from llamafile_tpu_torch.testing import rel_err
-    lines, same = [], {"int8": 0.0, "dequant": 0.0, "planes": 0.0, "ffn": 0.0}
+    lines, same = [], {"int8": 0.0, "dequant": 0.0, "planes": 0.0, "ffn": 0.0,
+                       "planes_g": 0.0}
     for i, (card, cpu) in enumerate(zip(steps_card, steps_cpu)):
         n_q = flips = q_flipped = 0
         first, worst = None, (0.0, "")
         for j, ((lab, a, ia), (lab_b, b, ib)) in enumerate(zip(card, cpu)):
             assert lab == lab_b, (lab, lab_b)
             if isinstance(ia, dict):             # a product: rerun plain on the card's x
-                fn = LM.qmatmul_moe if "fused ffn" in lab else LM.qmatmul
-                e_same = rel_err(a, fn(ia["x"], *ib["args"], **ib["kw"]))
+                fn = (LM.qmatmul_moe if "fused ffn" in lab else LM.qmatmul_routed
+                      if lab.startswith("routed") else LM.qmatmul_grouped
+                      if lab.startswith("grouped") else LM.qmatmul)
+                # the weights from the CPU's copy; expert ids, rows and routing
+                # weights (tensors) from the card's call, as it routed
+                pick = lambda c, h: c.cpu() if isinstance(c, torch.Tensor) else h
+                args = [pick(c, h) for c, h in zip(ia["args"], ib["args"])]
+                kw = {k: pick(ia["kw"][k], v) for k, v in ib["kw"].items()}
+                # where the card's inputs equal the CPU's bit for bit, the
+                # CPU's output is the plain version on them
+                same_in = torch.equal(ia["x"], ib["x"]) and all(
+                    torch.equal(c, h) for c, h in zip(args + list(kw.values()),
+                                                      ib["args"] + tuple(ib["kw"].values()))
+                    if isinstance(h, torch.Tensor))
+                e_same = rel_err(a, b if same_in else fn(ia["x"], *args, **kw))
                 qt, m = ib["args"][0], ia["x"].shape[0]
-                route = ("ffn" if "fused ffn" in lab else None if qt.kind == "dense"
+                route = ("ffn" if "fused ffn" in lab
+                         else "int8" if lab.startswith("routed")
+                         or (lab.startswith("grouped") and kw["tm"] <= 32)
+                         else "planes_g" if lab.startswith("grouped")
+                         else None if qt.kind == "dense"
                          else "int8" if m == 1 or (qt.kind == "q4b" and m <= 32)
                          else "planes" if qt.kind == "q4b" and qt.qs.ndim == 2
                          else "dequant")
@@ -703,7 +898,7 @@ def trace_report(steps_card, steps_cpu):
 # phase 2's limits; planes: its bf16 output, then the bias term added in
 # bf16, each a rounding of up to one bf16 step of the largest output
 SAME_INPUT_TOL = {"int8": 1e-5, "dequant": 1e-3, "planes": 2 * PLANES_BF16_TOL,
-                  "ffn": 2e-3}
+                  "ffn": 2e-3, "planes_g": PLANES_BF16_TOL}     # planes_g: one rounding
 
 
 def check_same_input(what, same):
@@ -811,6 +1006,165 @@ def whole_path_check(torch, dev, quant="Q4_K", n_prompt=32, n_decode=8,
     torch.cuda.empty_cache()
 
 
+ROUTER_SAME_TOL = 1e-5      # router weights, card vs plain on the card's input
+
+
+def router_report(torch, step_card, step_cpu, n_experts, k):
+    """The router calls of one traced forward (dense products of N =
+    n_experts): each rerun through its plain version on the card's own input,
+    whose softmax weights must agree with the card's within ROUTER_SAME_TOL;
+    a row whose top-k differs there is a fault unless the plain margin
+    between the k-th and (k+1)-th weight is within twice that row's rounding
+    (a tie). Then the card's and the CPU's choices row by row: a row that
+    chose other experts there follows from an earlier parting of the two
+    runs (each product is held on its own inputs). Returns (the rows routed
+    otherwise on the two sides, the smallest CPU margin among them,
+    same-input ties, the largest router rounding)."""
+    from llamafile_tpu_torch.models import llama as LM
+    swaps, min_margin, ties, rnd = set(), float("inf"), 0, 0.0
+    for (lab, a, ia), (_, b, ib) in zip(step_card, step_cpu):
+        if not isinstance(ia, dict) or lab.startswith(("routed", "grouped", "fused")):
+            continue
+        qt = ib["args"][0]
+        if qt.kind != "dense" or qt.shape[0] != n_experts:
+            continue
+        plain = LM.qmatmul(ia["x"], *ib["args"], **ib["kw"])
+        wc, wp, wh = (torch.softmax(t.float(), -1) for t in (a, plain, b))
+        row_rnd = (wc - wp).abs().amax(-1)
+        rnd = max(rnd, row_rnd.max().item())
+        pick = lambda w: LM.top_k(w, k)[1].sort(-1).values
+        sorted_p = wp.sort(-1, descending=True).values
+        margin_p = sorted_p[:, k - 1] - sorted_p[:, k]
+        for r in (pick(wc) != pick(wp)).any(-1).nonzero()[:, 0].tolist():
+            if margin_p[r] > 2 * row_rnd[r]:
+                raise AssertionError(f"{lab}: row {r} routed to other experts on the same "
+                                     f"input (margin {margin_p[r]:.3g}, rounding "
+                                     f"{row_rnd[r]:.3g})")
+            ties += 1
+        sorted_h = wh.sort(-1, descending=True).values
+        margin_h = sorted_h[:, k - 1] - sorted_h[:, k]
+        diff = (pick(wc) != pick(wh)).any(-1)
+        swaps |= set(diff.nonzero()[:, 0].tolist())
+        if diff.any():
+            min_margin = min(min_margin, margin_h[diff].min().item())
+    if rnd > ROUTER_SAME_TOL:
+        raise AssertionError(f"router weights part from the plain version on the card's "
+                             f"input by {rnd}")
+    return swaps, min_margin, ties, rnd
+
+
+@contextlib.contextmanager
+def no_sync_moe(torch):
+    """While open, every moe_ffn call runs under
+    torch.cuda.set_sync_debug_mode("error"): a call that reads a device value
+    on the host (a sync) raises. Yields a list whose length counts the calls."""
+    from llamafile_tpu_torch.models import llama as LM
+    orig, calls = LM.moe_ffn, []
+
+    def strict(*a, **kw):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = orig(*a, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        calls.append(a[0].shape[0])
+        return out
+    LM.moe_ffn = strict
+    try:
+        yield calls
+    finally:
+        LM.moe_ffn = orig
+
+
+def moe_path_check(torch, dev, quant="Q4_K", runs=((24, 4), (300, 0))):
+    """Two layers at Mixtral-8x7B width, card (kernels) against the CPU (plain
+    versions). quant "Q4_K" is stacked ([L*E] expert stacks: the grouped
+    kernels at prefill, the routed fused FFN at decode); "Q4_K_M" is the
+    recipe at two layers (layer 1's experts with Q6_K down: the routed
+    GEMVs at decode and the dense expert loop at prefill; attn_k/v Q8_0,
+    attn_output Q5_K), unrolled. Each run prefills its prompt (padded to its
+    bucket) on both sides, then decodes teacher-forced with the card's
+    greedy token, each step from the card's cache. Every product is rerun
+    through its plain version on the card's own inputs and expert ids; the
+    routers as router_report holds them; the logits of a step within 2e-2
+    with the same top-1 where no row chose other experts on the two sides,
+    and reported otherwise. Then one more decode step with every MoE FFN
+    call under the sync check."""
+    from llamafile_tpu_torch.models.llama import forward, init_cache, stack_layers
+    from llamafile_tpu_torch.models.synthetic import make_synthetic_llama
+    from llamafile_tpu_torch.runtime.engine import bucket_len
+    from llamafile_tpu_torch.testing import make_q4_k_m_llama
+    if quant == "Q4_K_M":
+        cfg, params = make_q4_k_m_llama("mixtral-8x7b-2l", seed=1, device=dev)
+    else:
+        cfg, params = make_synthetic_llama("mixtral-8x7b-2l", quant, seed=1, fuse=True,
+                                           device=dev)
+    gpu = stack_layers(params)
+    what = f"Mixtral {quant} ({'stacked' if not isinstance(gpu.layers, list) else 'unrolled'})"
+    cpu = _to(gpu, "cpu")
+    total_swaps = 0
+    for n_prompt, n_decode in runs:
+        bucket = bucket_len(n_prompt)
+        toks = torch.zeros((1, bucket), dtype=torch.int64)
+        toks[0, :n_prompt] = torch.randint(3, cfg.n_vocab, (n_prompt,),
+                                           generator=torch.Generator().manual_seed(n_prompt))
+        max_len = bucket + n_decode + 1
+        caches = {d: init_cache(cfg, 1, max_len, device=d) for d in ("cuda", "cpu")}
+        rec = {"cuda": [], "cpu": []}
+        logits = {"cuda": [], "cpu": []}
+
+        def run(d, p, tokens, pos, **kw):
+            rec[d].append([])
+            with op_trace(rec[d]):
+                lg, _ = forward(p, cfg, tokens.to(d),
+                                torch.tensor([pos], dtype=torch.int32, device=d), caches[d], **kw)
+            logits[d].append(lg[0, -1].float().cpu())
+        for d, p in (("cuda", gpu), ("cpu", cpu)):
+            run(d, p, toks, 0, fresh_prefill=True,
+                last_idx=torch.tensor([n_prompt - 1], device=d))
+        nxt = int(logits["cuda"][0].argmax())
+        for step in range(n_decode):
+            for name in ("k", "v"):
+                getattr(caches["cpu"], name).copy_(getattr(caches["cuda"], name))
+            for d, p in (("cuda", gpu), ("cpu", cpu)):
+                run(d, p, torch.tensor([[nxt]]), n_prompt + step, attn_len=max_len)
+            nxt = int(logits["cuda"][-1].argmax())
+        lines, same = trace_report(rec["cuda"], rec["cpu"])
+        for line in lines:
+            log(f"  {what} trace {line}")
+        check_same_input(f"{what} prompt {n_prompt}", same)
+        bad = []
+        for i, (a, b) in enumerate(zip(logits["cuda"], logits["cpu"])):
+            swaps, margin, ties, rnd = router_report(torch, rec["cuda"][i], rec["cpu"][i],
+                                                     cfg.n_experts, cfg.n_experts_used)
+            total_swaps += len(swaps)
+            rel = ((a - b).abs().max() / b.abs().max()).item()
+            held = not swaps
+            log(f"  {what} prompt {n_prompt} (bucket {bucket}) step {i}: top-1 card "
+                f"{int(a.argmax())} cpu {int(b.argmax())}, max |diff| / max |logit| = "
+                f"{rel:.3g}; routers: card vs plain on its input {rnd:.3g} ({ties} ties), "
+                f"{len(swaps)} rows routed otherwise than on the CPU"
+                + (f" (smallest CPU margin {margin:.3g}): logits not held" if not held else ""))
+            if held and (int(a.argmax()) != int(b.argmax()) or rel > 2e-2):
+                bad.append(f"prompt {n_prompt} step {i}")
+        if bad:
+            raise AssertionError(f"{what}: card and CPU disagree at {bad}")
+        del rec
+        if n_decode:
+            with no_sync_moe(torch) as calls:
+                forward(gpu, cfg, torch.tensor([[nxt]], device=dev),
+                        torch.tensor([n_prompt + n_decode], dtype=torch.int32, device=dev),
+                        caches["cuda"], attn_len=max_len)
+                torch.cuda.synchronize()
+            log(f"  {what}: {len(calls)} MoE FFN calls of a decode step ran under "
+                "set_sync_debug_mode('error'): no device sync")
+    log(f"  {what}: {total_swaps} router rows chose other experts on the card than on "
+        "the CPU over the traced steps")
+    del gpu, cpu, params
+    torch.cuda.empty_cache()
+
+
 def decode_attention_report(torch, dev, steps):
     """Each int8-cache decode attention call of a traced run (flash_decode)
     rerun through the kernel and its plain version on the card's own inputs:
@@ -833,7 +1187,8 @@ def decode_attention_report(torch, dev, steps):
             f"{worst:.3g} per row (tol {DECODE_INT8_ROW_TOL})"] if n else []
 
 
-def paged_path_check(torch, dev, prompts=(24, 64, 200, 300), n_decode=4):
+def paged_path_check(torch, dev, prompts=(24, 64, 200, 300), n_decode=4,
+                     preset="llama3-8b-2l"):
     """The serving decode at two layers of llama3-8b width, card (kernels)
     against the same model on the CPU (plain versions): 4 rows admitted at
     `prompts` tokens (a dense row prefill each on the card, copied into a
@@ -843,7 +1198,11 @@ def paged_path_check(torch, dev, prompts=(24, 64, 200, 300), n_decode=4):
     step's parting is that step's own (the prefill's is phase 3's other
     checks'). Logits per row within 2e-2 of the largest with the same
     top-1; each paged attention call of the card's trace rerun through the
-    kernel and its plain version on its own inputs, within PAGED_ROW_TOL."""
+    kernel and its plain version on its own inputs, within PAGED_ROW_TOL.
+    A MoE preset (Mixtral width) also holds its routers (router_report: a
+    row routed otherwise on the two sides is reported, its logits not
+    held), and runs one more step with every MoE FFN call under the sync
+    check."""
     from llamafile_tpu_torch.models.llama import (forward, forward_paged_decode,
                                                   init_cache, stack_layers)
     from llamafile_tpu_torch.models.synthetic import make_synthetic_llama
@@ -851,10 +1210,11 @@ def paged_path_check(torch, dev, prompts=(24, 64, 200, 300), n_decode=4):
     from llamafile_tpu_torch.runtime.engine import bucket_len
     from llamafile_tpu_torch.runtime.paged import PageAllocator, copy_row_to_pages, init_paged
     from llamafile_tpu_torch.testing import paged_controls, row_rel_err
-    cfg, params = make_synthetic_llama("llama3-8b-2l", "Q4_K", seed=1, fuse=True, device=dev)
+    cfg, params = make_synthetic_llama(preset, "Q4_K", seed=1, fuse=True, device=dev)
     gpu = stack_layers(params)
     cpu = _to(gpu, "cpu")
     r, ps, max_len = len(prompts), 64, 512
+    what = f"paged {preset} {r} rows"
     maxp = max_len // ps
     n_pages = 1 + r * maxp
     alloc = PageAllocator(n_pages, ps, r, max_len)
@@ -890,19 +1250,33 @@ def paged_path_check(torch, dev, prompts=(24, 64, 200, 300), n_decode=4):
                                              pools[d], tables[d])
             out[d] = lg.float().cpu()
         a, b = out["cuda"], out["cpu"]
+        swapped = set()
+        if cfg.n_experts:
+            swapped, margin, ties, rnd = router_report(torch, rec["cuda"][-1], rec["cpu"][-1],
+                                                       cfg.n_experts, cfg.n_experts_used)
+            log(f"  {what} step {step}: routers card vs plain on its input {rnd:.3g} "
+                f"({ties} ties); rows routed otherwise than on the CPU {sorted(swapped)}")
         for i in range(r):
             rel = ((a[i] - b[i]).abs().max() / b[i].abs().max()).item()
-            worst = max(worst, rel)
-            log(f"  paged step {step} row {i} (prompt {prompts[i]}): top-1 card "
+            if i not in swapped:
+                worst = max(worst, rel)
+            log(f"  {what} step {step} row {i} (prompt {prompts[i]}): top-1 card "
                 f"{int(a[i].argmax())} cpu {int(b[i].argmax())}, max |diff| / max |logit| "
-                f"= {rel:.3g}")
-            if int(a[i].argmax()) != int(b[i].argmax()) or rel > 2e-2:
+                f"= {rel:.3g}" + (" (routed otherwise: not held)" if i in swapped else ""))
+            if i not in swapped and (int(a[i].argmax()) != int(b[i].argmax()) or rel > 2e-2):
                 bad.append(f"step {step} row {i}")
         tok = a.argmax(-1).to(torch.int32)
     lines, same = trace_report(rec["cuda"], rec["cpu"])
     for line in lines:
-        log(f"  paged trace {line}")
-    check_same_input("paged decode", same)
+        log(f"  {what} trace {line}")
+    check_same_input(what, same)
+    if cfg.n_experts:
+        with no_sync_moe(torch) as calls:
+            forward_paged_decode(gpu, cfg, tok.to(dev), (pos + n_decode).to(dev),
+                                 pools["cuda"], tables["cuda"])
+            torch.cuda.synchronize()
+        log(f"  {what}: {len(calls)} MoE FFN calls of a decode step ran under "
+            "set_sync_debug_mode('error'): no device sync")
     same, ctl = 0.0, float("inf")
     for step in rec["cuda"]:
         for lab, _, ins in step:
@@ -919,7 +1293,7 @@ def paged_path_check(torch, dev, prompts=(24, 64, 200, 300), n_decode=4):
     if same > PAGED_PATH_TOL:
         raise AssertionError(f"paged_attention on the path's inputs: {same}")
     if bad:
-        raise AssertionError(f"paged decode: card and CPU disagree at {bad}")
+        raise AssertionError(f"{what}: card and CPU disagree at {bad}")
     del rec, gpu, cpu, params, pools
     torch.cuda.empty_cache()
 
@@ -1004,7 +1378,7 @@ def main_path(torch, dev):
                           "flash_decode_write_stacked": 32 * steps}, "phase 4")
     step_q4 = decode_report(torch, read, steps, ttft, decode_s, "24-token prompt, bucket 32")
 
-    log("phase 4b: the same engine, a 1000-token prompt (bucket 1024)")
+    phase("phase 4b: the same engine, a 1000-token prompt (bucket 1024)")
     long_prompt = [int(t) for t in torch.randint(3, eng.cfg.n_vocab, (1000,),
                                                  generator=torch.Generator().manual_seed(4))]
     ttfts = []
@@ -1015,7 +1389,7 @@ def main_path(torch, dev):
         ttfts.append(ttft_b * 1e3)
     log(f"  time to first token, 1000-token prompt: {statistics.median(ttfts):.2f} ms "
         f"(median of {', '.join(f'{t:.2f}' for t in ttfts)} ms)")
-    log("phase 4d: the same stacked Q4_K weights, dense int8 KV cache, Engine.generate")
+    phase("phase 4d: the same stacked Q4_K weights, dense int8 KV cache, Engine.generate")
     from llamafile_tpu_torch.runtime.engine import Engine
     eng8 = Engine(eng.cfg, eng.params, eng.tokenizer, max_seq_len=2048, kv_dtype="int8",
                   device=dev)
@@ -1025,12 +1399,12 @@ def main_path(torch, dev):
                  "phase 4d")
     decode_report(torch, read, steps, ttft, decode_s, "24-token prompt, bucket 32, int8 KV")
     del eng8
-    log("phase 5: serving, the port's HTTP server over the same engine, 8 slots")
+    phase("phase 5: serving, the port's HTTP server over the same engine, 8 slots")
     counts_5, step_5 = serving_phase(torch, eng, read)
     del eng
     torch.cuda.empty_cache()
 
-    log("phase 4c: main path, llama3-8b Q8_0, 32 layers, Engine.generate")
+    phase("phase 4c: main path, llama3-8b Q8_0, 32 layers, Engine.generate")
     eng, read = build_engine(torch, dev, "Q8_0")
     _, counts_c, ttft, decode_s = counted_generate(torch, eng, prompt, n_new)
     check_counts(counts_c, {"qmm_q8_m1": 1 + (4 * n_layers + 1) * steps,
@@ -1038,12 +1412,23 @@ def main_path(torch, dev):
                             "flash_decode_write_stacked": n_layers * steps}, "phase 4c")
     step_q8 = decode_report(torch, read, steps, ttft, decode_s, "24-token prompt, bucket 32")
 
-    log("phase 6: main path, llama3-8b Q4_K_M, 32 layers unrolled, Engine.generate "
+    phase("phase 6: main path, llama3-8b Q4_K_M, 32 layers unrolled, Engine.generate "
         "and the HTTP server")
     counts_6 = q4km_phase(torch, dev, prompt, long_prompt, n_new)
+    del eng
+    torch.cuda.empty_cache()
 
-    log("profiles of phase 4c's Q8_0 decode, then of phase 4 and 4b on a rebuilt "
-        "Q4_K engine")
+    moe_engines, moe_steps, counts_7, moe_prompt = moe_phase(torch, dev, n_new)
+
+    phase("profiles of phase 7's Mixtral decodes, of phase 4c's Q8_0 decode on a rebuilt "
+        "engine, then of phase 4 and 4b on a rebuilt Q4_K engine")
+    for what, eng7, step7 in zip(("7a Q4_K stacked", "7b Q4_K_M unrolled"), moe_engines,
+                                 moe_steps):
+        log(f"  phase {what}:")
+        device_busy(torch, eng7, moe_prompt, sp, step7)
+    del moe_engines, eng7
+    torch.cuda.empty_cache()
+    eng, _ = build_engine(torch, dev, "Q8_0")
     device_busy(torch, eng, prompt, sp, step_q8)
     del eng
     torch.cuda.empty_cache()
@@ -1053,7 +1438,180 @@ def main_path(torch, dev):
     fused_profile(torch, eng, step_5)
     del eng
     torch.cuda.empty_cache()
-    return [counts, counts_b, counts_d, counts_c, counts_5] + counts_6
+    return [counts, counts_b, counts_d, counts_c, counts_5] + counts_6 + counts_7
+
+
+MOE_SERVED = (0, 1, 2, 3, 4, 5, 6, 7)      # two requests a prompt length
+MOE_REQ = (0, 2, 3, 4, 5, 7, 8, 9)        # their _serve_request indices: greedy, half streamed
+
+
+def moe_phase(torch, dev, n_new):
+    """Phase 7: mixtral-8x7b-8l (Mixtral-8x7B's published widths, top-2 of 8
+    experts, 8 layers sharing their weight buffers) at full width. 7a: Q4_K,
+    stacked ([64, ...] expert stacks), Engine.generate of n_new greedy tokens
+    from a 24-token prompt (the grouped qmm_txn_g at the bucket-32 prompt,
+    the routed fused FFN at decode), then the 1000-token prompt's TTFT
+    (qmm_planes_g). 7b: the same widths by the Q4_K_M recipe, unrolled
+    (layers 0, 3, 6, 7 with Q6_K experts' down: the routed GEMVs at decode,
+    the dense expert loop at prefill). 7c: the HTTP server at 8 slots over
+    7a's engine, 8 greedy requests (prompts of 24, 128, 500 and 1000 tokens,
+    two each), each against itself served alone. Launch counts exact.
+    Returns ([7a's engine, 7b's engine], their decode step ms, the counted
+    runs' counts, the 24-token prompt)."""
+    from llamafile_tpu_torch.models.synthetic import decode_read_bytes, make_synthetic_llama
+    from llamafile_tpu_torch.runtime.engine import Engine
+    from llamafile_tpu_torch.runtime.tokenizer import Tokenizer
+    from llamafile_tpu_torch.testing import make_q4_k_m_llama, use_more_bits
+    runs, engines, step_ms = [], [], []
+    vocab = 32000                                   # Mixtral-8x7B's
+    prompt = torch.randint(3, vocab, (24,), generator=torch.Generator().manual_seed(3)).tolist()
+    long_prompt = torch.randint(3, vocab, (1000,),
+                                generator=torch.Generator().manual_seed(4)).tolist()
+    for tag, quant in (("7a", "Q4_K"), ("7b", "Q4_K_M")):
+        phase(f"phase {tag}: mixtral-8x7b-8l {quant}, Engine.generate")
+        t0 = time.time()
+        if quant == "Q4_K_M":
+            cfg, params = make_q4_k_m_llama("mixtral-8x7b-8l", seed=0, device=dev)
+        else:
+            cfg, params = make_synthetic_llama("mixtral-8x7b-8l", quant, seed=0, fuse=True,
+                                               device=dev)
+        eng = Engine(cfg, params, Tokenizer({}), max_seq_len=2048, device=dev)
+        del params
+        n = cfg.n_layers
+        six = [i for i in range(n) if use_more_bits(i, n)]
+        stacked = not isinstance(eng.params.layers, list)
+        if stacked != (quant == "Q4_K"):
+            raise AssertionError(f"phase {tag}: the layers were {'' if stacked else 'not '}"
+                                 "stacked")
+        torch.cuda.synchronize()
+        read = decode_read_bytes(eng.params, cfg)
+        log(f"  built mixtral-8x7b-8l {quant} ({n} layers, "
+            + ("stacked, expert stacks [64, ...]" if stacked else
+               f"unrolled; Q6_K experts' down in layers {six}, attn_k/v Q8_0, attn_output "
+               "Q5_K, output Q6_K") + f") in {time.time() - t0:.1f} s; a decode step "
+            f"reads {read / 1e9:.3f} GB of weights (top-2 of 8 experts)")
+        steps = n_new - 1
+        _, counts, ttft, decode_s = counted_generate(torch, eng, prompt, n_new)
+        if stacked:
+            # a step: qkv and o GEMVs, the fused FFN (2 launches) and the
+            # fused attention a layer, the head; the bucket-32 prompt: qkv
+            # and o on qmm_txn, gate|up and down on qmm_txn_g (64 slots, tm 8)
+            want = {"qmm_txn_m1": 1 + (2 * n + 1) * steps, "qmm_txn": 2 * n,
+                    "qmm_txn_g": 2 * n, "qmm_moe_m1": 2 * n * steps,
+                    "flash_decode_write_stacked": n * steps}
+            long_want = {"qmm_dequant": 2 * n, "qmm_planes_g": 2 * n, "flash_prefill": n,
+                         "qmm_txn_m1": 1}
+        else:
+            # a step: q on qmm_txn_m1, k, v (Q8_0) and o (Q5_K) on
+            # qmm_q8_m1 a layer; the fused FFN in the Q4_K-down layers, the
+            # routed GEMVs (gate|up q4b, down q8b) in the others; the Q6_K
+            # head. The prompt: q on qmm_txn, k, v, o on the dequant GEMM;
+            # qmm_txn_g in the Q4_K-down layers, the dense loop over 8
+            # experts (gate|up on qmm_txn, down on the dequant GEMM) in the
+            # others; a 1000-token prompt the same on qmm_planes and qmm_planes_g
+            n4 = n - len(six)
+            want = {"qmm_txn_m1": n * steps, "qmm_q8_m1": 1 + (3 * n + 1) * steps,
+                    "qmm_moe_m1": 2 * n4 * steps, "qmm_txn_m1_r": len(six) * steps,
+                    "qmm_q8_m1_r": len(six) * steps, "flash_decode_write_stacked": n * steps,
+                    "qmm_txn": n + 8 * len(six), "qmm_dequant": 3 * n + 8 * len(six),
+                    "qmm_txn_g": 2 * n4}
+            long_want = {"qmm_planes": n + 8 * len(six), "qmm_dequant": 3 * n + 8 * len(six),
+                         "qmm_planes_g": 2 * n4, "flash_prefill": n, "qmm_q8_m1": 1}
+        check_counts(counts, want, f"phase {tag}")
+        step_ms.append(decode_report(torch, read, steps, ttft, decode_s,
+                                     "24-token prompt, bucket 32"))
+        ttfts = []
+        for _ in range(3):
+            _, counts_b, ttft_b, _ = counted_generate(torch, eng, long_prompt, 1)
+            check_counts(counts_b, long_want, f"phase {tag}, 1000 tokens")
+            ttfts.append(ttft_b * 1e3)
+        log(f"  time to first token, 1000-token prompt: {statistics.median(ttfts):.2f} ms "
+            f"(median of {', '.join(f'{t:.2f}' for t in ttfts)} ms)")
+        runs += [counts, counts_b]
+        engines.append(eng)
+        del eng
+    phase("phase 7c: the HTTP server over 7a's engine, 8 slots, 8 greedy requests")
+    runs.append(moe_serving(torch, engines[0]))
+    return engines, step_ms, runs, prompt
+
+
+def moe_serving(torch, eng):
+    """Phase 7c: 8 greedy requests through the port's Server at 8 slots over
+    the stacked Mixtral engine, launches exact from the batcher's tallies;
+    each request served again alone by a fresh batcher gives the same ids."""
+    from concurrent.futures import ThreadPoolExecutor
+    from llamafile_tpu_torch.models.llama import grouped_tm
+    from llamafile_tpu_torch.ops import kernel_wrappers, reset_launch_counts
+    from llamafile_tpu_torch.server.batcher import Batcher
+    from llamafile_tpu_torch.server.http import Server
+    from llamafile_tpu_torch.utils.flags import Flags
+    cfg = eng.cfg
+    n, k = cfg.n_layers, cfg.n_experts_used
+    srv = Server(Flags(model="synthetic-mixtral-8x7b-q4k", slots=8, temp=0.0), eng)
+    gen = torch.Generator().manual_seed(9)
+    prompts = {i: torch.randint(3, cfg.n_vocab, (SERVE_LENGTHS[i % 4],), generator=gen).tolist()
+               for i in MOE_SERVED}
+    with running_server(srv) as base:
+        _serve_request(base, 3, torch.randint(3, cfg.n_vocab, (40,), generator=gen).tolist(),
+                       False)                                # warm-up, not counted
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        st0 = copy.deepcopy(srv.batcher.stats)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(8) as ex:
+            results = dict(zip(MOE_SERVED, ex.map(
+                lambda i: _serve_request(base, MOE_REQ[i], prompts[i], False), MOE_SERVED)))
+        wall = time.perf_counter() - t0
+        counts = {w.__name__: w.launches for w in kernel_wrappers()}
+        st1 = srv.batcher.stats
+        errors = [(i, r[3]) for i, r in results.items() if r[3]]
+        if errors:
+            raise AssertionError(f"phase 7c requests failed: {errors}")
+        n_out = sum(r[1]["completion_tokens"] for r in results.values())
+        log(f"  8 requests (prompts {SERVE_LENGTHS} x 2, 64 new tokens), {n_out} tokens out "
+            f"in {wall:.3f} s: {n_out / wall:.2f} output tok/s")
+        for L in SERVE_LENGTHS:
+            t = sorted((r[2] * 1e3 if r[2] is not None else r[1]["ttft_ms"]) for i, r in
+                       results.items() if SERVE_LENGTHS[i % 4] == L)
+            log(f"  prompt {L}: TTFT {', '.join(f'{v:.2f}' for v in t)} ms (streamed: client "
+                "first token event; plain: the server's ttft_ms)")
+        log(f"  peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+        delta = lambda key: {b: c - st0[key].get(b, 0) for b, c in st1[key].items()}
+        dsteps = st1["decode_steps"] - st0["decode_steps"]
+        sl, fr = delta("slices_by_bucket"), delta("fresh_slices_by_bucket")
+        allb = {b: sl.get(b, 0) + fr.get(b, 0) for b in set(sl) | set(fr)}
+        small = sum(c for b, c in allb.items() if b <= 32)
+        big = sum(c for b, c in allb.items() if b >= 64)
+        txn_g = sum(c for b, c in allb.items() if grouped_tm(k * b) <= 32)
+        planes_g = sum(c for b, c in allb.items() if grouped_tm(k * b) > 32)
+        log(f"  batcher tallies: {dsteps} fused decode steps at 8 rows (16 slots: qmm_txn_g), "
+            f"admission slices by bucket {allb} (fresh {fr})")
+        # a step: qkv, o and the head on qmm_txn (8 rows), the grouped FFN
+        # (2 qmm_txn_g), paged attention; a slice: qkv and o on qmm_txn
+        # (bucket <= 32) or the dequant GEMM, the grouped FFN by its tile
+        # size, the head at M = 1
+        check_counts(counts, {
+            "paged_attention": n * dsteps, "qmm_txn": (2 * n + 1) * dsteps + 2 * n * small,
+            "qmm_txn_g": 2 * n * (dsteps + txn_g), "qmm_planes_g": 2 * n * planes_g,
+            "qmm_dequant": 2 * n * big,
+            "flash_prefill": n * sum(c for b, c in fr.items() if b >= 128),
+            "qmm_txn_m1": small + big}, "phase 7c")
+    alone = Batcher(eng, rows=8)
+    try:
+        for i in MOE_SERVED:
+            toks = _alone_tokens(alone, prompts[i], srv._sp({"temperature": 0.0}))
+            same = toks == results[i][0]
+            log(f"  request {i} (prompt {len(prompts[i])}): alone {len(toks)} tokens, "
+                f"{'the same ids' if same else 'DIFFERENT ids'} as served beside the others")
+            if not same:
+                raise AssertionError(f"phase 7c request {i}: {toks} alone, "
+                                     f"{results[i][0]} served")
+    finally:
+        alone.shutdown()
+    del srv, alone
+    torch.cuda.empty_cache()
+    return counts
 
 
 SERVE_LENGTHS = (24, 128, 500, 1000)
@@ -1531,16 +2089,29 @@ def main() -> int:
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    log("phase 2: kernels against their plain versions at the main path's shapes")
+    phase("phase 2: kernels against their plain versions at the main path's shapes")
     rows = kernel_phases(torch, dev, gen)
-    log("phase 3: whole paths, llama3-8b width, 2 layers: card vs CPU plain")
-    whole_path_check(torch, dev)
-    whole_path_check(torch, dev, "Q4_K", n_prompt=300, n_decode=2)
-    whole_path_check(torch, dev, "Q8_0", n_prompt=24, n_decode=4)
-    paged_path_check(torch, dev)
-    whole_path_check(torch, dev, "Q4_K_M", n_prompt=300, n_decode=4)
-    whole_path_check(torch, dev, "Q4_K", n_prompt=32, n_decode=4, kv_dtype="int8")
-    log("phase 4: main path, llama3-8b Q4_K, 32 layers, Engine.generate")
+    phase("phase 3: whole paths, llama3-8b width, 2 layers: card vs CPU plain")
+    mix = dict(preset="mixtral-8x7b-2l", n_decode=2)
+    for what, check, args, kw in (
+            ("Q4_K, 32-token prompt", whole_path_check, (), dict(n_decode=4)),
+            ("Q4_K, 300-token prompt", whole_path_check, ("Q4_K",),
+             dict(n_prompt=300, n_decode=2)),
+            ("Q8_0", whole_path_check, ("Q8_0",), dict(n_prompt=24, n_decode=4)),
+            ("paged decode, 4 rows", paged_path_check, (), {}),
+            ("Q4_K_M", whole_path_check, ("Q4_K_M",), dict(n_prompt=300, n_decode=4)),
+            ("int8 KV", whole_path_check, ("Q4_K",),
+             dict(n_prompt=32, n_decode=4, kv_dtype="int8")),
+            ("Mixtral Q4_K stacked", moe_path_check, ("Q4_K",), {}),
+            ("Mixtral Q4_K_M unrolled", moe_path_check, ("Q4_K_M",),
+             dict(runs=((300, 4),))),
+            ("Mixtral paged decode, 4 rows", paged_path_check, (),
+             dict(prompts=(24, 64, 200, 300), **mix)),
+            ("Mixtral paged decode, 8 rows", paged_path_check, (),
+             dict(prompts=(24, 64, 200, 300) * 2, **mix))):
+        check(torch, dev, *args, **kw)
+        phase(f"  phase 3 {what}: done")
+    phase("phase 4: main path, llama3-8b Q4_K, 32 layers, Engine.generate")
     runs = main_path(torch, dev)
     launched = {name: sum(c[name] for c in runs) for name in runs[0]}
     for r in rows:
@@ -1548,8 +2119,9 @@ def main() -> int:
         r["launches"] = launched[key]
         if r["launches"] == 0:
             raise AssertionError(f"{r['name']} was launched by no main-path run")
-    if len(rows) != len(_build.SOURCES):
-        raise AssertionError(f"{len(rows)} kernels measured, {len(_build.SOURCES)} built")
+    from llamafile_tpu_torch.ops import kernel_wrappers
+    if len(rows) != len(kernel_wrappers()):
+        raise AssertionError(f"{len(rows)} kernels measured, {len(kernel_wrappers())} wrapped")
     print(json.dumps({"launches": launched}))
     print(json.dumps({"kernels": rows}))
     print(smi)

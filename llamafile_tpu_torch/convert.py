@@ -7,9 +7,11 @@ leaves as plain dicts of numpy arrays, so the port never sees a JAX object
   cfg_fields: {field name: value} of the JAX LlamaConfig
   tree: {"tok_embd": [V, d], "out_norm": [d], "output": QT,
          "layers": [ {"attn_norm", "ffn_norm", "wo", "wq", "wk", "wv",
-                      "wqkv", "w_gate", "w_up", "w_gate_up", "w_down"}, ... ]
+                      "wqkv", "w_gate", "w_up", "w_gate_up", "w_down",
+                      "gate_inp", "experts"}, ... ]
                    (a list of per-layer dicts, or one dict of stacked leaves)}
   QT: {"kind", "shape", "g", "qs", "scales", "bias", "il"}
+  experts: {role or "role.e": QT} (expert stacks by role, or per expert)
 
 bf16 leaves (embedding, dense weights, scales, bias) arrive as float32
 arrays holding bf16 values (exact) and are stored as bf16 again.
@@ -34,8 +36,9 @@ _UNPORTED = {
     "parallel_residual": False, "rope_dim": 0, "attn_softcap": 0.0,
     "final_softcap": 0.0, "swa_window": 0, "qk_norm": False,
     "post_norms": False, "residual_scale": 1.0, "logit_scale": 1.0,
-    "n_experts": 0, "q_lora_rank": 0, "kv_lora_rank": 0, "v_head_dim": 0,
-    "no_rope": False, "alibi": False, "qk_norm_flat": False,
+    "expert_weights_scale": 1.0, "n_shared_experts": 0, "q_lora_rank": 0,
+    "kv_lora_rank": 0, "v_head_dim": 0, "no_rope": False, "alibi": False,
+    "qk_norm_flat": False,
 }
 
 
@@ -72,8 +75,13 @@ def _layer(d: dict, device) -> LlamaLayer:
     kw = {}
     for name in LlamaLayer.__dataclass_fields__:
         v = d.get(name)
-        kw[name] = (_qt(v, device) if isinstance(v, dict)
-                    else _t(v, device, torch.float32))
+        if name == "experts":
+            if v is not None and any(k.startswith("shexp.") for k in v):
+                raise NotImplementedError("shared experts are not ported yet")
+            kw[name] = None if v is None else {k: _qt(q, device) for k, q in v.items()}
+        else:
+            kw[name] = (_qt(v, device) if isinstance(v, dict)
+                        else _t(v, device, torch.float32))
     return LlamaLayer(**kw)
 
 

@@ -200,16 +200,40 @@ struct M1Off {
   }
 };
 
-// M=1 q4b GEMV: y[Ns] = x @ W (see the header comment). Grid (tiles, S):
-// block (tile, s) covers columns [128*tile, 128*tile + 128) and chunk split
-// s of S; partial [S, Ns] f32 and counters [tiles] int32 are scratch.
+// Slot z of a routed launch (blockIdx.z): its expert e = ei[z] (0 when ei
+// is null) and its activation row ti[z] (z when ti is null), read by each
+// block from device memory, as the TPU kernels took them by scalar prefetch.
+struct Slot {
+  int z, e, row;
+  __device__ Slot(const int* ei, const int* ti)
+      : z(blockIdx.z), e(ei ? __ldg(ei + blockIdx.z) : 0),
+        row(ti ? __ldg(ti + blockIdx.z) : (int)blockIdx.z) {}
+};
+
+// M=1 q4b GEMV: y[Ns] = x @ W (see the header comment). Grid (tiles, S,
+// slots): block (tile, s, z) covers columns [128*tile, 128*tile + 128) and
+// chunk split s of S for slot z, which multiplies activation row ti[z] by
+// expert ei[z] of the expert-stacked weights [E, K/2, Ns] (one slot with ei
+// and ti null: the plain GEMV). y [slots, Ns]; partial [slots, S, Ns] f32
+// and counters [slots, tiles] int32 are scratch.
 __global__ void __launch_bounds__(THREADS)
 m1_gemv_kernel(const int8_t* __restrict__ x, const float* __restrict__ sx,
                const uint8_t* __restrict__ qs, const __nv_bfloat16* __restrict__ sc,
                const __nv_bfloat16* __restrict__ bias, float* __restrict__ y,
-               float* partial, int* counters, int K, int Ns, int S) {
+               float* partial, int* counters, int K, int Ns, int S,
+               const int* __restrict__ ei, const int* __restrict__ ti) {
   __shared__ float red[WARPS][TN];
   __shared__ float vals[TN];
+  const Slot sl(ei, ti);
+  const size_t wsc = (size_t)sl.e * (K / 32) * Ns;
+  x += (size_t)sl.row * K;
+  sx += (size_t)sl.row * (K / 32);
+  qs += (size_t)sl.e * (K / 2) * Ns;
+  sc += wsc;
+  if (bias != nullptr) bias += wsc;
+  y += (size_t)sl.z * Ns;
+  partial += (size_t)sl.z * S * Ns;
+  counters += (size_t)sl.z * gridDim.x;
   const int tile = blockIdx.x, s = blockIdx.y;
   const int n_base = tile * TN;
   const int n0 = n_base + 4 * (threadIdx.x & 31);

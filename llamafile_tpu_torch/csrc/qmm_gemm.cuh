@@ -143,16 +143,92 @@ __device__ __forceinline__ void load_a(const __nv_bfloat16* x, __nv_bfloat16* As
   }
 }
 
+// One BK-deep step of the warp's 64 x 32 tile: acc += A_s @ B_s on the
+// tensor cores (m16 tiles mt and up are past M and skipped).
+__device__ __forceinline__ void mma_step(const __nv_bfloat16* a_s, const __nv_bfloat16* b_s,
+                                         int mt, float (&acc)[4][4][4]) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wm = warp >> 2, wn = warp & 3;
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk) {
+    uint32_t bfr[4][2];
+#pragma unroll
+    for (int np = 0; np < 2; ++np) {
+      uint32_t r[4];
+      ldmatrix_x4_trans(r, b_s + (16 * kk + (lane & 15)) * BPAD + 32 * wn + 16 * np +
+                               8 * (lane >> 4));
+      bfr[2 * np][0] = r[0];
+      bfr[2 * np][1] = r[1];
+      bfr[2 * np + 1][0] = r[2];
+      bfr[2 * np + 1][1] = r[3];
+    }
+#pragma unroll
+    for (int mi = 0; mi < 4; ++mi) {
+      if (mi < mt) {
+        uint32_t afr[4];
+        ldmatrix_x4(afr, a_s + (64 * wm + 16 * mi + (lane & 15)) * APAD + 16 * kk +
+                             8 * (lane >> 4));
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni) mma_16816(acc[mi][ni], afr, bfr[ni][0], bfr[ni][1]);
+      }
+    }
+  }
+}
+
+// The fused bias term of the grouped planes product (qmm_planes_g): acc +=
+// bx[rows, :] @ bias over the K/32 groups, bx the bf16 per-32 sums of the
+// tile's rows [M, KG] and bias bf16 [KG, Ns] (one expert's), both exact in
+// the f32 products; BK groups a step, ragged ends zero-filled.
+__device__ __forceinline__ void bias_steps(const __nv_bfloat16* bx,
+                                           const __nv_bfloat16* bias, __nv_bfloat16* As,
+                                           __nv_bfloat16* Bs, int m0, int M, int KG, int Ns,
+                                           int col, bool col_ok, int mt,
+                                           float (&acc)[4][4][4]) {
+  const int r = threadIdx.x >> 3, seg = threadIdx.x & 7;
+  const uint4 z = make_uint4(0, 0, 0, 0);
+  for (int kb = 0; kb < KG; kb += BK) {
+#pragma unroll
+    for (int i = 0; i < BM * BK / 8 / THREADS; ++i) {
+      const int idx = threadIdx.x + THREADS * i;
+      const int row = idx >> 3, sg = idx & 7;
+      const bool valid = m0 + row < M && kb + 8 * sg < KG;
+      const __nv_bfloat16* src = valid ? bx + (size_t)(m0 + row) * KG + kb + 8 * sg : bx;
+      cp_async16(As + row * APAD + 8 * sg, src, valid);
+    }
+    cp_async_commit();
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int gr = kb + r + 32 * h;
+      const bool valid = col_ok && gr < KG;
+      const uint4* src = reinterpret_cast<const uint4*>(bias + (size_t)gr * Ns + col);
+      uint4* dst = reinterpret_cast<uint4*>(Bs + (r + 32 * h) * BPAD + 16 * seg);
+      dst[0] = valid ? __ldg(src) : z;
+      dst[1] = valid ? __ldg(src + 1) : z;
+    }
+    cp_async_wait_all();
+    __syncthreads();
+    mma_step(As, Bs, mt, acc);
+    __syncthreads();
+  }
+}
+
 // y is f32 [M, Ns], or bf16 [M, Ns] when BF16_OUT.
 template <bool Q4, int G, bool BF16_OUT>
 __global__ void __launch_bounds__(THREADS)
 qmm_gemm_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ qs,
                 const __nv_bfloat16* __restrict__ sc, void* __restrict__ y,
-                int M, int K, int Ns) {
+                int M, int K, int Ns, const int* __restrict__ te,
+                const __nv_bfloat16* __restrict__ bx, const __nv_bfloat16* __restrict__ bias) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem_raw);   // [2][BM][APAD]
   __nv_bfloat16* Bs = As + 2 * A_STAGE;                              // [2][BK][BPAD]
   const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  if (te != nullptr) {               // grouped: row tile blockIdx.x on expert te[.]
+    const int e = __ldg(te + blockIdx.x);
+    qs += (size_t)e * (Q4 ? K / 2 : K) * Ns;
+    sc += (size_t)e * (K / G) * Ns;
+    if (bias != nullptr) bias += (size_t)e * (K / 32) * Ns;
+  }
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int wm = warp >> 2, wn = warp & 3;          // warp tile: rows 64wm, cols 32wn
   const int col = n0 + 16 * (threadIdx.x & 7);      // this thread's 16 raw columns
@@ -185,38 +261,15 @@ qmm_gemm_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__
       cp_async_commit();
       load_raw<Q4, G>(raw, qs, sc, ks + 1, Ns, col, col_ok);
     }
-    const __nv_bfloat16* a_s = As + cur * A_STAGE;
-    const __nv_bfloat16* b_s = Bs + cur * B_STAGE;
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t bfr[4][2];
-#pragma unroll
-      for (int np = 0; np < 2; ++np) {
-        uint32_t r[4];
-        ldmatrix_x4_trans(r, b_s + (16 * kk + (lane & 15)) * BPAD + 32 * wn + 16 * np +
-                                 8 * (lane >> 4));
-        bfr[2 * np][0] = r[0];
-        bfr[2 * np][1] = r[1];
-        bfr[2 * np + 1][0] = r[2];
-        bfr[2 * np + 1][1] = r[3];
-      }
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi) {
-        if (mi < mt) {
-          uint32_t afr[4];
-          ldmatrix_x4(afr, a_s + (64 * wm + 16 * mi + (lane & 15)) * APAD + 16 * kk +
-                               8 * (lane >> 4));
-#pragma unroll
-          for (int ni = 0; ni < 4; ++ni) mma_16816(acc[mi][ni], afr, bfr[ni][0], bfr[ni][1]);
-        }
-      }
-    }
+    mma_step(As + cur * A_STAGE, Bs + cur * B_STAGE, mt, acc);
     if (more) {
       store_tile<Q4>(raw, Bs + (cur ^ 1) * B_STAGE);
       cp_async_wait_all();
     }
     __syncthreads();
   }
+  if (bias != nullptr)
+    bias_steps(bx, bias, As, Bs, m0, M, K / 32, Ns, col, col_ok, mt, acc);
 
   const int g = lane >> 2, q = lane & 3;
 #pragma unroll
@@ -243,7 +296,8 @@ qmm_gemm_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__
 
 template <bool Q4, int G, bool BF16_OUT>
 int launch_gemm(const void* x, const void* qs, const void* sc, void* y, int M, int K,
-                int Ns, cudaStream_t st) {
+                int Ns, cudaStream_t st, const void* te = nullptr, const void* bx = nullptr,
+                const void* bias = nullptr) {
   static bool smem_set = false;      // once, so later launches can be captured
   if (!smem_set) {
     cudaError_t err = cudaFuncSetAttribute(qmm_gemm_kernel<Q4, G, BF16_OUT>,
@@ -254,7 +308,8 @@ int launch_gemm(const void* x, const void* qs, const void* sc, void* y, int M, i
   }
   dim3 grid((M + BM - 1) / BM, (Ns + BN - 1) / BN);
   qmm_gemm_kernel<Q4, G, BF16_OUT><<<grid, THREADS, SMEM_BYTES, st>>>(
-      (const __nv_bfloat16*)x, (const uint8_t*)qs, (const __nv_bfloat16*)sc, y, M, K, Ns);
+      (const __nv_bfloat16*)x, (const uint8_t*)qs, (const __nv_bfloat16*)sc, y, M, K, Ns,
+      (const int*)te, (const __nv_bfloat16*)bx, (const __nv_bfloat16*)bias);
   return (int)cudaGetLastError();
 }
 

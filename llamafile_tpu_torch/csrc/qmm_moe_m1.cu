@@ -1,22 +1,30 @@
-// qmm_moe_m1: the fused M=1 FFN (gate|up, silu(g)*u, requantize, down).
+// qmm_moe_m1: the fused M=1 FFN (gate|up, silu(g)*u, requantize, down) for
+// every routed slot of a step in one launch pair.
 //
-// Replaces the TPU kernel _qmm_kernel_moe_m1 (llamafile_tpu/ops/qmatmul.py:1037),
-// which the dense llama FFN reaches with the layer id as its "expert"
-// (models/llama.py:960-971). On the TPU, phase B ran after all of phase A
-// because the grid is sequential; Hopper blocks run in no order, so the entry
-// below launches two kernels on one stream:
-//   (A) moe_gateup_kernel: the gate|up GEMV on the GU_STRIPE-interleaved
-//       weights. A block owns 64 gate columns and the 64 matching up columns
-//       of one 2048-wide stripe pair, so its epilogue forms y = silu(g)*u for
-//       two whole 32-groups and quantizes them exactly as
-//       quantize_activations_g32 does (inv = 127/amax and sy = amax/127
-//       computed apart, round half to even, clip to +-127), with the routing
-//       weight folded into sy. Codes and scales go to a small device buffer.
-//   (B) the down GEMV on those codes: the same kernel as qmm_txn_m1.
-// What bounds it on an H100: device-memory bytes of the two weight streams
-// (the 2*dff x d gate|up and the d x dff down, 4.5 bits a weight); the
-// intermediate y costs dff bytes plus dff/8 of scales, and both phases use
-// the split-K layout of qmm_txn_m1 to fill the SMs.
+// Replaces the TPU kernel _qmm_kernel_moe_m1 (llamafile_tpu/ops/qmatmul.py:1037,
+// call :1150), which runs all S slots in one call with the expert ids ei,
+// token rows ti and routing weights topw taken by scalar prefetch. Here the
+// three are int32 / f32 device arrays [S] that each block reads itself
+// (blockIdx.z is the slot), so a MoE layer feeds the router's on-device
+// top-k straight in; the dense llama FFN passes its layer id as a one-slot
+// ei (models/llama.py), weight 1. On the TPU, phase B ran after all of
+// phase A because the grid is sequential; Hopper blocks run in no order, so
+// the entry below launches two kernels on one stream:
+//   (A) moe_gateup_kernel: the gate|up GEMV of slot z on expert ei[z]'s
+//       GU_STRIPE-interleaved weights and activation row ti[z]. A block owns
+//       64 gate columns and the 64 matching up columns of one 2048-wide
+//       stripe pair, so its epilogue forms y = silu(g)*u for two whole
+//       32-groups and quantizes them exactly as quantize_activations_g32
+//       does (inv = 127/amax and sy = amax/127 computed apart, round half to
+//       even, clip to +-127), with topw[z] folded into sy. Codes and scales
+//       go to a small device buffer, one row a slot.
+//   (B) the down GEMV of slot z on expert ei[z] and row z of those codes:
+//       the routed m1_gemv_kernel of qmm_txn_m1 / qmm_txn_m1_r.
+// What bounds it on an H100: device-memory bytes of the S experts' two
+// weight streams (the 2*dff x d gate|up and the d x dff down, 4.5 bits a
+// weight); the intermediate y costs dff bytes plus dff/8 of scales a slot,
+// and both phases use the split-K layout of qmm_txn_m1, partials and tile
+// counters per slot, to fill the SMs.
 #include "qmm_common.cuh"
 
 using namespace qmm;
@@ -33,10 +41,23 @@ moe_gateup_kernel(const int8_t* __restrict__ x, const float* __restrict__ sx,
                   const uint8_t* __restrict__ qs, const __nv_bfloat16* __restrict__ sc,
                   const __nv_bfloat16* __restrict__ bias, int8_t* __restrict__ yq,
                   float* __restrict__ sy, float* partial, int* counters, int K,
-                  int Ngu, int S, float topw) {
+                  int Ngu, int S, const int* __restrict__ ei, const int* __restrict__ ti,
+                  const float* __restrict__ topw) {
   __shared__ float red[WARPS][TN];
   __shared__ float vals[TN];
   __shared__ float yv[64];
+  const Slot sl(ei, ti);
+  const int dff = Ngu / 2;
+  const size_t wsc = (size_t)sl.e * (K / 32) * Ngu;
+  x += (size_t)sl.row * K;
+  sx += (size_t)sl.row * (K / 32);
+  qs += (size_t)sl.e * (K / 2) * Ngu;
+  sc += wsc;
+  if (bias != nullptr) bias += wsc;
+  yq += (size_t)sl.z * dff;
+  sy += (size_t)sl.z * (dff / 32);
+  partial += (size_t)sl.z * S * Ngu;
+  counters += (size_t)sl.z * gridDim.x;
   const int tile = blockIdx.x, s = blockIdx.y;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int j = tile / 16, o = (tile % 16) * 64;     // stripe pair, offset
@@ -63,30 +84,38 @@ moe_gateup_kernel(const int8_t* __restrict__ x, const float* __restrict__ sx,
     const float q = fminf(fmaxf(rintf(v * inv), -127.f), 127.f);
     const int i = 1024 * j + o + 32 * warp + lane;
     yq[i] = (int8_t)q;
-    if (lane == 0) sy[i / 32] = (amax / 127.0f) * topw;
+    if (lane == 0) sy[i / 32] = (amax / 127.0f) * __ldg(topw + sl.z);
   }
 }
 
+// x int8 [M, K], sx f32 [M, K/32]; gate|up qs uint8 [E, K/2, 2 dff], sc and
+// bias bf16 [E, K/32, 2 dff]; down qs uint8 [E, dff/2, Nd], sc and bias
+// bf16 [E, dff/32, Nd]; ei, ti int32 and topw f32 [slots]; yq int8
+// [slots, dff], sy f32 [slots, dff/32]; out f32 [slots, Nd]; partials f32
+// [slots, Sa, 2 dff] and [slots, Sb, Nd]; counters int32 [slots, tiles].
 extern "C" int qmm_moe_m1(const void* x, const void* sx, const void* gu_qs,
                           const void* gu_sc, const void* gu_bias,
                           const void* dn_qs, const void* dn_sc,
                           const void* dn_bias, void* yq, void* sy, void* out,
                           void* partial_a, void* partial_b, void* counters,
-                          int K, int dff, int Nd, int Sa, int Sb, float topw,
+                          const void* ei, const void* ti, const void* topw,
+                          int K, int dff, int Nd, int Sa, int Sb, int slots,
                           void* stream) {
+  if (K % 256 || dff % 1024 || Nd % 4 || Sa < 1 || Sb < 1 || slots < 1)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const int Ngu = 2 * dff;
-  moe_gateup_kernel<<<dim3(Ngu / TN, Sa), THREADS, 0, st>>>(
+  moe_gateup_kernel<<<dim3(Ngu / TN, Sa, slots), THREADS, 0, st>>>(
       (const int8_t*)x, (const float*)sx, (const uint8_t*)gu_qs,
       (const __nv_bfloat16*)gu_sc, (const __nv_bfloat16*)gu_bias,
       (int8_t*)yq, (float*)sy, (float*)partial_a, (int*)counters, K, Ngu, Sa,
-      topw);
+      (const int*)ei, (const int*)ti, (const float*)topw);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   // stream order: phase A (and its counter reset) ends before phase B starts
-  m1_gemv_kernel<<<dim3((Nd + TN - 1) / TN, Sb), THREADS, 0, st>>>(
+  m1_gemv_kernel<<<dim3((Nd + TN - 1) / TN, Sb, slots), THREADS, 0, st>>>(
       (const int8_t*)yq, (const float*)sy, (const uint8_t*)dn_qs,
       (const __nv_bfloat16*)dn_sc, (const __nv_bfloat16*)dn_bias, (float*)out,
-      (float*)partial_b, (int*)counters, dff, Nd, Sb);
+      (float*)partial_b, (int*)counters, dff, Nd, Sb, (const int*)ei, nullptr);
   return (int)cudaGetLastError();
 }

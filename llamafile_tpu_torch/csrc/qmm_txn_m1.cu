@@ -31,6 +31,6 @@ extern "C" int qmm_txn_m1(const void* x, const void* sx, const void* qs,
   m1_gemv_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
       (const int8_t*)x, (const float*)sx, (const uint8_t*)qs,
       (const __nv_bfloat16*)sc, (const __nv_bfloat16*)bias, (float*)y,
-      (float*)partial, (int*)counters, K, Ns, S);
+      (float*)partial, (int*)counters, K, Ns, S, nullptr, nullptr);
   return (int)cudaGetLastError();
 }

@@ -1,11 +1,14 @@
-"""Llama-family forward of the port (llama / mistral), stacked or unrolled.
+"""Llama-family forward of the port (llama / mistral, dense or Mixtral-style
+routed MoE), stacked or unrolled.
 
-Counterpart of llamafile_tpu/models/llama.py for the dense llama branches
-of `_layer_fwd` and `forward`. The JAX layer scan becomes a Python loop over
-the layer id `li`. Homogeneous layers are stacked: the weights stay whole
-and every kernel indexes layer li by pointer offset (no per-layer slice
-copy). Layers that differ in format (a Q4_K_M file) stay a list and run
-unrolled, as in the reference. The KV cache is updated in place.
+Counterpart of llamafile_tpu/models/llama.py for the llama branches of
+`_layer_fwd`, `forward` and `moe_ffn`. The JAX layer scan becomes a Python
+loop over the layer id `li`. Homogeneous layers are stacked: the weights
+stay whole and every kernel indexes layer li by pointer offset (no
+per-layer slice copy); MoE expert stacks merge to [L*E, ...] so the routed
+and grouped kernels index expert li*E + e in place. Layers that differ in
+format (a Q4_K_M file) stay a list and run unrolled, as in the reference.
+The KV cache is updated in place.
 
 Per layer: RMSNorm folded into the qkv product(s) -> rope -> attention
 (fused decode kernel with the KV-row write at T = 1 on a bf16 cache; the
@@ -13,7 +16,26 @@ flash_decode kernel over an int8 cache on stacked layers, the einsum on
 unrolled ones; over the fresh tokens at prefill, the flash_prefill kernel
 from 128 tokens and the einsum below) -> o -> RMSNorm folded into the FFN
 (one fused kernel call at M = 1 for an interleaved q4b gate|up of stacked
-layers, gate|up + down products otherwise).
+layers, gate|up + down products otherwise), or, in a MoE layer, an inline
+RMSNorm and moe_ffn.
+
+moe_ffn routes as the reference does, by the S = M * n_experts_used routed
+slots (moe_route names the branch):
+  "fused"   S <= E, interleaved q4b gate|up and q4b down: qmm_moe_m1 once
+            for all slots (Q4_K decode, serving at <= 4 rows of top-2-of-8)
+  "routed"  S <= E otherwise: the routed GEMVs qmm_txn_m1_r / qmm_q8_m1_r
+            for gate|up and down (Q4_K_M layers with Q6_K down, at decode)
+  "grouped" S > E, q4b gate|up and down, d and d_ff % 256 == 0: slots
+            sorted by expert into tiles of tm rows, qmm_txn_g (tm 8, 32) or
+            qmm_planes_g (tm 128) per tile
+  "dense"   otherwise: every expert on every row (qmatmul), mixed by the
+            routing weights (Q4_K_M layers with Q6_K down, at prefill; per-
+            expert dicts of experts that do not stack)
+The grouped tile size follows the reference's rule under its CPU
+interpreter on every device, `8 if S <= 64 else 32 if S <= 512 else 128`:
+its TPU-only rule (always 128) exists for a Mosaic lane constraint that
+Hopper does not have, and one rule keeps the CPU tests and the card on the
+same kernels. Nothing on the MoE path reads a device value on the host.
 """
 from __future__ import annotations
 
@@ -26,8 +48,9 @@ import torch
 
 from ..ops.attention import flash_decode, flash_decode_write_stacked, flash_prefill
 from ..ops.qmatmul import apply_rmsnorm as rmsnorm  # noqa: F401 (the reference's name)
-from ..ops.qmatmul import moe_fusable, qmatmul, qmatmul_moe, split_gu
-from ..ops.repack import QTensor
+from ..ops.qmatmul import (moe_fusable, qmatmul, qmatmul_grouped, qmatmul_moe,
+                           qmatmul_routed, split_gu)
+from ..ops.repack import QTensor, expert_slice
 from ..runtime.kvcache import KVCache, init_kv, read_layer, update_layer
 
 
@@ -51,6 +74,9 @@ class LlamaConfig:
     max_context: int = 8192
     rope_neox: bool = False          # False: interleaved pairs (llama NORM mode)
     attn_scale: float = 0.0          # 0 = 1/sqrt(head_dim)
+    n_experts: int = 0               # routed MoE (Mixtral): experts a layer
+    n_experts_used: int = 0          # top-k of them a token
+    moe_norm_topk: bool = True       # renormalize the top-k weights to sum 1
 
     @classmethod
     def from_gguf(cls, reader) -> "LlamaConfig":
@@ -66,8 +92,8 @@ class LlamaConfig:
             n_vocab = len(reader.metadata.get("tokenizer.ggml.tokens", []))
         max_ctx = int(f("{arch}.context_length", 8192))
         is_yarn = str(f("{arch}.rope.scaling.type", "") or "").lower() == "yarn"
-        if int(f("{arch}.expert_count", 0) or 0):
-            raise NotImplementedError("MoE llama models are not ported yet")
+        if float(f("{arch}.expert_weights_scale", 1.0) or 1.0) != 1.0:
+            raise NotImplementedError("expert_weights_scale != 1 is not ported yet")
         return cls(
             n_layers=int(f("{arch}.block_count")),
             d_model=d_model,
@@ -87,6 +113,9 @@ class LlamaConfig:
                           or 1e-5),
             max_context=max_ctx,
             attn_scale=float(f("{arch}.attention.scale", 0.0) or 0.0),
+            n_experts=int(f("{arch}.expert_count", 0) or 0),
+            n_experts_used=int(f("{arch}.expert_used_count", 0) or 0),
+            moe_norm_topk=True,              # llama/mistral (Mixtral) renormalize
         )
 
 
@@ -107,6 +136,11 @@ class LlamaLayer:
     w_up: Optional[QTensor] = None
     w_gate_up: Optional[QTensor] = None   # fused gate|up (il: interleaved)
     w_down: Optional[QTensor] = None
+    gate_inp: Optional[QTensor] = None    # MoE router [n_experts, d]
+    # MoE experts: stacks by role ("gateup_il" | "gateup" | "gate", "up";
+    # "down") with a leading E axis (L*E when stacked), or per-expert
+    # QTensors ("gate.{e}", "up.{e}", "down.{e}") that do not stack
+    experts: Optional[dict] = None
 
 
 @dataclass
@@ -220,18 +254,46 @@ def _stack_leaf(vals):
     return torch.stack(vals)
 
 
+def _stack_experts(ls) -> Optional[dict]:
+    """The layers' expert stacks merged to [L*E, ...] (expert li*E + e of
+    layer li), or None unless every layer holds q4b stacks [E, ...] of the
+    same roles and a router (the reference's rule: Q6_K experts and
+    per-expert dicts stay unrolled)."""
+    ex0 = ls[0].experts
+    if not all(l.experts is not None and l.gate_inp is not None
+               and set(l.experts) == set(ex0)
+               and all(isinstance(v, QTensor) and v.kind == "q4b" and v.qs.ndim == 3
+                       for v in l.experts.values()) for l in ls):
+        return None
+    merged = {}
+    for role in ex0:
+        st = _stack_leaf([l.experts[role] for l in ls])
+        flat = lambda a: None if a is None else a.reshape(-1, *a.shape[2:])
+        merged[role] = QTensor(st.kind, st.shape, st.g, flat(st.qs), flat(st.scales),
+                               flat(st.bias), st.il)
+    return merged
+
+
 def stack_layers(params: LlamaParams) -> LlamaParams:
     """Stack the per-layer weights into one LlamaLayer with a leading L axis
     (the Engine's layout where it can). As the reference, returns params
     unchanged when they are stacked already, hold fewer than two layers, or
     when the layers differ in weight format or in which weights they hold
-    (a Q4_K_M file mixes Q4_K and Q6_K): those run unrolled."""
+    (a Q4_K_M file mixes Q4_K and Q6_K): those run unrolled. MoE layers
+    stack when every layer's experts are q4b stacks of the same roles; the
+    [L, E, ...] leaves merge to [L*E, ...]."""
     ls = params.layers
     if not isinstance(ls, list) or len(ls) < 2:
         return params
+    experts = None
+    if any(l.experts is not None for l in ls):
+        experts = _stack_experts(ls)
+        if experts is None:
+            return params
     try:
-        stacked = LlamaLayer(**{f.name: _stack_leaf([getattr(l, f.name) for l in ls])
-                                for f in fields(LlamaLayer)})
+        stacked = LlamaLayer(experts=experts, **{
+            f.name: _stack_leaf([getattr(l, f.name) for l in ls])
+            for f in fields(LlamaLayer) if f.name != "experts"})
     except (ValueError, RuntimeError):      # formats, or shapes torch.stack refuses
         return params
     return LlamaParams(params.tok_embd, stacked, params.out_norm, params.output)
@@ -256,17 +318,38 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     return x * torch.reciprocal(1 + torch.exp(-x))
 
 
+_DEVICE_IDS = {}
+
+
+def _layer_ids(n: int, device):
+    """(int32 arange(n), f32 ones(1)) on `device`, made once: the dense fused
+    FFN takes a view [li:li+1] as its one expert id, weight one, so no host
+    value is copied to the device a layer."""
+    key = (str(device), n)
+    if key not in _DEVICE_IDS:
+        _DEVICE_IDS[key] = (torch.arange(n, dtype=torch.int32, device=device),
+                            torch.ones(1, dtype=torch.float32, device=device))
+    return _DEVICE_IDS[key]
+
+
 def _ffn(h2d, layer: LlamaLayer, cfg: LlamaConfig, wl, prenorm=None):
-    """SwiGLU FFN of h2d [M, d]: one fused kernel call at M = 1 for an
-    interleaved q4b gate|up of stacked layers (wl the layer id), otherwise
-    gate|up (or gate and up), silu(g) * u, down (the reference's _ffn_core:
-    the unrolled path never fuses). The products' dtype carries through, so
-    bf16 q4b outputs at M >= 256 meet silu and the product in bf16."""
+    """FFN of h2d [M, d]. A MoE layer normalizes inline and runs moe_ffn
+    (router and experts share the normed input). A dense SwiGLU runs one
+    fused kernel call at M = 1 for an interleaved q4b gate|up of stacked
+    layers (wl the layer id), otherwise gate|up (or gate and up), silu(g) *
+    u, down (the reference's _ffn_core: the unrolled path never fuses). The
+    products' dtype carries through, so bf16 q4b outputs at M >= 256 meet
+    silu and the product in bf16."""
+    if cfg.n_experts > 0 and layer.experts is not None:
+        if prenorm is not None:
+            h2d = rmsnorm(h2d, *prenorm)
+        return moe_ffn(h2d, layer, cfg, li=wl)
     if layer.w_gate_up is not None:
         if (h2d.shape[0] == 1 and wl is not None and layer.w_gate_up.il
                 and moe_fusable(layer.w_gate_up, layer.w_down, cfg.d_model, cfg.d_ff)):
             # the whole FFN in one fused kernel call, the layer id as expert
-            return qmatmul_moe(h2d, layer.w_gate_up, layer.w_down, [wl], [1.0],
+            ids, one = _layer_ids(layer.w_gate_up.qs.shape[0], h2d.device)
+            return qmatmul_moe(h2d, layer.w_gate_up, layer.w_down, ids[wl:wl + 1], one,
                                prenorm=prenorm)
         g, u = split_gu(qmatmul(h2d, layer.w_gate_up, wl, prenorm=prenorm),
                         cfg.d_ff, layer.w_gate_up.il)
@@ -274,6 +357,162 @@ def _ffn(h2d, layer: LlamaLayer, cfg: LlamaConfig, wl, prenorm=None):
         g = qmatmul(h2d, layer.w_gate, wl, prenorm=prenorm)
         u = qmatmul(h2d, layer.w_up, wl, prenorm=prenorm)
     return qmatmul(silu(g) * u, layer.w_down, wl)
+
+
+# ---------------------------------------------------------------------------
+# Routed MoE FFN
+# ---------------------------------------------------------------------------
+
+def _gateup(ex: dict) -> Optional[QTensor]:
+    return ex.get("gateup_il") or ex.get("gateup") or ex.get("gate")
+
+
+def moe_route(layer: LlamaLayer, cfg: LlamaConfig, m: int) -> str:
+    """Which formulation moe_ffn takes for m rows: "fused", "routed",
+    "grouped" or "dense" (the reference's moe_ffn, by S = m * top-k)."""
+    ex = layer.experts
+    il = "gateup_il" in ex
+    stacked = "gate" in ex or "gateup" in ex or il
+    gu_qt = _gateup(ex)
+    if stacked and m * cfg.n_experts_used <= cfg.n_experts:
+        return ("fused" if il and moe_fusable(gu_qt, ex["down"], cfg.d_model, cfg.d_ff)
+                else "routed")
+    if (stacked and gu_qt.kind == "q4b" and ex["down"].kind == "q4b"
+            and cfg.d_model % 256 == 0 and cfg.d_ff % 256 == 0):
+        return "grouped"
+    return "dense"
+
+
+def top_k(weights: torch.Tensor, k: int):
+    """(values, indices) of the k largest along the last axis, ties lower
+    index first as jax.lax.top_k (a stable descending sort; torch.topk
+    promises no order for ties)."""
+    vals, idx = torch.sort(weights, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def grouped_tm(s: int) -> int:
+    """Row tile of the grouped kernels for s routed slots (see the module
+    docstring): qmm_txn_g at 8 and 32 rows, qmm_planes_g at 128."""
+    return 8 if s <= 64 else (32 if s <= 512 else 128)
+
+
+def group_layout(gid: torch.Tensor, n_groups: int, tm: int):
+    """The grouped kernels' row layout for rows of local expert gid [R]:
+    (order, the rows sorted by expert, stable; pos, each sorted row's place
+    in the padded buffer, every group starting on a tile of tm rows; te,
+    each tile's expert; n_tiles, the static worst case ceil(R / tm) +
+    min(n_groups + 1, R)). Group sizes are counted with scatter_add_ into a
+    fixed-length buffer (bincount would read its maximum back), so nothing
+    goes to the host."""
+    r = gid.shape[0]
+    dev = gid.device
+    gid = gid.long()
+    gs, order = torch.sort(gid, stable=True)
+    counts = torch.zeros(n_groups + 1, dtype=torch.long, device=dev).scatter_add_(
+        0, gid, torch.ones_like(gid))
+    padc = (counts + tm - 1) // tm * tm
+    pend = torch.cumsum(padc, 0)
+    start = torch.cumsum(counts, 0) - counts
+    pos = ((pend - padc).index_select(0, gs) + torch.arange(r, device=dev)
+           - start.index_select(0, gs))
+    n_tiles = -(-r // tm) + min(n_groups + 1, r)
+    # tiles past the last group clamp to expert n_groups - 1: their rows
+    # are zeros, so they stream real bytes and give zeros
+    te = torch.clamp(torch.searchsorted(pend, torch.arange(n_tiles, device=dev) * tm,
+                                        right=True), 0, n_groups - 1)
+    return order, pos, te, n_tiles
+
+
+def grouped_expert_ffn(rows: torch.Tensor, gid: torch.Tensor, w_row: torch.Tensor,
+                       ex: dict, n_groups: int, tm: int, base: int = 0) -> torch.Tensor:
+    """Grouped expert FFN (the reference's grouped_expert_ffn): rows [R, d],
+    gid int [R] the local expert of each row, w_row f32 [R] its routing
+    weight (applied between up and down). Rows are packed by group_layout
+    into tile-aligned groups of a zero-padded buffer; tile i runs on expert
+    base + te[i] (base = li * E under stacked layers). Returns f32 [R, d] in
+    input order."""
+    r, d = rows.shape
+    dev = rows.device
+    order, pos, te, n_tiles = group_layout(gid, n_groups, tm)
+    xp = torch.zeros((n_tiles * tm, d), dtype=rows.dtype, device=dev).index_copy_(
+        0, pos, rows.index_select(0, order))
+    wp = torch.zeros((n_tiles * tm, 1), dtype=torch.float32, device=dev).index_copy_(
+        0, pos, w_row.float().index_select(0, order)[:, None])
+    te = base + te
+    gu_qt = ex.get("gateup_il") or ex.get("gateup")
+    if gu_qt is not None:
+        g, u = split_gu(qmatmul_grouped(xp, gu_qt, te, tm=tm), gu_qt.shape[0] // 2,
+                        "gateup_il" in ex)
+    else:
+        g = qmatmul_grouped(xp, ex["gate"], te, tm=tm)
+        u = qmatmul_grouped(xp, ex["up"], te, tm=tm)
+    y = (silu(g.float()) * u.float()) * wp
+    dn = qmatmul_grouped(y, ex["down"], te, tm=tm)
+    return torch.zeros((r, d), dtype=torch.float32, device=dev).index_copy_(
+        0, order, dn.index_select(0, pos).float())
+
+
+def _moe_grouped(x2d, ex, topw, topi, cfg: LlamaConfig, base: int = 0):
+    """Flatten the (token, expert) slots, run the grouped FFN, sum each
+    token's slots."""
+    m, d = x2d.shape
+    ku = cfg.n_experts_used
+    s = m * ku
+    tok = torch.arange(s, device=x2d.device) // ku
+    y = grouped_expert_ffn(x2d.index_select(0, tok), topi.reshape(s), topw.reshape(s), ex,
+                           cfg.n_experts, grouped_tm(s), base)
+    return y.reshape(m, ku, d).sum(dim=1)
+
+
+def moe_ffn(x2d: torch.Tensor, layer: LlamaLayer, cfg: LlamaConfig, li=None):
+    """Mixtral-style routed MoE FFN of the normed x2d [M, d] (the
+    reference's moe_ffn): router product, f32 softmax, top-k (renormalized
+    when cfg.moe_norm_topk), then the formulation moe_route names. li (a
+    Python int) is the layer id under stacking: the expert stacks hold every
+    layer's experts [L*E, ...] and the kernels take ids li*E + e. f32 [M, d]."""
+    m, d = x2d.shape
+    k_used = cfg.n_experts_used
+    base = 0 if li is None else li * cfg.n_experts
+    router = qmatmul(x2d, layer.gate_inp, li)                   # [M, E]
+    topw, topi = top_k(torch.softmax(router.float(), dim=-1), k_used)
+    if cfg.moe_norm_topk:
+        topw = topw / topw.sum(dim=-1, keepdim=True)
+    ex = layer.experts
+    il = "gateup_il" in ex
+    gu_qt = _gateup(ex)
+    s_n = m * k_used
+    route = moe_route(layer, cfg, m)
+    if route in ("fused", "routed"):
+        ei = base + topi.reshape(s_n).to(torch.int32)
+        if route == "fused":
+            dn = qmatmul_moe(x2d, gu_qt, ex["down"], ei, topw.reshape(s_n))
+        else:
+            if "gateup" in ex or il:
+                g, u = split_gu(qmatmul_routed(x2d, gu_qt, ei), cfg.d_ff, il)
+            else:
+                g, u = qmatmul_routed(x2d, ex["gate"], ei), qmatmul_routed(x2d, ex["up"], ei)
+            y = (silu(g) * u) * topw.reshape(s_n, 1)            # weight before down
+            dn = qmatmul_routed(y, ex["down"], ei, row_map=torch.arange(
+                s_n, dtype=torch.int32, device=x2d.device))
+        return dn.reshape(m, k_used, d).sum(dim=1)
+    if route == "grouped":
+        return _moe_grouped(x2d, ex, topw, topi, cfg, base)
+    stacked = "gate" in ex or "gateup" in ex or il
+    out = torch.zeros((m, d), dtype=torch.float32, device=x2d.device)
+    for e in range(cfg.n_experts):
+        eo = base + e
+        if stacked and ("gateup" in ex or il):
+            g, u = split_gu(qmatmul(x2d, expert_slice(gu_qt, eo)), cfg.d_ff, il)
+        else:
+            qg = expert_slice(ex["gate"], eo) if stacked else ex[f"gate.{e}"]
+            qu = expert_slice(ex["up"], eo) if stacked else ex[f"up.{e}"]
+            g, u = qmatmul(x2d, qg), qmatmul(x2d, qu)
+        qd = expert_slice(ex["down"], eo) if stacked else ex[f"down.{e}"]
+        y = qmatmul(silu(g) * u, qd)
+        w_e = torch.where(topi == e, topw, torch.zeros_like(topw)).sum(dim=-1)
+        out = out + y * w_e[:, None]
+    return out
 
 
 def _layer_fwd(x, layer: LlamaLayer, cfg: LlamaConfig, cos, sin, pos, t_pos,

@@ -1,41 +1,54 @@
-"""Quantized matmuls of the port: dispatch, activation prep, six kernels.
+"""Quantized matmuls of the port: dispatch, activation prep, ten kernels.
 
 Counterpart of llamafile_tpu/ops/qmatmul.py for what the stacked and the
-unrolled llama paths reach. The TPU kernels become CUDA kernels for Hopper
-(csrc/):
+unrolled llama paths and the routed MoE FFN reach. The TPU kernels become
+CUDA kernels for Hopper (csrc/):
 
-  qmm_txn_m1  <- _qmm_kernel_txn_m1(_l)  (q4b M = 1 decode: qkv, o, lm head)
-  qmm_txn     <- _qmm_kernel_txn(_l)     (q4b 2 <= M <= 32: short prefill)
-  qmm_moe_m1  <- _qmm_kernel_moe_m1      (fused q4b M = 1 FFN, layer as expert)
-  qmm_q8_m1   <- _qmm_kernel_q8_m1(_l)   (q8b M = 1 decode, g 16 or 32)
-  qmm_dequant <- _qmm_kernel             (bf16-dequant GEMM: stacked q4b
-                                          M > 32, q8b M >= 2)
-  qmm_planes  <- _qmm_kernel_planes      (unstacked q4b M > 32: the prefill
-                                          of unrolled layers; bf16 out from
-                                          M = 256)
+  qmm_txn_m1   <- _qmm_kernel_txn_m1(_l)  (q4b M = 1 decode: qkv, o, lm head)
+  qmm_txn      <- _qmm_kernel_txn(_l)     (q4b 2 <= M <= 32: short prefill)
+  qmm_moe_m1   <- _qmm_kernel_moe_m1      (fused q4b M = 1 FFN of every
+                                           routed slot; the dense FFN's layer
+                                           as its one expert)
+  qmm_q8_m1    <- _qmm_kernel_q8_m1(_l)   (q8b M = 1 decode, g 16 or 32)
+  qmm_dequant  <- _qmm_kernel             (bf16-dequant GEMM: stacked q4b
+                                           M > 32, q8b M >= 2)
+  qmm_planes   <- _qmm_kernel_planes      (unstacked q4b M > 32: the prefill
+                                           of unrolled layers; bf16 out from
+                                           M = 256)
+  qmm_txn_m1_r <- _qmm_kernel_txn_m1_r    (routed q4b GEMV per MoE slot)
+  qmm_q8_m1_r  <- _qmm_kernel_q8_m1_r     (routed q8b GEMV per MoE slot)
+  qmm_txn_g    <- _qmm_kernel_txn_g       (grouped q4b MoE product, row
+                                           tiles of 8 or 32)
+  qmm_planes_g <- _qmm_kernel_planes_g    (grouped q4b MoE GEMM, row tiles
+                                           of 128, bias fused)
 
 Each kernel has a wrapper and a plain PyTorch version beside it. The wrapper
 runs the plain version only for tensors that lie on the CPU (the tests); for
 CUDA tensors it launches the kernel or raises. `wrapper.launches` counts
 kernel launches (qmm_moe_m1 adds two a call: its gate|up and down kernels).
+The MoE kernels take their expert ids, token rows and routing weights as
+device tensors and read them themselves, so the router's top-k never goes
+to the host.
 
-Weight math of the int8-activation kernels (txn_m1, txn, moe_m1, q8_m1):
+Weight math of the int8-activation kernels (txn_m1, txn, moe_m1, q8_m1 and
+their routed and grouped forms):
     y[m, n] = sum_g (float(sum_{k in g} xq[m,k] * w[k,n]) * scale[g,n]) * sx[m,g]
             + sum_g bf16(float(sum_{k in g} xq[m,k]) * sx[m,g]) * bias[g,n]
 with xq, sx from quantize_activations_g32 and w the stored codes (q4b: lo
 plane q, hi plane 16q - 128, the fold living in the stored scales and bias;
 q8b: int8 codes, one per-32 sx spanning two groups when g = 16).
 The dequant GEMM instead computes y = bf16(xn) @ bf16(code * scale) in f32,
-with the bias term groupsum_g(xn) @ bias added outside, as the reference.
+with the bias term groupsum_g(xn) @ bias added outside, as the reference;
+the grouped planes GEMM fuses that term in its f32 sum.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import Optional
 
 import torch
 
 from . import _build
-from ._build import F, I, P
+from ._build import I, P
 from .repack import GU_STRIPE, QTensor, q4b_codes
 
 # ---------------------------------------------------------------------------
@@ -169,6 +182,12 @@ def qmm_planes_plain(x: torch.Tensor, qs: torch.Tensor,
     from the nibble planes of qs uint8 [K/2, Ns] and the scale rows r % 8 < 4
     (lo) and r % 8 >= 4 (hi) of scales [K/32, Ns]. Two f32 products summed;
     f32 [M, Ns], or bf16 when planes_bf16_out(M)."""
+    y = _planes_f32(x, qs, scales)
+    return y.to(torch.bfloat16) if planes_bf16_out(x.shape[0]) else y
+
+
+def _planes_f32(x: torch.Tensor, qs: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """qmm_planes_plain before its output rounding: f32 [M, Ns]."""
     m, k = x.shape
     ns = qs.shape[-1]
     x4 = x.to(torch.bfloat16).float().reshape(m, k // 256, 2, 128)
@@ -180,17 +199,93 @@ def qmm_planes_plain(x: torch.Tensor, qs: torch.Tensor,
         w = (codes.float().reshape(k // 64, 32, ns) * sc.reshape(k // 64, 1, ns))
         part = (xe if y is None else xo) @ w.to(torch.bfloat16).float().reshape(k // 2, ns)
         y = part if y is None else y + part
-    return y.to(torch.bfloat16) if planes_bf16_out(m) else y
+    return y
+
+
+def _expert(t: Optional[torch.Tensor], e: torch.Tensor) -> Optional[torch.Tensor]:
+    """Expert e (a one-element int index tensor) of a stacked leaf, gathered
+    with index_select: no read of the index on the host."""
+    return None if t is None else t.index_select(0, e)[0]
 
 
 def qmm_moe_m1_plain(xq, sx, gu_qs, gu_sc, gu_b, dn_qs, dn_sc, dn_b,
-                     topw: float = 1.0) -> torch.Tensor:
-    """Plain fused FFN of one slot: f32 [1, Nd]."""
+                     ei: torch.Tensor, ti: Optional[torch.Tensor],
+                     topw: torch.Tensor) -> torch.Tensor:
+    """Plain fused FFN of every slot s: row ti[s] (s when ti is None) through
+    expert ei[s] of the stacks [E, ...], silu(g)*u requantized per 32 with
+    topw[s] in its scales, then down. f32 [S, Nd]."""
     dff = dn_qs.shape[-2] * 2
-    g, u = split_gu(q4b_plain(xq, sx, gu_qs, gu_sc, gu_b), dff, True)
-    y = (g * torch.sigmoid(g)) * u
-    yq, sy = quantize_activations_g32(y)
-    return q4b_plain(yq, sy * topw, dn_qs, dn_sc, dn_b)
+    outs = []
+    for s in range(ei.shape[0]):
+        e = ei[s:s + 1]
+        r = torch.full_like(e, s) if ti is None else ti[s:s + 1]
+        g, u = split_gu(q4b_plain(xq.index_select(0, r), sx.index_select(0, r),
+                                  _expert(gu_qs, e), _expert(gu_sc, e),
+                                  _expert(gu_b, e)), dff, True)
+        y = (g * torch.sigmoid(g)) * u
+        yq, sy = quantize_activations_g32(y)
+        outs.append(q4b_plain(yq, sy * topw[s:s + 1].float(), _expert(dn_qs, e),
+                              _expert(dn_sc, e), _expert(dn_b, e)))
+    return torch.cat(outs, dim=0)
+
+
+def _routed_plain(prod, xq, sx, qs, scales, bias, ei, ti):
+    """out[s] = prod(xq[ti[s]], sx[ti[s]], W[ei[s]]) for every slot: f32 [S, Ns]."""
+    outs = []
+    for s in range(ei.shape[0]):
+        e, r = ei[s:s + 1], ti[s:s + 1]
+        outs.append(prod(xq.index_select(0, r), sx.index_select(0, r), _expert(qs, e),
+                         _expert(scales, e), _expert(bias, e)))
+    return torch.cat(outs, dim=0)
+
+
+def qmm_txn_m1_r_plain(xq, sx, qs, scales, bias, ei, ti) -> torch.Tensor:
+    """Plain routed q4b GEMV (_qmm_kernel_txn_m1_r): out[s] = x[ti[s]] @
+    W[ei[s]] over q4b expert stacks [E, K/2, Ns]; f32 [S, Ns]."""
+    return _routed_plain(q4b_plain, xq, sx, qs, scales, bias, ei, ti)
+
+
+def qmm_q8_m1_r_plain(xq, sx, qs, scales, bias, ei, ti) -> torch.Tensor:
+    """Plain routed q8b GEMV (_qmm_kernel_q8_m1_r) over int8 expert stacks
+    [E, K, Ns], g 16 or 32; f32 [S, Ns]."""
+    return _routed_plain(qmm_q8_m1_plain, xq, sx, qs, scales, bias, ei, ti)
+
+
+def qmm_txn_g_plain(xq, sx, qs, scales, bias, te, tm: int) -> torch.Tensor:
+    """Plain grouped q4b product (_qmm_kernel_txn_g): row tile i (tm rows of
+    the int8 activations) through expert te[i]; f32 [S_pad, Ns]."""
+    outs = []
+    for i in range(te.shape[0]):
+        e = te[i:i + 1]
+        rows = slice(i * tm, (i + 1) * tm)
+        outs.append(q4b_plain(xq[rows], sx[rows], _expert(qs, e), _expert(scales, e),
+                              _expert(bias, e)))
+    return torch.cat(outs, dim=0)
+
+
+def group_sums_bf16(x: torch.Tensor) -> torch.Tensor:
+    """bf16 of the f32 sums of each 32 of x [M, K]: the activation side of
+    the grouped planes kernel's fused bias term."""
+    m, k = x.shape
+    return x.float().reshape(m, k // 32, 32).sum(-1).to(torch.bfloat16)
+
+
+def qmm_planes_g_plain(x, qs, scales, bias, te, tm: int = 128) -> torch.Tensor:
+    """Plain grouped two-plane product (_qmm_kernel_planes_g): row tile i of
+    bf16(x) through expert te[i]'s planes (qmm_planes_plain's math), plus
+    group_sums_bf16(x) @ bias[te[i]] in the same f32 sum, rounded once: f32
+    [S_pad, Ns], or bf16 when S_pad >= 256."""
+    bx = None if bias is None else group_sums_bf16(x).float()
+    outs = []
+    for i in range(te.shape[0]):
+        e = te[i:i + 1]
+        rows = slice(i * tm, (i + 1) * tm)
+        y = _planes_f32(x[rows], _expert(qs, e), _expert(scales, e))
+        if bias is not None:
+            y = y + bx[rows] @ _expert(bias, e).float()
+        outs.append(y)
+    y = torch.cat(outs, dim=0)
+    return y.to(torch.bfloat16) if x.shape[0] >= 256 else y
 
 
 # ---------------------------------------------------------------------------
@@ -315,39 +410,67 @@ def qmm_txn(xq: torch.Tensor, sx: torch.Tensor, qs: torch.Tensor,
 qmm_txn.launches = 0
 
 
+def _check_ids(dev: torch.device, named) -> None:
+    """Slot maps (expert ids, rows, routing weights): device, dtype and
+    contiguity (4-byte reads, so any element offset of a view will do)."""
+    for name, t, dt in named:
+        if t is None:
+            continue
+        if t.device != dev or t.dtype != dt or not t.is_contiguous() or t.ndim != 1:
+            raise ValueError(f"{name} must be a contiguous 1-D {dt} tensor on {dev}, "
+                             f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def _check_q4b_stack(xq, sx, qs, scales, bias, ns_multiple: int):
+    """_check_q4b for expert-stacked weights [E, K/2, Ns]."""
+    if qs.ndim != 3:
+        raise ValueError(f"expected an expert stack [E, K/2, Ns], got {tuple(qs.shape)}")
+    _check_q4b(xq, sx, qs[0], scales[0], None if bias is None else bias[0], ns_multiple)
+    _check_tensors(xq.device, (("qs", qs, torch.uint8), ("scales", scales, torch.bfloat16),
+                               ("bias", bias, torch.bfloat16)))
+
+
 def qmm_moe_m1(xq, sx, gu_qs, gu_sc, gu_b, dn_qs, dn_sc, dn_b,
-               topw: float = 1.0) -> torch.Tensor:
-    """Fused M = 1 FFN of one slot (kernel qmm_moe_m1): gate|up on the
-    GU_STRIPE-interleaved weights, silu(g)*u requantized per 32 with topw in
-    its scales, then down. One layer's (expert's) weights -> f32 [1, Nd]."""
+               ei: torch.Tensor, ti: Optional[torch.Tensor],
+               topw: torch.Tensor) -> torch.Tensor:
+    """Fused M = 1 FFN of every slot s (kernel qmm_moe_m1, one launch pair
+    for all slots): row ti[s] of xq (s when ti is None) through expert ei[s]
+    of the stacks (gate|up GU_STRIPE-interleaved [E, K/2, 2 dff], down
+    [E, dff/2, Nd]), silu(g)*u requantized per 32 with topw[s] in its
+    scales, then down. ei, ti int32 and topw f32 [S] are device tensors the
+    kernel reads itself. -> f32 [S, Nd]."""
     if xq.device.type == "cpu":
         return qmm_moe_m1_plain(xq, sx, gu_qs, gu_sc, gu_b, dn_qs, dn_sc,
-                                dn_b, topw)
-    _check_q4b(xq, sx, gu_qs, gu_sc, gu_b, 2048)
+                                dn_b, ei, ti, topw)
+    _check_q4b_stack(xq, sx, gu_qs, gu_sc, gu_b, 2048)
     dev = xq.device
+    _check_ids(dev, (("ei", ei, torch.int32), ("ti", ti, torch.int32),
+                     ("topw", topw, torch.float32)))
     k = xq.shape[1]
-    dff = dn_qs.shape[0] * 2
+    slots = ei.shape[0]
+    dff = dn_qs.shape[1] * 2
     n_gu, nd = gu_qs.shape[-1], dn_qs.shape[-1]
-    if xq.shape[0] != 1 or n_gu != 2 * dff or dff % GU_STRIPE:
-        raise ValueError(f"qmm_moe_m1: one row, gate|up width {n_gu} = 2 x "
-                         f"d_ff {dff}, d_ff a multiple of {GU_STRIPE}")
-    yq = torch.empty((1, dff), dtype=torch.int8, device=dev)
-    sy = torch.empty((1, dff // 32), dtype=torch.float32, device=dev)
-    _check_q4b(yq, sy, dn_qs, dn_sc, dn_b, 4)
+    if n_gu != 2 * dff or dff % GU_STRIPE or topw.shape[0] != slots \
+            or (ti is not None and ti.shape[0] != slots):
+        raise ValueError(f"qmm_moe_m1: gate|up width {n_gu} = 2 x d_ff {dff}, d_ff a "
+                         f"multiple of {GU_STRIPE}, one ei/ti/topw entry a slot")
+    yq = torch.empty((slots, dff), dtype=torch.int8, device=dev)
+    sy = torch.empty((slots, dff // 32), dtype=torch.float32, device=dev)
+    _check_q4b_stack(yq, sy, dn_qs, dn_sc, dn_b, 4)
     tiles_a, tiles_b = n_gu // 128, -(-nd // 128)
-    sa = _n_split(dev, tiles_a, k // 64, k // 64 // 8)
-    sb = _n_split(dev, tiles_b, dff // 64, dff // 64 // 8)
-    out = torch.empty((1, nd), dtype=torch.float32, device=dev)
-    part_a = torch.empty((sa, n_gu), dtype=torch.float32, device=dev)
-    part_b = torch.empty((sb, nd), dtype=torch.float32, device=dev)
-    f = _build.fn("qmm_moe_m1", "qmm_moe_m1",
-                  [P] * 14 + [I, I, I, I, I, F, P])
+    sa = _n_split(dev, tiles_a * slots, k // 64, k // 64 // 8)
+    sb = _n_split(dev, tiles_b * slots, dff // 64, dff // 64 // 8)
+    out = torch.empty((slots, nd), dtype=torch.float32, device=dev)
+    part_a = torch.empty((slots, sa, n_gu), dtype=torch.float32, device=dev)
+    part_b = torch.empty((slots, sb, nd), dtype=torch.float32, device=dev)
+    f = _build.fn("qmm_moe_m1", "qmm_moe_m1", [P] * 17 + [I] * 6 + [P])
     _build.check(f(xq.data_ptr(), sx.data_ptr(), gu_qs.data_ptr(),
                    gu_sc.data_ptr(), _ptr(gu_b), dn_qs.data_ptr(),
                    dn_sc.data_ptr(), _ptr(dn_b), yq.data_ptr(), sy.data_ptr(),
                    out.data_ptr(), part_a.data_ptr(), part_b.data_ptr(),
-                   _counter_buf(dev, max(tiles_a, tiles_b)).data_ptr(),
-                   k, dff, nd, sa, sb, float(topw), _stream(dev)), "qmm_moe_m1")
+                   _counter_buf(dev, slots * max(tiles_a, tiles_b)).data_ptr(),
+                   ei.data_ptr(), _ptr(ti), topw.data_ptr(),
+                   k, dff, nd, sa, sb, slots, _stream(dev)), "qmm_moe_m1")
     qmm_moe_m1.launches += 2
     return out
 
@@ -460,7 +583,141 @@ def qmm_planes(x: torch.Tensor, qs: torch.Tensor, scales: torch.Tensor
 
 qmm_planes.launches = 0
 
-KERNELS = (qmm_txn_m1, qmm_txn, qmm_moe_m1, qmm_q8_m1, qmm_dequant, qmm_planes)
+
+def _routed_launch(name, xq, sx, qs, scales, bias, ei, ti, g=None):
+    """Launch one of the routed GEMVs of csrc/qmm_routed.cu on all slots."""
+    dev = xq.device
+    _check_ids(dev, (("ei", ei, torch.int32), ("ti", ti, torch.int32)))
+    m, k = xq.shape
+    slots, ns = ei.shape[0], qs.shape[-1]
+    if ti.shape[0] != slots:
+        raise ValueError(f"{name}: ei and ti name {slots} and {ti.shape[0]} slots")
+    tiles = -(-ns // 128)
+    chunks = k // 64 if g is None else k // 32
+    s = _n_split(dev, tiles * slots, chunks, chunks // 8)
+    y = torch.empty((slots, ns), dtype=torch.float32, device=dev)
+    partial = torch.empty((slots, s, ns), dtype=torch.float32, device=dev)
+    head = (xq.data_ptr(), sx.data_ptr(), qs.data_ptr(), scales.data_ptr(), _ptr(bias),
+            y.data_ptr(), partial.data_ptr(),
+            _counter_buf(dev, slots * tiles).data_ptr(), ei.data_ptr(), ti.data_ptr())
+    if g is None:
+        f = _build.fn("qmm_routed", name, [P] * 10 + [I] * 4 + [P])
+        err = f(*head, k, ns, s, slots, _stream(dev))
+    else:
+        f = _build.fn("qmm_routed", name, [P] * 10 + [I] * 5 + [P])
+        err = f(*head, k, ns, g, s, slots, _stream(dev))
+    _build.check(err, name)
+    return y
+
+
+def qmm_txn_m1_r(xq, sx, qs, scales, bias, ei, ti) -> torch.Tensor:
+    """Routed q4b GEMV (kernel qmm_txn_m1_r): out[s] = xq[ti[s]] @ W[ei[s]]
+    for every slot in one launch; xq int8 [M, K], sx f32 [M, K/32], expert
+    stacks qs uint8 [E, K/2, Ns] and bf16 scales (bias) [E, K/32, Ns]; ei,
+    ti int32 [S] on the device. -> f32 [S, Ns]."""
+    if xq.device.type == "cpu":
+        return qmm_txn_m1_r_plain(xq, sx, qs, scales, bias, ei, ti)
+    _check_q4b_stack(xq, sx, qs, scales, bias, 4)
+    y = _routed_launch("qmm_txn_m1_r", xq, sx, qs, scales, bias, ei, ti)
+    qmm_txn_m1_r.launches += 1
+    return y
+
+
+qmm_txn_m1_r.launches = 0
+
+
+def qmm_q8_m1_r(xq, sx, qs, scales, bias, ei, ti) -> torch.Tensor:
+    """Routed q8b GEMV (kernel qmm_q8_m1_r): as qmm_txn_m1_r on int8 expert
+    stacks qs [E, K, Ns], scales (bias) bf16 [E, K/g, Ns], g 16 or 32."""
+    if xq.device.type == "cpu":
+        return qmm_q8_m1_r_plain(xq, sx, qs, scales, bias, ei, ti)
+    dev = xq.device
+    _check_tensors(dev, (("xq", xq, torch.int8), ("sx", sx, torch.float32),
+                         ("qs", qs, torch.int8), ("scales", scales, torch.bfloat16),
+                         ("bias", bias, torch.bfloat16)))
+    m, k = xq.shape
+    ns = qs.shape[-1]
+    g = k // max(scales.shape[-2], 1)
+    if qs.ndim != 3 or k % 32 or tuple(qs.shape[1:]) != (k, ns) or ns % 4 \
+            or g not in (16, 32) or tuple(scales.shape[1:]) != (k // g, ns) \
+            or tuple(sx.shape) != (m, k // 32) \
+            or (bias is not None and bias.shape != scales.shape):
+        raise ValueError(f"qmm_q8_m1_r shapes: xq {tuple(xq.shape)}, qs "
+                         f"{tuple(qs.shape)}, scales {tuple(scales.shape)} "
+                         "(stack [E, K, Ns], K % 32 == 0, g 16 or 32, Ns % 4 == 0)")
+    y = _routed_launch("qmm_q8_m1_r", xq, sx, qs, scales, bias, ei, ti, g)
+    qmm_q8_m1_r.launches += 1
+    return y
+
+
+qmm_q8_m1_r.launches = 0
+
+
+def qmm_txn_g(xq, sx, qs, scales, bias, te, tm: int) -> torch.Tensor:
+    """Grouped q4b product (kernel qmm_txn_g): row tile i (tm rows, 8 or 32)
+    of xq int8 [S_pad, K] / sx f32 [S_pad, K/32] through expert te[i] of the
+    stacks [E, K/2, Ns]; te int32 [S_pad / tm] on the device. -> f32
+    [S_pad, Ns]."""
+    if xq.device.type == "cpu":
+        return qmm_txn_g_plain(xq, sx, qs, scales, bias, te, tm)
+    _check_q4b_stack(xq, sx, qs, scales, bias, 16)
+    dev = xq.device
+    _check_ids(dev, (("te", te, torch.int32),))
+    m, k = xq.shape
+    tiles, ns = te.shape[0], qs.shape[-1]
+    if not 1 <= tm <= 32 or m != tiles * tm:
+        raise ValueError(f"qmm_txn_g: {m} rows in {tiles} tiles of {tm} (tm <= 32)")
+    col_tiles = -(-ns // 128)
+    s = _n_split(dev, col_tiles * tiles, k // 64, k // 64)
+    y = torch.empty((m, ns), dtype=torch.float32, device=dev)
+    partial = torch.empty((tiles, s, tm, ns), dtype=torch.float32, device=dev)
+    f = _build.fn("qmm_txn_g", "qmm_txn_g", [P] * 9 + [I] * 5 + [P])
+    _build.check(f(xq.data_ptr(), sx.data_ptr(), qs.data_ptr(), scales.data_ptr(),
+                   _ptr(bias), y.data_ptr(), partial.data_ptr(),
+                   _counter_buf(dev, tiles * col_tiles).data_ptr(), te.data_ptr(),
+                   tm, tiles, k, ns, s, _stream(dev)), "qmm_txn_g")
+    qmm_txn_g.launches += 1
+    return y
+
+
+qmm_txn_g.launches = 0
+
+
+def qmm_planes_g(x, qs, scales, bias, te, tm: int = 128) -> torch.Tensor:
+    """Grouped q4b two-plane GEMM (kernel qmm_planes_g): row tile i of 128
+    rows of x float [S_pad, K] (rounded to bf16 here) through expert te[i]
+    of the stacks [E, K/2, Ns], the bias term (group_sums_bf16(x) @ bias)
+    fused in the kernel's f32 sum. -> f32 [S_pad, Ns], bf16 when S_pad >= 256."""
+    if x.device.type == "cpu":
+        return qmm_planes_g_plain(x, qs, scales, bias, te, tm)
+    dev = x.device
+    xb = x.to(torch.bfloat16).contiguous()
+    bx = None if bias is None else group_sums_bf16(x).contiguous()
+    _check_tensors(dev, (("x", xb, torch.bfloat16), ("qs", qs, torch.uint8),
+                         ("scales", scales, torch.bfloat16), ("bx", bx, torch.bfloat16),
+                         ("bias", bias, torch.bfloat16)))
+    _check_ids(dev, (("te", te, torch.int32),))
+    m, k = xb.shape
+    tiles, ns = te.shape[0], qs.shape[-1]
+    if tm != 128 or m != tiles * tm or k % 256 or ns % 16 or qs.ndim != 3 \
+            or tuple(qs.shape[1:]) != (k // 2, ns) or tuple(scales.shape[1:]) != (k // 32, ns) \
+            or (bias is not None and bias.shape != scales.shape):
+        raise ValueError(f"qmm_planes_g shapes: x {tuple(xb.shape)} in {tiles} tiles of "
+                         f"{tm} (tm 128), qs {tuple(qs.shape)}, scales {tuple(scales.shape)}")
+    bf = m >= 256
+    y = torch.empty((m, ns), dtype=torch.bfloat16 if bf else torch.float32, device=dev)
+    f = _build.fn("qmm_planes_g", "qmm_planes_g", [P] * 7 + [I] * 4 + [P])
+    _build.check(f(xb.data_ptr(), qs.data_ptr(), scales.data_ptr(), te.data_ptr(),
+                   _ptr(bx), _ptr(bias), y.data_ptr(), tiles, k, ns, int(bf),
+                   _stream(dev)), "qmm_planes_g")
+    qmm_planes_g.launches += 1
+    return y
+
+
+qmm_planes_g.launches = 0
+
+KERNELS = (qmm_txn_m1, qmm_txn, qmm_moe_m1, qmm_q8_m1, qmm_dequant, qmm_planes,
+           qmm_txn_m1_r, qmm_q8_m1_r, qmm_txn_g, qmm_planes_g)
 
 
 # ---------------------------------------------------------------------------
@@ -546,25 +803,98 @@ def moe_fusable(gu_qt, dn_qt, k: int, dff: int) -> bool:
     return ok
 
 
+def _slot_rows(m: int, s_n: int, device) -> torch.Tensor:
+    """Default slot -> row map: each row's S/M slots contiguous (s // (S/M))."""
+    return (torch.arange(s_n, dtype=torch.int32, device=device)
+            // (s_n // m)).to(torch.int32)
+
+
+def _norm_args(prenorm):
+    return (None, 0.0) if prenorm is None else (prenorm[0], float(prenorm[1]))
+
+
 def qmatmul_moe(x: torch.Tensor, gu_qt: QTensor, dn_qt: QTensor,
-                expert_ids: Sequence[int], topw: Sequence[float],
-                row_map: Optional[List[int]] = None, prenorm=None) -> torch.Tensor:
-    """Fused FFN entry: out[s] = (silu(g)*u*topw[s]) @ Wdn[e].T with
-    [g|u] = x[row_map[s]] @ Wgu[e].T and e = expert_ids[s] (host ints; the
-    dense llama FFN passes its layer id). Returns f32 [S, d]. Callers check
-    moe_fusable first."""
+                expert_ids: torch.Tensor, topw: torch.Tensor,
+                row_map: Optional[torch.Tensor] = None, prenorm=None) -> torch.Tensor:
+    """Fused routed FFN entry: out[s] = (silu(g)*u*topw[s]) @ Wdn[e].T with
+    [g|u] = x[row_map[s]] @ Wgu[e].T and e = expert_ids[s], for every slot in
+    one kernel call. expert_ids int [S] and topw float [S] are tensors on
+    x's device (the router's top-k, or the dense llama FFN's layer id and a
+    weight of one); row_map defaults to s // (S / M). gu_qt is the
+    GU_STRIPE-interleaved gate|up stack, dn_qt the down stack. Returns f32
+    [S, d]. Callers check moe_fusable first."""
     m = x.shape[0]
-    s_n = len(expert_ids)
-    if row_map is None:
-        row_map = [i // (s_n // m) for i in range(s_n)]
-    nrm, eps = (None, 0.0) if prenorm is None else (prenorm[0], float(prenorm[1]))
+    s_n = expert_ids.shape[0]
+    if row_map is None and s_n != m:
+        row_map = _slot_rows(m, s_n, x.device)
+    nrm, eps = _norm_args(prenorm)
     xq, sx = quantize_activations_g32(x, nrm, eps)
-    outs = []
-    for e, r, w in zip(expert_ids, row_map, topw):
-        outs.append(qmm_moe_m1(xq[r:r + 1], sx[r:r + 1], gu_qt.qs[e],
-                               gu_qt.scales[e], _layer(gu_qt.bias, e),
-                               dn_qt.qs[e], dn_qt.scales[e],
-                               _layer(dn_qt.bias, e), float(w)))
-    y = torch.cat(outs, dim=0)
+    as_i32 = lambda t: None if t is None else t.to(torch.int32).contiguous()
+    y = qmm_moe_m1(xq, sx, gu_qt.qs, gu_qt.scales, gu_qt.bias, dn_qt.qs,
+                   dn_qt.scales, dn_qt.bias, as_i32(expert_ids), as_i32(row_map),
+                   topw.to(torch.float32).contiguous())
     n = dn_qt.shape[0]
+    return y[:, :n] if y.shape[1] > n else y
+
+
+def _routed_fallback(x: torch.Tensor, qt: QTensor, ei: torch.Tensor,
+                     ti: torch.Tensor) -> torch.Tensor:
+    """Reference routed product for experts the kernels do not take (dense
+    kind, odd shapes): each slot's expert gathered and dequantized, then
+    qmatmul_fallback's bf16 product. f32 [S, N]."""
+    from .repack import dequant_qtensor
+    outs = []
+    for s in range(ei.shape[0]):
+        e = ei[s:s + 1]
+        sub = QTensor(qt.kind, qt.shape, qt.g, _expert(qt.qs, e), _expert(qt.scales, e),
+                      _expert(qt.bias, e))
+        w = dequant_qtensor(sub)                                  # [N, K]
+        row = x.index_select(0, ti[s:s + 1])
+        outs.append(row.to(torch.bfloat16).float() @ w.to(torch.bfloat16).float().t())
+    return torch.cat(outs, dim=0)
+
+
+def qmatmul_routed(x: torch.Tensor, qt: QTensor, expert_ids: torch.Tensor,
+                   row_map: Optional[torch.Tensor] = None, prenorm=None) -> torch.Tensor:
+    """Expert-routed product: y[s] = x[row_map[s]] @ W[expert_ids[s]].T over
+    expert-stacked leaves (leading axis E, or L*E under stacked layers).
+    expert_ids and row_map are int tensors on x's device, row_map
+    defaulting to s // (S / M). q4b -> qmm_txn_m1_r, q8b (g 16 or 32) ->
+    qmm_q8_m1_r, other kinds -> _routed_fallback. Returns f32 [S, N]."""
+    m, k = x.shape
+    s_n = expert_ids.shape[0]
+    if row_map is None:
+        row_map = _slot_rows(m, s_n, x.device)
+    ei, ti = (t.to(torch.int32).contiguous() for t in (expert_ids, row_map))
+    nrm, eps = _norm_args(prenorm)
+    if qt.kind == "q4b" and k % 256 == 0:
+        xq, sx = quantize_activations_g32(x, nrm, eps)
+        y = qmm_txn_m1_r(xq, sx, qt.qs, qt.scales, qt.bias, ei, ti)
+    elif qt.kind == "q8b" and qt.g in (16, 32) and k % (8 * qt.g) == 0 and k % 32 == 0:
+        xq, sx = quantize_activations_g32(x, nrm, eps)
+        y = qmm_q8_m1_r(xq, sx, qt.qs, qt.scales, qt.bias, ei, ti)
+    else:
+        if prenorm is not None:
+            x = apply_rmsnorm(x, nrm, eps)
+        y = _routed_fallback(x, qt, ei, ti)
+    n = qt.shape[0]
+    return y[:, :n] if y.shape[1] > n else y
+
+
+def qmatmul_grouped(x: torch.Tensor, qt: QTensor, tile_expert: torch.Tensor, *,
+                    tm: int) -> torch.Tensor:
+    """Grouped expert product: row tile i (tm rows) of x [S_pad, K] float
+    multiplies W[tile_expert[i]].T of a q4b expert stack, K % 256 == 0
+    (callers guard). tm <= 32 -> qmm_txn_g on per-32 int8 activations (f32
+    out); tm 128 -> qmm_planes_g (bf16 out from 256 rows). Returns [S_pad, N]."""
+    k = x.shape[1]
+    if qt.kind != "q4b" or k % 256 or x.shape[0] % tm:
+        raise ValueError("qmatmul_grouped: q4b experts, K % 256 == 0, rows a multiple of tm")
+    te = tile_expert.to(torch.int32).contiguous()
+    if tm <= 32:
+        xq, sx = quantize_activations_g32(x)
+        y = qmm_txn_g(xq, sx, qt.qs, qt.scales, qt.bias, te, tm)
+    else:
+        y = qmm_planes_g(x, qt.qs, qt.scales, qt.bias, te, tm)
+    n = qt.shape[0]
     return y[:, :n] if y.shape[1] > n else y

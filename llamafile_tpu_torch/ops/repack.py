@@ -17,7 +17,8 @@ tests/test_torch_repack.py):
 
 Ns is N padded to a multiple of 2048 (logical N stays in QTensor.shape;
 qmatmul slices the output). A leading layer axis L appears after
-models.llama.stack_layers.
+models.llama.stack_layers, a leading expert axis E after stack_experts (L*E
+for stacked MoE layers).
 """
 from __future__ import annotations
 
@@ -243,3 +244,47 @@ def interleave_gateup(g_qt: QTensor, u_qt: QTensor) -> QTensor:
     return QTensor(g_qt.kind, (2 * dff, g_qt.shape[1]), g_qt.g,
                    cat(g_qt.qs, u_qt.qs), cat(g_qt.scales, u_qt.scales),
                    cat(g_qt.bias, u_qt.bias), True)
+
+
+def stack_experts(experts: dict, n_experts: int, fuse_gate_up: bool = False) -> dict:
+    """Per-expert QTensors ("gate.{e}", "up.{e}", "down.{e}") -> one QTensor
+    a role with a leading expert axis: qs [E, K(/2), Ns], scales/bias
+    [E, K/g, Ns]. Raises KeyError or ValueError on heterogeneous experts
+    (the caller then keeps the per-expert dict).
+
+    fuse_gate_up joins gate and up along N: GU_STRIPE-interleaved
+    ("gateup_il", the fused FFN kernel's layout) when both are q4b and d_ff
+    is a multiple of GU_STRIPE, concatenated ("gateup") otherwise. The
+    stacks are byte-identical to the reference's stack_experts."""
+    out = {}
+    for role in ("gate", "up", "down"):
+        qts = [experts[f"{role}.{e}"] for e in range(n_experts)]
+        kind, shape, g = qts[0].kind, qts[0].shape, qts[0].g
+        if any(q.kind != kind or q.shape != shape or q.g != g for q in qts):
+            raise ValueError(f"heterogeneous experts for {role}")
+        st = lambda ts: None if ts[0] is None else torch.stack(ts)
+        out[role] = QTensor(kind, shape, g, st([q.qs for q in qts]),
+                            st([q.scales for q in qts]), st([q.bias for q in qts]))
+    g_qt, u_qt = out["gate"], out["up"]
+    dff = g_qt.shape[0]
+    if (fuse_gate_up and g_qt.kind != "dense" and dff % 128 == 0
+            and g_qt.shape == u_qt.shape and g_qt.kind == u_qt.kind
+            and g_qt.g == u_qt.g and (g_qt.bias is None) == (u_qt.bias is None)):
+        if g_qt.kind == "q4b" and dff % GU_STRIPE == 0:
+            out["gateup_il"] = interleave_gateup(g_qt, u_qt)
+        else:
+            cat = lambda a, b: None if a is None else torch.cat(
+                [a[..., :dff], b[..., :dff]], dim=-1)
+            out["gateup"] = QTensor(g_qt.kind, (2 * dff, g_qt.shape[1]), g_qt.g,
+                                    cat(g_qt.qs, u_qt.qs),
+                                    cat(g_qt.scales, u_qt.scales),
+                                    cat(g_qt.bias, u_qt.bias))
+        del out["gate"], out["up"]
+    return out
+
+
+def expert_slice(qt: QTensor, e: int) -> QTensor:
+    """View of expert e (a Python int) of an expert-stacked QTensor."""
+    pick = lambda a: None if a is None else a[e]
+    return QTensor(qt.kind, qt.shape, qt.g, pick(qt.qs), pick(qt.scales),
+                   pick(qt.bias), qt.il)

@@ -39,26 +39,49 @@ def use_more_bits(i: int, n: int) -> bool:
 
 
 def make_q4_k_m_llama(preset: str = "llama3-8b", seed: int = 0, device="cuda"):
-    """(cfg, params) of a synthetic model by llama.cpp's Q4_K_M recipe:
-    attn_v and ffn_down Q6_K in the layers where use_more_bits(i, n), every
-    other matrix Q4_K, the output head Q6_K; random weights from a seed
-    (models.synthetic), fused as the loader fuses them. The layers differ
-    in format, so the params stay a list (the unrolled forward)."""
+    """(cfg, params) of a synthetic model by llama.cpp's Q4_K_M recipe
+    (llama_tensor_get_type), random weights from a seed (models.synthetic),
+    fused as the loader fuses them:
+      - ffn_down Q6_K in the layers where use_more_bits(i, n), in a MoE
+        model every expert's;
+      - attn_v Q6_K in those layers, except that a model of 8 experts has
+        attn_k and attn_v Q8_0 and attn_output Q5_K in every layer;
+      - every other matrix Q4_K, a MoE router dense, the output head Q6_K.
+    The layers differ in format, so the params stay a list (the unrolled
+    forward). Layers that share buffers in the preset (share_layers) share
+    them again within each of the two formats."""
     import dataclasses
     from .models.loader import fuse_projections
     from .models.synthetic import _rand_qtensor, make_synthetic_llama
+    from .ops.repack import expert_slice, stack_experts
     cfg, params = make_synthetic_llama(preset, "Q4_K", seed=seed, device=device)
     gen = torch.Generator(device=params.tok_embd.device)
     gen.manual_seed(seed + 1)
     dev = params.tok_embd.device
-    q6 = lambda n, k: _rand_qtensor(gen, n, k, "Q6_K", dev)
-    nkv = cfg.n_kv_heads * cfg.head_dim
-    layers = [dataclasses.replace(l, wv=q6(nkv, cfg.d_model),
-                                  w_down=q6(cfg.d_model, cfg.d_ff))
-              if use_more_bits(i, cfg.n_layers) else l
-              for i, l in enumerate(params.layers)]
+    rq = lambda n, k, quant: _rand_qtensor(gen, n, k, quant, dev)
+    d, dff, n_e = cfg.d_model, cfg.d_ff, cfg.n_experts
+    nq, nkv = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
+    made, layers = {}, []
+    for i, l in enumerate(params.layers):
+        more = use_more_bits(i, cfg.n_layers)
+        if (id(l), more) not in made:
+            kw = {}
+            if n_e == 8:
+                kw.update(wk=rq(nkv, d, "Q8_0"), wv=rq(nkv, d, "Q8_0"), wo=rq(d, nq, "Q5_K"))
+            elif more:
+                kw["wv"] = rq(nkv, d, "Q6_K")
+            if n_e:
+                ex = {f"{r}.{e}": expert_slice(l.experts[r], e)
+                      for r in ("gate", "up", "down") for e in range(n_e)}
+                if more:
+                    ex.update({f"down.{e}": rq(d, dff, "Q6_K") for e in range(n_e)})
+                kw["experts"] = stack_experts(ex, n_e, fuse_gate_up=True)
+            elif more:
+                kw["w_down"] = rq(d, dff, "Q6_K")
+            made[(id(l), more)] = dataclasses.replace(l, **kw)
+        layers.append(made[(id(l), more)])
     params = dataclasses.replace(params, layers=layers,
-                                 output=q6(cfg.n_vocab, cfg.d_model))
+                                 output=rq(cfg.n_vocab, d, "Q6_K"))
     return cfg, fuse_projections(params, cfg)
 
 

@@ -28,6 +28,9 @@ one masked key made visible must fail the int8 bound. Paged attention is
 f32 on both sides over the same page values: it is held row by row within
 1e-5 of each (row, head)'s largest output, and its two faulty versions (one
 masked key made visible, each row's last page dropped) must fail that.
+The MoE kernels (routed GEMVs, routed fused FFN, grouped products) keep
+the tolerances of their dense forms, and a control with two slots' or
+tiles' expert ids swapped must read above 0.1 of the largest output.
 """
 import pytest
 import torch
@@ -82,15 +85,105 @@ def test_txn_matches_plain(dev, m, n, k):
 
 @pytest.mark.parametrize("d,dff", [(256, 1024), (4096, 14336)])
 def test_moe_m1_matches_plain(dev, d, dff):
+    """The dense FFN's call: one slot, the layer id as expert, a view of a
+    device arange (its offset is not 16-byte aligned)."""
     gen = torch.Generator(device=dev).manual_seed(d)
     gq, gs, gb = rand_q4b(gen, 2, 2 * dff, d, dev)
     dq, ds, db = rand_q4b(gen, 2, d, dff, dev)
     xq, sx = Q.quantize_activations_g32(torch.randn(1, d, generator=gen, device=dev))
-    args = (xq, sx, gq[1], gs[1], gb[1], dq[1], ds[1], db[1], 0.75)
+    ids = torch.arange(2, dtype=torch.int32, device=dev)
+    topw = torch.full((1,), 0.75, device=dev)
+    args = (xq, sx, gq, gs, gb, dq, ds, db, ids[1:2], None, topw)
     n0 = Q.qmm_moe_m1.launches
     got = Q.qmm_moe_m1(*args)
     assert Q.qmm_moe_m1.launches == n0 + 2        # gate|up kernel, down kernel
     assert_close(got, Q.qmm_moe_m1_plain(*args), 2e-3)
+
+
+def _experts(gen, e, n, k, dev):
+    qs, sc, b = rand_q4b(gen, e, n, k, dev)
+    return qs, sc, b
+
+
+@pytest.mark.parametrize("ids,rows", [((1, 1), (0, 0)), ((3, 0, 2, 1), (0, 0, 1, 1))])
+def test_routed_moe_m1_matches_plain(dev, ids, rows):
+    """All slots of a routed step in one launch pair: expert ids, token rows
+    and routing weights read from device memory; swapping two slots' ids
+    must fail the tolerance."""
+    d, dff, e = 256, 1024, 4
+    gen = torch.Generator(device=dev).manual_seed(len(ids))
+    gq, gs, gb = _experts(gen, e, 2 * dff, d, dev)
+    dq, ds, db = _experts(gen, e, d, dff, dev)
+    xq, sx = Q.quantize_activations_g32(torch.randn(2, d, generator=gen, device=dev))
+    ei = torch.tensor(ids, dtype=torch.int32, device=dev)
+    ti = torch.tensor(rows, dtype=torch.int32, device=dev)
+    topw = torch.rand(len(ids), generator=gen, device=dev) + 0.1
+    got = Q.qmm_moe_m1(xq, sx, gq, gs, gb, dq, ds, db, ei, ti, topw)
+    want = Q.qmm_moe_m1_plain(xq, sx, gq, gs, gb, dq, ds, db, ei, ti, topw)
+    assert_close(got, want, 2e-3)
+    if len(set(ids)) > 1:
+        bad = Q.qmm_moe_m1_plain(xq, sx, gq, gs, gb, dq, ds, db, ei.flip(0), ti, topw)
+        assert rel_err(bad, want) > 0.1
+
+
+@pytest.mark.parametrize("quant", ["q4b", "q8b16", "q8b32"])
+@pytest.mark.parametrize("n,k", [(2048, 256), (4096, 14336)])
+def test_routed_gemv_matches_plain(dev, quant, n, k):
+    gen = torch.Generator(device=dev).manual_seed(n + k)
+    e = 4
+    if quant == "q4b":
+        qs, sc, b = rand_q4b(gen, e, n, k, dev)
+        fn, plain = Q.qmm_txn_m1_r, Q.qmm_txn_m1_r_plain
+    else:
+        qs, sc, b = rand_q8b(gen, e, n, k, int(quant[3:]), dev)
+        fn, plain = Q.qmm_q8_m1_r, Q.qmm_q8_m1_r_plain
+    xq, sx = Q.quantize_activations_g32(torch.randn(2, k, generator=gen, device=dev))
+    ei = torch.tensor([2, 0, 3, 2], dtype=torch.int32, device=dev)
+    ti = torch.tensor([0, 0, 1, 1], dtype=torch.int32, device=dev)
+    n0 = fn.launches
+    got = fn(xq, sx, qs, sc, b, ei, ti)
+    assert fn.launches == n0 + 1
+    want = plain(xq, sx, qs, sc, b, ei, ti)
+    assert_close(got, want, 1e-5)
+    bad = plain(xq, sx, qs, sc, b, ei[[1, 0, 2, 3]], ti)
+    assert rel_err(bad, want) > 0.1
+
+
+@pytest.mark.parametrize("tm", [8, 32])
+@pytest.mark.parametrize("n,k", [(2048, 256), (28672, 4096), (4096, 14336)])
+def test_txn_g_matches_plain(dev, tm, n, k):
+    gen = torch.Generator(device=dev).manual_seed(tm * n + k)
+    qs, sc, b = rand_q4b(gen, 4, n, k, dev)
+    te = torch.tensor([0, 0, 2, 3, 3, 1], dtype=torch.int32, device=dev)
+    x = torch.randn(te.shape[0] * tm, k, generator=gen, device=dev)
+    x[tm - 2:tm] = 0                               # a group's padding rows
+    xq, sx = Q.quantize_activations_g32(x)
+    n0 = Q.qmm_txn_g.launches
+    got = Q.qmm_txn_g(xq, sx, qs, sc, b, te, tm)
+    assert Q.qmm_txn_g.launches == n0 + 1
+    want = Q.qmm_txn_g_plain(xq, sx, qs, sc, b, te, tm)
+    assert_close(got, want, 1e-5)
+    assert not got[tm - 2:tm].any()
+    assert rel_err(Q.qmm_txn_g_plain(xq, sx, qs, sc, b, te[[2, 1, 0, 3, 4, 5]], tm), want) > 0.1
+
+
+@pytest.mark.parametrize("tiles,bias", [(1, True), (3, True), (3, False)])
+@pytest.mark.parametrize("n,k", [(2048, 256), (4096, 14336)])
+def test_planes_g_matches_plain(dev, tiles, bias, n, k):
+    gen = torch.Generator(device=dev).manual_seed(tiles * n + k)
+    qs, sc, b = rand_q4b(gen, 4, n, k, dev)
+    b = b if bias else None
+    te = torch.tensor([3, 0, 1][:tiles], dtype=torch.int32, device=dev)
+    x = torch.randn(tiles * 128, k, generator=gen, device=dev)
+    n0 = Q.qmm_planes_g.launches
+    got = Q.qmm_planes_g(x, qs, sc, b, te)
+    assert Q.qmm_planes_g.launches == n0 + 1
+    want = Q.qmm_planes_g_plain(x, qs, sc, b, te)
+    assert got.dtype == want.dtype == (torch.bfloat16 if tiles * 128 >= 256 else torch.float32)
+    tol = 2 ** -7 if got.dtype == torch.bfloat16 else 1e-3
+    assert_close(got, want, tol)
+    if tiles > 1:
+        assert rel_err(Q.qmm_planes_g_plain(x, qs, sc, b, te.flip(0)), want) > 0.1
 
 
 @pytest.mark.parametrize("hq,hkv", [(32, 8), (8, 8), (16, 8), (16, 2)])

@@ -132,7 +132,8 @@ def test_moe_m1_plain_matches_pallas():
         interpret=True)[:, :D]                      # storage N is padded
     tgu, tdn = to_torch(gu), to_torch(dn)
     assert TQ.moe_fusable(tgu, tdn, D, DFF)
-    got = TQ.qmatmul_moe(torch.from_numpy(x), tgu, tdn, [li], [1.0],
+    got = TQ.qmatmul_moe(torch.from_numpy(x), tgu, tdn,
+                         torch.tensor([li], dtype=torch.int32), torch.ones(1),
                          prenorm=(torch.from_numpy(nrm), 1e-5))
     close(got, want, 2e-3)
 
@@ -227,7 +228,7 @@ def test_dispatch_reaches_the_ported_branches(monkeypatch):
     assert TQ.qmatmul(x1, st, li=1).shape == (1, 512)
     assert TQ.qmatmul(x16, st, li=1).shape == (16, 512)
     assert TQ.qmatmul(x16, un).shape == (16, 512)
-    TQ.qmatmul_moe(x1, gu, dn, [0], [1.0])
+    TQ.qmatmul_moe(x1, gu, dn, torch.zeros(1, dtype=torch.int32), torch.ones(1))
     assert calls == ["qmm_txn_m1", "qmm_txn_m1", "qmm_txn", "qmm_txn", "qmm_moe_m1"]
     del calls[:]
     assert TQ.qmatmul(torch.randn(33, D), st, li=0).shape == (33, 512)
