@@ -12,14 +12,17 @@
    MoE kernels at Mixtral-8x7B width: the routed fused FFN and the routed
    q4b and q8b GEMVs at a decode step's 2 slots, qmm_txn_g at 16 and 512
    slots, qmm_planes_g at 2048, each with a control whose expert ids are
-   swapped),
+   swapped; the int8 prefill GEMM qmm_i8p at the four products at M = 1024
+   and gate|up at M = 300, on layers i > 0 of a stack, with a control whose
+   block scales are swapped, beside qmm_dequant at the same shape),
    held against its plain PyTorch version on the same inputs (the
    tolerances of the CPU and card tests) and timed on the device: a run of launches cycling over
    enough layers of weights to spill the 50 MB L2 (as decode does) is
    captured in a CUDA graph and replayed between CUDA events, median of 25
    replays, so the host's dispatch cost is left out. Timed: the kernel, its
    plain version, one PyTorch library call computing the same function where
-   there is one, and the bound (bytes over the card's memory rate, or
+   there is one (for qmm_i8p, torch._int_mm on the same codes without the
+   per-block scales), and the bound (bytes over the card's memory rate, or
    operations over its peak rate, whichever is larger).
 3. Whole paths at two layers of llama3-8b width, card (kernels) against the
    same model on the CPU (plain versions): Q4_K with a 32-token prompt and 4
@@ -28,7 +31,14 @@
    the paged decode (forward_paged_decode) of 4 rows admitted at prompts of
    24, 64, 200 and 300 tokens, 4 steps; the Q4_K_M recipe at two layers
    (layer 1 Q6_K V and down, unrolled) with a 300-token prompt and 4 decode
-   steps; Q4_K with a dense int8 KV cache, 32-token prompt, 4 steps; two
+   steps; Q4_K with a dense int8 KV cache, 32-token prompt, 4 steps; Q4_K
+   with the int8 prefill companions (int8_prefill_params), 300-token prompt
+   and 2 steps, each qmm_i8p call rerun on its own int8 codes and scales;
+   TinyLlama's widths at two layers (head_dim 64) with a max_seq_len of
+   1000: the Engine's prefill and 4 decode steps on a bf16 cache, then on the
+   card Engine.generate and 3 requests through the batcher, every decode
+   attention on the einsum or gather route with no decode kernel launch,
+   and the 3-row paged decode card against CPU; two
    layers at Mixtral-8x7B width (mixtral-8x7b-2l): Q4_K stacked (24- and
    300-token prompts: qmm_txn_g and qmm_planes_g; 4 decode steps on the
    routed fused FFN), the Q4_K_M recipe unrolled (layer 1's Q6_K experts'
@@ -53,6 +63,10 @@
       token through the dequant GEMM and the flash prefill;
    4d. phase 4's weights with a dense int8 KV cache: 64 tokens, decode
       attention on flash_decode (32 launches a step);
+   4e. phase 4's model built under LLAMAFILE_TPU_I8P=1 (phase 4's engine
+      dropped first): 64 tokens from the 24-token prompt (no companion
+      read), then the 1000-token prompt's TTFT with 128 qmm_i8p launches
+      (4 fused products x 32 layers); the companions' bytes, peak memory;
    4c. make_synthetic_llama("llama3-8b", Q8_0, fused, 32 layers): greedy
       generate of 64 tokens from a 24-token prompt; decode rate against its
       weight-read bound, and time to first token.
@@ -76,7 +90,7 @@
    requests (prompts of 24, 128, 500 and 1000 tokens, two each), each
    against itself served alone; launches exact, the decode rate against the
    routed weight-read bound (models.synthetic.decode_read_bytes).
-   Phases run in the order 4, 4b, 4d, 5, 4c, 6, 7. Then, after every timed
+   Phases run in the order 4, 4b, 4d, 5, 4e, 4c, 6, 7. Then, after every timed
    run (so that no profiler session of the process precedes a timing),
    profiles: one 8-step decode chunk of each model (7a, 7b, and 4c and 4 on
    rebuilt engines) under torch.profiler (the device's busy share of a step) and
@@ -125,6 +139,9 @@ PLANES_TOL = 1e-3                 # f32 out, as the dequant GEMM
 PLANES_BF16_TOL = 2 ** -7         # bf16 out: one bf16 step of the largest
 DECODE_BF16_ROW_TOL = 2e-2        # p rounded to bf16 against another max
 DECODE_INT8_ROW_TOL = 1e-5        # all f32 on the same values
+# qmm_i8p repeats its plain version's roundings in the same order (exact
+# int32 block dots, the f32 block updates in K order): 1e-6 of the largest
+I8P_TOL = 1e-6
 KV_BYTES_PER_TOKEN = 32 * 8 * 128 * 2 * 2    # llama3-8b bf16 K and V, 32 layers
 
 
@@ -615,8 +632,59 @@ def kernel_phases(torch, dev, gen):
               F32_FLOP_PER_S)
         del q, kp, vp, ks, vs, kd, vd, got, want
         torch.cuda.empty_cache()
+    i8p_kernel_phase(torch, dev, gen, entry)
     moe_kernel_phases(torch, dev, gen, entry, dequant_bf16)
     return list(rows.values())
+
+
+def i8p_kernel_phase(torch, dev, gen, entry):
+    """Phase 2 for the int8 prefill GEMM: llama3-8b's four products at M =
+    1024 (a 1000-token prompt's bucket) and gate|up at a ragged M = 300 (a
+    300-row admission slice), each on layers i > 0 of a stack (the stacked
+    form's views), against its plain version within I8P_TOL, with a control
+    (two blocks' weight scales swapped) that must fail it. Timed beside it:
+    the plain version, the library yardstick torch._int_mm on the same codes
+    without the per-block scales (which the port never calls), and
+    qmm_dequant, the prefill GEMM without companions, at the same shape."""
+    from llamafile_tpu_torch.ops import qmatmul as Q
+    from llamafile_tpu_torch.testing import i8p_fault, rand_i8p, rand_q4b, rel_err
+    for m, label, n, k, layers in ((1024, "gate_up", 28672, 4096, 2),
+                                   (1024, "down", 4096, 14336, 3),
+                                   (1024, "qkv", 6144, 4096, 8),
+                                   (1024, "o", 4096, 4096, 12),
+                                   (300, "gate_up", 28672, 4096, 2)):
+        w8, sw = rand_i8p(gen, layers, n, k, dev)
+        xq, sxa = Q.i8p_prep(torch.randn((m, k), generator=gen, device=dev))
+        got = Q.qmm_i8p(xq, sxa, w8[1], sw[1])
+        want = Q.qmm_i8p_plain(xq, sxa, w8[1], sw[1])
+        torch.cuda.synchronize()
+        what = f"qmm_i8p/{label}/M={m} (layer 1 of {layers})"
+        err = check_close(what, got, want, I8P_TOL)
+        ctl = rel_err(i8p_fault(xq, sxa, w8[1], sw[1]), want)
+        log(f"  {what}: swapped-block-scales control {ctl:.6g} (must exceed {I8P_TOL}); "
+            f"identical to the plain version: {torch.equal(got, want)}")
+        if not ctl > I8P_TOL:
+            raise AssertionError(f"qmm_i8p {label}: the faulty control passes")
+        del got, want
+        ms = time_ms(torch, lambda i: Q.qmm_i8p(xq, sxa, w8[i], sw[i]), layers)
+        plain = time_ms(torch, lambda i: Q.qmm_i8p_plain(xq, sxa, w8[i], sw[i]), layers)
+        wt = [w8[i].t() for i in range(layers)]             # [K, N] views
+        lib = time_ms(torch, lambda i: torch._int_mm(xq, wt[i]), layers)
+        del w8, sw, wt
+        torch.cuda.empty_cache()
+        qs, sc, _ = rand_q4b(gen, layers, n, k, dev)
+        xb = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+        dq = time_ms(torch, lambda i: Q.qmm_dequant(xb, qs[i], sc[i]), layers)
+        del qs, sc, xb
+        torch.cuda.empty_cache()
+        log(f"  qmm_i8p/{label}/M={m}: qmm_dequant at the same shape {dq:.4f} ms "
+            f"({dq / ms:.2f}x the int8 kernel's time)")
+        entry("qmm_i8p", "llamafile_tpu_torch/csrc/qmm_i8p.cu",
+              "llamafile_tpu/ops/qmatmul.py:1808",
+              f"{label} M={m} N={n} K={k}, layer i of {layers} (library: torch._int_mm "
+              f"without the per-block scales; qmm_dequant {dq:.4f} ms)", err, ms, plain, lib,
+              n * k + (k // 256) * n * 4 + m * k + m * (k // 256) * 4 + 4 * m * n,
+              2 * m * n * k)
 
 
 MOE_E, MOE_D, MOE_DFF = 8, 4096, 14336      # Mixtral-8x7B: top-2 of 8 experts
@@ -779,7 +847,10 @@ def op_trace(rec):
     Inputs are kept for the prefill, int8-cache decode and paged attention
     (on the CPU: the positional arguments, then a dict of the keyword ones)
     and for the products (x on the CPU, the other arguments as they are), so
-    that each can be rerun on the other side's inputs. Nothing inside the
+    that each can be rerun on the other side's inputs; an int8 prefill
+    product is kept twice, as qmatmul's call and as qmm_i8p's (its codes
+    and scales). An activation quantization keeps its codes and scales as
+    its inputs entry, for the rerun of the product it feeds. Nothing inside the
     fused FFN is kept: its plain version quantizes its hidden activations
     in torch, the kernel inside itself."""
     from llamafile_tpu_torch.models import llama as LM
@@ -800,11 +871,16 @@ def op_trace(rec):
             if not inside[0]:
                 cpu = lambda t: t.cpu() if hasattr(t, "cpu") else t
                 ins = ({"x": a[0].cpu(), "args": a[1:], "kw": kw} if keep_inputs == "call"
+                       else tuple(t.cpu() for t in out) if keep_inputs == "out"
                        else [cpu(t) for t in a] + [{k: cpu(t) for k, t in kw.items()}]
                        if keep_inputs else None)
                 rec[-1].append((label(*a, **kw), (out[0] if isinstance(out, tuple) else out).cpu(),
                                 ins))
             return out
+        if hasattr(fn, "launches"):
+            # a kernel wrapper counts itself under its module name, which is
+            # now `traced`: the count lives here until it is restored
+            traced.launches = fn.launches
         setattr(mod, name, traced)
     wrap(LM, "qmatmul", lambda x, qt, li=None, *_, **_kw: f"product N={qt.shape[0]}"
          + ("" if li is None else f" layer {li}"), keep_inputs="call")
@@ -815,7 +891,10 @@ def op_trace(rec):
     wrap(LM, "qmatmul_grouped", lambda x, qt, te, *_, **kw:
          f"grouped product N={qt.shape[0]} rows={x.shape[0]} tm={kw['tm']}", keep_inputs="call")
     wrap(Q, "quantize_activations_g32",
-         lambda x, *_, **_kw: f"codes M={x.shape[0]} K={x.shape[1]}")
+         lambda x, *_, **_kw: f"codes M={x.shape[0]} K={x.shape[1]}", keep_inputs="out")
+    wrap(Q, "i8p_prep", lambda x, *_, **_kw: f"i8p codes M={x.shape[0]} K={x.shape[1]}")
+    wrap(Q, "qmm_i8p", lambda xq, sxa, w8, sw: f"i8p product M={xq.shape[0]} N={w8.shape[0]}",
+         keep_inputs="call")
     wrap(LM, "flash_prefill", lambda *_, **_kw: "prefill attention", keep_inputs=True)
     wrap(LM, "flash_decode_write_stacked", lambda *a, **_kw: f"L{a[5]} decode attention")
     wrap(LM, "flash_decode", lambda *a, **kw: "int8 decode attention", keep_inputs=True)
@@ -824,6 +903,8 @@ def op_trace(rec):
         yield
     finally:
         for mod, name, fn in saved:
+            if hasattr(fn, "launches"):
+                fn.launches = getattr(mod, name).launches
             setattr(mod, name, fn)
 
 
@@ -832,23 +913,31 @@ def trace_report(steps_card, steps_cpu):
     A quantization's int8 codes are compared code by code; every other
     output by max |diff| / max |CPU value|. Every product of the card is
     also rerun through its plain version on the CPU, on the card's own
-    input and the CPU's copy of the weights. Returns (lines, {route: the
+    input (its activation codes and scales too, where the product made
+    them) and the CPU's copy of the weights. Returns (lines, {route: the
     largest parting of a product from its plain version on the same
     inputs}) for the int8-activation GEMVs and qmm_txn ("int8"), the
     dequant GEMM ("dequant"), the two-plane GEMM of unstacked q4b weights
-    ("planes") and the fused FFN ("ffn"): a fault in a product kernel shows
+    ("planes"), the fused FFN ("ffn") and the int8 prefill ("i8p", held on
+    the card's own int8 codes and scales: an activation code can flip
+    between the two sides' RMSNorms): a fault in a product kernel shows
     there, whatever parted before it."""
     import torch
     from llamafile_tpu_torch.models import llama as LM
+    from llamafile_tpu_torch.ops import qmatmul as Q
     from llamafile_tpu_torch.testing import rel_err
     lines, same = [], {"int8": 0.0, "dequant": 0.0, "planes": 0.0, "ffn": 0.0,
-                       "planes_g": 0.0}
+                       "planes_g": 0.0, "i8p": 0.0}
     for i, (card, cpu) in enumerate(zip(steps_card, steps_cpu)):
         n_q = flips = q_flipped = 0
         first, worst = None, (0.0, "")
         for j, ((lab, a, ia), (lab_b, b, ib)) in enumerate(zip(card, cpu)):
             assert lab == lab_b, (lab, lab_b)
-            if isinstance(ia, dict):             # a product: rerun plain on the card's x
+            if isinstance(ia, dict) and lab.startswith("i8p product"):
+                # the card's codes and scales, the CPU's copy of the weights
+                same["i8p"] = max(same["i8p"], rel_err(a, Q.qmm_i8p_plain(
+                    ia["x"], ia["args"][0].cpu(), *ib["args"][1:])))
+            elif isinstance(ia, dict):           # a product: rerun plain on the card's x
                 fn = (LM.qmatmul_moe if "fused ffn" in lab else LM.qmatmul_routed
                       if lab.startswith("routed") else LM.qmatmul_grouped
                       if lab.startswith("grouped") else LM.qmatmul)
@@ -857,13 +946,17 @@ def trace_report(steps_card, steps_cpu):
                 pick = lambda c, h: c.cpu() if isinstance(c, torch.Tensor) else h
                 args = [pick(c, h) for c, h in zip(ia["args"], ib["args"])]
                 kw = {k: pick(ia["kw"][k], v) for k, v in ib["kw"].items()}
+                # the product's own activation codes and scales, where it made
+                # them (the call just before it): the host's RMSNorm and
+                # rsqrt part from the card's by an ulp of a scale
+                codes = card[j - 1][2] if j and card[j - 1][0].startswith("codes") else None
                 # where the card's inputs equal the CPU's bit for bit, the
                 # CPU's output is the plain version on them
                 same_in = torch.equal(ia["x"], ib["x"]) and all(
                     torch.equal(c, h) for c, h in zip(args + list(kw.values()),
                                                       ib["args"] + tuple(ib["kw"].values()))
-                    if isinstance(h, torch.Tensor))
-                e_same = rel_err(a, b if same_in else fn(ia["x"], *args, **kw))
+                    if isinstance(h, torch.Tensor)) and (codes is None or all(
+                        torch.equal(c, h) for c, h in zip(codes, cpu[j - 1][2])))
                 qt, m = ib["args"][0], ia["x"].shape[0]
                 route = ("ffn" if "fused ffn" in lab
                          else "int8" if lab.startswith("routed")
@@ -871,10 +964,12 @@ def trace_report(steps_card, steps_cpu):
                          else "planes_g" if lab.startswith("grouped")
                          else None if qt.kind == "dense"
                          else "int8" if m == 1 or (qt.kind == "q4b" and m <= 32)
+                         else None if getattr(qt, "qs8", None) is not None   # qmm_i8p's
                          else "planes" if qt.kind == "q4b" and qt.qs.ndim == 2
                          else "dequant")
                 if route:
-                    same[route] = max(same[route], e_same)
+                    same[route] = max(same[route], rel_err(a, b if same_in else with_codes(
+                        Q, codes, lambda: fn(ia["x"], *args, **kw))))
             if not a.dtype.is_floating_point:
                 n_q += 1
                 nf = int((a != b).sum())
@@ -895,10 +990,24 @@ def trace_report(steps_card, steps_cpu):
     return lines, same
 
 
+def with_codes(Q, codes, run):
+    """run(), with its first activation quantization answered by `codes`
+    (the card's (xq, sx) for the product being rerun), where there are any."""
+    if codes is None:
+        return run()
+    orig, left = Q.quantize_activations_g32, [codes]
+    Q.quantize_activations_g32 = lambda *a, **kw: left.pop() if left else orig(*a, **kw)
+    try:
+        return run()
+    finally:
+        Q.quantize_activations_g32 = orig
+
+
 # phase 2's limits; planes: its bf16 output, then the bias term added in
 # bf16, each a rounding of up to one bf16 step of the largest output
 SAME_INPUT_TOL = {"int8": 1e-5, "dequant": 1e-3, "planes": 2 * PLANES_BF16_TOL,
-                  "ffn": 2e-3, "planes_g": PLANES_BF16_TOL}     # planes_g: one rounding
+                  "ffn": 2e-3, "planes_g": PLANES_BF16_TOL,     # planes_g: one rounding
+                  "i8p": I8P_TOL}
 
 
 def check_same_input(what, same):
@@ -945,14 +1054,17 @@ def prefill_attention_report(torch, dev, card, cpu):
 
 
 def whole_path_check(torch, dev, quant="Q4_K", n_prompt=32, n_decode=8,
-                     kv_dtype="bf16"):
+                     kv_dtype="bf16", i8p=False):
     """Two layers at llama3-8b width: card (kernels) vs CPU (plain versions).
     quant "Q4_K_M" is the Q4_K_M recipe at two layers (layer 1 holds the
-    Q6_K V and down), unrolled; the others are stacked. The prompt is padded
+    Q6_K V and down), unrolled; the others are stacked. i8p attaches the int8
+    prefill companions first (models.llama.int8_prefill_params), as the
+    Engine does under LLAMAFILE_TPU_I8P=1. The prompt is padded
     to its prefill bucket, as Engine.prefill does. Every op's output is kept
     on both sides, and trace_report's lines are logged: the op at which card
     and CPU first part in each step."""
-    from llamafile_tpu_torch.models.llama import forward, init_cache, stack_layers
+    from llamafile_tpu_torch.models.llama import (forward, init_cache, int8_prefill_params,
+                                                  stack_layers)
     from llamafile_tpu_torch.models.synthetic import make_synthetic_llama
     from llamafile_tpu_torch.runtime.engine import bucket_len
     from llamafile_tpu_torch.testing import make_q4_k_m_llama
@@ -961,8 +1073,9 @@ def whole_path_check(torch, dev, quant="Q4_K", n_prompt=32, n_decode=8,
     else:
         cfg, params = make_synthetic_llama("llama3-8b-2l", quant, seed=1, fuse=True,
                                            device=dev)
-    gpu = stack_layers(params)
-    what = f"{quant}{'' if kv_dtype == 'bf16' else ' ' + kv_dtype + ' KV'}"
+    gpu = stack_layers(int8_prefill_params(params) if i8p else params)
+    what = (f"{quant}{'' if kv_dtype == 'bf16' else ' ' + kv_dtype + ' KV'}"
+            + (" int8 prefill" if i8p else ""))
     cpu = _to(gpu, "cpu")
     bucket = bucket_len(n_prompt)
     toks = torch.zeros((1, bucket), dtype=torch.int64)
@@ -1298,6 +1411,106 @@ def paged_path_check(torch, dev, prompts=(24, 64, 200, 300), n_decode=4,
     torch.cuda.empty_cache()
 
 
+def head_dim_64_check(torch, dev, n_prompt=40, n_decode=4, max_seq_len=1000):
+    """Decode attention on the reference's non-kernel routes, at TinyLlama's
+    widths at two layers (tinyllama-1.1b-2l: head_dim 64, 32 heads on 4 KV
+    heads, d_ff 5632) with a max_seq_len that is not a multiple of 256. The
+    Engine's prefill of an n_prompt-token prompt and n_decode decode steps
+    over its bf16 cache (teacher-forced with the card's greedy token), card
+    against CPU: logits within 2e-2 of the largest with the same top-1. Then,
+    on the card, Engine.generate of 8 greedy tokens and 3 requests served at
+    once by a 3-row batcher: every decode attention call takes the einsum
+    (dense cache) or the gather (paged pool) route, counted exactly, and no
+    decode kernel launches. Then the 3-row paged decode card against CPU
+    (paged_path_check). Returns nothing; raises on any parting."""
+    from llamafile_tpu_torch.models.llama import forward
+    from llamafile_tpu_torch.models.synthetic import make_synthetic_llama
+    from llamafile_tpu_torch.ops import attention as A
+    from llamafile_tpu_torch.ops import reset_launch_counts
+    from llamafile_tpu_torch.runtime.engine import Engine
+    from llamafile_tpu_torch.runtime.sampling import SamplingParams
+    from llamafile_tpu_torch.runtime.tokenizer import Tokenizer
+    from llamafile_tpu_torch.server.batcher import Batcher
+    preset = "tinyllama-1.1b-2l"
+    cfg, params = make_synthetic_llama(preset, "Q4_K", seed=1, fuse=True, device=dev)
+    n = cfg.n_layers
+    engs = {"cuda": Engine(cfg, params, Tokenizer({}), max_seq_len=max_seq_len, device=dev)}
+    engs["cpu"] = Engine(cfg, _to(engs["cuda"].params, "cpu"), Tokenizer({}),
+                         max_seq_len=max_seq_len, device="cpu")
+    del params
+    what = f"{preset} (head_dim {cfg.head_dim}, max_seq_len {max_seq_len})"
+    prompt = torch.randint(3, cfg.n_vocab, (300,),
+                           generator=torch.Generator().manual_seed(11)).tolist()
+    caches = {d: e.new_cache() for d, e in engs.items()}
+    logits = {d: [e.prefill(caches[d], prompt[:n_prompt])[0].float().cpu()]
+              for d, e in engs.items()}
+    nxt = int(logits["cuda"][0].argmax())
+    for step in range(n_decode):
+        for d, e in engs.items():
+            lg, _ = forward(e.params, cfg, torch.tensor([[nxt]], device=d),
+                            torch.tensor([n_prompt + step], dtype=torch.int32, device=d),
+                            caches[d], attn_len=max_seq_len)
+            logits[d].append(lg[0, -1].float().cpu())
+        nxt = int(logits["cuda"][-1].argmax())
+    for i, (a, b) in enumerate(zip(logits["cuda"], logits["cpu"])):
+        rel = ((a - b).abs().max() / b.abs().max()).item()
+        log(f"  {what} prompt {n_prompt} {'prefill' if i == 0 else f'decode step {i}'}: "
+            f"top-1 card {int(a.argmax())} cpu {int(b.argmax())}, max |diff| / max |logit| "
+            f"= {rel:.3g}")
+        if int(a.argmax()) != int(b.argmax()) or rel > 2e-2:
+            raise AssertionError(f"{what} step {i}: card and CPU disagree")
+    del engs["cpu"], caches
+    eng = engs["cuda"]
+    sp = SamplingParams(temperature=0.0)
+    decode_kernels = (A.flash_decode_write_stacked, A.flash_decode, A.paged_attention)
+
+    def tallies():
+        return dict(A.ROUTE_COUNTS), {w.__name__: w.launches for w in decode_kernels}
+    reset_launch_counts()
+    toks = [t for t, _ in eng.generate("", max_tokens=8, sampling=sp, stop_on_eog=False,
+                                       prompt_ids=prompt[:n_prompt])]
+    torch.cuda.synchronize()
+    routes, launched = tallies()
+    log(f"  {what} Engine.generate of {len(toks)} tokens: routes {routes}, decode kernel "
+        f"launches {launched} (expected einsum {7 * n}, none launched)")
+    if routes != {"einsum": 7 * n, "gather": 0} or any(launched.values()):
+        raise AssertionError(f"{what}: Engine decode left the einsum route")
+    reset_launch_counts()
+    bt = Batcher(eng, rows=3)
+    try:
+        st0 = bt.stats["decode_steps"]
+        reqs = [bt.submit(prompt[:k], sp, 6) for k in (24, 64, 300)]
+        outs = []
+        for r in reqs:
+            got = []
+            while True:
+                kind, val = r.out.get(timeout=600)
+                if kind == "error":
+                    raise AssertionError(f"{what} batcher: {val}")
+                if kind == "done":
+                    break
+                got.append(val)
+            outs.append(got)
+        steps = bt.stats["decode_steps"] - st0
+    finally:
+        bt.shutdown()
+    routes, launched = tallies()
+    log(f"  {what} batcher, 3 rows (prompts 24, 64, 300): {[len(o) for o in outs]} tokens, "
+        f"{steps} paged decode steps; routes {routes}, decode kernel launches {launched} "
+        f"(expected gather {n * steps}, none launched)")
+    if [len(o) for o in outs] != [6] * 3 or routes["gather"] != n * steps \
+            or any(launched.values()):
+        raise AssertionError(f"{what}: the batcher's decode left the gather route")
+    del engs, eng, bt
+    torch.cuda.empty_cache()
+    reset_launch_counts()
+    paged_path_check(torch, dev, prompts=(24, 64, 300), preset=preset)
+    if A.paged_attention.launches:
+        raise AssertionError(f"{what}: the paged decode launched the paged kernel")
+    log(f"  {what} paged decode card vs CPU: gather route {A.ROUTE_COUNTS['gather']} "
+        "calls (both sides), no paged kernel launch")
+
+
 def counted_generate(torch, eng, prompt, n_new):
     """One greedy Engine.generate of n_new tokens after a warm-up run (first
     launches of each kernel at these shapes, allocator; not counted), with
@@ -1344,19 +1557,69 @@ def decode_report(torch, read, steps, ttft_s, decode_s, prompt_note):
     return step_ms
 
 
-def build_engine(torch, dev, quant):
+def build_engine(torch, dev, quant, i8p=False):
+    """Phase 4's engine: llama3-8b, 32 layers, fused, stacked; with i8p, built
+    under LLAMAFILE_TPU_I8P=1 (companions attached before stacking)."""
     from llamafile_tpu_torch.models.synthetic import decode_read_bytes, make_synthetic_llama
     from llamafile_tpu_torch.runtime.engine import Engine
     from llamafile_tpu_torch.runtime.tokenizer import Tokenizer
     t0 = time.time()
     cfg, params = make_synthetic_llama("llama3-8b", quant, seed=0, fuse=True, device=dev)
-    eng = Engine(cfg, params, Tokenizer({}), max_seq_len=2048, device=dev)
+    os.environ["LLAMAFILE_TPU_I8P"] = "1" if i8p else "0"
+    try:
+        eng = Engine(cfg, params, Tokenizer({}), max_seq_len=2048, device=dev)
+    finally:
+        del os.environ["LLAMAFILE_TPU_I8P"]
     del params
     torch.cuda.synchronize()
     read = decode_read_bytes(eng.params, cfg)
-    log(f"  built llama3-8b {quant} (32 layers, fused, stacked) in {time.time() - t0:.1f} s; "
-        f"decode reads {read / 1e9:.3f} GB of weights a step")
+    log(f"  built llama3-8b {quant}{' with int8 prefill companions' if i8p else ''} (32 "
+        f"layers, fused, stacked) in {time.time() - t0:.1f} s; decode reads "
+        f"{read / 1e9:.3f} GB of weights a step")
     return eng, read
+
+
+def i8p_phase(torch, dev, prompt, long_prompt, n_new):
+    """Phase 4e: phase 4's model (llama3-8b Q4_K, the same seed, fused,
+    stacked) built under LLAMAFILE_TPU_I8P=1: Engine.generate of n_new greedy
+    tokens from the 24-token prompt (bucket 32: qmm_txn, no companion read;
+    decode as phase 4), then the 1000-token prompt's TTFT, median of 3, with
+    one qmm_i8p launch a product of a layer's fused form (qkv, o, gate|up,
+    down). Launches exact; the companions' bytes and the peak device memory.
+    Returns the counted runs' counts."""
+    from llamafile_tpu_torch.models.llama import I8P_FIELDS
+    from llamafile_tpu_torch.ops.repack import I8PQTensor
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    eng, read = build_engine(torch, dev, "Q4_K", i8p=True)
+    n = eng.cfg.n_layers
+    leaves = [q for q in (getattr(eng.params.layers, f) for f in I8P_FIELDS)
+              if isinstance(q, I8PQTensor)]
+    comp = sum(t.numel() * t.element_size() for q in leaves for t in (q.qs8, q.s8))
+    base = sum(q.nbytes for q in leaves)
+    log(f"  companions on {len(leaves)} stacked leaves: {comp / 1e9:.3f} GB (their base "
+        f"weights {base / 1e9:.3f} GB); device memory held before building "
+        f"{held / 1e9:.2f} GB, peak while building "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, held after "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    steps = n_new - 1
+    _, counts, ttft, decode_s = counted_generate(torch, eng, prompt, n_new)
+    check_counts(counts, {"qmm_txn_m1": 1 + 65 * steps, "qmm_txn": 4 * n,
+                          "qmm_moe_m1": 64 * steps,
+                          "flash_decode_write_stacked": n * steps}, "phase 4e")
+    decode_report(torch, read, steps, ttft, decode_s, "24-token prompt, bucket 32")
+    ttfts = []
+    for _ in range(3):
+        _, counts_b, ttft_b, _ = counted_generate(torch, eng, long_prompt, 1)
+        check_counts(counts_b, {"qmm_i8p": 4 * n, "flash_prefill": n, "qmm_txn_m1": 1},
+                     "phase 4e, 1000 tokens")
+        ttfts.append(ttft_b * 1e3)
+    log(f"  time to first token, 1000-token prompt, int8 prefill: "
+        f"{statistics.median(ttfts):.2f} ms (median of {', '.join(f'{t:.2f}' for t in ttfts)} "
+        f"ms); peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    del eng, leaves
+    torch.cuda.empty_cache()
+    return [counts, counts_b]
 
 
 def main_path(torch, dev):
@@ -1404,6 +1667,9 @@ def main_path(torch, dev):
     del eng
     torch.cuda.empty_cache()
 
+    phase("phase 4e: phase 4's weights with the int8 prefill (LLAMAFILE_TPU_I8P=1)")
+    counts_e = i8p_phase(torch, dev, prompt, long_prompt, n_new)
+
     phase("phase 4c: main path, llama3-8b Q8_0, 32 layers, Engine.generate")
     eng, read = build_engine(torch, dev, "Q8_0")
     _, counts_c, ttft, decode_s = counted_generate(torch, eng, prompt, n_new)
@@ -1438,7 +1704,7 @@ def main_path(torch, dev):
     fused_profile(torch, eng, step_5)
     del eng
     torch.cuda.empty_cache()
-    return [counts, counts_b, counts_d, counts_c, counts_5] + counts_6 + counts_7
+    return [counts, counts_b, counts_d, counts_c, counts_5] + counts_e + counts_6 + counts_7
 
 
 MOE_SERVED = (0, 1, 2, 3, 4, 5, 6, 7)      # two requests a prompt length
@@ -2097,6 +2363,9 @@ def main() -> int:
             ("Q4_K, 32-token prompt", whole_path_check, (), dict(n_decode=4)),
             ("Q4_K, 300-token prompt", whole_path_check, ("Q4_K",),
              dict(n_prompt=300, n_decode=2)),
+            ("Q4_K, 300-token prompt, int8 prefill", whole_path_check, ("Q4_K",),
+             dict(n_prompt=300, n_decode=2, i8p=True)),
+            ("head_dim 64 (TinyLlama widths)", head_dim_64_check, (), {}),
             ("Q8_0", whole_path_check, ("Q8_0",), dict(n_prompt=24, n_decode=4)),
             ("paged decode, 4 rows", paged_path_check, (), {}),
             ("Q4_K_M", whole_path_check, ("Q4_K_M",), dict(n_prompt=300, n_decode=4)),

@@ -10,7 +10,9 @@ leaves as plain dicts of numpy arrays, so the port never sees a JAX object
                       "wqkv", "w_gate", "w_up", "w_gate_up", "w_down",
                       "gate_inp", "experts"}, ... ]
                    (a list of per-layer dicts, or one dict of stacked leaves)}
-  QT: {"kind", "shape", "g", "qs", "scales", "bias", "il"}
+  QT: {"kind", "shape", "g", "qs", "scales", "bias", "il"}, and an
+      I8PQTensor's "qs8" [(L,) K, Ns] int8 and "s8" [(L,) K/256, Ns] f32 (the
+      port keeps qs8 as [(L,) Ns, K]: transposed here)
   experts: {role or "role.e": QT} (expert stacks by role, or per expert)
 
 bf16 leaves (embedding, dense weights, scales, bias) arrive as float32
@@ -27,7 +29,7 @@ import torch
 
 from .device import resolve_device
 from .models.llama import CONFIG_FIELDS, LlamaConfig, LlamaLayer, LlamaParams
-from .ops.repack import QTensor
+from .ops.repack import I8PQTensor, QTensor
 
 # JAX LlamaConfig features this slice does not run, with their off values
 _UNPORTED = {
@@ -66,9 +68,12 @@ def _qt(d: Optional[dict], device) -> Optional[QTensor]:
         raise NotImplementedError(f"QTensor kind {d['kind']!r} is not ported yet")
     bf = torch.bfloat16
     qs = _t(d["qs"], device, codes[d["kind"]])
-    return QTensor(d["kind"], tuple(d["shape"]), int(d["g"]), qs,
-                   _t(d.get("scales"), device, bf), _t(d.get("bias"), device, bf),
-                   bool(d.get("il", False)))
+    base = (d["kind"], tuple(d["shape"]), int(d["g"]), qs, _t(d.get("scales"), device, bf),
+            _t(d.get("bias"), device, bf), bool(d.get("il", False)))
+    if d.get("qs8") is None:
+        return QTensor(*base)
+    qs8 = np.swapaxes(np.asarray(d["qs8"]), -1, -2)
+    return I8PQTensor(*base, _t(qs8, device).contiguous(), _t(d["s8"], device, torch.float32))
 
 
 def _layer(d: dict, device) -> LlamaLayer:

@@ -19,6 +19,10 @@ from 128 tokens and the einsum below) -> o -> RMSNorm folded into the FFN
 layers, gate|up + down products otherwise), or, in a MoE layer, an inline
 RMSNorm and moe_ffn.
 
+int8_prefill_params attaches the int8 prefill companions (the Engine does
+so under LLAMAFILE_TPU_I8P=1): every product of over 32 rows on a layer
+weight then runs the qmm_i8p kernel, stacked or unrolled.
+
 moe_ffn routes as the reference does, by the S = M * n_experts_used routed
 slots (moe_route names the branch):
   "fused"   S <= E, interleaved q4b gate|up and q4b down: qmm_moe_m1 once
@@ -40,7 +44,7 @@ same kernels. Nothing on the MoE path reads a device value on the host.
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass, fields
+from dataclasses import dataclass, fields, replace
 from typing import Optional
 
 import numpy as np
@@ -50,7 +54,7 @@ from ..ops.attention import flash_decode, flash_decode_write_stacked, flash_pref
 from ..ops.qmatmul import apply_rmsnorm as rmsnorm  # noqa: F401 (the reference's name)
 from ..ops.qmatmul import (moe_fusable, qmatmul, qmatmul_grouped, qmatmul_moe,
                            qmatmul_routed, split_gu)
-from ..ops.repack import QTensor, expert_slice
+from ..ops.repack import I8PQTensor, QTensor, attach_int8_prefill, expert_slice
 from ..runtime.kvcache import KVCache, init_kv, read_layer, update_layer
 
 
@@ -244,13 +248,15 @@ def _stack_leaf(vals):
         return None
     if isinstance(vals[0], QTensor):
         q0 = vals[0]
-        if any((v.kind, v.shape, v.g, v.il, v.bias is None)
-               != (q0.kind, q0.shape, q0.g, q0.il, q0.bias is None) for v in vals):
+        if any((type(v), v.kind, v.shape, v.g, v.il, v.bias is None)
+               != (type(q0), q0.kind, q0.shape, q0.g, q0.il, q0.bias is None) for v in vals):
             raise ValueError("layers differ in weight format")
         st = lambda a: None if a[0] is None else torch.stack(a)
-        return QTensor(q0.kind, q0.shape, q0.g, st([v.qs for v in vals]),
-                       st([v.scales for v in vals]), st([v.bias for v in vals]),
-                       q0.il)
+        base = (q0.kind, q0.shape, q0.g, st([v.qs for v in vals]),
+                st([v.scales for v in vals]), st([v.bias for v in vals]), q0.il)
+        if isinstance(q0, I8PQTensor):      # the int8 prefill companions too
+            return I8PQTensor(*base, st([v.qs8 for v in vals]), st([v.s8 for v in vals]))
+        return QTensor(*base)
     return torch.stack(vals)
 
 
@@ -272,6 +278,24 @@ def _stack_experts(ls) -> Optional[dict]:
         merged[role] = QTensor(st.kind, st.shape, st.g, flat(st.qs), flat(st.scales),
                                flat(st.bias), st.il)
     return merged
+
+
+I8P_FIELDS = ("wq", "wk", "wv", "wo", "wqkv", "w_gate_up", "w_gate", "w_up", "w_down")
+
+
+def int8_prefill_params(params: LlamaParams) -> LlamaParams:
+    """Attach int8-g256 prefill companions (ops.repack.attach_int8_prefill)
+    to every per-layer matmul weight (the reference's int8_prefill_params,
+    with its field list: not the lm head, not the experts). Prefill products
+    of M > 32 rows then take the qmm_i8p kernel; decode and every other path
+    are unchanged. Costs about one byte a weight of device memory (the base
+    leaves are shared, not copied). Layers that are stacked already pass
+    through."""
+    if not isinstance(params.layers, list):
+        return params
+    layers = [replace(layer, **{f: attach_int8_prefill(getattr(layer, f)) for f in I8P_FIELDS})
+              for layer in params.layers]
+    return replace(params, layers=layers)
 
 
 def stack_layers(params: LlamaParams) -> LlamaParams:

@@ -20,6 +20,9 @@ PRESETS = {
                  n_vocab=1024, max_context=2048),
     "tinyllama-1.1b": dict(n_layers=22, d_model=2048, n_heads=32, n_kv_heads=4,
                            d_ff=5632, n_vocab=32000, max_context=2048),
+    # TinyLlama's widths (head_dim 64) at two layers: card-vs-CPU checks
+    "tinyllama-1.1b-2l": dict(n_layers=2, d_model=2048, n_heads=32, n_kv_heads=4,
+                              d_ff=5632, n_vocab=32000, max_context=2048),
     "llama3-8b": dict(n_layers=32, d_model=4096, n_heads=32, n_kv_heads=8,
                       d_ff=14336, n_vocab=128256, rope_theta=500000.0,
                       max_context=8192),

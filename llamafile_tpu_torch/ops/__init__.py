@@ -9,5 +9,10 @@ def kernel_wrappers():
 
 
 def reset_launch_counts() -> None:
+    """Every kernel's launch count, and the decode routes' call counts
+    (attention.ROUTE_COUNTS), set to 0."""
+    from .attention import ROUTE_COUNTS
     for w in kernel_wrappers():
         w.launches = 0
+    for route in ROUTE_COUNTS:
+        ROUTE_COUNTS[route] = 0

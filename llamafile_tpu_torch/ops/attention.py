@@ -19,6 +19,13 @@ Counterpart of llamafile_tpu/ops/attention.py for what the port reaches:
       _flash_decode_qt_kernel (kernel flash_decode, csrc/flash_decode.cu):
       T = 1 GQA attention over one layer of a dense cache, bf16 or int8
       codes with f32 scales, read in place.
+
+Decode attention routes by shape as the reference does, on every device and
+before any launch (decode_route): a dense cache takes the f32 einsum for
+S % 256, D % 128 or Hq > 256, a paged pool the gather for D % 128 or a v
+width other than D; the kernel otherwise (its plain version for CPU
+tensors). ROUTE_COUNTS counts the einsum and gather calls, as `.launches`
+counts each kernel's.
 """
 from __future__ import annotations
 
@@ -38,6 +45,19 @@ def _use_flash(t: int, d: int) -> bool:
 
 
 FLASH_BLOCK = 256                   # the reference's block_q = block_k
+ROUTE_COUNTS = {"einsum": 0, "gather": 0}
+
+
+def decode_route(d: int, *, hq: int = 0, s_eff: int = 0, dv: Optional[int] = None,
+                 paged: bool = False) -> str:
+    """The route of a decode attention shape, the reference's choice:
+    "kernel", or its own non-kernel branch, "einsum" for a dense cache of
+    s_eff positions (llamafile_tpu/ops/attention.py:334-342: S % 256,
+    D % 128 or Hq > 256) and "gather" for a paged pool
+    (llamafile_tpu/runtime/paged.py:262-300: D % 128 or a v width dv != D)."""
+    if paged:
+        return "gather" if d % 128 or (dv is not None and dv != d) else "kernel"
+    return "einsum" if s_eff % 256 or d % 128 or hq > 256 else "kernel"
 _MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)   # upstream's
 
 
@@ -182,10 +202,18 @@ def flash_decode_write_stacked(q, k3, v3, k_new, v_new, li: int, pos,
     [li, b, pos[b]] (the JAX package donated and aliased these buffers);
     k_new/v_new [B, Hkv, D] roped new rows; li a Python int; pos int32 [B]
     on the cache's device. s_limit bounds the streamed positions (the
-    attn_len bucket). Returns attn [B, Hq, D] f32."""
+    attn_len bucket). Shapes of the einsum route (decode_route) write the
+    rows, then run flash_decode_stacked, as the reference does. Returns
+    attn [B, Hq, D] f32."""
     b, hq, d = q.shape
     n_l, _, s_len, _ = k3.shape
     s_eff = s_limit if s_limit is not None and s_limit < s_len else s_len
+    if decode_route(d, hq=hq, s_eff=s_eff) == "einsum":
+        rows = torch.arange(b, device=q.device)
+        k3[li, rows, pos.long()] = k_new.reshape(b, -1).float().to(k3.dtype)
+        v3[li, rows, pos.long()] = v_new.reshape(b, -1).float().to(v3.dtype)
+        return flash_decode_stacked(q, k3, v3, li, pos, scale, hkv, s_limit, win_l,
+                                    softcap)
     if q.device.type == "cpu":
         return flash_decode_write_plain(q, k3, v3, k_new, v_new, li, pos,
                                         scale, hkv, s_eff, win_l, softcap)
@@ -264,9 +292,10 @@ def flash_decode_stacked_plain(q, k3, v3, li: int, pos, scale: float, hkv: int,
 
 
 def _decode_einsum(q, k, v, pos, scale, window, softcap):
-    """The reference's decode fallback for shapes its kernel does not take
+    """The reference's decode route for shapes its kernel does not take
     (S % 256, D % 128, Hq > 256): the f32 einsum attention."""
     from ..models.llama import attention
+    ROUTE_COUNTS["einsum"] += 1
     return attention(q[:, None], k, v, pos, torch.arange(1, device=q.device),
                      scale, window=window or None, softcap=softcap)[:, 0]
 
@@ -340,7 +369,7 @@ def flash_decode(q, k, v, pos, scale: float, window: int = 0,
     tensors."""
     b, hq, d = q.shape
     s = k.shape[1]
-    if s % 256 or d % 128 or hq > 256:
+    if decode_route(d, hq=hq, s_eff=s) == "einsum":
         if k_scale is not None:
             k, v = k.float() * k_scale[..., None], v.float() * v_scale[..., None]
         return _decode_einsum(q, k, v, pos, scale, window, softcap)
@@ -367,7 +396,7 @@ def flash_decode_stacked(q, k3, v3, li: int, pos, scale: float, hkv: int,
     s_eff = s_limit if s_limit is not None and s_limit < s_len else s_len
     kc = k3[li, :, :s_eff].reshape(b, s_eff, hkv, d)
     vc = v3[li, :, :s_eff].reshape(b, s_eff, hkv, d)
-    if s_eff % 256 or d % 128 or hq > 256:
+    if decode_route(d, hq=hq, s_eff=s_eff) == "einsum":
         return _decode_einsum(q, kc, vc, pos, scale, win_l, softcap)
     if q.device.type == "cpu":
         return flash_decode_stacked_plain(q, k3, v3, li, pos, scale, hkv, s_eff,
@@ -376,11 +405,13 @@ def flash_decode_stacked(q, k3, v3, li: int, pos, scale: float, hkv: int,
                                 softcap)
 
 
-def paged_attention_plain(q, k_pages_l, v_pages_l, lengths, tables,
-                          k_scale_l=None, v_scale_l=None):
-    """Plain version of the paged_attention kernel, the gather + mask + f32
-    softmax of llamafile_tpu/runtime/paged.py:281-300: every table entry's
-    page is gathered, keys j >= lengths[r] are masked."""
+def paged_gather(q, k_pages_l, v_pages_l, lengths, tables, k_scale_l=None,
+                 v_scale_l=None):
+    """The reference's gather route of paged decode attention
+    (llamafile_tpu/runtime/paged.py:281-300), taken by shape (decode_route):
+    every table entry's page is gathered, keys j >= lengths[r] are masked,
+    f32 softmax. The paged_attention kernel computes the same function, so
+    this is also its plain version (paged_attention_plain)."""
     r, hq, d = q.shape
     hkv, _, ps, _ = k_pages_l.shape
     dv = v_pages_l.shape[-1]
@@ -403,6 +434,9 @@ def paged_attention_plain(q, k_pages_l, v_pages_l, lengths, tables,
     return out.reshape(r, hq, dv)
 
 
+paged_attention_plain = paged_gather
+
+
 def paged_attention(q, k_pages_l, v_pages_l, lengths, tables,
                     k_scale_l=None, v_scale_l=None):
     """Decode attention of one layer over a paged KV pool.
@@ -411,13 +445,18 @@ def paged_attention(q, k_pages_l, v_pages_l, lengths, tables,
     scale); k_pages_l/v_pages_l [Hkv, P, ps, D] bf16, or int8 with
     [Hkv, P, ps, 1] f32 scales; lengths int32 [R] (>= 1); tables int32
     [R, MAXP]. Layer li of a pool is `pool[li]`, a view: the kernel reads it
-    by pointer, nothing is copied. Returns [R, Hq, D] f32. CPU tensors take
-    the plain version; CUDA tensors launch the kernel (D = 128, Hq/Hkv in
-    1, 2, 4, 8) or raise."""
+    by pointer, nothing is copied. Returns [R, Hq, Dv] f32. Shapes of the
+    gather route (decode_route) take paged_gather on every device; otherwise
+    CPU tensors take the plain version, and CUDA tensors launch the kernel
+    (D = 128, Hq/Hkv in 1, 2, 4, 8) or raise."""
+    r, hq, d = q.shape
+    if decode_route(d, dv=v_pages_l.shape[-1], paged=True) == "gather":
+        ROUTE_COUNTS["gather"] += 1
+        return paged_gather(q, k_pages_l, v_pages_l, lengths, tables, k_scale_l,
+                            v_scale_l)
     if q.device.type == "cpu":
         return paged_attention_plain(q, k_pages_l, v_pages_l, lengths, tables,
                                      k_scale_l, v_scale_l)
-    r, hq, d = q.shape
     hkv, n_pages, ps, dk = k_pages_l.shape
     quant = k_scale_l is not None
     if d != 128 or dk != d or hq % hkv or hq // hkv not in (1, 2, 4, 8):

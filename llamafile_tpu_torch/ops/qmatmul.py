@@ -21,6 +21,9 @@ CUDA kernels for Hopper (csrc/):
                                            tiles of 8 or 32)
   qmm_planes_g <- _qmm_kernel_planes_g    (grouped q4b MoE GEMM, row tiles
                                            of 128, bias fused)
+  qmm_i8p      <- _qmm_kernel_i8p(_l)     (the int8 prefill, M > 32, on the
+                                           int8-g256 companion of an
+                                           I8PQTensor; f32 out)
 
 Each kernel has a wrapper and a plain PyTorch version beside it. The wrapper
 runs the plain version only for tensors that lie on the CPU (the tests); for
@@ -39,7 +42,10 @@ plane q, hi plane 16q - 128, the fold living in the stored scales and bias;
 q8b: int8 codes, one per-32 sx spanning two groups when g = 16).
 The dequant GEMM instead computes y = bf16(xn) @ bf16(code * scale) in f32,
 with the bias term groupsum_g(xn) @ bias added outside, as the reference;
-the grouped planes GEMM fuses that term in its f32 sum.
+the grouped planes GEMM fuses that term in its f32 sum. The int8 prefill
+computes, per 256-deep K block b in K order,
+    acc[m, n] = acc[m, n] + (float(sum_{k in b} xq[m,k] * w8[n,k]) * sxa[m,b]) * sw[b,n]
+with xq, sxa from i8p_prep and w8, sw the companion (the bias folded in).
 """
 from __future__ import annotations
 
@@ -49,7 +55,7 @@ import torch
 
 from . import _build
 from ._build import I, P
-from .repack import GU_STRIPE, QTensor, q4b_codes
+from .repack import GU_STRIPE, I8P_BLOCK, QTensor, q4b_codes
 
 # ---------------------------------------------------------------------------
 # Activation prep (plain torch: XLA code on the TPU, not a kernel there)
@@ -79,6 +85,20 @@ def quantize_activations_g32(x: torch.Tensor, nrm=None, eps: float = 0.0):
                       torch.zeros_like(amax))
     xq = torch.clamp(torch.round(xg * inv[:, :, None]), -127, 127).to(torch.int8)
     return xq.reshape(m, k), sx
+
+
+def i8p_prep(x: torch.Tensor):
+    """x float [M, K] (normed) -> (xq int8 [M, K], sxa f32 [M, K/256]): the
+    int8 prefill's activations (the reference's _i8p_prep, without its
+    padding of M to the TPU's row tile). The scale is max(amax, 1e-12)
+    times the f32 reciprocal of 127, a multiply (quantize_activations_g32
+    divides); the codes are clip(round(x / sxa), -127, 127), round half to
+    even, a true divide."""
+    m, k = x.shape
+    xg = x.float().reshape(m, k // I8P_BLOCK, I8P_BLOCK)
+    sxa = torch.clamp(xg.abs().amax(dim=2), min=1e-12) * (1.0 / 127.0)
+    xq = torch.clamp(torch.round(xg / sxa[:, :, None]), -127, 127).to(torch.int8)
+    return xq.reshape(m, k), sxa
 
 
 def apply_rmsnorm(x: torch.Tensor, nrm, eps: float) -> torch.Tensor:
@@ -200,6 +220,22 @@ def _planes_f32(x: torch.Tensor, qs: torch.Tensor, scales: torch.Tensor) -> torc
         part = (xe if y is None else xo) @ w.to(torch.bfloat16).float().reshape(k // 2, ns)
         y = part if y is None else y + part
     return y
+
+
+def qmm_i8p_plain(xq: torch.Tensor, sxa: torch.Tensor, w8: torch.Tensor,
+                  sw: torch.Tensor) -> torch.Tensor:
+    """Plain int8 prefill product (_qmm_kernel_i8p): f32 [M, Ns]. Each
+    256-block's dot runs as an f32 product of integer codes, exact in any
+    order (every partial sum is an integer of at most 256 * 127**2 < 2**24);
+    the blocks then accumulate serially in K order in f32, each scaled by
+    sxa, then sw, as the reference does."""
+    m, k = xq.shape
+    acc = torch.zeros((m, w8.shape[0]), dtype=torch.float32, device=xq.device)
+    for b in range(k // I8P_BLOCK):
+        blk = slice(b * I8P_BLOCK, (b + 1) * I8P_BLOCK)
+        p = xq[:, blk].float() @ w8[:, blk].float().t()
+        acc = acc + (p * sxa[:, b:b + 1]) * sw[b]
+    return acc
 
 
 def _expert(t: Optional[torch.Tensor], e: torch.Tensor) -> Optional[torch.Tensor]:
@@ -716,8 +752,36 @@ def qmm_planes_g(x, qs, scales, bias, te, tm: int = 128) -> torch.Tensor:
 
 qmm_planes_g.launches = 0
 
+def qmm_i8p(xq: torch.Tensor, sxa: torch.Tensor, w8: torch.Tensor,
+            sw: torch.Tensor) -> torch.Tensor:
+    """int8 prefill GEMM (kernel qmm_i8p, s8 tensor cores): xq int8 [M, K]
+    and sxa f32 [M, K/256] from i8p_prep, one layer's companion w8 int8
+    [Ns, K] and sw f32 [K/256, Ns] (a stacked caller passes layer li's
+    views: the kernel reads them by pointer) -> f32 [M, Ns]."""
+    if xq.device.type == "cpu":
+        return qmm_i8p_plain(xq, sxa, w8, sw)
+    _check_tensors(xq.device, (("xq", xq, torch.int8), ("sxa", sxa, torch.float32),
+                               ("w8", w8, torch.int8), ("sw", sw, torch.float32)))
+    m, k = xq.shape
+    ns = w8.shape[0]
+    if m < 1 or k % I8P_BLOCK or ns % 16 or tuple(w8.shape) != (ns, k) \
+            or tuple(sxa.shape) != (m, k // I8P_BLOCK) \
+            or tuple(sw.shape) != (k // I8P_BLOCK, ns):
+        raise ValueError(f"qmm_i8p shapes: xq {tuple(xq.shape)}, sxa {tuple(sxa.shape)}, "
+                         f"w8 {tuple(w8.shape)}, sw {tuple(sw.shape)} (w8 [Ns, K], "
+                         "K % 256 == 0, Ns % 16 == 0)")
+    y = torch.empty((m, ns), dtype=torch.float32, device=xq.device)
+    f = _build.fn("qmm_i8p", "qmm_i8p", [P] * 5 + [I] * 3 + [P])
+    _build.check(f(xq.data_ptr(), sxa.data_ptr(), w8.data_ptr(), sw.data_ptr(),
+                   y.data_ptr(), m, k, ns, _stream(xq.device)), "qmm_i8p")
+    qmm_i8p.launches += 1
+    return y
+
+
+qmm_i8p.launches = 0
+
 KERNELS = (qmm_txn_m1, qmm_txn, qmm_moe_m1, qmm_q8_m1, qmm_dequant, qmm_planes,
-           qmm_txn_m1_r, qmm_q8_m1_r, qmm_txn_g, qmm_planes_g)
+           qmm_txn_m1_r, qmm_q8_m1_r, qmm_txn_g, qmm_planes_g, qmm_i8p)
 
 
 # ---------------------------------------------------------------------------
@@ -742,10 +806,11 @@ def qmatmul(x: torch.Tensor, qt: QTensor, li=None, prenorm=None) -> torch.Tensor
 
     Branches, in the reference's order (llamafile_tpu/ops/qmatmul.py
     qmatmul): q8b M = 1 -> qmm_q8_m1; q4b M = 1 -> qmm_txn_m1; q4b
-    2 <= M <= 32 -> qmm_txn; unstacked q4b M > 32 -> qmm_planes; every
-    other q4b/q8b product -> qmm_dequant. The last two run on the normed x,
-    and the bias term on the f32 group sums of that x is added in the
-    product's dtype."""
+    2 <= M <= 32 -> qmm_txn; an I8PQTensor at M > 32 -> qmm_i8p on its
+    companion (f32 out, the bias folded in); unstacked q4b M > 32 ->
+    qmm_planes; every other q4b/q8b product -> qmm_dequant. The last three
+    run on the normed x; the last two add the bias term on the f32 group
+    sums of that x in the product's dtype."""
     if qt.kind == "dense":
         w = _layer(qt.qs, li)
         if prenorm is not None:
@@ -763,6 +828,9 @@ def qmatmul(x: torch.Tensor, qt: QTensor, li=None, prenorm=None) -> torch.Tensor
     elif qt.kind == "q4b" and m <= 32 and k % 256 == 0:
         xq, sx = quantize_activations_g32(x, nrm, eps)
         y = qmm_txn_m1(xq, sx, qs, sc, b) if m == 1 else qmm_txn(xq, sx, qs, sc, b)
+    elif getattr(qt, "qs8", None) is not None and m > 32 and k % I8P_BLOCK == 0:
+        xq, sxa = i8p_prep(x.float() if nrm is None else apply_rmsnorm(x, nrm, eps))
+        y = qmm_i8p(xq, sxa, _layer(qt.qs8, li), _layer(qt.s8, li))
     else:
         xn = x.float() if nrm is None else apply_rmsnorm(x, nrm, eps)
         if qt.kind == "q4b" and li is None and k % 256 == 0:

@@ -1,7 +1,8 @@
 """Repack GGUF block formats into the kernels' quantized tensors (QTensor).
 
 Counterpart of llamafile_tpu/ops/repack.py for the formats the port loads
-(Q4_K, Q5_K, Q8_0, Q6_K, F32, F16, BF16). The device layout is byte-identical to
+(Q4_K, Q5_K, Q8_0, Q6_K, F32, F16, BF16), and the int8 prefill companion
+(I8PQTensor, attach_int8_prefill). The device layout is byte-identical to
 the JAX package's `repack_numpy` + `repack` (held so by
 tests/test_torch_repack.py):
 
@@ -56,6 +57,57 @@ class QTensor:
         mv = lambda t: None if t is None else t.to(device)
         return QTensor(self.kind, self.shape, self.g, mv(self.qs),
                        mv(self.scales), mv(self.bias), self.il)
+
+
+@dataclass
+class I8PQTensor(QTensor):
+    """QTensor carrying an int8-g256 prefill companion (the reference's
+    I8PQTensor, llamafile_tpu/ops/repack.py:79-101): the base weights
+    dequantized once and requantized to symmetric int8 with one f32 scale
+    per 256-deep K block of each column. Prefill products of M > 32 rows run
+    the int8 tensor-core kernel on it (ops/qmatmul.qmm_i8p); decode keeps
+    reading the base leaves, which are shared, not copied.
+
+    qs8 is int8 [(L,) Ns, K], the transpose of the reference's [K, Ns]: K
+    contiguous, as both operands of the kernel's s8 mma.sync are. s8 is f32
+    [(L,) K/256, Ns], as the reference's."""
+    qs8: Optional[torch.Tensor] = None
+    s8: Optional[torch.Tensor] = None
+
+    def to(self, device) -> "I8PQTensor":
+        b = super().to(device)
+        return I8PQTensor(b.kind, b.shape, b.g, b.qs, b.scales, b.bias, b.il,
+                          self.qs8.to(device), self.s8.to(device))
+
+
+I8P_BLOCK = 256
+
+
+@torch.no_grad()
+def attach_int8_prefill(qt):
+    """An I8PQTensor with the int8-g256 companion built on qt's device by
+    torch ops, in the arithmetic of the reference's jitted build
+    (attach_int8_prefill): w = code * scale (+ bias), s = max(absmax of a
+    256-block, 1e-12) times the f32 reciprocal of 127 (jit's rewrite of
+    / 127.0), q8 = clip(round(w / s), -127, 127) with a true divide and
+    round half to even. qt itself for what the prefill kernel does not
+    take: dense, a kind other than q4b/q8b, K % 256, leaves already
+    stacked, a companion already attached."""
+    if (not isinstance(qt, QTensor) or isinstance(qt, I8PQTensor)
+            or qt.kind not in ("q4b", "q8b") or qt.shape[1] % I8P_BLOCK
+            or qt.qs.ndim != 2):
+        return qt
+    k, ns = qt.shape[1], qt.qs.shape[-1]
+    q = (q4b_codes(qt.qs) if qt.kind == "q4b" else qt.qs).float()      # [K, Ns]
+    w = (q.reshape(k // qt.g, qt.g, ns) * qt.scales.float()[:, None, :]).reshape(k, ns)
+    del q
+    if qt.bias is not None:
+        w = w + qt.bias.float().repeat_interleave(qt.g, dim=0)
+    wb = w.reshape(k // I8P_BLOCK, I8P_BLOCK, ns)
+    s = torch.clamp(wb.abs().amax(dim=1), min=1e-12) * (1.0 / 127.0)
+    q8 = torch.clamp(torch.round(wb / s[:, None, :]), -127, 127).to(torch.int8)
+    return I8PQTensor(qt.kind, qt.shape, qt.g, qt.qs, qt.scales, qt.bias, qt.il,
+                      q8.reshape(k, ns).t().contiguous(), s)
 
 
 # ---------------------------------------------------------------------------

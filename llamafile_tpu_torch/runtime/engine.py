@@ -11,6 +11,11 @@ multiples of 4096), up to max_seq_len tokens: buckets of 16 and 32 take the
 q4b txn kernel, longer ones the dequant GEMM and, from 128 tokens, the
 flash_prefill kernel.
 
+LLAMAFILE_TPU_I8P=1 (read when the Engine is built, off by default, as in
+the reference) attaches the int8 prefill companions before the layers are
+stacked (models.llama.int8_prefill_params): prompts and admission slices of
+over 32 tokens then run the int8 prefill kernel; decode never reads them.
+
 The KV cache follows kv_dtype: bf16, or int8 codes with per-row scales
 (runtime/kvcache.py). The continuous batcher (server/batcher.py) drives the
 engine through its serving hooks: `new_row_cache` and `row_prefill` for
@@ -19,13 +24,14 @@ keeps itself (bf16 or int8 pages by kv_dtype).
 """
 from __future__ import annotations
 
+import os
 from typing import Iterator, List, Optional, Tuple
 
 import torch
 
 from ..device import resolve_device
 from ..models.llama import (LlamaConfig, LlamaParams, forward, init_cache,
-                            stack_layers)
+                            int8_prefill_params, stack_layers)
 from .sampling import SamplingParams, check_ported, sample
 from .tokenizer import Tokenizer
 
@@ -65,6 +71,9 @@ class Engine:
             raise NotImplementedError("batched decode belongs to the serving "
                                       "slice; the engine runs batch_size=1")
         self.cfg = cfg
+        if os.environ.get("LLAMAFILE_TPU_I8P", "0") == "1":
+            # opt-in int8 prefill: companions on the unstacked layers
+            params = int8_prefill_params(params)
         # the layer loop indexes stacked weights by layer id (no slice
         # copy); layers of differing formats stay unrolled
         self.params = stack_layers(params)

@@ -31,6 +31,24 @@ def rand_q8b(gen: torch.Generator, layers: int, n: int, k: int, g: int, device):
     return qs, sc.to(torch.bfloat16), b.to(torch.bfloat16)
 
 
+def rand_i8p(gen: torch.Generator, layers: int, n: int, k: int, device):
+    """Stacked random int8 prefill companions: (w8 int8 [L, N, K], sw f32
+    [L, K/256, N]), the layout of ops.repack.I8PQTensor."""
+    w8 = torch.randint(-127, 128, (layers, n, k), generator=gen, device=device,
+                       dtype=torch.int8)
+    sw = torch.empty((layers, k // 256, n), device=device).uniform_(1e-4, 2e-4, generator=gen)
+    return w8, sw
+
+
+def i8p_fault(xq, sxa, w8, sw):
+    """A faulty int8 prefill, the control that qmm_i8p's tolerance must
+    reject: the weight scales of the first two 256-blocks swapped."""
+    from .ops.qmatmul import qmm_i8p_plain
+    order = torch.arange(sw.shape[0], device=sw.device)
+    order[:2] = torch.tensor([1, 0])
+    return qmm_i8p_plain(xq, sxa, w8, sw[order])
+
+
 def use_more_bits(i: int, n: int) -> bool:
     """llama.cpp's use_more_bits (its quantizer's llama_tensor_get_type):
     the layers of n that a Q4_K_M file stores attn_v and ffn_down of in

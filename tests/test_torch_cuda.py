@@ -30,16 +30,22 @@ f32 on both sides over the same page values: it is held row by row within
 masked key made visible, each row's last page dropped) must fail that.
 The MoE kernels (routed GEMVs, routed fused FFN, grouped products) keep
 the tolerances of their dense forms, and a control with two slots' or
-tiles' expert ids swapped must read above 0.1 of the largest output.
+tiles' expert ids swapped must read above 0.1 of the largest output. The
+int8 prefill GEMM (qmm_i8p) runs its plain version's roundings in the same
+order (exact int32 block dots, the f32 block updates in K order): it is held
+within 1e-6 of its largest magnitude, and a control with two blocks' weight
+scales swapped must fail that. A head_dim-64 llama runs Engine and the
+batcher on the reference's einsum and gather decode routes.
 """
 import pytest
 import torch
 
 from llamafile_tpu_torch.ops import attention as A
 from llamafile_tpu_torch.ops import qmatmul as Q
-from llamafile_tpu_torch.testing import (flash_prefill_tile_fault, paged_case,
-                                         paged_controls, planes_fault, rand_q4b,
-                                         rand_q8b, rel_err, row_rel_err)
+from llamafile_tpu_torch.testing import (flash_prefill_tile_fault, i8p_fault,
+                                         paged_case, paged_controls, planes_fault,
+                                         rand_i8p, rand_q4b, rand_q8b, rel_err,
+                                         row_rel_err)
 
 pytestmark = pytest.mark.cuda
 
@@ -256,6 +262,114 @@ def test_planes_matches_plain(dev, m, n, k):
     assert rel_err(planes_fault(x, qs[1], sc[1]), want) > tol
 
 
+@pytest.mark.parametrize("m", [33, 300, 1024])
+@pytest.mark.parametrize("n,k", [(6144, 4096), (4096, 4096), (28672, 4096), (4096, 14336),
+                                 (2560, 5632)])
+def test_i8p_matches_plain(dev, m, n, k):
+    """llama3-8b's qkv, o, gate|up and down, and TinyLlama's qkv at K 5632
+    (22 blocks, not a multiple of 2048), on layer 1 of a 3-layer stack (the
+    stacked form: views by pointer), at ragged and full row tiles."""
+    gen = torch.Generator(device=dev).manual_seed(m + n + k)
+    w8, sw = rand_i8p(gen, 3, n, k, dev)
+    xq, sxa = Q.i8p_prep(torch.randn(m, k, generator=gen, device=dev))
+    n0 = Q.qmm_i8p.launches
+    got = Q.qmm_i8p(xq, sxa, w8[1], sw[1])
+    assert Q.qmm_i8p.launches == n0 + 1
+    want = Q.qmm_i8p_plain(xq, sxa, w8[1], sw[1])
+    assert_close(got, want, 1e-6)
+    assert rel_err(i8p_fault(xq, sxa, w8[1], sw[1]), want) > 1e-6
+    assert torch.equal(got, Q.qmm_i8p(xq, sxa, w8[1], sw[1]))
+
+
+def test_i8p_qmatmul_stacked_and_unrolled(dev):
+    """qmatmul on an I8PQTensor built from Q4_K weights: a stacked leaf's
+    layer li and the same layer unstacked launch qmm_i8p and agree with the
+    CPU's plain path on the same inputs within 1e-6."""
+    from llamafile_tpu_torch.models.synthetic import _rand_qtensor
+    from llamafile_tpu_torch.ops.repack import attach_int8_prefill
+    from llamafile_tpu_torch.models.llama import _stack_leaf
+    gen = torch.Generator(device=dev).manual_seed(5)
+    qts = [attach_int8_prefill(_rand_qtensor(gen, 1500, 2304, "Q4_K", dev)) for _ in range(3)]
+    st = _stack_leaf(qts)
+    x = torch.randn(300, 2304, generator=gen, device=dev)
+    nrm = 1 + 0.1 * torch.randn(2304, generator=gen, device=dev)
+    n0 = Q.qmm_i8p.launches
+    got = Q.qmatmul(x, st, 1, prenorm=(nrm, 1e-5))
+    assert torch.equal(got, Q.qmatmul(x, qts[1], prenorm=(nrm, 1e-5)))
+    assert Q.qmm_i8p.launches == n0 + 2 and got.shape == (300, 1500)
+    want = Q.qmatmul(x.cpu(), qts[1].to("cpu"), prenorm=(nrm.cpu(), 1e-5))
+    assert_close(got.cpu(), want, 1e-6)
+
+
+def test_head_dim_64_engine_and_batcher(dev):
+    """A head_dim-64 llama (the tiny preset: 4 heads of 64, 2 KV heads) with
+    a max_seq_len that is not a multiple of 256, through Engine (bf16 cache)
+    and the batcher (paged pool, 3 rows) on the card: decode attention takes
+    the reference's einsum and gather routes with no decode kernel launch,
+    and the Engine's prefill and first decode logits agree with the CPU's."""
+    from llamafile_tpu_torch.models.llama import forward
+    from llamafile_tpu_torch.models.synthetic import make_synthetic_llama
+    from llamafile_tpu_torch.ops import reset_launch_counts
+    from llamafile_tpu_torch.runtime.engine import Engine
+    from llamafile_tpu_torch.runtime.sampling import SamplingParams
+    from llamafile_tpu_torch.runtime.tokenizer import Tokenizer
+    from llamafile_tpu_torch.server.batcher import Batcher
+    cfg, params = make_synthetic_llama("tiny", "Q4_K", seed=3, fuse=True, device=dev)
+    assert cfg.head_dim == 64
+    eng = Engine(cfg, params, Tokenizer({}), max_seq_len=300, device=dev)
+    prompt = list(range(5, 45))
+    sp = SamplingParams(temperature=0.0)
+    reset_launch_counts()
+    ids = [t for t, _ in eng.generate("", max_tokens=12, sampling=sp, stop_on_eog=False,
+                                      prompt_ids=prompt)]
+    assert len(ids) == 12 and all(0 <= t < cfg.n_vocab for t in ids)
+    assert A.ROUTE_COUNTS["einsum"] == 11 * cfg.n_layers
+    assert A.flash_decode_write_stacked.launches == A.flash_decode.launches == 0
+    logits = []
+    for d, p in (("cuda", eng.params), ("cpu", _cpu(eng.params))):
+        c = eng.new_cache() if d == "cuda" else _cpu_cache(eng)
+        toks = torch.tensor([prompt + [0] * 24], device=d)
+        lg0, _ = forward(p, cfg, toks, torch.zeros(1, dtype=torch.int32, device=d), c,
+                         fresh_prefill=True, last_idx=torch.tensor([len(prompt) - 1], device=d))
+        lg1, _ = forward(p, cfg, torch.tensor([[ids[0]]], device=d),
+                         torch.tensor([len(prompt)], dtype=torch.int32, device=d), c,
+                         attn_len=300)
+        logits.append([lg0.cpu(), lg1.cpu()])
+    for a, b in zip(*logits):
+        assert_close(a, b, 2e-2)
+    reset_launch_counts()
+    bt = Batcher(eng, rows=3)
+    try:
+        reqs = [bt.submit(prompt[:n], sp, 6) for n in (9, 20, 33)]
+        for r in reqs:
+            toks = []
+            while True:
+                kind, val = r.out.get(timeout=300)
+                assert kind != "error", val
+                if kind == "done":
+                    break
+                toks.append(val)
+            assert len(toks) == 6
+    finally:
+        bt.shutdown()
+    assert A.ROUTE_COUNTS["gather"] > 0 and A.paged_attention.launches == 0
+
+
+def _cpu(params):
+    import dataclasses
+    from llamafile_tpu_torch.models.llama import LlamaParams
+    layer = dataclasses.replace(params.layers, **{
+        f.name: getattr(params.layers, f.name).to("cpu")
+        for f in dataclasses.fields(params.layers) if getattr(params.layers, f.name) is not None})
+    return LlamaParams(params.tok_embd.cpu(), layer, params.out_norm.cpu(),
+                       params.output.to("cpu"))
+
+
+def _cpu_cache(eng):
+    from llamafile_tpu_torch.models.llama import init_cache
+    return init_cache(eng.cfg, 1, eng.max_seq_len, device="cpu")
+
+
 def decode_case(gen, dev, b, s, hq, hkv, int8):
     """q f32 [B, Hq, D]; a 3-layer cache (bf16 flat [L, B, S, Hkv*D], or
     int8 [L, B, S, Hkv, D] with f32 scales [L, B, S, Hkv])."""
@@ -352,9 +466,16 @@ def test_wrapper_rejects_bad_inputs(dev):
                       torch.zeros(256, 520, dtype=torch.int8, device=dev),
                       torch.zeros(8, 520, dtype=torch.bfloat16, device=dev))
     q, kp, vp, _, _, lens, tables = paged_case(
+        torch.Generator(device=dev), [5], 16, 1, 128, 64, 4, device=dev)
+    with pytest.raises(ValueError):                           # Hq/Hkv = 16
+        A.paged_attention(q, kp[0], vp[0], lens, tables)
+    q, kp, vp, _, _, lens, tables = paged_case(
         torch.Generator(device=dev), [5], 8, 8, 128, 64, 4, device=dev)
-    with pytest.raises(ValueError):                           # D = 64
-        A.paged_attention(q[..., :64].contiguous(), kp[0, ..., :64].contiguous(),
-                          vp[0, ..., :64].contiguous(), lens, tables)
     with pytest.raises(ValueError):                           # int64 tables
         A.paged_attention(q, kp[0], vp[0], lens, tables.long())
+    # D = 64 takes the reference's gather route, with no launch
+    n0, g0 = A.paged_attention.launches, A.ROUTE_COUNTS["gather"]
+    args = (q[..., :64].contiguous(), kp[0, ..., :64].contiguous(),
+            vp[0, ..., :64].contiguous(), lens, tables)
+    assert torch.equal(A.paged_attention(*args), A.paged_gather(*args))
+    assert A.paged_attention.launches == n0 and A.ROUTE_COUNTS["gather"] == g0 + 1

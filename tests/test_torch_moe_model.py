@@ -16,6 +16,10 @@ Two GGUFs:
   through the routed GEMVs and prefill through the dense expert loop, the
   Q4_K-down ones through the fused FFN and the grouped kernels.
 
+The Q4_K_M file's forward, Engine and CLI cases are in
+tests/test_torch_moe_q4km.py (a file of its own, so that the two halves run
+on two test workers).
+
 The JAX side runs its Pallas kernels in interpret mode, attention included
 (the monkeypatch of tests/test_flash_write.py); under that patch the JAX
 package believes it runs on a TPU, so its grouped tile size is set back to
@@ -202,11 +206,6 @@ def test_stacked_moe_forward_matches_jax(gguf_moe, n_prompt):
     _forward_both(gguf_moe, n_prompt, stacked=True)
 
 
-@pytest.mark.parametrize("n_prompt", [20, 200], ids=["bucket32", "bucket256"])
-def test_q4_k_m_moe_forward_matches_jax(gguf_q4km, n_prompt):
-    _forward_both(gguf_q4km, n_prompt, stacked=False, tol32=5e-2, tol_long=1e-1)
-
-
 def _jax_generate(path, prompt, n=16):
     def run():
         cfg, params, tok, _ = j_load_llama(path)
@@ -219,18 +218,22 @@ def _jax_generate(path, prompt, n=16):
 LONG = "the quick brown fox jumps over the lazy dog; " * 4
 
 
-@pytest.mark.parametrize("which,prompt", [("gguf_moe", "hello"), ("gguf_moe", LONG),
-                                          ("gguf_q4km", "hi there")],
-                         ids=["stacked-hello", "stacked-180-chars", "exps-q4_k_m"])
-def test_moe_engine_and_cli_match_jax(request, which, prompt):
-    path = request.getfixturevalue(which)
+def engine_and_cli_match_jax(path, prompt, unrolled):
     want = _jax_generate(path, prompt)
     eng = load_engine(path, device="cpu", max_seq_len=MAX_LEN)
-    assert isinstance(eng.params.layers, list) == (which == "gguf_q4km")
+    assert isinstance(eng.params.layers, list) == unrolled
     ids = [t for t, _ in eng.generate(prompt, max_tokens=16, sampling=TSP(temperature=0.0),
                                       stop_on_eog=False)]
     assert ids == [t for t, _ in want]
     assert _cli_text(path, prompt, 16) == _text_until_eos(want)
+
+
+@pytest.mark.parametrize("which,prompt", [("gguf_moe", "hello"), ("gguf_moe", LONG)],
+                         ids=["stacked-hello", "stacked-180-chars"])
+def test_moe_engine_and_cli_match_jax(request, which, prompt):
+    """The stacked file's cases; the Q4_K_M file's is in
+    tests/test_torch_moe_q4km.py."""
+    engine_and_cli_match_jax(request.getfixturevalue(which), prompt, unrolled=False)
 
 
 @pytest.mark.parametrize("rows", [2, 3], ids=["2rows_fused", "3rows_txn_g"])
