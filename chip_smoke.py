@@ -14,7 +14,12 @@
    slots, qmm_planes_g at 2048, each with a control whose expert ids are
    swapped; the int8 prefill GEMM qmm_i8p at the four products at M = 1024
    and gate|up at M = 300, on layers i > 0 of a stack, with a control whose
-   block scales are swapped, beside qmm_dequant at the same shape),
+   block scales are swapped, beside qmm_dequant at the same shape; the q4b
+   flavours' kernels: qmm_int8 at M = 8 on qkv, o, gate|up, down (layers
+   i > 0 of a stack) and the unstacked lm head, and gate|up and down at
+   M = 32, with a control whose lo and hi scale rows are swapped, beside
+   qmm_txn at the same shape; qmm_planes on layer 1 of a stack, gate|up at
+   M = 1024 and 8),
    held against its plain PyTorch version on the same inputs (the
    tolerances of the CPU and card tests) and timed on the device: a run of launches cycling over
    enough layers of weights to spill the 50 MB L2 (as decode does) is
@@ -41,13 +46,21 @@
    and the 3-row paged decode card against CPU; two
    layers at Mixtral-8x7B width (mixtral-8x7b-2l): Q4_K stacked (24- and
    300-token prompts: qmm_txn_g and qmm_planes_g; 4 decode steps on the
-   routed fused FFN), the Q4_K_M recipe unrolled (layer 1's Q6_K experts'
-   down: the routed GEMVs at decode, the dense expert loop at prefill), and
+   routed fused FFN), the Q4_K_M recipe unrolled (300-token prompt, 4
+   decode steps; layer 1's Q6_K experts' down: the routed GEMVs at decode,
+   the dense expert loop at prefill), and
    the paged decode at 4 rows (the fused FFN) and 8 rows (qmm_txn_g); the
    routers held on the card's own inputs and their choices compared row by
    row (a row routed otherwise on the two sides is reported, its logits not
    held), and one decode step's MoE FFN calls run under
-   torch.cuda.set_sync_debug_mode("error"). Each
+   torch.cuda.set_sync_debug_mode("error"); then under the q4b flavours
+   (LLAMAFILE_TPU_Q4B, qmatmul.Q4B_KERNEL set for both sides): Q4_K with
+   the 32-token prompt and 4 decode steps and the 300-token prompt and 2
+   under int8 (qmm_int8, and the stacked planes kernel at bucket 512) and
+   under planes, Q8_0 under int8 (24-token prompt, 4 steps, decode on the
+   dequant GEMM), the 4-row paged decode under int8 (4 steps), and Mixtral
+   Q4_K stacked under int8 (24-token prompt, 4 steps on _routed_fallback,
+   its calls counted). Each
    is traced op by op: for each step, the first product, quantization or
    attention call where card and CPU part, and the largest parting; every
    product is rerun through its plain version on the card's own inputs and
@@ -63,6 +76,12 @@
       token through the dequant GEMM and the flash prefill;
    4d. phase 4's weights with a dense int8 KV cache: 64 tokens, decode
       attention on flash_decode (32 launches a step);
+   4f. phase 4's engine under LLAMAFILE_TPU_Q4B=int8, then =planes: 64
+      tokens from the 24-token prompt (129 qmm_int8 or qmm_planes launches a
+      step: 4 a layer and the head; no fused FFN), the 1000-token prompt's
+      TTFT (the stacked planes kernel, 128 launches); under int8 also the
+      HTTP server at 4 slots, 4 greedy requests each against itself served
+      alone (a 4-row step padded to 8 on qmm_int8);
    4e. phase 4's model built under LLAMAFILE_TPU_I8P=1 (phase 4's engine
       dropped first): 64 tokens from the 24-token prompt (no companion
       read), then the 1000-token prompt's TTFT with 128 qmm_i8p launches
@@ -90,19 +109,21 @@
    requests (prompts of 24, 128, 500 and 1000 tokens, two each), each
    against itself served alone; launches exact, the decode rate against the
    routed weight-read bound (models.synthetic.decode_read_bytes).
-   Phases run in the order 4, 4b, 4d, 5, 4e, 4c, 6, 7. Then, after every timed
+   Phases run in the order 4, 4b, 4d, 5, 4f, 4e, 4c, 6, 7. Then, after every timed
    run (so that no profiler session of the process precedes a timing),
-   profiles: one 8-step decode chunk of each model (7a, 7b, and 4c and 4 on
-   rebuilt engines) under torch.profiler (the device's busy share of a step) and
+   profiles: one 8-step decode chunk of each model (7a, 7b, and 4c, 4 and
+   4f's int8 on rebuilt engines) under torch.profiler (the device's busy share of a step) and
    under cProfile (host time by function), one 1000-token prefill (device
    time by kernel), and one fused 8-row serving chunk (busy share).
 
 Any failure raises and exits non-zero. The last line of standard output is
 {"ok": true, "device": {...}}; the lines before it hold every kernel's
-launches summed over the counted runs of phases 4 to 7 ({"launches": ...}),
-the kernel table (one JSON object with an entry a kernel: the numbers of
-its first shape, the main path's heaviest, every measured shape under
-"shapes", and those launches) and the card's name and power limit.
+launches summed over the counted runs of phases 4 to 7 ({"launches": ...},
+with qmm_planes' launches on a stacked layer's view apart as
+"qmm_planes_stacked"), the kernel table (one JSON object with an entry a
+kernel: the numbers of its first shape, the main path's heaviest, every
+measured shape under "shapes", and those launches; qmm_planes' entry also
+"stacked_launches") and the card's name and power limit.
 """
 from __future__ import annotations
 
@@ -211,6 +232,24 @@ def check_close(name, got, want, rel):
         raise AssertionError(f"{name}: kernel and plain version disagree: "
                              f"{err} > {rel} x max |ref|")
     return err
+
+
+@contextlib.contextmanager
+def q4b_flavour(name):
+    """The port's q4b kernel flavour (qmatmul.Q4B_KERNEL, which
+    LLAMAFILE_TPU_Q4B sets at import) set to `name` inside the block."""
+    from llamafile_tpu_torch.ops import qmatmul as Q
+    old, Q.Q4B_KERNEL = Q.Q4B_KERNEL, name
+    try:
+        yield
+    finally:
+        Q.Q4B_KERNEL = old
+
+
+def flavour_note() -> str:
+    """The q4b flavour in force, for a label ("" for the default txn)."""
+    from llamafile_tpu_torch.ops import qmatmul as Q
+    return "" if Q.q4b_flavour() == "txn" else f", LLAMAFILE_TPU_Q4B={Q.Q4B_KERNEL}"
 
 
 def kernel_phases(torch, dev, gen):
@@ -347,21 +386,27 @@ def kernel_phases(torch, dev, gen):
 
     # --- qmm_planes: the unrolled (Q4_K_M) prefill GEMM, unstacked q4b ---
     # phase 6's 1000-token prompt runs all four at M = 1024 (bf16 out);
-    # M = 128 is a 128-token bucket (f32 out). The control swaps each
-    # superblock's lo and hi scale rows.
-    for m, label, n, k, layers in ((1024, "gate_up", 28672, 4096, 2),
-                                   (1024, "down", 4096, 14336, 3),
-                                   (1024, "qkv", 6144, 4096, 8),
-                                   (1024, "o", 4096, 4096, 12),
-                                   (128, "qkv", 6144, 4096, 8)):
+    # M = 128 is a 128-token bucket (f32 out). Then the stacked form (row
+    # 12) on layer 1 of a stack: gate|up at M = 1024 (the stacked prefill
+    # under the int8 and planes flavours) and M = 8 (the planes flavour's
+    # decode step). The control swaps each superblock's lo and hi scale rows.
+    for m, label, n, k, layers, li in ((1024, "gate_up", 28672, 4096, 2, 0),
+                                       (1024, "down", 4096, 14336, 3, 0),
+                                       (1024, "qkv", 6144, 4096, 8, 0),
+                                       (1024, "o", 4096, 4096, 12, 0),
+                                       (128, "qkv", 6144, 4096, 8, 0),
+                                       (1024, "gate_up", 28672, 4096, 2, 1),
+                                       (8, "gate_up", 28672, 4096, 2, 1)):
         qs, sc, _ = rand_q4b(gen, layers, n, k, dev)
         x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
-        got = Q.qmm_planes(x, qs[0], sc[0])
-        want = Q.qmm_planes_plain(x, qs[0], sc[0])
+        got = Q.qmm_planes(x, qs[li], sc[li])
+        want = Q.qmm_planes_plain(x, qs[li], sc[li])
         torch.cuda.synchronize()
         tol = PLANES_TOL if m < 256 else PLANES_BF16_TOL
-        err = check_close(f"qmm_planes/{label}/M={m} ({got.dtype})", got, want, tol)
-        ctl = rel_err(planes_fault(x, qs[0], sc[0]), want)
+        where = (f", layer {li} of {layers} (stacked: _qmm_kernel_planes_l, qmatmul.py:1631)"
+                 if li else "")
+        err = check_close(f"qmm_planes/{label}/M={m}{where} ({got.dtype})", got, want, tol)
+        ctl = rel_err(planes_fault(x, qs[li], sc[li]), want)
         log(f"  qmm_planes/{label}/M={m}: swapped-scale-rows control {ctl:.6g} (must exceed {tol})")
         if not ctl > tol:
             raise AssertionError(f"qmm_planes {label}: the faulty control passes")
@@ -372,7 +417,7 @@ def kernel_phases(torch, dev, gen):
         lib = time_ms(torch, lambda i: torch.matmul(x, w[i]), layers)
         del w
         entry("qmm_planes", "llamafile_tpu_torch/csrc/qmm_planes.cu",
-              "llamafile_tpu/ops/qmatmul.py:117", f"{label} M={m} N={n} K={k}",
+              "llamafile_tpu/ops/qmatmul.py:117", f"{label} M={m} N={n} K={k}{where}",
               err, ms, plain, lib,
               qs[0].numel() + sc[0].numel() * 2 + 2 * m * k + (2 if m >= 256 else 4) * m * n,
               2 * m * n * k, BF16_FLOP_PER_S)
@@ -634,6 +679,7 @@ def kernel_phases(torch, dev, gen):
         torch.cuda.empty_cache()
     i8p_kernel_phase(torch, dev, gen, entry)
     moe_kernel_phases(torch, dev, gen, entry, dequant_bf16)
+    int8_kernel_phase(torch, dev, gen, entry, dequant_bf16)
     return list(rows.values())
 
 
@@ -685,6 +731,60 @@ def i8p_kernel_phase(torch, dev, gen, entry):
               f"without the per-block scales; qmm_dequant {dq:.4f} ms)", err, ms, plain, lib,
               n * k + (k // 256) * n * 4 + m * k + m * (k // 256) * 4 + 4 * m * n,
               2 * m * n * k)
+
+
+def int8_kernel_phase(torch, dev, gen, entry, dequant_bf16):
+    """Phase 2 for the int8 flavour's q4b product: qmm_int8
+    (rows 13-14) at M = 8 (a decode step, padded as qmatmul pads it) on layer
+    i > 0 of a stack: gate|up, down, qkv, o, and the unstacked lm head; then
+    gate|up and down at M = 32 (a 24-token prompt's bucket). Each against
+    its plain version within 1e-5, with a control (each superblock's lo and
+    hi scale rows swapped) that must fail it, and timed beside its plain
+    version, qmm_txn's library yardstick (torch.matmul on the weight
+    dequantized to bf16 beforehand) and qmm_txn at the same shape; the
+    bound is qs + scales + the activation codes and scales + y (the kernel
+    reads no bias). Row 12, the planes kernel on a stacked layer, is
+    measured with qmm_planes in kernel_phases."""
+    from llamafile_tpu_torch.ops import qmatmul as Q
+    from llamafile_tpu_torch.testing import q4b_scale_swap, rand_q4b, rel_err
+    for m, label, n, k, layers in ((8, "gate_up", 28672, 4096, 2),
+                                   (8, "down", 4096, 14336, 3),
+                                   (8, "qkv", 6144, 4096, 8),
+                                   (8, "o", 4096, 4096, 12),
+                                   (8, "lm_head", 129024, 4096, 1),
+                                   (32, "gate_up", 28672, 4096, 2),
+                                   (32, "down", 4096, 14336, 3)):
+        qs, sc, b = rand_q4b(gen, layers, n, k, dev)
+        li = layers - 1
+        x = torch.randn((m, k), generator=gen, device=dev)
+        xq, sx = Q.quantize_activations_g32(x)
+        got = Q.qmm_int8(xq, sx, qs[li], sc[li])
+        want = Q.qmm_int8_plain(xq, sx, qs[li], sc[li])
+        torch.cuda.synchronize()
+        where = f"layer {li} of {layers}" if layers > 1 else "unstacked"
+        what = f"qmm_int8/{label}/M={m} ({where})"
+        err = check_close(what, got, want, 1e-5)
+        ctl = rel_err(q4b_scale_swap(xq, sx, qs[li], sc[li]), want)
+        log(f"  {what}: swapped-scale-rows control {ctl:.6g} (must exceed 1e-5)")
+        if not ctl > 1e-5:
+            raise AssertionError(f"qmm_int8 {label}: the faulty control passes")
+        del got, want
+        ms = time_ms(torch, lambda i: Q.qmm_int8(xq, sx, qs[i], sc[i]), layers)
+        plain = time_ms(torch, lambda i: Q.qmm_int8_plain(xq, sx, qs[i], sc[i]), layers)
+        txn = time_ms(torch, lambda i: Q.qmm_txn(xq, sx, qs[i], sc[i], b[i]), layers)
+        w = dequant_bf16(qs, sc, b)
+        xb = x.to(torch.bfloat16)
+        lib = time_ms(torch, lambda i: torch.matmul(xb, w[i]), layers)
+        del w
+        log(f"  {what}: qmm_txn at the same shape {txn:.4f} ms ({txn / ms:.2f}x the int8 "
+            "kernel's time)")
+        entry("qmm_int8", "llamafile_tpu_torch/csrc/qmm_int8.cu",
+              "llamafile_tpu/ops/qmatmul.py:224",
+              f"{label} M={m} N={n} K={k}, {where} (qmm_txn {txn:.4f} ms)", err, ms, plain,
+              lib, qs[0].numel() + sc[0].numel() * 2 + m * (k + k // 8) + 4 * m * n,
+              2 * m * n * k)
+        del qs, sc, b
+        torch.cuda.empty_cache()
 
 
 MOE_E, MOE_D, MOE_DFF = 8, 4096, 14336      # Mixtral-8x7B: top-2 of 8 experts
@@ -916,8 +1016,8 @@ def trace_report(steps_card, steps_cpu):
     input (its activation codes and scales too, where the product made
     them) and the CPU's copy of the weights. Returns (lines, {route: the
     largest parting of a product from its plain version on the same
-    inputs}) for the int8-activation GEMVs and qmm_txn ("int8"), the
-    dequant GEMM ("dequant"), the two-plane GEMM of unstacked q4b weights
+    inputs}) for the int8-activation GEMVs, qmm_txn and qmm_int8 ("int8"),
+    the dequant GEMM and _routed_fallback ("dequant"), the two-plane GEMM
     ("planes"), the fused FFN ("ffn") and the int8 prefill ("i8p", held on
     the card's own int8 codes and scales: an activation code can flip
     between the two sides' RMSNorms): a fault in a product kernel shows
@@ -958,15 +1058,17 @@ def trace_report(steps_card, steps_cpu):
                     if isinstance(h, torch.Tensor)) and (codes is None or all(
                         torch.equal(c, h) for c, h in zip(codes, cpu[j - 1][2])))
                 qt, m = ib["args"][0], ia["x"].shape[0]
-                route = ("ffn" if "fused ffn" in lab
-                         else "int8" if lab.startswith("routed")
-                         or (lab.startswith("grouped") and kw["tm"] <= 32)
-                         else "planes_g" if lab.startswith("grouped")
-                         else None if qt.kind == "dense"
-                         else "int8" if m == 1 or (qt.kind == "q4b" and m <= 32)
-                         else None if getattr(qt, "qs8", None) is not None   # qmm_i8p's
-                         else "planes" if qt.kind == "q4b" and qt.qs.ndim == 2
-                         else "dequant")
+                if "fused ffn" in lab:
+                    route = "ffn"
+                elif lab.startswith("routed"):     # the routed GEMVs, or _routed_fallback
+                    route = ("int8" if qt.kind == "q8b" or (qt.kind == "q4b" and
+                                                            Q.q4b_flavour() == "txn")
+                             else "dequant")
+                elif lab.startswith("grouped"):
+                    route = "int8" if kw["tm"] <= 32 else "planes_g"
+                else:                              # qmatmul's kernel under the flavour
+                    li = ib["args"][1] if len(ib["args"]) > 1 else ib["kw"].get("li")
+                    route = PRODUCT_CHECK.get(Q.product_route(qt, m, ia["x"].shape[1], li))
                 if route:
                     same[route] = max(same[route], rel_err(a, b if same_in else with_codes(
                         Q, codes, lambda: fn(ia["x"], *args, **kw))))
@@ -988,6 +1090,13 @@ def trace_report(steps_card, steps_cpu):
                      f"quantizations ({flips} codes); first parting (codes, or > 1e-4): "
                      f"{first}; largest {worst[0]:.3g} at {worst[1]}")
     return lines, same
+
+
+# the limit (SAME_INPUT_TOL) that holds each kernel of qmatmul on the same
+# inputs; qmm_i8p is held on its own codes (same["i8p"]), a dense product
+# has no kernel
+PRODUCT_CHECK = {"qmm_q8_m1": "int8", "qmm_txn_m1": "int8", "qmm_txn": "int8",
+                 "qmm_int8": "int8", "qmm_planes": "planes", "qmm_dequant": "dequant"}
 
 
 def with_codes(Q, codes, run):
@@ -1075,7 +1184,7 @@ def whole_path_check(torch, dev, quant="Q4_K", n_prompt=32, n_decode=8,
                                            device=dev)
     gpu = stack_layers(int8_prefill_params(params) if i8p else params)
     what = (f"{quant}{'' if kv_dtype == 'bf16' else ' ' + kv_dtype + ' KV'}"
-            + (" int8 prefill" if i8p else ""))
+            + (" int8 prefill" if i8p else "") + flavour_note())
     cpu = _to(gpu, "cpu")
     bucket = bucket_len(n_prompt)
     toks = torch.zeros((1, bucket), dtype=torch.int64)
@@ -1214,10 +1323,17 @@ def moe_path_check(torch, dev, quant="Q4_K", runs=((24, 4), (300, 0))):
         cfg, params = make_synthetic_llama("mixtral-8x7b-2l", quant, seed=1, fuse=True,
                                            device=dev)
     gpu = stack_layers(params)
-    what = f"Mixtral {quant} ({'stacked' if not isinstance(gpu.layers, list) else 'unrolled'})"
+    what = (f"Mixtral {quant} ({'stacked' if not isinstance(gpu.layers, list) else 'unrolled'}"
+            f"{flavour_note()})")
     cpu = _to(gpu, "cpu")
+    from llamafile_tpu_torch.ops import qmatmul as Q
+    # the decode steps' routed products (gate|up, down a layer, both sides)
+    # leave the routed GEMVs for _routed_fallback where the q4b experts are
+    # outside the txn flavour
+    fallback = quant == "Q4_K" and Q.q4b_flavour() != "txn"
     total_swaps = 0
     for n_prompt, n_decode in runs:
+        Q.ROUTE_COUNTS["routed_fallback"] = 0
         bucket = bucket_len(n_prompt)
         toks = torch.zeros((1, bucket), dtype=torch.int64)
         toks[0, :n_prompt] = torch.randint(3, cfg.n_vocab, (n_prompt,),
@@ -1243,6 +1359,11 @@ def moe_path_check(torch, dev, quant="Q4_K", runs=((24, 4), (300, 0))):
             for d, p in (("cuda", gpu), ("cpu", cpu)):
                 run(d, p, torch.tensor([[nxt]]), n_prompt + step, attn_len=max_len)
             nxt = int(logits["cuda"][-1].argmax())
+        want_fb = 2 * 2 * cfg.n_layers * n_decode if fallback else 0
+        log(f"  {what}: {Q.ROUTE_COUNTS['routed_fallback']} _routed_fallback calls over both "
+            f"sides' decode steps (expected {want_fb})")
+        if Q.ROUTE_COUNTS["routed_fallback"] != want_fb:
+            raise AssertionError(f"{what}: the routed products took another route")
         lines, same = trace_report(rec["cuda"], rec["cpu"])
         for line in lines:
             log(f"  {what} trace {line}")
@@ -1327,7 +1448,7 @@ def paged_path_check(torch, dev, prompts=(24, 64, 200, 300), n_decode=4,
     gpu = stack_layers(params)
     cpu = _to(gpu, "cpu")
     r, ps, max_len = len(prompts), 64, 512
-    what = f"paged {preset} {r} rows"
+    what = f"paged {preset} {r} rows{flavour_note()}"
     maxp = max_len // ps
     n_pages = 1 + r * maxp
     alloc = PageAllocator(n_pages, ps, r, max_len)
@@ -1516,7 +1637,7 @@ def counted_generate(torch, eng, prompt, n_new):
     launches of each kernel at these shapes, allocator; not counted), with
     every launch count set to 0 just before and read just after. Returns
     (tokens, counts, time to first token s, decode s after the first)."""
-    from llamafile_tpu_torch.ops import kernel_wrappers, reset_launch_counts
+    from llamafile_tpu_torch.ops import reset_launch_counts
     from llamafile_tpu_torch.runtime.sampling import SamplingParams
     sp = SamplingParams(temperature=0.0)
     list(eng.generate("", max_tokens=min(n_new, 9), sampling=sp, stop_on_eog=False,
@@ -1533,10 +1654,19 @@ def counted_generate(torch, eng, prompt, n_new):
         toks.append(tid)
     torch.cuda.synchronize()
     t_end = time.perf_counter()
-    counts = {w.__name__: w.launches for w in kernel_wrappers()}
+    counts = launch_counts()
     if len(toks) != n_new or any(t < 0 or t >= eng.cfg.n_vocab for t in toks):
         raise AssertionError(f"generate produced {toks}")
     return toks, counts, t_first - t0, t_end - t_first
+
+
+def launch_counts():
+    """Every kernel wrapper's launch count by name, and qmm_planes' launches
+    on a stacked layer's view (row 12) apart as "qmm_planes_stacked"."""
+    from llamafile_tpu_torch.ops import kernel_wrappers
+    from llamafile_tpu_torch.ops.qmatmul import qmm_planes
+    return {**{w.__name__: w.launches for w in kernel_wrappers()},
+            "qmm_planes_stacked": qmm_planes.stacked_launches}
 
 
 def check_counts(counts, expect, what):
@@ -1664,6 +1794,8 @@ def main_path(torch, dev):
     del eng8
     phase("phase 5: serving, the port's HTTP server over the same engine, 8 slots")
     counts_5, step_5 = serving_phase(torch, eng, read)
+    phase("phase 4f: the same engine under the q4b flavours int8 and planes")
+    counts_f, step_int8 = flavour_phase(torch, eng, read, prompt, long_prompt, n_new)
     del eng
     torch.cuda.empty_cache()
 
@@ -1687,7 +1819,7 @@ def main_path(torch, dev):
     moe_engines, moe_steps, counts_7, moe_prompt = moe_phase(torch, dev, n_new)
 
     phase("profiles of phase 7's Mixtral decodes, of phase 4c's Q8_0 decode on a rebuilt "
-        "engine, then of phase 4 and 4b on a rebuilt Q4_K engine")
+        "engine, then of phase 4, 4f's int8 decode and 4b on a rebuilt Q4_K engine")
     for what, eng7, step7 in zip(("7a Q4_K stacked", "7b Q4_K_M unrolled"), moe_engines,
                                  moe_steps):
         log(f"  phase {what}:")
@@ -1700,11 +1832,15 @@ def main_path(torch, dev):
     torch.cuda.empty_cache()
     eng, _ = build_engine(torch, dev, "Q4_K")
     device_busy(torch, eng, prompt, sp, step_q4)
+    log("  phase 4f, LLAMAFILE_TPU_Q4B=int8:")
+    with q4b_flavour("int8"):
+        device_busy(torch, eng, prompt, sp, step_int8)
     prefill_profile(torch, eng, long_prompt)
     fused_profile(torch, eng, step_5)
     del eng
     torch.cuda.empty_cache()
-    return [counts, counts_b, counts_d, counts_c, counts_5] + counts_e + counts_6 + counts_7
+    return ([counts, counts_b, counts_d, counts_c, counts_5] + counts_f + counts_e + counts_6
+            + counts_7)
 
 
 MOE_SERVED = (0, 1, 2, 3, 4, 5, 6, 7)      # two requests a prompt length
@@ -1807,7 +1943,7 @@ def moe_serving(torch, eng):
     each request served again alone by a fresh batcher gives the same ids."""
     from concurrent.futures import ThreadPoolExecutor
     from llamafile_tpu_torch.models.llama import grouped_tm
-    from llamafile_tpu_torch.ops import kernel_wrappers, reset_launch_counts
+    from llamafile_tpu_torch.ops import reset_launch_counts
     from llamafile_tpu_torch.server.batcher import Batcher
     from llamafile_tpu_torch.server.http import Server
     from llamafile_tpu_torch.utils.flags import Flags
@@ -1829,7 +1965,7 @@ def moe_serving(torch, eng):
             results = dict(zip(MOE_SERVED, ex.map(
                 lambda i: _serve_request(base, MOE_REQ[i], prompts[i], False), MOE_SERVED)))
         wall = time.perf_counter() - t0
-        counts = {w.__name__: w.launches for w in kernel_wrappers()}
+        counts = launch_counts()
         st1 = srv.batcher.stats
         errors = [(i, r[3]) for i, r in results.items() if r[3]]
         if errors:
@@ -1993,7 +2129,7 @@ def serving_phase(torch, eng, read):
     client threads. Returns (the launch counts of the counted run, the fused
     8-row step's time in ms)."""
     from concurrent.futures import ThreadPoolExecutor
-    from llamafile_tpu_torch.ops import kernel_wrappers, reset_launch_counts
+    from llamafile_tpu_torch.ops import reset_launch_counts
     from llamafile_tpu_torch.server.batcher import Batcher
     from llamafile_tpu_torch.server.http import Server
     from llamafile_tpu_torch.utils.flags import Flags
@@ -2014,7 +2150,7 @@ def serving_phase(torch, eng, read):
             results = list(ex.map(lambda i: _serve_request(base, i, prompts[i],
                                                            i in SERVE_CHAT), range(16)))
         wall = time.perf_counter() - t0
-        counts = {w.__name__: w.launches for w in kernel_wrappers()}
+        counts = launch_counts()
         st1 = srv.batcher.stats
         errors = [(i, e) for i, (_, _, _, e) in enumerate(results) if e]
         if errors:
@@ -2081,15 +2217,10 @@ def q4km_phase(torch, dev, prompt, long_prompt, n_new):
     1000-token prompt's TTFT) and the HTTP server at 4 slots (4 greedy
     requests, each against the same request served alone). Launch counts
     exact, from the recipe's layer list. Returns the counted runs' counts."""
-    from concurrent.futures import ThreadPoolExecutor
     from llamafile_tpu_torch.models.synthetic import decode_read_bytes
-    from llamafile_tpu_torch.ops import kernel_wrappers, reset_launch_counts
     from llamafile_tpu_torch.runtime.engine import Engine
     from llamafile_tpu_torch.runtime.tokenizer import Tokenizer
-    from llamafile_tpu_torch.server.batcher import Batcher
-    from llamafile_tpu_torch.server.http import Server
     from llamafile_tpu_torch.testing import make_q4_k_m_llama, use_more_bits
-    from llamafile_tpu_torch.utils.flags import Flags
     t0 = time.time()
     cfg, params = make_q4_k_m_llama("llama3-8b", seed=0, device=dev)
     eng = Engine(cfg, params, Tokenizer({}), max_seq_len=2048, device=dev)
@@ -2123,15 +2254,43 @@ def q4km_phase(torch, dev, prompt, long_prompt, n_new):
         f"(median of {', '.join(f'{t:.2f}' for t in ttfts)} ms)")
 
     log("  the HTTP server on this engine, 4 slots, 4 greedy requests")
-    srv = Server(Flags(model="synthetic-llama3-8b-q4_k_m", slots=4, temp=0.0), eng)
+    # a 4-row step: q4b products on qmm_txn, Q6_K ones and the head on
+    # the dequant GEMM; a slice: qmm_txn (bucket <= 32) or qmm_planes
+    # (>= 64) and the dequant GEMM, the head at M = 1 on the q8b GEMV
+    counts_s = serve_four(torch, eng, "synthetic-llama3-8b-q4_k_m", "phase 6",
+                          lambda d, small, big, fr: {
+        "paged_attention": n * d,
+        "qmm_txn": 4 * n * (d + small),
+        "qmm_dequant": (2 * n6 + 1) * d + 2 * n6 * (small + big),
+        "qmm_planes": 4 * n * big,
+        "flash_prefill": n * sum(c for b, c in fr.items() if b >= 128),
+        "qmm_q8_m1": small + big})
+    del eng
+    torch.cuda.empty_cache()
+    return [counts, counts_b, counts_s]
+
+
+def serve_four(torch, eng, model, what, expect):
+    """The port's HTTP server over eng at 4 slots: 4 greedy requests (the
+    prompts of SERVE_LENGTHS, as phase 5's requests Q4KM_SERVED: 2 streamed)
+    from 4 client threads, launch counts exact (expect(decode steps, small
+    slices, big slices, fresh slices by bucket) from the batcher's tallies),
+    then each request alone on a fresh 4-row batcher, which must give the
+    same ids. Returns the counted run's launch counts."""
+    from concurrent.futures import ThreadPoolExecutor
+    from llamafile_tpu_torch.ops import reset_launch_counts
+    from llamafile_tpu_torch.server.batcher import Batcher
+    from llamafile_tpu_torch.server.http import Server
+    from llamafile_tpu_torch.utils.flags import Flags
+    n_vocab = eng.cfg.n_vocab
+    srv = Server(Flags(model=model, slots=4, temp=0.0), eng)
     gen = torch.Generator().manual_seed(8)
-    prompts = {i: torch.randint(3, cfg.n_vocab, (SERVE_LENGTHS[k],), generator=gen).tolist()
+    prompts = {i: torch.randint(3, n_vocab, (SERVE_LENGTHS[k],), generator=gen).tolist()
                for k, i in enumerate(Q4KM_SERVED)}
     with running_server(srv) as base:
         # warm-up (not counted), a prompt that shares no prefix with the
         # requests: a reused prefix would admit request 0 by another path
-        _serve_request(base, 0, torch.randint(3, cfg.n_vocab, (40,), generator=gen).tolist(),
-                       False)
+        _serve_request(base, 0, torch.randint(3, n_vocab, (40,), generator=gen).tolist(), False)
         torch.cuda.synchronize()
         st0 = copy.deepcopy(srv.batcher.stats)
         reset_launch_counts()
@@ -2140,11 +2299,11 @@ def q4km_phase(torch, dev, prompt, long_prompt, n_new):
             results = dict(zip(Q4KM_SERVED, ex.map(
                 lambda i: _serve_request(base, i, prompts[i], False), Q4KM_SERVED)))
         wall = time.perf_counter() - t0
-        counts_s = {w.__name__: w.launches for w in kernel_wrappers()}
+        counts = launch_counts()
         st1 = srv.batcher.stats
         errors = [(i, r[3]) for i, r in results.items() if r[3]]
         if errors:
-            raise AssertionError(f"phase 6 requests failed: {errors}")
+            raise AssertionError(f"{what} requests failed: {errors}")
         n_out = sum(r[1]["completion_tokens"] for r in results.values())
         log(f"  4 requests (prompts {SERVE_LENGTHS}), {n_out} tokens out in {wall:.3f} s: "
             f"{n_out / wall:.2f} output tok/s")
@@ -2156,16 +2315,7 @@ def q4km_phase(torch, dev, prompt, long_prompt, n_new):
         big = sum(c for b, c in allb.items() if b >= 64)
         log(f"  batcher tallies: {dsteps} fused decode steps at 4 rows, admission slices "
             f"by bucket {allb} (fresh {fr})")
-        # a 4-row step: q4b products on qmm_txn, Q6_K ones and the head on
-        # the dequant GEMM; a slice: qmm_txn (bucket <= 32) or qmm_planes
-        # (>= 64) and the dequant GEMM, the head at M = 1 on the q8b GEMV
-        check_counts(counts_s, {
-            "paged_attention": n * dsteps,
-            "qmm_txn": 4 * n * (dsteps + small),
-            "qmm_dequant": (2 * n6 + 1) * dsteps + 2 * n6 * (small + big),
-            "qmm_planes": 4 * n * big,
-            "flash_prefill": n * sum(c for b, c in fr.items() if b >= 128),
-            "qmm_q8_m1": small + big}, "phase 6 serving")
+        check_counts(counts, expect(dsteps, small, big, fr), f"{what} serving")
     alone = Batcher(eng, rows=4)
     try:
         for i in Q4KM_SERVED:
@@ -2174,13 +2324,65 @@ def q4km_phase(torch, dev, prompt, long_prompt, n_new):
             log(f"  request {i} (prompt {len(prompts[i])}): alone {len(toks)} tokens, "
                 f"{'the same ids' if same else 'DIFFERENT ids'} as served beside the others")
             if not same:
-                raise AssertionError(f"phase 6 request {i}: {toks} alone, "
+                raise AssertionError(f"{what} request {i}: {toks} alone, "
                                      f"{results[i][0]} served")
     finally:
         alone.shutdown()
-    del srv, alone, eng
+    del srv, alone
     torch.cuda.empty_cache()
-    return [counts, counts_b, counts_s]
+    return counts
+
+
+def flavour_phase(torch, eng, read, prompt, long_prompt, n_new):
+    """Phase 4f: phase 4's llama3-8b Q4_K engine (stacked; its weights do not
+    depend on the flavour) under LLAMAFILE_TPU_Q4B=int8, then =planes
+    (qmatmul.Q4B_KERNEL set, txn restored after). Each: Engine.generate of
+    n_new greedy tokens from the 24-token prompt (int8: every q4b product
+    on qmm_int8, 4 a layer and the head, at the bucket-32 prefill and each
+    decode step padded to M = 8, the FFN unfused; planes: the same products
+    on qmm_planes), then the 1000-token prompt's TTFT, median of 3 (the
+    stacked planes kernel, row 12, for the four products of each layer; the
+    head at M = 1 on the flavour's decode kernel). Under int8 also the HTTP
+    server at 4 slots (serve_four: a 4-row step padded to 8 on qmm_int8).
+    Launch counts exact. Returns (the counted runs' counts, the int8 decode
+    step in ms)."""
+    n = eng.cfg.n_layers
+    steps = n_new - 1
+    runs, step_ms = [], {}
+    for fl, kern in (("int8", "qmm_int8"), ("planes", "qmm_planes")):
+        with q4b_flavour(fl):
+            _, counts, ttft, decode_s = counted_generate(torch, eng, prompt, n_new)
+            want = {kern: (4 * n + 1) * (1 + steps), "flash_decode_write_stacked": n * steps}
+            if fl == "planes":
+                # all but the unstacked head on a stacked layer's view
+                want["qmm_planes_stacked"] = 4 * n * (1 + steps)
+            check_counts(counts, want, f"phase 4f {fl}")
+            step_ms[fl] = decode_report(torch, read, steps, ttft, decode_s,
+                                        f"24-token prompt, bucket 32, LLAMAFILE_TPU_Q4B={fl}")
+            ttfts = []
+            for _ in range(3):
+                _, counts_b, ttft_b, _ = counted_generate(torch, eng, long_prompt, 1)
+                want = {"qmm_planes": 4 * n, "qmm_planes_stacked": 4 * n, "flash_prefill": n}
+                want[kern] = want.get(kern, 0) + 1
+                check_counts(counts_b, want, f"phase 4f {fl}, 1000 tokens")
+                ttfts.append(ttft_b * 1e3)
+            log(f"  time to first token, 1000-token prompt, LLAMAFILE_TPU_Q4B={fl}: "
+                f"{statistics.median(ttfts):.2f} ms (median of "
+                f"{', '.join(f'{t:.2f}' for t in ttfts)} ms)")
+            runs += [counts, counts_b]
+            if fl == "int8":
+                log("  the HTTP server on this engine under int8, 4 slots, 4 greedy requests")
+                # a 4-row step padded to 8 and a slice's head at M = 1 on
+                # qmm_int8; a slice's products on qmm_int8 (bucket <= 32) or
+                # the stacked planes kernel (>= 64)
+                expect = lambda d, small, big, fr: {
+                    "paged_attention": n * d,
+                    "qmm_int8": (4 * n + 1) * d + 4 * n * small + small + big,
+                    "qmm_planes": 4 * n * big, "qmm_planes_stacked": 4 * n * big,
+                    "flash_prefill": n * sum(c for b, c in fr.items() if b >= 128)}
+                runs.append(serve_four(torch, eng, "synthetic-llama3-8b-q4k", "phase 4f int8",
+                                       expect))
+    return runs, step_ms["int8"]
 
 
 FUSED_LENGTHS = (88, 192, 564, 1064) * 2      # the phase's prompts + 64 tokens
@@ -2359,27 +2561,44 @@ def main() -> int:
     rows = kernel_phases(torch, dev, gen)
     phase("phase 3: whole paths, llama3-8b width, 2 layers: card vs CPU plain")
     mix = dict(preset="mixtral-8x7b-2l", n_decode=2)
-    for what, check, args, kw in (
-            ("Q4_K, 32-token prompt", whole_path_check, (), dict(n_decode=4)),
+    for what, check, args, kw, fl in (
+            ("Q4_K, 32-token prompt", whole_path_check, (), dict(n_decode=4), "txn"),
             ("Q4_K, 300-token prompt", whole_path_check, ("Q4_K",),
-             dict(n_prompt=300, n_decode=2)),
+             dict(n_prompt=300, n_decode=2), "txn"),
             ("Q4_K, 300-token prompt, int8 prefill", whole_path_check, ("Q4_K",),
-             dict(n_prompt=300, n_decode=2, i8p=True)),
-            ("head_dim 64 (TinyLlama widths)", head_dim_64_check, (), {}),
-            ("Q8_0", whole_path_check, ("Q8_0",), dict(n_prompt=24, n_decode=4)),
-            ("paged decode, 4 rows", paged_path_check, (), {}),
-            ("Q4_K_M", whole_path_check, ("Q4_K_M",), dict(n_prompt=300, n_decode=4)),
+             dict(n_prompt=300, n_decode=2, i8p=True), "txn"),
+            ("head_dim 64 (TinyLlama widths)", head_dim_64_check, (), {}, "txn"),
+            ("Q8_0", whole_path_check, ("Q8_0",), dict(n_prompt=24, n_decode=4), "txn"),
+            ("paged decode, 4 rows", paged_path_check, (), {}, "txn"),
+            ("Q4_K_M", whole_path_check, ("Q4_K_M",), dict(n_prompt=300, n_decode=4), "txn"),
             ("int8 KV", whole_path_check, ("Q4_K",),
-             dict(n_prompt=32, n_decode=4, kv_dtype="int8")),
-            ("Mixtral Q4_K stacked", moe_path_check, ("Q4_K",), {}),
+             dict(n_prompt=32, n_decode=4, kv_dtype="int8"), "txn"),
+            ("Mixtral Q4_K stacked", moe_path_check, ("Q4_K",), {}, "txn"),
             ("Mixtral Q4_K_M unrolled", moe_path_check, ("Q4_K_M",),
-             dict(runs=((300, 4),))),
+             dict(runs=((300, 4),)), "txn"),
             ("Mixtral paged decode, 4 rows", paged_path_check, (),
-             dict(prompts=(24, 64, 200, 300), **mix)),
+             dict(prompts=(24, 64, 200, 300), **mix), "txn"),
             ("Mixtral paged decode, 8 rows", paged_path_check, (),
-             dict(prompts=(24, 64, 200, 300) * 2, **mix))):
-        check(torch, dev, *args, **kw)
-        phase(f"  phase 3 {what}: done")
+             dict(prompts=(24, 64, 200, 300) * 2, **mix), "txn"),
+            # the q4b flavours (LLAMAFILE_TPU_Q4B): int8 runs qmm_int8 at
+            # padded M <= 32 and the stacked planes kernel above (bf16 out
+            # at bucket 512), planes the planes kernel for every q4b
+            # product; Q8_0 decode leaves qmm_q8_m1 for the dequant GEMM;
+            # the paged decode's 4 rows pad to 8 on qmm_int8; Mixtral's
+            # decode takes _routed_fallback
+            ("Q4_K, 32-token prompt", whole_path_check, (), dict(n_decode=4), "int8"),
+            ("Q4_K, 300-token prompt", whole_path_check, ("Q4_K",),
+             dict(n_prompt=300, n_decode=2), "int8"),
+            ("Q4_K, 32-token prompt", whole_path_check, (), dict(n_decode=4), "planes"),
+            ("Q4_K, 300-token prompt", whole_path_check, ("Q4_K",),
+             dict(n_prompt=300, n_decode=2), "planes"),
+            ("Q8_0", whole_path_check, ("Q8_0",), dict(n_prompt=24, n_decode=4), "int8"),
+            ("paged decode, 4 rows", paged_path_check, (), {}, "int8"),
+            ("Mixtral Q4_K stacked", moe_path_check, ("Q4_K",), dict(runs=((24, 4),)),
+             "int8")):
+        with q4b_flavour(fl):
+            check(torch, dev, *args, **kw)
+        phase(f"  phase 3 {what}{'' if fl == 'txn' else ', LLAMAFILE_TPU_Q4B=' + fl}: done")
     phase("phase 4: main path, llama3-8b Q4_K, 32 layers, Engine.generate")
     runs = main_path(torch, dev)
     launched = {name: sum(c[name] for c in runs) for name in runs[0]}
@@ -2388,6 +2607,11 @@ def main() -> int:
         r["launches"] = launched[key]
         if r["launches"] == 0:
             raise AssertionError(f"{r['name']} was launched by no main-path run")
+        if r["name"] == "qmm_planes":
+            # row 12's share: the launches on a stacked layer's view
+            r["stacked_launches"] = launched["qmm_planes_stacked"]
+            if r["stacked_launches"] == 0:
+                raise AssertionError("qmm_planes ran on no stacked layer in the main paths")
     from llamafile_tpu_torch.ops import kernel_wrappers
     if len(rows) != len(kernel_wrappers()):
         raise AssertionError(f"{len(rows)} kernels measured, {len(kernel_wrappers())} wrapped")

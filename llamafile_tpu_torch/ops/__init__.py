@@ -9,10 +9,15 @@ def kernel_wrappers():
 
 
 def reset_launch_counts() -> None:
-    """Every kernel's launch count, and the decode routes' call counts
-    (attention.ROUTE_COUNTS), set to 0."""
-    from .attention import ROUTE_COUNTS
+    """Every kernel's launch count (qmm_planes' stacked share too), and the
+    call counts of the routes that are not kernels (attention.ROUTE_COUNTS,
+    qmatmul.ROUTE_COUNTS), set to 0."""
+    from .attention import ROUTE_COUNTS as attn_routes
+    from .qmatmul import ROUTE_COUNTS as qmm_routes
+    from .qmatmul import qmm_planes
     for w in kernel_wrappers():
         w.launches = 0
-    for route in ROUTE_COUNTS:
-        ROUTE_COUNTS[route] = 0
+    qmm_planes.stacked_launches = 0
+    for counts in (attn_routes, qmm_routes):
+        for route in counts:
+            counts[route] = 0

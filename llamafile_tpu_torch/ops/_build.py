@@ -33,7 +33,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 SOURCES = ("qmm_txn_m1", "qmm_txn", "qmm_moe_m1", "flash_decode_write",
            "qmm_q8_m1", "qmm_dequant", "flash_prefill", "paged_attention",
            "qmm_planes", "flash_decode", "qmm_routed", "qmm_txn_g",
-           "qmm_planes_g", "qmm_i8p")
+           "qmm_planes_g", "qmm_i8p", "qmm_int8")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

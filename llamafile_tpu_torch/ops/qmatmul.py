@@ -1,4 +1,4 @@
-"""Quantized matmuls of the port: dispatch, activation prep, ten kernels.
+"""Quantized matmuls of the port: dispatch, activation prep, twelve kernels.
 
 Counterpart of llamafile_tpu/ops/qmatmul.py for what the stacked and the
 unrolled llama paths and the routed MoE FFN reach. The TPU kernels become
@@ -24,6 +24,22 @@ CUDA kernels for Hopper (csrc/):
   qmm_i8p      <- _qmm_kernel_i8p(_l)     (the int8 prefill, M > 32, on the
                                            int8-g256 companion of an
                                            I8PQTensor; f32 out)
+  qmm_int8     <- _qmm_kernel_int8(_l)    (q4b padded M <= 32 under the
+                                           int8 flavour; bias outside)
+
+qmm_planes also replaces _qmm_kernel_planes_l: a stacked caller passes
+layer li's views, which the kernel reads by pointer.
+
+The q4b kernel flavour (LLAMAFILE_TPU_Q4B, read into Q4B_KERNEL at import
+as the reference reads it) picks among these for q4b weights: "txn" (the
+default) takes the txn kernels and the fused FFN; "int8" takes qmm_int8 for
+padded M <= 32 and qmm_planes above; "planes" takes qmm_planes for every
+q4b product; "concat" takes qmm_dequant for every q4b and q8b product.
+Outside "txn" the RMSNorm is applied before the product, the bias term is
+added outside every kernel, M = 1 pads to 8 rows as M > 1 does, the dense
+M = 1 FFN is not fused and routed q4b experts take _routed_fallback.
+Dispatch reads the module global at every call (product_route), so a test
+may set Q4B_KERNEL; nothing else binds it.
 
 Each kernel has a wrapper and a plain PyTorch version beside it. The wrapper
 runs the plain version only for tensors that lie on the CPU (the tests); for
@@ -49,6 +65,7 @@ with xq, sxa from i8p_prep and w8, sw the companion (the bias folded in).
 """
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import torch
@@ -56,6 +73,25 @@ import torch
 from . import _build
 from ._build import I, P
 from .repack import GU_STRIPE, I8P_BLOCK, QTensor, q4b_codes
+
+Q4B_KERNEL = os.environ.get("LLAMAFILE_TPU_Q4B", "txn")
+Q4B_FLAVOURS = ("txn", "int8", "planes", "concat")
+# calls of the routes that are not kernels, counted as `.launches` counts
+# the kernels (reset with them by ops.reset_launch_counts)
+ROUTE_COUNTS = {"routed_fallback": 0}
+
+
+def q4b_flavour() -> str:
+    """The q4b kernel flavour in force: Q4B_KERNEL, checked."""
+    f = Q4B_KERNEL
+    if f == "uplanes":
+        raise NotImplementedError(
+            "LLAMAFILE_TPU_Q4B=uplanes is not ported: the reference's unsigned-hi "
+            "planes kernel reads the hi nibble as 16q against scales folded for "
+            "16q - 128, so its products are wrong (ROADMAP C.5)")
+    if f not in Q4B_FLAVOURS:
+        raise ValueError(f"LLAMAFILE_TPU_Q4B={f!r}: expected one of {Q4B_FLAVOURS}")
+    return f
 
 # ---------------------------------------------------------------------------
 # Activation prep (plain torch: XLA code on the TPU, not a kernel there)
@@ -145,6 +181,13 @@ def q4b_plain(xq: torch.Tensor, sx: torch.Tensor, qs: torch.Tensor,
 
 qmm_txn_m1_plain = q4b_plain     # the M = 1 kernel computes the same function
 qmm_txn_plain = q4b_plain
+
+
+def qmm_int8_plain(xq: torch.Tensor, sx: torch.Tensor, qs: torch.Tensor,
+                   scales: torch.Tensor) -> torch.Tensor:
+    """Plain int8-flavour q4b product (_qmm_kernel_int8): q4b_plain with no
+    bias term (the caller adds it outside); f32 [M, Ns]."""
+    return q4b_plain(xq, sx, qs, scales, None)
 
 
 def qmm_q8_m1_plain(xq: torch.Tensor, sx: torch.Tensor, qs: torch.Tensor,
@@ -589,12 +632,14 @@ def qmm_dequant(x: torch.Tensor, qs: torch.Tensor, scales: torch.Tensor
 qmm_dequant.launches = 0
 
 
-def qmm_planes(x: torch.Tensor, qs: torch.Tensor, scales: torch.Tensor
-               ) -> torch.Tensor:
+def qmm_planes(x: torch.Tensor, qs: torch.Tensor, scales: torch.Tensor,
+               stacked: bool = False) -> torch.Tensor:
     """q4b two-plane GEMM (kernel qmm_planes): x float [M, K] (rounded to
-    bf16 here), one unstacked q4b weight (qs uint8 [K/2, Ns], bf16 scales
-    [K/32, Ns]) -> f32 [M, Ns], or bf16 when planes_bf16_out(M), rounded in
-    the kernel. The bias term stays with the caller (qmatmul)."""
+    bf16 here), one q4b weight (qs uint8 [K/2, Ns], bf16 scales [K/32, Ns])
+    -> f32 [M, Ns], or bf16 when planes_bf16_out(M), rounded in the kernel.
+    The bias term stays with the caller (qmatmul). stacked: qs and scales
+    are layer li's views of a stack (_qmm_call_planes_stacked); such
+    launches are also counted in stacked_launches."""
     if x.device.type == "cpu":
         return qmm_planes_plain(x, qs, scales)
     xb = x.to(torch.bfloat16).contiguous()
@@ -614,10 +659,12 @@ def qmm_planes(x: torch.Tensor, qs: torch.Tensor, scales: torch.Tensor
     _build.check(f(xb.data_ptr(), qs.data_ptr(), scales.data_ptr(), y.data_ptr(),
                    m, k, ns, int(bf), _stream(x.device)), "qmm_planes")
     qmm_planes.launches += 1
+    qmm_planes.stacked_launches += stacked
     return y
 
 
 qmm_planes.launches = 0
+qmm_planes.stacked_launches = 0
 
 
 def _routed_launch(name, xq, sx, qs, scales, bias, ei, ti, g=None):
@@ -780,8 +827,38 @@ def qmm_i8p(xq: torch.Tensor, sxa: torch.Tensor, w8: torch.Tensor,
 
 qmm_i8p.launches = 0
 
+
+def qmm_int8(xq: torch.Tensor, sx: torch.Tensor, qs: torch.Tensor,
+             scales: torch.Tensor) -> torch.Tensor:
+    """q4b product for 1 <= M <= 32 rows under the int8 flavour (kernel
+    qmm_int8, s8 tensor cores): xq int8 [M, K] and sx f32 [M, K/32] from
+    quantize_activations_g32 of the normed x, one layer's qs uint8 [K/2,
+    Ns] and bf16 scales [K/32, Ns] (a stacked caller passes layer li's
+    views) -> f32 [M, Ns]. No bias: the caller adds that term outside."""
+    if xq.device.type == "cpu":
+        return qmm_int8_plain(xq, sx, qs, scales)
+    _check_q4b(xq, sx, qs, scales, None, 4)
+    m, k = xq.shape
+    if not 1 <= m <= 32:
+        raise ValueError(f"qmm_int8 takes 1..32 rows, got {m}")
+    ns = qs.shape[-1]
+    tiles = -(-ns // 32)
+    s = _n_split(xq.device, tiles, k // 64, k // 64 // 8)
+    y = torch.empty((m, ns), dtype=torch.float32, device=xq.device)
+    partial = torch.empty((s, m, ns), dtype=torch.float32, device=xq.device)
+    f = _build.fn("qmm_int8", "qmm_int8", [P] * 7 + [I] * 4 + [P])
+    _build.check(f(xq.data_ptr(), sx.data_ptr(), qs.data_ptr(), scales.data_ptr(),
+                   y.data_ptr(), partial.data_ptr(),
+                   _counter_buf(xq.device, tiles).data_ptr(), m, k, ns, s,
+                   _stream(xq.device)), "qmm_int8")
+    qmm_int8.launches += 1
+    return y
+
+
+qmm_int8.launches = 0
+
 KERNELS = (qmm_txn_m1, qmm_txn, qmm_moe_m1, qmm_q8_m1, qmm_dequant, qmm_planes,
-           qmm_txn_m1_r, qmm_q8_m1_r, qmm_txn_g, qmm_planes_g, qmm_i8p)
+           qmm_txn_m1_r, qmm_q8_m1_r, qmm_txn_g, qmm_planes_g, qmm_i8p, qmm_int8)
 
 
 # ---------------------------------------------------------------------------
@@ -795,53 +872,93 @@ def _layer(t: Optional[torch.Tensor], li):
     return t if (t is None or li is None) else t[li]
 
 
+def _pad_rows(x: torch.Tensor, multiple: int) -> torch.Tensor:
+    """x with zero rows appended up to a multiple of `multiple` rows."""
+    pad = -x.shape[0] % multiple
+    return x if pad == 0 else torch.cat([x, x.new_zeros((pad, x.shape[1]))])
+
+
+def product_route(qt: QTensor, m: int, k: int, li=None, fl=None) -> str:
+    """The kernel that qmatmul runs for x [m, k] against qt (li: stacked
+    layer id or None), by the reference's branches under flavour fl (None:
+    the flavour in force): "qmm_q8_m1", "qmm_txn_m1", "qmm_txn", "qmm_i8p",
+    "qmm_int8", "qmm_planes", "qmm_dequant", or "dense" (no kernel)."""
+    if qt.kind == "dense":
+        return "dense"
+    if qt.kind not in ("q4b", "q8b"):
+        raise NotImplementedError(f"QTensor kind {qt.kind!r}")
+    if fl is None:
+        fl = q4b_flavour()
+    txn = fl == "txn"
+    if qt.kind == "q8b" and txn and m == 1 and qt.g in (16, 32) and k % (8 * qt.g) == 0:
+        return "qmm_q8_m1"
+    if qt.kind == "q4b" and txn and m <= 32 and k % 256 == 0:
+        return "qmm_txn_m1" if m == 1 else "qmm_txn"
+    if getattr(qt, "qs8", None) is not None and m > 32 and k % I8P_BLOCK == 0:
+        return "qmm_i8p"
+    if qt.kind == "q4b" and k % 256 == 0:
+        if fl == "int8" and -(-m // 8) * 8 <= 32:
+            return "qmm_int8"
+        if fl in ("int8", "planes") or (txn and li is None):
+            return "qmm_planes"
+    return "qmm_dequant"
+
+
 def qmatmul(x: torch.Tensor, qt: QTensor, li=None, prenorm=None) -> torch.Tensor:
     """y[M, N] = x[M, K] @ W.T for a GGML weight W[N, K] stored K-major.
 
     x float [M, K]; returns f32 [M, N], or bf16 where the reference's is
-    (an unstacked q4b product at M >= 256). With li (a Python int), qt
-    holds layer-stacked leaves and layer li is used in place. prenorm=(w,
-    eps) applies RMSNorm(x)*w first; on the int8-activation paths it folds
-    into the activation quantization (exact, see quantize_activations_g32).
+    (a q4b product on the planes kernel at a padded M >= 256). With li (a
+    Python int), qt holds layer-stacked leaves and layer li is used in
+    place. prenorm=(w, eps) applies RMSNorm(x)*w first; on the txn
+    flavour's int8-activation paths it folds into the activation
+    quantization (exact, see quantize_activations_g32).
 
-    Branches, in the reference's order (llamafile_tpu/ops/qmatmul.py
-    qmatmul): q8b M = 1 -> qmm_q8_m1; q4b M = 1 -> qmm_txn_m1; q4b
-    2 <= M <= 32 -> qmm_txn; an I8PQTensor at M > 32 -> qmm_i8p on its
-    companion (f32 out, the bias folded in); unstacked q4b M > 32 ->
-    qmm_planes; every other q4b/q8b product -> qmm_dequant. The last three
-    run on the normed x; the last two add the bias term on the f32 group
-    sums of that x in the product's dtype."""
+    The kernel is product_route's, the reference's branch order
+    (llamafile_tpu/ops/qmatmul.py qmatmul). Under "txn": q8b M = 1 ->
+    qmm_q8_m1; q4b M = 1 -> qmm_txn_m1; q4b 2 <= M <= 32 -> qmm_txn. Under
+    every flavour, an I8PQTensor at M > 32 -> qmm_i8p on its companion (f32
+    out, the bias folded in). The rest runs on the normed x, its rows padded
+    to a multiple of 8 outside "txn": q4b under "int8" at padded M <= 32 ->
+    qmm_int8; q4b under "int8" or "planes", or unstacked under "txn" ->
+    qmm_planes; everything else -> qmm_dequant. These add the bias term
+    on the f32 group sums of that x in the product's dtype."""
     if qt.kind == "dense":
         w = _layer(qt.qs, li)
         if prenorm is not None:
             x = apply_rmsnorm(x, *prenorm)
         # f32 product of bf16-rounded operands (jnp.dot with f32 accumulation)
         return x.to(torch.bfloat16).float() @ w.float()
-    if qt.kind not in ("q4b", "q8b"):
-        raise NotImplementedError(f"QTensor kind {qt.kind!r}")
     m, k = x.shape
-    nrm, eps = (None, 0.0) if prenorm is None else (prenorm[0], float(prenorm[1]))
+    fl = q4b_flavour()
+    route = product_route(qt, m, k, li, fl)
+    nrm, eps = _norm_args(prenorm)
     qs, sc, b = _layer(qt.qs, li), _layer(qt.scales, li), _layer(qt.bias, li)
-    if qt.kind == "q8b" and m == 1 and qt.g in (16, 32) and k % (8 * qt.g) == 0:
-        xq, sx = quantize_activations_g32(x, nrm, eps)
-        y = qmm_q8_m1(xq, sx, qs, sc, b)
-    elif qt.kind == "q4b" and m <= 32 and k % 256 == 0:
-        xq, sx = quantize_activations_g32(x, nrm, eps)
-        y = qmm_txn_m1(xq, sx, qs, sc, b) if m == 1 else qmm_txn(xq, sx, qs, sc, b)
-    elif getattr(qt, "qs8", None) is not None and m > 32 and k % I8P_BLOCK == 0:
+    if route == "qmm_txn_m1":
+        y = qmm_txn_m1(*quantize_activations_g32(x, nrm, eps), qs, sc, b)
+    elif route == "qmm_txn":
+        y = qmm_txn(*quantize_activations_g32(x, nrm, eps), qs, sc, b)
+    elif route == "qmm_q8_m1":
+        y = qmm_q8_m1(*quantize_activations_g32(x, nrm, eps), qs, sc, b)
+    elif route == "qmm_i8p":
         xq, sxa = i8p_prep(x.float() if nrm is None else apply_rmsnorm(x, nrm, eps))
         y = qmm_i8p(xq, sxa, _layer(qt.qs8, li), _layer(qt.s8, li))
     else:
         xn = x.float() if nrm is None else apply_rmsnorm(x, nrm, eps)
-        if qt.kind == "q4b" and li is None and k % 256 == 0:
-            y = qmm_planes(xn, qs, sc)
+        if fl != "txn":
+            xn = _pad_rows(xn, 8)
+        if route == "qmm_int8":
+            y = qmm_int8(*quantize_activations_g32(xn), qs, sc)
+        elif route == "qmm_planes":
+            y = qmm_planes(xn, qs, sc, stacked=li is not None)
         else:
             y = qmm_dequant(xn, qs, sc)
         if b is not None:
             # outside the kernel, as the reference: f32 sums of the
             # un-rounded normed x against the bias rows, in y's dtype
-            bias = xn.reshape(m, k // qt.g, qt.g).sum(-1) @ b.float()
+            bias = xn.reshape(xn.shape[0], k // qt.g, qt.g).sum(-1) @ b.float()
             y = y + bias.to(y.dtype)
+        y = y[:m]
     n = qt.shape[0]
     return y[:, :n] if y.shape[1] > n else y
 
@@ -854,10 +971,11 @@ def qmatmul_fallback(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
 
 
 def moe_fusable(gu_qt, dn_qt, k: int, dff: int) -> bool:
-    """Shape/kind gate for the fused FFN kernel (stacked q4b, il layout)."""
+    """Shape/kind gate for the fused FFN kernel (stacked q4b, il layout,
+    the txn flavour)."""
     if gu_qt is None or dn_qt is None:
         return False
-    if gu_qt.kind != "q4b" or dn_qt.kind != "q4b":
+    if gu_qt.kind != "q4b" or dn_qt.kind != "q4b" or q4b_flavour() != "txn":
         return False
     if gu_qt.qs.ndim != 3 or dn_qt.qs.ndim != 3:
         return False
@@ -908,9 +1026,11 @@ def qmatmul_moe(x: torch.Tensor, gu_qt: QTensor, dn_qt: QTensor,
 def _routed_fallback(x: torch.Tensor, qt: QTensor, ei: torch.Tensor,
                      ti: torch.Tensor) -> torch.Tensor:
     """Reference routed product for experts the kernels do not take (dense
-    kind, odd shapes): each slot's expert gathered and dequantized, then
-    qmatmul_fallback's bf16 product. f32 [S, N]."""
+    kind, odd shapes, q4b outside the txn flavour): each slot's expert
+    gathered and dequantized, then qmatmul_fallback's bf16 product. f32
+    [S, N]. Counted in ROUTE_COUNTS["routed_fallback"]."""
     from .repack import dequant_qtensor
+    ROUTE_COUNTS["routed_fallback"] += 1
     outs = []
     for s in range(ei.shape[0]):
         e = ei[s:s + 1]
@@ -927,15 +1047,17 @@ def qmatmul_routed(x: torch.Tensor, qt: QTensor, expert_ids: torch.Tensor,
     """Expert-routed product: y[s] = x[row_map[s]] @ W[expert_ids[s]].T over
     expert-stacked leaves (leading axis E, or L*E under stacked layers).
     expert_ids and row_map are int tensors on x's device, row_map
-    defaulting to s // (S / M). q4b -> qmm_txn_m1_r, q8b (g 16 or 32) ->
-    qmm_q8_m1_r, other kinds -> _routed_fallback. Returns f32 [S, N]."""
+    defaulting to s // (S / M). q4b under the txn flavour -> qmm_txn_m1_r,
+    q8b (g 16 or 32) -> qmm_q8_m1_r under every flavour (the reference
+    does not test it there), the rest -> _routed_fallback. Returns f32
+    [S, N]."""
     m, k = x.shape
     s_n = expert_ids.shape[0]
     if row_map is None:
         row_map = _slot_rows(m, s_n, x.device)
     ei, ti = (t.to(torch.int32).contiguous() for t in (expert_ids, row_map))
     nrm, eps = _norm_args(prenorm)
-    if qt.kind == "q4b" and k % 256 == 0:
+    if qt.kind == "q4b" and q4b_flavour() == "txn" and k % 256 == 0:
         xq, sx = quantize_activations_g32(x, nrm, eps)
         y = qmm_txn_m1_r(xq, sx, qt.qs, qt.scales, qt.bias, ei, ti)
     elif qt.kind == "q8b" and qt.g in (16, 32) and k % (8 * qt.g) == 0 and k % 32 == 0:

@@ -140,13 +140,24 @@ def flash_prefill_tile_fault(q, k, v, scale: float, tile: int = 64):
     return out.permute(0, 3, 1, 2, 4).reshape(b, t, hq, d)
 
 
+def _swap_lo_hi(scales):
+    """q4b scales [K/32, Ns] with each superblock's lo and hi rows swapped."""
+    g, ns = scales.shape
+    return scales.reshape(g // 8, 2, 4, ns).flip(1).reshape(g, ns)
+
+
 def planes_fault(x, qs, scales):
     """A faulty two-plane product, the control that qmm_planes' tolerance
     must reject: each superblock's lo and hi scale rows swapped."""
     from .ops.qmatmul import qmm_planes_plain
-    k, ns = qs.shape[0] * 2, qs.shape[1]
-    sw = scales.reshape(k // 256, 2, 4, ns).flip(1).reshape(k // 32, ns)
-    return qmm_planes_plain(x, qs, sw)
+    return qmm_planes_plain(x, qs, _swap_lo_hi(scales))
+
+
+def q4b_scale_swap(xq, sx, qs, scales):
+    """A faulty int8-flavour q4b product, the control that qmm_int8's
+    tolerance must reject: each superblock's lo and hi scale rows swapped."""
+    from .ops.qmatmul import qmm_int8_plain
+    return qmm_int8_plain(xq, sx, qs, _swap_lo_hi(scales))
 
 
 def paged_case(gen: torch.Generator, lengths, hq: int, hkv: int, d: int,

@@ -34,8 +34,12 @@ tiles' expert ids swapped must read above 0.1 of the largest output. The
 int8 prefill GEMM (qmm_i8p) runs its plain version's roundings in the same
 order (exact int32 block dots, the f32 block updates in K order): it is held
 within 1e-6 of its largest magnitude, and a control with two blocks' weight
-scales swapped must fail that. A head_dim-64 llama runs Engine and the
-batcher on the reference's einsum and gather decode routes.
+scales swapped must fail that. The int8 flavour's q4b product (qmm_int8)
+is an int8-activation product, held within 1e-5, and a control with each
+superblock's lo and hi scale rows swapped must fail that. A head_dim-64
+llama runs Engine and the batcher on the reference's einsum and gather
+decode routes; the tiny llama under LLAMAFILE_TPU_Q4B=int8 runs Engine on
+qmm_int8 with exact launch counts.
 """
 import pytest
 import torch
@@ -44,8 +48,8 @@ from llamafile_tpu_torch.ops import attention as A
 from llamafile_tpu_torch.ops import qmatmul as Q
 from llamafile_tpu_torch.testing import (flash_prefill_tile_fault, i8p_fault,
                                          paged_case, paged_controls, planes_fault,
-                                         rand_i8p, rand_q4b, rand_q8b, rel_err,
-                                         row_rel_err)
+                                         q4b_scale_swap, rand_i8p, rand_q4b, rand_q8b,
+                                         rel_err, row_rel_err)
 
 pytestmark = pytest.mark.cuda
 
@@ -299,6 +303,75 @@ def test_i8p_qmatmul_stacked_and_unrolled(dev):
     assert Q.qmm_i8p.launches == n0 + 2 and got.shape == (300, 1500)
     want = Q.qmatmul(x.cpu(), qts[1].to("cpu"), prenorm=(nrm.cpu(), 1e-5))
     assert_close(got.cpu(), want, 1e-6)
+
+
+@pytest.mark.parametrize("m", [1, 5, 8, 16, 24, 32])
+@pytest.mark.parametrize("n,k", [(6144, 4096), (28672, 4096), (4096, 14336), (1040, 1024)])
+def test_int8_matches_plain(dev, m, n, k):
+    """llama3-8b's qkv, gate|up and down, and a narrow odd width, on layer 1
+    of a 2-layer stack (views by pointer), at every padded M and below."""
+    gen = torch.Generator(device=dev).manual_seed(m + n + k + 3)
+    qs, sc, _ = rand_q4b(gen, 2, n, k, dev)
+    xq, sx = Q.quantize_activations_g32(torch.randn(m, k, generator=gen, device=dev))
+    n0 = Q.qmm_int8.launches
+    got = Q.qmm_int8(xq, sx, qs[1], sc[1])
+    assert Q.qmm_int8.launches == n0 + 1
+    want = Q.qmm_int8_plain(xq, sx, qs[1], sc[1])
+    assert_close(got, want, 1e-5)
+    assert rel_err(q4b_scale_swap(xq, sx, qs[1], sc[1]), want) > 1e-5
+    assert torch.equal(got, Q.qmm_int8(xq, sx, qs[1], sc[1]))
+
+
+@pytest.mark.parametrize("flavour,m,kernel", [("planes", 8, "qmm_planes"),
+                                              ("planes", 300, "qmm_planes"),
+                                              ("int8", 8, "qmm_int8"),
+                                              ("int8", 300, "qmm_planes")])
+def test_flavour_stacked_products(dev, flavour, m, kernel, monkeypatch):
+    """qmatmul under a q4b flavour on layer 1 of a stacked Q4_K leaf (row 12
+    for the planes kernel, row 14 for qmm_int8) launches its kernel once,
+    equals the same layer unstacked bit for bit, and agrees with the CPU's
+    plain path on the same inputs (bf16 out from 256 rows: one bf16 step
+    and the bias term added in bf16)."""
+    from llamafile_tpu_torch.models.llama import _stack_leaf
+    from llamafile_tpu_torch.models.synthetic import _rand_qtensor
+    monkeypatch.setattr(Q, "Q4B_KERNEL", flavour)
+    gen = torch.Generator(device=dev).manual_seed(m + 11)
+    qts = [_rand_qtensor(gen, 1500, 2048, "Q4_K", dev) for _ in range(2)]
+    st = _stack_leaf(qts)
+    x = torch.randn(m, 2048, generator=gen, device=dev)
+    nrm = 1 + 0.1 * torch.randn(2048, generator=gen, device=dev)
+    assert Q.product_route(st, m, 2048, 1) == kernel
+    fn = getattr(Q, kernel)
+    n0 = fn.launches
+    got = Q.qmatmul(x, st, 1, prenorm=(nrm, 1e-5))
+    assert fn.launches == n0 + 1 and got.shape == (m, 1500)
+    assert torch.equal(got, Q.qmatmul(x, qts[1], prenorm=(nrm, 1e-5)))
+    want = Q.qmatmul(x.cpu(), qts[1].to("cpu"), prenorm=(nrm.cpu(), 1e-5))
+    assert got.dtype == want.dtype
+    assert_close(got.cpu(), want, 2 * 2 ** -7 if m >= 256 else 1e-3)
+
+
+def test_int8_flavour_engine_launch_counts(dev, monkeypatch):
+    """The tiny llama (2 layers, fused qkv and gate|up, d_ff 512) under
+    LLAMAFILE_TPU_Q4B=int8: a 24-token prompt (bucket 32) and 11 decode
+    steps run every q4b product on qmm_int8 (4 a layer, then the head at
+    M = 1), and nothing on the txn kernels."""
+    from llamafile_tpu_torch.models.synthetic import make_synthetic_llama
+    from llamafile_tpu_torch.ops import kernel_wrappers, reset_launch_counts
+    from llamafile_tpu_torch.runtime.engine import Engine
+    from llamafile_tpu_torch.runtime.sampling import SamplingParams
+    from llamafile_tpu_torch.runtime.tokenizer import Tokenizer
+    monkeypatch.setattr(Q, "Q4B_KERNEL", "int8")
+    cfg, params = make_synthetic_llama("tiny", "Q4_K", seed=4, fuse=True, device=dev)
+    eng = Engine(cfg, params, Tokenizer({}), max_seq_len=256, device=dev)
+    reset_launch_counts()
+    ids = [t for t, _ in eng.generate("", max_tokens=12, sampling=SamplingParams(temperature=0.0),
+                                      stop_on_eog=False, prompt_ids=list(range(5, 29)))]
+    assert len(ids) == 12
+    n = cfg.n_layers
+    counts = {w.__name__: w.launches for w in kernel_wrappers()}
+    assert counts == {name: {"qmm_int8": 4 * n + 1 + (4 * n + 1) * 11}.get(name, 0)
+                      for name in counts}
 
 
 def test_head_dim_64_engine_and_batcher(dev):
