@@ -8,6 +8,9 @@
 2. Each kernel at the shapes of the llama3-8b main paths (Q4_K decode and
    prefill, Q8_0 and Q6_K decode, long-prompt prefill, the serving step at
    8 rows: qmm_txn at M = 8 and paged_attention over bf16 and int8 pages;
+   flash_decode_write at pos 700 / s_eff 1024, pos 1900 / s_eff 2048 and
+   phase 4's pos 64 / s_eff 256, two launches on the same inputs bitwise
+   equal;
    the unrolled prefill's qmm_planes; flash_decode over bf16 and int8; the
    MoE kernels at Mixtral-8x7B width: the routed fused FFN and the routed
    q4b and q8b GEMVs at a decode step's 2 slots, qmm_txn_g at 16 and 512
@@ -256,9 +259,9 @@ def kernel_phases(torch, dev, gen):
     from llamafile_tpu_torch.ops import qmatmul as Q
     from llamafile_tpu_torch.ops import attention as A
     from llamafile_tpu_torch.ops.repack import q4b_codes
-    from llamafile_tpu_torch.testing import (flash_prefill_tile_fault, paged_case,
-                                             paged_controls, planes_fault, rand_q4b,
-                                             rand_q8b, rel_err, row_rel_err)
+    from llamafile_tpu_torch.testing import (FDW_CLUSTER, FDW_WARPS, flash_prefill_tile_fault,
+                                             paged_case, paged_controls, planes_fault,
+                                             rand_q4b, rand_q8b, rel_err, row_rel_err)
     rows = {}
 
     def dequant_bf16(qs, sc, b):
@@ -513,40 +516,53 @@ def kernel_phases(torch, dev, gen):
     del gq, gs, gb, dq, ds, db
 
     # --- flash_decode_write: decode attention + KV-row write --------------
-    nl, s_len, hq, hkv, hd, s_eff, pos = 32, 2048, 32, 8, 128, 1024, 700
+    # one launch of B * Hkv clusters of FDW_CLUSTER blocks
+    nl, s_len, hq, hkv, hd = 32, 2048, 32, 8, 128
     scale = hd ** -0.5
     k3 = (torch.randn((nl, 1, s_len, hkv * hd), generator=gen, device=dev)).to(torch.bfloat16)
     v3 = (torch.randn((nl, 1, s_len, hkv * hd), generator=gen, device=dev)).to(torch.bfloat16)
     q = torch.randn((1, hq, hd), generator=gen, device=dev)
     kn = torch.randn((1, hkv, hd), generator=gen, device=dev)
     vn = torch.randn((1, hkv, hd), generator=gen, device=dev)
-    p = torch.tensor([pos], dtype=torch.int32, device=dev)
-    k3b, v3b = k3.clone(), v3.clone()
-    got = A.flash_decode_write_stacked(q, k3, v3, kn, vn, 5, p, scale, hkv, s_limit=s_eff)
-    want = A.flash_decode_write_plain(q, k3b, v3b, kn, vn, 5, p, scale, hkv, s_eff)
-    torch.cuda.synchronize()
-    err = check_close("flash_decode_write", got, want, 2e-2)
-    if not (torch.equal(k3, k3b) and torch.equal(v3, v3b)):
-        raise AssertionError("flash_decode_write: the written cache rows differ")
-    del k3b, v3b
-    ms = time_ms(torch, lambda i: A.flash_decode_write_stacked(
-        q, k3, v3, kn, vn, i, p, scale, hkv, s_limit=s_eff), nl)
-    plain = time_ms(torch, lambda i: A.flash_decode_write_plain(
-        q, k3, v3, kn, vn, i, p, scale, hkv, s_eff), nl)
-    qs4 = q.to(torch.bfloat16).reshape(1, hq, 1, hd)
-    kv = lambda t, i: t[i, :, :pos + 1].reshape(1, pos + 1, hkv, hd).transpose(1, 2)
+    log(f"  flash_decode_write: clusters of {FDW_CLUSTER} blocks, {hkv * FDW_CLUSTER} "
+        f"blocks of {32 * FDW_WARPS} threads at B=1 Hkv={hkv}")
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    lib = time_ms(torch, lambda i: sdpa(qs4, kv(k3, i), kv(v3, i), scale=scale,
-                                        enable_gqa=True), nl)
-    sdpa_out = sdpa(qs4, kv(k3, 5), kv(v3, 5), scale=scale, enable_gqa=True)
-    check_close("flash_decode_write vs sdpa (yardstick sanity)",
-                got.reshape(1, hq, 1, hd), sdpa_out, 2e-2)
-    row = hkv * hd
-    entry("flash_decode_write", "llamafile_tpu_torch/csrc/flash_decode_write.cu",
-          "llamafile_tpu/ops/attention.py:217",
-          f"Hq={hq} Hkv={hkv} D={hd} s_eff={s_eff} pos={pos}", err, ms, plain, lib,
-          2 * pos * row * 2 + 2 * row * 2 + (2 * hq * hd + 2 * row) * 4,
-          4 * pos * hq * hd, BF16_FLOP_PER_S)
+    # pos 700 heads the entry (the shape of earlier runs); pos 64 / s_eff
+    # 256 is phase 4's decode (64 tokens after a 24-token prompt)
+    for pos, s_eff in ((700, 1024), (1900, 2048), (64, 256)):
+        p = torch.tensor([pos], dtype=torch.int32, device=dev)
+        k3b, v3b = k3.clone(), v3.clone()
+        got = A.flash_decode_write_stacked(q, k3, v3, kn, vn, 5, p, scale, hkv, s_limit=s_eff)
+        want = A.flash_decode_write_plain(q, k3b, v3b, kn, vn, 5, p, scale, hkv, s_eff)
+        torch.cuda.synchronize()
+        err = check_close(f"flash_decode_write/pos={pos}", got, want, 2e-2)
+        if not (torch.equal(k3, k3b) and torch.equal(v3, v3b)):
+            raise AssertionError("flash_decode_write: the written cache rows differ")
+        again = A.flash_decode_write_stacked(q, k3b, v3b, kn, vn, 5, p, scale, hkv,
+                                             s_limit=s_eff)
+        if not (torch.equal(again, got) and torch.equal(k3, k3b) and torch.equal(v3, v3b)):
+            raise AssertionError("flash_decode_write: two launches on the same inputs differ")
+        log(f"  flash_decode_write/pos={pos}: two launches bitwise equal")
+        del k3b, v3b, again
+        run = lambda i: A.flash_decode_write_stacked(q, k3, v3, kn, vn, i, p, scale, hkv,
+                                                     s_limit=s_eff)
+        ms = time_ms(torch, run, nl)
+        plain = time_ms(torch, lambda i: A.flash_decode_write_plain(
+            q, k3, v3, kn, vn, i, p, scale, hkv, s_eff), nl)
+        qs4 = q.to(torch.bfloat16).reshape(1, hq, 1, hd)
+        kv = lambda t, i: t[i, :, :pos + 1].reshape(1, pos + 1, hkv, hd).transpose(1, 2)
+        lib = time_ms(torch, lambda i: sdpa(qs4, kv(k3, i), kv(v3, i), scale=scale,
+                                            enable_gqa=True), nl)
+        sdpa_out = sdpa(qs4, kv(k3, 5), kv(v3, 5), scale=scale, enable_gqa=True)
+        check_close("flash_decode_write vs sdpa (yardstick sanity)",
+                    got.reshape(1, hq, 1, hd), sdpa_out, 2e-2)
+        log(f"  flash_decode_write/pos={pos}: kernel / sdpa {ms / lib:.3f}")
+        row = hkv * hd
+        entry("flash_decode_write", "llamafile_tpu_torch/csrc/flash_decode_write.cu",
+              "llamafile_tpu/ops/attention.py:217",
+              f"Hq={hq} Hkv={hkv} D={hd} s_eff={s_eff} pos={pos} cluster={FDW_CLUSTER}", err, ms,
+              plain, lib, 2 * pos * row * 2 + 2 * row * 2 + (2 * hq * hd + 2 * row) * 4,
+              4 * pos * hq * hd, BF16_FLOP_PER_S)
     del k3, v3
     torch.cuda.empty_cache()
 
@@ -2507,6 +2523,9 @@ def device_busy(torch, eng, prompt, sp, step_ms):
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     log(f"  device busy {busy_ms:.3f} ms of a {step_ms:.3f} ms decode step "
         f"({busy_ms / step_ms:.1%}); idle {1 - busy_ms / step_ms:.1%}")
+    fdw = sum(us for name, us in by_name.items() if "fdw_kernel" in name)
+    if fdw:
+        log(f"  flash_decode_write: {fdw / 8 / 1e3:.4f} ms/step of device time")
     log(f"  {n_act / 8:.1f} device activities (kernels, copies, fills) a step: "
         f"{step_ms * 1e3 / (n_act / 8):.1f} us of step time each")
     for name, us in top:

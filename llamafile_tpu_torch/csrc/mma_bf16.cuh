@@ -1,5 +1,6 @@
 // Tensor-core building blocks shared by the bf16 mma.sync kernels
-// (qmm_gemm.cuh, flash_prefill.cu): cp.async copies into shared memory,
+// (qmm_gemm.cuh, flash_prefill.cu, flash_decode_write.cu) and qmm_i8p.cu's
+// copies: cp.async copies into shared memory,
 // ldmatrix fragment loads and the m16n8k16 bf16 product with f32
 // accumulation.
 //
@@ -33,6 +34,12 @@ __device__ __forceinline__ void cp_async_commit() {
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Wait until at most N of the committed cp.async groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // Four 8x8 b16 matrices; lane t gives the address of row t % 8 of matrix t / 8.

@@ -1,7 +1,6 @@
 // Tensor-core building blocks of the s8 mma.sync kernel (qmm_i8p.cu): the
-// m16n8k32 int8 product with int32 accumulation, and a cp.async wait that
-// leaves the newest N groups in flight. cp.async and ldmatrix come from
-// mma_bf16.cuh: ldmatrix moves 16-byte rows whatever their element type, so
+// m16n8k32 int8 product with int32 accumulation. cp.async and ldmatrix come
+// from mma_bf16.cuh: ldmatrix moves 16-byte rows whatever their element type, so
 // an 8x8 b16 matrix is 8 rows of 16 int8 and each lane receives 4
 // consecutive bytes of one row, which is the s8 fragment layout when both
 // operands are stored K-contiguous.
@@ -26,12 +25,6 @@ __device__ __forceinline__ void mma_16832_s8(int* c, const uint32_t* a, uint32_t
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Wait until at most N of the committed cp.async groups are pending.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 }  // namespace mma

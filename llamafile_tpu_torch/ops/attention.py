@@ -203,8 +203,9 @@ def flash_decode_write_stacked(q, k3, v3, k_new, v_new, li: int, pos,
     k_new/v_new [B, Hkv, D] roped new rows; li a Python int; pos int32 [B]
     on the cache's device. s_limit bounds the streamed positions (the
     attn_len bucket). Shapes of the einsum route (decode_route) write the
-    rows, then run flash_decode_stacked, as the reference does. Returns
-    attn [B, Hq, D] f32."""
+    rows, then run flash_decode_stacked, as the reference does. On the card
+    a call is one launch of B * Hkv thread-block clusters of 8 blocks, with
+    no scratch in device memory. Returns attn [B, Hq, D] f32."""
     b, hq, d = q.shape
     n_l, _, s_len, _ = k3.shape
     s_eff = s_limit if s_limit is not None and s_limit < s_len else s_len

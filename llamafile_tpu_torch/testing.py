@@ -203,3 +203,87 @@ def paged_controls(q, kp, vp, ks, vs, lengths, tables, ps: int):
     rows = torch.arange(tables.shape[0], device=tables.device)
     dropped[rows, ((lengths.long() - 1) // ps)] = 0
     return more, paged_attention_plain(q, kp, vp, lengths, dropped, ks, vs)
+
+
+# flash_decode_write's schedule constants, mirrored from
+# csrc/flash_decode_write.cu (RW, NW, CS; fdw_rank_ranges is its rank_lo):
+# change both together
+FDW_SLAB = 16          # rows a warp takes at a time
+FDW_WARPS = 4          # warps of one block
+FDW_CLUSTER = 8        # blocks of one cluster, one cluster per (batch row, kv head)
+
+
+def fdw_rank_ranges(n_vis: int, cs: int):
+    """The rows [lo, hi) that each rank of flash_decode_write's cluster of
+    cs blocks takes of the n_vis visible rows: lo = r * n_vis // cs, the
+    kernel's rank_lo. Fixed by (n_vis, cs) alone."""
+    return [(r * n_vis // cs, (r + 1) * n_vis // cs) for r in range(cs)]
+
+
+def fdw_split_emulate(q, k3, v3, k_new, v_new, li: int, pos, scale: float,
+                      hkv: int, s_eff: int, cs: int, drop_rank=None):
+    """flash_decode_write's schedule in PyTorch, for the CPU tests (nothing
+    of the model path calls it). For each batch row and kv head: rank r of
+    the cluster takes its fdw_rank_ranges rows; warp w of the rank takes
+    the 16-row slabs w, w + 4, ... with one max and one rescale of acc a
+    slab (q and p rounded to bf16, l summing the f32 p); the warps'
+    partials merge in warp order, the ranks' in rank order with the new
+    token (f32 k, v) last; out / max(l, 1e-30). Writes the new rows in
+    place, as the kernel does. drop_rank: that rank's partial is left
+    neutral (m = -1e30, l = 0), the control that the kernel's tolerance
+    must reject."""
+    b, hq, d = q.shape
+    g = hq // hkv
+    bf = lambda a: a.to(torch.bfloat16).float()
+    neg = torch.tensor(NEG_INF)
+    out = torch.empty((b, hkv, g, d))
+    for bi in range(b):
+        qb = bf(q[bi].float()).reshape(hkv, g, d)
+        n_vis = max(0, min(int(pos[bi]), s_eff))
+        kc = k3[li, bi, :n_vis].float().reshape(n_vis, hkv, d)
+        vc = v3[li, bi, :n_vis].float().reshape(n_vis, hkv, d)
+        ranks = []
+        for r, (lo, hi) in enumerate(fdw_rank_ranges(n_vis, cs)):
+            warps = []
+            for w in range(FDW_WARPS):
+                m = torch.full((hkv, g), NEG_INF)
+                l = torch.zeros((hkv, g))
+                acc = torch.zeros((hkv, g, d))
+                if r != drop_rank:
+                    for j0 in range(lo + FDW_SLAB * w, hi, FDW_SLAB * FDW_WARPS):
+                        j1 = min(j0 + FDW_SLAB, hi)
+                        s = torch.einsum("hgd,jhd->hgj", qb, kc[j0:j1]) * scale
+                        mn = torch.maximum(m, s.amax(-1))
+                        corr = torch.exp(m - mn)
+                        p = torch.exp(s - mn[..., None])
+                        l = l * corr + p.sum(-1)
+                        acc = acc * corr[..., None] + torch.einsum("hgj,jhd->hgd", bf(p),
+                                                                   vc[j0:j1])
+                        m = mn
+                warps.append((m, l, acc))
+            mx = torch.stack([wm for wm, _, _ in warps]).amax(0)
+            l_r = torch.zeros((hkv, g))
+            acc_r = torch.zeros((hkv, g, d))
+            for wm, wl, wacc in warps:
+                f = torch.exp(wm - mx)
+                l_r = l_r + wl * f
+                acc_r = acc_r + wacc * f[..., None]
+            ranks.append((mx, l_r, acc_r))
+        kn = k_new[bi].float().reshape(hkv, d)
+        vn = v_new[bi].float().reshape(hkv, d)
+        sn = torch.einsum("hgd,hd->hg", qb, kn) * scale
+        mx = torch.maximum(torch.stack([rm for rm, _, _ in ranks]).amax(0)
+                           if ranks else neg, sn)
+        lsum = torch.zeros((hkv, g))
+        asum = torch.zeros((hkv, g, d))
+        for rm, rl, racc in ranks:
+            w = torch.exp(rm - mx)
+            lsum = lsum + rl * w
+            asum = asum + racc * w[..., None]
+        pn = torch.exp(sn - mx)
+        out[bi] = (asum + pn[..., None] * vn[:, None, :]) / torch.clamp(
+            lsum + pn, min=1e-30)[..., None]
+    rows = torch.arange(b)
+    k3[li, rows, pos.long()] = k_new.reshape(b, -1).to(k3.dtype)
+    v3[li, rows, pos.long()] = v_new.reshape(b, -1).to(v3.dtype)
+    return out.reshape(b, hq, d)

@@ -198,8 +198,13 @@ def test_planes_g_matches_plain(dev, tiles, bias, n, k):
 
 @pytest.mark.parametrize("hq,hkv", [(32, 8), (8, 8), (16, 8), (16, 2)])
 @pytest.mark.parametrize("pos,s_limit", [((0, 5), None), ((700, 1023), 1024),
-                                         ((1, 2000), None)])
+                                         ((1, 2000), None), ((0, 701), None),
+                                         ((1500, 1030), 1024)])
 def test_flash_decode_write_matches_plain(dev, hq, hkv, pos, s_limit):
+    """The cluster kernel against its plain version: a row at pos 0 beside
+    one whose 701 visible rows split unevenly over the cluster's ranks, and
+    rows at or past s_limit (all s_limit rows visible, the write at pos).
+    Two launches on the same inputs are bitwise equal (a fixed-order split)."""
     gen = torch.Generator(device=dev).manual_seed(hq * 10 + hkv)
     nl, b, s, d = 3, 2, 2048, 128
     k3 = torch.randn((nl, b, s, hkv * d), generator=gen, device=dev).to(torch.bfloat16)
@@ -209,6 +214,7 @@ def test_flash_decode_write_matches_plain(dev, hq, hkv, pos, s_limit):
     vn = torch.randn((b, hkv, d), generator=gen, device=dev)
     p = torch.tensor(pos, dtype=torch.int32, device=dev)
     k3b, v3b = k3.clone(), v3.clone()
+    k3c, v3c = k3.clone(), v3.clone()
     n0 = A.flash_decode_write_stacked.launches
     got = A.flash_decode_write_stacked(q, k3, v3, kn, vn, 1, p, 0.088, hkv,
                                        s_limit=s_limit)
@@ -217,6 +223,11 @@ def test_flash_decode_write_matches_plain(dev, hq, hkv, pos, s_limit):
     want = A.flash_decode_write_plain(q, k3b, v3b, kn, vn, 1, p, 0.088, hkv, s_eff)
     assert_close(got, want, 2e-2)
     assert torch.equal(k3, k3b) and torch.equal(v3, v3b)
+    again = A.flash_decode_write_stacked(q, k3c, v3c, kn, vn, 1, p, 0.088, hkv,
+                                         s_limit=s_limit)
+    assert A.flash_decode_write_stacked.launches == n0 + 2
+    assert torch.equal(again, got)
+    assert torch.equal(k3c, k3) and torch.equal(v3c, v3)
 
 
 @pytest.mark.parametrize("n,k", [(4096, 4096), (6144, 1024), (1044, 512), (2048, 14336)])
