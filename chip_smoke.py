@@ -22,7 +22,8 @@
    i > 0 of a stack) and the unstacked lm head, and gate|up and down at
    M = 32, with a control whose lo and hi scale rows are swapped, beside
    qmm_txn at the same shape; qmm_planes on layer 1 of a stack, gate|up at
-   M = 1024 and 8),
+   M = 1024 and 8; qmm_dequant on one-hot rows, x = I at K = 1024, whose
+   outputs must equal dequant_bf16 exactly for q4b, q8b g32 and g16),
    held against its plain PyTorch version on the same inputs (the
    tolerances of the CPU and card tests) and timed on the device: a run of launches cycling over
    enough layers of weights to spill the 50 MB L2 (as decode does) is
@@ -386,6 +387,23 @@ def kernel_phases(torch, dev, gen):
               BF16_FLOP_PER_S)
         del qs, sc
         torch.cuda.empty_cache()
+
+    # --- the dequantized weight tile, bit for bit: with x = I (K = 1024
+    # one-hot rows) each output sum has one nonzero term, so y[k, :] must
+    # equal dequant_bf16's row k (values compared: the f32 sum turns a -0
+    # product into +0)
+    for kind in ("q4b", "q8b g32", "q8b g16"):
+        k, n = 1024, 1040
+        qs, sc, _ = (rand_q4b(gen, 1, n, k, dev) if kind == "q4b"
+                     else rand_q8b(gen, 1, n, k, int(kind[-2:]), dev))
+        got = Q.qmm_dequant(torch.eye(k, device=dev), qs[0], sc[0])
+        n_bad = int((got != Q.dequant_bf16(qs[0], sc[0]).float()).sum())
+        log(f"  qmm_dequant/{kind} one-hot x = I, K={k} N={n}: {n_bad} of {got.numel()} "
+            "outputs differ from dequant_bf16")
+        if n_bad:
+            raise AssertionError(f"qmm_dequant {kind}: the dequantized tile is not "
+                                 "dequant_bf16's, bit for bit")
+        del qs, sc, got
 
     # --- qmm_planes: the unrolled (Q4_K_M) prefill GEMM, unstacked q4b ---
     # phase 6's 1000-token prompt runs all four at M = 1024 (bf16 out);

@@ -1,6 +1,7 @@
 // Tensor-core building blocks shared by the bf16 mma.sync kernels
-// (qmm_gemm.cuh, flash_prefill.cu, flash_decode_write.cu) and qmm_i8p.cu's
-// copies: cp.async copies into shared memory,
+// (flash_prefill.cu, flash_decode_write.cu) and qmm_i8p.cu's copies, and
+// the cp.async and pack helpers of the wgmma body qmm_gemm.cuh: cp.async
+// copies into shared memory,
 // ldmatrix fragment loads and the m16n8k16 bf16 product with f32
 // accumulation.
 //

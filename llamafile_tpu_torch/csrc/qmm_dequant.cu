@@ -10,6 +10,9 @@
 //
 // What bounds it on an H100: operations at prefill sizes (gate|up at M =
 // 2048 is 4.8e11 FLOP, 0.49 ms at 989 TFLOP/s) and weight bytes at small M.
+// Design: qmm_gemm.cuh's body, 128 x 128 tiles on wgmma from shared memory,
+// each weight tile dequantized once a block beside the previous step's
+// tensor-core work.
 #include "qmm_gemm.cuh"
 
 // x bf16 [M, K]; qs uint8 [K/2, Ns] (q4b) or int8 [K, Ns] (q8b); sc bf16

@@ -17,9 +17,10 @@
 //
 // What bounds it on an H100: operations (2 M K N over the 989 TFLOP/s bf16
 // peak; gate|up of llama3-8b at M = 1024 is 2.4e11 FLOP, 0.24 ms). Design:
-// the GEMM body of qmm_gemm.cuh, whose q4b K step reads each packed byte
+// the GEMM body of qmm_gemm.cuh (wgmma, the dequant of the next K step
+// beside the tensor cores' work), whose q4b K step reads each packed byte
 // once and writes both of its nibbles, dequantized, into the lo-plane and
-// hi-plane rows of the shared B tile that the bf16 mma.sync consumes; the
+// hi-plane rows of the shared B tile that both warpgroups' wgmmas read; the
 // A tile takes the matching even/odd chunk columns of x. The bf16 epilogue
 // halves the output bytes of the large-M products, as on the TPU.
 #include "qmm_gemm.cuh"

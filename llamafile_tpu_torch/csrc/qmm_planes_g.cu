@@ -17,7 +17,7 @@
 // What bounds it on an H100: operations (2 S_pad K N over the 989 TFLOP/s
 // bf16 peak), or the bytes of the distinct experts te names, whichever is
 // larger. Design: the GEMM body of qmm_gemm.cuh (128 x 128 tiles on
-// mma.sync, each packed byte read once for both planes) with the expert's
+// wgmma, each packed byte read once for both planes) with the expert's
 // weight pointer chosen per row tile and the bias term run as K/32 extra
 // K steps (bx as A, the expert's bias rows as B) before the epilogue.
 #include "qmm_gemm.cuh"

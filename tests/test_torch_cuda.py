@@ -177,14 +177,21 @@ def test_txn_g_matches_plain(dev, tm, n, k):
     assert rel_err(Q.qmm_txn_g_plain(xq, sx, qs, sc, b, te[[2, 1, 0, 3, 4, 5]], tm), want) > 0.1
 
 
-@pytest.mark.parametrize("tiles,bias", [(1, True), (3, True), (3, False)])
-@pytest.mark.parametrize("n,k", [(2048, 256), (4096, 14336)])
-def test_planes_g_matches_plain(dev, tiles, bias, n, k):
-    gen = torch.Generator(device=dev).manual_seed(tiles * n + k)
+@pytest.mark.parametrize("tiles,bias,valid", [(1, True, None), (3, True, None), (3, False, None),
+                                              (3, True, 320), (1, False, 100)])
+@pytest.mark.parametrize("n,k", [(2048, 256), (4096, 14336), (1040, 1024)])
+def test_planes_g_matches_plain(dev, tiles, bias, valid, n, k):
+    """Every row random (valid None), or the rows from `valid` on padding
+    (zero), as group_layout leaves a group's last tile, so a tile's second
+    warpgroup (rows 64-127) is only partly valid (320: tile 2's rows 64-127
+    all padding, 100: rows 100-127)."""
+    gen = torch.Generator(device=dev).manual_seed(tiles * n + k + (valid or 0) % 128)
     qs, sc, b = rand_q4b(gen, 4, n, k, dev)
     b = b if bias else None
     te = torch.tensor([3, 0, 1][:tiles], dtype=torch.int32, device=dev)
     x = torch.randn(tiles * 128, k, generator=gen, device=dev)
+    if valid is not None:
+        x[valid:] = 0
     n0 = Q.qmm_planes_g.launches
     got = Q.qmm_planes_g(x, qs, sc, b, te)
     assert Q.qmm_planes_g.launches == n0 + 1
@@ -246,7 +253,7 @@ def test_q8_m1_matches_plain(dev, n, k, g, bias):
 
 
 @pytest.mark.parametrize("kind", ["q4b", "q8b32", "q8b16"])
-@pytest.mark.parametrize("m", [1, 33, 64, 200, 512])
+@pytest.mark.parametrize("m", [1, 33, 64, 65, 128, 129, 192, 200, 512])
 @pytest.mark.parametrize("n,k", [(4096, 4096), (1040, 1024), (512, 14336)])
 def test_dequant_matches_plain(dev, kind, m, n, k):
     gen = torch.Generator(device=dev).manual_seed(m * n + k)
@@ -261,7 +268,7 @@ def test_dequant_matches_plain(dev, kind, m, n, k):
     assert_close(got, Q.qmm_dequant_plain(x, qs[1], sc[1]), 1e-3)
 
 
-@pytest.mark.parametrize("m", [33, 64, 200, 256, 1024])
+@pytest.mark.parametrize("m", [33, 64, 65, 128, 129, 192, 200, 256, 1024])
 @pytest.mark.parametrize("n,k", [(4096, 4096), (1040, 1024), (512, 14336)])
 def test_planes_matches_plain(dev, m, n, k):
     gen = torch.Generator(device=dev).manual_seed(m * n + k + 1)
@@ -275,6 +282,43 @@ def test_planes_matches_plain(dev, m, n, k):
     tol = 1e-3 if m < 256 else 2 ** -7       # bf16 out: one step of the largest
     assert_close(got, want, tol)
     assert rel_err(planes_fault(x, qs[1], sc[1]), want) > tol
+
+
+def wide_scales(gen, shape, dev):
+    """bf16 scales of random bit patterns: magnitudes 2^-40 to 2^40 (no
+    subnormal product, no overflow of 128 x scale), both signs."""
+    exp = torch.randint(127 - 40, 127 + 40, shape, generator=gen, device=dev)
+    mant = torch.randint(0, 128, shape, generator=gen, device=dev)
+    sign = torch.randint(0, 2, shape, generator=gen, device=dev)
+    bits = (sign << 15) | (exp << 7) | mant
+    return torch.where(bits >= 0x8000, bits - 0x10000, bits).to(torch.int16).view(
+        torch.bfloat16)
+
+
+@pytest.mark.parametrize("scales", ["rand", "wide"])
+@pytest.mark.parametrize("kind", ["q4b", "q8b32", "q8b16", "planes"])
+def test_dequant_tile_bits_one_hot(dev, kind, scales):
+    """The dequantized B tile, bit for bit: with x = I (K = 1024 one-hot
+    rows) every output sum has one nonzero term, so y[k, :] is W[k, :]
+    exactly and must equal dequant_bf16 (values compared, so a -0 product
+    that the f32 sum turns into +0 counts as equal). q4b covers both planes;
+    "planes" is the q4b planes entry, whose bf16 output at M = 1024 holds the
+    same bf16 values. Every byte value occurs; "wide" scales span 2^-40 to
+    2^40 of both signs, so the products round at every exponent of that range."""
+    k, n = 1024, 1040
+    gen = torch.Generator(device=dev).manual_seed(7)
+    if kind in ("q4b", "planes"):
+        qs, sc, _ = rand_q4b(gen, 2, n, k, dev)
+    else:
+        qs, sc, _ = rand_q8b(gen, 2, n, k, int(kind[3:]), dev)
+        qs = torch.randint(-128, 128, qs.shape, generator=gen, device=dev, dtype=torch.int8)
+    assert torch.unique(qs[1]).numel() == 256
+    if scales == "wide":
+        sc = wide_scales(gen, sc.shape, dev)
+    eye = torch.eye(k, device=dev)
+    got = (Q.qmm_planes if kind == "planes" else Q.qmm_dequant)(eye, qs[1], sc[1])
+    assert got.dtype == (torch.bfloat16 if kind == "planes" else torch.float32)
+    assert torch.equal(got.float(), Q.dequant_bf16(qs[1], sc[1]).float())
 
 
 @pytest.mark.parametrize("m", [33, 300, 1024])
