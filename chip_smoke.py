@@ -10,14 +10,17 @@
    8 rows: qmm_txn at M = 8 and paged_attention over bf16 and int8 pages;
    flash_decode_write at pos 700 / s_eff 1024, pos 1900 / s_eff 2048 and
    phase 4's pos 64 / s_eff 256, two launches on the same inputs bitwise
-   equal;
+   equal; the three decode kernels also at head groups of 3 and 16 (24 and
+   128 query heads over 8 KV heads), bf16 and int8;
    the unrolled prefill's qmm_planes; flash_decode over bf16 and int8; the
    MoE kernels at Mixtral-8x7B width: the routed fused FFN and the routed
    q4b and q8b GEMVs at a decode step's 2 slots, qmm_txn_g at 16 and 512
    slots, qmm_planes_g at 2048, each with a control whose expert ids are
-   swapped; the int8 prefill GEMM qmm_i8p at the four products at M = 1024
-   and gate|up at M = 300, on layers i > 0 of a stack, with a control whose
-   block scales are swapped, beside qmm_dequant at the same shape; the q4b
+   swapped; the int8 prefill GEMM qmm_i8p at the four products at M =
+   1024, 512 and 128 and gate|up at M = 300, on layer 1 of a stack (and at
+   gate|up M = 1024 on unrolled layers), bitwise equal to its plain version,
+   with a control whose block scales are swapped, beside qmm_dequant at the
+   same shape; the q4b
    flavours' kernels: qmm_int8 at M = 8 on qkv, o, gate|up, down (layers
    i > 0 of a stack) and the unstacked lm head, and gate|up and down at
    M = 32, with a control whose lo and hi scale rows are swapped, beside
@@ -47,7 +50,12 @@
    1000: the Engine's prefill and 4 decode steps on a bf16 cache, then on the
    card Engine.generate and 3 requests through the batcher, every decode
    attention on the einsum or gather route with no decode kernel launch,
-   and the 3-row paged decode card against CPU; two
+   and the 3-row paged decode card against CPU; Llama-3.2-3B's widths at
+   two layers (a head group of 3): the Engine's prefill and 4 decode steps
+   over its bf16 cache (300-token prompt) and its int8 cache (40 tokens),
+   then on the card Engine.generate and 4 requests through the batcher,
+   every decode attention a kernel launch, and the 4-row paged decode card
+   against CPU; two
    layers at Mixtral-8x7B width (mixtral-8x7b-2l): Q4_K stacked (24- and
    300-token prompts: qmm_txn_g and qmm_planes_g; 4 decode steps on the
    routed fused FFN), the Q4_K_M recipe unrolled (300-token prompt, 4
@@ -113,7 +121,12 @@
    requests (prompts of 24, 128, 500 and 1000 tokens, two each), each
    against itself served alone; launches exact, the decode rate against the
    routed weight-read bound (models.synthetic.decode_read_bytes).
-   Phases run in the order 4, 4b, 4d, 5, 4f, 4e, 4c, 6, 7. Then, after every timed
+8. llama3.2-3b (Llama-3.2-3B's widths, 28 layers, a head group of 3), Q4_K
+   stacked: Engine.generate of 32 tokens from the 24-token prompt, launches
+   exact, the decode rate against its weight-read bound; the HTTP server at
+   4 slots, 4 greedy requests, each against itself served alone; no decode
+   attention call on the einsum or gather route.
+   Phases run in the order 4, 4b, 4d, 5, 4f, 4e, 4c, 6, 7, 8. Then, after every timed
    run (so that no profiler session of the process precedes a timing),
    profiles: one 8-step decode chunk of each model (7a, 7b, and 4c, 4 and
    4f's int8 on rebuilt engines) under torch.profiler (the device's busy share of a step) and
@@ -260,9 +273,8 @@ def kernel_phases(torch, dev, gen):
     from llamafile_tpu_torch.ops import qmatmul as Q
     from llamafile_tpu_torch.ops import attention as A
     from llamafile_tpu_torch.ops.repack import q4b_codes
-    from llamafile_tpu_torch.testing import (FDW_CLUSTER, FDW_WARPS, flash_prefill_tile_fault,
-                                             paged_case, paged_controls, planes_fault,
-                                             rand_q4b, rand_q8b, rel_err, row_rel_err)
+    from llamafile_tpu_torch.testing import (flash_prefill_tile_fault, planes_fault, rand_q4b,
+                                             rand_q8b, rel_err, row_rel_err)
     rows = {}
 
     def dequant_bf16(qs, sc, b):
@@ -534,20 +546,90 @@ def kernel_phases(torch, dev, gen):
     del gq, gs, gb, dq, ds, db
 
     # --- flash_decode_write: decode attention + KV-row write --------------
-    # one launch of B * Hkv clusters of FDW_CLUSTER blocks
-    nl, s_len, hq, hkv, hd = 32, 2048, 32, 8, 128
+    # one launch of B * Hkv * head_chunks(G) clusters of FDW_CLUSTER blocks;
+    # llama3-8b's group of 4 (32 query heads over 8 KV heads), then the
+    # groups of 3 (Llama-3.2-3B, one chunk with masked columns) and 16 (two
+    # chunks, each reading the K/V rows) at pos 700
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for hq, cases in DECODE_GROUPS["flash_decode_write"]:
+        fdw_phase(torch, dev, gen, entry, sdpa, hq, cases)
+
+    # --- flash_decode: decode attention over one layer of a dense cache ---
+    # bf16 flat [L, B, S, Hkv*D] (the qt contract, flash_decode_stacked) and
+    # int8 [L, B, S, Hkv, D] codes with f32 scales (phase 4d's cache), 32
+    # layers so the replays spill the L2; pos near the end of s_eff. The
+    # controls: one masked key made visible, and the second half of the
+    # visible keys dropped.
+    for hq, cases in DECODE_GROUPS["flash_decode"]:
+        for int8, s_eff in cases:
+            flash_decode_phase(torch, dev, gen, entry, sdpa, hq, int8, s_eff)
+
+    # --- paged_attention: the serving decode attention, 8 rows ------------
+    for hq, cases in DECODE_GROUPS["paged_attention"]:
+        for label, lengths, int8 in cases:
+            paged_phase(torch, dev, gen, entry, sdpa, hq, label, lengths, int8)
+    i8p_kernel_phase(torch, dev, gen, entry)
+    moe_kernel_phases(torch, dev, gen, entry, dequant_bf16)
+    int8_kernel_phase(torch, dev, gen, entry, dequant_bf16)
+    return list(rows.values())
+
+
+# the prompt lengths of the served requests (phases 5, 6, 7c and 8)
+SERVE_LENGTHS = (24, 128, 500, 1000)
+
+# Phase 2's decode attention shapes by query heads over 8 KV heads: 32
+# (llama3-8b, a group of 4) first, as in earlier runs, then 24 (a group of
+# 3: the shapes of phase 8's decode too) and 128 (16, two head chunks),
+# bf16 and int8
+DECODE_GROUPS = {
+    # (pos, s_eff): pos 700 heads the entry (the shape of earlier runs); pos
+    # 64 / s_eff 256 is phase 4's decode (64 tokens after a 24-token prompt),
+    # pos 40 / s_eff 256 at 24 heads phase 8's (32 tokens after the same prompt)
+    "flash_decode_write": [(32, ((700, 1024), (1900, 2048), (64, 256))),
+                           (24, ((700, 1024), (40, 256))), (128, ((700, 1024),))],
+    # (int8, s_eff)
+    "flash_decode": [(32, ((False, 1024), (False, 2048), (True, 1024), (True, 2048))),
+                     (24, ((False, 2048), (True, 2048))), (128, ((False, 2048), (True, 2048)))],
+    # (label, lengths, int8): 8 rows, and at 24 heads also the 4 rows of
+    # phase 8's server (serve_four's prompts, 32 tokens into their answers)
+    "paged_attention": [
+        (32, (("bf16, every length 1024", [1024] * 8, False),
+              ("bf16, lengths 1..2048", [1, 63, 64, 65, 700, 1024, 1500, 2048], False),
+              ("int8 + f32 scales, every length 1024", [1024] * 8, True))),
+        (24, (("bf16, every length 1024", [1024] * 8, False),
+              ("int8 + f32 scales, every length 1024", [1024] * 8, True),
+              ("bf16, phase 8's 4 served rows", [n + 32 for n in SERVE_LENGTHS], False))),
+        (128, (("bf16, every length 1024", [1024] * 8, False),
+               ("int8 + f32 scales, every length 1024", [1024] * 8, True)))],
+}
+
+
+def group_note(hq: int, hkv: int) -> str:
+    """The head group of a decode shape and the K/V reads of its chunks."""
+    from llamafile_tpu_torch.ops.attention import head_chunks
+    g = hq // hkv
+    nc = head_chunks(g)
+    return f"G={g}" + (f" in {nc} chunks, each reading the K/V rows" if nc > 1 else "")
+
+
+def fdw_phase(torch, dev, gen, entry, sdpa, hq, cases):
+    """Phase 2 for flash_decode_write at hq query heads over 8 KV heads, at
+    each (pos, s_eff) of cases: against its plain version within 2e-2 and
+    with the written rows equal, two launches bitwise equal, timed beside
+    its plain version and sdpa."""
+    from llamafile_tpu_torch.ops import attention as A
+    from llamafile_tpu_torch.testing import FDW_CLUSTER, FDW_WARPS
+    nl, s_len, hkv, hd = 32, 2048, 8, 128
     scale = hd ** -0.5
     k3 = (torch.randn((nl, 1, s_len, hkv * hd), generator=gen, device=dev)).to(torch.bfloat16)
     v3 = (torch.randn((nl, 1, s_len, hkv * hd), generator=gen, device=dev)).to(torch.bfloat16)
     q = torch.randn((1, hq, hd), generator=gen, device=dev)
     kn = torch.randn((1, hkv, hd), generator=gen, device=dev)
     vn = torch.randn((1, hkv, hd), generator=gen, device=dev)
-    log(f"  flash_decode_write: clusters of {FDW_CLUSTER} blocks, {hkv * FDW_CLUSTER} "
-        f"blocks of {32 * FDW_WARPS} threads at B=1 Hkv={hkv}")
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    # pos 700 heads the entry (the shape of earlier runs); pos 64 / s_eff
-    # 256 is phase 4's decode (64 tokens after a 24-token prompt)
-    for pos, s_eff in ((700, 1024), (1900, 2048), (64, 256)):
+    chunks = A.head_chunks(hq // hkv)
+    log(f"  flash_decode_write {group_note(hq, hkv)}: clusters of {FDW_CLUSTER} blocks, "
+        f"{hkv * chunks * FDW_CLUSTER} blocks of {32 * FDW_WARPS} threads at B=1 Hkv={hkv}")
+    for pos, s_eff in cases:
         p = torch.tensor([pos], dtype=torch.int32, device=dev)
         k3b, v3b = k3.clone(), v3.clone()
         got = A.flash_decode_write_stacked(q, k3, v3, kn, vn, 5, p, scale, hkv, s_limit=s_eff)
@@ -578,193 +660,230 @@ def kernel_phases(torch, dev, gen):
         row = hkv * hd
         entry("flash_decode_write", "llamafile_tpu_torch/csrc/flash_decode_write.cu",
               "llamafile_tpu/ops/attention.py:217",
-              f"Hq={hq} Hkv={hkv} D={hd} s_eff={s_eff} pos={pos} cluster={FDW_CLUSTER}", err, ms,
+              f"Hq={hq} Hkv={hkv} D={hd} s_eff={s_eff} pos={pos} cluster={FDW_CLUSTER}"
+              + ("" if chunks == 1 else f" ({group_note(hq, hkv)}: the kernel reads "
+                 f"{chunks}x the bound's K/V bytes)"), err, ms,
               plain, lib, 2 * pos * row * 2 + 2 * row * 2 + (2 * hq * hd + 2 * row) * 4,
               4 * pos * hq * hd, BF16_FLOP_PER_S)
     del k3, v3
     torch.cuda.empty_cache()
 
-    # --- flash_decode: decode attention over one layer of a dense cache ---
-    # bf16 flat [L, B, S, Hkv*D] (the qt contract, flash_decode_stacked) and
-    # int8 [L, B, S, Hkv, D] codes with f32 scales (phase 4d's cache), 32
-    # layers so the replays spill the L2; pos near the end of s_eff. The
-    # controls: one masked key made visible, and the second half of the
-    # visible keys dropped.
-    nl, hq, hkv, hd = 32, 32, 8, 128
+
+def flash_decode_phase(torch, dev, gen, entry, sdpa, hq, int8, s_eff):
+    """Phase 2 for flash_decode at hq query heads over 8 KV heads, over a
+    bf16 flat or int8 cache of s_eff positions, pos near its end: row by row
+    against its plain version, the controls (one masked key made visible,
+    the second half of the visible keys dropped) outside the tolerance,
+    timed beside its plain version and sdpa."""
+    from llamafile_tpu_torch.ops import attention as A
+    from llamafile_tpu_torch.testing import row_rel_err
+    nl, hkv, hd = 32, 8, 128
     scale = hd ** -0.5
-    for int8 in (False, True):
-        for s_eff in (1024, 2048):
-            pos = s_eff - 5
-            label = f"{'int8 + f32 scales' if int8 else 'bf16 flat'}, s_eff={s_eff} pos={pos}"
-            q = torch.randn((1, hq, hd), generator=gen, device=dev)
-            p = torch.tensor([pos], dtype=torch.int32, device=dev)
-            if int8:
-                kc, vc = (torch.randint(-127, 128, (nl, 1, s_eff, hkv, hd), generator=gen,
-                                        device=dev, dtype=torch.int8) for _ in range(2))
-                ksc, vsc = (torch.empty((nl, 1, s_eff, hkv), device=dev).uniform_(
-                    2e-3, 2e-2, generator=gen) for _ in range(2))
-                run = lambda i, pp=p: A.flash_decode(q, kc[i], vc[i], pp, scale,
-                                                     k_scale=ksc[i], v_scale=vsc[i])
-                plain_fn = lambda i, pp=p: A.flash_decode_plain(q, kc[i], vc[i], pp, scale,
-                                                                k_scale=ksc[i], v_scale=vsc[i])
-                kv_bytes = 2 * (pos + 1) * hkv * (hd + 4)
-                tol = DECODE_INT8_ROW_TOL
-            else:
-                kc, vc = ((torch.randn((nl, 1, s_eff, hkv * hd), generator=gen, device=dev)
-                           ).to(torch.bfloat16) for _ in range(2))
-                run = lambda i, pp=p: A.flash_decode_stacked(q, kc, vc, i, pp, scale, hkv)
-                plain_fn = lambda i, pp=p: A.flash_decode_stacked_plain(
-                    q, kc, vc, i, pp, scale, hkv, s_eff)
-                kv_bytes = 2 * (pos + 1) * hkv * hd * 2
-                tol = DECODE_BF16_ROW_TOL
-            got, want = run(5), plain_fn(5)
-            torch.cuda.synchronize()
-            err = (got - want).abs().max().item()
-            row = row_rel_err(got, want)
-            ctl = [row_rel_err(plain_fn(5, p + 1), want), row_rel_err(plain_fn(5, p // 2), want)]
-            held = ctl if int8 else ctl[1:]       # bf16: one key moves less than p's rounding
-            log(f"  flash_decode/{label}: max_abs_err {err:.6g}; per row {row:.6g} of the "
-                f"row's max (tol {tol}); controls (one masked key visible, half the keys "
-                f"dropped) {ctl[0]:.6g}, {ctl[1]:.6g}")
-            if not row <= tol < min(held):
-                raise AssertionError(f"flash_decode {label}: row error {row}, controls {ctl}")
-            if not torch.equal(got, run(5)):
-                raise AssertionError("flash_decode: two runs on the same inputs differ")
-            ms = time_ms(torch, run, nl)
-            plain = time_ms(torch, plain_fn, nl)
-            # the library yardstick: sdpa over the visible K/V, dequantized to
-            # f32 (int8) or kept bf16 beforehand (not timed)
-            def dense(c, s, i):
-                x = c[i, 0, :pos + 1].reshape(pos + 1, hkv, hd)
-                x = x.float() * s[i, 0, :pos + 1][..., None] if s is not None else x
-                return x.transpose(0, 1)[None]                     # [1, Hkv, S, D]
-            kd = [dense(kc, ksc if int8 else None, i) for i in range(nl)]
-            vd = [dense(vc, vsc if int8 else None, i) for i in range(nl)]
-            qd = (q if int8 else q.to(torch.bfloat16)).reshape(1, hq, 1, hd)
-            lib_fn = lambda i: sdpa(qd, kd[i], vd[i], scale=scale, enable_gqa=True)
-            lib = time_ms(torch, lib_fn, nl)
-            check_close(f"flash_decode/{label} vs sdpa (yardstick sanity)",
-                        got.reshape(1, hq, 1, hd), lib_fn(5), 2e-2)
-            entry("flash_decode", "llamafile_tpu_torch/csrc/flash_decode.cu",
-                  "llamafile_tpu/ops/attention.py:117",
-                  f"B=1 Hq={hq} Hkv={hkv} D={hd} {label} (library: sdpa on K/V "
-                  "dequantized beforehand)", err, ms, plain, lib,
-                  kv_bytes + 2 * hq * hd * 4 + 4, 4 * (pos + 1) * hq * hd, F32_FLOP_PER_S)
-            del kc, vc, kd, vd, got, want
-            if int8:
-                del ksc, vsc
-            torch.cuda.empty_cache()
+    chunks = A.head_chunks(hq // hkv)
+    pos = s_eff - 5
+    label = (f"{'int8 + f32 scales' if int8 else 'bf16 flat'}, s_eff={s_eff} pos={pos}"
+             + ("" if chunks == 1 else f", {group_note(hq, hkv)}"))
+    q = torch.randn((1, hq, hd), generator=gen, device=dev)
+    p = torch.tensor([pos], dtype=torch.int32, device=dev)
+    if int8:
+        kc, vc = (torch.randint(-127, 128, (nl, 1, s_eff, hkv, hd), generator=gen,
+                                device=dev, dtype=torch.int8) for _ in range(2))
+        ksc, vsc = (torch.empty((nl, 1, s_eff, hkv), device=dev).uniform_(
+            2e-3, 2e-2, generator=gen) for _ in range(2))
+        run = lambda i, pp=p: A.flash_decode(q, kc[i], vc[i], pp, scale,
+                                             k_scale=ksc[i], v_scale=vsc[i])
+        plain_fn = lambda i, pp=p: A.flash_decode_plain(q, kc[i], vc[i], pp, scale,
+                                                        k_scale=ksc[i], v_scale=vsc[i])
+        kv_bytes = 2 * (pos + 1) * hkv * (hd + 4)
+        tol = DECODE_INT8_ROW_TOL
+    else:
+        kc, vc = ((torch.randn((nl, 1, s_eff, hkv * hd), generator=gen, device=dev)
+                   ).to(torch.bfloat16) for _ in range(2))
+        run = lambda i, pp=p: A.flash_decode_stacked(q, kc, vc, i, pp, scale, hkv)
+        plain_fn = lambda i, pp=p: A.flash_decode_stacked_plain(
+            q, kc, vc, i, pp, scale, hkv, s_eff)
+        kv_bytes = 2 * (pos + 1) * hkv * hd * 2
+        tol = DECODE_BF16_ROW_TOL
+    got, want = run(5), plain_fn(5)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    row = row_rel_err(got, want)
+    ctl = [row_rel_err(plain_fn(5, p + 1), want), row_rel_err(plain_fn(5, p // 2), want)]
+    held = ctl if int8 else ctl[1:]       # bf16: one key moves less than p's rounding
+    log(f"  flash_decode/{label}: max_abs_err {err:.6g}; per row {row:.6g} of the "
+        f"row's max (tol {tol}); controls (one masked key visible, half the keys "
+        f"dropped) {ctl[0]:.6g}, {ctl[1]:.6g}")
+    if not row <= tol < min(held):
+        raise AssertionError(f"flash_decode {label}: row error {row}, controls {ctl}")
+    if not torch.equal(got, run(5)):
+        raise AssertionError("flash_decode: two runs on the same inputs differ")
+    ms = time_ms(torch, run, nl)
+    plain = time_ms(torch, plain_fn, nl)
+    # the library yardstick: sdpa over the visible K/V, dequantized to
+    # f32 (int8) or kept bf16 beforehand (not timed)
+    def dense(c, s, i):
+        x = c[i, 0, :pos + 1].reshape(pos + 1, hkv, hd)
+        x = x.float() * s[i, 0, :pos + 1][..., None] if s is not None else x
+        return x.transpose(0, 1)[None]                     # [1, Hkv, S, D]
+    kd = [dense(kc, ksc if int8 else None, i) for i in range(nl)]
+    vd = [dense(vc, vsc if int8 else None, i) for i in range(nl)]
+    qd = (q if int8 else q.to(torch.bfloat16)).reshape(1, hq, 1, hd)
+    lib_fn = lambda i: sdpa(qd, kd[i], vd[i], scale=scale, enable_gqa=True)
+    lib = time_ms(torch, lib_fn, nl)
+    check_close(f"flash_decode/{label} vs sdpa (yardstick sanity)",
+                got.reshape(1, hq, 1, hd), lib_fn(5), 2e-2)
+    entry("flash_decode", "llamafile_tpu_torch/csrc/flash_decode.cu",
+          "llamafile_tpu/ops/attention.py:117",
+          f"B=1 Hq={hq} Hkv={hkv} D={hd} {label} (library: sdpa on K/V "
+          "dequantized beforehand)", err, ms, plain, lib,
+          kv_bytes + 2 * hq * hd * 4 + 4, 4 * (pos + 1) * hq * hd, F32_FLOP_PER_S)
+    del kc, vc, kd, vd, got, want
+    if int8:
+        del ksc, vsc
+    torch.cuda.empty_cache()
 
-    # --- paged_attention: the serving decode attention, 8 rows ------------
-    # a pool of 32 layers, so the replays over layers spill the L2 as the
-    # fused step does; tables shuffled over the pool's pages
-    nl, r, hq, hkv, hd, ps, maxp = 32, 8, 32, 8, 128, 64, 2048 // 64
-    for label, lengths, int8 in (
-            ("bf16, every length 1024", [1024] * r, False),
-            ("bf16, lengths 1..2048", [1, 63, 64, 65, 700, 1024, 1500, 2048], False),
-            ("int8 + f32 scales, every length 1024", [1024] * r, True)):
-        q, kp, vp, ks, vs, lens, tables = paged_case(
-            gen, lengths, hq, hkv, hd, ps, maxp, n_layers=nl, int8=int8, device=dev)
-        sc = (lambda t, i: None) if ks is None else (lambda t, i: t[i])
-        lay = lambda i: (q, kp[i], vp[i], lens, tables, sc(ks, i), sc(vs, i))
-        got = A.paged_attention(*lay(5))
-        want = A.paged_attention_plain(*lay(5))
-        torch.cuda.synchronize()
-        err = (got - want).abs().max().item()
-        row = row_rel_err(got, want)
-        ctl = [row_rel_err(c, want) for c in paged_controls(
-            q, kp[5], vp[5], sc(ks, 5), sc(vs, 5), lens, tables, ps)]
-        log(f"  paged_attention/{label}: max_abs_err {err:.6g}; per (row, head) "
-            f"{row:.6g} of its max (tol {PAGED_ROW_TOL}); controls (one masked key "
-            f"visible, last page dropped) {ctl[0]:.6g}, {ctl[1]:.6g}")
-        if not row <= PAGED_ROW_TOL < min(ctl):
-            raise AssertionError(f"paged_attention {label}: row error {row}, "
-                                 f"controls {ctl}")
-        if not torch.equal(got, A.paged_attention(*lay(5))):
-            raise AssertionError("paged_attention: two runs on the same inputs differ")
-        ms = time_ms(torch, lambda i: A.paged_attention(*lay(i)), nl)
-        plain = time_ms(torch, lambda i: A.paged_attention_plain(*lay(i)), nl)
-        # the library yardstick: sdpa over K/V gathered to dense [R, Hkv, S, D]
-        # bf16 beforehand (the gather is not timed) with a length mask; the G
-        # query heads of a KV head ride as G queries
-        t = tables.long()
 
-        def dense(pages, scales, i):
-            x = pages[i][:, t]                                 # [Hkv, R, MAXP, ps, D]
-            if scales is not None:
-                x = x.float() * scales[i][:, t]
-            return x.permute(1, 0, 2, 3, 4).reshape(r, hkv, maxp * ps, hd).to(torch.bfloat16)
-        kd = [dense(kp, ks, i) for i in range(nl)]
-        vd = [dense(vp, vs, i) for i in range(nl)]
-        mask = (torch.arange(maxp * ps, device=dev)[None, :] < lens[:, None].long())[:, None, None]
-        qg = q.to(torch.bfloat16).reshape(r, hkv, hq // hkv, hd)
-        lib_fn = lambda i: sdpa(qg, kd[i], vd[i], attn_mask=mask, scale=1.0)
-        lib = time_ms(torch, lib_fn, nl)
-        check_close(f"paged_attention/{label} vs sdpa (yardstick sanity)",
-                    got.reshape(r, hkv, hq // hkv, hd), lib_fn(5), 2e-2)
-        kv_bytes = sum(lengths) * hkv * hd * 2 * (1 + 4 / hd if int8 else 2)
-        entry("paged_attention", "llamafile_tpu_torch/csrc/paged_attention.cu",
-              "llamafile_tpu/runtime/paged.py:277",
-              f"R={r} Hq={hq} Hkv={hkv} D={hd} ps={ps} {label} (library: sdpa on "
-              "K/V gathered beforehand, gather not timed)", err, ms, plain, lib,
-              kv_bytes + 2 * r * hq * hd * 4, 4 * sum(lengths) * hq * hd,
-              F32_FLOP_PER_S)
-        del q, kp, vp, ks, vs, kd, vd, got, want
-        torch.cuda.empty_cache()
-    i8p_kernel_phase(torch, dev, gen, entry)
-    moe_kernel_phases(torch, dev, gen, entry, dequant_bf16)
-    int8_kernel_phase(torch, dev, gen, entry, dequant_bf16)
-    return list(rows.values())
+def paged_phase(torch, dev, gen, entry, sdpa, hq, label, lengths, int8):
+    """Phase 2 for paged_attention at hq query heads over 8 KV heads, a row
+    for each of `lengths` over a pool of 32 layers (so the replays over layers spill
+    the L2 as the fused step does), tables shuffled over the pool's pages:
+    row by row against its plain version, the controls (one masked key made
+    visible, each row's last page dropped) outside the tolerance, timed
+    beside its plain version and sdpa."""
+    from llamafile_tpu_torch.ops import attention as A
+    from llamafile_tpu_torch.testing import paged_case, paged_controls, row_rel_err
+    nl, r, hkv, hd, ps, maxp = 32, len(lengths), 8, 128, 64, 2048 // 64
+    chunks = A.head_chunks(hq // hkv)
+    label = label + ("" if chunks == 1 else f", {group_note(hq, hkv)}")
+    q, kp, vp, ks, vs, lens, tables = paged_case(
+        gen, lengths, hq, hkv, hd, ps, maxp, n_layers=nl, int8=int8, device=dev)
+    sc = (lambda t, i: None) if ks is None else (lambda t, i: t[i])
+    lay = lambda i: (q, kp[i], vp[i], lens, tables, sc(ks, i), sc(vs, i))
+    got = A.paged_attention(*lay(5))
+    want = A.paged_attention_plain(*lay(5))
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    row = row_rel_err(got, want)
+    ctl = [row_rel_err(c, want) for c in paged_controls(
+        q, kp[5], vp[5], sc(ks, 5), sc(vs, 5), lens, tables, ps)]
+    log(f"  paged_attention/{label}: max_abs_err {err:.6g}; per (row, head) "
+        f"{row:.6g} of its max (tol {PAGED_ROW_TOL}); controls (one masked key "
+        f"visible, last page dropped) {ctl[0]:.6g}, {ctl[1]:.6g}")
+    if not row <= PAGED_ROW_TOL < min(ctl):
+        raise AssertionError(f"paged_attention {label}: row error {row}, "
+                             f"controls {ctl}")
+    if not torch.equal(got, A.paged_attention(*lay(5))):
+        raise AssertionError("paged_attention: two runs on the same inputs differ")
+    ms = time_ms(torch, lambda i: A.paged_attention(*lay(i)), nl)
+    plain = time_ms(torch, lambda i: A.paged_attention_plain(*lay(i)), nl)
+    # the library yardstick: sdpa over K/V gathered to dense [R, Hkv, S, D]
+    # bf16 beforehand (the gather is not timed) with a length mask; the G
+    # query heads of a KV head ride as G queries
+    t = tables.long()
+
+    def dense(pages, scales, i):
+        x = pages[i][:, t]                                 # [Hkv, R, MAXP, ps, D]
+        if scales is not None:
+            x = x.float() * scales[i][:, t]
+        return x.permute(1, 0, 2, 3, 4).reshape(r, hkv, maxp * ps, hd).to(torch.bfloat16)
+    kd = [dense(kp, ks, i) for i in range(nl)]
+    vd = [dense(vp, vs, i) for i in range(nl)]
+    mask = (torch.arange(maxp * ps, device=dev)[None, :] < lens[:, None].long())[:, None, None]
+    qg = q.to(torch.bfloat16).reshape(r, hkv, hq // hkv, hd)
+    lib_fn = lambda i: sdpa(qg, kd[i], vd[i], attn_mask=mask, scale=1.0)
+    lib = time_ms(torch, lib_fn, nl)
+    check_close(f"paged_attention/{label} vs sdpa (yardstick sanity)",
+                got.reshape(r, hkv, hq // hkv, hd), lib_fn(5), 2e-2)
+    kv_bytes = sum(lengths) * hkv * hd * 2 * (1 + 4 / hd if int8 else 2)
+    entry("paged_attention", "llamafile_tpu_torch/csrc/paged_attention.cu",
+          "llamafile_tpu/runtime/paged.py:277",
+          f"R={r} Hq={hq} Hkv={hkv} D={hd} ps={ps} {label} (library: sdpa on "
+          "K/V gathered beforehand, gather not timed)", err, ms, plain, lib,
+          kv_bytes + 2 * r * hq * hd * 4, 4 * sum(lengths) * hq * hd,
+          F32_FLOP_PER_S)
+    del q, kp, vp, ks, vs, kd, vd, got, want
+    torch.cuda.empty_cache()
 
 
 def i8p_kernel_phase(torch, dev, gen, entry):
     """Phase 2 for the int8 prefill GEMM: llama3-8b's four products at M =
-    1024 (a 1000-token prompt's bucket) and gate|up at a ragged M = 300 (a
-    300-row admission slice), each on layers i > 0 of a stack (the stacked
-    form's views), against its plain version within I8P_TOL, with a control
-    (two blocks' weight scales swapped) that must fail it. Timed beside it:
-    the plain version, the library yardstick torch._int_mm on the same codes
-    without the per-block scales (which the port never calls), and
-    qmm_dequant, the prefill GEMM without companions, at the same shape."""
+    1024 (a 1000-token prompt's bucket), gate|up at a ragged M = 300 (a
+    300-row admission slice), then the four at M = 512 and 128 (the buckets
+    of 257-512 and 33-128 tokens), each on layer 1 of a stack (the stacked
+    form, row 16, by pointer), bitwise equal to its plain version, with a
+    control (two blocks' weight scales swapped) that must fail I8P_TOL.
+    Timed beside it: the plain version, the library yardstick torch._int_mm
+    on the same codes without the per-block scales (which the port never
+    calls), and qmm_dequant, the prefill GEMM without companions, at the
+    same shape; at gate|up M = 1024 also the kernel on unrolled layers (one
+    allocation each, row 15)."""
     from llamafile_tpu_torch.ops import qmatmul as Q
     from llamafile_tpu_torch.testing import i8p_fault, rand_i8p, rand_q4b, rel_err
-    for m, label, n, k, layers in ((1024, "gate_up", 28672, 4096, 2),
-                                   (1024, "down", 4096, 14336, 3),
-                                   (1024, "qkv", 6144, 4096, 8),
-                                   (1024, "o", 4096, 4096, 12),
-                                   (300, "gate_up", 28672, 4096, 2)):
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for label, n, k, layers, ms_ in (("gate_up", 28672, 4096, 2, (1024, 300, 512, 128)),
+                                     ("down", 4096, 14336, 3, (1024, 512, 128)),
+                                     ("qkv", 6144, 4096, 8, (1024, 512, 128)),
+                                     ("o", 4096, 4096, 12, (1024, 512, 128))):
         w8, sw = rand_i8p(gen, layers, n, k, dev)
-        xq, sxa = Q.i8p_prep(torch.randn((m, k), generator=gen, device=dev))
-        got = Q.qmm_i8p(xq, sxa, w8[1], sw[1])
-        want = Q.qmm_i8p_plain(xq, sxa, w8[1], sw[1])
-        torch.cuda.synchronize()
-        what = f"qmm_i8p/{label}/M={m} (layer 1 of {layers})"
-        err = check_close(what, got, want, I8P_TOL)
-        ctl = rel_err(i8p_fault(xq, sxa, w8[1], sw[1]), want)
-        log(f"  {what}: swapped-block-scales control {ctl:.6g} (must exceed {I8P_TOL}); "
-            f"identical to the plain version: {torch.equal(got, want)}")
-        if not ctl > I8P_TOL:
-            raise AssertionError(f"qmm_i8p {label}: the faulty control passes")
-        del got, want
-        ms = time_ms(torch, lambda i: Q.qmm_i8p(xq, sxa, w8[i], sw[i]), layers)
-        plain = time_ms(torch, lambda i: Q.qmm_i8p_plain(xq, sxa, w8[i], sw[i]), layers)
-        wt = [w8[i].t() for i in range(layers)]             # [K, N] views
-        lib = time_ms(torch, lambda i: torch._int_mm(xq, wt[i]), layers)
-        del w8, sw, wt
-        torch.cuda.empty_cache()
         qs, sc, _ = rand_q4b(gen, layers, n, k, dev)
-        xb = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
-        dq = time_ms(torch, lambda i: Q.qmm_dequant(xb, qs[i], sc[i]), layers)
-        del qs, sc, xb
+        for m in ms_:
+            xq, sxa = Q.i8p_prep(torch.randn((m, k), generator=gen, device=dev))
+            got = Q.qmm_i8p(xq, sxa, w8[1], sw[1])
+            want = Q.qmm_i8p_plain(xq, sxa, w8[1], sw[1])
+            torch.cuda.synchronize()
+            bn = Q.i8p_tile_n(m, n, sms)
+            what = f"qmm_i8p/{label}/M={m} (layer 1 of {layers}, n tile {bn})"
+            err = check_close(what, got, want, I8P_TOL)
+            ctl = rel_err(i8p_fault(xq, sxa, w8[1], sw[1]), want)
+            same = torch.equal(got, want)
+            log(f"  {what}: swapped-block-scales control {ctl:.6g} (must exceed {I8P_TOL}); "
+                f"bitwise equal to the plain version: {same}")
+            if not same:
+                raise AssertionError(f"qmm_i8p {label} M={m}: not bitwise equal to the plain "
+                                     "version")
+            if not ctl > I8P_TOL:
+                raise AssertionError(f"qmm_i8p {label}: the faulty control passes")
+            del got, want
+            ms = time_ms(torch, lambda i: Q.qmm_i8p(xq, sxa, w8[i], sw[i]), layers)
+            plain = time_ms(torch, lambda i: Q.qmm_i8p_plain(xq, sxa, w8[i], sw[i]), layers)
+            wt = [w8[i].t() for i in range(layers)]             # [K, N] views
+            lib = time_ms(torch, lambda i: torch._int_mm(xq, wt[i]), layers)
+            del wt
+            xb = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+            dq = time_ms(torch, lambda i: Q.qmm_dequant(xb, qs[i], sc[i]), layers)
+            del xb
+            log(f"  qmm_i8p/{label}/M={m}: qmm_dequant at the same shape {dq:.4f} ms "
+                f"({dq / ms:.2f}x the int8 kernel's time)")
+            nbytes = (n * k + (k // 256) * n * 4 + m * k + m * (k // 256) * 4 + 4 * m * n)
+            if label == "gate_up" and m == 1024:
+                # row 15: the same kernel on unrolled layers, one allocation each
+                wu = [(w8[i].clone(), sw[i].clone()) for i in range(layers)]
+                got_u = Q.qmm_i8p(xq, sxa, *wu[1])
+                want_u = Q.qmm_i8p_plain(xq, sxa, *wu[1])
+                torch.cuda.synchronize()
+                err_u = check_close(f"qmm_i8p/{label}/M={m} (unrolled layer 1)", got_u,
+                                    want_u, I8P_TOL)
+                if not torch.equal(got_u, want_u):
+                    raise AssertionError(f"qmm_i8p {label} M={m} unrolled: not bitwise equal "
+                                         "to the plain version")
+                log(f"  qmm_i8p/{label}/M={m} (unrolled layer 1): bitwise equal to the plain "
+                    "version")
+                del got_u, want_u
+                un = time_ms(torch, lambda i: Q.qmm_i8p(xq, sxa, *wu[i]), layers)
+                del wu
+                entry("qmm_i8p", "llamafile_tpu_torch/csrc/qmm_i8p.cu",
+                      "llamafile_tpu/ops/qmatmul.py:1808",
+                      f"{label} M={m} N={n} K={k}, unrolled layers (n tile {bn}; library: "
+                      f"torch._int_mm without the per-block scales; qmm_dequant {dq:.4f} ms)",
+                      err_u, un, plain, lib, nbytes, 2 * m * n * k)
+            entry("qmm_i8p", "llamafile_tpu_torch/csrc/qmm_i8p.cu",
+                  "llamafile_tpu/ops/qmatmul.py:1904",
+                  f"{label} M={m} N={n} K={k}, layer i of a stack of {layers} (n tile {bn}; "
+                  f"library: torch._int_mm without the per-block scales; qmm_dequant "
+                  f"{dq:.4f} ms)", err, ms, plain, lib, nbytes, 2 * m * n * k)
+            del xq, sxa
+        del w8, sw, qs, sc
         torch.cuda.empty_cache()
-        log(f"  qmm_i8p/{label}/M={m}: qmm_dequant at the same shape {dq:.4f} ms "
-            f"({dq / ms:.2f}x the int8 kernel's time)")
-        entry("qmm_i8p", "llamafile_tpu_torch/csrc/qmm_i8p.cu",
-              "llamafile_tpu/ops/qmatmul.py:1808",
-              f"{label} M={m} N={n} K={k}, layer i of {layers} (library: torch._int_mm "
-              f"without the per-block scales; qmm_dequant {dq:.4f} ms)", err, ms, plain, lib,
-              n * k + (k // 256) * n * 4 + m * k + m * (k // 256) * 4 + 4 * m * n,
-              2 * m * n * k)
 
 
 def int8_kernel_phase(torch, dev, gen, entry, dequant_bf16):
@@ -1666,6 +1785,110 @@ def head_dim_64_check(torch, dev, n_prompt=40, n_decode=4, max_seq_len=1000):
         "calls (both sides), no paged kernel launch")
 
 
+def llama32_3b_check(torch, dev, n_decode=4, max_seq_len=1024):
+    """Decode attention at a head group of 3: Llama-3.2-3B's widths at two
+    layers (llama3.2-3b-2l: 24 query heads over 8 KV heads, head_dim 128),
+    Q4_K, fused and stacked. The Engine's prefill (a 300-token prompt over
+    its bf16 cache, bucket 512: the dequant GEMM and the flash prefill; a
+    40-token one over its stacked int8 cache) and n_decode decode steps
+    (teacher-forced with the card's greedy token), card against CPU: logits
+    within 2e-2 of the largest with the same top-1, each decode step on the
+    card launching its decode kernel once a layer (flash_decode_write for
+    bf16, flash_decode for int8) with no einsum step. Then, on the card,
+    Engine.generate of 8 greedy tokens and 4 requests served at once by a
+    4-row batcher, every decode attention call a kernel launch, counted
+    exactly, with no einsum or gather step; then the 4-row paged decode card
+    against CPU (paged_path_check)."""
+    from llamafile_tpu_torch.models.llama import forward
+    from llamafile_tpu_torch.models.synthetic import make_synthetic_llama
+    from llamafile_tpu_torch.ops import attention as A
+    from llamafile_tpu_torch.ops import reset_launch_counts
+    from llamafile_tpu_torch.runtime.engine import Engine
+    from llamafile_tpu_torch.runtime.sampling import SamplingParams
+    from llamafile_tpu_torch.runtime.tokenizer import Tokenizer
+    from llamafile_tpu_torch.server.batcher import Batcher
+    preset = "llama3.2-3b-2l"
+    cfg, params = make_synthetic_llama(preset, "Q4_K", seed=1, fuse=True, device=dev)
+    n = cfg.n_layers
+    eng = Engine(cfg, params, Tokenizer({}), max_seq_len=max_seq_len, device=dev)
+    del params
+    cpu_params = _to(eng.params, "cpu")
+    what = f"{preset} (G = {cfg.n_heads // cfg.n_kv_heads})"
+    prompt = torch.randint(3, cfg.n_vocab, (300,),
+                           generator=torch.Generator().manual_seed(12)).tolist()
+    decode_kernel = {"bf16": A.flash_decode_write_stacked, "int8": A.flash_decode}
+    for kv, n_prompt in (("bf16", 300), ("int8", 40)):
+        engs = {d: Engine(cfg, p, Tokenizer({}), max_seq_len=max_seq_len, kv_dtype=kv,
+                          device=d) for d, p in (("cuda", eng.params), ("cpu", cpu_params))}
+        caches = {d: e.new_cache() for d, e in engs.items()}
+        logits = {d: [e.prefill(caches[d], prompt[:n_prompt])[0].float().cpu()]
+                  for d, e in engs.items()}
+        nxt = int(logits["cuda"][0].argmax())
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        for step in range(n_decode):
+            for d, e in engs.items():
+                lg, _ = forward(e.params, cfg, torch.tensor([[nxt]], device=d),
+                                torch.tensor([n_prompt + step], dtype=torch.int32, device=d),
+                                caches[d], attn_len=max_seq_len)
+                logits[d].append(lg[0, -1].float().cpu())
+            nxt = int(logits["cuda"][-1].argmax())
+        launched, routes = decode_kernel[kv].launches, dict(A.ROUTE_COUNTS)
+        for i, (a, b) in enumerate(zip(logits["cuda"], logits["cpu"])):
+            rel = ((a - b).abs().max() / b.abs().max()).item()
+            log(f"  {what} {kv} KV, prompt {n_prompt} "
+                f"{'prefill' if i == 0 else f'decode step {i}'}: top-1 card "
+                f"{int(a.argmax())} cpu {int(b.argmax())}, max |diff| / max |logit| = {rel:.3g}")
+            if int(a.argmax()) != int(b.argmax()) or rel > 2e-2:
+                raise AssertionError(f"{what} {kv} KV step {i}: card and CPU disagree")
+        log(f"  {what} {kv} KV: {n_decode} decode steps on the card launched "
+            f"{decode_kernel[kv].__name__} {launched} times (expected {n * n_decode}); "
+            f"routes {routes}")
+        if launched != n * n_decode or any(routes.values()):
+            raise AssertionError(f"{what} {kv} KV: decode left the kernel route")
+        del engs, caches
+    del cpu_params
+    sp = SamplingParams(temperature=0.0)
+    reset_launch_counts()
+    toks = [t for t, _ in eng.generate("", max_tokens=8, sampling=sp, stop_on_eog=False,
+                                       prompt_ids=prompt[:24])]
+    torch.cuda.synchronize()
+    counts, routes = launch_counts(), dict(A.ROUTE_COUNTS)
+    log(f"  {what} Engine.generate of {len(toks)} tokens: flash_decode_write launches "
+        f"{counts['flash_decode_write_stacked']} (expected {7 * n}), routes {routes}")
+    if counts["flash_decode_write_stacked"] != 7 * n or any(routes.values()):
+        raise AssertionError(f"{what}: Engine decode left the kernel route")
+    reset_launch_counts()
+    bt = Batcher(eng, rows=4)
+    try:
+        st0 = bt.stats["decode_steps"]
+        reqs = [bt.submit(prompt[:k], sp, 6) for k in (24, 64, 200, 300)]
+        outs = []
+        for r in reqs:
+            got = []
+            while True:
+                kind, val = r.out.get(timeout=600)
+                if kind == "error":
+                    raise AssertionError(f"{what} batcher: {val}")
+                if kind == "done":
+                    break
+                got.append(val)
+            outs.append(got)
+        steps = bt.stats["decode_steps"] - st0
+    finally:
+        bt.shutdown()
+    counts, routes = launch_counts(), dict(A.ROUTE_COUNTS)
+    log(f"  {what} batcher, 4 rows (prompts 24, 64, 200, 300): {[len(o) for o in outs]} "
+        f"tokens, {steps} paged decode steps; paged_attention launches "
+        f"{counts['paged_attention']} (expected {n * steps}), routes {routes}")
+    if [len(o) for o in outs] != [6] * 4 or counts["paged_attention"] != n * steps \
+            or any(routes.values()):
+        raise AssertionError(f"{what}: the batcher's decode left the kernel route")
+    del eng, bt
+    torch.cuda.empty_cache()
+    paged_path_check(torch, dev, preset=preset)
+
+
 def counted_generate(torch, eng, prompt, n_new):
     """One greedy Engine.generate of n_new tokens after a warm-up run (first
     launches of each kernel at these shapes, allocator; not counted), with
@@ -1852,6 +2075,10 @@ def main_path(torch, dev):
 
     moe_engines, moe_steps, counts_7, moe_prompt = moe_phase(torch, dev, n_new)
 
+    phase("phase 8: llama3.2-3b Q4_K (G = 3), 28 layers stacked, Engine.generate and the "
+          "HTTP server")
+    counts_8 = llama32_phase(torch, dev, prompt)
+
     phase("profiles of phase 7's Mixtral decodes, of phase 4c's Q8_0 decode on a rebuilt "
         "engine, then of phase 4, 4f's int8 decode and 4b on a rebuilt Q4_K engine")
     for what, eng7, step7 in zip(("7a Q4_K stacked", "7b Q4_K_M unrolled"), moe_engines,
@@ -1874,7 +2101,51 @@ def main_path(torch, dev):
     del eng
     torch.cuda.empty_cache()
     return ([counts, counts_b, counts_d, counts_c, counts_5] + counts_f + counts_e + counts_6
-            + counts_7)
+            + counts_7 + counts_8)
+
+
+def llama32_phase(torch, dev, prompt, n_new=32):
+    """Phase 8: Llama-3.2-3B's published widths (models.synthetic preset
+    llama3.2-3b: 28 layers, 24 query heads over 8 KV heads, a head group of
+    3), Q4_K, fused and stacked: Engine.generate of n_new greedy tokens from
+    phase 4's 24-token prompt, launches exact as in phase 4 (the decode
+    attention on flash_decode_write at G = 3), the decode rate against the
+    weight-read bound; then the HTTP server at 4 slots (serve_four: 4 greedy
+    requests, paged_attention at G = 3), each against itself served alone.
+    No decode attention call takes the einsum or gather route. Returns the
+    counted runs' launch counts."""
+    from llamafile_tpu_torch.models.synthetic import decode_read_bytes, make_synthetic_llama
+    from llamafile_tpu_torch.ops import attention as A
+    from llamafile_tpu_torch.runtime.engine import Engine
+    from llamafile_tpu_torch.runtime.tokenizer import Tokenizer
+    t0 = time.time()
+    cfg, params = make_synthetic_llama("llama3.2-3b", "Q4_K", seed=0, fuse=True, device=dev)
+    eng = Engine(cfg, params, Tokenizer({}), max_seq_len=2048, device=dev)
+    del params
+    torch.cuda.synchronize()
+    n = cfg.n_layers
+    read = decode_read_bytes(eng.params, cfg)
+    log(f"  built llama3.2-3b Q4_K ({n} layers, fused, stacked) in {time.time() - t0:.1f} s; "
+        f"decode reads {read / 1e9:.3f} GB of weights a step")
+    steps = n_new - 1
+    _, counts, ttft, decode_s = counted_generate(torch, eng, prompt, n_new)
+    check_counts(counts, {"qmm_txn_m1": 1 + (2 * n + 1) * steps, "qmm_txn": 4 * n,
+                          "qmm_moe_m1": 2 * n * steps,
+                          "flash_decode_write_stacked": n * steps}, "phase 8")
+    decode_report(torch, read, steps, ttft, decode_s, "24-token prompt, bucket 32")
+    routes = dict(A.ROUTE_COUNTS)
+    expect = lambda d, small, big, fr: {
+        "paged_attention": n * d,
+        "qmm_txn": (4 * n + 1) * d + 4 * n * small, "qmm_dequant": 4 * n * big,
+        "flash_prefill": n * sum(c for b, c in fr.items() if b >= 128),
+        "qmm_txn_m1": small + big}
+    counts_s = serve_four(torch, eng, "synthetic-llama3.2-3b-q4k", "phase 8", expect)
+    log(f"  phase 8 decode attention routes: generate {routes}, served {dict(A.ROUTE_COUNTS)}")
+    if any(routes.values()) or any(A.ROUTE_COUNTS.values()):
+        raise AssertionError("phase 8: a decode attention call left the kernel route")
+    del eng
+    torch.cuda.empty_cache()
+    return [counts, counts_s]
 
 
 MOE_SERVED = (0, 1, 2, 3, 4, 5, 6, 7)      # two requests a prompt length
@@ -2050,7 +2321,6 @@ def moe_serving(torch, eng):
     return counts
 
 
-SERVE_LENGTHS = (24, 128, 500, 1000)
 SERVE_SAMPLED = (1, 6, 11, 12)        # request indices sampled at temperature 0.8
 SERVE_CHAT = (14, 15)                 # request indices sent as chat messages
 
@@ -2605,6 +2875,7 @@ def main() -> int:
             ("Q4_K, 300-token prompt, int8 prefill", whole_path_check, ("Q4_K",),
              dict(n_prompt=300, n_decode=2, i8p=True), "txn"),
             ("head_dim 64 (TinyLlama widths)", head_dim_64_check, (), {}, "txn"),
+            ("Llama-3.2-3B widths (G = 3)", llama32_3b_check, (), {}, "txn"),
             ("Q8_0", whole_path_check, ("Q8_0",), dict(n_prompt=24, n_decode=4), "txn"),
             ("paged decode, 4 rows", paged_path_check, (), {}, "txn"),
             ("Q4_K_M", whole_path_check, ("Q4_K_M",), dict(n_prompt=300, n_decode=4), "txn"),

@@ -24,14 +24,19 @@
 // What bounds it on an H100: device-memory bytes of the visible rows, B *
 // n_visible * Hkv * D * 2 (K and V) * (2 B for bf16 | 1 B + 4 B / D for
 // int8); about 2 G flops a byte. Design (that of paged_attention.cu): pass
-// 1 runs one block per (split of the positions, KV head, batch row); the 8
-// half-warps of a block each take one key row at a time, 16 lanes x 8 dims
-// (one 16-byte load a lane for bf16), so the G query heads of the group
-// share every K/V row loaded; each half-warp keeps an online softmax and the
-// block merges them in half-warp order. Splits with no visible row write a
-// neutral partial (m = -1e30, l = 0). Pass 2 combines the splits of each
-// (row, query head) in split order. Both merges are in a fixed order, so the
-// result is the same from run to run.
+// 1 runs one block per (split of the positions, head chunk, KV head, batch
+// row); the 8 half-warps of a block each take one key row at a time, 16
+// lanes x 8 dims (one 16-byte load a lane for bf16), so the query heads of
+// the chunk share every K/V row loaded; each half-warp keeps an online
+// softmax and the block merges them in half-warp order. A group of G <= 8
+// query heads is one chunk, an instance of its own (GC = G, a constant:
+// nothing masked); a larger group runs as NC = ceil(G / 8) chunks of GC =
+// ceil(G / NC) heads on the grid's y axis beside the KV head (the last
+// chunk masks heads past G), each reading the K/V rows again.
+// Splits with no visible row write a neutral partial (m = -1e30, l = 0).
+// Pass 2 combines the splits of each (row, query head) in split order; the
+// scratch is indexed by query head. Both merges are in a fixed order, so
+// the result is the same from run to run.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -72,38 +77,45 @@ __device__ __forceinline__ float half_sum(float v) {
   return v;
 }
 
-template <typename T, int G>
+// GC: query heads a chunk (compile time); G: the group, Hq = Hkv * G;
+// ONE: the group is one chunk (G = GC <= 8), so G and the chunk are
+// known at compile time and no head is masked
+template <typename T, int GC, bool ONE>
 __global__ void __launch_bounds__(NW * 32)
 fd_split_kernel(const float* __restrict__ q, const T* __restrict__ k,
                 const T* __restrict__ v, const float* __restrict__ ks,
                 const float* __restrict__ vs, const int* __restrict__ pos,
                 float* __restrict__ m_part, float* __restrict__ l_part,
-                float* __restrict__ acc_part, int Hkv, int s_eff, long long sb,
+                float* __restrict__ acc_part, int Hkv, int G, int s_eff, long long sb,
                 long long ssb, int win, int chunk, int n_split, float scale) {
   constexpr bool BF = sizeof(T) == 2;            // bf16 cache: round q and p
-  const int s = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  if (ONE) G = GC;
+  const int s = blockIdx.x, b = blockIdx.z;
+  const int c = ONE ? 0 : blockIdx.y / Hkv, h = blockIdx.y - c * Hkv;   // head chunk, KV head
+  const int gn = min(GC, G - c * GC);            // the chunk's heads below G
   const int p = pos[b];
   const int vis_lo = win > 0 ? max(0, p - win + 1) : 0;
   const int j_lo = max(vis_lo, s * chunk);
   const int j_hi = min(min(p + 1, s_eff), (s + 1) * chunk);
   const int lane = threadIdx.x & 15, half = (threadIdx.x >> 4) & 1;
   const int warp = threadIdx.x >> 5, hw = threadIdx.x >> 4;
-  const int Hq = Hkv * G;
+  // query head of the chunk's head 0: heads h * G + c * GC + g, g < gn
+  const size_t qh0 = (size_t)b * Hkv * G + (size_t)h * G + c * GC;
   const T* kb = k + (size_t)b * sb + (size_t)h * D + 8 * lane;
   const T* vb = v + (size_t)b * sb + (size_t)h * D + 8 * lane;
 
-  float qv[G][8];
+  float qv[GC][8];
 #pragma unroll
-  for (int g = 0; g < G; ++g)
+  for (int g = 0; g < GC; ++g)
 #pragma unroll
     for (int e = 0; e < 8; ++e) {
-      const float x = q[((size_t)b * Hq + h * G + g) * D + 8 * lane + e];
+      const float x = g < gn ? q[(qh0 + g) * D + 8 * lane + e] : 0.f;
       qv[g][e] = BF ? bf16_round(x) : x;
     }
 
-  float m[G], l[G], acc[G][8];
+  float m[GC], l[GC], acc[GC][8];
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
+  for (int g = 0; g < GC; ++g) {
     m[g] = NEG;
     l[g] = 0.f;
 #pragma unroll
@@ -138,7 +150,7 @@ fd_split_kernel(const float* __restrict__ q, const T* __restrict__ k,
     for (int u = 0; u < U; ++u) {
       if (j0 + u * NH >= j_hi) break;            // uniform across the warp
 #pragma unroll
-      for (int g = 0; g < G; ++g) {
+      for (int g = 0; g < GC; ++g) {
         float sc = 0.f;
         if (ok[u]) {
 #pragma unroll
@@ -160,30 +172,30 @@ fd_split_kernel(const float* __restrict__ q, const T* __restrict__ k,
   }
 
   extern __shared__ float smem[];
-  float* sm = smem;                              // [NH][G]
-  float* sl = sm + NH * G;                       // [NH][G]
-  float* sacc = sl + NH * G;                     // [NH][G][D]
+  float* sm = smem;                              // [NH][GC]
+  float* sl = sm + NH * GC;                      // [NH][GC]
+  float* sacc = sl + NH * GC;                    // [NH][GC][D]
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
+  for (int g = 0; g < GC; ++g) {
     if (lane == 0) {
-      sm[hw * G + g] = m[g];
-      sl[hw * G + g] = l[g];
+      sm[hw * GC + g] = m[g];
+      sl[hw * GC + g] = l[g];
     }
 #pragma unroll
-    for (int e = 0; e < 8; ++e) sacc[(hw * G + g) * D + 8 * lane + e] = acc[g][e];
+    for (int e = 0; e < 8; ++e) sacc[(hw * GC + g) * D + 8 * lane + e] = acc[g][e];
   }
   __syncthreads();
-  for (int idx = threadIdx.x; idx < G * D; idx += blockDim.x) {
+  for (int idx = threadIdx.x; idx < gn * D; idx += blockDim.x) {
     const int g = idx / D, d = idx % D;
     float mx = NEG;
-    for (int w = 0; w < NH; ++w) mx = fmaxf(mx, sm[w * G + g]);
+    for (int w = 0; w < NH; ++w) mx = fmaxf(mx, sm[w * GC + g]);
     float L = 0.f, A = 0.f;
     for (int w = 0; w < NH; ++w) {
-      const float f = expf(sm[w * G + g] - mx);
-      L += sl[w * G + g] * f;
-      A += sacc[(w * G + g) * D + d] * f;
+      const float f = expf(sm[w * GC + g] - mx);
+      L += sl[w * GC + g] * f;
+      A += sacc[(w * GC + g) * D + d] * f;
     }
-    const size_t o = ((size_t)b * Hq + h * G + g) * n_split + s;
+    const size_t o = (qh0 + g) * n_split + s;        // scratch by query head
     acc_part[o * D + d] = A;
     if (d == 0) {
       m_part[o] = mx;
@@ -210,22 +222,23 @@ fd_combine_kernel(const float* __restrict__ m_part, const float* __restrict__ l_
   out[((size_t)b * Hq + hq) * D + d] = A / fmaxf(L, 1e-30f);
 }
 
-template <typename T, int G>
+template <typename T, int GC, bool ONE>
 int launch(const void* q, const void* k, const void* v, const void* ks, const void* vs,
            const void* pos, void* out, void* m_part, void* l_part, void* acc_part, int B,
-           int Hkv, int s_eff, long long sb, long long ssb, int win, int chunk,
+           int Hkv, int G, int s_eff, long long sb, long long ssb, int win, int chunk,
            int n_split, float scale, cudaStream_t st) {
-  const int smem = (2 * NH * G + NH * G * D) * (int)sizeof(float);
+  const int smem = (2 * NH * GC + NH * GC * D) * (int)sizeof(float);
   static bool smem_set = false;      // once, so later launches can be captured
   if (!smem_set) {
     cudaError_t err = cudaFuncSetAttribute(
-        fd_split_kernel<T, G>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        fd_split_kernel<T, GC, ONE>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
     smem_set = true;
   }
-  fd_split_kernel<T, G><<<dim3(n_split, Hkv, B), NW * 32, smem, st>>>(
+  const int nc = (G + GC - 1) / GC;              // head chunks a group
+  fd_split_kernel<T, GC, ONE><<<dim3(n_split, Hkv * nc, B), NW * 32, smem, st>>>(
       (const float*)q, (const T*)k, (const T*)v, (const float*)ks, (const float*)vs,
-      (const int*)pos, (float*)m_part, (float*)l_part, (float*)acc_part, Hkv, s_eff, sb,
+      (const int*)pos, (float*)m_part, (float*)l_part, (float*)acc_part, Hkv, G, s_eff, sb,
       ssb, win, chunk, n_split, scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
@@ -235,18 +248,25 @@ int launch(const void* q, const void* k, const void* v, const void* ks, const vo
   return (int)cudaGetLastError();
 }
 
+// the instance of the group: G <= 8 is one chunk of G heads, a larger group
+// ceil(G / 8) chunks of gc = ceil(G / ceil(G / 8)) heads, 5 <= gc <= 8
 template <typename T>
 int dispatch(int G, const void* q, const void* k, const void* v, const void* ks,
              const void* vs, const void* pos, void* out, void* m_part, void* l_part,
              void* acc_part, int B, int Hkv, int s_eff, long long sb, long long ssb,
              int win, int chunk, int n_split, float scale, cudaStream_t st) {
-  switch (G) {
-    case 1: return launch<T, 1>(q, k, v, ks, vs, pos, out, m_part, l_part, acc_part, B, Hkv, s_eff, sb, ssb, win, chunk, n_split, scale, st);
-    case 2: return launch<T, 2>(q, k, v, ks, vs, pos, out, m_part, l_part, acc_part, B, Hkv, s_eff, sb, ssb, win, chunk, n_split, scale, st);
-    case 4: return launch<T, 4>(q, k, v, ks, vs, pos, out, m_part, l_part, acc_part, B, Hkv, s_eff, sb, ssb, win, chunk, n_split, scale, st);
-    case 8: return launch<T, 8>(q, k, v, ks, vs, pos, out, m_part, l_part, acc_part, B, Hkv, s_eff, sb, ssb, win, chunk, n_split, scale, st);
+  const int nc = (G + 7) / 8, gc = (G + nc - 1) / nc;
+#define FD_CASE(L, N, ONE)                                                                   \
+  case L:                                                                                    \
+    return launch<T, N, ONE>(q, k, v, ks, vs, pos, out, m_part, l_part, acc_part, B, Hkv, G, \
+                             s_eff, sb, ssb, win, chunk, n_split, scale, st);
+  switch (G <= 8 ? G : -gc) {
+    FD_CASE(1, 1, true) FD_CASE(2, 2, true) FD_CASE(3, 3, true) FD_CASE(4, 4, true)
+    FD_CASE(5, 5, true) FD_CASE(6, 6, true) FD_CASE(7, 7, true) FD_CASE(8, 8, true)
+    FD_CASE(-5, 5, false) FD_CASE(-6, 6, false) FD_CASE(-7, 7, false) FD_CASE(-8, 8, false)
     default: return (int)cudaErrorInvalidValue;
   }
+#undef FD_CASE
 }
 
 }  // namespace
@@ -261,7 +281,8 @@ extern "C" int flash_decode(const void* q, const void* k, const void* v, const v
                             int s_eff, long long sb, long long ssb, int win, int chunk,
                             int n_split, int int8, float scale, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (Hkv <= 0 || Hq % Hkv || chunk <= 0 || n_split <= 0) return (int)cudaErrorInvalidValue;
+  if (Hkv <= 0 || Hq < Hkv || Hq % Hkv || chunk <= 0 || n_split <= 0)
+    return (int)cudaErrorInvalidValue;
   const int G = Hq / Hkv;
   if (int8)
     return dispatch<int8_t>(G, q, k, v, ks, vs, pos, out, m_part, l_part, acc_part, B, Hkv,

@@ -15,8 +15,9 @@
 // pos 700); the arithmetic is about 2 flops a byte, far under the ridge.
 // One block per (batch row, kv head) would be 8 blocks at B = 1, Hkv = 8: 8
 // of the 132 SMs, each bound by the latency of its own loads. So each
-// (b, h) is one thread-block cluster of CS = 8 blocks (64 blocks at B = 1),
-// all in one launch, with no scratch in device memory:
+// (b, h, head chunk) is one thread-block cluster of CS = 8 blocks (64
+// blocks at B = 1, G <= 8), all in one launch, with no scratch in device
+// memory:
 // - rank r takes the rows [r * n_vis / CS, (r + 1) * n_vis / CS), n_vis =
 //   min(pos, s_eff): a split fixed by (n_vis, CS) alone, and every sum
 //   below runs in a fixed order, so the result is the same from run to run;
@@ -25,23 +26,29 @@
 //   through its own ring of NS slots in shared memory, cp.async 16 bytes a
 //   lane (rows past the end zero-filled), NS slabs in flight from the
 //   start; the warps need no block barrier while they stream;
-// - a slab runs on the tensor cores, "swap AB" so that the G <= 8 query
-//   heads of the group are the n = 8 side of mma.sync.m16n8k16: S^T = K Q^T
+// - a slab runs on the tensor cores, "swap AB" so that the GC <= 8 query
+//   heads of a chunk are the n = 8 side of mma.sync.m16n8k16 (columns
+//   GC..7 zero, never stored): S^T = K Q^T
 //   (K by ldmatrix, q rounded to bf16 in registers), one max and one
 //   rescale of acc a slab and head (the TPU kernel's per-block online
 //   softmax), then O^T += V^T P^T (V by ldmatrix.trans; bf16 p moved from
 //   the S^T accumulators into the B fragment by movmatrix.trans). Every
-//   K/V row loaded serves the G heads;
+//   K/V row loaded serves the chunk's heads;
 // - the warps' partials merge in warp order into the rank's (m, l, acc);
 //   the rank then pushes (m, l) to every rank and acc's dims [r * D / CS,
 //   (r + 1) * D / CS) to rank r, with st.async into that rank's shared
 //   memory, counted on its mbarrier; rank r waits for the CS pushes, merges
 //   its dims over the ranks in rank order, the new token last, and writes
-//   them to out and into the new K/V row (no visible row is the row at pos,
-//   so nothing reads it). A cluster barrier at the start (arrived at once,
-//   waited on before the first push) makes sure every rank has started and
-//   set up its mbarrier; no rank reads another's shared memory, so none has
-//   to wait for the others before it exits.
+//   them to out and, in chunk 0 only, into the new K/V row (no visible row
+//   is the row at pos, so no chunk reads it). A cluster barrier at the
+//   start (arrived at once, waited on before the first push) makes sure
+//   every rank has started and set up its mbarrier; no rank reads another's
+//   shared memory, so none has to wait for the others before it exits.
+// A group of G <= 8 query heads is one chunk, an instance of its own (GC =
+// G, a constant: nothing masked); a larger group runs as NC = ceil(G / 8)
+// chunks of GC = ceil(G / NC) heads, one cluster each on
+// the grid's y axis beside the KV head (the last chunk masks heads past G),
+// each reading the K/V rows again.
 // Clusters of 8 blocks are the portable size; 16 (non-portable) read slower
 // on an H100 at every context length measured (PERF.md).
 // The window and softcap options of the TPU kernel are not in this kernel;
@@ -222,12 +229,15 @@ __device__ __forceinline__ void attend_slab(const __nv_bfloat16* ks, int nrw,
 // acc [CS][DL][HN]
 constexpr int SMEM = NW * NS * SLAB * 2 + (2 * CS * HN + D * HN) * 4;
 
-template <int G>
+// GC: query heads a chunk (compile time); G: the group, Hq = Hkv * G;
+// ONE: the group is one chunk (G = GC <= 8), so G and the chunk are
+// known at compile time and no head is masked
+template <int GC, bool ONE>
 __global__ void __launch_bounds__(NT)
 fdw_kernel(const float* __restrict__ q, __nv_bfloat16* __restrict__ k3,
            __nv_bfloat16* __restrict__ v3, const float* __restrict__ kn,
            const float* __restrict__ vn, const int* __restrict__ pos,
-           float* __restrict__ out, int li, int B, int S, int Hkv, int s_eff,
+           float* __restrict__ out, int li, int B, int S, int Hkv, int G, int s_eff,
            float scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* rings = reinterpret_cast<__nv_bfloat16*>(smem_raw);
@@ -240,17 +250,22 @@ fdw_kernel(const float* __restrict__ q, __nv_bfloat16* __restrict__ k3,
 
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
-  constexpr int GP = G > 4 ? HN : 4;   // heads pushed a dim
+  constexpr int GP = GC > 4 ? HN : 4;  // heads pushed a dim
   if (threadIdx.x == 0) {              // every rank sends (m, l) of HN heads and GP x DL acc
     mbar_init(&in_bar, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     mbar_expect_tx(&in_bar, CS * (2 * HN + GP * DL) * 4);
   }
   cluster_arrive_relaxed();            // waited on before the first remote store
-  const int h = blockIdx.y, b = blockIdx.z;
+  if (ONE) G = GC;
+  const int b = blockIdx.z;
+  const int c = ONE ? 0 : blockIdx.y / Hkv, h = blockIdx.y - c * Hkv;   // head chunk, KV head
+  const int gn = min(GC, G - c * GC);  // the chunk's heads below G
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int gq = lane >> 2, qd = lane & 3;
-  const int HD = Hkv * D, Hq = Hkv * G;
+  const int HD = Hkv * D;
+  // query head of the chunk's head 0: heads h * G + c * GC + g, g < gn
+  const size_t qh0 = (size_t)b * Hkv * G + (size_t)h * G + c * GC;
   const int p = pos[b];
   const int n_vis = max(0, min(p, s_eff));
   const int lo = rank_lo(rank, n_vis);
@@ -278,13 +293,13 @@ fdw_kernel(const float* __restrict__ q, __nv_bfloat16* __restrict__ k3,
   }
 
   // q as the B operand (k = dim, n = head): head gq, dims 16kk + 2qd (+8),
-  // rounded to bf16; heads G..7 are zero
+  // rounded to bf16; heads gn..7 are zero (and not read)
   uint32_t qb[D / 16][2];
-  const float* qr = q + ((size_t)b * Hq + h * G + gq) * D + 2 * qd;
+  const float* qr = q + (qh0 + min(gq, gn - 1)) * D + 2 * qd;
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
-    qb[kk][0] = gq < G ? pack_bf16x2(qr[16 * kk], qr[16 * kk + 1]) : 0u;
-    qb[kk][1] = gq < G ? pack_bf16x2(qr[16 * kk + 8], qr[16 * kk + 9]) : 0u;
+    qb[kk][0] = gq < gn ? pack_bf16x2(qr[16 * kk], qr[16 * kk + 1]) : 0u;
+    qb[kk][1] = gq < gn ? pack_bf16x2(qr[16 * kk + 8], qr[16 * kk + 9]) : 0u;
   }
   if (warp == 0) {                     // the new token's scores, from its f32 k
     const float* kr = kn + (size_t)b * HD + h * D + 2 * qd;
@@ -377,14 +392,14 @@ fdw_kernel(const float* __restrict__ q, __nv_bfloat16* __restrict__ k3,
     const uint32_t bar = map_rank(&in_bar, r);
     const uint32_t dst = map_rank(acc_in + (rank * DL + d % DL) * HN, r);
     st_async(dst, make_float4(a[0], a[1], a[2], a[3]), bar);
-    if (G > 4) st_async(dst + 16, make_float4(a[4], a[5], a[6], a[7]), bar);
+    if (GC > 4) st_async(dst + 16, make_float4(a[4], a[5], a[6], a[7]), bar);
   }
   mbar_wait(&in_bar, 0);               // every rank's partial has landed here
 
   // merge dims [rank * DL, (rank + 1) * DL) over the CS rank partials in rank
   // order, the new token last; output o = (g, dl), the weights of head g
   // computed by each of its threads
-  for (int o = tid; o < G * DL; o += NT) {
+  for (int o = tid; o < gn * DL; o += NT) {
     const int g = o / DL, dl = o % DL, d = rank * DL + dl;
     float mr[CS], mx = sn_t[g];
 #pragma unroll
@@ -400,31 +415,31 @@ fdw_kernel(const float* __restrict__ q, __nv_bfloat16* __restrict__ k3,
       a += acc_in[(r * DL + dl) * HN + g] * w;
     }
     const float pn = expf(sn_t[g] - mx);
-    out[((size_t)b * Hq + h * G + g) * D + d] = (a + pn * vn_t[dl]) / fmaxf(L + pn, 1e-30f);
+    out[(qh0 + g) * D + d] = (a + pn * vn_t[dl]) / fmaxf(L + pn, 1e-30f);
   }
-  if (tid < DL && p < S) {             // this rank's dims of the new row, in place
+  if (c == 0 && tid < DL && p < S) {   // this rank's dims of the new row, in place, once
     const size_t o = (row0 + p) * HD + h * D + rank * DL + tid;
     k3[o] = __float2bfloat16_rn(kn_d);
     v3[o] = __float2bfloat16_rn(vn_d);
   }
 }
 
-// fdw_kernel<G>'s launch: a cluster of CS blocks a (batch row, kv head).
-// Its shared-memory limit is set once, so that later launches can be
-// captured in a CUDA graph.
-template <int G>
+// fdw_kernel<GC, ONE>'s launch: a cluster of CS blocks a (batch row, kv head,
+// head chunk). Its shared-memory limit is set once, so that later launches
+// can be captured in a CUDA graph.
+template <int GC, bool ONE>
 int launch(const void* q, void* k3, void* v3, const void* kn, const void* vn,
-           const void* pos, void* out, int li, int B, int S, int Hkv, int s_eff,
+           const void* pos, void* out, int li, int B, int S, int Hkv, int G, int s_eff,
            float scale, cudaStream_t st) {
   static bool smem_set = false;
   if (!smem_set) {
     const cudaError_t err = cudaFuncSetAttribute(
-        fdw_kernel<G>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+        fdw_kernel<GC, ONE>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
     if (err != cudaSuccess) return (int)err;
     smem_set = true;
   }
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(CS, Hkv, B);
+  cfg.gridDim = dim3(CS, Hkv * ((G + GC - 1) / GC), B);
   cfg.blockDim = dim3(NT);
   cfg.dynamicSmemBytes = SMEM;
   cfg.stream = st;
@@ -436,8 +451,8 @@ int launch(const void* q, void* k3, void* v3, const void* kn, const void* vn,
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
   const cudaError_t err = cudaLaunchKernelEx(
-      &cfg, fdw_kernel<G>, (const float*)q, (__nv_bfloat16*)k3, (__nv_bfloat16*)v3,
-      (const float*)kn, (const float*)vn, (const int*)pos, (float*)out, li, B, S, Hkv,
+      &cfg, fdw_kernel<GC, ONE>, (const float*)q, (__nv_bfloat16*)k3, (__nv_bfloat16*)v3,
+      (const float*)kn, (const float*)vn, (const int*)pos, (float*)out, li, B, S, Hkv, G,
       s_eff, scale);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
@@ -445,17 +460,24 @@ int launch(const void* q, void* k3, void* v3, const void* kn, const void* vn,
 
 }  // namespace
 
+// G = Hq / Hkv <= 8 is one chunk of G heads, a larger group ceil(G / 8)
+// chunks of gc = ceil(G / ceil(G / 8)) heads, 5 <= gc <= 8.
 extern "C" int flash_decode_write(const void* q, void* k3, void* v3,
                                   const void* kn, const void* vn,
                                   const void* pos, void* out, int li, int B,
                                   int S, int Hq, int Hkv, int s_eff,
                                   float scale, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  switch (Hq / Hkv) {
-    case 1: return launch<1>(q, k3, v3, kn, vn, pos, out, li, B, S, Hkv, s_eff, scale, st);
-    case 2: return launch<2>(q, k3, v3, kn, vn, pos, out, li, B, S, Hkv, s_eff, scale, st);
-    case 4: return launch<4>(q, k3, v3, kn, vn, pos, out, li, B, S, Hkv, s_eff, scale, st);
-    case 8: return launch<8>(q, k3, v3, kn, vn, pos, out, li, B, S, Hkv, s_eff, scale, st);
+  if (Hkv <= 0 || Hq < Hkv || Hq % Hkv) return (int)cudaErrorInvalidValue;
+  const int G = Hq / Hkv, nc = (G + 7) / 8, gc = (G + nc - 1) / nc;
+#define FDW_CASE(L, N, ONE) \
+  case L:                    \
+    return launch<N, ONE>(q, k3, v3, kn, vn, pos, out, li, B, S, Hkv, G, s_eff, scale, st);
+  switch (G <= 8 ? G : -gc) {
+    FDW_CASE(1, 1, true) FDW_CASE(2, 2, true) FDW_CASE(3, 3, true) FDW_CASE(4, 4, true)
+    FDW_CASE(5, 5, true) FDW_CASE(6, 6, true) FDW_CASE(7, 7, true) FDW_CASE(8, 8, true)
+    FDW_CASE(-5, 5, false) FDW_CASE(-6, 6, false) FDW_CASE(-7, 7, false) FDW_CASE(-8, 8, false)
     default: return (int)cudaErrorInvalidValue;
   }
+#undef FDW_CASE
 }

@@ -1,4 +1,4 @@
-// qmm_i8p: the int8 prefill GEMM on Hopper s8 tensor cores.
+// qmm_i8p: the int8 prefill GEMM on Hopper s8 warpgroup tensor cores.
 //
 // Replaces the TPU kernel _qmm_kernel_i8p (llamafile_tpu/ops/qmatmul.py:1808,
 // called by _qmm_call_i8p :1871) and its layer-indexed form
@@ -12,194 +12,265 @@
 // i8p_prep); w8 int8 [Ns, K] and sw f32 [K/256, Ns] the companion
 // (ops/repack.py attach_int8_prefill, which stores w8 K-contiguous, the
 // transpose of the reference's [K, Ns]); y f32 [M, Ns]. A block's dot is
-// exact in int32 (256 * 127^2 < 2^31) and in its conversion to f32 (< 2^24).
-// The f32 update runs in the reference's order with __fmul_rn / __fadd_rn,
-// so nvcc contracts nothing into an FMA, and the blocks run serially in K
-// order with no split-K: the same roundings in the same order as the plain
-// version (qmm_i8p_plain).
-//
-// Design: 128 x 128 output tiles, 8 warps of 64 x 32, on
-// mma.sync.m16n8k32 (s8 in, s32 out). Both operands are K-contiguous, so
-// each 64-deep K step copies its A (xq rows) and B (w8 rows) tiles straight
-// into shared memory with 16-byte cp.async, in a ring of 4 stages, and
-// ldmatrix loads the fragments (mma_s8.cuh). Four steps make a 256-block:
-// its int32 sums are then scaled into the f32 accumulators and restart
-// from zero. Rows past M (a ragged bucket or admission slice) and columns
-// past Ns are zero-filled and never stored; warps whose rows all lie past
-// M skip their products. The grid walks M fastest, so the M tiles of one
-// column tile share its weight reads in L2. wgmma/TMA are a later step.
+// exact in int32 (256 * 128^2 < 2^31) and in its conversion to f32 (< 2^24).
+// The f32 update ("the fold") runs in the reference's order with
+// __fmul_rn / __fadd_rn, so nvcc contracts nothing into an FMA, and the
+// blocks run serially in K order with no split-K: the same roundings in the
+// same order as the plain version (qmm_i8p_plain), so the output is equal
+// to it bit for bit at every tiling.
 //
 // What bounds it on an H100: int8 operations at prefill sizes (gate|up at
 // M = 1024 is 2.4e11 operations, 0.1215 ms at 1979 TOP/s), weight bytes at
 // small M.
-#include "mma_s8.cuh"
+//
+// Design: BM x BN output tiles (BM = 128, BN = 128, or 64 where the wrapper
+// finds too few 128-wide tiles to fill the SMs), 256 threads as two
+// warpgroups of 64 rows, each issuing wgmma.mma_async m64nBNk32 (s8 in, s32
+// out) from 128-byte-swizzled shared memory (wgmma_s8.cuh): both operands
+// are K-major, as xq and w8 are stored, so a K step of 128 is one swizzle
+// row of A (xq rows) and of B (w8 rows), four k32 wgmmas, and a 256-block
+// is two steps. The tiles stream through a ring of STAGES stages by 16-byte
+// cp.async, DIST = STAGES - 2 steps ahead, one commit group and one block
+// barrier a step; the last step of a 256-block also brings the block's
+// scales (sxa of the tile's rows, sw of its columns) into its stage. A
+// block's wgmmas go into one s32 accumulator set (the first with scale-d
+// 0, which also clears it); its int32 sums can be read only once they have
+// completed, so after the block's last step the warpgroup waits for all its
+// wgmmas and folds the set into its f32 accumulators, scales read from
+// shared memory, while the loads of the next steps are in flight. Folding
+// block b from a second set beside block b + 1's wgmmas (two sets, the fold
+// overlapped) is the probe's `overlap` variant (scripts/probe_i8p.py): it
+// measured slower, as the kernel is bound by its operand traffic, not by
+// the tensor cores. At BN = 128 a thread holds 64 f32 and 64 s32
+// accumulators (N = 256 would need 256 and does not fit the 255 registers
+// a thread). Rows past M and columns past Ns are
+// zero-filled, multiplied and never stored: every warpgroup issues its
+// wgmmas, as ptxas serializes wgmmas behind a branch it cannot prove
+// uniform (its warning C7518). The grid walks M fastest, so the M tiles of
+// one column tile run together and share its weight reads in L2. TMA and
+// warp specialisation are later steps.
+#include "mma_bf16.cuh"
+#include "wgmma_s8.cuh"
 
 namespace {
 
 using namespace mma;
 
-constexpr int BM = 128, BN = 128, BK = 64, STAGES = 4;
-constexpr int THREADS = 256;
-constexpr int PAD = BK + 16;                 // byte row stride: ldmatrix conflict-free
-constexpr int TILE_BYTES = 128 * PAD;
-constexpr int STAGE_BYTES = 2 * TILE_BYTES;  // A tile, then B tile
-constexpr int SMEM_BYTES = STAGES * STAGE_BYTES;
-constexpr int STEPS_PER_BLOCK = 256 / BK;
+constexpr int BM = 128, BK = 128;           // a K step: one 128-byte swizzle row of int8
+constexpr int THREADS = 256;                // two warpgroups of 64 rows
+constexpr int STAGES = 6;
+constexpr int DIST = STAGES - 2;            // steps a load runs ahead of its wgmmas
+constexpr int STEPS = 256 / BK;             // K steps of a 256-block
+constexpr int A_BYTES = BM * BK;
 
-// K step ks of rows [r0, r0 + 128) of the K-contiguous int8 matrix src
-// [rows, K] into the tile dst (cp.async; rows past `rows` zero-filled).
-__device__ __forceinline__ void load_tile(const int8_t* src, int8_t* dst, int ks, int r0,
+// A stage: [A tile | B tile | sxa of the BM rows | sw of the BN columns],
+// 1024-aligned for the swizzle.
+template <int BN>
+struct Stage {
+  static constexpr int B = A_BYTES;
+  static constexpr int SX = B + BN * BK;
+  static constexpr int SW = SX + 4 * BM;
+  static constexpr int BYTES = (SW + 4 * BN + 1023) / 1024 * 1024;
+  static constexpr int SMEM = STAGES * BYTES + 1024;   // + alignment room
+};
+
+// 4-byte global -> shared copy; zero-fills the destination when !valid.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 4 : 0));
+}
+
+// Byte offset of 16-byte chunk c of row `row` in a swizzled tile.
+__device__ __forceinline__ int sw128(int row, int c) {
+  return row * 128 + ((c ^ (row & 7)) << 4);
+}
+
+// cp.async the rows [r0, r0 + ROWS) of K step ks of the K-contiguous int8
+// matrix src [rows, K] into the tile dst (rows past `rows` zero-filled).
+template <int ROWS>
+__device__ __forceinline__ void load_tile(unsigned char* dst, const int8_t* src, int ks, int r0,
                                           int rows, int K) {
 #pragma unroll
-  for (int i = 0; i < 128 * BK / 16 / THREADS; ++i) {
+  for (int i = 0; i < ROWS * 8 / THREADS; ++i) {
     const int idx = threadIdx.x + THREADS * i;
-    const int row = idx >> 2, seg = idx & 3;
+    const int row = idx >> 3, c = idx & 7;
     const bool valid = r0 + row < rows;
-    const int8_t* s = valid ? src + (size_t)(r0 + row) * K + BK * ks + 16 * seg : src;
-    cp_async16(dst + row * PAD + 16 * seg, s, valid);
+    const int8_t* s = valid ? src + (size_t)(r0 + row) * K + BK * ks + 16 * c : src;
+    cp_async16(dst + sw128(row, c), s, valid);
   }
 }
 
-__device__ __forceinline__ void load_stage(const int8_t* xq, const int8_t* w8, int8_t* st,
-                                           int ks, int m0, int n0, int M, int K, int Ns) {
-  load_tile(xq, st, ks, m0, M, K);
-  load_tile(w8, st + TILE_BYTES, ks, n0, Ns, K);
+// K step ks into the stage st; the last step of a 256-block also brings
+// the block's scales of the tile's rows and columns.
+template <int BN>
+__device__ __forceinline__ void load_stage(unsigned char* st, const int8_t* xq,
+                                           const float* sxa, const int8_t* w8,
+                                           const float* sw, int ks, int m0, int n0, int M,
+                                           int K, int Ns) {
+  load_tile<BM>(st, xq, ks, m0, M, K);
+  load_tile<BN>(st + Stage<BN>::B, w8, ks, n0, Ns, K);
+  if (ks % STEPS == STEPS - 1) {
+    const int b = ks / STEPS, t = threadIdx.x;
+    if (t < BM) {
+      const bool valid = m0 + t < M;
+      cp_async4(st + Stage<BN>::SX + 4 * t,
+                valid ? sxa + (size_t)(m0 + t) * (K / 256) + b : sxa, valid);
+    } else if (t < BM + BN / 4) {            // Ns % 16 == 0: a chunk is all in or out
+      const int c = t - BM;
+      const bool valid = n0 + 4 * c < Ns;
+      cp_async16(st + Stage<BN>::SW + 16 * c,
+                 valid ? sw + (size_t)b * Ns + n0 + 4 * c : sw, valid);
+    }
+  }
 }
 
+template <int BN>
+__device__ __forceinline__ void mma(int (&d)[BN / 2], uint64_t da, uint64_t db, int scale_d) {
+  if constexpr (BN == 128)
+    wgmma::m64n128k32(d, da, db, scale_d);
+  else
+    wgmma::m64n64k32(d, da, db, scale_d);
+}
+
+// Issue one K step of warpgroup wg's 64 x BN tile into the s32 set d, from
+// the stage at shared address st: four k32 wgmmas in one commit group (not
+// waited for here); the first step of a block starts d from its product.
+template <int BN>
+__device__ __forceinline__ void mma_step(int (&d)[BN / 2], uint32_t st, int wg, bool first) {
+  wgmma::fence_operands(d);
+  wgmma::fence();
+#pragma unroll
+  for (int kk = 0; kk < BK / 32; ++kk)
+    mma<BN>(d, wgmma::desc_sw128(st + 8192 * wg + 32 * kk, 16, 1024),
+            wgmma::desc_sw128(st + Stage<BN>::B + 32 * kk, 16, 1024),
+            first && kk == 0 ? 0 : 1);
+  wgmma::commit();
+  wgmma::fence_operands(d);
+}
+
+// acc += (float(p) * sxa[row, b]) * sw[b, col] for this thread's fragment,
+// the block's scales read from the stage st that brought them.
+template <int BN>
+__device__ __forceinline__ void fold(float (&acc)[BN / 2], const int (&p)[BN / 2],
+                                     const unsigned char* st, int wg) {
+  const int lane = threadIdx.x & 31, w = (threadIdx.x >> 5) & 3;
+  const float* sx = reinterpret_cast<const float*>(st + Stage<BN>::SX) + 64 * wg + 16 * w +
+                    (lane >> 2);
+  const float* swc = reinterpret_cast<const float*>(st + Stage<BN>::SW) + 2 * (lane & 3);
+  const float x[2] = {sx[0], sx[8]};
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const float2 s = *reinterpret_cast<const float2*>(swc + 8 * j);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int i = 4 * j + 2 * h;
+      acc[i] = __fadd_rn(acc[i], __fmul_rn(__fmul_rn(__int2float_rn(p[i]), x[h]), s.x));
+      acc[i + 1] =
+          __fadd_rn(acc[i + 1], __fmul_rn(__fmul_rn(__int2float_rn(p[i + 1]), x[h]), s.y));
+    }
+  }
+}
+
+struct Args {
+  const int8_t* xq;
+  const float* sxa;
+  const int8_t* w8;
+  const float* sw;
+  int M, K, Ns, m0, n0, wg;
+  unsigned char* smem;
+};
+
+// The STEPS K steps of 256-block b into the s32 set p, then its fold.
+template <int BN>
+__device__ __forceinline__ void run_block(const Args& a, int b, float (&acc)[BN / 2],
+                                          int (&p)[BN / 2]) {
+  const int nk = a.K / BK;
+  const uint32_t s0 = smem_addr(a.smem);
+#pragma unroll
+  for (int h = 0; h < STEPS; ++h) {
+    const int ks = STEPS * b + h;
+    cp_async_wait<DIST - 1>();               // step ks has landed (this thread's part)
+    wgmma::fence_proxy_async();
+    __syncthreads();                         // every part; step ks - 2's slot is free
+    mma_step<BN>(p, s0 + (ks % STAGES) * Stage<BN>::BYTES, a.wg, h == 0);
+    if (ks + DIST < nk)
+      load_stage<BN>(a.smem + ((ks + DIST) % STAGES) * Stage<BN>::BYTES, a.xq, a.sxa, a.w8,
+                     a.sw, ks + DIST, a.m0, a.n0, a.M, a.K, a.Ns);
+    cp_async_commit();
+    if (h < STEPS - 1) wgmma::wait<1>();     // step ks - 1's slot may be refilled
+  }
+  wgmma::wait<0>();                          // the block's sums are complete
+  wgmma::fence_operands(p);
+  fold<BN>(acc, p, a.smem + ((STEPS * b + STEPS - 1) % STAGES) * Stage<BN>::BYTES, a.wg);
+}
+
+template <int BN>
 __global__ void __launch_bounds__(THREADS, 1)
 qmm_i8p_kernel(const int8_t* __restrict__ xq, const float* __restrict__ sxa,
                const int8_t* __restrict__ w8, const float* __restrict__ sw,
                float* __restrict__ y, int M, int K, int Ns) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  int8_t* smem = reinterpret_cast<int8_t*>(smem_raw);   // [STAGES][A | B][128][PAD]
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int wm = warp >> 2, wn = warp & 3;           // warp tile: rows 64wm, cols 32wn
-  const int g = lane >> 2, q = lane & 3;
-  // m16 tiles of this warp that hold rows below M (warp-uniform)
-  const int mt = min(4, max(0, (M - m0 - 64 * wm + 15) / 16));
+  unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  const Args a{xq, sxa, w8, sw, M, K, Ns, (int)blockIdx.x * BM, (int)blockIdx.y * BN,
+               (int)threadIdx.x >> 7, smem};
   const int nk = K / BK, nb = K / 256;
 
-  float acc[4][4][4];
-  int p[4][4][4];
+  float acc[BN / 2];
+  int p[BN / 2];
 #pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int b = 0; b < 4; ++b)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        acc[a][b][c] = 0.f;
-        p[a][b][c] = 0;
-      }
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
 
 #pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < nk) load_stage(xq, w8, smem + s * STAGE_BYTES, s, m0, n0, M, K, Ns);
+  for (int s = 0; s < DIST; ++s) {
+    if (s < nk) load_stage<BN>(smem + s * Stage<BN>::BYTES, xq, sxa, w8, sw, s, a.m0, a.n0, M,
+                               K, Ns);
     cp_async_commit();
   }
-  for (int ks = 0; ks < nk; ++ks) {
-    cp_async_wait<STAGES - 2>();     // step ks has landed
-    __syncthreads();                 // ... for every thread; step ks - 1's slot is free
-    const int pre = ks + STAGES - 1;
-    if (pre < nk) load_stage(xq, w8, smem + (pre % STAGES) * STAGE_BYTES, pre, m0, n0, M, K, Ns);
-    cp_async_commit();
-    const int8_t* a_s = smem + (ks % STAGES) * STAGE_BYTES;
-    const int8_t* b_s = a_s + TILE_BYTES;
-#pragma unroll
-    for (int kk = 0; kk < BK / 32; ++kk) {
-      uint32_t bfr[4][2];
-#pragma unroll
-      for (int np = 0; np < 2; ++np) {
-        // matrices (n 0-7, k 0-15), (n 0-7, k 16-31), (n 8-15, k 0-15), (n 8-15, k 16-31)
-        uint32_t r[4];
-        ldmatrix_x4(r, b_s + (32 * wn + 16 * np + (lane & 7) + 8 * (lane >> 4)) * PAD +
-                           32 * kk + 16 * ((lane >> 3) & 1));
-        bfr[2 * np][0] = r[0];
-        bfr[2 * np][1] = r[1];
-        bfr[2 * np + 1][0] = r[2];
-        bfr[2 * np + 1][1] = r[3];
-      }
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi) {
-        if (mi < mt) {
-          // matrices (rows 0-7, k 0-15), (8-15, 0-15), (0-7, 16-31), (8-15, 16-31)
-          uint32_t afr[4];
-          ldmatrix_x4(afr, a_s + (64 * wm + 16 * mi + (lane & 15)) * PAD + 32 * kk +
-                               16 * (lane >> 4));
-#pragma unroll
-          for (int ni = 0; ni < 4; ++ni) mma_16832_s8(p[mi][ni], afr, bfr[ni][0], bfr[ni][1]);
-        }
-      }
-    }
-    if (ks % STEPS_PER_BLOCK == STEPS_PER_BLOCK - 1) {
-      // 256-block b is summed: acc += (float(p) * sxa[m, b]) * sw[b, n]
-      const int b = ks / STEPS_PER_BLOCK;
-      float swc[4][2];
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const int c = n0 + 32 * wn + 8 * ni + 2 * q + j;
-          swc[ni][j] = c < Ns ? __ldg(sw + (size_t)b * Ns + c) : 0.f;
-        }
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi) {
-        if (mi < mt) {
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int row = m0 + 64 * wm + 16 * mi + g + 8 * h;
-            const float sx = row < M ? __ldg(sxa + (size_t)row * nb + b) : 0.f;
-#pragma unroll
-            for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-              for (int j = 0; j < 2; ++j) {
-                const int e = 2 * h + j;
-                acc[mi][ni][e] = __fadd_rn(
-                    acc[mi][ni][e],
-                    __fmul_rn(__fmul_rn(__int2float_rn(p[mi][ni][e]), sx), swc[ni][j]));
-                p[mi][ni][e] = 0;
-              }
-          }
-        }
-      }
-    }
-  }
+  for (int b = 0; b < nb; ++b) run_block<BN>(a, b, acc, p);
   cp_async_wait<0>();
 
+  const int lane = threadIdx.x & 31, w = (threadIdx.x >> 5) & 3;
+  const int g = lane >> 2, q = lane & 3;
 #pragma unroll
-  for (int mi = 0; mi < 4; ++mi) {
+  for (int h = 0; h < 2; ++h) {
+    const int row = a.m0 + 64 * a.wg + 16 * w + g + 8 * h;
+    if (row >= M) continue;
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = m0 + 64 * wm + 16 * mi + g + 8 * h;
-      if (row >= M) continue;
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int c = n0 + 32 * wn + 8 * ni + 2 * q;
-        if (c >= Ns) continue;
-        *reinterpret_cast<float2*>(y + (size_t)row * Ns + c) =
-            make_float2(acc[mi][ni][2 * h], acc[mi][ni][2 * h + 1]);
-      }
+    for (int j = 0; j < BN / 8; ++j) {
+      const int c = a.n0 + 8 * j + 2 * q;
+      if (c >= Ns) continue;
+      *reinterpret_cast<float2*>(y + (size_t)row * Ns + c) =
+          make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
     }
   }
+}
+
+template <int BN>
+int launch(const void* xq, const void* sxa, const void* w8, const void* sw, void* y, int M,
+           int K, int Ns, cudaStream_t st) {
+  static bool smem_set = false;      // once, so later launches can be captured
+  if (!smem_set) {
+    cudaError_t err = cudaFuncSetAttribute(
+        qmm_i8p_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize, Stage<BN>::SMEM);
+    if (err != cudaSuccess) return (int)err;
+    smem_set = true;
+  }
+  dim3 grid((M + BM - 1) / BM, (Ns + BN - 1) / BN);
+  qmm_i8p_kernel<BN><<<grid, THREADS, Stage<BN>::SMEM, st>>>(
+      (const int8_t*)xq, (const float*)sxa, (const int8_t*)w8, (const float*)sw, (float*)y, M,
+      K, Ns);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // xq int8 [M, K]; sxa f32 [M, K/256]; w8 int8 [Ns, K]; sw f32 [K/256, Ns];
-// y f32 [M, Ns]. K % 256 == 0, Ns % 16 == 0.
+// y f32 [M, Ns]. K % 256 == 0, Ns % 16 == 0; bn the n tile, 128 or 64.
 extern "C" int qmm_i8p(const void* xq, const void* sxa, const void* w8, const void* sw,
-                       void* y, int M, int K, int Ns, void* stream) {
+                       void* y, int M, int K, int Ns, int bn, void* stream) {
   if (M < 1 || K < 256 || K % 256 || Ns < 16 || Ns % 16) return (int)cudaErrorInvalidValue;
-  static bool smem_set = false;      // once, so later launches can be captured
-  if (!smem_set) {
-    cudaError_t err = cudaFuncSetAttribute(
-        qmm_i8p_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
-    if (err != cudaSuccess) return (int)err;
-    smem_set = true;
-  }
-  dim3 grid((M + BM - 1) / BM, (Ns + BN - 1) / BN);
-  qmm_i8p_kernel<<<grid, THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
-      (const int8_t*)xq, (const float*)sxa, (const int8_t*)w8, (const float*)sw, (float*)y, M,
-      K, Ns);
-  return (int)cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+  if (bn == 128) return launch<128>(xq, sxa, w8, sw, y, M, K, Ns, st);
+  if (bn == 64) return launch<64>(xq, sxa, w8, sw, y, M, K, Ns, st);
+  return (int)cudaErrorInvalidValue;
 }

@@ -8,6 +8,8 @@ layout and byte counts.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from ..device import resolve_device
@@ -31,6 +33,17 @@ PRESETS = {
     "llama3-8b-2l": dict(n_layers=2, d_model=4096, n_heads=32, n_kv_heads=8,
                          d_ff=14336, n_vocab=128256, rope_theta=500000.0,
                          max_context=8192),
+    # Llama-3.2-3B's published widths (its model card: 28 layers, d 3072, 24
+    # query heads over 8 KV heads, a head group of 3, head_dim 128, d_ff
+    # 8192, vocab 128256, rope theta 500000, 128K context); its head is
+    # tied to the embedding there and a separate random matrix here
+    "llama3.2-3b": dict(n_layers=28, d_model=3072, n_heads=24, n_kv_heads=8,
+                        d_ff=8192, n_vocab=128256, rope_theta=500000.0,
+                        max_context=131072),
+    # the same widths at two layers: card-vs-CPU checks
+    "llama3.2-3b-2l": dict(n_layers=2, d_model=3072, n_heads=24, n_kv_heads=8,
+                           d_ff=8192, n_vocab=128256, rope_theta=500000.0,
+                           max_context=131072),
     # Mixtral-8x7B's published widths (top-2-of-8 routed experts) at the
     # reference preset's 8 layers; share_layers: every layer holds the same
     # weight buffers (a decode step reads as many bytes as with distinct
@@ -50,9 +63,10 @@ PRESETS = {
 }
 
 
-def _rand_qtensor(gen: torch.Generator, n: int, k: int, quant: str,
+def _rand_qtensor(gen: Optional[torch.Generator], n: int, k: int, quant: str,
                   device) -> QTensor:
-    """Random QTensor in the production layout (storage N padded to 2048)."""
+    """Random QTensor in the production layout (storage N padded to 2048);
+    on the meta device (gen None) the layout without data."""
     if quant in ("F16", "BF16", "F32"):
         qs = torch.randn((k, n), generator=gen, device=device) * 0.02
         return QTensor("dense", (n, k), 0, qs.to(torch.bfloat16))
@@ -88,15 +102,19 @@ def make_synthetic_llama(preset: str = "tiny", quant: str = "Q4_K",
                          seed: int = 0, fuse: bool = False, device="cuda"):
     """Returns (cfg, params) with random weights on `device`. A MoE preset
     gives each layer a dense router and expert stacks (stack_experts; gate|up
-    joined when fuse), as the loader does."""
-    dev = resolve_device(device)
+    joined when fuse), as the loader does. device "meta" gives the shapes,
+    dtypes and byte counts of the layout with no data (param_bytes and
+    decode_read_bytes of a preset, without building it)."""
+    dev = torch.device("meta") if str(device) == "meta" else resolve_device(device)
     kw = dict(PRESETS[preset])
     rope_theta = kw.pop("rope_theta", 10000.0)
     share_layers = kw.pop("share_layers", False)
     cfg = LlamaConfig(head_dim=kw["d_model"] // kw["n_heads"],
                       rope_theta=rope_theta, **kw)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
+    gen = None
+    if dev.type != "meta":
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
     d, h, kvh, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     rq = lambda n, k: _rand_qtensor(gen, n, k, quant, dev)
     layers = []

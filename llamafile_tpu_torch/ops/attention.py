@@ -25,7 +25,10 @@ before any launch (decode_route): a dense cache takes the f32 einsum for
 S % 256, D % 128 or Hq > 256, a paged pool the gather for D % 128 or a v
 width other than D; the kernel otherwise (its plain version for CPU
 tensors). ROUTE_COUNTS counts the einsum and gather calls, as `.launches`
-counts each kernel's.
+counts each kernel's. The three decode kernels take every head group G =
+Hq / Hkv at D = 128, as the reference's kernels do: a group of up to 8
+query heads is one chunk of a kernel's work, a larger one head_chunks(G)
+chunks on the grid, each reading its K/V rows again.
 """
 from __future__ import annotations
 
@@ -58,6 +61,24 @@ def decode_route(d: int, *, hq: int = 0, s_eff: int = 0, dv: Optional[int] = Non
     if paged:
         return "gather" if d % 128 or (dv is not None and dv != d) else "kernel"
     return "einsum" if s_eff % 256 or d % 128 or hq > 256 else "kernel"
+
+
+def head_chunks(g: int) -> int:
+    """The chunks a decode kernel splits a group of g query heads into: one
+    for g <= 8, else ceil(g / 8) of ceil(g / chunks) heads each (the C
+    entries compute the same)."""
+    return -(-g // 8)
+
+
+def _check_group(what: str, d: int, hq: int, hkv: int, dk: Optional[int] = None) -> None:
+    """The decode kernels' domain: D = 128 (and a cache of the same width)
+    and Hq a multiple of Hkv; raises ValueError outside it."""
+    if d != 128 or (dk is not None and dk != d) or hkv < 1 or hq % hkv:
+        raise ValueError(f"{what} takes D=128 and Hq a multiple of Hkv, got D={d}"
+                         + ("" if dk is None else f" (cache {dk})")
+                         + f", Hq={hq}, Hkv={hkv}")
+
+
 _MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)   # upstream's
 
 
@@ -204,8 +225,9 @@ def flash_decode_write_stacked(q, k3, v3, k_new, v_new, li: int, pos,
     on the cache's device. s_limit bounds the streamed positions (the
     attn_len bucket). Shapes of the einsum route (decode_route) write the
     rows, then run flash_decode_stacked, as the reference does. On the card
-    a call is one launch of B * Hkv thread-block clusters of 8 blocks, with
-    no scratch in device memory. Returns attn [B, Hq, D] f32."""
+    a call is one launch of B * Hkv * head_chunks(Hq / Hkv) thread-block
+    clusters of 8 blocks, with no scratch in device memory. Returns attn
+    [B, Hq, D] f32."""
     b, hq, d = q.shape
     n_l, _, s_len, _ = k3.shape
     s_eff = s_limit if s_limit is not None and s_limit < s_len else s_len
@@ -222,9 +244,7 @@ def flash_decode_write_stacked(q, k3, v3, k_new, v_new, li: int, pos,
         raise NotImplementedError(
             "the sliding window and softcap of _flash_decode_write_kernel are "
             "not in the CUDA kernel yet")
-    if d != 128 or hq % hkv or hq // hkv not in (1, 2, 4, 8):
-        raise ValueError(f"flash_decode_write takes D=128 and Hq/Hkv in "
-                         f"(1, 2, 4, 8), got D={d}, Hq={hq}, Hkv={hkv}")
+    _check_group("flash_decode_write", d, hq, hkv)
     qf = q.float().contiguous()
     kn = k_new.float().reshape(b, hkv * d).contiguous()
     vn = v_new.float().reshape(b, hkv * d).contiguous()
@@ -313,9 +333,7 @@ def _flash_decode_launch(q, k, v, k_scale, v_scale, pos, scale: float,
     b, hq, d = q.shape
     _, s_eff, hkv, dk = k.shape
     quant = k_scale is not None
-    if d != 128 or dk != d or hq % hkv or hq // hkv not in (1, 2, 4, 8):
-        raise ValueError(f"flash_decode takes D=128 and Hq/Hkv in (1, 2, 4, 8), "
-                         f"got D={d} (cache {dk}), Hq={hq}, Hkv={hkv}")
+    _check_group("flash_decode", d, hq, hkv, dk)
     qf = q.float().contiguous()
     pos32 = pos.to(torch.int32).contiguous()
     cache_t = torch.int8 if quant else torch.bfloat16
@@ -336,7 +354,8 @@ def _flash_decode_launch(q, k, v, k_scale, v_scale, pos, scale: float,
         raise ValueError(f"flash_decode: pos must be int32 [{b}] on {q.device}")
     # splits of 16 positions or more, enough to fill the SMs a few blocks deep
     sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-    per_split = -(-s_eff // max(1, -(-4 * sms // (b * hkv))))
+    blocks = b * hkv * head_chunks(hq // hkv)            # a split's blocks
+    per_split = -(-s_eff // max(1, -(-4 * sms // blocks)))
     chunk = max(16, -(-per_split // 16) * 16)
     n_split = -(-s_eff // chunk)
     out = torch.empty((b, hq, d), dtype=torch.float32, device=q.device)
@@ -449,7 +468,7 @@ def paged_attention(q, k_pages_l, v_pages_l, lengths, tables,
     by pointer, nothing is copied. Returns [R, Hq, Dv] f32. Shapes of the
     gather route (decode_route) take paged_gather on every device; otherwise
     CPU tensors take the plain version, and CUDA tensors launch the kernel
-    (D = 128, Hq/Hkv in 1, 2, 4, 8) or raise."""
+    (D = 128, Hq a multiple of Hkv) or raise."""
     r, hq, d = q.shape
     if decode_route(d, dv=v_pages_l.shape[-1], paged=True) == "gather":
         ROUTE_COUNTS["gather"] += 1
@@ -460,9 +479,7 @@ def paged_attention(q, k_pages_l, v_pages_l, lengths, tables,
                                      k_scale_l, v_scale_l)
     hkv, n_pages, ps, dk = k_pages_l.shape
     quant = k_scale_l is not None
-    if d != 128 or dk != d or hq % hkv or hq // hkv not in (1, 2, 4, 8):
-        raise ValueError(f"paged_attention takes D=128 and Hq/Hkv in (1, 2, 4, "
-                         f"8), got D={d} (pages {dk}), Hq={hq}, Hkv={hkv}")
+    _check_group("paged_attention", d, hq, hkv, dk)
     page_t = torch.int8 if quant else torch.bfloat16
     maxp = tables.shape[-1]
     named = [("q", q, torch.float32, (r, hq, d)),
@@ -482,7 +499,7 @@ def paged_attention(q, k_pages_l, v_pages_l, lengths, tables,
                              f"{dt} {shape} on {q.device}, got {t.dtype} "
                              f"{tuple(t.shape)} on {t.device}")
     sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-    n_split = min(maxp, max(1, -(-4 * sms // (r * hkv))))
+    n_split = min(maxp, max(1, -(-4 * sms // (r * hkv * head_chunks(hq // hkv)))))
     pps = -(-maxp // n_split)                    # pages a split
     n_split = -(-maxp // pps)
     out = torch.empty((r, hq, d), dtype=torch.float32, device=q.device)

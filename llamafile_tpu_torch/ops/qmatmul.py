@@ -799,12 +799,22 @@ def qmm_planes_g(x, qs, scales, bias, te, tm: int = 128) -> torch.Tensor:
 
 qmm_planes_g.launches = 0
 
+
+def i8p_tile_n(m: int, ns: int, sms: int) -> int:
+    """The n tile of qmm_i8p's launch: 128, or 64 where the 128 x 128 tiles
+    of an M x Ns product would fill at most half of the card's sms SMs (a
+    short prompt's bucket), so that twice as many blocks share the work;
+    the output bits are the same at either width."""
+    return 64 if 2 * -(-m // 128) * -(-ns // 128) <= sms else 128
+
+
 def qmm_i8p(xq: torch.Tensor, sxa: torch.Tensor, w8: torch.Tensor,
             sw: torch.Tensor) -> torch.Tensor:
-    """int8 prefill GEMM (kernel qmm_i8p, s8 tensor cores): xq int8 [M, K]
-    and sxa f32 [M, K/256] from i8p_prep, one layer's companion w8 int8
-    [Ns, K] and sw f32 [K/256, Ns] (a stacked caller passes layer li's
-    views: the kernel reads them by pointer) -> f32 [M, Ns]."""
+    """int8 prefill GEMM (kernel qmm_i8p, s8 warpgroup tensor cores): xq int8
+    [M, K] and sxa f32 [M, K/256] from i8p_prep, one layer's companion w8
+    int8 [Ns, K] and sw f32 [K/256, Ns] (a stacked caller passes layer li's
+    views: the kernel reads them by pointer) -> f32 [M, Ns], equal to
+    qmm_i8p_plain bit for bit, at the n tile of i8p_tile_n."""
     if xq.device.type == "cpu":
         return qmm_i8p_plain(xq, sxa, w8, sw)
     _check_tensors(xq.device, (("xq", xq, torch.int8), ("sxa", sxa, torch.float32),
@@ -817,10 +827,11 @@ def qmm_i8p(xq: torch.Tensor, sxa: torch.Tensor, w8: torch.Tensor,
         raise ValueError(f"qmm_i8p shapes: xq {tuple(xq.shape)}, sxa {tuple(sxa.shape)}, "
                          f"w8 {tuple(w8.shape)}, sw {tuple(sw.shape)} (w8 [Ns, K], "
                          "K % 256 == 0, Ns % 16 == 0)")
+    bn = i8p_tile_n(m, ns, torch.cuda.get_device_properties(xq.device).multi_processor_count)
     y = torch.empty((m, ns), dtype=torch.float32, device=xq.device)
-    f = _build.fn("qmm_i8p", "qmm_i8p", [P] * 5 + [I] * 3 + [P])
+    f = _build.fn("qmm_i8p", "qmm_i8p", [P] * 5 + [I] * 4 + [P])
     _build.check(f(xq.data_ptr(), sxa.data_ptr(), w8.data_ptr(), sw.data_ptr(),
-                   y.data_ptr(), m, k, ns, _stream(xq.device)), "qmm_i8p")
+                   y.data_ptr(), m, k, ns, bn, _stream(xq.device)), "qmm_i8p")
     qmm_i8p.launches += 1
     return y
 

@@ -35,14 +35,15 @@ Variants:
 The last line printed is one JSON object of every reading.
 """
 import argparse
-import ctypes
 import json
 import os
-import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
+sys.path.insert(0, os.path.join(ROOT, "scripts"))
+
+import probe_build  # noqa: E402
 
 SHAPES = ((64, 256), (700, 1024), (1900, 2048))
 TOL = 2e-2
@@ -68,14 +69,7 @@ def variant_sources(parent):
     from llamafile_tpu_torch.ops import _build
     read = lambda p: open(p).read()
     kernel = read(os.path.join(_build.CSRC, "flash_decode_write.cu"))
-
-    def patched(subs):
-        s = kernel
-        for a, b in subs:
-            if s.count(a) != 1:
-                raise RuntimeError(f"probe_fdw: {a!r} is not once in the kernel source")
-            s = s.replace(a, b)
-        return s
+    patched = lambda subs: probe_build.patched(kernel, subs, "flash_decode_write.cu")
 
     out = {"kernel": (kernel, _build.CSRC, False),
            "fast_exp": (patched(FAST_EXP), _build.CSRC, False),
@@ -94,25 +88,17 @@ def build(sources):
     from llamafile_tpu_torch.ops import _build
     d = os.path.join(_build.BUILD, "probe_fdw")
     os.makedirs(d, exist_ok=True)
-    procs = {}
+    jobs = {}
     for name, (text, inc, _) in sources.items():
-        cu, so = os.path.join(d, f"{name}.cu"), os.path.join(d, f"{name}.so")
+        cu = os.path.join(d, f"{name}.cu")
         with open(cu, "w") as f:
             f.write(text)
-        procs[name] = (subprocess.Popen(
-            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-I", inc, "-o", so, cu],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT), so)
-    fns = {}
-    for name, (proc, so) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed for {name}:\n{log.decode(errors='replace')}")
-        f = ctypes.CDLL(so).flash_decode_write
-        f.argtypes = ([_build.P] * 7 + [_build.I] * (7 if sources[name][2] else 6)
-                      + [_build.F, _build.P])
-        f.restype = ctypes.c_int
-        fns[name] = f
-    return fns
+        jobs[name] = (cu, inc)
+    libs = probe_build.build(jobs, d)
+    return {name: probe_build.entry(
+        lib, "flash_decode_write",
+        [_build.P] * 7 + [_build.I] * (7 if sources[name][2] else 6) + [_build.F, _build.P])
+        for name, lib in libs.items()}
 
 
 def main():

@@ -48,16 +48,15 @@ Variants:
 The last line printed is one JSON object of every reading.
 """
 import argparse
-import ctypes
-import glob
 import json
 import os
-import shutil
-import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
+sys.path.insert(0, os.path.join(ROOT, "scripts"))
+
+import probe_build  # noqa: E402
 
 ENTRIES = ("qmm_dequant", "qmm_planes", "qmm_planes_g")
 TOL, BF16_TOL = 1e-3, 2 ** -7
@@ -186,8 +185,7 @@ REG_RAW_LOOP = r'''  const int col = n0 + 16 * tile_seg();
 TWO_BLOCKS = ("__global__ void __launch_bounds__(THREADS, 2)\n",
               "__global__ void __launch_bounds__(THREADS)\n")
 
-# name -> (base variant, [(text, replacement) or (start, end, replacement of
-# the text from start up to end), ...]); each text must occur once
+# name -> (base variant, substitutions as probe_build.patched takes them)
 PATCHES = {
     "reg_raw": ("kernel", [
         ("constexpr int STAGES = 3;", "constexpr int STAGES = 2;"),
@@ -217,42 +215,21 @@ PATCHES = {
 }
 
 
-def patched(text, subs):
-    for sub in subs:
-        for a in sub[:-1]:
-            if text.count(a) != 1:
-                raise RuntimeError(f"probe_gemm: {a!r} is not once in the body")
-        if len(sub) == 2:
-            text = text.replace(*sub)
-        else:
-            i, j = text.index(sub[0]), text.index(sub[1])
-            if j < i:
-                raise RuntimeError(f"probe_gemm: {sub[1]!r} precedes {sub[0]!r}")
-            text = text[:i] + sub[2] + text[j:]
-    return text
-
-
 def variant_dirs(parent):
     """name -> directory holding that variant's headers and C entries."""
     from llamafile_tpu_torch.ops import _build
     base = os.path.join(_build.BUILD, "probe_gemm")
     body = open(os.path.join(_build.CSRC, "qmm_gemm.cuh")).read()
     i, j = body.index(DEQUANT_START), body.index(DEQUANT_END)
+    patched = lambda text, subs: probe_build.patched(text, subs, "the body")
     texts = {"kernel": body,
              "wgmma_cvt": patched(body[:i] + CVT_DEQUANT + body[j:], [TWO_BLOCKS])}
     for name, (of, subs) in PATCHES.items():
         texts[name] = patched(texts[of], subs)
-    dirs = {}
-    for name, text in texts.items():
-        d = os.path.join(base, name)
-        shutil.rmtree(d, ignore_errors=True)
-        os.makedirs(d)
-        for f in glob.glob(os.path.join(_build.CSRC, "*.cuh")) + [
-                os.path.join(_build.CSRC, f"{e}.cu") for e in ENTRIES]:
-            shutil.copy(f, d)
-        with open(os.path.join(d, "qmm_gemm.cuh"), "w") as f:
-            f.write(text)
-        dirs[name] = d
+    copies = probe_build.headers(_build.CSRC) + [
+        os.path.join(_build.CSRC, f"{e}.cu") for e in ENTRIES]
+    dirs = {name: probe_build.variant_dir(base, name, copies, {"qmm_gemm.cuh": text})
+            for name, text in texts.items()}
     if parent:
         dirs["parent"] = os.path.join(parent, "llamafile_tpu_torch", "csrc")
     return dirs
@@ -261,33 +238,14 @@ def variant_dirs(parent):
 def build(dirs):
     """Compile every (variant, entry) at once; name -> {entry: ctypes fn}."""
     from llamafile_tpu_torch.ops import _build
-    out = os.path.join(_build.BUILD, "probe_gemm", "lib")
-    os.makedirs(out, exist_ok=True)
-    procs = {}
-    for name, d in dirs.items():
-        for e in ENTRIES:
-            so = os.path.join(out, f"{name}-{e}.so")
-            procs[name, e] = (subprocess.Popen(
-                [_build.nvcc_path(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-I", d, "-o", so,
-                 os.path.join(d, f"{e}.cu")], stdout=subprocess.PIPE,
-                stderr=subprocess.STDOUT), so)
+    libs = probe_build.build({f"{name}/{e}": (os.path.join(d, f"{e}.cu"), d)
+                              for name, d in dirs.items() for e in ENTRIES},
+                             os.path.join(_build.BUILD, "probe_gemm", "lib"))
     argtypes = {"qmm_dequant": [_build.P] * 4 + [_build.I] * 5 + [_build.P],
                 "qmm_planes": [_build.P] * 4 + [_build.I] * 4 + [_build.P],
                 "qmm_planes_g": [_build.P] * 7 + [_build.I] * 4 + [_build.P]}
-    fns = {name: {} for name in dirs}
-    for (name, e), (proc, so) in procs.items():
-        log, _ = proc.communicate()
-        log = log.decode(errors="replace")
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed for {name}/{e}:\n{log}")
-        notes = [ln.strip() for ln in log.splitlines()
-                 if any(w in ln.lower() for w in ("registers", "spill", "wgmma", "warning"))]
-        print(f"[{name}/{e}] " + " | ".join(notes), flush=True)
-        f = getattr(ctypes.CDLL(so), e)
-        f.argtypes = argtypes[e]
-        f.restype = ctypes.c_int
-        fns[name][e] = f
-    return fns
+    return {name: {e: probe_build.entry(libs[f"{name}/{e}"], e, argtypes[e]) for e in ENTRIES}
+            for name in dirs}
 
 
 def shapes():

@@ -33,8 +33,11 @@ the tolerances of their dense forms, and a control with two slots' or
 tiles' expert ids swapped must read above 0.1 of the largest output. The
 int8 prefill GEMM (qmm_i8p) runs its plain version's roundings in the same
 order (exact int32 block dots, the f32 block updates in K order): it is held
-within 1e-6 of its largest magnitude, and a control with two blocks' weight
-scales swapped must fail that. The int8 flavour's q4b product (qmm_int8)
+bitwise equal to it at both of its n tiles (and within 1e-6 of its largest
+magnitude), and a control with two blocks' weight scales swapped must fail
+that. The three decode kernels run at every kind of head group: 1, 2, 4
+and 8 query heads a KV head, 3, 5, 6 and 7 (masked columns of one chunk),
+and 12, 16 and 32 (several chunks). The int8 flavour's q4b product (qmm_int8)
 is an int8-activation product, held within 1e-5, and a control with each
 superblock's lo and hi scale rows swapped must fail that. A head_dim-64
 llama runs Engine and the batcher on the reference's einsum and gather
@@ -203,15 +206,24 @@ def test_planes_g_matches_plain(dev, tiles, bias, valid, n, k):
         assert rel_err(Q.qmm_planes_g_plain(x, qs, sc, b, te.flip(0)), want) > 0.1
 
 
-@pytest.mark.parametrize("hq,hkv", [(32, 8), (8, 8), (16, 8), (16, 2)])
+# head groups G = Hq / Hkv of the decode kernels: 1, 2, 4, 8 (one chunk of
+# G heads), 3, 5, 6, 7 (one chunk, columns masked), 12, 16, 32 (chunks of
+# at most 8 heads, each reading the K/V rows again)
+GROUP_CASES = [(32, 8), (8, 8), (16, 4), (4, 2), (24, 8), (40, 8), (48, 8), (56, 8),
+               (96, 8), (128, 8), (64, 2)]
+
+
+@pytest.mark.parametrize("hq,hkv", [(32, 8), (8, 8), (16, 8), (16, 2)] + GROUP_CASES[4:])
 @pytest.mark.parametrize("pos,s_limit", [((0, 5), None), ((700, 1023), 1024),
                                          ((1, 2000), None), ((0, 701), None),
                                          ((1500, 1030), 1024)])
 def test_flash_decode_write_matches_plain(dev, hq, hkv, pos, s_limit):
     """The cluster kernel against its plain version: a row at pos 0 beside
     one whose 701 visible rows split unevenly over the cluster's ranks, and
-    rows at or past s_limit (all s_limit rows visible, the write at pos).
-    Two launches on the same inputs are bitwise equal (a fixed-order split)."""
+    rows at or past s_limit (all s_limit rows visible, the write at pos), at
+    every kind of head group (a group of more than 8 heads runs as chunks,
+    chunk 0 alone writing the row). Two launches on the same inputs are
+    bitwise equal (a fixed-order split)."""
     gen = torch.Generator(device=dev).manual_seed(hq * 10 + hkv)
     nl, b, s, d = 3, 2, 2048, 128
     k3 = torch.randn((nl, b, s, hkv * d), generator=gen, device=dev).to(torch.bfloat16)
@@ -321,13 +333,15 @@ def test_dequant_tile_bits_one_hot(dev, kind, scales):
     assert torch.equal(got.float(), Q.dequant_bf16(qs[1], sc[1]).float())
 
 
-@pytest.mark.parametrize("m", [33, 300, 1024])
+@pytest.mark.parametrize("m", [33, 64, 128, 300, 1024])
 @pytest.mark.parametrize("n,k", [(6144, 4096), (4096, 4096), (28672, 4096), (4096, 14336),
-                                 (2560, 5632)])
+                                 (2560, 5632), (1040, 1024)])
 def test_i8p_matches_plain(dev, m, n, k):
-    """llama3-8b's qkv, o, gate|up and down, and TinyLlama's qkv at K 5632
-    (22 blocks, not a multiple of 2048), on layer 1 of a 3-layer stack (the
-    stacked form: views by pointer), at ragged and full row tiles."""
+    """llama3-8b's qkv, o, gate|up and down, TinyLlama's qkv at K 5632 (22
+    blocks, not a multiple of 2048) and an Ns of 1040 (a multiple of 16,
+    not of 128), on layer 1 of a 3-layer stack (the stacked form: views by
+    pointer), at ragged and full row tiles: bitwise equal to the plain
+    version, at the n tile the wrapper picks."""
     gen = torch.Generator(device=dev).manual_seed(m + n + k)
     w8, sw = rand_i8p(gen, 3, n, k, dev)
     xq, sxa = Q.i8p_prep(torch.randn(m, k, generator=gen, device=dev))
@@ -336,8 +350,26 @@ def test_i8p_matches_plain(dev, m, n, k):
     assert Q.qmm_i8p.launches == n0 + 1
     want = Q.qmm_i8p_plain(xq, sxa, w8[1], sw[1])
     assert_close(got, want, 1e-6)
+    assert torch.equal(got, want)
     assert rel_err(i8p_fault(xq, sxa, w8[1], sw[1]), want) > 1e-6
     assert torch.equal(got, Q.qmm_i8p(xq, sxa, w8[1], sw[1]))
+
+
+@pytest.mark.parametrize("m", [33, 64, 128, 300, 1024])
+@pytest.mark.parametrize("n,k", [(1040, 1024), (4096, 4096), (1040, 1280)])
+def test_i8p_unrolled_and_stacked_bitwise(dev, m, n, k):
+    """An unrolled layer (its own allocation) and layer 1 of a stack, both
+    bitwise equal to the plain version, at both n tiles (64 up to M = 300
+    at Ns 1040 and up to M = 128 at Ns 4096, 128 beyond) and at an odd
+    count of 256-blocks (K 1280); the control with two blocks' weight scales
+    swapped differs."""
+    gen = torch.Generator(device=dev).manual_seed(m + n + k)
+    w8, sw = rand_i8p(gen, 3, n, k, dev)
+    xq, sxa = Q.i8p_prep(torch.randn(m, k, generator=gen, device=dev))
+    want = Q.qmm_i8p_plain(xq, sxa, w8[1], sw[1])
+    for w, s in ((w8[1].clone(), sw[1].clone()), (w8[1], sw[1])):
+        assert torch.equal(Q.qmm_i8p(xq, sxa, w, s), want)
+    assert not torch.equal(i8p_fault(xq, sxa, w8[1], sw[1]), want)
 
 
 def test_i8p_qmatmul_stacked_and_unrolled(dev):
@@ -514,7 +546,7 @@ def decode_case(gen, dev, b, s, hq, hkv, int8):
 
 
 @pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
-@pytest.mark.parametrize("hq,hkv", [(32, 8), (8, 8), (16, 4), (4, 2)])
+@pytest.mark.parametrize("hq,hkv", GROUP_CASES)
 @pytest.mark.parametrize("pos,s_eff", [((0, 5), 256), ((700, 1023), 1024), ((1, 2047), 2048)])
 def test_flash_decode_matches_plain(dev, int8, hq, hkv, pos, s_eff):
     gen = torch.Generator(device=dev).manual_seed(hq * 10 + hkv + s_eff + int8)
@@ -561,7 +593,7 @@ PAGED_LENGTHS = {1: [64], 3: [1, 63, 65],
 
 @pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
 @pytest.mark.parametrize("r", [1, 3, 8])
-@pytest.mark.parametrize("hq,hkv", [(32, 8), (8, 8), (16, 4), (4, 2)])
+@pytest.mark.parametrize("hq,hkv", GROUP_CASES)
 def test_paged_attention_matches_plain(dev, int8, r, hq, hkv):
     gen = torch.Generator(device=dev).manual_seed(r * 100 + hq + hkv + int8)
     ps, maxp = 64, 32
@@ -594,8 +626,8 @@ def test_wrapper_rejects_bad_inputs(dev):
                       torch.zeros(256, 520, dtype=torch.int8, device=dev),
                       torch.zeros(8, 520, dtype=torch.bfloat16, device=dev))
     q, kp, vp, _, _, lens, tables = paged_case(
-        torch.Generator(device=dev), [5], 16, 1, 128, 64, 4, device=dev)
-    with pytest.raises(ValueError):                           # Hq/Hkv = 16
+        torch.Generator(device=dev), [5], 12, 8, 128, 64, 4, device=dev)
+    with pytest.raises(ValueError):                           # Hq % Hkv != 0
         A.paged_attention(q, kp[0], vp[0], lens, tables)
     q, kp, vp, _, _, lens, tables = paged_case(
         torch.Generator(device=dev), [5], 8, 8, 128, 64, 4, device=dev)

@@ -143,6 +143,18 @@ def test_qmatmul_i8p_matches_jax(m, k, stacked):
     assert _rel(got.numpy(), want) <= TOL
 
 
+# (M, Ns, n tile) on 132 SMs: llama3-8b's products at the buckets of 128
+# and 1024 tokens; the 64-wide tile where the 128-wide grid fills at most
+# half the SMs
+@pytest.mark.parametrize("m,ns,bn", [(128, 4096, 64), (128, 6144, 64), (33, 4096, 64),
+                                     (128, 28672, 128), (512, 4096, 128), (1024, 4096, 128),
+                                     (1024, 28672, 128), (300, 28672, 128)])
+def test_i8p_tile_rule(m, ns, bn):
+    """qmm_i8p's n tile by shape (the kernel's bits are the same at both)."""
+    from llamafile_tpu_torch.ops.qmatmul import i8p_tile_n
+    assert i8p_tile_n(m, ns, 132) == bn
+
+
 @pytest.mark.parametrize("m", [1, 32])
 @pytest.mark.parametrize("quant", ["Q4_K", "Q6_K"])
 def test_small_m_keeps_base_path(quant, m):

@@ -66,3 +66,46 @@ def test_cuda_model_raises_without_a_card():
         pytest.skip("a card is present")
     with pytest.raises(RuntimeError, match="is_available"):
         TS.make_synthetic_llama("tiny", device="cuda")
+
+
+def _q4b_bytes(ns: int, k: int) -> int:
+    """A q4b tensor of storage width ns over depth k: packed nibbles, then
+    bf16 scales and biases per 32."""
+    return k // 2 * ns + 2 * (k // 32 * ns * 2)
+
+
+@pytest.mark.parametrize("preset,n_layers", [("llama3.2-3b", 28), ("llama3.2-3b-2l", 2)])
+def test_llama32_3b_shapes_and_read_bytes(preset, n_layers):
+    """Llama-3.2-3B's published widths (a head group of 3), fused, on the
+    meta device (the layout with no data): the config, every weight's shape,
+    and decode_read_bytes against a count from the storage layout (storage
+    N padded to 2048 in each unfused matrix, the fused q|k|v concatenated
+    unpadded, the fused gate|up 2 d_ff wide)."""
+    cfg, params = TS.make_synthetic_llama(preset, "Q4_K", fuse=True, device="meta")
+    assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+            cfg.d_ff, cfg.n_vocab, cfg.rope_theta) == (n_layers, 3072, 24, 8, 128, 8192,
+                                                       128256, 500000.0)
+    assert cfg.n_heads // cfg.n_kv_heads == 3
+    assert len(params.layers) == n_layers and params.tok_embd.shape == (128256, 3072)
+    for layer in params.layers:
+        assert layer.wq is None and layer.w_gate is None
+        assert layer.wqkv.shape == (5120, 3072) and layer.wqkv.qs.shape == (1536, 5120)
+        assert layer.wo.shape == (3072, 3072) and layer.wo.qs.shape == (1536, 4096)
+        assert layer.w_gate_up.shape == (16384, 3072) and layer.w_gate_up.il
+        assert layer.w_down.shape == (3072, 8192) and layer.w_down.qs.shape == (4096, 4096)
+    assert params.output.shape == (128256, 3072) and params.output.qs.shape == (1536, 129024)
+    per_layer = (_q4b_bytes(5120, 3072) + _q4b_bytes(4096, 3072) + _q4b_bytes(16384, 3072)
+                 + _q4b_bytes(4096, 8192) + 2 * 3072 * 4)
+    want = n_layers * per_layer + _q4b_bytes(129024, 3072) + 3072 * 4
+    assert TS.decode_read_bytes(params, cfg) == want
+    assert TS.param_bytes(params) == want + 128256 * 3072 * 2
+
+
+@pytest.mark.parametrize("preset", ["tiny", "tiny-moe"])
+def test_meta_layout_matches_cpu_build(preset):
+    """The meta device's layout carries the bytes of a built model."""
+    for fuse in (False, True):
+        cfg, meta = TS.make_synthetic_llama(preset, "Q4_K", fuse=fuse, device="meta")
+        _, cpu = TS.make_synthetic_llama(preset, "Q4_K", fuse=fuse, device="cpu")
+        assert TS.param_bytes(meta) == TS.param_bytes(cpu)
+        assert TS.decode_read_bytes(meta, cfg) == TS.decode_read_bytes(cpu, cfg)
