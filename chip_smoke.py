@@ -8,6 +8,9 @@
 2. Each kernel at the shapes of the llama3-8b main paths (Q4_K decode and
    prefill, Q8_0 and Q6_K decode, long-prompt prefill, the serving step at
    8 rows: qmm_txn at M = 8 and paged_attention over bf16 and int8 pages;
+   qmm_txn at its 11 shapes and qmm_txn_g at its four, each with a second
+   launch on the same inputs held bit for bit, qmm_txn also with a control
+   whose lo and hi scale rows are swapped;
    flash_decode_write at pos 700 / s_eff 1024, pos 1900 / s_eff 2048 and
    phase 4's pos 64 / s_eff 256, two launches on the same inputs bitwise
    equal; the three decode kernels also at head groups of 3 and 16 (24 and
@@ -57,22 +60,23 @@
    every decode attention a kernel launch, and the 4-row paged decode card
    against CPU; two
    layers at Mixtral-8x7B width (mixtral-8x7b-2l): Q4_K stacked (24- and
-   300-token prompts: qmm_txn_g and qmm_planes_g; 4 decode steps on the
-   routed fused FFN), the Q4_K_M recipe unrolled (300-token prompt, 4
+   300-token prompts: qmm_txn_g and qmm_planes_g; 2 decode steps on the
+   routed fused FFN), the Q4_K_M recipe unrolled (300-token prompt, 2
    decode steps; layer 1's Q6_K experts' down: the routed GEMVs at decode,
    the dense expert loop at prefill), and
-   the paged decode at 4 rows (the fused FFN) and 8 rows (qmm_txn_g); the
+   the paged decode at 4 rows (the fused FFN) and 8 rows (qmm_txn_g), one
+   step each (the Mixtral checks' CPU side is the slowest of the phase); the
    routers held on the card's own inputs and their choices compared row by
    row (a row routed otherwise on the two sides is reported, its logits not
    held), and one decode step's MoE FFN calls run under
    torch.cuda.set_sync_debug_mode("error"); then under the q4b flavours
    (LLAMAFILE_TPU_Q4B, qmatmul.Q4B_KERNEL set for both sides): Q4_K with
-   the 32-token prompt and 4 decode steps and the 300-token prompt and 2
-   under int8 (qmm_int8, and the stacked planes kernel at bucket 512) and
-   under planes, Q8_0 under int8 (24-token prompt, 4 steps, decode on the
-   dequant GEMM), the 4-row paged decode under int8 (4 steps), and Mixtral
-   Q4_K stacked under int8 (24-token prompt, 4 steps on _routed_fallback,
-   its calls counted). Each
+   the 32-token prompt (4 decode steps under int8, 2 under planes) and the
+   300-token prompt and 2 under int8 (qmm_int8, and the stacked planes
+   kernel at bucket 512) and under planes, Q8_0 under int8 (24-token
+   prompt, 2 steps, decode on the dequant GEMM), the 4-row paged decode
+   under int8 (2 steps), and Mixtral Q4_K stacked under int8 (24-token
+   prompt, 2 steps on _routed_fallback, its calls counted). Each
    is traced op by op: for each step, the first product, quantization or
    attention call where card and CPU part, and the largest parting; every
    product is rerun through its plain version on the card's own inputs and
@@ -133,6 +137,10 @@
    under cProfile (host time by function), one 1000-token prefill (device
    time by kernel), and one fused 8-row serving chunk (busy share).
 
+Every phase header (and each phase-3 check's) prints the seconds since the
+start and those the previous one took; {"phase_seconds": ...} sums them up
+before the launches line.
+
 Any failure raises and exits non-zero. The last line of standard output is
 {"ok": true, "device": {...}}; the lines before it hold every kernel's
 launches summed over the counted runs of phases 4 to 7 ({"launches": ...},
@@ -190,9 +198,16 @@ def log(*a):
     print(*a, flush=True)
 
 
+PHASE_TIMES = []                  # (header, seconds since the start)
+
+
 def phase(msg):
-    """A phase header, with the seconds since the script started."""
-    log(f"{msg} [{time.time() - T0:.1f} s]")
+    """A phase header, with the seconds since the script started and those
+    the previous header's phase took."""
+    now = time.time() - T0
+    took = f", previous {now - PHASE_TIMES[-1][1]:.1f} s" if PHASE_TIMES else ""
+    PHASE_TIMES.append((msg.strip(), now))
+    log(f"{msg} [{now:.1f} s{took}]")
 
 
 def nvidia_smi() -> str:
@@ -240,6 +255,15 @@ def q4b_bytes(qs, sc, b):
     return sum(t[0].numel() * t.element_size() for t in (qs, sc, b))
 
 
+def check_repeat(name, again, got):
+    """A second launch on the same inputs must give the same bits (the
+    split-K combine sums in a fixed order)."""
+    if not again.equal(got):
+        raise AssertionError(f"{name}: a second launch on the same inputs differs in "
+                             f"{(again != got).sum().item()} elements")
+    log(f"  {name}: a second launch gives the same bits")
+
+
 def check_close(name, got, want, rel):
     from llamafile_tpu_torch.testing import rel_err
     err = (got.float() - want.float()).abs().max().item()
@@ -274,7 +298,7 @@ def kernel_phases(torch, dev, gen):
     from llamafile_tpu_torch.ops import attention as A
     from llamafile_tpu_torch.ops.repack import q4b_codes
     from llamafile_tpu_torch.testing import (flash_prefill_tile_fault, planes_fault, rand_q4b,
-                                             rand_q8b, rel_err, row_rel_err)
+                                             rand_q8b, rel_err, row_rel_err, txn_scale_swap)
     rows = {}
 
     def dequant_bf16(qs, sc, b):
@@ -322,7 +346,9 @@ def kernel_phases(torch, dev, gen):
 
     # --- qmm_txn: prefill products of a 32- and a 16-token bucket ---------
     # (the main path's 24-token prompt runs all four at M = 32), and the
-    # serving step's products at M = 8 rows, the unstacked lm head too
+    # serving step's products at M = 8 rows, the unstacked lm head too;
+    # then phase 8's Llama-3.2-3B products (storage N padded to 2048): its
+    # 24-token prefill at M = 32 and its 4-slot server's rows at M = 4
     for m, label, n, k, layers in ((32, "gate_up", 28672, 4096, 2),
                                    (32, "down", 4096, 14336, 3),
                                    (32, "qkv", 6144, 4096, 8),
@@ -333,14 +359,30 @@ def kernel_phases(torch, dev, gen):
                                    (8, "o", 4096, 4096, 12),
                                    (8, "gate_up", 28672, 4096, 2),
                                    (8, "down", 4096, 14336, 3),
-                                   (8, "lm_head", 129024, 4096, 1)):
+                                   (8, "lm_head", 129024, 4096, 1),
+                                   (32, "3b_qkv", 5120, 3072, 6),
+                                   (32, "3b_o", 4096, 3072, 8),
+                                   (32, "3b_gate_up", 16384, 3072, 2),
+                                   (32, "3b_down", 4096, 8192, 3),
+                                   (4, "3b_qkv", 5120, 3072, 6),
+                                   (4, "3b_o", 4096, 3072, 8),
+                                   (4, "3b_gate_up", 16384, 3072, 2),
+                                   (4, "3b_down", 4096, 8192, 3),
+                                   (4, "3b_lm_head", 129024, 3072, 1)):
         qs, sc, b = rand_q4b(gen, layers, n, k, dev)
         x = torch.randn((m, k), generator=gen, device=dev)
         xq, sx = Q.quantize_activations_g32(x)
         got = Q.qmm_txn(xq, sx, qs[0], sc[0], b[0])
         want = Q.qmm_txn_plain(xq, sx, qs[0], sc[0], b[0])
         torch.cuda.synchronize()
-        err = check_close(f"qmm_txn/{label}/M={m}", got, want, 1e-5)
+        what = f"qmm_txn/{label}/M={m}"
+        err = check_close(what, got, want, 1e-5)
+        check_repeat(what, Q.qmm_txn(xq, sx, qs[0], sc[0], b[0]), got)
+        ctl = rel_err(txn_scale_swap(xq, sx, qs[0], sc[0], b[0]), want)
+        log(f"  {what}: swapped-scale-rows control {ctl:.6g} (must exceed 1e-5)")
+        if not ctl > 1e-5:
+            raise AssertionError(f"{what}: the faulty control passes")
+        del got, want
         ms = time_ms(torch, lambda i: Q.qmm_txn(xq, sx, qs[i], sc[i], b[i]), layers)
         plain = time_ms(torch, lambda i: Q.qmm_txn_plain(xq, sx, qs[i], sc[i], b[i]), layers)
         w = dequant_bf16(qs, sc, b)
@@ -349,7 +391,7 @@ def kernel_phases(torch, dev, gen):
         del w
         entry("qmm_txn", "llamafile_tpu_torch/csrc/qmm_txn.cu",
               "llamafile_tpu/ops/qmatmul.py:276", f"{label} M={m} N={n} K={k}"
-              + (" (unstacked)" if label == "lm_head" else ""),
+              + (" (unstacked)" if label.endswith("lm_head") else ""),
               err, ms, plain, lib,
               q4b_bytes(qs, sc, b) + m * (k + k // 8) + 4 * m * n, 2 * m * n * k)
         del qs, sc, b
@@ -1057,6 +1099,8 @@ def moe_kernel_phases(torch, dev, gen, entry, dequant_bf16):
             torch.cuda.synchronize()
             what = f"{name}/{label} S={gid.shape[0]} tm={tm} ({n_tiles} tiles)"
             err = check_close(what, got, want, tol)
+            if name == "qmm_txn_g":
+                check_repeat(what, run(te), got)
             swap_control(what, plain_fn(swapped), want)
             del got, want
             ms = time_ms(torch, lambda i: run(te), 1)
@@ -1167,7 +1211,9 @@ def trace_report(steps_card, steps_cpu):
     output by max |diff| / max |CPU value|. Every product of the card is
     also rerun through its plain version on the CPU, on the card's own
     input (its activation codes and scales too, where the product made
-    them) and the CPU's copy of the weights. Returns (lines, {route: the
+    them) and the CPU's copy of the weights; a grouped product's plain
+    version runs on the card (grouped_plain), where phase 2 holds the same
+    comparison. Returns (lines, {route: the
     largest parting of a product from its plain version on the same
     inputs}) for the int8-activation GEMVs, qmm_txn and qmm_int8 ("int8"),
     the dequant GEMM and _routed_fallback ("dequant"), the two-plane GEMM
@@ -1223,8 +1269,10 @@ def trace_report(steps_card, steps_cpu):
                     li = ib["args"][1] if len(ib["args"]) > 1 else ib["kw"].get("li")
                     route = PRODUCT_CHECK.get(Q.product_route(qt, m, ia["x"].shape[1], li))
                 if route:
-                    same[route] = max(same[route], rel_err(a, b if same_in else with_codes(
-                        Q, codes, lambda: fn(ia["x"], *args, **kw))))
+                    want = (b if same_in else grouped_plain(Q, ia, codes)
+                            if lab.startswith("grouped") else
+                            with_codes(Q, codes, lambda: fn(ia["x"], *args, **kw)))
+                    same[route] = max(same[route], rel_err(a, want))
             if not a.dtype.is_floating_point:
                 n_q += 1
                 nf = int((a != b).sum())
@@ -1243,6 +1291,24 @@ def trace_report(steps_card, steps_cpu):
                      f"quantizations ({flips} codes); first parting (codes, or > 1e-4): "
                      f"{first}; largest {worst[0]:.3g} at {worst[1]}")
     return lines, same
+
+
+def grouped_plain(Q, ia, codes):
+    """The plain version of a grouped product (qmatmul_grouped's call ia) on
+    the card, on the card's own x, activation codes and scales (codes, for
+    tm <= 32), weights and tile experts; returned on the CPU. On the CPU
+    these plain versions dequantize an expert's weights once a tile, the
+    most of phase 3's CPU time at Mixtral width."""
+    import torch
+    qt, te = ia["args"][0], ia["args"][1].to(torch.int32)
+    tm, dev = ia["kw"]["tm"], qt.qs.device
+    if tm <= 32:
+        xq, sx = (c.to(dev) for c in codes)
+        y = Q.qmm_txn_g_plain(xq, sx, qt.qs, qt.scales, qt.bias, te, tm)
+    else:
+        y = Q.qmm_planes_g_plain(ia["x"].to(dev), qt.qs, qt.scales, qt.bias, te, tm)
+    n = qt.shape[0]
+    return (y[:, :n] if y.shape[1] > n else y).cpu()
 
 
 # the limit (SAME_INPUT_TOL) that holds each kernel of qmatmul on the same
@@ -1452,11 +1518,12 @@ def no_sync_moe(torch):
         LM.moe_ffn = orig
 
 
-def moe_path_check(torch, dev, quant="Q4_K", runs=((24, 4), (300, 0))):
-    """Two layers at Mixtral-8x7B width, card (kernels) against the CPU (plain
-    versions). quant "Q4_K" is stacked ([L*E] expert stacks: the grouped
-    kernels at prefill, the routed fused FFN at decode); "Q4_K_M" is the
-    recipe at two layers (layer 1's experts with Q6_K down: the routed
+def moe_path_check(torch, dev, quant="Q4_K", runs=((24, 4), (300, 0)),
+                   preset="mixtral-8x7b-2l"):
+    """Layers at Mixtral-8x7B width (preset), card (kernels) against the CPU
+    (plain versions). quant "Q4_K" is stacked ([L*E] expert stacks: the
+    grouped kernels at prefill, the routed fused FFN at decode); "Q4_K_M" is
+    the recipe at two layers (layer 1's experts with Q6_K down: the routed
     GEMVs at decode and the dense expert loop at prefill; attn_k/v Q8_0,
     attn_output Q5_K), unrolled. Each run prefills its prompt (padded to its
     bucket) on both sides, then decodes teacher-forced with the card's
@@ -1471,9 +1538,9 @@ def moe_path_check(torch, dev, quant="Q4_K", runs=((24, 4), (300, 0))):
     from llamafile_tpu_torch.runtime.engine import bucket_len
     from llamafile_tpu_torch.testing import make_q4_k_m_llama
     if quant == "Q4_K_M":
-        cfg, params = make_q4_k_m_llama("mixtral-8x7b-2l", seed=1, device=dev)
+        cfg, params = make_q4_k_m_llama(preset, seed=1, device=dev)
     else:
-        cfg, params = make_synthetic_llama("mixtral-8x7b-2l", quant, seed=1, fuse=True,
+        cfg, params = make_synthetic_llama(preset, quant, seed=1, fuse=True,
                                            device=dev)
     gpu = stack_layers(params)
     what = (f"Mixtral {quant} ({'stacked' if not isinstance(gpu.layers, list) else 'unrolled'}"
@@ -2867,7 +2934,10 @@ def main() -> int:
     phase("phase 2: kernels against their plain versions at the main path's shapes")
     rows = kernel_phases(torch, dev, gen)
     phase("phase 3: whole paths, llama3-8b width, 2 layers: card vs CPU plain")
-    mix = dict(preset="mixtral-8x7b-2l", n_decode=2)
+    # the Mixtral checks and the flavours' decode steps run their CPU side
+    # through the plain versions at two layers of full width: their depth
+    # (decode steps) is cut to what drives and holds each route once more
+    mix = dict(preset="mixtral-8x7b-2l", n_decode=1)
     for what, check, args, kw, fl in (
             ("Q4_K, 32-token prompt", whole_path_check, (), dict(n_decode=4), "txn"),
             ("Q4_K, 300-token prompt", whole_path_check, ("Q4_K",),
@@ -2881,9 +2951,10 @@ def main() -> int:
             ("Q4_K_M", whole_path_check, ("Q4_K_M",), dict(n_prompt=300, n_decode=4), "txn"),
             ("int8 KV", whole_path_check, ("Q4_K",),
              dict(n_prompt=32, n_decode=4, kv_dtype="int8"), "txn"),
-            ("Mixtral Q4_K stacked", moe_path_check, ("Q4_K",), {}, "txn"),
+            ("Mixtral Q4_K stacked", moe_path_check, ("Q4_K",),
+             dict(runs=((24, 2), (300, 0))), "txn"),
             ("Mixtral Q4_K_M unrolled", moe_path_check, ("Q4_K_M",),
-             dict(runs=((300, 4),)), "txn"),
+             dict(runs=((300, 2),)), "txn"),
             ("Mixtral paged decode, 4 rows", paged_path_check, (),
              dict(prompts=(24, 64, 200, 300), **mix), "txn"),
             ("Mixtral paged decode, 8 rows", paged_path_check, (),
@@ -2897,16 +2968,16 @@ def main() -> int:
             ("Q4_K, 32-token prompt", whole_path_check, (), dict(n_decode=4), "int8"),
             ("Q4_K, 300-token prompt", whole_path_check, ("Q4_K",),
              dict(n_prompt=300, n_decode=2), "int8"),
-            ("Q4_K, 32-token prompt", whole_path_check, (), dict(n_decode=4), "planes"),
+            ("Q4_K, 32-token prompt", whole_path_check, (), dict(n_decode=2), "planes"),
             ("Q4_K, 300-token prompt", whole_path_check, ("Q4_K",),
              dict(n_prompt=300, n_decode=2), "planes"),
-            ("Q8_0", whole_path_check, ("Q8_0",), dict(n_prompt=24, n_decode=4), "int8"),
-            ("paged decode, 4 rows", paged_path_check, (), {}, "int8"),
-            ("Mixtral Q4_K stacked", moe_path_check, ("Q4_K",), dict(runs=((24, 4),)),
-             "int8")):
+            ("Q8_0", whole_path_check, ("Q8_0",), dict(n_prompt=24, n_decode=2), "int8"),
+            ("paged decode, 4 rows", paged_path_check, (), dict(n_decode=2), "int8"),
+            ("Mixtral Q4_K stacked", moe_path_check, ("Q4_K",),
+             dict(runs=((24, 2),)), "int8")):
+        phase(f"  phase 3 {what}{'' if fl == 'txn' else ', LLAMAFILE_TPU_Q4B=' + fl}")
         with q4b_flavour(fl):
             check(torch, dev, *args, **kw)
-        phase(f"  phase 3 {what}{'' if fl == 'txn' else ', LLAMAFILE_TPU_Q4B=' + fl}: done")
     phase("phase 4: main path, llama3-8b Q4_K, 32 layers, Engine.generate")
     runs = main_path(torch, dev)
     launched = {name: sum(c[name] for c in runs) for name in runs[0]}
@@ -2923,6 +2994,9 @@ def main() -> int:
     from llamafile_tpu_torch.ops import kernel_wrappers
     if len(rows) != len(kernel_wrappers()):
         raise AssertionError(f"{len(rows)} kernels measured, {len(kernel_wrappers())} wrapped")
+    phase("done")
+    print(json.dumps({"phase_seconds": {m: round(t1 - t0, 1) for (m, t0), (_, t1)
+                                        in zip(PHASE_TIMES, PHASE_TIMES[1:])}}))
     print(json.dumps({"launches": launched}))
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -8,16 +8,17 @@
 // codes, times the bf16 group scale and the activation scale, plus the fused
 // bias on the bf16-rounded activation group sums.
 //
-// What bounds it on an H100: still device-memory bytes at M <= 32 (the
-// weights are read once for all rows: 32 rows x 2 ops a weight is ~130 int8
-// ops a weight byte, under the ~590 ops/byte ridge). The design reads each
-// 32-row weight chunk of a 128-column tile into shared memory once and
-// reuses it for every row: warp w serves rows w, w+8, w+16, w+24. The
-// activation codes of 32 rows x K = 14336 do not fit shared memory, so they
-// are streamed chunk by chunk with the weights (64 bytes a row a chunk). K is
-// split over S blocks with the fixed-order combine of qmm_common.cuh.
-// __dp4a after a 4x4 byte transpose does the int8 math; a later version
-// would move to s8 mma.sync and a cp.async pipeline.
+// What bounds it on an H100: device-memory bytes at M <= 32 (the weights are
+// read once for all rows: 4M int8 operations a weight byte, 128 at M = 32,
+// under the ~590 operations a byte of the int8 tensor cores); short of them,
+// instructions (copy issue at small M, the f32 fold at M = 32) and the
+// split-K combine of small grids. The design (qmm_txn.cuh) keeps chunks of
+// weights, scales, bias and activation codes in flight a block through a
+// 4-stage cp.async ring in shared memory, with one block barrier a chunk,
+// and does the int8 math on s8 mma.sync tensor cores (one m16n8k32 is one
+// group's exact dot for 16 columns x 8 rows), each warp on its own 32
+// columns. K is split over S blocks with the fixed-order combine of
+// qmm_common.cuh, so two launches on the same inputs give the same bits.
 #include "qmm_txn.cuh"
 
 using namespace qmm;
@@ -25,11 +26,9 @@ using namespace qmm;
 extern "C" int qmm_txn(const void* x, const void* sx, const void* qs,
                        const void* sc, const void* bias, void* y, void* partial,
                        void* counters, int M, int K, int Ns, int S, void* stream) {
-  if (M < 1 || M > MAXM) return (int)cudaErrorInvalidValue;
+  if (M < 1 || M > MAXM || K < 256 || K % 256 || Ns < 16 || Ns % 16 || S < 1 || S > K / 64)
+    return (int)cudaErrorInvalidValue;
   dim3 grid((Ns + TN - 1) / TN, S);
-  qmm_txn_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      (const int8_t*)x, (const float*)sx, (const uint8_t*)qs,
-      (const __nv_bfloat16*)sc, (const __nv_bfloat16*)bias, (float*)y,
-      (float*)partial, (int*)counters, M, K, Ns, S, nullptr);
-  return (int)cudaGetLastError();
+  return (int)txn_launch(grid, (cudaStream_t)stream, x, sx, qs, sc, bias, y, partial,
+                         counters, M, K, Ns, S, nullptr);
 }

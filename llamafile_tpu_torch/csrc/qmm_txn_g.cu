@@ -16,9 +16,9 @@
 // What bounds it on an H100: device-memory bytes of the experts that te
 // names (each tile reads its expert's weights; tiles of one expert share
 // them through L2), or the int8 operations of the padded rows, whichever is
-// larger. The design is qmm_txn's body (qmm_txn.cuh) with the weight
-// pointer chosen per row tile: a tile's weight chunk is read into shared
-// memory once for its tm rows.
+// larger. The design is qmm_txn's body (qmm_txn.cuh: a cp.async ring of
+// weight chunks and activation codes, s8 mma.sync with NT = ceil(tm / 8) n8
+// row tiles) with the weight pointer chosen per row tile.
 #include "qmm_txn.cuh"
 
 using namespace qmm;
@@ -30,12 +30,10 @@ extern "C" int qmm_txn_g(const void* x, const void* sx, const void* qs, const vo
                          const void* bias, void* y, void* partial, void* counters,
                          const void* te, int tm, int tiles, int K, int Ns, int S,
                          void* stream) {
-  if (tm < 1 || tm > MAXM || tiles < 1 || K % 256 || Ns % 16)
+  if (tm < 1 || tm > MAXM || tiles < 1 || K < 256 || K % 256 || Ns < 16 || Ns % 16 || S < 1
+      || S > K / 64)
     return (int)cudaErrorInvalidValue;
   dim3 grid((Ns + TN - 1) / TN, S, tiles);
-  qmm_txn_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      (const int8_t*)x, (const float*)sx, (const uint8_t*)qs,
-      (const __nv_bfloat16*)sc, (const __nv_bfloat16*)bias, (float*)y,
-      (float*)partial, (int*)counters, tm, K, Ns, S, (const int*)te);
-  return (int)cudaGetLastError();
+  return (int)txn_launch(grid, (cudaStream_t)stream, x, sx, qs, sc, bias, y, partial,
+                         counters, tm, K, Ns, S, (const int*)te);
 }

@@ -385,11 +385,15 @@ def _counter_buf(device: torch.device, n: int) -> torch.Tensor:
     return buf
 
 
+def n_split(tiles: int, chunks: int, cap: int, sms: int) -> int:
+    """K splits so that tiles x splits fills the `sms` SMs
+    _TARGET_BLOCKS_PER_SM blocks deep, at most `cap` and at most one a chunk."""
+    return max(1, min(-(-_TARGET_BLOCKS_PER_SM * sms // tiles), cap, chunks))
+
+
 def _n_split(device: torch.device, tiles: int, chunks: int, cap: int) -> int:
-    """K splits so that tiles x splits fills the SMs a few blocks deep."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    want = -(-_TARGET_BLOCKS_PER_SM * sms // tiles)
-    return max(1, min(want, cap, chunks))
+    return n_split(tiles, chunks, cap,
+                   torch.cuda.get_device_properties(device).multi_processor_count)
 
 
 def _check_tensors(dev: torch.device, named) -> None:

@@ -160,6 +160,13 @@ def q4b_scale_swap(xq, sx, qs, scales):
     return qmm_int8_plain(xq, sx, qs, _swap_lo_hi(scales))
 
 
+def txn_scale_swap(xq, sx, qs, scales, bias):
+    """A faulty q4b product, the control that qmm_txn's tolerance must
+    reject: each superblock's lo and hi scale rows swapped, the bias kept."""
+    from .ops.qmatmul import qmm_txn_plain
+    return qmm_txn_plain(xq, sx, qs, _swap_lo_hi(scales), bias)
+
+
 def paged_case(gen: torch.Generator, lengths, hq: int, hkv: int, d: int,
                ps: int, maxp: int, n_layers: int = 1, int8: bool = False,
                device="cpu"):

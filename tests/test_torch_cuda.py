@@ -28,6 +28,9 @@ one masked key made visible must fail the int8 bound. Paged attention is
 f32 on both sides over the same page values: it is held row by row within
 1e-5 of each (row, head)'s largest output, and its two faulty versions (one
 masked key made visible, each row's last page dropped) must fail that.
+qmm_txn and qmm_txn_g sum their K splits in a fixed order: a second launch
+on the same inputs gives the same bits, and qmm_txn with each superblock's
+lo and hi scale rows swapped must fail its 1e-5 limit.
 The MoE kernels (routed GEMVs, routed fused FFN, grouped products) keep
 the tolerances of their dense forms, and a control with two slots' or
 tiles' expert ids swapped must read above 0.1 of the largest output. The
@@ -52,7 +55,7 @@ from llamafile_tpu_torch.ops import qmatmul as Q
 from llamafile_tpu_torch.testing import (flash_prefill_tile_fault, i8p_fault,
                                          paged_case, paged_controls, planes_fault,
                                          q4b_scale_swap, rand_i8p, rand_q4b, rand_q8b,
-                                         rel_err, row_rel_err)
+                                         rel_err, row_rel_err, txn_scale_swap)
 
 pytestmark = pytest.mark.cuda
 
@@ -84,16 +87,32 @@ def test_txn_m1_matches_plain(dev, n, k, bias):
     assert_close(got, Q.qmm_txn_m1_plain(xq, sx, qs[1], sc[1], b), 1e-5)
 
 
-@pytest.mark.parametrize("m", [2, 8, 16, 31, 32])
-@pytest.mark.parametrize("n,k", [(4096, 4096), (1040, 1024), (512, 14336)])
-def test_txn_matches_plain(dev, m, n, k):
+@pytest.mark.parametrize("m", [1, 2, 7, 8, 9, 16, 17, 24, 25, 31, 32])
+@pytest.mark.parametrize("n,k,bias,splits", [
+    (4096, 4096, True, None), (1040, 1024, True, None), (1040, 256, False, None),
+    (512, 14336, True, None), (128, 14336, True, "most"), (67584, 256, True, 1)])
+def test_txn_matches_plain(dev, m, n, k, bias, splits):
+    """Every n8 row-tile count (NT = 1..4) and its edges, a partial column
+    tile (1040), one superblock (K = 256), no bias, uneven K splits (4
+    column tiles over 224 chunks), a grid of one K split (528 column tiles)
+    and one of a split a chunk (1 tile, 224 chunks).
+    Two launches give the same bits; each superblock's lo and hi scale rows
+    swapped must fail the limit."""
     gen = torch.Generator(device=dev).manual_seed(m * n + k)
     qs, sc, b = rand_q4b(gen, 2, n, k, dev)
+    b = b[0] if bias else None
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    s = Q.n_split(-(-n // 128), k // 64, k // 64, sms)
+    if splits is not None:
+        assert s == (k // 64 if splits == "most" else splits), s
     xq, sx = Q.quantize_activations_g32(torch.randn(m, k, generator=gen, device=dev))
     n0 = Q.qmm_txn.launches
-    got = Q.qmm_txn(xq, sx, qs[0], sc[0], b[0])
+    got = Q.qmm_txn(xq, sx, qs[0], sc[0], b)
     assert Q.qmm_txn.launches == n0 + 1
-    assert_close(got, Q.qmm_txn_plain(xq, sx, qs[0], sc[0], b[0]), 1e-5)
+    want = Q.qmm_txn_plain(xq, sx, qs[0], sc[0], b)
+    assert_close(got, want, 1e-5)
+    assert torch.equal(Q.qmm_txn(xq, sx, qs[0], sc[0], b), got)
+    assert rel_err(txn_scale_swap(xq, sx, qs[0], sc[0], b), want) > 1e-5
 
 
 @pytest.mark.parametrize("d,dff", [(256, 1024), (4096, 14336)])
@@ -164,10 +183,14 @@ def test_routed_gemv_matches_plain(dev, quant, n, k):
 
 @pytest.mark.parametrize("tm", [8, 32])
 @pytest.mark.parametrize("n,k", [(2048, 256), (28672, 4096), (4096, 14336)])
-def test_txn_g_matches_plain(dev, tm, n, k):
-    gen = torch.Generator(device=dev).manual_seed(tm * n + k)
+@pytest.mark.parametrize("te", [[0, 0, 2, 3, 3, 1], [2, 2, 2, 2], [3, 0, 0, 1]])
+def test_txn_g_matches_plain(dev, tm, n, k, te):
+    """Tiles of several experts, of one expert (every tile reads its
+    weights), and with an expert (2) that no tile names; a group's padding
+    rows give zeros, and two launches give the same bits."""
+    gen = torch.Generator(device=dev).manual_seed(tm * n + k + len(te))
     qs, sc, b = rand_q4b(gen, 4, n, k, dev)
-    te = torch.tensor([0, 0, 2, 3, 3, 1], dtype=torch.int32, device=dev)
+    te = torch.tensor(te, dtype=torch.int32, device=dev)
     x = torch.randn(te.shape[0] * tm, k, generator=gen, device=dev)
     x[tm - 2:tm] = 0                               # a group's padding rows
     xq, sx = Q.quantize_activations_g32(x)
@@ -177,7 +200,9 @@ def test_txn_g_matches_plain(dev, tm, n, k):
     want = Q.qmm_txn_g_plain(xq, sx, qs, sc, b, te, tm)
     assert_close(got, want, 1e-5)
     assert not got[tm - 2:tm].any()
-    assert rel_err(Q.qmm_txn_g_plain(xq, sx, qs, sc, b, te[[2, 1, 0, 3, 4, 5]], tm), want) > 0.1
+    assert torch.equal(Q.qmm_txn_g(xq, sx, qs, sc, b, te, tm), got)
+    other = (te + 1) % 4                           # every tile on another expert
+    assert rel_err(Q.qmm_txn_g_plain(xq, sx, qs, sc, b, other, tm), want) > 0.1
 
 
 @pytest.mark.parametrize("tiles,bias,valid", [(1, True, None), (3, True, None), (3, False, None),
