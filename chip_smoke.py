@@ -14,8 +14,10 @@
    flash_decode_write at pos 700 / s_eff 1024, pos 1900 / s_eff 2048 and
    phase 4's pos 64 / s_eff 256, two launches on the same inputs bitwise
    equal; the three decode kernels also at head groups of 3 and 16 (24 and
-   128 query heads over 8 KV heads), bf16 and int8;
-   the unrolled prefill's qmm_planes; flash_decode over bf16 and int8; the
+   128 query heads over 8 KV heads), bf16 and int8, and at head_dim 256:
+   Gemma-2-9B's 16 query heads over 8 KV heads and Gemma-2B's 8 over 1;
+   the unrolled prefill's qmm_planes; flash_decode over bf16 and int8 (one
+   launch, a group of up to 16 heads from one K/V read at D = 128); the
    MoE kernels at Mixtral-8x7B width: the routed fused FFN and the routed
    q4b and q8b GEMVs at a decode step's 2 slots, qmm_txn_g at 16 and 512
    slots, qmm_planes_g at 2048, each with a control whose expert ids are
@@ -58,7 +60,10 @@
    over its bf16 cache (300-token prompt) and its int8 cache (40 tokens),
    then on the card Engine.generate and 4 requests through the batcher,
    every decode attention a kernel launch, and the 4-row paged decode card
-   against CPU; two
+   against CPU; the same checks at head_dim 256 (gemma-2b-widths-2l:
+   Gemma-2B's widths in the llama layout, 8 query heads over 1 KV head, two
+   layers; 2 decode steps, the paged decode of 2 rows), where
+   flash_decode_write, flash_decode and paged_attention run at D = 256; two
    layers at Mixtral-8x7B width (mixtral-8x7b-2l): Q4_K stacked (24- and
    300-token prompts: qmm_txn_g and qmm_planes_g; 2 decode steps on the
    routed fused FFN), the Q4_K_M recipe unrolled (300-token prompt, 2
@@ -591,25 +596,27 @@ def kernel_phases(torch, dev, gen):
     # one launch of B * Hkv * head_chunks(G) clusters of FDW_CLUSTER blocks;
     # llama3-8b's group of 4 (32 query heads over 8 KV heads), then the
     # groups of 3 (Llama-3.2-3B, one chunk with masked columns) and 16 (two
-    # chunks, each reading the K/V rows) at pos 700
+    # chunks, each reading the K/V rows) at pos 700, then head_dim 256
+    # (DECODE_GROUPS)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    for hq, cases in DECODE_GROUPS["flash_decode_write"]:
-        fdw_phase(torch, dev, gen, entry, sdpa, hq, cases)
+    for hq, hkv, hd, cases in DECODE_GROUPS["flash_decode_write"]:
+        fdw_phase(torch, dev, gen, entry, sdpa, hq, cases, hkv, hd)
 
     # --- flash_decode: decode attention over one layer of a dense cache ---
     # bf16 flat [L, B, S, Hkv*D] (the qt contract, flash_decode_stacked) and
     # int8 [L, B, S, Hkv, D] codes with f32 scales (phase 4d's cache), 32
-    # layers so the replays spill the L2; pos near the end of s_eff. The
-    # controls: one masked key made visible, and the second half of the
-    # visible keys dropped.
-    for hq, cases in DECODE_GROUPS["flash_decode"]:
+    # layers so the replays spill the L2; pos near the end of s_eff; one
+    # launch of thread-block clusters, a group of up to 16 heads from one
+    # K/V read. The controls: one masked key made visible,
+    # and the second half of the visible keys dropped.
+    for hq, hkv, hd, cases in DECODE_GROUPS["flash_decode"]:
         for int8, s_eff in cases:
-            flash_decode_phase(torch, dev, gen, entry, sdpa, hq, int8, s_eff)
+            flash_decode_phase(torch, dev, gen, entry, sdpa, hq, int8, s_eff, hkv, hd)
 
     # --- paged_attention: the serving decode attention, 8 rows ------------
-    for hq, cases in DECODE_GROUPS["paged_attention"]:
+    for hq, hkv, hd, cases in DECODE_GROUPS["paged_attention"]:
         for label, lengths, int8 in cases:
-            paged_phase(torch, dev, gen, entry, sdpa, hq, label, lengths, int8)
+            paged_phase(torch, dev, gen, entry, sdpa, hq, label, lengths, int8, hkv, hd)
     i8p_kernel_phase(torch, dev, gen, entry)
     moe_kernel_phases(torch, dev, gen, entry, dequant_bf16)
     int8_kernel_phase(torch, dev, gen, entry, dequant_bf16)
@@ -619,49 +626,63 @@ def kernel_phases(torch, dev, gen):
 # the prompt lengths of the served requests (phases 5, 6, 7c and 8)
 SERVE_LENGTHS = (24, 128, 500, 1000)
 
-# Phase 2's decode attention shapes by query heads over 8 KV heads: 32
-# (llama3-8b, a group of 4) first, as in earlier runs, then 24 (a group of
-# 3: the shapes of phase 8's decode too) and 128 (16, two head chunks),
-# bf16 and int8
+# Phase 2's decode attention shapes by (query heads, KV heads, head dim):
+# llama3-8b's 32 over 8 at D = 128 (a group of 4) first, as in earlier runs,
+# then 24 over 8 (a group of 3: the shapes of phase 8's decode too) and 128
+# over 8 (16: two head chunks of flash_decode_write and paged_attention, one
+# of flash_decode), bf16 and int8; then head_dim 256: Gemma-2-9B's 16 over
+# 8 (a group of 2) and Gemma-2B's 8 over 1 (8: phase 3's head_dim-256 model)
 DECODE_GROUPS = {
     # (pos, s_eff): pos 700 heads the entry (the shape of earlier runs); pos
     # 64 / s_eff 256 is phase 4's decode (64 tokens after a 24-token prompt),
     # pos 40 / s_eff 256 at 24 heads phase 8's (32 tokens after the same prompt)
-    "flash_decode_write": [(32, ((700, 1024), (1900, 2048), (64, 256))),
-                           (24, ((700, 1024), (40, 256))), (128, ((700, 1024),))],
+    "flash_decode_write": [(32, 8, 128, ((700, 1024), (1900, 2048), (64, 256))),
+                           (24, 8, 128, ((700, 1024), (40, 256))),
+                           (128, 8, 128, ((700, 1024),)),
+                           (16, 8, 256, ((700, 1024), (1900, 2048))),
+                           (8, 1, 256, ((700, 1024),))],
     # (int8, s_eff)
-    "flash_decode": [(32, ((False, 1024), (False, 2048), (True, 1024), (True, 2048))),
-                     (24, ((False, 2048), (True, 2048))), (128, ((False, 2048), (True, 2048)))],
+    "flash_decode": [(32, 8, 128, ((False, 1024), (False, 2048), (True, 1024), (True, 2048))),
+                     (24, 8, 128, ((False, 2048), (True, 2048))),
+                     (128, 8, 128, ((False, 2048), (True, 2048))),
+                     (16, 8, 256, ((False, 2048), (True, 2048))),
+                     (8, 1, 256, ((False, 2048), (True, 2048)))],
     # (label, lengths, int8): 8 rows, and at 24 heads also the 4 rows of
     # phase 8's server (serve_four's prompts, 32 tokens into their answers)
     "paged_attention": [
-        (32, (("bf16, every length 1024", [1024] * 8, False),
-              ("bf16, lengths 1..2048", [1, 63, 64, 65, 700, 1024, 1500, 2048], False),
-              ("int8 + f32 scales, every length 1024", [1024] * 8, True))),
-        (24, (("bf16, every length 1024", [1024] * 8, False),
-              ("int8 + f32 scales, every length 1024", [1024] * 8, True),
-              ("bf16, phase 8's 4 served rows", [n + 32 for n in SERVE_LENGTHS], False))),
-        (128, (("bf16, every length 1024", [1024] * 8, False),
-               ("int8 + f32 scales, every length 1024", [1024] * 8, True)))],
+        (32, 8, 128, (("bf16, every length 1024", [1024] * 8, False),
+                      ("bf16, lengths 1..2048", [1, 63, 64, 65, 700, 1024, 1500, 2048], False),
+                      ("int8 + f32 scales, every length 1024", [1024] * 8, True))),
+        (24, 8, 128, (("bf16, every length 1024", [1024] * 8, False),
+                      ("int8 + f32 scales, every length 1024", [1024] * 8, True),
+                      ("bf16, phase 8's 4 served rows", [n + 32 for n in SERVE_LENGTHS],
+                       False))),
+        (128, 8, 128, (("bf16, every length 1024", [1024] * 8, False),
+                       ("int8 + f32 scales, every length 1024", [1024] * 8, True))),
+        (16, 8, 256, (("bf16, every length 1024", [1024] * 8, False),
+                      ("int8 + f32 scales, every length 1024", [1024] * 8, True))),
+        (8, 1, 256, (("bf16, every length 1024", [1024] * 8, False),))],
 }
 
 
-def group_note(hq: int, hkv: int) -> str:
-    """The head group of a decode shape and the K/V reads of its chunks."""
+def group_note(hq: int, hkv: int, most: int = 8) -> str:
+    """The head group of a decode shape and the K/V reads of its chunks
+    (chunks of up to `most` heads: attention.head_chunks)."""
     from llamafile_tpu_torch.ops.attention import head_chunks
     g = hq // hkv
-    nc = head_chunks(g)
-    return f"G={g}" + (f" in {nc} chunks, each reading the K/V rows" if nc > 1 else "")
+    nc = head_chunks(g, most)
+    return f"G={g}" + (f" in {nc} chunks, each reading the K/V rows" if nc > 1
+                       else ", one K/V read" if g > 8 else "")
 
 
-def fdw_phase(torch, dev, gen, entry, sdpa, hq, cases):
-    """Phase 2 for flash_decode_write at hq query heads over 8 KV heads, at
-    each (pos, s_eff) of cases: against its plain version within 2e-2 and
-    with the written rows equal, two launches bitwise equal, timed beside
-    its plain version and sdpa."""
+def fdw_phase(torch, dev, gen, entry, sdpa, hq, cases, hkv=8, hd=128):
+    """Phase 2 for flash_decode_write at hq query heads over hkv KV heads of
+    head dim hd, at each (pos, s_eff) of cases: against its plain version
+    within 2e-2 and with the written rows equal, two launches bitwise equal,
+    timed beside its plain version and sdpa."""
     from llamafile_tpu_torch.ops import attention as A
     from llamafile_tpu_torch.testing import FDW_CLUSTER, FDW_WARPS
-    nl, s_len, hkv, hd = 32, 2048, 8, 128
+    nl, s_len = 32, 2048
     scale = hd ** -0.5
     k3 = (torch.randn((nl, 1, s_len, hkv * hd), generator=gen, device=dev)).to(torch.bfloat16)
     v3 = (torch.randn((nl, 1, s_len, hkv * hd), generator=gen, device=dev)).to(torch.bfloat16)
@@ -711,20 +732,22 @@ def fdw_phase(torch, dev, gen, entry, sdpa, hq, cases):
     torch.cuda.empty_cache()
 
 
-def flash_decode_phase(torch, dev, gen, entry, sdpa, hq, int8, s_eff):
-    """Phase 2 for flash_decode at hq query heads over 8 KV heads, over a
-    bf16 flat or int8 cache of s_eff positions, pos near its end: row by row
-    against its plain version, the controls (one masked key made visible,
-    the second half of the visible keys dropped) outside the tolerance,
-    timed beside its plain version and sdpa."""
+def flash_decode_phase(torch, dev, gen, entry, sdpa, hq, int8, s_eff, hkv=8, hd=128):
+    """Phase 2 for flash_decode at hq query heads over hkv KV heads of head
+    dim hd, over a bf16 flat or int8 cache of s_eff positions, pos near its
+    end: row by row against its plain version, the controls (one masked key
+    made visible, the second half of the visible keys dropped) outside the
+    tolerance, two launches bitwise equal, timed beside its plain version
+    and sdpa. One launch of B * Hkv * head_chunks(G, FD_CHUNK_HEADS)
+    clusters, every K/V row read once a chunk."""
     from llamafile_tpu_torch.ops import attention as A
     from llamafile_tpu_torch.testing import row_rel_err
-    nl, hkv, hd = 32, 8, 128
+    nl = 32
     scale = hd ** -0.5
-    chunks = A.head_chunks(hq // hkv)
+    g = hq // hkv
     pos = s_eff - 5
     label = (f"{'int8 + f32 scales' if int8 else 'bf16 flat'}, s_eff={s_eff} pos={pos}"
-             + ("" if chunks == 1 else f", {group_note(hq, hkv)}"))
+             + ("" if g <= 8 else f", {group_note(hq, hkv, A.FD_CHUNK_HEADS)}"))
     q = torch.randn((1, hq, hd), generator=gen, device=dev)
     p = torch.tensor([pos], dtype=torch.int32, device=dev)
     if int8:
@@ -785,8 +808,9 @@ def flash_decode_phase(torch, dev, gen, entry, sdpa, hq, int8, s_eff):
     torch.cuda.empty_cache()
 
 
-def paged_phase(torch, dev, gen, entry, sdpa, hq, label, lengths, int8):
-    """Phase 2 for paged_attention at hq query heads over 8 KV heads, a row
+def paged_phase(torch, dev, gen, entry, sdpa, hq, label, lengths, int8, hkv=8, hd=128):
+    """Phase 2 for paged_attention at hq query heads over hkv KV heads of
+    head dim hd, a row
     for each of `lengths` over a pool of 32 layers (so the replays over layers spill
     the L2 as the fused step does), tables shuffled over the pool's pages:
     row by row against its plain version, the controls (one masked key made
@@ -794,7 +818,7 @@ def paged_phase(torch, dev, gen, entry, sdpa, hq, label, lengths, int8):
     beside its plain version and sdpa."""
     from llamafile_tpu_torch.ops import attention as A
     from llamafile_tpu_torch.testing import paged_case, paged_controls, row_rel_err
-    nl, r, hkv, hd, ps, maxp = 32, len(lengths), 8, 128, 64, 2048 // 64
+    nl, r, ps, maxp = 32, len(lengths), 64, 2048 // 64
     chunks = A.head_chunks(hq // hkv)
     label = label + ("" if chunks == 1 else f", {group_note(hq, hkv)}")
     q, kp, vp, ks, vs, lens, tables = paged_case(
@@ -1852,10 +1876,12 @@ def head_dim_64_check(torch, dev, n_prompt=40, n_decode=4, max_seq_len=1000):
         "calls (both sides), no paged kernel launch")
 
 
-def llama32_3b_check(torch, dev, n_decode=4, max_seq_len=1024):
-    """Decode attention at a head group of 3: Llama-3.2-3B's widths at two
-    layers (llama3.2-3b-2l: 24 query heads over 8 KV heads, head_dim 128),
-    Q4_K, fused and stacked. The Engine's prefill (a 300-token prompt over
+def decode_model_check(torch, dev, preset="llama3.2-3b-2l", n_decode=4, max_seq_len=1024,
+                       paged_prompts=(24, 64, 200, 300)):
+    """Decode attention at a head group of 3 (llama3.2-3b-2l: Llama-3.2-3B's
+    widths at two layers, 24 query heads over 8 KV heads, head_dim 128) or
+    at head_dim 256 (gemma-2b-widths-2l: 8 over 1, a group of 8), Q4_K,
+    fused and stacked. The Engine's prefill (a 300-token prompt over
     its bf16 cache, bucket 512: the dequant GEMM and the flash prefill; a
     40-token one over its stacked int8 cache) and n_decode decode steps
     (teacher-forced with the card's greedy token), card against CPU: logits
@@ -1864,8 +1890,8 @@ def llama32_3b_check(torch, dev, n_decode=4, max_seq_len=1024):
     bf16, flash_decode for int8) with no einsum step. Then, on the card,
     Engine.generate of 8 greedy tokens and 4 requests served at once by a
     4-row batcher, every decode attention call a kernel launch, counted
-    exactly, with no einsum or gather step; then the 4-row paged decode card
-    against CPU (paged_path_check)."""
+    exactly, with no einsum or gather step; then the paged decode of rows at
+    paged_prompts, card against CPU (paged_path_check)."""
     from llamafile_tpu_torch.models.llama import forward
     from llamafile_tpu_torch.models.synthetic import make_synthetic_llama
     from llamafile_tpu_torch.ops import attention as A
@@ -1874,13 +1900,12 @@ def llama32_3b_check(torch, dev, n_decode=4, max_seq_len=1024):
     from llamafile_tpu_torch.runtime.sampling import SamplingParams
     from llamafile_tpu_torch.runtime.tokenizer import Tokenizer
     from llamafile_tpu_torch.server.batcher import Batcher
-    preset = "llama3.2-3b-2l"
     cfg, params = make_synthetic_llama(preset, "Q4_K", seed=1, fuse=True, device=dev)
     n = cfg.n_layers
     eng = Engine(cfg, params, Tokenizer({}), max_seq_len=max_seq_len, device=dev)
     del params
     cpu_params = _to(eng.params, "cpu")
-    what = f"{preset} (G = {cfg.n_heads // cfg.n_kv_heads})"
+    what = f"{preset} (G = {cfg.n_heads // cfg.n_kv_heads}, D = {cfg.head_dim})"
     prompt = torch.randint(3, cfg.n_vocab, (300,),
                            generator=torch.Generator().manual_seed(12)).tolist()
     decode_kernel = {"bf16": A.flash_decode_write_stacked, "int8": A.flash_decode}
@@ -1953,7 +1978,7 @@ def llama32_3b_check(torch, dev, n_decode=4, max_seq_len=1024):
         raise AssertionError(f"{what}: the batcher's decode left the kernel route")
     del eng, bt
     torch.cuda.empty_cache()
-    paged_path_check(torch, dev, preset=preset)
+    paged_path_check(torch, dev, prompts=paged_prompts, n_decode=n_decode, preset=preset)
 
 
 def counted_generate(torch, eng, prompt, n_new):
@@ -2945,7 +2970,11 @@ def main() -> int:
             ("Q4_K, 300-token prompt, int8 prefill", whole_path_check, ("Q4_K",),
              dict(n_prompt=300, n_decode=2, i8p=True), "txn"),
             ("head_dim 64 (TinyLlama widths)", head_dim_64_check, (), {}, "txn"),
-            ("Llama-3.2-3B widths (G = 3)", llama32_3b_check, (), {}, "txn"),
+            ("Llama-3.2-3B widths (G = 3)", decode_model_check, (), {}, "txn"),
+            # head_dim 256: flash_decode_write, flash_decode and
+            # paged_attention at D = 256 on a model's path
+            ("head_dim 256 (Gemma-2B widths, G = 8)", decode_model_check, (),
+             dict(preset="gemma-2b-widths-2l", n_decode=2, paged_prompts=(24, 200)), "txn"),
             ("Q8_0", whole_path_check, ("Q8_0",), dict(n_prompt=24, n_decode=4), "txn"),
             ("paged decode, 4 rows", paged_path_check, (), {}, "txn"),
             ("Q4_K_M", whole_path_check, ("Q4_K_M",), dict(n_prompt=300, n_decode=4), "txn"),

@@ -1,0 +1,292 @@
+// The cluster body shared by the two dense-cache decode kernels
+// (flash_decode_write.cu, flash_decode.cu): a 16-row bf16 K/V slab staged
+// by cp.async and run on mma.sync, and the merge of a rank's warp partials
+// pushed through distributed shared memory to the other ranks of its
+// thread-block cluster.
+//
+// Each (batch row, kv head, head chunk) is one cluster of CS blocks (the
+// ranks). Rank r takes the rows [rank_lo(r, n), rank_lo(r + 1, n)) of the
+// n visible rows, each of its warps streams its own slabs through a ring in
+// shared memory, and the warps' partials (m, l, acc) merge in warp order
+// into the rank's; push_partials then sends (m, l) to every rank and acc's
+// dims [r * D / CS, (r + 1) * D / CS) to rank r with st.async, counted on
+// that rank's mbarrier. Every sum runs in a fixed order, so two launches on
+// the same inputs give the same bits.
+#pragma once
+
+#include "mma_bf16.cuh"
+
+namespace dcl {
+
+using namespace mma;
+
+constexpr int RW = 16;               // rows of a bf16 slab: one warp's mma tile
+constexpr int CS = 8;                // blocks a cluster (the portable size)
+constexpr float NEG = -1e30f;
+
+// An 8x8 b16 matrix in the mma fragment layout, transposed across the warp.
+__device__ __forceinline__ uint32_t movmatrix_trans(uint32_t a) {
+  uint32_t d;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n" : "=r"(d) : "r"(a));
+  return d;
+}
+
+__device__ __forceinline__ float bf16_lo(uint32_t v) {
+  return __uint_as_float(v << 16);
+}
+
+__device__ __forceinline__ float bf16_hi(uint32_t v) {
+  return __uint_as_float(v & 0xffff0000u);
+}
+
+// first row of rank r of CS over n rows (testing.fdw_rank_ranges is the same rule)
+__device__ __forceinline__ int rank_lo(int r, int n) {
+  return (int)((long long)r * n / CS);
+}
+
+// rows j0 .. j0 + nr - 1 of K and V (row stride HD elements) into one slab
+// [K rows | V rows] of row stride D + 8, by the 32 lanes of a warp; the
+// slab's rows nr .. RW - 1 are zero-filled, so P.V over them adds 0
+template <int D>
+__device__ __forceinline__ void load_slab(__nv_bfloat16* slab, const __nv_bfloat16* kb,
+                                          const __nv_bfloat16* vb, int j0, int nr, int HD) {
+  constexpr int DP = D + 8, CH = D / 8;        // 16-byte chunks a row
+  const int lane = threadIdx.x & 31, col = 8 * (lane % CH), r = lane / CH;
+#pragma unroll
+  for (int i = 0; i < RW; i += 32 / CH) {
+    const int row = r + i;
+    const bool ok = row < nr;
+    const size_t off = (size_t)(j0 + (ok ? row : 0)) * HD + col;
+    cp_async16(slab + row * DP + col, kb + off, ok);
+    cp_async16(slab + (RW + row) * DP + col, vb + off, ok);
+  }
+}
+
+// One slab of a warp (nrw of its RW rows valid, the rest zero) on the
+// tensor cores, "swap AB": the query heads are the n = 8 side of
+// mma.m16n8k16, NTL tiles of 8. Scores S^T = K Q^T (K by ldmatrix, qb the
+// bf16 q fragments: head 8t + gq), the slab's max and rescale of heads
+// 8t + 2qd, 8t + 2qd + 1 (l summing the f32 p), then O^T += V^T P^T (V by
+// ldmatrix.trans; the bf16 p moved from the S^T accumulators into the B
+// fragment by movmatrix.trans): acc[t][mt] holds dims 16mt + gq (+8) of
+// those two heads.
+template <int D, int NTL>
+__device__ __forceinline__ void attend_slab(const __nv_bfloat16* ks, int nrw,
+                                            const uint32_t (&qb)[NTL][D / 16][2], float scale,
+                                            float (&m2)[NTL][2], float (&l2)[NTL][2],
+                                            float (&acc)[NTL][D / 16][4]) {
+  constexpr int DP = D + 8;
+  const int lane = threadIdx.x & 31, gq = lane >> 2;
+  const __nv_bfloat16* vs = ks + RW * DP;
+  float c[NTL][2][4] = {};           // S^T: rows gq (+8), heads 2qd (+1); two chains
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    uint32_t a[4];
+    ldmatrix_x4(a, ks + (lane & 15) * DP + 16 * kk + 8 * (lane >> 4));
+#pragma unroll
+    for (int t = 0; t < NTL; ++t) mma_16816(c[t][kk & 1], a, qb[t][kk][0], qb[t][kk][1]);
+  }
+  const bool v0 = gq < nrw, v1 = gq + 8 < nrw;
+  float pr[NTL][4], corr[NTL][2];
+#pragma unroll
+  for (int t = 0; t < NTL; ++t)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const float s0 = v0 ? (c[t][0][j] + c[t][1][j]) * scale : NEG;
+      const float s1 = v1 ? (c[t][0][j + 2] + c[t][1][j + 2]) * scale : NEG;
+      float mx = fmaxf(s0, s1);
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float mn = fmaxf(m2[t][j], mx);
+      corr[t][j] = expf(m2[t][j] - mn);
+      pr[t][j] = v0 ? expf(s0 - mn) : 0.f;
+      pr[t][j + 2] = v1 ? expf(s1 - mn) : 0.f;
+      float rs = pr[t][j] + pr[t][j + 2];
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1) rs += __shfl_xor_sync(0xffffffffu, rs, off);
+      l2[t][j] = l2[t][j] * corr[t][j] + rs;
+      m2[t][j] = mn;
+    }
+  uint32_t pb[NTL][2];
+#pragma unroll
+  for (int t = 0; t < NTL; ++t) {
+#pragma unroll
+    for (int mt = 0; mt < D / 16; ++mt) {
+      acc[t][mt][0] *= corr[t][0];
+      acc[t][mt][1] *= corr[t][1];
+      acc[t][mt][2] *= corr[t][0];
+      acc[t][mt][3] *= corr[t][1];
+    }
+    // P^T as the B operand (k = row, n = head): rows 2qd (+1) and 8 + 2qd
+    // (+1) of head gq, in bf16
+    pb[t][0] = movmatrix_trans(pack_bf16x2(pr[t][0], pr[t][1]));
+    pb[t][1] = movmatrix_trans(pack_bf16x2(pr[t][2], pr[t][3]));
+  }
+#pragma unroll
+  for (int mt = 0; mt < D / 16; ++mt) {
+    uint32_t a[4];                   // V^T: dims 16mt.., the warp's 16 rows
+    ldmatrix_x4_trans(a, vs + ((lane & 7) + 8 * (lane >> 4)) * DP + 16 * mt +
+                             8 * ((lane >> 3) & 1));
+#pragma unroll
+    for (int t = 0; t < NTL; ++t) mma_16816(acc[t][mt], a, pb[t][0], pb[t][1]);
+  }
+}
+
+// The warp's partial from attend_slab into the block's [NW][D][HP] acc
+// (HP = 8 * NTL heads a dim) and its (m, l) of each head into wm, wl.
+template <int D, int NTL, int HP>
+__device__ __forceinline__ void store_warp_partial(float* wacc, float (*wm)[HP],
+                                                   float (*wl)[HP], const float (&m2)[NTL][2],
+                                                   const float (&l2)[NTL][2],
+                                                   const float (&acc)[NTL][D / 16][4]) {
+  const int warp = threadIdx.x >> 5, gq = (threadIdx.x & 31) >> 2, qd = threadIdx.x & 3;
+#pragma unroll
+  for (int t = 0; t < NTL; ++t) {
+#pragma unroll
+    for (int mt = 0; mt < D / 16; ++mt)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf)
+        *reinterpret_cast<float2*>(wacc + (warp * D + 16 * mt + 8 * hf + gq) * HP + 8 * t +
+                                   2 * qd) = make_float2(acc[t][mt][2 * hf], acc[t][mt][2 * hf + 1]);
+    if (gq == 0) {
+      wm[warp][8 * t + 2 * qd] = m2[t][0];
+      wm[warp][8 * t + 2 * qd + 1] = m2[t][1];
+      wl[warp][8 * t + 2 * qd] = l2[t][0];
+      wl[warp][8 * t + 2 * qd + 1] = l2[t][1];
+    }
+  }
+}
+
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_addr(bar)), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// The start of a rank: thread 0 sets up the mbarrier that counts the
+// `bytes` the other ranks push here, then every thread arrives on the
+// cluster barrier that push_partials waits on before its first remote store.
+__device__ __forceinline__ void rank_start(uint64_t* in_bar, uint32_t bytes) {
+  if (threadIdx.x == 0) {
+    mbar_init(in_bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_expect_tx(in_bar, bytes);
+  }
+  cluster_arrive_relaxed();
+}
+
+// the shared::cluster address of p's counterpart in rank r's shared memory
+__device__ __forceinline__ uint32_t map_rank(const void* p, int r) {
+  uint32_t a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(a) : "r"(smem_addr(p)), "r"(r));
+  return a;
+}
+
+// stores into another rank's shared memory that count their bytes on its
+// mbarrier `bar` when they land
+__device__ __forceinline__ void st_async(uint32_t addr, float v, uint32_t bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, [%2];\n"
+               ::"r"(addr), "r"(__float_as_uint(v)), "r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void st_async(uint32_t addr, float4 v, uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], {%1, %2, %3, %4}, "
+      "[%5];\n" ::"r"(addr), "r"(__float_as_uint(v.x)), "r"(__float_as_uint(v.y)),
+      "r"(__float_as_uint(v.z)), "r"(__float_as_uint(v.w)), "r"(bar)
+      : "memory");
+}
+
+// The bytes every rank receives from push_partials<D, HP, GPU, ...>.
+template <int D, int HP, int GPU>
+__host__ __device__ constexpr uint32_t pushed_bytes() {
+  return CS * (2 * HP + GPU * (D / CS)) * 4;
+}
+
+// The rank's partial from its NW warps' (wm, wl [NW][HP], wacc [NW][D][HP]),
+// merged in warp order, pushed to the cluster: (m, l) of the HP heads to
+// every rank at m_in, l_in [CS][HP], and dims [r * DL, (r + 1) * DL) of acc,
+// heads 0 .. GPU - 1 (GPU % 4 == 0, GPU <= HP), to rank r at acc_in
+// [CS][DL][HP]. (Every dim merges all HP heads: at GPU = 4 of HP = 8 that
+// keeps flash_decode_write's registers and times of its own merge.) Call
+// after a block barrier that follows the warps' stores; the caller then
+// waits on its own in_bar for what the ranks pushed to it.
+template <int D, int NW, int HP, int GPU>
+__device__ __forceinline__ void push_partials(const float* wacc, const float (*wm)[HP],
+                                              const float (*wl)[HP], float (*wf)[HP],
+                                              float* m_in, float* l_in, float* acc_in,
+                                              uint64_t* in_bar, int rank) {
+  constexpr int DL = D / CS;
+  const int tid = threadIdx.x;
+  cluster_wait();                      // every rank has started: remote stores may begin
+  if (tid < HP) {                      // head g: the warps' weights, in warp order
+    const int g = tid;
+    float mx = NEG;
+#pragma unroll
+    for (int w = 0; w < NW; ++w) mx = fmaxf(mx, wm[w][g]);
+    float L = 0.f;
+#pragma unroll
+    for (int w = 0; w < NW; ++w) {
+      const float f = expf(wm[w][g] - mx);
+      wf[w][g] = f;
+      L += wl[w][g] * f;
+    }
+    for (int r = 0; r < CS; ++r) {     // (m, l) of head g to every rank
+      const uint32_t bar = map_rank(in_bar, r);
+      st_async(map_rank(m_in + rank * HP + g, r), mx, bar);
+      st_async(map_rank(l_in + rank * HP + g, r), L, bar);
+    }
+  }
+  __syncthreads();
+  for (int d = tid; d < D; d += NW * 32) {   // dim d of the rank's acc to rank d / DL
+    float a[HP];
+#pragma unroll
+    for (int g = 0; g < HP; ++g) a[g] = 0.f;
+#pragma unroll
+    for (int w = 0; w < NW; ++w)
+#pragma unroll
+      for (int i = 0; i < HP / 4; ++i) {
+        const float4 x = *reinterpret_cast<const float4*>(wacc + (w * D + d) * HP + 4 * i);
+        a[4 * i] += x.x * wf[w][4 * i];
+        a[4 * i + 1] += x.y * wf[w][4 * i + 1];
+        a[4 * i + 2] += x.z * wf[w][4 * i + 2];
+        a[4 * i + 3] += x.w * wf[w][4 * i + 3];
+      }
+    const int r = d / DL;
+    const uint32_t bar = map_rank(in_bar, r);
+    const uint32_t dst = map_rank(acc_in + (rank * DL + d % DL) * HP, r);
+#pragma unroll
+    for (int i = 0; i < GPU / 4; ++i)
+      st_async(dst + 16 * i, make_float4(a[4 * i], a[4 * i + 1], a[4 * i + 2], a[4 * i + 3]),
+               bar);
+  }
+}
+
+}  // namespace dcl

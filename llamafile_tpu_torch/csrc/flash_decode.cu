@@ -6,7 +6,7 @@
 // (:161, via flash_decode_stacked :460); the second computes the first's
 // function on layer li of the flat stacked cache, and here both are one
 // kernel given layer li's pointer. Inputs:
-//   q       [B, Hq, D] f32
+//   q       [B, Hq, D] f32, D = 128 or 256
 //   k, v    [B, S, Hkv, D] (element (b, j, h, d) at b * sb + (j * Hkv + h) *
 //           D + d: a bf16 flat [L, B, S, Hkv*D] cache's layer li, or an int8
 //           [L, B, S, Hkv, D] cache's, sliced to s_eff positions, no copy)
@@ -19,275 +19,501 @@
 // p.astype(v.dtype)) while l sums the f32 p; an int8 cache computes on the
 // dequantized f32 K/V, as the reference hands the kernel f32 K/V: each code
 // is multiplied by its f32 scale here, in registers, the same f32 product,
-// so no f32 copy of the layer is made.
+// so no f32 copy of the layer is made, and every product and sum after it
+// is f32 on the CUDA cores.
 //
 // What bounds it on an H100: device-memory bytes of the visible rows, B *
 // n_visible * Hkv * D * 2 (K and V) * (2 B for bf16 | 1 B + 4 B / D for
-// int8); about 2 G flops a byte. Design (that of paged_attention.cu): pass
-// 1 runs one block per (split of the positions, head chunk, KV head, batch
-// row); the 8 half-warps of a block each take one key row at a time, 16
-// lanes x 8 dims (one 16-byte load a lane for bf16), so the query heads of
-// the chunk share every K/V row loaded; each half-warp keeps an online
-// softmax and the block merges them in half-warp order. A group of G <= 8
-// query heads is one chunk, an instance of its own (GC = G, a constant:
-// nothing masked); a larger group runs as NC = ceil(G / 8) chunks of GC =
-// ceil(G / NC) heads on the grid's y axis beside the KV head (the last
-// chunk masks heads past G), each reading the K/V rows again.
-// Splits with no visible row write a neutral partial (m = -1e30, l = 0).
-// Pass 2 combines the splits of each (row, query head) in split order; the
-// scratch is indexed by query head. Both merges are in a fixed order, so
-// the result is the same from run to run.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+// int8); about 2 G flops a byte, so the int8 form's f32 work comes near
+// the f32 ridge (about 20 flops a byte) at G = 16. The design is
+// flash_decode_write.cu's (decode_cluster.cuh), one launch a call with no
+// scratch in device memory:
+// - each (batch row, kv head, head chunk) is one thread-block cluster of
+//   CS = 8 blocks; rank r takes the rows [r * n / CS, (r + 1) * n / CS) of
+//   the n visible ones, a split fixed by n alone;
+// - warp w of a rank streams the slabs w, w + NW, ... of its rows through
+//   its own ring of NS slots in shared memory (cp.async, rows past the end
+//   zero-filled), NS slabs in flight from the start, no block barrier
+//   while it streams;
+// - bf16: a slab of 16 rows runs on mma.sync, "swap AB", the chunk's heads
+//   the n side in tiles of 8 (decode_cluster.cuh attend_slab), three slabs
+//   in flight a warp, 4 warps a block;
+// - int8: a slab of 32 rows (codes at a row stride of D + 16 bytes, so
+//   that 32 lanes reading 32 rows hit distinct banks, and the rows'
+//   scales), two in flight a warp, 8 warps a block at D = 128 and 4 at
+//   256 (q8_warps); lane i dequantizes row i's K codes and takes its
+//   scores for every head against q held in shared memory (no shuffle in
+//   the dot), the slab's max is a warp reduction a head, and in P.V lane
+//   i owns dims [i * D / 32, (i + 1) * D / 32) of every head, each V code
+//   dequantized once, p read back from the warp's rows in shared memory;
+// - one max and one rescale a slab and head (the TPU kernel's online
+//   softmax over blocks); the warps' partials merge in warp order, the
+//   ranks' through distributed shared memory in rank order, rank r writing
+//   the output dims [r * D / CS, (r + 1) * D / CS).
+// Every K/V row is read once for all the heads of its chunk: a chunk is
+// the whole group up to 16 query heads (two n tiles; at D = 256 that reads
+// 0.0177 ms against chunks of 8's 0.0255 in bf16 at G = 16, s_eff 2048,
+// and the same within 1% in int8, PERF.md); a larger group runs as
+// ceil(G / 16) chunks of ceil(G / chunks) heads on the grid's y axis
+// beside the KV head, each reading the rows again. Instances by the heads
+// a chunk holds: bf16 4, 8, 16 (heads past the chunk's are zero columns of
+// the tile, never stored), int8 1, 2, 4, 8, 16 (heads past the chunk's are
+// zero rows of q).
+// Every sum runs in a fixed order, so two launches on the same inputs give
+// the same bits. The softcap of the TPU kernel is not in this kernel; its
+// wrapper raises for it (llama3 uses none).
+#include <cooperative_groups.h>
+
+#include "decode_cluster.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int D = 128;
-constexpr int NW = 4;           // warps a block
-constexpr int NH = 2 * NW;      // half-warps a block
-constexpr int U = 2;            // key rows in flight a half-warp
-constexpr float NEG = -1e30f;
+using namespace dcl;
 
-__device__ __forceinline__ float bf16_round(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
+constexpr int NWB = 4;               // warps a block (bf16)
+constexpr int RQ = 32;               // rows of an int8 slab: one a lane
+
+// g heads rounded up to 4 (float4 rows)
+__host__ __device__ constexpr int heads4(int g) { return g < 4 ? 4 : g; }
+
+// int8: warps a block and slabs in flight a warp, by D. At D = 128 eight
+// warps of two slabs read 17-20% faster than four of three at s_eff 2048
+// and 4-8% slower at 1024 (scripts/probe_attn.py fd_q8_nw4, PERF.md); at
+// D = 256 eight would need 282 KB of shared memory.
+__host__ __device__ constexpr int q8_warps(int D) { return D == 128 ? 8 : 4; }
+__host__ __device__ constexpr int q8_slabs(int D) { return 2; }
+
+
+// a warp's ring: NS slots of one slab each
+template <bool BF, int D>
+struct Ring {
+  static constexpr int NW = BF ? NWB : q8_warps(D);      // warps a block
+  static constexpr int NS = BF ? 3 : q8_slabs(D);        // slabs in flight a warp
+  static constexpr int ROWS = BF ? RW : RQ;               // rows a slab
+  // bf16: K rows | V rows at a stride of D + 8; int8: K codes | V codes at
+  // a stride of D + 16 bytes | K scales | V scales
+  static constexpr int BYTES = BF ? 2 * RW * (D + 8) * 2 : 2 * RQ * (D + 16) + 2 * RQ * 4;
+};
+
+// 4-byte global -> shared copy; zero-fills the destination when !valid
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 4 : 0));
 }
 
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* out) {
-  uint4 u = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+// rows j0 .. j0 + nr - 1 of the codes (row stride HD bytes) and of the
+// scales (row stride Hkv floats) into one int8 slab; rows nr .. RQ - 1 are
+// zero-filled (codes and scales), so P.V over them adds 0
+template <int D>
+__device__ __forceinline__ void load_slab_q8(unsigned char* slab, const int8_t* kb,
+                                             const int8_t* vb, const float* ksb,
+                                             const float* vsb, int j0, int nr, int HD,
+                                             int Hkv) {
+  constexpr int KS = D + 16, CH = D / 16;   // 16-byte chunks a row
+  const int lane = threadIdx.x & 31;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    out[2 * i] = __low2float(h[i]);
-    out[2 * i + 1] = __high2float(h[i]);
+  for (int it = 0; it < RQ * CH / 32; ++it) {
+    const int i = lane + 32 * it, row = i / CH, col = 16 * (i % CH);
+    const bool ok = row < nr;
+    const size_t off = (size_t)(j0 + (ok ? row : 0)) * HD + col;
+    cp_async16(slab + row * KS + col, kb + off, ok);
+    cp_async16(slab + (RQ + row) * KS + col, vb + off, ok);
+  }
+  const bool ok = lane < nr;
+  const size_t so = (size_t)(j0 + (ok ? lane : 0)) * Hkv;
+  float* sc = reinterpret_cast<float*>(slab + 2 * RQ * KS);
+  cp_async4(sc + lane, ksb + so, ok);
+  cp_async4(sc + RQ + lane, vsb + so, ok);
+}
+
+// The four int8 codes packed in w as f32, exactly: each byte, offset to
+// unsigned, becomes the low mantissa byte of 2^23 (one prmt), and 2^23 +
+// 128 comes off (one add). A cvt from an integer runs at 1/8 of the f32
+// rate on this card.
+__device__ __forceinline__ void codes4(int w, float* f) {
+  const uint32_t u = (uint32_t)w ^ 0x80808080u;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    f[i] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440 + i)) - 8388736.f;
+}
+
+// One int8 slab of a warp (nrw of its RQ rows valid) in f32: the scores of
+// row `lane` for heads 0 .. GP - 1 (q_s [GP][D] f32, heads past the chunk
+// zero), the slab's max and rescale of each head, p into the warp's rows
+// p_s [RQ][PS], then acc[g][e] += p * v over the valid rows for dims
+// D / 32 * lane + e. lp: this lane's share of l (the lanes' sum is l).
+template <int D, int GP>
+__device__ __forceinline__ void attend_slab_q8(const unsigned char* slab, int nrw,
+                                               const float* q_s, float* p_s, float scale,
+                                               float (&m)[GP], float (&lp)[GP],
+                                               float (&acc)[GP][D / 32]) {
+  constexpr int KS = D + 16, DPL = D / 32, PS = heads4(GP);
+  const int lane = threadIdx.x & 31;
+  const int8_t* kc = reinterpret_cast<const int8_t*>(slab);
+  const int8_t* vc = kc + RQ * KS;
+  const float* ksc = reinterpret_cast<const float*>(vc + RQ * KS);
+  const float* vsc = ksc + RQ;
+  float s0[GP], s1[GP];                // two chains a head
+#pragma unroll
+  for (int g = 0; g < GP; ++g) s0[g] = s1[g] = 0.f;
+  const int8_t* kr = kc + lane * KS;
+  const float ksl = ksc[lane];
+#pragma unroll
+  for (int cc = 0; cc < D / 16; ++cc) {
+    const int4 raw = *reinterpret_cast<const int4*>(kr + 16 * cc);
+    float kf[16];
+    codes4(raw.x, kf);
+    codes4(raw.y, kf + 4);
+    codes4(raw.z, kf + 8);
+    codes4(raw.w, kf + 12);
+#pragma unroll
+    for (int e = 0; e < 16; ++e) kf[e] *= ksl;
+#pragma unroll
+    for (int g = 0; g < GP; ++g) {
+      const float4* qv = reinterpret_cast<const float4*>(q_s + g * D + 16 * cc);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float4 x = qv[i];
+        s0[g] = fmaf(x.x, kf[4 * i], s0[g]);
+        s1[g] = fmaf(x.y, kf[4 * i + 1], s1[g]);
+        s0[g] = fmaf(x.z, kf[4 * i + 2], s0[g]);
+        s1[g] = fmaf(x.w, kf[4 * i + 3], s1[g]);
+      }
+    }
+  }
+  const bool ok = lane < nrw;
+  float corr[GP];
+  float* prow = p_s + lane * PS;
+#pragma unroll
+  for (int g = 0; g < GP; ++g) {
+    const float sc = ok ? (s0[g] + s1[g]) * scale : NEG;
+    float mx = sc;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    const float mn = fmaxf(m[g], mx);
+    corr[g] = expf(m[g] - mn);
+    const float pg = ok ? expf(sc - mn) : 0.f;
+    lp[g] = lp[g] * corr[g] + pg;
+    m[g] = mn;
+    prow[g] = pg;
+  }
+#pragma unroll
+  for (int g = GP; g < PS; ++g) prow[g] = 0.f;
+  __syncwarp();                        // every row's p is in p_s
+#pragma unroll
+  for (int g = 0; g < GP; ++g)
+#pragma unroll
+    for (int e = 0; e < DPL; ++e) acc[g][e] *= corr[g];
+  const int8_t* vcol = vc + DPL * lane;
+#pragma unroll 2
+  for (int r = 0; r < nrw; ++r) {
+    float vf[DPL];
+    const float vsr = vsc[r];
+    if constexpr (DPL == 4) {
+      codes4(*reinterpret_cast<const int*>(vcol + r * KS), vf);
+    } else {
+      const int2 w = *reinterpret_cast<const int2*>(vcol + r * KS);
+      codes4(w.x, vf);
+      codes4(w.y, vf + 4);
+    }
+#pragma unroll
+    for (int e = 0; e < DPL; ++e) vf[e] *= vsr;
+    float pv[PS];
+#pragma unroll
+    for (int i = 0; i < PS / 4; ++i) {
+      const float4 x = reinterpret_cast<const float4*>(p_s + r * PS)[i];
+      pv[4 * i] = x.x;
+      pv[4 * i + 1] = x.y;
+      pv[4 * i + 2] = x.z;
+      pv[4 * i + 3] = x.w;
+    }
+#pragma unroll
+    for (int g = 0; g < GP; ++g)
+#pragma unroll
+      for (int e = 0; e < DPL; ++e) acc[g][e] = fmaf(pv[g], vf[e], acc[g][e]);
   }
 }
 
-__device__ __forceinline__ void load8(const int8_t* p, float* out) {
-  uint2 u = *reinterpret_cast<const uint2*>(p);
-  const int8_t* c = reinterpret_cast<const int8_t*>(&u);
+// The int8 warp's partial into the block's [NW][D][HP] acc and its (m, l)
+// of each head into wm, wl (heads GP .. HP - 1 neutral).
+template <int D, int GP, int HP>
+__device__ __forceinline__ void store_warp_partial_q8(float* wacc, float (*wm)[HP],
+                                                      float (*wl)[HP], const float (&m)[GP],
+                                                      float (&lp)[GP],
+                                                      const float (&acc)[GP][D / 32]) {
+  constexpr int DPL = D / 32;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 #pragma unroll
-  for (int i = 0; i < 8; ++i) out[i] = (float)c[i];
+  for (int g = 0; g < GP; ++g)
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) lp[g] += __shfl_xor_sync(0xffffffffu, lp[g], off);
+#pragma unroll
+  for (int e = 0; e < DPL; ++e) {
+    float* row = wacc + (warp * D + DPL * lane + e) * HP;
+#pragma unroll
+    for (int i = 0; i < HP / 4; ++i) {
+      float x[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) x[j] = 4 * i + j < GP ? acc[(4 * i + j) % GP][e] : 0.f;
+      *reinterpret_cast<float4*>(row + 4 * i) = make_float4(x[0], x[1], x[2], x[3]);
+    }
+  }
+  if (lane == 0)
+#pragma unroll
+    for (int g = 0; g < HP; ++g) {
+      wm[warp][g] = g < GP ? m[g % GP] : NEG;
+      wl[warp][g] = g < GP ? lp[g % GP] : 0.f;
+    }
 }
 
-__device__ __forceinline__ float half_sum(float v) {
-  // the 16 lanes of one half-warp; both halves run it together
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
+// heads a dim of the warps' acc (HP: whole mma tiles for bf16)
+template <bool BF, int GP>
+__host__ __device__ constexpr int heads_held() {
+  return BF ? 8 * ((GP + 7) / 8) : heads4(GP);
 }
 
-// GC: query heads a chunk (compile time); G: the group, Hq = Hkv * G;
-// ONE: the group is one chunk (G = GC <= 8), so G and the chunk are
-// known at compile time and no head is masked
-template <typename T, int GC, bool ONE>
-__global__ void __launch_bounds__(NW * 32)
-fd_split_kernel(const float* __restrict__ q, const T* __restrict__ k,
-                const T* __restrict__ v, const float* __restrict__ ks,
-                const float* __restrict__ vs, const int* __restrict__ pos,
-                float* __restrict__ m_part, float* __restrict__ l_part,
-                float* __restrict__ acc_part, int Hkv, int G, int s_eff, long long sb,
-                long long ssb, int win, int chunk, int n_split, float scale) {
-  constexpr bool BF = sizeof(T) == 2;            // bf16 cache: round q and p
-  if (ONE) G = GC;
-  const int s = blockIdx.x, b = blockIdx.z;
-  const int c = ONE ? 0 : blockIdx.y / Hkv, h = blockIdx.y - c * Hkv;   // head chunk, KV head
-  const int gn = min(GC, G - c * GC);            // the chunk's heads below G
+// the rings (after the loop: the warps' acc [NW][D][HP]) | the rank
+// partials pushed here: m, l [CS][HP] and acc [CS][D / CS][HP] | int8
+// only: q [GP][D] f32 and each warp's p [RQ][heads4(GP)]
+template <bool BF, int D, int GP>
+__host__ __device__ constexpr int smem_bytes() {
+  using R = Ring<BF, D>;
+  constexpr int HP = heads_held<BF, GP>();
+  return R::NW * R::NS * R::BYTES + (2 * CS * HP + D * HP) * 4 +
+         (BF ? 0 : (GP * D + R::NW * RQ * heads4(GP)) * 4);
+}
+
+// T: __nv_bfloat16 or int8_t; D: 128 or 256; GP: the heads the instance
+// holds; gc: the heads a chunk (the last one has gn = G - c * gc <= gc)
+template <typename T, int D, int GP>
+__global__ void __launch_bounds__(32 * Ring<sizeof(T) == 2, D>::NW)
+fd_kernel(const float* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+          const float* __restrict__ ks, const float* __restrict__ vs,
+          const int* __restrict__ pos, float* __restrict__ out, int Hkv, int G, int gc,
+          int s_eff, long long sb, long long ssb, int win, float scale) {
+  constexpr bool BF = sizeof(T) == 2;
+  using R = Ring<BF, D>;
+  constexpr int NW = R::NW, NT = 32 * NW, NS = R::NS, ROWS = R::ROWS, NTL = (GP + 7) / 8;
+  // heads a dim of the warps' acc, pushed a dim, of a row of p
+  constexpr int HP = heads_held<BF, GP>(), GPU = heads4(GP), PS = heads4(GP), DL = D / CS;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* rings = smem_raw;
+  float* m_in = reinterpret_cast<float*>(rings + NW * NS * R::BYTES);
+  float* l_in = m_in + CS * HP;
+  float* acc_in = l_in + CS * HP;
+  float* q_s = acc_in + D * HP;        // int8 only
+  float* p_s = q_s + GP * D;           // int8 only
+  __shared__ float wm[NW][HP], wl[NW][HP], wf[NW][HP];
+  __shared__ __align__(8) uint64_t in_bar;   // the partials pushed here have landed
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  rank_start(&in_bar, pushed_bytes<D, HP, GPU>());
+  const int b = blockIdx.z;
+  const int c = blockIdx.y / Hkv, h = blockIdx.y - c * Hkv;   // head chunk, KV head
+  const int gn = min(gc, G - c * gc);  // the chunk's heads
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  // query head of the chunk's head 0: heads h * G + c * gc + g, g < gn
+  const size_t qh0 = (size_t)b * Hkv * G + (size_t)h * G + (size_t)c * gc;
   const int p = pos[b];
   const int vis_lo = win > 0 ? max(0, p - win + 1) : 0;
-  const int j_lo = max(vis_lo, s * chunk);
-  const int j_hi = min(min(p + 1, s_eff), (s + 1) * chunk);
-  const int lane = threadIdx.x & 15, half = (threadIdx.x >> 4) & 1;
-  const int warp = threadIdx.x >> 5, hw = threadIdx.x >> 4;
-  // query head of the chunk's head 0: heads h * G + c * GC + g, g < gn
-  const size_t qh0 = (size_t)b * Hkv * G + (size_t)h * G + c * GC;
-  const T* kb = k + (size_t)b * sb + (size_t)h * D + 8 * lane;
-  const T* vb = v + (size_t)b * sb + (size_t)h * D + 8 * lane;
-
-  float qv[GC][8];
+  const int n_vis = max(0, min(p + 1, s_eff) - vis_lo);
+  const int lo = vis_lo + rank_lo(rank, n_vis);
+  const int n = vis_lo + rank_lo(rank + 1, n_vis) - lo;
+  // warp w takes the slabs w, w + NW, ... of the rank's rows
+  const int n_slabs = (n + ROWS - 1) / ROWS;
+  const int nk = n_slabs > warp ? (n_slabs - warp + NW - 1) / NW : 0;
+  const int HD = Hkv * D;
+  const T* kb = k + (size_t)b * sb + (size_t)lo * HD + h * D;
+  const T* vb = v + (size_t)b * sb + (size_t)lo * HD + h * D;
+  const float* ksb = BF ? nullptr : ks + (size_t)b * ssb + (size_t)lo * Hkv + h;
+  const float* vsb = BF ? nullptr : vs + (size_t)b * ssb + (size_t)lo * Hkv + h;
+  unsigned char* ring = rings + warp * NS * R::BYTES;
+  auto load = [&](int slot, int j0) {
+    if constexpr (BF)
+      load_slab<D>(reinterpret_cast<__nv_bfloat16*>(ring + slot * R::BYTES),
+                   reinterpret_cast<const __nv_bfloat16*>(kb),
+                   reinterpret_cast<const __nv_bfloat16*>(vb), j0, min(RW, n - j0), HD);
+    else
+      load_slab_q8<D>(ring + slot * R::BYTES, reinterpret_cast<const int8_t*>(kb),
+                      reinterpret_cast<const int8_t*>(vb), ksb, vsb, j0, min(RQ, n - j0), HD,
+                      Hkv);
+  };
 #pragma unroll
-  for (int g = 0; g < GC; ++g)
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      const float x = g < gn ? q[(qh0 + g) * D + 8 * lane + e] : 0.f;
-      qv[g][e] = BF ? bf16_round(x) : x;
-    }
-
-  float m[GC], l[GC], acc[GC][8];
-#pragma unroll
-  for (int g = 0; g < GC; ++g) {
-    m[g] = NEG;
-    l[g] = 0.f;
-#pragma unroll
-    for (int e = 0; e < 8; ++e) acc[g][e] = 0.f;
+  for (int kk = 0; kk < NS; ++kk) {    // the warp's first NS slabs in flight at once
+    if (kk < nk) load(kk, ROWS * (warp + NW * kk));
+    cp_async_commit();
   }
 
-  // rows j0 + u * NH + half of each warp step; the bound test on j0 is
-  // uniform across the warp, so both halves reach every shuffle together
-  for (int j0 = j_lo + 2 * warp; j0 < j_hi; j0 += NH * U) {
-    float kf[U][8], vf[U][8];
-    bool ok[U];
+  float* wacc = reinterpret_cast<float*>(rings);                   // [NW][D][HP]
+  if constexpr (BF) {
+    // q as the B operand (k = dim, n = head): head 8t + gq, dims 16kk + 2qd
+    // (+8), rounded to bf16; heads past gn are zero (and not read)
+    const int gq = lane >> 2, qd = lane & 3;
+    uint32_t qb[NTL][D / 16][2];
 #pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int j = j0 + u * NH + half;
-      ok[u] = j < j_hi;
-      if (ok[u]) {
-        const size_t row = (size_t)j * Hkv * D;
-        load8(kb + row, kf[u]);
-        load8(vb + row, vf[u]);
-        if (!BF) {
-          const size_t o = (size_t)b * ssb + (size_t)j * Hkv + h;
-          const float a = ks[o], c = vs[o];
+    for (int t = 0; t < NTL; ++t) {
+      const int g = 8 * t + gq;
+      const float* qr = q + (qh0 + min(g, gn - 1)) * D + 2 * qd;
 #pragma unroll
-          for (int e = 0; e < 8; ++e) {
-            kf[u][e] *= a;
-            vf[u][e] *= c;
-          }
-        }
+      for (int kk = 0; kk < D / 16; ++kk) {
+        qb[t][kk][0] = g < gn ? pack_bf16x2(qr[16 * kk], qr[16 * kk + 1]) : 0u;
+        qb[t][kk][1] = g < gn ? pack_bf16x2(qr[16 * kk + 8], qr[16 * kk + 9]) : 0u;
       }
     }
+    float m2[NTL][2], l2[NTL][2], acc[NTL][D / 16][4];
 #pragma unroll
-    for (int u = 0; u < U; ++u) {
-      if (j0 + u * NH >= j_hi) break;            // uniform across the warp
+    for (int t = 0; t < NTL; ++t) {
+      m2[t][0] = m2[t][1] = NEG;
+      l2[t][0] = l2[t][1] = 0.f;
 #pragma unroll
-      for (int g = 0; g < GC; ++g) {
-        float sc = 0.f;
-        if (ok[u]) {
+      for (int mt = 0; mt < D / 16; ++mt)
 #pragma unroll
-          for (int e = 0; e < 8; ++e) sc += qv[g][e] * kf[u][e];
-        }
-        sc = half_sum(sc) * scale;
-        if (ok[u]) {
-          const float mn = fmaxf(m[g], sc);
-          const float corr = expf(m[g] - mn);
-          const float pp = expf(sc - mn);
-          l[g] = l[g] * corr + pp;
-          const float pv = BF ? bf16_round(pp) : pp;
-#pragma unroll
-          for (int e = 0; e < 8; ++e) acc[g][e] = acc[g][e] * corr + pv * vf[u][e];
-          m[g] = mn;
-        }
-      }
+        for (int e = 0; e < 4; ++e) acc[t][mt][e] = 0.f;
     }
-  }
-
-  extern __shared__ float smem[];
-  float* sm = smem;                              // [NH][GC]
-  float* sl = sm + NH * GC;                      // [NH][GC]
-  float* sacc = sl + NH * GC;                    // [NH][GC][D]
-#pragma unroll
-  for (int g = 0; g < GC; ++g) {
-    if (lane == 0) {
-      sm[hw * GC + g] = m[g];
-      sl[hw * GC + g] = l[g];
+    for (int kk = 0; kk < nk; ++kk) {
+      cp_async_wait<NS - 1>();         // slab kk has landed (this lane's part)
+      __syncwarp();                    // and every lane's
+      const int j0 = RW * (warp + NW * kk);
+      attend_slab<D, NTL>(reinterpret_cast<const __nv_bfloat16*>(ring + (kk % NS) * R::BYTES),
+                          min(RW, n - j0), qb, scale, m2, l2, acc);
+      __syncwarp();                    // the slot is free again
+      if (kk + NS < nk) load(kk % NS, RW * (warp + NW * (kk + NS)));
+      cp_async_commit();
     }
+    cp_async_wait<0>();
+    __syncthreads();                   // every warp is done: the rings are free
+    store_warp_partial<D, NTL, HP>(wacc, wm, wl, m2, l2, acc);
+  } else {
+    for (int i = tid; i < GP * D; i += NT) {   // q in f32, heads past gn zero
+      const int g = i / D;
+      q_s[i] = g < gn ? q[(qh0 + g) * D + i % D] : 0.f;
+    }
+    __syncthreads();
+    float m[GP], lp[GP], acc[GP][D / 32];
 #pragma unroll
-    for (int e = 0; e < 8; ++e) sacc[(hw * GC + g) * D + 8 * lane + e] = acc[g][e];
+    for (int g = 0; g < GP; ++g) {
+      m[g] = NEG;
+      lp[g] = 0.f;
+#pragma unroll
+      for (int e = 0; e < D / 32; ++e) acc[g][e] = 0.f;
+    }
+    float* pw = p_s + warp * RQ * PS;
+    for (int kk = 0; kk < nk; ++kk) {
+      cp_async_wait<NS - 1>();
+      __syncwarp();
+      const int j0 = RQ * (warp + NW * kk);
+      attend_slab_q8<D, GP>(ring + (kk % NS) * R::BYTES, min(RQ, n - j0), q_s, pw, scale, m,
+                            lp, acc);
+      __syncwarp();                    // the slot and the warp's p rows are free again
+      if (kk + NS < nk) load(kk % NS, RQ * (warp + NW * (kk + NS)));
+      cp_async_commit();
+    }
+    cp_async_wait<0>();
+    __syncthreads();
+    store_warp_partial_q8<D, GP, HP>(wacc, wm, wl, m, lp, acc);
   }
   __syncthreads();
-  for (int idx = threadIdx.x; idx < gn * D; idx += blockDim.x) {
-    const int g = idx / D, d = idx % D;
-    float mx = NEG;
-    for (int w = 0; w < NH; ++w) mx = fmaxf(mx, sm[w * GC + g]);
-    float L = 0.f, A = 0.f;
-    for (int w = 0; w < NH; ++w) {
-      const float f = expf(sm[w * GC + g] - mx);
-      L += sl[w * GC + g] * f;
-      A += sacc[(w * GC + g) * D + d] * f;
+  push_partials<D, NW, HP, GPU>(wacc, wm, wl, wf, m_in, l_in, acc_in, &in_bar, rank);
+  mbar_wait(&in_bar, 0);               // every rank's partial has landed here
+
+  // merge dims [rank * DL, (rank + 1) * DL) over the CS rank partials in
+  // rank order; output o = (g, dl), the weights of head g computed by each
+  // of its threads
+  for (int o = tid; o < gn * DL; o += NT) {
+    const int g = o / DL, dl = o % DL, d = rank * DL + dl;
+    float mr[CS], mx = NEG;
+#pragma unroll
+    for (int r = 0; r < CS; ++r) {
+      mr[r] = m_in[r * HP + g];
+      mx = fmaxf(mx, mr[r]);
     }
-    const size_t o = (qh0 + g) * n_split + s;        // scratch by query head
-    acc_part[o * D + d] = A;
-    if (d == 0) {
-      m_part[o] = mx;
-      l_part[o] = L;
+    float a = 0.f, L = 0.f;
+#pragma unroll
+    for (int r = 0; r < CS; ++r) {
+      const float w = expf(mr[r] - mx);
+      L += l_in[r * HP + g] * w;
+      a += acc_in[(r * DL + dl) * HP + g] * w;
     }
+    out[(qh0 + g) * D + d] = a / fmaxf(L, 1e-30f);
   }
 }
 
-// one block per (query head, batch row), one thread per output dim
-__global__ void __launch_bounds__(D)
-fd_combine_kernel(const float* __restrict__ m_part, const float* __restrict__ l_part,
-                  const float* __restrict__ acc_part, float* __restrict__ out, int Hq,
-                  int n_split) {
-  const int hq = blockIdx.x, b = blockIdx.y, d = threadIdx.x;
-  const size_t o0 = ((size_t)b * Hq + hq) * n_split;
-  float mx = NEG;
-  for (int s = 0; s < n_split; ++s) mx = fmaxf(mx, m_part[o0 + s]);
-  float L = 0.f, A = 0.f;
-  for (int s = 0; s < n_split; ++s) {
-    const float f = expf(m_part[o0 + s] - mx);
-    L += l_part[o0 + s] * f;
-    A += acc_part[(o0 + s) * D + d] * f;
-  }
-  out[((size_t)b * Hq + hq) * D + d] = A / fmaxf(L, 1e-30f);
-}
-
-template <typename T, int GC, bool ONE>
+// fd_kernel<T, D, GP>'s launch: a cluster of CS blocks a (batch row, kv
+// head, head chunk). Its shared-memory limit is set once, so that later
+// launches can be captured in a CUDA graph.
+template <typename T, int D, int GP>
 int launch(const void* q, const void* k, const void* v, const void* ks, const void* vs,
-           const void* pos, void* out, void* m_part, void* l_part, void* acc_part, int B,
-           int Hkv, int G, int s_eff, long long sb, long long ssb, int win, int chunk,
-           int n_split, float scale, cudaStream_t st) {
-  const int smem = (2 * NH * GC + NH * GC * D) * (int)sizeof(float);
-  static bool smem_set = false;      // once, so later launches can be captured
+           const void* pos, void* out, int B, int Hkv, int G, int gc, int s_eff, long long sb,
+           long long ssb, int win, float scale, cudaStream_t st) {
+  constexpr int SMEM = smem_bytes<sizeof(T) == 2, D, GP>();
+  static bool smem_set = false;
   if (!smem_set) {
-    cudaError_t err = cudaFuncSetAttribute(
-        fd_split_kernel<T, GC, ONE>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    const cudaError_t err = cudaFuncSetAttribute(
+        fd_kernel<T, D, GP>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
     if (err != cudaSuccess) return (int)err;
     smem_set = true;
   }
-  const int nc = (G + GC - 1) / GC;              // head chunks a group
-  fd_split_kernel<T, GC, ONE><<<dim3(n_split, Hkv * nc, B), NW * 32, smem, st>>>(
-      (const float*)q, (const T*)k, (const T*)v, (const float*)ks, (const float*)vs,
-      (const int*)pos, (float*)m_part, (float*)l_part, (float*)acc_part, Hkv, G, s_eff, sb,
-      ssb, win, chunk, n_split, scale);
-  cudaError_t err = cudaGetLastError();
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(CS, Hkv * ((G + gc - 1) / gc), B);
+  cfg.blockDim = dim3(32 * Ring<sizeof(T) == 2, D>::NW);
+  cfg.dynamicSmemBytes = SMEM;
+  cfg.stream = st;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = CS;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, fd_kernel<T, D, GP>, (const float*)q, (const T*)k, (const T*)v, (const float*)ks,
+      (const float*)vs, (const int*)pos, (float*)out, Hkv, G, gc, s_eff, sb, ssb, win, scale);
   if (err != cudaSuccess) return (int)err;
-  fd_combine_kernel<<<dim3(Hkv * G, B), D, 0, st>>>(
-      (const float*)m_part, (const float*)l_part, (const float*)acc_part, (float*)out,
-      Hkv * G, n_split);
   return (int)cudaGetLastError();
 }
 
-// the instance of the group: G <= 8 is one chunk of G heads, a larger group
-// ceil(G / 8) chunks of gc = ceil(G / ceil(G / 8)) heads, 5 <= gc <= 8
-template <typename T>
+// the instance of the group: ceil(G / 16) chunks of gc = ceil(G / chunks)
+// heads, on the smallest instance that holds gc heads
+template <typename T, int D>
 int dispatch(int G, const void* q, const void* k, const void* v, const void* ks,
-             const void* vs, const void* pos, void* out, void* m_part, void* l_part,
-             void* acc_part, int B, int Hkv, int s_eff, long long sb, long long ssb,
-             int win, int chunk, int n_split, float scale, cudaStream_t st) {
-  const int nc = (G + 7) / 8, gc = (G + nc - 1) / nc;
-#define FD_CASE(L, N, ONE)                                                                   \
-  case L:                                                                                    \
-    return launch<T, N, ONE>(q, k, v, ks, vs, pos, out, m_part, l_part, acc_part, B, Hkv, G, \
-                             s_eff, sb, ssb, win, chunk, n_split, scale, st);
-  switch (G <= 8 ? G : -gc) {
-    FD_CASE(1, 1, true) FD_CASE(2, 2, true) FD_CASE(3, 3, true) FD_CASE(4, 4, true)
-    FD_CASE(5, 5, true) FD_CASE(6, 6, true) FD_CASE(7, 7, true) FD_CASE(8, 8, true)
-    FD_CASE(-5, 5, false) FD_CASE(-6, 6, false) FD_CASE(-7, 7, false) FD_CASE(-8, 8, false)
-    default: return (int)cudaErrorInvalidValue;
+             const void* vs, const void* pos, void* out, int B, int Hkv, int s_eff,
+             long long sb, long long ssb, int win, float scale, cudaStream_t st) {
+  // chunks of up to 16 heads (ops/attention.py FD_CHUNK_HEADS)
+  const int nc = (G + 15) / 16, gc = (G + nc - 1) / nc;
+#define FD_LAUNCH(N) \
+  return launch<T, D, N>(q, k, v, ks, vs, pos, out, B, Hkv, G, gc, s_eff, sb, ssb, win, scale, st)
+  if constexpr (sizeof(T) == 1) {     // int8: its f32 work scales with the heads held
+    if (gc == 1) FD_LAUNCH(1);
+    if (gc == 2) FD_LAUNCH(2);
   }
-#undef FD_CASE
+  if (gc <= 4) FD_LAUNCH(4);
+  if (gc <= 8) FD_LAUNCH(8);
+  FD_LAUNCH(16);
+#undef FD_LAUNCH
 }
 
 }  // namespace
 
 // int8 != 0: k/v hold int8 codes and ks/vs their f32 scales; else bf16 and
 // ks = vs = NULL. sb / ssb: batch strides of k, v and of ks, vs in elements.
-// Split s covers positions [s * chunk, (s + 1) * chunk). m_part/l_part
-// [B, Hq, n_split], acc_part [B, Hq, n_split, D] f32 scratch from the caller.
+// D: the head dim, 128 or 256.
 extern "C" int flash_decode(const void* q, const void* k, const void* v, const void* ks,
-                            const void* vs, const void* pos, void* out, void* m_part,
-                            void* l_part, void* acc_part, int B, int Hq, int Hkv,
-                            int s_eff, long long sb, long long ssb, int win, int chunk,
-                            int n_split, int int8, float scale, void* stream) {
+                            const void* vs, const void* pos, void* out, int B, int Hq,
+                            int Hkv, int D, int s_eff, long long sb, long long ssb, int win,
+                            int int8, float scale, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (Hkv <= 0 || Hq < Hkv || Hq % Hkv || chunk <= 0 || n_split <= 0)
-    return (int)cudaErrorInvalidValue;
+  if (Hkv <= 0 || Hq < Hkv || Hq % Hkv || B <= 0) return (int)cudaErrorInvalidValue;
   const int G = Hq / Hkv;
-  if (int8)
-    return dispatch<int8_t>(G, q, k, v, ks, vs, pos, out, m_part, l_part, acc_part, B, Hkv,
-                            s_eff, sb, ssb, win, chunk, n_split, scale, st);
-  return dispatch<__nv_bfloat16>(G, q, k, v, nullptr, nullptr, pos, out, m_part, l_part,
-                                 acc_part, B, Hkv, s_eff, sb, ssb, win, chunk, n_split,
-                                 scale, st);
+#define FD_DISPATCH(T, DD, KS, VS) \
+  return dispatch<T, DD>(G, q, k, v, KS, VS, pos, out, B, Hkv, s_eff, sb, ssb, win, scale, st)
+  if (int8 && D == 128) FD_DISPATCH(int8_t, 128, ks, vs);
+  if (int8 && D == 256) FD_DISPATCH(int8_t, 256, ks, vs);
+  if (!int8 && D == 128) FD_DISPATCH(__nv_bfloat16, 128, nullptr, nullptr);
+  if (!int8 && D == 256) FD_DISPATCH(__nv_bfloat16, 256, nullptr, nullptr);
+#undef FD_DISPATCH
+  return (int)cudaErrorInvalidValue;
 }

@@ -21,27 +21,28 @@
 // for int8); about 4 * G flops a byte. Design: pass 1 runs one block per
 // (split of the row's pages, head chunk, KV head, row). A split covers
 // `pps` pages; splits past the row's length return at once, and no page
-// past ceil(length / ps) is read. The block's 8 half-warps each take one
-// key row at a time, 16 lanes x 8 dims (one 16-byte load a lane for bf16),
-// so the query heads of the chunk share every K/V row loaded; each
-// half-warp keeps an online softmax in f32 and the block merges them in
-// half-warp order. A group of G <= 8 query heads is one chunk, an instance
-// of its own (GC = G, a constant: nothing masked); a larger group runs as
-// NC = ceil(G / 8) chunks of GC = ceil(G / NC) heads on the grid's y axis
-// beside the KV head (the last chunk masks heads past G), each reading the
-// K/V rows again. Pass 2 combines the splits of each (row,
-// query head) in split order; the scratch is indexed by query head. Both
-// merges are in a fixed order, so the result is the same from run to run.
+// past ceil(length / ps) is read. A row group of D / 8 lanes (a half-warp
+// at D = 128, a warp at D = 256) takes one key row at a time, 8 dims a lane
+// (one 16-byte load a lane for bf16), so the query heads of the chunk share
+// every K/V row loaded; each row group keeps an online softmax in f32 and
+// the block merges them in group order. (At D = 256, 16 dims a lane of a
+// half-warp would hold q and acc in 256 registers at G = 8; a warp a row
+// keeps them at D = 128's 128.) A group of G <= 8 query heads is one
+// chunk, an instance of its own (GC = G, a constant: nothing masked); a
+// larger group runs as NC = ceil(G / 8) chunks of GC = ceil(G / NC) heads
+// on the grid's y axis beside the KV head (the last chunk masks heads past
+// G), each reading the K/V rows again. Pass 2 combines the splits of each
+// (row, query head) in split order; the scratch is indexed by query head.
+// Both merges are in a fixed order, so the result is the same from run to
+// run.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int D = 128;
 constexpr int NW = 4;           // warps a block
-constexpr int NH = 2 * NW;      // half-warps a block
-constexpr int U = 2;            // key rows in flight a half-warp
+constexpr int U = 2;            // key rows in flight a row group
 constexpr float NEG = -1e30f;
 
 __device__ __forceinline__ void load8(const __nv_bfloat16* p, float* out) {
@@ -61,17 +62,18 @@ __device__ __forceinline__ void load8(const int8_t* p, float* out) {
   for (int i = 0; i < 8; ++i) out[i] = (float)c[i];
 }
 
-__device__ __forceinline__ float half_sum(float v) {
-  // the 16 lanes of one half-warp; both halves run it together
+// the sum over the LN lanes of one row group; every group of the warp runs it
+template <int LN>
+__device__ __forceinline__ float group_sum(float v) {
 #pragma unroll
-  for (int off = 8; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  for (int off = LN / 2; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
   return v;
 }
 
-// GC: query heads a chunk (compile time); G: the group, Hq = Hkv * G;
-// ONE: the group is one chunk (G = GC <= 8), so G and the chunk are
-// known at compile time and no head is masked
-template <typename T, int GC, bool ONE>
+// D: head dim (128 or 256); GC: query heads a chunk (compile time); G: the
+// group, Hq = Hkv * G; ONE: the group is one chunk (G = GC <= 8), so G and
+// the chunk are known at compile time and no head is masked
+template <typename T, int D, int GC, bool ONE>
 __global__ void __launch_bounds__(NW * 32)
 pa_split_kernel(const float* __restrict__ q, const T* __restrict__ kp,
                 const T* __restrict__ vp, const float* __restrict__ ks,
@@ -79,6 +81,9 @@ pa_split_kernel(const float* __restrict__ q, const T* __restrict__ kp,
                 const int* __restrict__ tables, float* __restrict__ m_part,
                 float* __restrict__ l_part, float* __restrict__ acc_part,
                 int Hkv, int G, int P, int ps, int maxp, int pps, int n_split) {
+  constexpr int LN = D / 8;       // lanes a row group: 8 dims each
+  constexpr int NR = 32 / LN;     // row groups a warp
+  constexpr int NH = NW * NR;     // row groups a block
   if (ONE) G = GC;
   const int s = blockIdx.x, r = blockIdx.z;
   const int c = ONE ? 0 : blockIdx.y / Hkv, h = blockIdx.y - c * Hkv;   // head chunk, KV head
@@ -87,8 +92,8 @@ pa_split_kernel(const float* __restrict__ q, const T* __restrict__ kp,
   const int j_lo = s * pps * ps;
   if (j_lo >= len) return;                       // nothing visible here
   const int j_hi = min(len, j_lo + pps * ps);
-  const int lane = threadIdx.x & 15, half = (threadIdx.x >> 4) & 1;
-  const int warp = threadIdx.x >> 5, hw = threadIdx.x >> 4;
+  const int lane = threadIdx.x % LN, half = (threadIdx.x / LN) % NR;
+  const int warp = threadIdx.x >> 5, hw = threadIdx.x / LN;
   const int* trow = tables + (size_t)r * maxp;
   const size_t head0 = (size_t)h * P;            // page index base of head h
   // query head of the chunk's head 0: heads h * G + c * GC + g, g < gn
@@ -111,8 +116,8 @@ pa_split_kernel(const float* __restrict__ q, const T* __restrict__ kp,
   }
 
   // rows j0 + u * NH + half of each warp step; the bound test on j0 is
-  // uniform across the warp, so both halves reach every shuffle together
-  for (int j0 = j_lo + 2 * warp; j0 < j_hi; j0 += NH * U) {
+  // uniform across the warp, so its row groups reach every shuffle together
+  for (int j0 = j_lo + NR * warp; j0 < j_hi; j0 += NH * U) {
     float kf[U][8], vf[U][8];
     bool ok[U];
 #pragma unroll
@@ -143,7 +148,7 @@ pa_split_kernel(const float* __restrict__ q, const T* __restrict__ kp,
 #pragma unroll
           for (int e = 0; e < 8; ++e) sc += qv[g][e] * kf[u][e];
         }
-        sc = half_sum(sc);
+        sc = group_sum<LN>(sc);
         if (ok[u]) {
           const float mn = fmaxf(m[g], sc);
           const float corr = expf(m[g] - mn);
@@ -191,6 +196,7 @@ pa_split_kernel(const float* __restrict__ q, const T* __restrict__ kp,
 }
 
 // one block per (query head, row), one thread per output dim
+template <int D>
 __global__ void __launch_bounds__(D)
 pa_combine_kernel(const float* __restrict__ m_part,
                   const float* __restrict__ l_part,
@@ -211,28 +217,29 @@ pa_combine_kernel(const float* __restrict__ m_part,
   out[((size_t)r * Hq + hq) * D + d] = A / fmaxf(L, 1e-30f);
 }
 
-template <typename T, int GC, bool ONE>
+template <typename T, int D, int GC, bool ONE>
 int launch(const void* q, const void* k, const void* v, const void* ks,
            const void* vs, const void* lengths, const void* tables, void* out,
            void* m_part, void* l_part, void* acc_part, int R, int Hkv, int G, int P,
            int ps, int maxp, int pps, int n_split, cudaStream_t st) {
+  constexpr int NH = NW * 32 / (D / 8);   // the kernel's row groups a block
   const int smem = (2 * NH * GC + NH * GC * D) * (int)sizeof(float);
   static bool smem_set = false;      // once, so later launches can be captured
   if (!smem_set) {
     cudaError_t err = cudaFuncSetAttribute(
-        pa_split_kernel<T, GC, ONE>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        pa_split_kernel<T, D, GC, ONE>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
     smem_set = true;
   }
   const int nc = (G + GC - 1) / GC;              // head chunks a group
-  pa_split_kernel<T, GC, ONE><<<dim3(n_split, Hkv * nc, R), NW * 32, smem, st>>>(
+  pa_split_kernel<T, D, GC, ONE><<<dim3(n_split, Hkv * nc, R), NW * 32, smem, st>>>(
       (const float*)q, (const T*)k, (const T*)v, (const float*)ks,
       (const float*)vs, (const int*)lengths, (const int*)tables,
       (float*)m_part, (float*)l_part, (float*)acc_part, Hkv, G, P, ps, maxp, pps,
       n_split);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  pa_combine_kernel<<<dim3(Hkv * G, R), D, 0, st>>>(
+  pa_combine_kernel<D><<<dim3(Hkv * G, R), D, 0, st>>>(
       (const float*)m_part, (const float*)l_part, (const float*)acc_part,
       (const int*)lengths, (float*)out, Hkv * G, pps, ps, n_split);
   return (int)cudaGetLastError();
@@ -240,7 +247,7 @@ int launch(const void* q, const void* k, const void* v, const void* ks,
 
 // the instance of the group: G <= 8 is one chunk of G heads, a larger group
 // ceil(G / 8) chunks of gc = ceil(G / ceil(G / 8)) heads, 5 <= gc <= 8
-template <typename T>
+template <typename T, int D>
 int dispatch(int G, const void* q, const void* k, const void* v,
              const void* ks, const void* vs, const void* lengths,
              const void* tables, void* out, void* m_part, void* l_part,
@@ -249,7 +256,7 @@ int dispatch(int G, const void* q, const void* k, const void* v,
   const int nc = (G + 7) / 8, gc = (G + nc - 1) / nc;
 #define PA_CASE(L, N, ONE)                                                             \
   case L:                                                                              \
-    return launch<T, N, ONE>(q, k, v, ks, vs, lengths, tables, out, m_part, l_part,   \
+    return launch<T, D, N, ONE>(q, k, v, ks, vs, lengths, tables, out, m_part, l_part,\
                              acc_part, R, Hkv, G, P, ps, maxp, pps, n_split, st);
   switch (G <= 8 ? G : -gc) {
     PA_CASE(1, 1, true) PA_CASE(2, 2, true) PA_CASE(3, 3, true) PA_CASE(4, 4, true)
@@ -263,23 +270,25 @@ int dispatch(int G, const void* q, const void* k, const void* v,
 }  // namespace
 
 // int8 != 0: k/v hold int8 codes and ks/vs their scales; else bf16 and
-// ks = vs = NULL. m_part/l_part [R, Hq, n_split], acc_part [R, Hq, n_split, D]
-// f32 scratch from the caller.
+// ks = vs = NULL. D: the head dim, 128 or 256. m_part/l_part [R, Hq,
+// n_split], acc_part [R, Hq, n_split, D] f32 scratch from the caller.
 extern "C" int paged_attention(const void* q, const void* k, const void* v,
                                const void* ks, const void* vs,
                                const void* lengths, const void* tables,
                                void* out, void* m_part, void* l_part,
-                               void* acc_part, int R, int Hq, int Hkv, int P,
-                               int ps, int maxp, int pps, int n_split,
+                               void* acc_part, int R, int Hq, int Hkv, int D,
+                               int P, int ps, int maxp, int pps, int n_split,
                                int int8, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (Hkv <= 0 || Hq < Hkv || Hq % Hkv) return (int)cudaErrorInvalidValue;
   const int G = Hq / Hkv;
-  if (int8)
-    return dispatch<int8_t>(G, q, k, v, ks, vs, lengths, tables, out, m_part,
-                            l_part, acc_part, R, Hkv, P, ps, maxp, pps,
-                            n_split, st);
-  return dispatch<__nv_bfloat16>(G, q, k, v, nullptr, nullptr, lengths,
-                                 tables, out, m_part, l_part, acc_part, R, Hkv,
-                                 P, ps, maxp, pps, n_split, st);
+#define PA_DISPATCH(T, DD, KS, VS)                                                     \
+  return dispatch<T, DD>(G, q, k, v, KS, VS, lengths, tables, out, m_part, l_part,    \
+                         acc_part, R, Hkv, P, ps, maxp, pps, n_split, st)
+  if (int8 && D == 128) PA_DISPATCH(int8_t, 128, ks, vs);
+  if (int8 && D == 256) PA_DISPATCH(int8_t, 256, ks, vs);
+  if (!int8 && D == 128) PA_DISPATCH(__nv_bfloat16, 128, nullptr, nullptr);
+  if (!int8 && D == 256) PA_DISPATCH(__nv_bfloat16, 256, nullptr, nullptr);
+#undef PA_DISPATCH
+  return (int)cudaErrorInvalidValue;
 }

@@ -57,6 +57,12 @@ PRESETS = {
                             d_ff=14336, n_vocab=32000, rope_theta=1e6,
                             max_context=4096, n_experts=8, n_experts_used=2,
                             moe_norm_topk=True),
+    # Gemma-2B's published widths (its model card: d 2048, 8 query heads
+    # over 1 KV head of head_dim 256, d_ff 16384, vocab 256000) in the llama
+    # layout (none of gemma's norms, scalings or softcaps) at two layers:
+    # card-vs-CPU checks of decode at head_dim 256
+    "gemma-2b-widths-2l": dict(n_layers=2, d_model=2048, n_heads=8, n_kv_heads=1,
+                               d_ff=16384, n_vocab=256000, max_context=8192),
     "tiny-moe": dict(n_layers=2, d_model=256, n_heads=4, n_kv_heads=2, d_ff=512,
                      n_vocab=1024, max_context=2048, n_experts=4,
                      n_experts_used=2, moe_norm_topk=True),

@@ -26,9 +26,10 @@ S % 256, D % 128 or Hq > 256, a paged pool the gather for D % 128 or a v
 width other than D; the kernel otherwise (its plain version for CPU
 tensors). ROUTE_COUNTS counts the einsum and gather calls, as `.launches`
 counts each kernel's. The three decode kernels take every head group G =
-Hq / Hkv at D = 128, as the reference's kernels do: a group of up to 8
-query heads is one chunk of a kernel's work, a larger one head_chunks(G)
-chunks on the grid, each reading its K/V rows again.
+Hq / Hkv at D = 128 and 256, as the reference's kernels do (it takes any D %
+128 == 0; other multiples raise): a group of up to 8 query heads (16 for
+flash_decode, FD_CHUNK_HEADS) is one chunk of a kernel's work, a larger one
+head_chunks(G) chunks on the grid, each reading its K/V rows again.
 """
 from __future__ import annotations
 
@@ -63,18 +64,26 @@ def decode_route(d: int, *, hq: int = 0, s_eff: int = 0, dv: Optional[int] = Non
     return "einsum" if s_eff % 256 or d % 128 or hq > 256 else "kernel"
 
 
-def head_chunks(g: int) -> int:
+def head_chunks(g: int, most: int = 8) -> int:
     """The chunks a decode kernel splits a group of g query heads into: one
-    for g <= 8, else ceil(g / 8) of ceil(g / chunks) heads each (the C
-    entries compute the same)."""
-    return -(-g // 8)
+    for g <= most, else ceil(g / most) of ceil(g / chunks) heads each (the C
+    entries compute the same). flash_decode_write and paged_attention take
+    most = 8, flash_decode FD_CHUNK_HEADS."""
+    return -(-g // most)
+
+
+FD_CHUNK_HEADS = 16     # query heads one chunk of flash_decode holds: two mma tiles
+
+
+DECODE_HEAD_DIMS = (128, 256)
 
 
 def _check_group(what: str, d: int, hq: int, hkv: int, dk: Optional[int] = None) -> None:
-    """The decode kernels' domain: D = 128 (and a cache of the same width)
-    and Hq a multiple of Hkv; raises ValueError outside it."""
-    if d != 128 or (dk is not None and dk != d) or hkv < 1 or hq % hkv:
-        raise ValueError(f"{what} takes D=128 and Hq a multiple of Hkv, got D={d}"
+    """The decode kernels' domain: D in DECODE_HEAD_DIMS (and a cache of the
+    same width) and Hq a multiple of Hkv; raises ValueError outside it."""
+    if d not in DECODE_HEAD_DIMS or (dk is not None and dk != d) or hkv < 1 or hq % hkv:
+        raise ValueError(f"{what} takes D in {DECODE_HEAD_DIMS} and Hq a multiple "
+                         f"of Hkv, got D={d}"
                          + ("" if dk is None else f" (cache {dk})")
                          + f", Hq={hq}, Hkv={hkv}")
 
@@ -260,10 +269,10 @@ def flash_decode_write_stacked(q, k3, v3, k_new, v_new, li: int, pos,
                          "matching q and li")
     out = torch.empty((b, hq, d), dtype=torch.float32, device=q.device)
     f = _build.fn("flash_decode_write", "flash_decode_write",
-                  [P] * 7 + [I] * 6 + [F, P])
+                  [P] * 7 + [I] * 7 + [F, P])
     _build.check(f(qf.data_ptr(), k3.data_ptr(), v3.data_ptr(), kn.data_ptr(),
                    vn.data_ptr(), pos32.data_ptr(), out.data_ptr(), li, b,
-                   s_len, hq, hkv, s_eff, float(scale),
+                   s_len, hq, hkv, d, s_eff, float(scale),
                    torch.cuda.current_stream(q.device).cuda_stream),
                  "flash_decode_write")
     flash_decode_write_stacked.launches += 1
@@ -326,7 +335,8 @@ def _flash_decode_launch(q, k, v, k_scale, v_scale, pos, scale: float,
     """Launch the flash_decode kernel on k, v [B, s_eff, Hkv, D] views whose
     last three axes are contiguous (a slice of a layer of the cache: the
     kernel reads it in place), bf16, or int8 with [B, s_eff, Hkv] f32
-    scales."""
+    scales: one launch of B * Hkv * head_chunks(G, FD_CHUNK_HEADS)
+    thread-block clusters, with no scratch in device memory."""
     if softcap:
         raise NotImplementedError("the softcap of _flash_decode_kernel is not "
                                   "in the CUDA kernel yet")
@@ -352,25 +362,14 @@ def _flash_decode_launch(q, k, v, k_scale, v_scale, pos, scale: float,
         raise ValueError("flash_decode: k and v (and their scales) differ in batch stride")
     if pos32.device != q.device or pos32.shape != (b,):
         raise ValueError(f"flash_decode: pos must be int32 [{b}] on {q.device}")
-    # splits of 16 positions or more, enough to fill the SMs a few blocks deep
-    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-    blocks = b * hkv * head_chunks(hq // hkv)            # a split's blocks
-    per_split = -(-s_eff // max(1, -(-4 * sms // blocks)))
-    chunk = max(16, -(-per_split // 16) * 16)
-    n_split = -(-s_eff // chunk)
     out = torch.empty((b, hq, d), dtype=torch.float32, device=q.device)
-    m_part = torch.empty((b, hq, n_split), dtype=torch.float32, device=q.device)
-    l_part = torch.empty_like(m_part)
-    acc_part = torch.empty((b, hq, n_split, d), dtype=torch.float32, device=q.device)
-    f = _build.fn("flash_decode", "flash_decode",
-                  [P] * 10 + [I] * 4 + [L, L] + [I] * 4 + [F, P])
+    f = _build.fn("flash_decode", "flash_decode", [P] * 7 + [I] * 5 + [L, L] + [I] * 2 + [F, P])
     _build.check(f(qf.data_ptr(), k.data_ptr(), v.data_ptr(),
                    k_scale.data_ptr() if quant else None,
                    v_scale.data_ptr() if quant else None, pos32.data_ptr(),
-                   out.data_ptr(), m_part.data_ptr(), l_part.data_ptr(),
-                   acc_part.data_ptr(), b, hq, hkv, s_eff, k.stride(0),
-                   k_scale.stride(0) if quant else 0, int(window or 0), chunk,
-                   n_split, int(quant), float(scale),
+                   out.data_ptr(), b, hq, hkv, d, s_eff, k.stride(0),
+                   k_scale.stride(0) if quant else 0, int(window or 0), int(quant),
+                   float(scale),
                    torch.cuda.current_stream(q.device).cuda_stream), "flash_decode")
     flash_decode.launches += 1
     return out
@@ -468,7 +467,7 @@ def paged_attention(q, k_pages_l, v_pages_l, lengths, tables,
     by pointer, nothing is copied. Returns [R, Hq, Dv] f32. Shapes of the
     gather route (decode_route) take paged_gather on every device; otherwise
     CPU tensors take the plain version, and CUDA tensors launch the kernel
-    (D = 128, Hq a multiple of Hkv) or raise."""
+    (D in DECODE_HEAD_DIMS, Hq a multiple of Hkv) or raise."""
     r, hq, d = q.shape
     if decode_route(d, dv=v_pages_l.shape[-1], paged=True) == "gather":
         ROUTE_COUNTS["gather"] += 1
@@ -508,11 +507,11 @@ def paged_attention(q, k_pages_l, v_pages_l, lengths, tables,
     acc_part = torch.empty((r, hq, n_split, d), dtype=torch.float32,
                            device=q.device)
     ptr = lambda t: None if t is None else t.data_ptr()
-    f = _build.fn("paged_attention", "paged_attention", [P] * 11 + [I] * 9 + [P])
+    f = _build.fn("paged_attention", "paged_attention", [P] * 11 + [I] * 10 + [P])
     _build.check(f(q.data_ptr(), k_pages_l.data_ptr(), v_pages_l.data_ptr(),
                    ptr(k_scale_l), ptr(v_scale_l), lengths.data_ptr(),
                    tables.data_ptr(), out.data_ptr(), m_part.data_ptr(),
-                   l_part.data_ptr(), acc_part.data_ptr(), r, hq, hkv, n_pages,
+                   l_part.data_ptr(), acc_part.data_ptr(), r, hq, hkv, d, n_pages,
                    ps, maxp, pps, n_split, int(quant),
                    torch.cuda.current_stream(q.device).cuda_stream),
                  "paged_attention")

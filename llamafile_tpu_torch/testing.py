@@ -213,7 +213,8 @@ def paged_controls(q, kp, vp, ks, vs, lengths, tables, ps: int):
 
 
 # flash_decode_write's schedule constants, mirrored from
-# csrc/flash_decode_write.cu (RW, NW, CS; fdw_rank_ranges is its rank_lo):
+# csrc/flash_decode_write.cu (NW) and csrc/decode_cluster.cuh (RW, CS;
+# fdw_rank_ranges is its rank_lo):
 # change both together
 FDW_SLAB = 16          # rows a warp takes at a time
 FDW_WARPS = 4          # warps of one block

@@ -40,7 +40,9 @@ bitwise equal to it at both of its n tiles (and within 1e-6 of its largest
 magnitude), and a control with two blocks' weight scales swapped must fail
 that. The three decode kernels run at every kind of head group: 1, 2, 4
 and 8 query heads a KV head, 3, 5, 6 and 7 (masked columns of one chunk),
-and 12, 16 and 32 (several chunks). The int8 flavour's q4b product (qmm_int8)
+and 12, 16 and 32 (several chunks; flash_decode holds 16 in one), and at
+head_dim 256; flash_decode also with a sliding window, and two of its
+launches on the same inputs are bitwise equal. The int8 flavour's q4b product (qmm_int8)
 is an int8-activation product, held within 1e-5, and a control with each
 superblock's lo and hi scale rows swapped must fail that. A head_dim-64
 llama runs Engine and the batcher on the reference's einsum and gather
@@ -249,8 +251,24 @@ def test_flash_decode_write_matches_plain(dev, hq, hkv, pos, s_limit):
     every kind of head group (a group of more than 8 heads runs as chunks,
     chunk 0 alone writing the row). Two launches on the same inputs are
     bitwise equal (a fixed-order split)."""
-    gen = torch.Generator(device=dev).manual_seed(hq * 10 + hkv)
-    nl, b, s, d = 3, 2, 2048, 128
+    _fdw_check(dev, hq, hkv, pos, s_limit, 128)
+
+
+# D = 256 (gemma's head dim): Gemma-2-9B's 16 query heads over 8 KV heads,
+# Gemma-2B's 8 over 1, a group of 3, and 16 over 1 (chunks in every kernel
+# at D = 256)
+D256_CASES = [(16, 8), (8, 1), (24, 8), (16, 1)]
+
+
+@pytest.mark.parametrize("hq,hkv", D256_CASES)
+@pytest.mark.parametrize("pos,s_limit", [((0, 701), None), ((1500, 1030), 1024)])
+def test_flash_decode_write_d256_matches_plain(dev, hq, hkv, pos, s_limit):
+    _fdw_check(dev, hq, hkv, pos, s_limit, 256)
+
+
+def _fdw_check(dev, hq, hkv, pos, s_limit, d):
+    gen = torch.Generator(device=dev).manual_seed(hq * 10 + hkv + (d if d != 128 else 0))
+    nl, b, s = 3, 2, 2048
     k3 = torch.randn((nl, b, s, hkv * d), generator=gen, device=dev).to(torch.bfloat16)
     v3 = torch.randn((nl, b, s, hkv * d), generator=gen, device=dev).to(torch.bfloat16)
     q = torch.randn((b, hq, d), generator=gen, device=dev)
@@ -555,17 +573,17 @@ def _cpu_cache(eng):
     return init_cache(eng.cfg, 1, eng.max_seq_len, device="cpu")
 
 
-def decode_case(gen, dev, b, s, hq, hkv, int8):
+def decode_case(gen, dev, b, s, hq, hkv, int8, d=128):
     """q f32 [B, Hq, D]; a 3-layer cache (bf16 flat [L, B, S, Hkv*D], or
     int8 [L, B, S, Hkv, D] with f32 scales [L, B, S, Hkv])."""
-    q = torch.randn((b, hq, 128), generator=gen, device=dev)
+    q = torch.randn((b, hq, d), generator=gen, device=dev)
     if int8:
-        kv = [torch.randint(-127, 128, (3, b, s, hkv, 128), generator=gen, device=dev,
+        kv = [torch.randint(-127, 128, (3, b, s, hkv, d), generator=gen, device=dev,
                             dtype=torch.int8) for _ in range(2)]
         sc = [torch.empty((3, b, s, hkv), device=dev).uniform_(2e-3, 2e-2, generator=gen)
               for _ in range(2)]
         return q, kv, sc
-    kv = [torch.randn((3, b, s, hkv * 128), generator=gen, device=dev).to(torch.bfloat16)
+    kv = [torch.randn((3, b, s, hkv * d), generator=gen, device=dev).to(torch.bfloat16)
           for _ in range(2)]
     return q, kv, [None, None]
 
@@ -574,25 +592,54 @@ def decode_case(gen, dev, b, s, hq, hkv, int8):
 @pytest.mark.parametrize("hq,hkv", GROUP_CASES)
 @pytest.mark.parametrize("pos,s_eff", [((0, 5), 256), ((700, 1023), 1024), ((1, 2047), 2048)])
 def test_flash_decode_matches_plain(dev, int8, hq, hkv, pos, s_eff):
-    gen = torch.Generator(device=dev).manual_seed(hq * 10 + hkv + s_eff + int8)
-    q, (k, v), (ks, vs) = decode_case(gen, dev, 2, 2048, hq, hkv, int8)
+    """The cluster kernel (one launch, every head of a group of up to 16
+    from one K/V read at D = 128, chunks above) against its plain version;
+    two launches on the same inputs are bitwise equal."""
+    _fd_check(dev, int8, hq, hkv, pos, s_eff, 128)
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("hq,hkv", D256_CASES)
+@pytest.mark.parametrize("pos,s_eff", [((0, 5), 256), ((700, 1023), 1024), ((1, 2047), 2048)])
+def test_flash_decode_d256_matches_plain(dev, int8, hq, hkv, pos, s_eff):
+    _fd_check(dev, int8, hq, hkv, pos, s_eff, 256)
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("hq,hkv,d", [(32, 8, 128), (16, 1, 128), (8, 1, 256)])
+@pytest.mark.parametrize("window", [1, 100, 1500])
+def test_flash_decode_window_matches_plain(dev, int8, hq, hkv, d, window):
+    """The sliding window: keys j > pos - window only, split over the
+    cluster's ranks from the window's first row."""
+    _fd_check(dev, int8, hq, hkv, (700, 2047), 2048, d, window)
+
+
+def _fd_check(dev, int8, hq, hkv, pos, s_eff, d, window=0):
+    gen = torch.Generator(device=dev).manual_seed(hq * 10 + hkv + s_eff + int8 + window
+                                                  + (d if d != 128 else 0))
+    q, (k, v), (ks, vs) = decode_case(gen, dev, 2, 2048, hq, hkv, int8, d)
     p = torch.tensor(pos, dtype=torch.int32, device=dev)
     n0 = A.flash_decode.launches
     if int8:
         sl = lambda t: t[1, :, :s_eff]
-        args = (q, sl(k), sl(v), p, 0.088)
-        got = A.flash_decode(*args, k_scale=sl(ks), v_scale=sl(vs))
+        args = (q, sl(k), sl(v), p, 0.088, window)
+        run = lambda: A.flash_decode(*args, k_scale=sl(ks), v_scale=sl(vs))
+        got = run()
         want = A.flash_decode_plain(*args, k_scale=sl(ks), v_scale=sl(vs))
         assert row_rel_err(got, want) <= 1e-5
-        more = A.flash_decode_plain(q, sl(k), sl(v), p + 1, 0.088, k_scale=sl(ks),
-                                    v_scale=sl(vs))
+        more = A.flash_decode_plain(q, sl(k), sl(v), p + 1, 0.088, window,
+                                    k_scale=sl(ks), v_scale=sl(vs))
         assert row_rel_err(more, want) > 1e-5           # one masked key made visible
     else:
-        got = A.flash_decode_stacked(q, k, v, 1, p, 0.088, hkv, s_limit=s_eff)
-        want = A.flash_decode_stacked_plain(q, k, v, 1, p, 0.088, hkv, s_eff)
+        kc, vc = (t[1, :, :s_eff].reshape(2, s_eff, hkv, d) for t in (k, v))
+        run = ((lambda: A.flash_decode(q, kc, vc, p, 0.088, window)) if window else
+               (lambda: A.flash_decode_stacked(q, k, v, 1, p, 0.088, hkv, s_limit=s_eff)))
+        got = run()
+        want = A.flash_decode_plain(q, kc, vc, p, 0.088, window)
         assert row_rel_err(got, want) <= 2e-2
     assert A.flash_decode.launches == n0 + 1
     assert bool(torch.isfinite(got).all())
+    assert torch.equal(run(), got)                      # a fixed-order merge
 
 
 @pytest.mark.parametrize("t", [128, 384, 512])
@@ -620,10 +667,22 @@ PAGED_LENGTHS = {1: [64], 3: [1, 63, 65],
 @pytest.mark.parametrize("r", [1, 3, 8])
 @pytest.mark.parametrize("hq,hkv", GROUP_CASES)
 def test_paged_attention_matches_plain(dev, int8, r, hq, hkv):
-    gen = torch.Generator(device=dev).manual_seed(r * 100 + hq + hkv + int8)
+    _paged_check(dev, int8, r, hq, hkv, 128)
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("r", [1, 8])
+@pytest.mark.parametrize("hq,hkv", D256_CASES)
+def test_paged_attention_d256_matches_plain(dev, int8, r, hq, hkv):
+    _paged_check(dev, int8, r, hq, hkv, 256)
+
+
+def _paged_check(dev, int8, r, hq, hkv, d):
+    gen = torch.Generator(device=dev).manual_seed(r * 100 + hq + hkv + int8
+                                                  + (d if d != 128 else 0))
     ps, maxp = 64, 32
     q, kp, vp, ks, vs, lens, tables = paged_case(
-        gen, PAGED_LENGTHS[r], hq, hkv, 128, ps, maxp, n_layers=2, int8=int8,
+        gen, PAGED_LENGTHS[r], hq, hkv, d, ps, maxp, n_layers=2, int8=int8,
         device=dev)
     sc = (lambda t: None) if ks is None else (lambda t: t[1])
     args = (q, kp[1], vp[1], lens, tables, sc(ks), sc(vs))

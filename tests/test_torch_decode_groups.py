@@ -1,11 +1,12 @@
 """The port's decode attention at head groups G = Hq / Hkv outside 1, 2, 4, 8
 against the JAX package's, on the CPU: G = 3 (6 query heads over 2 KV
-heads), 7 (7 over 1) and 16 (16 over 1), D = 128.
+heads), 7 (7 over 1) and 16 (16 over 1) at D = 128, and at head dim D = 256
+(gemma's) G = 2 (4 over 2) and 8 (8 over 1).
 
 The reference runs its decode kernels for any group where D % 128 == 0,
 S % 256 == 0 and Hq <= 256, and the port's CUDA kernels take the same
-groups: up to 8 query heads are one chunk of a kernel's work, a larger
-group several chunks. On the CPU the port's wrappers run their plain
+groups at D = 128 and 256: up to 8 query heads (16 in flash_decode at D =
+128) are one chunk of a kernel's work, a larger group several chunks. On the CPU the port's wrappers run their plain
 versions, so these cases hold what the kernels are held to on the card
 (tests/test_torch_cuda.py) against the reference's own kernels:
 - flash_decode_write_stacked against _flash_decode_write_kernel in Pallas
@@ -38,16 +39,18 @@ from llamafile_tpu_torch.ops import attention as TA
 from llamafile_tpu_torch.testing import paged_case, rel_err, row_rel_err
 from tests.test_torch_attention import pallas_kernels  # noqa: F401  (fixture)
 
-L, B, S, D = 3, 2, 512, 128
+L, B, S = 3, 2, 512
 SCALE = 0.088
-GROUPS = [(6, 2), (7, 1), (16, 1)]           # (Hq, Hkv): G = 3, 7, 16
+# (Hq, Hkv, D): G = 3, 7, 16 at D = 128; G = 2, 8 at D = 256
+GROUPS = ([pytest.param(hq, hkv, 128, id=f"{hq}-{hkv}") for hq, hkv in ((6, 2), (7, 1), (16, 1))]
+          + [pytest.param(hq, hkv, 256, id=f"{hq}-{hkv}-d256") for hq, hkv in ((4, 2), (8, 1))])
 
 
 def _np(a):
     return np.array(a.astype(jnp.float32))
 
 
-def _case(seed, hq, hkv):
+def _case(seed, hq, hkv, D):
     rng = np.random.default_rng(seed)
     bf = lambda a: _np(jnp.asarray(a, jnp.bfloat16))
     k3 = bf(rng.standard_normal((L, B, S, hkv * D)))
@@ -58,10 +61,10 @@ def _case(seed, hq, hkv):
     return k3, v3, q, kn, vn
 
 
-@pytest.mark.parametrize("hq,hkv", GROUPS)
+@pytest.mark.parametrize("hq,hkv,d", GROUPS)
 @pytest.mark.parametrize("pos,s_limit", [((37, 301), None), ((0, 300), 256)])
-def test_flash_decode_write_groups_match_pallas(pallas_kernels, hq, hkv, pos, s_limit):
-    k3, v3, q, kn, vn = _case(hq + sum(pos), hq, hkv)
+def test_flash_decode_write_groups_match_pallas(pallas_kernels, hq, hkv, d, pos, s_limit):
+    k3, v3, q, kn, vn = _case(hq + sum(pos) + (d if d != 128 else 0), hq, hkv, d)
     want, jk3, jv3 = JA.flash_decode_write_stacked(
         jnp.asarray(q), jnp.asarray(k3, jnp.bfloat16), jnp.asarray(v3, jnp.bfloat16),
         jnp.asarray(kn), jnp.asarray(vn), jnp.int32(1), jnp.asarray(pos, jnp.int32),
@@ -81,10 +84,10 @@ def test_flash_decode_write_groups_match_pallas(pallas_kernels, hq, hkv, pos, s_
         np.testing.assert_array_equal(mine.float().numpy()[keep], _np(ref)[keep])
 
 
-@pytest.mark.parametrize("hq,hkv", GROUPS)
+@pytest.mark.parametrize("hq,hkv,d", GROUPS)
 @pytest.mark.parametrize("cache", ["bf16", "int8"])
-def test_flash_decode_groups_match_pallas(pallas_kernels, hq, hkv, cache):
-    k3, v3, q, _, _ = _case(2 * hq + hkv, hq, hkv)
+def test_flash_decode_groups_match_pallas(pallas_kernels, hq, hkv, d, cache):
+    k3, v3, q, _, _ = _case(2 * hq + hkv + (d if d != 128 else 0), hq, hkv, d)
     pos = np.asarray([5, 400], np.int32)
     if cache == "bf16":
         want = JA.flash_decode_stacked(jnp.asarray(q), jnp.asarray(k3, jnp.bfloat16),
@@ -95,7 +98,7 @@ def test_flash_decode_groups_match_pallas(pallas_kernels, hq, hkv, cache):
                                       torch.from_numpy(v3).to(torch.bfloat16), 1,
                                       torch.from_numpy(pos), SCALE, hkv)
     else:
-        kv = [jnp.asarray(a[1].reshape(B, S, hkv, D)) for a in (k3, v3)]
+        kv = [jnp.asarray(a[1].reshape(B, S, hkv, d)) for a in (k3, v3)]
         (qk, sk), (qv, sv) = JK._quant_rows(kv[0]), JK._quant_rows(kv[1])
         # the reference hands its kernel f32 K/V, dequantized beforehand
         want = JA.flash_decode(jnp.asarray(q), qk.astype(jnp.float32) * sk[..., None],
@@ -107,11 +110,11 @@ def test_flash_decode_groups_match_pallas(pallas_kernels, hq, hkv, cache):
     assert row_rel_err(got, torch.from_numpy(_np(want))) <= 1e-5
 
 
-@pytest.mark.parametrize("hq,hkv", GROUPS)
+@pytest.mark.parametrize("hq,hkv,d", GROUPS)
 @pytest.mark.parametrize("int8", [False, True])
-def test_paged_attention_groups_match_reference(hq, hkv, int8):
-    g = torch.Generator().manual_seed(hq * 10 + hkv + int8)
-    q, kp, vp, ks, vs, lens, tables = paged_case(g, [1, 15, 16, 17, 128], hq, hkv, D, 16,
+def test_paged_attention_groups_match_reference(hq, hkv, d, int8):
+    g = torch.Generator().manual_seed(hq * 10 + hkv + int8 + (d if d != 128 else 0))
+    q, kp, vp, ks, vs, lens, tables = paged_case(g, [1, 15, 16, 17, 128], hq, hkv, d, 16,
                                                  8, n_layers=2, int8=int8)
     args = (q, kp[1], vp[1], lens, tables, None if ks is None else ks[1],
             None if vs is None else vs[1])
@@ -123,5 +126,5 @@ def test_paged_attention_groups_match_reference(hq, hkv, int8):
         jnp.asarray(tables.numpy()),
         k_scale_l=None if ks is None else jnp.asarray(ks[1].numpy()),
         v_scale_l=None if vs is None else jnp.asarray(vs[1].numpy()))))
-    assert got.shape == (5, hq, D)
+    assert got.shape == (5, hq, d)
     assert row_rel_err(got, want) <= 1e-5
