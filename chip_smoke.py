@@ -16,8 +16,10 @@
    equal; the three decode kernels also at head groups of 3 and 16 (24 and
    128 query heads over 8 KV heads), bf16 and int8, and at head_dim 256:
    Gemma-2-9B's 16 query heads over 8 KV heads and Gemma-2B's 8 over 1;
-   the unrolled prefill's qmm_planes; flash_decode over bf16 and int8 (one
-   launch, a group of up to 16 heads from one K/V read at D = 128); the
+   the unrolled prefill's qmm_planes; flash_decode and paged_attention
+   over bf16 and int8 (one launch of thread-block clusters, a group of up
+   to 16 heads from one K/V read; a larger group's label gives the
+   wrapper's chunk count); flash_prefill (wgmma) at T = 512, 1024, 2048; the
    MoE kernels at Mixtral-8x7B width: the routed fused FFN and the routed
    q4b and q8b GEMVs at a decode step's 2 slots, qmm_txn_g at 16 and 512
    slots, qmm_planes_g at 2048, each with a control whose expert ids are
@@ -42,21 +44,21 @@
    per-block scales), and the bound (bytes over the card's memory rate, or
    operations over its peak rate, whichever is larger).
 3. Whole paths at two layers of llama3-8b width, card (kernels) against the
-   same model on the CPU (plain versions): Q4_K with a 32-token prompt and 4
-   decode steps, Q4_K with a 300-token prompt (bucket 512) and 2 decode
-   steps, Q8_0 with a 24-token prompt (bucket 32) and 4 decode steps, and
+   same model on the CPU (plain versions): Q4_K with a 32-token prompt and 2
+   decode steps, Q4_K with a 300-token prompt (bucket 512) and a decode
+   step, Q8_0 with a 24-token prompt (bucket 32) and 2 decode steps, and
    the paged decode (forward_paged_decode) of 4 rows admitted at prompts of
-   24, 64, 200 and 300 tokens, 4 steps; the Q4_K_M recipe at two layers
-   (layer 1 Q6_K V and down, unrolled) with a 300-token prompt and 4 decode
-   steps; Q4_K with a dense int8 KV cache, 32-token prompt, 4 steps; Q4_K
+   24, 64, 200 and 300 tokens, 2 steps; the Q4_K_M recipe at two layers
+   (layer 1 Q6_K V and down, unrolled) with a 300-token prompt and 2 decode
+   steps; Q4_K with a dense int8 KV cache, 32-token prompt, 2 steps; Q4_K
    with the int8 prefill companions (int8_prefill_params), 300-token prompt
-   and 2 steps, each qmm_i8p call rerun on its own int8 codes and scales;
+   and a step, each qmm_i8p call rerun on its own int8 codes and scales;
    TinyLlama's widths at two layers (head_dim 64) with a max_seq_len of
-   1000: the Engine's prefill and 4 decode steps on a bf16 cache, then on the
+   1000: the Engine's prefill and 2 decode steps on a bf16 cache, then on the
    card Engine.generate and 3 requests through the batcher, every decode
    attention on the einsum or gather route with no decode kernel launch,
    and the 3-row paged decode card against CPU; Llama-3.2-3B's widths at
-   two layers (a head group of 3): the Engine's prefill and 4 decode steps
+   two layers (a head group of 3): the Engine's prefill and 2 decode steps
    over its bf16 cache (300-token prompt) and its int8 cache (40 tokens),
    then on the card Engine.generate and 4 requests through the batcher,
    every decode attention a kernel launch, and the 4-row paged decode card
@@ -65,9 +67,9 @@
    layers; 2 decode steps, the paged decode of 2 rows), where
    flash_decode_write, flash_decode and paged_attention run at D = 256; two
    layers at Mixtral-8x7B width (mixtral-8x7b-2l): Q4_K stacked (24- and
-   300-token prompts: qmm_txn_g and qmm_planes_g; 2 decode steps on the
-   routed fused FFN), the Q4_K_M recipe unrolled (300-token prompt, 2
-   decode steps; layer 1's Q6_K experts' down: the routed GEMVs at decode,
+   300-token prompts: qmm_txn_g and qmm_planes_g; a decode step on the
+   routed fused FFN), the Q4_K_M recipe unrolled (300-token prompt, a
+   decode step; layer 1's Q6_K experts' down: the routed GEMVs at decode,
    the dense expert loop at prefill), and
    the paged decode at 4 rows (the fused FFN) and 8 rows (qmm_txn_g), one
    step each (the Mixtral checks' CPU side is the slowest of the phase); the
@@ -76,12 +78,12 @@
    held), and one decode step's MoE FFN calls run under
    torch.cuda.set_sync_debug_mode("error"); then under the q4b flavours
    (LLAMAFILE_TPU_Q4B, qmatmul.Q4B_KERNEL set for both sides): Q4_K with
-   the 32-token prompt (4 decode steps under int8, 2 under planes) and the
-   300-token prompt and 2 under int8 (qmm_int8, and the stacked planes
+   the 32-token prompt (2 decode steps under int8, 1 under planes) and the
+   300-token prompt and 1 under int8 (qmm_int8, and the stacked planes
    kernel at bucket 512) and under planes, Q8_0 under int8 (24-token
-   prompt, 2 steps, decode on the dequant GEMM), the 4-row paged decode
-   under int8 (2 steps), and Mixtral Q4_K stacked under int8 (24-token
-   prompt, 2 steps on _routed_fallback, its calls counted). Each
+   prompt, 1 step, decode on the dequant GEMM), the 4-row paged decode
+   under int8 (1 step), and Mixtral Q4_K stacked under int8 (24-token
+   prompt, 1 step on _routed_fallback, its calls counted). Each
    is traced op by op: for each step, the first product, quantization or
    attention call where card and CPU part, and the largest parting; every
    product is rerun through its plain version on the card's own inputs and
@@ -101,8 +103,9 @@
       tokens from the 24-token prompt (129 qmm_int8 or qmm_planes launches a
       step: 4 a layer and the head; no fused FFN), the 1000-token prompt's
       TTFT (the stacked planes kernel, 128 launches); under int8 also the
-      HTTP server at 4 slots, 4 greedy requests each against itself served
-      alone (a 4-row step padded to 8 on qmm_int8);
+      HTTP server at 4 slots, 4 greedy requests, those of the shortest and
+      longest prompt against themselves served alone (ALONE_LENGTHS; a 4-row
+      step padded to 8 on qmm_int8);
    4e. phase 4's model built under LLAMAFILE_TPU_I8P=1 (phase 4's engine
       dropped first): 64 tokens from the 24-token prompt (no companion
       read), then the 1000-token prompt's TTFT with 128 qmm_i8p launches
@@ -116,31 +119,36 @@
    tokens, 12 greedy and 4 sampled, half streamed, 2 through the chat
    endpoint). Wall time, output tok/s, TTFT by prompt length, the fused
    decode step at 8 rows against its bound, peak memory; exact launches
-   from the batcher's own tallies; six requests served again one at a time
-   by a fresh batcher must give the same token ids.
+   from the batcher's own tallies; three requests served again one at a
+   time by a fresh batcher (greedy at the shortest and longest prompt, one
+   sampled) must give the same token ids.
 6. llama3-8b by llama.cpp's Q4_K_M recipe (testing.make_q4_k_m_llama: 16
    of 32 layers with Q6_K V and down, Q6_K head), unrolled, through
    Engine.generate (64 tokens from a 24-token prompt, then the 1000-token
    prompt's TTFT on qmm_planes) and the HTTP server at 4 slots (4 greedy
-   requests, each against itself served alone), launches exact.
+   requests, those of the shortest and longest prompt against themselves
+   served alone), launches exact.
 7. mixtral-8x7b-8l (Mixtral-8x7B's widths, top-2 of 8 experts, 8 layers):
    7a Q4_K stacked through Engine.generate (64 tokens from a 24-token
    prompt; the 1000-token prompt's TTFT), 7b the same by the Q4_K_M recipe
    (unrolled), 7c the HTTP server at 8 slots over 7a's engine, 8 greedy
-   requests (prompts of 24, 128, 500 and 1000 tokens, two each), each
-   against itself served alone; launches exact, the decode rate against the
+   requests (prompts of 24, 128, 500 and 1000 tokens, two each), the four
+   of the shortest and longest prompt against themselves served alone;
+   launches exact, the decode rate against the
    routed weight-read bound (models.synthetic.decode_read_bytes).
 8. llama3.2-3b (Llama-3.2-3B's widths, 28 layers, a head group of 3), Q4_K
    stacked: Engine.generate of 32 tokens from the 24-token prompt, launches
    exact, the decode rate against its weight-read bound; the HTTP server at
-   4 slots, 4 greedy requests, each against itself served alone; no decode
-   attention call on the einsum or gather route.
+   4 slots, 4 greedy requests, those of the shortest and longest prompt
+   against themselves served alone; no decode attention call on the einsum
+   or gather route.
    Phases run in the order 4, 4b, 4d, 5, 4f, 4e, 4c, 6, 7, 8. Then, after every timed
    run (so that no profiler session of the process precedes a timing),
-   profiles: one 8-step decode chunk of each model (7a, 7b, and 4c, 4 and
-   4f's int8 on rebuilt engines) under torch.profiler (the device's busy share of a step) and
-   under cProfile (host time by function), one 1000-token prefill (device
-   time by kernel), and one fused 8-row serving chunk (busy share).
+   profiles: a 2-step decode chunk of each model (7a, 7b, and 4c, 4 and
+   4f's int8 on rebuilt engines) under torch.profiler (the device's busy
+   share of a step) and under cProfile (host time by function), one
+   1000-token prefill (device time by kernel), and one fused 8-row serving
+   chunk (busy share).
 
 Every phase header (and each phase-3 check's) prints the seconds since the
 start and those the previous one took; {"phase_seconds": ...} sums them up
@@ -565,8 +573,7 @@ def kernel_phases(torch, dev, gen):
                          enable_gqa=True).transpose(1, 2), 2e-2)
         entry("flash_prefill", "llamafile_tpu_torch/csrc/flash_prefill.cu",
               "llamafile_tpu/ops/attention.py:57", f"Hq={hq} Hkv={hkv} D={hd} T={t}",
-              err, ms, plain, lib, (t * (hq + 2 * hkv) + t * hq) * hd * 2,
-              2 * hq * hd * t * (t + 1), BF16_FLOP_PER_S)      # bf16 values out
+              err, ms, plain, lib, *prefill_work(t, hq, hkv, hd))    # bf16 values out
         del qkv, heads, got, want
         torch.cuda.empty_cache()
 
@@ -623,14 +630,16 @@ def kernel_phases(torch, dev, gen):
     return list(rows.values())
 
 
-# the prompt lengths of the served requests (phases 5, 6, 7c and 8)
+# the prompt lengths of the served requests (phases 5, 6, 7c and 8), and
+# those whose requests are served again alone, the shortest and the longest
 SERVE_LENGTHS = (24, 128, 500, 1000)
+ALONE_LENGTHS = (24, 1000)
 
 # Phase 2's decode attention shapes by (query heads, KV heads, head dim):
 # llama3-8b's 32 over 8 at D = 128 (a group of 4) first, as in earlier runs,
 # then 24 over 8 (a group of 3: the shapes of phase 8's decode too) and 128
-# over 8 (16: two head chunks of flash_decode_write and paged_attention, one
-# of flash_decode), bf16 and int8; then head_dim 256: Gemma-2-9B's 16 over
+# over 8 (16: two head chunks of flash_decode_write, one of flash_decode and
+# paged_attention), bf16 and int8; then head_dim 256: Gemma-2-9B's 16 over
 # 8 (a group of 2) and Gemma-2B's 8 over 1 (8: phase 3's head_dim-256 model)
 DECODE_GROUPS = {
     # (pos, s_eff): pos 700 heads the entry (the shape of earlier runs); pos
@@ -673,6 +682,45 @@ def group_note(hq: int, hkv: int, most: int = 8) -> str:
     nc = head_chunks(g, most)
     return f"G={g}" + (f" in {nc} chunks, each reading the K/V rows" if nc > 1
                        else ", one K/V read" if g > 8 else "")
+
+
+def paged_work(lengths, hq, hkv, hd, int8):
+    """(bytes, operations, op rate) of paged_attention's bound: each visible
+    K/V row read once (int8: its f32 scale too), q read and the output
+    written in f32; the f32 flops of scores and P.V on the CUDA cores."""
+    kv_bytes = sum(lengths) * hkv * hd * 2 * (1 + 4 / hd if int8 else 2)
+    return (kv_bytes + 2 * len(lengths) * hq * hd * 4, 4 * sum(lengths) * hq * hd,
+            F32_FLOP_PER_S)
+
+
+def paged_yardstick(torch, q, kp, vp, ks, vs, lens, tables, nl):
+    """The library yardstick of paged_attention, fn(i) on layer i of nl:
+    sdpa over K/V gathered to dense [R, Hkv, S, D] bf16 beforehand (the
+    gather, and an int8 pool's dequant, not timed) with a length mask; the
+    G query heads of a KV head ride as G queries."""
+    r, hq, hd = q.shape
+    hkv, _, ps, _ = kp.shape[1:]
+    maxp = tables.shape[1]
+    t = tables.long()
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def dense(pages, scales, i):
+        x = pages[i][:, t]                                 # [Hkv, R, MAXP, ps, D]
+        if scales is not None:
+            x = x.float() * scales[i][:, t]
+        return x.permute(1, 0, 2, 3, 4).reshape(r, hkv, maxp * ps, hd).to(torch.bfloat16)
+    kd = [dense(kp, ks, i) for i in range(nl)]
+    vd = [dense(vp, vs, i) for i in range(nl)]
+    mask = (torch.arange(maxp * ps, device=q.device)[None, :]
+            < lens[:, None].long())[:, None, None]
+    qg = q.to(torch.bfloat16).reshape(r, hkv, hq // hkv, hd)
+    return lambda i: sdpa(qg, kd[i], vd[i], attn_mask=mask, scale=1.0)
+
+
+def prefill_work(t, hq, hkv, hd):
+    """(bytes, operations, op rate) of flash_prefill's bound: q, k, v read
+    and the output written once in bf16; the causal products' bf16 flops."""
+    return (t * (hq + 2 * hkv) + t * hq) * hd * 2, 2 * hq * hd * t * (t + 1), BF16_FLOP_PER_S
 
 
 def fdw_phase(torch, dev, gen, entry, sdpa, hq, cases, hkv=8, hd=128):
@@ -819,8 +867,7 @@ def paged_phase(torch, dev, gen, entry, sdpa, hq, label, lengths, int8, hkv=8, h
     from llamafile_tpu_torch.ops import attention as A
     from llamafile_tpu_torch.testing import paged_case, paged_controls, row_rel_err
     nl, r, ps, maxp = 32, len(lengths), 64, 2048 // 64
-    chunks = A.head_chunks(hq // hkv)
-    label = label + ("" if chunks == 1 else f", {group_note(hq, hkv)}")
+    label = label + ("" if hq // hkv <= 8 else f", {group_note(hq, hkv, A.PA_CHUNK_HEADS)}")
     q, kp, vp, ks, vs, lens, tables = paged_case(
         gen, lengths, hq, hkv, hd, ps, maxp, n_layers=nl, int8=int8, device=dev)
     sc = (lambda t, i: None) if ks is None else (lambda t, i: t[i])
@@ -842,32 +889,16 @@ def paged_phase(torch, dev, gen, entry, sdpa, hq, label, lengths, int8, hkv=8, h
         raise AssertionError("paged_attention: two runs on the same inputs differ")
     ms = time_ms(torch, lambda i: A.paged_attention(*lay(i)), nl)
     plain = time_ms(torch, lambda i: A.paged_attention_plain(*lay(i)), nl)
-    # the library yardstick: sdpa over K/V gathered to dense [R, Hkv, S, D]
-    # bf16 beforehand (the gather is not timed) with a length mask; the G
-    # query heads of a KV head ride as G queries
-    t = tables.long()
-
-    def dense(pages, scales, i):
-        x = pages[i][:, t]                                 # [Hkv, R, MAXP, ps, D]
-        if scales is not None:
-            x = x.float() * scales[i][:, t]
-        return x.permute(1, 0, 2, 3, 4).reshape(r, hkv, maxp * ps, hd).to(torch.bfloat16)
-    kd = [dense(kp, ks, i) for i in range(nl)]
-    vd = [dense(vp, vs, i) for i in range(nl)]
-    mask = (torch.arange(maxp * ps, device=dev)[None, :] < lens[:, None].long())[:, None, None]
-    qg = q.to(torch.bfloat16).reshape(r, hkv, hq // hkv, hd)
-    lib_fn = lambda i: sdpa(qg, kd[i], vd[i], attn_mask=mask, scale=1.0)
+    lib_fn = paged_yardstick(torch, q, kp, vp, ks, vs, lens, tables, nl)
     lib = time_ms(torch, lib_fn, nl)
     check_close(f"paged_attention/{label} vs sdpa (yardstick sanity)",
                 got.reshape(r, hkv, hq // hkv, hd), lib_fn(5), 2e-2)
-    kv_bytes = sum(lengths) * hkv * hd * 2 * (1 + 4 / hd if int8 else 2)
     entry("paged_attention", "llamafile_tpu_torch/csrc/paged_attention.cu",
           "llamafile_tpu/runtime/paged.py:277",
           f"R={r} Hq={hq} Hkv={hkv} D={hd} ps={ps} {label} (library: sdpa on "
           "K/V gathered beforehand, gather not timed)", err, ms, plain, lib,
-          kv_bytes + 2 * r * hq * hd * 4, 4 * sum(lengths) * hq * hd,
-          F32_FLOP_PER_S)
-    del q, kp, vp, ks, vs, kd, vd, got, want
+          *paged_work(lengths, hq, hkv, hd, int8))
+    del q, kp, vp, ks, vs, lib_fn, got, want
     torch.cuda.empty_cache()
 
 
@@ -2203,7 +2234,8 @@ def llama32_phase(torch, dev, prompt, n_new=32):
     phase 4's 24-token prompt, launches exact as in phase 4 (the decode
     attention on flash_decode_write at G = 3), the decode rate against the
     weight-read bound; then the HTTP server at 4 slots (serve_four: 4 greedy
-    requests, paged_attention at G = 3), each against itself served alone.
+    requests, paged_attention at G = 3), those of the shortest and longest
+    prompt against themselves served alone.
     No decode attention call takes the einsum or gather route. Returns the
     counted runs' launch counts."""
     from llamafile_tpu_torch.models.synthetic import decode_read_bytes, make_synthetic_llama
@@ -2254,7 +2286,8 @@ def moe_phase(torch, dev, n_new):
     (layers 0, 3, 6, 7 with Q6_K experts' down: the routed GEMVs at decode,
     the dense expert loop at prefill). 7c: the HTTP server at 8 slots over
     7a's engine, 8 greedy requests (prompts of 24, 128, 500 and 1000 tokens,
-    two each), each against itself served alone. Launch counts exact.
+    two each), those of the shortest and longest prompt against themselves
+    served alone. Launch counts exact.
     Returns ([7a's engine, 7b's engine], their decode step ms, the counted
     runs' counts, the 24-token prompt)."""
     from llamafile_tpu_torch.models.synthetic import decode_read_bytes, make_synthetic_llama
@@ -2337,7 +2370,8 @@ def moe_phase(torch, dev, n_new):
 def moe_serving(torch, eng):
     """Phase 7c: 8 greedy requests through the port's Server at 8 slots over
     the stacked Mixtral engine, launches exact from the batcher's tallies;
-    each request served again alone by a fresh batcher gives the same ids."""
+    each request of the shortest and longest prompt served again alone by a
+    fresh batcher gives the same ids."""
     from concurrent.futures import ThreadPoolExecutor
     from llamafile_tpu_torch.models.llama import grouped_tm
     from llamafile_tpu_torch.ops import reset_launch_counts
@@ -2398,7 +2432,7 @@ def moe_serving(torch, eng):
             "qmm_txn_m1": small + big}, "phase 7c")
     alone = Batcher(eng, rows=8)
     try:
-        for i in MOE_SERVED:
+        for i in (i for i in MOE_SERVED if len(prompts[i]) in ALONE_LENGTHS):
             toks = _alone_tokens(alone, prompts[i], srv._sp({"temperature": 0.0}))
             same = toks == results[i][0]
             log(f"  request {i} (prompt {len(prompts[i])}): alone {len(toks)} tokens, "
@@ -2583,7 +2617,7 @@ def serving_phase(torch, eng, read):
     # the same requests alone, one after another, on a fresh 8-slot batcher
     greedy = [next(i for i in range(16) if SERVE_LENGTHS[i % 4] == n and i not in
                    SERVE_SAMPLED and i not in SERVE_CHAT) for n in SERVE_LENGTHS]
-    check_ids = greedy + list(SERVE_SAMPLED[:2])
+    check_ids = [i for i in greedy if SERVE_LENGTHS[i % 4] in ALONE_LENGTHS] + [SERVE_SAMPLED[0]]
     alone = Batcher(eng, rows=8)
     try:
         for i in check_ids:
@@ -2611,7 +2645,8 @@ def q4km_phase(torch, dev, prompt, long_prompt, n_new):
     """Phase 6: llama3-8b by the Q4_K_M recipe, 32 layers, unrolled, through
     Engine.generate (24-token prompt, n_new greedy tokens; then the
     1000-token prompt's TTFT) and the HTTP server at 4 slots (4 greedy
-    requests, each against the same request served alone). Launch counts
+    requests, those of the shortest and longest prompt against themselves
+    served alone). Launch counts
     exact, from the recipe's layer list. Returns the counted runs' counts."""
     from llamafile_tpu_torch.models.synthetic import decode_read_bytes
     from llamafile_tpu_torch.runtime.engine import Engine
@@ -2714,7 +2749,7 @@ def serve_four(torch, eng, model, what, expect):
         check_counts(counts, expect(dsteps, small, big, fr), f"{what} serving")
     alone = Batcher(eng, rows=4)
     try:
-        for i in Q4KM_SERVED:
+        for i in (i for i in Q4KM_SERVED if len(prompts[i]) in ALONE_LENGTHS):
             toks = _alone_tokens(alone, prompts[i], srv._sp({"temperature": 0.0}))
             same = toks == results[i][0]
             log(f"  request {i} (prompt {len(prompts[i])}): alone {len(toks)} tokens, "
@@ -2883,20 +2918,25 @@ def prefill_profile(torch, eng, prompt):
         log(f"    {us / 1e3:8.4f} ms  {name[:90]}")
 
 
+PROFILE_STEPS = 2                 # decode steps a profiled chunk (device_busy)
+
+
 def device_busy(torch, eng, prompt, sp, step_ms):
-    """Kernel time of one 8-step decode chunk from a profiler trace, against
-    the unprofiled step time: the device's busy share of a decode step."""
+    """Kernel time of one PROFILE_STEPS-step decode chunk from a profiler
+    trace, against the unprofiled step time: the device's busy share of a
+    decode step; then the host's time by function over as many steps."""
     from torch.profiler import ProfilerActivity, profile
+    n = PROFILE_STEPS
     cache = eng.new_cache()
     last, cache = eng.prefill(cache, prompt)
     tok = last.argmax()[None].to(torch.int32)
     pos = torch.tensor([len(prompt)], dtype=torch.int32, device=tok.device)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        eng.decode(tok, pos, cache, None, sp, 8, attn_len=256)
+        eng.decode(tok, pos, cache, None, sp, n, attn_len=256)
         torch.cuda.synchronize()
     by_name, n_act = device_kernels(prof)
-    busy_ms = sum(by_name.values()) / 1e3 / 8
+    busy_ms = sum(by_name.values()) / 1e3 / n
     if busy_ms == 0:
         log("  device busy share: not measured (the profiler recorded no kernels)")
         return
@@ -2905,24 +2945,24 @@ def device_busy(torch, eng, prompt, sp, step_ms):
         f"({busy_ms / step_ms:.1%}); idle {1 - busy_ms / step_ms:.1%}")
     fdw = sum(us for name, us in by_name.items() if "fdw_kernel" in name)
     if fdw:
-        log(f"  flash_decode_write: {fdw / 8 / 1e3:.4f} ms/step of device time")
-    log(f"  {n_act / 8:.1f} device activities (kernels, copies, fills) a step: "
-        f"{step_ms * 1e3 / (n_act / 8):.1f} us of step time each")
+        log(f"  flash_decode_write: {fdw / n / 1e3:.4f} ms/step of device time")
+    log(f"  {n_act / n:.1f} device activities (kernels, copies, fills) a step: "
+        f"{step_ms * 1e3 / (n_act / n):.1f} us of step time each")
     for name, us in top:
-        log(f"    {us / 8 / 1e3:8.4f} ms/step  {name[:90]}")
-    # the host side: the next 8 steps under cProfile, by function's own time
+        log(f"    {us / n / 1e3:8.4f} ms/step  {name[:90]}")
+    # the host side: the next n steps under cProfile, by function's own time
     prof_py = cProfile.Profile()
     t0 = time.perf_counter()
     prof_py.enable()
-    eng.decode(tok, pos, cache, None, sp, 8, attn_len=256)
+    eng.decode(tok, pos, cache, None, sp, n, attn_len=256)
     torch.cuda.synchronize()
     prof_py.disable()
-    wall_ms = (time.perf_counter() - t0) * 1e3 / 8
+    wall_ms = (time.perf_counter() - t0) * 1e3 / n
     stats = pstats.Stats(prof_py).stats
     log(f"  host time by function, cProfile on ({wall_ms:.3f} ms a step with it):")
     for (path, line, fn), (_, calls, own, _, _) in sorted(
             stats.items(), key=lambda kv: -kv[1][2])[:10]:
-        log(f"    {own / 8 * 1e3:8.4f} ms/step {calls / 8:7.1f} calls  "
+        log(f"    {own / n * 1e3:8.4f} ms/step {calls / n:7.1f} calls  "
             f"{fn[:60]} ({os.path.basename(path)}:{line})")
 
 
@@ -2959,31 +2999,31 @@ def main() -> int:
     phase("phase 2: kernels against their plain versions at the main path's shapes")
     rows = kernel_phases(torch, dev, gen)
     phase("phase 3: whole paths, llama3-8b width, 2 layers: card vs CPU plain")
-    # the Mixtral checks and the flavours' decode steps run their CPU side
-    # through the plain versions at two layers of full width: their depth
-    # (decode steps) is cut to what drives and holds each route once more
+    # each check runs its CPU side through the plain versions at two layers
+    # of full width: its depth (decode steps) is cut to what drives and
+    # holds each route once or twice
     mix = dict(preset="mixtral-8x7b-2l", n_decode=1)
     for what, check, args, kw, fl in (
-            ("Q4_K, 32-token prompt", whole_path_check, (), dict(n_decode=4), "txn"),
+            ("Q4_K, 32-token prompt", whole_path_check, (), dict(n_decode=2), "txn"),
             ("Q4_K, 300-token prompt", whole_path_check, ("Q4_K",),
-             dict(n_prompt=300, n_decode=2), "txn"),
+             dict(n_prompt=300, n_decode=1), "txn"),
             ("Q4_K, 300-token prompt, int8 prefill", whole_path_check, ("Q4_K",),
-             dict(n_prompt=300, n_decode=2, i8p=True), "txn"),
-            ("head_dim 64 (TinyLlama widths)", head_dim_64_check, (), {}, "txn"),
-            ("Llama-3.2-3B widths (G = 3)", decode_model_check, (), {}, "txn"),
+             dict(n_prompt=300, n_decode=1, i8p=True), "txn"),
+            ("head_dim 64 (TinyLlama widths)", head_dim_64_check, (), dict(n_decode=2), "txn"),
+            ("Llama-3.2-3B widths (G = 3)", decode_model_check, (), dict(n_decode=2), "txn"),
             # head_dim 256: flash_decode_write, flash_decode and
             # paged_attention at D = 256 on a model's path
             ("head_dim 256 (Gemma-2B widths, G = 8)", decode_model_check, (),
              dict(preset="gemma-2b-widths-2l", n_decode=2, paged_prompts=(24, 200)), "txn"),
-            ("Q8_0", whole_path_check, ("Q8_0",), dict(n_prompt=24, n_decode=4), "txn"),
-            ("paged decode, 4 rows", paged_path_check, (), {}, "txn"),
-            ("Q4_K_M", whole_path_check, ("Q4_K_M",), dict(n_prompt=300, n_decode=4), "txn"),
+            ("Q8_0", whole_path_check, ("Q8_0",), dict(n_prompt=24, n_decode=2), "txn"),
+            ("paged decode, 4 rows", paged_path_check, (), dict(n_decode=2), "txn"),
+            ("Q4_K_M", whole_path_check, ("Q4_K_M",), dict(n_prompt=300, n_decode=2), "txn"),
             ("int8 KV", whole_path_check, ("Q4_K",),
-             dict(n_prompt=32, n_decode=4, kv_dtype="int8"), "txn"),
+             dict(n_prompt=32, n_decode=2, kv_dtype="int8"), "txn"),
             ("Mixtral Q4_K stacked", moe_path_check, ("Q4_K",),
-             dict(runs=((24, 2), (300, 0))), "txn"),
+             dict(runs=((24, 1), (300, 0))), "txn"),
             ("Mixtral Q4_K_M unrolled", moe_path_check, ("Q4_K_M",),
-             dict(runs=((300, 2),)), "txn"),
+             dict(runs=((300, 1),)), "txn"),
             ("Mixtral paged decode, 4 rows", paged_path_check, (),
              dict(prompts=(24, 64, 200, 300), **mix), "txn"),
             ("Mixtral paged decode, 8 rows", paged_path_check, (),
@@ -2994,16 +3034,16 @@ def main() -> int:
             # product; Q8_0 decode leaves qmm_q8_m1 for the dequant GEMM;
             # the paged decode's 4 rows pad to 8 on qmm_int8; Mixtral's
             # decode takes _routed_fallback
-            ("Q4_K, 32-token prompt", whole_path_check, (), dict(n_decode=4), "int8"),
+            ("Q4_K, 32-token prompt", whole_path_check, (), dict(n_decode=2), "int8"),
             ("Q4_K, 300-token prompt", whole_path_check, ("Q4_K",),
-             dict(n_prompt=300, n_decode=2), "int8"),
-            ("Q4_K, 32-token prompt", whole_path_check, (), dict(n_decode=2), "planes"),
+             dict(n_prompt=300, n_decode=1), "int8"),
+            ("Q4_K, 32-token prompt", whole_path_check, (), dict(n_decode=1), "planes"),
             ("Q4_K, 300-token prompt", whole_path_check, ("Q4_K",),
-             dict(n_prompt=300, n_decode=2), "planes"),
-            ("Q8_0", whole_path_check, ("Q8_0",), dict(n_prompt=24, n_decode=2), "int8"),
-            ("paged decode, 4 rows", paged_path_check, (), dict(n_decode=2), "int8"),
+             dict(n_prompt=300, n_decode=1), "planes"),
+            ("Q8_0", whole_path_check, ("Q8_0",), dict(n_prompt=24, n_decode=1), "int8"),
+            ("paged decode, 4 rows", paged_path_check, (), dict(n_decode=1), "int8"),
             ("Mixtral Q4_K stacked", moe_path_check, ("Q4_K",),
-             dict(runs=((24, 2),)), "int8")):
+             dict(runs=((24, 1),)), "int8")):
         phase(f"  phase 3 {what}{'' if fl == 'txn' else ', LLAMAFILE_TPU_Q4B=' + fl}")
         with q4b_flavour(fl):
             check(torch, dev, *args, **kw)

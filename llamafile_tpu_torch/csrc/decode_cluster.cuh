@@ -1,8 +1,9 @@
-// The cluster body shared by the two dense-cache decode kernels
-// (flash_decode_write.cu, flash_decode.cu): a 16-row bf16 K/V slab staged
-// by cp.async and run on mma.sync, and the merge of a rank's warp partials
-// pushed through distributed shared memory to the other ranks of its
-// thread-block cluster.
+// The cluster body shared by the decode kernels (flash_decode_write.cu,
+// flash_decode.cu, paged_attention.cu): a 16-row bf16 K/V slab staged by
+// cp.async and run on mma.sync (the bf16 dense caches), a 32-row slab run in
+// f32 on the CUDA cores (the int8 dense cache, and both page types of the
+// paged pool), and the merge of a rank's warp partials pushed through
+// distributed shared memory to the other ranks of its thread-block cluster.
 //
 // Each (batch row, kv head, head chunk) is one cluster of CS blocks (the
 // ranks). Rank r takes the rows [rank_lo(r, n), rank_lo(r + 1, n)) of the
@@ -286,6 +287,239 @@ __device__ __forceinline__ void push_partials(const float* wacc, const float (*w
     for (int i = 0; i < GPU / 4; ++i)
       st_async(dst + 16 * i, make_float4(a[4 * i], a[4 * i + 1], a[4 * i + 2], a[4 * i + 3]),
                bar);
+  }
+}
+
+// ---- The f32 slab of flash_decode's int8 form and of paged_attention ----
+// RQ rows of K and V (int8 codes with their f32 scales, or bf16) staged in
+// shared memory, computed on in f32 on the CUDA cores: lane i takes row i's
+// scores for every head against q in shared memory (broadcast reads, no
+// shuffle in the dot), the slab's max is a warp reduction a head, and in
+// P.V lane i owns dims [i * D / 32, (i + 1) * D / 32) of every head, each
+// K and V element converted to f32 once.
+
+constexpr int RQ = 32;               // rows of an f32 slab: one a lane
+
+// g heads rounded up to 4 (float4 rows)
+__host__ __device__ constexpr int heads4(int g) { return g < 4 ? 4 : g; }
+
+// The byte stride of an f32 slab's rows of D elements of T: 16 bytes past
+// the row, so that 32 lanes reading 32 rows hit distinct banks.
+template <typename T, int D>
+__host__ __device__ constexpr int slab_stride() {
+  return D * (int)sizeof(T) + 16;
+}
+
+// A slab's bytes: K rows | V rows | int8 only: K scales | V scales (f32).
+template <typename T, int D>
+__host__ __device__ constexpr int slab_bytes() {
+  return 2 * RQ * slab_stride<T, D>() + (sizeof(T) == 1 ? 2 * RQ * 4 : 0);
+}
+
+// 4-byte global -> shared copy; zero-fills the destination when !valid
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 4 : 0));
+}
+
+// The four int8 codes packed in w as f32, exactly: each byte, offset to
+// unsigned, becomes the low mantissa byte of 2^23 (one prmt), and 2^23 +
+// 128 comes off (one add). A cvt from an integer runs at 1/8 of the f32
+// rate on this card.
+__device__ __forceinline__ void codes4(int w, float* f) {
+  const uint32_t u = (uint32_t)w ^ 0x80808080u;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    f[i] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440 + i)) - 8388736.f;
+}
+
+// One f32 slab of a warp (nrw of its RQ rows valid; rows past them zero)
+// of T = int8_t (codes times their row's scale) or __nv_bfloat16: the
+// scores of row `lane` for heads 0 .. GP - 1 (q_s [GP][D] f32, heads past
+// the chunk zero) times scale, the slab's max and rescale of each head, p
+// into the warp's rows p_s [RQ][PS], then acc[g][e] += p * v over the valid
+// rows for dims D / 32 * lane + e. lp: this lane's share of l (the lanes'
+// sum is l).
+template <typename T, int D, int GP>
+__device__ __forceinline__ void attend_slab_f32(const unsigned char* slab, int nrw,
+                                                const float* q_s, float* p_s, float scale,
+                                                float (&m)[GP], float (&lp)[GP],
+                                                float (&acc)[GP][D / 32]) {
+  constexpr bool BF = sizeof(T) == 2;
+  constexpr int KS = slab_stride<T, D>(), DPL = D / 32, PS = heads4(GP);
+  constexpr int EC = 16 / (int)sizeof(T);      // elements a 16-byte chunk
+  const int lane = threadIdx.x & 31;
+  const unsigned char* kc = slab;
+  const unsigned char* vc = kc + RQ * KS;
+  const float* ksc = reinterpret_cast<const float*>(vc + RQ * KS);   // int8 only
+  const float* vsc = ksc + RQ;
+  float s0[GP], s1[GP];                // two chains a head
+#pragma unroll
+  for (int g = 0; g < GP; ++g) s0[g] = s1[g] = 0.f;
+  const unsigned char* kr = kc + lane * KS;
+  const float ksl = BF ? 1.f : ksc[lane];
+#pragma unroll
+  for (int cc = 0; cc < D / EC; ++cc) {
+    const int4 raw = *reinterpret_cast<const int4*>(kr + 16 * cc);
+    float kf[EC];
+    if constexpr (BF) {
+      const uint32_t wd[4] = {(uint32_t)raw.x, (uint32_t)raw.y, (uint32_t)raw.z,
+                              (uint32_t)raw.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        kf[2 * i] = bf16_lo(wd[i]);
+        kf[2 * i + 1] = bf16_hi(wd[i]);
+      }
+    } else {
+      codes4(raw.x, kf);
+      codes4(raw.y, kf + 4);
+      codes4(raw.z, kf + 8);
+      codes4(raw.w, kf + 12);
+#pragma unroll
+      for (int e = 0; e < 16; ++e) kf[e] *= ksl;
+    }
+#pragma unroll
+    for (int g = 0; g < GP; ++g) {
+      const float4* qv = reinterpret_cast<const float4*>(q_s + g * D + EC * cc);
+#pragma unroll
+      for (int i = 0; i < EC / 4; ++i) {
+        const float4 x = qv[i];
+        s0[g] = fmaf(x.x, kf[4 * i], s0[g]);
+        s1[g] = fmaf(x.y, kf[4 * i + 1], s1[g]);
+        s0[g] = fmaf(x.z, kf[4 * i + 2], s0[g]);
+        s1[g] = fmaf(x.w, kf[4 * i + 3], s1[g]);
+      }
+    }
+  }
+  const bool ok = lane < nrw;
+  float corr[GP];
+  float* prow = p_s + lane * PS;
+#pragma unroll
+  for (int g = 0; g < GP; ++g) {
+    const float sc = ok ? (s0[g] + s1[g]) * scale : NEG;
+    float mx = sc;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    const float mn = fmaxf(m[g], mx);
+    corr[g] = expf(m[g] - mn);
+    const float pg = ok ? expf(sc - mn) : 0.f;
+    lp[g] = lp[g] * corr[g] + pg;
+    m[g] = mn;
+    prow[g] = pg;
+  }
+#pragma unroll
+  for (int g = GP; g < PS; ++g) prow[g] = 0.f;
+  __syncwarp();                        // every row's p is in p_s
+#pragma unroll
+  for (int g = 0; g < GP; ++g)
+#pragma unroll
+    for (int e = 0; e < DPL; ++e) acc[g][e] *= corr[g];
+  const unsigned char* vcol = vc + DPL * lane * (int)sizeof(T);
+#pragma unroll 2
+  for (int r = 0; r < nrw; ++r) {
+    float vf[DPL];
+    if constexpr (BF) {
+      if constexpr (DPL == 4) {
+        const uint2 w = *reinterpret_cast<const uint2*>(vcol + r * KS);
+        vf[0] = bf16_lo(w.x);
+        vf[1] = bf16_hi(w.x);
+        vf[2] = bf16_lo(w.y);
+        vf[3] = bf16_hi(w.y);
+      } else {
+        const uint4 w = *reinterpret_cast<const uint4*>(vcol + r * KS);
+        const uint32_t wd[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          vf[2 * i] = bf16_lo(wd[i]);
+          vf[2 * i + 1] = bf16_hi(wd[i]);
+        }
+      }
+    } else {
+      const float vsr = vsc[r];
+      if constexpr (DPL == 4) {
+        codes4(*reinterpret_cast<const int*>(vcol + r * KS), vf);
+      } else {
+        const int2 w = *reinterpret_cast<const int2*>(vcol + r * KS);
+        codes4(w.x, vf);
+        codes4(w.y, vf + 4);
+      }
+#pragma unroll
+      for (int e = 0; e < DPL; ++e) vf[e] *= vsr;
+    }
+    float pv[PS];
+#pragma unroll
+    for (int i = 0; i < PS / 4; ++i) {
+      const float4 x = reinterpret_cast<const float4*>(p_s + r * PS)[i];
+      pv[4 * i] = x.x;
+      pv[4 * i + 1] = x.y;
+      pv[4 * i + 2] = x.z;
+      pv[4 * i + 3] = x.w;
+    }
+#pragma unroll
+    for (int g = 0; g < GP; ++g)
+#pragma unroll
+      for (int e = 0; e < DPL; ++e) acc[g][e] = fmaf(pv[g], vf[e], acc[g][e]);
+  }
+}
+
+// The f32 warp's partial into the block's [NW][D][HP] acc and its (m, l)
+// of each head into wm, wl (heads GP .. HP - 1 neutral).
+template <int D, int GP, int HP>
+__device__ __forceinline__ void store_warp_partial_f32(float* wacc, float (*wm)[HP],
+                                                       float (*wl)[HP], const float (&m)[GP],
+                                                       float (&lp)[GP],
+                                                       const float (&acc)[GP][D / 32]) {
+  constexpr int DPL = D / 32;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+#pragma unroll
+  for (int g = 0; g < GP; ++g)
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) lp[g] += __shfl_xor_sync(0xffffffffu, lp[g], off);
+#pragma unroll
+  for (int e = 0; e < DPL; ++e) {
+    float* row = wacc + (warp * D + DPL * lane + e) * HP;
+#pragma unroll
+    for (int i = 0; i < HP / 4; ++i) {
+      float x[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) x[j] = 4 * i + j < GP ? acc[(4 * i + j) % GP][e] : 0.f;
+      *reinterpret_cast<float4*>(row + 4 * i) = make_float4(x[0], x[1], x[2], x[3]);
+    }
+  }
+  if (lane == 0)
+#pragma unroll
+    for (int g = 0; g < HP; ++g) {
+      wm[warp][g] = g < GP ? m[g % GP] : NEG;
+      wl[warp][g] = g < GP ? lp[g % GP] : 0.f;
+    }
+}
+
+// The last step of a rank, after push_partials and the wait on its in_bar:
+// dims [rank * DL, (rank + 1) * DL) of heads 0 .. gn - 1 merged over the CS
+// rank partials in rank order, out[(qh0 + g) * D + d] = acc / max(l, 1e-30);
+// output o = (g, dl), the weights of head g computed by each of its threads.
+template <int D, int HP, int NT>
+__device__ __forceinline__ void merge_ranks(float* out, size_t qh0, int gn, const float* m_in,
+                                            const float* l_in, const float* acc_in,
+                                            int rank) {
+  constexpr int DL = D / CS;
+  for (int o = threadIdx.x; o < gn * DL; o += NT) {
+    const int g = o / DL, dl = o % DL, d = rank * DL + dl;
+    float mr[CS], mx = NEG;
+#pragma unroll
+    for (int r = 0; r < CS; ++r) {
+      mr[r] = m_in[r * HP + g];
+      mx = fmaxf(mx, mr[r]);
+    }
+    float a = 0.f, L = 0.f;
+#pragma unroll
+    for (int r = 0; r < CS; ++r) {
+      const float w = expf(mr[r] - mx);
+      L += l_in[r * HP + g] * w;
+      a += acc_in[(r * DL + dl) * HP + g] * w;
+    }
+    out[(qh0 + g) * D + d] = a / fmaxf(L, 1e-30f);
   }
 }
 

@@ -45,7 +45,8 @@
 //   scores for every head against q held in shared memory (no shuffle in
 //   the dot), the slab's max is a warp reduction a head, and in P.V lane
 //   i owns dims [i * D / 32, (i + 1) * D / 32) of every head, each V code
-//   dequantized once, p read back from the warp's rows in shared memory;
+//   dequantized once, p read back from the warp's rows in shared memory
+//   (decode_cluster.cuh attend_slab_f32, shared with paged_attention.cu);
 // - one max and one rescale a slab and head (the TPU kernel's online
 //   softmax over blocks); the warps' partials merge in warp order, the
 //   ranks' through distributed shared memory in rank order, rank r writing
@@ -73,10 +74,6 @@ namespace {
 using namespace dcl;
 
 constexpr int NWB = 4;               // warps a block (bf16)
-constexpr int RQ = 32;               // rows of an int8 slab: one a lane
-
-// g heads rounded up to 4 (float4 rows)
-__host__ __device__ constexpr int heads4(int g) { return g < 4 ? 4 : g; }
 
 // int8: warps a block and slabs in flight a warp, by D. At D = 128 eight
 // warps of two slabs read 17-20% faster than four of three at s_eff 2048
@@ -94,14 +91,8 @@ struct Ring {
   static constexpr int ROWS = BF ? RW : RQ;               // rows a slab
   // bf16: K rows | V rows at a stride of D + 8; int8: K codes | V codes at
   // a stride of D + 16 bytes | K scales | V scales
-  static constexpr int BYTES = BF ? 2 * RW * (D + 8) * 2 : 2 * RQ * (D + 16) + 2 * RQ * 4;
+  static constexpr int BYTES = BF ? 2 * RW * (D + 8) * 2 : slab_bytes<int8_t, D>();
 };
-
-// 4-byte global -> shared copy; zero-fills the destination when !valid
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(valid ? 4 : 0));
-}
 
 // rows j0 .. j0 + nr - 1 of the codes (row stride HD bytes) and of the
 // scales (row stride Hkv floats) into one int8 slab; rows nr .. RQ - 1 are
@@ -126,147 +117,6 @@ __device__ __forceinline__ void load_slab_q8(unsigned char* slab, const int8_t* 
   float* sc = reinterpret_cast<float*>(slab + 2 * RQ * KS);
   cp_async4(sc + lane, ksb + so, ok);
   cp_async4(sc + RQ + lane, vsb + so, ok);
-}
-
-// The four int8 codes packed in w as f32, exactly: each byte, offset to
-// unsigned, becomes the low mantissa byte of 2^23 (one prmt), and 2^23 +
-// 128 comes off (one add). A cvt from an integer runs at 1/8 of the f32
-// rate on this card.
-__device__ __forceinline__ void codes4(int w, float* f) {
-  const uint32_t u = (uint32_t)w ^ 0x80808080u;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    f[i] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440 + i)) - 8388736.f;
-}
-
-// One int8 slab of a warp (nrw of its RQ rows valid) in f32: the scores of
-// row `lane` for heads 0 .. GP - 1 (q_s [GP][D] f32, heads past the chunk
-// zero), the slab's max and rescale of each head, p into the warp's rows
-// p_s [RQ][PS], then acc[g][e] += p * v over the valid rows for dims
-// D / 32 * lane + e. lp: this lane's share of l (the lanes' sum is l).
-template <int D, int GP>
-__device__ __forceinline__ void attend_slab_q8(const unsigned char* slab, int nrw,
-                                               const float* q_s, float* p_s, float scale,
-                                               float (&m)[GP], float (&lp)[GP],
-                                               float (&acc)[GP][D / 32]) {
-  constexpr int KS = D + 16, DPL = D / 32, PS = heads4(GP);
-  const int lane = threadIdx.x & 31;
-  const int8_t* kc = reinterpret_cast<const int8_t*>(slab);
-  const int8_t* vc = kc + RQ * KS;
-  const float* ksc = reinterpret_cast<const float*>(vc + RQ * KS);
-  const float* vsc = ksc + RQ;
-  float s0[GP], s1[GP];                // two chains a head
-#pragma unroll
-  for (int g = 0; g < GP; ++g) s0[g] = s1[g] = 0.f;
-  const int8_t* kr = kc + lane * KS;
-  const float ksl = ksc[lane];
-#pragma unroll
-  for (int cc = 0; cc < D / 16; ++cc) {
-    const int4 raw = *reinterpret_cast<const int4*>(kr + 16 * cc);
-    float kf[16];
-    codes4(raw.x, kf);
-    codes4(raw.y, kf + 4);
-    codes4(raw.z, kf + 8);
-    codes4(raw.w, kf + 12);
-#pragma unroll
-    for (int e = 0; e < 16; ++e) kf[e] *= ksl;
-#pragma unroll
-    for (int g = 0; g < GP; ++g) {
-      const float4* qv = reinterpret_cast<const float4*>(q_s + g * D + 16 * cc);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float4 x = qv[i];
-        s0[g] = fmaf(x.x, kf[4 * i], s0[g]);
-        s1[g] = fmaf(x.y, kf[4 * i + 1], s1[g]);
-        s0[g] = fmaf(x.z, kf[4 * i + 2], s0[g]);
-        s1[g] = fmaf(x.w, kf[4 * i + 3], s1[g]);
-      }
-    }
-  }
-  const bool ok = lane < nrw;
-  float corr[GP];
-  float* prow = p_s + lane * PS;
-#pragma unroll
-  for (int g = 0; g < GP; ++g) {
-    const float sc = ok ? (s0[g] + s1[g]) * scale : NEG;
-    float mx = sc;
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1)
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-    const float mn = fmaxf(m[g], mx);
-    corr[g] = expf(m[g] - mn);
-    const float pg = ok ? expf(sc - mn) : 0.f;
-    lp[g] = lp[g] * corr[g] + pg;
-    m[g] = mn;
-    prow[g] = pg;
-  }
-#pragma unroll
-  for (int g = GP; g < PS; ++g) prow[g] = 0.f;
-  __syncwarp();                        // every row's p is in p_s
-#pragma unroll
-  for (int g = 0; g < GP; ++g)
-#pragma unroll
-    for (int e = 0; e < DPL; ++e) acc[g][e] *= corr[g];
-  const int8_t* vcol = vc + DPL * lane;
-#pragma unroll 2
-  for (int r = 0; r < nrw; ++r) {
-    float vf[DPL];
-    const float vsr = vsc[r];
-    if constexpr (DPL == 4) {
-      codes4(*reinterpret_cast<const int*>(vcol + r * KS), vf);
-    } else {
-      const int2 w = *reinterpret_cast<const int2*>(vcol + r * KS);
-      codes4(w.x, vf);
-      codes4(w.y, vf + 4);
-    }
-#pragma unroll
-    for (int e = 0; e < DPL; ++e) vf[e] *= vsr;
-    float pv[PS];
-#pragma unroll
-    for (int i = 0; i < PS / 4; ++i) {
-      const float4 x = reinterpret_cast<const float4*>(p_s + r * PS)[i];
-      pv[4 * i] = x.x;
-      pv[4 * i + 1] = x.y;
-      pv[4 * i + 2] = x.z;
-      pv[4 * i + 3] = x.w;
-    }
-#pragma unroll
-    for (int g = 0; g < GP; ++g)
-#pragma unroll
-      for (int e = 0; e < DPL; ++e) acc[g][e] = fmaf(pv[g], vf[e], acc[g][e]);
-  }
-}
-
-// The int8 warp's partial into the block's [NW][D][HP] acc and its (m, l)
-// of each head into wm, wl (heads GP .. HP - 1 neutral).
-template <int D, int GP, int HP>
-__device__ __forceinline__ void store_warp_partial_q8(float* wacc, float (*wm)[HP],
-                                                      float (*wl)[HP], const float (&m)[GP],
-                                                      float (&lp)[GP],
-                                                      const float (&acc)[GP][D / 32]) {
-  constexpr int DPL = D / 32;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-#pragma unroll
-  for (int g = 0; g < GP; ++g)
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) lp[g] += __shfl_xor_sync(0xffffffffu, lp[g], off);
-#pragma unroll
-  for (int e = 0; e < DPL; ++e) {
-    float* row = wacc + (warp * D + DPL * lane + e) * HP;
-#pragma unroll
-    for (int i = 0; i < HP / 4; ++i) {
-      float x[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) x[j] = 4 * i + j < GP ? acc[(4 * i + j) % GP][e] : 0.f;
-      *reinterpret_cast<float4*>(row + 4 * i) = make_float4(x[0], x[1], x[2], x[3]);
-    }
-  }
-  if (lane == 0)
-#pragma unroll
-    for (int g = 0; g < HP; ++g) {
-      wm[warp][g] = g < GP ? m[g % GP] : NEG;
-      wl[warp][g] = g < GP ? lp[g % GP] : 0.f;
-    }
 }
 
 // heads a dim of the warps' acc (HP: whole mma tiles for bf16)
@@ -298,7 +148,7 @@ fd_kernel(const float* __restrict__ q, const T* __restrict__ k, const T* __restr
   using R = Ring<BF, D>;
   constexpr int NW = R::NW, NT = 32 * NW, NS = R::NS, ROWS = R::ROWS, NTL = (GP + 7) / 8;
   // heads a dim of the warps' acc, pushed a dim, of a row of p
-  constexpr int HP = heads_held<BF, GP>(), GPU = heads4(GP), PS = heads4(GP), DL = D / CS;
+  constexpr int HP = heads_held<BF, GP>(), GPU = heads4(GP), PS = heads4(GP);
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* rings = smem_raw;
   float* m_in = reinterpret_cast<float*>(rings + NW * NS * R::BYTES);
@@ -406,40 +256,21 @@ fd_kernel(const float* __restrict__ q, const T* __restrict__ k, const T* __restr
       cp_async_wait<NS - 1>();
       __syncwarp();
       const int j0 = RQ * (warp + NW * kk);
-      attend_slab_q8<D, GP>(ring + (kk % NS) * R::BYTES, min(RQ, n - j0), q_s, pw, scale, m,
-                            lp, acc);
+      attend_slab_f32<int8_t, D, GP>(ring + (kk % NS) * R::BYTES, min(RQ, n - j0), q_s, pw,
+                                     scale, m, lp, acc);
       __syncwarp();                    // the slot and the warp's p rows are free again
       if (kk + NS < nk) load(kk % NS, RQ * (warp + NW * (kk + NS)));
       cp_async_commit();
     }
     cp_async_wait<0>();
     __syncthreads();
-    store_warp_partial_q8<D, GP, HP>(wacc, wm, wl, m, lp, acc);
+    store_warp_partial_f32<D, GP, HP>(wacc, wm, wl, m, lp, acc);
   }
   __syncthreads();
   push_partials<D, NW, HP, GPU>(wacc, wm, wl, wf, m_in, l_in, acc_in, &in_bar, rank);
   mbar_wait(&in_bar, 0);               // every rank's partial has landed here
 
-  // merge dims [rank * DL, (rank + 1) * DL) over the CS rank partials in
-  // rank order; output o = (g, dl), the weights of head g computed by each
-  // of its threads
-  for (int o = tid; o < gn * DL; o += NT) {
-    const int g = o / DL, dl = o % DL, d = rank * DL + dl;
-    float mr[CS], mx = NEG;
-#pragma unroll
-    for (int r = 0; r < CS; ++r) {
-      mr[r] = m_in[r * HP + g];
-      mx = fmaxf(mx, mr[r]);
-    }
-    float a = 0.f, L = 0.f;
-#pragma unroll
-    for (int r = 0; r < CS; ++r) {
-      const float w = expf(mr[r] - mx);
-      L += l_in[r * HP + g] * w;
-      a += acc_in[(r * DL + dl) * HP + g] * w;
-    }
-    out[(qh0 + g) * D + d] = a / fmaxf(L, 1e-30f);
-  }
+  merge_ranks<D, HP, NT>(out, qh0, gn, m_in, l_in, acc_in, rank);
 }
 
 // fd_kernel<T, D, GP>'s launch: a cluster of CS blocks a (batch row, kv

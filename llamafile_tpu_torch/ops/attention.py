@@ -28,8 +28,9 @@ tensors). ROUTE_COUNTS counts the einsum and gather calls, as `.launches`
 counts each kernel's. The three decode kernels take every head group G =
 Hq / Hkv at D = 128 and 256, as the reference's kernels do (it takes any D %
 128 == 0; other multiples raise): a group of up to 8 query heads (16 for
-flash_decode, FD_CHUNK_HEADS) is one chunk of a kernel's work, a larger one
-head_chunks(G) chunks on the grid, each reading its K/V rows again.
+flash_decode and paged_attention, FD_CHUNK_HEADS and PA_CHUNK_HEADS) is one
+chunk of a kernel's work, a larger one head_chunks(G, most) chunks on the
+grid, each reading its K/V rows again.
 """
 from __future__ import annotations
 
@@ -67,12 +68,13 @@ def decode_route(d: int, *, hq: int = 0, s_eff: int = 0, dv: Optional[int] = Non
 def head_chunks(g: int, most: int = 8) -> int:
     """The chunks a decode kernel splits a group of g query heads into: one
     for g <= most, else ceil(g / most) of ceil(g / chunks) heads each (the C
-    entries compute the same). flash_decode_write and paged_attention take
-    most = 8, flash_decode FD_CHUNK_HEADS."""
+    entries compute the same). flash_decode_write takes most = 8,
+    flash_decode FD_CHUNK_HEADS, paged_attention PA_CHUNK_HEADS."""
     return -(-g // most)
 
 
 FD_CHUNK_HEADS = 16     # query heads one chunk of flash_decode holds: two mma tiles
+PA_CHUNK_HEADS = 16     # query heads one chunk of paged_attention holds
 
 
 DECODE_HEAD_DIMS = (128, 256)
@@ -467,7 +469,10 @@ def paged_attention(q, k_pages_l, v_pages_l, lengths, tables,
     by pointer, nothing is copied. Returns [R, Hq, Dv] f32. Shapes of the
     gather route (decode_route) take paged_gather on every device; otherwise
     CPU tensors take the plain version, and CUDA tensors launch the kernel
-    (D in DECODE_HEAD_DIMS, Hq a multiple of Hkv) or raise."""
+    (D in DECODE_HEAD_DIMS, Hq a multiple of Hkv) or raise. On the card a
+    call is one launch of R * Hkv * head_chunks(G, PA_CHUNK_HEADS)
+    thread-block clusters, with no scratch in device memory and no host
+    read of lengths."""
     r, hq, d = q.shape
     if decode_route(d, dv=v_pages_l.shape[-1], paged=True) == "gather":
         ROUTE_COUNTS["gather"] += 1
@@ -497,23 +502,13 @@ def paged_attention(q, k_pages_l, v_pages_l, lengths, tables,
             raise ValueError(f"paged_attention: {name} must be a contiguous "
                              f"{dt} {shape} on {q.device}, got {t.dtype} "
                              f"{tuple(t.shape)} on {t.device}")
-    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-    n_split = min(maxp, max(1, -(-4 * sms // (r * hkv * head_chunks(hq // hkv)))))
-    pps = -(-maxp // n_split)                    # pages a split
-    n_split = -(-maxp // pps)
     out = torch.empty((r, hq, d), dtype=torch.float32, device=q.device)
-    m_part = torch.empty((r, hq, n_split), dtype=torch.float32, device=q.device)
-    l_part = torch.empty_like(m_part)
-    acc_part = torch.empty((r, hq, n_split, d), dtype=torch.float32,
-                           device=q.device)
     ptr = lambda t: None if t is None else t.data_ptr()
-    f = _build.fn("paged_attention", "paged_attention", [P] * 11 + [I] * 10 + [P])
+    f = _build.fn("paged_attention", "paged_attention", [P] * 8 + [I] * 8 + [P])
     _build.check(f(q.data_ptr(), k_pages_l.data_ptr(), v_pages_l.data_ptr(),
                    ptr(k_scale_l), ptr(v_scale_l), lengths.data_ptr(),
-                   tables.data_ptr(), out.data_ptr(), m_part.data_ptr(),
-                   l_part.data_ptr(), acc_part.data_ptr(), r, hq, hkv, d, n_pages,
-                   ps, maxp, pps, n_split, int(quant),
-                   torch.cuda.current_stream(q.device).cuda_stream),
+                   tables.data_ptr(), out.data_ptr(), r, hq, hkv, d, n_pages, ps,
+                   maxp, int(quant), torch.cuda.current_stream(q.device).cuda_stream),
                  "paged_attention")
     paged_attention.launches += 1
     return out

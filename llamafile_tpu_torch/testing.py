@@ -295,3 +295,90 @@ def fdw_split_emulate(q, k3, v3, k_new, v_new, li: int, pos, scale: float,
     k3[li, rows, pos.long()] = k_new.reshape(b, -1).to(k3.dtype)
     v3[li, rows, pos.long()] = v_new.reshape(b, -1).to(v3.dtype)
     return out.reshape(b, hq, d)
+
+
+# paged_attention's schedule constants, mirrored from csrc/paged_attention.cu
+# (Ring::NW) and csrc/decode_cluster.cuh (RQ, CS; pa_rank_ranges is its
+# rank_lo over the clamped length): change both together
+PA_SLAB = 32           # keys a warp takes at a time: one a lane
+PA_WARPS = 4           # warps of one block
+PA_CLUSTER = 8         # blocks of one cluster, one cluster per (row, kv head, chunk)
+
+
+def pa_rank_ranges(length: int, ps: int, maxp: int, cs: int = PA_CLUSTER):
+    """The keys [lo, hi) of a row that each rank of paged_attention's
+    cluster takes: the row's n = min(length, maxp * ps) visible keys split
+    by fdw_rank_ranges (the kernel's rank_lo), read on the device from
+    lengths alone."""
+    return fdw_rank_ranges(max(0, min(int(length), maxp * ps)), cs)
+
+
+def pa_slabs(lo: int, hi: int):
+    """The slabs [(j0, j1)] of each warp of a rank over its keys [lo, hi):
+    warp w takes the PA_SLAB-key slabs w, w + PA_WARPS, ..."""
+    return [[(j0, min(j0 + PA_SLAB, hi)) for j0 in range(lo + PA_SLAB * w, hi,
+                                                           PA_SLAB * PA_WARPS)]
+            for w in range(PA_WARPS)]
+
+
+def pa_rank_pages(lo: int, hi: int, ps: int):
+    """The table entries [p0, p0 + np) that a rank stages for its keys
+    [lo, hi), as the kernel does before its first copy."""
+    return (lo // ps, (hi - 1) // ps - lo // ps + 1) if hi > lo else (lo // ps, 0)
+
+
+def pa_split_emulate(q, k_pages_l, v_pages_l, lengths, tables, k_scale_l=None,
+                     v_scale_l=None, cs: int = PA_CLUSTER, drop_rank=None):
+    """paged_attention's schedule in PyTorch, for the CPU tests (nothing of
+    the model path calls it). For each row and kv head, all in f32: rank r
+    of the cluster takes its pa_rank_ranges keys, each found at page
+    tables[row, j // ps], offset j % ps; warp w of the rank takes its
+    pa_slabs with one max and one rescale of acc a slab; the warps'
+    partials merge in warp order, the ranks' in rank order; out / max(l,
+    1e-30). drop_rank: that rank's partial is left neutral (m = -1e30, l =
+    0), the control that the kernel's tolerance must reject."""
+    r, hq, d = q.shape
+    hkv, _, ps, _ = k_pages_l.shape
+    g = hq // hkv
+    maxp = tables.shape[1]
+
+    def merge(parts):
+        mx = torch.stack([pm for pm, _, _ in parts]).amax(0)
+        l_sum = torch.zeros((hkv, g))
+        a_sum = torch.zeros((hkv, g, d))
+        for pm, pl, pa in parts:
+            f = torch.exp(pm - mx)
+            l_sum = l_sum + pl * f
+            a_sum = a_sum + pa * f[..., None]
+        return mx, l_sum, a_sum
+
+    out = torch.empty((r, hkv, g, d))
+    for ri in range(r):
+        qg = q[ri].float().reshape(hkv, g, d)
+        ranks = []
+        for rk, (lo, hi) in enumerate(pa_rank_ranges(int(lengths[ri]), ps, maxp, cs)):
+            warps = []
+            for slabs in pa_slabs(lo, hi):
+                m = torch.full((hkv, g), NEG_INF)
+                l = torch.zeros((hkv, g))
+                acc = torch.zeros((hkv, g, d))
+                for j0, j1 in ([] if rk == drop_rank else slabs):
+                    j = torch.arange(j0, j1)
+                    pg, off = tables[ri, j // ps].long(), j % ps
+                    kk = k_pages_l[:, pg, off].float()             # [Hkv, n, D]
+                    vv = v_pages_l[:, pg, off].float()
+                    if k_scale_l is not None:
+                        kk = kk * k_scale_l[:, pg, off]
+                        vv = vv * v_scale_l[:, pg, off]
+                    s = torch.einsum("hgd,hjd->hgj", qg, kk)
+                    mn = torch.maximum(m, s.amax(-1))
+                    corr = torch.exp(m - mn)
+                    p = torch.exp(s - mn[..., None])
+                    l = l * corr + p.sum(-1)
+                    acc = acc * corr[..., None] + torch.einsum("hgj,hjd->hgd", p, vv)
+                    m = mn
+                warps.append((m, l, acc))
+            ranks.append(merge(warps))
+        _, l_all, a_all = merge(ranks)
+        out[ri] = a_all / torch.clamp(l_all, min=1e-30)[..., None]
+    return out.reshape(r, hq, d)

@@ -50,6 +50,23 @@ def headers(csrc):
     return glob.glob(os.path.join(csrc, "*.cuh"))
 
 
+def _short(line):
+    """A ptxas note, with the function a "Function properties for" line
+    names cut to its template arguments (demangled by c++filt where the
+    machine has it)."""
+    line = line.strip()
+    tag = "Function properties for "
+    if tag not in line:
+        return line
+    sym = line.split(tag, 1)[1].strip()
+    try:
+        sym = subprocess.run(["c++filt", sym], capture_output=True, text=True,
+                             timeout=10).stdout.strip() or sym
+    except OSError:
+        pass
+    return "<" + (sym[sym.find("<") + 1:sym.rfind(">")] if "<" in sym else sym) + ">"
+
+
 def build(jobs, out):
     """Compile every job at once: jobs maps a key to (.cu path, include
     directory); each becomes out/<key>.so. Prints ptxas's register, spill and
@@ -68,8 +85,9 @@ def build(jobs, out):
         log = log.decode(errors="replace")
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for {key}:\n{log}")
-        notes = [ln.strip() for ln in log.splitlines()
-                 if any(w in ln.lower() for w in ("registers", "spill", "wgmma", "warning"))]
+        notes = [_short(ln) for ln in log.splitlines()
+                 if any(w in ln.lower() for w in ("registers", "spill", "wgmma", "warning",
+                                                  "function properties for"))]
         print(f"[{key}] " + " | ".join(notes), flush=True)
         libs[key] = ctypes.CDLL(so)
     return libs

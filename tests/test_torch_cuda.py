@@ -40,9 +40,11 @@ bitwise equal to it at both of its n tiles (and within 1e-6 of its largest
 magnitude), and a control with two blocks' weight scales swapped must fail
 that. The three decode kernels run at every kind of head group: 1, 2, 4
 and 8 query heads a KV head, 3, 5, 6 and 7 (masked columns of one chunk),
-and 12, 16 and 32 (several chunks; flash_decode holds 16 in one), and at
-head_dim 256; flash_decode also with a sliding window, and two of its
-launches on the same inputs are bitwise equal. The int8 flavour's q4b product (qmm_int8)
+and 12, 16 and 32 (several chunks; flash_decode and paged_attention hold
+16 in one), and at head_dim 256; flash_decode also with a sliding window,
+paged_attention also at page sizes of 16, 48 and 128 (slabs and rank
+boundaries anywhere in a page); two launches of flash_decode,
+paged_attention or flash_prefill on the same inputs are bitwise equal. The int8 flavour's q4b product (qmm_int8)
 is an int8-activation product, held within 1e-5, and a control with each
 superblock's lo and hi scale rows swapped must fail that. A head_dim-64
 llama runs Engine and the batcher on the reference's einsum and gather
@@ -235,7 +237,8 @@ def test_planes_g_matches_plain(dev, tiles, bias, valid, n, k):
 
 # head groups G = Hq / Hkv of the decode kernels: 1, 2, 4, 8 (one chunk of
 # G heads), 3, 5, 6, 7 (one chunk, columns masked), 12, 16, 32 (chunks of
-# at most 8 heads, each reading the K/V rows again)
+# at most 8 heads in flash_decode_write, 16 in the other two, each reading
+# the K/V rows again)
 GROUP_CASES = [(32, 8), (8, 8), (16, 4), (4, 2), (24, 8), (40, 8), (48, 8), (56, 8),
                (96, 8), (128, 8), (64, 2)]
 
@@ -642,9 +645,13 @@ def _fd_check(dev, int8, hq, hkv, pos, s_eff, d, window=0):
     assert torch.equal(run(), got)                      # a fixed-order merge
 
 
-@pytest.mark.parametrize("t", [128, 384, 512])
-@pytest.mark.parametrize("hq,hkv,d", [(32, 8, 128), (4, 4, 64), (4, 2, 256)])
+@pytest.mark.parametrize("t", [128, 384, 512, 2048])
+@pytest.mark.parametrize("hq,hkv,d", [(32, 8, 128), (4, 4, 64), (4, 2, 256), (16, 1, 128),
+                                      (8, 8, 128), (16, 1, 256)])
 def test_flash_prefill_matches_plain(dev, t, hq, hkv, d):
+    """The wgmma kernel at head groups of 1, 2, 4 and 16, D = 64, 128 and
+    256, one and several query tiles; two launches on the same inputs are
+    bitwise equal."""
     gen = torch.Generator(device=dev).manual_seed(t + hq + d)
     q = torch.randn((2, t, hq, d), generator=gen, device=dev)
     k = torch.randn((2, t, hkv, d), generator=gen, device=dev)
@@ -657,6 +664,7 @@ def test_flash_prefill_matches_plain(dev, t, hq, hkv, d):
     assert row_rel_err(got, want) <= 1.5e-2
     fault = flash_prefill_tile_fault(q, k, v, d ** -0.5)
     assert row_rel_err(fault, want) > 0.75          # the control fails the bound
+    assert torch.equal(A.flash_prefill(q, k, v, d ** -0.5), got)
 
 
 PAGED_LENGTHS = {1: [64], 3: [1, 63, 65],
@@ -677,12 +685,24 @@ def test_paged_attention_d256_matches_plain(dev, int8, r, hq, hkv):
     _paged_check(dev, int8, r, hq, hkv, 256)
 
 
-def _paged_check(dev, int8, r, hq, hkv, d):
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("ps,maxp,lengths", [
+    (16, 64, [1, 15, 16, 17, 33, 500, 1023, 1024]),       # a slab spans two pages
+    (48, 8, [47, 48, 49, 95, 300, 384]),                  # pages not a multiple of the slab
+    (128, 16, [1, 127, 128, 129, 2048])])
+@pytest.mark.parametrize("hq,hkv,d", [(32, 8, 128), (128, 8, 128), (16, 1, 256)])
+def test_paged_attention_page_sizes(dev, int8, ps, maxp, lengths, hq, hkv, d):
+    """Page sizes other than the batcher's 64: the rank split is over keys,
+    so slabs and rank boundaries fall anywhere in a page."""
+    _paged_check(dev, int8, len(lengths), hq, hkv, d, ps, maxp, lengths)
+
+
+def _paged_check(dev, int8, r, hq, hkv, d, ps=64, maxp=32, lengths=None):
     gen = torch.Generator(device=dev).manual_seed(r * 100 + hq + hkv + int8
-                                                  + (d if d != 128 else 0))
-    ps, maxp = 64, 32
+                                                  + (d if d != 128 else 0)
+                                                  + (ps if ps != 64 else 0))
     q, kp, vp, ks, vs, lens, tables = paged_case(
-        gen, PAGED_LENGTHS[r], hq, hkv, d, ps, maxp, n_layers=2, int8=int8,
+        gen, lengths or PAGED_LENGTHS[r], hq, hkv, d, ps, maxp, n_layers=2, int8=int8,
         device=dev)
     sc = (lambda t: None) if ks is None else (lambda t: t[1])
     args = (q, kp[1], vp[1], lens, tables, sc(ks), sc(vs))
@@ -693,7 +713,7 @@ def _paged_check(dev, int8, r, hq, hkv, d):
     assert row_rel_err(got, want) <= 1e-5
     for control in paged_controls(q, kp[1], vp[1], sc(ks), sc(vs), lens, tables, ps):
         assert row_rel_err(control, want) > 1e-5
-    assert torch.equal(got, A.paged_attention(*args))    # fixed-order combine
+    assert torch.equal(got, A.paged_attention(*args))    # fixed-order merge
 
 
 def test_wrapper_rejects_bad_inputs(dev):
