@@ -8,9 +8,11 @@
 2. Each kernel at the shapes of the llama3-8b main paths (Q4_K decode and
    prefill, Q8_0 and Q6_K decode, long-prompt prefill, the serving step at
    8 rows: qmm_txn at M = 8 and paged_attention over bf16 and int8 pages;
-   qmm_txn at its 11 shapes and qmm_txn_g at its four, each with a second
-   launch on the same inputs held bit for bit, qmm_txn also with a control
-   whose lo and hi scale rows are swapped;
+   qmm_txn_m1 at the decode step's qkv, o, down (K = 14336) and lm head;
+   qmm_txn at its 11 shapes and qmm_txn_g at its four; these, the fused
+   FFN, the routed q4b GEMVs and qmm_int8 each with a second launch on the
+   same inputs held bit for bit, qmm_txn also with a control whose lo and
+   hi scale rows are swapped;
    flash_decode_write at pos 700 / s_eff 1024, pos 1900 / s_eff 2048 and
    phase 4's pos 64 / s_eff 256, two launches on the same inputs bitwise
    equal; the three decode kernels also at head groups of 3 and 16 (24 and
@@ -44,13 +46,13 @@
    per-block scales), and the bound (bytes over the card's memory rate, or
    operations over its peak rate, whichever is larger).
 3. Whole paths at two layers of llama3-8b width, card (kernels) against the
-   same model on the CPU (plain versions): Q4_K with a 32-token prompt and 2
-   decode steps, Q4_K with a 300-token prompt (bucket 512) and a decode
-   step, Q8_0 with a 24-token prompt (bucket 32) and 2 decode steps, and
+   same model on the CPU (plain versions): Q4_K with a 32-token prompt and a
+   decode step, Q4_K with a 300-token prompt (bucket 512) and a decode
+   step, Q8_0 with a 24-token prompt (bucket 32) and a decode step, and
    the paged decode (forward_paged_decode) of 4 rows admitted at prompts of
-   24, 64, 200 and 300 tokens, 2 steps; the Q4_K_M recipe at two layers
-   (layer 1 Q6_K V and down, unrolled) with a 300-token prompt and 2 decode
-   steps; Q4_K with a dense int8 KV cache, 32-token prompt, 2 steps; Q4_K
+   24, 64, 200 and 300 tokens, 1 step; the Q4_K_M recipe at two layers
+   (layer 1 Q6_K V and down, unrolled) with a 300-token prompt and a decode
+   step; Q4_K with a dense int8 KV cache, 32-token prompt, 1 step; Q4_K
    with the int8 prefill companions (int8_prefill_params), 300-token prompt
    and a step, each qmm_i8p call rerun on its own int8 codes and scales;
    TinyLlama's widths at two layers (head_dim 64) with a max_seq_len of
@@ -58,19 +60,18 @@
    card Engine.generate and 3 requests through the batcher, every decode
    attention on the einsum or gather route with no decode kernel launch,
    and the 3-row paged decode card against CPU; Llama-3.2-3B's widths at
-   two layers (a head group of 3): the Engine's prefill and 2 decode steps
+   two layers (a head group of 3): the Engine's prefill and a decode step
    over its bf16 cache (300-token prompt) and its int8 cache (40 tokens),
    then on the card Engine.generate and 4 requests through the batcher,
    every decode attention a kernel launch, and the 4-row paged decode card
    against CPU; the same checks at head_dim 256 (gemma-2b-widths-2l:
    Gemma-2B's widths in the llama layout, 8 query heads over 1 KV head, two
-   layers; 2 decode steps, the paged decode of 2 rows), where
+   layers; 1 decode step, the paged decode of 2 rows), where
    flash_decode_write, flash_decode and paged_attention run at D = 256; two
-   layers at Mixtral-8x7B width (mixtral-8x7b-2l): Q4_K stacked (24- and
-   300-token prompts: qmm_txn_g and qmm_planes_g; a decode step on the
-   routed fused FFN), the Q4_K_M recipe unrolled (300-token prompt, a
-   decode step; layer 1's Q6_K experts' down: the routed GEMVs at decode,
-   the dense expert loop at prefill), and
+   layers at Mixtral-8x7B width (mixtral-8x7b-2l): Q4_K stacked (24-token
+   prompt: qmm_txn_g; a decode step on the routed fused FFN), the Q4_K_M
+   recipe unrolled (300-token prompt: layer 0's qmm_planes_g, layer 1's
+   dense expert loop (Q6_K down); a decode step: the routed GEMVs), and
    the paged decode at 4 rows (the fused FFN) and 8 rows (qmm_txn_g), one
    step each (the Mixtral checks' CPU side is the slowest of the phase); the
    routers held on the card's own inputs and their choices compared row by
@@ -78,9 +79,9 @@
    held), and one decode step's MoE FFN calls run under
    torch.cuda.set_sync_debug_mode("error"); then under the q4b flavours
    (LLAMAFILE_TPU_Q4B, qmatmul.Q4B_KERNEL set for both sides): Q4_K with
-   the 32-token prompt (2 decode steps under int8, 1 under planes) and the
-   300-token prompt and 1 under int8 (qmm_int8, and the stacked planes
-   kernel at bucket 512) and under planes, Q8_0 under int8 (24-token
+   the 32-token prompt and a decode step under int8 and under planes, and
+   the 300-token prompt and a step under int8 (qmm_int8, and the stacked
+   planes kernel at bucket 512, as under planes), Q8_0 under int8 (24-token
    prompt, 1 step, decode on the dequant GEMM), the 4-row paged decode
    under int8 (1 step), and Mixtral Q4_K stacked under int8 (24-token
    prompt, 1 step on _routed_fallback, its calls counted). Each
@@ -333,9 +334,10 @@ def kernel_phases(torch, dev, gen):
             f"library {lib if lib is None else round(lib, 4)} ms, bound "
             f"{bms:.4f} ms ({by}), {bms / ms:.1%} of bound")
 
-    # --- qmm_txn_m1: the decode GEMVs (qkv, o, lm head) ------------------
+    # --- qmm_txn_m1: the decode GEMVs (qkv, o, lm head; down is the fused
+    # FFN's phase B on the same body, timed here alone) -------------------
     for label, n, k, layers in (("qkv", 6144, 4096, 8), ("o", 4096, 4096, 12),
-                                ("lm_head", 129024, 4096, 1)):
+                                ("down", 4096, 14336, 3), ("lm_head", 129024, 4096, 1)):
         qs, sc, b = rand_q4b(gen, layers, n, k, dev)
         x = torch.randn((1, k), generator=gen, device=dev)
         nrm = 1 + 0.1 * torch.randn(k, generator=gen, device=dev)
@@ -344,6 +346,7 @@ def kernel_phases(torch, dev, gen):
         want = Q.qmm_txn_m1_plain(xq, sx, qs[0], sc[0], b[0])
         torch.cuda.synchronize()
         err = check_close(f"qmm_txn_m1/{label}", got, want, 1e-5)
+        check_repeat(f"qmm_txn_m1/{label}", Q.qmm_txn_m1(xq, sx, qs[0], sc[0], b[0]), got)
         ms = time_ms(torch, lambda i: Q.qmm_txn_m1(xq, sx, qs[i], sc[i], b[i]), layers)
         plain = time_ms(torch, lambda i: Q.qmm_txn_m1_plain(xq, sx, qs[i], sc[i], b[i]),
                         layers)
@@ -590,6 +593,7 @@ def kernel_phases(torch, dev, gen):
     want = Q.qmm_moe_m1_plain(*args(0))
     torch.cuda.synchronize()
     err = check_close("qmm_moe_m1", got, want, 2e-3)
+    check_repeat("qmm_moe_m1", Q.qmm_moe_m1(*args(0)), got)
     ms = time_ms(torch, lambda i: Q.qmm_moe_m1(*args(i)), layers)
     plain = time_ms(torch, lambda i: Q.qmm_moe_m1_plain(*args(i)), layers)
     entry("qmm_moe_m1", "llamafile_tpu_torch/csrc/qmm_moe_m1.cu",
@@ -988,8 +992,9 @@ def int8_kernel_phase(torch, dev, gen, entry, dequant_bf16):
     (rows 13-14) at M = 8 (a decode step, padded as qmatmul pads it) on layer
     i > 0 of a stack: gate|up, down, qkv, o, and the unstacked lm head; then
     gate|up and down at M = 32 (a 24-token prompt's bucket). Each against
-    its plain version within 1e-5, with a control (each superblock's lo and
-    hi scale rows swapped) that must fail it, and timed beside its plain
+    its plain version within 1e-5, a second launch bitwise equal, with a
+    control (each superblock's lo and hi scale rows swapped) that must fail
+    it, and timed beside its plain
     version, qmm_txn's library yardstick (torch.matmul on the weight
     dequantized to bf16 beforehand) and qmm_txn at the same shape; the
     bound is qs + scales + the activation codes and scales + y (the kernel
@@ -1014,6 +1019,7 @@ def int8_kernel_phase(torch, dev, gen, entry, dequant_bf16):
         where = f"layer {li} of {layers}" if layers > 1 else "unstacked"
         what = f"qmm_int8/{label}/M={m} ({where})"
         err = check_close(what, got, want, 1e-5)
+        check_repeat(what, Q.qmm_int8(xq, sx, qs[li], sc[li]), got)
         ctl = rel_err(q4b_scale_swap(xq, sx, qs[li], sc[li]), want)
         log(f"  {what}: swapped-scale-rows control {ctl:.6g} (must exceed 1e-5)")
         if not ctl > 1e-5:
@@ -1086,6 +1092,7 @@ def moe_kernel_phases(torch, dev, gen, entry, dequant_bf16):
     got, want = Q.qmm_moe_m1(*margs(pairs[0])), Q.qmm_moe_m1_plain(*margs(pairs[0]))
     torch.cuda.synchronize()
     err = check_close("qmm_moe_m1/routed S=2", got, want, 2e-3)
+    check_repeat("qmm_moe_m1/routed S=2", Q.qmm_moe_m1(*margs(pairs[0])), got)
     swap_control("qmm_moe_m1/routed S=2", Q.qmm_moe_m1_plain(*margs(pairs[0].flip(0))), want)
     ms = time_ms(torch, lambda i: Q.qmm_moe_m1(*margs(pairs[i])), 4)
     plain = time_ms(torch, lambda i: Q.qmm_moe_m1_plain(*margs(pairs[i])), 4)
@@ -1110,6 +1117,7 @@ def moe_kernel_phases(torch, dev, gen, entry, dequant_bf16):
         got, want = fn(rq, rs, qs, sc, b, pairs[0], ti), plain_fn(rq, rs, qs, sc, b, pairs[0], ti)
         torch.cuda.synchronize()
         err = check_close(f"{name}/{label} S=2", got, want, 1e-5)
+        check_repeat(f"{name}/{label} S=2", fn(rq, rs, qs, sc, b, pairs[0], ti), got)
         swap_control(f"{name}/{label} S=2", plain_fn(rq, rs, qs, sc, b, pairs[0].flip(0), ti),
                      want)
         ms = time_ms(torch, lambda i: fn(rq, rs, qs, sc, b, pairs[i], ti), 4)
@@ -2966,6 +2974,56 @@ def device_busy(torch, eng, prompt, sp, step_ms):
             f"{fn[:60]} ({os.path.basename(path)}:{line})")
 
 
+def phase3_checks():
+    """Phase 3's checks: (what, check, args, kwargs, q4b flavour)."""
+    # each check runs its CPU side through the plain versions at two layers
+    # of full width: its depth (decode steps, prompts) is cut to what drives
+    # and holds each route once; the bucket-512 grouped MoE prefill
+    # (qmm_planes_g) is held on the Q4_K_M Mixtral, the planes flavour's
+    # bucket-512 prefill (qmm_planes, stacked) under int8, which runs the
+    # same kernel there
+    mix = dict(preset="mixtral-8x7b-2l", n_decode=1)
+    return (
+        ("Q4_K, 32-token prompt", whole_path_check, (), dict(n_decode=1), "txn"),
+        ("Q4_K, 300-token prompt", whole_path_check, ("Q4_K",),
+         dict(n_prompt=300, n_decode=1), "txn"),
+        ("Q4_K, 300-token prompt, int8 prefill", whole_path_check, ("Q4_K",),
+         dict(n_prompt=300, n_decode=1, i8p=True), "txn"),
+        ("head_dim 64 (TinyLlama widths)", head_dim_64_check, (), dict(n_decode=2), "txn"),
+        ("Llama-3.2-3B widths (G = 3)", decode_model_check, (), dict(n_decode=1), "txn"),
+        # head_dim 256: flash_decode_write, flash_decode and
+        # paged_attention at D = 256 on a model's path
+        ("head_dim 256 (Gemma-2B widths, G = 8)", decode_model_check, (),
+         dict(preset="gemma-2b-widths-2l", n_decode=1, paged_prompts=(24, 200)), "txn"),
+        ("Q8_0", whole_path_check, ("Q8_0",), dict(n_prompt=24, n_decode=1), "txn"),
+        ("paged decode, 4 rows", paged_path_check, (), dict(n_decode=1), "txn"),
+        ("Q4_K_M", whole_path_check, ("Q4_K_M",), dict(n_prompt=300, n_decode=1), "txn"),
+        ("int8 KV", whole_path_check, ("Q4_K",),
+         dict(n_prompt=32, n_decode=1, kv_dtype="int8"), "txn"),
+        ("Mixtral Q4_K stacked", moe_path_check, ("Q4_K",),
+         dict(runs=((24, 1),)), "txn"),
+        ("Mixtral Q4_K_M unrolled", moe_path_check, ("Q4_K_M",),
+         dict(runs=((300, 1),)), "txn"),
+        ("Mixtral paged decode, 4 rows", paged_path_check, (),
+         dict(prompts=(24, 64, 200, 300), **mix), "txn"),
+        ("Mixtral paged decode, 8 rows", paged_path_check, (),
+         dict(prompts=(24, 64, 200, 300) * 2, **mix), "txn"),
+        # the q4b flavours (LLAMAFILE_TPU_Q4B): int8 runs qmm_int8 at
+        # padded M <= 32 and the stacked planes kernel above (bf16 out
+        # at bucket 512), planes the planes kernel for every q4b
+        # product; Q8_0 decode leaves qmm_q8_m1 for the dequant GEMM;
+        # the paged decode's 4 rows pad to 8 on qmm_int8; Mixtral's
+        # decode takes _routed_fallback
+        ("Q4_K, 32-token prompt", whole_path_check, (), dict(n_decode=1), "int8"),
+        ("Q4_K, 300-token prompt", whole_path_check, ("Q4_K",),
+         dict(n_prompt=300, n_decode=1), "int8"),
+        ("Q4_K, 32-token prompt", whole_path_check, (), dict(n_decode=1), "planes"),
+        ("Q8_0", whole_path_check, ("Q8_0",), dict(n_prompt=24, n_decode=1), "int8"),
+        ("paged decode, 4 rows", paged_path_check, (), dict(n_decode=1), "int8"),
+        ("Mixtral Q4_K stacked", moe_path_check, ("Q4_K",),
+         dict(runs=((24, 1),)), "int8"))
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2999,51 +3057,7 @@ def main() -> int:
     phase("phase 2: kernels against their plain versions at the main path's shapes")
     rows = kernel_phases(torch, dev, gen)
     phase("phase 3: whole paths, llama3-8b width, 2 layers: card vs CPU plain")
-    # each check runs its CPU side through the plain versions at two layers
-    # of full width: its depth (decode steps) is cut to what drives and
-    # holds each route once or twice
-    mix = dict(preset="mixtral-8x7b-2l", n_decode=1)
-    for what, check, args, kw, fl in (
-            ("Q4_K, 32-token prompt", whole_path_check, (), dict(n_decode=2), "txn"),
-            ("Q4_K, 300-token prompt", whole_path_check, ("Q4_K",),
-             dict(n_prompt=300, n_decode=1), "txn"),
-            ("Q4_K, 300-token prompt, int8 prefill", whole_path_check, ("Q4_K",),
-             dict(n_prompt=300, n_decode=1, i8p=True), "txn"),
-            ("head_dim 64 (TinyLlama widths)", head_dim_64_check, (), dict(n_decode=2), "txn"),
-            ("Llama-3.2-3B widths (G = 3)", decode_model_check, (), dict(n_decode=2), "txn"),
-            # head_dim 256: flash_decode_write, flash_decode and
-            # paged_attention at D = 256 on a model's path
-            ("head_dim 256 (Gemma-2B widths, G = 8)", decode_model_check, (),
-             dict(preset="gemma-2b-widths-2l", n_decode=2, paged_prompts=(24, 200)), "txn"),
-            ("Q8_0", whole_path_check, ("Q8_0",), dict(n_prompt=24, n_decode=2), "txn"),
-            ("paged decode, 4 rows", paged_path_check, (), dict(n_decode=2), "txn"),
-            ("Q4_K_M", whole_path_check, ("Q4_K_M",), dict(n_prompt=300, n_decode=2), "txn"),
-            ("int8 KV", whole_path_check, ("Q4_K",),
-             dict(n_prompt=32, n_decode=2, kv_dtype="int8"), "txn"),
-            ("Mixtral Q4_K stacked", moe_path_check, ("Q4_K",),
-             dict(runs=((24, 1), (300, 0))), "txn"),
-            ("Mixtral Q4_K_M unrolled", moe_path_check, ("Q4_K_M",),
-             dict(runs=((300, 1),)), "txn"),
-            ("Mixtral paged decode, 4 rows", paged_path_check, (),
-             dict(prompts=(24, 64, 200, 300), **mix), "txn"),
-            ("Mixtral paged decode, 8 rows", paged_path_check, (),
-             dict(prompts=(24, 64, 200, 300) * 2, **mix), "txn"),
-            # the q4b flavours (LLAMAFILE_TPU_Q4B): int8 runs qmm_int8 at
-            # padded M <= 32 and the stacked planes kernel above (bf16 out
-            # at bucket 512), planes the planes kernel for every q4b
-            # product; Q8_0 decode leaves qmm_q8_m1 for the dequant GEMM;
-            # the paged decode's 4 rows pad to 8 on qmm_int8; Mixtral's
-            # decode takes _routed_fallback
-            ("Q4_K, 32-token prompt", whole_path_check, (), dict(n_decode=2), "int8"),
-            ("Q4_K, 300-token prompt", whole_path_check, ("Q4_K",),
-             dict(n_prompt=300, n_decode=1), "int8"),
-            ("Q4_K, 32-token prompt", whole_path_check, (), dict(n_decode=1), "planes"),
-            ("Q4_K, 300-token prompt", whole_path_check, ("Q4_K",),
-             dict(n_prompt=300, n_decode=1), "planes"),
-            ("Q8_0", whole_path_check, ("Q8_0",), dict(n_prompt=24, n_decode=1), "int8"),
-            ("paged decode, 4 rows", paged_path_check, (), dict(n_decode=1), "int8"),
-            ("Mixtral Q4_K stacked", moe_path_check, ("Q4_K",),
-             dict(runs=((24, 1),)), "int8")):
+    for what, check, args, kw, fl in phase3_checks():
         phase(f"  phase 3 {what}{'' if fl == 'txn' else ', LLAMAFILE_TPU_Q4B=' + fl}")
         with q4b_flavour(fl):
             check(torch, dev, *args, **kw)

@@ -1,5 +1,5 @@
 // Tensor-core building blocks shared by the bf16 mma.sync kernels
-// (flash_prefill.cu, flash_decode_write.cu) and the s8 one (qmm_int8.cu,
+// (flash_prefill.cu, flash_decode_write.cu) and the s8 one (qmm_txn.cuh,
 // through mma_s8.cuh), and the cp.async and pack helpers of the wgmma bodies
 // qmm_gemm.cuh and qmm_i8p.cu: cp.async copies into shared memory,
 // ldmatrix fragment loads and the m16n8k16 bf16 product with f32

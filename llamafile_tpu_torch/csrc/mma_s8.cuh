@@ -1,4 +1,4 @@
-// Tensor-core building blocks of the s8 mma.sync kernel (qmm_int8.cu): the
+// Tensor-core building blocks of the s8 mma.sync body (qmm_txn.cuh): the
 // m16n8k32 int8 product with int32 accumulation. cp.async and ldmatrix come
 // from mma_bf16.cuh: ldmatrix moves 16-byte rows whatever their element type, so
 // an 8x8 b16 matrix is 8 rows of 16 int8 and each lane receives 4

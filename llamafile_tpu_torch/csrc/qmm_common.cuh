@@ -1,5 +1,5 @@
-// Shared device code of the q4b matmul kernels (qmm_txn_m1.cu, qmm_txn.cu,
-// qmm_moe_m1.cu).
+// Shared device code of the q4b and q8b matmul kernels (qmm_m1.cuh,
+// qmm_txn.cuh, qmm_q8.cuh and their entries).
 //
 // Weight layout (ops/repack.py, byte-identical to the JAX package's repack):
 //   qs     uint8 [K/2, Ns]: packed row 128*sb + i holds k = 256*sb + i in the
@@ -63,64 +63,6 @@ __device__ __forceinline__ void load_bf16x4(const __nv_bfloat16* p, float* out) 
   out[3] = __high2float(b);
 }
 
-// One chunk of the M=1 product for the 4 columns [n0, n0+4) of one lane:
-// reads 32 packed rows straight from device memory (a warp reads 128
-// contiguous bytes per row) and adds the chunk's two groups into acc[4].
-// x: int8 codes [K], sx: f32 scales [K/32]; bias may be null.
-__device__ __forceinline__ void m1_chunk(
-    const int8_t* __restrict__ x, const float* __restrict__ sx,
-    const uint8_t* __restrict__ qs, const __nv_bfloat16* __restrict__ sc,
-    const __nv_bfloat16* __restrict__ bias, int Ns, int c, int n0,
-    float* acc) {
-  const int sb = c >> 2, j = c & 3;
-  const int g_lo = 8 * sb + j, g_hi = g_lo + 4;
-  const uint8_t* q = qs + (size_t)(128 * sb + 32 * j) * Ns + n0;
-  uint32_t w[CHUNK_ROWS];
-#pragma unroll
-  for (int r = 0; r < CHUNK_ROWS; ++r)
-    w[r] = __ldg(reinterpret_cast<const uint32_t*>(q + (size_t)r * Ns));
-  const int4* xl = reinterpret_cast<const int4*>(x + 256 * sb + 32 * j);
-  const int4* xh = reinterpret_cast<const int4*>(x + 256 * sb + 128 + 32 * j);
-  int4 l0 = __ldg(xl), l1 = __ldg(xl + 1), h0 = __ldg(xh), h1 = __ldg(xh + 1);
-  const int xlo[8] = {l0.x, l0.y, l0.z, l0.w, l1.x, l1.y, l1.z, l1.w};
-  const int xhi[8] = {h0.x, h0.y, h0.z, h0.w, h1.x, h1.y, h1.z, h1.w};
-  int dlo[4] = {0, 0, 0, 0}, dhi[4] = {0, 0, 0, 0};
-#pragma unroll
-  for (int t = 0; t < 8; ++t) {
-    uint32_t col[4];
-    transpose4x4(&w[4 * t], col);
-#pragma unroll
-    for (int cc = 0; cc < 4; ++cc) {
-      dlo[cc] = __dp4a(lo_plane(col[cc]), xlo[t], dlo[cc]);
-      dhi[cc] = __dp4a(hi_plane(col[cc]), xhi[t], dhi[cc]);
-    }
-  }
-  const float sxl = __ldg(sx + g_lo), sxh = __ldg(sx + g_hi);
-  float scl[4], sch[4];
-  load_bf16x4(sc + (size_t)g_lo * Ns + n0, scl);
-  load_bf16x4(sc + (size_t)g_hi * Ns + n0, sch);
-#pragma unroll
-  for (int cc = 0; cc < 4; ++cc) {
-    acc[cc] += ((float)dlo[cc] * scl[cc]) * sxl;
-    acc[cc] += ((float)dhi[cc] * sch[cc]) * sxh;
-  }
-  if (bias != nullptr) {
-    int slo = 0, shi = 0;
-#pragma unroll
-    for (int t = 0; t < 8; ++t) {
-      slo = __dp4a(xlo[t], 0x01010101, slo);
-      shi = __dp4a(xhi[t], 0x01010101, shi);
-    }
-    const float bl = bf16_round((float)slo * sxl);
-    const float bh = bf16_round((float)shi * sxh);
-    float bbl[4], bbh[4];
-    load_bf16x4(bias + (size_t)g_lo * Ns + n0, bbl);
-    load_bf16x4(bias + (size_t)g_hi * Ns + n0, bbh);
-#pragma unroll
-    for (int cc = 0; cc < 4; ++cc) acc[cc] += bl * bbl[cc] + bh * bbh[cc];
-  }
-}
-
 // Chunk range of split s of S over C chunks.
 __device__ __forceinline__ void split_range(int C, int S, int s, int* cb, int* ce) {
   *cb = (int)(((long long)C * s) / S);
@@ -175,24 +117,6 @@ __device__ __forceinline__ void reduce_warps(const float (*red)[TN], float* vals
   }
 }
 
-// The M=1 product of one block: warp w runs chunks cb+w, cb+w+WARPS, ...
-// of [cb, ce) for the 4 columns at col0(lane), and the per-warp partials are
-// summed in warp order into vals[TN] (shared). Columns past the edge
-// (col0 < 0) contribute zeros.
-__device__ __forceinline__ void m1_block(
-    const int8_t* x, const float* sx, const uint8_t* qs,
-    const __nv_bfloat16* sc, const __nv_bfloat16* bias, int Ns, int cb,
-    int ce, int n0, float (*red)[TN], float* vals) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
-  if (n0 >= 0)
-    for (int c = cb + warp; c < ce; c += WARPS)
-      m1_chunk(x, sx, qs, sc, bias, Ns, c, n0, acc);
-#pragma unroll
-  for (int cc = 0; cc < 4; ++cc) red[warp][4 * lane + cc] = acc[cc];
-  reduce_warps(red, vals);
-}
-
 struct M1Off {
   int n_base, Ns;
   __device__ long long operator()(int i) const {
@@ -209,42 +133,5 @@ struct Slot {
       : z(blockIdx.z), e(ei ? __ldg(ei + blockIdx.z) : 0),
         row(ti ? __ldg(ti + blockIdx.z) : (int)blockIdx.z) {}
 };
-
-// M=1 q4b GEMV: y[Ns] = x @ W (see the header comment). Grid (tiles, S,
-// slots): block (tile, s, z) covers columns [128*tile, 128*tile + 128) and
-// chunk split s of S for slot z, which multiplies activation row ti[z] by
-// expert ei[z] of the expert-stacked weights [E, K/2, Ns] (one slot with ei
-// and ti null: the plain GEMV). y [slots, Ns]; partial [slots, S, Ns] f32
-// and counters [slots, tiles] int32 are scratch.
-__global__ void __launch_bounds__(THREADS)
-m1_gemv_kernel(const int8_t* __restrict__ x, const float* __restrict__ sx,
-               const uint8_t* __restrict__ qs, const __nv_bfloat16* __restrict__ sc,
-               const __nv_bfloat16* __restrict__ bias, float* __restrict__ y,
-               float* partial, int* counters, int K, int Ns, int S,
-               const int* __restrict__ ei, const int* __restrict__ ti) {
-  __shared__ float red[WARPS][TN];
-  __shared__ float vals[TN];
-  const Slot sl(ei, ti);
-  const size_t wsc = (size_t)sl.e * (K / 32) * Ns;
-  x += (size_t)sl.row * K;
-  sx += (size_t)sl.row * (K / 32);
-  qs += (size_t)sl.e * (K / 2) * Ns;
-  sc += wsc;
-  if (bias != nullptr) bias += wsc;
-  y += (size_t)sl.z * Ns;
-  partial += (size_t)sl.z * S * Ns;
-  counters += (size_t)sl.z * gridDim.x;
-  const int tile = blockIdx.x, s = blockIdx.y;
-  const int n_base = tile * TN;
-  const int n0 = n_base + 4 * (threadIdx.x & 31);
-  int cb, ce;
-  split_range(K / 64, S, s, &cb, &ce);
-  m1_block(x, sx, qs, sc, bias, Ns, cb, ce, n0 < Ns ? n0 : -1, red, vals);
-  if (!splitk_combine(vals, TN, partial, (size_t)Ns, M1Off{n_base, Ns},
-                      counters + tile, S, s))
-    return;
-  for (int i = threadIdx.x; i < TN; i += blockDim.x)
-    if (n_base + i < Ns) y[n_base + i] = vals[i];
-}
 
 }  // namespace qmm

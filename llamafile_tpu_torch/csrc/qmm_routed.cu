@@ -15,27 +15,25 @@
 // What bounds it on an H100: device-memory bytes of the S routed experts'
 // weights (a Mixtral-width gate|up expert is 58.7 MB of q4b codes, scales
 // and bias; S = 2 at a decode step). Each slot runs the split-K GEMV of
-// qmm_common.cuh / qmm_q8.cuh with its own partials and tile counters, so
-// the slots' combines are independent and in a fixed order; two slots that
-// name one expert read its bytes twice (the second mostly from L2).
+// qmm_m1.cuh (q4b: a cluster of a tile's splits) or qmm_q8.cuh (q8b: its
+// own partials and tile counters), so the slots' sums are independent and
+// in a fixed order; two slots that name one expert read its bytes twice
+// (the second mostly from L2).
+#include "qmm_m1.cuh"
 #include "qmm_q8.cuh"
 
 using namespace qmm;
 
 // x int8 [M, K], sx f32 [M, K/32]; qs uint8 [E, K/2, Ns], sc (and bias)
-// bf16 [E, K/32, Ns]; ei, ti int32 [slots]; y f32 [slots, Ns]; partial f32
-// [slots, S, Ns]; counters int32 [slots, tiles]. K % 256 == 0, Ns % 4 == 0.
+// bf16 [E, K/32, Ns]; ei, ti int32 [slots]; y f32 [slots, Ns]. K % 256 ==
+// 0, Ns % 16 == 0, 1 <= S <= min(K / 64, M1_MAX_SPLITS).
 extern "C" int qmm_txn_m1_r(const void* x, const void* sx, const void* qs, const void* sc,
-                            const void* bias, void* y, void* partial, void* counters,
-                            const void* ei, const void* ti, int K, int Ns, int S,
-                            int slots, void* stream) {
-  if (K % 256 || Ns % 4 || S < 1 || slots < 1) return (int)cudaErrorInvalidValue;
-  dim3 grid((Ns + TN - 1) / TN, S, slots);
-  m1_gemv_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      (const int8_t*)x, (const float*)sx, (const uint8_t*)qs, (const __nv_bfloat16*)sc,
-      (const __nv_bfloat16*)bias, (float*)y, (float*)partial, (int*)counters, K, Ns, S,
-      (const int*)ei, (const int*)ti);
-  return (int)cudaGetLastError();
+                            const void* bias, void* y, const void* ei, const void* ti, int K,
+                            int Ns, int S, int slots, void* stream) {
+  if (K < 256 || K % 256 || Ns < 16 || Ns % 16 || S < 1 || S > K / 64 || slots < 1)
+    return (int)cudaErrorInvalidValue;
+  return (int)m1_gemv_launch(dim3((Ns + TN - 1) / TN, S, slots), (cudaStream_t)stream, x, sx,
+                             qs, sc, bias, y, K, Ns, (const int*)ei, (const int*)ti);
 }
 
 // The same on q8b codes: qs int8 [E, K, Ns], sc (and bias) bf16 [E, K/g, Ns].

@@ -31,7 +31,7 @@
 // copies and never stored. Each NT is compiled for the blocks an SM its
 // shared memory allows (txn_min_blocks), so registers do not cut them.
 //
-// The math is s8 mma.sync.m16n8k32 in the swap-AB form of qmm_int8.cu: A is
+// The math is s8 mma.sync.m16n8k32 in the swap-AB form: A is
 // 16 weight columns x one 32-k group, built from the packed bytes by a 4x4
 // byte transpose and the lo / hi plane masks (A-row i of tile t stands for
 // column 4(i % 8) + 2t + i / 8 of the warp's strip, g = lane / 4), B is the

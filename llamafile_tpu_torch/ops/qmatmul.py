@@ -392,8 +392,43 @@ def n_split(tiles: int, chunks: int, cap: int, sms: int) -> int:
 
 
 def _n_split(device: torch.device, tiles: int, chunks: int, cap: int) -> int:
-    return n_split(tiles, chunks, cap,
-                   torch.cuda.get_device_properties(device).multi_processor_count)
+    return n_split(tiles, chunks, cap, _sms(device))
+
+
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def txn_split(ns: int, k: int, sms: int) -> int:
+    """K splits of a qmm_txn or qmm_int8 launch (the small-M body,
+    csrc/qmm_txn.cuh) over Ns columns and K: n_split of its 128-column
+    tiles, at most one a chunk."""
+    return n_split(-(-ns // 128), k // 64, k // 64, sms)
+
+
+# The M = 1 body (csrc/qmm_m1.cuh): warps a block, stages of a warp's ring,
+# the bytes a stage holds (a chunk's 32 weight rows of 128 bytes and its two
+# scale and two bias rows), the most splits (a column tile's splits are one
+# thread-block cluster of the portable size), and the bytes of copies that
+# a launch puts in flight at its start for each SM of the card.
+M1_WARPS = 4
+M1_STAGES = 2
+M1_STAGE_BYTES = 32 * 128 + 4 * 128 * 2
+M1_MAX_SPLITS = 8
+M1_IN_FLIGHT_PER_SM = 24 * 1024
+
+
+def m1_split(tiles: int, chunks: int, sms: int) -> int:
+    """K splits of an M = 1 launch of `tiles` blocks a split (column tiles
+    times slots) over `chunks` chunks: the fewest whose blocks put
+    sms * M1_IN_FLIGHT_PER_SM bytes in flight at the start, every warp
+    filling the M1_STAGES - 1 stages its ring keeps ahead; at most the
+    splits that still give every warp that many chunks and at most
+    M1_MAX_SPLITS, at least 1."""
+    ahead = M1_WARPS * (M1_STAGES - 1)
+    most = max(1, min(chunks // ahead, M1_MAX_SPLITS))
+    blocks = -(-sms * M1_IN_FLIGHT_PER_SM // (ahead * M1_STAGE_BYTES))
+    return max(1, min(-(-blocks // tiles), most))
 
 
 def _check_tensors(dev: torch.device, named) -> None:
@@ -444,19 +479,15 @@ def qmm_txn_m1(xq: torch.Tensor, sx: torch.Tensor, qs: torch.Tensor,
     one layer's qs/scales/bias -> f32 [1, Ns]."""
     if xq.device.type == "cpu":
         return qmm_txn_m1_plain(xq, sx, qs, scales, bias)
-    _check_q4b(xq, sx, qs, scales, bias, 4)
+    _check_q4b(xq, sx, qs, scales, bias, 16)
     if xq.shape[0] != 1:
         raise ValueError(f"qmm_txn_m1 takes one row, got {xq.shape[0]}")
     k, ns = xq.shape[1], qs.shape[-1]
-    tiles = -(-ns // 128)
-    s = _n_split(xq.device, tiles, k // 64, k // 64 // 8)
+    s = m1_split(-(-ns // 128), k // 64, _sms(xq.device))
     y = torch.empty((1, ns), dtype=torch.float32, device=xq.device)
-    partial = torch.empty((s, ns), dtype=torch.float32, device=xq.device)
-    f = _build.fn("qmm_txn_m1", "qmm_txn_m1", [P] * 8 + [I, I, I, P])
+    f = _build.fn("qmm_txn_m1", "qmm_txn_m1", [P] * 6 + [I, I, I, P])
     _build.check(f(xq.data_ptr(), sx.data_ptr(), qs.data_ptr(),
-                   scales.data_ptr(), _ptr(bias), y.data_ptr(),
-                   partial.data_ptr(),
-                   _counter_buf(xq.device, tiles).data_ptr(), k, ns, s,
+                   scales.data_ptr(), _ptr(bias), y.data_ptr(), k, ns, s,
                    _stream(xq.device)), "qmm_txn_m1")
     qmm_txn_m1.launches += 1
     return y
@@ -477,7 +508,7 @@ def qmm_txn(xq: torch.Tensor, sx: torch.Tensor, qs: torch.Tensor,
         raise ValueError(f"qmm_txn takes 1..32 rows, got {m}")
     ns = qs.shape[-1]
     tiles = -(-ns // 128)
-    s = _n_split(xq.device, tiles, k // 64, k // 64)
+    s = txn_split(ns, k, _sms(xq.device))
     y = torch.empty((m, ns), dtype=torch.float32, device=xq.device)
     partial = torch.empty((s, m, ns), dtype=torch.float32, device=xq.device)
     f = _build.fn("qmm_txn", "qmm_txn", [P] * 8 + [I, I, I, I, P])
@@ -539,20 +570,15 @@ def qmm_moe_m1(xq, sx, gu_qs, gu_sc, gu_b, dn_qs, dn_sc, dn_b,
                          f"multiple of {GU_STRIPE}, one ei/ti/topw entry a slot")
     yq = torch.empty((slots, dff), dtype=torch.int8, device=dev)
     sy = torch.empty((slots, dff // 32), dtype=torch.float32, device=dev)
-    _check_q4b_stack(yq, sy, dn_qs, dn_sc, dn_b, 4)
-    tiles_a, tiles_b = n_gu // 128, -(-nd // 128)
-    sa = _n_split(dev, tiles_a * slots, k // 64, k // 64 // 8)
-    sb = _n_split(dev, tiles_b * slots, dff // 64, dff // 64 // 8)
+    _check_q4b_stack(yq, sy, dn_qs, dn_sc, dn_b, 16)
+    sa = m1_split(n_gu // 128 * slots, k // 64, _sms(dev))
+    sb = m1_split(-(-nd // 128) * slots, dff // 64, _sms(dev))
     out = torch.empty((slots, nd), dtype=torch.float32, device=dev)
-    part_a = torch.empty((slots, sa, n_gu), dtype=torch.float32, device=dev)
-    part_b = torch.empty((slots, sb, nd), dtype=torch.float32, device=dev)
-    f = _build.fn("qmm_moe_m1", "qmm_moe_m1", [P] * 17 + [I] * 6 + [P])
+    f = _build.fn("qmm_moe_m1", "qmm_moe_m1", [P] * 14 + [I] * 6 + [P])
     _build.check(f(xq.data_ptr(), sx.data_ptr(), gu_qs.data_ptr(),
                    gu_sc.data_ptr(), _ptr(gu_b), dn_qs.data_ptr(),
                    dn_sc.data_ptr(), _ptr(dn_b), yq.data_ptr(), sy.data_ptr(),
-                   out.data_ptr(), part_a.data_ptr(), part_b.data_ptr(),
-                   _counter_buf(dev, slots * max(tiles_a, tiles_b)).data_ptr(),
-                   ei.data_ptr(), _ptr(ti), topw.data_ptr(),
+                   out.data_ptr(), ei.data_ptr(), _ptr(ti), topw.data_ptr(),
                    k, dff, nd, sa, sb, slots, _stream(dev)), "qmm_moe_m1")
     qmm_moe_m1.launches += 2
     return out
@@ -680,19 +706,19 @@ def _routed_launch(name, xq, sx, qs, scales, bias, ei, ti, g=None):
     if ti.shape[0] != slots:
         raise ValueError(f"{name}: ei and ti name {slots} and {ti.shape[0]} slots")
     tiles = -(-ns // 128)
-    chunks = k // 64 if g is None else k // 32
-    s = _n_split(dev, tiles * slots, chunks, chunks // 8)
     y = torch.empty((slots, ns), dtype=torch.float32, device=dev)
-    partial = torch.empty((slots, s, ns), dtype=torch.float32, device=dev)
     head = (xq.data_ptr(), sx.data_ptr(), qs.data_ptr(), scales.data_ptr(), _ptr(bias),
-            y.data_ptr(), partial.data_ptr(),
-            _counter_buf(dev, slots * tiles).data_ptr(), ei.data_ptr(), ti.data_ptr())
+            y.data_ptr())
     if g is None:
-        f = _build.fn("qmm_routed", name, [P] * 10 + [I] * 4 + [P])
-        err = f(*head, k, ns, s, slots, _stream(dev))
+        s = m1_split(tiles * slots, k // 64, _sms(dev))
+        f = _build.fn("qmm_routed", name, [P] * 8 + [I] * 4 + [P])
+        err = f(*head, ei.data_ptr(), ti.data_ptr(), k, ns, s, slots, _stream(dev))
     else:
+        s = _n_split(dev, tiles * slots, k // 32, k // 32 // 8)
+        partial = torch.empty((slots, s, ns), dtype=torch.float32, device=dev)
         f = _build.fn("qmm_routed", name, [P] * 10 + [I] * 5 + [P])
-        err = f(*head, k, ns, g, s, slots, _stream(dev))
+        err = f(*head, partial.data_ptr(), _counter_buf(dev, slots * tiles).data_ptr(),
+                ei.data_ptr(), ti.data_ptr(), k, ns, g, s, slots, _stream(dev))
     _build.check(err, name)
     return y
 
@@ -704,7 +730,7 @@ def qmm_txn_m1_r(xq, sx, qs, scales, bias, ei, ti) -> torch.Tensor:
     ti int32 [S] on the device. -> f32 [S, Ns]."""
     if xq.device.type == "cpu":
         return qmm_txn_m1_r_plain(xq, sx, qs, scales, bias, ei, ti)
-    _check_q4b_stack(xq, sx, qs, scales, bias, 4)
+    _check_q4b_stack(xq, sx, qs, scales, bias, 16)
     y = _routed_launch("qmm_txn_m1_r", xq, sx, qs, scales, bias, ei, ti)
     qmm_txn_m1_r.launches += 1
     return y
@@ -846,19 +872,20 @@ qmm_i8p.launches = 0
 def qmm_int8(xq: torch.Tensor, sx: torch.Tensor, qs: torch.Tensor,
              scales: torch.Tensor) -> torch.Tensor:
     """q4b product for 1 <= M <= 32 rows under the int8 flavour (kernel
-    qmm_int8, s8 tensor cores): xq int8 [M, K] and sx f32 [M, K/32] from
+    qmm_int8: qmm_txn's body with no bias term, on s8 tensor cores; its
+    split is qmm_txn's): xq int8 [M, K] and sx f32 [M, K/32] from
     quantize_activations_g32 of the normed x, one layer's qs uint8 [K/2,
     Ns] and bf16 scales [K/32, Ns] (a stacked caller passes layer li's
     views) -> f32 [M, Ns]. No bias: the caller adds that term outside."""
     if xq.device.type == "cpu":
         return qmm_int8_plain(xq, sx, qs, scales)
-    _check_q4b(xq, sx, qs, scales, None, 4)
+    _check_q4b(xq, sx, qs, scales, None, 16)
     m, k = xq.shape
     if not 1 <= m <= 32:
         raise ValueError(f"qmm_int8 takes 1..32 rows, got {m}")
     ns = qs.shape[-1]
-    tiles = -(-ns // 32)
-    s = _n_split(xq.device, tiles, k // 64, k // 64 // 8)
+    tiles = -(-ns // 128)
+    s = txn_split(ns, k, _sms(xq.device))
     y = torch.empty((m, ns), dtype=torch.float32, device=xq.device)
     partial = torch.empty((s, m, ns), dtype=torch.float32, device=xq.device)
     f = _build.fn("qmm_int8", "qmm_int8", [P] * 7 + [I] * 4 + [P])

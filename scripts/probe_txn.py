@@ -43,8 +43,8 @@ Variants:
              int32 dot reads as a float and one exact fma replaces the
              int-to-float conversion and the scale multiply (same bits)
   regpf      the weights straight from device memory into registers, one
-             chunk ahead, as qmm_int8.cu loads them (the ring carries the
-             scales, bias and activations only)
+             chunk ahead, as the first qmm_int8 body loaded them (the ring
+             carries the scales, bias and activations only)
   dp4a       the ring with the parent's int8 math: __dp4a on the CUDA cores
              after a 4x4 byte transpose, each lane on 4 columns and every
              fourth row (separates the pipeline from the tensor cores), at

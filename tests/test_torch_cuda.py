@@ -28,9 +28,11 @@ one masked key made visible must fail the int8 bound. Paged attention is
 f32 on both sides over the same page values: it is held row by row within
 1e-5 of each (row, head)'s largest output, and its two faulty versions (one
 masked key made visible, each row's last page dropped) must fail that.
-qmm_txn and qmm_txn_g sum their K splits in a fixed order: a second launch
-on the same inputs gives the same bits, and qmm_txn with each superblock's
-lo and hi scale rows swapped must fail its 1e-5 limit.
+qmm_txn, qmm_txn_g, qmm_int8 and the M = 1 body (qmm_txn_m1, qmm_txn_m1_r,
+qmm_moe_m1) sum their K splits in a fixed order: a second launch on the
+same inputs gives the same bits, and qmm_txn with each superblock's lo and
+hi scale rows swapped must fail its 1e-5 limit. The M = 1 body is also held
+at one K split, at m1_split's and at a split a chunk.
 The MoE kernels (routed GEMVs, routed fused FFN, grouped products) keep
 the tolerances of their dense forms, and a control with two slots' or
 tiles' expert ids swapped must read above 0.1 of the largest output. The
@@ -77,7 +79,7 @@ def assert_close(got, want, rel):
     assert err <= rel, err
 
 
-@pytest.mark.parametrize("n,k", [(4096, 4096), (6144, 1024), (1044, 512), (2048, 14336)])
+@pytest.mark.parametrize("n,k", [(4096, 4096), (6144, 1024), (1040, 512), (2048, 14336)])
 @pytest.mark.parametrize("bias", [True, False])
 def test_txn_m1_matches_plain(dev, n, k, bias):
     gen = torch.Generator(device=dev).manual_seed(n + k)
@@ -89,6 +91,40 @@ def test_txn_m1_matches_plain(dev, n, k, bias):
     got = Q.qmm_txn_m1(xq, sx, qs[1], sc[1], b)
     assert Q.qmm_txn_m1.launches == n0 + 1
     assert_close(got, Q.qmm_txn_m1_plain(xq, sx, qs[1], sc[1], b), 1e-5)
+    assert torch.equal(Q.qmm_txn_m1(xq, sx, qs[1], sc[1], b), got)
+
+
+def _m1_entry(xq, sx, qs, sc, b, s):
+    """qmm_txn_m1's C entry at K split s (the wrapper takes m1_split's)."""
+    from llamafile_tpu_torch.ops import _build
+    k, ns = xq.shape[1], qs.shape[-1]
+    y = torch.empty((1, ns), device=xq.device)
+    f = _build.fn("qmm_txn_m1", "qmm_txn_m1", [_build.P] * 6 + [_build.I] * 3 + [_build.P])
+    _build.check(f(xq.data_ptr(), sx.data_ptr(), qs.data_ptr(), sc.data_ptr(),
+                   None if b is None else b.data_ptr(), y.data_ptr(), k, ns, s,
+                   torch.cuda.current_stream().cuda_stream), "qmm_txn_m1")
+    return y
+
+
+@pytest.mark.parametrize("n,k", [(6144, 4096), (4096, 4096), (4096, 14336), (1040, 1024)])
+@pytest.mark.parametrize("split", ["one", "rule", "most"])
+def test_m1_body_splits_match_plain(dev, n, k, split):
+    """The M = 1 body at qkv, o, down and a ragged Ns (a multiple of 16, not
+    of 128), at one K split (every warp's ring over all of K), at
+    m1_split's and at the most (a cluster of 8 blocks a tile); two launches
+    give the same bits, and the splits agree within 1e-5."""
+    gen = torch.Generator(device=dev).manual_seed(n * 3 + k)
+    qs, sc, b = rand_q4b(gen, 1, n, k, dev)
+    xq, sx = Q.quantize_activations_g32(torch.randn(1, k, generator=gen, device=dev),
+                                        torch.rand(k, generator=gen, device=dev) + 0.5, 1e-5)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    s = {"one": 1, "rule": Q.m1_split(-(-n // 128), k // 64, sms),
+         "most": min(k // 64, Q.M1_MAX_SPLITS)}[split]
+    got = _m1_entry(xq, sx, qs[0], sc[0], b[0], s)
+    assert_close(got, Q.qmm_txn_m1_plain(xq, sx, qs[0], sc[0], b[0]), 1e-5)
+    assert torch.equal(_m1_entry(xq, sx, qs[0], sc[0], b[0], s), got)
+    if split == "rule":
+        assert torch.equal(Q.qmm_txn_m1(xq, sx, qs[0], sc[0], b[0]), got)
 
 
 @pytest.mark.parametrize("m", [1, 2, 7, 8, 9, 16, 17, 24, 25, 31, 32])
@@ -134,6 +170,7 @@ def test_moe_m1_matches_plain(dev, d, dff):
     got = Q.qmm_moe_m1(*args)
     assert Q.qmm_moe_m1.launches == n0 + 2        # gate|up kernel, down kernel
     assert_close(got, Q.qmm_moe_m1_plain(*args), 2e-3)
+    assert torch.equal(Q.qmm_moe_m1(*args), got)
 
 
 def _experts(gen, e, n, k, dev):
@@ -142,11 +179,11 @@ def _experts(gen, e, n, k, dev):
 
 
 @pytest.mark.parametrize("ids,rows", [((1, 1), (0, 0)), ((3, 0, 2, 1), (0, 0, 1, 1))])
-def test_routed_moe_m1_matches_plain(dev, ids, rows):
+def test_routed_moe_m1_matches_plain(dev, ids, rows, d=256, dff=1024):
     """All slots of a routed step in one launch pair: expert ids, token rows
-    and routing weights read from device memory; swapping two slots' ids
-    must fail the tolerance."""
-    d, dff, e = 256, 1024, 4
+    and routing weights read from device memory; two launches give the same
+    bits, and swapping two slots' ids must fail the tolerance."""
+    e = 4
     gen = torch.Generator(device=dev).manual_seed(len(ids))
     gq, gs, gb = _experts(gen, e, 2 * dff, d, dev)
     dq, ds, db = _experts(gen, e, d, dff, dev)
@@ -157,9 +194,18 @@ def test_routed_moe_m1_matches_plain(dev, ids, rows):
     got = Q.qmm_moe_m1(xq, sx, gq, gs, gb, dq, ds, db, ei, ti, topw)
     want = Q.qmm_moe_m1_plain(xq, sx, gq, gs, gb, dq, ds, db, ei, ti, topw)
     assert_close(got, want, 2e-3)
+    assert torch.equal(Q.qmm_moe_m1(xq, sx, gq, gs, gb, dq, ds, db, ei, ti, topw), got)
     if len(set(ids)) > 1:
         bad = Q.qmm_moe_m1_plain(xq, sx, gq, gs, gb, dq, ds, db, ei.flip(0), ti, topw)
         assert rel_err(bad, want) > 0.1
+
+
+@pytest.mark.parametrize("ids", [(2, 2), (1, 3)])
+def test_routed_moe_m1_two_slots_mixtral(dev, ids):
+    """A decode step's 2 slots at Mixtral-8x7B's widths (d 4096, d_ff
+    14336), one expert twice or two experts: the routed fused FFN within
+    2e-3 of its plain version, two launches bitwise equal."""
+    test_routed_moe_m1_matches_plain(dev, ids, (0, 0), 4096, 14336)
 
 
 @pytest.mark.parametrize("quant", ["q4b", "q8b16", "q8b32"])
@@ -181,8 +227,25 @@ def test_routed_gemv_matches_plain(dev, quant, n, k):
     assert fn.launches == n0 + 1
     want = plain(xq, sx, qs, sc, b, ei, ti)
     assert_close(got, want, 1e-5)
+    assert torch.equal(fn(xq, sx, qs, sc, b, ei, ti), got)
     bad = plain(xq, sx, qs, sc, b, ei[[1, 0, 2, 3]], ti)
     assert rel_err(bad, want) > 0.1
+
+
+@pytest.mark.parametrize("n,k", [(28672, 4096), (4096, 14336), (1040, 1024)])
+@pytest.mark.parametrize("ids", [(3, 1), (2, 2)])
+def test_routed_txn_m1_two_slots(dev, n, k, ids):
+    """qmm_txn_m1_r at a decode step's 2 slots (Mixtral-8x7B's gate|up and
+    down, a ragged Ns), two experts or one expert twice: within 1e-5 of the
+    plain version, two launches bitwise equal."""
+    gen = torch.Generator(device=dev).manual_seed(n + k + ids[0])
+    qs, sc, b = rand_q4b(gen, 4, n, k, dev)
+    xq, sx = Q.quantize_activations_g32(torch.randn(1, k, generator=gen, device=dev))
+    ei = torch.tensor(ids, dtype=torch.int32, device=dev)
+    ti = torch.zeros(2, dtype=torch.int32, device=dev)
+    got = Q.qmm_txn_m1_r(xq, sx, qs, sc, b, ei, ti)
+    assert_close(got, Q.qmm_txn_m1_r_plain(xq, sx, qs, sc, b, ei, ti), 1e-5)
+    assert torch.equal(Q.qmm_txn_m1_r(xq, sx, qs, sc, b, ei, ti), got)
 
 
 @pytest.mark.parametrize("tm", [8, 32])
@@ -453,6 +516,28 @@ def test_int8_matches_plain(dev, m, n, k):
     assert_close(got, want, 1e-5)
     assert rel_err(q4b_scale_swap(xq, sx, qs[1], sc[1]), want) > 1e-5
     assert torch.equal(got, Q.qmm_int8(xq, sx, qs[1], sc[1]))
+
+
+@pytest.mark.parametrize("m", [1, 2, 7, 8, 9, 16, 31, 32])
+@pytest.mark.parametrize("k", [256, 4096])
+@pytest.mark.parametrize("n", [16, 2048, 6144])
+@pytest.mark.parametrize("stacked", [True, False], ids=["stacked", "unrolled"])
+def test_int8_txn_body_matches_plain(dev, m, k, n, stacked):
+    """qmm_int8 on qmm_txn's body with no bias: every n8 row-tile count and
+    its edges, one superblock and a K of 16 superblocks, one 16-column
+    piece of a tile, whole tiles; on layer 1 of a stack (views by pointer)
+    and on an unstacked weight. Within 1e-5 of the plain version, two
+    launches bitwise equal."""
+    gen = torch.Generator(device=dev).manual_seed(m * 7 + k + n)
+    qs, sc, _ = rand_q4b(gen, 2, n, k, dev)
+    if stacked:
+        qs, sc = qs[1], sc[1]
+    else:
+        qs, sc = qs[1].clone(), sc[1].clone()
+    xq, sx = Q.quantize_activations_g32(torch.randn(m, k, generator=gen, device=dev))
+    got = Q.qmm_int8(xq, sx, qs, sc)
+    assert_close(got, Q.qmm_int8_plain(xq, sx, qs, sc), 1e-5)
+    assert torch.equal(Q.qmm_int8(xq, sx, qs, sc), got)
 
 
 @pytest.mark.parametrize("flavour,m,kernel", [("planes", 8, "qmm_planes"),
@@ -729,6 +814,26 @@ def test_wrapper_rejects_bad_inputs(dev):
         Q.qmm_dequant(torch.zeros(40, 256, device=dev),
                       torch.zeros(256, 520, dtype=torch.int8, device=dev),
                       torch.zeros(8, 520, dtype=torch.bfloat16, device=dev))
+    # the M = 1 body and qmm_int8 (qmm_txn's body) copy 16 bytes at a time:
+    # Ns % 16 != 0 (1044) is refused before any launch
+    qs16 = torch.zeros(1, 128, 1044, dtype=torch.uint8, device=dev)
+    sc16 = torch.zeros(1, 8, 1044, dtype=torch.bfloat16, device=dev)
+    one = torch.zeros(1, dtype=torch.int32, device=dev)
+    counted = (Q.qmm_txn_m1, Q.qmm_int8, Q.qmm_txn_m1_r, Q.qmm_moe_m1)
+    before = [f.launches for f in counted]
+    with pytest.raises(ValueError):
+        Q.qmm_txn_m1(xq, sx, qs16[0], sc16[0])
+    with pytest.raises(ValueError):
+        Q.qmm_int8(xq, sx, qs16[0], sc16[0])
+    with pytest.raises(ValueError):
+        Q.qmm_txn_m1_r(xq, sx, qs16, sc16, None, one, one)
+    with pytest.raises(ValueError):                           # the down product's Ns
+        Q.qmm_moe_m1(xq, sx, torch.zeros(1, 128, 2048, dtype=torch.uint8, device=dev),
+                     torch.zeros(1, 8, 2048, dtype=torch.bfloat16, device=dev), None,
+                     torch.zeros(1, 512, 1044, dtype=torch.uint8, device=dev),
+                     torch.zeros(1, 32, 1044, dtype=torch.bfloat16, device=dev), None,
+                     one, None, torch.ones(1, device=dev))
+    assert [f.launches for f in counted] == before
     q, kp, vp, _, _, lens, tables = paged_case(
         torch.Generator(device=dev), [5], 12, 8, 128, 64, 4, device=dev)
     with pytest.raises(ValueError):                           # Hq % Hkv != 0
