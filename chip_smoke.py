@@ -18,6 +18,12 @@
    equal; the three decode kernels also at head groups of 3 and 16 (24 and
    128 query heads over 8 KV heads), bf16 and int8, and at head_dim 256:
    Gemma-2-9B's 16 query heads over 8 KV heads and Gemma-2B's 8 over 1;
+   gemma2's options at Gemma-2-9B's decode shapes over a cache of 8192
+   positions, at pos 700 and 6000: flash_decode_write with the window of
+   4096 and the softcap of 50, flash_decode (bf16 and int8) with the
+   softcap and with the softcap and the window, each against its plain
+   version, two launches bitwise equal, timed beside the same call without
+   the options and beside the bytes of the rows visible;
    the unrolled prefill's qmm_planes; flash_decode and paged_attention
    over bf16 and int8 (one launch of thread-block clusters, a group of up
    to 16 heads from one K/V read; a larger group's label gives the
@@ -67,7 +73,13 @@
    against CPU; the same checks at head_dim 256 (gemma-2b-widths-2l:
    Gemma-2B's widths in the llama layout, 8 query heads over 1 KV head, two
    layers; 1 decode step, the paged decode of 2 rows), where
-   flash_decode_write, flash_decode and paged_attention run at D = 256; two
+   flash_decode_write, flash_decode and paged_attention run at D = 256;
+   gemma2 at Gemma-2-9B's widths (gemma-2-9b-2l), Q4_K stacked over a bf16
+   cache and by the Q4_K_M recipe unrolled over an int8 cache, 24- and
+   4200-token prompts and 4 decode steps each (the window biting at the
+   second), the kernels against the plain versions on the card
+   (plain_kernels), where flash_decode_write and flash_decode run with the
+   window and softcap on a model's path; two
    layers at Mixtral-8x7B width (mixtral-8x7b-2l): Q4_K stacked (24-token
    prompt: qmm_txn_g; a decode step on the routed fused FFN), the Q4_K_M
    recipe unrolled (300-token prompt: layer 0's qmm_planes_g, layer 1's
@@ -89,7 +101,8 @@
    attention call where card and CPU part, and the largest parting; every
    product is rerun through its plain version on the card's own inputs and
    must agree within its phase-2 limit, and so must every int8-cache
-   decode attention.
+   decode attention. Those reruns run on the card (plain_rerun), on the
+   card's own inputs and weights.
 4. The main paths at full width through Engine.generate, each with every
    launch count set to 0 just before it and read just after, and checked
    exactly:
@@ -143,7 +156,13 @@
    4 slots, 4 greedy requests, those of the shortest and longest prompt
    against themselves served alone; no decode attention call on the einsum
    or gather route.
-   Phases run in the order 4, 4b, 4d, 5, 4f, 4e, 4c, 6, 7, 8. Then, after every timed
+9. gemma-2-9b (Gemma-2-9B's widths, 42 layers, the gemma2 branches), Q4_K
+   stacked with a Q6_K head: Engine.generate of 64 tokens from the
+   24-token prompt, launches exact (no fused FFN; flash_decode_write with
+   the window on the even layers and the softcap on all), the decode rate
+   against its weight-read bound; the 1000-token prompt's TTFT, median of
+   3.
+   Phases run in the order 4, 4b, 4d, 5, 4f, 4e, 4c, 6, 7, 8, 9. Then, after every timed
    run (so that no profiler session of the process precedes a timing),
    profiles: a 2-step decode chunk of each model (7a, 7b, and 4c, 4 and
    4f's int8 on rebuilt engines) under torch.profiler (the device's busy
@@ -157,7 +176,7 @@ before the launches line.
 
 Any failure raises and exits non-zero. The last line of standard output is
 {"ok": true, "device": {...}}; the lines before it hold every kernel's
-launches summed over the counted runs of phases 4 to 7 ({"launches": ...},
+launches summed over the counted runs of phases 4 to 9 ({"launches": ...},
 with qmm_planes' launches on a stacked layer's view apart as
 "qmm_planes_stacked"), the kernel table (one JSON object with an entry a
 kernel: the numbers of its first shape, the main path's heaviest, every
@@ -168,6 +187,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import dataclasses
 import cProfile
 import json
 import os
@@ -623,6 +643,8 @@ def kernel_phases(torch, dev, gen):
     for hq, hkv, hd, cases in DECODE_GROUPS["flash_decode"]:
         for int8, s_eff in cases:
             flash_decode_phase(torch, dev, gen, entry, sdpa, hq, int8, s_eff, hkv, hd)
+    # --- gemma2's window and softcap options of both decode kernels --------
+    gemma_option_phase(torch, dev, gen, entry)
 
     # --- paged_attention: the serving decode attention, 8 rows ------------
     for hq, hkv, hd, cases in DECODE_GROUPS["paged_attention"]:
@@ -857,6 +879,116 @@ def flash_decode_phase(torch, dev, gen, entry, sdpa, hq, int8, s_eff, hkv=8, hd=
     del kc, vc, kd, vd, got, want
     if int8:
         del ksc, vsc
+    torch.cuda.empty_cache()
+
+
+# gemma2's decode options at Gemma-2-9B's decode shapes (16 query heads over
+# 8 KV heads of head_dim 256, a cache of 8192 positions): the 4096 window of
+# its even layers and the softcap of 50 at pos 700 (the window does not
+# bite) and pos 6000 (it does)
+GEMMA_HEADS = (16, 8, 256)
+GEMMA_S = 8192
+GEMMA_POS = (700, 6000)
+GEMMA_WINDOW, GEMMA_SOFTCAP = 4096, 50.0
+
+
+def gemma_option_cases(torch, dev, gen, nl=8):
+    """gemma2's decode options at GEMMA_HEADS over nl layers of a GEMMA_S
+    cache (the replays spill the L2), at each of GEMMA_POS: flash_decode_write
+    with the window and the softcap, then flash_decode (bf16 flat, then
+    int8 with f32 scales) with the softcap, and with the softcap and the
+    window. Yields (kernel, label, run(i, opts), plain(i, opts), tol, error
+    fn, (bytes, ops, op rate)) a case: run(i, True) is the call on layer i
+    with its options, run(i, False) the same call without any, plain the
+    plain version of each; the bound counts the rows visible (those and
+    the new token for flash_decode_write), each read once. q is scaled so
+    that the scores reach tens, as Gemma-2's do, where the softcap of 50
+    bends them."""
+    from llamafile_tpu_torch.ops import attention as A
+    from llamafile_tpu_torch.testing import rel_err, row_rel_err
+    hq, hkv, hd = GEMMA_HEADS
+    win, cap = GEMMA_WINDOW, GEMMA_SOFTCAP
+    scale = hd ** -0.5
+    q = torch.randn((1, hq, hd), generator=gen, device=dev) * 4
+    k3, v3 = (torch.randn((nl, 1, GEMMA_S, hkv * hd), generator=gen, device=dev
+                          ).to(torch.bfloat16) for _ in range(2))
+    kn, vn = (torch.randn((1, hkv, hd), generator=gen, device=dev) for _ in range(2))
+    for pos in GEMMA_POS:
+        p = torch.tensor([pos], dtype=torch.int32, device=dev)
+        rows = min(pos - 1, win - 1) + 1                 # the cache rows and the new token
+        yield ("flash_decode_write", f"pos={pos} s_eff={GEMMA_S} window={win} softcap={cap}",
+               lambda i, o, p=p: A.flash_decode_write_stacked(
+                   q, k3, v3, kn, vn, i, p, scale, hkv, win_l=win if o else None,
+                   softcap=cap if o else 0.0),
+               lambda i, o, p=p: A.flash_decode_write_plain(
+                   q, k3.clone(), v3.clone(), kn, vn, i, p, scale, hkv, GEMMA_S,
+                   win if o else None, cap if o else 0.0),
+               2e-2, rel_err, (rows * hkv * hd * 4 + (2 * hq * hd + 2 * hkv * hd) * 4,
+                               4 * rows * hq * hd, BF16_FLOP_PER_S))
+    kc8, vc8 = (torch.randint(-127, 128, (nl, 1, GEMMA_S, hkv, hd), generator=gen, device=dev,
+                              dtype=torch.int8) for _ in range(2))
+    ks8, vs8 = (torch.empty((nl, 1, GEMMA_S, hkv), device=dev).uniform_(2e-3, 2e-2,
+                                                                        generator=gen)
+                for _ in range(2))
+    for int8 in (False, True):
+        for pos in GEMMA_POS:
+            p = torch.tensor([pos], dtype=torch.int32, device=dev)
+            for w in (0, win):
+                if int8:
+                    run = lambda i, o, p=p, w=w: A.flash_decode(
+                        q, kc8[i], vc8[i], p, scale, w if o else 0, cap if o else 0.0,
+                        k_scale=ks8[i], v_scale=vs8[i])
+                    plain = lambda i, o, p=p, w=w: A.flash_decode_plain(
+                        q, kc8[i], vc8[i], p, scale, w if o else 0, cap if o else 0.0,
+                        k_scale=ks8[i], v_scale=vs8[i])
+                else:
+                    run = lambda i, o, p=p, w=w: A.flash_decode_stacked(
+                        q, k3, v3, i, p, scale, hkv, win_l=(w or None) if o else None,
+                        softcap=cap if o else 0.0)
+                    plain = lambda i, o, p=p, w=w: A.flash_decode_stacked_plain(
+                        q, k3, v3, i, p, scale, hkv, GEMMA_S, (w or None) if o else None,
+                        cap if o else 0.0)
+                rows = min(pos + 1, w) if w else pos + 1
+                per_row = 1 + 4 / hd if int8 else 2
+                yield ("flash_decode", f"{'int8 + f32 scales' if int8 else 'bf16 flat'} "
+                       f"pos={pos} s_eff={GEMMA_S} softcap={cap}" + (f" window={w}" if w else ""),
+                       run, plain, DECODE_INT8_ROW_TOL if int8 else DECODE_BF16_ROW_TOL,
+                       row_rel_err, (rows * hkv * hd * 2 * per_row + 2 * hq * hd * 4 + 4,
+                                     4 * rows * hq * hd,
+                                     F32_FLOP_PER_S if int8 else BF16_FLOP_PER_S))
+
+
+def gemma_option_phase(torch, dev, gen, entry):
+    """Phase 2 for the window and softcap options of flash_decode_write and
+    flash_decode (gemma_option_cases): each against its plain version on
+    the same inputs, two launches bitwise equal (the rows written with the
+    options are held by tests/test_torch_cuda.py), timed beside its plain
+    version and the same call without
+    the options. The bound is the bytes of the rows visible over the memory
+    rate; no single library call computes softcapped attention (library:
+    none)."""
+    hq, hkv, hd = GEMMA_HEADS
+    nl = 8
+    for kernel, label, run, plain, tol, err_fn, work in gemma_option_cases(torch, dev, gen, nl):
+        name = f"{kernel}/Gemma-2-9B Hq={hq} Hkv={hkv} D={hd} {label}"
+        got = run(5, True)
+        torch.cuda.synchronize()
+        err = err_fn(got, plain(5, True))
+        log(f"  {name}: error {err:.6g} (tol {tol})")
+        if not err <= tol:
+            raise AssertionError(f"{name}: kernel and plain version disagree: {err}")
+        if not torch.equal(run(5, True), got):
+            raise AssertionError(f"{name}: two launches on the same inputs differ")
+        log(f"  {name}: two launches bitwise equal")
+        ms = time_ms(torch, lambda i: run(i, True), nl)
+        bare = time_ms(torch, lambda i: run(i, False), nl)
+        plain_ms = time_ms(torch, lambda i: plain(i, True), nl)
+        log(f"  {name}: kernel {ms:.4f} ms, the same call without the options {bare:.4f} ms")
+        entry(kernel, f"llamafile_tpu_torch/csrc/{kernel}.cu",
+              "llamafile_tpu/ops/attention.py:" + ("217" if kernel == "flash_decode_write"
+                                                   else "117"),
+              f"B=1 Hq={hq} Hkv={hkv} D={hd} {label} (Gemma-2-9B; without the options "
+              f"{bare:.4f} ms)", err, ms, plain_ms, None, *work)
     torch.cuda.empty_cache()
 
 
@@ -1272,11 +1404,10 @@ def trace_report(steps_card, steps_cpu):
     """One line a forward call: where card and CPU first part, and how far.
     A quantization's int8 codes are compared code by code; every other
     output by max |diff| / max |CPU value|. Every product of the card is
-    also rerun through its plain version on the CPU, on the card's own
-    input (its activation codes and scales too, where the product made
-    them) and the CPU's copy of the weights; a grouped product's plain
-    version runs on the card (grouped_plain), where phase 2 holds the same
-    comparison. Returns (lines, {route: the
+    also rerun through its plain version on the card (plain_rerun,
+    grouped_plain), on the card's own input (its activation codes and
+    scales too, where the product made them) and weights, where phase 2
+    holds the same comparison. Returns (lines, {route: the
     largest parting of a product from its plain version on the same
     inputs}) for the int8-activation GEMVs, qmm_txn and qmm_int8 ("int8"),
     the dequant GEMM and _routed_fallback ("dequant"), the two-plane GEMM
@@ -1296,9 +1427,10 @@ def trace_report(steps_card, steps_cpu):
         for j, ((lab, a, ia), (lab_b, b, ib)) in enumerate(zip(card, cpu)):
             assert lab == lab_b, (lab, lab_b)
             if isinstance(ia, dict) and lab.startswith("i8p product"):
-                # the card's codes and scales, the CPU's copy of the weights
+                # the card's codes, scales and weights, on the card
+                dev = ia["args"][0].device
                 same["i8p"] = max(same["i8p"], rel_err(a, Q.qmm_i8p_plain(
-                    ia["x"], ia["args"][0].cpu(), *ib["args"][1:])))
+                    ia["x"].to(dev), *ia["args"]).cpu()))
             elif isinstance(ia, dict):           # a product: rerun plain on the card's x
                 fn = (LM.qmatmul_moe if "fused ffn" in lab else LM.qmatmul_routed
                       if lab.startswith("routed") else LM.qmatmul_grouped
@@ -1333,8 +1465,7 @@ def trace_report(steps_card, steps_cpu):
                     route = PRODUCT_CHECK.get(Q.product_route(qt, m, ia["x"].shape[1], li))
                 if route:
                     want = (b if same_in else grouped_plain(Q, ia, codes)
-                            if lab.startswith("grouped") else
-                            with_codes(Q, codes, lambda: fn(ia["x"], *args, **kw)))
+                            if lab.startswith("grouped") else plain_rerun(Q, fn, ia, codes))
                     same[route] = max(same[route], rel_err(a, want))
             if not a.dtype.is_floating_point:
                 n_q += 1
@@ -1354,6 +1485,70 @@ def trace_report(steps_card, steps_cpu):
                      f"quantizations ({flips} codes); first parting (codes, or > 1e-4): "
                      f"{first}; largest {worst[0]:.3g} at {worst[1]}")
     return lines, same
+
+
+def plain_rerun(Q, fn, ia, codes):
+    """The plain version of product call ia (fn: qmatmul, qmatmul_moe or
+    qmatmul_routed) on the card, on the card's own x, activation codes and
+    scales (codes, where it made them), weights and routing (plain_kernels);
+    returned on the CPU. On the CPU these plain versions expand every
+    weight to f32 a call: PR 15's cProfile put q4b_plain at 16.0 s of the
+    32-token check's 20.4."""
+    dev = ia["args"][0].qs.device
+    x = ia["x"].to(dev)
+    cc = None if codes is None else tuple(c.to(dev) for c in codes)
+    with plain_kernels():
+        return with_codes(Q, cc, lambda: fn(x, *ia["args"], **ia["kw"])).cpu()
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """While open, every kernel wrapper of the model path runs its plain
+    version on whatever device its tensors lie (on the card too): the
+    qmatmul kernels, and the decode and prefill attention kernels as
+    models.llama calls them (their non-kernel routes unchanged). Nothing is
+    launched and no launch is counted. The reference of phase 3's gemma
+    checks, and of every product's rerun (plain_rerun)."""
+    from llamafile_tpu_torch.models import llama as LM
+    from llamafile_tpu_torch.ops import attention as A
+    from llamafile_tpu_torch.ops import qmatmul as Q
+    orig_fdw, orig_fd, orig_fp = (LM.flash_decode_write_stacked, LM.flash_decode,
+                                  LM.flash_prefill)
+
+    def fdw(q, k3, v3, k_new, v_new, li, pos, scale, hkv, s_limit=None, win_l=None,
+            softcap=0.0):
+        s_len = k3.shape[2]
+        s_eff = s_limit if s_limit is not None and s_limit < s_len else s_len
+        if A.decode_route(q.shape[2], hq=q.shape[1], s_eff=s_eff) == "einsum":
+            return orig_fdw(q, k3, v3, k_new, v_new, li, pos, scale, hkv, s_limit, win_l,
+                            softcap)
+        return A.flash_decode_write_plain(q, k3, v3, k_new, v_new, li, pos, scale, hkv,
+                                          s_eff, win_l, softcap)
+
+    def fd(q, k, v, pos, scale, window=0, softcap=0.0, k_scale=None, v_scale=None):
+        if A.decode_route(q.shape[2], hq=q.shape[1], s_eff=k.shape[1]) == "einsum":
+            return orig_fd(q, k, v, pos, scale, window, softcap, k_scale, v_scale)
+        return A.flash_decode_plain(q, k, v, pos, scale, window, softcap, k_scale, v_scale)
+
+    def fp(q, k, v, scale, window=None, softcap=0.0):
+        if window is None and not softcap and A._use_flash(q.shape[1], q.shape[3]):
+            return A.flash_prefill_plain(q, k, v, scale)
+        return orig_fp(q, k, v, scale, window, softcap)
+    patches = [(Q, n, getattr(Q, n + "_plain"))
+               for n in ("qmm_txn_m1", "qmm_txn", "qmm_q8_m1", "qmm_dequant", "qmm_int8",
+                         "qmm_moe_m1", "qmm_txn_m1_r", "qmm_q8_m1_r", "qmm_txn_g",
+                         "qmm_planes_g", "qmm_i8p")]
+    patches += [(Q, "qmm_planes", lambda x, qs, sc, stacked=False: Q.qmm_planes_plain(x, qs, sc)),
+                (LM, "flash_decode_write_stacked", fdw), (LM, "flash_decode", fd),
+                (LM, "flash_prefill", fp)]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
+    for mod, name, f in patches:
+        setattr(mod, name, f)
+    try:
+        yield
+    finally:
+        for mod, name, f in saved:
+            setattr(mod, name, f)
 
 
 def grouped_plain(Q, ia, codes):
@@ -1694,7 +1889,7 @@ def decode_attention_report(torch, dev, steps):
             if lab != "int8 decode attention":
                 continue
             q, k, v, pos, scale = [t.to(dev) if hasattr(t, "to") else t for t in ins[:5]]
-            kw = {name: t.to(dev) for name, t in ins[5].items()}
+            kw = {name: t.to(dev) if hasattr(t, "to") else t for name, t in ins[5].items()}
             worst = max(worst, row_rel_err(A.flash_decode(q, k, v, pos, scale, **kw),
                                            A.flash_decode_plain(q, k, v, pos, scale, **kw)))
             n += 1
@@ -2020,6 +2215,97 @@ def decode_model_check(torch, dev, preset="llama3.2-3b-2l", n_decode=4, max_seq_
     paged_path_check(torch, dev, prompts=paged_prompts, n_decode=n_decode, preset=preset)
 
 
+def gemma_path_check(torch, dev, prompts=(24, 4200), n_decode=4):
+    """Gemma-2-9B's widths at two layers (gemma-2-9b-2l: the gemma2 branches,
+    layer 0 windowed at 4096, softcaps 50 / 30): Q4_K stacked over a bf16
+    cache, then llama.cpp's Q4_K_M recipe (layer 1's V and down in Q6_K:
+    unrolled) over an int8 cache. For each, the Engine's prefill of a
+    24-token prompt (bucket 32) and of a 4200-token one (bucket 8192), then
+    n_decode decode steps teacher-forced with the kernels' greedy token,
+    each taken by both sides from the kernels' cache, the window biting at
+    the second prompt (layer 0 reads the rows pos - 4095 .. pos): the
+    kernels against the plain versions on the card (plain_kernels), logits
+    within 2e-2 of the largest with the same top-1 at every step.
+    Each decode step launches its decode kernel once a layer
+    (flash_decode_write, or flash_decode with the window on layer 0 and the
+    softcap on both) and never the fused FFN (GELU); the plain side
+    launches nothing."""
+    from llamafile_tpu_torch.models.llama import forward
+    from llamafile_tpu_torch.models.synthetic import make_synthetic_llama
+    from llamafile_tpu_torch.ops import reset_launch_counts
+    from llamafile_tpu_torch.runtime.engine import Engine, attn_bucket
+    from llamafile_tpu_torch.runtime.tokenizer import Tokenizer
+    from llamafile_tpu_torch.testing import make_q4_k_m_llama
+    max_len = 8192
+    prompt = torch.randint(3, 256000, (max(prompts),),
+                           generator=torch.Generator().manual_seed(13)).tolist()
+    for recipe, kv in (("Q4_K", "bf16"), ("Q4_K_M", "int8")):
+        if recipe == "Q4_K_M":
+            cfg, params = make_q4_k_m_llama("gemma-2-9b-2l", seed=1, device=dev)
+        else:
+            cfg, params = make_synthetic_llama("gemma-2-9b-2l", "Q4_K", seed=1, fuse=True,
+                                               device=dev)
+        eng = Engine(cfg, params, Tokenizer({}), max_seq_len=max_len, kv_dtype=kv, device=dev)
+        del params
+        unrolled = isinstance(eng.params.layers, list)
+        if unrolled != (recipe == "Q4_K_M"):
+            raise AssertionError(f"gemma-2-9b-2l {recipe}: the layers were "
+                                 f"{'' if unrolled else 'not '}left unrolled")
+        what = f"gemma-2-9b-2l {recipe} {'unrolled' if unrolled else 'stacked'}, {kv} KV"
+        kernel = "flash_decode_write_stacked" if kv == "bf16" else "flash_decode"
+        for n_prompt in prompts:
+            alen = attn_bucket(n_prompt + n_decode + 1, max_len)
+            caches, logits = {}, {}
+            for side in ("kernels", "plain"):
+                with plain_kernels() if side == "plain" else contextlib.nullcontext():
+                    caches[side] = eng.new_cache()
+                    logits[side] = [eng.prefill(caches[side], prompt[:n_prompt])[0].float().cpu()]
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            counts = {"plain": dict.fromkeys(launch_counts(), 0)}
+            for step in range(n_decode):
+                # both sides take the step from the kernels' cache, so a
+                # step's parting is that step's own: on the synthetic
+                # weights a parting grows from step to step (0.0054 of the
+                # largest logit at step 1, 0.069 at step 2 when each side
+                # kept its own cache)
+                caches["plain"] = dataclasses.replace(caches["kernels"], **{
+                    f.name: None if getattr(caches["kernels"], f.name) is None
+                    else getattr(caches["kernels"], f.name).clone()
+                    for f in dataclasses.fields(caches["kernels"])})
+                tok = torch.tensor([[int(logits["kernels"][-1].argmax())]], device=dev)
+                pos = torch.tensor([n_prompt + step], dtype=torch.int32, device=dev)
+                for side in ("kernels", "plain"):
+                    before = launch_counts()
+                    with plain_kernels() if side == "plain" else contextlib.nullcontext():
+                        lg, _ = forward(eng.params, cfg, tok, pos, caches[side], attn_len=alen)
+                    logits[side].append(lg[0, -1].float().cpu())
+                    if side == "plain":
+                        counts["plain"] = {k: counts["plain"][k] + v - before[k]
+                                           for k, v in launch_counts().items()}
+            torch.cuda.synchronize()
+            counts["kernels"] = {k: v - counts["plain"][k] for k, v in launch_counts().items()}
+            del caches
+            for i, (a, b) in enumerate(zip(logits["kernels"], logits["plain"])):
+                rel = ((a - b).abs().max() / b.abs().max()).item()
+                log(f"  {what}, prompt {n_prompt} (decode s_eff {alen}) "
+                    f"{'prefill' if i == 0 else f'decode step {i}'}: top-1 kernels "
+                    f"{int(a.argmax())} plain {int(b.argmax())}, max |diff| / max |logit| = "
+                    f"{rel:.3g}, max |logit| {b.abs().max().item():.4g}")
+                if int(a.argmax()) != int(b.argmax()) or rel > 2e-2:
+                    raise AssertionError(f"{what} prompt {n_prompt} step {i}: the kernels and "
+                                         "the plain versions disagree")
+            k = counts["kernels"]
+            log(f"  {what}, prompt {n_prompt}: {n_decode} decode steps launched {kernel} "
+                f"{k[kernel]} times (expected {cfg.n_layers * n_decode}), qmm_moe_m1 "
+                f"{k['qmm_moe_m1']}; the plain side launched {sum(counts['plain'].values())}")
+            if k[kernel] != cfg.n_layers * n_decode or k["qmm_moe_m1"] \
+                    or any(counts["plain"].values()):
+                raise AssertionError(f"{what}: the decode steps did not run as expected")
+        del eng
+        torch.cuda.empty_cache()
+
+
 def counted_generate(torch, eng, prompt, n_new):
     """One greedy Engine.generate of n_new tokens after a warm-up run (first
     launches of each kernel at these shapes, allocator; not counted), with
@@ -2210,6 +2496,9 @@ def main_path(torch, dev):
           "HTTP server")
     counts_8 = llama32_phase(torch, dev, prompt)
 
+    phase("phase 9: gemma-2-9b Q4_K (gemma2), 42 layers stacked, Engine.generate")
+    counts_9 = gemma_phase(torch, dev, prompt, long_prompt)
+
     phase("profiles of phase 7's Mixtral decodes, of phase 4c's Q8_0 decode on a rebuilt "
         "engine, then of phase 4, 4f's int8 decode and 4b on a rebuilt Q4_K engine")
     for what, eng7, step7 in zip(("7a Q4_K stacked", "7b Q4_K_M unrolled"), moe_engines,
@@ -2232,7 +2521,7 @@ def main_path(torch, dev):
     del eng
     torch.cuda.empty_cache()
     return ([counts, counts_b, counts_d, counts_c, counts_5] + counts_f + counts_e + counts_6
-            + counts_7 + counts_8)
+            + counts_7 + counts_8 + counts_9)
 
 
 def llama32_phase(torch, dev, prompt, n_new=32):
@@ -2278,6 +2567,47 @@ def llama32_phase(torch, dev, prompt, n_new=32):
     del eng
     torch.cuda.empty_cache()
     return [counts, counts_s]
+
+
+def gemma_phase(torch, dev, prompt, long_prompt, n_new=64):
+    """Phase 9: Gemma-2-9B's published widths (models.synthetic preset
+    gemma-2-9b: 42 layers, 16 query heads over 8 KV heads of head_dim 256,
+    the gemma2 branches), Q4_K, fused and stacked, its head in Q6_K, a bf16
+    cache: Engine.generate of n_new greedy tokens from phase 4's 24-token
+    prompt, launches exact (a step: qkv, o, gate|up and down on qmm_txn_m1,
+    the GELU FFN never fused, the head on qmm_q8_m1, flash_decode_write
+    with the window on the even layers and the softcap on all), the decode
+    rate against the weight-read bound; then the 1000-token prompt's TTFT,
+    median of 3 (the dequant GEMM; the prefill attention is the einsum, as
+    the reference's with a softcap). Returns the counted runs' launches."""
+    from llamafile_tpu_torch.models.synthetic import decode_read_bytes, make_synthetic_llama
+    from llamafile_tpu_torch.runtime.engine import Engine
+    from llamafile_tpu_torch.runtime.tokenizer import Tokenizer
+    t0 = time.time()
+    cfg, params = make_synthetic_llama("gemma-2-9b", "Q4_K", seed=0, fuse=True, device=dev)
+    eng = Engine(cfg, params, Tokenizer({}), max_seq_len=2048, device=dev)
+    del params
+    torch.cuda.synchronize()
+    n = cfg.n_layers
+    read = decode_read_bytes(eng.params, cfg)
+    log(f"  built gemma-2-9b Q4_K ({n} layers, fused, stacked, Q6_K head) in "
+        f"{time.time() - t0:.1f} s; decode reads {read / 1e9:.3f} GB of weights a step")
+    steps = n_new - 1
+    _, counts, ttft, decode_s = counted_generate(torch, eng, prompt, n_new)
+    check_counts(counts, {"qmm_txn_m1": 4 * n * steps, "qmm_txn": 4 * n,
+                          "qmm_q8_m1": 1 + steps,
+                          "flash_decode_write_stacked": n * steps}, "phase 9")
+    decode_report(torch, read, steps, ttft, decode_s, "24-token prompt, bucket 32")
+    ttfts = []
+    for _ in range(3):
+        _, counts_b, ttft_b, _ = counted_generate(torch, eng, long_prompt, 1)
+        check_counts(counts_b, {"qmm_dequant": 4 * n, "qmm_q8_m1": 1}, "phase 9, 1000 tokens")
+        ttfts.append(ttft_b * 1e3)
+    log(f"  time to first token, 1000-token prompt: {statistics.median(ttfts):.2f} ms "
+        f"(median of {', '.join(f'{t:.2f}' for t in ttfts)} ms)")
+    del eng
+    torch.cuda.empty_cache()
+    return [counts, counts_b]
 
 
 MOE_SERVED = (0, 1, 2, 3, 4, 5, 6, 7)      # two requests a prompt length
@@ -2995,6 +3325,10 @@ def phase3_checks():
         # paged_attention at D = 256 on a model's path
         ("head_dim 256 (Gemma-2B widths, G = 8)", decode_model_check, (),
          dict(preset="gemma-2b-widths-2l", n_decode=1, paged_prompts=(24, 200)), "txn"),
+        # gemma2 at Gemma-2-9B's widths: the window and softcap of
+        # flash_decode_write (stacked, bf16) and flash_decode (unrolled,
+        # int8) on the model's path, against the plain versions on the card
+        ("Gemma-2-9B widths (gemma2)", gemma_path_check, (), {}, "txn"),
         ("Q8_0", whole_path_check, ("Q8_0",), dict(n_prompt=24, n_decode=1), "txn"),
         ("paged decode, 4 rows", paged_path_check, (), dict(n_decode=1), "txn"),
         ("Q4_K_M", whole_path_check, ("Q4_K_M",), dict(n_prompt=300, n_decode=1), "txn"),

@@ -8,7 +8,8 @@ leaves as plain dicts of numpy arrays, so the port never sees a JAX object
   tree: {"tok_embd": [V, d], "out_norm": [d], "output": QT,
          "layers": [ {"attn_norm", "ffn_norm", "wo", "wq", "wk", "wv",
                       "wqkv", "w_gate", "w_up", "w_gate_up", "w_down",
-                      "gate_inp", "experts"}, ... ]
+                      "gate_inp", "experts", "attn_post_norm",
+                      "ffn_post_norm"}, ... ]
                    (a list of per-layer dicts, or one dict of stacked leaves)}
   QT: {"kind", "shape", "g", "qs", "scales", "bias", "il"}, and an
       I8PQTensor's "qs8" [(L,) K, Ns] int8 and "s8" [(L,) K/256, Ns] f32 (the
@@ -33,11 +34,10 @@ from .ops.repack import I8PQTensor, QTensor
 
 # JAX LlamaConfig features this slice does not run, with their off values
 _UNPORTED = {
-    "attn_qkv_bias": False, "embd_scale": 1.0, "norm_plus_one": False,
-    "ffn_gelu": False, "norm_type": "rms", "clamp_qkv": 0.0,
-    "parallel_residual": False, "rope_dim": 0, "attn_softcap": 0.0,
-    "final_softcap": 0.0, "swa_window": 0, "qk_norm": False,
-    "post_norms": False, "residual_scale": 1.0, "logit_scale": 1.0,
+    "attn_qkv_bias": False, "norm_plus_one": False,
+    "norm_type": "rms", "clamp_qkv": 0.0,
+    "parallel_residual": False, "rope_dim": 0, "swa_rope_theta": 0.0,
+    "qk_norm": False, "residual_scale": 1.0, "logit_scale": 1.0,
     "expert_weights_scale": 1.0, "n_shared_experts": 0, "q_lora_rank": 0,
     "kv_lora_rank": 0, "v_head_dim": 0, "no_rope": False, "alibi": False,
     "qk_norm_flat": False,

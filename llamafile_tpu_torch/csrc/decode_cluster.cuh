@@ -63,19 +63,28 @@ __device__ __forceinline__ void load_slab(__nv_bfloat16* slab, const __nv_bfloat
   }
 }
 
+// The TPU kernels' score softcap, s -> cap * tanh(s / cap), after the scale
+// and before the mask; SC false leaves s as it is (no code).
+template <bool SC>
+__device__ __forceinline__ float soft_cap(float s, float cap) {
+  if constexpr (SC) return cap * tanhf(s / cap);
+  return s;
+}
+
 // One slab of a warp (nrw of its RW rows valid, the rest zero) on the
 // tensor cores, "swap AB": the query heads are the n = 8 side of
 // mma.m16n8k16, NTL tiles of 8. Scores S^T = K Q^T (K by ldmatrix, qb the
-// bf16 q fragments: head 8t + gq), the slab's max and rescale of heads
+// bf16 q fragments: head 8t + gq) times scale (then softcapped when SC),
+// the slab's max and rescale of heads
 // 8t + 2qd, 8t + 2qd + 1 (l summing the f32 p), then O^T += V^T P^T (V by
 // ldmatrix.trans; the bf16 p moved from the S^T accumulators into the B
 // fragment by movmatrix.trans): acc[t][mt] holds dims 16mt + gq (+8) of
 // those two heads.
-template <int D, int NTL>
+template <int D, int NTL, bool SC = false>
 __device__ __forceinline__ void attend_slab(const __nv_bfloat16* ks, int nrw,
                                             const uint32_t (&qb)[NTL][D / 16][2], float scale,
                                             float (&m2)[NTL][2], float (&l2)[NTL][2],
-                                            float (&acc)[NTL][D / 16][4]) {
+                                            float (&acc)[NTL][D / 16][4], float cap = 0.f) {
   constexpr int DP = D + 8;
   const int lane = threadIdx.x & 31, gq = lane >> 2;
   const __nv_bfloat16* vs = ks + RW * DP;
@@ -93,8 +102,8 @@ __device__ __forceinline__ void attend_slab(const __nv_bfloat16* ks, int nrw,
   for (int t = 0; t < NTL; ++t)
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
-      const float s0 = v0 ? (c[t][0][j] + c[t][1][j]) * scale : NEG;
-      const float s1 = v1 ? (c[t][0][j + 2] + c[t][1][j + 2]) * scale : NEG;
+      const float s0 = v0 ? soft_cap<SC>((c[t][0][j] + c[t][1][j]) * scale, cap) : NEG;
+      const float s1 = v1 ? soft_cap<SC>((c[t][0][j + 2] + c[t][1][j + 2]) * scale, cap) : NEG;
       float mx = fmaxf(s0, s1);
 #pragma unroll
       for (int off = 4; off < 32; off <<= 1)
@@ -336,15 +345,16 @@ __device__ __forceinline__ void codes4(int w, float* f) {
 // One f32 slab of a warp (nrw of its RQ rows valid; rows past them zero)
 // of T = int8_t (codes times their row's scale) or __nv_bfloat16: the
 // scores of row `lane` for heads 0 .. GP - 1 (q_s [GP][D] f32, heads past
-// the chunk zero) times scale, the slab's max and rescale of each head, p
+// the chunk zero) times scale (then softcapped when SC), the slab's max and
+// rescale of each head, p
 // into the warp's rows p_s [RQ][PS], then acc[g][e] += p * v over the valid
 // rows for dims D / 32 * lane + e. lp: this lane's share of l (the lanes'
 // sum is l).
-template <typename T, int D, int GP>
+template <typename T, int D, int GP, bool SC = false>
 __device__ __forceinline__ void attend_slab_f32(const unsigned char* slab, int nrw,
                                                 const float* q_s, float* p_s, float scale,
                                                 float (&m)[GP], float (&lp)[GP],
-                                                float (&acc)[GP][D / 32]) {
+                                                float (&acc)[GP][D / 32], float cap = 0.f) {
   constexpr bool BF = sizeof(T) == 2;
   constexpr int KS = slab_stride<T, D>(), DPL = D / 32, PS = heads4(GP);
   constexpr int EC = 16 / (int)sizeof(T);      // elements a 16-byte chunk
@@ -396,7 +406,7 @@ __device__ __forceinline__ void attend_slab_f32(const unsigned char* slab, int n
   float* prow = p_s + lane * PS;
 #pragma unroll
   for (int g = 0; g < GP; ++g) {
-    const float sc = ok ? (s0[g] + s1[g]) * scale : NEG;
+    const float sc = ok ? soft_cap<SC>((s0[g] + s1[g]) * scale, cap) : NEG;
     float mx = sc;
 #pragma unroll
     for (int off = 1; off < 32; off <<= 1)

@@ -13,7 +13,8 @@
 //   ks, vs  [B, S, Hkv] f32 scales at b * ssb + j * Hkv + h (int8 only)
 //   pos     [B] int32: key j is visible iff j <= pos[b], j < s_eff, and
 //           j > pos[b] - win when win > 0.
-// Numerics of the TPU kernel: scores are f32 dots times `scale`, softmax
+// Numerics of the TPU kernel: scores are f32 dots times `scale`, then, with
+// the softcap option (cap > 0), cap * tanh(s / cap) in f32 (tanhf), softmax
 // in f32 with its -1e30 mask, the output acc / max(l, 1e-30). A bf16 cache
 // rounds q and p to bf16 (the TPU kernel's q2.astype(k.dtype) and
 // p.astype(v.dtype)) while l sums the f32 p; an int8 cache computes on the
@@ -61,8 +62,8 @@
 // the tile, never stored), int8 1, 2, 4, 8, 16 (heads past the chunk's are
 // zero rows of q).
 // Every sum runs in a fixed order, so two launches on the same inputs give
-// the same bits. The softcap of the TPU kernel is not in this kernel; its
-// wrapper raises for it (llama3 uses none).
+// the same bits. The softcap is a template flag (SC): the instances without
+// it compile to the code they had before the option.
 #include <cooperative_groups.h>
 
 #include "decode_cluster.cuh"
@@ -137,13 +138,14 @@ __host__ __device__ constexpr int smem_bytes() {
 }
 
 // T: __nv_bfloat16 or int8_t; D: 128 or 256; GP: the heads the instance
-// holds; gc: the heads a chunk (the last one has gn = G - c * gc <= gc)
-template <typename T, int D, int GP>
+// holds; gc: the heads a chunk (the last one has gn = G - c * gc <= gc);
+// SC: the scores are softcapped by cap
+template <typename T, int D, int GP, bool SC>
 __global__ void __launch_bounds__(32 * Ring<sizeof(T) == 2, D>::NW)
 fd_kernel(const float* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
           const float* __restrict__ ks, const float* __restrict__ vs,
           const int* __restrict__ pos, float* __restrict__ out, int Hkv, int G, int gc,
-          int s_eff, long long sb, long long ssb, int win, float scale) {
+          int s_eff, long long sb, long long ssb, int win, float scale, float cap) {
   constexpr bool BF = sizeof(T) == 2;
   using R = Ring<BF, D>;
   constexpr int NW = R::NW, NT = 32 * NW, NS = R::NS, ROWS = R::ROWS, NTL = (GP + 7) / 8;
@@ -228,8 +230,9 @@ fd_kernel(const float* __restrict__ q, const T* __restrict__ k, const T* __restr
       cp_async_wait<NS - 1>();         // slab kk has landed (this lane's part)
       __syncwarp();                    // and every lane's
       const int j0 = RW * (warp + NW * kk);
-      attend_slab<D, NTL>(reinterpret_cast<const __nv_bfloat16*>(ring + (kk % NS) * R::BYTES),
-                          min(RW, n - j0), qb, scale, m2, l2, acc);
+      attend_slab<D, NTL, SC>(
+          reinterpret_cast<const __nv_bfloat16*>(ring + (kk % NS) * R::BYTES), min(RW, n - j0),
+          qb, scale, m2, l2, acc, cap);
       __syncwarp();                    // the slot is free again
       if (kk + NS < nk) load(kk % NS, RW * (warp + NW * (kk + NS)));
       cp_async_commit();
@@ -256,8 +259,8 @@ fd_kernel(const float* __restrict__ q, const T* __restrict__ k, const T* __restr
       cp_async_wait<NS - 1>();
       __syncwarp();
       const int j0 = RQ * (warp + NW * kk);
-      attend_slab_f32<int8_t, D, GP>(ring + (kk % NS) * R::BYTES, min(RQ, n - j0), q_s, pw,
-                                     scale, m, lp, acc);
+      attend_slab_f32<int8_t, D, GP, SC>(ring + (kk % NS) * R::BYTES, min(RQ, n - j0), q_s,
+                                         pw, scale, m, lp, acc, cap);
       __syncwarp();                    // the slot and the warp's p rows are free again
       if (kk + NS < nk) load(kk % NS, RQ * (warp + NW * (kk + NS)));
       cp_async_commit();
@@ -273,18 +276,18 @@ fd_kernel(const float* __restrict__ q, const T* __restrict__ k, const T* __restr
   merge_ranks<D, HP, NT>(out, qh0, gn, m_in, l_in, acc_in, rank);
 }
 
-// fd_kernel<T, D, GP>'s launch: a cluster of CS blocks a (batch row, kv
+// fd_kernel<T, D, GP, SC>'s launch: a cluster of CS blocks a (batch row, kv
 // head, head chunk). Its shared-memory limit is set once, so that later
 // launches can be captured in a CUDA graph.
-template <typename T, int D, int GP>
+template <typename T, int D, int GP, bool SC>
 int launch(const void* q, const void* k, const void* v, const void* ks, const void* vs,
            const void* pos, void* out, int B, int Hkv, int G, int gc, int s_eff, long long sb,
-           long long ssb, int win, float scale, cudaStream_t st) {
+           long long ssb, int win, float scale, float cap, cudaStream_t st) {
   constexpr int SMEM = smem_bytes<sizeof(T) == 2, D, GP>();
   static bool smem_set = false;
   if (!smem_set) {
     const cudaError_t err = cudaFuncSetAttribute(
-        fd_kernel<T, D, GP>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+        fd_kernel<T, D, GP, SC>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
     if (err != cudaSuccess) return (int)err;
     smem_set = true;
   }
@@ -301,22 +304,24 @@ int launch(const void* q, const void* k, const void* v, const void* ks, const vo
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
   const cudaError_t err = cudaLaunchKernelEx(
-      &cfg, fd_kernel<T, D, GP>, (const float*)q, (const T*)k, (const T*)v, (const float*)ks,
-      (const float*)vs, (const int*)pos, (float*)out, Hkv, G, gc, s_eff, sb, ssb, win, scale);
+      &cfg, fd_kernel<T, D, GP, SC>, (const float*)q, (const T*)k, (const T*)v,
+      (const float*)ks, (const float*)vs, (const int*)pos, (float*)out, Hkv, G, gc, s_eff, sb,
+      ssb, win, scale, cap);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
 // the instance of the group: ceil(G / 16) chunks of gc = ceil(G / chunks)
 // heads, on the smallest instance that holds gc heads
-template <typename T, int D>
+template <typename T, int D, bool SC>
 int dispatch(int G, const void* q, const void* k, const void* v, const void* ks,
              const void* vs, const void* pos, void* out, int B, int Hkv, int s_eff,
-             long long sb, long long ssb, int win, float scale, cudaStream_t st) {
+             long long sb, long long ssb, int win, float scale, float cap, cudaStream_t st) {
   // chunks of up to 16 heads (ops/attention.py FD_CHUNK_HEADS)
   const int nc = (G + 15) / 16, gc = (G + nc - 1) / nc;
-#define FD_LAUNCH(N) \
-  return launch<T, D, N>(q, k, v, ks, vs, pos, out, B, Hkv, G, gc, s_eff, sb, ssb, win, scale, st)
+#define FD_LAUNCH(N)                                                                    \
+  return launch<T, D, N, SC>(q, k, v, ks, vs, pos, out, B, Hkv, G, gc, s_eff, sb, ssb, win, \
+                             scale, cap, st)
   if constexpr (sizeof(T) == 1) {     // int8: its f32 work scales with the heads held
     if (gc == 1) FD_LAUNCH(1);
     if (gc == 2) FD_LAUNCH(2);
@@ -331,20 +336,28 @@ int dispatch(int G, const void* q, const void* k, const void* v, const void* ks,
 
 // int8 != 0: k/v hold int8 codes and ks/vs their f32 scales; else bf16 and
 // ks = vs = NULL. sb / ssb: batch strides of k, v and of ks, vs in elements.
-// D: the head dim, 128 or 256.
+// D: the head dim, 128 or 256; win > 0: the sliding window (0: none);
+// softcap > 0: the score softcap (0: none).
 extern "C" int flash_decode(const void* q, const void* k, const void* v, const void* ks,
                             const void* vs, const void* pos, void* out, int B, int Hq,
                             int Hkv, int D, int s_eff, long long sb, long long ssb, int win,
-                            int int8, float scale, void* stream) {
+                            int int8, float scale, float softcap, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (Hkv <= 0 || Hq < Hkv || Hq % Hkv || B <= 0) return (int)cudaErrorInvalidValue;
+  if (Hkv <= 0 || Hq < Hkv || Hq % Hkv || B <= 0 || win < 0 || softcap < 0.f)
+    return (int)cudaErrorInvalidValue;
   const int G = Hq / Hkv;
-#define FD_DISPATCH(T, DD, KS, VS) \
-  return dispatch<T, DD>(G, q, k, v, KS, VS, pos, out, B, Hkv, s_eff, sb, ssb, win, scale, st)
-  if (int8 && D == 128) FD_DISPATCH(int8_t, 128, ks, vs);
-  if (int8 && D == 256) FD_DISPATCH(int8_t, 256, ks, vs);
-  if (!int8 && D == 128) FD_DISPATCH(__nv_bfloat16, 128, nullptr, nullptr);
-  if (!int8 && D == 256) FD_DISPATCH(__nv_bfloat16, 256, nullptr, nullptr);
+  const bool sc = softcap > 0.f;
+#define FD_DISPATCH(T, DD, SC, KS, VS)                                                        \
+  return dispatch<T, DD, SC>(G, q, k, v, KS, VS, pos, out, B, Hkv, s_eff, sb, ssb, win, scale, \
+                             softcap, st)
+  if (int8 && D == 128 && !sc) FD_DISPATCH(int8_t, 128, false, ks, vs);
+  if (int8 && D == 128) FD_DISPATCH(int8_t, 128, true, ks, vs);
+  if (int8 && D == 256 && !sc) FD_DISPATCH(int8_t, 256, false, ks, vs);
+  if (int8 && D == 256) FD_DISPATCH(int8_t, 256, true, ks, vs);
+  if (!int8 && D == 128 && !sc) FD_DISPATCH(__nv_bfloat16, 128, false, nullptr, nullptr);
+  if (!int8 && D == 128) FD_DISPATCH(__nv_bfloat16, 128, true, nullptr, nullptr);
+  if (!int8 && D == 256 && !sc) FD_DISPATCH(__nv_bfloat16, 256, false, nullptr, nullptr);
+  if (!int8 && D == 256) FD_DISPATCH(__nv_bfloat16, 256, true, nullptr, nullptr);
 #undef FD_DISPATCH
   return (int)cudaErrorInvalidValue;
 }

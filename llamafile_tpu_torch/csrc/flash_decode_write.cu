@@ -4,11 +4,14 @@
 // Replaces the TPU kernel _flash_decode_write_kernel
 // (llamafile_tpu/ops/attention.py:217), called by flash_decode_write_stacked
 // (:317). Numerics kept from it: q rounded to bf16; scores in f32 times
-// `scale`; p rounded to bf16 before P.V while l sums the f32 p; cache rows
-// j <= pos-1 and j < s_eff are streamed (the stale row at pos is excluded)
-// and the new token, whose k/v arrive in f32, is merged last; the output is
-// divided by max(l, 1e-30). Its new K/V land as bf16 at [li, b, pos] in the
-// cache tensor itself.
+// `scale`, then, with the softcap option (cap > 0), cap * tanh(s / cap) in
+// f32 (tanhf), the new token's score too; p rounded to bf16 before P.V
+// while l sums the f32 p; cache rows j <= pos-1 and j < s_eff are streamed
+// (the stale row at pos is excluded), with the window option (win > 0)
+// only those with j > pos - win, and the new token, whose k/v arrive in
+// f32, is always visible and merged last; the output is divided by max(l,
+// 1e-30). Its new K/V land as bf16 at [li, b, pos] in the cache tensor
+// itself.
 //
 // What bounds it on an H100: device-memory bytes of the visible cache rows,
 // 2 * n_vis * Hkv * D * 2 bytes a layer (2.9 MB at llama3-8b widths and
@@ -18,8 +21,11 @@
 // (b, h, head chunk) is one thread-block cluster of CS = 8 blocks (64
 // blocks at B = 1, G <= 8), all in one launch, with no scratch in device
 // memory:
-// - rank r takes the rows [r * n_vis / CS, (r + 1) * n_vis / CS), n_vis =
-//   min(pos, s_eff): a split fixed by (n_vis, CS) alone, and every sum
+// - rank r takes the rows vis_lo + [r * n_vis / CS, (r + 1) * n_vis / CS)
+//   of the visible range [vis_lo, min(pos, s_eff)), vis_lo = max(0, pos -
+//   win + 1) under a window, else 0, n_vis its length (a window layer at
+//   pos 6000 reads 4096 rows, not 6000): a split fixed by (n_vis, CS)
+//   alone, and every sum
 //   below runs in a fixed order, so the result is the same from run to run;
 //   a rank with no rows leaves the neutral partial m = -1e30, l = 0;
 // - warp w of a rank streams the 16-row slabs w, w + NW, ... of its rows
@@ -57,11 +63,11 @@
 // bytes of shared memory; three would take 202,752).
 // The slab load, the slab's product and softmax, and the rank's push are
 // decode_cluster.cuh's, shared with flash_decode.cu.
-// The window and softcap options of the TPU kernel are not in this kernel;
-// its wrapper raises for them (llama3 uses neither).
-// llamafile_tpu_torch/testing.py mirrors CS, RW (decode_cluster.cuh), NW
-// and rank_lo in its emulation of this schedule (fdw_split_emulate): change
-// both together.
+// The softcap is a template flag (SC): the instances without it compile to
+// the code they had before the option. The window moves vis_lo alone.
+// llamafile_tpu_torch/testing.py mirrors CS, RW (decode_cluster.cuh), NW,
+// rank_lo and the visible range in its emulation of this schedule
+// (fdw_split_emulate): change both together.
 #include <cooperative_groups.h>
 
 #include "decode_cluster.cuh"
@@ -90,14 +96,15 @@ constexpr int smem_bytes() {
 
 // D: head dim (128 or 256); GC: query heads a chunk (compile time); G: the
 // group, Hq = Hkv * G; ONE: the group is one chunk (G = GC <= 8), so G and
-// the chunk are known at compile time and no head is masked
-template <int D, int GC, bool ONE>
+// the chunk are known at compile time and no head is masked; SC: the
+// scores are softcapped by cap; win > 0: the sliding window
+template <int D, int GC, bool ONE, bool SC>
 __global__ void __launch_bounds__(NT)
 fdw_kernel(const float* __restrict__ q, __nv_bfloat16* __restrict__ k3,
            __nv_bfloat16* __restrict__ v3, const float* __restrict__ kn,
            const float* __restrict__ vn, const int* __restrict__ pos,
            float* __restrict__ out, int li, int B, int S, int Hkv, int G, int s_eff,
-           float scale) {
+           int win, float scale, float cap) {
   constexpr int SLAB = 2 * RW * (D + 8);   // bf16 elements of a slab: K rows, then V rows
   constexpr int DL = D / CS;               // output dims each rank merges
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -126,9 +133,10 @@ fdw_kernel(const float* __restrict__ q, __nv_bfloat16* __restrict__ k3,
   // query head of the chunk's head 0: heads h * G + c * GC + g, g < gn
   const size_t qh0 = (size_t)b * Hkv * G + (size_t)h * G + c * GC;
   const int p = pos[b];
-  const int n_vis = max(0, min(p, s_eff));
-  const int lo = rank_lo(rank, n_vis);
-  const int n = rank_lo(rank + 1, n_vis) - lo;
+  const int vis_lo = win > 0 ? max(0, p - win + 1) : 0;
+  const int n_vis = max(0, min(p, s_eff) - vis_lo);
+  const int lo = vis_lo + rank_lo(rank, n_vis);
+  const int n = vis_lo + rank_lo(rank + 1, n_vis) - lo;
   // warp w takes the slabs w, w + NW, ... of the rank's rows
   const int n_slabs = (n + RW - 1) / RW;
   const int nk = n_slabs > warp ? (n_slabs - warp + NW - 1) / NW : 0;
@@ -169,7 +177,7 @@ fdw_kernel(const float* __restrict__ q, __nv_bfloat16* __restrict__ k3,
             bf16_lo(qb[0][kk][1]) * kr[16 * kk + 8] + bf16_hi(qb[0][kk][1]) * kr[16 * kk + 9];
     sc += __shfl_xor_sync(0xffffffffu, sc, 1);
     sc += __shfl_xor_sync(0xffffffffu, sc, 2);
-    if (qd == 0) sn_t[gq] = sc * scale;
+    if (qd == 0) sn_t[gq] = soft_cap<SC>(sc * scale, cap);
   }
 
   // this warp's online softmax of heads 2qd, 2qd + 1, and O^T: acc[0][mt]
@@ -185,7 +193,8 @@ fdw_kernel(const float* __restrict__ q, __nv_bfloat16* __restrict__ k3,
     cp_async_wait<NS - 1>();           // slab k has landed (this lane's part)
     __syncwarp();                      // and every lane's
     const int j0 = RW * (warp + NW * k);
-    attend_slab<D, 1>(ring + (k % NS) * SLAB, min(RW, n - j0), qb, scale, m2, l2, acc);
+    attend_slab<D, 1, SC>(ring + (k % NS) * SLAB, min(RW, n - j0), qb, scale, m2, l2, acc,
+                          cap);
     __syncwarp();                      // the slot is free again
     const int jn = RW * (warp + NW * (k + NS));
     if (k + NS < nk) load_slab<D>(ring + (k % NS) * SLAB, kb, vb, jn, min(RW, n - jn), HD);
@@ -229,18 +238,18 @@ fdw_kernel(const float* __restrict__ q, __nv_bfloat16* __restrict__ k3,
   }
 }
 
-// fdw_kernel<D, GC, ONE>'s launch: a cluster of CS blocks a (batch row, kv
-// head, head chunk). Its shared-memory limit is set once, so that later
+// fdw_kernel<D, GC, ONE, SC>'s launch: a cluster of CS blocks a (batch row,
+// kv head, head chunk). Its shared-memory limit is set once, so that later
 // launches can be captured in a CUDA graph.
-template <int D, int GC, bool ONE>
+template <int D, int GC, bool ONE, bool SC>
 int launch(const void* q, void* k3, void* v3, const void* kn, const void* vn,
            const void* pos, void* out, int li, int B, int S, int Hkv, int G, int s_eff,
-           float scale, cudaStream_t st) {
+           int win, float scale, float cap, cudaStream_t st) {
   constexpr int SMEM = smem_bytes<D>();
   static bool smem_set = false;
   if (!smem_set) {
     const cudaError_t err = cudaFuncSetAttribute(
-        fdw_kernel<D, GC, ONE>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+        fdw_kernel<D, GC, ONE, SC>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
     if (err != cudaSuccess) return (int)err;
     smem_set = true;
   }
@@ -257,23 +266,24 @@ int launch(const void* q, void* k3, void* v3, const void* kn, const void* vn,
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
   const cudaError_t err = cudaLaunchKernelEx(
-      &cfg, fdw_kernel<D, GC, ONE>, (const float*)q, (__nv_bfloat16*)k3, (__nv_bfloat16*)v3,
-      (const float*)kn, (const float*)vn, (const int*)pos, (float*)out, li, B, S, Hkv, G,
-      s_eff, scale);
+      &cfg, fdw_kernel<D, GC, ONE, SC>, (const float*)q, (__nv_bfloat16*)k3,
+      (__nv_bfloat16*)v3, (const float*)kn, (const float*)vn, (const int*)pos, (float*)out, li,
+      B, S, Hkv, G, s_eff, win, scale, cap);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
 // G = Hq / Hkv <= 8 is one chunk of G heads, a larger group ceil(G / 8)
 // chunks of gc = ceil(G / ceil(G / 8)) heads, 5 <= gc <= 8.
-template <int D>
+template <int D, bool SC>
 int dispatch(const void* q, void* k3, void* v3, const void* kn, const void* vn,
              const void* pos, void* out, int li, int B, int S, int Hkv, int G, int s_eff,
-             float scale, cudaStream_t st) {
+             int win, float scale, float cap, cudaStream_t st) {
   const int nc = (G + 7) / 8, gc = (G + nc - 1) / nc;
-#define FDW_CASE(L, N, ONE) \
-  case L:                    \
-    return launch<D, N, ONE>(q, k3, v3, kn, vn, pos, out, li, B, S, Hkv, G, s_eff, scale, st);
+#define FDW_CASE(L, N, ONE)                                                              \
+  case L:                                                                                \
+    return launch<D, N, ONE, SC>(q, k3, v3, kn, vn, pos, out, li, B, S, Hkv, G, s_eff, win, \
+                                 scale, cap, st);
   switch (G <= 8 ? G : -gc) {
     FDW_CASE(1, 1, true) FDW_CASE(2, 2, true) FDW_CASE(3, 3, true) FDW_CASE(4, 4, true)
     FDW_CASE(5, 5, true) FDW_CASE(6, 6, true) FDW_CASE(7, 7, true) FDW_CASE(8, 8, true)
@@ -285,18 +295,24 @@ int dispatch(const void* q, void* k3, void* v3, const void* kn, const void* vn,
 
 }  // namespace
 
-// D: the head dim, 128 or 256.
+// D: the head dim, 128 or 256; win > 0: the sliding window (0: none);
+// softcap > 0: the score softcap (0: none).
 extern "C" int flash_decode_write(const void* q, void* k3, void* v3,
                                   const void* kn, const void* vn,
                                   const void* pos, void* out, int li, int B,
                                   int S, int Hq, int Hkv, int D, int s_eff,
-                                  float scale, void* stream) {
+                                  int win, float scale, float softcap, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (Hkv <= 0 || Hq < Hkv || Hq % Hkv) return (int)cudaErrorInvalidValue;
+  if (Hkv <= 0 || Hq < Hkv || Hq % Hkv || win < 0 || softcap < 0.f)
+    return (int)cudaErrorInvalidValue;
   const int G = Hq / Hkv;
-  if (D == 128)
-    return dispatch<128>(q, k3, v3, kn, vn, pos, out, li, B, S, Hkv, G, s_eff, scale, st);
-  if (D == 256)
-    return dispatch<256>(q, k3, v3, kn, vn, pos, out, li, B, S, Hkv, G, s_eff, scale, st);
+#define FDW_DISPATCH(DD, SC) \
+  return dispatch<DD, SC>(q, k3, v3, kn, vn, pos, out, li, B, S, Hkv, G, s_eff, win, scale, \
+                          softcap, st)
+  if (D == 128 && softcap == 0.f) FDW_DISPATCH(128, false);
+  if (D == 128) FDW_DISPATCH(128, true);
+  if (D == 256 && softcap == 0.f) FDW_DISPATCH(256, false);
+  if (D == 256) FDW_DISPATCH(256, true);
+#undef FDW_DISPATCH
   return (int)cudaErrorInvalidValue;
 }

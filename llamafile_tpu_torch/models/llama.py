@@ -1,5 +1,5 @@
 """Llama-family forward of the port (llama / mistral, dense or Mixtral-style
-routed MoE), stacked or unrolled.
+routed MoE; gemma2), stacked or unrolled.
 
 Counterpart of llamafile_tpu/models/llama.py for the llama branches of
 `_layer_fwd`, `forward` and `moe_ffn`. The JAX layer scan becomes a Python
@@ -12,12 +12,21 @@ The KV cache is updated in place.
 
 Per layer: RMSNorm folded into the qkv product(s) -> rope -> attention
 (fused decode kernel with the KV-row write at T = 1 on a bf16 cache; the
-flash_decode kernel over an int8 cache on stacked layers, the einsum on
-unrolled ones; over the fresh tokens at prefill, the flash_prefill kernel
-from 128 tokens and the einsum below) -> o -> RMSNorm folded into the FFN
-(one fused kernel call at M = 1 for an interleaved q4b gate|up of stacked
-layers, gate|up + down products otherwise), or, in a MoE layer, an inline
-RMSNorm and moe_ffn.
+flash_decode kernel over an int8 cache, except on stacked layers with a
+sliding window, which take the einsum as the reference's do; over the
+fresh tokens at prefill, the flash_prefill kernel from 128 tokens and the
+einsum below) -> o -> RMSNorm folded into the FFN (one fused kernel call at
+M = 1 for an interleaved q4b gate|up of stacked SwiGLU layers, gate|up +
+down products otherwise), or, in a MoE layer, an inline RMSNorm and
+moe_ffn.
+
+Gemma 2 (the reference's gemma2 branches): the embedding times sqrt(d),
+a sliding window on layers li % swa_pattern < swa_pattern - 1 (None, not
+the reference's 1 << 30, on the others: the layer loop is Python), the
+attention softcap in every attention call (the decode kernels take it and
+the window as options; prefill runs the einsum with them), RMSNorms of o
+and of the FFN output before their residuals, a GELU-tanh FFN (never the
+fused one) and the final logit softcap.
 
 int8_prefill_params attaches the int8 prefill companions (the Engine does
 so under LLAMAFILE_TPU_I8P=1): every product of over 32 rows on a layer
@@ -81,16 +90,41 @@ class LlamaConfig:
     n_experts: int = 0               # routed MoE (Mixtral): experts a layer
     n_experts_used: int = 0          # top-k of them a token
     moe_norm_topk: bool = True       # renormalize the top-k weights to sum 1
+    # gemma2: embedding scale, GELU-tanh FFN, softcaps, sliding window on
+    # layers li % swa_pattern < swa_pattern - 1, sandwich norms
+    embd_scale: float = 1.0
+    ffn_gelu: bool = False
+    attn_softcap: float = 0.0
+    final_softcap: float = 0.0
+    swa_window: int = 0
+    swa_pattern: int = 1
+    post_norms: bool = False
 
     @classmethod
     def from_gguf(cls, reader) -> "LlamaConfig":
         arch = reader.architecture
-        if arch not in ("llama", "mistral"):
+        if arch not in ("llama", "mistral", "gemma2"):
             raise NotImplementedError(
-                f"architecture {arch!r} is not ported yet (llama, mistral)")
+                f"architecture {arch!r} is not ported yet (llama, mistral, gemma2)")
         f = reader.field
         d_model = int(f("{arch}.embedding_length"))
         n_heads = int(f("{arch}.attention.head_count"))
+        n_layers = int(f("{arch}.block_count"))
+        gemma = {}
+        if arch == "gemma2":
+            # the reference's branch: rope NEOX, the embedding times sqrt(d),
+            # a 4096 window on every other layer, softcaps 50 / 30, sandwich
+            # norms, GELU-tanh; q scaled by (d / h)^-1/2 at 46 layers (27B),
+            # else the default 1 / sqrt(head_dim). The GGUF's norm weights
+            # carry gemma's +1 already (the converter bakes it in).
+            gemma = dict(
+                rope_neox=True, embd_scale=float(d_model) ** 0.5, ffn_gelu=True,
+                swa_window=int(f("{arch}.attention.sliding_window", 4096)), swa_pattern=2,
+                attn_softcap=float(f("{arch}.attn_logit_softcapping", 50.0)),
+                final_softcap=float(f("{arch}.final_logit_softcapping", 30.0)),
+                post_norms=True,
+                attn_scale=(1.0 / float(d_model / n_heads) ** 0.5 if n_layers == 46
+                            else 0.0))
         n_vocab = f("{arch}.vocab_size")
         if n_vocab is None:
             n_vocab = len(reader.metadata.get("tokenizer.ggml.tokens", []))
@@ -98,8 +132,8 @@ class LlamaConfig:
         is_yarn = str(f("{arch}.rope.scaling.type", "") or "").lower() == "yarn"
         if float(f("{arch}.expert_weights_scale", 1.0) or 1.0) != 1.0:
             raise NotImplementedError("expert_weights_scale != 1 is not ported yet")
-        return cls(
-            n_layers=int(f("{arch}.block_count")),
+        kw = dict(
+            n_layers=n_layers,
             d_model=d_model,
             n_heads=n_heads,
             n_kv_heads=int(f("{arch}.attention.head_count_kv", n_heads)),
@@ -121,6 +155,7 @@ class LlamaConfig:
             n_experts_used=int(f("{arch}.expert_used_count", 0) or 0),
             moe_norm_topk=True,              # llama/mistral (Mixtral) renormalize
         )
+        return cls(**{**kw, **gemma})
 
 
 CONFIG_FIELDS = tuple(f.name for f in fields(LlamaConfig))
@@ -145,6 +180,8 @@ class LlamaLayer:
     # "down") with a leading E axis (L*E when stacked), or per-expert
     # QTensors ("gate.{e}", "up.{e}", "down.{e}") that do not stack
     experts: Optional[dict] = None
+    attn_post_norm: Optional[torch.Tensor] = None   # gemma2 sandwich norms, f32 [(L,) d]
+    ffn_post_norm: Optional[torch.Tensor] = None
 
 
 @dataclass
@@ -342,6 +379,15 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     return x * torch.reciprocal(1 + torch.exp(-x))
 
 
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """jax.nn.gelu(x, approximate=True) as the reference computes it, op by
+    op in x's dtype with its constants rounded to that dtype:
+    x * (0.5 * (1 + tanh(sqrt(2 / pi) * (x + 0.044715 * x^3))))."""
+    c = lambda v: torch.tensor(v, dtype=x.dtype, device=x.device)
+    inner = c(math.sqrt(2 / math.pi)) * (x + c(0.044715) * (x * x * x))
+    return x * (c(0.5) * (c(1.0) + torch.tanh(inner)))
+
+
 _DEVICE_IDS = {}
 
 
@@ -361,15 +407,16 @@ def _ffn(h2d, layer: LlamaLayer, cfg: LlamaConfig, wl, prenorm=None):
     (router and experts share the normed input). A dense SwiGLU runs one
     fused kernel call at M = 1 for an interleaved q4b gate|up of stacked
     layers (wl the layer id), otherwise gate|up (or gate and up), silu(g) *
-    u, down (the reference's _ffn_core: the unrolled path never fuses). The
+    u, down (the reference's _ffn_core: the unrolled path never fuses); a
+    GELU FFN (cfg.ffn_gelu) always the latter with gelu_tanh(g). The
     products' dtype carries through, so bf16 q4b outputs at M >= 256 meet
-    silu and the product in bf16."""
+    the activation and the product in bf16."""
     if cfg.n_experts > 0 and layer.experts is not None:
         if prenorm is not None:
             h2d = rmsnorm(h2d, *prenorm)
         return moe_ffn(h2d, layer, cfg, li=wl)
     if layer.w_gate_up is not None:
-        if (h2d.shape[0] == 1 and wl is not None and layer.w_gate_up.il
+        if (h2d.shape[0] == 1 and wl is not None and layer.w_gate_up.il and not cfg.ffn_gelu
                 and moe_fusable(layer.w_gate_up, layer.w_down, cfg.d_model, cfg.d_ff)):
             # the whole FFN in one fused kernel call, the layer id as expert
             ids, one = _layer_ids(layer.w_gate_up.qs.shape[0], h2d.device)
@@ -380,7 +427,8 @@ def _ffn(h2d, layer: LlamaLayer, cfg: LlamaConfig, wl, prenorm=None):
     else:
         g = qmatmul(h2d, layer.w_gate, wl, prenorm=prenorm)
         u = qmatmul(h2d, layer.w_up, wl, prenorm=prenorm)
-    return qmatmul(silu(g) * u, layer.w_down, wl)
+    act = gelu_tanh(g) if cfg.ffn_gelu else silu(g)
+    return qmatmul(act * u, layer.w_down, wl)
 
 
 # ---------------------------------------------------------------------------
@@ -539,6 +587,15 @@ def moe_ffn(x2d: torch.Tensor, layer: LlamaLayer, cfg: LlamaConfig, li=None):
     return out
 
 
+def layer_window(cfg: LlamaConfig, li: int) -> Optional[int]:
+    """The sliding window of layer li (gemma2: li % swa_pattern <
+    swa_pattern - 1), or None for a layer that sees every key."""
+    if cfg.swa_window > 0 and cfg.swa_pattern > 1 \
+            and li % cfg.swa_pattern < cfg.swa_pattern - 1:
+        return cfg.swa_window
+    return None
+
+
 def _layer_fwd(x, layer: LlamaLayer, cfg: LlamaConfig, cos, sin, pos, t_pos,
                scale, cache: KVCache, attn_len, fresh: bool, li: int,
                stacked: bool):
@@ -549,12 +606,15 @@ def _layer_fwd(x, layer: LlamaLayer, cfg: LlamaConfig, cos, sin, pos, t_pos,
     Both fold the RMSNorms into the products' activation prep and write the
     new K/V rows first, except where the fused decode kernel writes them
     (T = 1 on a bf16 cache). An int8 cache decodes through the flash_decode
-    kernel on stacked layers and the f32 einsum on unrolled ones, as the
-    reference routes it."""
+    kernel, except on stacked layers of a windowed model: there the
+    reference's scan sends every layer to the f32 einsum (its traced window
+    is never None). Every attention call takes the layer's window and the
+    softcap."""
     b, t, d = x.shape
     s = cache.max_len
     wl = li if stacked else None
     pick = (lambda a: a[li]) if stacked else (lambda a: a)
+    win, cap = layer_window(cfg, li), cfg.attn_softcap
     q, k, v = _qkv(x.reshape(b * t, d), layer, cfg, wl,
                    (pick(layer.attn_norm), cfg.rms_eps))
     q = apply_rope(q.reshape(b, t, cfg.n_heads, cfg.head_dim), cos, sin, cfg.rope_neox)
@@ -567,23 +627,34 @@ def _layer_fwd(x, layer: LlamaLayer, cfg: LlamaConfig, cos, sin, pos, t_pos,
         # writes the new row at pos itself
         attn = flash_decode_write_stacked(
             q[:, 0], cache.k, cache.v, k[:, 0], v[:, 0], li, pos, scale,
-            hkv=cfg.n_kv_heads, s_limit=alen if alen < s else None)[:, None]
+            hkv=cfg.n_kv_heads, s_limit=alen if alen < s else None,
+            win_l=win, softcap=cap)[:, None]
     else:
         update_layer(cache, li, pos, t_pos, k, v)
         if fresh:
-            attn = flash_prefill(q, k, v, scale)
-        elif t == 1 and stacked:
+            # softcap, or a window narrower than the prompt: the einsum
+            # (flash_prefill routes there when given either)
+            wide = cap or (win is not None and t > win)
+            attn = (flash_prefill(q, k, v, scale, window=win, softcap=cap) if wide
+                    else flash_prefill(q, k, v, scale))
+        elif t == 1 and not (stacked and cfg.swa_window > 0 and cfg.swa_pattern > 1):
             # int8 codes and scales of layer li, read in place
             sl = lambda a: a[li, :, :alen]
             attn = flash_decode(q[:, 0], sl(cache.k), sl(cache.v), pos, scale,
+                                window=win or 0, softcap=cap,
                                 k_scale=sl(cache.k_scale),
                                 v_scale=sl(cache.v_scale))[:, None]
         else:
             kci, vci = read_layer(cache, li, cfg.n_kv_heads)
-            attn = attention(q, kci[:, :alen], vci[:, :alen], pos, t_pos, scale)
+            attn = attention(q, kci[:, :alen], vci[:, :alen], pos, t_pos, scale,
+                             window=win, softcap=cap)
     o = qmatmul(attn.reshape(b * t, cfg.n_heads * cfg.head_dim), layer.wo, wl)
+    if cfg.post_norms:
+        o = rmsnorm(o, pick(layer.attn_post_norm), cfg.rms_eps)
     x = x + o.reshape(b, t, d)
     f = _ffn(x.reshape(b * t, d), layer, cfg, wl, (pick(layer.ffn_norm), cfg.rms_eps))
+    if cfg.post_norms:
+        f = rmsnorm(f, pick(layer.ffn_post_norm), cfg.rms_eps)
     return x + f.reshape(b, t, d)
 
 
@@ -607,6 +678,8 @@ def forward(params: LlamaParams, cfg: LlamaConfig, tokens: torch.Tensor,
     cos, sin = cos[:, :, None, :], sin[:, :, None, :]
     scale = cfg.attn_scale or 1.0 / math.sqrt(cfg.head_dim)
     x = params.tok_embd[tokens.long()].float()
+    if cfg.embd_scale != 1.0:
+        x = x * cfg.embd_scale
     stacked = isinstance(params.layers, LlamaLayer)
     for li in range(cfg.n_layers):
         layer = params.layers if stacked else params.layers[li]
@@ -619,6 +692,8 @@ def forward(params: LlamaParams, cfg: LlamaConfig, tokens: torch.Tensor,
         t_out = 1
     logits = qmatmul(x.reshape(b * t_out, cfg.d_model), params.output,
                      prenorm=(params.out_norm, cfg.rms_eps))
+    if cfg.final_softcap:
+        logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
     return logits.reshape(b, t_out, -1), cache
 
 
@@ -639,7 +714,8 @@ def forward_paged_decode(params: LlamaParams, cfg: LlamaConfig,
     stacked layers and folds into the FFN's products on unrolled ones.
     Returns (logits f32 [R, V], paged)."""
     from ..runtime.paged import paged_attend, write_token_kv
-    for name in ("swa_window", "alibi", "kv_lora_rank"):
+    for name in ("swa_window", "attn_softcap", "final_softcap", "post_norms",
+                 "ffn_gelu", "alibi", "kv_lora_rank"):
         if getattr(cfg, name, 0):
             raise NotImplementedError(f"paged decode with {name} is not ported")
     stacked = isinstance(params.layers, LlamaLayer)

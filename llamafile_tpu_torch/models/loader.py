@@ -1,5 +1,6 @@
 """GGUF -> device parameters for the port (llama / mistral, dense FFN or
-Mixtral-style routed experts).
+Mixtral-style routed experts; gemma2, with its sandwich norms and its head
+tied to the embedding).
 
 Counterpart of llamafile_tpu/models/loader.py: tensor bytes flow mmap ->
 repack (numpy) -> device; `fuse_projections` then builds the fused qkv and
@@ -92,7 +93,7 @@ def fuse_projections(params: LlamaParams, cfg: LlamaConfig) -> LlamaParams:
 
 
 def load_llama(path: str, device="cuda", fuse: bool = True):
-    """Load a llama/mistral GGUF into (config, params, tokenizer, reader) on
+    """Load a llama/mistral/gemma2 GGUF into (config, params, tokenizer, reader) on
     `device`. Tensor formats other than F32/F16/BF16/Q8_0/Q4_K/Q5_K/Q6_K
     raise NotImplementedError naming the format. Files whose layers mix
     formats (Q4_K_M, Q4_K_S, Q5_K_M) give per-layer weights that the
@@ -114,6 +115,7 @@ def load_llama(path: str, device="cuda", fuse: bool = True):
                          "ffn_gate_shexp.weight", "ffn_gate_inp_shexp.weight"):
             if p + unported in reader:
                 raise NotImplementedError(f"{p}{unported} is not ported yet")
+        opt = lambda nm: _load_vec(reader, p + nm, dev) if p + nm in reader else None
         ffn = (dict(gate_inp=_load_qtensor(reader, p + "ffn_gate_inp.weight", dev),
                     experts=_load_experts(reader, p, cfg, fuse, dev)) if moe else dict(
             w_gate=_load_qtensor(reader, p + "ffn_gate.weight", dev),
@@ -126,6 +128,9 @@ def load_llama(path: str, device="cuda", fuse: bool = True):
             wk=_load_qtensor(reader, p + "attn_k.weight", dev),
             wv=_load_qtensor(reader, p + "attn_v.weight", dev),
             wo=_load_qtensor(reader, p + "attn_output.weight", dev),
+            # gemma2's sandwich norms
+            attn_post_norm=opt("post_attention_norm.weight"),
+            ffn_post_norm=opt("post_ffw_norm.weight"),
             **ffn))
     embd = torch.from_numpy(reader.tensor_f32("token_embd.weight")).to(
         dev).to(torch.bfloat16)

@@ -16,6 +16,12 @@ from ..device import resolve_device
 from ..ops.repack import QTensor, stack_experts
 from .llama import LlamaConfig, LlamaLayer, LlamaParams
 
+GEMMA2_9B = dict(d_model=3584, n_heads=16, n_kv_heads=8, head_dim=256, d_ff=14336,
+                 n_vocab=256000, rms_eps=1e-6, max_context=8192, rope_neox=True,
+                 embd_scale=3584 ** 0.5, ffn_gelu=True, attn_softcap=50.0,
+                 final_softcap=30.0, swa_window=4096, swa_pattern=2, post_norms=True,
+                 head_quant="Q6_K", centered=True)
+
 # named configs (shapes follow the public model cards; weights random)
 PRESETS = {
     "tiny": dict(n_layers=2, d_model=256, n_heads=4, n_kv_heads=2, d_ff=512,
@@ -63,6 +69,22 @@ PRESETS = {
     # card-vs-CPU checks of decode at head_dim 256
     "gemma-2b-widths-2l": dict(n_layers=2, d_model=2048, n_heads=8, n_kv_heads=1,
                                d_ff=16384, n_vocab=256000, max_context=8192),
+    # Gemma-2-9B's published widths (its model card and config.json: 42
+    # layers, d 3584, 16 query heads over 8 KV heads of head_dim 256, d_ff
+    # 14336, vocab 256000, rms eps 1e-6, context 8192, GELU-tanh, a 4096
+    # window on every other layer, softcaps 50 / 30, sandwich norms) with
+    # the gemma2 features the loader sets; the head, tied to the embedding
+    # in the model, is a separate random matrix in Q6_K, the format
+    # llama.cpp's Q4_K_M gives a tied embedding
+    "gemma-2-9b": dict(n_layers=42, **GEMMA2_9B),
+    # the same widths at two layers, distinct weights: card-vs-plain checks.
+    # centered: Q4_K weights of mean zero, as a trained checkpoint's are. The
+    # other presets' (code 0..15 times a scale, plus a bias in [-0.1, 0])
+    # have a mean of about 0.029, whose common mode drives most gate outputs
+    # far into GELU-tanh's negative tail, where 1 + tanh(z) cancels: there a
+    # 0.2% parting of the gate became 17% of the FFN output, kernels and
+    # plain versions agreeing on every op's own inputs
+    "gemma-2-9b-2l": dict(n_layers=2, **GEMMA2_9B),
     "tiny-moe": dict(n_layers=2, d_model=256, n_heads=4, n_kv_heads=2, d_ff=512,
                      n_vocab=1024, max_context=2048, n_experts=4,
                      n_experts_used=2, moe_norm_topk=True),
@@ -70,9 +92,11 @@ PRESETS = {
 
 
 def _rand_qtensor(gen: Optional[torch.Generator], n: int, k: int, quant: str,
-                  device) -> QTensor:
+                  device, centered: bool = False) -> QTensor:
     """Random QTensor in the production layout (storage N padded to 2048);
-    on the meta device (gen None) the layout without data."""
+    on the meta device (gen None) the layout without data. centered: a Q4_K
+    group's bias is -(6.5 .. 8.5) times its scale, so that its weights have
+    a mean near zero."""
     if quant in ("F16", "BF16", "F32"):
         qs = torch.randn((k, n), generator=gen, device=device) * 0.02
         return QTensor("dense", (n, k), 0, qs.to(torch.bfloat16))
@@ -98,8 +122,12 @@ def _rand_qtensor(gen: Optional[torch.Generator], n: int, k: int, quant: str,
                        dtype=torch.uint8)
     scales = torch.empty((k // 32, ns), device=device).uniform_(
         1e-3, 2e-2, generator=gen)
-    bias = torch.empty((k // 32, ns), device=device).uniform_(
-        -0.1, 0.0, generator=gen)
+    if centered:
+        bias = -scales * torch.empty((k // 32, ns), device=device).uniform_(
+            6.5, 8.5, generator=gen)
+    else:
+        bias = torch.empty((k // 32, ns), device=device).uniform_(
+            -0.1, 0.0, generator=gen)
     return QTensor("q4b", (n, k), 32, qs, scales.to(torch.bfloat16),
                    bias.to(torch.bfloat16))
 
@@ -115,14 +143,16 @@ def make_synthetic_llama(preset: str = "tiny", quant: str = "Q4_K",
     kw = dict(PRESETS[preset])
     rope_theta = kw.pop("rope_theta", 10000.0)
     share_layers = kw.pop("share_layers", False)
-    cfg = LlamaConfig(head_dim=kw["d_model"] // kw["n_heads"],
-                      rope_theta=rope_theta, **kw)
+    head_quant = kw.pop("head_quant", quant)
+    centered = kw.pop("centered", False)
+    kw.setdefault("head_dim", kw["d_model"] // kw["n_heads"])
+    cfg = LlamaConfig(rope_theta=rope_theta, **kw)
     gen = None
     if dev.type != "meta":
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
     d, h, kvh, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    rq = lambda n, k: _rand_qtensor(gen, n, k, quant, dev)
+    rq = lambda n, k: _rand_qtensor(gen, n, k, quant, dev, centered)
     layers = []
     for _ in range(1 if share_layers else cfg.n_layers):
         attn = dict(wq=rq(h * hd, d), wk=rq(kvh * hd, d), wv=rq(kvh * hd, d),
@@ -137,15 +167,21 @@ def make_synthetic_llama(preset: str = "tiny", quant: str = "Q4_K",
         else:
             ffn = dict(w_gate=rq(cfg.d_ff, d), w_up=rq(cfg.d_ff, d),
                        w_down=rq(d, cfg.d_ff))
+        if cfg.post_norms:                  # gemma2's sandwich norms, random
+            attn.update({f: torch.empty(d, device=dev).uniform_(0.5, 1.5, generator=gen)
+                         for f in ("attn_post_norm", "ffn_post_norm")})
         layers.append(LlamaLayer(attn_norm=torch.ones(d, device=dev),
                                  ffn_norm=torch.ones(d, device=dev), **attn, **ffn))
     if share_layers:
         layers = layers * cfg.n_layers       # the same buffers in every layer
     embd = (torch.randn((cfg.n_vocab, d), generator=gen, device=dev)
             * 0.02).to(torch.bfloat16)
-    params = LlamaParams(tok_embd=embd, layers=layers,
-                         out_norm=torch.ones(d, device=dev),
-                         output=rq(cfg.n_vocab, d))
+    # gemma2 presets: the final norm at 1/8, so that the random head's
+    # logits (std about 6.5) stay under the final softcap of 30 as a trained
+    # model's do; at 1 most of them saturate it and the greedy token is a tie
+    out_norm = torch.full((d,), 0.125 if cfg.final_softcap else 1.0, device=dev)
+    params = LlamaParams(tok_embd=embd, layers=layers, out_norm=out_norm,
+                         output=_rand_qtensor(gen, cfg.n_vocab, d, head_quant, dev))
     if fuse:
         from .loader import fuse_projections
         params = fuse_projections(params, cfg)

@@ -6,7 +6,8 @@ Counterpart of llamafile_tpu/ops/attention.py for what the port reaches:
   flash_decode_write_stacked <- _flash_decode_write_kernel (kernel
       flash_decode_write, csrc/flash_decode_write.cu): T = 1 GQA attention
       over layer li of the flat [L, B, S, Hkv*D] bf16 cache, with the new
-      row written in place at pos.
+      row written in place at pos; its sliding window and softcap options
+      too (gemma2).
   flash_prefill <- the upstream Pallas flash_attention (kernel
       flash_prefill, csrc/flash_prefill.cu) for T >= 128, T % 128 == 0,
       D in (64, 128, 256), no window and no softcap, in its numerics; the
@@ -18,7 +19,8 @@ Counterpart of llamafile_tpu/ops/attention.py for what the port reaches:
   flash_decode, flash_decode_stacked <- _flash_decode_kernel and
       _flash_decode_qt_kernel (kernel flash_decode, csrc/flash_decode.cu):
       T = 1 GQA attention over one layer of a dense cache, bf16 or int8
-      codes with f32 scales, read in place.
+      codes with f32 scales, read in place, with the window and softcap
+      options.
 
 Decode attention routes by shape as the reference does, on every device and
 before any launch (decode_route): a dense cache takes the f32 einsum for
@@ -234,8 +236,10 @@ def flash_decode_write_stacked(q, k3, v3, k_new, v_new, li: int, pos,
     [li, b, pos[b]] (the JAX package donated and aliased these buffers);
     k_new/v_new [B, Hkv, D] roped new rows; li a Python int; pos int32 [B]
     on the cache's device. s_limit bounds the streamed positions (the
-    attn_len bucket). Shapes of the einsum route (decode_route) write the
-    rows, then run flash_decode_stacked, as the reference does. On the card
+    attn_len bucket). win_l (None: every key) shows only the cache rows j >
+    pos - win_l; softcap (0: none) caps every score, the new token's too.
+    Shapes of the einsum route (decode_route) write the rows, then run
+    flash_decode_stacked, as the reference does. On the card
     a call is one launch of B * Hkv * head_chunks(Hq / Hkv) thread-block
     clusters of 8 blocks, with no scratch in device memory. Returns attn
     [B, Hq, D] f32."""
@@ -251,10 +255,6 @@ def flash_decode_write_stacked(q, k3, v3, k_new, v_new, li: int, pos,
     if q.device.type == "cpu":
         return flash_decode_write_plain(q, k3, v3, k_new, v_new, li, pos,
                                         scale, hkv, s_eff, win_l, softcap)
-    if win_l is not None or softcap:
-        raise NotImplementedError(
-            "the sliding window and softcap of _flash_decode_write_kernel are "
-            "not in the CUDA kernel yet")
     _check_group("flash_decode_write", d, hq, hkv)
     qf = q.float().contiguous()
     kn = k_new.float().reshape(b, hkv * d).contiguous()
@@ -271,11 +271,11 @@ def flash_decode_write_stacked(q, k3, v3, k_new, v_new, li: int, pos,
                          "matching q and li")
     out = torch.empty((b, hq, d), dtype=torch.float32, device=q.device)
     f = _build.fn("flash_decode_write", "flash_decode_write",
-                  [P] * 7 + [I] * 7 + [F, P])
+                  [P] * 7 + [I] * 8 + [F, F, P])
     _build.check(f(qf.data_ptr(), k3.data_ptr(), v3.data_ptr(), kn.data_ptr(),
                    vn.data_ptr(), pos32.data_ptr(), out.data_ptr(), li, b,
-                   s_len, hq, hkv, d, s_eff, float(scale),
-                   torch.cuda.current_stream(q.device).cuda_stream),
+                   s_len, hq, hkv, d, s_eff, int(win_l or 0), float(scale),
+                   float(softcap or 0.0), torch.cuda.current_stream(q.device).cuda_stream),
                  "flash_decode_write")
     flash_decode_write_stacked.launches += 1
     return out
@@ -339,9 +339,6 @@ def _flash_decode_launch(q, k, v, k_scale, v_scale, pos, scale: float,
     kernel reads it in place), bf16, or int8 with [B, s_eff, Hkv] f32
     scales: one launch of B * Hkv * head_chunks(G, FD_CHUNK_HEADS)
     thread-block clusters, with no scratch in device memory."""
-    if softcap:
-        raise NotImplementedError("the softcap of _flash_decode_kernel is not "
-                                  "in the CUDA kernel yet")
     b, hq, d = q.shape
     _, s_eff, hkv, dk = k.shape
     quant = k_scale is not None
@@ -365,13 +362,14 @@ def _flash_decode_launch(q, k, v, k_scale, v_scale, pos, scale: float,
     if pos32.device != q.device or pos32.shape != (b,):
         raise ValueError(f"flash_decode: pos must be int32 [{b}] on {q.device}")
     out = torch.empty((b, hq, d), dtype=torch.float32, device=q.device)
-    f = _build.fn("flash_decode", "flash_decode", [P] * 7 + [I] * 5 + [L, L] + [I] * 2 + [F, P])
+    f = _build.fn("flash_decode", "flash_decode",
+                  [P] * 7 + [I] * 5 + [L, L] + [I] * 2 + [F, F, P])
     _build.check(f(qf.data_ptr(), k.data_ptr(), v.data_ptr(),
                    k_scale.data_ptr() if quant else None,
                    v_scale.data_ptr() if quant else None, pos32.data_ptr(),
                    out.data_ptr(), b, hq, hkv, d, s_eff, k.stride(0),
                    k_scale.stride(0) if quant else 0, int(window or 0), int(quant),
-                   float(scale),
+                   float(scale), float(softcap or 0.0),
                    torch.cuda.current_stream(q.device).cuda_stream), "flash_decode")
     flash_decode.launches += 1
     return out
@@ -384,7 +382,9 @@ def flash_decode(q, k, v, pos, scale: float, window: int = 0,
     q [B, Hq, D] f32; k, v [B, S, Hkv, D] bf16, or int8 codes with k_scale,
     v_scale [B, S, Hkv] f32 (the reference's f32 dequantized K/V, computed
     in the kernel's registers); views of a cache layer are read in place.
-    pos int32 [B] is each row's last visible index. Returns [B, Hq, D] f32.
+    pos int32 [B] is each row's last visible index; window (0: none) shows
+    only keys j > pos - window, softcap (0: none) caps every score. Returns
+    [B, Hq, D] f32.
     The reference's routing: S % 256, D % 128 or Hq > 256 take the f32
     einsum; otherwise the flash_decode kernel, its plain version for CPU
     tensors."""

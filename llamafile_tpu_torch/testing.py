@@ -229,10 +229,14 @@ def fdw_rank_ranges(n_vis: int, cs: int):
 
 
 def fdw_split_emulate(q, k3, v3, k_new, v_new, li: int, pos, scale: float,
-                      hkv: int, s_eff: int, cs: int, drop_rank=None):
+                      hkv: int, s_eff: int, cs: int, drop_rank=None, win_l=None,
+                      softcap: float = 0.0):
     """flash_decode_write's schedule in PyTorch, for the CPU tests (nothing
-    of the model path calls it). For each batch row and kv head: rank r of
-    the cluster takes its fdw_rank_ranges rows; warp w of the rank takes
+    of the model path calls it). For each batch row and kv head: the
+    visible rows are [vis_lo, min(pos, s_eff)), vis_lo = max(0, pos - win_l
+    + 1) under a window (else 0); rank r of the cluster takes its
+    fdw_rank_ranges rows of them; every score (the new token's too) is
+    softcapped when softcap > 0; warp w of the rank takes
     the 16-row slabs w, w + 4, ... with one max and one rescale of acc a
     slab (q and p rounded to bf16, l summing the f32 p); the warps'
     partials merge in warp order, the ranks' in rank order with the new
@@ -243,13 +247,15 @@ def fdw_split_emulate(q, k3, v3, k_new, v_new, li: int, pos, scale: float,
     b, hq, d = q.shape
     g = hq // hkv
     bf = lambda a: a.to(torch.bfloat16).float()
+    cap = (lambda s: softcap * torch.tanh(s / softcap)) if softcap else (lambda s: s)
     neg = torch.tensor(NEG_INF)
     out = torch.empty((b, hkv, g, d))
     for bi in range(b):
         qb = bf(q[bi].float()).reshape(hkv, g, d)
-        n_vis = max(0, min(int(pos[bi]), s_eff))
-        kc = k3[li, bi, :n_vis].float().reshape(n_vis, hkv, d)
-        vc = v3[li, bi, :n_vis].float().reshape(n_vis, hkv, d)
+        vis_lo = max(0, int(pos[bi]) - win_l + 1) if win_l else 0
+        n_vis = max(0, min(int(pos[bi]), s_eff) - vis_lo)
+        kc = k3[li, bi, vis_lo:vis_lo + n_vis].float().reshape(n_vis, hkv, d)
+        vc = v3[li, bi, vis_lo:vis_lo + n_vis].float().reshape(n_vis, hkv, d)
         ranks = []
         for r, (lo, hi) in enumerate(fdw_rank_ranges(n_vis, cs)):
             warps = []
@@ -260,7 +266,7 @@ def fdw_split_emulate(q, k3, v3, k_new, v_new, li: int, pos, scale: float,
                 if r != drop_rank:
                     for j0 in range(lo + FDW_SLAB * w, hi, FDW_SLAB * FDW_WARPS):
                         j1 = min(j0 + FDW_SLAB, hi)
-                        s = torch.einsum("hgd,jhd->hgj", qb, kc[j0:j1]) * scale
+                        s = cap(torch.einsum("hgd,jhd->hgj", qb, kc[j0:j1]) * scale)
                         mn = torch.maximum(m, s.amax(-1))
                         corr = torch.exp(m - mn)
                         p = torch.exp(s - mn[..., None])
@@ -279,7 +285,7 @@ def fdw_split_emulate(q, k3, v3, k_new, v_new, li: int, pos, scale: float,
             ranks.append((mx, l_r, acc_r))
         kn = k_new[bi].float().reshape(hkv, d)
         vn = v_new[bi].float().reshape(hkv, d)
-        sn = torch.einsum("hgd,hd->hg", qb, kn) * scale
+        sn = cap(torch.einsum("hgd,hd->hg", qb, kn) * scale)
         mx = torch.maximum(torch.stack([rm for rm, _, _ in ranks]).amax(0)
                            if ranks else neg, sn)
         lsum = torch.zeros((hkv, g))

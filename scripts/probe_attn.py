@@ -32,7 +32,14 @@ served rows; D = 256 at Gemma-2-9B's 16 over 8 and Gemma-2B's 8 over 1);
 flash_prefill at PREFILL (T = 512, 1024 and 2048 at llama3-8b's 32 over 8,
 D = 64 at TinyLlama's 32 over 4, D = 256 at Gemma-2B's 8 over 1 and
 Gemma-2-9B's 16 over 8); flash_decode_write and flash_decode at phase 2's
-positions for each --shapes hq/hkv/d.
+positions for each --shapes hq/hkv/d, and with gemma2's options at
+chip_smoke.py's GEMMA_HEADS and GEMMA_POS (option_cases: flash_decode_write
+with the window of 4096 and the softcap of 50, flash_decode with the softcap,
+then the softcap and the window, bf16 flat and int8, over a cache of 8192
+positions), where the parent, which has no softcap (and no window in
+flash_decode_write), runs the same call without the options (each rival
+is then checked against the plain version without them), and so does
+the kernel ("bare").
 
 --check builds and checks only; --only times a subset of the rivals;
 --sass DIR writes each library's SASS (cuobjdump) there and prints the
@@ -242,18 +249,42 @@ def decode_cases(torch, dev, gen, hq, hkv, hd, kernels):
     return out
 
 
+def option_cases(torch, dev, gen, kernels):
+    """The same for gemma2's options (chip_smoke.py gemma_option_cases: 8
+    layers of a GEMMA_S cache at GEMMA_HEADS and GEMMA_POS). Each case also
+    carries the call without the options and its plain version: the parent,
+    which has no softcap (and flash_decode_write no window), and the kernel
+    "bare" make that call."""
+    import chip_smoke as C
+    hq, hkv, hd = C.GEMMA_HEADS
+    return [(kernel, (hq, hkv, hd), label, lambda i, run=run: run(i, True),
+             lambda i, plain=plain: plain(i, True), tol, err_fn, None, work, 8,
+             (lambda i, run=run: run(i, False), lambda i, plain=plain: plain(i, False)))
+            for kernel, label, run, plain, tol, err_fn, work in C.gemma_option_cases(
+                torch, dev, gen) if kernel in kernels]
+
+
 def parent_adapter(kernel, old, own_types):
     """A callable with this tree's C signature of `kernel` that launches the
     older checkout's entry `old`: paged_attention's older entry takes its
     split and f32 scratch, which are computed and allocated here as its
-    wrapper did (ops/attention.py of that checkout), host work and all; the
-    other entries are this tree's."""
+    wrapper did (ops/attention.py of that checkout), host work and all;
+    flash_decode_write's older entry takes no window and no softcap, and
+    flash_decode's no softcap: those are left out of the call (the option
+    cases give the parent the call without them);
+    the other entries are this tree's."""
     import ctypes
     import torch
     from llamafile_tpu_torch.ops.attention import head_chunks
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    if kernel == "flash_decode_write":
+        f = probe_build.entry(old, kernel, own_types[:14] + [F, P])
+        return lambda *a: f(*a[:14], a[15], a[17])
+    if kernel == "flash_decode":
+        f = probe_build.entry(old, kernel, own_types[:16] + [F, P])
+        return lambda *a: f(*a[:17], a[18])
     if kernel != "paged_attention":
         return probe_build.entry(old, kernel, own_types)
-    P, I = ctypes.c_void_p, ctypes.c_int
     f = probe_build.entry(old, kernel, [P] * 11 + [I] * 10 + [P])
 
     def call(q, k, v, ks, vs, lengths, tables, out, r, hq, hkv, d, n_pages, ps, maxp, int8,
@@ -306,7 +337,8 @@ def main():
     ap.add_argument("--kernels", default="paged_attention,flash_prefill",
                     help=f"comma-separated, of {','.join(KERNELS)}")
     ap.add_argument("--shapes", default=SHAPES,
-                    help="hq/hkv/d of flash_decode_write and flash_decode, comma-separated")
+                    help="hq/hkv/d of flash_decode_write and flash_decode, comma-separated "
+                         "(empty: gemma2's option cases alone)")
     ap.add_argument("--only", default="", help="time only these rivals (kernel always)")
     ap.add_argument("--check", action="store_true", help="build and check only")
     ap.add_argument("--sass", default="", help="write each library's SASS into this directory")
@@ -362,13 +394,19 @@ def main():
         groups.append(lambda: paged_cases(torch, dev, gen))
     if "flash_prefill" in kernels:
         groups.append(lambda: prefill_cases(torch, dev, gen))
-    for shape in args.shapes.split(",") if {"flash_decode", "flash_decode_write"} & set(
-            kernels) else ():
+    for shape in filter(None, args.shapes.split(",")) if {
+            "flash_decode", "flash_decode_write"} & set(kernels) else ():
         hq, hkv, hd = (int(x) for x in shape.split("/"))
         groups.append(lambda hq=hq, hkv=hkv, hd=hd: decode_cases(torch, dev, gen, hq, hkv, hd,
                                                                   kernels))
+    if {"flash_decode", "flash_decode_write"} & set(kernels):
+        groups.append(lambda: option_cases(torch, dev, gen, kernels))
     for make in groups:
-        for kernel, (hq, hkv, hd), label, run, plain, tol, err_fn, lib, work, cycle in make():
+        for kernel, (hq, hkv, hd), label, run, plain, tol, err_fn, lib, work, cycle, *bare \
+                in make():
+            # a case with options: its rivals, and the kernel "bare", make the
+            # call without them (bare_run), held by the plain version bare_plain
+            bare_run, bare_plain = bare[0] if bare else (None, None)
             what = f"{kernel} Hq={hq} Hkv={hkv} D={hd} (G={hq // hkv}) {label}"
             if kernel not in fns:         # the wrapper's first call sets its argtypes
                 run(0)
@@ -382,13 +420,19 @@ def main():
                 name for name, (k, _, takes) in VARIANTS.items()
                 if k == kernel and name in libs and takes(label, hd, hq // hkv)]
                 if not only or r in only]
+            runs = {r: run for r in ["kernel"] + rivals}
+            if bare_run is not None:
+                rivals = ["parent", "bare"]
+                runs.update(parent=bare_run, bare=bare_run)
+                fns[kernel]["bare"] = fns[kernel]["kernel"]
             want = plain(0)
             outs = {}
             for which in ["kernel"] + rivals:
                 use(kernel, which)
-                outs[which] = run(0).clone()
+                outs[which] = runs[which](0).clone()
                 torch.cuda.synchronize()
-                e = err_fn(outs[which], want)
+                e = err_fn(outs[which], want if which == "kernel" or bare_plain is None
+                           else bare_plain(0))
                 if not e <= tol:
                     raise AssertionError(f"probe_attn: {which} disagrees with the plain "
                                          f"version at {what}: {e} > {tol}")
@@ -396,13 +440,16 @@ def main():
             again = torch.equal(run(0), outs["kernel"])
             rec = {"shape": what, "repeat_bitwise": again, "bitwise_equal": {
                 r: torch.equal(outs["kernel"], outs[r]) for r in rivals}}
+            if bare_run is not None:       # the kernel without the options against the parent
+                rec["bitwise_equal"] = {"bare vs parent": torch.equal(outs["bare"],
+                                                                      outs["parent"])}
             line = f"{what}: two launches bitwise {again}"
             if not args.check:
                 ms = {which: [] for which in ["kernel"] + rivals}
                 for rival in rivals or ["kernel"]:
                     for which in ("kernel", rival, rival, "kernel"):
                         use(kernel, which)
-                        ms[which].append(C.time_ms(torch, run, cycle))
+                        ms[which].append(C.time_ms(torch, runs[which], cycle))
                 use(kernel, "kernel")
                 rec["ms"] = ms
                 line += "; kernel " + " ".join(f"{t:.4f}" for t in ms["kernel"]) + " ms"
@@ -410,9 +457,10 @@ def main():
                     line += f", {r} " + " ".join(f"{t:.4f}" for t in ms[r]) + " ms"
                 if lib is not None:
                     rec["sdpa_ms"] = C.time_ms(torch, lib, cycle)
+                    line += f"; sdpa {rec['sdpa_ms']:.4f} ms"
+                if work is not None:
                     rec["bound_ms"], rec["bound_by"] = C.bound_ms(*work)
-                    line += (f"; sdpa {rec['sdpa_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
-                             f"({rec['bound_by']})")
+                    line += f"; bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})"
             print(line + f"; bitwise equal to the kernel: {rec['bitwise_equal']}", flush=True)
             if not again:
                 raise AssertionError(f"probe_attn: two launches differ at {what}")

@@ -332,7 +332,20 @@ def test_flash_decode_write_d256_matches_plain(dev, hq, hkv, pos, s_limit):
     _fdw_check(dev, hq, hkv, pos, s_limit, 256)
 
 
-def _fdw_check(dev, hq, hkv, pos, s_limit, d):
+# gemma2's options: the window (past and inside the visible rows) and the
+# softcap, at 50 and at 1.5 (where it bends every score)
+OPTION_CASES = [(100, 0.0), (None, 50.0), (100, 50.0), (4096, 1.5), (700, 1.5)]
+
+
+@pytest.mark.parametrize("hq,hkv,d", [(16, 8, 256), (32, 8, 128), (128, 8, 128), (8, 1, 256)])
+@pytest.mark.parametrize("win,cap", OPTION_CASES)
+def test_flash_decode_write_options_match_plain(dev, hq, hkv, d, win, cap):
+    """The window (the visible rows start at pos - win + 1, split over the
+    ranks from there) and the softcap (every score, the new token's too)."""
+    _fdw_check(dev, hq, hkv, (700, 2000), None, d, win, cap)
+
+
+def _fdw_check(dev, hq, hkv, pos, s_limit, d, win=None, cap=0.0):
     gen = torch.Generator(device=dev).manual_seed(hq * 10 + hkv + (d if d != 128 else 0))
     nl, b, s = 3, 2, 2048
     k3 = torch.randn((nl, b, s, hkv * d), generator=gen, device=dev).to(torch.bfloat16)
@@ -345,14 +358,18 @@ def _fdw_check(dev, hq, hkv, pos, s_limit, d):
     k3c, v3c = k3.clone(), v3.clone()
     n0 = A.flash_decode_write_stacked.launches
     got = A.flash_decode_write_stacked(q, k3, v3, kn, vn, 1, p, 0.088, hkv,
-                                       s_limit=s_limit)
+                                       s_limit=s_limit, win_l=win, softcap=cap)
     assert A.flash_decode_write_stacked.launches == n0 + 1
     s_eff = s_limit if s_limit is not None else s
-    want = A.flash_decode_write_plain(q, k3b, v3b, kn, vn, 1, p, 0.088, hkv, s_eff)
+    want = A.flash_decode_write_plain(q, k3b, v3b, kn, vn, 1, p, 0.088, hkv, s_eff, win, cap)
     assert_close(got, want, 2e-2)
     assert torch.equal(k3, k3b) and torch.equal(v3, v3b)
+    if cap == 1.5 or win == 100:                        # the options change the output
+        plain = A.flash_decode_write_plain(q, k3b.clone(), v3b.clone(), kn, vn, 1, p, 0.088,
+                                           hkv, s_eff)
+        assert (got - plain).abs().max() > 2e-2 * plain.abs().max()
     again = A.flash_decode_write_stacked(q, k3c, v3c, kn, vn, 1, p, 0.088, hkv,
-                                         s_limit=s_limit)
+                                         s_limit=s_limit, win_l=win, softcap=cap)
     assert A.flash_decode_write_stacked.launches == n0 + 2
     assert torch.equal(again, got)
     assert torch.equal(k3c, k3) and torch.equal(v3c, v3)
@@ -702,7 +719,15 @@ def test_flash_decode_window_matches_plain(dev, int8, hq, hkv, d, window):
     _fd_check(dev, int8, hq, hkv, (700, 2047), 2048, d, window)
 
 
-def _fd_check(dev, int8, hq, hkv, pos, s_eff, d, window=0):
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("hq,hkv,d", [(16, 8, 256), (32, 8, 128), (8, 1, 256)])
+@pytest.mark.parametrize("window,cap", [(0, 50.0), (0, 1.5), (100, 1.5), (1500, 50.0)])
+def test_flash_decode_softcap_matches_plain(dev, int8, hq, hkv, d, window, cap):
+    """gemma2's score softcap, alone and with the window."""
+    _fd_check(dev, int8, hq, hkv, (700, 2047), 2048, d, window, cap)
+
+
+def _fd_check(dev, int8, hq, hkv, pos, s_eff, d, window=0, cap=0.0):
     gen = torch.Generator(device=dev).manual_seed(hq * 10 + hkv + s_eff + int8 + window
                                                   + (d if d != 128 else 0))
     q, (k, v), (ks, vs) = decode_case(gen, dev, 2, 2048, hq, hkv, int8, d)
@@ -710,21 +735,26 @@ def _fd_check(dev, int8, hq, hkv, pos, s_eff, d, window=0):
     n0 = A.flash_decode.launches
     if int8:
         sl = lambda t: t[1, :, :s_eff]
-        args = (q, sl(k), sl(v), p, 0.088, window)
+        args = (q, sl(k), sl(v), p, 0.088, window, cap)
         run = lambda: A.flash_decode(*args, k_scale=sl(ks), v_scale=sl(vs))
         got = run()
         want = A.flash_decode_plain(*args, k_scale=sl(ks), v_scale=sl(vs))
         assert row_rel_err(got, want) <= 1e-5
-        more = A.flash_decode_plain(q, sl(k), sl(v), p + 1, 0.088, window,
+        more = A.flash_decode_plain(q, sl(k), sl(v), p + 1, 0.088, window, cap,
                                     k_scale=sl(ks), v_scale=sl(vs))
         assert row_rel_err(more, want) > 1e-5           # one masked key made visible
     else:
         kc, vc = (t[1, :, :s_eff].reshape(2, s_eff, hkv, d) for t in (k, v))
-        run = ((lambda: A.flash_decode(q, kc, vc, p, 0.088, window)) if window else
-               (lambda: A.flash_decode_stacked(q, k, v, 1, p, 0.088, hkv, s_limit=s_eff)))
+        run = ((lambda: A.flash_decode(q, kc, vc, p, 0.088, window, cap)) if window or cap
+               else (lambda: A.flash_decode_stacked(q, k, v, 1, p, 0.088, hkv, s_limit=s_eff)))
         got = run()
-        want = A.flash_decode_plain(q, kc, vc, p, 0.088, window)
+        want = A.flash_decode_plain(q, kc, vc, p, 0.088, window, cap)
         assert row_rel_err(got, want) <= 2e-2
+    if cap == 1.5:                                      # the softcap changes the output
+        uncapped = (A.flash_decode_plain(q, sl(k), sl(v), p, 0.088, window, k_scale=sl(ks),
+                                         v_scale=sl(vs)) if int8
+                    else A.flash_decode_plain(q, kc, vc, p, 0.088, window))
+        assert row_rel_err(uncapped, want) > 2e-2
     assert A.flash_decode.launches == n0 + 1
     assert bool(torch.isfinite(got).all())
     assert torch.equal(run(), got)                      # a fixed-order merge

@@ -18,7 +18,9 @@ token last. Held here:
   ROADMAP C.6: those rows are left out of that comparison, and the plain
   version holds them);
 - a control: the emulation with one rank's partial dropped reads above that
-  tolerance (0.07-0.7 of the largest output on these inputs).
+  tolerance (0.07-0.7 of the largest output on these inputs);
+- the same with the window and softcap options (gemma2): the visible rows
+  start at pos - window + 1, and the ranks split those.
 """
 import numpy as np
 import pytest
@@ -113,6 +115,37 @@ def test_split_matches_pallas(pallas_kernels, pos, s_limit):
         for mine, ref in ((k3a, jk3), (v3a, jv3)):
             np.testing.assert_array_equal(mine.float().numpy()[keep],
                                           np.asarray(ref.astype(jnp.float32))[keep])
+
+
+# (pos per batch row, s_limit, window, softcap): the window inside and past
+# the visible rows, with and without the softcap; the softcap alone
+OPT_CASES = [((37, 1500), None, 700, 50.0), ((900, 1000), 1024, 256, 0.0),
+             ((256, 1999), None, 4096, 30.0), ((0, 700), None, None, 50.0)]
+
+
+@pytest.mark.parametrize("pos,s_limit,win,cap", OPT_CASES)
+def test_split_window_softcap(pallas_kernels, pos, s_limit, win, cap):
+    """The emulated schedule over the window's rows only (vis_lo = pos - win
+    + 1), every score softcapped, against the plain version and the Pallas
+    kernel in interpret mode with both options; a dropped rank still fails."""
+    k3, v3, q, kn, vn = _case(sum(pos) + 7)
+    q = q * 8.0                         # scores of tens: the softcap bends them
+    s_eff = s_limit or S
+    want_j, _, _ = JA.flash_decode_write_stacked(
+        jnp.asarray(q), jnp.asarray(k3, jnp.bfloat16), jnp.asarray(v3, jnp.bfloat16),
+        jnp.asarray(kn), jnp.asarray(vn), jnp.int32(1), jnp.asarray(pos, jnp.int32),
+        SCALE, hkv=Hkv, s_limit=s_limit, win_l=win, softcap=cap)
+    q_, k3a, v3a, kn_, vn_, p = _torch(k3, v3, q, kn, vn, pos)
+    want = TA.flash_decode_write_plain(q_, k3a.clone(), v3a.clone(), kn_, vn_, 1, p, SCALE,
+                                       Hkv, s_eff, win, cap)
+    assert rel_err(want, torch.from_numpy(np.asarray(want_j))) <= TOL
+    for cs in (8, 16):
+        got = fdw_split_emulate(q_, k3a.clone(), v3a.clone(), kn_, vn_, 1, p, SCALE, Hkv,
+                                s_eff, cs, win_l=win, softcap=cap)
+        assert rel_err(got, want) <= TOL, cs
+    bad = fdw_split_emulate(q_, k3a, v3a, kn_, vn_, 1, p, SCALE, Hkv, s_eff, 8,
+                            drop_rank=4, win_l=win, softcap=cap)
+    assert rel_err(bad, want) > TOL
 
 
 @pytest.mark.parametrize("cs", [8, 16])

@@ -101,6 +101,39 @@ def test_llama32_3b_shapes_and_read_bytes(preset, n_layers):
     assert TS.param_bytes(params) == want + 128256 * 3072 * 2
 
 
+def _q8b_bytes(ns: int, k: int, g: int) -> int:
+    """A q8b tensor: int8 codes, then bf16 scales per g."""
+    return k * ns + k // g * ns * 2
+
+
+@pytest.mark.parametrize("preset,n_layers", [("gemma-2-9b", 42), ("gemma-2-9b-2l", 2)])
+def test_gemma2_9b_shapes_and_read_bytes(preset, n_layers):
+    """Gemma-2-9B's published widths with the gemma2 features, fused, on the
+    meta device: the config, every weight's shape (q 4096 wide over d 3584:
+    head_dim 256 is not d / h), the post norms, the Q6_K head, and
+    decode_read_bytes from the storage layout (o and down padded from 3584
+    to 4096 columns)."""
+    cfg, params = TS.make_synthetic_llama(preset, "Q4_K", fuse=True, device="meta")
+    assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+            cfg.d_ff, cfg.n_vocab, cfg.rms_eps, cfg.max_context) == (
+        n_layers, 3584, 16, 8, 256, 14336, 256000, 1e-6, 8192)
+    assert (cfg.swa_window, cfg.swa_pattern, cfg.attn_softcap, cfg.final_softcap) == (
+        4096, 2, 50.0, 30.0)
+    assert cfg.rope_neox and cfg.ffn_gelu and cfg.post_norms and cfg.embd_scale == 3584 ** 0.5
+    for layer in params.layers:
+        assert layer.wqkv.shape == (8192, 3584) and layer.wqkv.qs.shape == (1792, 8192)
+        assert layer.wo.shape == (3584, 4096) and layer.wo.qs.shape == (2048, 4096)
+        assert layer.w_gate_up.shape == (28672, 3584) and layer.w_gate_up.il
+        assert layer.w_down.shape == (3584, 14336) and layer.w_down.qs.shape == (7168, 4096)
+        assert layer.attn_post_norm.shape == layer.ffn_post_norm.shape == (3584,)
+    assert params.output.kind == "q8b" and params.output.g == 16
+    assert params.output.qs.shape == (3584, 256000)
+    per_layer = (_q4b_bytes(8192, 3584) + _q4b_bytes(4096, 4096) + _q4b_bytes(28672, 3584)
+                 + _q4b_bytes(4096, 14336) + 4 * 3584 * 4)
+    want = n_layers * per_layer + _q8b_bytes(256000, 3584, 16) + 3584 * 4
+    assert TS.decode_read_bytes(params, cfg) == want
+
+
 @pytest.mark.parametrize("preset", ["tiny", "tiny-moe"])
 def test_meta_layout_matches_cpu_build(preset):
     """The meta device's layout carries the bytes of a built model."""
