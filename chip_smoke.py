@@ -23,7 +23,16 @@
    4096 and the softcap of 50, flash_decode (bf16 and int8) with the
    softcap and with the softcap and the window, each against its plain
    version, two launches bitwise equal, timed beside the same call without
-   the options and beside the bytes of the rows visible;
+   the options and beside the bytes of the rows visible; gemma3's window
+   of 1024 on flash_decode_write at Gemma-3-27B's 32 query heads over 16
+   KV heads (D = 128) over a cache of 4096, at pos 700 and 3000; the
+   products of Gemma-3-27B (K = 5376 and 21504, an odd count of 256-blocks)
+   and Gemma-7B: qmm_txn_m1 at qkv, o, gate|up and down, qmm_txn at the
+   24-token prefill's M = 32 (and Gemma-7B's at the 4-slot server's M =
+   4), qmm_dequant at their prefill buckets (1024 and 512) and at
+   Gemma-7B's Q6_K head for 4 rows, qmm_q8_m1 at their Q6_K heads;
+   flash_prefill at T = 1024 also at 32 over 16 heads (D 128) and 16 over
+   16 (D 256), paged_attention also at 16 over 16 (D 256);
    the unrolled prefill's qmm_planes; flash_decode and paged_attention
    over bf16 and int8 (one launch of thread-block clusters, a group of up
    to 16 heads from one K/V read; a larger group's label gives the
@@ -79,7 +88,18 @@
    4200-token prompts and 4 decode steps each (the window biting at the
    second), the kernels against the plain versions on the card
    (plain_kernels), where flash_decode_write and flash_decode run with the
-   window and softcap on a model's path; two
+   window and softcap on a model's path; gemma at Gemma-7B's widths
+   (gemma-7b-2l: 16 over 16 heads at D = 256), Q4_K stacked over a bf16
+   cache, 24- and 300-token prompts (flash_prefill on both layers at the
+   second), then the HTTP server at 4 slots with launches exact and the
+   shortest and longest prompts' requests against themselves served alone;
+   gemma3 at Gemma-3-27B's widths (gemma-3-27b-6l: layer 5 global), Q4_K
+   stacked over a bf16 cache and by the Q4_K_M recipe unrolled over an int8
+   cache, 24-, 600- and 1100-token prompts (bucket 1024: every layer's
+   prefill on flash_prefill, the windowed ones on the second rope table;
+   bucket 2048: the windowed layers' prefill on the einsum, layer 5's on
+   flash_prefill) and 2 decode steps each, past the window of 1024 at
+   1100; two
    layers at Mixtral-8x7B width (mixtral-8x7b-2l): Q4_K stacked (24-token
    prompt: qmm_txn_g; a decode step on the routed fused FFN), the Q4_K_M
    recipe unrolled (300-token prompt: layer 0's qmm_planes_g, layer 1's
@@ -162,7 +182,12 @@
    the window on the even layers and the softcap on all), the decode rate
    against its weight-read bound; the 1000-token prompt's TTFT, median of
    3.
-   Phases run in the order 4, 4b, 4d, 5, 4f, 4e, 4c, 6, 7, 8, 9. Then, after every timed
+10. gemma-3-27b (Gemma-3-27B's widths, 62 layers, the gemma3 branches),
+   Q4_K stacked with a Q6_K head: as phase 9, the 1000-token prompt's
+   prefill launching flash_prefill on all 62 layers (bucket 1024, the
+   window's width); then, as the last timed run is over, that prefill's
+   device time by kernel (torch.profiler).
+   Phases run in the order 4, 4b, 4d, 5, 4f, 4e, 4c, 6, 7, 8, 9, 10. Then, after every timed
    run (so that no profiler session of the process precedes a timing),
    profiles: a 2-step decode chunk of each model (7a, 7b, and 4c, 4 and
    4f's int8 on rebuilt engines) under torch.profiler (the device's busy
@@ -176,7 +201,7 @@ before the launches line.
 
 Any failure raises and exits non-zero. The last line of standard output is
 {"ok": true, "device": {...}}; the lines before it hold every kernel's
-launches summed over the counted runs of phases 4 to 9 ({"launches": ...},
+launches summed over the counted runs of phases 4 to 10 ({"launches": ...},
 with qmm_planes' launches on a stacked layer's view apart as
 "qmm_planes_stacked"), the kernel table (one JSON object with an entry a
 kernel: the numbers of its first shape, the main path's heaviest, every
@@ -327,12 +352,21 @@ def flavour_note() -> str:
     return "" if Q.q4b_flavour() == "txn" else f", LLAMAFILE_TPU_Q4B={Q.Q4B_KERNEL}"
 
 
+# The products of Gemma-3-27B and Gemma-7B by (label, storage N,
+# K, layers cycled so that the replays spill the L2)
+GEMMA_PRODUCTS = (("Gemma-3-27B qkv", 8192, 5376, 4), ("Gemma-3-27B o (N 5376)", 6144, 4096, 6),
+                  ("Gemma-3-27B gate_up", 43008, 5376, 2),
+                  ("Gemma-3-27B down (N 5376)", 6144, 21504, 2),
+                  ("Gemma-7B qkv", 12288, 3072, 4), ("Gemma-7B o (N 3072)", 4096, 4096, 8),
+                  ("Gemma-7B gate_up", 49152, 3072, 2),
+                  ("Gemma-7B down (N 3072)", 4096, 24576, 2))
+
+
 def kernel_phases(torch, dev, gen):
     from llamafile_tpu_torch.ops import qmatmul as Q
-    from llamafile_tpu_torch.ops import attention as A
     from llamafile_tpu_torch.ops.repack import q4b_codes
-    from llamafile_tpu_torch.testing import (flash_prefill_tile_fault, planes_fault, rand_q4b,
-                                             rand_q8b, rel_err, row_rel_err, txn_scale_swap)
+    from llamafile_tpu_torch.testing import (planes_fault, rand_q4b, rand_q8b, rel_err,
+                                             txn_scale_swap)
     rows = {}
 
     def dequant_bf16(qs, sc, b):
@@ -355,9 +389,14 @@ def kernel_phases(torch, dev, gen):
             f"{bms:.4f} ms ({by}), {bms / ms:.1%} of bound")
 
     # --- qmm_txn_m1: the decode GEMVs (qkv, o, lm head; down is the fused
-    # FFN's phase B on the same body, timed here alone) -------------------
+    # FFN's phase B on the same body, timed here alone); then
+    # Gemma-3-27B's and Gemma-7B's four, gate|up too (a GELU FFN is never
+    # fused): K = 5376 is 21 superblocks and 21504 is 84, an odd count of
+    # 256-blocks above 4096; n is the storage width (o and down store 5376
+    # and 3072 columns padded to 6144 and 4096) ------------------------------
     for label, n, k, layers in (("qkv", 6144, 4096, 8), ("o", 4096, 4096, 12),
-                                ("down", 4096, 14336, 3), ("lm_head", 129024, 4096, 1)):
+                                ("down", 4096, 14336, 3), ("lm_head", 129024, 4096, 1),
+                                *GEMMA_PRODUCTS):
         qs, sc, b = rand_q4b(gen, layers, n, k, dev)
         x = torch.randn((1, k), generator=gen, device=dev)
         nrm = 1 + 0.1 * torch.randn(k, generator=gen, device=dev)
@@ -384,7 +423,10 @@ def kernel_phases(torch, dev, gen):
     # (the main path's 24-token prompt runs all four at M = 32), and the
     # serving step's products at M = 8 rows, the unstacked lm head too;
     # then phase 8's Llama-3.2-3B products (storage N padded to 2048): its
-    # 24-token prefill at M = 32 and its 4-slot server's rows at M = 4
+    # 24-token prefill at M = 32 and its 4-slot server's rows at M = 4;
+    # then the gemma products (K = 5376 and 21504 at Gemma-3-27B's widths):
+    # phase 3's and phase 10's 24-token prefills at M = 32, and phase 3's
+    # 4-slot Gemma-7B server's rows at M = 4
     for m, label, n, k, layers in ((32, "gate_up", 28672, 4096, 2),
                                    (32, "down", 4096, 14336, 3),
                                    (32, "qkv", 6144, 4096, 8),
@@ -404,7 +446,12 @@ def kernel_phases(torch, dev, gen):
                                    (4, "3b_o", 4096, 3072, 8),
                                    (4, "3b_gate_up", 16384, 3072, 2),
                                    (4, "3b_down", 4096, 8192, 3),
-                                   (4, "3b_lm_head", 129024, 3072, 1)):
+                                   (4, "3b_lm_head", 129024, 3072, 1),
+                                   *((32, label, n, k, layers)
+                                     for label, n, k, layers in GEMMA_PRODUCTS),
+                                   *((4, label, n, k, layers)
+                                     for label, n, k, layers in GEMMA_PRODUCTS
+                                     if label.startswith("Gemma-7B"))):
         qs, sc, b = rand_q4b(gen, layers, n, k, dev)
         x = torch.randn((m, k), generator=gen, device=dev)
         xq, sx = Q.quantize_activations_g32(x)
@@ -453,11 +500,17 @@ def kernel_phases(torch, dev, gen):
             ("q8b", 32, "qkv", 6144, 4096, 8),
             ("q8b", 32, "o", 4096, 4096, 12),
             ("q8b", 512, "gate_up", 28672, 4096, 2),
-            ("q8b", 512, "down", 4096, 14336, 2)):
+            ("q8b", 512, "down", 4096, 14336, 2),
+            # the gemma products at phase 10's bucket (Gemma-3-27B) and at
+            # phase 3's 300-token prompt's (Gemma-7B)
+            *(("q4b", 1024 if label.startswith("Gemma-3") else 512, label, n, k, layers)
+              for label, n, k, layers in GEMMA_PRODUCTS),
+            # the Q6_K head of phase 3's 4-slot Gemma-7B server at M = 4
+            ("q8b", 4, "Gemma-7B lm_head Q6_K", 256000, 3072, 1)):
         if kind == "q4b":
             qs, sc, _ = rand_q4b(gen, layers, n, k, dev)
         else:
-            qs, sc, _ = rand_q8b(gen, layers, n, k, 32, dev)
+            qs, sc, _ = rand_q8b(gen, layers, n, k, 16 if "Q6_K" in label else 32, dev)
         wbytes = qs[0].numel() + sc[0].numel() * 2
         # bf16 activations, so the wrapper's cast is not timed with the kernel
         x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
@@ -541,7 +594,9 @@ def kernel_phases(torch, dev, gen):
                                    ("gate_up Q8_0", 32, 28672, 4096, 2),
                                    ("down Q8_0", 32, 4096, 14336, 2),
                                    ("lm_head Q8_0", 32, 129024, 4096, 1),
-                                   ("lm_head Q6_K", 16, 129024, 4096, 1)):
+                                   ("lm_head Q6_K", 16, 129024, 4096, 1),
+                                   ("Gemma-3-27B lm_head Q6_K", 16, 262144, 5376, 1),
+                                   ("Gemma-7B lm_head Q6_K", 16, 256000, 3072, 1)):
         qs, sc, _ = rand_q8b(gen, layers, n, k, g, dev)
         x = torch.randn((1, k), generator=gen, device=dev)
         nrm = 1 + 0.1 * torch.randn(k, generator=gen, device=dev)
@@ -564,41 +619,14 @@ def kernel_phases(torch, dev, gen):
         torch.cuda.empty_cache()
 
     # --- flash_prefill: causal prefill attention over the fresh prompt ----
-    hq, hkv, hd = 32, 8, 128
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    for t, sets in ((1024, 2), (512, 4), (2048, 2)):
-        # bf16 inputs, so the wrapper's casts are not timed with the kernel
-        qkv = [[torch.randn((1, t, h, hd), generator=gen, device=dev).to(torch.bfloat16)
-                for h in (hq, hkv, hkv)] for _ in range(sets)]
-        scale = hd ** -0.5
-        got = A.flash_prefill(*qkv[0], scale)
-        want = A.flash_prefill_plain(*qkv[0], scale)
-        torch.cuda.synchronize()
-        if not bool(torch.isfinite(got).all()):
-            raise AssertionError("flash_prefill: non-finite output")
-        # row by row (one query, one head): two bf16 steps of an output, as
-        # in tests/test_torch_cuda.py; the control drops each query's
-        # diagonal key tile and must fail it
-        err = (got - want).abs().max().item()
-        row = row_rel_err(got, want)
-        fault = row_rel_err(flash_prefill_tile_fault(*qkv[0], scale), want)
-        log(f"  flash_prefill/T={t}: max_abs_err {err:.6g}; per row {row:.6g} of the "
-            f"row's max (tol {FLASH_ROW_TOL}); diagonal-tile fault control {fault:.6g}")
-        if not row <= FLASH_ROW_TOL < fault:
-            raise AssertionError(f"flash_prefill T={t}: row error {row}, control {fault}")
-        ms = time_ms(torch, lambda i: A.flash_prefill(*qkv[i], scale), sets)
-        plain = time_ms(torch, lambda i: A.flash_prefill_plain(*qkv[i], scale), sets)
-        heads = [[a.transpose(1, 2) for a in trio] for trio in qkv]
-        lib = time_ms(torch, lambda i: sdpa(*heads[i], is_causal=True, scale=scale,
-                                            enable_gqa=True), sets)
-        check_close(f"flash_prefill/T={t} vs sdpa (yardstick sanity)", got,
-                    sdpa(*heads[0], is_causal=True, scale=scale,
-                         enable_gqa=True).transpose(1, 2), 2e-2)
-        entry("flash_prefill", "llamafile_tpu_torch/csrc/flash_prefill.cu",
-              "llamafile_tpu/ops/attention.py:57", f"Hq={hq} Hkv={hkv} D={hd} T={t}",
-              err, ms, plain, lib, *prefill_work(t, hq, hkv, hd))    # bf16 values out
-        del qkv, heads, got, want
-        torch.cuda.empty_cache()
+    # llama3-8b's 32 over 8 heads, then Gemma-3-27B's 32 over 16
+    # at D = 128 and Gemma-7B's 16 over 16 at D = 256 (a group of 1) at its
+    # 1000-token prompt's bucket
+    for hq, hkv, hd, t, sets, model in ((32, 8, 128, 1024, 2, ""), (32, 8, 128, 512, 4, ""),
+                                        (32, 8, 128, 2048, 2, ""),
+                                        (32, 16, 128, 1024, 2, "Gemma-3-27B "),
+                                        (16, 16, 256, 1024, 2, "Gemma-7B ")):
+        prefill_phase(torch, dev, gen, entry, hq, hkv, hd, t, sets, model)
 
     # --- qmm_moe_m1: the fused decode FFN, layer as expert ---------------
     d, dff, layers = 4096, 14336, 2
@@ -643,8 +671,10 @@ def kernel_phases(torch, dev, gen):
     for hq, hkv, hd, cases in DECODE_GROUPS["flash_decode"]:
         for int8, s_eff in cases:
             flash_decode_phase(torch, dev, gen, entry, sdpa, hq, int8, s_eff, hkv, hd)
-    # --- gemma2's window and softcap options of both decode kernels --------
+    # --- gemma2's window and softcap options of both decode kernels, then
+    # gemma3's window on flash_decode_write at Gemma-3-27B's decode shapes
     gemma_option_phase(torch, dev, gen, entry)
+    gemma_option_phase(torch, dev, gen, entry, "Gemma-3-27B", **GEMMA3_OPTIONS)
 
     # --- paged_attention: the serving decode attention, 8 rows ------------
     for hq, hkv, hd, cases in DECODE_GROUPS["paged_attention"]:
@@ -666,7 +696,8 @@ ALONE_LENGTHS = (24, 1000)
 # then 24 over 8 (a group of 3: the shapes of phase 8's decode too) and 128
 # over 8 (16: two head chunks of flash_decode_write, one of flash_decode and
 # paged_attention), bf16 and int8; then head_dim 256: Gemma-2-9B's 16 over
-# 8 (a group of 2) and Gemma-2B's 8 over 1 (8: phase 3's head_dim-256 model)
+# 8 (a group of 2) and Gemma-2B's 8 over 1 (8: phase 3's head_dim-256 model),
+# and for paged_attention Gemma-7B's 16 over 16 (1)
 DECODE_GROUPS = {
     # (pos, s_eff): pos 700 heads the entry (the shape of earlier runs); pos
     # 64 / s_eff 256 is phase 4's decode (64 tokens after a 24-token prompt),
@@ -696,7 +727,9 @@ DECODE_GROUPS = {
                        ("int8 + f32 scales, every length 1024", [1024] * 8, True))),
         (16, 8, 256, (("bf16, every length 1024", [1024] * 8, False),
                       ("int8 + f32 scales, every length 1024", [1024] * 8, True))),
-        (8, 1, 256, (("bf16, every length 1024", [1024] * 8, False),))],
+        (8, 1, 256, (("bf16, every length 1024", [1024] * 8, False),)),
+        # Gemma-7B's 16 over 16 (a group of 1) at D = 256
+        (16, 16, 256, (("bf16, every length 1024", [1024] * 8, False),))],
 }
 
 
@@ -747,6 +780,49 @@ def prefill_work(t, hq, hkv, hd):
     """(bytes, operations, op rate) of flash_prefill's bound: q, k, v read
     and the output written once in bf16; the causal products' bf16 flops."""
     return (t * (hq + 2 * hkv) + t * hq) * hd * 2, 2 * hq * hd * t * (t + 1), BF16_FLOP_PER_S
+
+
+def prefill_phase(torch, dev, gen, entry, hq, hkv, hd, t, sets, model=""):
+    """Phase 2 for flash_prefill at hq query heads over hkv KV heads of head
+    dim hd and T = t, over `sets` sets of inputs cycled: row by row against
+    its plain version (two bf16 steps of an output, as in
+    tests/test_torch_cuda.py; the control drops each query's diagonal key
+    tile and must fail that), timed beside its plain version and sdpa."""
+    from llamafile_tpu_torch.ops import attention as A
+    from llamafile_tpu_torch.testing import flash_prefill_tile_fault, row_rel_err
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    # bf16 inputs, so the wrapper's casts are not timed with the kernel
+    qkv = [[torch.randn((1, t, h, hd), generator=gen, device=dev).to(torch.bfloat16)
+            for h in (hq, hkv, hkv)] for _ in range(sets)]
+    scale = hd ** -0.5
+    what = f"flash_prefill/{model}Hq={hq} Hkv={hkv} D={hd} T={t}"
+    got = A.flash_prefill(*qkv[0], scale)
+    want = A.flash_prefill_plain(*qkv[0], scale)
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{what}: non-finite output")
+    err = (got - want).abs().max().item()
+    row = row_rel_err(got, want)
+    fault = row_rel_err(flash_prefill_tile_fault(*qkv[0], scale), want)
+    log(f"  {what}: max_abs_err {err:.6g}; per row {row:.6g} of the row's max (tol "
+        f"{FLASH_ROW_TOL}); diagonal-tile fault control {fault:.6g}")
+    if not row <= FLASH_ROW_TOL < fault:
+        raise AssertionError(f"{what}: row error {row}, control {fault}")
+    if not torch.equal(A.flash_prefill(*qkv[0], scale), got):
+        raise AssertionError(f"{what}: two launches on the same inputs differ")
+    ms = time_ms(torch, lambda i: A.flash_prefill(*qkv[i], scale), sets)
+    plain = time_ms(torch, lambda i: A.flash_prefill_plain(*qkv[i], scale), sets)
+    heads = [[a.transpose(1, 2) for a in trio] for trio in qkv]
+    lib = time_ms(torch, lambda i: sdpa(*heads[i], is_causal=True, scale=scale,
+                                        enable_gqa=True), sets)
+    check_close(f"{what} vs sdpa (yardstick sanity)", got,
+                sdpa(*heads[0], is_causal=True, scale=scale, enable_gqa=True).transpose(1, 2),
+                2e-2)
+    entry("flash_prefill", "llamafile_tpu_torch/csrc/flash_prefill.cu",
+          "llamafile_tpu/ops/attention.py:57", f"{model}Hq={hq} Hkv={hkv} D={hd} T={t}",
+          err, ms, plain, lib, *prefill_work(t, hq, hkv, hd))    # bf16 values out
+    del qkv, heads, got, want
+    torch.cuda.empty_cache()
 
 
 def fdw_phase(torch, dev, gen, entry, sdpa, hq, cases, hkv=8, hd=128):
@@ -892,46 +968,61 @@ GEMMA_POS = (700, 6000)
 GEMMA_WINDOW, GEMMA_SOFTCAP = 4096, 50.0
 
 
-def gemma_option_cases(torch, dev, gen, nl=8):
-    """gemma2's decode options at GEMMA_HEADS over nl layers of a GEMMA_S
-    cache (the replays spill the L2), at each of GEMMA_POS: flash_decode_write
-    with the window and the softcap, then flash_decode (bf16 flat, then
-    int8 with f32 scales) with the softcap, and with the softcap and the
-    window. Yields (kernel, label, run(i, opts), plain(i, opts), tol, error
-    fn, (bytes, ops, op rate)) a case: run(i, True) is the call on layer i
-    with its options, run(i, False) the same call without any, plain the
-    plain version of each; the bound counts the rows visible (those and
+# gemma3's window at Gemma-3-27B's decode shapes (32 query heads over 16 KV
+# heads of head_dim 128, a group of 2; window 1024, no softcap) over a cache
+# of 4096 positions, at pos 700 (the window does not bite) and 3000 (it
+# does): flash_decode_write alone, the kernel of its bf16 decode
+GEMMA3_OPTIONS = dict(heads=(32, 16, 128), s_len=4096, positions=(700, 3000), win=1024,
+                      cap=0.0, decode=False)
+
+
+def gemma_option_cases(torch, dev, gen, nl=8, heads=GEMMA_HEADS, s_len=GEMMA_S,
+                       positions=GEMMA_POS, win=GEMMA_WINDOW, cap=GEMMA_SOFTCAP,
+                       decode=True):
+    """A gemma model's decode options at `heads` (query heads, KV heads,
+    head dim) over nl layers of an s_len cache (the replays spill the L2),
+    at each of `positions`: flash_decode_write with the window and the
+    softcap, then (decode) flash_decode (bf16 flat, then int8 with f32
+    scales) with the softcap, and with the softcap and the window. The
+    defaults are gemma2's at Gemma-2-9B's shapes (cap 0: no softcap;
+    decode False: flash_decode_write alone). Yields (kernel, label,
+    run(i, opts), plain(i, opts), tol, error fn, (bytes, ops, op rate)) a
+    case: run(i, True) is the call on layer i with its options, run(i,
+    False) the same call without any, plain the plain version of each; the
+    bound counts the rows visible (those and
     the new token for flash_decode_write), each read once. q is scaled so
     that the scores reach tens, as Gemma-2's do, where the softcap of 50
     bends them."""
     from llamafile_tpu_torch.ops import attention as A
     from llamafile_tpu_torch.testing import rel_err, row_rel_err
-    hq, hkv, hd = GEMMA_HEADS
-    win, cap = GEMMA_WINDOW, GEMMA_SOFTCAP
+    hq, hkv, hd = heads
     scale = hd ** -0.5
     q = torch.randn((1, hq, hd), generator=gen, device=dev) * 4
-    k3, v3 = (torch.randn((nl, 1, GEMMA_S, hkv * hd), generator=gen, device=dev
+    k3, v3 = (torch.randn((nl, 1, s_len, hkv * hd), generator=gen, device=dev
                           ).to(torch.bfloat16) for _ in range(2))
     kn, vn = (torch.randn((1, hkv, hd), generator=gen, device=dev) for _ in range(2))
-    for pos in GEMMA_POS:
+    for pos in positions:
         p = torch.tensor([pos], dtype=torch.int32, device=dev)
         rows = min(pos - 1, win - 1) + 1                 # the cache rows and the new token
-        yield ("flash_decode_write", f"pos={pos} s_eff={GEMMA_S} window={win} softcap={cap}",
+        yield ("flash_decode_write", f"pos={pos} s_eff={s_len} window={win}"
+               + (f" softcap={cap}" if cap else ""),
                lambda i, o, p=p: A.flash_decode_write_stacked(
                    q, k3, v3, kn, vn, i, p, scale, hkv, win_l=win if o else None,
                    softcap=cap if o else 0.0),
                lambda i, o, p=p: A.flash_decode_write_plain(
-                   q, k3.clone(), v3.clone(), kn, vn, i, p, scale, hkv, GEMMA_S,
+                   q, k3.clone(), v3.clone(), kn, vn, i, p, scale, hkv, s_len,
                    win if o else None, cap if o else 0.0),
                2e-2, rel_err, (rows * hkv * hd * 4 + (2 * hq * hd + 2 * hkv * hd) * 4,
                                4 * rows * hq * hd, BF16_FLOP_PER_S))
-    kc8, vc8 = (torch.randint(-127, 128, (nl, 1, GEMMA_S, hkv, hd), generator=gen, device=dev,
+    if not decode:
+        return
+    kc8, vc8 = (torch.randint(-127, 128, (nl, 1, s_len, hkv, hd), generator=gen, device=dev,
                               dtype=torch.int8) for _ in range(2))
-    ks8, vs8 = (torch.empty((nl, 1, GEMMA_S, hkv), device=dev).uniform_(2e-3, 2e-2,
-                                                                        generator=gen)
+    ks8, vs8 = (torch.empty((nl, 1, s_len, hkv), device=dev).uniform_(2e-3, 2e-2,
+                                                                      generator=gen)
                 for _ in range(2))
     for int8 in (False, True):
-        for pos in GEMMA_POS:
+        for pos in positions:
             p = torch.tensor([pos], dtype=torch.int32, device=dev)
             for w in (0, win):
                 if int8:
@@ -946,31 +1037,34 @@ def gemma_option_cases(torch, dev, gen, nl=8):
                         q, k3, v3, i, p, scale, hkv, win_l=(w or None) if o else None,
                         softcap=cap if o else 0.0)
                     plain = lambda i, o, p=p, w=w: A.flash_decode_stacked_plain(
-                        q, k3, v3, i, p, scale, hkv, GEMMA_S, (w or None) if o else None,
+                        q, k3, v3, i, p, scale, hkv, s_len, (w or None) if o else None,
                         cap if o else 0.0)
                 rows = min(pos + 1, w) if w else pos + 1
                 per_row = 1 + 4 / hd if int8 else 2
                 yield ("flash_decode", f"{'int8 + f32 scales' if int8 else 'bf16 flat'} "
-                       f"pos={pos} s_eff={GEMMA_S} softcap={cap}" + (f" window={w}" if w else ""),
+                       f"pos={pos} s_eff={s_len}" + (f" softcap={cap}" if cap else "")
+                       + (f" window={w}" if w else ""),
                        run, plain, DECODE_INT8_ROW_TOL if int8 else DECODE_BF16_ROW_TOL,
                        row_rel_err, (rows * hkv * hd * 2 * per_row + 2 * hq * hd * 4 + 4,
                                      4 * rows * hq * hd,
                                      F32_FLOP_PER_S if int8 else BF16_FLOP_PER_S))
 
 
-def gemma_option_phase(torch, dev, gen, entry):
+def gemma_option_phase(torch, dev, gen, entry, model="Gemma-2-9B", **spec):
     """Phase 2 for the window and softcap options of flash_decode_write and
-    flash_decode (gemma_option_cases): each against its plain version on
+    flash_decode (gemma_option_cases, at `model`'s shapes and options in
+    spec): each against its plain version on
     the same inputs, two launches bitwise equal (the rows written with the
     options are held by tests/test_torch_cuda.py), timed beside its plain
     version and the same call without
     the options. The bound is the bytes of the rows visible over the memory
-    rate; no single library call computes softcapped attention (library:
-    none)."""
-    hq, hkv, hd = GEMMA_HEADS
+    rate; no single library call computes softcapped or windowed attention
+    (library: none)."""
+    hq, hkv, hd = spec.get("heads", GEMMA_HEADS)
     nl = 8
-    for kernel, label, run, plain, tol, err_fn, work in gemma_option_cases(torch, dev, gen, nl):
-        name = f"{kernel}/Gemma-2-9B Hq={hq} Hkv={hkv} D={hd} {label}"
+    for kernel, label, run, plain, tol, err_fn, work in gemma_option_cases(torch, dev, gen, nl,
+                                                                           **spec):
+        name = f"{kernel}/{model} Hq={hq} Hkv={hkv} D={hd} {label}"
         got = run(5, True)
         torch.cuda.synchronize()
         err = err_fn(got, plain(5, True))
@@ -987,7 +1081,7 @@ def gemma_option_phase(torch, dev, gen, entry):
         entry(kernel, f"llamafile_tpu_torch/csrc/{kernel}.cu",
               "llamafile_tpu/ops/attention.py:" + ("217" if kernel == "flash_decode_write"
                                                    else "117"),
-              f"B=1 Hq={hq} Hkv={hkv} D={hd} {label} (Gemma-2-9B; without the options "
+              f"B=1 Hq={hq} Hkv={hkv} D={hd} {label} ({model}; without the options "
               f"{bare:.4f} ms)", err, ms, plain_ms, None, *work)
     torch.cuda.empty_cache()
 
@@ -2215,52 +2309,80 @@ def decode_model_check(torch, dev, preset="llama3.2-3b-2l", n_decode=4, max_seq_
     paged_path_check(torch, dev, prompts=paged_prompts, n_decode=n_decode, preset=preset)
 
 
-def gemma_path_check(torch, dev, prompts=(24, 4200), n_decode=4):
-    """Gemma-2-9B's widths at two layers (gemma-2-9b-2l: the gemma2 branches,
-    layer 0 windowed at 4096, softcaps 50 / 30): Q4_K stacked over a bf16
-    cache, then llama.cpp's Q4_K_M recipe (layer 1's V and down in Q6_K:
-    unrolled) over an int8 cache. For each, the Engine's prefill of a
-    24-token prompt (bucket 32) and of a 4200-token one (bucket 8192), then
-    n_decode decode steps teacher-forced with the kernels' greedy token,
-    each taken by both sides from the kernels' cache, the window biting at
-    the second prompt (layer 0 reads the rows pos - 4095 .. pos): the
-    kernels against the plain versions on the card (plain_kernels), logits
-    within 2e-2 of the largest with the same top-1 at every step.
-    Each decode step launches its decode kernel once a layer
-    (flash_decode_write, or flash_decode with the window on layer 0 and the
-    softcap on both) and never the fused FFN (GELU); the plain side
-    launches nothing."""
+def prefill_kernel_layers(cfg, bucket: int) -> int:
+    """The layers whose prefill attention at `bucket` tokens runs the
+    flash_prefill kernel (models.llama's rule): from 128 tokens, no softcap,
+    and no window narrower than the bucket."""
+    from llamafile_tpu_torch.models.llama import layer_window
+    return sum(1 for li in range(cfg.n_layers)
+               if bucket >= 128 and not cfg.attn_softcap
+               and (layer_window(cfg, li) or bucket) >= bucket)
+
+
+def gemma_path_check(torch, dev, preset="gemma-2-9b-2l", prompts=(24, 4200), n_decode=4,
+                     recipes=(("Q4_K", "bf16"), ("Q4_K_M", "int8")), max_len=8192,
+                     serve=False):
+    """A gemma preset at two or six layers of a published model's widths,
+    the kernels against the plain versions on the card (plain_kernels).
+    gemma-2-9b-2l (Gemma-2-9B's widths: the gemma2 branches, layer 0
+    windowed at 4096, softcaps 50 / 30), gemma-7b-2l (Gemma-7B's: gemma,
+    16 over 16 heads of head_dim 256) or gemma-3-27b-6l (Gemma-3-27B's:
+    layers 0-4 windowed at 1024, layer 5 global, q/k norms, two rope
+    tables): Q4_K stacked over a bf16 cache, then (recipes) llama.cpp's
+    Q4_K_M recipe (some layers' V and down in Q6_K: unrolled) over an int8
+    cache. For each, the Engine's prefill of each prompt (24 tokens: bucket
+    32; gemma3's 600, bucket 1024, where every layer's prefill runs the
+    flash_prefill kernel; a longer one whose bucket is past the window: 4200
+    tokens, bucket 8192, or 1100, bucket 2048, where the windowed layers'
+    prefill runs the einsum and the others' the flash_prefill kernel), then n_decode decode
+    steps teacher-forced with the kernels' greedy token, each taken by both
+    sides from the kernels' cache, the window biting at the long prompt
+    (a windowed layer reads the rows pos - window + 1 .. pos): logits
+    within 2e-2 of the largest with the same top-1 at every step. The
+    kernels' prefill launches flash_prefill on prefill_kernel_layers' count
+    of layers; each decode step launches its decode kernel once a layer
+    (flash_decode_write, or flash_decode with the layer's window and the
+    softcap) and never the fused FFN (GELU); the plain side launches
+    nothing. serve: then the HTTP server at 4 slots (serve_four: 4 greedy
+    requests, paged_attention's decode, launches exact), those of the
+    shortest and longest prompt against themselves served alone."""
     from llamafile_tpu_torch.models.llama import forward
     from llamafile_tpu_torch.models.synthetic import make_synthetic_llama
     from llamafile_tpu_torch.ops import reset_launch_counts
-    from llamafile_tpu_torch.runtime.engine import Engine, attn_bucket
+    from llamafile_tpu_torch.runtime.engine import Engine, attn_bucket, bucket_len
     from llamafile_tpu_torch.runtime.tokenizer import Tokenizer
     from llamafile_tpu_torch.testing import make_q4_k_m_llama
-    max_len = 8192
     prompt = torch.randint(3, 256000, (max(prompts),),
                            generator=torch.Generator().manual_seed(13)).tolist()
-    for recipe, kv in (("Q4_K", "bf16"), ("Q4_K_M", "int8")):
+    for recipe, kv in recipes:
         if recipe == "Q4_K_M":
-            cfg, params = make_q4_k_m_llama("gemma-2-9b-2l", seed=1, device=dev)
+            cfg, params = make_q4_k_m_llama(preset, seed=1, device=dev)
         else:
-            cfg, params = make_synthetic_llama("gemma-2-9b-2l", "Q4_K", seed=1, fuse=True,
-                                               device=dev)
+            cfg, params = make_synthetic_llama(preset, "Q4_K", seed=1, fuse=True, device=dev)
         eng = Engine(cfg, params, Tokenizer({}), max_seq_len=max_len, kv_dtype=kv, device=dev)
         del params
         unrolled = isinstance(eng.params.layers, list)
         if unrolled != (recipe == "Q4_K_M"):
-            raise AssertionError(f"gemma-2-9b-2l {recipe}: the layers were "
+            raise AssertionError(f"{preset} {recipe}: the layers were "
                                  f"{'' if unrolled else 'not '}left unrolled")
-        what = f"gemma-2-9b-2l {recipe} {'unrolled' if unrolled else 'stacked'}, {kv} KV"
+        what = f"{preset} {recipe} {'unrolled' if unrolled else 'stacked'}, {kv} KV"
         kernel = "flash_decode_write_stacked" if kv == "bf16" else "flash_decode"
         for n_prompt in prompts:
             alen = attn_bucket(n_prompt + n_decode + 1, max_len)
             caches, logits = {}, {}
+            before = launch_counts()["flash_prefill"]
             for side in ("kernels", "plain"):
                 with plain_kernels() if side == "plain" else contextlib.nullcontext():
                     caches[side] = eng.new_cache()
                     logits[side] = [eng.prefill(caches[side], prompt[:n_prompt])[0].float().cpu()]
+                if side == "kernels":
+                    n_fp = launch_counts()["flash_prefill"] - before
             torch.cuda.synchronize()
+            want_fp = prefill_kernel_layers(cfg, bucket_len(n_prompt))
+            log(f"  {what}, prompt {n_prompt} (bucket {bucket_len(n_prompt)}): prefill "
+                f"launched flash_prefill {n_fp} times (expected {want_fp})")
+            if n_fp != want_fp:
+                raise AssertionError(f"{what}: the prefill did not run as expected")
             reset_launch_counts()
             counts = {"plain": dict.fromkeys(launch_counts(), 0)}
             for step in range(n_decode):
@@ -2302,6 +2424,17 @@ def gemma_path_check(torch, dev, prompts=(24, 4200), n_decode=4):
             if k[kernel] != cfg.n_layers * n_decode or k["qmm_moe_m1"] \
                     or any(counts["plain"].values()):
                 raise AssertionError(f"{what}: the decode steps did not run as expected")
+        if serve:
+            n = cfg.n_layers
+            # a decode step's 4 rows: the layers' products on qmm_txn and the
+            # Q6_K head at M = 4 on the dequant GEMM; an admission slice's
+            # head (M = 1) on qmm_q8_m1
+            expect = lambda d, small, big, fr: {
+                "paged_attention": n * d, "qmm_txn": 4 * n * d + 4 * n * small,
+                "qmm_dequant": d + 4 * n * big,
+                "flash_prefill": sum(prefill_kernel_layers(cfg, b) * c for b, c in fr.items()),
+                "qmm_q8_m1": small + big}
+            serve_four(torch, eng, f"synthetic-{preset}-q4k", f"{preset} (phase 3)", expect)
         del eng
         torch.cuda.empty_cache()
 
@@ -2498,6 +2631,9 @@ def main_path(torch, dev):
 
     phase("phase 9: gemma-2-9b Q4_K (gemma2), 42 layers stacked, Engine.generate")
     counts_9 = gemma_phase(torch, dev, prompt, long_prompt)
+    phase("phase 10: gemma-3-27b Q4_K (gemma3), 62 layers stacked, Engine.generate")
+    counts_10 = gemma_phase(torch, dev, prompt, long_prompt, preset="gemma-3-27b",
+                            what="phase 10", profile=True)
 
     phase("profiles of phase 7's Mixtral decodes, of phase 4c's Q8_0 decode on a rebuilt "
         "engine, then of phase 4, 4f's int8 decode and 4b on a rebuilt Q4_K engine")
@@ -2521,7 +2657,7 @@ def main_path(torch, dev):
     del eng
     torch.cuda.empty_cache()
     return ([counts, counts_b, counts_d, counts_c, counts_5] + counts_f + counts_e + counts_6
-            + counts_7 + counts_8 + counts_9)
+            + counts_7 + counts_8 + counts_9 + counts_10)
 
 
 def llama32_phase(torch, dev, prompt, n_new=32):
@@ -2569,42 +2705,54 @@ def llama32_phase(torch, dev, prompt, n_new=32):
     return [counts, counts_s]
 
 
-def gemma_phase(torch, dev, prompt, long_prompt, n_new=64):
-    """Phase 9: Gemma-2-9B's published widths (models.synthetic preset
-    gemma-2-9b: 42 layers, 16 query heads over 8 KV heads of head_dim 256,
-    the gemma2 branches), Q4_K, fused and stacked, its head in Q6_K, a bf16
-    cache: Engine.generate of n_new greedy tokens from phase 4's 24-token
-    prompt, launches exact (a step: qkv, o, gate|up and down on qmm_txn_m1,
-    the GELU FFN never fused, the head on qmm_q8_m1, flash_decode_write
-    with the window on the even layers and the softcap on all), the decode
-    rate against the weight-read bound; then the 1000-token prompt's TTFT,
-    median of 3 (the dequant GEMM; the prefill attention is the einsum, as
-    the reference's with a softcap). Returns the counted runs' launches."""
+def gemma_phase(torch, dev, prompt, long_prompt, n_new=64, preset="gemma-2-9b",
+                what="phase 9", profile=False):
+    """Phases 9 and 10: Gemma-2-9B's published widths (models.synthetic
+    preset gemma-2-9b: 42 layers, 16 query heads over 8 KV heads of head_dim
+    256, the gemma2 branches) or Gemma-3-27B's (gemma-3-27b: 62 layers, 32
+    query heads over 16 KV heads of head_dim 128, the gemma3 branches),
+    Q4_K, fused and stacked, its head in Q6_K, a bf16 cache:
+    Engine.generate of n_new greedy tokens from phase 4's 24-token prompt,
+    launches exact (a step: qkv, o, gate|up and down on qmm_txn_m1, the
+    GELU FFN never fused, the head on qmm_q8_m1, flash_decode_write with the
+    layer's window, and gemma2's softcap), the decode rate against the
+    weight-read bound; then the 1000-token prompt's TTFT, median of 3 (the
+    dequant GEMM; the prefill attention on the flash_prefill kernel on
+    prefill_kernel_layers' count: gemma3's every layer at bucket 1024,
+    none under gemma2's softcap, whose prefill runs the einsum as the
+    reference's). profile (phase 10, the last timed run of the script):
+    then the device time by kernel of one 1000-token prefill. Returns the
+    counted runs' launches."""
     from llamafile_tpu_torch.models.synthetic import decode_read_bytes, make_synthetic_llama
     from llamafile_tpu_torch.runtime.engine import Engine
     from llamafile_tpu_torch.runtime.tokenizer import Tokenizer
     t0 = time.time()
-    cfg, params = make_synthetic_llama("gemma-2-9b", "Q4_K", seed=0, fuse=True, device=dev)
+    cfg, params = make_synthetic_llama(preset, "Q4_K", seed=0, fuse=True, device=dev)
     eng = Engine(cfg, params, Tokenizer({}), max_seq_len=2048, device=dev)
     del params
     torch.cuda.synchronize()
     n = cfg.n_layers
     read = decode_read_bytes(eng.params, cfg)
-    log(f"  built gemma-2-9b Q4_K ({n} layers, fused, stacked, Q6_K head) in "
-        f"{time.time() - t0:.1f} s; decode reads {read / 1e9:.3f} GB of weights a step")
+    log(f"  built {preset} Q4_K ({n} layers, fused, stacked, Q6_K head) in "
+        f"{time.time() - t0:.1f} s; decode reads {read / 1e9:.3f} GB of weights a step; "
+        f"device memory {torch.cuda.memory_allocated() / 1e9:.2f} GB")
     steps = n_new - 1
     _, counts, ttft, decode_s = counted_generate(torch, eng, prompt, n_new)
     check_counts(counts, {"qmm_txn_m1": 4 * n * steps, "qmm_txn": 4 * n,
                           "qmm_q8_m1": 1 + steps,
-                          "flash_decode_write_stacked": n * steps}, "phase 9")
+                          "flash_decode_write_stacked": n * steps}, what)
     decode_report(torch, read, steps, ttft, decode_s, "24-token prompt, bucket 32")
     ttfts = []
+    n_fp = prefill_kernel_layers(cfg, 1024)
     for _ in range(3):
         _, counts_b, ttft_b, _ = counted_generate(torch, eng, long_prompt, 1)
-        check_counts(counts_b, {"qmm_dequant": 4 * n, "qmm_q8_m1": 1}, "phase 9, 1000 tokens")
+        check_counts(counts_b, {"qmm_dequant": 4 * n, "qmm_q8_m1": 1, "flash_prefill": n_fp},
+                     f"{what}, 1000 tokens")
         ttfts.append(ttft_b * 1e3)
     log(f"  time to first token, 1000-token prompt: {statistics.median(ttfts):.2f} ms "
         f"(median of {', '.join(f'{t:.2f}' for t in ttfts)} ms)")
+    if profile:
+        prefill_profile(torch, eng, long_prompt)
     del eng
     torch.cuda.empty_cache()
     return [counts, counts_b]
@@ -3329,6 +3477,18 @@ def phase3_checks():
         # flash_decode_write (stacked, bf16) and flash_decode (unrolled,
         # int8) on the model's path, against the plain versions on the card
         ("Gemma-2-9B widths (gemma2)", gemma_path_check, (), {}, "txn"),
+        # gemma at Gemma-7B's widths (16 over 16 heads at D = 256: a head
+        # group of 1 in flash_prefill and the decode kernels), then through
+        # the HTTP server (paged_attention at 16/16); gemma3 at
+        # Gemma-3-27B's (K = 5376 and 21504; the window of 1024 on five
+        # layers of six: all six on flash_prefill at 600 tokens, past the
+        # window at 1100)
+        ("Gemma-7B widths (gemma)", gemma_path_check, (),
+         dict(preset="gemma-7b-2l", prompts=(24, 300), recipes=(("Q4_K", "bf16"),),
+              max_len=2048, serve=True), "txn"),
+        ("Gemma-3-27B widths (gemma3)", gemma_path_check, (),
+         dict(preset="gemma-3-27b-6l", prompts=(24, 600, 1100), n_decode=2, max_len=2048),
+         "txn"),
         ("Q8_0", whole_path_check, ("Q8_0",), dict(n_prompt=24, n_decode=1), "txn"),
         ("paged decode, 4 rows", paged_path_check, (), dict(n_decode=1), "txn"),
         ("Q4_K_M", whole_path_check, ("Q4_K_M",), dict(n_prompt=300, n_decode=1), "txn"),

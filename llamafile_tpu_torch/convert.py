@@ -9,7 +9,7 @@ leaves as plain dicts of numpy arrays, so the port never sees a JAX object
          "layers": [ {"attn_norm", "ffn_norm", "wo", "wq", "wk", "wv",
                       "wqkv", "w_gate", "w_up", "w_gate_up", "w_down",
                       "gate_inp", "experts", "attn_post_norm",
-                      "ffn_post_norm"}, ... ]
+                      "ffn_post_norm", "q_norm", "k_norm"}, ... ]
                    (a list of per-layer dicts, or one dict of stacked leaves)}
   QT: {"kind", "shape", "g", "qs", "scales", "bias", "il"}, and an
       I8PQTensor's "qs8" [(L,) K, Ns] int8 and "s8" [(L,) K/256, Ns] f32 (the
@@ -36,8 +36,8 @@ from .ops.repack import I8PQTensor, QTensor
 _UNPORTED = {
     "attn_qkv_bias": False, "norm_plus_one": False,
     "norm_type": "rms", "clamp_qkv": 0.0,
-    "parallel_residual": False, "rope_dim": 0, "swa_rope_theta": 0.0,
-    "qk_norm": False, "residual_scale": 1.0, "logit_scale": 1.0,
+    "parallel_residual": False, "rope_dim": 0,
+    "residual_scale": 1.0, "logit_scale": 1.0,
     "expert_weights_scale": 1.0, "n_shared_experts": 0, "q_lora_rank": 0,
     "kv_lora_rank": 0, "v_head_dim": 0, "no_rope": False, "alibi": False,
     "qk_norm_flat": False,

@@ -1,5 +1,5 @@
 """Llama-family forward of the port (llama / mistral, dense or Mixtral-style
-routed MoE; gemma2), stacked or unrolled.
+routed MoE; gemma, gemma2, gemma3), stacked or unrolled.
 
 Counterpart of llamafile_tpu/models/llama.py for the llama branches of
 `_layer_fwd`, `forward` and `moe_ffn`. The JAX layer scan becomes a Python
@@ -20,13 +20,20 @@ M = 1 for an interleaved q4b gate|up of stacked SwiGLU layers, gate|up +
 down products otherwise), or, in a MoE layer, an inline RMSNorm and
 moe_ffn.
 
-Gemma 2 (the reference's gemma2 branches): the embedding times sqrt(d),
-a sliding window on layers li % swa_pattern < swa_pattern - 1 (None, not
-the reference's 1 << 30, on the others: the layer loop is Python), the
-attention softcap in every attention call (the decode kernels take it and
-the window as options; prefill runs the einsum with them), RMSNorms of o
-and of the FFN output before their residuals, a GELU-tanh FFN (never the
-fused one) and the final logit softcap.
+Gemma (the reference's gemma branches): every gemma multiplies the
+embedding by sqrt(d) and runs a GELU-tanh FFN (never the fused one); gemma
+1 adds nothing more. Gemma 2 adds a sliding window on layers li %
+swa_pattern < swa_pattern - 1 (None, not the reference's 1 << 30, on the
+others: the layer loop is Python), the attention softcap in every attention
+call (the decode kernels take it and the window as options; prefill runs
+the einsum with them), RMSNorms of o and of the FFN output before their
+residuals, and the final logit softcap. Gemma 3 keeps the window (five
+layers of each six) and the post norms without softcaps, normalizes each
+head of q and k before rope (qk_norm), and ropes its windowed layers with
+a second table (swa_rope_theta, scale 1) picked per layer. With no softcap
+its prefill takes the flash_prefill kernel on every layer up to the window
+and on the global layers past it (the reference's scan, whose traced
+window is never None, sends those to the einsum: the same function).
 
 int8_prefill_params attaches the int8 prefill companions (the Engine does
 so under LLAMAFILE_TPU_I8P=1): every product of over 32 rows on a layer
@@ -90,41 +97,59 @@ class LlamaConfig:
     n_experts: int = 0               # routed MoE (Mixtral): experts a layer
     n_experts_used: int = 0          # top-k of them a token
     moe_norm_topk: bool = True       # renormalize the top-k weights to sum 1
-    # gemma2: embedding scale, GELU-tanh FFN, softcaps, sliding window on
-    # layers li % swa_pattern < swa_pattern - 1, sandwich norms
+    # gemma: embedding scale, GELU-tanh FFN; gemma2/3: sliding window on
+    # layers li % swa_pattern < swa_pattern - 1, sandwich norms; gemma2:
+    # softcaps; gemma3: per-head q/k RMSNorm, windowed layers' rope base
     embd_scale: float = 1.0
     ffn_gelu: bool = False
     attn_softcap: float = 0.0
     final_softcap: float = 0.0
     swa_window: int = 0
     swa_pattern: int = 1
+    swa_rope_theta: float = 0.0      # rope base of windowed layers (0 = rope_theta)
     post_norms: bool = False
+    qk_norm: bool = False
 
     @classmethod
     def from_gguf(cls, reader) -> "LlamaConfig":
         arch = reader.architecture
-        if arch not in ("llama", "mistral", "gemma2"):
+        if arch not in ("llama", "mistral", "gemma", "gemma2", "gemma3"):
             raise NotImplementedError(
-                f"architecture {arch!r} is not ported yet (llama, mistral, gemma2)")
+                f"architecture {arch!r} is not ported yet (llama, mistral, gemma, "
+                "gemma2, gemma3)")
         f = reader.field
         d_model = int(f("{arch}.embedding_length"))
         n_heads = int(f("{arch}.attention.head_count"))
         n_layers = int(f("{arch}.block_count"))
+        head_dim = int(f("{arch}.attention.key_length", d_model // n_heads))
         gemma = {}
+        if arch.startswith("gemma"):
+            # the reference's gemma branches: rope NEOX, the embedding times
+            # sqrt(d), GELU-tanh, and attn_scale from the branch alone
+            # ({arch}.attention.scale is ignored; 0 = 1 / sqrt(head_dim)).
+            # The GGUF's norm weights carry gemma's +1 already (the
+            # converter bakes it in).
+            gemma = dict(rope_neox=True, embd_scale=float(d_model) ** 0.5, ffn_gelu=True,
+                         attn_scale=0.0)
+        q_scale_27b = 1.0 / float(d_model / n_heads) ** 0.5
         if arch == "gemma2":
-            # the reference's branch: rope NEOX, the embedding times sqrt(d),
             # a 4096 window on every other layer, softcaps 50 / 30, sandwich
-            # norms, GELU-tanh; q scaled by (d / h)^-1/2 at 46 layers (27B),
-            # else the default 1 / sqrt(head_dim). The GGUF's norm weights
-            # carry gemma's +1 already (the converter bakes it in).
-            gemma = dict(
-                rope_neox=True, embd_scale=float(d_model) ** 0.5, ffn_gelu=True,
+            # norms; q scaled by (d / h)^-1/2 at 46 layers (27B)
+            gemma.update(
                 swa_window=int(f("{arch}.attention.sliding_window", 4096)), swa_pattern=2,
                 attn_softcap=float(f("{arch}.attn_logit_softcapping", 50.0)),
                 final_softcap=float(f("{arch}.final_logit_softcapping", 30.0)),
-                post_norms=True,
-                attn_scale=(1.0 / float(d_model / n_heads) ** 0.5 if n_layers == 46
-                            else 0.0))
+                post_norms=True, attn_scale=q_scale_27b if n_layers == 46 else 0.0)
+        elif arch == "gemma3":
+            # a 1024 window on five layers of each six, roped at base 10000
+            # (the global layers keep rope.freq_base and its linear factor),
+            # sandwich norms, per-head q/k norms; q scaled by (d / h)^-1/2 at
+            # 62 layers (27B), else 1 / sqrt(head_dim)
+            gemma.update(
+                swa_window=int(f("{arch}.attention.sliding_window", 1024)), swa_pattern=6,
+                swa_rope_theta=10000.0, post_norms=True, qk_norm=True,
+                attn_scale=(q_scale_27b if n_layers == 62
+                            else 1.0 / float(head_dim) ** 0.5))
         n_vocab = f("{arch}.vocab_size")
         if n_vocab is None:
             n_vocab = len(reader.metadata.get("tokenizer.ggml.tokens", []))
@@ -139,7 +164,7 @@ class LlamaConfig:
             n_kv_heads=int(f("{arch}.attention.head_count_kv", n_heads)),
             d_ff=int(f("{arch}.feed_forward_length")),
             n_vocab=int(n_vocab),
-            head_dim=int(f("{arch}.attention.key_length", d_model // n_heads)),
+            head_dim=head_dim,
             rope_theta=float(f("{arch}.rope.freq_base", 10000.0)),
             rope_scale=1.0 / float(f("{arch}.rope.scaling.factor", 1.0)),
             rope_yarn_ext=1.0 if is_yarn else 0.0,
@@ -180,8 +205,10 @@ class LlamaLayer:
     # "down") with a leading E axis (L*E when stacked), or per-expert
     # QTensors ("gate.{e}", "up.{e}", "down.{e}") that do not stack
     experts: Optional[dict] = None
-    attn_post_norm: Optional[torch.Tensor] = None   # gemma2 sandwich norms, f32 [(L,) d]
+    attn_post_norm: Optional[torch.Tensor] = None   # gemma2/3 sandwich norms, f32 [(L,) d]
     ffn_post_norm: Optional[torch.Tensor] = None
+    q_norm: Optional[torch.Tensor] = None           # gemma3 per-head norms, f32 [(L,) head_dim]
+    k_norm: Optional[torch.Tensor] = None
 
 
 @dataclass
@@ -588,7 +615,7 @@ def moe_ffn(x2d: torch.Tensor, layer: LlamaLayer, cfg: LlamaConfig, li=None):
 
 
 def layer_window(cfg: LlamaConfig, li: int) -> Optional[int]:
-    """The sliding window of layer li (gemma2: li % swa_pattern <
+    """The sliding window of layer li (gemma2 and gemma3: li % swa_pattern <
     swa_pattern - 1), or None for a layer that sees every key."""
     if cfg.swa_window > 0 and cfg.swa_pattern > 1 \
             and li % cfg.swa_pattern < cfg.swa_pattern - 1:
@@ -596,7 +623,7 @@ def layer_window(cfg: LlamaConfig, li: int) -> Optional[int]:
     return None
 
 
-def _layer_fwd(x, layer: LlamaLayer, cfg: LlamaConfig, cos, sin, pos, t_pos,
+def _layer_fwd(x, layer: LlamaLayer, cfg: LlamaConfig, rope, pos, t_pos,
                scale, cache: KVCache, attn_len, fresh: bool, li: int,
                stacked: bool):
     """One llama layer, updating layer li of the cache in place. stacked:
@@ -609,17 +636,25 @@ def _layer_fwd(x, layer: LlamaLayer, cfg: LlamaConfig, cos, sin, pos, t_pos,
     kernel, except on stacked layers of a windowed model: there the
     reference's scan sends every layer to the f32 einsum (its traced window
     is never None). Every attention call takes the layer's window and the
-    softcap."""
+    softcap. rope is (cos, sin) of the global layers and that of the
+    windowed ones (swa_rope, or None: the same table)."""
     b, t, d = x.shape
     s = cache.max_len
     wl = li if stacked else None
     pick = (lambda a: a[li]) if stacked else (lambda a: a)
     win, cap = layer_window(cfg, li), cfg.attn_softcap
+    (cos, sin), swa_rope = rope
+    if win is not None and swa_rope is not None:
+        cos, sin = swa_rope
     q, k, v = _qkv(x.reshape(b * t, d), layer, cfg, wl,
                    (pick(layer.attn_norm), cfg.rms_eps))
-    q = apply_rope(q.reshape(b, t, cfg.n_heads, cfg.head_dim), cos, sin, cfg.rope_neox)
-    k = apply_rope(k.reshape(b, t, cfg.n_kv_heads, cfg.head_dim), cos, sin,
-                   cfg.rope_neox)
+    q = q.reshape(b, t, cfg.n_heads, cfg.head_dim)
+    k = k.reshape(b, t, cfg.n_kv_heads, cfg.head_dim)
+    if cfg.qk_norm:                     # gemma3: each head's RMSNorm before rope
+        q = rmsnorm(q, pick(layer.q_norm), cfg.rms_eps)
+        k = rmsnorm(k, pick(layer.k_norm), cfg.rms_eps)
+    q = apply_rope(q, cos, sin, cfg.rope_neox)
+    k = apply_rope(k, cos, sin, cfg.rope_neox)
     v = v.reshape(b, t, cfg.n_kv_heads, cfg.head_dim)
     alen = attn_len if (attn_len is not None and attn_len < s) else s
     if t == 1 and not fresh and not cache.quantized:
@@ -675,7 +710,12 @@ def forward(params: LlamaParams, cfg: LlamaConfig, tokens: torch.Tensor,
     t_pos = torch.arange(t, device=dev)
     cos, sin = rope_cos_sin(pos.long()[:, None] + t_pos[None, :], cfg.head_dim,
                             cfg.rope_theta, cfg.rope_scale, cfg)  # [B, T, D/2]
-    cos, sin = cos[:, :, None, :], sin[:, :, None, :]
+    rope = ((cos[:, :, None, :], sin[:, :, None, :]), None)
+    if cfg.swa_rope_theta and cfg.swa_rope_theta != cfg.rope_theta:
+        # gemma3: the windowed layers' table, base swa_rope_theta, scale 1
+        cs, ss = rope_cos_sin(pos.long()[:, None] + t_pos[None, :], cfg.head_dim,
+                              cfg.swa_rope_theta, 1.0, None)
+        rope = (rope[0], (cs[:, :, None, :], ss[:, :, None, :]))
     scale = cfg.attn_scale or 1.0 / math.sqrt(cfg.head_dim)
     x = params.tok_embd[tokens.long()].float()
     if cfg.embd_scale != 1.0:
@@ -683,7 +723,7 @@ def forward(params: LlamaParams, cfg: LlamaConfig, tokens: torch.Tensor,
     stacked = isinstance(params.layers, LlamaLayer)
     for li in range(cfg.n_layers):
         layer = params.layers if stacked else params.layers[li]
-        x = _layer_fwd(x, layer, cfg, cos, sin, pos, t_pos, scale, cache,
+        x = _layer_fwd(x, layer, cfg, rope, pos, t_pos, scale, cache,
                        attn_len, fresh_prefill, li, stacked)
     t_out = t
     if last_idx is not None:
@@ -704,10 +744,12 @@ def forward_paged_decode(params: LlamaParams, cfg: LlamaConfig,
     """One decode step (T = 1 a row) over a paged KV cache, stacked or
     unrolled layers.
 
-    Counterpart of the llama/mistral branches of the JAX package's
-    forward_paged_decode. tok/pos int32 [R]; paged a runtime.paged.PagedKV,
-    updated IN PLACE (each row's new K/V at page tables[r, pos // ps],
-    offset pos % ps); tables int32 [R, MAXP]. Each row attends to its
+    Counterpart of the llama/mistral and gemma branches of the JAX
+    package's forward_paged_decode (gemma: the embedding times sqrt(d), the
+    GELU FFN; a window, softcaps, post norms or q/k norms raise). tok/pos
+    int32 [R]; paged a runtime.paged.PagedKV, updated IN PLACE (each row's
+    new K/V at page tables[r, pos // ps], offset pos % ps); tables int32
+    [R, MAXP]. Each row attends to its
     pos + 1 positions through the paged_attention kernel, which reads layer
     li of the pool by pointer (`pool[li]` is a view). As in the reference,
     the attention norm runs before the products; the FFN norm does too on
@@ -715,7 +757,7 @@ def forward_paged_decode(params: LlamaParams, cfg: LlamaConfig,
     Returns (logits f32 [R, V], paged)."""
     from ..runtime.paged import paged_attend, write_token_kv
     for name in ("swa_window", "attn_softcap", "final_softcap", "post_norms",
-                 "ffn_gelu", "alibi", "kv_lora_rank"):
+                 "qk_norm", "alibi", "kv_lora_rank"):
         if getattr(cfg, name, 0):
             raise NotImplementedError(f"paged decode with {name} is not ported")
     stacked = isinstance(params.layers, LlamaLayer)
@@ -724,6 +766,8 @@ def forward_paged_decode(params: LlamaParams, cfg: LlamaConfig,
     dev = tok.device
     p64 = pos.long()
     x = params.tok_embd[tok.long()].float()                       # [R, d]
+    if cfg.embd_scale != 1.0:
+        x = x * cfg.embd_scale
     cos, sin = rope_cos_sin(p64[:, None], cfg.head_dim, cfg.rope_theta,
                             cfg.rope_scale, cfg)                  # [R, 1, D/2]
     pages = torch.gather(tables.long(), 1, (p64 // ps)[:, None])[:, 0]

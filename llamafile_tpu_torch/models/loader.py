@@ -1,6 +1,7 @@
 """GGUF -> device parameters for the port (llama / mistral, dense FFN or
-Mixtral-style routed experts; gemma2, with its sandwich norms and its head
-tied to the embedding).
+Mixtral-style routed experts; gemma, gemma2 and gemma3, with their heads
+tied to the embedding, gemma2/3's sandwich norms and gemma3's per-head q/k
+norms).
 
 Counterpart of llamafile_tpu/models/loader.py: tensor bytes flow mmap ->
 repack (numpy) -> device; `fuse_projections` then builds the fused qkv and
@@ -93,9 +94,10 @@ def fuse_projections(params: LlamaParams, cfg: LlamaConfig) -> LlamaParams:
 
 
 def load_llama(path: str, device="cuda", fuse: bool = True):
-    """Load a llama/mistral/gemma2 GGUF into (config, params, tokenizer, reader) on
-    `device`. Tensor formats other than F32/F16/BF16/Q8_0/Q4_K/Q5_K/Q6_K
-    raise NotImplementedError naming the format. Files whose layers mix
+    """Load a llama/mistral/gemma/gemma2/gemma3 GGUF into (config, params,
+    tokenizer, reader) on `device`. Tensor formats other than
+    F32/F16/BF16/Q8_0/Q4_K/Q5_K/Q6_K raise NotImplementedError naming the
+    format. Files whose layers mix
     formats (Q4_K_M, Q4_K_S, Q5_K_M) give per-layer weights that the
     forward runs unrolled. A MoE file (expert_count > 0) loads its router
     and experts; shared experts (ffn_*_shexp) raise."""
@@ -108,9 +110,9 @@ def load_llama(path: str, device="cuda", fuse: bool = True):
         p = f"blk.{i}."
         moe = cfg.n_experts > 0 and p + "ffn_gate_inp.weight" in reader
         if not moe and p + "ffn_gate.weight" not in reader:
-            raise NotImplementedError(f"{p}: only the gated (SwiGLU) dense "
-                                      "FFN and routed experts of llama/mistral "
-                                      "are ported")
+            raise NotImplementedError(f"{p}: only the gated dense FFN (SwiGLU, "
+                                      "gemma's GELU) and routed experts of "
+                                      "llama/mistral are ported")
         for unported in ("attn_q.bias", "attn_qkv.weight", "attn_norm.bias",
                          "ffn_gate_shexp.weight", "ffn_gate_inp_shexp.weight"):
             if p + unported in reader:
@@ -128,9 +130,11 @@ def load_llama(path: str, device="cuda", fuse: bool = True):
             wk=_load_qtensor(reader, p + "attn_k.weight", dev),
             wv=_load_qtensor(reader, p + "attn_v.weight", dev),
             wo=_load_qtensor(reader, p + "attn_output.weight", dev),
-            # gemma2's sandwich norms
+            # gemma2/3's sandwich norms, gemma3's per-head q/k norms
             attn_post_norm=opt("post_attention_norm.weight"),
             ffn_post_norm=opt("post_ffw_norm.weight"),
+            q_norm=opt("attn_q_norm.weight"),
+            k_norm=opt("attn_k_norm.weight"),
             **ffn))
     embd = torch.from_numpy(reader.tensor_f32("token_embd.weight")).to(
         dev).to(torch.bfloat16)

@@ -21,6 +21,26 @@ GEMMA2_9B = dict(d_model=3584, n_heads=16, n_kv_heads=8, head_dim=256, d_ff=1433
                  embd_scale=3584 ** 0.5, ffn_gelu=True, attn_softcap=50.0,
                  final_softcap=30.0, swa_window=4096, swa_pattern=2, post_norms=True,
                  head_quant="Q6_K", centered=True)
+# Gemma-7B (its model card and config.json: d 3072, 16 query heads over 16
+# KV heads of head_dim 256, so H * D = 4096 is not d, d_ff 24576, vocab
+# 256000, rms eps 1e-6, context 8192) with the gemma branches the loader
+# sets: rope NEOX, the embedding times sqrt(d), GELU-tanh, no window,
+# softcap or post norms
+GEMMA_7B = dict(d_model=3072, n_heads=16, n_kv_heads=16, head_dim=256, d_ff=24576,
+                n_vocab=256000, rms_eps=1e-6, max_context=8192, rope_neox=True,
+                embd_scale=3072 ** 0.5, ffn_gelu=True, head_quant="Q6_K", centered=True)
+# Gemma-3-27B (the text_config of its config.json: d 5376, 32 query heads
+# over 16 KV heads of head_dim 128, d_ff 21504, vocab 262144, rms eps 1e-6,
+# query_pre_attn_scalar 168 = d / h, sliding_window 1024 with
+# sliding_window_pattern 6, rope_theta 1e6 with a linear factor of 8 on the
+# global layers and rope_local_base_freq 10000 on the windowed ones, 128K
+# context) with the gemma3 branches: post norms, per-head q/k norms
+GEMMA3_27B = dict(d_model=5376, n_heads=32, n_kv_heads=16, head_dim=128, d_ff=21504,
+                  n_vocab=262144, rms_eps=1e-6, max_context=131072, rope_neox=True,
+                  rope_theta=1e6, rope_scale=1 / 8, embd_scale=5376 ** 0.5, ffn_gelu=True,
+                  attn_scale=1 / 168 ** 0.5, swa_window=1024, swa_pattern=6,
+                  swa_rope_theta=10000.0, post_norms=True, qk_norm=True,
+                  head_quant="Q6_K", centered=True)
 
 # named configs (shapes follow the public model cards; weights random)
 PRESETS = {
@@ -85,6 +105,14 @@ PRESETS = {
     # 0.2% parting of the gate became 17% of the FFN output, kernels and
     # plain versions agreeing on every op's own inputs
     "gemma-2-9b-2l": dict(n_layers=2, **GEMMA2_9B),
+    # Gemma-7B at full depth (28 layers) and at two; as every gemma preset,
+    # centred Q4_K weights and a separate random Q6_K head
+    "gemma-7b": dict(n_layers=28, **GEMMA_7B),
+    "gemma-7b-2l": dict(n_layers=2, **GEMMA_7B),
+    # Gemma-3-27B at full depth (62 layers) and at six, so that layer 5 is a
+    # global one beside five windowed layers
+    "gemma-3-27b": dict(n_layers=62, **GEMMA3_27B),
+    "gemma-3-27b-6l": dict(n_layers=6, **GEMMA3_27B),
     "tiny-moe": dict(n_layers=2, d_model=256, n_heads=4, n_kv_heads=2, d_ff=512,
                      n_vocab=1024, max_context=2048, n_experts=4,
                      n_experts_used=2, moe_norm_topk=True),
@@ -167,9 +195,12 @@ def make_synthetic_llama(preset: str = "tiny", quant: str = "Q4_K",
         else:
             ffn = dict(w_gate=rq(cfg.d_ff, d), w_up=rq(cfg.d_ff, d),
                        w_down=rq(d, cfg.d_ff))
-        if cfg.post_norms:                  # gemma2's sandwich norms, random
+        if cfg.post_norms:                  # gemma2/3's sandwich norms, random
             attn.update({f: torch.empty(d, device=dev).uniform_(0.5, 1.5, generator=gen)
                          for f in ("attn_post_norm", "ffn_post_norm")})
+        if cfg.qk_norm:                     # gemma3's per-head q/k norms, drawn alike
+            attn.update({f: torch.empty(hd, device=dev).uniform_(0.5, 1.5, generator=gen)
+                         for f in ("q_norm", "k_norm")})
         layers.append(LlamaLayer(attn_norm=torch.ones(d, device=dev),
                                  ffn_norm=torch.ones(d, device=dev), **attn, **ffn))
     if share_layers:

@@ -7,7 +7,7 @@ Counterpart of llamafile_tpu/ops/attention.py for what the port reaches:
       flash_decode_write, csrc/flash_decode_write.cu): T = 1 GQA attention
       over layer li of the flat [L, B, S, Hkv*D] bf16 cache, with the new
       row written in place at pos; its sliding window and softcap options
-      too (gemma2).
+      too (gemma2; gemma3's window).
   flash_prefill <- the upstream Pallas flash_attention (kernel
       flash_prefill, csrc/flash_prefill.cu) for T >= 128, T % 128 == 0,
       D in (64, 128, 256), no window and no softcap, in its numerics; the

@@ -125,8 +125,8 @@ class Batcher:
                                       "ported to the batcher yet")
         if getattr(engine.cfg, "swa_window", 0):
             # the reference's paged decode asserts on a sliding window
-            raise NotImplementedError("sliding-window models (gemma2) are not "
-                                      "served: the paged decode has no window")
+            raise NotImplementedError("sliding-window models (gemma2, gemma3) are "
+                                      "not served: the paged decode has no window")
         self.engine = engine
         self.cfg = engine.cfg
         self.device = engine.device

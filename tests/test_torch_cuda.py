@@ -106,13 +106,16 @@ def _m1_entry(xq, sx, qs, sc, b, s):
     return y
 
 
-@pytest.mark.parametrize("n,k", [(6144, 4096), (4096, 4096), (4096, 14336), (1040, 1024)])
+@pytest.mark.parametrize("n,k", [(6144, 4096), (4096, 4096), (4096, 14336), (1040, 1024),
+                                 (8192, 5376), (6144, 21504)])
 @pytest.mark.parametrize("split", ["one", "rule", "most"])
 def test_m1_body_splits_match_plain(dev, n, k, split):
     """The M = 1 body at qkv, o, down and a ragged Ns (a multiple of 16, not
-    of 128), at one K split (every warp's ring over all of K), at
-    m1_split's and at the most (a cluster of 8 blocks a tile); two launches
-    give the same bits, and the splits agree within 1e-5."""
+    of 128), and at Gemma-3-27B's qkv and down (K = 5376 and 21504: 84 and
+    336 chunks, split unevenly over 8), at one K split (every warp's ring
+    over all of K), at m1_split's and at the most (a cluster of 8 blocks a
+    tile); two launches give the same bits, and the splits agree within
+    1e-5."""
     gen = torch.Generator(device=dev).manual_seed(n * 3 + k)
     qs, sc, b = rand_q4b(gen, 1, n, k, dev)
     xq, sx = Q.quantize_activations_g32(torch.randn(1, k, generator=gen, device=dev),
@@ -153,6 +156,51 @@ def test_txn_matches_plain(dev, m, n, k, bias, splits):
     assert_close(got, want, 1e-5)
     assert torch.equal(Q.qmm_txn(xq, sx, qs[0], sc[0], b), got)
     assert rel_err(txn_scale_swap(xq, sx, qs[0], sc[0], b), want) > 1e-5
+
+
+# K an odd count of 256-blocks above 4096 (Gemma-3-27B: 5376 = 21 x 256 on
+# qkv and gate|up, 21504 = 84 x 256 on down; o and down padded to 6144
+# columns, and a ragged width) on every product kernel of its paths
+GEMMA_K_SHAPES = [(8192, 5376), (6144, 21504), (1040, 5376)]
+
+
+@pytest.mark.parametrize("kernel", ["txn_m1", "txn_m32", "int8_m8", "dequant_m1024",
+                                    "planes_m2048", "q8_m1_g16", "dequant_q8b_g16_m300"])
+@pytest.mark.parametrize("n,k", GEMMA_K_SHAPES)
+def test_gemma_k_products_match_plain(dev, kernel, n, k):
+    """Each product kernel at K = 5376 and 21504 on layer 1 of a 2-layer
+    stack: the decode GEMV (bias), the prefill's qmm_txn at M = 32, the
+    int8 flavour at M = 8, the dequant GEMM at phase 10's bucket, the
+    unrolled Q4_K_M prefill's two-plane GEMM at bucket 2048, and the Q6_K
+    (g 16) V and down of that recipe at decode and prefill; the limits of
+    their own tests, and a second launch gives the same bits."""
+    gen = torch.Generator(device=dev).manual_seed(n + k + len(kernel))
+    m = {"txn_m1": 1, "txn_m32": 32, "int8_m8": 8, "dequant_m1024": 1024,
+         "planes_m2048": 2048, "q8_m1_g16": 1, "dequant_q8b_g16_m300": 300}[kernel]
+    if "g16" in kernel:
+        qs, sc, b = rand_q8b(gen, 2, n, k, 16, dev)
+    else:
+        qs, sc, b = rand_q4b(gen, 2, n, k, dev)
+    x = torch.randn(m, k, generator=gen, device=dev)
+    xq, sx = Q.quantize_activations_g32(x)
+    run, plain, tol = {
+        "txn_m1": (lambda: Q.qmm_txn_m1(xq, sx, qs[1], sc[1], b[1]),
+                   lambda: Q.qmm_txn_m1_plain(xq, sx, qs[1], sc[1], b[1]), 1e-5),
+        "txn_m32": (lambda: Q.qmm_txn(xq, sx, qs[1], sc[1], b[1]),
+                    lambda: Q.qmm_txn_plain(xq, sx, qs[1], sc[1], b[1]), 1e-5),
+        "int8_m8": (lambda: Q.qmm_int8(xq, sx, qs[1], sc[1]),
+                    lambda: Q.qmm_int8_plain(xq, sx, qs[1], sc[1]), 1e-5),
+        "dequant_m1024": (lambda: Q.qmm_dequant(x, qs[1], sc[1]),
+                          lambda: Q.qmm_dequant_plain(x, qs[1], sc[1]), 1e-3),
+        "planes_m2048": (lambda: Q.qmm_planes(x, qs[1], sc[1]),
+                         lambda: Q.qmm_planes_plain(x, qs[1], sc[1]), 2 ** -7),
+        "q8_m1_g16": (lambda: Q.qmm_q8_m1(xq, sx, qs[1], sc[1]),
+                      lambda: Q.qmm_q8_m1_plain(xq, sx, qs[1], sc[1]), 1e-5),
+        "dequant_q8b_g16_m300": (lambda: Q.qmm_dequant(x, qs[1], sc[1]),
+                                 lambda: Q.qmm_dequant_plain(x, qs[1], sc[1]), 1e-3)}[kernel]
+    got = run()
+    assert_close(got, plain(), tol)
+    assert torch.equal(run(), got)
 
 
 @pytest.mark.parametrize("d,dff", [(256, 1024), (4096, 14336)])
@@ -321,9 +369,9 @@ def test_flash_decode_write_matches_plain(dev, hq, hkv, pos, s_limit):
 
 
 # D = 256 (gemma's head dim): Gemma-2-9B's 16 query heads over 8 KV heads,
-# Gemma-2B's 8 over 1, a group of 3, and 16 over 1 (chunks in every kernel
-# at D = 256)
-D256_CASES = [(16, 8), (8, 1), (24, 8), (16, 1)]
+# Gemma-2B's 8 over 1, a group of 3, 16 over 1 (chunks in every kernel
+# at D = 256), and Gemma-7B's 16 over 16 (a group of 1)
+D256_CASES = [(16, 8), (8, 1), (24, 8), (16, 1), (16, 16)]
 
 
 @pytest.mark.parametrize("hq,hkv", D256_CASES)
@@ -333,11 +381,13 @@ def test_flash_decode_write_d256_matches_plain(dev, hq, hkv, pos, s_limit):
 
 
 # gemma2's options: the window (past and inside the visible rows) and the
-# softcap, at 50 and at 1.5 (where it bends every score)
-OPTION_CASES = [(100, 0.0), (None, 50.0), (100, 50.0), (4096, 1.5), (700, 1.5)]
+# softcap, at 50 and at 1.5 (where it bends every score); gemma3's window
+# of 1024 alone
+OPTION_CASES = [(100, 0.0), (None, 50.0), (100, 50.0), (4096, 1.5), (700, 1.5), (1024, 0.0)]
 
 
-@pytest.mark.parametrize("hq,hkv,d", [(16, 8, 256), (32, 8, 128), (128, 8, 128), (8, 1, 256)])
+@pytest.mark.parametrize("hq,hkv,d", [(16, 8, 256), (32, 8, 128), (128, 8, 128), (8, 1, 256),
+                                      (32, 16, 128)])
 @pytest.mark.parametrize("win,cap", OPTION_CASES)
 def test_flash_decode_write_options_match_plain(dev, hq, hkv, d, win, cap):
     """The window (the visible rows start at pos - win + 1, split over the
@@ -762,10 +812,11 @@ def _fd_check(dev, int8, hq, hkv, pos, s_eff, d, window=0, cap=0.0):
 
 @pytest.mark.parametrize("t", [128, 384, 512, 2048])
 @pytest.mark.parametrize("hq,hkv,d", [(32, 8, 128), (4, 4, 64), (4, 2, 256), (16, 1, 128),
-                                      (8, 8, 128), (16, 1, 256)])
+                                      (8, 8, 128), (16, 1, 256), (32, 16, 128), (16, 16, 256)])
 def test_flash_prefill_matches_plain(dev, t, hq, hkv, d):
     """The wgmma kernel at head groups of 1, 2, 4 and 16, D = 64, 128 and
-    256, one and several query tiles; two launches on the same inputs are
+    256 (Gemma-3-27B's 32 over 16 at D = 128, Gemma-7B's 16 over 16 at D =
+    256), one and several query tiles; two launches on the same inputs are
     bitwise equal."""
     gen = torch.Generator(device=dev).manual_seed(t + hq + d)
     q = torch.randn((2, t, hq, d), generator=gen, device=dev)

@@ -85,7 +85,9 @@ def jax_q8_generation(gguf_q8):
 
 
 def _cli_text(path, prompt, n):
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    # the CLI's process takes the caller's torch thread count
+    env = {**{k: v for k, v in os.environ.items() if k != "PYTHONPATH"},
+           "OMP_NUM_THREADS": str(torch.get_num_threads())}
     r = subprocess.run(
         [sys.executable, "-m", "llamafile_tpu_torch.cli", "--device", "cpu",
          "--cli", "-m", path, "-p", prompt, "-n", str(n), "--temp", "0"],

@@ -10,7 +10,8 @@ Engine) or F32. Those widths reach the decode kernels' route
 the JAX side runs its Pallas kernels in interpret mode (the monkeypatch of
 tests/test_flash_write.py). Held:
 - LlamaConfig.from_gguf field by field, the weights carried across by
-  convert.params_from_numpy, and gemma / gemma3 still refused;
+  convert.params_from_numpy, and other architectures (qwen2, phi3) still
+  refused;
 - prefill (32-token bucket, the einsum with the window and softcap), then
   decode past the window, stacked and unrolled, bf16 and int8 caches:
   logits within 2e-2 of the largest, with the attention route of each
@@ -131,8 +132,11 @@ def test_config_matches_jax(gguf):
     assert tp.output.kind == "q8b" and tp.layers[0].attn_post_norm.shape == (D,)
 
 
-@pytest.mark.parametrize("arch", ["gemma", "gemma3"])
+@pytest.mark.parametrize("arch", ["qwen2", "phi3"])
 def test_other_gemmas_not_ported(tmp_path, arch):
+    """The gemma family is ported (gemma and gemma3 are held in
+    tests/test_torch_gemma.py and test_torch_gemma3.py); architectures
+    outside it and llama's, such as qwen2 and phi3, still raise."""
     path = make_tiny_gemma2_gguf(str(tmp_path / f"{arch}.gguf"), quant="F32", arch=arch)
     with pytest.raises(NotImplementedError, match="not ported"):
         load_llama(path, device="cpu")

@@ -8,6 +8,7 @@ import pytest
 import torch
 
 from llamafile_tpu.models import synthetic as JS
+from llamafile_tpu_torch.models import llama as TL
 from llamafile_tpu_torch.models import synthetic as TS
 from llamafile_tpu_torch.runtime.engine import Engine
 from llamafile_tpu_torch.runtime.sampling import SamplingParams
@@ -132,6 +133,60 @@ def test_gemma2_9b_shapes_and_read_bytes(preset, n_layers):
                  + _q4b_bytes(4096, 14336) + 4 * 3584 * 4)
     want = n_layers * per_layer + _q8b_bytes(256000, 3584, 16) + 3584 * 4
     assert TS.decode_read_bytes(params, cfg) == want
+
+
+@pytest.mark.parametrize("preset,n_layers", [("gemma-7b", 28), ("gemma-7b-2l", 2)])
+def test_gemma_7b_shapes_and_read_bytes(preset, n_layers):
+    """Gemma-7B's published widths with the gemma branches, fused, on the
+    meta device: 16 query heads over 16 KV heads of head_dim 256 (q, k and
+    v each 4096 wide over d 3072), no window, softcap or post norms, the
+    Q6_K head; o and down padded from 3072 to 4096 columns."""
+    cfg, params = TS.make_synthetic_llama(preset, "Q4_K", fuse=True, device="meta")
+    assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+            cfg.d_ff, cfg.n_vocab, cfg.rms_eps, cfg.max_context) == (
+        n_layers, 3072, 16, 16, 256, 24576, 256000, 1e-6, 8192)
+    assert cfg.rope_neox and cfg.ffn_gelu and cfg.embd_scale == 3072 ** 0.5
+    assert (cfg.swa_window, cfg.attn_softcap, cfg.post_norms, cfg.qk_norm) == (0, 0.0, False,
+                                                                              False)
+    for layer in params.layers:
+        assert layer.wqkv.shape == (12288, 3072) and layer.wqkv.qs.shape == (1536, 12288)
+        assert layer.wo.shape == (3072, 4096) and layer.wo.qs.shape == (2048, 4096)
+        assert layer.w_gate_up.shape == (49152, 3072) and layer.w_gate_up.il
+        assert layer.w_down.shape == (3072, 24576) and layer.w_down.qs.shape == (12288, 4096)
+        assert layer.attn_post_norm is None and layer.q_norm is None
+    per_layer = (_q4b_bytes(12288, 3072) + _q4b_bytes(4096, 4096) + _q4b_bytes(49152, 3072)
+                 + _q4b_bytes(4096, 24576) + 2 * 3072 * 4)
+    want = n_layers * per_layer + _q8b_bytes(256000, 3072, 16) + 3072 * 4
+    assert TS.decode_read_bytes(params, cfg) == want
+
+
+@pytest.mark.parametrize("preset,n_layers", [("gemma-3-27b", 62), ("gemma-3-27b-6l", 6)])
+def test_gemma3_27b_shapes_and_read_bytes(preset, n_layers):
+    """Gemma-3-27B's published widths with the gemma3 branches, fused, on
+    the meta device: K = 5376 (21 superblocks) on qkv and gate|up, K =
+    21504 on down, o and down padded from 5376 to 6144 columns, the q/k
+    norms, the query scale 168^-1/2, the window on five layers of each six
+    and the two rope bases; decode_read_bytes about 18.35 GB at 62 layers."""
+    cfg, params = TS.make_synthetic_llama(preset, "Q4_K", fuse=True, device="meta")
+    assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+            cfg.d_ff, cfg.n_vocab, cfg.rms_eps) == (
+        n_layers, 5376, 32, 16, 128, 21504, 262144, 1e-6)
+    assert (cfg.swa_window, cfg.swa_pattern, cfg.rope_theta, cfg.rope_scale,
+            cfg.swa_rope_theta) == (1024, 6, 1e6, 1 / 8, 10000.0)
+    assert cfg.qk_norm and cfg.post_norms and cfg.attn_scale == 1 / 168 ** 0.5
+    assert [TL.layer_window(cfg, li) for li in range(6)] == [1024] * 5 + [None]
+    for layer in params.layers:
+        assert layer.wqkv.shape == (8192, 5376) and layer.wqkv.qs.shape == (2688, 8192)
+        assert layer.wo.shape == (5376, 4096) and layer.wo.qs.shape == (2048, 6144)
+        assert layer.w_gate_up.shape == (43008, 5376) and layer.w_gate_up.il
+        assert layer.w_down.shape == (5376, 21504) and layer.w_down.qs.shape == (10752, 6144)
+        assert layer.q_norm.shape == layer.k_norm.shape == (128,)
+    per_layer = (_q4b_bytes(8192, 5376) + _q4b_bytes(6144, 4096) + _q4b_bytes(43008, 5376)
+                 + _q4b_bytes(6144, 21504) + 4 * 5376 * 4 + 2 * 128 * 4)
+    want = n_layers * per_layer + _q8b_bytes(262144, 5376, 16) + 5376 * 4
+    assert TS.decode_read_bytes(params, cfg) == want
+    if n_layers == 62:
+        assert 18.3e9 < want < 18.4e9
 
 
 @pytest.mark.parametrize("preset", ["tiny", "tiny-moe"])
