@@ -32,7 +32,18 @@
    4), qmm_dequant at their prefill buckets (1024 and 512) and at
    Gemma-7B's Q6_K head for 4 rows, qmm_q8_m1 at their Q6_K heads;
    flash_prefill at T = 1024 also at 32 over 16 heads (D 128) and 16 over
-   16 (D 256), paged_attention also at 16 over 16 (D 256);
+   16 (D 256), paged_attention also at 16 over 16 (D 256); the products
+   of Qwen3-32B (qkv N 10240, o K 8192, gate|up N 51200, down K 25600) and
+   Qwen2.5-7B (qkv N 4608, o, the concatenated gate|up N 37888, down K
+   18944) on qmm_txn_m1 and on qmm_txn at M = 32 and 4, Qwen3-32B's at M =
+   1024 on qmm_dequant and its fused FFN (d_ff 25600) on qmm_moe_m1, the
+   Q6_K heads of vocab 151936 and 152064 on qmm_q8_m1 and Qwen3-32B's at M
+   = 4 on qmm_dequant, with the vocab's last column tile held through
+   qmatmul (vocab_tail_check), llama3-8b's four products at M = 4096 (64
+   embedding texts of bucket 64) on qmm_dequant, flash_prefill at 64 over
+   8 and 28 over 4 heads (T = 1024) and at B = 8 (T = 512) and 64 (T =
+   128), and the decode kernels at G = 8 (64 over 8) and 7 (28 over 4);
+   the window-only option cases beside sdpa with a boolean window mask;
    the unrolled prefill's qmm_planes; flash_decode and paged_attention
    over bf16 and int8 (one launch of thread-block clusters, a group of up
    to 16 heads from one K/V read; a larger group's label gives the
@@ -55,7 +66,8 @@
    tolerances of the CPU and card tests) and timed on the device: a run of launches cycling over
    enough layers of weights to spill the 50 MB L2 (as decode does) is
    captured in a CUDA graph and replayed between CUDA events, median of 25
-   replays, so the host's dispatch cost is left out. Timed: the kernel, its
+   replays (5 for a plain version), so the host's dispatch cost is left
+   out. Timed: the kernel, its
    plain version, one PyTorch library call computing the same function where
    there is one (for qmm_i8p, torch._int_mm on the same codes without the
    per-block scales), and the bound (bytes over the card's memory rate, or
@@ -99,13 +111,21 @@
    prefill on flash_prefill, the windowed ones on the second rope table;
    bucket 2048: the windowed layers' prefill on the einsum, layer 5's on
    flash_prefill) and 2 decode steps each, past the window of 1024 at
-   1100; two
+   1100; qwen2 at Qwen2.5-7B's widths (qwen2.5-7b-2l: q/k/v biases, 28
+   over 4 heads) and qwen3 at Qwen3-32B's (qwen3-32b-2l: q/k norms, 64 over
+   8 heads, the fused FFN), Q4_K stacked over a bf16 cache and Q4_K_M
+   unrolled over an int8 cache, 24- and 300-token prompts and 2 decode
+   steps each against the plain versions on the card, then the HTTP server
+   at 4 slots over the stacked engine (the paged decode with the biases
+   and with the q/k norms), launches exact, the shortest and longest
+   prompts' requests against themselves served alone; two
    layers at Mixtral-8x7B width (mixtral-8x7b-2l): Q4_K stacked (24-token
    prompt: qmm_txn_g; a decode step on the routed fused FFN), the Q4_K_M
    recipe unrolled (300-token prompt: layer 0's qmm_planes_g, layer 1's
    dense expert loop (Q6_K down); a decode step: the routed GEMVs), and
    the paged decode at 4 rows (the fused FFN) and 8 rows (qmm_txn_g), one
-   step each (the Mixtral checks' CPU side is the slowest of the phase); the
+   step each (the stacked and unrolled ones against the plain versions on
+   the card, plain_kernels; the paged ones against the CPU); the
    routers held on the card's own inputs and their choices compared row by
    row (a row routed otherwise on the two sides is reported, its logits not
    held), and one decode step's MoE FFN calls run under
@@ -155,9 +175,16 @@
    decode step at 8 rows against its bound, peak memory; exact launches
    from the batcher's own tallies; three requests served again one at a
    time by a fresh batcher (greedy at the shortest and longest prompt, one
-   sampled) must give the same token ids.
-6. llama3-8b by llama.cpp's Q4_K_M recipe (testing.make_q4_k_m_llama: 16
-   of 32 layers with Q6_K V and down, Q6_K head), unrolled, through
+   sampled) must give the same token ids. Then, over the same server, the
+   embeddings (embedding_phase): 256 /v1/embeddings requests of 50 tokens
+   from 16 client threads, then 8 of 500 tokens (bucket 512, flash_prefill
+   at B > 1), each window counted alone with launches exact (the
+   EmbedBatcher's thread and the batcher's share the launch counters);
+   req/s, p50 latency, the batches formed; vectors within 1e-3 of the same
+   ids embedded alone and of the plain versions on the card.
+6. llama3-8b by llama.cpp's Q4_K_M recipe (testing.make_q4_k_m_llama) at
+   PHASE6_LAYERS = 16 of its 32 layers (8 of them with Q6_K V and down,
+   Q6_K head), unrolled, through
    Engine.generate (64 tokens from a 24-token prompt, then the 1000-token
    prompt's TTFT on qmm_planes) and the HTTP server at 4 slots (4 greedy
    requests, those of the shortest and longest prompt against themselves
@@ -170,24 +197,35 @@
    of the shortest and longest prompt against themselves served alone;
    launches exact, the decode rate against the
    routed weight-read bound (models.synthetic.decode_read_bytes).
-8. llama3.2-3b (Llama-3.2-3B's widths, 28 layers, a head group of 3), Q4_K
+8. llama3.2-3b (Llama-3.2-3B's widths, PHASE8_LAYERS = 14 of its 28 layers,
+   a head group of 3), Q4_K
    stacked: Engine.generate of 32 tokens from the 24-token prompt, launches
    exact, the decode rate against its weight-read bound; the HTTP server at
    4 slots, 4 greedy requests, those of the shortest and longest prompt
    against themselves served alone; no decode attention call on the einsum
    or gather route.
-9. gemma-2-9b (Gemma-2-9B's widths, 42 layers, the gemma2 branches), Q4_K
+9. gemma-2-9b (Gemma-2-9B's widths, PHASE9_LAYERS = 21 of its 42 layers,
+   the gemma2 branches), Q4_K
    stacked with a Q6_K head: Engine.generate of 64 tokens from the
    24-token prompt, launches exact (no fused FFN; flash_decode_write with
    the window on the even layers and the softcap on all), the decode rate
    against its weight-read bound; the 1000-token prompt's TTFT, median of
    3.
-10. gemma-3-27b (Gemma-3-27B's widths, 62 layers, the gemma3 branches),
+10. gemma-3-27b (Gemma-3-27B's widths, PHASE10_LAYERS = 31 of its 62
+   layers, the gemma3 branches),
    Q4_K stacked with a Q6_K head: as phase 9, the 1000-token prompt's
-   prefill launching flash_prefill on all 62 layers (bucket 1024, the
-   window's width); then, as the last timed run is over, that prefill's
-   device time by kernel (torch.profiler).
-   Phases run in the order 4, 4b, 4d, 5, 4f, 4e, 4c, 6, 7, 8, 9, 10. Then, after every timed
+   prefill launching flash_prefill on every layer (bucket 1024, the
+   window's width).
+11. qwen3-32b (Qwen3-32B's widths, 64 layers, q/k norms, the fused FFN),
+   Q4_K stacked with a Q6_K head (vocab 151936): Engine.generate of 64
+   tokens from the 24-token prompt, launches exact, the decode rate
+   against its weight-read bound, the 1000-token prompt's TTFT (median of
+   3); the HTTP server at 4 slots, 4 greedy requests, launches exact (the
+   requests alone are held by phase 3's qwen3-32b-2l check).
+12. qwen2.5-7b (Qwen2.5-7B's widths, 28 layers, q/k/v biases, G = 7, the
+   FFN unfused): decode rate and TTFT as phase 11; then, as the last timed
+   run is over, that prefill's device time by kernel (torch.profiler).
+   Phases run in the order 4, 4b, 4d, 5, 4f, 4e, 4c, 6, 7, 8, 9, 10, 11, 12. Then, after every timed
    run (so that no profiler session of the process precedes a timing),
    profiles: a 2-step decode chunk of each model (7a, 7b, and 4c, 4 and
    4f's int8 on rebuilt engines) under torch.profiler (the device's busy
@@ -201,7 +239,7 @@ before the launches line.
 
 Any failure raises and exits non-zero. The last line of standard output is
 {"ok": true, "device": {...}}; the lines before it hold every kernel's
-launches summed over the counted runs of phases 4 to 10 ({"launches": ...},
+launches summed over the counted runs of phases 4 to 12 ({"launches": ...},
 with qmm_planes' launches on a stacked layer's view apart as
 "qmm_planes_stacked"), the kernel table (one JSON object with an entry a
 kernel: the numbers of its first shape, the main path's heaviest, every
@@ -214,6 +252,7 @@ import contextlib
 import copy
 import dataclasses
 import cProfile
+import gc
 import json
 import os
 import pstats
@@ -310,6 +349,16 @@ def time_ms(torch, fn, n_cycle: int, samples: int = SAMPLES) -> float:
     return statistics.median(out)
 
 
+PLAIN_SAMPLES = 5               # replays timed for a plain version (a yardstick)
+
+
+def plain_time_ms(torch, fn, n_cycle: int) -> float:
+    """time_ms of a kernel's plain version, the median of PLAIN_SAMPLES
+    replays: the plain versions take 10-100x their kernels, and their times
+    are a yardstick beside the kernel's, not a measurement of the port."""
+    return time_ms(torch, fn, n_cycle, PLAIN_SAMPLES)
+
+
 def q4b_bytes(qs, sc, b):
     return sum(t[0].numel() * t.element_size() for t in (qs, sc, b))
 
@@ -362,6 +411,21 @@ GEMMA_PRODUCTS = (("Gemma-3-27B qkv", 8192, 5376, 4), ("Gemma-3-27B o (N 5376)",
                   ("Gemma-7B down (N 3072)", 4096, 24576, 2))
 
 
+# The products of Qwen3-32B and Qwen2.5-7B by (label, storage N, K, layers
+# cycled): Qwen3-32B's qkv (N 10240, K 5120), o (N 5120 in 6144, K 8192:
+# H * D is not d), interleaved gate|up (N 51200) and down (K 25600);
+# Qwen2.5-7B's qkv (N 4608 in 6144, K 3584), o, concatenated gate|up (N
+# 37888 in 38912: d_ff 18944 is not a multiple of 1024, so never fused)
+# and down (K 18944)
+QWEN_PRODUCTS = (("Qwen3-32B qkv", 10240, 5120, 4), ("Qwen3-32B o (N 5120)", 6144, 8192, 4),
+                 ("Qwen3-32B gate_up", 51200, 5120, 2),
+                 ("Qwen3-32B down (N 5120)", 6144, 25600, 2),
+                 ("Qwen2.5-7B qkv (N 4608)", 6144, 3584, 8),
+                 ("Qwen2.5-7B o (N 3584)", 4096, 3584, 12),
+                 ("Qwen2.5-7B gate_up (N 37888)", 38912, 3584, 2),
+                 ("Qwen2.5-7B down (N 3584)", 4096, 18944, 3))
+
+
 def kernel_phases(torch, dev, gen):
     from llamafile_tpu_torch.ops import qmatmul as Q
     from llamafile_tpu_torch.ops.repack import q4b_codes
@@ -396,7 +460,7 @@ def kernel_phases(torch, dev, gen):
     # and 3072 columns padded to 6144 and 4096) ------------------------------
     for label, n, k, layers in (("qkv", 6144, 4096, 8), ("o", 4096, 4096, 12),
                                 ("down", 4096, 14336, 3), ("lm_head", 129024, 4096, 1),
-                                *GEMMA_PRODUCTS):
+                                *GEMMA_PRODUCTS, *QWEN_PRODUCTS):
         qs, sc, b = rand_q4b(gen, layers, n, k, dev)
         x = torch.randn((1, k), generator=gen, device=dev)
         nrm = 1 + 0.1 * torch.randn(k, generator=gen, device=dev)
@@ -407,7 +471,7 @@ def kernel_phases(torch, dev, gen):
         err = check_close(f"qmm_txn_m1/{label}", got, want, 1e-5)
         check_repeat(f"qmm_txn_m1/{label}", Q.qmm_txn_m1(xq, sx, qs[0], sc[0], b[0]), got)
         ms = time_ms(torch, lambda i: Q.qmm_txn_m1(xq, sx, qs[i], sc[i], b[i]), layers)
-        plain = time_ms(torch, lambda i: Q.qmm_txn_m1_plain(xq, sx, qs[i], sc[i], b[i]),
+        plain = plain_time_ms(torch, lambda i: Q.qmm_txn_m1_plain(xq, sx, qs[i], sc[i], b[i]),
                         layers)
         w = dequant_bf16(qs, sc, b)
         xb = x.to(torch.bfloat16)
@@ -451,7 +515,11 @@ def kernel_phases(torch, dev, gen):
                                      for label, n, k, layers in GEMMA_PRODUCTS),
                                    *((4, label, n, k, layers)
                                      for label, n, k, layers in GEMMA_PRODUCTS
-                                     if label.startswith("Gemma-7B"))):
+                                     if label.startswith("Gemma-7B")),
+                                   # Qwen's at phase 11's and phase 3's 24-token
+                                   # prefills (M = 32) and 4-slot servers (M = 4)
+                                   *((m, label, n, k, layers) for m in (32, 4)
+                                     for label, n, k, layers in QWEN_PRODUCTS)):
         qs, sc, b = rand_q4b(gen, layers, n, k, dev)
         x = torch.randn((m, k), generator=gen, device=dev)
         xq, sx = Q.quantize_activations_g32(x)
@@ -467,7 +535,7 @@ def kernel_phases(torch, dev, gen):
             raise AssertionError(f"{what}: the faulty control passes")
         del got, want
         ms = time_ms(torch, lambda i: Q.qmm_txn(xq, sx, qs[i], sc[i], b[i]), layers)
-        plain = time_ms(torch, lambda i: Q.qmm_txn_plain(xq, sx, qs[i], sc[i], b[i]), layers)
+        plain = plain_time_ms(torch, lambda i: Q.qmm_txn_plain(xq, sx, qs[i], sc[i], b[i]), layers)
         w = dequant_bf16(qs, sc, b)
         xb = x.to(torch.bfloat16)
         lib = time_ms(torch, lambda i: torch.matmul(xb, w[i]), layers)
@@ -506,7 +574,18 @@ def kernel_phases(torch, dev, gen):
             *(("q4b", 1024 if label.startswith("Gemma-3") else 512, label, n, k, layers)
               for label, n, k, layers in GEMMA_PRODUCTS),
             # the Q6_K head of phase 3's 4-slot Gemma-7B server at M = 4
-            ("q8b", 4, "Gemma-7B lm_head Q6_K", 256000, 3072, 1)):
+            ("q8b", 4, "Gemma-7B lm_head Q6_K", 256000, 3072, 1),
+            # Qwen3-32B's products at phase 11's 1000-token prompt's bucket
+            # (M = 1024), its Q6_K head at its 4-slot server's rows (M = 4;
+            # N 151936 in 153600), and llama3-8b's four at phase 5's
+            # embedding batches of 64 texts of 50 tokens (64 x 64 rows)
+            *(("q4b", 1024, label, n, k, layers)
+              for label, n, k, layers in QWEN_PRODUCTS if label.startswith("Qwen3")),
+            ("q8b", 4, "Qwen3-32B lm_head Q6_K (N 151936)", 153600, 5120, 1),
+            ("q4b", 4096, "embed 64x64 gate_up", 28672, 4096, 2),
+            ("q4b", 4096, "embed 64x64 down", 4096, 14336, 2),
+            ("q4b", 4096, "embed 64x64 qkv", 6144, 4096, 4),
+            ("q4b", 4096, "embed 64x64 o", 4096, 4096, 4)):
         if kind == "q4b":
             qs, sc, _ = rand_q4b(gen, layers, n, k, dev)
         else:
@@ -520,7 +599,7 @@ def kernel_phases(torch, dev, gen):
         err = check_close(f"qmm_dequant/{kind}/{label}/M={m}", got, want, 1e-3)
         del got, want
         ms = time_ms(torch, lambda i: Q.qmm_dequant(x, qs[i], sc[i]), layers)
-        plain = time_ms(torch, lambda i: Q.qmm_dequant_plain(x, qs[i], sc[i]), layers)
+        plain = plain_time_ms(torch, lambda i: Q.qmm_dequant_plain(x, qs[i], sc[i]), layers)
         w = torch.stack([Q.dequant_bf16(qs[i], sc[i]) for i in range(layers)])
         lib = time_ms(torch, lambda i: torch.matmul(x, w[i]), layers)
         del w
@@ -530,6 +609,8 @@ def kernel_phases(torch, dev, gen):
               BF16_FLOP_PER_S)
         del qs, sc
         torch.cuda.empty_cache()
+
+    vocab_tail_check(torch, dev, gen)
 
     # --- the dequantized weight tile, bit for bit: with x = I (K = 1024
     # one-hot rows) each output sum has one nonzero term, so y[k, :] must
@@ -576,7 +657,7 @@ def kernel_phases(torch, dev, gen):
             raise AssertionError(f"qmm_planes {label}: the faulty control passes")
         del got, want
         ms = time_ms(torch, lambda i: Q.qmm_planes(x, qs[i], sc[i]), layers)
-        plain = time_ms(torch, lambda i: Q.qmm_planes_plain(x, qs[i], sc[i]), layers)
+        plain = plain_time_ms(torch, lambda i: Q.qmm_planes_plain(x, qs[i], sc[i]), layers)
         w = torch.stack([Q.dequant_bf16(qs[i], sc[i]) for i in range(layers)])
         lib = time_ms(torch, lambda i: torch.matmul(x, w[i]), layers)
         del w
@@ -596,7 +677,9 @@ def kernel_phases(torch, dev, gen):
                                    ("lm_head Q8_0", 32, 129024, 4096, 1),
                                    ("lm_head Q6_K", 16, 129024, 4096, 1),
                                    ("Gemma-3-27B lm_head Q6_K", 16, 262144, 5376, 1),
-                                   ("Gemma-7B lm_head Q6_K", 16, 256000, 3072, 1)):
+                                   ("Gemma-7B lm_head Q6_K", 16, 256000, 3072, 1),
+                                   ("Qwen3-32B lm_head Q6_K (N 151936)", 16, 153600, 5120, 1),
+                                   ("Qwen2.5-7B lm_head Q6_K (N 152064)", 16, 153600, 3584, 1)):
         qs, sc, _ = rand_q8b(gen, layers, n, k, g, dev)
         x = torch.randn((1, k), generator=gen, device=dev)
         nrm = 1 + 0.1 * torch.randn(k, generator=gen, device=dev)
@@ -606,7 +689,7 @@ def kernel_phases(torch, dev, gen):
         torch.cuda.synchronize()
         err = check_close(f"qmm_q8_m1/{label}", got, want, 1e-5)
         ms = time_ms(torch, lambda i: Q.qmm_q8_m1(xq, sx, qs[i], sc[i]), layers)
-        plain = time_ms(torch, lambda i: Q.qmm_q8_m1_plain(xq, sx, qs[i], sc[i]), layers)
+        plain = plain_time_ms(torch, lambda i: Q.qmm_q8_m1_plain(xq, sx, qs[i], sc[i]), layers)
         w = torch.stack([Q.dequant_bf16(qs[i], sc[i]) for i in range(layers)])
         xb = x.to(torch.bfloat16)
         lib = time_ms(torch, lambda i: torch.matmul(xb, w[i]), layers)
@@ -625,31 +708,19 @@ def kernel_phases(torch, dev, gen):
     for hq, hkv, hd, t, sets, model in ((32, 8, 128, 1024, 2, ""), (32, 8, 128, 512, 4, ""),
                                         (32, 8, 128, 2048, 2, ""),
                                         (32, 16, 128, 1024, 2, "Gemma-3-27B "),
-                                        (16, 16, 256, 1024, 2, "Gemma-7B ")):
+                                        (16, 16, 256, 1024, 2, "Gemma-7B "),
+                                        (64, 8, 128, 1024, 2, "Qwen3-32B "),
+                                        (28, 4, 128, 1024, 2, "Qwen2.5-7B ")):
         prefill_phase(torch, dev, gen, entry, hq, hkv, hd, t, sets, model)
+    # B > 1: phase 5's embedding batches of 500-token texts (8 rows of
+    # bucket 512) at llama3-8b's heads, and B = 64 at T = 128
+    for b, t in ((8, 512), (64, 128)):
+        prefill_phase(torch, dev, gen, entry, 32, 8, 128, t, 2, f"B={b} ", b=b)
 
-    # --- qmm_moe_m1: the fused decode FFN, layer as expert ---------------
-    d, dff, layers = 4096, 14336, 2
-    gq, gs, gb = rand_q4b(gen, layers, 2 * dff, d, dev)
-    dq, ds, db = rand_q4b(gen, layers, d, dff, dev)
-    x = torch.randn((1, d), generator=gen, device=dev)
-    xq, sx = Q.quantize_activations_g32(x, 1 + 0.1 * torch.randn(d, generator=gen, device=dev), 1e-5)
-    ids = torch.arange(layers, dtype=torch.int32, device=dev)   # the layer id as expert
-    one = torch.ones(1, device=dev)
-    args = lambda i: (xq, sx, gq, gs, gb, dq, ds, db, ids[i:i + 1], None, one)
-    got = Q.qmm_moe_m1(*args(0))
-    want = Q.qmm_moe_m1_plain(*args(0))
-    torch.cuda.synchronize()
-    err = check_close("qmm_moe_m1", got, want, 2e-3)
-    check_repeat("qmm_moe_m1", Q.qmm_moe_m1(*args(0)), got)
-    ms = time_ms(torch, lambda i: Q.qmm_moe_m1(*args(i)), layers)
-    plain = time_ms(torch, lambda i: Q.qmm_moe_m1_plain(*args(i)), layers)
-    entry("qmm_moe_m1", "llamafile_tpu_torch/csrc/qmm_moe_m1.cu",
-          "llamafile_tpu/ops/qmatmul.py:1037", f"ffn M=1 d={d} d_ff={dff}",
-          err, ms, plain, None,
-          q4b_bytes(gq, gs, gb) + q4b_bytes(dq, ds, db) + d + d // 8 + 4 * d,
-          2 * (2 * dff * d + d * dff))
-    del gq, gs, gb, dq, ds, db
+    # --- qmm_moe_m1: the fused decode FFN, layer as expert: llama3-8b's,
+    # then Qwen3-32B's (d_ff 25600 = 25 x 1024) ----------------------------
+    for d, dff, layers in ((4096, 14336, 2), (5120, 25600, 2)):
+        moe_m1_phase(torch, dev, gen, entry, d, dff, layers)
 
     # --- flash_decode_write: decode attention + KV-row write --------------
     # one launch of B * Hkv * head_chunks(G) clusters of FDW_CLUSTER blocks;
@@ -706,13 +777,19 @@ DECODE_GROUPS = {
                            (24, 8, 128, ((700, 1024), (40, 256))),
                            (128, 8, 128, ((700, 1024),)),
                            (16, 8, 256, ((700, 1024), (1900, 2048))),
-                           (8, 1, 256, ((700, 1024),))],
+                           (8, 1, 256, ((700, 1024),)),
+                           # Qwen3-32B's 64 over 8 (G = 8), Qwen2.5-7B's 28
+                           # over 4 (G = 7), and their phase 11/12 decode
+                           (64, 8, 128, ((700, 1024), (64, 256))),
+                           (28, 4, 128, ((700, 1024), (64, 256)))],
     # (int8, s_eff)
     "flash_decode": [(32, 8, 128, ((False, 1024), (False, 2048), (True, 1024), (True, 2048))),
                      (24, 8, 128, ((False, 2048), (True, 2048))),
                      (128, 8, 128, ((False, 2048), (True, 2048))),
                      (16, 8, 256, ((False, 2048), (True, 2048))),
-                     (8, 1, 256, ((False, 2048), (True, 2048)))],
+                     (8, 1, 256, ((False, 2048), (True, 2048))),
+                     (64, 8, 128, ((True, 2048),)),
+                     (28, 4, 128, ((True, 2048),))],
     # (label, lengths, int8): 8 rows, and at 24 heads also the 4 rows of
     # phase 8's server (serve_four's prompts, 32 tokens into their answers)
     "paged_attention": [
@@ -729,7 +806,10 @@ DECODE_GROUPS = {
                       ("int8 + f32 scales, every length 1024", [1024] * 8, True))),
         (8, 1, 256, (("bf16, every length 1024", [1024] * 8, False),)),
         # Gemma-7B's 16 over 16 (a group of 1) at D = 256
-        (16, 16, 256, (("bf16, every length 1024", [1024] * 8, False),))],
+        (16, 16, 256, (("bf16, every length 1024", [1024] * 8, False),)),
+        # Qwen3-32B's 64 over 8 and Qwen2.5-7B's 28 over 4
+        (64, 8, 128, (("bf16, every length 1024", [1024] * 8, False),)),
+        (28, 4, 128, (("bf16, every length 1024", [1024] * 8, False),))],
 }
 
 
@@ -776,15 +856,77 @@ def paged_yardstick(torch, q, kp, vp, ks, vs, lens, tables, nl):
     return lambda i: sdpa(qg, kd[i], vd[i], attn_mask=mask, scale=1.0)
 
 
-def prefill_work(t, hq, hkv, hd):
-    """(bytes, operations, op rate) of flash_prefill's bound: q, k, v read
-    and the output written once in bf16; the causal products' bf16 flops."""
-    return (t * (hq + 2 * hkv) + t * hq) * hd * 2, 2 * hq * hd * t * (t + 1), BF16_FLOP_PER_S
+def moe_m1_phase(torch, dev, gen, entry, d, dff, layers):
+    """Phase 2 for qmm_moe_m1, the fused decode FFN of stacked layers (the
+    layer id as the expert id) at d and d_ff, over `layers` layers cycled:
+    against its plain version, a second launch bitwise, timed."""
+    from llamafile_tpu_torch.ops import qmatmul as Q
+    from llamafile_tpu_torch.testing import rand_q4b
+    gq, gs, gb = rand_q4b(gen, layers, 2 * dff, d, dev)
+    dq, ds, db = rand_q4b(gen, layers, d, dff, dev)
+    x = torch.randn((1, d), generator=gen, device=dev)
+    xq, sx = Q.quantize_activations_g32(x, 1 + 0.1 * torch.randn(d, generator=gen, device=dev), 1e-5)
+    ids = torch.arange(layers, dtype=torch.int32, device=dev)   # the layer id as expert
+    one = torch.ones(1, device=dev)
+    args = lambda i: (xq, sx, gq, gs, gb, dq, ds, db, ids[i:i + 1], None, one)
+    what = "qmm_moe_m1" if (d, dff) == (4096, 14336) else f"qmm_moe_m1/d={d} d_ff={dff}"
+    got = Q.qmm_moe_m1(*args(0))
+    want = Q.qmm_moe_m1_plain(*args(0))
+    torch.cuda.synchronize()
+    err = check_close(what, got, want, 2e-3)
+    check_repeat(what, Q.qmm_moe_m1(*args(0)), got)
+    ms = time_ms(torch, lambda i: Q.qmm_moe_m1(*args(i)), layers)
+    plain = plain_time_ms(torch, lambda i: Q.qmm_moe_m1_plain(*args(i)), layers)
+    entry("qmm_moe_m1", "llamafile_tpu_torch/csrc/qmm_moe_m1.cu",
+          "llamafile_tpu/ops/qmatmul.py:1037", f"ffn M=1 d={d} d_ff={dff}",
+          err, ms, plain, None,
+          q4b_bytes(gq, gs, gb) + q4b_bytes(dq, ds, db) + d + d // 8 + 4 * d,
+          2 * (2 * dff * d + d * dff))
+    del gq, gs, gb, dq, ds, db
+    torch.cuda.empty_cache()
 
 
-def prefill_phase(torch, dev, gen, entry, hq, hkv, hd, t, sets, model=""):
-    """Phase 2 for flash_prefill at hq query heads over hkv KV heads of head
-    dim hd and T = t, over `sets` sets of inputs cycled: row by row against
+def vocab_tail_check(torch, dev, gen, n=151936, k=5120):
+    """Qwen3-32B's Q6_K head (vocab 151936, not a multiple of 256, stored in
+    153600 columns) through qmatmul as the model calls it: at M = 1 on
+    qmm_q8_m1 and at M = 4 on qmm_dequant, the logits the sampler sees are
+    [M, 151936], and the last column tile (the 128 columns below 151936)
+    and the whole output agree with the plain versions on the card."""
+    from llamafile_tpu_torch.ops import qmatmul as Q
+    from llamafile_tpu_torch.ops.repack import QTensor
+    from llamafile_tpu_torch.testing import rand_q8b
+    ns = -(-n // 2048) * 2048
+    qs, sc, _ = rand_q8b(gen, 1, ns, k, 16, dev)
+    head = QTensor("q8b", (n, k), 16, qs[0], sc[0], None)
+    nrm = 1 + 0.1 * torch.randn(k, generator=gen, device=dev)
+    for m, kernel, tol in ((1, "qmm_q8_m1", 1e-5), (4, "qmm_dequant", 1e-3)):
+        x = torch.randn((m, k), generator=gen, device=dev)
+        before = launch_counts()[kernel]
+        got = Q.qmatmul(x, head, prenorm=(nrm, 1e-6))
+        launched = launch_counts()[kernel] - before
+        with plain_kernels():
+            want = Q.qmatmul(x, head, prenorm=(nrm, 1e-6))
+        torch.cuda.synchronize()
+        what = f"{kernel}/Qwen3-32B head M={m} N={n} (stored {ns})"
+        if tuple(got.shape) != (m, n) or launched != 1:
+            raise AssertionError(f"{what}: logits {tuple(got.shape)}, {launched} launches")
+        check_close(f"{what}, last tile [{n - 128}, {n})", got[:, n - 128:], want[:, n - 128:],
+                    tol)
+        check_close(f"{what}, every column", got, want, tol)
+    del qs, sc, head
+
+
+def prefill_work(t, hq, hkv, hd, b=1):
+    """(bytes, operations, op rate) of flash_prefill's bound over b rows: q,
+    k, v read and the output written once in bf16; the causal products'
+    bf16 flops."""
+    return (b * (t * (hq + 2 * hkv) + t * hq) * hd * 2, b * 2 * hq * hd * t * (t + 1),
+            BF16_FLOP_PER_S)
+
+
+def prefill_phase(torch, dev, gen, entry, hq, hkv, hd, t, sets, model="", b=1):
+    """Phase 2 for flash_prefill over b rows at hq query heads over hkv KV
+    heads of head dim hd and T = t, over `sets` sets of inputs cycled: row by row against
     its plain version (two bf16 steps of an output, as in
     tests/test_torch_cuda.py; the control drops each query's diagonal key
     tile and must fail that), timed beside its plain version and sdpa."""
@@ -792,7 +934,7 @@ def prefill_phase(torch, dev, gen, entry, hq, hkv, hd, t, sets, model=""):
     from llamafile_tpu_torch.testing import flash_prefill_tile_fault, row_rel_err
     sdpa = torch.nn.functional.scaled_dot_product_attention
     # bf16 inputs, so the wrapper's casts are not timed with the kernel
-    qkv = [[torch.randn((1, t, h, hd), generator=gen, device=dev).to(torch.bfloat16)
+    qkv = [[torch.randn((b, t, h, hd), generator=gen, device=dev).to(torch.bfloat16)
             for h in (hq, hkv, hkv)] for _ in range(sets)]
     scale = hd ** -0.5
     what = f"flash_prefill/{model}Hq={hq} Hkv={hkv} D={hd} T={t}"
@@ -811,7 +953,7 @@ def prefill_phase(torch, dev, gen, entry, hq, hkv, hd, t, sets, model=""):
     if not torch.equal(A.flash_prefill(*qkv[0], scale), got):
         raise AssertionError(f"{what}: two launches on the same inputs differ")
     ms = time_ms(torch, lambda i: A.flash_prefill(*qkv[i], scale), sets)
-    plain = time_ms(torch, lambda i: A.flash_prefill_plain(*qkv[i], scale), sets)
+    plain = plain_time_ms(torch, lambda i: A.flash_prefill_plain(*qkv[i], scale), sets)
     heads = [[a.transpose(1, 2) for a in trio] for trio in qkv]
     lib = time_ms(torch, lambda i: sdpa(*heads[i], is_causal=True, scale=scale,
                                         enable_gqa=True), sets)
@@ -820,7 +962,7 @@ def prefill_phase(torch, dev, gen, entry, hq, hkv, hd, t, sets, model=""):
                 2e-2)
     entry("flash_prefill", "llamafile_tpu_torch/csrc/flash_prefill.cu",
           "llamafile_tpu/ops/attention.py:57", f"{model}Hq={hq} Hkv={hkv} D={hd} T={t}",
-          err, ms, plain, lib, *prefill_work(t, hq, hkv, hd))    # bf16 values out
+          err, ms, plain, lib, *prefill_work(t, hq, hkv, hd, b))    # bf16 values out
     del qkv, heads, got, want
     torch.cuda.empty_cache()
 
@@ -860,7 +1002,7 @@ def fdw_phase(torch, dev, gen, entry, sdpa, hq, cases, hkv=8, hd=128):
         run = lambda i: A.flash_decode_write_stacked(q, k3, v3, kn, vn, i, p, scale, hkv,
                                                      s_limit=s_eff)
         ms = time_ms(torch, run, nl)
-        plain = time_ms(torch, lambda i: A.flash_decode_write_plain(
+        plain = plain_time_ms(torch, lambda i: A.flash_decode_write_plain(
             q, k3, v3, kn, vn, i, p, scale, hkv, s_eff), nl)
         qs4 = q.to(torch.bfloat16).reshape(1, hq, 1, hd)
         kv = lambda t, i: t[i, :, :pos + 1].reshape(1, pos + 1, hkv, hd).transpose(1, 2)
@@ -933,7 +1075,7 @@ def flash_decode_phase(torch, dev, gen, entry, sdpa, hq, int8, s_eff, hkv=8, hd=
     if not torch.equal(got, run(5)):
         raise AssertionError("flash_decode: two runs on the same inputs differ")
     ms = time_ms(torch, run, nl)
-    plain = time_ms(torch, plain_fn, nl)
+    plain = plain_time_ms(torch, plain_fn, nl)
     # the library yardstick: sdpa over the visible K/V, dequantized to
     # f32 (int8) or kept bf16 beforehand (not timed)
     def dense(c, s, i):
@@ -986,10 +1128,12 @@ def gemma_option_cases(torch, dev, gen, nl=8, heads=GEMMA_HEADS, s_len=GEMMA_S,
     scales) with the softcap, and with the softcap and the window. The
     defaults are gemma2's at Gemma-2-9B's shapes (cap 0: no softcap;
     decode False: flash_decode_write alone). Yields (kernel, label,
-    run(i, opts), plain(i, opts), tol, error fn, (bytes, ops, op rate)) a
-    case: run(i, True) is the call on layer i with its options, run(i,
-    False) the same call without any, plain the plain version of each; the
-    bound counts the rows visible (those and
+    run(i, opts), plain(i, opts), tol, error fn, (bytes, ops, op rate),
+    library(i) or None) a case: run(i, True) is the call on layer i with its
+    options, run(i, False) the same call without any, plain the plain
+    version of each, library one sdpa call with a boolean window mask over
+    the rows 0..pos where the case has a window and no softcap (no single
+    library call caps the scores); the bound counts the rows visible (those and
     the new token for flash_decode_write), each read once. q is scaled so
     that the scores reach tens, as Gemma-2's do, where the softcap of 50
     bends them."""
@@ -1001,9 +1145,18 @@ def gemma_option_cases(torch, dev, gen, nl=8, heads=GEMMA_HEADS, s_len=GEMMA_S,
     k3, v3 = (torch.randn((nl, 1, s_len, hkv * hd), generator=gen, device=dev
                           ).to(torch.bfloat16) for _ in range(2))
     kn, vn = (torch.randn((1, hkv, hd), generator=gen, device=dev) for _ in range(2))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qb = q.to(torch.bfloat16)[:, :, None]                             # [1, Hq, 1, D]
     for pos in positions:
         p = torch.tensor([pos], dtype=torch.int32, device=dev)
         rows = min(pos - 1, win - 1) + 1                 # the cache rows and the new token
+        lib = None
+        if not cap:
+            mask = (torch.arange(pos + 1, device=dev) > pos - win)[None, None, None]
+            kv = lambda t, i, pos=pos: t[i, :, :pos + 1].reshape(
+                1, pos + 1, hkv, hd).transpose(1, 2)
+            lib = lambda i, mask=mask, kv=kv: sdpa(qb, kv(k3, i), kv(v3, i), attn_mask=mask,
+                                                   scale=scale, enable_gqa=True)
         yield ("flash_decode_write", f"pos={pos} s_eff={s_len} window={win}"
                + (f" softcap={cap}" if cap else ""),
                lambda i, o, p=p: A.flash_decode_write_stacked(
@@ -1013,7 +1166,7 @@ def gemma_option_cases(torch, dev, gen, nl=8, heads=GEMMA_HEADS, s_len=GEMMA_S,
                    q, k3.clone(), v3.clone(), kn, vn, i, p, scale, hkv, s_len,
                    win if o else None, cap if o else 0.0),
                2e-2, rel_err, (rows * hkv * hd * 4 + (2 * hq * hd + 2 * hkv * hd) * 4,
-                               4 * rows * hq * hd, BF16_FLOP_PER_S))
+                               4 * rows * hq * hd, BF16_FLOP_PER_S), lib)
     if not decode:
         return
     kc8, vc8 = (torch.randint(-127, 128, (nl, 1, s_len, hkv, hd), generator=gen, device=dev,
@@ -1047,7 +1200,7 @@ def gemma_option_cases(torch, dev, gen, nl=8, heads=GEMMA_HEADS, s_len=GEMMA_S,
                        run, plain, DECODE_INT8_ROW_TOL if int8 else DECODE_BF16_ROW_TOL,
                        row_rel_err, (rows * hkv * hd * 2 * per_row + 2 * hq * hd * 4 + 4,
                                      4 * rows * hq * hd,
-                                     F32_FLOP_PER_S if int8 else BF16_FLOP_PER_S))
+                                     F32_FLOP_PER_S if int8 else BF16_FLOP_PER_S), None)
 
 
 def gemma_option_phase(torch, dev, gen, entry, model="Gemma-2-9B", **spec):
@@ -1058,12 +1211,13 @@ def gemma_option_phase(torch, dev, gen, entry, model="Gemma-2-9B", **spec):
     options are held by tests/test_torch_cuda.py), timed beside its plain
     version and the same call without
     the options. The bound is the bytes of the rows visible over the memory
-    rate; no single library call computes softcapped or windowed attention
-    (library: none)."""
+    rate; the library time is sdpa's with a boolean window mask where the
+    case has a window alone, none under a softcap (no single library call
+    caps the scores)."""
     hq, hkv, hd = spec.get("heads", GEMMA_HEADS)
     nl = 8
-    for kernel, label, run, plain, tol, err_fn, work in gemma_option_cases(torch, dev, gen, nl,
-                                                                           **spec):
+    for kernel, label, run, plain, tol, err_fn, work, lib in gemma_option_cases(
+            torch, dev, gen, nl, **spec):
         name = f"{kernel}/{model} Hq={hq} Hkv={hkv} D={hd} {label}"
         got = run(5, True)
         torch.cuda.synchronize()
@@ -1076,13 +1230,14 @@ def gemma_option_phase(torch, dev, gen, entry, model="Gemma-2-9B", **spec):
         log(f"  {name}: two launches bitwise equal")
         ms = time_ms(torch, lambda i: run(i, True), nl)
         bare = time_ms(torch, lambda i: run(i, False), nl)
-        plain_ms = time_ms(torch, lambda i: plain(i, True), nl)
+        plain_ms = plain_time_ms(torch, lambda i: plain(i, True), nl)
+        lib_ms = None if lib is None else time_ms(torch, lib, nl)
         log(f"  {name}: kernel {ms:.4f} ms, the same call without the options {bare:.4f} ms")
         entry(kernel, f"llamafile_tpu_torch/csrc/{kernel}.cu",
               "llamafile_tpu/ops/attention.py:" + ("217" if kernel == "flash_decode_write"
                                                    else "117"),
               f"B=1 Hq={hq} Hkv={hkv} D={hd} {label} ({model}; without the options "
-              f"{bare:.4f} ms)", err, ms, plain_ms, None, *work)
+              f"{bare:.4f} ms)", err, ms, plain_ms, lib_ms, *work)
     torch.cuda.empty_cache()
 
 
@@ -1118,7 +1273,7 @@ def paged_phase(torch, dev, gen, entry, sdpa, hq, label, lengths, int8, hkv=8, h
     if not torch.equal(got, A.paged_attention(*lay(5))):
         raise AssertionError("paged_attention: two runs on the same inputs differ")
     ms = time_ms(torch, lambda i: A.paged_attention(*lay(i)), nl)
-    plain = time_ms(torch, lambda i: A.paged_attention_plain(*lay(i)), nl)
+    plain = plain_time_ms(torch, lambda i: A.paged_attention_plain(*lay(i)), nl)
     lib_fn = paged_yardstick(torch, q, kp, vp, ks, vs, lens, tables, nl)
     lib = time_ms(torch, lib_fn, nl)
     check_close(f"paged_attention/{label} vs sdpa (yardstick sanity)",
@@ -1172,7 +1327,7 @@ def i8p_kernel_phase(torch, dev, gen, entry):
                 raise AssertionError(f"qmm_i8p {label}: the faulty control passes")
             del got, want
             ms = time_ms(torch, lambda i: Q.qmm_i8p(xq, sxa, w8[i], sw[i]), layers)
-            plain = time_ms(torch, lambda i: Q.qmm_i8p_plain(xq, sxa, w8[i], sw[i]), layers)
+            plain = plain_time_ms(torch, lambda i: Q.qmm_i8p_plain(xq, sxa, w8[i], sw[i]), layers)
             wt = [w8[i].t() for i in range(layers)]             # [K, N] views
             lib = time_ms(torch, lambda i: torch._int_mm(xq, wt[i]), layers)
             del wt
@@ -1252,7 +1407,7 @@ def int8_kernel_phase(torch, dev, gen, entry, dequant_bf16):
             raise AssertionError(f"qmm_int8 {label}: the faulty control passes")
         del got, want
         ms = time_ms(torch, lambda i: Q.qmm_int8(xq, sx, qs[i], sc[i]), layers)
-        plain = time_ms(torch, lambda i: Q.qmm_int8_plain(xq, sx, qs[i], sc[i]), layers)
+        plain = plain_time_ms(torch, lambda i: Q.qmm_int8_plain(xq, sx, qs[i], sc[i]), layers)
         txn = time_ms(torch, lambda i: Q.qmm_txn(xq, sx, qs[i], sc[i], b[i]), layers)
         w = dequant_bf16(qs, sc, b)
         xb = x.to(torch.bfloat16)
@@ -1321,7 +1476,7 @@ def moe_kernel_phases(torch, dev, gen, entry, dequant_bf16):
     check_repeat("qmm_moe_m1/routed S=2", Q.qmm_moe_m1(*margs(pairs[0])), got)
     swap_control("qmm_moe_m1/routed S=2", Q.qmm_moe_m1_plain(*margs(pairs[0].flip(0))), want)
     ms = time_ms(torch, lambda i: Q.qmm_moe_m1(*margs(pairs[i])), 4)
-    plain = time_ms(torch, lambda i: Q.qmm_moe_m1_plain(*margs(pairs[i])), 4)
+    plain = plain_time_ms(torch, lambda i: Q.qmm_moe_m1_plain(*margs(pairs[i])), 4)
     entry("qmm_moe_m1", "llamafile_tpu_torch/csrc/qmm_moe_m1.cu",
           "llamafile_tpu/ops/qmatmul.py:1037",
           f"routed ffn S=2 of E={E} d={d} d_ff={dff} (2 distinct experts)", err, ms, plain,
@@ -1347,7 +1502,7 @@ def moe_kernel_phases(torch, dev, gen, entry, dequant_bf16):
         swap_control(f"{name}/{label} S=2", plain_fn(rq, rs, qs, sc, b, pairs[0].flip(0), ti),
                      want)
         ms = time_ms(torch, lambda i: fn(rq, rs, qs, sc, b, pairs[i], ti), 4)
-        plain = time_ms(torch, lambda i: plain_fn(rq, rs, qs, sc, b, pairs[i], ti), 4)
+        plain = plain_time_ms(torch, lambda i: plain_fn(rq, rs, qs, sc, b, pairs[i], ti), 4)
         w_all = dq_all(qs, sc, b)
         w2 = [w_all.index_select(0, pr) for pr in pairs]
         xb = x.to(torch.bfloat16).expand(2, 1, k).contiguous()
@@ -1393,7 +1548,7 @@ def moe_kernel_phases(torch, dev, gen, entry, dequant_bf16):
             swap_control(what, plain_fn(swapped), want)
             del got, want
             ms = time_ms(torch, lambda i: run(te), 1)
-            plain = time_ms(torch, lambda i: plain_fn(te), 1)
+            plain = plain_time_ms(torch, lambda i: plain_fn(te), 1)
             wt = dq_all(qs, sc, b).index_select(0, te.long())      # each tile's expert
             xt = x.to(torch.bfloat16).reshape(n_tiles, tm, k)
             lib = time_ms(torch, lambda i: torch.bmm(xt, wt), 1)
@@ -1540,9 +1695,10 @@ def trace_report(steps_card, steps_cpu):
                 codes = card[j - 1][2] if j and card[j - 1][0].startswith("codes") else None
                 # where the card's inputs equal the CPU's bit for bit, the
                 # CPU's output is the plain version on them
+                # (the other side's tensors may lie on the card: plain_kernels)
                 same_in = torch.equal(ia["x"], ib["x"]) and all(
-                    torch.equal(c, h) for c, h in zip(args + list(kw.values()),
-                                                      ib["args"] + tuple(ib["kw"].values()))
+                    torch.equal(c, h.cpu()) for c, h in zip(args + list(kw.values()),
+                                                            ib["args"] + tuple(ib["kw"].values()))
                     if isinstance(h, torch.Tensor)) and (codes is None or all(
                         torch.equal(c, h) for c, h in zip(codes, cpu[j - 1][2])))
                 qt, m = ib["args"][0], ia["x"].shape[0]
@@ -1808,10 +1964,11 @@ def router_report(torch, step_card, step_cpu, n_experts, k):
     whose softmax weights must agree with the card's within ROUTER_SAME_TOL;
     a row whose top-k differs there is a fault unless the plain margin
     between the k-th and (k+1)-th weight is within twice that row's rounding
-    (a tie). Then the card's and the CPU's choices row by row: a row that
-    chose other experts there follows from an earlier parting of the two
-    runs (each product is held on its own inputs). Returns (the rows routed
-    otherwise on the two sides, the smallest CPU margin among them,
+    (a tie). Then the card's and the other side's (the CPU's, or the plain
+    versions' on the card) choices row by row: a row that chose other
+    experts there follows from an earlier parting of the two runs (each
+    product is held on its own inputs). Returns (the rows routed otherwise
+    on the two sides, the smallest margin of the other side among them,
     same-input ties, the largest router rounding)."""
     from llamafile_tpu_torch.models import llama as LM
     swaps, min_margin, ties, rnd = set(), float("inf"), 0, 0.0
@@ -1821,7 +1978,8 @@ def router_report(torch, step_card, step_cpu, n_experts, k):
         qt = ib["args"][0]
         if qt.kind != "dense" or qt.shape[0] != n_experts:
             continue
-        plain = LM.qmatmul(ia["x"], *ib["args"], **ib["kw"])
+        # a dense router product: the same torch matmul on either device
+        plain = LM.qmatmul(ia["x"].to(qt.qs.device), *ib["args"], **ib["kw"]).cpu()
         wc, wp, wh = (torch.softmax(t.float(), -1) for t in (a, plain, b))
         row_rnd = (wc - wp).abs().amax(-1)
         rnd = max(rnd, row_rnd.max().item())
@@ -1872,8 +2030,9 @@ def no_sync_moe(torch):
 
 def moe_path_check(torch, dev, quant="Q4_K", runs=((24, 4), (300, 0)),
                    preset="mixtral-8x7b-2l"):
-    """Layers at Mixtral-8x7B width (preset), card (kernels) against the CPU
-    (plain versions). quant "Q4_K" is stacked ([L*E] expert stacks: the
+    """Layers at Mixtral-8x7B width (preset), card (kernels) against the
+    plain versions on the card (plain_kernels: the same weights, every
+    kernel wrapper on its plain version). quant "Q4_K" is stacked ([L*E] expert stacks: the
     grouped kernels at prefill, the routed fused FFN at decode); "Q4_K_M" is
     the recipe at two layers (layer 1's experts with Q6_K down: the routed
     GEMVs at decode and the dense expert loop at prefill; attn_k/v Q8_0,
@@ -1897,7 +2056,6 @@ def moe_path_check(torch, dev, quant="Q4_K", runs=((24, 4), (300, 0)),
     gpu = stack_layers(params)
     what = (f"Mixtral {quant} ({'stacked' if not isinstance(gpu.layers, list) else 'unrolled'}"
             f"{flavour_note()})")
-    cpu = _to(gpu, "cpu")
     from llamafile_tpu_torch.ops import qmatmul as Q
     # the decode steps' routed products (gate|up, down a layer, both sides)
     # leave the routed GEMVs for _routed_fallback where the q4b experts are
@@ -1911,63 +2069,65 @@ def moe_path_check(torch, dev, quant="Q4_K", runs=((24, 4), (300, 0)),
         toks[0, :n_prompt] = torch.randint(3, cfg.n_vocab, (n_prompt,),
                                            generator=torch.Generator().manual_seed(n_prompt))
         max_len = bucket + n_decode + 1
-        caches = {d: init_cache(cfg, 1, max_len, device=d) for d in ("cuda", "cpu")}
-        rec = {"cuda": [], "cpu": []}
-        logits = {"cuda": [], "cpu": []}
+        caches = {d: init_cache(cfg, 1, max_len, device=dev) for d in ("card", "plain")}
+        rec = {"card": [], "plain": []}
+        logits = {"card": [], "plain": []}
 
-        def run(d, p, tokens, pos, **kw):
+        def run(d, tokens, pos, **kw):
             rec[d].append([])
-            with op_trace(rec[d]):
-                lg, _ = forward(p, cfg, tokens.to(d),
-                                torch.tensor([pos], dtype=torch.int32, device=d), caches[d], **kw)
+            with plain_kernels() if d == "plain" else contextlib.nullcontext():
+                with op_trace(rec[d]):
+                    lg, _ = forward(gpu, cfg, tokens.to(dev),
+                                    torch.tensor([pos], dtype=torch.int32, device=dev),
+                                    caches[d], **kw)
             logits[d].append(lg[0, -1].float().cpu())
-        for d, p in (("cuda", gpu), ("cpu", cpu)):
-            run(d, p, toks, 0, fresh_prefill=True,
-                last_idx=torch.tensor([n_prompt - 1], device=d))
-        nxt = int(logits["cuda"][0].argmax())
+        for d in ("card", "plain"):
+            run(d, toks, 0, fresh_prefill=True,
+                last_idx=torch.tensor([n_prompt - 1], device=dev))
+        nxt = int(logits["card"][0].argmax())
         for step in range(n_decode):
             for name in ("k", "v"):
-                getattr(caches["cpu"], name).copy_(getattr(caches["cuda"], name))
-            for d, p in (("cuda", gpu), ("cpu", cpu)):
-                run(d, p, torch.tensor([[nxt]]), n_prompt + step, attn_len=max_len)
-            nxt = int(logits["cuda"][-1].argmax())
+                getattr(caches["plain"], name).copy_(getattr(caches["card"], name))
+            for d in ("card", "plain"):
+                run(d, torch.tensor([[nxt]]), n_prompt + step, attn_len=max_len)
+            nxt = int(logits["card"][-1].argmax())
         want_fb = 2 * 2 * cfg.n_layers * n_decode if fallback else 0
         log(f"  {what}: {Q.ROUTE_COUNTS['routed_fallback']} _routed_fallback calls over both "
             f"sides' decode steps (expected {want_fb})")
         if Q.ROUTE_COUNTS["routed_fallback"] != want_fb:
             raise AssertionError(f"{what}: the routed products took another route")
-        lines, same = trace_report(rec["cuda"], rec["cpu"])
+        lines, same = trace_report(rec["card"], rec["plain"])
         for line in lines:
             log(f"  {what} trace {line}")
         check_same_input(f"{what} prompt {n_prompt}", same)
         bad = []
-        for i, (a, b) in enumerate(zip(logits["cuda"], logits["cpu"])):
-            swaps, margin, ties, rnd = router_report(torch, rec["cuda"][i], rec["cpu"][i],
+        for i, (a, b) in enumerate(zip(logits["card"], logits["plain"])):
+            swaps, margin, ties, rnd = router_report(torch, rec["card"][i], rec["plain"][i],
                                                      cfg.n_experts, cfg.n_experts_used)
             total_swaps += len(swaps)
             rel = ((a - b).abs().max() / b.abs().max()).item()
             held = not swaps
             log(f"  {what} prompt {n_prompt} (bucket {bucket}) step {i}: top-1 card "
-                f"{int(a.argmax())} cpu {int(b.argmax())}, max |diff| / max |logit| = "
+                f"{int(a.argmax())} plain {int(b.argmax())}, max |diff| / max |logit| = "
                 f"{rel:.3g}; routers: card vs plain on its input {rnd:.3g} ({ties} ties), "
-                f"{len(swaps)} rows routed otherwise than on the CPU"
-                + (f" (smallest CPU margin {margin:.3g}): logits not held" if not held else ""))
+                f"{len(swaps)} rows routed otherwise than by the plain versions"
+                + (f" (smallest plain margin {margin:.3g}): logits not held" if not held else ""))
             if held and (int(a.argmax()) != int(b.argmax()) or rel > 2e-2):
                 bad.append(f"prompt {n_prompt} step {i}")
         if bad:
-            raise AssertionError(f"{what}: card and CPU disagree at {bad}")
+            raise AssertionError(f"{what}: the kernels and the plain versions disagree at {bad}")
         del rec
         if n_decode:
             with no_sync_moe(torch) as calls:
                 forward(gpu, cfg, torch.tensor([[nxt]], device=dev),
                         torch.tensor([n_prompt + n_decode], dtype=torch.int32, device=dev),
-                        caches["cuda"], attn_len=max_len)
+                        caches["card"], attn_len=max_len)
                 torch.cuda.synchronize()
             log(f"  {what}: {len(calls)} MoE FFN calls of a decode step ran under "
                 "set_sync_debug_mode('error'): no device sync")
-    log(f"  {what}: {total_swaps} router rows chose other experts on the card than on "
-        "the CPU over the traced steps")
-    del gpu, cpu, params
+    log(f"  {what}: {total_swaps} router rows chose other experts on the kernels than on "
+        "the plain versions over the traced steps")
+    del gpu, params
     torch.cuda.empty_cache()
 
 
@@ -2321,9 +2481,13 @@ def prefill_kernel_layers(cfg, bucket: int) -> int:
 
 def gemma_path_check(torch, dev, preset="gemma-2-9b-2l", prompts=(24, 4200), n_decode=4,
                      recipes=(("Q4_K", "bf16"), ("Q4_K_M", "int8")), max_len=8192,
-                     serve=False):
-    """A gemma preset at two or six layers of a published model's widths,
-    the kernels against the plain versions on the card (plain_kernels).
+                     serve=False, vocab_hi=256000):
+    """A gemma or qwen preset at two or six layers of a published model's
+    widths, the kernels against the plain versions on the card
+    (plain_kernels). qwen2.5-7b-2l (Qwen2.5-7B's widths: q/k/v biases, 28
+    over 4 heads, G = 7) and qwen3-32b-2l (Qwen3-32B's: q/k norms, 64 over 8
+    heads, the fused FFN on stacked layers) take prompts from token ids
+    below vocab_hi (their vocabularies are about 152K).
     gemma-2-9b-2l (Gemma-2-9B's widths: the gemma2 branches, layer 0
     windowed at 4096, softcaps 50 / 30), gemma-7b-2l (Gemma-7B's: gemma,
     16 over 16 heads of head_dim 256) or gemma-3-27b-6l (Gemma-3-27B's:
@@ -2342,17 +2506,21 @@ def gemma_path_check(torch, dev, preset="gemma-2-9b-2l", prompts=(24, 4200), n_d
     kernels' prefill launches flash_prefill on prefill_kernel_layers' count
     of layers; each decode step launches its decode kernel once a layer
     (flash_decode_write, or flash_decode with the layer's window and the
-    softcap) and never the fused FFN (GELU); the plain side launches
-    nothing. serve: then the HTTP server at 4 slots (serve_four: 4 greedy
-    requests, paged_attention's decode, launches exact), those of the
-    shortest and longest prompt against themselves served alone."""
+    softcap), and the fused FFN (its two kernels) once a layer where the
+    layers are stacked and their FFN fuses (qwen3; never under GELU or
+    unrolled); the plain
+    side launches nothing. serve: then, over the stacked recipe's engine,
+    the HTTP server at 4 slots (serve_four: 4 greedy requests,
+    paged_attention's decode, launches exact), those of the shortest and
+    longest prompt against themselves served alone."""
     from llamafile_tpu_torch.models.llama import forward
     from llamafile_tpu_torch.models.synthetic import make_synthetic_llama
     from llamafile_tpu_torch.ops import reset_launch_counts
+    from llamafile_tpu_torch.ops.qmatmul import moe_fusable
     from llamafile_tpu_torch.runtime.engine import Engine, attn_bucket, bucket_len
     from llamafile_tpu_torch.runtime.tokenizer import Tokenizer
     from llamafile_tpu_torch.testing import make_q4_k_m_llama
-    prompt = torch.randint(3, 256000, (max(prompts),),
+    prompt = torch.randint(3, vocab_hi, (max(prompts),),
                            generator=torch.Generator().manual_seed(13)).tolist()
     for recipe, kv in recipes:
         if recipe == "Q4_K_M":
@@ -2367,6 +2535,11 @@ def gemma_path_check(torch, dev, preset="gemma-2-9b-2l", prompts=(24, 4200), n_d
                                  f"{'' if unrolled else 'not '}left unrolled")
         what = f"{preset} {recipe} {'unrolled' if unrolled else 'stacked'}, {kv} KV"
         kernel = "flash_decode_write_stacked" if kv == "bf16" else "flash_decode"
+        ly = eng.params.layers
+        fused = (not unrolled and not cfg.ffn_gelu and ly.w_gate_up is not None
+                 and ly.w_gate_up.il and moe_fusable(ly.w_gate_up, ly.w_down, cfg.d_model,
+                                                     cfg.d_ff))
+        want_moe = 2 * cfg.n_layers * n_decode if fused else 0    # two kernels a call
         for n_prompt in prompts:
             alen = attn_bucket(n_prompt + n_decode + 1, max_len)
             caches, logits = {}, {}
@@ -2420,11 +2593,12 @@ def gemma_path_check(torch, dev, preset="gemma-2-9b-2l", prompts=(24, 4200), n_d
             k = counts["kernels"]
             log(f"  {what}, prompt {n_prompt}: {n_decode} decode steps launched {kernel} "
                 f"{k[kernel]} times (expected {cfg.n_layers * n_decode}), qmm_moe_m1 "
-                f"{k['qmm_moe_m1']}; the plain side launched {sum(counts['plain'].values())}")
-            if k[kernel] != cfg.n_layers * n_decode or k["qmm_moe_m1"] \
+                f"{k['qmm_moe_m1']} (expected {want_moe}); the plain side launched "
+                f"{sum(counts['plain'].values())}")
+            if k[kernel] != cfg.n_layers * n_decode or k["qmm_moe_m1"] != want_moe \
                     or any(counts["plain"].values()):
                 raise AssertionError(f"{what}: the decode steps did not run as expected")
-        if serve:
+        if serve and not unrolled:
             n = cfg.n_layers
             # a decode step's 4 rows: the layers' products on qmm_txn and the
             # Q6_K head at M = 4 on the dequant GEMM; an admission slice's
@@ -2617,23 +2791,32 @@ def main_path(torch, dev):
                             "flash_decode_write_stacked": n_layers * steps}, "phase 4c")
     step_q8 = decode_report(torch, read, steps, ttft, decode_s, "24-token prompt, bucket 32")
 
-    phase("phase 6: main path, llama3-8b Q4_K_M, 32 layers unrolled, Engine.generate "
-        "and the HTTP server")
+    phase(f"phase 6: main path, llama3-8b Q4_K_M, {PHASE6_LAYERS} of 32 layers unrolled, "
+          "Engine.generate and the HTTP server")
     counts_6 = q4km_phase(torch, dev, prompt, long_prompt, n_new)
     del eng
     torch.cuda.empty_cache()
 
     moe_engines, moe_steps, counts_7, moe_prompt = moe_phase(torch, dev, n_new)
 
-    phase("phase 8: llama3.2-3b Q4_K (G = 3), 28 layers stacked, Engine.generate and the "
-          "HTTP server")
+    phase(f"phase 8: llama3.2-3b Q4_K (G = 3), {PHASE8_LAYERS} of 28 layers stacked, "
+          "Engine.generate and the HTTP server")
     counts_8 = llama32_phase(torch, dev, prompt)
 
-    phase("phase 9: gemma-2-9b Q4_K (gemma2), 42 layers stacked, Engine.generate")
-    counts_9 = gemma_phase(torch, dev, prompt, long_prompt)
-    phase("phase 10: gemma-3-27b Q4_K (gemma3), 62 layers stacked, Engine.generate")
+    phase(f"phase 9: gemma-2-9b Q4_K (gemma2), {PHASE9_LAYERS} of 42 layers stacked, "
+          "Engine.generate")
+    counts_9 = gemma_phase(torch, dev, prompt, long_prompt, n_layers=PHASE9_LAYERS)
+    phase(f"phase 10: gemma-3-27b Q4_K (gemma3), {PHASE10_LAYERS} of 62 layers stacked, "
+          "Engine.generate")
     counts_10 = gemma_phase(torch, dev, prompt, long_prompt, preset="gemma-3-27b",
-                            what="phase 10", profile=True)
+                            what="phase 10", n_layers=PHASE10_LAYERS)
+    phase("phase 11: qwen3-32b Q4_K (qwen3), 64 layers stacked, Engine.generate and the "
+          "HTTP server")
+    qprompt = [t % 150000 for t in prompt]
+    qlong = [t % 150000 for t in long_prompt]
+    counts_11 = qwen_phase(torch, dev, qprompt, qlong, "qwen3-32b", "phase 11", serve=True)
+    phase("phase 12: qwen2.5-7b Q4_K (qwen2), 28 layers stacked, Engine.generate")
+    counts_12 = qwen_phase(torch, dev, qprompt, qlong, "qwen2.5-7b", "phase 12", profile=True)
 
     phase("profiles of phase 7's Mixtral decodes, of phase 4c's Q8_0 decode on a rebuilt "
         "engine, then of phase 4, 4f's int8 decode and 4b on a rebuilt Q4_K engine")
@@ -2656,8 +2839,8 @@ def main_path(torch, dev):
     fused_profile(torch, eng, step_5)
     del eng
     torch.cuda.empty_cache()
-    return ([counts, counts_b, counts_d, counts_c, counts_5] + counts_f + counts_e + counts_6
-            + counts_7 + counts_8 + counts_9 + counts_10)
+    return ([counts, counts_b, counts_d, counts_c] + counts_5 + counts_f + counts_e + counts_6
+            + counts_7 + counts_8 + counts_9 + counts_10 + counts_11 + counts_12)
 
 
 def llama32_phase(torch, dev, prompt, n_new=32):
@@ -2676,7 +2859,8 @@ def llama32_phase(torch, dev, prompt, n_new=32):
     from llamafile_tpu_torch.runtime.engine import Engine
     from llamafile_tpu_torch.runtime.tokenizer import Tokenizer
     t0 = time.time()
-    cfg, params = make_synthetic_llama("llama3.2-3b", "Q4_K", seed=0, fuse=True, device=dev)
+    cfg, params = make_synthetic_llama("llama3.2-3b", "Q4_K", seed=0, fuse=True, device=dev,
+                                       n_layers=PHASE8_LAYERS)
     eng = Engine(cfg, params, Tokenizer({}), max_seq_len=2048, device=dev)
     del params
     torch.cuda.synchronize()
@@ -2706,7 +2890,7 @@ def llama32_phase(torch, dev, prompt, n_new=32):
 
 
 def gemma_phase(torch, dev, prompt, long_prompt, n_new=64, preset="gemma-2-9b",
-                what="phase 9", profile=False):
+                what="phase 9", profile=False, n_layers=None):
     """Phases 9 and 10: Gemma-2-9B's published widths (models.synthetic
     preset gemma-2-9b: 42 layers, 16 query heads over 8 KV heads of head_dim
     256, the gemma2 branches) or Gemma-3-27B's (gemma-3-27b: 62 layers, 32
@@ -2720,14 +2904,14 @@ def gemma_phase(torch, dev, prompt, long_prompt, n_new=64, preset="gemma-2-9b",
     dequant GEMM; the prefill attention on the flash_prefill kernel on
     prefill_kernel_layers' count: gemma3's every layer at bucket 1024,
     none under gemma2's softcap, whose prefill runs the einsum as the
-    reference's). profile (phase 10, the last timed run of the script):
-    then the device time by kernel of one 1000-token prefill. Returns the
-    counted runs' launches."""
+    reference's). profile: then the device time by kernel of one
+    1000-token prefill. Returns the counted runs' launches."""
     from llamafile_tpu_torch.models.synthetic import decode_read_bytes, make_synthetic_llama
     from llamafile_tpu_torch.runtime.engine import Engine
     from llamafile_tpu_torch.runtime.tokenizer import Tokenizer
     t0 = time.time()
-    cfg, params = make_synthetic_llama(preset, "Q4_K", seed=0, fuse=True, device=dev)
+    cfg, params = make_synthetic_llama(preset, "Q4_K", seed=0, fuse=True, device=dev,
+                                       n_layers=n_layers)
     eng = Engine(cfg, params, Tokenizer({}), max_seq_len=2048, device=dev)
     del params
     torch.cuda.synchronize()
@@ -2756,6 +2940,71 @@ def gemma_phase(torch, dev, prompt, long_prompt, n_new=64, preset="gemma-2-9b",
     del eng
     torch.cuda.empty_cache()
     return [counts, counts_b]
+
+
+def qwen_phase(torch, dev, prompt, long_prompt, preset, what, serve=False, profile=False):
+    """Phases 11 and 12: Qwen3-32B's published widths (models.synthetic
+    preset qwen3-32b: 64 layers, 64 query heads over 8 KV heads of head_dim
+    128, q/k norms, d_ff 25600) or Qwen2.5-7B's (qwen2.5-7b: 28 layers, 28
+    over 4, q/k/v biases, d_ff 18944), Q4_K, fused and stacked, a Q6_K head,
+    a bf16 cache: Engine.generate of 64 greedy tokens from the 24-token
+    prompt, launches exact (a step: qkv and o on qmm_txn_m1, the FFN on the
+    fused qmm_moe_m1 where d_ff % 1024 == 0 (Qwen3-32B) and on gate|up and
+    down otherwise (Qwen2.5-7B's concatenated gate|up), the head on
+    qmm_q8_m1, flash_decode_write), the decode rate against the weight-read
+    bound; the 1000-token prompt's TTFT, median of 3; serve: the HTTP server
+    at 4 slots, 4 greedy requests, launches exact (phase 3's two-layer
+    check serves them again alone at these widths); profile (the last timed run of the
+    script): then the device time by kernel of one 1000-token prefill.
+    Returns the counted runs' launches."""
+    from llamafile_tpu_torch.models.synthetic import decode_read_bytes, make_synthetic_llama
+    from llamafile_tpu_torch.ops.qmatmul import moe_fusable
+    from llamafile_tpu_torch.runtime.engine import Engine
+    from llamafile_tpu_torch.runtime.tokenizer import Tokenizer
+    t0 = time.time()
+    cfg, params = make_synthetic_llama(preset, "Q4_K", seed=0, fuse=True, device=dev)
+    eng = Engine(cfg, params, Tokenizer({}), max_seq_len=2048, device=dev)
+    del params
+    torch.cuda.synchronize()
+    n = cfg.n_layers
+    ly = eng.params.layers
+    fused = ly.w_gate_up.il and moe_fusable(ly.w_gate_up, ly.w_down, cfg.d_model, cfg.d_ff)
+    read = decode_read_bytes(eng.params, cfg)
+    log(f"  built {preset} Q4_K ({n} layers, fused, stacked, Q6_K head; FFN "
+        f"{'fused' if fused else 'unfused'}) in {time.time() - t0:.1f} s; decode reads "
+        f"{read / 1e9:.3f} GB of weights a step; device memory "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    steps = 63
+    _, counts, ttft, decode_s = counted_generate(torch, eng, prompt, 64)
+    gemv = (2 if fused else 4) * n * steps
+    check_counts(counts, {"qmm_txn_m1": gemv, "qmm_moe_m1": 2 * n * steps if fused else 0,
+                          "qmm_txn": 4 * n, "qmm_q8_m1": 1 + steps,
+                          "flash_decode_write_stacked": n * steps}, what)
+    decode_report(torch, read, steps, ttft, decode_s, "24-token prompt, bucket 32")
+    ttfts = []
+    for _ in range(3):
+        _, counts_b, ttft_b, _ = counted_generate(torch, eng, long_prompt, 1)
+        check_counts(counts_b, {"qmm_dequant": 4 * n, "qmm_q8_m1": 1, "flash_prefill": n},
+                     f"{what}, 1000 tokens")
+        ttfts.append(ttft_b * 1e3)
+    log(f"  time to first token, 1000-token prompt: {statistics.median(ttfts):.2f} ms "
+        f"(median of {', '.join(f'{t:.2f}' for t in ttfts)} ms)")
+    runs = [counts, counts_b]
+    if serve:
+        expect = lambda d, small, big, fr: {
+            "paged_attention": n * d, "qmm_txn": 4 * n * d + 4 * n * small,
+            "qmm_dequant": d + 4 * n * big,
+            "flash_prefill": n * sum(c for b, c in fr.items() if b >= 128),
+            "qmm_q8_m1": small + big}
+        # the requests alone are held at two layers of these widths (phase 3)
+        runs.append(serve_four(torch, eng, f"synthetic-{preset}-q4k", what, expect,
+                               serve_alone=False))
+    if profile:
+        prefill_profile(torch, eng, long_prompt)
+    del eng, ly
+    gc.collect()                # the served engine's server and loop hold cycles
+    torch.cuda.empty_cache()
+    return runs
 
 
 MOE_SERVED = (0, 1, 2, 3, 4, 5, 6, 7)      # two requests a prompt length
@@ -3036,8 +3285,86 @@ def running_server(srv):
     finally:
         loop.call_soon_threadsafe(loop.stop)
         th.join(timeout=30)
-        srv.batcher.shutdown()
-        srv.pool.shutdown(wait=False)
+        srv.shutdown()
+
+
+# phase 5's embedding traffic: (requests, tokens a request, client threads)
+EMBED_SHORT = (256, 50, 16)
+EMBED_LONG = (8, 500, 8)
+EMBED_TOL = 1e-3                  # max abs, unit vectors
+
+
+def _embed_request(base, ids):
+    """One /v1/embeddings request of a token array; (vector, seconds)."""
+    import urllib.request
+    req = urllib.request.Request(base + "/v1/embeddings",
+                                 data=json.dumps({"input": ids}).encode(),
+                                 headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=600) as r:
+        out = json.loads(r.read())
+    return out["data"][0]["embedding"], time.perf_counter() - t0
+
+
+def embedding_phase(torch, srv, base, eng):
+    """Phase 5's embeddings, after its generation traffic, over the same
+    server: EMBED_SHORT's 256 /v1/embeddings requests of 50 tokens from 16
+    client threads (batches of up to 64 rows of bucket 64: the dequant GEMM
+    at M = rows x 64), then EMBED_LONG's 8 requests of 500 tokens from 8
+    threads (bucket 512: flash_prefill at B > 1 where they batch). Each
+    window alone (the batcher idle) with launch counts exact: a batch
+    launches the four products a layer on qmm_dequant and, at bucket 512,
+    flash_prefill once a layer, nothing else (no head). Reports req/s, the
+    p50 latency and the batches formed; then holds vectors of both windows
+    within EMBED_TOL (max abs) of the same ids embedded alone, on the
+    kernels and on the plain versions on the card. Returns the windows'
+    launch counts."""
+    from concurrent.futures import ThreadPoolExecutor
+    from llamafile_tpu_torch.ops import reset_launch_counts
+    from llamafile_tpu_torch.runtime.engine import bucket_len
+    from llamafile_tpu_torch.server.embed import llama_embed_many
+    n = eng.cfg.n_layers
+    runs, held = [], []
+    for (n_req, length, threads), seed in ((EMBED_SHORT, 21), (EMBED_LONG, 22)):
+        g = torch.Generator().manual_seed(seed)
+        reqs = [torch.randint(3, eng.cfg.n_vocab, (length,), generator=g).tolist()
+                for _ in range(n_req)]
+        _embed_request(base, reqs[0])              # warm-up, not counted
+        torch.cuda.synchronize()
+        st0 = dict(srv.embedder.stats)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(threads) as ex:
+            outs = list(ex.map(lambda ids: _embed_request(base, ids), reqs))
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        batches = srv.embedder.stats["batches"] - st0["batches"]
+        lat = [o[1] for o in outs]
+        b = bucket_len(length)
+        log(f"  embeddings, {n_req} requests of {length} tokens from {threads} threads: "
+            f"{n_req / wall:.2f} req/s ({wall:.3f} s), latency p50 "
+            f"{statistics.median(lat) * 1e3:.2f} ms, max {max(lat) * 1e3:.2f} ms; {batches} "
+            f"batches formed ({n_req / batches:.2f} texts a batch, bucket {b})")
+        check_counts(counts, {"qmm_dequant": 4 * n * batches,
+                              "flash_prefill": n * batches if b >= 128 else 0},
+                     f"phase 5 embeddings, {length} tokens")
+        runs.append(counts)
+        held += [(reqs[i], outs[i][0]) for i in (0, n_req - 1)]
+    em = llama_embed_many(eng)
+    for ids, served in held:
+        served = torch.tensor(served)
+        alone = torch.tensor(em([ids])[0])
+        with plain_kernels():
+            plain = torch.tensor(em([ids])[0])
+        torch.cuda.synchronize()
+        e_alone, e_plain = ((served - w).abs().max().item() for w in (alone, plain))
+        log(f"  embedding of {len(ids)} tokens: served vs alone {e_alone:.3g}, vs the plain "
+            f"versions on the card {e_plain:.3g} (tol {EMBED_TOL}, max abs; |v| = "
+            f"{served.norm().item():.6f})")
+        if not (e_alone <= EMBED_TOL and e_plain <= EMBED_TOL):
+            raise AssertionError("phase 5: an embedding parts from itself alone or from "
+                                 "the plain versions")
+    return runs
 
 
 def serving_phase(torch, eng, read):
@@ -3100,6 +3427,7 @@ def serving_phase(torch, eng, read):
         check_counts(counts, expect, "phase 5")
         if not srv.batcher.alive():
             raise AssertionError("phase 5: the batcher's device thread died")
+        counts_e = embedding_phase(torch, srv, base, eng)
     # the same requests alone, one after another, on a fresh 8-slot batcher
     greedy = [next(i for i in range(16) if SERVE_LENGTHS[i % 4] == n and i not in
                    SERVE_SAMPLED and i not in SERVE_CHAT) for n in SERVE_LENGTHS]
@@ -3121,14 +3449,21 @@ def serving_phase(torch, eng, read):
         alone.shutdown()
     del srv, alone
     torch.cuda.empty_cache()
-    return counts, fused_step(torch, eng, read)
+    return [counts] + counts_e, fused_step(torch, eng, read)
 
 
 Q4KM_SERVED = (0, 2, 3, 5)          # phase 5's greedy request indices: 2 streamed
 
 
+PHASE6_LAYERS = 16     # phase 6's depth, cut from 32 (the time of phases 11 and 12)
+PHASE8_LAYERS = 14     # phase 8's, cut from 28
+PHASE9_LAYERS = 21     # phase 9's, cut from 42
+PHASE10_LAYERS = 31    # phase 10's, cut from 62
+
+
 def q4km_phase(torch, dev, prompt, long_prompt, n_new):
-    """Phase 6: llama3-8b by the Q4_K_M recipe, 32 layers, unrolled, through
+    """Phase 6: llama3-8b by the Q4_K_M recipe, PHASE6_LAYERS of its 32
+    layers (16 / 32 of them with Q6_K V and down), unrolled, through
     Engine.generate (24-token prompt, n_new greedy tokens; then the
     1000-token prompt's TTFT) and the HTTP server at 4 slots (4 greedy
     requests, those of the shortest and longest prompt against themselves
@@ -3139,7 +3474,7 @@ def q4km_phase(torch, dev, prompt, long_prompt, n_new):
     from llamafile_tpu_torch.runtime.tokenizer import Tokenizer
     from llamafile_tpu_torch.testing import make_q4_k_m_llama, use_more_bits
     t0 = time.time()
-    cfg, params = make_q4_k_m_llama("llama3-8b", seed=0, device=dev)
+    cfg, params = make_q4_k_m_llama("llama3-8b", seed=0, device=dev, n_layers=PHASE6_LAYERS)
     eng = Engine(cfg, params, Tokenizer({}), max_seq_len=2048, device=dev)
     del params
     n = cfg.n_layers
@@ -3187,13 +3522,14 @@ def q4km_phase(torch, dev, prompt, long_prompt, n_new):
     return [counts, counts_b, counts_s]
 
 
-def serve_four(torch, eng, model, what, expect):
+def serve_four(torch, eng, model, what, expect, serve_alone=True):
     """The port's HTTP server over eng at 4 slots: 4 greedy requests (the
     prompts of SERVE_LENGTHS, as phase 5's requests Q4KM_SERVED: 2 streamed)
     from 4 client threads, launch counts exact (expect(decode steps, small
     slices, big slices, fresh slices by bucket) from the batcher's tallies),
-    then each request alone on a fresh 4-row batcher, which must give the
-    same ids. Returns the counted run's launch counts."""
+    then (serve_alone) each request of the shortest and longest prompt on
+    a fresh 4-row batcher, which must give the same ids. Returns the
+    counted run's launch counts."""
     from concurrent.futures import ThreadPoolExecutor
     from llamafile_tpu_torch.ops import reset_launch_counts
     from llamafile_tpu_torch.server.batcher import Batcher
@@ -3233,6 +3569,10 @@ def serve_four(torch, eng, model, what, expect):
         log(f"  batcher tallies: {dsteps} fused decode steps at 4 rows, admission slices "
             f"by bucket {allb} (fresh {fr})")
         check_counts(counts, expect(dsteps, small, big, fr), f"{what} serving")
+    if not serve_alone:
+        del srv
+        torch.cuda.empty_cache()
+        return counts
     alone = Batcher(eng, rows=4)
     try:
         for i in (i for i in Q4KM_SERVED if len(prompts[i]) in ALONE_LENGTHS):
@@ -3489,6 +3829,16 @@ def phase3_checks():
         ("Gemma-3-27B widths (gemma3)", gemma_path_check, (),
          dict(preset="gemma-3-27b-6l", prompts=(24, 600, 1100), n_decode=2, max_len=2048),
          "txn"),
+        # qwen2 at Qwen2.5-7B's widths (q/k/v biases, G = 7, gate|up
+        # concatenated) and qwen3 at Qwen3-32B's (q/k norms, G = 8, H * D != d,
+        # the fused FFN), stacked bf16 and Q4_K_M unrolled int8, then the HTTP
+        # server at 4 slots: the paged decode with biases and with q/k norms
+        ("Qwen2.5-7B widths (qwen2)", gemma_path_check, (),
+         dict(preset="qwen2.5-7b-2l", prompts=(24, 300), n_decode=2, max_len=2048,
+              serve=True, vocab_hi=150000), "txn"),
+        ("Qwen3-32B widths (qwen3)", gemma_path_check, (),
+         dict(preset="qwen3-32b-2l", prompts=(24, 300), n_decode=2, max_len=2048,
+              serve=True, vocab_hi=150000), "txn"),
         ("Q8_0", whole_path_check, ("Q8_0",), dict(n_prompt=24, n_decode=1), "txn"),
         ("paged decode, 4 rows", paged_path_check, (), dict(n_decode=1), "txn"),
         ("Q4_K_M", whole_path_check, ("Q4_K_M",), dict(n_prompt=300, n_decode=1), "txn"),

@@ -9,7 +9,8 @@ leaves as plain dicts of numpy arrays, so the port never sees a JAX object
          "layers": [ {"attn_norm", "ffn_norm", "wo", "wq", "wk", "wv",
                       "wqkv", "w_gate", "w_up", "w_gate_up", "w_down",
                       "gate_inp", "experts", "attn_post_norm",
-                      "ffn_post_norm", "q_norm", "k_norm"}, ... ]
+                      "ffn_post_norm", "q_norm", "k_norm", "bq", "bk",
+                      "bv"}, ... ]
                    (a list of per-layer dicts, or one dict of stacked leaves)}
   QT: {"kind", "shape", "g", "qs", "scales", "bias", "il"}, and an
       I8PQTensor's "qs8" [(L,) K, Ns] int8 and "s8" [(L,) K/256, Ns] f32 (the
@@ -34,7 +35,7 @@ from .ops.repack import I8PQTensor, QTensor
 
 # JAX LlamaConfig features this slice does not run, with their off values
 _UNPORTED = {
-    "attn_qkv_bias": False, "norm_plus_one": False,
+    "norm_plus_one": False,
     "norm_type": "rms", "clamp_qkv": 0.0,
     "parallel_residual": False, "rope_dim": 0,
     "residual_scale": 1.0, "logit_scale": 1.0,

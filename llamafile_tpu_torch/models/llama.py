@@ -1,5 +1,5 @@
 """Llama-family forward of the port (llama / mistral, dense or Mixtral-style
-routed MoE; gemma, gemma2, gemma3), stacked or unrolled.
+routed MoE; gemma, gemma2, gemma3; qwen2, qwen3), stacked or unrolled.
 
 Counterpart of llamafile_tpu/models/llama.py for the llama branches of
 `_layer_fwd`, `forward` and `moe_ffn`. The JAX layer scan becomes a Python
@@ -34,6 +34,12 @@ a second table (swa_rope_theta, scale 1) picked per layer. With no softcap
 its prefill takes the flash_prefill kernel on every layer up to the window
 and on the global layers past it (the reference's scan, whose traced
 window is never None, sends those to the einsum: the same function).
+
+Qwen (the reference's qwen branches): rope NEOX; qwen2 adds its q/k/v
+biases (attn_qkv_bias) to the products' outputs, qwen3 normalizes each head
+of q and k before rope as gemma3 does. Both run under the paged decode.
+forward(return_hidden=True) gives the final-normed hidden states before
+the head, which the embeddings endpoint pools.
 
 int8_prefill_params attaches the int8 prefill companions (the Engine does
 so under LLAMAFILE_TPU_I8P=1): every product of over 32 rows on a layer
@@ -93,13 +99,15 @@ class LlamaConfig:
     rms_eps: float = 1e-5
     max_context: int = 8192
     rope_neox: bool = False          # False: interleaved pairs (llama NORM mode)
+    attn_qkv_bias: bool = False      # qwen2: q/k/v biases after the products
     attn_scale: float = 0.0          # 0 = 1/sqrt(head_dim)
     n_experts: int = 0               # routed MoE (Mixtral): experts a layer
     n_experts_used: int = 0          # top-k of them a token
     moe_norm_topk: bool = True       # renormalize the top-k weights to sum 1
     # gemma: embedding scale, GELU-tanh FFN; gemma2/3: sliding window on
     # layers li % swa_pattern < swa_pattern - 1, sandwich norms; gemma2:
-    # softcaps; gemma3: per-head q/k RMSNorm, windowed layers' rope base
+    # softcaps; gemma3 (and qwen3): per-head q/k RMSNorm; gemma3: windowed
+    # layers' rope base
     embd_scale: float = 1.0
     ffn_gelu: bool = False
     attn_softcap: float = 0.0
@@ -113,29 +121,29 @@ class LlamaConfig:
     @classmethod
     def from_gguf(cls, reader) -> "LlamaConfig":
         arch = reader.architecture
-        if arch not in ("llama", "mistral", "gemma", "gemma2", "gemma3"):
+        if arch not in ("llama", "mistral", "gemma", "gemma2", "gemma3", "qwen2", "qwen3"):
             raise NotImplementedError(
                 f"architecture {arch!r} is not ported yet (llama, mistral, gemma, "
-                "gemma2, gemma3)")
+                "gemma2, gemma3, qwen2, qwen3)")
         f = reader.field
         d_model = int(f("{arch}.embedding_length"))
         n_heads = int(f("{arch}.attention.head_count"))
         n_layers = int(f("{arch}.block_count"))
         head_dim = int(f("{arch}.attention.key_length", d_model // n_heads))
-        gemma = {}
+        branch = {}
         if arch.startswith("gemma"):
             # the reference's gemma branches: rope NEOX, the embedding times
             # sqrt(d), GELU-tanh, and attn_scale from the branch alone
             # ({arch}.attention.scale is ignored; 0 = 1 / sqrt(head_dim)).
             # The GGUF's norm weights carry gemma's +1 already (the
             # converter bakes it in).
-            gemma = dict(rope_neox=True, embd_scale=float(d_model) ** 0.5, ffn_gelu=True,
+            branch = dict(rope_neox=True, embd_scale=float(d_model) ** 0.5, ffn_gelu=True,
                          attn_scale=0.0)
         q_scale_27b = 1.0 / float(d_model / n_heads) ** 0.5
         if arch == "gemma2":
             # a 4096 window on every other layer, softcaps 50 / 30, sandwich
             # norms; q scaled by (d / h)^-1/2 at 46 layers (27B)
-            gemma.update(
+            branch.update(
                 swa_window=int(f("{arch}.attention.sliding_window", 4096)), swa_pattern=2,
                 attn_softcap=float(f("{arch}.attn_logit_softcapping", 50.0)),
                 final_softcap=float(f("{arch}.final_logit_softcapping", 30.0)),
@@ -145,11 +153,15 @@ class LlamaConfig:
             # (the global layers keep rope.freq_base and its linear factor),
             # sandwich norms, per-head q/k norms; q scaled by (d / h)^-1/2 at
             # 62 layers (27B), else 1 / sqrt(head_dim)
-            gemma.update(
+            branch.update(
                 swa_window=int(f("{arch}.attention.sliding_window", 1024)), swa_pattern=6,
                 swa_rope_theta=10000.0, post_norms=True, qk_norm=True,
                 attn_scale=(q_scale_27b if n_layers == 62
                             else 1.0 / float(head_dim) ** 0.5))
+        if arch.startswith("qwen"):
+            # the reference's qwen branches: rope NEOX; qwen2's q/k/v biases,
+            # qwen3's per-head q/k norms; attn_scale from metadata below
+            branch = dict(rope_neox=True, attn_qkv_bias=arch == "qwen2", qk_norm=arch == "qwen3")
         n_vocab = f("{arch}.vocab_size")
         if n_vocab is None:
             n_vocab = len(reader.metadata.get("tokenizer.ggml.tokens", []))
@@ -180,7 +192,7 @@ class LlamaConfig:
             n_experts_used=int(f("{arch}.expert_used_count", 0) or 0),
             moe_norm_topk=True,              # llama/mistral (Mixtral) renormalize
         )
-        return cls(**{**kw, **gemma})
+        return cls(**{**kw, **branch})
 
 
 CONFIG_FIELDS = tuple(f.name for f in fields(LlamaConfig))
@@ -207,8 +219,11 @@ class LlamaLayer:
     experts: Optional[dict] = None
     attn_post_norm: Optional[torch.Tensor] = None   # gemma2/3 sandwich norms, f32 [(L,) d]
     ffn_post_norm: Optional[torch.Tensor] = None
-    q_norm: Optional[torch.Tensor] = None           # gemma3 per-head norms, f32 [(L,) head_dim]
+    q_norm: Optional[torch.Tensor] = None           # gemma3/qwen3 per-head norms, f32 [(L,) head_dim]
     k_norm: Optional[torch.Tensor] = None
+    bq: Optional[torch.Tensor] = None               # qwen2 q/k/v biases, f32 [(L,) H*D]
+    bk: Optional[torch.Tensor] = None
+    bv: Optional[torch.Tensor] = None
 
 
 @dataclass
@@ -388,14 +403,22 @@ def stack_layers(params: LlamaParams) -> LlamaParams:
 
 
 def _qkv(h2d, layer: LlamaLayer, cfg: LlamaConfig, wl, prenorm=None):
-    """q, k, v [M, H*D] of h2d: the fused q|k|v product, or three."""
+    """q, k, v [M, H*D] of h2d: the fused q|k|v product, or three; then
+    qwen2's q/k/v biases (layer wl's under stacking), as the reference adds
+    them, before any q/k norm and rope. The q4b bias term of a QTensor
+    (QTensor.bias) is another thing, inside qmatmul."""
     nq = cfg.n_heads * cfg.head_dim
     nkv = cfg.n_kv_heads * cfg.head_dim
     if layer.wqkv is not None:
         qkv = qmatmul(h2d, layer.wqkv, wl, prenorm=prenorm)
-        return qkv[:, :nq], qkv[:, nq:nq + nkv], qkv[:, nq + nkv:nq + 2 * nkv]
-    return tuple(qmatmul(h2d, w, wl, prenorm=prenorm)
-                 for w in (layer.wq, layer.wk, layer.wv))
+        q, k, v = qkv[:, :nq], qkv[:, nq:nq + nkv], qkv[:, nq + nkv:nq + 2 * nkv]
+    else:
+        q, k, v = (qmatmul(h2d, w, wl, prenorm=prenorm)
+                   for w in (layer.wq, layer.wk, layer.wv))
+    if layer.bq is not None:
+        pick = (lambda a: a) if wl is None else (lambda a: a[wl])
+        q, k, v = q + pick(layer.bq), k + pick(layer.bk), v + pick(layer.bv)
+    return q, k, v
 
 
 def silu(x: torch.Tensor) -> torch.Tensor:
@@ -650,7 +673,7 @@ def _layer_fwd(x, layer: LlamaLayer, cfg: LlamaConfig, rope, pos, t_pos,
                    (pick(layer.attn_norm), cfg.rms_eps))
     q = q.reshape(b, t, cfg.n_heads, cfg.head_dim)
     k = k.reshape(b, t, cfg.n_kv_heads, cfg.head_dim)
-    if cfg.qk_norm:                     # gemma3: each head's RMSNorm before rope
+    if cfg.qk_norm:                     # gemma3, qwen3: each head's RMSNorm before rope
         q = rmsnorm(q, pick(layer.q_norm), cfg.rms_eps)
         k = rmsnorm(k, pick(layer.k_norm), cfg.rms_eps)
     q = apply_rope(q, cos, sin, cfg.rope_neox)
@@ -697,14 +720,16 @@ def _layer_fwd(x, layer: LlamaLayer, cfg: LlamaConfig, rope, pos, t_pos,
 def forward(params: LlamaParams, cfg: LlamaConfig, tokens: torch.Tensor,
             pos: torch.Tensor, cache: KVCache, fresh_prefill: bool = False,
             attn_len: Optional[int] = None,
-            last_idx: Optional[torch.Tensor] = None):
+            last_idx: Optional[torch.Tensor] = None,
+            return_hidden: bool = False):
     """One forward pass over new tokens, on stacked layers (a LlamaLayer
     with a leading L axis) or unrolled ones (a list, one LlamaLayer each).
 
     tokens int [B, T]; pos int32 [B] index of tokens[:, 0]; cache (bf16 or
     int8) is updated in place. attn_len (decode) bounds the streamed cache
     positions; last_idx [B] keeps only that position's logits (prefill).
-    Returns (logits f32 [B, T or 1, n_vocab], cache)."""
+    Returns (logits f32 [B, T or 1, n_vocab], cache); with return_hidden,
+    (the final-normed hidden states f32 [B, T, d], cache) and no head."""
     b, t = tokens.shape
     dev = tokens.device
     t_pos = torch.arange(t, device=dev)
@@ -725,6 +750,8 @@ def forward(params: LlamaParams, cfg: LlamaConfig, tokens: torch.Tensor,
         layer = params.layers if stacked else params.layers[li]
         x = _layer_fwd(x, layer, cfg, rope, pos, t_pos, scale, cache,
                        attn_len, fresh_prefill, li, stacked)
+    if return_hidden:
+        return rmsnorm(x, params.out_norm, cfg.rms_eps), cache
     t_out = t
     if last_idx is not None:
         # only the next-token logits: slice before the lm head
@@ -746,7 +773,8 @@ def forward_paged_decode(params: LlamaParams, cfg: LlamaConfig,
 
     Counterpart of the llama/mistral and gemma branches of the JAX
     package's forward_paged_decode (gemma: the embedding times sqrt(d), the
-    GELU FFN; a window, softcaps, post norms or q/k norms raise). tok/pos
+    GELU FFN; qwen2's q/k/v biases; qwen3's per-head q/k norms before rope;
+    a window, softcaps or post norms raise). tok/pos
     int32 [R]; paged a runtime.paged.PagedKV, updated IN PLACE (each row's
     new K/V at page tables[r, pos // ps], offset pos % ps); tables int32
     [R, MAXP]. Each row attends to its
@@ -757,7 +785,7 @@ def forward_paged_decode(params: LlamaParams, cfg: LlamaConfig,
     Returns (logits f32 [R, V], paged)."""
     from ..runtime.paged import paged_attend, write_token_kv
     for name in ("swa_window", "attn_softcap", "final_softcap", "post_norms",
-                 "qk_norm", "alibi", "kv_lora_rank"):
+                 "alibi", "kv_lora_rank"):
         if getattr(cfg, name, 0):
             raise NotImplementedError(f"paged decode with {name} is not ported")
     stacked = isinstance(params.layers, LlamaLayer)
@@ -782,10 +810,13 @@ def forward_paged_decode(params: LlamaParams, cfg: LlamaConfig,
         pick = (lambda a: a[li]) if stacked else (lambda a: a)
         h = rmsnorm(x, pick(layer.attn_norm), cfg.rms_eps)
         q, k, v = _qkv(h, layer, cfg, wl)
-        q = apply_rope(q.reshape(r, cfg.n_heads, cfg.head_dim), cos, sin,
-                       cfg.rope_neox)
-        k = apply_rope(k.reshape(r, cfg.n_kv_heads, cfg.head_dim), cos, sin,
-                       cfg.rope_neox)
+        q = q.reshape(r, cfg.n_heads, cfg.head_dim)
+        k = k.reshape(r, cfg.n_kv_heads, cfg.head_dim)
+        if cfg.qk_norm:
+            q = rmsnorm(q, pick(layer.q_norm), cfg.rms_eps)
+            k = rmsnorm(k, pick(layer.k_norm), cfg.rms_eps)
+        q = apply_rope(q, cos, sin, cfg.rope_neox)
+        k = apply_rope(k, cos, sin, cfg.rope_neox)
         v = v.reshape(r, cfg.n_kv_heads, cfg.head_dim)
         ksl = paged.k_scale[li] if quant else None
         vsl = paged.v_scale[li] if quant else None

@@ -1,7 +1,7 @@
 """GGUF -> device parameters for the port (llama / mistral, dense FFN or
 Mixtral-style routed experts; gemma, gemma2 and gemma3, with their heads
 tied to the embedding, gemma2/3's sandwich norms and gemma3's per-head q/k
-norms).
+norms; qwen2 with its q/k/v biases, qwen3 with its per-head q/k norms).
 
 Counterpart of llamafile_tpu/models/loader.py: tensor bytes flow mmap ->
 repack (numpy) -> device; `fuse_projections` then builds the fused qkv and
@@ -66,7 +66,9 @@ def _load_experts(reader: GGUFReader, p: str, cfg: LlamaConfig, fuse: bool,
 def fuse_projections(params: LlamaParams, cfg: LlamaConfig) -> LlamaParams:
     """Fuse q|k|v into one QTensor and gate|up into one: GU_STRIPE-
     interleaved when both are q4b with d_ff a multiple of 1024 (the fused
-    FFN kernel's layout), plainly concatenated otherwise."""
+    FFN kernel's layout), plainly concatenated otherwise. qwen2's q/k/v
+    biases stay separate f32 vectors (the forward adds them after the fused
+    product), as in the reference."""
     layers = []
     for layer in params.layers:
         kw = {}
@@ -94,7 +96,7 @@ def fuse_projections(params: LlamaParams, cfg: LlamaConfig) -> LlamaParams:
 
 
 def load_llama(path: str, device="cuda", fuse: bool = True):
-    """Load a llama/mistral/gemma/gemma2/gemma3 GGUF into (config, params,
+    """Load a llama/mistral/gemma/gemma2/gemma3/qwen2/qwen3 GGUF into (config, params,
     tokenizer, reader) on `device`. Tensor formats other than
     F32/F16/BF16/Q8_0/Q4_K/Q5_K/Q6_K raise NotImplementedError naming the
     format. Files whose layers mix
@@ -113,7 +115,7 @@ def load_llama(path: str, device="cuda", fuse: bool = True):
             raise NotImplementedError(f"{p}: only the gated dense FFN (SwiGLU, "
                                       "gemma's GELU) and routed experts of "
                                       "llama/mistral are ported")
-        for unported in ("attn_q.bias", "attn_qkv.weight", "attn_norm.bias",
+        for unported in ("attn_qkv.weight", "attn_norm.bias", "attn_output.bias",
                          "ffn_gate_shexp.weight", "ffn_gate_inp_shexp.weight"):
             if p + unported in reader:
                 raise NotImplementedError(f"{p}{unported} is not ported yet")
@@ -130,11 +132,13 @@ def load_llama(path: str, device="cuda", fuse: bool = True):
             wk=_load_qtensor(reader, p + "attn_k.weight", dev),
             wv=_load_qtensor(reader, p + "attn_v.weight", dev),
             wo=_load_qtensor(reader, p + "attn_output.weight", dev),
-            # gemma2/3's sandwich norms, gemma3's per-head q/k norms
+            # gemma2/3's sandwich norms, gemma3/qwen3's per-head q/k norms,
+            # qwen2's q/k/v biases
             attn_post_norm=opt("post_attention_norm.weight"),
             ffn_post_norm=opt("post_ffw_norm.weight"),
             q_norm=opt("attn_q_norm.weight"),
             k_norm=opt("attn_k_norm.weight"),
+            bq=opt("attn_q.bias"), bk=opt("attn_k.bias"), bv=opt("attn_v.bias"),
             **ffn))
     embd = torch.from_numpy(reader.tensor_f32("token_embd.weight")).to(
         dev).to(torch.bfloat16)

@@ -42,6 +42,22 @@ GEMMA3_27B = dict(d_model=5376, n_heads=32, n_kv_heads=16, head_dim=128, d_ff=21
                   swa_rope_theta=10000.0, post_norms=True, qk_norm=True,
                   head_quant="Q6_K", centered=True)
 
+# Qwen2.5-7B (Qwen/Qwen2.5-7B-Instruct's config.json: 28 layers, d 3584, 28
+# query heads over 4 KV heads of head_dim 128, a head group of 7, d_ff 18944,
+# vocab 152064, rope_theta 1e6, rms eps 1e-6, 32K context) with the qwen2
+# branch: rope NEOX and q/k/v biases. d_ff 18944 is not a multiple of 1024,
+# so gate|up is concatenated and the FFN is never the fused kernel's
+QWEN2_5_7B = dict(d_model=3584, n_heads=28, n_kv_heads=4, head_dim=128, d_ff=18944,
+                  n_vocab=152064, rms_eps=1e-6, max_context=32768, rope_neox=True,
+                  rope_theta=1e6, attn_qkv_bias=True, head_quant="Q6_K", centered=True)
+# Qwen3-32B (Qwen/Qwen3-32B's config.json: 64 layers, d 5120, 64 query heads
+# over 8 KV heads of head_dim 128, so H * D = 8192 is not d, d_ff 25600,
+# vocab 151936, not a multiple of 256, rope_theta 1e6, rms eps 1e-6, 40K
+# context) with the qwen3 branch: rope NEOX and per-head q/k norms
+QWEN3_32B = dict(d_model=5120, n_heads=64, n_kv_heads=8, head_dim=128, d_ff=25600,
+                 n_vocab=151936, rms_eps=1e-6, max_context=40960, rope_neox=True,
+                 rope_theta=1e6, qk_norm=True, head_quant="Q6_K", centered=True)
+
 # named configs (shapes follow the public model cards; weights random)
 PRESETS = {
     "tiny": dict(n_layers=2, d_model=256, n_heads=4, n_kv_heads=2, d_ff=512,
@@ -113,6 +129,13 @@ PRESETS = {
     # global one beside five windowed layers
     "gemma-3-27b": dict(n_layers=62, **GEMMA3_27B),
     "gemma-3-27b-6l": dict(n_layers=6, **GEMMA3_27B),
+    # Qwen2.5-7B and Qwen3-32B at full depth and at two layers; as the gemma
+    # presets, centred Q4_K weights and a separate random Q6_K head (both
+    # models' own heads are untied)
+    "qwen2.5-7b": dict(n_layers=28, **QWEN2_5_7B),
+    "qwen2.5-7b-2l": dict(n_layers=2, **QWEN2_5_7B),
+    "qwen3-32b": dict(n_layers=64, **QWEN3_32B),
+    "qwen3-32b-2l": dict(n_layers=2, **QWEN3_32B),
     "tiny-moe": dict(n_layers=2, d_model=256, n_heads=4, n_kv_heads=2, d_ff=512,
                      n_vocab=1024, max_context=2048, n_experts=4,
                      n_experts_used=2, moe_norm_topk=True),
@@ -161,14 +184,18 @@ def _rand_qtensor(gen: Optional[torch.Generator], n: int, k: int, quant: str,
 
 
 def make_synthetic_llama(preset: str = "tiny", quant: str = "Q4_K",
-                         seed: int = 0, fuse: bool = False, device="cuda"):
+                         seed: int = 0, fuse: bool = False, device="cuda",
+                         n_layers: Optional[int] = None):
     """Returns (cfg, params) with random weights on `device`. A MoE preset
     gives each layer a dense router and expert stacks (stack_experts; gate|up
     joined when fuse), as the loader does. device "meta" gives the shapes,
     dtypes and byte counts of the layout with no data (param_bytes and
-    decode_read_bytes of a preset, without building it)."""
+    decode_read_bytes of a preset, without building it). n_layers cuts (or
+    deepens) the preset's depth, its widths unchanged."""
     dev = torch.device("meta") if str(device) == "meta" else resolve_device(device)
     kw = dict(PRESETS[preset])
+    if n_layers is not None:
+        kw["n_layers"] = n_layers
     rope_theta = kw.pop("rope_theta", 10000.0)
     share_layers = kw.pop("share_layers", False)
     head_quant = kw.pop("head_quant", quant)
@@ -198,9 +225,12 @@ def make_synthetic_llama(preset: str = "tiny", quant: str = "Q4_K",
         if cfg.post_norms:                  # gemma2/3's sandwich norms, random
             attn.update({f: torch.empty(d, device=dev).uniform_(0.5, 1.5, generator=gen)
                          for f in ("attn_post_norm", "ffn_post_norm")})
-        if cfg.qk_norm:                     # gemma3's per-head q/k norms, drawn alike
+        if cfg.qk_norm:                     # gemma3/qwen3's per-head q/k norms, drawn alike
             attn.update({f: torch.empty(hd, device=dev).uniform_(0.5, 1.5, generator=gen)
                          for f in ("q_norm", "k_norm")})
+        if cfg.attn_qkv_bias:               # qwen2's q/k/v biases, at the products' scale
+            attn.update({f: torch.randn(n, generator=gen, device=dev)
+                         for f, n in (("bq", h * hd), ("bk", kvh * hd), ("bv", kvh * hd))})
         layers.append(LlamaLayer(attn_norm=torch.ones(d, device=dev),
                                  ffn_norm=torch.ones(d, device=dev), **attn, **ffn))
     if share_layers:

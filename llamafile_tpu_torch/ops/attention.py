@@ -187,12 +187,24 @@ def flash_prefill(q, k, v, scale: float, window=None, softcap: float = 0.0):
 flash_prefill.launches = 0
 
 
+def decode_block(s_eff: int) -> int:
+    """The reference's KV streaming block of its decode kernels
+    (_decode_bs): 512, halved while it does not divide s_eff, never under
+    256."""
+    bs = 512
+    while bs > 256 and s_eff % bs:
+        bs //= 2
+    return bs
+
+
 def flash_decode_write_plain(q, k3, v3, k_new, v_new, li: int, pos,
                              scale: float, hkv: int, s_eff: int,
                              win_l=None, softcap: float = 0.0):
-    """Plain version of the flash_decode_write kernel, in its numerics: q in
-    bf16, f32 scores, bf16 p before P.V (l sums the f32 p), cache rows
-    j <= pos-1 (and inside the window), the f32 new token merged last, out
+    """Plain version of the flash_decode_write kernel, in the reference
+    kernel's numerics: q in bf16, f32 scores; the cache rows j <= pos-1
+    (and inside the window) streamed in blocks of decode_block(s_eff) rows
+    with an online softmax, p rounded to bf16 against the running max
+    before P.V (l sums the f32 p); the f32 new token merged last; out
     divided by max(l, 1e-30). Writes the new rows into k3/v3 in place."""
     b, hq, d = q.shape
     group = hq // hkv
@@ -211,14 +223,26 @@ def flash_decode_write_plain(q, k3, v3, k_new, v_new, li: int, pos,
     vis = j[None, :] <= p_ - 1
     if win_l is not None:
         vis = vis & (j[None, :] > p_ - win_l)
-    s = torch.where(vis[:, None, None, :], s, torch.full_like(s, NEG_INF))
-    mx = torch.maximum(s.amax(dim=-1), sn)                       # [B, H, G]
-    p = torch.where(vis[:, None, None, :], torch.exp(s - mx[..., None]),
-                    torch.zeros_like(s))
-    pn = torch.exp(sn - mx)
-    l = p.sum(-1) + pn
-    acc = (torch.einsum("bhgs,bshd->bhgd", p.to(torch.bfloat16).float(), vc)
-           + pn[..., None] * vn[:, :, None, :])
+    vis = vis[:, None, None, :]
+    s = torch.where(vis, s, torch.full_like(s, NEG_INF))
+    m = torch.full(sn.shape, NEG_INF, device=q.device)                  # [B, H, G]
+    l = torch.zeros_like(m)
+    acc = torch.zeros(sn.shape + (d,), device=q.device)
+    bs = decode_block(s_eff)
+    for j0 in range(0, s_eff, bs):
+        sb, vb = s[..., j0:j0 + bs], vis[..., j0:j0 + bs]
+        m_new = torch.maximum(m, sb.amax(dim=-1))
+        corr = torch.exp(m - m_new)
+        p = torch.where(vb, torch.exp(sb - m_new[..., None]), torch.zeros_like(sb))
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bhgs,bshd->bhgd", p.to(torch.bfloat16).float(), vc[:, j0:j0 + bs])
+        m = m_new
+    m_new = torch.maximum(m, sn)
+    corr = torch.exp(m - m_new)
+    pn = torch.exp(sn - m_new)
+    l = l * corr + pn
+    acc = acc * corr[..., None] + pn[..., None] * vn[:, :, None, :]
     out = (acc / torch.clamp(l, min=1e-30)[..., None]).reshape(b, hq, d)
     rows = torch.arange(b, device=q.device)
     k3[li, rows, pos.long()] = k_new.reshape(b, -1).to(k3.dtype)

@@ -7,16 +7,20 @@ connections are cheap; every generation goes through the continuous batcher
 (server/batcher.py), which owns the device.
 
 Endpoints: /v1/chat/completions /v1/completions /completion /tokenize
-/detokenize /v1/models /slotz /flagz /health /metrics, with the reference's
+/detokenize /v1/embeddings /embedding /v1/models /slotz /flagz /health
+/metrics, with the reference's
 behaviour: SSE streaming with x_prefill_progress events, stop strings held
 back until they can no longer begin, `X-Priority: batch`, the token
 bucket's 429, body and header limits, and message forgetting past the
 context. /v1/completions also takes `prompt` as a list of token ids (the
-OpenAI API's token-array form).
+OpenAI API's token-array form). /v1/embeddings and /embedding take `input`
+or `content`, a string or a list of strings (or, as OpenAI's API, of token
+arrays: a port extension); their requests collect into
+padded batched forwards on the EmbedBatcher's thread (server/embed.py).
 
 Left out of this port, each answering 501 with a message that names it:
-/v1/embeddings and /embedding, `grammar` and `response_format`, image
-content parts, /db/*, /slots/{id}?action=, mirostat, and the static web UI.
+`grammar` and `response_format`, image content parts, /db/*,
+/slots/{id}?action=, mirostat, and the static web UI.
 A model of another architecture makes Server raise at start.
 """
 from __future__ import annotations
@@ -80,6 +84,12 @@ class Server:
         from .batcher import Batcher
         self.batcher = Batcher(engine, rows=max(1, flags.slots),
                                preempt_after=flags.preempt)
+        # cross-request embedding micro-batching: one padded forward a tick
+        from .embed import EmbedBatcher, llama_embed_many
+        self.embedder = EmbedBatcher(
+            llama_embed_many(engine),
+            tokenize=lambda t: (t if isinstance(t, list) else engine.tokenizer.encode(t))[
+                : engine.max_seq_len - 1])
         self.bucket = TokenBucket(flags.token_burst, flags.token_rate,
                                   flags.token_cidr, flags.trust)
         self.metrics = Metrics()
@@ -273,6 +283,8 @@ class Server:
             "/completion": self.ep_completion_legacy,
             "/tokenize": self.ep_tokenize,
             "/detokenize": self.ep_detokenize,
+            "/v1/embeddings": self.ep_embedding,
+            "/embedding": self.ep_embedding,
             "/v1/models": self.ep_models,
             "/slotz": self.ep_slotz,
             "/flagz": self.ep_flagz,
@@ -288,8 +300,6 @@ class Server:
 
     @staticmethod
     def _unported_route(path: str):
-        if path in ("/v1/embeddings", "/embedding"):
-            return f"{path} (embeddings)"
         if path.startswith("/db/"):
             return "/db (chat persistence)"
         if path.startswith("/slots/"):
@@ -369,6 +379,29 @@ class Server:
         ids = payload.get("tokens", [])
         return await self._json(w, 200,
                                 {"content": self.engine.tokenizer.decode(ids)})
+
+    async def ep_embedding(self, w, method, target, headers, payload):
+        inp = payload.get("input", payload.get("content", ""))
+        if isinstance(inp, list) and inp and all(isinstance(t, int) for t in inp):
+            inp = [inp]                        # one token array (OpenAI's form)
+        inputs = inp if isinstance(inp, list) else [inp]
+        loop = asyncio.get_running_loop()
+        # concurrent requests micro-batch into one padded forward
+        vecs = await loop.run_in_executor(self.pool, self.embedder.embed, inputs)
+        tok = self.engine.tokenizer
+        ntok = sum(len(t) if isinstance(t, list) else len(tok.encode(t)) for t in inputs)
+        data = [{"object": "embedding", "index": i, "embedding": v}
+                for i, v in enumerate(vecs)]
+        return await self._json(w, 200, {
+            "object": "list", "data": data, "model": self.model_id,
+            "usage": {"prompt_tokens": ntok},
+        })
+
+    def shutdown(self):
+        """Stop the batcher's and the embedder's threads and the pool."""
+        self.batcher.shutdown()
+        self.embedder.shutdown()
+        self.pool.shutdown(wait=False)
 
     def _chat_prompt_ids(self, payload) -> list:
         from ..runtime.chat import apply_chat_template
@@ -588,6 +621,5 @@ def serve(flags: Flags, engine=None) -> int:
     except KeyboardInterrupt:
         print("shutdown")
     finally:
-        server.batcher.shutdown()
-        server.pool.shutdown(wait=False)
+        server.shutdown()
     return 0

@@ -56,7 +56,8 @@ def use_more_bits(i: int, n: int) -> bool:
     return i < n // 8 or i >= 7 * n // 8 or (i - n // 8) % 3 == 2
 
 
-def make_q4_k_m_llama(preset: str = "llama3-8b", seed: int = 0, device="cuda"):
+def make_q4_k_m_llama(preset: str = "llama3-8b", seed: int = 0, device="cuda",
+                      n_layers=None):
     """(cfg, params) of a synthetic model by llama.cpp's Q4_K_M recipe
     (llama_tensor_get_type), random weights from a seed (models.synthetic),
     fused as the loader fuses them:
@@ -67,12 +68,14 @@ def make_q4_k_m_llama(preset: str = "llama3-8b", seed: int = 0, device="cuda"):
       - every other matrix Q4_K, a MoE router dense, the output head Q6_K.
     The layers differ in format, so the params stay a list (the unrolled
     forward). Layers that share buffers in the preset (share_layers) share
-    them again within each of the two formats."""
+    them again within each of the two formats. n_layers cuts the preset's
+    depth (make_synthetic_llama)."""
     import dataclasses
     from .models.loader import fuse_projections
     from .models.synthetic import _rand_qtensor, make_synthetic_llama
     from .ops.repack import expert_slice, stack_experts
-    cfg, params = make_synthetic_llama(preset, "Q4_K", seed=seed, device=device)
+    cfg, params = make_synthetic_llama(preset, "Q4_K", seed=seed, device=device,
+                                       n_layers=n_layers)
     gen = torch.Generator(device=params.tok_embd.device)
     gen.manual_seed(seed + 1)
     dev = params.tok_embd.device

@@ -260,7 +260,7 @@ def option_cases(torch, dev, gen, kernels):
     return [(kernel, (hq, hkv, hd), label, lambda i, run=run: run(i, True),
              lambda i, plain=plain: plain(i, True), tol, err_fn, None, work, 8,
              (lambda i, run=run: run(i, False), lambda i, plain=plain: plain(i, False)))
-            for kernel, label, run, plain, tol, err_fn, work in C.gemma_option_cases(
+            for kernel, label, run, plain, tol, err_fn, work, _lib in C.gemma_option_cases(
                 torch, dev, gen) if kernel in kernels]
 
 

@@ -929,3 +929,107 @@ def test_wrapper_rejects_bad_inputs(dev):
             vp[0, ..., :64].contiguous(), lens, tables)
     assert torch.equal(A.paged_attention(*args), A.paged_gather(*args))
     assert A.paged_attention.launches == n0 and A.ROUTE_COUNTS["gather"] == g0 + 1
+
+
+# Qwen3-32B's products (storage N): qkv (N 10240, K 5120), o (N 5120 in
+# 6144, K 8192), the interleaved gate|up (N 51200), down (K 25600); and
+# Qwen2.5-7B's: qkv (N 4608 in 6144, K 3584), o, the concatenated gate|up
+# (N 37888 in 38912), down (K 18944)
+QWEN_SHAPES = [(10240, 5120), (6144, 8192), (51200, 5120), (6144, 25600),
+               (6144, 3584), (4096, 3584), (38912, 3584), (4096, 18944)]
+
+
+@pytest.mark.parametrize("kernel", ["txn_m1", "txn_m32", "txn_m4", "dequant_m1024"])
+@pytest.mark.parametrize("n,k", QWEN_SHAPES)
+def test_qwen_products_match_plain(dev, kernel, n, k):
+    """Each q4b product kernel of the qwen paths at their shapes, on layer 1
+    of a 2-layer stack: the decode GEMV, the 24-token prefill's and the
+    4-slot server's qmm_txn, the 1000-token prefill's dequant GEMM; the
+    limits of their own tests, a second launch bitwise equal."""
+    gen = torch.Generator(device=dev).manual_seed(n + k + len(kernel))
+    m = {"txn_m1": 1, "txn_m32": 32, "txn_m4": 4, "dequant_m1024": 1024}[kernel]
+    qs, sc, b = rand_q4b(gen, 2, n, k, dev)
+    x = torch.randn(m, k, generator=gen, device=dev)
+    xq, sx = Q.quantize_activations_g32(x)
+    if kernel == "txn_m1":
+        run = lambda: Q.qmm_txn_m1(xq, sx, qs[1], sc[1], b[1])
+        plain, tol = Q.qmm_txn_m1_plain(xq, sx, qs[1], sc[1], b[1]), 1e-5
+    elif kernel == "dequant_m1024":
+        run = lambda: Q.qmm_dequant(x, qs[1], sc[1])
+        plain, tol = Q.qmm_dequant_plain(x, qs[1], sc[1]), 1e-3
+    else:
+        run = lambda: Q.qmm_txn(xq, sx, qs[1], sc[1], b[1])
+        plain, tol = Q.qmm_txn_plain(xq, sx, qs[1], sc[1], b[1]), 1e-5
+    got = run()
+    assert_close(got, plain, tol)
+    assert torch.equal(run(), got)
+
+
+@pytest.mark.parametrize("m,kernel", [(1, "qmm_q8_m1"), (4, "qmm_dequant")])
+@pytest.mark.parametrize("n,k", [(151936, 5120), (152064, 3584)])
+def test_qwen_heads_match_plain(dev, m, kernel, n, k):
+    """The Q6_K heads (vocab 151936 and 152064, not multiples of 2048 and,
+    the first, of 256; stored in 153600 columns) through qmatmul: the
+    logits the sampler sees are [M, n], the last column tile held like the
+    rest, on qmm_q8_m1 at M = 1 and qmm_dequant at M = 4."""
+    from llamafile_tpu_torch.ops.repack import QTensor
+    gen = torch.Generator(device=dev).manual_seed(n + m)
+    qs, sc, _ = rand_q8b(gen, 1, 153600, k, 16, dev)
+    head = QTensor("q8b", (n, k), 16, qs[0], sc[0], None)
+    x = torch.randn(m, k, generator=gen, device=dev)
+    n0 = getattr(Q, kernel).launches
+    got = Q.qmatmul(x, head)
+    assert getattr(Q, kernel).launches == n0 + 1 and tuple(got.shape) == (m, n)
+    xq, sx = Q.quantize_activations_g32(x)
+    want = (Q.qmm_q8_m1_plain(xq, sx, qs[0], sc[0]) if m == 1
+            else Q.qmm_dequant_plain(x, qs[0], sc[0]))[:, :n]
+    tol = 1e-5 if m == 1 else 1e-3
+    assert_close(got[:, n - 128:], want[:, n - 128:], tol)
+    assert_close(got, want, tol)
+
+
+def test_qwen3_fused_ffn_matches_plain(dev):
+    """Qwen3-32B's fused decode FFN: d 5120, d_ff 25600 = 25 x 1024."""
+    d, dff = 5120, 25600
+    gen = torch.Generator(device=dev).manual_seed(d + dff)
+    gq, gs, gb = rand_q4b(gen, 2, 2 * dff, d, dev)
+    dq, ds, db = rand_q4b(gen, 2, d, dff, dev)
+    xq, sx = Q.quantize_activations_g32(torch.randn(1, d, generator=gen, device=dev))
+    ids = torch.arange(2, dtype=torch.int32, device=dev)
+    args = (xq, sx, gq, gs, gb, dq, ds, db, ids[1:2], None, torch.ones(1, device=dev))
+    got = Q.qmm_moe_m1(*args)
+    assert_close(got, Q.qmm_moe_m1_plain(*args), 2e-3)
+    assert torch.equal(Q.qmm_moe_m1(*args), got)
+
+
+@pytest.mark.parametrize("hq,hkv", [(64, 8), (28, 4)], ids=["qwen3-32b", "qwen2.5-7b"])
+@pytest.mark.parametrize("kernel", ["flash_decode_write", "flash_decode_bf16",
+                                    "flash_decode_int8", "paged_bf16", "paged_int8"])
+def test_qwen_decode_groups_match_plain(dev, hq, hkv, kernel):
+    """The three decode kernels at Qwen3-32B's 64 over 8 heads (G = 8) and
+    Qwen2.5-7B's 28 over 4 (G = 7)."""
+    if kernel == "flash_decode_write":
+        _fdw_check(dev, hq, hkv, (700, 1023), 1024, 128)
+    elif kernel.startswith("flash_decode"):
+        _fd_check(dev, kernel.endswith("int8"), hq, hkv, (700, 1023), 1024, 128)
+    else:
+        _paged_check(dev, kernel.endswith("int8"), 8, hq, hkv, 128)
+
+
+@pytest.mark.parametrize("b,t,hq,hkv", [(8, 128, 32, 8), (8, 512, 32, 8), (64, 128, 32, 8),
+                                        (64, 512, 32, 8), (1, 1024, 64, 8),
+                                        (1, 1024, 28, 4)])
+def test_flash_prefill_batched_and_qwen_heads(dev, b, t, hq, hkv):
+    """flash_prefill at B = 8 and 64 rows (the embedding batches of llama3-8b
+    at buckets 128 and 512), and at Qwen3-32B's and Qwen2.5-7B's heads:
+    row by row within 1.5e-2, the diagonal-tile control rejected, two
+    launches bitwise equal."""
+    gen = torch.Generator(device=dev).manual_seed(b + t + hq)
+    q = torch.randn((b, t, hq, 128), generator=gen, device=dev)
+    k = torch.randn((b, t, hkv, 128), generator=gen, device=dev)
+    v = torch.randn((b, t, hkv, 128), generator=gen, device=dev)
+    got = A.flash_prefill(q, k, v, 128 ** -0.5)
+    want = A.flash_prefill_plain(q, k, v, 128 ** -0.5)
+    assert row_rel_err(got, want) <= 1.5e-2
+    assert row_rel_err(flash_prefill_tile_fault(q, k, v, 128 ** -0.5), want) > 0.75
+    assert torch.equal(A.flash_prefill(q, k, v, 128 ** -0.5), got)

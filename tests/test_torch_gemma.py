@@ -281,8 +281,10 @@ def _jax_side(path, stacked):
     run in one interpreted context with one jitted forward, so that the bf16
     prefill in the 32-token bucket is compiled once for both: the last
     logits and the flash_prefill routes at each bucket; for each cache
-    dtype, the logits of that prefill and of NXT's decode steps, and the
-    decode attention calls traced by name."""
+    dtype, the logits of that prefill and of NXT's decode steps, the
+    decode attention calls traced by name, and the cache (numpy) before
+    each decode step (tests/test_torch_qwen.py starts the port's steps
+    from it)."""
     jcfg, jp, _, _ = j_load_llama(path)
     if stacked:
         jp = JL.stack_layers(jp)
@@ -308,12 +310,16 @@ def _jax_side(path, stacked):
             if kv == "bf16":
                 out["prefill"][32] = lg, routes
                 out["prefill"][256] = prefill(256, dtype)[:2]
-            n_prompt, logits, n0 = len(PROMPTS[32]), [lg], traced()
+            n_prompt, logits, caches, n0 = len(PROMPTS[32]), [lg], [], traced()
             for i, t in enumerate(NXT):
+                caches.append([None if a is None else np.array(a.astype(jnp.float32) if
+                                                             a.dtype == jnp.bfloat16 else a)
+                               for a in (jc.k, jc.v, jc.k_scale, jc.v_scale)])
                 lg, jc = fwd(jp, jcfg, jnp.asarray([[t]], jnp.int32),
                              jnp.asarray([n_prompt + i], jnp.int32), jc, attn_len=MAX_LEN)
                 logits.append(np.asarray(lg[0, -1]))
-            out["decode"][kv] = logits, {k: v - n0[k] for k, v in traced().items()}
+            out["decode"][kv] = (logits, {k: v - n0[k] for k, v in traced().items()},
+                                 caches)
         return out
     finally:
         mp.undo()
@@ -373,7 +379,7 @@ def test_decode_past_window_matches_jax(gguf, arch, stacked, kv, jax_refs):
     nl, n_prompt = tcfg.n_layers, len(PROMPTS[32])
     toks, last = _tokens(32)
     port_route, jax_route = ROUTES[(arch, stacked, kv)]
-    want, j_calls = jax_refs(stacked)["decode"][kv]
+    want, j_calls, _ = jax_refs(stacked)["decode"][kv]
     assert j_calls[jax_route] > 0       # traced at least once on that route
     mp = pytest.MonkeyPatch()
     try:

@@ -132,11 +132,12 @@ def test_config_matches_jax(gguf):
     assert tp.output.kind == "q8b" and tp.layers[0].attn_post_norm.shape == (D,)
 
 
-@pytest.mark.parametrize("arch", ["qwen2", "phi3"])
+@pytest.mark.parametrize("arch", ["qwen2moe", "phi3"])
 def test_other_gemmas_not_ported(tmp_path, arch):
     """The gemma family is ported (gemma and gemma3 are held in
-    tests/test_torch_gemma.py and test_torch_gemma3.py); architectures
-    outside it and llama's, such as qwen2 and phi3, still raise."""
+    tests/test_torch_gemma.py and test_torch_gemma3.py), and qwen2 and
+    qwen3 (tests/test_torch_qwen.py); other architectures, such as qwen2moe
+    and phi3, still raise."""
     path = make_tiny_gemma2_gguf(str(tmp_path / f"{arch}.gguf"), quant="F32", arch=arch)
     with pytest.raises(NotImplementedError, match="not ported"):
         load_llama(path, device="cpu")

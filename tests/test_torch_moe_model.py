@@ -64,6 +64,7 @@ from llamafile_tpu_torch.runtime.sampling import SamplingParams as TSP
 from llamafile_tpu_torch.server.batcher import Batcher as TBatcher
 from llamafile_tpu_torch.testing import use_more_bits
 from tests.test_torch_batcher import _prompt, _serve
+from tests.test_torch_q4km import _one_torch_thread  # noqa: F401
 from tests.test_torch_engine import _cli_text, _text_until_eos
 from tests.util_models import byte_vocab, make_tiny_llama_gguf
 

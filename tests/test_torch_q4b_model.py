@@ -34,6 +34,7 @@ from llamafile_tpu_torch.runtime.engine import load_engine
 from llamafile_tpu_torch.runtime.sampling import SamplingParams as TSP
 from llamafile_tpu_torch.server.batcher import Batcher as TBatcher
 from tests.test_torch_batcher import _prompt, _serve
+from tests.test_torch_q4km import _one_torch_thread  # noqa: F401
 from tests.test_torch_moe_model import _interpreted
 from tests.test_torch_q4b import flavour, rel
 from tests.util_models import make_tiny_llama_gguf

@@ -104,6 +104,18 @@ def make_q4_k_m_gguf(path, seed=0):
     return path
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The module's torch work (and its CLI runs, which take the caller's
+    count) on one thread: under pytest-xdist's workers on every core,
+    torch's default team of a thread a core spins against them. The port
+    files that import this fixture run on one thread too."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def gguf(tmp_path_factory):
     return make_q4_k_m_gguf(str(tmp_path_factory.mktemp("q4km") / "tiny-q4_k_m.gguf"))

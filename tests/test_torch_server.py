@@ -71,7 +71,7 @@ def server(gguf):
     base, loop = _start(srv)
     yield base, srv
     loop.call_soon_threadsafe(loop.stop)
-    srv.batcher.shutdown()
+    srv.shutdown()
 
 
 def _post(url, obj, headers=None, raw=None):
@@ -215,8 +215,16 @@ def test_404_bad_json_body_cap_and_429(server, monkeypatch):
 ], ids=["embeddings", "embedding", "db", "slots", "web_ui", "grammar",
         "response_format", "image", "mirostat"])
 def test_unported_features_answer_501(server, path, body, method):
+    """What the port leaves out answers 501 naming it; the embeddings
+    routes, once among them, are ported and answer 200 with a unit vector
+    (tests/test_torch_embed.py holds them against the JAX package)."""
     base, _ = server
     code, text = _status(base + path, body, method=method)
+    if path in ("/v1/embeddings", "/embedding"):
+        vec = json.loads(text)["data"][0]["embedding"]
+        assert code == 200 and len(vec) == 256
+        assert abs(sum(v * v for v in vec) - 1.0) < 1e-6
+        return
     assert code == 501 and "not ported" in text
 
 
