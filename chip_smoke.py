@@ -72,7 +72,16 @@
    there is one (for qmm_i8p, torch._int_mm on the same codes without the
    per-block scales), and the bound (bytes over the card's memory rate, or
    operations over its peak rate, whichever is larger).
-3. Whole paths at two layers of llama3-8b width, card (kernels) against the
+3. At two layers of llama3-8b width, first the sampling state and the
+   grammar path (stateful_sampling_check, grammar_path_check):
+   Engine.generate with penalties, with mirostat v2 over penalties and
+   with mirostat v1, each draw's Gumbel noise from one CPU generator, and
+   the CPU's plain chain rerun on the card's logits, carrying its own
+   penalty window and mu: the same token at every step, mu within 1e-5;
+   the server's grammar path over a 128256-piece tokenizer, 12 greedy
+   tokens, the host masks and the device mask equal to the CPU's, and the
+   plain model on the CPU over the same tokens: logits within 2e-2, the
+   same greedy choice under the mask. Then whole paths, card (kernels) against the
    same model on the CPU (plain versions): Q4_K with a 32-token prompt and a
    decode step, Q4_K with a 300-token prompt (bucket 512) and a decode
    step, Q8_0 with a 24-token prompt (bucket 32) and a decode step, and
@@ -216,22 +225,39 @@
    Q4_K stacked with a Q6_K head: as phase 9, the 1000-token prompt's
    prefill launching flash_prefill on every layer (bucket 1024, the
    window's width).
-11. qwen3-32b (Qwen3-32B's widths, 64 layers, q/k norms, the fused FFN),
+11. qwen3-32b (Qwen3-32B's widths, PHASE11_LAYERS = 16 of its 64 layers,
+   q/k norms, the fused FFN),
    Q4_K stacked with a Q6_K head (vocab 151936): Engine.generate of 64
    tokens from the 24-token prompt, launches exact, the decode rate
    against its weight-read bound, the 1000-token prompt's TTFT (median of
    3); the HTTP server at 4 slots, 4 greedy requests, launches exact (the
    requests alone are held by phase 3's qwen3-32b-2l check).
-12. qwen2.5-7b (Qwen2.5-7B's widths, 28 layers, q/k/v biases, G = 7, the
+12. qwen2.5-7b (Qwen2.5-7B's widths, PHASE12_LAYERS = 14 of its 28 layers,
+   q/k/v biases, G = 7, the
    FFN unfused): decode rate and TTFT as phase 11; then, as the last timed
    run is over, that prefill's device time by kernel (torch.profiler).
-   Phases run in the order 4, 4b, 4d, 5, 4f, 4e, 4c, 6, 7, 8, 9, 10, 11, 12. Then, after every timed
+13. Phase 4's engine with a tokenizer of 128256 pieces (256 single-byte
+   ones, "<t>" for the others, one EOG piece) under an HTTP server with 8
+   slots and --state-dir: a GBNF request (eight items) and a json_schema
+   request, each alone with launches exact and the mask's ms a token, then
+   together beside 4 plain greedy requests, each text its own alone; a
+   300-token request's row saved (np.savez against np.savez_compressed
+   timed on 4 of its layers), erased and restored, the prompt again
+   reusing 299 tokens or more with the tokens of the reuse without the
+   restore and a TTFT below the fresh request's; Engine.generate of 64
+   tokens with mirostat v2 and penalties, launches as phase 4's; a
+   300-token prompt_cache twice, the second feeding one token as a decode
+   step.
+   Phases run in the order 4, 4b, 4d, 5, 4f, 13, 4e, 4c, 6, 7, 8, 9, 10, 11, 12. Then, after every timed
    run (so that no profiler session of the process precedes a timing),
    profiles: a 2-step decode chunk of each model (7a, 7b, and 4c, 4 and
    4f's int8 on rebuilt engines) under torch.profiler (the device's busy
    share of a step) and under cProfile (host time by function), one
-   1000-token prefill (device time by kernel), and one fused 8-row serving
-   chunk (busy share).
+   1000-token prefill (device time by kernel), one fused 8-row serving
+   chunk (busy share), and a batcher admission of a fresh 300-token prompt
+   against the same prompt's reused one (admission_profile: host time by
+   piece and function, device busy; the one-token slice as a decode step
+   against its old bucket-16 einsum route).
 
 Every phase header (and each phase-3 check's) prints the seconds since the
 start and those the previous one took; {"phase_seconds": ...} sums them up
@@ -239,7 +265,7 @@ before the launches line.
 
 Any failure raises and exits non-zero. The last line of standard output is
 {"ok": true, "device": {...}}; the lines before it hold every kernel's
-launches summed over the counted runs of phases 4 to 12 ({"launches": ...},
+launches summed over the counted runs of phases 4 to 13 ({"launches": ...},
 with qmm_planes' launches on a stacked layer's view apart as
 "qmm_planes_stacked"), the kernel table (one JSON object with an entry a
 kernel: the numbers of its first shape, the main path's heaviest, every
@@ -252,6 +278,7 @@ import contextlib
 import copy
 import dataclasses
 import cProfile
+import functools
 import gc
 import json
 import os
@@ -2613,14 +2640,15 @@ def gemma_path_check(torch, dev, preset="gemma-2-9b-2l", prompts=(24, 4200), n_d
         torch.cuda.empty_cache()
 
 
-def counted_generate(torch, eng, prompt, n_new):
-    """One greedy Engine.generate of n_new tokens after a warm-up run (first
-    launches of each kernel at these shapes, allocator; not counted), with
-    every launch count set to 0 just before and read just after. Returns
-    (tokens, counts, time to first token s, decode s after the first)."""
+def counted_generate(torch, eng, prompt, n_new, sp=None):
+    """One Engine.generate of n_new tokens (greedy unless sp is given) after
+    a warm-up run (first launches of each kernel at these shapes,
+    allocator; not counted), with every launch count set to 0 just before
+    and read just after. Returns (tokens, counts, time to first token s,
+    decode s after the first)."""
     from llamafile_tpu_torch.ops import reset_launch_counts
     from llamafile_tpu_torch.runtime.sampling import SamplingParams
-    sp = SamplingParams(temperature=0.0)
+    sp = sp or SamplingParams(temperature=0.0)
     list(eng.generate("", max_tokens=min(n_new, 9), sampling=sp, stop_on_eog=False,
                       prompt_ids=prompt))
     torch.cuda.synchronize()
@@ -2777,6 +2805,9 @@ def main_path(torch, dev):
     counts_5, step_5 = serving_phase(torch, eng, read)
     phase("phase 4f: the same engine under the q4b flavours int8 and planes")
     counts_f, step_int8 = flavour_phase(torch, eng, read, prompt, long_prompt, n_new)
+    phase("phase 13: the same engine: grammar requests and slot save/restore under the "
+          "HTTP server, then penalties with mirostat and --prompt-cache in Engine.generate")
+    counts_13 = state_phase(torch, eng, prompt, step_q4)
     del eng
     torch.cuda.empty_cache()
 
@@ -2810,13 +2841,16 @@ def main_path(torch, dev):
           "Engine.generate")
     counts_10 = gemma_phase(torch, dev, prompt, long_prompt, preset="gemma-3-27b",
                             what="phase 10", n_layers=PHASE10_LAYERS)
-    phase("phase 11: qwen3-32b Q4_K (qwen3), 64 layers stacked, Engine.generate and the "
-          "HTTP server")
+    phase(f"phase 11: qwen3-32b Q4_K (qwen3), {PHASE11_LAYERS} of 64 layers stacked, "
+          "Engine.generate and the HTTP server")
     qprompt = [t % 150000 for t in prompt]
     qlong = [t % 150000 for t in long_prompt]
-    counts_11 = qwen_phase(torch, dev, qprompt, qlong, "qwen3-32b", "phase 11", serve=True)
-    phase("phase 12: qwen2.5-7b Q4_K (qwen2), 28 layers stacked, Engine.generate")
-    counts_12 = qwen_phase(torch, dev, qprompt, qlong, "qwen2.5-7b", "phase 12", profile=True)
+    counts_11 = qwen_phase(torch, dev, qprompt, qlong, "qwen3-32b", "phase 11", serve=True,
+                           n_layers=PHASE11_LAYERS)
+    phase(f"phase 12: qwen2.5-7b Q4_K (qwen2), {PHASE12_LAYERS} of 28 layers stacked, "
+          "Engine.generate")
+    counts_12 = qwen_phase(torch, dev, qprompt, qlong, "qwen2.5-7b", "phase 12", profile=True,
+                           n_layers=PHASE12_LAYERS)
 
     phase("profiles of phase 7's Mixtral decodes, of phase 4c's Q8_0 decode on a rebuilt "
         "engine, then of phase 4, 4f's int8 decode and 4b on a rebuilt Q4_K engine")
@@ -2837,10 +2871,11 @@ def main_path(torch, dev):
         device_busy(torch, eng, prompt, sp, step_int8)
     prefill_profile(torch, eng, long_prompt)
     fused_profile(torch, eng, step_5)
+    admission_profile(torch, eng)
     del eng
     torch.cuda.empty_cache()
-    return ([counts, counts_b, counts_d, counts_c] + counts_5 + counts_f + counts_e + counts_6
-            + counts_7 + counts_8 + counts_9 + counts_10 + counts_11 + counts_12)
+    return ([counts, counts_b, counts_d, counts_c] + counts_5 + counts_f + counts_13 + counts_e
+            + counts_6 + counts_7 + counts_8 + counts_9 + counts_10 + counts_11 + counts_12)
 
 
 def llama32_phase(torch, dev, prompt, n_new=32):
@@ -2942,7 +2977,8 @@ def gemma_phase(torch, dev, prompt, long_prompt, n_new=64, preset="gemma-2-9b",
     return [counts, counts_b]
 
 
-def qwen_phase(torch, dev, prompt, long_prompt, preset, what, serve=False, profile=False):
+def qwen_phase(torch, dev, prompt, long_prompt, preset, what, serve=False, profile=False,
+               n_layers=None):
     """Phases 11 and 12: Qwen3-32B's published widths (models.synthetic
     preset qwen3-32b: 64 layers, 64 query heads over 8 KV heads of head_dim
     128, q/k norms, d_ff 25600) or Qwen2.5-7B's (qwen2.5-7b: 28 layers, 28
@@ -2955,14 +2991,15 @@ def qwen_phase(torch, dev, prompt, long_prompt, preset, what, serve=False, profi
     bound; the 1000-token prompt's TTFT, median of 3; serve: the HTTP server
     at 4 slots, 4 greedy requests, launches exact (phase 3's two-layer
     check serves them again alone at these widths); profile (the last timed run of the
-    script): then the device time by kernel of one 1000-token prefill.
-    Returns the counted runs' launches."""
+    script): then the device time by kernel of one 1000-token prefill;
+    n_layers cuts the depth. Returns the counted runs' launches."""
     from llamafile_tpu_torch.models.synthetic import decode_read_bytes, make_synthetic_llama
     from llamafile_tpu_torch.ops.qmatmul import moe_fusable
     from llamafile_tpu_torch.runtime.engine import Engine
     from llamafile_tpu_torch.runtime.tokenizer import Tokenizer
     t0 = time.time()
-    cfg, params = make_synthetic_llama(preset, "Q4_K", seed=0, fuse=True, device=dev)
+    cfg, params = make_synthetic_llama(preset, "Q4_K", seed=0, fuse=True, device=dev,
+                                       n_layers=n_layers)
     eng = Engine(cfg, params, Tokenizer({}), max_seq_len=2048, device=dev)
     del params
     torch.cuda.synchronize()
@@ -3459,6 +3496,9 @@ PHASE6_LAYERS = 16     # phase 6's depth, cut from 32 (the time of phases 11 and
 PHASE8_LAYERS = 14     # phase 8's, cut from 28
 PHASE9_LAYERS = 21     # phase 9's, cut from 42
 PHASE10_LAYERS = 31    # phase 10's, cut from 62
+PHASE11_LAYERS = 16    # phase 11's, cut from 64 (the time of phase 13, phase 3's two
+                       # sampling and grammar checks and admission_profile)
+PHASE12_LAYERS = 14    # phase 12's, cut from 28 (the same)
 
 
 def q4km_phase(torch, dev, prompt, long_prompt, n_new):
@@ -3712,6 +3752,116 @@ def fused_profile(torch, eng, step_ms):
         log(f"    {us / 8 / 1e3:8.4f} ms/step  {name[:90]}")
 
 
+ADMIT_PROMPT = 300                # admission_profile's prompt
+
+
+def admission_profile(torch, eng):
+    """Where a batcher admission's time goes, on a fresh Batcher over eng:
+    a fresh ADMIT_PROMPT-token prompt (one bucket-512 slice), then the same
+    prompt again (299 tokens of its row reused, one token fed: a decode step,
+    engine.slice_len), each with max_tokens 1, so the request is its
+    admission. Each admission's host time is split into the row set-up
+    (_start_admission), the slice's forward (row_prefill) and the rest of
+    the slice call (the penalty window, the first token, the row written
+    to its pages), every piece ended by a device sync; the device's busy
+    time from torch.profiler, the host's functions from cProfile on the
+    device thread. Then the one-token slice alone through row_prefill, as
+    a decode step and padded to bucket 16 (the non-fresh einsum route it
+    took before): the median of 3 synced runs, then one under cProfile."""
+    from torch.profiler import ProfilerActivity, profile
+    from llamafile_tpu_torch.runtime.engine import attn_bucket
+    from llamafile_tpu_torch.runtime.sampling import SamplingParams
+    from llamafile_tpu_torch.server.batcher import Batcher
+    ids = torch.randint(3, eng.cfg.n_vocab, (ADMIT_PROMPT,),
+                        generator=torch.Generator().manual_seed(21)).tolist()
+    spent, prof_py = {}, [None]
+
+    def timed(key, outer=True):
+        def wrap(orig):
+            def run(*a, **kw):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                if outer:                 # cProfile runs once a thread: not in row_prefill
+                    prof_py[0].enable()
+                try:
+                    return orig(*a, **kw)
+                finally:
+                    torch.cuda.synchronize()
+                    if outer:
+                        prof_py[0].disable()
+                    spent[key] = spent.get(key, 0.0) + (time.perf_counter() - t) * 1e3
+            return run
+        return wrap
+
+    def top_host(prof, n=6):
+        stats = pstats.Stats(prof).stats
+        return "; ".join(f"{own * 1e3:.2f} ms {calls} x {fn[:40]} ({os.path.basename(path)}:{line})"
+                         for (path, line, fn), (_, calls, own, _, _) in sorted(
+                             stats.items(), key=lambda kv: -kv[1][2])[:n])
+
+    def busy(prof):
+        by_name, n_act = device_kernels(prof)
+        return sum(by_name.values()) / 1e3, n_act
+
+    b = Batcher(eng, rows=2)
+    try:
+        for what in ("fresh", "reused"):
+            spent.clear()
+            prof_py[0] = cProfile.Profile()
+            with patched(Batcher, "_start_admission", timed("start")), \
+                    patched(Batcher, "_advance_admission", timed("slice")), \
+                    patched(eng, "row_prefill", timed("forward", outer=False)), \
+                    profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                req = b.submit(ids, SamplingParams(temperature=0.0), 1)
+                while (ev := req.out.get(timeout=300))[0] != "done":
+                    if ev[0] == "error":
+                        raise AssertionError(f"admission profile: {ev[1]}")
+                torch.cuda.synchronize()
+            dev_ms, n_act = busy(prof)
+            rest = spent.get("slice", 0.0) - spent.get("forward", 0.0)
+            log(f"  admission, {what} ({b.stats['reused_tokens']} tokens reused so far): "
+                f"row set-up {spent.get('start', 0.0):.3f} ms, slice forward "
+                f"{spent.get('forward', 0.0):.3f} ms, the slice's rest {rest:.3f} ms (host, "
+                f"each ended by a sync); device busy {dev_ms:.3f} ms in {n_act} activities")
+            log(f"    host by own time: {top_host(prof_py[0])}")
+    finally:
+        b.shutdown()
+    # the one-token slice alone on a row cache holding the prompt's KV
+    cache = eng.new_row_cache(dtype=torch.bfloat16)
+    dev = eng.device
+    toks = torch.zeros((1, 512), dtype=torch.int32)
+    toks[0, :ADMIT_PROMPT - 1] = torch.tensor(ids[:-1], dtype=torch.int32)
+    at = lambda v: torch.tensor([v], dtype=torch.int32, device=dev)
+    eng.row_prefill(toks.to(dev), at(0), cache, fresh=True, last_idx=at(ADMIT_PROMPT - 2))
+    pos0 = ADMIT_PROMPT - 1
+    for t_len in (1, 16):
+        one = torch.zeros((1, t_len), dtype=torch.int32)
+        one[0, 0] = ids[-1]
+        one = one.to(dev)
+        alen = attn_bucket(pos0 + t_len + 1, eng.max_seq_len)
+        run = lambda: eng.row_prefill(one, at(pos0), cache, attn_len=alen, last_idx=at(0))
+        run()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(3):
+            t = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+        prof_py[0] = cProfile.Profile()
+        prof_py[0].enable()
+        run()
+        torch.cuda.synchronize()
+        prof_py[0].disable()
+        log(f"  one-token slice at pos {pos0}, T = {t_len} "
+            f"({'a decode step' if t_len == 1 else 'bucket 16, the einsum'}): "
+            f"{statistics.median(times):.3f} ms (median of "
+            f"{', '.join(f'{x:.3f}' for x in times)})")
+        log(f"    host by own time: {top_host(prof_py[0])}")
+    del cache
+    torch.cuda.empty_cache()
+
+
 def device_kernels(prof):
     """(device time in us by kernel name, number of device activities)."""
     from torch.autograd import DeviceType
@@ -3792,6 +3942,516 @@ def device_busy(torch, eng, prompt, sp, step_ms):
             f"{fn[:60]} ({os.path.basename(path)}:{line})")
 
 
+
+EOG_PIECE = 128001         # the grammar tokenizer's end-of-generation piece
+# an item is one "<1dd>" piece of grammar_tokenizer, or its bytes one by one
+ITEM = 'item ::= "<1" [0-9] [0-9] ">"'
+ITEMS_RE = r"(<1\d\d>){0,8}(<(1(\d\d?)?)?)?"      # a prefix of GRAMMAR_8's language
+GRAMMAR_8 = "root ::= " + " ".join(["item"] * 8) + "\n" + ITEM
+GRAMMAR_LIST = 'root ::= "[" item ' + " ".join(['"," item'] * 5) + "\n" + ITEM
+JSON_SCHEMA = {"type": "object", "properties": {"n": {"type": "integer"}}}
+MU_TOL = 1e-5              # mirostat's mu, card against CPU on the same logits
+STATEFUL_CASES = (
+    ("penalties", dict(temperature=0.8, top_k=40, repeat_penalty=1.3,
+                       presence_penalty=0.5, seed=11)),
+    ("mirostat v2 with penalties", dict(mirostat=2, repeat_penalty=1.3,
+                                        presence_penalty=0.5, seed=12)),
+    ("mirostat v1", dict(mirostat=1, seed=13)))
+
+
+@functools.lru_cache(maxsize=1)
+def grammar_tokenizer(n_vocab):
+    """A Tokenizer made from metadata with n_vocab pieces: 256 single-byte
+    pieces (ids 0-255, so JSON can be spelled), one end-of-generation piece
+    (EOG_PIECE, a control piece of no text), and "<t>" for every other id t
+    (the text Tokenizer({}) gives an id), so "<1dd>" is one piece. Made
+    once: phase 3 and phase 13 share it, and its grammar trie."""
+    from llamafile_tpu_torch.runtime.tokenizer import (TOKEN_TYPE_BYTE, TOKEN_TYPE_CONTROL,
+                                                       TOKEN_TYPE_NORMAL, Tokenizer)
+    tokens = [f"<0x{i:02X}>" for i in range(256)] + [f"<{t}>" for t in range(256, n_vocab)]
+    types = [TOKEN_TYPE_BYTE] * 256 + [TOKEN_TYPE_NORMAL] * (n_vocab - 256)
+    tokens[EOG_PIECE], types[EOG_PIECE] = "<|eot_id|>", TOKEN_TYPE_CONTROL
+    return Tokenizer({"tokenizer.ggml.model": "llama", "tokenizer.ggml.tokens": tokens,
+                      "tokenizer.ggml.token_type": types,
+                      "tokenizer.ggml.eos_token_id": EOG_PIECE})
+
+
+def small_engine(torch, dev, tokenizer=None):
+    """Two layers of llama3-8b width, Q4_K fused and stacked, on the card."""
+    from llamafile_tpu_torch.models.synthetic import make_synthetic_llama
+    from llamafile_tpu_torch.runtime.engine import Engine
+    from llamafile_tpu_torch.runtime.tokenizer import Tokenizer
+    cfg, params = make_synthetic_llama("llama3-8b-2l", "Q4_K", seed=1, fuse=True, device=dev)
+    return Engine(cfg, params, tokenizer or Tokenizer({}), max_seq_len=1024, device=dev)
+
+
+@contextlib.contextmanager
+def patched(obj, name, make):
+    """obj.name replaced by make(original) while the block runs."""
+    orig = getattr(obj, name)
+    setattr(obj, name, make(orig))
+    try:
+        yield
+    finally:
+        setattr(obj, name, orig)
+
+
+def stateful_sampling_check(torch, dev, n_new=10):
+    """Engine.generate on the card at two layers of llama3-8b width with
+    penalties (repeat 1.3, presence 0.5, sampled at 0.8, top-k 40), with
+    mirostat v2 over the same penalties and with mirostat v1: every draw's
+    Gumbel noise comes from one CPU generator and goes to the card, and
+    every call of the sampler is recorded (its logits, penalty counts, token
+    and new mu). The CPU then runs the plain chain on the card's logits with
+    the same noise, carrying its own penalty window and mu from its own
+    tokens: the same token at every step, the same counts, mu within
+    MU_TOL."""
+    import llamafile_tpu_torch.runtime.engine as E
+    from llamafile_tpu_torch.runtime import sampling as S
+    eng = small_engine(torch, dev)
+    v = eng.cfg.n_vocab
+    prompt = torch.randint(3, v, (24,), generator=torch.Generator().manual_seed(2)).tolist()
+    for what, kw in STATEFUL_CASES:
+        sp = S.SamplingParams(**kw)
+        rec, drawn = [], []
+        g = torch.Generator().manual_seed(1234)
+
+        def noise(shape, gen, device):
+            u = torch.rand(shape, generator=g)
+            drawn.append(-torch.log(-torch.log(u.clamp(min=1e-20))))
+            return drawn[-1].to(device)
+
+        def recording(orig):
+            def run(logits, gen, sp_, counts, mu):
+                tok, mu2 = orig(logits, gen, sp_, counts, mu)
+                # copies: the engine pushes its window into counts in place
+                rec.append((logits.float().cpu().clone(),
+                            None if counts is None else counts.cpu().clone(),
+                            int(tok[0]), None if mu2 is None else mu2.cpu().clone()))
+                return tok, mu2
+            return run
+        with patched(S, "_gumbel", lambda _: noise), \
+                patched(E, "sample_stateful", recording):
+            toks = [t for t, _ in eng.generate("", max_tokens=n_new, sampling=sp,
+                                               stop_on_eog=False, prompt_ids=prompt)]
+        if toks != [r[2] for r in rec] or len(toks) != n_new:
+            raise AssertionError(f"{what}: {toks} emitted, {[r[2] for r in rec]} drawn")
+        pw = (S.penalty_window_init(prompt, v, sp.penalty_last_n, device="cpu")
+              if sp.penalized else None)
+        mu = S.mirostat_init(sp, 1, device="cpu") if sp.mirostat else None
+        replay = iter(drawn)
+        worst = 0.0
+        with patched(S, "_gumbel", lambda _: lambda shape, gen, device: next(replay)):
+            for i, (logits, counts, tok, mu_card) in enumerate(rec):
+                if pw is not None and not torch.equal(pw.counts, counts):
+                    raise AssertionError(f"{what} step {i}: penalty counts differ")
+                t_cpu, mu = S.sample_stateful(logits, None, sp,
+                                              pw.counts if pw is not None else None, mu)
+                if int(t_cpu[0]) != tok:
+                    raise AssertionError(f"{what} step {i}: card {tok}, cpu {int(t_cpu[0])}")
+                if mu is not None:
+                    worst = max(worst, (mu - mu_card).abs().max().item())
+                if pw is not None:
+                    S.penalty_window_push(pw, t_cpu)
+        mus = " ".join(f"{r[3][0].item():.4f}" for r in rec) if sp.mirostat else "-"
+        log(f"  {what}: {n_new} tokens, the same at every step on the card and the CPU "
+            f"({len(drawn)} noise draws); mu {mus}; max |mu card - mu cpu| = {worst:.3g} "
+            f"(tol {MU_TOL})")
+        if worst > MU_TOL:
+            raise AssertionError(f"{what}: mu parts by {worst}")
+    del eng
+    torch.cuda.empty_cache()
+
+
+def grammar_path_check(torch, dev):
+    """The server's grammar path (`_generate_grammar_sync`: Engine.prefill,
+    one M = 1 forward a token, the mask sent as packed bits and unpacked on
+    the card) at two layers of llama3-8b width over grammar_tokenizer's
+    128256 pieces: a greedy decode of 12 tokens under GRAMMAR_LIST (a
+    bracket and six comma-separated items, an item one piece or up to five
+    single-byte ones). Each step's
+    host mask, logits and device-masked logits are recorded; the CPU then
+    walks the same grammar: its masks equal the card's host masks, the
+    card's device mask keeps exactly the allowed tokens; and the plain
+    model on the CPU, one fresh prefill over the prompt and the card's
+    tokens, gives logits within 2e-2 of the card's (relative to their max)
+    whose greedy choice under the CPU's mask is the card's token at every
+    step."""
+    import numpy as np
+    import llamafile_tpu_torch.models.llama as M
+    import llamafile_tpu_torch.runtime.engine as E
+    from llamafile_tpu_torch.runtime import grammar as G
+    from llamafile_tpu_torch.runtime import sampling as S
+    from llamafile_tpu_torch.server.http import Server
+    from llamafile_tpu_torch.utils.flags import Flags
+    tok = grammar_tokenizer(128256)
+    eng = small_engine(torch, dev, tok)
+    srv = Server(Flags(model="synthetic-llama3-8b-2l", slots=1, temp=0.0), eng)
+    masks, logits, masked, out = [], [], [], []
+
+    def rec_fwd(orig):
+        def run(*a, **kw):
+            lg, cache = orig(*a, **kw)
+            logits.append(lg[0, -1].float().cpu())
+            return lg, cache
+        return run
+
+    def rec_mask(orig):
+        def run(self):
+            masks.append(orig(self))
+            return masks[-1]
+        return run
+
+    def rec_sample(orig):
+        def run(lg, gen, sp, counts=None):
+            masked.append(lg[0].cpu())
+            return orig(lg, gen, sp, counts)
+        return run
+    sp = S.SamplingParams(temperature=0.0)
+    prompt = torch.randint(256, 128256, (24,), generator=torch.Generator().manual_seed(5)).tolist()
+    try:
+        with patched(M, "forward", rec_fwd), patched(E, "forward", rec_fwd), \
+                patched(G.GrammarSampler, "allowed_tokens", rec_mask), \
+                patched(S, "sample", rec_sample):
+            usage = srv._generate_grammar_sync(prompt, sp, 12, out.append,
+                                               G.Grammar.from_gbnf(GRAMMAR_LIST))
+    finally:
+        srv.shutdown()
+    toks = [o["token"] for o in out]
+    text = "".join(o["piece"] for o in out)
+    if len(toks) != 12 and usage["finish_reason"] != "stop":
+        raise AssertionError(f"grammar path gave {text!r} ({usage})")
+    # the plain model on the CPU: one fresh prefill over the prompt and the
+    # card's tokens gives every step's logits
+    seq = prompt + toks[:-1]
+    cpu_tokens = torch.zeros((1, E.bucket_len(len(seq))), dtype=torch.int64)
+    cpu_tokens[0, :len(seq)] = torch.tensor(seq)
+    cache = M.init_cache(eng.cfg, 1, cpu_tokens.shape[1], "bf16", device="cpu")
+    plain, _ = M.forward(_to(eng.params, "cpu"), eng.cfg, cpu_tokens,
+                         torch.zeros(1, dtype=torch.int32), cache, fresh_prefill=True)
+    plain = plain[0, len(prompt) - 1:len(seq)].float()
+    gs = G.GrammarSampler(G.Grammar.from_gbnf(GRAMMAR_LIST), tok)
+    worst = 0.0
+    for i, t in enumerate(toks):
+        want = gs.allowed_tokens()
+        if not np.array_equal(want, masks[i]):
+            raise AssertionError(f"grammar step {i}: the host masks differ")
+        keep = torch.from_numpy(want)
+        if not torch.equal(masked[i] > -1e29, keep):
+            raise AssertionError(f"grammar step {i}: the device mask keeps other tokens")
+        rel = ((logits[i] - plain[i]).abs().max() / plain[i].abs().max()).item()
+        worst = max(worst, rel)
+        t_cpu = int(torch.where(keep, plain[i], torch.tensor(-1e30)).argmax())
+        if t_cpu != t or rel > 2e-2:
+            raise AssertionError(f"grammar step {i}: card {t}, cpu plain {t_cpu}, max |diff| "
+                                 f"/ max |logit| = {rel:.3g} (limit 2e-2)")
+        gs.accept(t)
+    log(f"  grammar path: {text} ({len(toks)} tokens, {usage['finish_reason']}); masks "
+        f"equal at every step ({', '.join(str(int(m.sum())) for m in masks)} tokens "
+        f"allowed), the device mask the CPU's; the CPU's plain model over the same "
+        f"tokens makes the same greedy choice at every step, logits within {worst:.3g} "
+        f"of its max (limit 2e-2)")
+    del eng, srv
+    torch.cuda.empty_cache()
+
+
+def linear_mask(gs):
+    """gs's allowed-token mask as the reference computes it
+    (llamafile_tpu/runtime/grammar.py:346-363): every piece's text tried
+    from the live stacks, codepoint by codepoint."""
+    import numpy as np
+    from llamafile_tpu_torch.runtime.grammar import _token_text
+    mask = np.zeros(gs.tok.n_vocab, bool)
+    live = [st for st in gs.stacks if st]
+    for tid, data in enumerate(gs._token_bytes):
+        cur, text = live, _token_text(data) if data else ""
+        for ch in text:
+            cur = gs._advance_cp(cur, ord(ch))
+            if not cur:
+                break
+        mask[tid] = bool(text and cur)
+    if any(len(st) == 0 for st in gs.stacks):
+        mask[list(gs.tok.eog_ids)] = True
+    return mask
+
+
+def _completion(base, body, path="/v1/completions"):
+    """One non-streamed request; the response's JSON (an HTTP error raises)."""
+    import urllib.request
+    req = urllib.request.Request(base + path, data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=900) as r:
+        return json.loads(r.read())
+
+
+def _reused_metric(base):
+    import urllib.request
+    text = urllib.request.urlopen(base + "/metrics", timeout=60).read().decode()
+    return int(re.search(r"llamafile_tpu_prefix_tokens_reused_total (\d+)", text).group(1))
+
+
+NPZ_LAYERS = 4             # npz_report's slice of the saved row
+
+
+def npz_report(tmp, path):
+    """Write time of np.savez (the port's) and np.savez_compressed (the JAX
+    package's) on the same NPZ_LAYERS layers of a saved row, and the port's
+    load_state of each file: the same history and K/V."""
+    import numpy as np
+    from llamafile_tpu_torch.runtime.state import load_state
+    z = dict(np.load(path))
+    part = {k: (a[:NPZ_LAYERS] if k.startswith("leaf") else a) for k, a in z.items()}
+    mb = sum(a.nbytes for k, a in part.items() if k.startswith("leaf")) / 1e6
+    out, loaded = {}, []
+    for save in (np.savez, np.savez_compressed):
+        f = os.path.join(tmp, f"{save.__name__}.npz")
+        t = time.perf_counter()
+        save(f, **part)
+        out[save.__name__] = ((time.perf_counter() - t) * 1e3, os.path.getsize(f))
+        loaded.append(load_state(f))
+    (c0, h0), (c1, h1) = loaded
+    same = h0 == h1 and all(bool((a == b).all()) for a, b in ((c0.k, c1.k), (c0.v, c1.v)))
+    log(f"  the row's {NPZ_LAYERS} first layers ({mb:.1f} MB of bf16 K/V): " + ", ".join(
+        f"{name} {ms:.1f} ms ({mb / ms * 1e3:.1f} MB/s), {size} bytes"
+        for name, (ms, size) in out.items()) + f"; load_state of both {'equal' if same else 'DIFFERENT'}")
+    if not same:
+        raise AssertionError("phase 13: the compressed and plain files load differently")
+
+
+def state_phase(torch, eng, prompt, step_q4):
+    """Phase 13 on phase 4's engine (llama3-8b Q4_K, 32 layers), given
+    grammar_tokenizer's 128256 pieces, under an HTTP server with 8 slots and
+    --state-dir: a GRAMMAR_8 request and a json_schema request (JSON_SCHEMA)
+    of up to 16 tokens, each alone (launches exact: the prefill at bucket
+    32, one M = 1 forward a token), then together beside 4 plain greedy
+    requests (launches not counted: two threads launch), every text equal
+    to its own alone (the plain ones alone on a fresh batcher: served again
+    on the same server they would reuse their rows' prefixes, whose other
+    prefill route parts in numerics); then a 300-token greedy request twice (the second
+    reuses the row's prefix), its row saved (npz_report), erased and
+    restored, and the prompt again: prefix_reused rises by 299 or more, its
+    text equals the reuse without the restore and its TTFT is below the
+    fresh request's. Then Engine.generate of 64 tokens with mirostat v2 and
+    penalties (launches as phase 4's), and a 300-token prompt twice with a
+    prompt_cache file (the second feeds one token, a decode step). Returns
+    the counted runs' launch counts."""
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+    import numpy as np
+    from llamafile_tpu_torch.ops import reset_launch_counts
+    from llamafile_tpu_torch.runtime import grammar as G
+    from llamafile_tpu_torch.runtime import state as ST
+    from llamafile_tpu_torch.runtime.sampling import SamplingParams
+    from llamafile_tpu_torch.server.batcher import Batcher
+    from llamafile_tpu_torch.server.http import Server
+    from llamafile_tpu_torch.utils.flags import Flags
+    n, v = eng.cfg.n_layers, eng.cfg.n_vocab
+    decode = lambda steps: {"qmm_txn_m1": 65 * steps, "qmm_moe_m1": 64 * steps,
+                            "flash_decode_write_stacked": n * steps}
+    plus = lambda a, b: {k: a.get(k, 0) + b.get(k, 0) for k in set(a) | set(b)}
+    runs = []
+    held_tok = eng.tokenizer
+    t0 = time.perf_counter()
+    eng.tokenizer = grammar_tokenizer(v)
+    t1 = time.perf_counter()
+    G._vocab(eng.tokenizer)
+    t2 = time.perf_counter()
+    log(f"  card: {nvidia_smi()}")
+    log(f"  tokenizer of {v} pieces in {(t1 - t0) * 1e3:.1f} ms, the grammar trie of its "
+        f"texts in {(t2 - t1) * 1e3:.1f} ms (both made once: 0 if phase 3 made them)")
+    for what, grammar in (("item x 8", G.Grammar.from_gbnf(GRAMMAR_8)),
+                          ("json_schema", G.Grammar.from_json_schema(JSON_SCHEMA))):
+        gs = G.GrammarSampler(grammar, eng.tokenizer)
+        t = time.perf_counter()
+        trie = gs.allowed_tokens()
+        t_trie = time.perf_counter() - t
+        t = time.perf_counter()
+        every = linear_mask(gs)
+        t_every = time.perf_counter() - t
+        log(f"  first mask of {what}: the trie walk {t_trie * 1e3:.3f} ms, every piece tried "
+            f"(the reference's loop) {t_every * 1e3:.1f} ms; "
+            f"{'equal' if np.array_equal(trie, every) else 'DIFFERENT'} ({int(trie.sum())} "
+            "pieces allowed)")
+        if not np.array_equal(trie, every):
+            raise AssertionError(f"phase 13: the trie's mask of {what} parts from the loop's")
+    mask_s = []
+
+    def timed_mask(orig):
+        def run(self):
+            t = time.perf_counter()
+            m = orig(self)
+            mask_s.append(time.perf_counter() - t)
+            return m
+        return run
+    tmp = tempfile.TemporaryDirectory()
+    srv = Server(Flags(model="synthetic-llama3-8b-q4k", slots=8, temp=0.0,
+                       state_dir=tmp.name), eng)
+    body = lambda ids, **kw: {"prompt": ids, "max_tokens": 16, "temperature": 0.0, **kw}
+    constrained = (("grammar item x 8", {"grammar": GRAMMAR_8}),
+                   ("json_schema", {"response_format": {"type": "json_schema", "json_schema": {
+                       "name": "n", "schema": JSON_SCHEMA}}}))
+    gen = torch.Generator().manual_seed(13)
+    plain = [torch.randint(256, v, (length,), generator=gen).tolist()
+             for length in (24, 64, 128, 200)]
+    try:
+        with running_server(srv) as base, patched(G.GrammarSampler, "allowed_tokens",
+                                                  timed_mask):
+            _completion(base, body(prompt, grammar=GRAMMAR_8))       # warm-up
+            _completion(base, body(torch.randint(256, v, (40,), generator=gen).tolist()))
+            alone = {}
+            for what, extra in constrained:
+                mask_s.clear()
+                torch.cuda.synchronize()
+                reset_launch_counts()
+                t = time.perf_counter()
+                out = _completion(base, body(prompt, **extra))
+                wall = time.perf_counter() - t
+                counts = launch_counts()
+                u, text = out["usage"], out["choices"][0]["text"]
+                k = u["completion_tokens"]
+                # one forward after each token but the last, unless EOG
+                # ended the request (sampled by a forward after the last):
+                # the item grammar ends by max_tokens or complete with no
+                # live stack, the JSON one also by EOG (JSON is spelled in
+                # single-byte pieces, so the host replays its text)
+                steps = k - 1
+                if what == "json_schema" and out["choices"][0]["finish_reason"] == "stop":
+                    gs = G.GrammarSampler(G.Grammar.from_json_schema(JSON_SCHEMA),
+                                          eng.tokenizer)
+                    for t in text.encode():
+                        gs.accept(t)
+                    steps = k if any(len(st) for st in gs.stacks) else k - 1
+                check_counts(counts, plus({"qmm_txn": 4 * n, "qmm_txn_m1": 1}, decode(steps)),
+                             f"phase 13 {what} alone")
+                runs.append(counts)
+                ok = (re.fullmatch(ITEMS_RE, text) if what.startswith("grammar")
+                      else re.fullmatch(r'\{ ?"n" ?: ?-?\d*[ }]*', text))
+                if not ok or (what == "json_schema" and text.rstrip().endswith("}")
+                              and not isinstance(json.loads(text)["n"], int)):
+                    raise AssertionError(f"phase 13 {what}: {text!r} breaks its grammar")
+                alone[what] = text
+                step_ms = (wall * 1e3 - u["ttft_ms"]) / max(1, steps)
+                log(f"  {what} alone: {text!r} ({k} tokens, {out['choices'][0]['finish_reason']}); "
+                    f"mask {sum(mask_s) / len(mask_s) * 1e3:.3f} ms a token over {v} pieces "
+                    f"({len(mask_s)} masks); TTFT {u['ttft_ms']:.2f} ms; {step_ms:.3f} ms a "
+                    f"constrained step against phase 4's {step_q4:.3f} ms a decode step")
+            # no row holds a prefix of the plain prompts (random ids: their
+            # first tokens differ), so each admission prefills fresh
+            reused0 = srv.batcher.stats["reused_tokens"]
+            with ThreadPoolExecutor(6) as ex:
+                futs = ([(w, ex.submit(_completion, base, body(prompt, **x))) for w, x in constrained]
+                        + [(len(ids), ex.submit(_completion, base, body(ids))) for ids in plain])
+                together = {w: f.result()["choices"][0]["text"] for w, f in futs}
+            if srv.batcher.stats["reused_tokens"] != reused0:
+                raise AssertionError("phase 13: a plain request reused another's prefix")
+            # the plain ones alone, one after another on a fresh batcher
+            fresh = Batcher(eng, rows=8)
+            try:
+                for ids in plain:
+                    req = fresh.submit(ids, SamplingParams(temperature=0.0), 16)
+                    got = []
+                    while (ev := req.out.get(timeout=900))[0] != "done":
+                        if ev[0] == "error":
+                            raise AssertionError(f"phase 13 alone: {ev[1]}")
+                        got.append(ev[1])
+                    alone[len(ids)] = "".join(eng.tokenizer.decode_token(t).decode(
+                        "utf-8", errors="replace") for t in got)
+            finally:
+                fresh.shutdown()
+            bad = [w for w in together if together[w] != alone[w]]
+            log(f"  2 constrained requests beside 4 plain greedy ones (prompts "
+                f"{[len(p) for p in plain]}): {'each text as alone' if not bad else bad}")
+            if bad:
+                raise AssertionError(f"phase 13: {bad} differ served together from alone")
+            # slot save / erase / restore
+            long = torch.randint(256, v, (300,), generator=gen).tolist()
+            first = _completion(base, body(long))
+            reuse = _completion(base, body(long))        # the reuse without a restore
+            row = next(i for i, r in enumerate(srv.batcher.rows) if r.history[:300] == long)
+            t = time.perf_counter()
+            saved = _completion(base, {"filename": "row.npz"}, f"/slots/{row}?action=save")
+            save_ms = (time.perf_counter() - t) * 1e3
+            size = os.path.getsize(os.path.join(tmp.name, "row.npz"))
+            npz_report(tmp.name, os.path.join(tmp.name, "row.npz"))
+            t = time.perf_counter()
+            _completion(base, {}, f"/slots/{row}?action=erase")
+            erase_ms = (time.perf_counter() - t) * 1e3
+            t = time.perf_counter()
+            restored = _completion(base, {"filename": "row.npz"}, "/slots/0?action=restore")
+            restore_ms = (time.perf_counter() - t) * 1e3
+            m0 = _reused_metric(base)
+            again = _completion(base, body(long))
+            reused = _reused_metric(base) - m0
+            texts = [r["choices"][0]["text"] for r in (first, reuse, again)]
+            ttfts = [r["usage"]["ttft_ms"] for r in (first, reuse, again)]
+            log(f"  slots: row {row} saved ({saved['tokens']} tokens, {size} bytes) in "
+                f"{save_ms:.1f} ms, erased in {erase_ms:.1f} ms, restored into row "
+                f"{restored['row']} in {restore_ms:.1f} ms; the prompt again reused "
+                f"{reused} tokens (prefix_reused); TTFT {ttfts[0]:.2f} ms fresh, "
+                f"{ttfts[1]:.2f} ms reused, {ttfts[2]:.2f} ms after the restore; text after "
+                f"the restore {'=' if texts[2] == texts[1] else '!='} the reuse without it, "
+                f"{'=' if texts[2] == texts[0] else '!='} the fresh one")
+            if reused < 299 or texts[2] != texts[1]:
+                raise AssertionError("phase 13: the restored row was not reused as saved")
+            if ttfts[2] >= ttfts[0]:
+                raise AssertionError(f"phase 13: TTFT after the restore {ttfts[2]:.2f} ms, "
+                                     f"not below the fresh {ttfts[0]:.2f} ms")
+        # Engine.generate: mirostat v2 and the penalty window, 64 tokens
+        sp = SamplingParams(mirostat=2, repeat_penalty=1.3, presence_penalty=0.5, seed=3)
+        toks, counts, ttft, decode_s = counted_generate(torch, eng, prompt, 64, sp)
+        check_counts(counts, plus({"qmm_txn": 4 * n, "qmm_txn_m1": 1}, decode(63)),
+                     "phase 13 mirostat and penalties")
+        runs.append(counts)
+        log(f"  Engine.generate, mirostat v2 with penalties: {63 / decode_s:.2f} tok/s "
+            f"({decode_s / 63 * 1e3:.3f} ms a step) against phase 4's greedy "
+            f"{1e3 / step_q4:.2f} tok/s ({step_q4:.3f} ms); {len(set(toks))} distinct of 64")
+        # --prompt-cache: a 300-token prompt twice
+        path = os.path.join(tmp.name, "session.npz")
+        spent = {"save": [], "load": []}
+
+        def timed(kind):
+            def wrap(orig):
+                def run(*a, **kw):
+                    t = time.perf_counter()
+                    r = orig(*a, **kw)
+                    spent[kind].append((time.perf_counter() - t) * 1e3)
+                    return r
+                return run
+            return wrap
+        greedy = SamplingParams(temperature=0.0)
+        cache_runs = []
+        with patched(ST, "save_state", timed("save")), patched(ST, "load_state", timed("load")):
+            for i in range(2):
+                torch.cuda.synchronize()
+                reset_launch_counts()
+                t = time.perf_counter()
+                got, t_first = [], None
+                for tid, _ in eng.generate("", max_tokens=8, sampling=greedy, stop_on_eog=False,
+                                           prompt_ids=long, prompt_cache=path):
+                    t_first = t_first or time.perf_counter()
+                    got.append(tid)
+                counts = launch_counts()
+                cache_runs.append((got, (t_first - t) * 1e3, eng.last_prompt_reuse))
+                # run 2 feeds one token past the kept 299: a decode step
+                pre = (plus({"qmm_dequant": 4 * n, "flash_prefill": n}, {"qmm_txn_m1": 1})
+                       if i == 0 else decode(1))
+                check_counts(counts, plus(pre, decode(7)), f"phase 13 prompt_cache run {i + 1}")
+                runs.append(counts)
+        (a, ttft_a, keep_a), (b, ttft_b, keep_b) = cache_runs
+        log(f"  prompt_cache, 300-token prompt: run 1 prefilled 300 (kept {keep_a}), TTFT "
+            f"{ttft_a:.2f} ms with the save {spent['save'][0]:.1f} ms "
+            f"({os.path.getsize(path)} bytes); run 2 kept {keep_b} and prefilled "
+            f"{300 - keep_b}, TTFT {ttft_b:.2f} ms with the load {spent['load'][0]:.1f} ms "
+            f"and the save {spent['save'][1]:.1f} ms; tokens "
+            f"{'the same' if a == b else 'not the same'}")
+        if keep_a != 0 or keep_b != 299:
+            raise AssertionError("phase 13: prompt_cache did not resume")
+    finally:
+        eng.tokenizer = held_tok
+        tmp.cleanup()
+    return runs
+
+
 def phase3_checks():
     """Phase 3's checks: (what, check, args, kwargs, q4b flavour)."""
     # each check runs its CPU side through the plain versions at two layers
@@ -3802,6 +4462,11 @@ def phase3_checks():
     # same kernel there
     mix = dict(preset="mixtral-8x7b-2l", n_decode=1)
     return (
+        # the sampling state Engine.generate carries (the penalty window,
+        # mirostat's mu) and the server's grammar path, on the card's logits
+        ("penalties and mirostat in Engine.generate", stateful_sampling_check, (), {},
+         "txn"),
+        ("grammar-constrained decode", grammar_path_check, (), {}, "txn"),
         ("Q4_K, 32-token prompt", whole_path_check, (), dict(n_decode=1), "txn"),
         ("Q4_K, 300-token prompt", whole_path_check, ("Q4_K",),
          dict(n_prompt=300, n_decode=1), "txn"),

@@ -9,7 +9,10 @@ read back once per chunk.
 A prompt runs as one prefill over its bucket (PREFILL_BUCKETS, then
 multiples of 4096), up to max_seq_len tokens: buckets of 16 and 32 take the
 q4b txn kernel, longer ones the dequant GEMM and, from 128 tokens, the
-flash_prefill kernel.
+flash_prefill kernel. One token that continues a cache (a prompt_cache
+resume, a reused prefix at the batcher's admission) is not padded: it runs
+as a decode step, on the M = 1 kernels and the fused decode attention
+(`slice_len`).
 
 LLAMAFILE_TPU_I8P=1 (read when the Engine is built, off by default, as in
 the reference) attaches the int8 prefill companions before the layers are
@@ -21,10 +24,20 @@ The KV cache follows kv_dtype: bf16, or int8 codes with per-row scales
 engine through its serving hooks: `new_row_cache` and `row_prefill` for
 admission (bf16 row caches, as the reference's), and the paged pool it
 keeps itself (bf16 or int8 pages by kv_dtype).
+
+The decode loop carries what the reference's scan carried: the penalty
+window (repeat/presence/frequency penalties over the last penalty_last_n
+tokens) and mirostat's mu, both on the device; sampling launches no
+kernel. `generate(prompt_cache=path)` is the reference's session file
+(runtime/state.py): the common prefix with the saved history is loaded
+instead of prefilled, and the new prompt's state is saved after the
+prefill. Left out: the batch sizes above 1, self-extend (grp_attn_n) and
+the multimodal prefill.
 """
 from __future__ import annotations
 
 import os
+import zipfile
 from typing import Iterator, List, Optional, Tuple
 
 import torch
@@ -32,7 +45,9 @@ import torch
 from ..device import resolve_device
 from ..models.llama import (LlamaConfig, LlamaParams, forward, init_cache,
                             int8_prefill_params, stack_layers)
-from .sampling import SamplingParams, check_ported, sample
+from .sampling import (PenaltyWindow, SamplingParams, mirostat_init,
+                       penalty_window_init, penalty_window_push,
+                       sample_stateful)
 from .tokenizer import Tokenizer
 
 PREFILL_BUCKETS = (16, 32, 64, 128, 256, 512, 1024, 2048, 4096)
@@ -54,6 +69,12 @@ def bucket_len(n: int) -> int:
         if n <= b:
             return b
     return ((n + 4095) // 4096) * 4096
+
+
+def slice_len(n: int, pos0: int) -> int:
+    """Length a prefill slice of n tokens at pos0 runs at: one token past
+    pos0 > 0 as a decode step (T = 1), the rest padded to its bucket."""
+    return 1 if n == 1 and pos0 > 0 else bucket_len(n)
 
 
 class Engine:
@@ -87,6 +108,7 @@ class Engine:
             raise NotImplementedError(f"kv_dtype {kv_dtype}: bf16 or int8")
         self.kv_dtype = kv_dtype
         self.decode_chunk = 8        # tokens per device-resident decode chunk
+        self.last_prompt_reuse = 0   # prompt_cache tokens reused by generate
 
     def new_cache(self):
         return init_cache(self.cfg, self.batch_size, self.max_seq_len,
@@ -117,7 +139,7 @@ class Engine:
     def prefill(self, cache, token_ids: List[int], pos0: int = 0):
         """Feed prompt tokens; returns (last_logits f32 [V], cache)."""
         n = len(token_ids)
-        b = bucket_len(n)
+        b = slice_len(n, pos0)
         toks = torch.zeros((self.batch_size, b), dtype=torch.int32)
         toks[0, :n] = torch.tensor(token_ids, dtype=torch.int32)
         pos = torch.full((self.batch_size,), pos0, dtype=torch.int32,
@@ -131,40 +153,89 @@ class Engine:
 
     def decode(self, tok: torch.Tensor, pos: torch.Tensor, cache,
                gen: Optional[torch.Generator], sp: SamplingParams,
-               n_steps: int, attn_len: Optional[int] = None) -> torch.Tensor:
-        """n_steps decode steps on the device; returns tokens [B, n_steps].
+               n_steps: int, attn_len: Optional[int] = None,
+               pw: Optional[PenaltyWindow] = None,
+               mu: Optional[torch.Tensor] = None):
+        """n_steps decode steps on the device; returns (tokens [B, n_steps],
+        mu).
 
-        tok [B] and pos [B] are the chunk's state and are advanced IN PLACE
-        (the JAX scan carried them, with the cache donated); the cache is
+        tok [B] and pos [B] are the chunk's state and are advanced IN PLACE,
+        as is the penalty window pw (the JAX scan carried them, with the
+        cache donated); mu, mirostat's state, is returned. The cache is
         updated in place by the decode kernel."""
         toks = torch.empty((tok.shape[0], n_steps), dtype=torch.int32,
                            device=tok.device)
         for i in range(n_steps):
             logits, _ = forward(self.params, self.cfg, tok[:, None], pos, cache,
                                 attn_len=attn_len)
-            nxt = sample(logits[:, -1, :], gen, sp)
+            nxt, mu = sample_stateful(logits[:, -1, :], gen, sp,
+                                      pw.counts if pw is not None else None, mu)
+            if pw is not None:
+                penalty_window_push(pw, nxt)
             toks[:, i] = nxt
             tok.copy_(nxt)
             pos += 1
-        return toks
+        return toks, mu
+
+    def _load_prompt_cache(self, path: str, ids: List[int], cache) -> int:
+        """Copy the saved state's common prefix with ids into cache; returns
+        the tokens kept (at least one short of ids), 0 when the file is
+        missing, corrupt or of another layout (the prompt is recomputed)."""
+        from .state import load_state
+        try:
+            c0, hist = load_state(path, max_len=self.max_seq_len)
+        except (OSError, ValueError, KeyError, EOFError, zipfile.BadZipFile):
+            return 0                       # a corrupt or foreign file: recompute
+        keep = 0
+        n = min(len(hist), len(ids))
+        while keep < n and hist[keep] == ids[keep]:
+            keep += 1
+        keep = min(keep, len(ids) - 1)     # one token at least is prefilled
+        pairs = list(zip((c0.k, c0.v, c0.k_scale, c0.v_scale),
+                         (cache.k, cache.v, cache.k_scale, cache.v_scale)))
+        if keep <= 0 or any((src is None) != (dst is None)
+                            or (src is not None and src.shape != dst.shape)
+                            for src, dst in pairs):
+            return 0
+        for src, dst in pairs:
+            if src is not None:
+                dst.copy_(src.to(dst.dtype))
+        return keep
 
     def generate(self, prompt: str, max_tokens: int = 128,
                  sampling: Optional[SamplingParams] = None,
                  stop_on_eog: bool = True,
-                 prompt_ids: Optional[List[int]] = None
+                 prompt_ids: Optional[List[int]] = None,
+                 prompt_cache: Optional[str] = None
                  ) -> Iterator[Tuple[int, str]]:
-        """Stream (token_id, text_piece) pairs."""
+        """Stream (token_id, text_piece) pairs.
+
+        prompt_cache: a session file (the reference's --prompt-cache): the
+        saved KV of the common prompt prefix is reused, and the new
+        prompt's state is saved after the prefill. `last_prompt_reuse`
+        holds the tokens reused by the last call."""
         sp = sampling or SamplingParams()
-        check_ported(sp)
         ids = prompt_ids if prompt_ids is not None else self.tokenizer.encode(prompt)
         if len(ids) >= self.max_seq_len:
             ids = ids[-max(1, self.max_seq_len - max_tokens - 1):]
         max_tokens = min(max_tokens, self.max_seq_len - len(ids))
         cache = self.new_cache()
-        last_logits, cache = self.prefill(cache, ids)
+        keep = 0
+        if prompt_cache and os.path.exists(prompt_cache) and self.batch_size == 1:
+            keep = self._load_prompt_cache(prompt_cache, ids, cache)
+        self.last_prompt_reuse = keep
+        last_logits, cache = self.prefill(cache, ids[keep:], pos0=keep)
+        if prompt_cache and self.batch_size == 1 and keep < len(ids):
+            from .state import save_state
+            save_state(prompt_cache, cache, ids)
         gen = torch.Generator(device=self.device)
         gen.manual_seed(sp.seed)
-        tok = sample(last_logits[None, :], gen, sp)
+        pw = (penalty_window_init(ids, self.cfg.n_vocab, sp.penalty_last_n,
+                                  device=self.device) if sp.penalized else None)
+        mu = (mirostat_init(sp, self.batch_size, device=self.device)
+              if sp.mirostat else None)
+        tok, mu = sample_stateful(last_logits[None, :], gen, sp,
+                                  pw.counts if pw is not None else None, mu)
         pos = torch.full((self.batch_size,), len(ids), dtype=torch.int32,
                          device=self.device)
         pos_host = len(ids)
@@ -172,12 +243,15 @@ class Engine:
         if stop_on_eog and self.tokenizer.is_eog(first):
             return
         yield first, self.tokenizer.decode_token(first).decode("utf-8", errors="replace")
+        if pw is not None:
+            penalty_window_push(pw, tok)
         emitted = 1
         while emitted < max_tokens and pos_host + 1 < self.max_seq_len:
             chunk = min(self.decode_chunk, max_tokens - emitted,
                         self.max_seq_len - 1 - pos_host)
             alen = attn_bucket(pos_host + chunk + 1, self.max_seq_len)
-            toks = self.decode(tok, pos, cache, gen, sp, chunk, attn_len=alen)
+            toks, mu = self.decode(tok, pos, cache, gen, sp, chunk, attn_len=alen,
+                                   pw=pw, mu=mu)
             pos_host += chunk
             for tid in toks[0].tolist():
                 if stop_on_eog and self.tokenizer.is_eog(tid):

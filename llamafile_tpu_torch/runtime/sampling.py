@@ -12,11 +12,15 @@ which draws from an explicit torch.Generator: a seed gives the same tokens
 run to run on one device, not the JAX package's tokens (the two generators
 differ). A test hands both packages the same noise by replacing `_gumbel`.
 
-`sample` is the single-row chain (the Engine and the batcher's admission
-draw); `sample_batched` the continuous batcher's per-row chain inside a
-top-64 candidate budget. The penalty window (`PenaltyWindow`) is updated in
-place; the JAX package returned a new one from each step instead. Mirostat
-is not ported: `sample` raises for it, and the batcher never runs it.
+`sample` is the single-row chain (the grammar path's and the batcher's
+admission draw); `sample_stateful` adds mirostat v1/v2 with its carried mu
+(`mirostat_init`, `sample_mirostat`): the Engine's draw, as the reference's
+decode scan makes it. `sample_batched` is the continuous batcher's per-row
+chain inside a top-64 candidate budget; the batcher runs no mirostat and
+refuses it. The penalty window (`PenaltyWindow`) is updated in place; the
+JAX package returned a new one from each step instead. Like the
+reference's, `sample` itself ignores the mirostat knobs: mu lives in
+`sample_stateful`'s caller.
 """
 from __future__ import annotations
 
@@ -57,16 +61,6 @@ class SamplingParams:
         return self.penalty_last_n != 0 and (
             self.repeat_penalty != 1.0 or self.presence_penalty != 0.0
             or self.frequency_penalty != 0.0)
-
-
-def check_ported(params: SamplingParams) -> None:
-    """Raise NotImplementedError for what Engine.generate's decode loop does
-    not carry: the penalty window and mirostat's state."""
-    for on, name in ((params.penalized, "repetition penalties in Engine.generate "
-                      "(the batcher carries them)"),
-                     (params.mirostat != 0, "mirostat")):
-        if on:
-            raise NotImplementedError(f"{name} is not ported yet")
 
 
 def _gumbel(shape, gen: Optional[torch.Generator], device) -> torch.Tensor:
@@ -235,8 +229,6 @@ def sample(logits: torch.Tensor, gen: Optional[torch.Generator],
            ) -> torch.Tensor:
     """logits [B, V] -> token ids int32 [B] on the logits' device; counts
     [B, V] (a PenaltyWindow's) applies the repetition penalties."""
-    if params.mirostat:
-        raise NotImplementedError("mirostat is not ported yet")
     logits = apply_logit_bias(logits.float(), params.logit_bias)
     if counts is not None and params.penalized:
         logits = apply_penalties(logits, counts, params.repeat_penalty,
@@ -272,6 +264,75 @@ def sample(logits: torch.Tensor, gen: Optional[torch.Generator],
         logits = logits / max(params.temperature, 1e-4)
     noise = _gumbel(logits.shape, gen, logits.device)
     return torch.argmax(logits + noise, dim=-1).to(torch.int32)
+
+
+_LN2 = torch.tensor(2.0).log().item()      # f32 log(2), jnp.log(2.0)
+
+
+def mirostat_init(params: SamplingParams, batch: int, device="cuda") -> torch.Tensor:
+    """Initial mu [B] f32: 2 * tau, as the reference's context init."""
+    return torch.full((batch,), 2.0 * params.mirostat_tau, dtype=torch.float32,
+                      device=device)
+
+
+def sample_mirostat(logits: torch.Tensor, gen: Optional[torch.Generator],
+                    params: SamplingParams, mu: torch.Tensor):
+    """Mirostat v1 or v2 (Basu et al. 2021) with mu carried on the device.
+
+    logits [B, V], mu [B] f32 -> (tokens int32 [B], new mu [B]). v2 drops
+    the candidates whose surprise -log2 p exceeds mu (keeping all when that
+    drops every one); v1 fits the Zipf exponent s_hat on the top 100 and
+    keeps the top k = (eps 2^mu / (1 - V^-eps))^(1/s_hat). The observed
+    surprise is taken on the renormalized survivors. All in f32, as the
+    reference's; its top 100 orders ties by vocabulary index, as
+    jax.lax.top_k does (a stable descending sort)."""
+    v = logits.shape[-1]
+    logp = torch.log_softmax(logits.float() / max(params.temperature, 1e-4), dim=-1)
+    if params.mirostat == 2:
+        masked = torch.where(-logp / _LN2 > mu[:, None],
+                             torch.full_like(logp, -math.inf), logp)
+        masked = torch.where(torch.isinf(masked).all(-1, keepdim=True), logp, masked)
+        tok = torch.argmax(masked + _gumbel(masked.shape, gen, logp.device), dim=-1)
+        logq = torch.log_softmax(masked, dim=-1)
+        surprise = -torch.gather(logq, 1, tok[:, None])[:, 0] / _LN2
+    else:
+        m = min(100, v)
+        vals, idx = torch.sort(logp, dim=-1, descending=True, stable=True)
+        vals, idx = vals[:, :m], idx[:, :m]
+        i = torch.arange(m - 1, dtype=torch.float32, device=logp.device)
+        t_i = torch.log((i + 2.0) / (i + 1.0))
+        b_i = vals[:, :-1] - vals[:, 1:]
+        s_hat = (t_i * b_i).sum(-1) / (t_i * t_i).sum()
+        eps = (s_hat - 1.0).clamp(min=1e-4)
+        n = torch.tensor(float(v), dtype=torch.float32, device=logp.device)
+        k = ((eps * torch.exp2(mu)) / (1.0 - n ** (-eps))) ** (1.0 / s_hat)
+        k = k.clamp(1.0, float(m))
+        keep = torch.arange(m, device=logp.device)[None, :] < k[:, None]
+        masked = torch.where(keep, vals, torch.full_like(vals, -math.inf))
+        pick = torch.argmax(masked + _gumbel(masked.shape, gen, logp.device), dim=-1)
+        tok = torch.gather(idx, 1, pick[:, None])[:, 0]
+        logq = torch.log_softmax(masked, dim=-1)
+        surprise = -torch.gather(logq, 1, pick[:, None])[:, 0] / _LN2
+    mu = mu - params.mirostat_eta * (surprise - params.mirostat_tau)
+    return tok.to(torch.int32), mu
+
+
+def sample_stateful(logits: torch.Tensor, gen: Optional[torch.Generator],
+                    params: SamplingParams, counts: Optional[torch.Tensor],
+                    mu: Optional[torch.Tensor]):
+    """The whole chain with mirostat's state: (tokens int32 [B], new mu).
+    Mirostat runs after the logit bias and the penalties, in place of the
+    cutoffs and the temperature draw."""
+    if params.mirostat:
+        if mu is None:
+            raise ValueError("mirostat needs its mu (mirostat_init)")
+        logits = apply_logit_bias(logits.float(), params.logit_bias)
+        if counts is not None and params.penalized:
+            logits = apply_penalties(logits, counts, params.repeat_penalty,
+                                     params.presence_penalty,
+                                     params.frequency_penalty)
+        return sample_mirostat(logits, gen, params, mu)
+    return sample(logits, gen, params, counts), mu
 
 
 # ---------------------------------------------------------------------------

@@ -21,9 +21,13 @@ engines:
 Each request draws from its own torch.Generator, seeded from its seed: a
 seeded request gives the same tokens served alone or beside others.
 
-The JAX package's dense (non-paged) mode, recurrent rows and the row state
-save/restore/erase (runtime/state.py) are not ported and raise
-NotImplementedError. A device fault after which the card still works
+A row's state is saved, restored and erased on the device thread, between
+ticks, through the control queue (`save_row`, `restore_row`, `erase_row`;
+runtime/state.py files of bf16 KV, an int8 pool's pages dequantized; a
+save's file is written on the caller's thread): a restored row is a warm
+prefix that the next request sharing its prompt reuses at admission. The JAX package's dense (non-paged) mode, recurrent
+rows and mirostat are not ported and raise NotImplementedError. A device
+fault after which the card still works
 (torch.cuda.OutOfMemoryError) is recovered as in the reference: the device
 state is rebuilt and the interrupted requests resume. Any other exception
 on the device thread ends it, and every waiting request, and any request
@@ -139,6 +143,9 @@ class Batcher:
         # X-Priority: batch requests admit only when the normal queue is empty
         self.batch_queue: "queue.Queue[Request]" = queue.Queue()
         self.wake = threading.Event()
+        # control commands (row state save/restore/erase) run ON the device
+        # thread between ticks: they read and write the pool it owns
+        self.control: "queue.Queue" = queue.Queue()
         self._stop = False
         self._dead: Optional[BaseException] = None
         self._admissions = 0
@@ -193,15 +200,104 @@ class Batcher:
         return req
 
     def save_row(self, ridx: int, path: str) -> dict:
-        raise NotImplementedError("row state save (runtime/state.py) is not "
-                                  "ported yet")
+        """Write an idle row's KV and history to path (the reference's
+        llama_state_seq_save_file). RuntimeError for a busy or empty row.
+        The device thread only gathers the row to the host; the file is
+        written on the caller's thread, so decoding rows do not wait on it."""
+        from ..runtime.state import save_state
+        cache, hist = self._run_control(lambda: self._gather_row_sync(ridx))
+        save_state(path, cache, hist)
+        return {"row": ridx, "tokens": len(hist), "filename": path}
 
     def restore_row(self, path: str) -> dict:
-        raise NotImplementedError("row state restore (runtime/state.py) is "
-                                  "not ported yet")
+        """Load a saved row into a free row (an empty one first, then the
+        least recently used) as a warm prefix cache."""
+        return self._run_control(lambda: self._restore_row_sync(path))
 
     def erase_row(self, ridx: int) -> dict:
-        raise NotImplementedError("row state erase is not ported yet")
+        """Drop an idle row's retained prefix cache and its pages."""
+        return self._run_control(lambda: self._erase_row_sync(ridx))
+
+    def _run_control(self, fn):
+        done: "queue.Queue" = queue.Queue()
+        self.control.put((fn, done))
+        self.wake.set()
+        while True:
+            try:
+                ok, val = done.get(timeout=1.0)
+                break
+            except queue.Empty:
+                if not self.alive():
+                    raise RuntimeError("the batcher's device thread stopped: "
+                                       f"{self._dead!r}") from None
+        if not ok:
+            raise val
+        return val
+
+    def _run_controls(self):
+        while not self.control.empty():
+            fn, done = self.control.get()
+            try:
+                done.put((True, fn()))
+            except Exception as e:     # noqa: BLE001 — the caller's error
+                done.put((False, e))
+
+    def _gather_row_sync(self, ridx: int):
+        """(the row's bf16 KV on the host, trimmed to its history; history)."""
+        from ..runtime.kvcache import KVCache
+        from ..runtime.paged import gather_pages_to_row
+        row = self.rows[ridx]
+        if row.req is not None:
+            raise RuntimeError(f"row {ridx} is busy")
+        if not row.history:
+            raise RuntimeError(f"row {ridx} has no cached state")
+        n = len(row.history)
+        k, v = gather_pages_to_row(self.pages, self._table(self.alloc.tables[ridx]),
+                                   PAGE_SIZE, self.max_len)
+        host = lambda a: a[:, :, :n].to(torch.bfloat16).cpu()
+        return KVCache(host(k), host(v)), list(row.history)
+
+    def _restore_row_sync(self, path: str) -> dict:
+        from ..runtime.paged import copy_row_to_pages
+        from ..runtime.state import load_state
+        span = -(-self.max_len // PAGE_SIZE) * PAGE_SIZE
+        cache, hist = load_state(path, max_len=span, device=self.device)
+        if not hist or len(hist) > self.max_len:
+            raise RuntimeError("saved state empty or longer than the context")
+        free = [i for i, r in enumerate(self.rows) if r.req is None]
+        if not free:
+            raise RuntimeError("all rows busy")
+        if cache.quantized:
+            raise RuntimeError("int8 row state cannot restore into a paged "
+                               "pool (save from paged mode)")
+        want = (self.cfg.n_layers, 1, span, self.cfg.n_kv_heads * self.cfg.head_dim)
+        if tuple(cache.k.shape) != want or tuple(cache.v.shape) != want:
+            raise RuntimeError(f"saved state of shape {tuple(cache.k.shape)} does "
+                               f"not fit this model's rows {want}")
+        ridx = min(free, key=lambda i: (bool(self.rows[i].history),
+                                        self.rows[i].last_used))
+        row = self.rows[ridx]
+        self.alloc.release(ridx)
+        self.alloc.ensure(ridx, len(hist))
+        self.alloc.lengths[ridx] = len(hist)
+        copy_row_to_pages(self.pages, cache.k, cache.v,
+                          self._table(self.alloc.tables[ridx]), PAGE_SIZE)
+        row.history = list(hist)
+        row.pos = len(hist)
+        row.active = False
+        row.emitted = 0
+        row.last_used = time.time()
+        return {"row": ridx, "tokens": len(hist), "filename": path}
+
+    def _erase_row_sync(self, ridx: int) -> dict:
+        row = self.rows[ridx]
+        if row.req is not None:
+            raise RuntimeError(f"row {ridx} is busy")
+        n = len(row.history)
+        row.history = []
+        row.pos = 0
+        self.alloc.release(ridx)
+        return {"row": ridx, "erased_tokens": n}
 
     def alive(self) -> bool:
         return self.thread.is_alive() and self._dead is None
@@ -327,7 +423,7 @@ class Batcher:
 
     def _advance_admission(self):
         """Feed ONE prefill slice; on completion activate the row."""
-        from ..runtime.engine import attn_bucket, bucket_len
+        from ..runtime.engine import attn_bucket, slice_len
         from ..runtime.paged import copy_row_to_pages
         a = self.admission
         row = self.rows[a.ridx]
@@ -338,7 +434,7 @@ class Batcher:
             return
         pos0 = a.keep + a.fed
         new = a.ids[pos0:pos0 + self.prefill_chunk]
-        b = bucket_len(len(new))
+        b = slice_len(len(new), pos0)
         toks = torch.zeros((1, b), dtype=torch.int32)
         toks[0, :len(new)] = torch.tensor(new, dtype=torch.int32)
         fresh = pos0 == 0
@@ -432,6 +528,7 @@ class Batcher:
     def _loop(self):
         try:
             while not self._stop:
+                self._run_controls()
                 try:
                     self._tick()
                 except torch.cuda.OutOfMemoryError as e:
@@ -459,6 +556,9 @@ class Batcher:
                     break
         for req in {id(r): r for r in reqs}.values():
             req.out.put(("error", msg))
+        while not self.control.empty():     # strand no waiting caller
+            _fn, done = self.control.get()
+            done.put((False, RuntimeError(msg)))
 
     def _recover(self, err: BaseException):
         """A device fault the card survives (out of memory) poisons the

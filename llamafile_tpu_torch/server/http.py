@@ -8,7 +8,7 @@ connections are cheap; every generation goes through the continuous batcher
 
 Endpoints: /v1/chat/completions /v1/completions /completion /tokenize
 /detokenize /v1/embeddings /embedding /v1/models /slotz /flagz /health
-/metrics, with the reference's
+/metrics /slots/{id}?action=save|restore|erase, with the reference's
 behaviour: SSE streaming with x_prefill_progress events, stop strings held
 back until they can no longer begin, `X-Priority: batch`, the token
 bucket's 429, body and header limits, and message forgetting past the
@@ -18,9 +18,18 @@ or `content`, a string or a list of strings (or, as OpenAI's API, of token
 arrays: a port extension); their requests collect into
 padded batched forwards on the EmbedBatcher's thread (server/embed.py).
 
+A `grammar` (raw GBNF) or a `response_format` (`json_schema`, with or
+without an inner `schema`, or `json_object`) makes a request constrained:
+it runs on a private dense row in a pool thread (`_generate_grammar_sync`:
+Engine.prefill, then one M = 1 forward a token, the allowed-token mask
+sent to the device as packed bits), beside the batcher's rows; stop
+strings do not apply there, as in the reference. /slots/{id}?action=
+saves, restores or erases a batcher row's KV under --state-dir
+(runtime/state.py files).
+
 Left out of this port, each answering 501 with a message that names it:
-`grammar` and `response_format`, image content parts, /db/*,
-/slots/{id}?action=, mirostat, and the static web UI.
+image content parts, /db/*, mirostat (the reference's server reads its
+knobs and samples without them: ROADMAP C.10), and the static web UI.
 A model of another architecture makes Server raise at start.
 """
 from __future__ import annotations
@@ -163,18 +172,95 @@ class Server:
                 "ttft_ms": round((ttft or 0.0) * 1e3, 2),
                 "text": text_acc}
 
+    def _generate_grammar_sync(self, prompt_ids, sp, max_tokens, emit, grammar):
+        """Constrained decoding on a private dense row: the pushdown stacks
+        advance on the host (the next mask depends on the accepted token);
+        the allowed-token mask goes to the device as packed bits (V/8
+        bytes), is unpacked there and fills the disallowed logits with
+        -1e30 before `sample` (logit bias yes, no penalty window, as the
+        reference's grammar step). Stops on EOG, on a complete grammar with
+        no live stack, at the context's end or at max_tokens.
+
+        It runs on the device's default stream, as the batcher's thread
+        does, so the two paths' kernels never overlap (the product kernels
+        share their split-K counters on a stream), and it shares no tensor
+        with the batcher."""
+        import torch
+        from ..models.llama import forward
+        from ..runtime.engine import attn_bucket
+        from ..runtime.grammar import GrammarSampler
+        from ..runtime.sampling import sample
+        eng = self.engine
+        tok = eng.tokenizer
+        dev = eng.device
+        gs = GrammarSampler(grammar, tok)
+        nv = eng.cfg.n_vocab
+        t_start = time.time()
+        cache = eng.new_cache()
+        last, cache = eng.prefill(cache, prompt_ids)
+        ttft = time.time() - t_start
+        gen = torch.Generator(device=dev)
+        gen.manual_seed((sp.seed or int(time.time() * 1e6) % 2**31)
+                        & 0x7FFFFFFFFFFFFFFF)
+        shifts = torch.arange(7, -1, -1, dtype=torch.uint8, device=dev)
+
+        def pick(logits):
+            bits = grammar_bits(gs.allowed_tokens(), nv)
+            m = (torch.from_numpy(bits).to(dev)[:, None] >> shifts) & 1
+            masked = torch.where(m.reshape(-1)[:nv].bool(), logits[:nv],
+                                 torch.full((nv,), -1e30, device=dev))
+            return int(sample(masked[None, :], gen, sp)[0])
+
+        pos = len(prompt_ids)
+        text_acc = ""
+        n_out = 0
+        finish = "length"
+        tid = pick(last)
+        for _ in range(max_tokens):
+            if tok.is_eog(tid):
+                finish = "stop"
+                break
+            gs.accept(tid)
+            piece = tok.decode_token(tid).decode("utf-8", errors="replace")
+            text_acc += piece
+            n_out += 1
+            emit({"token": tid, "piece": piece})
+            if gs.done and not any(len(s) for s in gs.stacks):
+                finish = "stop"
+                break
+            if pos + 1 >= eng.max_seq_len or n_out >= max_tokens:
+                break
+            logits, cache = forward(
+                eng.params, eng.cfg, torch.tensor([[tid]], dtype=torch.int32, device=dev),
+                torch.tensor([pos], dtype=torch.int32, device=dev), cache,
+                attn_len=attn_bucket(pos + 1, eng.max_seq_len))
+            tid = pick(logits[0, -1])
+            pos += 1
+        with self.metrics.lock:
+            self.metrics.tokens_generated += n_out
+            self.metrics.tokens_prefilled += len(prompt_ids)
+        return {"prompt_tokens": len(prompt_ids), "completion_tokens": n_out,
+                "finish_reason": finish, "ttft_ms": round(ttft * 1e3, 2),
+                "text": text_acc}
+
     async def generate(self, prompt_ids, sp, max_tokens, stop_strs,
-                       on_piece=None, low_priority=False):
-        """Async wrapper: runs _generate_sync in the pool, streaming pieces."""
+                       on_piece=None, low_priority=False, grammar=None):
+        """Async wrapper: runs the request's generator in the pool,
+        streaming pieces: the continuous batcher's, or with a grammar the
+        private constrained row's."""
         loop = asyncio.get_running_loop()
         queue: asyncio.Queue = asyncio.Queue()
 
         def emit(piece):
             loop.call_soon_threadsafe(queue.put_nowait, piece)
 
-        fut = loop.run_in_executor(self.pool, self._generate_sync, prompt_ids,
-                                   sp, max_tokens, stop_strs, emit,
-                                   low_priority)
+        if grammar is not None:
+            fut = loop.run_in_executor(self.pool, self._generate_grammar_sync,
+                                       prompt_ids, sp, max_tokens, emit, grammar)
+        else:
+            fut = loop.run_in_executor(self.pool, self._generate_sync,
+                                       prompt_ids, sp, max_tokens, stop_strs,
+                                       emit, low_priority)
         while True:
             get = asyncio.ensure_future(queue.get())
             done, _ = await asyncio.wait({get, fut},
@@ -273,6 +359,8 @@ class Server:
         except json.JSONDecodeError:
             await self._json(w, 400, {"error": "invalid JSON body"})
             return True
+        if path.startswith("/slots/"):
+            return await self.ep_slot_action(w, method, path, target, payload)
         unported = self._unported_route(path)
         if unported:
             return await self._json(w, 501, {"error": f"{unported} is not "
@@ -302,8 +390,6 @@ class Server:
     def _unported_route(path: str):
         if path.startswith("/db/"):
             return "/db (chat persistence)"
-        if path.startswith("/slots/"):
-            return "/slots/{id}?action= (slot save/restore)"
         if path == "/" or os.path.splitext(path)[1] in _WEB_UI:
             return "the static web UI"
         return None
@@ -359,6 +445,45 @@ class Server:
         return await self._json(w, 200, {"object": "list", "data": [{
             "id": self.model_id, "object": "model", "owned_by": "llamafile-tpu",
         }]})
+
+    async def ep_slot_action(self, w, method, path, target, payload):
+        """POST /slots/{id}?action=save|restore|erase: a batcher row's KV
+        state to or from a file under --state-dir (the name reduced to its
+        basename). 400 without --state-dir, for a bad slot id or action and
+        a missing filename; 404 for a missing file; 409 for a busy row."""
+        if method != "POST":
+            return await self._json(w, 405, {"error": "POST required"})
+        state_dir = self.flags.state_dir
+        if not state_dir:
+            return await self._json(
+                w, 400, {"error": "server started without --state-dir"})
+        try:
+            ridx = int(path.split("/")[2])
+        except (IndexError, ValueError):
+            return await self._json(w, 400, {"error": "bad slot id"})
+        from urllib.parse import parse_qs, urlparse
+        action = parse_qs(urlparse(target).query).get("action", [""])[0]
+        if action not in ("save", "restore", "erase"):
+            return await self._json(
+                w, 400, {"error": "action must be save|restore|erase"})
+        fname = os.path.basename(str(payload.get("filename", "")))
+        if action in ("save", "restore") and not fname:
+            return await self._json(w, 400, {"error": "filename required"})
+        if action != "restore" and not 0 <= ridx < self.batcher.n_rows:
+            return await self._json(w, 400, {"error": "bad slot id"})
+        fpath = os.path.join(state_dir, fname)
+        if action == "restore" and not os.path.exists(fpath):
+            return await self._json(w, 404, {"error": "no such file"})
+        if action == "save":
+            os.makedirs(state_dir, exist_ok=True)
+        run = {"save": lambda: self.batcher.save_row(ridx, fpath),
+               "restore": lambda: self.batcher.restore_row(fpath),
+               "erase": lambda: self.batcher.erase_row(ridx)}[action]
+        try:
+            r = await asyncio.get_running_loop().run_in_executor(self.pool, run)
+        except RuntimeError as e:
+            return await self._json(w, 409, {"error": str(e)})
+        return await self._json(w, 200, r)
 
     async def ep_slotz(self, w, *a):
         return await self._json(w, 200, {"slots": self.batcher.describe(),
@@ -425,12 +550,10 @@ class Server:
 
     def _sp(self, payload):
         from ..runtime.sampling import SamplingParams
-        for key in ("grammar", "response_format"):
-            if payload.get(key):
-                raise NotImplementedError(f"`{key}` (grammar-constrained decoding) is not "
-                               "ported to llamafile_tpu_torch yet")
         if int(payload.get("mirostat", self.flags.mirostat) or 0):
-            raise NotImplementedError("mirostat is not ported to llamafile_tpu_torch yet")
+            # the reference's server reads the knobs and drops them (C.10)
+            raise NotImplementedError("mirostat under --server is not ported to "
+                                      "llamafile_tpu_torch yet")
         # OpenAI-style logit_bias map ({"token_id": bias}) -> hashable tuple
         lb = payload.get("logit_bias") or {}
         try:
@@ -474,12 +597,16 @@ class Server:
         if "n_predict" in payload and "max_tokens" not in payload:
             payload["max_tokens"] = payload["n_predict"]
         sp = self._sp(payload)
+        try:
+            grammar = self._grammar_for(payload)
+        except Exception as e:          # noqa: BLE001 — any parse error is a 400
+            return await self._json(w, 400, {"error": f"bad grammar/schema: {e}"})
         ids = self.engine.tokenizer.encode(str(payload.get("prompt", "")))
         limit = self.engine.max_seq_len - self._reserve()
         try:
             usage = await self.generate(ids[-limit:], sp,
                                         int(payload.get("max_tokens", 128) or 128),
-                                        payload.get("stop") or [])
+                                        payload.get("stop") or [], grammar=grammar)
         except RuntimeError as e:
             return await self._json(w, 500, {"error": str(e)})
         return await self._json(w, 200, {
@@ -507,9 +634,28 @@ class Server:
             w, payload, ids, chat=False,
             low_priority=headers.get("x-priority", "") == "batch")
 
+    def _grammar_for(self, payload):
+        """A raw GBNF `grammar`, or `response_format` json_schema (with or
+        without an inner `schema`) or json_object, as a Grammar; None for an
+        unconstrained request."""
+        from ..runtime.grammar import Grammar
+        rf = payload.get("response_format") or {}
+        if payload.get("grammar"):
+            return Grammar.from_gbnf(payload["grammar"])
+        if rf.get("type") == "json_schema":
+            schema = rf.get("json_schema", {})
+            return Grammar.from_json_schema(schema.get("schema", schema))
+        if rf.get("type") == "json_object":
+            return Grammar.from_json_schema({})
+        return None
+
     async def _run_completion(self, w, payload, ids, chat: bool,
                               low_priority: bool = False):
         sp = self._sp(payload)
+        try:
+            grammar = self._grammar_for(payload)
+        except Exception as e:          # noqa: BLE001 — any parse error is a 400
+            return await self._json(w, 400, {"error": f"bad grammar/schema: {e}"})
         max_tokens = int(payload.get("max_tokens",
                                      payload.get("n_predict", 0)) or 0)
         if max_tokens <= 0:
@@ -554,7 +700,8 @@ class Server:
 
             try:
                 usage = await self.generate(ids, sp, max_tokens, stop, on_piece,
-                                            low_priority=low_priority)
+                                            low_priority=low_priority,
+                                            grammar=grammar)
                 await send_evt(evt(
                     {"index": 0, "delta": {}, "finish_reason": usage["finish_reason"]}
                     if chat else
@@ -567,7 +714,8 @@ class Server:
             return False
         try:
             usage = await self.generate(ids, sp, max_tokens, stop,
-                                        low_priority=low_priority)
+                                        low_priority=low_priority,
+                                        grammar=grammar)
         except RuntimeError as e:
             return await self._json(w, 500, {"error": str(e)})
         text = usage.pop("text")
@@ -579,6 +727,16 @@ class Server:
             "id": rid, "object": obj, "created": created,
             "model": self.model_id, "choices": [choice], "usage": _usage(usage),
         })
+
+
+def grammar_bits(mask, nv: int):
+    """The allowed-token mask as packed bits [ceil(nv / 8)] uint8 (the
+    first token in the high bit, np.packbits' order), cut or padded to
+    nv tokens."""
+    import numpy as np
+    m = np.zeros((nv,), bool)
+    m[: min(len(mask), nv)] = mask[:nv]
+    return np.packbits(m)
 
 
 def _usage(u):

@@ -226,12 +226,16 @@ def test_device_fault_errors_every_waiting_request(engines, monkeypatch):
 
 
 def test_unported_modes_raise(engines):
+    """The dense mode and mirostat still raise NotImplementedError. Row
+    save, once among them, is ported: an empty row's save now refuses with
+    RuntimeError (the server's 409; tests/test_torch_state.py holds the
+    rest)."""
     _, teng = engines
     with pytest.raises(NotImplementedError):
         TBatcher(teng, rows=1, paged=False)
     b = TBatcher(teng, rows=1)
     try:
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(RuntimeError, match="no cached state"):
             b.save_row(0, "x")
         with pytest.raises(NotImplementedError):
             b.submit([1, 2], TSP(mirostat=2), 2)

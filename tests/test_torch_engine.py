@@ -162,8 +162,41 @@ def test_long_prompt_raises(engine, jax_long_generation):
 @pytest.mark.parametrize("option", [dict(repeat_penalty=1.1), dict(mirostat=2),
                                     dict(presence_penalty=0.5)])
 def test_unported_samplers_raise(engine, option):
-    with pytest.raises(NotImplementedError):
-        list(engine.generate(PROMPT, 4, SamplingParams(**option)))
+    """These samplers once raised in Engine.generate; its decode now
+    carries the penalty window and mirostat's mu, so they run, seeded
+    (tests/test_torch_stateful_sampling.py holds their tokens against the
+    JAX package)."""
+    sp = SamplingParams(seed=4, **option)
+    a = [t for t, _ in engine.generate(PROMPT, 10, sp, stop_on_eog=False)]
+    assert a == [t for t, _ in engine.generate(PROMPT, 10, sp, stop_on_eog=False)]
+    assert len(a) == 10 and all(0 <= t < engine.cfg.n_vocab for t in a)
+
+
+def test_one_token_continuation_is_a_decode_step(engine):
+    """One token past a filled cache runs unpadded (T = 1, the decode route)
+    and gives the logits of the same token padded to bucket 16 (the
+    non-fresh prefill route) within 2e-2 of their largest, the limit of the
+    port's route comparisons (the routes quantize the FFN's activations
+    apart: about 1.4% here)."""
+    from llamafile_tpu_torch.models.llama import forward
+    from llamafile_tpu_torch.runtime.engine import slice_len
+    assert (slice_len(1, 5), slice_len(1, 0), slice_len(3, 5)) == (1, 16, 16)
+    ids = engine.tokenizer.encode(LONG_PROMPT)[:40]
+    got, ca = engine.prefill(engine.prefill(engine.new_cache(), ids[:-1])[1],
+                             ids[-1:], pos0=len(ids) - 1)
+    _, cb = engine.prefill(engine.new_cache(), ids[:-1])
+    toks = torch.zeros((1, 16), dtype=torch.int32)
+    toks[0, 0] = ids[-1]
+    at = lambda v: torch.tensor([v], dtype=torch.int32)
+    want, cb = forward(engine.params, engine.cfg, toks, at(len(ids) - 1), cb,
+                       last_idx=at(0))
+    want = want[0, 0]
+    assert int(got.argmax()) == int(want.argmax())
+    assert (got - want).abs().max() <= 2e-2 * want.abs().max()
+    row = len(ids) - 1
+    for a, b in ((ca.k, cb.k), (ca.v, cb.v)):      # the decode route wrote the row
+        a, b = a[:, :, row].float(), b[:, :, row].float()
+        assert (a - b).abs().max() <= 2e-2 * b.abs().max()
 
 
 def test_cli_unported_mode_exits(gguf):

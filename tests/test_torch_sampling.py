@@ -141,6 +141,19 @@ def test_sample_with_counts_same_ids(monkeypatch, case):
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
-def test_sample_raises_for_mirostat():
-    with pytest.raises(NotImplementedError, match="mirostat"):
-        TS.sample(torch.zeros(1, V), None, TS.SamplingParams(mirostat=2))
+def test_sample_raises_for_mirostat(monkeypatch):
+    """`sample` no longer raises for mirostat: like the reference's, it runs
+    the chain and leaves mu to `sample_stateful` (the Engine's draw; the
+    server refuses mirostat, ROADMAP C.10). Same ids as the reference's."""
+    jsp = JS.SamplingParams(mirostat=2, top_k=20)
+    tsp = TS.SamplingParams(mirostat=2, top_k=20)
+    logits = _logits(77, 1)
+    key = jax.random.PRNGKey(5)
+    noise = torch.from_numpy(np.array(jax.random.gumbel(key, (1, V))))
+    monkeypatch.setattr(TS, "_gumbel", lambda shape, gen, device: noise)
+    want = JS.sample(jnp.asarray(logits), key, jsp)
+    got = TS.sample(torch.from_numpy(logits), None, tsp)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    tok, mu = TS.sample_stateful(torch.from_numpy(logits), None, tsp, None,
+                                 TS.mirostat_init(tsp, 1, device="cpu"))
+    assert tok.shape == (1,) and mu.shape == (1,)

@@ -206,8 +206,8 @@ def test_404_bad_json_body_cap_and_429(server, monkeypatch):
     ("/", None, "GET"),
     ("/v1/chat/completions", {"messages": [{"role": "user", "content": "hi"}],
                               "grammar": "root ::= \"a\""}, None),
-    ("/v1/completions", {"prompt": "hi", "response_format": {"type": "json_object"}},
-     None),
+    ("/v1/completions", {"prompt": "hi", "response_format": {"type": "json_object"},
+                         "max_tokens": 8}, None),
     ("/v1/chat/completions", {"messages": [{"role": "user", "content": [
         {"type": "image_url", "image_url": {"url": "data:image/png;base64,AA"}}]}]},
      None),
@@ -215,15 +215,31 @@ def test_404_bad_json_body_cap_and_429(server, monkeypatch):
 ], ids=["embeddings", "embedding", "db", "slots", "web_ui", "grammar",
         "response_format", "image", "mirostat"])
 def test_unported_features_answer_501(server, path, body, method):
-    """What the port leaves out answers 501 naming it; the embeddings
-    routes, once among them, are ported and answer 200 with a unit vector
-    (tests/test_torch_embed.py holds them against the JAX package)."""
+    """What the port leaves out answers 501 naming it. The cases once among
+    them that are ported now answer as the reference does: the embeddings
+    routes 200 with a unit vector (tests/test_torch_embed.py holds them
+    against the JAX package); a grammar or response_format 200 with text
+    that the grammar admits (tests/test_torch_grammar.py and
+    test_torch_stateful_sampling.py); /slots/ 400 on a server started
+    without --state-dir (tests/test_torch_state.py)."""
     base, _ = server
     code, text = _status(base + path, body, method=method)
     if path in ("/v1/embeddings", "/embedding"):
         vec = json.loads(text)["data"][0]["embedding"]
         assert code == 200 and len(vec) == 256
         assert abs(sum(v * v for v in vec) - 1.0) < 1e-6
+        return
+    if path.startswith("/slots/"):
+        assert code == 400 and "--state-dir" in text
+        return
+    if body and "grammar" in body:
+        out = json.loads(text)["choices"][0]
+        assert code == 200 and out["message"]["content"] == "a"
+        assert out["finish_reason"] == "stop"
+        return
+    if body and "response_format" in body:
+        out = json.loads(text)["choices"][0]["text"]
+        assert code == 200 and out and out[0] in '{["-0123456789tfn'
         return
     assert code == 501 and "not ported" in text
 
