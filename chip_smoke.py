@@ -18,6 +18,11 @@
    equal; the three decode kernels also at head groups of 3 and 16 (24 and
    128 query heads over 8 KV heads), bf16 and int8, and at head_dim 256:
    Gemma-2-9B's 16 query heads over 8 KV heads and Gemma-2B's 8 over 1;
+   flash_decode_write and flash_decode (bf16 and int8) at B = 8, the dense
+   row mode's step (DENSE_POS: a position a row over a 2048-position
+   cache streamed to s_limit 1024, one row parked at the trash slot 2047),
+   each against its plain version with the written rows equal (each row's
+   pos alone written);
    gemma2's options at Gemma-2-9B's decode shapes over a cache of 8192
    positions, at pos 700 and 6000: flash_decode_write with the window of
    4096 and the softcap of 50, flash_decode (bf16 and int8) with the
@@ -190,9 +195,12 @@
    at B > 1), each window counted alone with launches exact (the
    EmbedBatcher's thread and the batcher's share the launch counters);
    req/s, p50 latency, the batches formed; vectors within 1e-3 of the same
-   ids embedded alone and of the plain versions on the card.
+   ids embedded alone and of the plain versions on the card. Then the web
+   UI's routes on the same server, started with --db: a chat made, a
+   message added and read back through /db/*, and / serving the port's
+   copy of the web UI (db_webui_check).
 6. llama3-8b by llama.cpp's Q4_K_M recipe (testing.make_q4_k_m_llama) at
-   PHASE6_LAYERS = 16 of its 32 layers (8 of them with Q6_K V and down,
+   PHASE6_LAYERS = 8 of its 32 layers (4 of them with Q6_K V and down,
    Q6_K head), unrolled, through
    Engine.generate (64 tokens from a 24-token prompt, then the 1000-token
    prompt's TTFT on qmm_planes) and the HTTP server at 4 slots (4 greedy
@@ -206,33 +214,33 @@
    of the shortest and longest prompt against themselves served alone;
    launches exact, the decode rate against the
    routed weight-read bound (models.synthetic.decode_read_bytes).
-8. llama3.2-3b (Llama-3.2-3B's widths, PHASE8_LAYERS = 14 of its 28 layers,
+8. llama3.2-3b (Llama-3.2-3B's widths, PHASE8_LAYERS = 8 of its 28 layers,
    a head group of 3), Q4_K
    stacked: Engine.generate of 32 tokens from the 24-token prompt, launches
    exact, the decode rate against its weight-read bound; the HTTP server at
    4 slots, 4 greedy requests, those of the shortest and longest prompt
    against themselves served alone; no decode attention call on the einsum
    or gather route.
-9. gemma-2-9b (Gemma-2-9B's widths, PHASE9_LAYERS = 21 of its 42 layers,
+9. gemma-2-9b (Gemma-2-9B's widths, PHASE9_LAYERS = 12 of its 42 layers,
    the gemma2 branches), Q4_K
    stacked with a Q6_K head: Engine.generate of 64 tokens from the
    24-token prompt, launches exact (no fused FFN; flash_decode_write with
    the window on the even layers and the softcap on all), the decode rate
    against its weight-read bound; the 1000-token prompt's TTFT, median of
    3.
-10. gemma-3-27b (Gemma-3-27B's widths, PHASE10_LAYERS = 31 of its 62
+10. gemma-3-27b (Gemma-3-27B's widths, PHASE10_LAYERS = 16 of its 62
    layers, the gemma3 branches),
    Q4_K stacked with a Q6_K head: as phase 9, the 1000-token prompt's
    prefill launching flash_prefill on every layer (bucket 1024, the
    window's width).
-11. qwen3-32b (Qwen3-32B's widths, PHASE11_LAYERS = 16 of its 64 layers,
+11. qwen3-32b (Qwen3-32B's widths, PHASE11_LAYERS = 8 of its 64 layers,
    q/k norms, the fused FFN),
    Q4_K stacked with a Q6_K head (vocab 151936): Engine.generate of 64
    tokens from the 24-token prompt, launches exact, the decode rate
    against its weight-read bound, the 1000-token prompt's TTFT (median of
    3); the HTTP server at 4 slots, 4 greedy requests, launches exact (the
    requests alone are held by phase 3's qwen3-32b-2l check).
-12. qwen2.5-7b (Qwen2.5-7B's widths, PHASE12_LAYERS = 14 of its 28 layers,
+12. qwen2.5-7b (Qwen2.5-7B's widths, PHASE12_LAYERS = 8 of its 28 layers,
    q/k/v biases, G = 7, the
    FFN unfused): decode rate and TTFT as phase 11; then, as the last timed
    run is over, that prefill's device time by kernel (torch.profiler).
@@ -248,13 +256,26 @@
    tokens with mirostat v2 and penalties, launches as phase 4's; a
    300-token prompt_cache twice, the second feeding one token as a decode
    step.
-   Phases run in the order 4, 4b, 4d, 5, 4f, 13, 4e, 4c, 6, 7, 8, 9, 10, 11, 12. Then, after every timed
+14. Phase 4's engine under the batcher's dense row mode
+   (Batcher(paged=False), 8 rows of a bf16 row-batched cache): phase 5's
+   16 prompts with DENSE_NEW = 32 new tokens each, submitted at once,
+   output tok/s, launches exact
+   (flash_decode_write once a layer a fused step), the same three
+   requests as phase 5 served again alone on a fresh dense batcher with
+   the same ids, the dense fused 8-row step (Engine.fused_decode) against
+   (weights + 8 x attn_len x KV_BYTES_PER_TOKEN) / HBM; then a three-turn
+   REPL session in process (cli.chat_loop over a ChatSession): each
+   turn's TTFT and reused tokens, turn 2's first-token logits within 2e-2
+   of a fresh prefill of its whole prompt with the same top-1.
+   Phases run in the order 4, 4b, 4d, 5, 4f, 13, 14, 4e, 4c, 6, 7, 8, 9, 10, 11,
+   12. Then, after every timed
    run (so that no profiler session of the process precedes a timing),
    profiles: a 2-step decode chunk of each model (7a, 7b, and 4c, 4 and
    4f's int8 on rebuilt engines) under torch.profiler (the device's busy
    share of a step) and under cProfile (host time by function), one
    1000-token prefill (device time by kernel), one fused 8-row serving
-   chunk (busy share), and a batcher admission of a fresh 300-token prompt
+   chunk (busy share), one dense fused 8-row chunk (busy share), and a
+   batcher admission of a fresh 300-token prompt
    against the same prompt's reused one (admission_profile: host time by
    piece and function, device busy; the one-token slice as a decode step
    against its old bucket-16 einsum route).
@@ -265,7 +286,7 @@ before the launches line.
 
 Any failure raises and exits non-zero. The last line of standard output is
 {"ok": true, "device": {...}}; the lines before it hold every kernel's
-launches summed over the counted runs of phases 4 to 13 ({"launches": ...},
+launches summed over the counted runs of phases 4 to 14 ({"launches": ...},
 with qmm_planes' launches on a stacked layer's view apart as
 "qmm_planes_stacked"), the kernel table (one JSON object with an entry a
 kernel: the numbers of its first shape, the main path's heaviest, every
@@ -769,6 +790,9 @@ def kernel_phases(torch, dev, gen):
     for hq, hkv, hd, cases in DECODE_GROUPS["flash_decode"]:
         for int8, s_eff in cases:
             flash_decode_phase(torch, dev, gen, entry, sdpa, hq, int8, s_eff, hkv, hd)
+    # --- both at B = 8, the batcher's dense row mode: a position a row, one
+    # row parked at the trash slot S - 1, past s_limit
+    batched_decode_phase(torch, dev, gen, entry, sdpa)
     # --- gemma2's window and softcap options of both decode kernels, then
     # gemma3's window on flash_decode_write at Gemma-3-27B's decode shapes
     gemma_option_phase(torch, dev, gen, entry)
@@ -1124,6 +1148,129 @@ def flash_decode_phase(torch, dev, gen, entry, sdpa, hq, int8, s_eff, hkv=8, hd=
     del kc, vc, kd, vd, got, want
     if int8:
         del ksc, vsc
+    torch.cuda.empty_cache()
+
+
+# The dense row mode's fused step at 8 rows of llama3-8b (32 query heads
+# over 8 KV heads, D 128): a 2048-position cache streamed to s_limit 1024
+# (an attn_bucket), each row at its own position, the last row parked at
+# the trash slot S - 1 = 2047, past s_limit (it reads every streamed key)
+DENSE_POS = (23, 150, 333, 511, 640, 777, 1000, 2047)
+DENSE_S, DENSE_S_LIMIT = 2048, 1024
+
+
+def batched_decode_phase(torch, dev, gen, entry, sdpa, nl=8):
+    """Phase 2 at B = 8 (DENSE_POS): flash_decode_write (each row's new K/V
+    written at its pos, the parked row's at S - 1 only) and flash_decode
+    over the bf16 flat and the int8 cache, each against its plain version
+    within 2e-2 (int8: DECODE_INT8_ROW_TOL) with the written rows equal,
+    two launches bitwise equal, timed beside the plain version and sdpa
+    with a key mask a row. nl layers cycled."""
+    from llamafile_tpu_torch.ops import attention as A
+    from llamafile_tpu_torch.testing import row_rel_err
+    hq, hkv, hd, b = 32, 8, 128, len(DENSE_POS)
+    s_len, s_eff, row = DENSE_S, DENSE_S_LIMIT, hkv * hd
+    scale = hd ** -0.5
+    p = torch.tensor(DENSE_POS, dtype=torch.int32, device=dev)
+    shape = f"B={b} Hq={hq} Hkv={hkv} D={hd} S={s_len} s_limit={s_eff} pos={list(DENSE_POS)}"
+    q = torch.randn((b, hq, hd), generator=gen, device=dev)
+    kn = torch.randn((b, hkv, hd), generator=gen, device=dev)
+    vn = torch.randn((b, hkv, hd), generator=gen, device=dev)
+    k3, v3 = ((torch.randn((nl, b, s_len, row), generator=gen, device=dev)
+               ).to(torch.bfloat16) for _ in range(2))
+    k0, v0 = k3.clone(), v3.clone()
+    k3b, v3b = k3.clone(), v3.clone()
+    got = A.flash_decode_write_stacked(q, k3, v3, kn, vn, 5, p, scale, hkv, s_limit=s_eff)
+    want = A.flash_decode_write_plain(q, k3b, v3b, kn, vn, 5, p, scale, hkv, s_eff)
+    torch.cuda.synchronize()
+    err = check_close("flash_decode_write/B=8", got, want, 2e-2)
+    if not (torch.equal(k3, k3b) and torch.equal(v3, v3b)):
+        raise AssertionError("flash_decode_write B=8: the written cache rows differ")
+    changed = (k3 != k0).any(-1).nonzero().tolist()
+    if sorted(changed) != sorted([5, r, x] for r, x in enumerate(DENSE_POS)):
+        raise AssertionError(f"flash_decode_write B=8 wrote rows {changed}")
+    again = A.flash_decode_write_stacked(q, k3b, v3b, kn, vn, 5, p, scale, hkv,
+                                         s_limit=s_eff)
+    if not (torch.equal(again, got) and torch.equal(k3, k3b)):
+        raise AssertionError("flash_decode_write B=8: two launches differ")
+    log(f"  flash_decode_write/B=8: rows written at each pos only (the parked row at "
+        f"{s_len - 1}); two launches bitwise equal")
+    del k0, v0, k3b, v3b, again
+    seen = [min(x, s_eff) for x in DENSE_POS]       # cache rows each row reads
+    mask = (torch.arange(s_eff, device=dev)[None, :]
+            <= torch.tensor([min(x, s_eff - 1) for x in DENSE_POS], device=dev)[:, None])
+    mask = mask[:, None, None, :]
+    kv = lambda t, i: t[i, :, :s_eff].reshape(b, s_eff, hkv, hd).transpose(1, 2)
+    qs4 = q.to(torch.bfloat16)[:, :, None, :]
+    lib = time_ms(torch, lambda i: sdpa(qs4, kv(k3, i), kv(v3, i), attn_mask=mask,
+                                        scale=scale, enable_gqa=True), nl)
+    run = lambda i: A.flash_decode_write_stacked(q, k3, v3, kn, vn, i, p, scale, hkv,
+                                                 s_limit=s_eff)
+    ms = time_ms(torch, run, nl)
+    plain = plain_time_ms(torch, lambda i: A.flash_decode_write_plain(
+        q, k3, v3, kn, vn, i, p, scale, hkv, s_eff), nl)
+    entry("flash_decode_write", "llamafile_tpu_torch/csrc/flash_decode_write.cu",
+          "llamafile_tpu/ops/attention.py:217", shape + " (the dense row mode's step; "
+          "library: sdpa with a key mask a row)", err, ms, plain, lib,
+          sum(seen) * 2 * row * 2 + b * (2 * row * 2 + (2 * hq * hd + 2 * row) * 4),
+          4 * sum(seen) * hq * hd, BF16_FLOP_PER_S)
+    # flash_decode: the bf16 flat cache (flash_decode_stacked) and int8
+    # codes with f32 scales, a layer's first s_limit positions in place
+    p_fd = p.clone()
+    for int8 in (False, True):
+        if int8:
+            del k3, v3
+            kc, vc = (torch.randint(-127, 128, (nl, b, s_len, hkv, hd), generator=gen,
+                                    device=dev, dtype=torch.int8) for _ in range(2))
+            ksc, vsc = (torch.empty((nl, b, s_len, hkv), device=dev).uniform_(
+                2e-3, 2e-2, generator=gen) for _ in range(2))
+            sl = lambda a, i: a[i, :, :s_eff]
+            fd = lambda i: A.flash_decode(q, sl(kc, i), sl(vc, i), p_fd, scale,
+                                          k_scale=sl(ksc, i), v_scale=sl(vsc, i))
+            fd_plain = lambda i: A.flash_decode_plain(q, sl(kc, i), sl(vc, i), p_fd, scale,
+                                                      k_scale=sl(ksc, i), v_scale=sl(vsc, i))
+            # the library yardstick's K/V dequantized beforehand (not timed)
+            dq = lambda c, sc_: [(c[i, :, :s_eff].float() * sc_[i, :, :s_eff][..., None]
+                                  ).transpose(1, 2) for i in range(nl)]
+            kd, vd = dq(kc, ksc), dq(vc, vsc)
+            lib_fn = lambda i: sdpa(q[:, :, None, :], kd[i], vd[i], attn_mask=mask_fd,
+                                    scale=scale, enable_gqa=True)
+            kv_bytes = sum(seen_fd) * 2 * hkv * (hd + 4)
+            tol, label = DECODE_INT8_ROW_TOL, "int8 + f32 scales"
+        else:
+            kc, vc = k3, v3
+            fd = lambda i: A.flash_decode_stacked(q, kc, vc, i, p_fd, scale, hkv, s_eff)
+            fd_plain = lambda i: A.flash_decode_stacked_plain(q, kc, vc, i, p_fd, scale,
+                                                              hkv, s_eff)
+            lib_fn = lambda i: sdpa(qs4, kv(kc, i), kv(vc, i), attn_mask=mask_fd,
+                                    scale=scale, enable_gqa=True)
+            seen_fd = [min(x + 1, s_eff) for x in DENSE_POS]
+            mask_fd = (torch.arange(s_eff, device=dev)[None, :]
+                       <= p_fd.long()[:, None])[:, None, None, :]
+            kv_bytes = sum(seen_fd) * 2 * row * 2
+            tol, label = DECODE_BF16_ROW_TOL, "bf16 flat (flash_decode_stacked)"
+        got, want = fd(5), fd_plain(5)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        rerr = row_rel_err(got, want)
+        log(f"  flash_decode/B=8 {label}: max_abs_err {err:.6g}; per row {rerr:.6g} of "
+            f"the row's max (tol {tol})")
+        if not rerr <= tol:
+            raise AssertionError(f"flash_decode B=8 {label}: row error {rerr}")
+        if not torch.equal(got, fd(5)):
+            raise AssertionError(f"flash_decode B=8 {label}: two launches differ")
+        ms = time_ms(torch, fd, nl)
+        plain = plain_time_ms(torch, fd_plain, nl)
+        lib = time_ms(torch, lib_fn, nl)
+        entry("flash_decode", "llamafile_tpu_torch/csrc/flash_decode.cu",
+              "llamafile_tpu/ops/attention.py:117", f"{shape} {label} ("
+              + ("the dense row mode's int8 step; " if int8 else "")
+              + "library: sdpa with a key mask a row"
+              + (", K/V dequantized beforehand)" if int8 else ")"), err, ms, plain, lib,
+              kv_bytes + b * (2 * hq * hd * 4 + 4), 4 * sum(seen_fd) * hq * hd,
+              F32_FLOP_PER_S)
+        del got, want
+    del kc, vc, ksc, vsc, kd, vd
     torch.cuda.empty_cache()
 
 
@@ -2808,6 +2955,9 @@ def main_path(torch, dev):
     phase("phase 13: the same engine: grammar requests and slot save/restore under the "
           "HTTP server, then penalties with mirostat and --prompt-cache in Engine.generate")
     counts_13 = state_phase(torch, eng, prompt, step_q4)
+    phase("phase 14: the same engine: the batcher's dense row mode at 8 rows, then the "
+          "REPL (--chat) for three turns")
+    counts_14, step_dense = dense_phase(torch, eng, read)
     del eng
     torch.cuda.empty_cache()
 
@@ -2871,10 +3021,12 @@ def main_path(torch, dev):
         device_busy(torch, eng, prompt, sp, step_int8)
     prefill_profile(torch, eng, long_prompt)
     fused_profile(torch, eng, step_5)
+    dense_profile(torch, eng, step_dense)
     admission_profile(torch, eng)
     del eng
     torch.cuda.empty_cache()
-    return ([counts, counts_b, counts_d, counts_c] + counts_5 + counts_f + counts_13 + counts_e
+    return ([counts, counts_b, counts_d, counts_c] + counts_5 + counts_f + counts_13
+            + counts_14 + counts_e
             + counts_6 + counts_7 + counts_8 + counts_9 + counts_10 + counts_11 + counts_12)
 
 
@@ -3279,9 +3431,9 @@ def _serve_request(base, i, ids, chat):
     return [int(t) for t in re.findall(r"<(\d+)>", text)], usage, ttft, None
 
 
-def _alone_tokens(batcher, ids, sp):
+def _collect_tokens(req):
+    """A batcher request's token ids, once it is done."""
     toks = []
-    req = batcher.submit(ids, sp, 64)
     while True:
         kind, val = req.out.get(timeout=900)
         if kind == "token":
@@ -3289,7 +3441,11 @@ def _alone_tokens(batcher, ids, sp):
         elif kind == "done":
             return toks
         elif kind == "error":
-            raise AssertionError(f"alone run: {val}")
+            raise AssertionError(f"request failed: {val}")
+
+
+def _alone_tokens(batcher, ids, sp, max_tokens=64):
+    return _collect_tokens(batcher.submit(ids, sp, max_tokens))
 
 
 @contextlib.contextmanager
@@ -3404,16 +3560,56 @@ def embedding_phase(torch, srv, base, eng):
     return runs
 
 
+def db_webui_check(base, db_path):
+    """The web UI's routes on a running server started with --db: a chat
+    made, a message added and read back through /db/*, the file on disk
+    holding them, and / serving the port's copy of the web UI."""
+    import sqlite3
+    import urllib.request
+    from llamafile_tpu_torch.server import http as H
+
+    def call(path, body=None, method=None):
+        req = urllib.request.Request(base + path, method=method,
+                                     data=None if body is None else json.dumps(body).encode(),
+                                     headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=60) as r:
+            return r.status, r.headers.get("Content-Type"), r.read()
+
+    cid = json.loads(call("/db/chats", {"title": "chip smoke"})[2])["id"]
+    call(f"/db/chats/{cid}/messages", {"role": "user", "content": "hello card"})
+    chat = json.loads(call(f"/db/chats/{cid}")[2])
+    if chat["title"] != "chip smoke" or [m["content"] for m in chat["messages"]] \
+            != ["hello card"]:
+        raise AssertionError(f"/db: read back {chat}")
+    with sqlite3.connect(db_path) as c:
+        rows = c.execute("SELECT role, content FROM messages WHERE chat_id=?",
+                         (cid,)).fetchall()
+    if rows != [("user", "hello card")]:
+        raise AssertionError(f"/db: the database file holds {rows}")
+    status, ct, page = call("/")
+    with open(os.path.join(os.path.dirname(H.__file__), "www", "index.html"), "rb") as f:
+        if status != 200 or ct != "text/html" or page != f.read():
+            raise AssertionError(f"/: status {status}, {ct}, {len(page)} bytes")
+    log(f"  /db: chat {cid} made, a message added and read back (and from the "
+        f"file); /: the web UI, {len(page)} bytes of text/html")
+
+
 def serving_phase(torch, eng, read):
     """Phase 5: the port's Server at full width, 8 slots, 16 requests from 8
-    client threads. Returns (the launch counts of the counted run, the fused
-    8-row step's time in ms)."""
+    client threads; then the embeddings (embedding_phase) and the web UI's
+    routes (db_webui_check, the server started with --db). Returns (the
+    launch counts of the counted run, the fused 8-row step's time in
+    ms)."""
+    import tempfile
     from concurrent.futures import ThreadPoolExecutor
     from llamafile_tpu_torch.ops import reset_launch_counts
     from llamafile_tpu_torch.server.batcher import Batcher
     from llamafile_tpu_torch.server.http import Server
     from llamafile_tpu_torch.utils.flags import Flags
-    srv = Server(Flags(model="synthetic-llama3-8b-q4k", slots=8, temp=0.0), eng)
+    tmp = tempfile.TemporaryDirectory()
+    db_path = os.path.join(tmp.name, "chats.db")
+    srv = Server(Flags(model="synthetic-llama3-8b-q4k", slots=8, temp=0.0, db=db_path),
+                 eng)
     gen = torch.Generator().manual_seed(7)
     prompts = [torch.randint(3, eng.cfg.n_vocab, (SERVE_LENGTHS[i % 4],),
                              generator=gen).tolist() for i in range(16)]
@@ -3465,6 +3661,8 @@ def serving_phase(torch, eng, read):
         if not srv.batcher.alive():
             raise AssertionError("phase 5: the batcher's device thread died")
         counts_e = embedding_phase(torch, srv, base, eng)
+        db_webui_check(base, db_path)
+    tmp.cleanup()
     # the same requests alone, one after another, on a fresh 8-slot batcher
     greedy = [next(i for i in range(16) if SERVE_LENGTHS[i % 4] == n and i not in
                    SERVE_SAMPLED and i not in SERVE_CHAT) for n in SERVE_LENGTHS]
@@ -3492,13 +3690,239 @@ def serving_phase(torch, eng, read):
 Q4KM_SERVED = (0, 2, 3, 5)          # phase 5's greedy request indices: 2 streamed
 
 
-PHASE6_LAYERS = 16     # phase 6's depth, cut from 32 (the time of phases 11 and 12)
-PHASE8_LAYERS = 14     # phase 8's, cut from 28
-PHASE9_LAYERS = 21     # phase 9's, cut from 42
-PHASE10_LAYERS = 31    # phase 10's, cut from 62
-PHASE11_LAYERS = 16    # phase 11's, cut from 64 (the time of phase 13, phase 3's two
+def _dense_setup(torch, eng):
+    """A row-batched cache and row state for one fused chunk of the dense
+    mode at 8 rows (FUSED_LENGTHS), and the chunk's attn_bucket window."""
+    from llamafile_tpu_torch.runtime.engine import attn_bucket
+    pw, rp, tok, pos = _row_state(torch, eng)
+    alen = attn_bucket(max(FUSED_LENGTHS) + 8 + 1, eng.max_seq_len)
+    return eng.init_row_cache(len(FUSED_LENGTHS)), pw, rp, tok, pos, alen
+
+
+def dense_step(torch, eng, read):
+    """Engine.fused_decode, the dense mode's fused step, at 8 rows (rows at
+    FUSED_LENGTHS, the window their attn_bucket), timed by the host clock
+    around synchronized 8-step chunks, against its bound: the weights plus
+    R x attn_len positions of K/V read once a step."""
+    cache, pw, rp, tok, pos, alen = _dense_setup(torch, eng)
+    run = lambda: eng.fused_decode(tok, pos, cache, pw, [None] * 8, rp, 8, attn_len=alen)
+    run()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) / 8 * 1e3)
+    step_ms = statistics.median(times)
+    kv = len(FUSED_LENGTHS) * alen * KV_BYTES_PER_TOKEN
+    bound = (read + kv) / HBM_BYTES_PER_S * 1e3
+    log(f"  dense fused step at 8 rows (lengths {FUSED_LENGTHS}, attn_len {alen}): "
+        f"{step_ms:.3f} ms (median of {', '.join(f'{t:.3f}' for t in times)}) against a "
+        f"{bound:.3f} ms bound ({read / 1e9:.3f} GB weights + 8 x {alen} x "
+        f"{KV_BYTES_PER_TOKEN} B = {kv / 1e9:.3f} GB KV): {bound / step_ms:.1%}")
+    del cache
+    torch.cuda.empty_cache()
+    return step_ms
+
+
+def dense_profile(torch, eng, step_ms):
+    """Device busy share of one dense fused 8-row chunk under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    cache, pw, rp, tok, pos, alen = _dense_setup(torch, eng)
+    run = lambda: eng.fused_decode(tok, pos, cache, pw, [None] * 8, rp, 8, attn_len=alen)
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    by_name, n_act = device_kernels(prof)
+    busy_ms = sum(by_name.values()) / 1e3 / 8
+    del cache
+    torch.cuda.empty_cache()
+    if busy_ms == 0:
+        log("  dense fused step busy share: not measured (the profiler recorded no kernels)")
+        return
+    log(f"  dense fused 8-row step: device busy {busy_ms:.3f} ms of a {step_ms:.3f} ms "
+        f"step ({busy_ms / step_ms:.1%}); {n_act / 8:.1f} device activities a step")
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+        log(f"    {us / 8 / 1e3:8.4f} ms/step  {name[:90]}")
+
+
+CHAT_TURNS = ("Tell me about the card in this machine.",
+              "What else can it do, and how fast is it?",
+              "Thank you. Say it again, shorter.")
+CHAT_NEW = 16                     # tokens a turn of the REPL session
+
+
+def chat_phase(torch, eng):
+    """A three-turn REPL session in process: cli.chat_loop over a
+    ChatSession on eng's weights with grammar_tokenizer's pieces (text to
+    byte pieces), CHAT_NEW greedy tokens a turn. Each turn's TTFT and the
+    tokens it reused from the kept cache; turn 2's first-token logits
+    against a fresh prefill of its whole prompt: within 2e-2 of the
+    largest, the same top-1. Launches counted over the session:
+    flash_decode_write once a layer a decode step when no turn stops at an
+    end-of-generation piece. Returns the launch counts."""
+    import io
+    from llamafile_tpu_torch.cli import chat_loop
+    from llamafile_tpu_torch.ops import reset_launch_counts
+    from llamafile_tpu_torch.runtime.engine import ChatSession, Engine
+    from llamafile_tpu_torch.utils.flags import parse_flags
+    n, v = eng.cfg.n_layers, eng.cfg.n_vocab
+    ceng = Engine(eng.cfg, eng.params, grammar_tokenizer(v), max_seq_len=eng.max_seq_len,
+                  device=eng.device)
+    turns, logits = [], []
+
+    class TimedSession(ChatSession):
+        def generate(self, prompt_ids, **kw):
+            t0 = time.perf_counter()
+            got = 0
+            for tid, piece in super().generate(prompt_ids, **kw):
+                if not got:
+                    turns.append(dict(ids=list(prompt_ids), reused=self.reused_last,
+                                      ttft=time.perf_counter() - t0))
+                got += 1
+                yield tid, piece
+            turns[-1]["tokens"] = got
+
+    def prefill(orig):
+        def run(cache, ids, pos0=0):
+            last, cache = orig(cache, ids, pos0)
+            logits.append(last.clone())
+            return last, cache
+        return run
+
+    flags = parse_flags(["-n", str(CHAT_NEW), "--temp", "0"])
+    out = io.StringIO()
+    list(ceng.generate("warm up", max_tokens=9, sampling=flags.sampling()))
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    with patched(ceng, "prefill", prefill):
+        rc = chat_loop(ceng, flags, io.StringIO("".join(t + "\n" for t in CHAT_TURNS)),
+                       out, session=TimedSession(ceng))
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    if rc != 0 or out.getvalue().count(">>> ") != len(CHAT_TURNS) + 1 \
+            or len(turns) != len(CHAT_TURNS):
+        raise AssertionError(f"REPL session: rc {rc}, {turns}, output {out.getvalue()!r}")
+    for i, t in enumerate(turns):
+        log(f"  REPL turn {i + 1}: prompt {len(t['ids'])} tokens, {t['reused']} reused "
+            f"from the kept cache, {len(t['ids']) - t['reused']} prefilled; TTFT "
+            f"{t['ttft'] * 1e3:.2f} ms; {t['tokens']} tokens")
+    if turns[0]["reused"] != 0 or not all(t["reused"] > 0 for t in turns[1:]) \
+            or not all(len(t["ids"]) - t["reused"] > 1 for t in turns):
+        raise AssertionError(f"REPL session reuse: {[t['reused'] for t in turns]}")
+    fresh, _ = ceng.prefill(ceng.new_cache(), turns[1]["ids"])
+    rel = ((logits[1] - fresh).abs().max() / fresh.abs().max()).item()
+    same = int(logits[1].argmax()) == int(fresh.argmax())
+    log(f"  turn 2's first-token logits against a fresh prefill of its "
+        f"{len(turns[1]['ids'])}-token prompt: {rel:.3e} of the largest (limit 2e-2), "
+        f"top-1 {'the same' if same else 'DIFFERENT'}")
+    if not (rel <= 2e-2 and same):
+        raise AssertionError("REPL turn 2: the reused cache's logits part from a fresh prefill")
+    steps = sum(t["tokens"] - 1 for t in turns)
+    if all(t["tokens"] == CHAT_NEW for t in turns):
+        if counts["flash_decode_write_stacked"] != n * steps:
+            raise AssertionError(f"REPL session: {counts['flash_decode_write_stacked']} "
+                                 f"flash_decode_write launches for {steps} decode steps")
+        log(f"  launches in the session: flash_decode_write {n} x {steps} decode steps")
+    else:
+        log(f"  a turn stopped at the end-of-generation piece: launches {counts}")
+    return counts
+
+
+DENSE_NEW = 32                    # new tokens a request of phase 14
+
+
+def dense_phase(torch, eng, read):
+    """Phase 14 on phase 4's engine (llama3-8b Q4_K, 32 layers): the
+    batcher's dense row mode, Batcher(paged=False) at 8 rows (a bf16
+    row-batched cache [32, 8, 2048, 1024]), serving phase 5's 16 prompts
+    (SERVE_LENGTHS, SERVE_SAMPLED at 0.8) with DENSE_NEW new tokens each,
+    submitted at once after a warm-up. Launches exact: flash_decode_write once a layer a
+    fused step, the products at M = 8 on qmm_txn, the admission slices as
+    phase 5's. Output tok/s; each request of ALONE_LENGTHS and the first
+    sampled one served again alone on a fresh dense batcher gives its ids;
+    the fused step timed (dense_step); then the REPL session (chat_phase).
+    Returns (the counted runs' launch counts, the fused step's ms)."""
+    from llamafile_tpu_torch.ops import reset_launch_counts
+    from llamafile_tpu_torch.runtime.sampling import SamplingParams
+    from llamafile_tpu_torch.server.batcher import Batcher
+    n, v = eng.cfg.n_layers, eng.cfg.n_vocab
+    gen = torch.Generator().manual_seed(7)
+    prompts = [torch.randint(3, v, (SERVE_LENGTHS[i % 4],), generator=gen).tolist()
+               for i in range(16)]
+    sps = [SamplingParams(temperature=0.8, top_k=40, seed=i) if i in SERVE_SAMPLED
+           else SamplingParams(temperature=0.0) for i in range(16)]
+    b = Batcher(eng, rows=8, paged=False)
+    try:
+        if b.paged_mode or tuple(b.cache.k.shape) != (n, 8, eng.max_seq_len, 1024):
+            raise AssertionError(f"phase 14: not the dense cache ({b.paged_mode})")
+        _collect_tokens(b.submit(torch.randint(3, v, (40,), generator=gen).tolist(),
+                                 sps[0], 8))
+        torch.cuda.synchronize()
+        st0 = copy.deepcopy(b.stats)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        reqs = [b.submit(prompts[i], sps[i], DENSE_NEW) for i in range(16)]
+        results = [_collect_tokens(r) for r in reqs]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        st1 = b.stats
+        if not b.alive():
+            raise AssertionError("phase 14: the batcher's device thread died")
+    finally:
+        b.shutdown()
+    n_out = sum(len(t) for t in results)
+    log(f"  16 requests, {n_out} tokens out in {wall:.3f} s: {n_out / wall:.2f} output "
+        f"tok/s (8 dense rows, prompts {SERVE_LENGTHS} x 4, {DENSE_NEW} new tokens)")
+    delta = lambda k: {bk: c - st0[k].get(bk, 0) for bk, c in st1[k].items()}
+    steps = st1["decode_steps"] - st0["decode_steps"]
+    sl, fr = delta("slices_by_bucket"), delta("fresh_slices_by_bucket")
+    allb = {bk: sl.get(bk, 0) + fr.get(bk, 0) for bk in set(sl) | set(fr)}
+    small = sum(c for bk, c in allb.items() if bk <= 32)
+    big = sum(c for bk, c in allb.items() if bk >= 64)
+    log(f"  batcher tallies: {steps} fused decode steps at 8 rows, admission slices by "
+        f"bucket {allb} (fresh {fr})")
+    check_counts(counts, {"flash_decode_write_stacked": n * steps,
+                          "qmm_txn": (4 * n + 1) * steps + 4 * n * small,
+                          "qmm_dequant": 4 * n * big,
+                          "flash_prefill": n * sum(c for bk, c in fr.items() if bk >= 128),
+                          "qmm_txn_m1": small + big}, "phase 14")
+    greedy = [next(i for i in range(16) if SERVE_LENGTHS[i % 4] == m and i not in
+                   SERVE_SAMPLED) for m in ALONE_LENGTHS]
+    alone = Batcher(eng, rows=8, paged=False)
+    try:
+        for i in greedy + [SERVE_SAMPLED[0]]:
+            toks = _alone_tokens(alone, prompts[i], sps[i], DENSE_NEW)
+            same = toks == results[i]
+            log(f"  request {i} (prompt {SERVE_LENGTHS[i % 4]}, "
+                f"{'sampled' if i in SERVE_SAMPLED else 'greedy'}): alone {len(toks)} "
+                f"tokens, {'the same ids' if same else 'DIFFERENT ids'} as served beside "
+                "the others")
+            if not same:
+                raise AssertionError(f"phase 14 request {i}: {toks} alone, {results[i]}")
+    finally:
+        alone.shutdown()
+    del b, alone
+    torch.cuda.empty_cache()
+    step_ms = dense_step(torch, eng, read)
+    log("  the REPL (--chat) in process, three turns")
+    counts_chat = chat_phase(torch, eng)
+    return [counts, counts_chat], step_ms
+
+
+PHASE6_LAYERS = 8      # phase 6's depth, cut from 32 (the time of phases 11 and 12,
+                       # then of phase 14)
+PHASE8_LAYERS = 8      # phase 8's, cut from 28
+PHASE9_LAYERS = 12     # phase 9's, cut from 42 (to 21, then to 12 for phase 14)
+PHASE10_LAYERS = 16    # phase 10's, cut from 62 (to 31, then to 16 for phase 14)
+PHASE11_LAYERS = 8     # phase 11's, cut from 64 (the time of phase 13, phase 3's two
                        # sampling and grammar checks and admission_profile)
-PHASE12_LAYERS = 14    # phase 12's, cut from 28 (the same)
+PHASE12_LAYERS = 8     # phase 12's, cut from 28 (the same; both halved again for
+                       # phase 14)
 
 
 def q4km_phase(torch, dev, prompt, long_prompt, n_new):
@@ -3685,11 +4109,24 @@ def flavour_phase(torch, eng, read, prompt, long_prompt, n_new):
 FUSED_LENGTHS = (88, 192, 564, 1064) * 2      # the phase's prompts + 64 tokens
 
 
+def _row_state(torch, eng):
+    """Greedy row state for one fused chunk at 8 rows (FUSED_LENGTHS): the
+    penalty window, the rows' knobs, their tokens and positions."""
+    from llamafile_tpu_torch.runtime.sampling import (PenaltyWindow, SamplingParams,
+                                                      row_params_from_sp)
+    dev, cfg, r = eng.device, eng.cfg, len(FUSED_LENGTHS)
+    z = lambda shape: torch.zeros(shape, dtype=torch.int32, device=dev)
+    pw = PenaltyWindow(torch.zeros((r, cfg.n_vocab), device=dev), z((r, 256)), z((r,)),
+                       z((r,)))
+    rp = row_params_from_sp([SamplingParams(temperature=0.0)] * r, cfg.n_vocab, device=dev)
+    tok = torch.full((r,), 5, dtype=torch.int32, device=dev)
+    pos = torch.tensor(FUSED_LENGTHS, dtype=torch.int32, device=dev)
+    return pw, rp, tok, pos
+
+
 def _fused_setup(torch, eng):
     """A pool, tables and row state for one fused decode chunk at 8 rows."""
     from llamafile_tpu_torch.runtime.paged import PageAllocator, init_paged
-    from llamafile_tpu_torch.runtime.sampling import (PenaltyWindow, SamplingParams,
-                                                      row_params_from_sp)
     dev, cfg, r, ps = eng.device, eng.cfg, len(FUSED_LENGTHS), 64
     maxp = eng.max_seq_len // ps
     pool = init_paged(cfg.n_layers, cfg.n_kv_heads, 1 + r * maxp, ps, cfg.head_dim,
@@ -3697,13 +4134,7 @@ def _fused_setup(torch, eng):
     alloc = PageAllocator(1 + r * maxp, ps, r, eng.max_seq_len)
     for i, n in enumerate(FUSED_LENGTHS):
         alloc.ensure(i, n + 16)
-    z = lambda shape: torch.zeros(shape, dtype=torch.int32, device=dev)
-    pw = PenaltyWindow(torch.zeros((r, cfg.n_vocab), device=dev), z((r, 256)), z((r,)),
-                       z((r,)))
-    rp = row_params_from_sp([SamplingParams(temperature=0.0)] * r, cfg.n_vocab, device=dev)
-    tok = torch.full((r,), 5, dtype=torch.int32, device=dev)
-    pos = torch.tensor(FUSED_LENGTHS, dtype=torch.int32, device=dev)
-    return pool, alloc.device_tables(r, device=dev), pw, rp, tok, pos
+    return (pool, alloc.device_tables(r, device=dev)) + _row_state(torch, eng)
 
 
 def fused_step(torch, eng, read):

@@ -22,8 +22,10 @@ over 32 tokens then run the int8 prefill kernel; decode never reads them.
 The KV cache follows kv_dtype: bf16, or int8 codes with per-row scales
 (runtime/kvcache.py). The continuous batcher (server/batcher.py) drives the
 engine through its serving hooks: `new_row_cache` and `row_prefill` for
-admission (bf16 row caches, as the reference's), and the paged pool it
-keeps itself (bf16 or int8 pages by kv_dtype).
+admission, and either the paged pool it keeps itself (bf16 or int8 pages by
+kv_dtype) or, in its dense row mode, `init_row_cache` (the row-batched
+cache [L, R, S, ...]) and `fused_decode` (a chunk of steps over all rows,
+each at its own position).
 
 The decode loop carries what the reference's scan carried: the penalty
 window (repeat/presence/frequency penalties over the last penalty_last_n
@@ -31,8 +33,9 @@ tokens) and mirostat's mu, both on the device; sampling launches no
 kernel. `generate(prompt_cache=path)` is the reference's session file
 (runtime/state.py): the common prefix with the saved history is loaded
 instead of prefilled, and the new prompt's state is saved after the
-prefill. Left out: the batch sizes above 1, self-extend (grp_attn_n) and
-the multimodal prefill.
+prefill. `ChatSession` keeps one cache across the turns of a conversation
+and prefills only what a turn adds. Left out: the batch sizes above 1,
+self-extend (grp_attn_n) and the multimodal prefill.
 """
 from __future__ import annotations
 
@@ -45,9 +48,9 @@ import torch
 from ..device import resolve_device
 from ..models.llama import (LlamaConfig, LlamaParams, forward, init_cache,
                             int8_prefill_params, stack_layers)
-from .sampling import (PenaltyWindow, SamplingParams, mirostat_init,
-                       penalty_window_init, penalty_window_push,
-                       sample_stateful)
+from .sampling import (PenaltyWindow, RowParams, SamplingParams,
+                       mirostat_init, penalty_window_init, penalty_window_push,
+                       sample_batched, sample_stateful)
 from .tokenizer import Tokenizer
 
 PREFILL_BUCKETS = (16, 32, 64, 128, 256, 512, 1024, 2048, 4096)
@@ -120,8 +123,9 @@ class Engine:
     recurrent = False
 
     def init_row_cache(self, rows: int, dtype=None):
-        raise NotImplementedError("the dense row-batched cache of the "
-                                  "batcher is not ported: it runs paged")
+        """Row-batched KV cache [L, R, S, ...] of the batcher's dense mode."""
+        return init_cache(self.cfg, rows, self.max_seq_len,
+                          dtype or self.kv_dtype, device=self.device)
 
     def new_row_cache(self, dtype=None):
         """Single-row admission cache [L, 1, S, Hkv*D]."""
@@ -135,6 +139,30 @@ class Engine:
         return forward(self.params, self.cfg, tokens, pos0, row_cache,
                        fresh_prefill=fresh, attn_len=attn_len,
                        last_idx=last_idx)
+
+    @torch.no_grad()
+    def fused_decode(self, tok, pos, cache, pw: PenaltyWindow,
+                     gens: List[Optional[torch.Generator]], rp: RowParams,
+                     n_steps: int, attn_len: Optional[int] = None
+                     ) -> torch.Tensor:
+        """n_steps decode steps over every row of a row-batched cache: each
+        step forward, sample_batched with each row's knobs and generator,
+        penalty_window_push. tok/pos int32 [R], each row at its own
+        position; cache and pw are updated in place. A position never
+        passes S - 1, the trash slot where parked rows write (the
+        reference's clamped cache update). Returns tokens int32 [n_steps,
+        R] on the device."""
+        last = cache.max_len - 1
+        toks = torch.empty((n_steps, tok.shape[0]), dtype=torch.int32,
+                           device=tok.device)
+        for i in range(n_steps):
+            logits, _ = forward(self.params, self.cfg, tok[:, None], pos, cache,
+                                attn_len=attn_len)
+            nxt = sample_batched(logits[:, -1, :], gens, rp, pw.counts)
+            penalty_window_push(pw, nxt)
+            toks[i] = nxt
+            tok, pos = nxt, torch.clamp(pos + 1, max=last)
+        return toks
 
     def prefill(self, cache, token_ids: List[int], pos0: int = 0):
         """Feed prompt tokens; returns (last_logits f32 [V], cache)."""
@@ -228,6 +256,16 @@ class Engine:
         if prompt_cache and self.batch_size == 1 and keep < len(ids):
             from .state import save_state
             save_state(prompt_cache, cache, ids)
+        yield from self._stream(ids, cache, last_logits, sp, max_tokens,
+                                stop_on_eog)
+
+    def _stream(self, ids: List[int], cache, last_logits, sp: SamplingParams,
+                max_tokens: int, stop_on_eog: bool, on_chunk=None
+                ) -> Iterator[Tuple[int, str]]:
+        """Sample the first token from last_logits, then decode in chunks
+        after the prompt ids (already in cache), carrying the penalty window
+        and mirostat's mu. on_chunk(pos) is called after each chunk with the
+        positions written to the cache."""
         gen = torch.Generator(device=self.device)
         gen.manual_seed(sp.seed)
         pw = (penalty_window_init(ids, self.cfg.n_vocab, sp.penalty_last_n,
@@ -253,6 +291,8 @@ class Engine:
             toks, mu = self.decode(tok, pos, cache, gen, sp, chunk, attn_len=alen,
                                    pw=pw, mu=mu)
             pos_host += chunk
+            if on_chunk is not None:
+                on_chunk(pos_host)
             for tid in toks[0].tolist():
                 if stop_on_eog and self.tokenizer.is_eog(tid):
                     return
@@ -266,6 +306,51 @@ class Engine:
                  sampling: Optional[SamplingParams] = None, **kw) -> str:
         return "".join(piece for _, piece in
                        self.generate(prompt, max_tokens, sampling, **kw))
+
+
+class ChatSession:
+    """A conversation on one engine: the KV cache is kept between turns and
+    only the prompt beyond the common prefix with the previous turn is
+    prefilled (the reference's chatbot keeps its context across turns).
+    Counterpart of llamafile_tpu/runtime/engine.py's ChatSession."""
+
+    def __init__(self, engine: Engine):
+        self.engine = engine
+        self.cache = engine.new_cache()
+        self.ids: List[int] = []
+        self.cached_len = 0        # positions written to the cache
+        self.reused_last = 0       # prefix tokens reused by the last turn
+
+    def generate(self, prompt_ids: List[int], max_tokens: int = 512,
+                 sampling: Optional[SamplingParams] = None,
+                 stop_on_eog: bool = True) -> Iterator[Tuple[int, str]]:
+        """Stream (token_id, text_piece) pairs of one turn; prompt_ids is
+        the whole templated conversation so far."""
+        from ..server.slots import common_prefix_len
+        eng = self.engine
+        sp = sampling or SamplingParams()
+        ids = list(prompt_ids)
+        if len(ids) >= eng.max_seq_len:
+            ids = ids[-max(1, eng.max_seq_len - max_tokens - 1):]
+        max_tokens = min(max_tokens, eng.max_seq_len - len(ids))
+        # a turn's last sampled token is yielded, but its K/V is written
+        # only when a later step consumes it: reuse stops at cached_len
+        keep = min(common_prefix_len(self.ids, ids), self.cached_len)
+        if keep == len(ids):
+            keep = len(ids) - 1
+        if keep == 0:
+            self.cache = eng.new_cache()
+        self.reused_last = keep
+        last_logits, self.cache = eng.prefill(self.cache, ids[keep:], pos0=keep)
+        self.cached_len = len(ids)
+        self.ids = list(ids)
+
+        def written(pos: int):
+            self.cached_len = pos
+        for tid, piece in eng._stream(ids, self.cache, last_logits, sp,
+                                      max_tokens, stop_on_eog, written):
+            self.ids.append(tid)
+            yield tid, piece
 
 
 def load_engine(path: str, device="cuda", **kw) -> Engine:

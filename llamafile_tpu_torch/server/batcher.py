@@ -1,8 +1,8 @@
 """Continuous batcher of the port: one fused decode step across all active
-requests, over a paged KV pool.
+requests, over a paged KV pool or a dense row-batched cache.
 
-Counterpart of llamafile_tpu/server/batcher.py in its paged mode, for llama
-engines:
+Counterpart of llamafile_tpu/server/batcher.py, for llama engines. In its
+paged mode (the default, `paged=None` or True):
 
 - a paged KV pool (runtime/paged.py, bf16 or int8 pages) shared by R =
   --slots rows through host-side block tables; page 0 is the trash page;
@@ -18,6 +18,15 @@ engines:
 - inactive rows park on the trash page, so the fused step never touches a
   live page.
 
+In the dense row mode (`paged=False`, and for an engine that cannot page)
+the rows live in the engine's row-batched cache [L, R, S, ...] (bf16 or
+int8 by kv_dtype, `Engine.init_row_cache`): admission prefills into a
+single-row cache of the same dtype, seeded with the row's reusable prefix,
+and copies it into the row; the fused chunk is `Engine.fused_decode` over
+the attn_bucket window of the furthest active row, and inactive rows park
+on the trash slot S - 1, which the window never streams. The dense mode
+serves a sliding-window model (gemma2, gemma3); the paged pool refuses one.
+
 Each request draws from its own torch.Generator, seeded from its seed: a
 seeded request gives the same tokens served alone or beside others.
 
@@ -25,9 +34,10 @@ A row's state is saved, restored and erased on the device thread, between
 ticks, through the control queue (`save_row`, `restore_row`, `erase_row`;
 runtime/state.py files of bf16 KV, an int8 pool's pages dequantized; a
 save's file is written on the caller's thread): a restored row is a warm
-prefix that the next request sharing its prompt reuses at admission. The JAX package's dense (non-paged) mode, recurrent
-rows and mirostat are not ported and raise NotImplementedError. A device
-fault after which the card still works
+prefix that the next request sharing its prompt reuses at admission; a
+dense row saves its own dtype, and an int8 row restores only into an int8
+dense cache. Recurrent rows and mirostat are not ported and raise
+NotImplementedError. A device fault after which the card still works
 (torch.cuda.OutOfMemoryError) is recovered as in the reference: the device
 state is rebuilt and the interrupted requests resume. Any other exception
 on the device thread ends it, and every waiting request, and any request
@@ -82,6 +92,15 @@ def _fused_decode_paged(engine, tok, pos, pages, tables, pw, gens, rp,
     return toks
 
 
+def _copy_row(dst, di: int, src, si: int) -> None:
+    """Row di of the KVCache dst = row si of src, every leaf (int8 scales
+    too)."""
+    for d, s in zip((dst.k, dst.v, dst.k_scale, dst.v_scale),
+                    (src.k, src.v, src.k_scale, src.v_scale)):
+        if d is not None:
+            d[:, di].copy_(s[:, si])
+
+
 @dataclass
 class Request:
     ids: List[int]
@@ -121,16 +140,16 @@ class Batcher:
     def __init__(self, engine, rows: int = 4, paged: Optional[bool] = None,
                  prefill_chunk: int = PREFILL_CHUNK,
                  preempt_after: float = -1.0):
-        if paged is False or not getattr(engine, "supports_paged", False):
-            raise NotImplementedError("the batcher's dense (non-paged) mode "
-                                      "is not ported yet")
         if getattr(engine, "recurrent", False) or getattr(engine.cfg, "alibi", False):
             raise NotImplementedError("recurrent and ALiBi engines are not "
                                       "ported to the batcher yet")
-        if getattr(engine.cfg, "swa_window", 0):
+        can_page = getattr(engine, "supports_paged", True)
+        self.paged_mode = can_page if paged is None else bool(paged and can_page)
+        if self.paged_mode and getattr(engine.cfg, "swa_window", 0):
             # the reference's paged decode asserts on a sliding window
             raise NotImplementedError("sliding-window models (gemma2, gemma3) are "
-                                      "not served: the paged decode has no window")
+                                      "not served paged: the paged decode has no "
+                                      "window (paged=False serves them)")
         self.engine = engine
         self.cfg = engine.cfg
         self.device = engine.device
@@ -167,17 +186,22 @@ class Batcher:
         self.thread.start()
 
     def _init_device_state(self):
-        """(Re)build every device-resident tensor: the KV pool, penalty
-        windows, logit-bias table and the rows' generators. Called at
-        construction and by _recover after a device fault."""
-        from ..runtime.paged import PageAllocator, init_paged
+        """(Re)build every device-resident tensor: the KV pool or the row
+        cache, penalty windows, logit-bias table and the rows' generators.
+        Called at construction and by _recover after a device fault."""
         rows, dev, v = self.n_rows, self.device, self.cfg.n_vocab
-        maxp = -(-self.max_len // PAGE_SIZE)
-        n_pages = 1 + rows * maxp
-        self.pages = init_paged(self.cfg.n_layers, self.cfg.n_kv_heads, n_pages,
-                                PAGE_SIZE, self.cfg.head_dim,
-                                dtype=self.engine.kv_dtype, device=dev)
-        self.alloc = PageAllocator(n_pages, PAGE_SIZE, rows, self.max_len)
+        if self.paged_mode:
+            from ..runtime.paged import PageAllocator, init_paged
+            maxp = -(-self.max_len // PAGE_SIZE)
+            n_pages = 1 + rows * maxp
+            self.pages = init_paged(self.cfg.n_layers, self.cfg.n_kv_heads,
+                                    n_pages, PAGE_SIZE, self.cfg.head_dim,
+                                    dtype=self.engine.kv_dtype, device=dev)
+            self.alloc = PageAllocator(n_pages, PAGE_SIZE, rows, self.max_len)
+            self.cache = None
+        else:
+            self.cache = self.engine.init_row_cache(rows)
+            self.pages = self.alloc = None
         z = lambda shape, dt: torch.zeros(shape, dtype=dt, device=dev)
         self.pw = PenaltyWindow(z((rows, v), torch.float32),
                                 z((rows, PENALTY_RING), torch.int32),
@@ -243,45 +267,61 @@ class Batcher:
                 done.put((False, e))
 
     def _gather_row_sync(self, ridx: int):
-        """(the row's bf16 KV on the host, trimmed to its history; history)."""
+        """(the row's KV on the host, trimmed to its history; history): bf16
+        from the pool, the row cache's own dtype in the dense mode."""
         from ..runtime.kvcache import KVCache
-        from ..runtime.paged import gather_pages_to_row
         row = self.rows[ridx]
         if row.req is not None:
             raise RuntimeError(f"row {ridx} is busy")
         if not row.history:
             raise RuntimeError(f"row {ridx} has no cached state")
         n = len(row.history)
+        if not self.paged_mode:
+            c = self.cache
+            host = lambda a: None if a is None else a[:, ridx:ridx + 1, :n].cpu()
+            return (KVCache(host(c.k), host(c.v), host(c.k_scale), host(c.v_scale)),
+                    list(row.history))
+        from ..runtime.paged import gather_pages_to_row
         k, v = gather_pages_to_row(self.pages, self._table(self.alloc.tables[ridx]),
                                    PAGE_SIZE, self.max_len)
         host = lambda a: a[:, :, :n].to(torch.bfloat16).cpu()
         return KVCache(host(k), host(v)), list(row.history)
 
     def _restore_row_sync(self, path: str) -> dict:
-        from ..runtime.paged import copy_row_to_pages
         from ..runtime.state import load_state
-        span = -(-self.max_len // PAGE_SIZE) * PAGE_SIZE
+        span = (-(-self.max_len // PAGE_SIZE) * PAGE_SIZE if self.paged_mode
+                else self.max_len)
         cache, hist = load_state(path, max_len=span, device=self.device)
         if not hist or len(hist) > self.max_len:
             raise RuntimeError("saved state empty or longer than the context")
         free = [i for i, r in enumerate(self.rows) if r.req is None]
         if not free:
             raise RuntimeError("all rows busy")
-        if cache.quantized:
+        if self.paged_mode and cache.quantized:
             raise RuntimeError("int8 row state cannot restore into a paged "
                                "pool (save from paged mode)")
-        want = (self.cfg.n_layers, 1, span, self.cfg.n_kv_heads * self.cfg.head_dim)
+        if not self.paged_mode and cache.quantized != self.cache.quantized:
+            raise RuntimeError("saved state quantization does not match "
+                               "this server's --kv-dtype")
+        if self.paged_mode:
+            want = (self.cfg.n_layers, 1, span, self.cfg.n_kv_heads * self.cfg.head_dim)
+        else:
+            want = (self.cache.k.shape[0], 1, *self.cache.k.shape[2:])
         if tuple(cache.k.shape) != want or tuple(cache.v.shape) != want:
             raise RuntimeError(f"saved state of shape {tuple(cache.k.shape)} does "
                                f"not fit this model's rows {want}")
         ridx = min(free, key=lambda i: (bool(self.rows[i].history),
                                         self.rows[i].last_used))
         row = self.rows[ridx]
-        self.alloc.release(ridx)
-        self.alloc.ensure(ridx, len(hist))
-        self.alloc.lengths[ridx] = len(hist)
-        copy_row_to_pages(self.pages, cache.k, cache.v,
-                          self._table(self.alloc.tables[ridx]), PAGE_SIZE)
+        if self.paged_mode:
+            from ..runtime.paged import copy_row_to_pages
+            self.alloc.release(ridx)
+            self.alloc.ensure(ridx, len(hist))
+            self.alloc.lengths[ridx] = len(hist)
+            copy_row_to_pages(self.pages, cache.k, cache.v,
+                              self._table(self.alloc.tables[ridx]), PAGE_SIZE)
+        else:
+            _copy_row(self.cache, ridx, cache, 0)
         row.history = list(hist)
         row.pos = len(hist)
         row.active = False
@@ -296,7 +336,8 @@ class Batcher:
         n = len(row.history)
         row.history = []
         row.pos = 0
-        self.alloc.release(ridx)
+        if self.paged_mode:
+            self.alloc.release(ridx)
         return {"row": ridx, "erased_tokens": n}
 
     def alive(self) -> bool:
@@ -325,7 +366,6 @@ class Batcher:
         return torch.tensor(pages, dtype=torch.int32, device=self.device)
 
     def _start_admission(self, req: Request) -> bool:
-        from ..runtime.paged import gather_pages_to_row
         free = [r for r in self.rows if r.req is None]
         if not free:
             return False
@@ -340,18 +380,24 @@ class Batcher:
             ids = ids[-max(1, self.max_len - req.max_tokens - 2):]
         keep = common_prefix_len(row.history, ids)
         ridx = self.rows.index(row)
-        keep = self._maybe_share_prefix(ridx, row, ids, keep)
-        keep = self._paged_prepare(ridx, row, ids, keep)
+        if self.paged_mode:
+            keep = self._maybe_share_prefix(ridx, row, ids, keep)
+            keep = self._paged_prepare(ridx, row, ids, keep)
         if keep == len(ids):
             keep = len(ids) - 1
-        row_cache = self.engine.new_row_cache(dtype=torch.bfloat16)
-        if keep:
+        # the pool's pages come back as bf16; a dense row keeps its dtype
+        row_cache = self.engine.new_row_cache(
+            dtype=torch.bfloat16 if self.paged_mode else self.engine.kv_dtype)
+        if keep and self.paged_mode:
+            from ..runtime.paged import gather_pages_to_row
             self.alloc.truncate(ridx, keep)
             k, v = gather_pages_to_row(self.pages,
                                        self._table(self.alloc.tables[ridx]),
                                        PAGE_SIZE, self.max_len)
             row_cache.k.copy_(k)
             row_cache.v.copy_(v)
+        elif keep:
+            _copy_row(row_cache, 0, self.cache, ridx)
         row.req = req
         row.active = False
         req.started = time.time()
@@ -424,7 +470,6 @@ class Batcher:
     def _advance_admission(self):
         """Feed ONE prefill slice; on completion activate the row."""
         from ..runtime.engine import attn_bucket, slice_len
-        from ..runtime.paged import copy_row_to_pages
         a = self.admission
         row = self.rows[a.ridx]
         if a.req.stop:                 # cancelled mid-admission
@@ -466,14 +511,19 @@ class Batcher:
         tok0 = int(sample(logits[0, 0][None, :], gen, sp, row_pw.counts)[0])
         row_pw = penalty_window_init(a.ids + [tok0], v, sp.penalty_last_n,
                                      ring_size=PENALTY_RING, device=dev)
-        self.alloc.ensure(a.ridx, len(a.ids))
-        self.alloc.lengths[a.ridx] = len(a.ids)
-        # aliased (shared-prefix) pages are read-only: their dense-row values
-        # came from those very pages, so their writes go to the trash page
-        tbl = [0 if self.alloc.is_shared(p) else p
-               for p in self.alloc.tables[a.ridx]]
-        copy_row_to_pages(self.pages, a.row_cache.k, a.row_cache.v,
-                          self._table(tbl), PAGE_SIZE)
+        if self.paged_mode:
+            from ..runtime.paged import copy_row_to_pages
+            self.alloc.ensure(a.ridx, len(a.ids))
+            self.alloc.lengths[a.ridx] = len(a.ids)
+            # aliased (shared-prefix) pages are read-only: their dense-row
+            # values came from those very pages, so their writes go to the
+            # trash page
+            tbl = [0 if self.alloc.is_shared(p) else p
+                   for p in self.alloc.tables[a.ridx]]
+            copy_row_to_pages(self.pages, a.row_cache.k, a.row_cache.v,
+                              self._table(tbl), PAGE_SIZE)
+        else:
+            _copy_row(self.cache, a.ridx, a.row_cache, 0)
         bias_row = np.zeros((v,), np.float32)
         for t, x in sp.logit_bias:
             if 0 <= t < v:
@@ -586,7 +636,7 @@ class Batcher:
         if self._pending is not None:
             requeue.append(self._pending)
             self._pending = None
-        self.pages = None
+        self.pages = self.cache = None
         if self.device.type == "cuda":
             torch.cuda.empty_cache()
         self._init_device_state()
@@ -597,6 +647,7 @@ class Batcher:
         self.wake.set()
 
     def _tick(self):
+        from ..runtime.engine import attn_bucket
         # start a new admission when none is in flight (normal queue first,
         # then the deprioritized batch queue)
         if self.admission is None:
@@ -628,8 +679,9 @@ class Batcher:
                 self.wake.wait(timeout=0.05)
                 self.wake.clear()
             return
-        # fused decode chunk over ALL rows (inactive rows park on the trash
-        # page 0). A lone stream with nothing queued gets 2-token chunks.
+        # fused decode chunk over ALL rows (inactive rows park: on the trash
+        # page 0 paged, on the trash slot S - 1 dense). A lone stream with
+        # nothing queued gets 2-token chunks.
         lone = (len(active) == 1 and self.admission is None
                 and self._pending is None and self.queue.empty()
                 and self.batch_queue.empty())
@@ -638,7 +690,8 @@ class Batcher:
         if chunk == DECODE_CHUNK:
             self.stats["full_chunks"] += 1
         tok = np.zeros((self.n_rows,), np.int32)
-        pos = np.zeros((self.n_rows,), np.int32)
+        park = 0 if self.paged_mode else self.max_len - 1
+        pos = np.full((self.n_rows,), park, np.int32)
         # parked rows sample greedily over trash logits (output discarded)
         sps = [SamplingParams(temperature=0.0)] * self.n_rows
         gens: List[Optional[torch.Generator]] = [None] * self.n_rows
@@ -651,16 +704,23 @@ class Batcher:
         dev = self.device
         rp = row_params_from_sp(sps, self.cfg.n_vocab, device=dev)
         rp.bias = self.bias             # per-request logit_bias, set at admission
-        for i in active:                # pages for the whole chunk
-            self.alloc.ensure(i, self.rows[i].pos + chunk + 1)
-        # parked rows keep their host tables for prefix reuse, but their
-        # device table is all trash page: their writes must not land in a
-        # live page that a later admission would inherit
-        tables = self.alloc.device_tables(self.n_rows, only_rows=active,
-                                          device=dev)
-        toks = _fused_decode_paged(self.engine, torch.from_numpy(tok).to(dev),
-                                   torch.from_numpy(pos).to(dev), self.pages,
-                                   tables, self.pw, gens, rp, chunk)
+        tok_d, pos_d = torch.from_numpy(tok).to(dev), torch.from_numpy(pos).to(dev)
+        if self.paged_mode:
+            for i in active:            # pages for the whole chunk
+                self.alloc.ensure(i, self.rows[i].pos + chunk + 1)
+            # parked rows keep their host tables for prefix reuse, but their
+            # device table is all trash page: their writes must not land in
+            # a live page that a later admission would inherit
+            tables = self.alloc.device_tables(self.n_rows, only_rows=active,
+                                              device=dev)
+            toks = _fused_decode_paged(self.engine, tok_d, pos_d, self.pages,
+                                       tables, self.pw, gens, rp, chunk)
+        else:
+            # the window of the furthest active row; parked rows at S - 1
+            # lie past it unless it spans the whole cache
+            alen = attn_bucket(int(pos[active].max()) + chunk + 1, self.max_len)
+            toks = self.engine.fused_decode(tok_d, pos_d, self.cache, self.pw,
+                                            gens, rp, chunk, attn_len=alen)
         self.stats["decode_steps"] += chunk
         host_toks = toks.cpu().numpy()   # [chunk, R], one read-back a chunk
         for step in range(chunk):
@@ -669,18 +729,23 @@ class Batcher:
                 if row.req is None:
                     continue
                 self._deliver(row, int(host_toks[step, i]))
-        for i in active:
-            self.alloc.lengths[i] = max(self.alloc.lengths[i], self.rows[i].pos)
+        if self.paged_mode:
+            for i in active:
+                self.alloc.lengths[i] = max(self.alloc.lengths[i],
+                                            self.rows[i].pos)
 
     def describe(self):
         rows = [{"row": i, "busy": r.req is not None,
-                 "history_tokens": len(r.history), "pos": r.pos,
-                 "pages": len(self.alloc.tables[i])}
+                 "history_tokens": len(r.history), "pos": r.pos}
                 for i, r in enumerate(self.rows)]
+        if self.paged_mode:
+            for i, row in enumerate(rows):
+                row["pages"] = len(self.alloc.tables[i])
         return rows
 
     def describe_stats(self):
         out = dict(self.stats)
-        out["free_pages"] = len(self.alloc.free)
-        out["page_size"] = PAGE_SIZE
+        if self.paged_mode:
+            out["free_pages"] = len(self.alloc.free)
+            out["page_size"] = PAGE_SIZE
         return out

@@ -8,7 +8,10 @@ connections are cheap; every generation goes through the continuous batcher
 
 Endpoints: /v1/chat/completions /v1/completions /completion /tokenize
 /detokenize /v1/embeddings /embedding /v1/models /slotz /flagz /health
-/metrics /slots/{id}?action=save|restore|erase, with the reference's
+/metrics /slots/{id}?action=save|restore|erase, /db/* (the web UI's chat
+persistence under --db, server/db.py) and every other path as a static
+file of the web UI (the port's copy in server/www, or --www-root), with
+the reference's
 behaviour: SSE streaming with x_prefill_progress events, stop strings held
 back until they can no longer begin, `X-Priority: batch`, the token
 bucket's 429, body and header limits, and message forgetting past the
@@ -28,9 +31,9 @@ saves, restores or erases a batcher row's KV under --state-dir
 (runtime/state.py files).
 
 Left out of this port, each answering 501 with a message that names it:
-image content parts, /db/*, mirostat (the reference's server reads its
-knobs and samples without them: ROADMAP C.10), and the static web UI.
-A model of another architecture makes Server raise at start.
+image content parts and mirostat (the reference's server reads its knobs
+and samples without them: ROADMAP C.10). A model of another architecture
+makes Server raise at start.
 """
 from __future__ import annotations
 
@@ -47,7 +50,6 @@ from ..version import VERSION_STRING
 from .tokenbucket import TokenBucket
 
 JSON_CT = "application/json"
-_WEB_UI = (".html", ".js", ".css", ".png", ".svg", ".ico")
 
 
 class Metrics:
@@ -359,12 +361,10 @@ class Server:
         except json.JSONDecodeError:
             await self._json(w, 400, {"error": "invalid JSON body"})
             return True
+        if path.startswith("/db/"):
+            return await self.ep_db(w, method, path, payload)
         if path.startswith("/slots/"):
             return await self.ep_slot_action(w, method, path, target, payload)
-        unported = self._unported_route(path)
-        if unported:
-            return await self._json(w, 501, {"error": f"{unported} is not "
-                                             "ported to llamafile_tpu_torch yet"})
         route = {
             "/v1/chat/completions": self.ep_chat,
             "/v1/completions": self.ep_completions,
@@ -380,19 +380,11 @@ class Server:
             "/metrics": self.ep_metrics,
         }.get(path)
         if route is None:
-            return await self._plain(w, 404, "not found")
+            return await self.ep_static(w, path)
         try:
             return await route(w, method, target, headers, payload)
         except NotImplementedError as e:       # what the port leaves out
             return await self._json(w, 501, {"error": str(e)})
-
-    @staticmethod
-    def _unported_route(path: str):
-        if path.startswith("/db/"):
-            return "/db (chat persistence)"
-        if path == "/" or os.path.splitext(path)[1] in _WEB_UI:
-            return "the static web UI"
-        return None
 
     async def _plain(self, w, status, text, ct="text/plain"):
         data = text.encode() if isinstance(text, str) else text
@@ -727,6 +719,64 @@ class Server:
             "id": rid, "object": obj, "created": created,
             "model": self.model_id, "choices": [choice], "usage": _usage(usage),
         })
+
+
+    def _db(self):
+        if getattr(self, "_db_inst", None) is None:
+            if not self.flags.db:
+                return None
+            from .db import Db
+            self._db_inst = Db(self.flags.db)
+        return self._db_inst
+
+    async def ep_db(self, w, method, path, payload):
+        """The web UI's chat persistence (llamafile's db.cpp routes)."""
+        db = self._db()
+        if db is None:
+            return await self._json(w, 404, {"error": "no --db configured"})
+        parts = [p for p in path.split("/") if p][1:]     # after "db"
+        if parts == ["chats"]:
+            if method == "POST":
+                cid = db.create_chat(self.model_id, payload.get("title", ""))
+                return await self._json(w, 200, {"id": cid})
+            return await self._json(w, 200, {"chats": db.list_chats()})
+        if len(parts) == 2 and parts[0] == "chats":
+            cid = int(parts[1])
+            if method == "DELETE":
+                db.delete_chat(cid)
+                return await self._json(w, 200, {"ok": True})
+            chat = db.get_chat(cid)
+            if chat is None:
+                return await self._json(w, 404, {"error": "no such chat"})
+            chat["messages"] = db.list_messages(cid)
+            return await self._json(w, 200, chat)
+        if len(parts) == 3 and parts[0] == "chats" and parts[2] == "messages":
+            cid = int(parts[1])
+            if method == "POST":
+                mid = db.add_message(cid, payload.get("role", "user"),
+                                     payload.get("content", ""),
+                                     float(payload.get("temperature", 0.0)),
+                                     float(payload.get("top_p", 1.0)))
+                return await self._json(w, 200, {"id": mid})
+            return await self._json(w, 200, {"messages": db.list_messages(cid)})
+        return await self._json(w, 404, {"error": "unknown db route"})
+
+    async def ep_static(self, w, path):
+        """A file of the web UI: the port's packaged copy, or --www-root."""
+        root = self.flags.www_root or os.path.join(os.path.dirname(__file__), "www")
+        safe = os.path.normpath(path).lstrip("/") or "index.html"
+        full = os.path.join(root, safe)
+        if not os.path.abspath(full).startswith(os.path.abspath(root)):
+            return await self._plain(w, 403, "forbidden")
+        if os.path.isdir(full):
+            full = os.path.join(full, "index.html")
+        if not os.path.exists(full):
+            return await self._plain(w, 404, "not found")
+        ct = {"html": "text/html", "js": "text/javascript", "css": "text/css",
+              "png": "image/png", "svg": "image/svg+xml",
+              "json": JSON_CT}.get(full.rsplit(".", 1)[-1], "application/octet-stream")
+        with open(full, "rb") as f:
+            return await self._plain(w, 200, f.read(), ct)
 
 
 def grammar_bits(mask, nv: int):

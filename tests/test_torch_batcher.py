@@ -226,14 +226,22 @@ def test_device_fault_errors_every_waiting_request(engines, monkeypatch):
 
 
 def test_unported_modes_raise(engines):
-    """The dense mode and mirostat still raise NotImplementedError. Row
-    save, once among them, is ported: an empty row's save now refuses with
-    RuntimeError (the server's 409; tests/test_torch_state.py holds the
-    rest)."""
+    """Mirostat still raises NotImplementedError. The dense mode and row
+    save, once among them, are ported: `paged=False` builds the dense row
+    cache and serves (tests/test_torch_dense_batcher.py holds it against
+    the JAX package), `paged=None` keeps the paged pool, and an empty row's
+    save refuses with RuntimeError (the server's 409;
+    tests/test_torch_state.py holds the rest)."""
     _, teng = engines
-    with pytest.raises(NotImplementedError):
-        TBatcher(teng, rows=1, paged=False)
+    dense = TBatcher(teng, rows=1, paged=False)
+    try:
+        assert not dense.paged_mode and dense.cache.k.shape[1] == 1
+        toks, reason = _collect(dense.submit([1, 2, 3], TSP(temperature=0.0), 3))
+        assert len(toks) == 3 and reason == "length"
+    finally:
+        dense.shutdown()
     b = TBatcher(teng, rows=1)
+    assert b.paged_mode and b.cache is None
     try:
         with pytest.raises(RuntimeError, match="no cached state"):
             b.save_row(0, "x")

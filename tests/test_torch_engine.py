@@ -199,9 +199,16 @@ def test_one_token_continuation_is_a_decode_step(engine):
         assert (a - b).abs().max() <= 2e-2 * b.abs().max()
 
 
-def test_cli_unported_mode_exits(gguf):
+def test_cli_unported_mode_exits(gguf, monkeypatch, capsys):
+    """--chat, once refused with exit code 2, is ported: the REPL answers a
+    turn and /exit (tests/test_torch_chat.py holds it against the
+    reference's); --trace, still unported, exits 2."""
+    import io
     from llamafile_tpu_torch.cli import main
-    assert main(["--chat", "-m", gguf]) == 2
+    monkeypatch.setattr(sys, "stdin", io.StringIO("hello\n/exit\n"))
+    assert main(["--chat", "-m", gguf, "--device", "cpu", "-n", "2", "--temp", "0"]) == 0
+    assert capsys.readouterr().out.count(">>> ") == 2
+    assert main(["--chat", "-m", gguf, "--trace", "t.json"]) == 2
 
 
 def test_cuda_engine_raises_without_a_card(engine):

@@ -221,9 +221,19 @@ def test_unported_features_answer_501(server, path, body, method):
     against the JAX package); a grammar or response_format 200 with text
     that the grammar admits (tests/test_torch_grammar.py and
     test_torch_stateful_sampling.py); /slots/ 400 on a server started
-    without --state-dir (tests/test_torch_state.py)."""
+    without --state-dir (tests/test_torch_state.py); /db/ 404 on a server
+    started without --db, and / 200 with the port's copy of the web UI
+    (tests/test_torch_db_webui.py)."""
     base, _ = server
     code, text = _status(base + path, body, method=method)
+    if path.startswith("/db/"):
+        assert code == 404 and json.loads(text) == {"error": "no --db configured"}
+        return
+    if path == "/":
+        www = os.path.join(ROOT, "llamafile_tpu_torch", "server", "www", "index.html")
+        with open(www, encoding="utf-8") as f:
+            assert code == 200 and text == f.read()
+        return
     if path in ("/v1/embeddings", "/embedding"):
         vec = json.loads(text)["data"][0]["embedding"]
         assert code == 200 and len(vec) == 256
