@@ -22,7 +22,11 @@
    row mode's step (DENSE_POS: a position a row over a 2048-position
    cache streamed to s_limit 1024, one row parked at the trash slot 2047),
    each against its plain version with the written rows equal (each row's
-   pos alone written);
+   pos alone written); the three decode kernels over f16 and f32 caches
+   and pages (flash_decode_write at pos 700 and 1900, at B = 8 and at D =
+   256; flash_decode at s_eff 2048 and 1024 and at D = 256;
+   paged_attention at 8 rows of 1024 and at D = 256), each timed beside
+   sdpa on the same dtype;
    gemma2's options at Gemma-2-9B's decode shapes over a cache of 8192
    positions, at pos 700 and 6000: flash_decode_write with the window of
    4096 and the softcap of 50, flash_decode (bf16 and int8) with the
@@ -96,6 +100,8 @@
    step; Q4_K with a dense int8 KV cache, 32-token prompt, 1 step; Q4_K
    with the int8 prefill companions (int8_prefill_params), 300-token prompt
    and a step, each qmm_i8p call rerun on its own int8 codes and scales;
+   Q4_K over an f16 and an f32 KV cache (--kv-dtype), 32-token prompt, 2
+   steps (flash_decode_write's f16 and f32 instances);
    TinyLlama's widths at two layers (head_dim 64) with a max_seq_len of
    1000: the Engine's prefill and 2 decode steps on a bf16 cache, then on the
    card Engine.generate and 3 requests through the batcher, every decode
@@ -167,13 +173,14 @@
       token through the dequant GEMM and the flash prefill;
    4d. phase 4's weights with a dense int8 KV cache: 64 tokens, decode
       attention on flash_decode (32 launches a step);
-   4f. phase 4's engine under LLAMAFILE_TPU_Q4B=int8, then =planes: 64
-      tokens from the 24-token prompt (129 qmm_int8 or qmm_planes launches a
-      step: 4 a layer and the head; no fused FFN), the 1000-token prompt's
-      TTFT (the stacked planes kernel, 128 launches); under int8 also the
-      HTTP server at 4 slots, 4 greedy requests, those of the shortest and
-      longest prompt against themselves served alone (ALONE_LENGTHS; a 4-row
-      step padded to 8 on qmm_int8);
+   4f. phase 4's engine under LLAMAFILE_TPU_Q4B=int8, then =planes: 32
+      tokens (cut from 64 for phase 15) from the 24-token prompt (129
+      qmm_int8 or qmm_planes launches a step: 4 a layer and the head; no
+      fused FFN), the 1000-token prompt's TTFT (the stacked planes kernel,
+      128 launches); under int8 also the
+      HTTP server at 4 slots, 4 greedy requests of SERVE_NEW tokens,
+      those of the shortest and longest prompt against themselves served
+      alone (ALONE_LENGTHS; a 4-row step padded to 8 on qmm_int8);
    4e. phase 4's model built under LLAMAFILE_TPU_I8P=1 (phase 4's engine
       dropped first): 64 tokens from the 24-token prompt (no companion
       read), then the 1000-token prompt's TTFT with 128 qmm_i8p launches
@@ -190,7 +197,7 @@
    from the batcher's own tallies; three requests served again one at a
    time by a fresh batcher (greedy at the shortest and longest prompt, one
    sampled) must give the same token ids. Then, over the same server, the
-   embeddings (embedding_phase): 256 /v1/embeddings requests of 50 tokens
+   embeddings (embedding_phase): 128 /v1/embeddings requests of 50 tokens
    from 16 client threads, then 8 of 500 tokens (bucket 512, flash_prefill
    at B > 1), each window counted alone with launches exact (the
    EmbedBatcher's thread and the batcher's share the launch counters);
@@ -200,50 +207,52 @@
    message added and read back through /db/*, and / serving the port's
    copy of the web UI (db_webui_check).
 6. llama3-8b by llama.cpp's Q4_K_M recipe (testing.make_q4_k_m_llama) at
-   PHASE6_LAYERS = 8 of its 32 layers (4 of them with Q6_K V and down,
+   PHASE6_LAYERS = 4 of its 32 layers (2 of them with Q6_K V and down,
    Q6_K head), unrolled, through
    Engine.generate (64 tokens from a 24-token prompt, then the 1000-token
    prompt's TTFT on qmm_planes) and the HTTP server at 4 slots (4 greedy
-   requests, those of the shortest and longest prompt against themselves
-   served alone), launches exact.
+   requests of SERVE_NEW tokens, those of the shortest and longest
+   prompt against themselves served alone), launches exact.
 7. mixtral-8x7b-8l (Mixtral-8x7B's widths, top-2 of 8 experts, 8 layers):
    7a Q4_K stacked through Engine.generate (64 tokens from a 24-token
    prompt; the 1000-token prompt's TTFT), 7b the same by the Q4_K_M recipe
    (unrolled), 7c the HTTP server at 8 slots over 7a's engine, 8 greedy
-   requests (prompts of 24, 128, 500 and 1000 tokens, two each), the four
-   of the shortest and longest prompt against themselves served alone;
+   requests (prompts of 24, 128, 500 and 1000 tokens, two each, SERVE_NEW
+   new tokens), the four of the shortest and longest prompt against
+   themselves served alone;
    launches exact, the decode rate against the
    routed weight-read bound (models.synthetic.decode_read_bytes).
-8. llama3.2-3b (Llama-3.2-3B's widths, PHASE8_LAYERS = 8 of its 28 layers,
+8. llama3.2-3b (Llama-3.2-3B's widths, PHASE8_LAYERS = 4 of its 28 layers,
    a head group of 3), Q4_K
    stacked: Engine.generate of 32 tokens from the 24-token prompt, launches
    exact, the decode rate against its weight-read bound; the HTTP server at
-   4 slots, 4 greedy requests, those of the shortest and longest prompt
-   against themselves served alone; no decode attention call on the einsum
+   4 slots, 4 greedy requests of SERVE_NEW tokens, those of the
+   shortest and longest prompt against themselves served alone; no decode
+   attention call on the einsum
    or gather route.
-9. gemma-2-9b (Gemma-2-9B's widths, PHASE9_LAYERS = 12 of its 42 layers,
+9. gemma-2-9b (Gemma-2-9B's widths, PHASE9_LAYERS = 6 of its 42 layers,
    the gemma2 branches), Q4_K
    stacked with a Q6_K head: Engine.generate of 64 tokens from the
    24-token prompt, launches exact (no fused FFN; flash_decode_write with
    the window on the even layers and the softcap on all), the decode rate
    against its weight-read bound; the 1000-token prompt's TTFT, median of
    3.
-10. gemma-3-27b (Gemma-3-27B's widths, PHASE10_LAYERS = 16 of its 62
+10. gemma-3-27b (Gemma-3-27B's widths, PHASE10_LAYERS = 8 of its 62
    layers, the gemma3 branches),
    Q4_K stacked with a Q6_K head: as phase 9, the 1000-token prompt's
    prefill launching flash_prefill on every layer (bucket 1024, the
    window's width).
-11. qwen3-32b (Qwen3-32B's widths, PHASE11_LAYERS = 8 of its 64 layers,
+11. qwen3-32b (Qwen3-32B's widths, PHASE11_LAYERS = 4 of its 64 layers,
    q/k norms, the fused FFN),
    Q4_K stacked with a Q6_K head (vocab 151936): Engine.generate of 64
    tokens from the 24-token prompt, launches exact, the decode rate
    against its weight-read bound, the 1000-token prompt's TTFT (median of
-   3); the HTTP server at 4 slots, 4 greedy requests, launches exact (the
+   3); the HTTP server at 4 slots, 4 greedy requests of SERVE_NEW
+   tokens, launches exact (the
    requests alone are held by phase 3's qwen3-32b-2l check).
-12. qwen2.5-7b (Qwen2.5-7B's widths, PHASE12_LAYERS = 8 of its 28 layers,
+12. qwen2.5-7b (Qwen2.5-7B's widths, PHASE12_LAYERS = 4 of its 28 layers,
    q/k/v biases, G = 7, the
-   FFN unfused): decode rate and TTFT as phase 11; then, as the last timed
-   run is over, that prefill's device time by kernel (torch.profiler).
+   FFN unfused): decode rate and TTFT as phase 11.
 13. Phase 4's engine with a tokenizer of 128256 pieces (256 single-byte
    ones, "<t>" for the others, one EOG piece) under an HTTP server with 8
    slots and --state-dir: a GBNF request (eight items) and a json_schema
@@ -263,22 +272,41 @@
    (flash_decode_write once a layer a fused step), the same three
    requests as phase 5 served again alone on a fresh dense batcher with
    the same ids, the dense fused 8-row step (Engine.fused_decode) against
-   (weights + 8 x attn_len x KV_BYTES_PER_TOKEN) / HBM; then a three-turn
+   (weights + 8 x attn_len x KV_BYTES_PER_TOKEN) / HBM; then a two-turn
    REPL session in process (cli.chat_loop over a ChatSession): each
    turn's TTFT and reused tokens, turn 2's first-token logits within 2e-2
    of a fresh prefill of its whole prompt with the same top-1.
-   Phases run in the order 4, 4b, 4d, 5, 4f, 13, 14, 4e, 4c, 6, 7, 8, 9, 10, 11,
-   12. Then, after every timed
-   run (so that no profiler session of the process precedes a timing),
-   profiles: a 2-step decode chunk of each model (7a, 7b, and 4c, 4 and
-   4f's int8 on rebuilt engines) under torch.profiler (the device's busy
+15. The KV dtypes, the route knobs, the other formats and the load:
+   15a phase 4's weights (not reloaded) under Engine.generate of KV_NEW
+   tokens on an f16 and on an f32 dense cache, launches exact, every
+   decode step again from the same cache against the plain decode
+   attention on the card (kv_plain_check: within 2e-2 of the largest
+   logit, the same top-1; the first step also against the plain versions
+   of every kernel, the products too; phase 3's f16 and f32 checks hold
+   the whole path card against CPU at 2 layers); 15b the HTTP server at 4 slots on an f16
+   paged pool (serve_four: the shortest and longest prompts' requests
+   served again alone); 15c each route knob off in turn (LLAMAFILE_TPU_STACK, _ILGU,
+   _FLASH_DECODE, _PRENORM) at 2 layers of llama3-8b width, launches and
+   decode routes exact, then whole_path_check card against CPU plain;
+   15d a Q2_K file written by the port's writer at llama3-8b widths (1
+   layer, PHASE15_VOCAB pieces) loaded, generated from with exact
+   launches and held card against the plain versions on the card; 15e a
+   4-layer llama3-8b Q4_K file of the full vocabulary by the port's
+   writer, load_engine timed by piece, extrapolated to 32 layers.
+   Phases run in the order 4, 4b, 4d, 5, 4f, 13, 14, 15a-e, 4e, 4c, 6, 7, 8, 9, 10,
+   11, 12. No profiler session runs in this run: the profiles run apart,
+
+       python3 chip_smoke.py --profiles
+
+   (profile_run: the kernels built, phase 4's engine, its decode step and
+   4f's int8 one, the fused and dense 8-row steps timed first; then a
+   2-step decode chunk of each under torch.profiler (the device's busy
    share of a step) and under cProfile (host time by function), one
-   1000-token prefill (device time by kernel), one fused 8-row serving
-   chunk (busy share), one dense fused 8-row chunk (busy share), and a
-   batcher admission of a fresh 300-token prompt
-   against the same prompt's reused one (admission_profile: host time by
-   piece and function, device busy; the one-token slice as a decode step
-   against its old bucket-16 einsum route).
+   1000-token prefill (device time by kernel), the fused and dense 8-row
+   chunks (busy share), and a batcher admission of a fresh 300-token
+   prompt against the same prompt's reused one (admission_profile: host
+   time by piece and function, device busy; the one-token slice as a
+   decode step against its old bucket-16 einsum route)).
 
 Every phase header (and each phase-3 check's) prints the seconds since the
 start and those the previous one took; {"phase_seconds": ...} sums them up
@@ -286,7 +314,7 @@ before the launches line.
 
 Any failure raises and exits non-zero. The last line of standard output is
 {"ok": true, "device": {...}}; the lines before it hold every kernel's
-launches summed over the counted runs of phases 4 to 14 ({"launches": ...},
+launches summed over the counted runs of phases 4 to 15 ({"launches": ...},
 with qmm_planes' launches on a stacked layer's view apart as
 "qmm_planes_stacked"), the kernel table (one JSON object with an entry a
 kernel: the numbers of its first shape, the main path's heaviest, every
@@ -327,6 +355,13 @@ PAGED_ROW_TOL = 1e-5              # of each (row, head)'s largest output
 # one-hot softmax also hides the faulty controls there (a key made visible
 # or a page dropped carries no weight): phase 2 holds those.
 PAGED_PATH_TOL = 1e-3
+# The float KV dtypes (--kv-dtype): (torch dtype, flash_decode_write's limit
+# against its plain version, the peak rate of its P.V operands). f16 rounds
+# q and p as bf16 does, three mantissa bits finer; f32 rounds nothing, and
+# its kernels run on the CUDA cores in f32 (only the order of sums differs)
+KV_FLOATS = {"bf16": (lambda t: t.bfloat16, 2e-2, 989e12),
+             "f16": (lambda t: t.float16, 2e-2, 989e12),
+             "f32": (lambda t: t.float32, 1e-4, 67e12)}
 PLANES_TOL = 1e-3                 # f32 out, as the dequant GEMM
 PLANES_BF16_TOL = 2 ** -7         # bf16 out: one bf16 step of the largest
 DECODE_BF16_ROW_TOL = 2e-2        # p rounded to bf16 against another max
@@ -802,6 +837,20 @@ def kernel_phases(torch, dev, gen):
     for hq, hkv, hd, cases in DECODE_GROUPS["paged_attention"]:
         for label, lengths, int8 in cases:
             paged_phase(torch, dev, gen, entry, sdpa, hq, label, lengths, int8, hkv, hd)
+    # --- the f16 and f32 caches (--kv-dtype f16|f32) of the three decode
+    # kernels at the main path's shapes: llama3-8b's group of 4
+    # (flash_decode_write at pos 700 and 1900 and at B = 8, flash_decode at
+    # s_eff 2048 and 1024, paged_attention at 8 rows of 1024), and one
+    # head_dim-256 shape each (Gemma-2-9B's 16 over 8)
+    for kv in ("f16", "f32"):
+        fdw_phase(torch, dev, gen, entry, sdpa, 32, ((700, 1024), (1900, 2048)), 8, 128, kv)
+        fdw_phase(torch, dev, gen, entry, sdpa, 16, ((700, 1024),), 8, 256, kv)
+        batched_decode_phase(torch, dev, gen, entry, sdpa, kv=kv)
+        for hq, hd, s_eff in ((32, 128, 2048), (32, 128, 1024), (16, 256, 2048)):
+            flash_decode_phase(torch, dev, gen, entry, sdpa, hq, False, s_eff, 8, hd, kv)
+        for hq, hd in ((32, 128), (16, 256)):
+            paged_phase(torch, dev, gen, entry, sdpa, hq, f"{kv}, every length 1024",
+                        [1024] * 8, False, 8, hd, kv)
     i8p_kernel_phase(torch, dev, gen, entry)
     moe_kernel_phases(torch, dev, gen, entry, dequant_bf16)
     int8_kernel_phase(torch, dev, gen, entry, dequant_bf16)
@@ -874,36 +923,39 @@ def group_note(hq: int, hkv: int, most: int = 8) -> str:
                        else ", one K/V read" if g > 8 else "")
 
 
-def paged_work(lengths, hq, hkv, hd, int8):
+def paged_work(lengths, hq, hkv, hd, int8, elem=2):
     """(bytes, operations, op rate) of paged_attention's bound: each visible
-    K/V row read once (int8: its f32 scale too), q read and the output
-    written in f32; the f32 flops of scores and P.V on the CUDA cores."""
-    kv_bytes = sum(lengths) * hkv * hd * 2 * (1 + 4 / hd if int8 else 2)
+    K/V row read once (elem bytes an element; int8: its f32 scale too), q
+    read and the output written in f32; the f32 flops of scores and P.V on
+    the CUDA cores."""
+    kv_bytes = sum(lengths) * hkv * hd * 2 * (1 + 4 / hd if int8 else elem)
     return (kv_bytes + 2 * len(lengths) * hq * hd * 4, 4 * sum(lengths) * hq * hd,
             F32_FLOP_PER_S)
 
 
 def paged_yardstick(torch, q, kp, vp, ks, vs, lens, tables, nl):
     """The library yardstick of paged_attention, fn(i) on layer i of nl:
-    sdpa over K/V gathered to dense [R, Hkv, S, D] bf16 beforehand (the
-    gather, and an int8 pool's dequant, not timed) with a length mask; the
-    G query heads of a KV head ride as G queries."""
+    sdpa over K/V gathered to dense [R, Hkv, S, D] beforehand, in the pages'
+    dtype (bf16 for an int8 pool, dequantized; the gather and the dequant not
+    timed) with a length mask; the G query heads of a KV head ride as G
+    queries."""
     r, hq, hd = q.shape
     hkv, _, ps, _ = kp.shape[1:]
     maxp = tables.shape[1]
     t = tables.long()
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    dt = torch.bfloat16 if ks is not None else kp.dtype
 
     def dense(pages, scales, i):
         x = pages[i][:, t]                                 # [Hkv, R, MAXP, ps, D]
         if scales is not None:
             x = x.float() * scales[i][:, t]
-        return x.permute(1, 0, 2, 3, 4).reshape(r, hkv, maxp * ps, hd).to(torch.bfloat16)
+        return x.permute(1, 0, 2, 3, 4).reshape(r, hkv, maxp * ps, hd).to(dt)
     kd = [dense(kp, ks, i) for i in range(nl)]
     vd = [dense(vp, vs, i) for i in range(nl)]
     mask = (torch.arange(maxp * ps, device=q.device)[None, :]
             < lens[:, None].long())[:, None, None]
-    qg = q.to(torch.bfloat16).reshape(r, hkv, hq // hkv, hd)
+    qg = q.to(dt).reshape(r, hkv, hq // hkv, hd)
     return lambda i: sdpa(qg, kd[i], vd[i], attn_mask=mask, scale=1.0)
 
 
@@ -1018,30 +1070,33 @@ def prefill_phase(torch, dev, gen, entry, hq, hkv, hd, t, sets, model="", b=1):
     torch.cuda.empty_cache()
 
 
-def fdw_phase(torch, dev, gen, entry, sdpa, hq, cases, hkv=8, hd=128):
+def fdw_phase(torch, dev, gen, entry, sdpa, hq, cases, hkv=8, hd=128, kv="bf16"):
     """Phase 2 for flash_decode_write at hq query heads over hkv KV heads of
-    head dim hd, at each (pos, s_eff) of cases: against its plain version
-    within 2e-2 and with the written rows equal, two launches bitwise equal,
-    timed beside its plain version and sdpa."""
+    head dim hd over a cache of dtype kv (KV_FLOATS), at each (pos, s_eff)
+    of cases: against its plain version within its tolerance and with the
+    written rows equal, two launches bitwise equal, timed beside its plain
+    version and sdpa on the same dtype."""
     from llamafile_tpu_torch.ops import attention as A
     from llamafile_tpu_torch.testing import FDW_CLUSTER, FDW_WARPS
     nl, s_len = 32, 2048
     scale = hd ** -0.5
-    k3 = (torch.randn((nl, 1, s_len, hkv * hd), generator=gen, device=dev)).to(torch.bfloat16)
-    v3 = (torch.randn((nl, 1, s_len, hkv * hd), generator=gen, device=dev)).to(torch.bfloat16)
+    dt, tol = KV_FLOATS[kv][0](torch), KV_FLOATS[kv][1]
+    k3 = (torch.randn((nl, 1, s_len, hkv * hd), generator=gen, device=dev)).to(dt)
+    v3 = (torch.randn((nl, 1, s_len, hkv * hd), generator=gen, device=dev)).to(dt)
     q = torch.randn((1, hq, hd), generator=gen, device=dev)
     kn = torch.randn((1, hkv, hd), generator=gen, device=dev)
     vn = torch.randn((1, hkv, hd), generator=gen, device=dev)
     chunks = A.head_chunks(hq // hkv)
-    log(f"  flash_decode_write {group_note(hq, hkv)}: clusters of {FDW_CLUSTER} blocks, "
-        f"{hkv * chunks * FDW_CLUSTER} blocks of {32 * FDW_WARPS} threads at B=1 Hkv={hkv}")
+    log(f"  flash_decode_write {group_note(hq, hkv)} {kv}: clusters of {FDW_CLUSTER} blocks, "
+        f"{hkv * chunks * FDW_CLUSTER} blocks of "
+        f"{32 * (2 if kv == 'f32' and hd == 256 else FDW_WARPS)} threads at B=1 Hkv={hkv}")
     for pos, s_eff in cases:
         p = torch.tensor([pos], dtype=torch.int32, device=dev)
         k3b, v3b = k3.clone(), v3.clone()
         got = A.flash_decode_write_stacked(q, k3, v3, kn, vn, 5, p, scale, hkv, s_limit=s_eff)
         want = A.flash_decode_write_plain(q, k3b, v3b, kn, vn, 5, p, scale, hkv, s_eff)
         torch.cuda.synchronize()
-        err = check_close(f"flash_decode_write/pos={pos}", got, want, 2e-2)
+        err = check_close(f"flash_decode_write/{kv} pos={pos}", got, want, tol)
         if not (torch.equal(k3, k3b) and torch.equal(v3, v3b)):
             raise AssertionError("flash_decode_write: the written cache rows differ")
         again = A.flash_decode_write_stacked(q, k3b, v3b, kn, vn, 5, p, scale, hkv,
@@ -1055,41 +1110,44 @@ def fdw_phase(torch, dev, gen, entry, sdpa, hq, cases, hkv=8, hd=128):
         ms = time_ms(torch, run, nl)
         plain = plain_time_ms(torch, lambda i: A.flash_decode_write_plain(
             q, k3, v3, kn, vn, i, p, scale, hkv, s_eff), nl)
-        qs4 = q.to(torch.bfloat16).reshape(1, hq, 1, hd)
-        kv = lambda t, i: t[i, :, :pos + 1].reshape(1, pos + 1, hkv, hd).transpose(1, 2)
-        lib = time_ms(torch, lambda i: sdpa(qs4, kv(k3, i), kv(v3, i), scale=scale,
+        qs4 = q.to(dt).reshape(1, hq, 1, hd)
+        kvs = lambda t, i: t[i, :, :pos + 1].reshape(1, pos + 1, hkv, hd).transpose(1, 2)
+        lib = time_ms(torch, lambda i: sdpa(qs4, kvs(k3, i), kvs(v3, i), scale=scale,
                                             enable_gqa=True), nl)
-        sdpa_out = sdpa(qs4, kv(k3, 5), kv(v3, 5), scale=scale, enable_gqa=True)
+        sdpa_out = sdpa(qs4, kvs(k3, 5), kvs(v3, 5), scale=scale, enable_gqa=True)
         check_close("flash_decode_write vs sdpa (yardstick sanity)",
                     got.reshape(1, hq, 1, hd), sdpa_out, 2e-2)
-        log(f"  flash_decode_write/pos={pos}: kernel / sdpa {ms / lib:.3f}")
-        row = hkv * hd
+        log(f"  flash_decode_write/{kv} pos={pos}: kernel / sdpa {ms / lib:.3f}")
+        row, eb = hkv * hd, k3.element_size()
         entry("flash_decode_write", "llamafile_tpu_torch/csrc/flash_decode_write.cu",
               "llamafile_tpu/ops/attention.py:217",
-              f"Hq={hq} Hkv={hkv} D={hd} s_eff={s_eff} pos={pos} cluster={FDW_CLUSTER}"
+              f"{kv} cache Hq={hq} Hkv={hkv} D={hd} s_eff={s_eff} pos={pos} "
+              f"cluster={FDW_CLUSTER}"
               + ("" if chunks == 1 else f" ({group_note(hq, hkv)}: the kernel reads "
                  f"{chunks}x the bound's K/V bytes)"), err, ms,
-              plain, lib, 2 * pos * row * 2 + 2 * row * 2 + (2 * hq * hd + 2 * row) * 4,
-              4 * pos * hq * hd, BF16_FLOP_PER_S)
+              plain, lib, 2 * pos * row * eb + 2 * row * eb + (2 * hq * hd + 2 * row) * 4,
+              4 * pos * hq * hd, KV_FLOATS[kv][2])
     del k3, v3
     torch.cuda.empty_cache()
 
 
-def flash_decode_phase(torch, dev, gen, entry, sdpa, hq, int8, s_eff, hkv=8, hd=128):
+def flash_decode_phase(torch, dev, gen, entry, sdpa, hq, int8, s_eff, hkv=8, hd=128,
+                       kv="bf16"):
     """Phase 2 for flash_decode at hq query heads over hkv KV heads of head
-    dim hd, over a bf16 flat or int8 cache of s_eff positions, pos near its
-    end: row by row against its plain version, the controls (one masked key
-    made visible, the second half of the visible keys dropped) outside the
-    tolerance, two launches bitwise equal, timed beside its plain version
-    and sdpa. One launch of B * Hkv * head_chunks(G, FD_CHUNK_HEADS)
-    clusters, every K/V row read once a chunk."""
+    dim hd, over a flat cache of dtype kv (KV_FLOATS) or an int8 cache of
+    s_eff positions, pos near its end: row by row against its plain
+    version, the controls (one masked key made visible, the second half of
+    the visible keys dropped) outside the tolerance, two launches bitwise
+    equal, timed beside its plain version and sdpa. One launch of B * Hkv
+    * head_chunks(G, FD_CHUNK_HEADS) clusters, every K/V row read once a
+    chunk."""
     from llamafile_tpu_torch.ops import attention as A
     from llamafile_tpu_torch.testing import row_rel_err
     nl = 32
     scale = hd ** -0.5
     g = hq // hkv
     pos = s_eff - 5
-    label = (f"{'int8 + f32 scales' if int8 else 'bf16 flat'}, s_eff={s_eff} pos={pos}"
+    label = (f"{'int8 + f32 scales' if int8 else kv + ' flat'}, s_eff={s_eff} pos={pos}"
              + ("" if g <= 8 else f", {group_note(hq, hkv, A.FD_CHUNK_HEADS)}"))
     q = torch.randn((1, hq, hd), generator=gen, device=dev)
     p = torch.tensor([pos], dtype=torch.int32, device=dev)
@@ -1105,19 +1163,21 @@ def flash_decode_phase(torch, dev, gen, entry, sdpa, hq, int8, s_eff, hkv=8, hd=
         kv_bytes = 2 * (pos + 1) * hkv * (hd + 4)
         tol = DECODE_INT8_ROW_TOL
     else:
+        dt = KV_FLOATS[kv][0](torch)
         kc, vc = ((torch.randn((nl, 1, s_eff, hkv * hd), generator=gen, device=dev)
-                   ).to(torch.bfloat16) for _ in range(2))
+                   ).to(dt) for _ in range(2))
         run = lambda i, pp=p: A.flash_decode_stacked(q, kc, vc, i, pp, scale, hkv)
         plain_fn = lambda i, pp=p: A.flash_decode_stacked_plain(
             q, kc, vc, i, pp, scale, hkv, s_eff)
-        kv_bytes = 2 * (pos + 1) * hkv * hd * 2
-        tol = DECODE_BF16_ROW_TOL
+        kv_bytes = 2 * (pos + 1) * hkv * hd * kc.element_size()
+        tol = DECODE_INT8_ROW_TOL if kv == "f32" else DECODE_BF16_ROW_TOL
     got, want = run(5), plain_fn(5)
     torch.cuda.synchronize()
     err = (got - want).abs().max().item()
     row = row_rel_err(got, want)
     ctl = [row_rel_err(plain_fn(5, p + 1), want), row_rel_err(plain_fn(5, p // 2), want)]
-    held = ctl if int8 else ctl[1:]       # bf16: one key moves less than p's rounding
+    # bf16, f16: one key moves less than p's rounding
+    held = ctl if int8 or kv == "f32" else ctl[1:]
     log(f"  flash_decode/{label}: max_abs_err {err:.6g}; per row {row:.6g} of the "
         f"row's max (tol {tol}); controls (one masked key visible, half the keys "
         f"dropped) {ctl[0]:.6g}, {ctl[1]:.6g}")
@@ -1135,7 +1195,7 @@ def flash_decode_phase(torch, dev, gen, entry, sdpa, hq, int8, s_eff, hkv=8, hd=
         return x.transpose(0, 1)[None]                     # [1, Hkv, S, D]
     kd = [dense(kc, ksc if int8 else None, i) for i in range(nl)]
     vd = [dense(vc, vsc if int8 else None, i) for i in range(nl)]
-    qd = (q if int8 else q.to(torch.bfloat16)).reshape(1, hq, 1, hd)
+    qd = (q if int8 else q.to(kc.dtype)).reshape(1, hq, 1, hd)
     lib_fn = lambda i: sdpa(qd, kd[i], vd[i], scale=scale, enable_gqa=True)
     lib = time_ms(torch, lib_fn, nl)
     check_close(f"flash_decode/{label} vs sdpa (yardstick sanity)",
@@ -1144,7 +1204,8 @@ def flash_decode_phase(torch, dev, gen, entry, sdpa, hq, int8, s_eff, hkv=8, hd=
           "llamafile_tpu/ops/attention.py:117",
           f"B=1 Hq={hq} Hkv={hkv} D={hd} {label} (library: sdpa on K/V "
           "dequantized beforehand)", err, ms, plain, lib,
-          kv_bytes + 2 * hq * hd * 4 + 4, 4 * (pos + 1) * hq * hd, F32_FLOP_PER_S)
+          kv_bytes + 2 * hq * hd * 4 + 4, 4 * (pos + 1) * hq * hd,
+          F32_FLOP_PER_S if int8 else KV_FLOATS[kv][2])
     del kc, vc, kd, vd, got, want
     if int8:
         del ksc, vsc
@@ -1159,31 +1220,34 @@ DENSE_POS = (23, 150, 333, 511, 640, 777, 1000, 2047)
 DENSE_S, DENSE_S_LIMIT = 2048, 1024
 
 
-def batched_decode_phase(torch, dev, gen, entry, sdpa, nl=8):
+def batched_decode_phase(torch, dev, gen, entry, sdpa, nl=8, kv="bf16"):
     """Phase 2 at B = 8 (DENSE_POS): flash_decode_write (each row's new K/V
     written at its pos, the parked row's at S - 1 only) and flash_decode
     over the bf16 flat and the int8 cache, each against its plain version
     within 2e-2 (int8: DECODE_INT8_ROW_TOL) with the written rows equal,
     two launches bitwise equal, timed beside the plain version and sdpa
-    with a key mask a row. nl layers cycled."""
+    with a key mask a row. nl layers cycled. kv "f16" or "f32": only
+    flash_decode_write, over a cache of that dtype (KV_FLOATS)."""
     from llamafile_tpu_torch.ops import attention as A
     from llamafile_tpu_torch.testing import row_rel_err
     hq, hkv, hd, b = 32, 8, 128, len(DENSE_POS)
     s_len, s_eff, row = DENSE_S, DENSE_S_LIMIT, hkv * hd
     scale = hd ** -0.5
     p = torch.tensor(DENSE_POS, dtype=torch.int32, device=dev)
-    shape = f"B={b} Hq={hq} Hkv={hkv} D={hd} S={s_len} s_limit={s_eff} pos={list(DENSE_POS)}"
+    shape = (f"{kv} cache B={b} Hq={hq} Hkv={hkv} D={hd} S={s_len} s_limit={s_eff} "
+             f"pos={list(DENSE_POS)}")
     q = torch.randn((b, hq, hd), generator=gen, device=dev)
     kn = torch.randn((b, hkv, hd), generator=gen, device=dev)
     vn = torch.randn((b, hkv, hd), generator=gen, device=dev)
+    dt = KV_FLOATS[kv][0](torch)
     k3, v3 = ((torch.randn((nl, b, s_len, row), generator=gen, device=dev)
-               ).to(torch.bfloat16) for _ in range(2))
+               ).to(dt) for _ in range(2))
     k0, v0 = k3.clone(), v3.clone()
     k3b, v3b = k3.clone(), v3.clone()
     got = A.flash_decode_write_stacked(q, k3, v3, kn, vn, 5, p, scale, hkv, s_limit=s_eff)
     want = A.flash_decode_write_plain(q, k3b, v3b, kn, vn, 5, p, scale, hkv, s_eff)
     torch.cuda.synchronize()
-    err = check_close("flash_decode_write/B=8", got, want, 2e-2)
+    err = check_close(f"flash_decode_write/{kv} B=8", got, want, KV_FLOATS[kv][1])
     if not (torch.equal(k3, k3b) and torch.equal(v3, v3b)):
         raise AssertionError("flash_decode_write B=8: the written cache rows differ")
     changed = (k3 != k0).any(-1).nonzero().tolist()
@@ -1200,9 +1264,9 @@ def batched_decode_phase(torch, dev, gen, entry, sdpa, nl=8):
     mask = (torch.arange(s_eff, device=dev)[None, :]
             <= torch.tensor([min(x, s_eff - 1) for x in DENSE_POS], device=dev)[:, None])
     mask = mask[:, None, None, :]
-    kv = lambda t, i: t[i, :, :s_eff].reshape(b, s_eff, hkv, hd).transpose(1, 2)
-    qs4 = q.to(torch.bfloat16)[:, :, None, :]
-    lib = time_ms(torch, lambda i: sdpa(qs4, kv(k3, i), kv(v3, i), attn_mask=mask,
+    kvs = lambda t, i: t[i, :, :s_eff].reshape(b, s_eff, hkv, hd).transpose(1, 2)
+    qs4 = q.to(dt)[:, :, None, :]
+    lib = time_ms(torch, lambda i: sdpa(qs4, kvs(k3, i), kvs(v3, i), attn_mask=mask,
                                         scale=scale, enable_gqa=True), nl)
     run = lambda i: A.flash_decode_write_stacked(q, k3, v3, kn, vn, i, p, scale, hkv,
                                                  s_limit=s_eff)
@@ -1212,8 +1276,13 @@ def batched_decode_phase(torch, dev, gen, entry, sdpa, nl=8):
     entry("flash_decode_write", "llamafile_tpu_torch/csrc/flash_decode_write.cu",
           "llamafile_tpu/ops/attention.py:217", shape + " (the dense row mode's step; "
           "library: sdpa with a key mask a row)", err, ms, plain, lib,
-          sum(seen) * 2 * row * 2 + b * (2 * row * 2 + (2 * hq * hd + 2 * row) * 4),
-          4 * sum(seen) * hq * hd, BF16_FLOP_PER_S)
+          sum(seen) * 2 * row * k3.element_size()
+          + b * (2 * row * k3.element_size() + (2 * hq * hd + 2 * row) * 4),
+          4 * sum(seen) * hq * hd, KV_FLOATS[kv][2])
+    if kv != "bf16":
+        del k3, v3
+        torch.cuda.empty_cache()
+        return
     # flash_decode: the bf16 flat cache (flash_decode_stacked) and int8
     # codes with f32 scales, a layer's first s_limit positions in place
     p_fd = p.clone()
@@ -1242,7 +1311,7 @@ def batched_decode_phase(torch, dev, gen, entry, sdpa, nl=8):
             fd = lambda i: A.flash_decode_stacked(q, kc, vc, i, p_fd, scale, hkv, s_eff)
             fd_plain = lambda i: A.flash_decode_stacked_plain(q, kc, vc, i, p_fd, scale,
                                                               hkv, s_eff)
-            lib_fn = lambda i: sdpa(qs4, kv(kc, i), kv(vc, i), attn_mask=mask_fd,
+            lib_fn = lambda i: sdpa(qs4, kvs(kc, i), kvs(vc, i), attn_mask=mask_fd,
                                     scale=scale, enable_gqa=True)
             seen_fd = [min(x + 1, s_eff) for x in DENSE_POS]
             mask_fd = (torch.arange(s_eff, device=dev)[None, :]
@@ -1415,7 +1484,8 @@ def gemma_option_phase(torch, dev, gen, entry, model="Gemma-2-9B", **spec):
     torch.cuda.empty_cache()
 
 
-def paged_phase(torch, dev, gen, entry, sdpa, hq, label, lengths, int8, hkv=8, hd=128):
+def paged_phase(torch, dev, gen, entry, sdpa, hq, label, lengths, int8, hkv=8, hd=128,
+                kv="bf16"):
     """Phase 2 for paged_attention at hq query heads over hkv KV heads of
     head dim hd, a row
     for each of `lengths` over a pool of 32 layers (so the replays over layers spill
@@ -1428,7 +1498,8 @@ def paged_phase(torch, dev, gen, entry, sdpa, hq, label, lengths, int8, hkv=8, h
     nl, r, ps, maxp = 32, len(lengths), 64, 2048 // 64
     label = label + ("" if hq // hkv <= 8 else f", {group_note(hq, hkv, A.PA_CHUNK_HEADS)}")
     q, kp, vp, ks, vs, lens, tables = paged_case(
-        gen, lengths, hq, hkv, hd, ps, maxp, n_layers=nl, int8=int8, device=dev)
+        gen, lengths, hq, hkv, hd, ps, maxp, n_layers=nl, int8=int8, device=dev,
+        dtype=KV_FLOATS[kv][0](torch))
     sc = (lambda t, i: None) if ks is None else (lambda t, i: t[i])
     lay = lambda i: (q, kp[i], vp[i], lens, tables, sc(ks, i), sc(vs, i))
     got = A.paged_attention(*lay(5))
@@ -1456,7 +1527,7 @@ def paged_phase(torch, dev, gen, entry, sdpa, hq, label, lengths, int8, hkv=8, h
           "llamafile_tpu/runtime/paged.py:277",
           f"R={r} Hq={hq} Hkv={hkv} D={hd} ps={ps} {label} (library: sdpa on "
           "K/V gathered beforehand, gather not timed)", err, ms, plain, lib,
-          *paged_work(lengths, hq, hkv, hd, int8))
+          *paged_work(lengths, hq, hkv, hd, int8, kp.element_size()))
     del q, kp, vp, ks, vs, lib_fn, got, want
     torch.cuda.empty_cache()
 
@@ -1926,13 +1997,15 @@ def plain_rerun(Q, fn, ia, codes):
 
 
 @contextlib.contextmanager
-def plain_kernels():
+def plain_kernels(products: bool = True):
     """While open, every kernel wrapper of the model path runs its plain
     version on whatever device its tensors lie (on the card too): the
-    qmatmul kernels, and the decode and prefill attention kernels as
-    models.llama calls them (their non-kernel routes unchanged). Nothing is
-    launched and no launch is counted. The reference of phase 3's gemma
-    checks, and of every product's rerun (plain_rerun)."""
+    qmatmul kernels (unless products is False), and the decode and prefill
+    attention kernels as models.llama calls them (their non-kernel routes
+    unchanged). Nothing is launched and no launch is counted. The
+    reference of phase 3's gemma checks, of every product's rerun
+    (plain_rerun), and with products False of phase 15a's decode
+    attention."""
     from llamafile_tpu_torch.models import llama as LM
     from llamafile_tpu_torch.ops import attention as A
     from llamafile_tpu_torch.ops import qmatmul as Q
@@ -1961,9 +2034,11 @@ def plain_kernels():
     patches = [(Q, n, getattr(Q, n + "_plain"))
                for n in ("qmm_txn_m1", "qmm_txn", "qmm_q8_m1", "qmm_dequant", "qmm_int8",
                          "qmm_moe_m1", "qmm_txn_m1_r", "qmm_q8_m1_r", "qmm_txn_g",
-                         "qmm_planes_g", "qmm_i8p")]
-    patches += [(Q, "qmm_planes", lambda x, qs, sc, stacked=False: Q.qmm_planes_plain(x, qs, sc)),
-                (LM, "flash_decode_write_stacked", fdw), (LM, "flash_decode", fd),
+                         "qmm_planes_g", "qmm_i8p") if products]
+    if products:
+        patches.append((Q, "qmm_planes",
+                        lambda x, qs, sc, stacked=False: Q.qmm_planes_plain(x, qs, sc)))
+    patches += [(LM, "flash_decode_write_stacked", fdw), (LM, "flash_decode", fd),
                 (LM, "flash_prefill", fp)]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
     for mod, name, f in patches:
@@ -2064,7 +2139,7 @@ def prefill_attention_report(torch, dev, card, cpu):
 
 
 def whole_path_check(torch, dev, quant="Q4_K", n_prompt=32, n_decode=8,
-                     kv_dtype="bf16", i8p=False):
+                     kv_dtype="bf16", i8p=False, stack=True):
     """Two layers at llama3-8b width: card (kernels) vs CPU (plain versions).
     quant "Q4_K_M" is the Q4_K_M recipe at two layers (layer 1 holds the
     Q6_K V and down), unrolled; the others are stacked. i8p attaches the int8
@@ -2072,7 +2147,8 @@ def whole_path_check(torch, dev, quant="Q4_K", n_prompt=32, n_decode=8,
     Engine does under LLAMAFILE_TPU_I8P=1. The prompt is padded
     to its prefill bucket, as Engine.prefill does. Every op's output is kept
     on both sides, and trace_report's lines are logged: the op at which card
-    and CPU first part in each step."""
+    and CPU first part in each step. stack False keeps the layers unrolled
+    (LLAMAFILE_TPU_STACK=0's Engine)."""
     from llamafile_tpu_torch.models.llama import (forward, init_cache, int8_prefill_params,
                                                   stack_layers)
     from llamafile_tpu_torch.models.synthetic import make_synthetic_llama
@@ -2083,7 +2159,8 @@ def whole_path_check(torch, dev, quant="Q4_K", n_prompt=32, n_decode=8,
     else:
         cfg, params = make_synthetic_llama("llama3-8b-2l", quant, seed=1, fuse=True,
                                            device=dev)
-    gpu = stack_layers(int8_prefill_params(params) if i8p else params)
+    gpu = int8_prefill_params(params) if i8p else params
+    gpu = stack_layers(gpu) if stack else gpu
     what = (f"{quant}{'' if kv_dtype == 'bf16' else ' ' + kv_dtype + ' KV'}"
             + (" int8 prefill" if i8p else "") + flavour_note())
     cpu = _to(gpu, "cpu")
@@ -2910,15 +2987,11 @@ def i8p_phase(torch, dev, prompt, long_prompt, n_new):
 
 def main_path(torch, dev):
     """The port's main paths at full width through their user entry points
-    (phases 4, 4b, 4c). Every timed run comes before the first profiler
-    session of the process, and the profiles follow on fresh engines.
-    Returns the launch counts of each timed run."""
-    from llamafile_tpu_torch.runtime.sampling import SamplingParams
-    sp = SamplingParams(temperature=0.0)
+    (phases 4 to 15; the profiles run apart, profile_run). Returns the
+    launch counts of each timed run."""
     eng, read = build_engine(torch, dev, "Q4_K")
     n_layers = eng.cfg.n_layers
-    prompt = [int(t) for t in torch.randint(3, eng.cfg.n_vocab, (24,),
-                                            generator=torch.Generator().manual_seed(3))]
+    prompt, long_prompt = main_prompts(torch, eng.cfg.n_vocab)
     n_new = 64
     steps = n_new - 1
     _, counts, ttft, decode_s = counted_generate(torch, eng, prompt, n_new)
@@ -2928,8 +3001,6 @@ def main_path(torch, dev):
     step_q4 = decode_report(torch, read, steps, ttft, decode_s, "24-token prompt, bucket 32")
 
     phase("phase 4b: the same engine, a 1000-token prompt (bucket 1024)")
-    long_prompt = [int(t) for t in torch.randint(3, eng.cfg.n_vocab, (1000,),
-                                                 generator=torch.Generator().manual_seed(4))]
     ttfts = []
     for _ in range(3):
         _, counts_b, ttft_b, _ = counted_generate(torch, eng, long_prompt, 1)
@@ -2949,17 +3020,31 @@ def main_path(torch, dev):
     decode_report(torch, read, steps, ttft, decode_s, "24-token prompt, bucket 32, int8 KV")
     del eng8
     phase("phase 5: serving, the port's HTTP server over the same engine, 8 slots")
-    counts_5, step_5 = serving_phase(torch, eng, read)
+    counts_5, _ = serving_phase(torch, eng, read)
     phase("phase 4f: the same engine under the q4b flavours int8 and planes")
-    counts_f, step_int8 = flavour_phase(torch, eng, read, prompt, long_prompt, n_new)
+    # 32 new tokens under each flavour (cut from 64 to pay for phase 15)
+    counts_f, _ = flavour_phase(torch, eng, read, prompt, long_prompt, n_new // 2)
     phase("phase 13: the same engine: grammar requests and slot save/restore under the "
           "HTTP server, then penalties with mirostat and --prompt-cache in Engine.generate")
     counts_13 = state_phase(torch, eng, prompt, step_q4)
     phase("phase 14: the same engine: the batcher's dense row mode at 8 rows, then the "
-          "REPL (--chat) for three turns")
-    counts_14, step_dense = dense_phase(torch, eng, read)
+          f"REPL (--chat) for {len(CHAT_TURNS)} turns")
+    counts_14, _ = dense_phase(torch, eng, read)
+    phase("phase 15a: the same weights with an f16 and an f32 KV cache, 32 layers, "
+          f"Engine.generate of {KV_NEW} tokens each, held against the plain decode attention")
+    counts_15 = kv_dtype_phase(torch, eng, read, prompt)
     del eng
     torch.cuda.empty_cache()
+    phase("phase 15c: the route knobs, llama3-8b width at 2 layers, card against CPU plain")
+    counts_15 += knob_phase(torch, dev)
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        phase(f"phase 15d: a {PHASE15_FORMAT} file by the port's writer, llama3-8b widths, "
+              f"1 layer, vocabulary cut to {PHASE15_VOCAB}: card against plain")
+        counts_15 += format_phase(torch, dev, tmp)
+        phase(f"phase 15e: a llama3-8b Q4_K file of {PHASE15_LOAD_LAYERS} layers with the full "
+              "vocabulary by the port's writer, load_engine timed by piece")
+        load_phase(torch, dev, tmp)
 
     phase("phase 4e: phase 4's weights with the int8 prefill (LLAMAFILE_TPU_I8P=1)")
     counts_e = i8p_phase(torch, dev, prompt, long_prompt, n_new)
@@ -2970,7 +3055,7 @@ def main_path(torch, dev):
     check_counts(counts_c, {"qmm_q8_m1": 1 + (4 * n_layers + 1) * steps,
                             "qmm_dequant": 4 * n_layers,
                             "flash_decode_write_stacked": n_layers * steps}, "phase 4c")
-    step_q8 = decode_report(torch, read, steps, ttft, decode_s, "24-token prompt, bucket 32")
+    decode_report(torch, read, steps, ttft, decode_s, "24-token prompt, bucket 32")
 
     phase(f"phase 6: main path, llama3-8b Q4_K_M, {PHASE6_LAYERS} of 32 layers unrolled, "
           "Engine.generate and the HTTP server")
@@ -2978,7 +3063,9 @@ def main_path(torch, dev):
     del eng
     torch.cuda.empty_cache()
 
-    moe_engines, moe_steps, counts_7, moe_prompt = moe_phase(torch, dev, n_new)
+    moe_engines, _, counts_7, _ = moe_phase(torch, dev, n_new)
+    del moe_engines
+    torch.cuda.empty_cache()
 
     phase(f"phase 8: llama3.2-3b Q4_K (G = 3), {PHASE8_LAYERS} of 28 layers stacked, "
           "Engine.generate and the HTTP server")
@@ -2999,34 +3086,11 @@ def main_path(torch, dev):
                            n_layers=PHASE11_LAYERS)
     phase(f"phase 12: qwen2.5-7b Q4_K (qwen2), {PHASE12_LAYERS} of 28 layers stacked, "
           "Engine.generate")
-    counts_12 = qwen_phase(torch, dev, qprompt, qlong, "qwen2.5-7b", "phase 12", profile=True,
+    # (its prefill profile cut to pay for phase 15)
+    counts_12 = qwen_phase(torch, dev, qprompt, qlong, "qwen2.5-7b", "phase 12",
                            n_layers=PHASE12_LAYERS)
-
-    phase("profiles of phase 7's Mixtral decodes, of phase 4c's Q8_0 decode on a rebuilt "
-        "engine, then of phase 4, 4f's int8 decode and 4b on a rebuilt Q4_K engine")
-    for what, eng7, step7 in zip(("7a Q4_K stacked", "7b Q4_K_M unrolled"), moe_engines,
-                                 moe_steps):
-        log(f"  phase {what}:")
-        device_busy(torch, eng7, moe_prompt, sp, step7)
-    del moe_engines, eng7
-    torch.cuda.empty_cache()
-    eng, _ = build_engine(torch, dev, "Q8_0")
-    device_busy(torch, eng, prompt, sp, step_q8)
-    del eng
-    torch.cuda.empty_cache()
-    eng, _ = build_engine(torch, dev, "Q4_K")
-    device_busy(torch, eng, prompt, sp, step_q4)
-    log("  phase 4f, LLAMAFILE_TPU_Q4B=int8:")
-    with q4b_flavour("int8"):
-        device_busy(torch, eng, prompt, sp, step_int8)
-    prefill_profile(torch, eng, long_prompt)
-    fused_profile(torch, eng, step_5)
-    dense_profile(torch, eng, step_dense)
-    admission_profile(torch, eng)
-    del eng
-    torch.cuda.empty_cache()
     return ([counts, counts_b, counts_d, counts_c] + counts_5 + counts_f + counts_13
-            + counts_14 + counts_e
+            + counts_14 + counts_15 + counts_e
             + counts_6 + counts_7 + counts_8 + counts_9 + counts_10 + counts_11 + counts_12)
 
 
@@ -3037,8 +3101,8 @@ def llama32_phase(torch, dev, prompt, n_new=32):
     phase 4's 24-token prompt, launches exact as in phase 4 (the decode
     attention on flash_decode_write at G = 3), the decode rate against the
     weight-read bound; then the HTTP server at 4 slots (serve_four: 4 greedy
-    requests, paged_attention at G = 3), those of the shortest and longest
-    prompt against themselves served alone.
+    requests, paged_attention at G = 3), that of the longest prompt against
+    itself served alone.
     No decode attention call takes the einsum or gather route. Returns the
     counted runs' launch counts."""
     from llamafile_tpu_torch.models.synthetic import decode_read_bytes, make_synthetic_llama
@@ -3062,12 +3126,7 @@ def llama32_phase(torch, dev, prompt, n_new=32):
                           "flash_decode_write_stacked": n * steps}, "phase 8")
     decode_report(torch, read, steps, ttft, decode_s, "24-token prompt, bucket 32")
     routes = dict(A.ROUTE_COUNTS)
-    expect = lambda d, small, big, fr: {
-        "paged_attention": n * d,
-        "qmm_txn": (4 * n + 1) * d + 4 * n * small, "qmm_dequant": 4 * n * big,
-        "flash_prefill": n * sum(c for b, c in fr.items() if b >= 128),
-        "qmm_txn_m1": small + big}
-    counts_s = serve_four(torch, eng, "synthetic-llama3.2-3b-q4k", "phase 8", expect)
+    counts_s = serve_four(torch, eng, "synthetic-llama3.2-3b-q4k", "phase 8", serving_counts(n))
     log(f"  phase 8 decode attention routes: generate {routes}, served {dict(A.ROUTE_COUNTS)}")
     if any(routes.values()) or any(A.ROUTE_COUNTS.values()):
         raise AssertionError("phase 8: a decode attention call left the kernel route")
@@ -3210,7 +3269,7 @@ def moe_phase(torch, dev, n_new):
     (layers 0, 3, 6, 7 with Q6_K experts' down: the routed GEMVs at decode,
     the dense expert loop at prefill). 7c: the HTTP server at 8 slots over
     7a's engine, 8 greedy requests (prompts of 24, 128, 500 and 1000 tokens,
-    two each), those of the shortest and longest prompt against themselves
+    two each), that of the longest prompt against itself
     served alone. Launch counts exact.
     Returns ([7a's engine, 7b's engine], their decode step ms, the counted
     runs' counts, the 24-token prompt)."""
@@ -3294,7 +3353,7 @@ def moe_phase(torch, dev, n_new):
 def moe_serving(torch, eng):
     """Phase 7c: 8 greedy requests through the port's Server at 8 slots over
     the stacked Mixtral engine, launches exact from the batcher's tallies;
-    each request of the shortest and longest prompt served again alone by a
+    each request of the longest prompt served again alone by a
     fresh batcher gives the same ids."""
     from concurrent.futures import ThreadPoolExecutor
     from llamafile_tpu_torch.models.llama import grouped_tm
@@ -3318,7 +3377,8 @@ def moe_serving(torch, eng):
         t0 = time.perf_counter()
         with ThreadPoolExecutor(8) as ex:
             results = dict(zip(MOE_SERVED, ex.map(
-                lambda i: _serve_request(base, MOE_REQ[i], prompts[i], False), MOE_SERVED)))
+                lambda i: _serve_request(base, MOE_REQ[i], prompts[i], False, SERVE_NEW),
+                MOE_SERVED)))
         wall = time.perf_counter() - t0
         counts = launch_counts()
         st1 = srv.batcher.stats
@@ -3326,8 +3386,8 @@ def moe_serving(torch, eng):
         if errors:
             raise AssertionError(f"phase 7c requests failed: {errors}")
         n_out = sum(r[1]["completion_tokens"] for r in results.values())
-        log(f"  8 requests (prompts {SERVE_LENGTHS} x 2, 64 new tokens), {n_out} tokens out "
-            f"in {wall:.3f} s: {n_out / wall:.2f} output tok/s")
+        log(f"  8 requests (prompts {SERVE_LENGTHS} x 2, {SERVE_NEW} new tokens), {n_out} "
+            f"tokens out in {wall:.3f} s: {n_out / wall:.2f} output tok/s")
         for L in SERVE_LENGTHS:
             t = sorted((r[2] * 1e3 if r[2] is not None else r[1]["ttft_ms"]) for i, r in
                        results.items() if SERVE_LENGTHS[i % 4] == L)
@@ -3357,7 +3417,7 @@ def moe_serving(torch, eng):
     alone = Batcher(eng, rows=8)
     try:
         for i in (i for i in MOE_SERVED if len(prompts[i]) in ALONE_LENGTHS):
-            toks = _alone_tokens(alone, prompts[i], srv._sp({"temperature": 0.0}))
+            toks = _alone_tokens(alone, prompts[i], srv._sp({"temperature": 0.0}), SERVE_NEW)
             same = toks == results[i][0]
             log(f"  request {i} (prompt {len(prompts[i])}): alone {len(toks)} tokens, "
                 f"{'the same ids' if same else 'DIFFERENT ids'} as served beside the others")
@@ -3381,12 +3441,12 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _serve_request(base, i, ids, chat):
+def _serve_request(base, i, ids, chat, max_tokens=64):
     """Request i of phase 5 over HTTP; returns (token ids, usage, client TTFT
     s or None, error or None). Streamed requests take their TTFT at the
     first token event."""
     import urllib.request
-    body = {"max_tokens": 64, "stream": i % 2 == 0}
+    body = {"max_tokens": max_tokens, "stream": i % 2 == 0}
     if i in SERVE_SAMPLED:
         body.update(temperature=0.8, top_k=40, seed=i)
     else:
@@ -3482,7 +3542,7 @@ def running_server(srv):
 
 
 # phase 5's embedding traffic: (requests, tokens a request, client threads)
-EMBED_SHORT = (256, 50, 16)
+EMBED_SHORT = (128, 50, 16)      # cut from 256 requests to pay for phase 15
 EMBED_LONG = (8, 500, 8)
 EMBED_TOL = 1e-3                  # max abs, unit vectors
 
@@ -3501,7 +3561,7 @@ def _embed_request(base, ids):
 
 def embedding_phase(torch, srv, base, eng):
     """Phase 5's embeddings, after its generation traffic, over the same
-    server: EMBED_SHORT's 256 /v1/embeddings requests of 50 tokens from 16
+    server: EMBED_SHORT's 128 /v1/embeddings requests of 50 tokens from 16
     client threads (batches of up to 64 rows of bucket 64: the dequant GEMM
     at M = rows x 64), then EMBED_LONG's 8 requests of 500 tokens from 8
     threads (bucket 512: flash_prefill at B > 1 where they batch). Each
@@ -3749,14 +3809,13 @@ def dense_profile(torch, eng, step_ms):
         log(f"    {us / 8 / 1e3:8.4f} ms/step  {name[:90]}")
 
 
-CHAT_TURNS = ("Tell me about the card in this machine.",
-              "What else can it do, and how fast is it?",
-              "Thank you. Say it again, shorter.")
+CHAT_TURNS = ("Tell me about the card in this machine.",      # a third cut for phase 15
+              "What else can it do, and how fast is it?")
 CHAT_NEW = 16                     # tokens a turn of the REPL session
 
 
 def chat_phase(torch, eng):
-    """A three-turn REPL session in process: cli.chat_loop over a
+    """A two-turn REPL session in process (a third cut for phase 15): cli.chat_loop over a
     ChatSession on eng's weights with grammar_tokenizer's pieces (text to
     byte pieces), CHAT_NEW greedy tokens a turn. Each turn's TTFT and the
     tokens it reused from the kept cache; turn 2's first-token logits
@@ -3909,20 +3968,362 @@ def dense_phase(torch, eng, read):
     del b, alone
     torch.cuda.empty_cache()
     step_ms = dense_step(torch, eng, read)
-    log("  the REPL (--chat) in process, three turns")
+    log(f"  the REPL (--chat) in process, {len(CHAT_TURNS)} turns")
     counts_chat = chat_phase(torch, eng)
     return [counts, counts_chat], step_ms
 
 
-PHASE6_LAYERS = 8      # phase 6's depth, cut from 32 (the time of phases 11 and 12,
-                       # then of phase 14)
-PHASE8_LAYERS = 8      # phase 8's, cut from 28
-PHASE9_LAYERS = 12     # phase 9's, cut from 42 (to 21, then to 12 for phase 14)
-PHASE10_LAYERS = 16    # phase 10's, cut from 62 (to 31, then to 16 for phase 14)
-PHASE11_LAYERS = 8     # phase 11's, cut from 64 (the time of phase 13, phase 3's two
-                       # sampling and grammar checks and admission_profile)
-PHASE12_LAYERS = 8     # phase 12's, cut from 28 (the same; both halved again for
-                       # phase 14)
+KV_NEW = 32                       # phase 15a: new tokens a run
+KV_PLAIN_TOL = 2e-2               # of the largest logit, as phase 3 holds logits
+PHASE15_FORMAT = "Q2_K"           # phase 15d's file: q8b codes, per-16 scales and a bias
+PHASE15_VOCAB = 8192              # phase 15d's vocabulary, cut from 128256
+PHASE15_LOAD_LAYERS = 4           # phase 15e's depth, cut from 32
+KNOBS = ("STACK", "ILGU", "FLASH_DECODE", "PRENORM")
+
+
+def serving_counts(n):
+    """expect() of serve_four for n stacked Q4_K layers of a llama with a
+    fused FFN (phases 8 and 15b): decode steps d at 4 rows, admission
+    slices by bucket."""
+    return lambda d, small, big, fr: {
+        "paged_attention": n * d,
+        "qmm_txn": (4 * n + 1) * d + 4 * n * small, "qmm_dequant": 4 * n * big,
+        "flash_prefill": n * sum(c for b, c in fr.items() if b >= 128),
+        "qmm_txn_m1": small + big}
+
+
+def kv_plain_check(torch, eng, prompt, toks, kv):
+    """Phase 15a's hold: every decode step of generate's tokens toks run
+    again from the same cache, once through flash_decode_write and once
+    through its plain version on the card (plain_kernels(products=False):
+    the products on their kernels both times, deterministic), logits within
+    KV_PLAIN_TOL of the largest with the same top-1; the kernel's step must
+    give generate's next token. The first step is also held, within the
+    same limit and with the same top-1, against the plain versions of every
+    kernel (plain_kernels(): the products' too)."""
+    from llamafile_tpu_torch.models.llama import forward
+    from llamafile_tpu_torch.runtime.engine import attn_bucket
+    from llamafile_tpu_torch.runtime.kvcache import KVCache
+    dev = eng.device
+    cache = eng.new_cache()
+    eng.prefill(cache, prompt)
+    p0 = len(prompt)
+    alen = attn_bucket(p0 + len(toks) + 1, eng.max_seq_len)
+    worst = 0.0
+    for i in range(len(toks) - 1):
+        tok = torch.tensor([[toks[i]]], dtype=torch.int32, device=dev)
+        pos = torch.tensor([p0 + i], dtype=torch.int32, device=dev)
+        snap = KVCache(cache.k.clone(), cache.v.clone())
+        with plain_kernels(products=False):
+            want, _ = forward(eng.params, eng.cfg, tok, pos, snap, attn_len=alen)
+        if i == 0:
+            whole_snap = KVCache(cache.k.clone(), cache.v.clone())
+            with plain_kernels():
+                whole, _ = forward(eng.params, eng.cfg, tok, pos, whole_snap, attn_len=alen)
+            del whole_snap
+        got, _ = forward(eng.params, eng.cfg, tok, pos, cache, attn_len=alen)
+        a, b = got[0, -1].float(), want[0, -1].float()
+        if i == 0:
+            c = whole[0, -1].float()
+            gap = ((a - c).abs().max() / c.abs().max()).item()
+            log(f"  {kv} KV, the first decode step against the plain versions of every "
+                f"kernel (the products too): max |diff| / max |logit| {gap:.3g}, top-1 "
+                f"{'the same' if int(a.argmax()) == int(c.argmax()) else 'DIFFERENT'} "
+                f"(tol {KV_PLAIN_TOL})")
+            if int(a.argmax()) != int(c.argmax()) or gap > KV_PLAIN_TOL:
+                raise AssertionError(f"phase 15a {kv}: the first step parts from the plain "
+                                     f"versions of every kernel ({gap:.3g})")
+            del whole
+        rel = ((a - b).abs().max() / b.abs().max()).item()
+        worst = max(worst, rel)
+        if int(a.argmax()) != int(b.argmax()) or rel > KV_PLAIN_TOL \
+                or int(a.argmax()) != toks[i + 1]:
+            raise AssertionError(f"phase 15a {kv} step {i}: top-1 kernel {int(a.argmax())}, "
+                                 f"plain {int(b.argmax())}, generate {toks[i + 1]}; "
+                                 f"max |diff| / max |logit| = {rel:.3g}")
+        del snap
+    log(f"  {kv} KV, {len(toks) - 1} decode steps again from the same cache: "
+        f"flash_decode_write against its plain version on the card, the same top-1 "
+        f"(generate's tokens) at every step, worst max |diff| / max |logit| {worst:.3g} "
+        f"(tol {KV_PLAIN_TOL})")
+
+
+def kv_dtype_phase(torch, eng, read, prompt):
+    """Phase 15a-b on phase 4's llama3-8b Q4_K weights (32 layers, not
+    reloaded): Engine.generate of KV_NEW greedy tokens on an f16 and on an
+    f32 dense cache, launches exact as in phase 4 (decode attention on
+    flash_decode_write's f16 and f32 instances), each held against its plain
+    version (kv_plain_check); then (15b) the HTTP server at 4 slots over an
+    f16 paged pool (serve_four: paged_attention's f16 pages). Returns the
+    counted runs' launch counts."""
+    from llamafile_tpu_torch.runtime.engine import Engine
+    n, steps = eng.cfg.n_layers, KV_NEW - 1
+    out, e16 = [], None
+    for kv in ("f16", "f32"):
+        e = Engine(eng.cfg, eng.params, eng.tokenizer, max_seq_len=2048, kv_dtype=kv,
+                   device=eng.device)
+        toks, counts, ttft, decode_s = counted_generate(torch, e, prompt, KV_NEW)
+        check_counts(counts, {"qmm_txn_m1": 1 + (2 * n + 1) * steps, "qmm_txn": 4 * n,
+                              "qmm_moe_m1": 2 * n * steps,
+                              "flash_decode_write_stacked": n * steps}, f"phase 15a {kv}")
+        decode_report(torch, read, steps, ttft, decode_s,
+                      f"24-token prompt, bucket 32, {kv} KV")
+        kv_plain_check(torch, e, prompt, toks, kv)
+        out.append(counts)
+        e16 = e if kv == "f16" else e16
+        del e
+        torch.cuda.empty_cache()
+    phase("phase 15b: the HTTP server at 4 slots over an f16 paged pool, the same weights")
+    out.append(serve_four(torch, e16, "synthetic-llama3-8b-q4k", "phase 15b (f16 pool)",
+                          serving_counts(n)))
+    del e16
+    torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
+def route_knob(name):
+    """One of the reference's route knobs off, set where the port reads it:
+    LLAMAFILE_TPU_STACK and _ILGU in the environment (read when an Engine is
+    built and by models.loader.fuse_projections), _FLASH_DECODE and
+    _PRENORM in the module constants they were read into at import
+    (ops.attention.FLASH_DECODE, models.llama.PRENORM)."""
+    from llamafile_tpu_torch.models import llama as LM
+    from llamafile_tpu_torch.ops import attention as A
+    if name in ("STACK", "ILGU"):
+        key = f"LLAMAFILE_TPU_{name}"
+        old = os.environ.get(key)
+        os.environ[key] = "0"
+        try:
+            yield
+        finally:
+            if old is None:
+                del os.environ[key]
+            else:
+                os.environ[key] = old
+        return
+    mod, attr = (A, "FLASH_DECODE") if name == "FLASH_DECODE" else (LM, "PRENORM")
+    old = getattr(mod, attr)
+    setattr(mod, attr, False)
+    try:
+        yield
+    finally:
+        setattr(mod, attr, old)
+
+
+def knob_phase(torch, dev):
+    """Phase 15c: each route knob off in turn (route_knob) at 2 layers of
+    llama3-8b width (llama3-8b-2l, Q4_K, fused): Engine.generate of 8
+    greedy tokens from a 40-token prompt (bucket 64: the stacked dequant
+    GEMM, or under STACK=0 the unstacked planes), launches exact, then
+    whole_path_check card against CPU plain under the same knob. STACK=0:
+    every product unstacked (qmm_planes at the prefill, qmm_txn_m1 for all
+    four at M = 1) and flash_decode_write on each layer's view, as the
+    reference's unrolled loop calls its fused kernel; ILGU=0: gate|up
+    concatenated, no qmm_moe_m1; FLASH_DECODE=0: no decode attention
+    kernel, the einsum route a layer a step; PRENORM=0: the launches of
+    the default. Returns the counted runs' launch counts."""
+    from llamafile_tpu_torch.models.synthetic import make_synthetic_llama
+    from llamafile_tpu_torch.ops import attention as A
+    from llamafile_tpu_torch.runtime.engine import Engine
+    from llamafile_tpu_torch.runtime.tokenizer import Tokenizer
+    n_new, n_prompt = 8, 40
+    steps = n_new - 1
+    out = []
+    for name in KNOBS:
+        phase(f"  phase 15c LLAMAFILE_TPU_{name}=0")
+        with route_knob(name):
+            cfg, params = make_synthetic_llama("llama3-8b-2l", "Q4_K", seed=1, fuse=True,
+                                               device=dev)
+            eng = Engine(cfg, params, Tokenizer({}), max_seq_len=1024, device=dev)
+            del params
+            n = cfg.n_layers
+            prompt = torch.randint(3, cfg.n_vocab, (n_prompt,),
+                                   generator=torch.Generator().manual_seed(6)).tolist()
+            _, counts, _, _ = counted_generate(torch, eng, prompt, n_new)
+            routes = dict(A.ROUTE_COUNTS)
+            flat = name in ("STACK", "ILGU")          # no fused FFN
+            want = {"qmm_txn_m1": 1 + ((4 if flat else 2) * n + 1) * steps,
+                    "qmm_moe_m1": 0 if flat else 2 * n * steps,
+                    "flash_decode_write_stacked": 0 if name == "FLASH_DECODE" else n * steps,
+                    "qmm_planes" if name == "STACK" else "qmm_dequant": 4 * n}
+            check_counts(counts, want, f"phase 15c {name}=0")
+            einsum = n * steps if name == "FLASH_DECODE" else 0
+            log(f"  decode attention routes: {routes} (expected einsum {einsum})")
+            if routes != {"einsum": einsum, "gather": 0}:
+                raise AssertionError(f"phase 15c {name}=0: routes {routes}")
+            del eng
+            torch.cuda.empty_cache()
+            whole_path_check(torch, dev, "Q4_K", n_prompt=n_prompt, n_decode=1,
+                             stack=name != "STACK")
+        out.append(counts)
+    return out
+
+
+def format_phase(torch, dev, tmp):
+    """Phase 15d: a GGUF file of PHASE15_FORMAT written by the port's
+    writer at llama3-8b's widths (models.synthetic.write_synthetic_gguf: 1
+    layer, the vocabulary cut to PHASE15_VOCAB, random codes, small f16
+    scales), read, repacked (q8b codes with per-16 scales and a bias) and
+    loaded by load_engine on the card: Engine.generate of 8 greedy tokens
+    with exact launches (phase 4c's pattern: qmm_dequant at the prefill,
+    qmm_q8_m1 at M = 1), then the prefill and 4 decode steps card against
+    the plain versions on the card (plain_kernels), logits within 2e-2 of
+    the largest with the same top-1. Returns the counted run's launches."""
+    from llamafile_tpu_torch.models.llama import forward
+    from llamafile_tpu_torch.models.synthetic import write_synthetic_gguf
+    from llamafile_tpu_torch.runtime.engine import bucket_len, load_engine
+    path = os.path.join(tmp, f"llama3-8b-1l-{PHASE15_FORMAT}.gguf")
+    t0 = time.time()
+    write_synthetic_gguf(path, "llama3-8b", PHASE15_FORMAT, n_layers=1, n_vocab=PHASE15_VOCAB)
+    eng = load_engine(path, device=dev, max_seq_len=1024)
+    torch.cuda.synchronize()
+    layer = eng.params.layers[0]                  # one layer: unrolled, as the reference
+    log(f"  wrote and loaded {os.path.getsize(path) / 1e6:.1f} MB in {time.time() - t0:.1f} s; "
+        f"qkv {layer.wqkv.kind} g={layer.wqkv.g} bias {layer.wqkv.bias is not None}")
+    if (layer.wqkv.kind, layer.wqkv.g, layer.wqkv.bias is None) != ("q8b", 16, False):
+        raise AssertionError(f"phase 15d: {PHASE15_FORMAT} did not repack to q8b g16 with a bias")
+    n, n_new = eng.cfg.n_layers, 8
+    steps = n_new - 1
+    prompt = torch.randint(3, PHASE15_VOCAB, (24,),
+                           generator=torch.Generator().manual_seed(7)).tolist()
+    _, counts, _, _ = counted_generate(torch, eng, prompt, n_new)
+    check_counts(counts, {"qmm_q8_m1": 1 + (4 * n + 1) * steps, "qmm_dequant": 4 * n,
+                          "flash_decode_write_stacked": n * steps}, "phase 15d")
+    caches = {k: eng.new_cache() for k in ("card", "plain")}
+    toks = torch.zeros((1, bucket_len(24)), dtype=torch.int32, device=dev)
+    toks[0, :24] = torch.tensor(prompt, device=dev)
+    step = lambda c, t, p, **kw: forward(eng.params, eng.cfg, t, torch.tensor(
+        [p], dtype=torch.int32, device=dev), caches[c], **kw)[0][0, -1].float()
+    nxt, worst = None, 0.0
+    for i in range(5):
+        args = ((toks, 0) if i == 0 else
+                (torch.tensor([[nxt]], dtype=torch.int32, device=dev), 23 + i))
+        kw = (dict(fresh_prefill=True, last_idx=torch.tensor([23], device=dev)) if i == 0
+              else dict(attn_len=256))
+        a = step("card", *args, **kw)
+        with plain_kernels():
+            b = step("plain", *args, **kw)
+        rel = ((a - b).abs().max() / b.abs().max()).item()
+        worst = max(worst, rel)
+        if int(a.argmax()) != int(b.argmax()) or rel > 2e-2:
+            raise AssertionError(f"phase 15d step {i}: card and plain disagree ({rel:.3g})")
+        nxt = int(a.argmax())
+    log(f"  prefill and 4 decode steps, card against the plain versions on the card: the "
+        f"same top-1, worst max |diff| / max |logit| {worst:.3g}")
+    del eng, caches
+    os.remove(path)
+    torch.cuda.empty_cache()
+    return [counts]
+
+
+def load_phase(torch, dev, tmp):
+    """Phase 15e: a llama3-8b Q4_K GGUF of PHASE15_LOAD_LAYERS layers with
+    the full vocabulary (write_synthetic_gguf, the port's writer; every
+    matrix, the embedding and the head Q4_K), then load_engine on it, timed
+    by piece: the file's bytes read (the mmap pages copied: the file was
+    just written, so the reads are warm), the numpy repack
+    (ops.repack.repack_numpy), the rest of repack() (N padding, the copy to
+    the device), the embedding's and norms' host dequant with its copy,
+    and the rest (config, tokenizer, fuse_projections, stack_layers).
+    Prints the extrapolation of each piece to 32 layers, labelled as one."""
+    from llamafile_tpu_torch.gguf import reader as RD
+    from llamafile_tpu_torch.models import loader as LD
+    from llamafile_tpu_torch.models.synthetic import write_synthetic_gguf
+    from llamafile_tpu_torch.ops import repack as RP
+    import numpy as np
+    from llamafile_tpu_torch.runtime.engine import load_engine
+    path = os.path.join(tmp, "llama3-8b-4l-q4k.gguf")
+    t0 = time.time()
+    write_synthetic_gguf(path, "llama3-8b", "Q4_K", n_layers=PHASE15_LOAD_LAYERS)
+    log(f"  wrote {os.path.getsize(path) / 1e9:.3f} GB ({PHASE15_LOAD_LAYERS} layers, vocab "
+        f"128256) through the port's GGUFWriter in {time.time() - t0:.1f} s")
+    secs = {}                                   # (piece, layer or not) -> seconds
+    add = lambda k, layer, dt: secs.__setitem__((k, layer), secs.get((k, layer), 0.0) + dt)
+    orig_bytes, orig_f32 = RD.GGUFReader.tensor_bytes, RD.GGUFReader.tensor_f32
+    orig_numpy, orig_repack = RP.repack_numpy, LD.repack
+    cur = {"layer": False, "read": 0.0}
+
+    def tensor_bytes(self, name):
+        t = time.perf_counter()
+        raw = np.array(orig_bytes(self, name))
+        dt = time.perf_counter() - t
+        cur["read"] += dt
+        add("read", name.startswith("blk."), dt)
+        cur["layer"] = name.startswith("blk.")
+        return raw
+
+    def tensor_f32(self, name):
+        t, r0 = time.perf_counter(), cur["read"]
+        out = orig_f32(self, name)
+        add("embedding and norms (host dequant)", name.startswith("blk."),
+            time.perf_counter() - t - (cur["read"] - r0))
+        return out
+
+    def repack_numpy(*a, **kw):
+        t = time.perf_counter()
+        out = orig_numpy(*a, **kw)
+        add("repack (numpy)", cur["layer"], time.perf_counter() - t)
+        cur["numpy"] = time.perf_counter() - t
+        return out
+
+    def repack(*a, **kw):
+        t = time.perf_counter()
+        out = orig_repack(*a, **kw)
+        torch.cuda.synchronize()
+        add("to the device", cur["layer"], time.perf_counter() - t - cur["numpy"])
+        return out
+    patches = [(RD.GGUFReader, "tensor_bytes", tensor_bytes),
+               (RD.GGUFReader, "tensor_f32", tensor_f32),
+               (RP, "repack_numpy", repack_numpy), (LD, "repack", repack)]
+    for obj, name, f in patches:
+        setattr(obj, name, f)
+    try:
+        t0 = time.perf_counter()
+        eng = load_engine(path, device=dev, max_seq_len=2048)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    finally:
+        setattr(RD.GGUFReader, "tensor_bytes", orig_bytes)
+        setattr(RD.GGUFReader, "tensor_f32", orig_f32)
+        RP.repack_numpy, LD.repack = orig_numpy, orig_repack
+    pieces = {}
+    for (k, layer), v in secs.items():
+        pieces.setdefault(k, [0.0, 0.0])[0 if layer else 1] += v
+    rest = total - sum(sum(v) for v in pieces.values())
+    scale = 32 / PHASE15_LOAD_LAYERS
+    log(f"  load_engine: {total:.3f} s on {PHASE15_LOAD_LAYERS} layers, by piece (layers + "
+        "the rest; the read warm: the file was just written):")
+    for k, (lay, other) in pieces.items():
+        log(f"    {k}: {lay + other:.3f} s (layers {lay:.3f}, embedding, head and norms "
+            f"{other:.3f}); extrapolated to 32 layers: {lay * scale + other:.3f} s")
+    log(f"    the rest (config, tokenizer, fuse_projections, stack_layers): {rest:.3f} s")
+    est = sum(l * scale + o for l, o in pieces.values()) + rest
+    log(f"  EXTRAPOLATION, not a measurement: load_engine of a 32-layer file "
+        f"~{est:.1f} s, of which the numpy repack "
+        f"~{pieces['repack (numpy)'][0] * scale + pieces['repack (numpy)'][1]:.1f} s")
+    print(json.dumps({"load_pieces_s": {k: [round(a, 3), round(b, 3)]
+                                        for k, (a, b) in pieces.items()},
+                      "load_total_s": round(total, 3), "rest_s": round(rest, 3),
+                      "layers": PHASE15_LOAD_LAYERS}), flush=True)
+    from llamafile_tpu_torch.runtime.sampling import SamplingParams
+    toks = [t for t, _ in eng.generate("hello", max_tokens=4, stop_on_eog=False,
+                                       sampling=SamplingParams(temperature=0.0))]
+    if len(toks) != 4:
+        raise AssertionError(f"phase 15e: the loaded engine generated {toks}")
+    del eng
+    os.remove(path)
+    torch.cuda.empty_cache()
+
+
+# phases 6 and 8-12's depths, halved for phase 15 (6, 8, 11 and 12 from 8,
+# after the cuts for phases 11-14; 9 from 12 and 10 from 16)
+PHASE6_LAYERS = 4      # of llama3-8b's 32 (still two formats: layers 2 and 3 Q6_K)
+PHASE8_LAYERS = 4      # of Llama-3.2-3B's 28
+PHASE9_LAYERS = 6      # of Gemma-2-9B's 42
+PHASE10_LAYERS = 8     # of Gemma-3-27B's 62 (layer 5 global)
+PHASE11_LAYERS = 4     # of Qwen3-32B's 64
+PHASE12_LAYERS = 4     # of Qwen2.5-7B's 28
 
 
 def q4km_phase(torch, dev, prompt, long_prompt, n_new):
@@ -3930,7 +4331,7 @@ def q4km_phase(torch, dev, prompt, long_prompt, n_new):
     layers (16 / 32 of them with Q6_K V and down), unrolled, through
     Engine.generate (24-token prompt, n_new greedy tokens; then the
     1000-token prompt's TTFT) and the HTTP server at 4 slots (4 greedy
-    requests, those of the shortest and longest prompt against themselves
+    requests, that of the longest prompt against itself
     served alone). Launch counts
     exact, from the recipe's layer list. Returns the counted runs' counts."""
     from llamafile_tpu_torch.models.synthetic import decode_read_bytes
@@ -3986,14 +4387,18 @@ def q4km_phase(torch, dev, prompt, long_prompt, n_new):
     return [counts, counts_b, counts_s]
 
 
+SERVE_NEW = 32            # new tokens a request of serve_four and phase 7c (cut from 64
+                          # for phase 15)
+
+
 def serve_four(torch, eng, model, what, expect, serve_alone=True):
-    """The port's HTTP server over eng at 4 slots: 4 greedy requests (the
-    prompts of SERVE_LENGTHS, as phase 5's requests Q4KM_SERVED: 2 streamed)
-    from 4 client threads, launch counts exact (expect(decode steps, small
-    slices, big slices, fresh slices by bucket) from the batcher's tallies),
-    then (serve_alone) each request of the shortest and longest prompt on
-    a fresh 4-row batcher, which must give the same ids. Returns the
-    counted run's launch counts."""
+    """The port's HTTP server over eng at 4 slots: 4 greedy requests of
+    SERVE_NEW new tokens (the prompts of SERVE_LENGTHS, as phase 5's
+    requests Q4KM_SERVED: 2 streamed) from 4 client threads, launch counts
+    exact (expect(decode steps, small slices, big slices, fresh slices by
+    bucket) from the batcher's tallies), then (serve_alone) each request of
+    the shortest and longest prompt on a fresh 4-row batcher, which must
+    give the same ids. Returns the counted run's launch counts."""
     from concurrent.futures import ThreadPoolExecutor
     from llamafile_tpu_torch.ops import reset_launch_counts
     from llamafile_tpu_torch.server.batcher import Batcher
@@ -4014,7 +4419,8 @@ def serve_four(torch, eng, model, what, expect, serve_alone=True):
         t0 = time.perf_counter()
         with ThreadPoolExecutor(4) as ex:
             results = dict(zip(Q4KM_SERVED, ex.map(
-                lambda i: _serve_request(base, i, prompts[i], False), Q4KM_SERVED)))
+                lambda i: _serve_request(base, i, prompts[i], False, SERVE_NEW),
+                Q4KM_SERVED)))
         wall = time.perf_counter() - t0
         counts = launch_counts()
         st1 = srv.batcher.stats
@@ -4022,7 +4428,8 @@ def serve_four(torch, eng, model, what, expect, serve_alone=True):
         if errors:
             raise AssertionError(f"{what} requests failed: {errors}")
         n_out = sum(r[1]["completion_tokens"] for r in results.values())
-        log(f"  4 requests (prompts {SERVE_LENGTHS}), {n_out} tokens out in {wall:.3f} s: "
+        log(f"  4 requests (prompts {SERVE_LENGTHS}, {SERVE_NEW} new tokens), {n_out} "
+            f"tokens out in {wall:.3f} s: "
             f"{n_out / wall:.2f} output tok/s")
         delta = lambda k: {b: c - st0[k].get(b, 0) for b, c in st1[k].items()}
         dsteps = st1["decode_steps"] - st0["decode_steps"]
@@ -4040,7 +4447,8 @@ def serve_four(torch, eng, model, what, expect, serve_alone=True):
     alone = Batcher(eng, rows=4)
     try:
         for i in (i for i in Q4KM_SERVED if len(prompts[i]) in ALONE_LENGTHS):
-            toks = _alone_tokens(alone, prompts[i], srv._sp({"temperature": 0.0}))
+            toks = _alone_tokens(alone, prompts[i], srv._sp({"temperature": 0.0}),
+                                 SERVE_NEW)
             same = toks == results[i][0]
             log(f"  request {i} (prompt {len(prompts[i])}): alone {len(toks)} tokens, "
                 f"{'the same ids' if same else 'DIFFERENT ids'} as served beside the others")
@@ -4940,6 +5348,12 @@ def phase3_checks():
         ("Q4_K_M", whole_path_check, ("Q4_K_M",), dict(n_prompt=300, n_decode=1), "txn"),
         ("int8 KV", whole_path_check, ("Q4_K",),
          dict(n_prompt=32, n_decode=1, kv_dtype="int8"), "txn"),
+        # --kv-dtype f16 and f32: flash_decode_write's f16 and f32 instances
+        # on the whole path (the prefill's rows written in the cache's dtype)
+        ("f16 KV", whole_path_check, ("Q4_K",),
+         dict(n_prompt=32, n_decode=2, kv_dtype="f16"), "txn"),
+        ("f32 KV", whole_path_check, ("Q4_K",),
+         dict(n_prompt=32, n_decode=2, kv_dtype="f32"), "txn"),
         ("Mixtral Q4_K stacked", moe_path_check, ("Q4_K",),
          dict(runs=((24, 1),)), "txn"),
         ("Mixtral Q4_K_M unrolled", moe_path_check, ("Q4_K_M",),
@@ -4962,6 +5376,46 @@ def phase3_checks():
         ("paged decode, 4 rows", paged_path_check, (), dict(n_decode=1), "int8"),
         ("Mixtral Q4_K stacked", moe_path_check, ("Q4_K",),
          dict(runs=((24, 1),)), "int8"))
+
+
+def main_prompts(torch, n_vocab):
+    """Phase 4's 24-token and 1000-token prompts."""
+    return ([int(t) for t in torch.randint(3, n_vocab, (24,),
+                                           generator=torch.Generator().manual_seed(3))],
+            [int(t) for t in torch.randint(3, n_vocab, (1000,),
+                                           generator=torch.Generator().manual_seed(4))])
+
+
+def profile_run(torch, dev):
+    """`chip_smoke.py --profiles`: the profiles alone, apart from the
+    timed run, on phase 4's engine (llama3-8b Q4_K, 32 layers, stacked):
+    phase 4's decode step and 4f's under LLAMAFILE_TPU_Q4B=int8, phase 5's
+    fused 8-row step and phase 14's dense one, each timed first; then
+    under torch.profiler the decode chunks (device_busy, with cProfile's
+    host time by function), one 1000-token prefill (prefill_profile), the
+    fused and dense steps (fused_profile, dense_profile) and an admission
+    (admission_profile)."""
+    from llamafile_tpu_torch.runtime.sampling import SamplingParams
+    sp = SamplingParams(temperature=0.0)
+    eng, read = build_engine(torch, dev, "Q4_K")
+    prompt, long_prompt = main_prompts(torch, eng.cfg.n_vocab)
+    steps = {}
+    for fl in ("txn", "int8"):
+        with q4b_flavour(fl):
+            _, _, ttft, decode_s = counted_generate(torch, eng, prompt, 32)
+            steps[fl] = decode_report(torch, read, 31, ttft, decode_s,
+                                      f"24-token prompt, bucket 32, LLAMAFILE_TPU_Q4B={fl}")
+    step_fused, step_dense = fused_step(torch, eng, read), dense_step(torch, eng, read)
+    for fl in ("txn", "int8"):
+        log(f"  decode chunk, LLAMAFILE_TPU_Q4B={fl}:")
+        with q4b_flavour(fl):
+            device_busy(torch, eng, prompt, sp, steps[fl])
+    prefill_profile(torch, eng, long_prompt)
+    fused_profile(torch, eng, step_fused)
+    dense_profile(torch, eng, step_dense)
+    admission_profile(torch, eng)
+    del eng
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -4988,9 +5442,16 @@ def main() -> int:
                           text=True, timeout=60, check=True).stdout.strip().splitlines()[-1]
     log(f"nvcc: {nvcc}")
     t0 = time.time()
-    _build.build_all()
+    lib_s = _build.build_all()
     build_s = time.time() - t0
-    log(f"built {len(_build.SOURCES)} kernel libraries in {build_s:.1f} s")
+    log(f"built {len(_build.SOURCES)} kernel libraries in {build_s:.1f} s; nvcc seconds by "
+        f"library: {lib_s}")
+    if sys.argv[1:] == ["--profiles"]:
+        phase("profiles of phase 4's engine: decode, prefill, fused and dense steps, admission")
+        profile_run(torch, dev)
+        phase("done")
+        print(smi)
+        return 0
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)

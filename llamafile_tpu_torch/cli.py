@@ -3,13 +3,14 @@ completion, the HTTP server and the tokenizer dump.
 
   python -m llamafile_tpu_torch.cli --model m.gguf --cli -p "..." -n 32
   python -m llamafile_tpu_torch.cli --model m.gguf --cli -p "..." --device cpu
-      [--kv-dtype bf16|int8] [--prompt-cache session.npz]
+      [--kv-dtype bf16|f16|f32|int8] [--prompt-cache session.npz]
+      [--trace trace.json] [--trap]
       [--repeat-penalty 1.1 --repeat-last-n 64] [--mirostat 2]
   python -m llamafile_tpu_torch.cli --model m.gguf --chat [--device cpu]
   python -m llamafile_tpu_torch.cli --model m.gguf --chat --server \
       --listen 127.0.0.1:8080
   python -m llamafile_tpu_torch.cli --server -m m.gguf --slots 8 \
-      --listen 127.0.0.1:8080 [--ctx-size N] [--kv-dtype bf16|int8] \
+      --listen 127.0.0.1:8080 [--ctx-size N] [--kv-dtype bf16|f16|f32|int8] \
       [--preempt SECONDS] [--db chats.sqlite] [--www-root DIR] [--device cpu]
   python -m llamafile_tpu_torch.cli --tokenize -m m.gguf -p "text"
   python -m llamafile_tpu_torch.cli --version
@@ -22,8 +23,10 @@ decode, and `--prompt-cache` reuses and saves the prompt's KV state
 (runtime/state.py). `--chat` keeps one KV cache across the turns
 (runtime.engine.ChatSession) and takes the reference's slash commands;
 with `--server` the HTTP server runs on a background thread over the
-chat's engine. Left out: `--trace` and `--trap` (they exit with an error),
-image input (`--image`, and `/upload` of an image with `--mmproj`, which
+chat's engine. `--trace PATH` writes utils/tracing's span recorder as
+Chrome JSON at exit, `--trap` holds every forward's layer outputs and
+logits to be finite (FloatingPointError at the first that is not). Left
+out: image input (`--image`, and `/upload` of an image with `--mmproj`, which
 prints that it is not ported), LoRA, self-extend and multi-chip meshes.
 """
 from __future__ import annotations
@@ -35,8 +38,6 @@ from typing import List, Optional, TextIO
 
 from .utils.flags import Flags, parse_flags
 from .version import VERSION_STRING
-
-_UNPORTED_FLAGS = ("--trace", "--trap")
 
 
 def _load_engine(flags: Flags):
@@ -268,15 +269,20 @@ def main(argv: Optional[List[str]] = None) -> int:
     if mode == "version":
         print(VERSION_STRING)
         return 0
-    for name in _UNPORTED_FLAGS:
-        if name in argv:
-            print(f"error: {name} is not yet ported to llamafile_tpu_torch",
-                  file=sys.stderr)
-            return 2
     flags = parse_flags(argv)
     if not flags.model:
         print("error: --model required", file=sys.stderr)
         return 1
+    if flags.trap:
+        from .utils.tracing import enable_trap
+        enable_trap()
+        print("NaN/Inf trapping enabled (--trap)", file=sys.stderr)
+    if flags.trace:
+        import atexit
+        from .utils import tracing
+        tracer = tracing.enable_tracing(flags.trace)
+        atexit.register(tracer.write)
+        print(f"tracing to {flags.trace} (Chrome about://tracing)", file=sys.stderr)
     if mode == "cli":
         return run_cli(flags)
     if mode == "chat":

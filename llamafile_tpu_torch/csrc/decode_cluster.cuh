@@ -1,9 +1,11 @@
 // The cluster body shared by the decode kernels (flash_decode_write.cu,
-// flash_decode.cu, paged_attention.cu): a 16-row bf16 K/V slab staged by
-// cp.async and run on mma.sync (the bf16 dense caches), a 32-row slab run in
-// f32 on the CUDA cores (the int8 dense cache, and both page types of the
-// paged pool), and the merge of a rank's warp partials pushed through
-// distributed shared memory to the other ranks of its thread-block cluster.
+// flash_decode.cu, paged_attention.cu): a 16-row K/V slab of 2-byte
+// elements (bf16 or f16, the element type E) staged by cp.async and run on
+// mma.sync (the bf16 and f16 dense caches), a 32-row slab run in f32 on
+// the CUDA cores (the int8 and f32 dense caches, and every page type of the
+// paged pool: int8, bf16, f16, f32), and the merge of a rank's warp
+// partials pushed through distributed shared memory to the other ranks of
+// its thread-block cluster.
 //
 // Each (batch row, kv head, head chunk) is one cluster of CS blocks (the
 // ranks). Rank r takes the rows [rank_lo(r, n), rank_lo(r + 1, n)) of the
@@ -14,6 +16,10 @@
 // that rank's mbarrier. Every sum runs in a fixed order, so two launches on
 // the same inputs give the same bits.
 #pragma once
+
+#include <cuda_fp16.h>
+
+#include <type_traits>
 
 #include "mma_bf16.cuh"
 
@@ -40,17 +46,67 @@ __device__ __forceinline__ float bf16_hi(uint32_t v) {
   return __uint_as_float(v & 0xffff0000u);
 }
 
+// The 2-byte element types of the mma slab: E's pair of a 32-bit word as
+// f32, two f32 rounded to an E pair (nearest even), and the m16n8k16
+// product of E operands with f32 accumulators.
+template <typename E>
+struct Elt;
+
+template <>
+struct Elt<__nv_bfloat16> {
+  static __device__ __forceinline__ float lo(uint32_t v) { return bf16_lo(v); }
+  static __device__ __forceinline__ float hi(uint32_t v) { return bf16_hi(v); }
+  static __device__ __forceinline__ uint32_t pack(float a, float b) { return pack_bf16x2(a, b); }
+  static __device__ __forceinline__ __nv_bfloat16 round(float x) {
+    return __float2bfloat16_rn(x);
+  }
+  static __device__ __forceinline__ void mma(float* c, const uint32_t* a, uint32_t b0,
+                                             uint32_t b1) {
+    mma_16816(c, a, b0, b1);
+  }
+};
+
+template <>
+struct Elt<__half> {
+  static __device__ __forceinline__ float lo(uint32_t v) {
+    return __half2float(__ushort_as_half((unsigned short)(v & 0xffffu)));
+  }
+  static __device__ __forceinline__ float hi(uint32_t v) {
+    return __half2float(__ushort_as_half((unsigned short)(v >> 16)));
+  }
+  static __device__ __forceinline__ uint32_t pack(float a, float b) {
+    __half2 h = __floats2half2_rn(a, b);
+    return *reinterpret_cast<uint32_t*>(&h);
+  }
+  static __device__ __forceinline__ __half round(float x) { return __float2half_rn(x); }
+  static __device__ __forceinline__ void mma(float* c, const uint32_t* a, uint32_t b0,
+                                             uint32_t b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
+};
+
+template <>
+struct Elt<float> {
+  static __device__ __forceinline__ float round(float x) { return x; }
+};
+
 // first row of rank r of CS over n rows (testing.fdw_rank_ranges is the same rule)
 __device__ __forceinline__ int rank_lo(int r, int n) {
   return (int)((long long)r * n / CS);
 }
 
-// rows j0 .. j0 + nr - 1 of K and V (row stride HD elements) into one slab
-// [K rows | V rows] of row stride D + 8, by the 32 lanes of a warp; the
-// slab's rows nr .. RW - 1 are zero-filled, so P.V over them adds 0
-template <int D>
-__device__ __forceinline__ void load_slab(__nv_bfloat16* slab, const __nv_bfloat16* kb,
-                                          const __nv_bfloat16* vb, int j0, int nr, int HD) {
+// rows j0 .. j0 + nr - 1 of K and V (row stride HD elements of the 2-byte
+// E) into one slab [K rows | V rows] of row stride D + 8, by the 32 lanes
+// of a warp; the slab's rows nr .. RW - 1 are zero-filled, so P.V over
+// them adds 0
+template <int D, typename E>
+__device__ __forceinline__ void load_slab(E* slab, const E* kb, const E* vb, int j0, int nr,
+                                          int HD) {
+  static_assert(sizeof(E) == 2, "the mma slab holds 2-byte elements");
   constexpr int DP = D + 8, CH = D / 8;        // 16-byte chunks a row
   const int lane = threadIdx.x & 31, col = 8 * (lane % CH), r = lane / CH;
 #pragma unroll
@@ -74,27 +130,28 @@ __device__ __forceinline__ float soft_cap(float s, float cap) {
 // One slab of a warp (nrw of its RW rows valid, the rest zero) on the
 // tensor cores, "swap AB": the query heads are the n = 8 side of
 // mma.m16n8k16, NTL tiles of 8. Scores S^T = K Q^T (K by ldmatrix, qb the
-// bf16 q fragments: head 8t + gq) times scale (then softcapped when SC),
-// the slab's max and rescale of heads
+// q fragments rounded to E: head 8t + gq) times scale (then softcapped
+// when SC), the slab's max and rescale of heads
 // 8t + 2qd, 8t + 2qd + 1 (l summing the f32 p), then O^T += V^T P^T (V by
-// ldmatrix.trans; the bf16 p moved from the S^T accumulators into the B
-// fragment by movmatrix.trans): acc[t][mt] holds dims 16mt + gq (+8) of
-// those two heads.
-template <int D, int NTL, bool SC = false>
-__device__ __forceinline__ void attend_slab(const __nv_bfloat16* ks, int nrw,
+// ldmatrix.trans; p rounded to E, moved from the S^T accumulators into the
+// B fragment by movmatrix.trans): acc[t][mt] holds dims 16mt + gq (+8) of
+// those two heads. E is bf16 or f16: the same bytes, another rounding and
+// product.
+template <int D, int NTL, bool SC = false, typename E = __nv_bfloat16>
+__device__ __forceinline__ void attend_slab(const E* ks, int nrw,
                                             const uint32_t (&qb)[NTL][D / 16][2], float scale,
                                             float (&m2)[NTL][2], float (&l2)[NTL][2],
                                             float (&acc)[NTL][D / 16][4], float cap = 0.f) {
   constexpr int DP = D + 8;
   const int lane = threadIdx.x & 31, gq = lane >> 2;
-  const __nv_bfloat16* vs = ks + RW * DP;
+  const E* vs = ks + RW * DP;
   float c[NTL][2][4] = {};           // S^T: rows gq (+8), heads 2qd (+1); two chains
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     uint32_t a[4];
     ldmatrix_x4(a, ks + (lane & 15) * DP + 16 * kk + 8 * (lane >> 4));
 #pragma unroll
-    for (int t = 0; t < NTL; ++t) mma_16816(c[t][kk & 1], a, qb[t][kk][0], qb[t][kk][1]);
+    for (int t = 0; t < NTL; ++t) Elt<E>::mma(c[t][kk & 1], a, qb[t][kk][0], qb[t][kk][1]);
   }
   const bool v0 = gq < nrw, v1 = gq + 8 < nrw;
   float pr[NTL][4], corr[NTL][2];
@@ -129,9 +186,9 @@ __device__ __forceinline__ void attend_slab(const __nv_bfloat16* ks, int nrw,
       acc[t][mt][3] *= corr[t][1];
     }
     // P^T as the B operand (k = row, n = head): rows 2qd (+1) and 8 + 2qd
-    // (+1) of head gq, in bf16
-    pb[t][0] = movmatrix_trans(pack_bf16x2(pr[t][0], pr[t][1]));
-    pb[t][1] = movmatrix_trans(pack_bf16x2(pr[t][2], pr[t][3]));
+    // (+1) of head gq, in E
+    pb[t][0] = movmatrix_trans(Elt<E>::pack(pr[t][0], pr[t][1]));
+    pb[t][1] = movmatrix_trans(Elt<E>::pack(pr[t][2], pr[t][3]));
   }
 #pragma unroll
   for (int mt = 0; mt < D / 16; ++mt) {
@@ -139,7 +196,7 @@ __device__ __forceinline__ void attend_slab(const __nv_bfloat16* ks, int nrw,
     ldmatrix_x4_trans(a, vs + ((lane & 7) + 8 * (lane >> 4)) * DP + 16 * mt +
                              8 * ((lane >> 3) & 1));
 #pragma unroll
-    for (int t = 0; t < NTL; ++t) mma_16816(acc[t][mt], a, pb[t][0], pb[t][1]);
+    for (int t = 0; t < NTL; ++t) Elt<E>::mma(acc[t][mt], a, pb[t][0], pb[t][1]);
   }
 }
 
@@ -299,13 +356,14 @@ __device__ __forceinline__ void push_partials(const float* wacc, const float (*w
   }
 }
 
-// ---- The f32 slab of flash_decode's int8 form and of paged_attention ----
-// RQ rows of K and V (int8 codes with their f32 scales, or bf16) staged in
-// shared memory, computed on in f32 on the CUDA cores: lane i takes row i's
-// scores for every head against q in shared memory (broadcast reads, no
-// shuffle in the dot), the slab's max is a warp reduction a head, and in
-// P.V lane i owns dims [i * D / 32, (i + 1) * D / 32) of every head, each
-// K and V element converted to f32 once.
+// ---- The f32 slab of flash_decode's int8 and f32 forms, of
+// flash_decode_write's f32 form and of paged_attention ----
+// RQ rows of K and V (int8 codes with their f32 scales, bf16, f16 or f32)
+// staged in shared memory, computed on in f32 on the CUDA cores: lane i
+// takes row i's scores for every head against q in shared memory
+// (broadcast reads, no shuffle in the dot), the slab's max is a warp
+// reduction a head, and in P.V lane i owns dims [i * D / 32, (i + 1) * D /
+// 32) of every head, each K and V element converted to f32 once.
 
 constexpr int RQ = 32;               // rows of an f32 slab: one a lane
 
@@ -331,6 +389,48 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid
                "l"(src), "r"(valid ? 4 : 0));
 }
 
+// rows j0 .. j0 + nr - 1 of a dense cache's K and V (row stride HD
+// elements of T) and, for int8, of their scales (row stride Hkv floats)
+// into one f32 slab; rows nr .. RQ - 1 are zero-filled (scales too), so
+// P.V over them adds 0
+template <typename T, int D>
+__device__ __forceinline__ void load_slab_rows(unsigned char* slab, const T* kb, const T* vb,
+                                               const float* ksb, const float* vsb, int j0,
+                                               int nr, int HD, int Hkv) {
+  constexpr int KS = slab_stride<T, D>(), RB = D * (int)sizeof(T), CH = RB / 16;
+  const int lane = threadIdx.x & 31;
+  const unsigned char* kc = reinterpret_cast<const unsigned char*>(kb);
+  const unsigned char* vc = reinterpret_cast<const unsigned char*>(vb);
+#pragma unroll
+  for (int it = 0; it < RQ * CH / 32; ++it) {
+    const int i = lane + 32 * it, row = i / CH, col = 16 * (i % CH);
+    const bool ok = row < nr;
+    const size_t off = (size_t)(j0 + (ok ? row : 0)) * HD * sizeof(T) + col;
+    cp_async16(slab + row * KS + col, kc + off, ok);
+    cp_async16(slab + (RQ + row) * KS + col, vc + off, ok);
+  }
+  if constexpr (sizeof(T) == 1) {
+    const bool ok = lane < nr;
+    const size_t so = (size_t)(j0 + (ok ? lane : 0)) * Hkv;
+    float* sc = reinterpret_cast<float*>(slab + 2 * RQ * KS);
+    cp_async4(sc + lane, ksb + so, ok);
+    cp_async4(sc + RQ + lane, vsb + so, ok);
+  }
+}
+
+// the 2-byte pair of w (bf16 or f16) as f32
+template <typename T>
+__device__ __forceinline__ void pair_f32(uint32_t w, float* f) {
+  if constexpr (std::is_same<T, __half>::value) {
+    const float2 x = __half22float2(*reinterpret_cast<const __half2*>(&w));
+    f[0] = x.x;
+    f[1] = x.y;
+  } else {
+    f[0] = bf16_lo(w);
+    f[1] = bf16_hi(w);
+  }
+}
+
 // The four int8 codes packed in w as f32, exactly: each byte, offset to
 // unsigned, becomes the low mantissa byte of 2^23 (one prmt), and 2^23 +
 // 128 comes off (one add). A cvt from an integer runs at 1/8 of the f32
@@ -343,7 +443,8 @@ __device__ __forceinline__ void codes4(int w, float* f) {
 }
 
 // One f32 slab of a warp (nrw of its RQ rows valid; rows past them zero)
-// of T = int8_t (codes times their row's scale) or __nv_bfloat16: the
+// of T = int8_t (codes times their row's scale), __nv_bfloat16, __half or
+// float (each element as it is, in f32): the
 // scores of row `lane` for heads 0 .. GP - 1 (q_s [GP][D] f32, heads past
 // the chunk zero) times scale (then softcapped when SC), the slab's max and
 // rescale of each head, p
@@ -355,7 +456,7 @@ __device__ __forceinline__ void attend_slab_f32(const unsigned char* slab, int n
                                                 const float* q_s, float* p_s, float scale,
                                                 float (&m)[GP], float (&lp)[GP],
                                                 float (&acc)[GP][D / 32], float cap = 0.f) {
-  constexpr bool BF = sizeof(T) == 2;
+  constexpr bool Q8 = sizeof(T) == 1, H2 = sizeof(T) == 2;
   constexpr int KS = slab_stride<T, D>(), DPL = D / 32, PS = heads4(GP);
   constexpr int EC = 16 / (int)sizeof(T);      // elements a 16-byte chunk
   const int lane = threadIdx.x & 31;
@@ -367,19 +468,21 @@ __device__ __forceinline__ void attend_slab_f32(const unsigned char* slab, int n
 #pragma unroll
   for (int g = 0; g < GP; ++g) s0[g] = s1[g] = 0.f;
   const unsigned char* kr = kc + lane * KS;
-  const float ksl = BF ? 1.f : ksc[lane];
+  const float ksl = Q8 ? ksc[lane] : 1.f;
 #pragma unroll
   for (int cc = 0; cc < D / EC; ++cc) {
     const int4 raw = *reinterpret_cast<const int4*>(kr + 16 * cc);
     float kf[EC];
-    if constexpr (BF) {
+    if constexpr (H2) {
       const uint32_t wd[4] = {(uint32_t)raw.x, (uint32_t)raw.y, (uint32_t)raw.z,
                               (uint32_t)raw.w};
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        kf[2 * i] = bf16_lo(wd[i]);
-        kf[2 * i + 1] = bf16_hi(wd[i]);
-      }
+      for (int i = 0; i < 4; ++i) pair_f32<T>(wd[i], kf + 2 * i);
+    } else if constexpr (!Q8) {
+      kf[0] = __int_as_float(raw.x);
+      kf[1] = __int_as_float(raw.y);
+      kf[2] = __int_as_float(raw.z);
+      kf[3] = __int_as_float(raw.w);
     } else {
       codes4(raw.x, kf);
       codes4(raw.y, kf + 4);
@@ -429,21 +532,25 @@ __device__ __forceinline__ void attend_slab_f32(const unsigned char* slab, int n
 #pragma unroll 2
   for (int r = 0; r < nrw; ++r) {
     float vf[DPL];
-    if constexpr (BF) {
+    if constexpr (H2) {
       if constexpr (DPL == 4) {
         const uint2 w = *reinterpret_cast<const uint2*>(vcol + r * KS);
-        vf[0] = bf16_lo(w.x);
-        vf[1] = bf16_hi(w.x);
-        vf[2] = bf16_lo(w.y);
-        vf[3] = bf16_hi(w.y);
+        pair_f32<T>(w.x, vf);
+        pair_f32<T>(w.y, vf + 2);
       } else {
         const uint4 w = *reinterpret_cast<const uint4*>(vcol + r * KS);
         const uint32_t wd[4] = {w.x, w.y, w.z, w.w};
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          vf[2 * i] = bf16_lo(wd[i]);
-          vf[2 * i + 1] = bf16_hi(wd[i]);
-        }
+        for (int i = 0; i < 4; ++i) pair_f32<T>(wd[i], vf + 2 * i);
+      }
+    } else if constexpr (!Q8) {
+#pragma unroll
+      for (int i = 0; i < DPL / 4; ++i) {
+        const float4 w = reinterpret_cast<const float4*>(vcol + r * KS)[i];
+        vf[4 * i] = w.x;
+        vf[4 * i + 1] = w.y;
+        vf[4 * i + 2] = w.z;
+        vf[4 * i + 3] = w.w;
       }
     } else {
       const float vsr = vsc[r];

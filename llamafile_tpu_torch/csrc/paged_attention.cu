@@ -1,5 +1,6 @@
 // paged_attention: batched T=1 GQA decode attention over a paged KV pool,
-// one layer, bf16 pages or int8 pages with per-(head, position) f32 scales.
+// one layer, bf16, f16 or f32 pages, or int8 pages with per-(head,
+// position) f32 scales.
 //
 // Replaces the upstream Pallas TPU kernel paged_attention
 // (jax/experimental/pallas/ops/tpu/paged_attention/paged_attention_kernel.py,
@@ -8,7 +9,7 @@
 // by 1/sqrt(D), K and V are promoted to f32 (int8 codes times their f32
 // scale), and so is the softmax. Inputs:
 //   q       [R, Hq, D] f32
-//   k, v    one layer of the pool, [Hkv, P, ps, D] bf16 or int8 (the
+//   k, v    one layer of the pool, [Hkv, P, ps, D] bf16, f16, f32 or int8 (the
 //           caller passes the layer's pointer: no slice is copied)
 //   ks, vs  [Hkv, P, ps] f32 scales (int8 only)
 //   lengths [R] int32 (>= 1), tables [R, MAXP] int32 page ids
@@ -17,8 +18,9 @@
 // tables[r, j / ps], offset j % ps.
 //
 // What bounds it on an H100: device-memory bytes, sum over rows of
-// length_r * Hkv * D * 2 (K and V) * (2 B for bf16 | 1 B + 4 B / D of scale
-// for int8); about G flops a byte for bf16 (2 G for int8), all f32 on the
+// length_r * Hkv * D * 2 (K and V) * (2 B for bf16 and f16 | 4 B for f32 |
+// 1 B + 4 B / D of scale for int8); about G flops a byte for bf16 (2 G for
+// int8, G / 2 for f32), all f32 on the
 // CUDA cores, so a group of 16 comes near the f32 issue rate (67 TFLOP/s
 // against 3.35 TB/s). The design is flash_decode.cu's int8 form on
 // decode_cluster.cuh, one launch a call with no scratch in device memory:
@@ -33,7 +35,7 @@
 //   its row's page, and the copies take the row index from that lane by a
 //   shuffle), NS slabs in flight from the start, no block barrier while it
 //   streams;
-// - both page types run decode_cluster.cuh's f32 slab (attend_slab_f32):
+// - every page type runs decode_cluster.cuh's f32 slab (attend_slab_f32):
 //   lane i takes row i's scores for every head against q in shared memory,
 //   and in P.V owns dims [i * D / 32, (i + 1) * D / 32) of every head, each
 //   K and V element converted to f32 (an int8 code times its scale) once;
@@ -49,12 +51,22 @@
 // a chunk is the whole group up to 16 query heads; a larger group runs as
 // ceil(G / 16) chunks of ceil(G / chunks) heads on the grid's y axis beside
 // the KV head, each reading the rows again. Instances by the heads a chunk
-// holds: 1, 2, 4, 8, 16 (heads past the chunk's are zero rows of q). Every
+// holds: 1, 2, 4, 8, 16 (f16 and f32 pages: 4, 16; heads past the
+// chunk's are zero rows of q). Every
 // sum runs in a fixed order, so two launches on the same inputs give the
 // same bits.
 #include <cooperative_groups.h>
 
 #include "decode_cluster.cuh"
+
+// The float page type of this library and whether it holds the int8
+// pages: bf16 and int8 by default; f16 and f32 pages are this file built
+// again with PA_FLOAT and PA_INT8=0 defined (ops/_build.py VARIANTS),
+// libraries of their own.
+#ifndef PA_FLOAT
+#define PA_FLOAT __nv_bfloat16
+#define PA_INT8 1
+#endif
 
 namespace cg = cooperative_groups;
 
@@ -72,6 +84,13 @@ struct Ring {
   static constexpr int NW = 4;                                      // warps a block
   static constexpr int NS = sizeof(T) == 1 && D == 128 ? 2 : 1;     // slabs in flight a warp
   static constexpr int BYTES = slab_bytes<T, D>();
+};
+
+// An f32 slab row takes twice a bf16 one's bytes: one block an SM, and 2
+// warps a block at D = 256 (133 KB of rings; 4 would take 266 KB).
+template <>
+struct Ring<float, 256> {
+  static constexpr int NW = 2, NS = 1, BYTES = slab_bytes<float, 256>();
 };
 
 // rows j0 .. j0 + nr - 1 of the rank's keys into one f32 slab: `row`, this
@@ -113,7 +132,7 @@ __host__ __device__ constexpr int smem_base() {
   return R::NW * R::NS * R::BYTES + (2 * CS * HP + D * HP + GP * D + R::NW * RQ * HP) * 4;
 }
 
-// T: __nv_bfloat16 or int8_t; D: 128 or 256; GP: the heads the instance
+// T: __nv_bfloat16, __half, float or int8_t; D: 128 or 256; GP: the heads the instance
 // holds; gc: the heads a chunk (the last one has gn = G - c * gc <= gc);
 // pt: room for the page ids of a rank (maxp / CS + 2)
 template <typename T, int D, int GP>
@@ -250,18 +269,27 @@ int dispatch(int G, const void* q, const void* k, const void* v, const void* ks,
 #define PA_LAUNCH(N)                                                                       \
   return launch<T, D, N>(q, k, v, ks, vs, lengths, tables, out, R, Hkv, G, gc, P, ps, maxp, \
                          st)
-  if (gc == 1) PA_LAUNCH(1);
-  if (gc == 2) PA_LAUNCH(2);
+  // bf16, f16 and int8 pages: 1, 2, 4, 8, 16 heads held; f32 4 and 16
+  // (fewer instances to build)
+  constexpr bool ALL = sizeof(T) != 4;
+  if constexpr (ALL) {
+    if (gc == 1) PA_LAUNCH(1);
+    if (gc == 2) PA_LAUNCH(2);
+  }
   if (gc <= 4) PA_LAUNCH(4);
-  if (gc <= 8) PA_LAUNCH(8);
+  if constexpr (ALL) {
+    if (gc <= 8) PA_LAUNCH(8);
+  }
   PA_LAUNCH(16);
 #undef PA_LAUNCH
 }
 
 }  // namespace
 
-// int8 != 0: k/v hold int8 codes and ks/vs their scales; else bf16 and
-// ks = vs = NULL. D: the head dim, 128 or 256.
+// int8 != 0: k/v hold int8 codes and ks/vs their scales (this library
+// only: PA_INT8); else pages of PA_FLOAT (bf16 here, f16 and f32 in the
+// paged_attention_f16 and _f32 libraries) and ks = vs = NULL.
+// D: the head dim, 128 or 256.
 extern "C" int paged_attention(const void* q, const void* k, const void* v, const void* ks,
                                const void* vs, const void* lengths, const void* tables,
                                void* out, int R, int Hq, int Hkv, int D, int P, int ps,
@@ -272,10 +300,12 @@ extern "C" int paged_attention(const void* q, const void* k, const void* v, cons
   const int G = Hq / Hkv;
 #define PA_DISPATCH(T, DD, KS, VS) \
   return dispatch<T, DD>(G, q, k, v, KS, VS, lengths, tables, out, R, Hkv, P, ps, maxp, st)
+#if PA_INT8
   if (int8 && D == 128) PA_DISPATCH(int8_t, 128, ks, vs);
   if (int8 && D == 256) PA_DISPATCH(int8_t, 256, ks, vs);
-  if (!int8 && D == 128) PA_DISPATCH(__nv_bfloat16, 128, nullptr, nullptr);
-  if (!int8 && D == 256) PA_DISPATCH(__nv_bfloat16, 256, nullptr, nullptr);
+#endif
+  if (!int8 && D == 128) PA_DISPATCH(PA_FLOAT, 128, nullptr, nullptr);
+  if (!int8 && D == 256) PA_DISPATCH(PA_FLOAT, 256, nullptr, nullptr);
 #undef PA_DISPATCH
   return (int)cudaErrorInvalidValue;
 }

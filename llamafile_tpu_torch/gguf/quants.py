@@ -2,10 +2,14 @@
 
 Own copy of the parts of llamafile_tpu/gguf/quants.py that the port loads:
 the full type table (so a reader can size every tensor of a file), and
-dequantization for F32, F16, BF16, Q8_0, Q4_K, Q5_K and Q6_K: the formats
-of Q8_0, Q4_K_M, Q4_K_S and Q5_K_M llama files (Q4_K_M and Q5_K_M mix
-their main format with Q6_K layers and head; Q4_K_S mixes Q4_K and Q5_K).
-Every other format raises NotImplementedError naming the type.
+dequantization for F32, F16, BF16, Q8_0, Q4_K, Q5_K and Q6_K (the formats
+of Q8_0, Q4_K_M, Q4_K_S and Q5_K_M llama files: Q4_K_M and Q5_K_M mix
+their main format with Q6_K layers and head; Q4_K_S mixes Q4_K and Q5_K),
+and for the classic 32-element formats Q4_0, Q4_1, Q5_0 and Q5_1, the
+small K-quants Q2_K and Q3_K, and the non-linear IQ4_NL and IQ4_XS (with
+their KVALUES_IQ4NL table). The grid IQ types (IQ2_XXS, IQ2_XS, IQ2_S,
+IQ3_XXS, IQ3_S, IQ1_S, IQ1_M) and every other format raise
+NotImplementedError naming the type.
 
 Dequantizers take raw little-endian block bytes shaped (nblocks, block_bytes)
 as uint8 and return float32 (nblocks, block_elems); layouts follow
@@ -21,10 +25,171 @@ import numpy as np
 QK = 32       # simple-quant block size
 QK_K = 256    # K-quant superblock size
 
+# IQ4_NL / IQ4_XS non-linear 4-bit codebook (ggml-common.h kvalues_iq4nl)
+KVALUES_IQ4NL = np.array(
+    [-127, -104, -83, -65, -49, -35, -22, -10, 1, 13, 25, 38, 53, 69, 89, 113],
+    dtype=np.int8,
+)
+
 
 def _f16(u8pair: np.ndarray) -> np.ndarray:
     """View little-endian byte pairs as float16 -> float32."""
     return np.ascontiguousarray(u8pair).view(np.float16).astype(np.float32)
+
+
+def _u16(b: np.ndarray) -> np.ndarray:
+    return np.ascontiguousarray(b).view(np.uint16)
+
+
+def _u32(b: np.ndarray) -> np.ndarray:
+    return np.ascontiguousarray(b).view(np.uint32)
+
+
+def dequant_q4_0(b: np.ndarray) -> np.ndarray:
+    # block: half d; uint8 qs[16]; w[j] = d*((qs[j]&0xF)-8), w[j+16] = d*((qs[j]>>4)-8)
+    d = _f16(b[:, 0:2])                      # (n,1)
+    qs = b[:, 2:18]
+    lo = (qs & 0x0F).astype(np.int8) - 8
+    hi = (qs >> 4).astype(np.int8) - 8
+    return d * np.concatenate([lo, hi], axis=1).astype(np.float32)
+
+
+def dequant_q4_1(b: np.ndarray) -> np.ndarray:
+    # block: half d; half m; uint8 qs[16]
+    d = _f16(b[:, 0:2])
+    m = _f16(b[:, 2:4])
+    qs = b[:, 4:20]
+    lo = (qs & 0x0F).astype(np.float32)
+    hi = (qs >> 4).astype(np.float32)
+    return d * np.concatenate([lo, hi], axis=1) + m
+
+
+def _q5_high(qh: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """The fifth bits of a Q5_0/Q5_1 block's 32 codes, as 0 or 16: bit j
+    of qh for element j, bit j + 16 for element j + 16."""
+    j = np.arange(16, dtype=np.uint32)
+    return (((qh >> j) & 1).astype(np.uint8) << 4,
+            ((qh >> (j + 16)) & 1).astype(np.uint8) << 4)
+
+
+def dequant_q5_0(b: np.ndarray) -> np.ndarray:
+    # block: half d; uint32 qh; uint8 qs[16]
+    d = _f16(b[:, 0:2])
+    hlo, hhi = _q5_high(_u32(b[:, 2:6]).reshape(-1, 1))
+    qs = b[:, 6:22]
+    lo = ((qs & 0x0F) | hlo).astype(np.int16) - 16
+    hi = ((qs >> 4) | hhi).astype(np.int16) - 16
+    return d * np.concatenate([lo, hi], axis=1).astype(np.float32)
+
+
+def dequant_q5_1(b: np.ndarray) -> np.ndarray:
+    # block: half d; half m; uint32 qh; uint8 qs[16]
+    d = _f16(b[:, 0:2])
+    m = _f16(b[:, 2:4])
+    hlo, hhi = _q5_high(_u32(b[:, 4:8]).reshape(-1, 1))
+    qs = b[:, 8:24]
+    lo = ((qs & 0x0F) | hlo).astype(np.float32)
+    hi = ((qs >> 4) | hhi).astype(np.float32)
+    return d * np.concatenate([lo, hi], axis=1) + m
+
+
+def dequant_q2_k(b: np.ndarray) -> np.ndarray:
+    # block: uint8 scales[16]; uint8 qs[64]; half d; half dmin
+    n = b.shape[0]
+    scales = b[:, 0:16]
+    qs = b[:, 16:80]
+    d = _f16(b[:, 80:82])
+    dmin = _f16(b[:, 82:84])
+    y = np.empty((n, QK_K), dtype=np.float32)
+    for half in range(2):               # elements 128 * half ...
+        q = qs[:, 32 * half:32 * half + 32]
+        for shift_i in range(4):        # rows of 32 within the half
+            qv = ((q >> (2 * shift_i)) & 3).astype(np.float32)
+            for sub in range(2):        # 16-element sub-blocks, a scale each
+                is_ = 8 * half + sub + 2 * shift_i
+                sc = scales[:, is_:is_ + 1]
+                dl = d * (sc & 0xF).astype(np.float32)
+                ml = dmin * (sc >> 4).astype(np.float32)
+                cols = slice(128 * half + 32 * shift_i + 16 * sub,
+                             128 * half + 32 * shift_i + 16 * sub + 16)
+                y[:, cols] = dl * qv[:, 16 * sub:16 * sub + 16] - ml
+    return y
+
+
+def q3_k_scales(scales: np.ndarray) -> np.ndarray:
+    """A Q3_K block's 12 scale bytes -> its 16 6-bit scales, raw 0..63
+    (the -32 offset is the caller's)."""
+    n = scales.shape[0]
+    us = np.empty((n, 16), dtype=np.int8)
+    s = scales.astype(np.uint8)
+    for is_ in range(16):
+        if is_ < 4:
+            v = (s[:, is_] & 0xF) | (((s[:, is_ + 8] >> 0) & 3) << 4)
+        elif is_ < 8:
+            v = (s[:, is_] & 0xF) | (((s[:, is_ + 4] >> 2) & 3) << 4)
+        elif is_ < 12:
+            v = (s[:, is_ - 8] >> 4) | (((s[:, is_] >> 4) & 3) << 4)
+        else:
+            v = (s[:, is_ - 8] >> 4) | (((s[:, is_ - 4] >> 6) & 3) << 4)
+        us[:, is_] = v.astype(np.int8)
+    return us
+
+
+def dequant_q3_k(b: np.ndarray) -> np.ndarray:
+    # block: uint8 hmask[32]; uint8 qs[64]; uint8 scales[12]; half d
+    n = b.shape[0]
+    hmask = b[:, 0:32]
+    qs = b[:, 32:96]
+    us = q3_k_scales(b[:, 96:108])
+    d = _f16(b[:, 108:110])
+    y = np.empty((n, QK_K), dtype=np.float32)
+    for half in range(2):
+        q = qs[:, 32 * half:32 * half + 32]
+        for j in range(4):
+            m = np.uint8(1 << (4 * half + j))
+            qv = ((q >> (2 * j)) & 3).astype(np.int8)
+            # the high bit of code l is bit 4 * half + j of hmask[l]: clear -> -4
+            qv = qv - np.where((hmask & m) != 0, 0, 4).astype(np.int8)
+            for sub in range(2):
+                is_ = 8 * half + 2 * j + sub
+                dl = d[:, 0] * (us[:, is_].astype(np.float32) - 32)
+                cols = slice(128 * half + 32 * j + 16 * sub,
+                             128 * half + 32 * j + 16 * sub + 16)
+                y[:, cols] = dl[:, None] * qv[:, 16 * sub:16 * sub + 16].astype(np.float32)
+    return y
+
+
+def dequant_iq4_nl(b: np.ndarray) -> np.ndarray:
+    # block (32 elems): half d; uint8 qs[16]
+    d = _f16(b[:, 0:2])
+    qs = b[:, 2:18]
+    lo = KVALUES_IQ4NL[(qs & 0xF).astype(np.int64)].astype(np.float32)
+    hi = KVALUES_IQ4NL[(qs >> 4).astype(np.int64)].astype(np.float32)
+    return d * np.concatenate([lo, hi], axis=1)
+
+
+def iq4_xs_scales(b: np.ndarray) -> np.ndarray:
+    """An IQ4_XS block's 8 sub-block scales, d times the 6-bit scale - 32,
+    f32 (nblocks, 8)."""
+    n = b.shape[0]
+    d = _f16(b[:, 0:2])[:, 0]
+    scales_h = _u16(b[:, 2:4]).reshape(n)
+    scales_l = b[:, 4:8]
+    ib = np.arange(8)
+    ls = (((scales_l[:, ib // 2] >> (4 * (ib % 2))) & 0xF).astype(np.int32)
+          | (((scales_h[:, None].astype(np.int32) >> (2 * ib)) & 3) << 4)) - 32
+    return d[:, None] * ls.astype(np.float32)
+
+
+def dequant_iq4_xs(b: np.ndarray) -> np.ndarray:
+    # block: half d; uint16 scales_h; uint8 scales_l[4]; uint8 qs[128]
+    n = b.shape[0]
+    dl = iq4_xs_scales(b)                         # (n,8)
+    qs = b[:, 8:136].reshape(n, 8, 16)
+    lo = KVALUES_IQ4NL[(qs & 0xF).astype(np.int64)].astype(np.float32)
+    hi = KVALUES_IQ4NL[(qs >> 4).astype(np.int64)].astype(np.float32)
+    y = dl[:, :, None] * np.concatenate([lo, hi], axis=2)    # (n,8,32)
+    return y.reshape(n, QK_K)
 
 
 def _scale_min_k4(scales: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
@@ -135,14 +300,14 @@ class QuantSpec:
 GGML_TYPES = [
     QuantSpec("F32", 0, 1, 4),
     QuantSpec("F16", 1, 1, 2),
-    QuantSpec("Q4_0", 2, QK, 18),
-    QuantSpec("Q4_1", 3, QK, 20),
-    QuantSpec("Q5_0", 6, QK, 22),
-    QuantSpec("Q5_1", 7, QK, 24),
+    QuantSpec("Q4_0", 2, QK, 18, dequant_q4_0),
+    QuantSpec("Q4_1", 3, QK, 20, dequant_q4_1),
+    QuantSpec("Q5_0", 6, QK, 22, dequant_q5_0),
+    QuantSpec("Q5_1", 7, QK, 24, dequant_q5_1),
     QuantSpec("Q8_0", 8, QK, 34, dequant_q8_0),
     QuantSpec("Q8_1", 9, QK, 36),
-    QuantSpec("Q2_K", 10, QK_K, 84),
-    QuantSpec("Q3_K", 11, QK_K, 110),
+    QuantSpec("Q2_K", 10, QK_K, 84, dequant_q2_k),
+    QuantSpec("Q3_K", 11, QK_K, 110, dequant_q3_k),
     QuantSpec("Q4_K", 12, QK_K, 144, dequant_q4_k),
     QuantSpec("Q5_K", 13, QK_K, 176, dequant_q5_k),
     QuantSpec("Q6_K", 14, QK_K, 210, dequant_q6_k),
@@ -151,10 +316,10 @@ GGML_TYPES = [
     QuantSpec("IQ2_XS", 17, QK_K, 74),
     QuantSpec("IQ3_XXS", 18, QK_K, 98),
     QuantSpec("IQ1_S", 19, QK_K, 50),
-    QuantSpec("IQ4_NL", 20, QK, 18),
+    QuantSpec("IQ4_NL", 20, QK, 18, dequant_iq4_nl),
     QuantSpec("IQ3_S", 21, QK_K, 110),
     QuantSpec("IQ2_S", 22, QK_K, 82),
-    QuantSpec("IQ4_XS", 23, QK_K, 136),
+    QuantSpec("IQ4_XS", 23, QK_K, 136, dequant_iq4_xs),
     QuantSpec("I8", 24, 1, 1),
     QuantSpec("I16", 25, 1, 2),
     QuantSpec("I32", 26, 1, 4),
@@ -168,7 +333,8 @@ TYPE_BY_ID: Dict[int, QuantSpec] = {s.type_id: s for s in GGML_TYPES}
 TYPE_BY_NAME: Dict[str, QuantSpec] = {s.name: s for s in GGML_TYPES}
 
 # formats the port loads; anything else raises NotImplementedError
-SUPPORTED = ("F32", "F16", "BF16", "Q8_0", "Q4_K", "Q5_K", "Q6_K")
+SUPPORTED = ("F32", "F16", "BF16", "Q8_0", "Q4_K", "Q5_K", "Q6_K",
+             "Q4_0", "Q4_1", "Q5_0", "Q5_1", "Q2_K", "Q3_K", "IQ4_NL", "IQ4_XS")
 
 
 def check_supported(type_name: str) -> None:

@@ -11,8 +11,8 @@ format (a Q4_K_M file) stay a list and run unrolled, as in the reference.
 The KV cache is updated in place.
 
 Per layer: RMSNorm folded into the qkv product(s) -> rope -> attention
-(fused decode kernel with the KV-row write at T = 1 on a bf16 cache; the
-flash_decode kernel over an int8 cache, except on stacked layers with a
+(fused decode kernel with the KV-row write at T = 1 on a bf16, f16 or f32
+cache; the flash_decode kernel over an int8 cache, except on stacked layers with a
 sliding window, which take the einsum as the reference's do; over the
 fresh tokens at prefill, the flash_prefill kernel from 128 tokens and the
 einsum below) -> o -> RMSNorm folded into the FFN (one fused kernel call at
@@ -45,6 +45,17 @@ int8_prefill_params attaches the int8 prefill companions (the Engine does
 so under LLAMAFILE_TPU_I8P=1): every product of over 32 rows on a layer
 weight then runs the qmm_i8p kernel, stacked or unrolled.
 
+LLAMAFILE_TPU_PRENORM=0 (read at import into PRENORM, as the reference
+reads its _PRENORM) runs each RMSNorm before its product instead of
+folding it into the product's activation prep: the qkv and FFN norms of
+forward and the unrolled FFN norm of forward_paged_decode, and the head's
+norm of forward (forward_paged_decode runs its other norms apart always,
+as the reference's does). Under LLAMAFILE_TPU_FLASH_DECODE=0
+(ops.attention.FLASH_DECODE) a T = 1 step on a dense cache writes its rows
+and takes the f32 einsum (decode_route), never flash_decode_write_stacked.
+While utils.tracing's trap is on (--trap), forward and
+forward_paged_decode hold each layer's output and the logits to be finite.
+
 moe_ffn routes as the reference does, by the S = M * n_experts_used routed
 slots (moe_route names the branch):
   "fused"   S <= E, interleaved q4b gate|up and q4b down: qmm_moe_m1 once
@@ -66,18 +77,32 @@ same kernels. Nothing on the MoE path reads a device value on the host.
 from __future__ import annotations
 
 import math
+import os
 from dataclasses import dataclass, fields, replace
 from typing import Optional
 
 import numpy as np
 import torch
 
+from ..ops import attention as _attention
 from ..ops.attention import flash_decode, flash_decode_write_stacked, flash_prefill
 from ..ops.qmatmul import apply_rmsnorm as rmsnorm  # noqa: F401 (the reference's name)
 from ..ops.qmatmul import (moe_fusable, qmatmul, qmatmul_grouped, qmatmul_moe,
                            qmatmul_routed, split_gu)
 from ..ops.repack import I8PQTensor, QTensor, attach_int8_prefill, expert_slice
 from ..runtime.kvcache import KVCache, init_kv, read_layer, update_layer
+from ..utils import tracing
+
+PRENORM = os.environ.get("LLAMAFILE_TPU_PRENORM", "1") != "0"
+
+
+def _prenormed(x2d: torch.Tensor, w: torch.Tensor, eps: float):
+    """(input, prenorm) of the products after an RMSNorm of weight w: the
+    norm folded into their activation prep under PRENORM, else applied
+    first (the reference's norm_fn), as its _PRENORM chooses."""
+    if PRENORM:
+        return x2d, (w, eps)
+    return rmsnorm(x2d, w, eps), None
 
 
 @dataclass(frozen=True)
@@ -653,9 +678,10 @@ def _layer_fwd(x, layer: LlamaLayer, cfg: LlamaConfig, rope, pos, t_pos,
     `layer` holds all layers' weights and li indexes them (the reference's
     scanned _layer_fwd); else `layer` is layer li's own (its unrolled loop).
 
-    Both fold the RMSNorms into the products' activation prep and write the
-    new K/V rows first, except where the fused decode kernel writes them
-    (T = 1 on a bf16 cache). An int8 cache decodes through the flash_decode
+    Both fold the RMSNorms into the products' activation prep (unless
+    PRENORM is off) and write the new K/V rows first, except where the
+    fused decode kernel writes them (T = 1 on a bf16, f16 or f32 cache,
+    unless ops.attention.FLASH_DECODE is off). An int8 cache decodes through the flash_decode
     kernel, except on stacked layers of a windowed model: there the
     reference's scan sends every layer to the f32 einsum (its traced window
     is never None). Every attention call takes the layer's window and the
@@ -669,8 +695,8 @@ def _layer_fwd(x, layer: LlamaLayer, cfg: LlamaConfig, rope, pos, t_pos,
     (cos, sin), swa_rope = rope
     if win is not None and swa_rope is not None:
         cos, sin = swa_rope
-    q, k, v = _qkv(x.reshape(b * t, d), layer, cfg, wl,
-                   (pick(layer.attn_norm), cfg.rms_eps))
+    h2d, pn = _prenormed(x.reshape(b * t, d), pick(layer.attn_norm), cfg.rms_eps)
+    q, k, v = _qkv(h2d, layer, cfg, wl, pn)
     q = q.reshape(b, t, cfg.n_heads, cfg.head_dim)
     k = k.reshape(b, t, cfg.n_kv_heads, cfg.head_dim)
     if cfg.qk_norm:                     # gemma3, qwen3: each head's RMSNorm before rope
@@ -680,7 +706,7 @@ def _layer_fwd(x, layer: LlamaLayer, cfg: LlamaConfig, rope, pos, t_pos,
     k = apply_rope(k, cos, sin, cfg.rope_neox)
     v = v.reshape(b, t, cfg.n_kv_heads, cfg.head_dim)
     alen = attn_len if (attn_len is not None and attn_len < s) else s
-    if t == 1 and not fresh and not cache.quantized:
+    if t == 1 and not fresh and not cache.quantized and _attention.FLASH_DECODE:
         # the fused kernel reads layer li of the flat cache in place and
         # writes the new row at pos itself
         attn = flash_decode_write_stacked(
@@ -696,10 +722,14 @@ def _layer_fwd(x, layer: LlamaLayer, cfg: LlamaConfig, rope, pos, t_pos,
             attn = (flash_prefill(q, k, v, scale, window=win, softcap=cap) if wide
                     else flash_prefill(q, k, v, scale))
         elif t == 1 and not (stacked and cfg.swa_window > 0 and cfg.swa_pattern > 1):
-            # int8 codes and scales of layer li, read in place
-            sl = lambda a: a[li, :, :alen]
-            attn = flash_decode(q[:, 0], sl(cache.k), sl(cache.v), pos, scale,
-                                window=win or 0, softcap=cap,
+            # int8 codes and scales of layer li, read in place (or a float
+            # cache's layer under FLASH_DECODE=0: the einsum route)
+            sl = lambda a: None if a is None else a[li, :, :alen]
+            kc, vc = sl(cache.k), sl(cache.v)
+            if not cache.quantized:
+                kc = kc.reshape(b, alen, cfg.n_kv_heads, cfg.head_dim)
+                vc = vc.reshape(b, alen, cfg.n_kv_heads, cfg.head_dim)
+            attn = flash_decode(q[:, 0], kc, vc, pos, scale, window=win or 0, softcap=cap,
                                 k_scale=sl(cache.k_scale),
                                 v_scale=sl(cache.v_scale))[:, None]
         else:
@@ -710,7 +740,8 @@ def _layer_fwd(x, layer: LlamaLayer, cfg: LlamaConfig, rope, pos, t_pos,
     if cfg.post_norms:
         o = rmsnorm(o, pick(layer.attn_post_norm), cfg.rms_eps)
     x = x + o.reshape(b, t, d)
-    f = _ffn(x.reshape(b * t, d), layer, cfg, wl, (pick(layer.ffn_norm), cfg.rms_eps))
+    h2d, pn = _prenormed(x.reshape(b * t, d), pick(layer.ffn_norm), cfg.rms_eps)
+    f = _ffn(h2d, layer, cfg, wl, pn)
     if cfg.post_norms:
         f = rmsnorm(f, pick(layer.ffn_post_norm), cfg.rms_eps)
     return x + f.reshape(b, t, d)
@@ -750,6 +781,8 @@ def forward(params: LlamaParams, cfg: LlamaConfig, tokens: torch.Tensor,
         layer = params.layers if stacked else params.layers[li]
         x = _layer_fwd(x, layer, cfg, rope, pos, t_pos, scale, cache,
                        attn_len, fresh_prefill, li, stacked)
+        if tracing.TRAP:
+            tracing.check_finite(x, "forward", li, pos)
     if return_hidden:
         return rmsnorm(x, params.out_norm, cfg.rms_eps), cache
     t_out = t
@@ -757,11 +790,15 @@ def forward(params: LlamaParams, cfg: LlamaConfig, tokens: torch.Tensor,
         # only the next-token logits: slice before the lm head
         x = x[torch.arange(b, device=dev), last_idx.long()][:, None]
         t_out = 1
-    logits = qmatmul(x.reshape(b * t_out, cfg.d_model), params.output,
-                     prenorm=(params.out_norm, cfg.rms_eps))
+    h2d, pn = _prenormed(x.reshape(b * t_out, cfg.d_model), params.out_norm, cfg.rms_eps)
+    logits = qmatmul(h2d, params.output, prenorm=pn)
     if cfg.final_softcap:
         logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
-    return logits.reshape(b, t_out, -1), cache
+    logits = logits.reshape(b, t_out, -1)
+    if tracing.TRAP:
+        tracing.check_finite(logits, "forward", "logits",
+                             pos if last_idx is None else pos + last_idx.to(pos.device))
+    return logits, cache
 
 
 @torch.no_grad()
@@ -829,9 +866,14 @@ def forward_paged_decode(params: LlamaParams, cfg: LlamaConfig,
         if stacked:
             f = _ffn(rmsnorm(x, pick(layer.ffn_norm), cfg.rms_eps), layer, cfg, wl)
         else:
-            f = _ffn(x, layer, cfg, None, (layer.ffn_norm, cfg.rms_eps))
+            h, pn = _prenormed(x, layer.ffn_norm, cfg.rms_eps)
+            f = _ffn(h, layer, cfg, None, pn)
         x = x + f
+        if tracing.TRAP:
+            tracing.check_finite(x, "forward_paged_decode", li, pos)
     logits = qmatmul(rmsnorm(x, params.out_norm, cfg.rms_eps), params.output)
+    if tracing.TRAP:
+        tracing.check_finite(logits, "forward_paged_decode", "logits", pos)
     return logits, paged
 
 

@@ -13,6 +13,7 @@ are repacked one expert at a time and stacked by `stack_experts`.
 from __future__ import annotations
 
 import dataclasses as dc
+import os
 
 import numpy as np
 import torch
@@ -66,9 +67,11 @@ def _load_experts(reader: GGUFReader, p: str, cfg: LlamaConfig, fuse: bool,
 def fuse_projections(params: LlamaParams, cfg: LlamaConfig) -> LlamaParams:
     """Fuse q|k|v into one QTensor and gate|up into one: GU_STRIPE-
     interleaved when both are q4b with d_ff a multiple of 1024 (the fused
-    FFN kernel's layout), plainly concatenated otherwise. qwen2's q/k/v
-    biases stay separate f32 vectors (the forward adds them after the fused
-    product), as in the reference."""
+    FFN kernel's layout) and LLAMAFILE_TPU_ILGU is not "0" (read at every
+    call, as the reference reads it), plainly concatenated otherwise: a
+    stacked M = 1 FFN then runs the gate|up and down products, not the
+    fused kernel. qwen2's q/k/v biases stay separate f32 vectors (the
+    forward adds them after the fused product), as in the reference."""
     layers = []
     for layer in params.layers:
         kw = {}
@@ -84,7 +87,8 @@ def fuse_projections(params: LlamaParams, cfg: LlamaConfig) -> LlamaParams:
                 if (g_qt.kind == "q4b" and u_qt.kind == "q4b"
                         and g_qt.g == u_qt.g and g_qt.shape == u_qt.shape
                         and g_qt.shape[0] % 1024 == 0
-                        and (g_qt.bias is None) == (u_qt.bias is None)):
+                        and (g_qt.bias is None) == (u_qt.bias is None)
+                        and os.environ.get("LLAMAFILE_TPU_ILGU", "1") != "0"):
                     kw["w_gate_up"] = interleave_gateup(g_qt, u_qt)
                 else:
                     kw["w_gate_up"] = concat_qtensors([g_qt, u_qt])
@@ -98,10 +102,10 @@ def fuse_projections(params: LlamaParams, cfg: LlamaConfig) -> LlamaParams:
 def load_llama(path: str, device="cuda", fuse: bool = True):
     """Load a llama/mistral/gemma/gemma2/gemma3/qwen2/qwen3 GGUF into (config, params,
     tokenizer, reader) on `device`. Tensor formats other than
-    F32/F16/BF16/Q8_0/Q4_K/Q5_K/Q6_K raise NotImplementedError naming the
-    format. Files whose layers mix
-    formats (Q4_K_M, Q4_K_S, Q5_K_M) give per-layer weights that the
-    forward runs unrolled. A MoE file (expert_count > 0) loads its router
+    F32/F16/BF16/Q4_0/Q4_1/Q5_0/Q5_1/Q8_0/Q2_K-Q6_K/IQ4_NL/IQ4_XS (the grid
+    IQ types) raise NotImplementedError naming the format. Files whose
+    layers mix formats (Q4_K_M, Q4_K_S, Q5_K_M) give per-layer weights that
+    the forward runs unrolled. A MoE file (expert_count > 0) loads its router
     and experts; shared experts (ffn_*_shexp) raise."""
     dev = resolve_device(device)
     reader = GGUFReader(path)

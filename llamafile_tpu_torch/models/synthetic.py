@@ -5,11 +5,17 @@ public model cards, the weights are random from a seeded torch.Generator on
 the target device (no multi-GB host-to-device copy), and the layout is the
 production one (ops/repack.py), so kernels see a real checkpoint's data
 layout and byte counts.
+
+`write_synthetic_gguf` writes a preset as a GGUF file instead, through the
+port's own writer (gguf/writer.py), from random raw blocks of any format the
+port loads: random codes, small finite f16 scales. A machine without the
+JAX package can then make a real file and time `load_engine` on it.
 """
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ..device import resolve_device
@@ -283,3 +289,108 @@ def decode_read_bytes(params: LlamaParams, cfg: LlamaConfig) -> int:
                 roles = (gu, "down") if gu != "gate" else ("gate", "up", "down")
                 total -= int(sum(ex[r].nbytes for r in roles) * frac)
     return total
+
+
+# The f16 fields of each block format, (byte offset, low, high) of the
+# uniform draw: d-like scales small and positive, mins small and negative.
+# A K-quant's d multiplies 6-bit (or 4-bit) sub-scales, so it is drawn
+# 16-64 times smaller than a 32-element format's.
+RAW_F16_FIELDS = {
+    "Q4_0": ((0, 1e-3, 2e-2),), "Q4_1": ((0, 1e-3, 2e-2), (2, -2e-2, 0.0)),
+    "Q5_0": ((0, 1e-3, 2e-2),), "Q5_1": ((0, 1e-3, 2e-2), (2, -2e-2, 0.0)),
+    "Q8_0": ((0, 1e-4, 1e-3),), "IQ4_NL": ((0, 1e-4, 1e-3),),
+    "Q2_K": ((80, 1e-4, 1e-3), (82, 1e-5, 1e-4)), "Q3_K": ((108, 1e-5, 1e-4),),
+    "Q4_K": ((0, 1e-5, 1e-4), (2, 1e-5, 1e-4)), "Q5_K": ((0, 1e-5, 1e-4), (2, 1e-5, 1e-4)),
+    "Q6_K": ((208, 1e-5, 1e-4),), "IQ4_XS": ((0, 1e-5, 1e-4),),
+}
+
+
+def random_blocks(rng: np.random.Generator, quant: str, n_elems: int) -> np.ndarray:
+    """Raw blocks of `quant` holding n_elems values: random bytes, then each
+    f16 field of RAW_F16_FIELDS drawn small and finite."""
+    from ..gguf.quants import TYPE_BY_NAME
+    spec = TYPE_BY_NAME[quant]
+    nb = n_elems // spec.block_elems
+    b = rng.integers(0, 256, (nb, spec.block_bytes), dtype=np.uint8)
+    for off, lo, hi in RAW_F16_FIELDS[quant]:
+        b[:, off:off + 2] = rng.uniform(lo, hi, nb).astype(np.float16).view(
+            np.uint8).reshape(nb, 2)
+    return b
+
+
+def synthetic_vocab(n_vocab: int):
+    """(tokens, scores, types) of a llama vocab of n_vocab entries: the
+    specials, the 256 byte tokens, then plain filler pieces."""
+    tokens = ["<unk>", "<s>", "</s>"] + [f"<0x{b:02X}>" for b in range(256)]
+    types = [2, 3, 3] + [6] * 256
+    tokens += [f"\u2581t{i}" for i in range(n_vocab - len(tokens))]
+    types += [1] * (n_vocab - len(types))
+    return tokens[:n_vocab], [0.0] * n_vocab, types[:n_vocab]
+
+
+def write_synthetic_gguf(path: str, preset: str = "llama3-8b", quant: str = "Q4_K", *,
+                         n_layers: Optional[int] = None, n_vocab: Optional[int] = None,
+                         head_quant: Optional[str] = None, embd_quant: Optional[str] = None,
+                         seed: int = 0) -> str:
+    """Write a llama-architecture GGUF of a dense preset's widths to path
+    through the port's GGUFWriter: every layer matrix random raw blocks of
+    quant (random_blocks), norms of ones in f32, the embedding in embd_quant
+    and the head in head_quant (both quant unless given; F16 where a row is
+    not a whole number of blocks), a synthetic_vocab tokenizer. n_layers and
+    n_vocab cut (or grow) the preset's depth and vocabulary, its widths
+    unchanged. Returns path."""
+    from ..gguf.quants import TYPE_BY_NAME
+    from ..gguf.writer import GGUFWriter
+    kw = dict(PRESETS[preset])
+    if kw.get("n_experts"):
+        raise ValueError(f"{preset}: write_synthetic_gguf writes dense presets")
+    layers = n_layers if n_layers is not None else kw["n_layers"]
+    vocab = n_vocab if n_vocab is not None else kw["n_vocab"]
+    d, h, kvh, dff = kw["d_model"], kw["n_heads"], kw["n_kv_heads"], kw["d_ff"]
+    hd = kw.get("head_dim", d // h)
+    rng = np.random.default_rng(seed)
+    w = GGUFWriter(path)
+    w.add("general.architecture", "llama")
+    w.add("general.name", f"synthetic-{preset}-{quant}")
+    w.add("llama.block_count", layers)
+    w.add("llama.embedding_length", d)
+    w.add("llama.attention.head_count", h)
+    w.add("llama.attention.head_count_kv", kvh)
+    w.add("llama.attention.key_length", hd)
+    w.add("llama.attention.value_length", hd)
+    w.add("llama.feed_forward_length", dff)
+    w.add("llama.rope.freq_base", float(kw.get("rope_theta", 10000.0)))
+    w.add("llama.attention.layer_norm_rms_epsilon", float(kw.get("rms_eps", 1e-5)))
+    w.add("llama.context_length", kw.get("max_context", 2048))
+    w.add("llama.vocab_size", vocab)
+    tokens, scores, types = synthetic_vocab(vocab)
+    w.add("tokenizer.ggml.model", "llama")
+    w.add("tokenizer.ggml.tokens", tokens)
+    w.add("tokenizer.ggml.scores", scores)
+    w.add("tokenizer.ggml.token_type", np.asarray(types, np.int32))
+    w.add("tokenizer.ggml.bos_token_id", 1)
+    w.add("tokenizer.ggml.eos_token_id", 2)
+    w.add("tokenizer.ggml.unknown_token_id", 0)
+    w.add("tokenizer.ggml.add_bos_token", True)
+
+    def add(name, n, k, fmt):
+        if k % TYPE_BY_NAME[fmt].block_elems:
+            w.add_tensor_f16(name, rng.standard_normal((n, k), np.float32) * 0.02)
+        else:
+            w.add_tensor(name, (n, k), fmt, random_blocks(rng, fmt, n * k))
+
+    add("token_embd.weight", vocab, d, embd_quant or quant)
+    ones = np.ones(d, np.float32)
+    for i in range(layers):
+        p = f"blk.{i}."
+        w.add_tensor_f32(p + "attn_norm.weight", ones)
+        for name, n, k in (("attn_q", h * hd, d), ("attn_k", kvh * hd, d),
+                           ("attn_v", kvh * hd, d), ("attn_output", d, h * hd)):
+            add(f"{p}{name}.weight", n, k, quant)
+        w.add_tensor_f32(p + "ffn_norm.weight", ones)
+        for name, n, k in (("ffn_gate", dff, d), ("ffn_up", dff, d), ("ffn_down", d, dff)):
+            add(f"{p}{name}.weight", n, k, quant)
+    w.add_tensor_f32("output_norm.weight", ones)
+    add("output.weight", vocab, d, head_quant or quant)
+    w.write()
+    return path

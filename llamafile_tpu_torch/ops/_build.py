@@ -1,18 +1,20 @@
 """Build and load the port's CUDA kernels (nvcc -> shared library -> ctypes).
 
 Each `csrc/<name>.cu` exports plain C entry points and is compiled on its own
-into `build/lib<name>-<hash>.so` with
+into `build/lib<name>-<hash>.so` (the hash over the source, every shared
+header and the flags) with
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC
 
-at first use; a library whose source hash (the .cu, the shared headers and
+at first use. A variant (VARIANTS) is a source built again with macros
+defined on the command line: the decode kernels' f16 and f32 instances; a library whose source hash (the .cu, the shared headers and
 the flags) matches is reused. Nothing is imported from outside the repository
 and nothing is downloaded. Every C entry returns cudaGetLastError() and
 `check` raises if it is not zero.
 
-`build_all()` starts one nvcc per source at once, so a cold build costs the
-slowest file, not the sum.
+`build_all()` runs one nvcc a library, as many at once as the machine has
+CPUs, the slowest first, and returns each library's compile seconds.
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from typing import Dict, List
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -30,9 +33,20 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
-SOURCES = ("qmm_txn_m1", "qmm_txn", "qmm_moe_m1", "flash_decode_write",
-           "qmm_q8_m1", "qmm_dequant", "flash_prefill", "paged_attention",
-           "qmm_planes", "flash_decode", "qmm_routed", "qmm_txn_g",
+# the decode kernels' f16 and f32 instances: library -> (its source, the
+# macros defined for it); each exports the bf16 library's C entry
+VARIANTS = {
+    f"{src}_{kv}": (src, {"flash_decode_write": (f"FDW_ELEM={elem}",),
+                          "flash_decode": (f"FD_FLOAT={elem}", "FD_INT8=0"),
+                          "paged_attention": (f"PA_FLOAT={elem}", "PA_INT8=0")}[src])
+    for kv, elem in (("f16", "__half"), ("f32", "float"))
+    for src in ("flash_decode", "paged_attention", "flash_decode_write")}
+# every library, the slowest to compile first (build_all's order)
+SOURCES = ("flash_decode", "paged_attention", "flash_decode_write",
+           "flash_decode_f32", "paged_attention_f32", "flash_decode_write_f32",
+           "flash_decode_f16", "paged_attention_f16", "flash_decode_write_f16",
+           "qmm_txn_m1", "qmm_txn", "qmm_moe_m1", "qmm_q8_m1", "qmm_dequant",
+           "flash_prefill", "qmm_planes", "qmm_routed", "qmm_txn_g",
            "qmm_planes_g", "qmm_i8p", "qmm_int8")
 
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -50,13 +64,19 @@ def nvcc_path() -> str:
     return found
 
 
+def _source(name: str):
+    """(the .cu path, the nvcc flags) of library `name`."""
+    src, defines = VARIANTS.get(name, (name, ()))
+    return os.path.join(CSRC, f"{src}.cu"), NVCC_FLAGS + [f"-D{d}" for d in defines]
+
+
 def _lib_path(name: str) -> str:
     h = hashlib.sha256()
-    for path in [os.path.join(CSRC, f"{name}.cu")] + sorted(
-            glob.glob(os.path.join(CSRC, "*.cuh"))):
+    src, flags = _source(name)
+    for path in [src] + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
         with open(path, "rb") as f:
             h.update(f.read())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(flags).encode())
     return os.path.join(BUILD, f"lib{name}-{h.hexdigest()[:16]}.so")
 
 
@@ -68,7 +88,8 @@ def _start(name: str):
         return None, None, out
     os.makedirs(BUILD, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
+    src, flags = _source(name)
+    cmd = [nvcc_path(), *flags, "-o", tmp, src]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
     return proc, tmp, out
 
@@ -82,17 +103,29 @@ def _finish(name: str, proc, tmp: str, out: str) -> None:
     os.replace(tmp, out)                  # atomic: concurrent builders agree
 
 
-def build_all(names: List[str] = SOURCES) -> None:
-    """Compile every kernel source in parallel (one nvcc each)."""
-    started = [(n, *_start(n)) for n in names]
-    errors = []
-    for name, proc, tmp, out in started:
-        try:
-            _finish(name, proc, tmp, out)
-        except RuntimeError as e:
-            errors.append(str(e))
+def build_all(names: List[str] = SOURCES) -> Dict[str, float]:
+    """Compile every kernel library in parallel, one nvcc each, at most one
+    a CPU at a time in the order of names (SOURCES lists the slowest
+    first): more at once would share the cores and stretch the slowest
+    compile, which sets the build's time. Returns each library's compile
+    seconds (0 for one already built)."""
+    pending, running, errors, secs = list(names), [], [], {}
+    while pending or running:
+        while pending and len(running) < (os.cpu_count() or 8):
+            name = pending.pop(0)
+            running.append((name, time.time(), *_start(name)))
+        for item in [r for r in running if r[2] is None or r[2].poll() is not None]:
+            running.remove(item)
+            name, t0 = item[:2]
+            secs[name] = 0.0 if item[2] is None else round(time.time() - t0, 1)
+            try:
+                _finish(name, *item[2:])
+            except RuntimeError as e:
+                errors.append(str(e))
+        time.sleep(0.05)
     if errors:
         raise RuntimeError("\n".join(errors))
+    return secs
 
 
 def load(name: str) -> ctypes.CDLL:

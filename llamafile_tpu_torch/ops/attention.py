@@ -5,9 +5,9 @@ Counterpart of llamafile_tpu/ops/attention.py for what the port reaches:
 
   flash_decode_write_stacked <- _flash_decode_write_kernel (kernel
       flash_decode_write, csrc/flash_decode_write.cu): T = 1 GQA attention
-      over layer li of the flat [L, B, S, Hkv*D] bf16 cache, with the new
-      row written in place at pos; its sliding window and softcap options
-      too (gemma2; gemma3's window).
+      over layer li of the flat [L, B, S, Hkv*D] bf16, f16 or f32 cache,
+      with the new row written in place at pos; its sliding window and
+      softcap options too (gemma2; gemma3's window).
   flash_prefill <- the upstream Pallas flash_attention (kernel
       flash_prefill, csrc/flash_prefill.cu) for T >= 128, T % 128 == 0,
       D in (64, 128, 256), no window and no softcap, in its numerics; the
@@ -15,12 +15,19 @@ Counterpart of llamafile_tpu/ops/attention.py for what the port reaches:
   paged_attention <- the upstream Pallas paged_attention that
       llamafile_tpu/runtime/paged.py paged_attend calls (kernel
       paged_attention, csrc/paged_attention.cu): batched T = 1 GQA
-      attention over block tables, bf16 or int8 pages, all in f32.
+      attention over block tables, bf16, f16, f32 or int8 pages, all in
+      f32.
   flash_decode, flash_decode_stacked <- _flash_decode_kernel and
       _flash_decode_qt_kernel (kernel flash_decode, csrc/flash_decode.cu):
-      T = 1 GQA attention over one layer of a dense cache, bf16 or int8
-      codes with f32 scales, read in place, with the window and softcap
-      options.
+      T = 1 GQA attention over one layer of a dense cache, bf16, f16, f32
+      or int8 codes with f32 scales, read in place, with the window and
+      softcap options.
+
+The decode kernels follow the reference's kernels, which are generic in the
+cache's dtype: a bf16 or f16 cache rounds q to its dtype before the dot and
+p to its dtype before P.V, an f32 or int8 one rounds neither; every sum is
+f32. Their plain versions take the same rounding from the cache's dtype
+(cache_round).
 
 Decode attention routes by shape as the reference does, on every device and
 before any launch (decode_route): a dense cache takes the f32 einsum for
@@ -33,9 +40,16 @@ Hq / Hkv at D = 128 and 256, as the reference's kernels do (it takes any D %
 flash_decode and paged_attention, FD_CHUNK_HEADS and PA_CHUNK_HEADS) is one
 chunk of a kernel's work, a larger one head_chunks(G, most) chunks on the
 grid, each reading its K/V rows again.
+
+LLAMAFILE_TPU_FLASH_DECODE=0 (read at import into FLASH_DECODE, as the
+reference reads it) sends every dense-cache T = 1 call to the f32 einsum
+(decode_route), and the model forward then never calls
+flash_decode_write_stacked; the paged pool is not affected, as in the
+reference.
 """
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import torch
@@ -44,6 +58,23 @@ from . import _build
 from ._build import F, I, L, P
 
 NEG_INF = -1e30
+FLASH_DECODE = os.environ.get("LLAMAFILE_TPU_FLASH_DECODE", "1") != "0"
+
+KV_FLOATS = (torch.bfloat16, torch.float16, torch.float32)
+# the library suffix of a cache's float dtype: the decode kernels' f16 and
+# f32 instances are libraries of their own (_build.VARIANTS: the same
+# source built with the element type defined), each exporting the bf16
+# library's C entry
+KV_LIB = {torch.bfloat16: "", torch.float16: "_f16", torch.float32: "_f32"}
+
+
+def cache_round(a: torch.Tensor, dtype) -> torch.Tensor:
+    """a rounded to a cache dtype the way the reference's decode kernels
+    round q and p (x.astype(cache dtype)), returned in f32: bf16 and f16
+    round, f32 (and int8's dequantized f32) leave a as it is."""
+    if dtype in (torch.bfloat16, torch.float16):
+        return a.to(dtype).float()
+    return a.float()
 
 
 def _use_flash(t: int, d: int) -> bool:
@@ -61,10 +92,12 @@ def decode_route(d: int, *, hq: int = 0, s_eff: int = 0, dv: Optional[int] = Non
     "kernel", or its own non-kernel branch, "einsum" for a dense cache of
     s_eff positions (llamafile_tpu/ops/attention.py:334-342: S % 256,
     D % 128 or Hq > 256) and "gather" for a paged pool
-    (llamafile_tpu/runtime/paged.py:262-300: D % 128 or a v width dv != D)."""
+    (llamafile_tpu/runtime/paged.py:262-300: D % 128 or a v width dv != D).
+    Under FLASH_DECODE False every dense shape is "einsum"."""
     if paged:
         return "gather" if d % 128 or (dv is not None and dv != d) else "kernel"
-    return "einsum" if s_eff % 256 or d % 128 or hq > 256 else "kernel"
+    return ("einsum" if not FLASH_DECODE or s_eff % 256 or d % 128 or hq > 256
+            else "kernel")
 
 
 def head_chunks(g: int, most: int = 8) -> int:
@@ -201,14 +234,15 @@ def flash_decode_write_plain(q, k3, v3, k_new, v_new, li: int, pos,
                              scale: float, hkv: int, s_eff: int,
                              win_l=None, softcap: float = 0.0):
     """Plain version of the flash_decode_write kernel, in the reference
-    kernel's numerics: q in bf16, f32 scores; the cache rows j <= pos-1
-    (and inside the window) streamed in blocks of decode_block(s_eff) rows
-    with an online softmax, p rounded to bf16 against the running max
-    before P.V (l sums the f32 p); the f32 new token merged last; out
-    divided by max(l, 1e-30). Writes the new rows into k3/v3 in place."""
+    kernel's numerics: q rounded to the cache's dtype (cache_round), f32
+    scores; the cache rows j <= pos-1 (and inside the window) streamed in
+    blocks of decode_block(s_eff) rows with an online softmax, p rounded to
+    the cache's dtype against the running max before P.V (l sums the f32
+    p); the f32 new token merged last; out divided by max(l, 1e-30). Writes
+    the new rows into k3/v3 in place."""
     b, hq, d = q.shape
     group = hq // hkv
-    qb = q.to(torch.bfloat16).float().reshape(b, hkv, group, d)
+    qb = cache_round(q, k3.dtype).reshape(b, hkv, group, d)
     kc = k3[li, :, :s_eff].float().reshape(b, s_eff, hkv, d)
     vc = v3[li, :, :s_eff].float().reshape(b, s_eff, hkv, d)
     kn = k_new.float().reshape(b, hkv, d)
@@ -236,7 +270,7 @@ def flash_decode_write_plain(q, k3, v3, k_new, v_new, li: int, pos,
         p = torch.where(vb, torch.exp(sb - m_new[..., None]), torch.zeros_like(sb))
         l = l * corr + p.sum(-1)
         acc = acc * corr[..., None] + torch.einsum(
-            "bhgs,bshd->bhgd", p.to(torch.bfloat16).float(), vc[:, j0:j0 + bs])
+            "bhgs,bshd->bhgd", cache_round(p, v3.dtype), vc[:, j0:j0 + bs])
         m = m_new
     m_new = torch.maximum(m, sn)
     corr = torch.exp(m - m_new)
@@ -256,7 +290,8 @@ def flash_decode_write_stacked(q, k3, v3, k_new, v_new, li: int, pos,
                                softcap: float = 0.0):
     """Decode attention (T = 1) with the fused cache-row write.
 
-    q [B, Hq, D] f32; k3/v3 [L, B, S, Hkv*D] bf16, updated IN PLACE at
+    q [B, Hq, D] f32; k3/v3 [L, B, S, Hkv*D] bf16, f16 or f32 (KV_FLOATS;
+    another dtype raises on the card), updated IN PLACE at
     [li, b, pos[b]] (the JAX package donated and aliased these buffers);
     k_new/v_new [B, Hkv, D] roped new rows; li a Python int; pos int32 [B]
     on the cache's device. s_limit bounds the streamed positions (the
@@ -287,14 +322,14 @@ def flash_decode_write_stacked(q, k3, v3, k_new, v_new, li: int, pos,
     for name, t in (("k3", k3), ("v3", v3), ("pos", pos32), ("q", qf)):
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
-    if k3.dtype != torch.bfloat16 or v3.dtype != torch.bfloat16 \
+    if k3.dtype not in KV_FLOATS or v3.dtype != k3.dtype \
             or not k3.is_contiguous() or not v3.is_contiguous() \
             or k3.shape != v3.shape or k3.shape[-1] != hkv * d \
             or k3.shape[1] != b or not 0 <= li < n_l:
-        raise ValueError("caches must be contiguous bf16 [L, B, S, Hkv*D] "
-                         "matching q and li")
+        raise ValueError("caches must be contiguous bf16, f16 or f32 [L, B, S, "
+                         f"Hkv*D] matching q and li, got {k3.dtype} {tuple(k3.shape)}")
     out = torch.empty((b, hq, d), dtype=torch.float32, device=q.device)
-    f = _build.fn("flash_decode_write", "flash_decode_write",
+    f = _build.fn("flash_decode_write" + KV_LIB[k3.dtype], "flash_decode_write",
                   [P] * 7 + [I] * 8 + [F, F, P])
     _build.check(f(qf.data_ptr(), k3.data_ptr(), v3.data_ptr(), kn.data_ptr(),
                    vn.data_ptr(), pos32.data_ptr(), out.data_ptr(), li, b,
@@ -311,18 +346,16 @@ flash_decode_write_stacked.launches = 0
 def flash_decode_plain(q, k, v, pos, scale: float, window: int = 0,
                        softcap: float = 0.0, k_scale=None, v_scale=None):
     """Plain version of the flash_decode kernel, in its numerics: a bf16
-    cache rounds q and p to bf16 (l sums the f32 p); an int8 cache (codes
-    with k_scale/v_scale) or an f32 one computes in f32 on the dequantized
-    K/V. f32 scores times scale, -1e30 mask of keys j > pos (and j <=
+    or f16 cache rounds q and p to its dtype (cache_round; l sums the f32
+    p); an int8 cache (codes with k_scale/v_scale) or an f32 one computes
+    in f32 on the dequantized K/V. f32 scores times scale, -1e30 mask of keys j > pos (and j <=
     pos - window), softmax over all keys at once, out / max(l, 1e-30)."""
     b, hq, d = q.shape
     s, hkv = k.shape[1], k.shape[2]
     if k_scale is not None:
         k = k.float() * k_scale[..., None]
         v = v.float() * v_scale[..., None]
-    rnd = ((lambda a: a.to(torch.bfloat16).float()) if k.dtype == torch.bfloat16
-           else (lambda a: a.float()))
-    qg = rnd(q).reshape(b, hkv, hq // hkv, d)
+    qg = cache_round(q, k.dtype).reshape(b, hkv, hq // hkv, d)
     sc = torch.einsum("bhgd,bshd->bhgs", qg, k.float()) * scale
     if softcap:
         sc = softcap * torch.tanh(sc / softcap)
@@ -333,7 +366,7 @@ def flash_decode_plain(q, k, v, pos, scale: float, window: int = 0,
         vis = vis & (j > p_ - window)
     sc = torch.where(vis[:, None, None, :], sc, torch.full_like(sc, NEG_INF))
     p = torch.exp(sc - sc.amax(dim=-1, keepdim=True))
-    acc = torch.einsum("bhgs,bshd->bhgd", rnd(p), v.float())
+    acc = torch.einsum("bhgs,bshd->bhgd", cache_round(p, v.dtype), v.float())
     return (acc / torch.clamp(p.sum(-1), min=1e-30)[..., None]).reshape(b, hq, d)
 
 
@@ -360,8 +393,8 @@ def _flash_decode_launch(q, k, v, k_scale, v_scale, pos, scale: float,
                          window: int, softcap: float):
     """Launch the flash_decode kernel on k, v [B, s_eff, Hkv, D] views whose
     last three axes are contiguous (a slice of a layer of the cache: the
-    kernel reads it in place), bf16, or int8 with [B, s_eff, Hkv] f32
-    scales: one launch of B * Hkv * head_chunks(G, FD_CHUNK_HEADS)
+    kernel reads it in place), bf16, f16 or f32, or int8 with [B, s_eff,
+    Hkv] f32 scales: one launch of B * Hkv * head_chunks(G, FD_CHUNK_HEADS)
     thread-block clusters, with no scratch in device memory."""
     b, hq, d = q.shape
     _, s_eff, hkv, dk = k.shape
@@ -369,7 +402,10 @@ def _flash_decode_launch(q, k, v, k_scale, v_scale, pos, scale: float,
     _check_group("flash_decode", d, hq, hkv, dk)
     qf = q.float().contiguous()
     pos32 = pos.to(torch.int32).contiguous()
-    cache_t = torch.int8 if quant else torch.bfloat16
+    cache_t = torch.int8 if quant else k.dtype
+    if not quant and cache_t not in KV_FLOATS:
+        raise ValueError(f"flash_decode: a {cache_t} cache; the kernel takes bf16, f16, "
+                         "f32, or int8 codes with scales")
     named = [("k", k, cache_t, (hkv * d, d, 1)), ("v", v, cache_t, (hkv * d, d, 1))]
     if quant:
         named += [("k_scale", k_scale, torch.float32, (hkv, 1)),
@@ -386,7 +422,7 @@ def _flash_decode_launch(q, k, v, k_scale, v_scale, pos, scale: float,
     if pos32.device != q.device or pos32.shape != (b,):
         raise ValueError(f"flash_decode: pos must be int32 [{b}] on {q.device}")
     out = torch.empty((b, hq, d), dtype=torch.float32, device=q.device)
-    f = _build.fn("flash_decode", "flash_decode",
+    f = _build.fn("flash_decode" + ("" if quant else KV_LIB[cache_t]), "flash_decode",
                   [P] * 7 + [I] * 5 + [L, L] + [I] * 2 + [F, F, P])
     _build.check(f(qf.data_ptr(), k.data_ptr(), v.data_ptr(),
                    k_scale.data_ptr() if quant else None,
@@ -403,7 +439,7 @@ def flash_decode(q, k, v, pos, scale: float, window: int = 0,
                  softcap: float = 0.0, k_scale=None, v_scale=None):
     """Decode attention (T = 1) of one layer of a dense cache.
 
-    q [B, Hq, D] f32; k, v [B, S, Hkv, D] bf16, or int8 codes with k_scale,
+    q [B, Hq, D] f32; k, v [B, S, Hkv, D] bf16, f16, f32, or int8 codes with k_scale,
     v_scale [B, S, Hkv] f32 (the reference's f32 dequantized K/V, computed
     in the kernel's registers); views of a cache layer are read in place.
     pos int32 [B] is each row's last visible index; window (0: none) shows
@@ -432,7 +468,7 @@ def flash_decode_stacked(q, k3, v3, li: int, pos, scale: float, hkv: int,
                          s_limit: Optional[int] = None, win_l=None,
                          softcap: float = 0.0):
     """Decode attention (T = 1) over layer li (a Python int) of the flat
-    [L, B, S, Hkv*D] bf16 cache, streaming its first s_limit positions (all
+    [L, B, S, Hkv*D] bf16, f16 or f32 cache, streaming its first s_limit positions (all
     when None). The flash_decode kernel reads layer li in place (the TPU's
     layer-indexed _flash_decode_qt_kernel); the reference's routing as in
     flash_decode. Returns [B, Hq, D] f32."""
@@ -487,7 +523,7 @@ def paged_attention(q, k_pages_l, v_pages_l, lengths, tables,
     """Decode attention of one layer over a paged KV pool.
 
     q [R, Hq, D] f32, already scaled by 1/sqrt(D) (the kernel applies no
-    scale); k_pages_l/v_pages_l [Hkv, P, ps, D] bf16, or int8 with
+    scale); k_pages_l/v_pages_l [Hkv, P, ps, D] bf16, f16 or f32, or int8 with
     [Hkv, P, ps, 1] f32 scales; lengths int32 [R] (>= 1); tables int32
     [R, MAXP]. Layer li of a pool is `pool[li]`, a view: the kernel reads it
     by pointer, nothing is copied. Returns [R, Hq, Dv] f32. Shapes of the
@@ -508,7 +544,10 @@ def paged_attention(q, k_pages_l, v_pages_l, lengths, tables,
     hkv, n_pages, ps, dk = k_pages_l.shape
     quant = k_scale_l is not None
     _check_group("paged_attention", d, hq, hkv, dk)
-    page_t = torch.int8 if quant else torch.bfloat16
+    page_t = torch.int8 if quant else k_pages_l.dtype
+    if not quant and page_t not in KV_FLOATS:
+        raise ValueError(f"paged_attention: {page_t} pages; the kernel takes bf16, f16, "
+                         "f32, or int8 codes with scales")
     maxp = tables.shape[-1]
     named = [("q", q, torch.float32, (r, hq, d)),
              ("k_pages", k_pages_l, page_t, (hkv, n_pages, ps, d)),
@@ -528,7 +567,8 @@ def paged_attention(q, k_pages_l, v_pages_l, lengths, tables,
                              f"{tuple(t.shape)} on {t.device}")
     out = torch.empty((r, hq, d), dtype=torch.float32, device=q.device)
     ptr = lambda t: None if t is None else t.data_ptr()
-    f = _build.fn("paged_attention", "paged_attention", [P] * 8 + [I] * 8 + [P])
+    f = _build.fn("paged_attention" + ("" if quant else KV_LIB[page_t]), "paged_attention",
+                  [P] * 8 + [I] * 8 + [P])
     _build.check(f(q.data_ptr(), k_pages_l.data_ptr(), v_pages_l.data_ptr(),
                    ptr(k_scale_l), ptr(v_scale_l), lengths.data_ptr(),
                    tables.data_ptr(), out.data_ptr(), r, hq, hkv, d, n_pages, ps,

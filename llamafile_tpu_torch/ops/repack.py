@@ -1,7 +1,9 @@
 """Repack GGUF block formats into the kernels' quantized tensors (QTensor).
 
 Counterpart of llamafile_tpu/ops/repack.py for the formats the port loads
-(Q4_K, Q5_K, Q8_0, Q6_K, F32, F16, BF16), and the int8 prefill companion
+(Q4_0, Q4_1, Q5_0, Q5_1, Q8_0, Q2_K, Q3_K, Q4_K, Q5_K, Q6_K, IQ4_NL,
+IQ4_XS, F32, F16, BF16; the grid IQ types raise), and the int8 prefill
+companion
 (I8PQTensor, attach_int8_prefill). The device layout is byte-identical to
 the JAX package's `repack_numpy` + `repack` (held so by
 tests/test_torch_repack.py):
@@ -11,9 +13,14 @@ tests/test_torch_repack.py):
                 scales/bias bf16 [K/32, Ns], the hi-plane groups folded
                 (a' = a/16, b' = b + 8a) so a kernel reads the hi nibble as
                 int8((p ^ 0x80) & 0xF0) = 16q - 128
-  kind "q8b":   qs int8 [K, Ns] codes, scales bf16 [K/g, Ns] (g 32 for Q8_0
-                and Q5_K, 16 for Q6_K); Q5_K's codes 0..31 carry a bias
-                bf16 [K/32, Ns] (-dmin * min), Q8_0 and Q6_K none
+                Q4_0 and Q4_1 (the nibble formats) take it too when K %
+                256 == 0: Q4_0 with bias -8d, Q4_1 with its min
+  kind "q8b":   qs int8 [K, Ns] codes, scales bf16 [K/g, Ns] (g 32 for Q8_0,
+                Q5_0, Q5_1, Q5_K, IQ4_NL, IQ4_XS and Q4_0/Q4_1 at K % 256;
+                16 for Q2_K, Q3_K, Q6_K); codes with an offset carry a
+                bias bf16 [K/g, Ns] (Q5_0's -16d, Q5_1's min, Q2_K's and
+                Q5_K's -dmin * min), Q8_0, Q3_K, Q6_K and the IQ4 codebook
+                values none
   kind "dense": qs bf16 [K, N]
 
 Ns is N padded to a multiple of 2048 (logical N stays in QTensor.shape;
@@ -135,6 +142,100 @@ def _fold_hi_plane(a: np.ndarray, b: Optional[np.ndarray], g: int):
     return a.astype(np.float32), b.astype(np.float32)
 
 
+def _extract_q4_0(b):
+    d = Q._f16(b[:, 0:2])
+    qs = b[:, 2:18]
+    q = np.concatenate([qs & 0xF, qs >> 4], axis=1)          # (nb, 32) 0..15
+    return q, d.astype(np.float32), (-8.0 * d).astype(np.float32), 32
+
+
+def _extract_q4_1(b):
+    d = Q._f16(b[:, 0:2])
+    m = Q._f16(b[:, 2:4])
+    qs = b[:, 4:20]
+    q = np.concatenate([qs & 0xF, qs >> 4], axis=1)
+    return q, d, m, 32
+
+
+def _q5_codes(qh, qs):
+    """A Q5_0/Q5_1 block's 32 codes 0..31 from its qh word and qs bytes."""
+    j = np.arange(16, dtype=np.uint32)
+    lo = (qs & 0xF) | (((qh >> j) & 1) << 4).astype(np.uint8)
+    hi = (qs >> 4) | (((qh >> (j + 16)) & 1) << 4).astype(np.uint8)
+    return np.concatenate([lo, hi], axis=1)
+
+
+def _extract_q5_0(b):
+    d = Q._f16(b[:, 0:2])
+    q = _q5_codes(Q._u32(b[:, 2:6]).reshape(-1, 1), b[:, 6:22])
+    return q, d, -16.0 * d, 32
+
+
+def _extract_q5_1(b):
+    d = Q._f16(b[:, 0:2])
+    m = Q._f16(b[:, 2:4])
+    return _q5_codes(Q._u32(b[:, 4:8]).reshape(-1, 1), b[:, 8:24]), d, m, 32
+
+
+def _extract_q2_k(b):
+    nb = b.shape[0]
+    scales = b[:, 0:16]
+    qs = b[:, 16:80]
+    d = Q._f16(b[:, 80:82])
+    dmin = Q._f16(b[:, 82:84])
+    q = np.empty((nb, 256), np.uint8)
+    a = np.empty((nb, 16), np.float32)
+    bb = np.empty((nb, 16), np.float32)
+    for half in range(2):
+        blkq = qs[:, 32 * half:32 * half + 32]
+        for shift_i in range(4):
+            qv = (blkq >> (2 * shift_i)) & 3
+            for sub in range(2):
+                is_ = 8 * half + sub + 2 * shift_i
+                gidx = (128 * half + 32 * shift_i + 16 * sub) // 16
+                q[:, 16 * gidx:16 * gidx + 16] = qv[:, 16 * sub:16 * sub + 16]
+                a[:, gidx] = d[:, 0] * (scales[:, is_] & 0xF)
+                bb[:, gidx] = -dmin[:, 0] * (scales[:, is_] >> 4).astype(np.float32)
+    return q, a, bb, 16
+
+
+def _extract_q3_k(b):
+    nb = b.shape[0]
+    hmask = b[:, 0:32]
+    qs = b[:, 32:96]
+    us = Q.q3_k_scales(b[:, 96:108]).astype(np.float32)
+    d = Q._f16(b[:, 108:110])
+    q = np.empty((nb, 256), np.int8)
+    a = np.empty((nb, 16), np.float32)
+    for half in range(2):
+        blkq = qs[:, 32 * half:32 * half + 32]
+        for j in range(4):
+            m = np.uint8(1 << (4 * half + j))
+            qv = ((blkq >> (2 * j)) & 3).astype(np.int8)
+            qv = qv - np.where((hmask & m) != 0, 0, 4).astype(np.int8)
+            for sub in range(2):
+                is_ = 8 * half + 2 * j + sub
+                gidx = (128 * half + 32 * j + 16 * sub) // 16
+                q[:, 16 * gidx:16 * gidx + 16] = qv[:, 16 * sub:16 * sub + 16]
+                a[:, gidx] = d[:, 0] * (us[:, is_] - 32)
+    return q, a, None, 16
+
+
+def _extract_iq4_nl(b):
+    d = Q._f16(b[:, 0:2])
+    qs = b[:, 2:18]
+    idx = np.concatenate([qs & 0xF, qs >> 4], axis=1).astype(np.int64)
+    return Q.KVALUES_IQ4NL[idx], d, None, 32
+
+
+def _extract_iq4_xs(b):
+    nb = b.shape[0]
+    qs = b[:, 8:136].reshape(nb, 8, 16)
+    q = np.concatenate([Q.KVALUES_IQ4NL[(qs & 0xF).astype(np.int64)],
+                        Q.KVALUES_IQ4NL[(qs >> 4).astype(np.int64)]], axis=2)
+    return q.reshape(nb, 256), Q.iq4_xs_scales(b), None, 32
+
+
 def _extract_q4_k(b):
     d = Q._f16(b[:, 0:2])[:, 0]
     dmin = Q._f16(b[:, 2:4])[:, 0]
@@ -167,8 +268,15 @@ def _extract_q6_k(b):
     return q, a, None, 16
 
 
-_EXTRACTORS = {"Q8_0": _extract_q8_0, "Q4_K": _extract_q4_k,
-               "Q5_K": _extract_q5_k, "Q6_K": _extract_q6_k}
+_EXTRACTORS = {"Q4_0": _extract_q4_0, "Q4_1": _extract_q4_1,
+               "Q5_0": _extract_q5_0, "Q5_1": _extract_q5_1, "Q8_0": _extract_q8_0,
+               "Q2_K": _extract_q2_k, "Q3_K": _extract_q3_k, "Q4_K": _extract_q4_k,
+               "Q5_K": _extract_q5_k, "Q6_K": _extract_q6_k,
+               "IQ4_NL": _extract_iq4_nl, "IQ4_XS": _extract_iq4_xs}
+
+# formats packed to 4-bit nibbles on the device when K % 256 == 0 (q4b);
+# the others, and these at other K, stay int8 codes (q8b)
+_NIBBLE_FORMATS = {"Q4_0", "Q4_1", "Q4_K"}
 
 
 def repack_numpy(raw: np.ndarray, type_name: str, shape: tuple):
@@ -190,7 +298,7 @@ def repack_numpy(raw: np.ndarray, type_name: str, shape: tuple):
     a = np.ascontiguousarray(a.reshape(n, k // g).T, dtype=np.float32)
     if b is not None:
         b = np.ascontiguousarray(b.reshape(n, k // g).T, dtype=np.float32)
-    if type_name == "Q4_K" and k % 256 == 0:
+    if type_name in _NIBBLE_FORMATS and k % 256 == 0:
         a, b = _fold_hi_plane(a, b, g)
         return "q4b", _pack_nibbles_sb128(qT), a, b, g
     return "q8b", np.ascontiguousarray(qT.astype(np.int8)), a, b, g

@@ -19,11 +19,19 @@ the reference) attaches the int8 prefill companions before the layers are
 stacked (models.llama.int8_prefill_params): prompts and admission slices of
 over 32 tokens then run the int8 prefill kernel; decode never reads them.
 
-The KV cache follows kv_dtype: bf16, or int8 codes with per-row scales
-(runtime/kvcache.py). The continuous batcher (server/batcher.py) drives the
+The KV cache follows kv_dtype: bf16, f16, f32, or int8 codes with per-row
+scales (runtime/kvcache.py; the reference's map of "bf16", "f16", "f32",
+"int8" and "i8").
+
+LLAMAFILE_TPU_STACK=0 (read when the Engine is built, as in the
+reference) keeps the layers unrolled: prefill then runs the unstacked
+products (qmm_planes from bucket 64) and decode the per-layer M = 1
+products and flash_decode_write on each layer's view.
+
+The continuous batcher (server/batcher.py) drives the
 engine through its serving hooks: `new_row_cache` and `row_prefill` for
-admission, and either the paged pool it keeps itself (bf16 or int8 pages by
-kv_dtype) or, in its dense row mode, `init_row_cache` (the row-batched
+admission, and either the paged pool it keeps itself (pages of kv_dtype:
+bf16, f16, f32 or int8) or, in its dense row mode, `init_row_cache` (the row-batched
 cache [L, R, S, ...]) and `fused_decode` (a chunk of steps over all rows,
 each at its own position).
 
@@ -99,16 +107,20 @@ class Engine:
             # opt-in int8 prefill: companions on the unstacked layers
             params = int8_prefill_params(params)
         # the layer loop indexes stacked weights by layer id (no slice
-        # copy); layers of differing formats stay unrolled
-        self.params = stack_layers(params)
+        # copy); layers of differing formats stay unrolled, and so do all
+        # under LLAMAFILE_TPU_STACK=0
+        if os.environ.get("LLAMAFILE_TPU_STACK", "1") != "0":
+            params = stack_layers(params)
+        self.params = params
         self.tokenizer = tokenizer
         self.max_seq_len = min(max_seq_len, cfg.max_context)
         self.batch_size = batch_size
         if isinstance(kv_dtype, str):
-            kv_dtype = {"bf16": torch.bfloat16, "int8": torch.int8,
-                        "i8": torch.int8}[kv_dtype]
-        if kv_dtype not in (torch.bfloat16, torch.int8):
-            raise NotImplementedError(f"kv_dtype {kv_dtype}: bf16 or int8")
+            kv_dtype = {"bf16": torch.bfloat16, "f16": torch.float16,
+                        "f32": torch.float32, "i8": torch.int8,
+                        "int8": torch.int8}[kv_dtype]
+        if kv_dtype not in (torch.bfloat16, torch.float16, torch.float32, torch.int8):
+            raise ValueError(f"kv_dtype {kv_dtype}: bf16, f16, f32 or int8")
         self.kv_dtype = kv_dtype
         self.decode_chunk = 8        # tokens per device-resident decode chunk
         self.last_prompt_reuse = 0   # prompt_cache tokens reused by generate

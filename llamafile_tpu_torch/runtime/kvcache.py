@@ -1,8 +1,9 @@
-"""KV cache of the port: dense bf16, or int8 with per-row scales.
+"""KV cache of the port: dense bf16, f16 or f32, or int8 with per-row scales.
 
 Counterpart of llamafile_tpu/runtime/kvcache.py. Layouts, as there:
-  bf16: k, v [L, B, S, Hkv*D], flat: the decode kernels stream (positions x
-        Hkv*D) rows; head structure is imposed by callers with a reshape.
+  bf16, f16, f32: k, v [L, B, S, Hkv*D], flat: the decode kernels stream
+        (positions x Hkv*D) rows; head structure is imposed by callers with
+        a reshape. New rows are cast to the cache's dtype as they land.
   int8: k, v [L, B, S, Hkv, D] codes and k_scale, v_scale [L, B, S, Hkv] f32
         absmax/127 scales, one per (position, head).
 The cache is updated in place: the JAX package donated these buffers to each
@@ -20,7 +21,7 @@ _INV127 = torch.tensor(1.0 / 127.0, dtype=torch.float32).item()
 
 @dataclass
 class KVCache:
-    k: torch.Tensor                   # [L, B, S, Hkv*D] bf16 | [L, B, S, Hkv, D] int8
+    k: torch.Tensor                   # [L, B, S, Hkv*D] float | [L, B, S, Hkv, D] int8
     v: torch.Tensor
     k_scale: Optional[torch.Tensor] = None    # [L, B, S, Hkv] f32 when int8
     v_scale: Optional[torch.Tensor] = None
@@ -44,9 +45,8 @@ def init_kv(n_layers: int, batch: int, max_len: int, n_kv: int, head_dim: int,
     if isinstance(dtype, str):
         dtype = {"bf16": torch.bfloat16, "f16": torch.float16,
                  "f32": torch.float32}[dtype]
-    if dtype != torch.bfloat16:
-        raise NotImplementedError(f"KV cache dtype {dtype}: the decode "
-                                  "kernels read bf16 or int8 caches")
+    if dtype not in (torch.bfloat16, torch.float16, torch.float32):
+        raise ValueError(f"KV cache dtype {dtype}: bf16, f16, f32 or int8")
     shape = (n_layers, batch, max_len, n_kv * head_dim)
     return KVCache(torch.zeros(shape, dtype=dtype, device=device),
                    torch.zeros(shape, dtype=dtype, device=device))

@@ -4,7 +4,7 @@ shift.
 Counterpart of llamafile_tpu/runtime/paged.py:
 
 - data pages live on the device: `k_pages`/`v_pages` [L, Hkv, P, ps, D]
-  bf16, or int8 with [L, Hkv, P, ps, 1] f32 scales; every row of the batch
+  bf16, f16 or f32, or int8 with [L, Hkv, P, ps, 1] f32 scales; every row of the batch
   reaches its pages through an int32 block table;
 - page bookkeeping lives on the host: `PageAllocator`, a refcounted free
   list whose page 0 is the trash page (parked rows write there).
@@ -31,7 +31,7 @@ from ..ops.attention import paged_attention, paged_attention_plain  # noqa: F401
 
 @dataclass
 class PagedKV:
-    k_pages: torch.Tensor                    # [L, Hkv, P, ps, D] bf16 or int8
+    k_pages: torch.Tensor                    # [L, Hkv, P, ps, D] bf16, f16, f32 or int8
     v_pages: torch.Tensor
     k_scale: Optional[torch.Tensor] = None   # [L, Hkv, P, ps, 1] f32 when int8
     v_scale: Optional[torch.Tensor] = None
@@ -52,8 +52,9 @@ class PagedKV:
 def init_paged(n_layers: int, n_kv: int, n_pages: int, page_size: int,
                head_dim: int, dtype=torch.bfloat16, v_head_dim: int = 0,
                device="cuda") -> PagedKV:
-    """A zeroed pool; dtype bf16, or int8 ("int8", "i8", torch.int8) for
-    int8 pages with f32 scales."""
+    """A zeroed pool; dtype bf16, f16 or f32 (a torch dtype or "bf16",
+    "f16", "f32"), or int8 ("int8", "i8", torch.int8) for int8 pages with
+    f32 scales."""
     kshape = (n_layers, n_kv, n_pages, page_size, head_dim)
     vshape = (n_layers, n_kv, n_pages, page_size, v_head_dim or head_dim)
     z = lambda shape, dt: torch.zeros(shape, dtype=dt, device=device)
@@ -61,9 +62,11 @@ def init_paged(n_layers: int, n_kv: int, n_pages: int, page_size: int,
         sshape = kshape[:-1] + (1,)
         return PagedKV(z(kshape, torch.int8), z(vshape, torch.int8),
                        z(sshape, torch.float32), z(sshape, torch.float32))
-    if dtype in ("bf16", torch.bfloat16):
-        return PagedKV(z(kshape, torch.bfloat16), z(vshape, torch.bfloat16))
-    raise NotImplementedError(f"paged KV dtype {dtype!r}: bf16 or int8")
+    dtype = {"bf16": torch.bfloat16, "f16": torch.float16, "f32": torch.float32}.get(
+        dtype, dtype)
+    if dtype in (torch.bfloat16, torch.float16, torch.float32):
+        return PagedKV(z(kshape, dtype), z(vshape, dtype))
+    raise ValueError(f"paged KV dtype {dtype!r}: bf16, f16, f32 or int8")
 
 
 _INV127 = torch.tensor(1.0 / 127.0, dtype=torch.float32).item()
@@ -202,8 +205,8 @@ def copy_row_to_pages(paged: PagedKV, dense_k: torch.Tensor,
 def gather_pages_to_row(paged: PagedKV, pages: torch.Tensor, ps: int,
                         max_len: int):
     """Inverse of copy_row_to_pages: a dense single-row cache (k, v), each
-    [L, 1, max_len, H*D] with zeros past the pages: bf16 from a bf16 pool,
-    f32 (codes times scales) from an int8 pool."""
+    [L, 1, max_len, H*D] with zeros past the pages: the pool's dtype from
+    a bf16, f16 or f32 pool, f32 (codes times scales) from an int8 pool."""
     idx = pages.long().to(paged.k_pages.device)
     kk = paged.k_pages[:, :, idx]                      # [L, H, np, ps, D]
     vv = paged.v_pages[:, :, idx]

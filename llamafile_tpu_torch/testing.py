@@ -172,9 +172,9 @@ def txn_scale_swap(xq, sx, qs, scales, bias):
 
 def paged_case(gen: torch.Generator, lengths, hq: int, hkv: int, d: int,
                ps: int, maxp: int, n_layers: int = 1, int8: bool = False,
-               device="cpu"):
+               device="cpu", dtype=torch.bfloat16):
     """Random inputs of paged attention over a pool of n_layers layers:
-    (q f32 [R, Hq, D], k_pages, v_pages [L, Hkv, P, ps, D] bf16 or int8,
+    (q f32 [R, Hq, D], k_pages, v_pages [L, Hkv, P, ps, D] of dtype or int8,
     k_scale, v_scale [L, Hkv, P, ps, 1] f32 or None, lengths int32 [R],
     tables int32 [R, maxp]). The pool has 1 + R*maxp pages; each row's
     pages are drawn from a random permutation of pages 1.. (page 0 is the
@@ -190,7 +190,7 @@ def paged_case(gen: torch.Generator, lengths, hq: int, hkv: int, d: int,
         ks, vs = (torch.empty(shape[:-1] + (1,), device=device).uniform_(
             2e-3, 2e-2, generator=gen) for _ in range(2))
     else:
-        kp, vp = (torch.randn(shape, generator=gen, device=device).to(torch.bfloat16)
+        kp, vp = (torch.randn(shape, generator=gen, device=device).to(dtype)
                   for _ in range(2))
         ks = vs = None
     perm = torch.randperm(n_pages - 1, generator=gen, device=device) + 1

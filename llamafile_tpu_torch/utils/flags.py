@@ -7,7 +7,7 @@ config: embedded defaults (a `.args` file next to the model, mirroring
 
 The port's own copy of llamafile_tpu/utils/flags.py, with the port's
 `--device` (`cuda` by default, `cpu` on request) and `--kv-dtype` limited to
-what the port runs (bf16, or int8 pages in the server's paged pool).
+the dtypes the reference's engine maps (bf16, f16, f32, int8/i8).
 """
 from __future__ import annotations
 
@@ -161,7 +161,7 @@ def _build_parser() -> argparse.ArgumentParser:
     p.add_argument("--grp-attn-w", "-gaw", type=int, dest="grp_attn_w",
                    default=512)
     p.add_argument("--kv-dtype", dest="kv_dtype", default="bf16",
-                   choices=["bf16", "int8", "i8"])
+                   choices=["bf16", "f16", "f32", "int8", "i8"])
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     p.add_argument("--mmproj")
     p.add_argument("--image", help="image file for llava multimodal prompts")

@@ -197,7 +197,7 @@ def test_chat_with_background_server(gguf):
             proc.communicate()
 
 
-def test_tokenize_and_version(gguf, capsys):
+def test_tokenize_and_version(gguf, capsys, monkeypatch, tmp_path):
     from llamafile_tpu import cli as JC
     from llamafile_tpu.utils.flags import parse_flags as j_parse
     from llamafile_tpu.version import VERSION_STRING
@@ -209,4 +209,13 @@ def test_tokenize_and_version(gguf, capsys):
     assert got == want and len(got.splitlines()) > 10
     assert TC.main(["--version"]) == 0
     assert capsys.readouterr().out == VERSION_STRING + "\n"
-    assert TC.main(["--cli", "-m", gguf, "--trace", "t.json"]) == 2
+    # --trace, once refused with exit code 2, is ported: the run completes
+    # and registers the trace's write at exit
+    import atexit
+    from llamafile_tpu_torch.utils import tracing
+    at_exit = []
+    monkeypatch.setattr(atexit, "register", at_exit.append)
+    monkeypatch.setattr(tracing, "_tracer", None)
+    assert TC.main(["--cli", "-m", gguf, "--device", "cpu", "-p", "hi", "-n", "1",
+                    "--trace", str(tmp_path / "t.json")]) == 0
+    assert len(at_exit) == 1

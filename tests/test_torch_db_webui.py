@@ -12,6 +12,7 @@ import json
 import os
 import socket
 import threading
+import time
 
 import pytest
 
@@ -135,9 +136,15 @@ def _jax_server(gguf, flags):
             pass
     threading.Thread(target=run, daemon=True).start()
     base = f"http://127.0.0.1:{port}"
-    for _ in range(200):
-        if _status(base + "/health")[0] == 200:
-            break
+    for _ in range(600):             # up to 30 s for the thread to serve
+        try:
+            if _status(base + "/health")[0] == 200:
+                break
+        except OSError:             # refused: the thread has not bound its socket yet
+            pass
+        time.sleep(0.05)
+    else:
+        raise AssertionError(f"the reference's server at {base} never answered /health")
     return base, loop, srv
 
 

@@ -199,16 +199,29 @@ def test_one_token_continuation_is_a_decode_step(engine):
         assert (a - b).abs().max() <= 2e-2 * b.abs().max()
 
 
-def test_cli_unported_mode_exits(gguf, monkeypatch, capsys):
+def test_cli_unported_mode_exits(gguf, monkeypatch, capsys, tmp_path):
     """--chat, once refused with exit code 2, is ported: the REPL answers a
     turn and /exit (tests/test_torch_chat.py holds it against the
-    reference's); --trace, still unported, exits 2."""
+    reference's); --trace, once refused with exit code 2 too, is ported:
+    the chat runs and the tracer's Chrome JSON is written at exit."""
+    import atexit
     import io
+    import json
     from llamafile_tpu_torch.cli import main
+    from llamafile_tpu_torch.utils import tracing
     monkeypatch.setattr(sys, "stdin", io.StringIO("hello\n/exit\n"))
     assert main(["--chat", "-m", gguf, "--device", "cpu", "-n", "2", "--temp", "0"]) == 0
     assert capsys.readouterr().out.count(">>> ") == 2
-    assert main(["--chat", "-m", gguf, "--trace", "t.json"]) == 2
+    at_exit = []
+    monkeypatch.setattr(atexit, "register", at_exit.append)
+    monkeypatch.setattr(tracing, "_tracer", None)
+    monkeypatch.setattr(sys, "stdin", io.StringIO("/exit\n"))
+    path = tmp_path / "t.json"
+    assert main(["--chat", "-m", gguf, "--device", "cpu", "--trace", str(path)]) == 0
+    assert "tracing to" in capsys.readouterr().err
+    for fn in at_exit:
+        fn()
+    assert json.loads(path.read_text()) == {"traceEvents": []}
 
 
 def test_cuda_engine_raises_without_a_card(engine):
