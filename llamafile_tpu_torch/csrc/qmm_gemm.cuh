@@ -8,7 +8,8 @@
 // a bf16 multiply that rounds their exact product once gives the bits of
 // __float2bfloat16_rn(code * scale). q4b codes are the planar nibbles (lo
 // plane q, hi plane int8((p ^ 0x80) & 0xF0) = 16q - 128, the fold living in
-// the stored scales); q8b codes are int8 with g 32 (Q8_0) or 16 (Q6_K).
+// the stored scales); q8b codes are int8 with g 32 (Q8_0), 16 (Q6_K) or 8
+// (IQ1_M).
 // Accumulation is f32; the epilogue writes f32, or rounds each sum once to
 // bf16.
 //
@@ -36,7 +37,8 @@
 // L2. Rows past M are zero-filled and never stored; a warpgroup whose 64
 // rows all lie past M skips its wgmmas (it still dequantizes its share of
 // B). Two blocks share an SM (at most 128 registers a thread, 109 KB of
-// shared memory a block). TMA loads, an mbarrier ring and warp specialisation are
+// shared memory a block; 112 KB at q8b g 8, whose raw stages hold 8 scale
+// rows). TMA loads, an mbarrier ring and warp specialisation are
 // later steps.
 #pragma once
 
@@ -53,10 +55,20 @@ constexpr int STAGES = 3;                 // ring of A tiles and of raw codes
 constexpr int A_BYTES = BM * BK * 2;      // 128 rows of 128 bytes
 constexpr int B_BYTES = BK * BN * 2;      // two 64-column halves of 64 rows
 constexpr int RAW_SC = 8192;              // raw stage: codes, then scale rows
-constexpr int RAW_BYTES = RAW_SC + 4 * 256;
 constexpr int B_BASE = STAGES * A_BYTES;                   // B tiles: 2 stages
 constexpr int RAW_BASE = B_BASE + 2 * B_BYTES;             // raw stages
-constexpr int SMEM_BYTES = RAW_BASE + STAGES * RAW_BYTES + 1024;   // + alignment room
+// Scale rows of a K step: q4b 2 (the lo and hi planes' groups), q8b BK / G.
+template <bool Q4, int G>
+constexpr int SC_ROWS = Q4 ? 2 : BK / G;
+// A raw stage holds 4 scale rows of 256 bytes, or SC_ROWS when more (q8b
+// g 8: 8), so every other instance keeps one stage size and one layout.
+template <bool Q4, int G>
+constexpr int RAW_BYTES_OF = RAW_SC + 256 * ((SC_ROWS<Q4, G>) > 4 ? (SC_ROWS<Q4, G>) : 4);
+template <bool Q4, int G>
+constexpr int SMEM_BYTES_OF = RAW_BASE + STAGES * RAW_BYTES_OF<Q4, G> + 1024;  // + alignment
+static_assert(SMEM_BYTES_OF<true, 32> == 110592 && SMEM_BYTES_OF<false, 32> == 110592 &&
+                  SMEM_BYTES_OF<false, 16> == 110592 && SMEM_BYTES_OF<false, 8> == 113664,
+              "the q4b and q8b g 16 / 32 instances keep their 110592 bytes");
 
 // Byte offset of 16-byte chunk c (8 bf16) of row `row` in the A tile.
 __device__ __forceinline__ int a_off(int row, int c) {
@@ -109,8 +121,7 @@ __device__ __forceinline__ void load_raw(unsigned char* Rs, const uint8_t* qs,
     const uint8_t* src = ok ? qs + (size_t)src_row * Ns + n0 + 16 * c : qs;
     cp_async16(Rs + raw_off(r, c), src, ok);
   }
-  constexpr int SC_ROWS = Q4 ? 2 : BK / G;
-  if (t < 16 * SC_ROWS) {
+  if (t < 16 * SC_ROWS<Q4, G>) {
     const int sr = t >> 4, sc8 = t & 15;
     const int g = Q4 ? 8 * sb + j + 4 * sr : (BK / G) * ks + sr;
     const bool sok = n0 + 8 * sc8 < Ns;
@@ -278,6 +289,7 @@ qmm_gemm_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__
                 const __nv_bfloat16* __restrict__ sc, void* __restrict__ y,
                 int M, int K, int Ns, const int* __restrict__ te,
                 const __nv_bfloat16* __restrict__ bx, const __nv_bfloat16* __restrict__ bias) {
+  constexpr int RAW_BYTES = RAW_BYTES_OF<Q4, G>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   // [A ring | B ring | raw ring], 1024-aligned for the swizzle
   unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
@@ -352,6 +364,7 @@ template <bool Q4, int G, bool BF16_OUT>
 int launch_gemm(const void* x, const void* qs, const void* sc, void* y, int M, int K,
                 int Ns, cudaStream_t st, const void* te = nullptr, const void* bx = nullptr,
                 const void* bias = nullptr) {
+  constexpr int SMEM_BYTES = SMEM_BYTES_OF<Q4, G>;
   static bool smem_set = false;      // once, so later launches can be captured
   if (!smem_set) {
     cudaError_t err = cudaFuncSetAttribute(qmm_gemm_kernel<Q4, G, BF16_OUT>,

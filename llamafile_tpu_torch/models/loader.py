@@ -101,9 +101,8 @@ def fuse_projections(params: LlamaParams, cfg: LlamaConfig) -> LlamaParams:
 
 def load_llama(path: str, device="cuda", fuse: bool = True):
     """Load a llama/mistral/gemma/gemma2/gemma3/qwen2/qwen3 GGUF into (config, params,
-    tokenizer, reader) on `device`. Tensor formats other than
-    F32/F16/BF16/Q4_0/Q4_1/Q5_0/Q5_1/Q8_0/Q2_K-Q6_K/IQ4_NL/IQ4_XS (the grid
-    IQ types) raise NotImplementedError naming the format. Files whose
+    tokenizer, reader) on `device`. Every GGML tensor type loads but Q8_1,
+    which raises NotImplementedError naming it (gguf/quants.py). Files whose
     layers mix formats (Q4_K_M, Q4_K_S, Q5_K_M) give per-layer weights that
     the forward runs unrolled. A MoE file (expert_count > 0) loads its router
     and experts; shared experts (ffn_*_shexp) raise."""

@@ -294,7 +294,10 @@ def decode_read_bytes(params: LlamaParams, cfg: LlamaConfig) -> int:
 # The f16 fields of each block format, (byte offset, low, high) of the
 # uniform draw: d-like scales small and positive, mins small and negative.
 # A K-quant's d multiplies 6-bit (or 4-bit) sub-scales, so it is drawn
-# 16-64 times smaller than a 32-element format's.
+# 16-64 times smaller than a 32-element format's. A grid IQ type's d is
+# drawn so that its weights spread as the others' do (an RMS near 0.03):
+# its sub-scales reach 3.9 (IQ2), 31 (IQ3) or 15 (IQ1) and its grid values
+# 43 (IQ2), 62 (IQ3) or 1.125 (IQ1).
 RAW_F16_FIELDS = {
     "Q4_0": ((0, 1e-3, 2e-2),), "Q4_1": ((0, 1e-3, 2e-2), (2, -2e-2, 0.0)),
     "Q5_0": ((0, 1e-3, 2e-2),), "Q5_1": ((0, 1e-3, 2e-2), (2, -2e-2, 0.0)),
@@ -302,12 +305,20 @@ RAW_F16_FIELDS = {
     "Q2_K": ((80, 1e-4, 1e-3), (82, 1e-5, 1e-4)), "Q3_K": ((108, 1e-5, 1e-4),),
     "Q4_K": ((0, 1e-5, 1e-4), (2, 1e-5, 1e-4)), "Q5_K": ((0, 1e-5, 1e-4), (2, 1e-5, 1e-4)),
     "Q6_K": ((208, 1e-5, 1e-4),), "IQ4_XS": ((0, 1e-5, 1e-4),),
+    "IQ2_XXS": ((0, 2e-4, 1e-3),), "IQ2_XS": ((0, 2e-4, 1e-3),),
+    "IQ2_S": ((0, 2e-4, 1e-3),), "IQ3_XXS": ((0, 1e-4, 4e-4),),
+    "IQ3_S": ((0, 1e-4, 4e-4),), "IQ1_S": ((0, 2e-3, 8e-3),), "IQ1_M": (),
 }
+# IQ1_M has no d field: its f16 d is spelled by the top nibbles of the four
+# u16 scales at bytes 48:56, nibble i of d in scale i (dequant_iq1_m), so
+# random bytes there give any f16, inf and NaN too; (offset, low, high)
+RAW_NIBBLE_D = {"IQ1_M": (48, 2e-3, 8e-3)}
 
 
 def random_blocks(rng: np.random.Generator, quant: str, n_elems: int) -> np.ndarray:
     """Raw blocks of `quant` holding n_elems values: random bytes, then each
-    f16 field of RAW_F16_FIELDS drawn small and finite."""
+    f16 field of RAW_F16_FIELDS (and IQ1_M's nibble-spelled d,
+    RAW_NIBBLE_D) drawn small and finite."""
     from ..gguf.quants import TYPE_BY_NAME
     spec = TYPE_BY_NAME[quant]
     nb = n_elems // spec.block_elems
@@ -315,6 +326,13 @@ def random_blocks(rng: np.random.Generator, quant: str, n_elems: int) -> np.ndar
     for off, lo, hi in RAW_F16_FIELDS[quant]:
         b[:, off:off + 2] = rng.uniform(lo, hi, nb).astype(np.float16).view(
             np.uint8).reshape(nb, 2)
+    if quant in RAW_NIBBLE_D:
+        off, lo, hi = RAW_NIBBLE_D[quant]
+        d = rng.uniform(lo, hi, nb).astype(np.float16).view(np.uint16)
+        sc = np.ascontiguousarray(b[:, off:off + 8]).view(np.uint16)
+        for i in range(4):
+            sc[:, i] = (sc[:, i] & 0x0FFF) | (((d >> (4 * i)) & 0xF) << 12)
+        b[:, off:off + 8] = sc.view(np.uint8)
     return b
 
 

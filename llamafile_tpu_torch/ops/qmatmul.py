@@ -11,7 +11,8 @@ CUDA kernels for Hopper (csrc/):
                                            as its one expert)
   qmm_q8_m1    <- _qmm_kernel_q8_m1(_l)   (q8b M = 1 decode, g 16 or 32)
   qmm_dequant  <- _qmm_kernel             (bf16-dequant GEMM: stacked q4b
-                                           M > 32, q8b M >= 2)
+                                           M > 32, q8b M >= 2, q8b g 8
+                                           (IQ1_M) at every M)
   qmm_planes   <- _qmm_kernel_planes      (unstacked q4b M > 32: the prefill
                                            of unrolled layers; bf16 out from
                                            M = 256)
@@ -630,7 +631,7 @@ def qmm_dequant(x: torch.Tensor, qs: torch.Tensor, scales: torch.Tensor
                 ) -> torch.Tensor:
     """bf16-dequant GEMM (kernel qmm_dequant): x float [M, K] (rounded to
     bf16 here), one layer's q4b (uint8 [K/2, Ns], g 32) or q8b (int8
-    [K, Ns], g 16 or 32) codes and bf16 scales [K/g, Ns] -> f32 [M, Ns].
+    [K, Ns], g 8, 16 or 32) codes and bf16 scales [K/g, Ns] -> f32 [M, Ns].
     The bias term stays with the caller (qmatmul)."""
     if x.device.type == "cpu":
         return qmm_dequant_plain(x, qs, scales)
@@ -644,12 +645,12 @@ def qmm_dequant(x: torch.Tensor, qs: torch.Tensor, scales: torch.Tensor
     g = k // max(scales.shape[0], 1)
     if m < 1 or k % (256 if q4 else 64) or ns % 16 \
             or tuple(qs.shape) != ((k // 2) if q4 else k, ns) \
-            or g not in ((32,) if q4 else (16, 32)) \
+            or g not in ((32,) if q4 else (8, 16, 32)) \
             or tuple(scales.shape) != (k // g, ns):
         raise ValueError(f"qmm_dequant shapes: x {tuple(xb.shape)}, qs "
                          f"{tuple(qs.shape)} {qs.dtype}, scales "
                          f"{tuple(scales.shape)} (q4b K % 256, q8b K % 64, "
-                         "Ns % 16 == 0, g 32 or q8b 16)")
+                         "Ns % 16 == 0, g 32 or q8b 16 or 8)")
     y = torch.empty((m, ns), dtype=torch.float32, device=x.device)
     f = _build.fn("qmm_dequant", "qmm_dequant", [P] * 4 + [I] * 5 + [P])
     _build.check(f(xb.data_ptr(), qs.data_ptr(), scales.data_ptr(),

@@ -1,12 +1,13 @@
 """Repack GGUF block formats into the kernels' quantized tensors (QTensor).
 
-Counterpart of llamafile_tpu/ops/repack.py for the formats the port loads
-(Q4_0, Q4_1, Q5_0, Q5_1, Q8_0, Q2_K, Q3_K, Q4_K, Q5_K, Q6_K, IQ4_NL,
-IQ4_XS, F32, F16, BF16; the grid IQ types raise), and the int8 prefill
-companion
-(I8PQTensor, attach_int8_prefill). The device layout is byte-identical to
-the JAX package's `repack_numpy` + `repack` (held so by
-tests/test_torch_repack.py):
+Counterpart of llamafile_tpu/ops/repack.py for every format the port
+loads (Q4_0, Q4_1, Q5_0, Q5_1, Q8_0, Q2_K, Q3_K, Q4_K, Q5_K, Q6_K, IQ4_NL,
+IQ4_XS, the grid IQ types IQ2_XXS, IQ2_XS, IQ2_S, IQ3_XXS, IQ3_S, IQ1_S and
+IQ1_M; dense: F32, F16, BF16, F64, the integer types, Q8_K), and the int8
+prefill companion (I8PQTensor, attach_int8_prefill). Q8_0, Q4_0, Q4_K,
+Q5_K and Q6_K go through the native repacker (native.py) where it builds.
+The device layout is byte-identical to the JAX package's `repack_numpy` +
+`repack` (held so by tests/test_torch_repack.py):
 
   kind "q4b":   qs uint8 [K/2, Ns] -- nibble-planar per 256-superblock:
                 byte 128*sb+i = q[256sb+i] | q[256sb+128+i] << 4
@@ -16,11 +17,12 @@ tests/test_torch_repack.py):
                 Q4_0 and Q4_1 (the nibble formats) take it too when K %
                 256 == 0: Q4_0 with bias -8d, Q4_1 with its min
   kind "q8b":   qs int8 [K, Ns] codes, scales bf16 [K/g, Ns] (g 32 for Q8_0,
-                Q5_0, Q5_1, Q5_K, IQ4_NL, IQ4_XS and Q4_0/Q4_1 at K % 256;
-                16 for Q2_K, Q3_K, Q6_K); codes with an offset carry a
+                Q5_0, Q5_1, Q5_K, IQ4_NL, IQ4_XS, IQ2_XXS, IQ3_XXS, IQ3_S,
+                IQ1_S and Q4_0/Q4_1 at K % 256; 16 for Q2_K, Q3_K, Q6_K,
+                IQ2_XS, IQ2_S; 8 for IQ1_M); codes with an offset carry a
                 bias bf16 [K/g, Ns] (Q5_0's -16d, Q5_1's min, Q2_K's and
-                Q5_K's -dmin * min), Q8_0, Q3_K, Q6_K and the IQ4 codebook
-                values none
+                Q5_K's -dmin * min, IQ1_S's and IQ1_M's +-delta * scale),
+                Q8_0, Q3_K, Q6_K and the IQ4 and IQ2/IQ3 grid codes none
   kind "dense": qs bf16 [K, N]
 
 Ns is N padded to a multiple of 2048 (logical N stays in QTensor.shape;
@@ -268,28 +270,109 @@ def _extract_q6_k(b):
     return q, a, None, 16
 
 
+def _extract_via_dequant_grid(name):
+    """The grid types but IQ1_M: q = grid * sign int8 codes, a (and IQ1_S's
+    bias) from the scale structure. (q, a, b) come from the dequantizer's
+    floats rather than from the bit plumbing again: y = a*q + b with a > 0
+    a group and q integral, so q = rint((y - b) / a) is exact for these
+    ranges (the reference's arithmetic, dtypes included: IQ1_S's bias and
+    y - b in f64)."""
+    spec = Q.TYPE_BY_NAME[name]
+
+    def extract(b):
+        nb = b.shape[0]
+        y = spec.dequant(b)                              # (nb, 256) = a*q + b
+        if name in ("IQ2_XXS", "IQ3_XXS"):
+            g = 32
+            if name == "IQ2_XXS":
+                d = Q._f16(b[:, 0:2])[:, 0]
+                q2 = Q._u16(b[:, 2:66]).reshape(nb, 8, 4)
+                aux32 = (q2[:, :, 2].astype(np.uint32)
+                         | (q2[:, :, 3].astype(np.uint32) << 16))
+                a = d[:, None] * (0.5 + (aux32 >> 28).astype(np.float32)) * 0.25
+            else:
+                d = Q._f16(b[:, 0:2])[:, 0]
+                aux32 = Q._u32(b[:, 66:98]).reshape(nb, 8)
+                a = d[:, None] * (0.5 + (aux32 >> 28).astype(np.float32)) * 0.5
+            bias = None
+        elif name in ("IQ2_XS", "IQ2_S"):
+            g = 16
+            d = Q._f16(b[:, 0:2])[:, 0]
+            scales = b[:, 66:74] if name == "IQ2_XS" else b[:, 74:82]
+            sc = np.stack([scales & 0xF, scales >> 4], axis=-1).astype(np.float32)
+            a = (d[:, None, None] * (0.5 + sc) * 0.25).reshape(nb, 16)
+            bias = None
+        elif name == "IQ3_S":
+            g = 32
+            d = Q._f16(b[:, 0:2])[:, 0]
+            scales = b[:, 106:110]
+            ls = np.stack([scales & 0xF, scales >> 4], axis=-1).reshape(nb, 8)
+            a = d[:, None] * (1 + 2 * ls.astype(np.float32))
+            bias = None
+        elif name == "IQ1_S":
+            g = 32
+            d = Q._f16(b[:, 0:2])[:, 0]
+            qh = Q._u16(b[:, 34:50]).reshape(nb, 8)
+            a = d[:, None] * (2 * ((qh >> 12) & 7).astype(np.float32) + 1)
+            delta = np.where((qh & 0x8000) != 0, -Q.IQ1S_DELTA, Q.IQ1S_DELTA)
+            bias = (a * delta).astype(np.float32)
+        else:
+            raise NotImplementedError(name)
+        a_full = np.repeat(a, g, axis=1)
+        b_full = np.repeat(bias, g, axis=1) if bias is not None else 0.0
+        q = np.rint((y - b_full) / np.where(a_full == 0, 1, a_full))
+        q = np.where(a_full == 0, 0, q)
+        if not np.abs(q).max() <= 127:          # NaN too: a non-finite d
+            raise ValueError(f"{name}: codes outside int8 (a malformed block)")
+        return q.astype(np.int8), a.astype(np.float32), bias, g
+
+    return extract
+
+
+def _extract_iq1_m(b):
+    """IQ1_M decomposes exactly at g = 8: y = dl * (grid + delta) = a*q +
+    bias with a = dl, q = grid (-1, 0 or 1), bias = dl * delta."""
+    n = b.shape[0]
+    grid, dl, delta = Q.iq1_m_parts(b)
+    q = grid.reshape(n, 256).astype(np.int8)
+    a = dl.reshape(n, 32).astype(np.float32)
+    bias = (dl * delta).reshape(n, 32).astype(np.float32)
+    return q, a, bias, 8
+
+
 _EXTRACTORS = {"Q4_0": _extract_q4_0, "Q4_1": _extract_q4_1,
                "Q5_0": _extract_q5_0, "Q5_1": _extract_q5_1, "Q8_0": _extract_q8_0,
                "Q2_K": _extract_q2_k, "Q3_K": _extract_q3_k, "Q4_K": _extract_q4_k,
                "Q5_K": _extract_q5_k, "Q6_K": _extract_q6_k,
-               "IQ4_NL": _extract_iq4_nl, "IQ4_XS": _extract_iq4_xs}
+               "IQ4_NL": _extract_iq4_nl, "IQ4_XS": _extract_iq4_xs,
+               **{name: _extract_via_dequant_grid(name) for name in (
+                   "IQ2_XXS", "IQ2_XS", "IQ2_S", "IQ3_XXS", "IQ3_S", "IQ1_S")},
+               "IQ1_M": _extract_iq1_m}
 
 # formats packed to 4-bit nibbles on the device when K % 256 == 0 (q4b);
 # the others, and these at other K, stay int8 codes (q8b)
 _NIBBLE_FORMATS = {"Q4_0", "Q4_1", "Q4_K"}
 
 
-def repack_numpy(raw: np.ndarray, type_name: str, shape: tuple):
+def repack_numpy(raw: np.ndarray, type_name: str, shape: tuple, native: bool = True):
     """Raw block bytes -> (kind, qs, scales, bias, g) numpy arrays, unpadded.
 
     shape = (N, K) with K contiguous (GGML weight W[N, K], y = x @ W.T).
+    Types with no extractor (the float and integer types, Q8_K) load dense.
+    With native, the formats the native repacker takes go through it
+    (native.native_repack, byte-identical to the numpy path below).
     """
     Q.check_supported(type_name)
     n, k = int(np.prod(shape[:-1])), shape[-1]
     spec = Q.TYPE_BY_NAME[type_name]
-    if type_name in ("F32", "F16", "BF16"):
+    if type_name not in _EXTRACTORS:
         w = Q.dequantize(raw, spec.type_id, (n, k))
         return "dense", np.ascontiguousarray(w.T), None, None, 0
+    if native:
+        from ..native import native_repack
+        out = native_repack(raw, type_name, n, k)
+        if out is not None:
+            return out
     nblocks = n * k // spec.block_elems
     blocks = (np.frombuffer(raw, np.uint8) if not isinstance(raw, np.ndarray)
               else raw).reshape(nblocks, spec.block_bytes)

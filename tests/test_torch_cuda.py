@@ -441,7 +441,7 @@ def test_q8_m1_matches_plain(dev, n, k, g, bias):
     assert_close(got, Q.qmm_q8_m1_plain(xq, sx, qs[1], sc[1], b), 1e-5)
 
 
-@pytest.mark.parametrize("kind", ["q4b", "q8b32", "q8b16"])
+@pytest.mark.parametrize("kind", ["q4b", "q8b32", "q8b16", "q8b8"])
 @pytest.mark.parametrize("m", [1, 33, 64, 65, 128, 129, 192, 200, 512])
 @pytest.mark.parametrize("n,k", [(4096, 4096), (1040, 1024), (512, 14336)])
 def test_dequant_matches_plain(dev, kind, m, n, k):
@@ -485,7 +485,7 @@ def wide_scales(gen, shape, dev):
 
 
 @pytest.mark.parametrize("scales", ["rand", "wide"])
-@pytest.mark.parametrize("kind", ["q4b", "q8b32", "q8b16", "planes"])
+@pytest.mark.parametrize("kind", ["q4b", "q8b32", "q8b16", "q8b8", "planes"])
 def test_dequant_tile_bits_one_hot(dev, kind, scales):
     """The dequantized B tile, bit for bit: with x = I (K = 1024 one-hot
     rows) every output sum has one nonzero term, so y[k, :] is W[k, :]

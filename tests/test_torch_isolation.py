@@ -59,3 +59,25 @@ def test_every_module_counted():
     names = [m.name for m in pkgutil.walk_packages([PKG], "llamafile_tpu_torch.")]
     assert "llamafile_tpu_torch.ops.qmatmul" in names
     assert "llamafile_tpu_torch.runtime.engine" in names
+
+
+# a path into the JAX package's native/ (a "native" component of a path join, or
+# native/ written out) or its library's name
+_NATIVE_REF = re.compile(r"native/|path\.join\([^)]*[\"']native[\"']|librepack\.so")
+
+
+def test_sources_name_no_reference_native():
+    """The port builds and loads its own repacker (csrc/repack.cpp into
+    build/): no source of it names the JAX package's native/ directory or
+    its library."""
+    found = []
+    for dirpath, _, files in os.walk(PKG):
+        for f in files:
+            if f.endswith((".py", ".cpp", ".cu", ".cuh")):
+                path = os.path.join(dirpath, f)
+                with open(path, encoding="utf-8") as fh:
+                    found += [f"{os.path.relpath(path, ROOT)}: {m.group(0)}"
+                              for m in _NATIVE_REF.finditer(fh.read())]
+    with open(os.path.join(ROOT, "chip_smoke.py"), encoding="utf-8") as fh:
+        found += [f"chip_smoke.py: {m.group(0)}" for m in _NATIVE_REF.finditer(fh.read())]
+    assert not found, found
