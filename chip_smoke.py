@@ -102,8 +102,8 @@
    step; Q4_K with a dense int8 KV cache, 32-token prompt, 1 step; Q4_K
    with the int8 prefill companions (int8_prefill_params), 300-token prompt
    and a step, each qmm_i8p call rerun on its own int8 codes and scales;
-   Q4_K over an f16 and an f32 KV cache (--kv-dtype), 32-token prompt, 2
-   steps (flash_decode_write's f16 and f32 instances);
+   Q4_K over an f16 and an f32 KV cache (--kv-dtype), 32-token prompt, a
+   step (flash_decode_write's f16 and f32 instances);
    TinyLlama's widths at two layers (head_dim 64) with a max_seq_len of
    1000: the Engine's prefill and 2 decode steps on a bf16 cache, then on the
    card Engine.generate and 3 requests through the batcher, every decode
@@ -140,7 +140,21 @@
    steps each against the plain versions on the card, then the HTTP server
    at 4 slots over the stacked engine (the paged decode with the biases
    and with the q/k norms), launches exact, the shortest and longest
-   prompts' requests against themselves served alone; two
+   prompts' requests against themselves served alone; the LayerNorm
+   families at two layers, unrolled (their layers never stack), a bf16
+   cache, 2 decode steps a prompt, against the plain versions on the card:
+   Pythia-6.9B's widths (pythia-6.9b-2l: a fused qkv with its bias, rope on
+   32 of 128 dims, the parallel residual with an FFN norm) and Phi-2's
+   (phi-2-2l: head_dim 80, every attention on the einsum route, counted; a
+   shared norm, the head's bias) in Q4_K at 24- and 300-token prompts
+   (bucket 512: qmm_planes, the bias term added in f32 before one rounding
+   to bf16; flash_prefill at D = 128), Falcon-7B's (falcon-7b-2l: 71 query
+   heads over 1 KV head of 64; K = 4544: every product on the dequant
+   GEMM) in Q8_0 at 24 and 300 (flash_prefill at G = 71 and D = 64, decode
+   on the einsum); then Pythia-6.9B's 300-token prefill, each q4b
+   product's kernel and plain version within 1e-2 of the exact product,
+   where the reference's order of roundings parts by more
+   (planes_exact_check, ROADMAP C.11); two
    layers at Mixtral-8x7B width (mixtral-8x7b-2l): Q4_K stacked (24-token
    prompt: qmm_txn_g; a decode step on the routed fused FFN), the Q4_K_M
    recipe unrolled (300-token prompt: layer 0's qmm_planes_g, layer 1's
@@ -271,7 +285,7 @@
    step.
 14. Phase 4's engine under the batcher's dense row mode
    (Batcher(paged=False), 8 rows of a bf16 row-batched cache): phase 5's
-   16 prompts with DENSE_NEW = 32 new tokens each, submitted at once,
+   16 prompts with DENSE_NEW = 24 new tokens each, submitted at once,
    output tok/s, launches exact
    (flash_decode_write once a layer a fused step), the same three
    requests as phase 5 served again alone on a fresh dense batcher with
@@ -302,8 +316,22 @@
    have repacked every Q4_K matrix) timed by piece, extrapolated to 32
    layers, then one Q4_K matrix through the native repacker and the numpy
    path, byte-compared, their times side by side.
+16. The LayerNorm families at full width, cut in depth (ln_phase): 16
+   starcoder2-7b (StarCoder2-7B's widths, PHASE16_LAYERS = 4 of its 32
+   layers: 36 query heads over 4 KV heads, G = 9, the gateless GELU FFN,
+   biases on every norm and projection), Q4_K unrolled with a Q6_K head:
+   Engine.generate of 64 tokens from the 24-token prompt, launches exact
+   (4 qmm_txn_m1 a layer a step, never the fused FFN), the decode rate
+   against its weight-read bound, the 1000-token prompt's TTFT (median of
+   3, qmm_planes on every product), the HTTP server at 4 slots (4 greedy
+   requests, launches exact, the shortest and longest prompts' against
+   themselves served alone; then the fused 4-row step at the served rows'
+   lengths against its bound); 16b command-r-v01 (Command-R v01's widths,
+   PHASE16_CR_LAYERS = 2 of its 40: 64 over 64 heads, SwiGLU at d_ff
+   22528, a shared norm, vocab 256000 and its 1.7 GB Q6_K head,
+   logit_scale) through Engine.generate, launches exact.
    Phases run in the order 4, 4b, 4d, 5, 4f, 13, 14, 15a-d, 15f, 15e, 4e, 4c, 6, 7, 8, 9, 10,
-   11, 12. No profiler session runs in this run: the profiles run apart,
+   11, 12, 16. No profiler session runs in this run: the profiles run apart,
 
        python3 chip_smoke.py --profiles
 
@@ -323,7 +351,7 @@ before the launches line.
 
 Any failure raises and exits non-zero. The last line of standard output is
 {"ok": true, "device": {...}}; the lines before it hold every kernel's
-launches summed over the counted runs of phases 4 to 15 ({"launches": ...},
+launches summed over the counted runs of phases 4 to 16 ({"launches": ...},
 with qmm_planes' launches on a stacked layer's view apart as
 "qmm_planes_stacked"), the kernel table (one JSON object with an entry a
 kernel: the numbers of its first shape, the main path's heaviest, every
@@ -518,6 +546,19 @@ QWEN_PRODUCTS = (("Qwen3-32B qkv", 10240, 5120, 4), ("Qwen3-32B o (N 5120)", 614
                  ("Qwen2.5-7B down (N 3584)", 4096, 18944, 3))
 
 
+# The products of the LayerNorm families' phase 16 decode (label, storage
+# N, K, layers cycled): StarCoder2-7B's fused qkv (N 5632, K 4608: 18
+# superblocks), its gateless up and down (K 18432), Command-R v01's
+# interleaved gate|up (N 45056, K 8192); and Falcon-7B's Q8_0 shapes
+# (K 4544 = 71 x 64: the dequant GEMM at every M, its head at M = 1 too)
+LN_PRODUCTS = (("StarCoder2-7B qkv (N 5632)", 6144, 4608, 6),
+               ("StarCoder2-7B up", 18432, 4608, 2),
+               ("StarCoder2-7B down (N 4608)", 6144, 18432, 2),
+               ("Command-R gate_up", 45056, 8192, 1))
+FALCON_Q8 = ((512, "Falcon-7B up (N 18176)", 18432, 4544, 2),
+             (1, "Falcon-7B lm_head Q8_0 (N 65024)", 65536, 4544, 1))
+
+
 def kernel_phases(torch, dev, gen):
     from llamafile_tpu_torch.ops import qmatmul as Q
     from llamafile_tpu_torch.ops.repack import q4b_codes
@@ -552,7 +593,7 @@ def kernel_phases(torch, dev, gen):
     # and 3072 columns padded to 6144 and 4096) ------------------------------
     for label, n, k, layers in (("qkv", 6144, 4096, 8), ("o", 4096, 4096, 12),
                                 ("down", 4096, 14336, 3), ("lm_head", 129024, 4096, 1),
-                                *GEMMA_PRODUCTS, *QWEN_PRODUCTS):
+                                *GEMMA_PRODUCTS, *QWEN_PRODUCTS, *LN_PRODUCTS):
         qs, sc, b = rand_q4b(gen, layers, n, k, dev)
         x = torch.randn((1, k), generator=gen, device=dev)
         nrm = 1 + 0.1 * torch.randn(k, generator=gen, device=dev)
@@ -611,7 +652,10 @@ def kernel_phases(torch, dev, gen):
                                    # Qwen's at phase 11's and phase 3's 24-token
                                    # prefills (M = 32) and 4-slot servers (M = 4)
                                    *((m, label, n, k, layers) for m in (32, 4)
-                                     for label, n, k, layers in QWEN_PRODUCTS)):
+                                     for label, n, k, layers in QWEN_PRODUCTS),
+                                   # StarCoder2-7B's up at phase 16's 4-slot
+                                   # server's rows
+                                   (4, *LN_PRODUCTS[1])):
         qs, sc, b = rand_q4b(gen, layers, n, k, dev)
         x = torch.randn((m, k), generator=gen, device=dev)
         xq, sx = Q.quantize_activations_g32(x)
@@ -683,7 +727,11 @@ def kernel_phases(torch, dev, gen):
             *(("q8b", m, f"IQ1_M g8 {label}", n, k, layers) for m in (32, 1024)
               for label, n, k, layers in (("gate_up", 28672, 4096, 2),
                                           ("down", 4096, 14336, 2),
-                                          ("qkv", 6144, 4096, 8), ("o", 4096, 4096, 12)))):
+                                          ("qkv", 6144, 4096, 8), ("o", 4096, 4096, 12))),
+            # Falcon-7B's Q8_0 up at phase 3's 300-token prompt (bucket
+            # 512) and its head at a decode step (M = 1: K = 4544 fails
+            # qmm_q8_m1's K % 256)
+            *(("q8b", *shape) for shape in FALCON_Q8)):
         if kind == "q4b":
             qs, sc, _ = rand_q4b(gen, layers, n, k, dev)
         else:
@@ -739,6 +787,8 @@ def kernel_phases(torch, dev, gen):
                                        (1024, "qkv", 6144, 4096, 8, 0),
                                        (1024, "o", 4096, 4096, 12, 0),
                                        (128, "qkv", 6144, 4096, 8, 0),
+                                       # phase 16's 1000-token prompt: StarCoder2-7B's down
+                                       (1024, *LN_PRODUCTS[2], 0),
                                        (1024, "gate_up", 28672, 4096, 2, 1),
                                        (8, "gate_up", 28672, 4096, 2, 1)):
         qs, sc, _ = rand_q4b(gen, layers, n, k, dev)
@@ -778,7 +828,9 @@ def kernel_phases(torch, dev, gen):
                                    ("Gemma-3-27B lm_head Q6_K", 16, 262144, 5376, 1),
                                    ("Gemma-7B lm_head Q6_K", 16, 256000, 3072, 1),
                                    ("Qwen3-32B lm_head Q6_K (N 151936)", 16, 153600, 5120, 1),
-                                   ("Qwen2.5-7B lm_head Q6_K (N 152064)", 16, 153600, 3584, 1)):
+                                   ("Qwen2.5-7B lm_head Q6_K (N 152064)", 16, 153600, 3584, 1),
+                                   ("StarCoder2-7B lm_head Q6_K", 16, 49152, 4608, 1),
+                                   ("Command-R lm_head Q6_K", 16, 256000, 8192, 1)):
         qs, sc, _ = rand_q8b(gen, layers, n, k, g, dev)
         x = torch.randn((1, k), generator=gen, device=dev)
         nrm = 1 + 0.1 * torch.randn(k, generator=gen, device=dev)
@@ -809,7 +861,9 @@ def kernel_phases(torch, dev, gen):
                                         (32, 16, 128, 1024, 2, "Gemma-3-27B "),
                                         (16, 16, 256, 1024, 2, "Gemma-7B "),
                                         (64, 8, 128, 1024, 2, "Qwen3-32B "),
-                                        (28, 4, 128, 1024, 2, "Qwen2.5-7B ")):
+                                        (28, 4, 128, 1024, 2, "Qwen2.5-7B "),
+                                        (36, 4, 128, 1024, 2, "StarCoder2-7B "),
+                                        (71, 1, 64, 512, 4, "Falcon-7B ")):
         prefill_phase(torch, dev, gen, entry, hq, hkv, hd, t, sets, model)
     # B > 1: phase 5's embedding batches of 500-token texts (8 rows of
     # bucket 512) at llama3-8b's heads, and B = 64 at T = 128
@@ -897,7 +951,10 @@ DECODE_GROUPS = {
                            # Qwen3-32B's 64 over 8 (G = 8), Qwen2.5-7B's 28
                            # over 4 (G = 7), and their phase 11/12 decode
                            (64, 8, 128, ((700, 1024), (64, 256))),
-                           (28, 4, 128, ((700, 1024), (64, 256)))],
+                           (28, 4, 128, ((700, 1024), (64, 256))),
+                           # StarCoder2-7B's 36 over 4 (G = 9: two chunks,
+                           # 8 heads and 1) at phase 16's decode
+                           (36, 4, 128, ((64, 256),))],
     # (int8, s_eff)
     "flash_decode": [(32, 8, 128, ((False, 1024), (False, 2048), (True, 1024), (True, 2048))),
                      (24, 8, 128, ((False, 2048), (True, 2048))),
@@ -925,7 +982,10 @@ DECODE_GROUPS = {
         (16, 16, 256, (("bf16, every length 1024", [1024] * 8, False),)),
         # Qwen3-32B's 64 over 8 and Qwen2.5-7B's 28 over 4
         (64, 8, 128, (("bf16, every length 1024", [1024] * 8, False),)),
-        (28, 4, 128, (("bf16, every length 1024", [1024] * 8, False),))],
+        (28, 4, 128, (("bf16, every length 1024", [1024] * 8, False),)),
+        # StarCoder2-7B's 36 over 4 (G = 9) at phase 16's 4 served rows
+        (36, 4, 128, (("bf16, phase 16's 4 served rows", [n + 32 for n in SERVE_LENGTHS],
+                       False),))],
 }
 
 
@@ -2053,7 +2113,8 @@ def plain_kernels(products: bool = True):
                          "qmm_planes_g", "qmm_i8p") if products]
     if products:
         patches.append((Q, "qmm_planes",
-                        lambda x, qs, sc, stacked=False: Q.qmm_planes_plain(x, qs, sc)))
+                        lambda x, qs, sc, stacked=False, bf16_out=None:
+                        Q.qmm_planes_plain(x, qs, sc, bf16_out)))
     patches += [(LM, "flash_decode_write_stacked", fdw), (LM, "flash_decode", fd),
                 (LM, "flash_prefill", fp)]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
@@ -2736,25 +2797,47 @@ def decode_model_check(torch, dev, preset="llama3.2-3b-2l", n_decode=4, max_seq_
     paged_path_check(torch, dev, prompts=paged_prompts, n_decode=n_decode, preset=preset)
 
 
+# The reference's attention routes, written out here rather than read from
+# the port, so that the launch counts expected from them hold the port's
+# routing to the reference's (llamafile_tpu/ops/attention.py: _use_flash,
+# and the decode wrappers' einsum branch at :334).
+def ref_flash_prefill(t: int, d: int) -> bool:
+    """flash_prefill runs a T-token prefill at head_dim d."""
+    return t >= 128 and t % 128 == 0 and d in (64, 128, 256)
+
+
+def ref_decode_kernel(d: int, hq: int, s_eff: int) -> bool:
+    """A dense-cache decode of hq query heads at head_dim d over s_eff
+    positions runs its kernel (else the einsum)."""
+    return s_eff % 256 == 0 and d % 128 == 0 and hq <= 256
+
+
 def prefill_kernel_layers(cfg, bucket: int) -> int:
     """The layers whose prefill attention at `bucket` tokens runs the
-    flash_prefill kernel (models.llama's rule): from 128 tokens, no softcap,
-    and no window narrower than the bucket."""
+    flash_prefill kernel (ref_flash_prefill: from 128 tokens at a head_dim
+    of 64, 128 or 256, not Phi-2's 80), with no softcap and no window
+    narrower than the bucket."""
     from llamafile_tpu_torch.models.llama import layer_window
     return sum(1 for li in range(cfg.n_layers)
-               if bucket >= 128 and not cfg.attn_softcap
+               if ref_flash_prefill(bucket, cfg.head_dim) and not cfg.attn_softcap
                and (layer_window(cfg, li) or bucket) >= bucket)
 
 
 def gemma_path_check(torch, dev, preset="gemma-2-9b-2l", prompts=(24, 4200), n_decode=4,
                      recipes=(("Q4_K", "bf16"), ("Q4_K_M", "int8")), max_len=8192,
                      serve=False, vocab_hi=256000):
-    """A gemma or qwen preset at two or six layers of a published model's
-    widths, the kernels against the plain versions on the card
-    (plain_kernels). qwen2.5-7b-2l (Qwen2.5-7B's widths: q/k/v biases, 28
+    """A gemma, qwen or LayerNorm-family preset at two or six layers of a
+    published model's widths, the kernels against the plain versions on the
+    card (plain_kernels). qwen2.5-7b-2l (Qwen2.5-7B's widths: q/k/v biases, 28
     over 4 heads, G = 7) and qwen3-32b-2l (Qwen3-32B's: q/k norms, 64 over 8
     heads, the fused FFN on stacked layers) take prompts from token ids
-    below vocab_hi (their vocabularies are about 152K).
+    below vocab_hi (their vocabularies are about 152K). The LayerNorm
+    presets (pythia-6.9b-2l, phi-2-2l, falcon-7b-2l) run unrolled at every
+    recipe, as their layers never stack; a recipe names the layers' format
+    (falcon's Q8_0: K = 4544 holds no 256-block). Where the head_dim is not
+    a multiple of 128 (Falcon's 64, Phi-2's 80), every decode step takes the
+    einsum route on both sides (attention.ROUTE_COUNTS, held) and launches
+    no decode kernel; flash_prefill takes head_dim 64, not 80.
     gemma-2-9b-2l (Gemma-2-9B's widths: the gemma2 branches, layer 0
     windowed at 4096, softcaps 50 / 30), gemma-7b-2l (Gemma-7B's: gemma,
     16 over 16 heads of head_dim 256) or gemma-3-27b-6l (Gemma-3-27B's:
@@ -2782,6 +2865,7 @@ def gemma_path_check(torch, dev, preset="gemma-2-9b-2l", prompts=(24, 4200), n_d
     longest prompt against themselves served alone."""
     from llamafile_tpu_torch.models.llama import forward
     from llamafile_tpu_torch.models.synthetic import make_synthetic_llama
+    from llamafile_tpu_torch.ops import attention as A
     from llamafile_tpu_torch.ops import reset_launch_counts
     from llamafile_tpu_torch.ops.qmatmul import moe_fusable
     from llamafile_tpu_torch.runtime.engine import Engine, attn_bucket, bucket_len
@@ -2793,11 +2877,11 @@ def gemma_path_check(torch, dev, preset="gemma-2-9b-2l", prompts=(24, 4200), n_d
         if recipe == "Q4_K_M":
             cfg, params = make_q4_k_m_llama(preset, seed=1, device=dev)
         else:
-            cfg, params = make_synthetic_llama(preset, "Q4_K", seed=1, fuse=True, device=dev)
+            cfg, params = make_synthetic_llama(preset, recipe, seed=1, fuse=True, device=dev)
         eng = Engine(cfg, params, Tokenizer({}), max_seq_len=max_len, kv_dtype=kv, device=dev)
         del params
         unrolled = isinstance(eng.params.layers, list)
-        if unrolled != (recipe == "Q4_K_M"):
+        if unrolled != (recipe == "Q4_K_M" or cfg.norm_type == "ln"):
             raise AssertionError(f"{preset} {recipe}: the layers were "
                                  f"{'' if unrolled else 'not '}left unrolled")
         what = f"{preset} {recipe} {'unrolled' if unrolled else 'stacked'}, {kv} KV"
@@ -2809,6 +2893,8 @@ def gemma_path_check(torch, dev, preset="gemma-2-9b-2l", prompts=(24, 4200), n_d
         want_moe = 2 * cfg.n_layers * n_decode if fused else 0    # two kernels a call
         for n_prompt in prompts:
             alen = attn_bucket(n_prompt + n_decode + 1, max_len)
+            on_kernel = ref_decode_kernel(cfg.head_dim, cfg.n_heads, alen)
+            want_dec = cfg.n_layers * n_decode if on_kernel else 0
             caches, logits = {}, {}
             before = launch_counts()["flash_prefill"]
             for side in ("kernels", "plain"):
@@ -2858,11 +2944,15 @@ def gemma_path_check(torch, dev, preset="gemma-2-9b-2l", prompts=(24, 4200), n_d
                     raise AssertionError(f"{what} prompt {n_prompt} step {i}: the kernels and "
                                          "the plain versions disagree")
             k = counts["kernels"]
+            # both sides' decode calls on the einsum route, where it is theirs
+            want_einsum = 0 if on_kernel else 2 * cfg.n_layers * n_decode
             log(f"  {what}, prompt {n_prompt}: {n_decode} decode steps launched {kernel} "
-                f"{k[kernel]} times (expected {cfg.n_layers * n_decode}), qmm_moe_m1 "
+                f"{k[kernel]} times (expected {want_dec}), qmm_moe_m1 "
                 f"{k['qmm_moe_m1']} (expected {want_moe}); the plain side launched "
-                f"{sum(counts['plain'].values())}")
-            if k[kernel] != cfg.n_layers * n_decode or k["qmm_moe_m1"] != want_moe \
+                f"{sum(counts['plain'].values())}; decode routes {dict(A.ROUTE_COUNTS)} "
+                f"(einsum expected {want_einsum})")
+            if k[kernel] != want_dec or k["qmm_moe_m1"] != want_moe \
+                    or A.ROUTE_COUNTS["einsum"] != want_einsum \
                     or any(counts["plain"].values()):
                 raise AssertionError(f"{what}: the decode steps did not run as expected")
         if serve and not unrolled:
@@ -2878,6 +2968,70 @@ def gemma_path_check(torch, dev, preset="gemma-2-9b-2l", prompts=(24, 4200), n_d
             serve_four(torch, eng, f"synthetic-{preset}-q4k", f"{preset} (phase 3)", expect)
         del eng
         torch.cuda.empty_cache()
+
+
+def planes_exact_check(torch, dev, preset="pythia-6.9b-2l", n_prompt=300, tol=1e-2):
+    """A Q4_K product of an unrolled layer from 256 rows runs qmm_planes,
+    whose f32 sum takes the q4b bias term (the group sums of x times the
+    per-group bias) before one rounding to bf16. The reference rounds the
+    kernel's output to bf16 and adds the bias term in bf16 (ROADMAP C.11):
+    where the input has a large mean (the gateless FFN's down product, on
+    GELU's output) and the weights a mean near zero, the two terms are each
+    far larger than their sum, and each rounding moves it by several
+    percent. One 300-token prefill (bucket 512) of preset through op_trace;
+    for each q4b product on qmm_planes, the kernel's and its plain
+    version's output (on the card's own input) against the exact product
+    (the bf16-rounded input times the dequantized weights, f32 on the card),
+    in units of the exact output's largest magnitude: each within tol. The
+    control, the reference's order of roundings on the same input, must
+    part by more than tol on at least one product, or the check could not
+    see the fault."""
+    from llamafile_tpu_torch.models import llama as LM
+    from llamafile_tpu_torch.models.synthetic import make_synthetic_llama
+    from llamafile_tpu_torch.ops import qmatmul as Q
+    from llamafile_tpu_torch.ops.repack import dequant_qtensor
+    from llamafile_tpu_torch.runtime.engine import Engine
+    from llamafile_tpu_torch.runtime.tokenizer import Tokenizer
+    from llamafile_tpu_torch.testing import rel_err
+    cfg, params = make_synthetic_llama(preset, "Q4_K", seed=1, fuse=True, device=dev)
+    eng = Engine(cfg, params, Tokenizer({}), max_seq_len=2048, device=dev)
+    del params
+    prompt = torch.randint(3, min(50000, cfg.n_vocab), (n_prompt,),
+                           generator=torch.Generator().manual_seed(13)).tolist()
+    rec = [[]]
+    with op_trace(rec):
+        eng.prefill(eng.new_cache(), prompt)
+    n_checked, worst_control = 0, 0.0
+    for j, (lab, got, ins) in enumerate(rec[0]):
+        if not isinstance(ins, dict) or not lab.startswith("product"):
+            continue
+        qt, x = ins["args"][0], ins["x"]
+        if Q.product_route(qt, x.shape[0], x.shape[1]) != "qmm_planes":
+            continue
+        plain = plain_rerun(Q, LM.qmatmul, ins, None)
+        pn = ins["kw"].get("prenorm")
+        xd = (x.to(dev).float() if pn is None
+              else Q.apply_rmsnorm(x.to(dev), pn[0], float(pn[1])))
+        exact = (xd.to(torch.bfloat16).float() @ dequant_qtensor(qt).t()).cpu()
+        n_out, k = qt.shape
+        terms = xd.reshape(xd.shape[0], k // qt.g, qt.g).sum(-1) @ qt.bias.float()
+        control = (Q.qmm_planes_plain(xd, qt.qs, qt.scales, bf16_out=True)
+                   + terms.to(torch.bfloat16))[:, :n_out].cpu()
+        n = n_prompt
+        errs = [rel_err(t[:n].float(), exact[:n]) for t in (got, plain, control)]
+        worst_control = max(worst_control, errs[2])
+        log(f"  {preset} prompt {n_prompt} call {j} {lab} (K {k}, input mean "
+            f"{x[:n].float().mean().item():.3g}, out {got.dtype}): against the exact "
+            f"product kernel {errs[0]:.3g}, plain {errs[1]:.3g} (within {tol}); "
+            f"the reference's roundings {errs[2]:.3g}")
+        if max(errs[:2]) > tol:
+            raise AssertionError(f"{preset} {lab}: the planes product parts from the exact one")
+        n_checked += 1
+    if not n_checked or worst_control <= tol:
+        raise AssertionError(f"{preset}: {n_checked} planes products checked, the "
+                             f"reference's roundings parted by at most {worst_control:.3g}")
+    del eng, rec
+    torch.cuda.empty_cache()
 
 
 def counted_generate(torch, eng, prompt, n_new, sp=None):
@@ -3003,7 +3157,7 @@ def i8p_phase(torch, dev, prompt, long_prompt, n_new):
 
 def main_path(torch, dev):
     """The port's main paths at full width through their user entry points
-    (phases 4 to 15; the profiles run apart, profile_run). Returns the
+    (phases 4 to 16; the profiles run apart, profile_run). Returns the
     launch counts of each timed run."""
     eng, read = build_engine(torch, dev, "Q4_K")
     n_layers = eng.cfg.n_layers
@@ -3111,9 +3265,27 @@ def main_path(torch, dev):
     # (its prefill profile cut to pay for phase 15)
     counts_12 = qwen_phase(torch, dev, qprompt, qlong, "qwen2.5-7b", "phase 12",
                            n_layers=PHASE12_LAYERS)
+    counts_16 = ln_phases(torch, dev, prompt, long_prompt)
     return ([counts, counts_b, counts_d, counts_c] + counts_5 + counts_f + counts_13
             + counts_14 + counts_15 + counts_e
-            + counts_6 + counts_7 + counts_8 + counts_9 + counts_10 + counts_11 + counts_12)
+            + counts_6 + counts_7 + counts_8 + counts_9 + counts_10 + counts_11 + counts_12
+            + counts_16)
+
+
+def ln_phases(torch, dev, prompt, long_prompt):
+    """Phase 16 (ln_phase): starcoder2-7b with generate, the 1000-token
+    TTFT and the HTTP server, then command-r-v01 with generate. Returns the
+    counted runs' launches."""
+    phase(f"phase 16: starcoder2-7b Q4_K (starcoder2), {PHASE16_LAYERS} of 32 layers "
+          "unrolled, Engine.generate and the HTTP server")
+    sprompt = [t % 49000 for t in prompt]
+    slong = [t % 49000 for t in long_prompt]
+    runs = ln_phase(torch, dev, sprompt, slong, "starcoder2-7b", "phase 16",
+                    PHASE16_LAYERS, ttft=True, serve=True)
+    phase(f"phase 16b: command-r-v01 Q4_K (command-r), {PHASE16_CR_LAYERS} of 40 layers "
+          "unrolled, Engine.generate")
+    return runs + ln_phase(torch, dev, prompt, long_prompt, "command-r-v01", "phase 16b",
+                           PHASE16_CR_LAYERS)
 
 
 def llama32_phase(torch, dev, prompt, n_new=32):
@@ -3272,6 +3444,81 @@ def qwen_phase(torch, dev, prompt, long_prompt, preset, what, serve=False, profi
     if profile:
         prefill_profile(torch, eng, long_prompt)
     del eng, ly
+    gc.collect()                # the served engine's server and loop hold cycles
+    torch.cuda.empty_cache()
+    return runs
+
+
+PHASE16_LAYERS = 4     # of StarCoder2-7B's 32
+PHASE16_CR_LAYERS = 2  # of Command-R v01's 40
+
+
+def ln_phase(torch, dev, prompt, long_prompt, preset, what, n_layers, ttft=False,
+             serve=False):
+    """Phase 16: the LayerNorm families at full width, cut in depth:
+    StarCoder2-7B's widths (models.synthetic preset starcoder2-7b: 36 query
+    heads over 4 KV heads of 128, G = 9, the gateless GELU FFN at d_ff
+    18432, biases on every norm and projection) or Command-R v01's
+    (command-r-v01: 64 over 64 heads, SwiGLU at d_ff 22528, a shared norm
+    under the parallel residual, vocab 256000, logit_scale), Q4_K, fused,
+    unrolled (their layers never stack), a Q6_K head, a bf16 cache:
+    Engine.generate of 64 greedy tokens from the 24-token prompt, launches
+    exact (a step: qkv, o, up (or gate|up) and down on qmm_txn_m1 a layer,
+    never the fused FFN; the head on qmm_q8_m1; flash_decode_write), the
+    decode rate against the weight-read bound; ttft: the 1000-token
+    prompt's TTFT, median of 3 (qmm_planes on every unrolled product,
+    flash_prefill a layer); serve: the HTTP server at 4 slots, 4 greedy
+    requests, launches exact, those of the shortest and longest prompt
+    against themselves served alone, then the fused 4-row step at the
+    served rows' lengths against its bound (fused_step). Returns the
+    counted runs' launches."""
+    from llamafile_tpu_torch.models.synthetic import decode_read_bytes, make_synthetic_llama
+    from llamafile_tpu_torch.runtime.engine import Engine
+    from llamafile_tpu_torch.runtime.tokenizer import Tokenizer
+    t0 = time.time()
+    cfg, params = make_synthetic_llama(preset, "Q4_K", seed=0, fuse=True, device=dev,
+                                       n_layers=n_layers)
+    eng = Engine(cfg, params, Tokenizer({}), max_seq_len=2048, device=dev)
+    del params
+    torch.cuda.synchronize()
+    if not isinstance(eng.params.layers, list):
+        raise AssertionError(f"{what}: the LayerNorm layers were stacked")
+    n = cfg.n_layers
+    read = decode_read_bytes(eng.params, cfg)
+    log(f"  built {preset} Q4_K ({n} layers, fused, unrolled, Q6_K head) in "
+        f"{time.time() - t0:.1f} s; decode reads {read / 1e9:.3f} GB of weights a step; "
+        f"device memory {torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    steps = 63
+    _, counts, t_first, decode_s = counted_generate(torch, eng, prompt, 64)
+    check_counts(counts, {"qmm_txn_m1": 4 * n * steps, "qmm_txn": 4 * n,
+                          "qmm_q8_m1": 1 + steps, "flash_decode_write_stacked": n * steps},
+                 what)
+    decode_report(torch, read, steps, t_first, decode_s, "24-token prompt, bucket 32")
+    runs = [counts]
+    if ttft:
+        ttfts = []
+        for _ in range(3):
+            _, counts_b, ttft_b, _ = counted_generate(torch, eng, long_prompt, 1)
+            check_counts(counts_b, {"qmm_planes": 4 * n, "qmm_q8_m1": 1,
+                                    "flash_prefill": prefill_kernel_layers(cfg, 1024)},
+                         f"{what}, 1000 tokens")
+            ttfts.append(ttft_b * 1e3)
+        log(f"  time to first token, 1000-token prompt: {statistics.median(ttfts):.2f} ms "
+            f"(median of {', '.join(f'{t:.2f}' for t in ttfts)} ms)")
+        runs.append(counts_b)
+    if serve:
+        # a 4-row step: the products on qmm_txn, the Q6_K head at M = 4 on
+        # the dequant GEMM; a slice: qmm_txn (bucket <= 32) or qmm_planes
+        # (>= 64), the head at M = 1 on the q8b GEMV
+        runs.append(serve_four(torch, eng, f"synthetic-{preset}-q4k", what,
+                               lambda d, small, big, fr: {
+            "paged_attention": n * d, "qmm_txn": 4 * n * (d + small), "qmm_dequant": d,
+            "qmm_planes": 4 * n * big,
+            "flash_prefill": sum(prefill_kernel_layers(cfg, b) * c for b, c in fr.items()),
+            "qmm_q8_m1": small + big}))
+        # the served rows' step alone: 4 rows at the served prompts' lengths
+        fused_step(torch, eng, read, lengths=(40, 144, 516, 1016))
+    del eng
     gc.collect()                # the served engine's server and loop hold cycles
     torch.cuda.empty_cache()
     return runs
@@ -3913,7 +4160,7 @@ def chat_phase(torch, eng):
     return counts
 
 
-DENSE_NEW = 32                    # new tokens a request of phase 14
+DENSE_NEW = 24                    # new tokens a request of phase 14 (cut from 32 for phase 16)
 
 
 def dense_phase(torch, eng, read):
@@ -3995,7 +4242,7 @@ def dense_phase(torch, eng, read):
     return [counts, counts_chat], step_ms
 
 
-KV_NEW = 32                       # phase 15a: new tokens a run
+KV_NEW = 16                       # phase 15a: new tokens a run (cut from 32 for phase 16)
 KV_PLAIN_TOL = 2e-2               # of the largest logit, as phase 3 holds logits
 PHASE15_FORMAT = "Q2_K"           # phase 15d's file: q8b codes, per-16 scales and a bias
 PHASE15_VOCAB = 8192              # phase 15d's vocabulary, cut from 128256
@@ -4480,8 +4727,8 @@ def q4km_phase(torch, dev, prompt, long_prompt, n_new):
     return [counts, counts_b, counts_s]
 
 
-SERVE_NEW = 32            # new tokens a request of serve_four and phase 7c (cut from 64
-                          # for phase 15)
+SERVE_NEW = 16            # new tokens a request of serve_four and phase 7c (cut from 64
+                          # for phase 15, then from 32 for phase 16)
 
 
 def serve_four(torch, eng, model, what, expect, serve_alone=True):
@@ -4610,41 +4857,45 @@ def flavour_phase(torch, eng, read, prompt, long_prompt, n_new):
 FUSED_LENGTHS = (88, 192, 564, 1064) * 2      # the phase's prompts + 64 tokens
 
 
-def _row_state(torch, eng):
-    """Greedy row state for one fused chunk at 8 rows (FUSED_LENGTHS): the
-    penalty window, the rows' knobs, their tokens and positions."""
+def _row_state(torch, eng, lengths=FUSED_LENGTHS):
+    """Greedy row state for one fused chunk, a row at each of lengths (8
+    rows, FUSED_LENGTHS): the penalty window, the rows' knobs, their tokens
+    and positions."""
     from llamafile_tpu_torch.runtime.sampling import (PenaltyWindow, SamplingParams,
                                                       row_params_from_sp)
-    dev, cfg, r = eng.device, eng.cfg, len(FUSED_LENGTHS)
+    dev, cfg, r = eng.device, eng.cfg, len(lengths)
     z = lambda shape: torch.zeros(shape, dtype=torch.int32, device=dev)
     pw = PenaltyWindow(torch.zeros((r, cfg.n_vocab), device=dev), z((r, 256)), z((r,)),
                        z((r,)))
     rp = row_params_from_sp([SamplingParams(temperature=0.0)] * r, cfg.n_vocab, device=dev)
     tok = torch.full((r,), 5, dtype=torch.int32, device=dev)
-    pos = torch.tensor(FUSED_LENGTHS, dtype=torch.int32, device=dev)
+    pos = torch.tensor(lengths, dtype=torch.int32, device=dev)
     return pw, rp, tok, pos
 
 
-def _fused_setup(torch, eng):
-    """A pool, tables and row state for one fused decode chunk at 8 rows."""
+def _fused_setup(torch, eng, lengths=FUSED_LENGTHS):
+    """A pool, tables and row state for one fused decode chunk, a row at
+    each of lengths."""
     from llamafile_tpu_torch.runtime.paged import PageAllocator, init_paged
-    dev, cfg, r, ps = eng.device, eng.cfg, len(FUSED_LENGTHS), 64
+    dev, cfg, r, ps = eng.device, eng.cfg, len(lengths), 64
     maxp = eng.max_seq_len // ps
     pool = init_paged(cfg.n_layers, cfg.n_kv_heads, 1 + r * maxp, ps, cfg.head_dim,
                       device=dev)
     alloc = PageAllocator(1 + r * maxp, ps, r, eng.max_seq_len)
-    for i, n in enumerate(FUSED_LENGTHS):
+    for i, n in enumerate(lengths):
         alloc.ensure(i, n + 16)
-    return (pool, alloc.device_tables(r, device=dev)) + _row_state(torch, eng)
+    return (pool, alloc.device_tables(r, device=dev)) + _row_state(torch, eng, lengths)
 
 
-def fused_step(torch, eng, read):
-    """The batcher's fused decode at 8 rows (rows at the phase's lengths),
-    timed by the host clock around synchronized 8-step chunks, against its
-    bound: the weights plus every row's K/V read once a step."""
+def fused_step(torch, eng, read, lengths=FUSED_LENGTHS):
+    """The batcher's fused decode over the paged pool, a row at each of
+    lengths (8 rows at the phase's lengths), timed by the host clock around
+    synchronized 8-step chunks, against its bound: the weights plus every
+    row's K/V (bf16, the model's layers and KV heads) read once a step."""
     from llamafile_tpu_torch.server.batcher import _fused_decode_paged
-    pool, tables, pw, rp, tok, pos = _fused_setup(torch, eng)
-    run = lambda: _fused_decode_paged(eng, tok, pos, pool, tables, pw, [None] * 8, rp, 8)
+    cfg, r = eng.cfg, len(lengths)
+    pool, tables, pw, rp, tok, pos = _fused_setup(torch, eng, lengths)
+    run = lambda: _fused_decode_paged(eng, tok, pos, pool, tables, pw, [None] * r, rp, 8)
     run()
     torch.cuda.synchronize()
     times = []
@@ -4654,12 +4905,12 @@ def fused_step(torch, eng, read):
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) / 8 * 1e3)
     step_ms = statistics.median(times)
-    kv = sum(FUSED_LENGTHS) * KV_BYTES_PER_TOKEN
+    kv = sum(lengths) * cfg.n_layers * cfg.n_kv_heads * cfg.head_dim * 2 * 2
     bound = (read + kv) / HBM_BYTES_PER_S * 1e3
-    log(f"  fused decode step at 8 rows (lengths {FUSED_LENGTHS}): {step_ms:.3f} ms "
+    log(f"  fused decode step at {r} rows (lengths {lengths}): {step_ms:.3f} ms "
         f"(median of {', '.join(f'{t:.3f}' for t in times)}) against a "
         f"{bound:.3f} ms bound ({read / 1e9:.3f} GB weights + {kv / 1e9:.3f} GB KV): "
-        f"{bound / step_ms:.1%}; {8 / step_ms * 1e3:.1f} tokens/s over 8 rows")
+        f"{bound / step_ms:.1%}; {r / step_ms * 1e3:.1f} tokens/s over {r} rows")
     return step_ms
 
 
@@ -5459,6 +5710,26 @@ def phase3_checks():
         ("Qwen3-32B widths (qwen3)", gemma_path_check, (),
          dict(preset="qwen3-32b-2l", prompts=(24, 300), n_decode=2, max_len=2048,
               serve=True, vocab_hi=150000), "txn"),
+        # the LayerNorm families, unrolled: Pythia-6.9B's widths (a fused
+        # qkv with its bias, rope on 32 of 128 dims, the parallel residual
+        # with an FFN norm: flash_prefill and flash_decode_write at D =
+        # 128) and Phi-2's (head_dim 80: every attention on the einsum; a
+        # shared norm, the head's bias), Q4_K, prompts of 24 and 300 tokens
+        # (qmm_planes, rounded to bf16 once the bias term is in); Falcon-7B's
+        # (71 query heads over 1 KV head of 64: flash_prefill at G = 71, D =
+        # 64; K = 4544: every product on the dequant GEMM), Q8_0; then a Q4_K
+        # prefill from 256 rows against the exact product (planes_exact_check)
+        ("Pythia-6.9B widths (gptneox)", gemma_path_check, (),
+         dict(preset="pythia-6.9b-2l", prompts=(24, 300), n_decode=2, max_len=2048,
+              recipes=(("Q4_K", "bf16"),), vocab_hi=50000), "txn"),
+        ("Phi-2 widths (phi2)", gemma_path_check, (),
+         dict(preset="phi-2-2l", prompts=(24, 300), n_decode=2, max_len=2048,
+              recipes=(("Q4_K", "bf16"),), vocab_hi=50000), "txn"),
+        ("Falcon-7B widths (falcon)", gemma_path_check, (),
+         dict(preset="falcon-7b-2l", prompts=(24, 300), n_decode=2, max_len=2048,
+              recipes=(("Q8_0", "bf16"),), vocab_hi=50000), "txn"),
+        ("q4b planes from 256 rows against the exact product, Pythia-6.9B widths",
+         planes_exact_check, (), {}, "txn"),
         ("Q8_0", whole_path_check, ("Q8_0",), dict(n_prompt=24, n_decode=1), "txn"),
         ("paged decode, 4 rows", paged_path_check, (), dict(n_decode=1), "txn"),
         ("Q4_K_M", whole_path_check, ("Q4_K_M",), dict(n_prompt=300, n_decode=1), "txn"),
@@ -5467,9 +5738,9 @@ def phase3_checks():
         # --kv-dtype f16 and f32: flash_decode_write's f16 and f32 instances
         # on the whole path (the prefill's rows written in the cache's dtype)
         ("f16 KV", whole_path_check, ("Q4_K",),
-         dict(n_prompt=32, n_decode=2, kv_dtype="f16"), "txn"),
+         dict(n_prompt=32, n_decode=1, kv_dtype="f16"), "txn"),
         ("f32 KV", whole_path_check, ("Q4_K",),
-         dict(n_prompt=32, n_decode=2, kv_dtype="f32"), "txn"),
+         dict(n_prompt=32, n_decode=1, kv_dtype="f32"), "txn"),
         ("Mixtral Q4_K stacked", moe_path_check, ("Q4_K",),
          dict(runs=((24, 1),)), "txn"),
         ("Mixtral Q4_K_M unrolled", moe_path_check, ("Q4_K_M",),

@@ -6,11 +6,14 @@ leaves as plain dicts of numpy arrays, so the port never sees a JAX object
 
   cfg_fields: {field name: value} of the JAX LlamaConfig
   tree: {"tok_embd": [V, d], "out_norm": [d], "output": QT,
-         "layers": [ {"attn_norm", "ffn_norm", "wo", "wq", "wk", "wv",
+         "out_norm_b": [d] or None, "out_b": [V] or None,
+         "layers": [ {"attn_norm", "ffn_norm" (None under a shared-norm
+                      parallel residual), "wo", "wq", "wk", "wv",
                       "wqkv", "w_gate", "w_up", "w_gate_up", "w_down",
                       "gate_inp", "experts", "attn_post_norm",
                       "ffn_post_norm", "q_norm", "k_norm", "bq", "bk",
-                      "bv"}, ... ]
+                      "bv", "attn_norm_b", "ffn_norm_b", "bo", "b_up",
+                      "b_down"}, ... ]
                    (a list of per-layer dicts, or one dict of stacked leaves)}
   QT: {"kind", "shape", "g", "qs", "scales", "bias", "il"}, and an
       I8PQTensor's "qs8" [(L,) K, Ns] int8 and "s8" [(L,) K/256, Ns] f32 (the
@@ -35,14 +38,13 @@ from .ops.repack import I8PQTensor, QTensor
 
 # JAX LlamaConfig features this slice does not run, with their off values
 _UNPORTED = {
-    "norm_plus_one": False,
-    "norm_type": "rms", "clamp_qkv": 0.0,
-    "parallel_residual": False, "rope_dim": 0,
-    "residual_scale": 1.0, "logit_scale": 1.0,
+    "norm_plus_one": False, "clamp_qkv": 0.0,
+    "residual_scale": 1.0, "gelu_approx": False,
     "expert_weights_scale": 1.0, "n_shared_experts": 0, "q_lora_rank": 0,
     "kv_lora_rank": 0, "v_head_dim": 0, "no_rope": False, "alibi": False,
     "qk_norm_flat": False,
 }
+NORM_TYPES = ("rms", "ln")          # not olmo's "ln_np"
 
 
 def config_from_fields(cfg_fields: dict) -> LlamaConfig:
@@ -50,6 +52,9 @@ def config_from_fields(cfg_fields: dict) -> LlamaConfig:
         if name in cfg_fields and cfg_fields[name] != off:
             raise NotImplementedError(f"LlamaConfig.{name}={cfg_fields[name]!r} "
                                       "is not ported yet")
+    if cfg_fields.get("norm_type", "rms") not in NORM_TYPES:
+        raise NotImplementedError(f"LlamaConfig.norm_type={cfg_fields['norm_type']!r} "
+                                  "is not ported yet")
     return LlamaConfig(**{k: v for k, v in cfg_fields.items()
                           if k in CONFIG_FIELDS})
 
@@ -101,7 +106,9 @@ def params_from_numpy(cfg_fields: dict, tree: dict, device="cuda"):
     params = LlamaParams(tok_embd=_t(tree["tok_embd"], dev, torch.bfloat16),
                          layers=layers,
                          out_norm=_t(tree["out_norm"], dev, torch.float32),
-                         output=_qt(tree["output"], dev))
+                         output=_qt(tree["output"], dev),
+                         out_norm_b=_t(tree.get("out_norm_b"), dev, torch.float32),
+                         out_b=_t(tree.get("out_b"), dev, torch.float32))
     return cfg, params
 
 

@@ -1,5 +1,6 @@
 """Llama-family forward of the port (llama / mistral, dense or Mixtral-style
-routed MoE; gemma, gemma2, gemma3; qwen2, qwen3), stacked or unrolled.
+routed MoE; gemma, gemma2, gemma3; qwen2, qwen3; the LayerNorm families
+gptneox, falcon, starcoder2, phi2, command-r), stacked or unrolled.
 
 Counterpart of llamafile_tpu/models/llama.py for the llama branches of
 `_layer_fwd`, `forward` and `moe_ffn`. The JAX layer scan becomes a Python
@@ -40,6 +41,20 @@ biases (attn_qkv_bias) to the products' outputs, qwen3 normalizes each head
 of q and k before rope as gemma3 does. Both run under the paged decode.
 forward(return_hidden=True) gives the final-normed hidden states before
 the head, which the embeddings endpoint pools.
+
+The LayerNorm families (the reference's norm_type "ln" branches): every
+norm is an affine LayerNorm in f32 (norm_fn; a bias but in command-r),
+never folded into the products' activation prep; rope NEOX (command-r's
+interleaved pairs) on the first rope_dim dims of each head (_rope_qk;
+gptneox and phi2 partial); q/k/v biases (gptneox's split from its fused
+qkv, starcoder2's, phi2's), the output projection's bias (bo); a gateless
+FFN (up, + b_up, erf GELU, down, + b_down) but in command-r, which keeps
+SwiGLU; a parallel residual x + (o + f) for gptneox (by metadata), falcon,
+phi2 and command-r, its FFN fed by the attention norm's output where the
+layer has no ffn_norm (falcon-7B-style, phi2, command-r); the output
+norm's bias, phi2's head bias and command-r's logit scale
+(_finish_logits). Their layers never stack (stack_layers), as in the
+reference.
 
 int8_prefill_params attaches the int8 prefill companions (the Engine does
 so under LLAMAFILE_TPU_I8P=1): every product of over 32 rows on a layer
@@ -94,6 +109,7 @@ from ..runtime.kvcache import KVCache, init_kv, read_layer, update_layer
 from ..utils import tracing
 
 PRENORM = os.environ.get("LLAMAFILE_TPU_PRENORM", "1") != "0"
+LN_ARCHS = ("gptneox", "falcon", "starcoder2", "phi2", "command-r")
 
 
 def _prenormed(x2d: torch.Tensor, w: torch.Tensor, eps: float):
@@ -142,14 +158,23 @@ class LlamaConfig:
     swa_rope_theta: float = 0.0      # rope base of windowed layers (0 = rope_theta)
     post_norms: bool = False
     qk_norm: bool = False
+    # the LayerNorm families: "ln" an affine LayerNorm with a bias (gptneox,
+    # falcon, starcoder2, phi2, command-r); attention and FFN from the same
+    # input into one residual add; rope on the first rope_dim dims (0 = all);
+    # logits divided by logit_scale (command-r: 1 / its logit_scale)
+    norm_type: str = "rms"
+    parallel_residual: bool = False
+    rope_dim: int = 0
+    logit_scale: float = 1.0
 
     @classmethod
     def from_gguf(cls, reader) -> "LlamaConfig":
         arch = reader.architecture
-        if arch not in ("llama", "mistral", "gemma", "gemma2", "gemma3", "qwen2", "qwen3"):
+        if arch not in ("llama", "mistral", "gemma", "gemma2", "gemma3", "qwen2", "qwen3",
+                        *LN_ARCHS):
             raise NotImplementedError(
                 f"architecture {arch!r} is not ported yet (llama, mistral, gemma, "
-                "gemma2, gemma3, qwen2, qwen3)")
+                "gemma2, gemma3, qwen2, qwen3, " + ", ".join(LN_ARCHS) + ")")
         f = reader.field
         d_model = int(f("{arch}.embedding_length"))
         n_heads = int(f("{arch}.attention.head_count"))
@@ -187,6 +212,20 @@ class LlamaConfig:
             # the reference's qwen branches: rope NEOX; qwen2's q/k/v biases,
             # qwen3's per-head q/k norms; attn_scale from metadata below
             branch = dict(rope_neox=True, attn_qkv_bias=arch == "qwen2", qk_norm=arch == "qwen3")
+        if arch in LN_ARCHS:
+            # the reference's LayerNorm branches: rope NEOX (command-r's
+            # interleaved pairs, as llama.cpp's), q/k/v biases of gptneox and
+            # starcoder2, partial rope from rope.dimension_count (not
+            # command-r's), the parallel residual (gptneox by metadata,
+            # default on; falcon, phi2, command-r always), GELU (starcoder2's
+            # flag: its FFN is gateless, so the erf GELU runs as in the others)
+            branch = dict(
+                rope_neox=arch != "command-r", attn_qkv_bias=arch in ("gptneox", "starcoder2"),
+                norm_type="ln", ffn_gelu=arch == "starcoder2",
+                rope_dim=(int(f("{arch}.rope.dimension_count", 0) or 0)
+                          if arch != "command-r" else 0),
+                parallel_residual=(bool(f("{arch}.use_parallel_residual", True))
+                                   if arch == "gptneox" else arch != "starcoder2"))
         n_vocab = f("{arch}.vocab_size")
         if n_vocab is None:
             n_vocab = len(reader.metadata.get("tokenizer.ggml.tokens", []))
@@ -216,6 +255,10 @@ class LlamaConfig:
             n_experts=int(f("{arch}.expert_count", 0) or 0),
             n_experts_used=int(f("{arch}.expert_used_count", 0) or 0),
             moe_norm_topk=True,              # llama/mistral (Mixtral) renormalize
+            # command-r multiplies its logits by logit_scale; the others divide
+            logit_scale=(1.0 / float(f("{arch}.logit_scale", 1.0) or 1.0)
+                         if arch == "command-r"
+                         else float(f("{arch}.logit_scale", 0.0) or 1.0)),
         )
         return cls(**{**kw, **branch})
 
@@ -227,7 +270,10 @@ CONFIG_FIELDS = tuple(f.name for f in fields(LlamaConfig))
 class LlamaLayer:
     """One layer's weights, or all layers' stacked on a leading L axis."""
     attn_norm: torch.Tensor          # f32 [(L,) d]
-    ffn_norm: torch.Tensor
+    # None under the parallel residual where the layer has no FFN norm
+    # (falcon-7B-style, phi2, command-r): the FFN then reads the attention
+    # norm's output, not the raw residual
+    ffn_norm: Optional[torch.Tensor]
     wo: QTensor
     wq: Optional[QTensor] = None
     wk: Optional[QTensor] = None
@@ -246,9 +292,16 @@ class LlamaLayer:
     ffn_post_norm: Optional[torch.Tensor] = None
     q_norm: Optional[torch.Tensor] = None           # gemma3/qwen3 per-head norms, f32 [(L,) head_dim]
     k_norm: Optional[torch.Tensor] = None
-    bq: Optional[torch.Tensor] = None               # qwen2 q/k/v biases, f32 [(L,) H*D]
+    bq: Optional[torch.Tensor] = None               # q/k/v biases, f32 [(L,) H*D]
     bk: Optional[torch.Tensor] = None
     bv: Optional[torch.Tensor] = None
+    # the LayerNorm families (unrolled only): the norms' biases, the output
+    # projection's, the gateless FFN's up and down biases, f32
+    attn_norm_b: Optional[torch.Tensor] = None
+    ffn_norm_b: Optional[torch.Tensor] = None
+    bo: Optional[torch.Tensor] = None
+    b_up: Optional[torch.Tensor] = None
+    b_down: Optional[torch.Tensor] = None
 
 
 @dataclass
@@ -257,6 +310,8 @@ class LlamaParams:
     layers: object                   # List[LlamaLayer] or a stacked LlamaLayer
     out_norm: torch.Tensor           # f32 [d]
     output: QTensor                  # lm head [n_vocab, d]
+    out_norm_b: Optional[torch.Tensor] = None   # the LayerNorm families' output norm bias
+    out_b: Optional[torch.Tensor] = None        # phi2's head bias [n_vocab]
 
 
 # ---------------------------------------------------------------------------
@@ -313,6 +368,40 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
     even = torch.arange(d, device=x.device) % 2 == 0
     rot = torch.where(even, -torch.roll(x, -1, dims=-1), torch.roll(x, 1, dims=-1))
     return x * cos2 + rot * sin2
+
+
+def norm_fn(x: torch.Tensor, w, cfg: LlamaConfig, b=None) -> torch.Tensor:
+    """The model's norm (the reference's norm_fn): RMSNorm, or for
+    norm_type "ln" an affine LayerNorm in f32 in the reference's order
+    (the mean, the mean of the squared centred values, rsqrt(var + eps),
+    times w, plus b). Not torch.nn.functional.layer_norm: a product's int8
+    activation code one step off moves its row by about 1%."""
+    if cfg.norm_type == "ln":
+        x32 = x.float()
+        c = x32 - x32.mean(dim=-1, keepdim=True)
+        out = c * torch.rsqrt((c * c).mean(dim=-1, keepdim=True) + cfg.rms_eps) * w
+        return out if b is None else out + b
+    return rmsnorm(x, w, cfg.rms_eps)
+
+
+def _rope_qk(q, k, cos, sin, cfg: LlamaConfig):
+    """Rope q and k [..., H, head_dim] on their first rope_dim dims (all
+    when rope_dim is 0), the rest passed through; cos/sin are rope_dim / 2
+    wide."""
+    rd = cfg.rope_dim or cfg.head_dim
+    if rd == cfg.head_dim:
+        return apply_rope(q, cos, sin, cfg.rope_neox), apply_rope(k, cos, sin, cfg.rope_neox)
+    return (torch.cat([apply_rope(q[..., :rd], cos, sin, cfg.rope_neox), q[..., rd:]], dim=-1),
+            torch.cat([apply_rope(k[..., :rd], cos, sin, cfg.rope_neox), k[..., rd:]], dim=-1))
+
+
+def _finish_logits(logits: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
+    """gemma2's final softcap, then the logits divided by logit_scale."""
+    if cfg.final_softcap:
+        logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
+    if cfg.logit_scale != 1.0:
+        logits = logits / cfg.logit_scale
+    return logits
 
 
 def attention(q, k_cache, v_cache, pos, t_pos, scale, window=None,
@@ -413,6 +502,11 @@ def stack_layers(params: LlamaParams) -> LlamaParams:
     ls = params.layers
     if not isinstance(ls, list) or len(ls) < 2:
         return params
+    if (ls[0].attn_norm_b is not None or ls[0].bo is not None or ls[0].b_up is not None
+            or ls[0].ffn_norm is None):
+        # the LayerNorm families and the shared norm of command-r run
+        # unrolled, as the reference's scan has no branch for them
+        return params
     experts = None
     if any(l.experts is not None for l in ls):
         experts = _stack_experts(ls)
@@ -424,7 +518,7 @@ def stack_layers(params: LlamaParams) -> LlamaParams:
             for f in fields(LlamaLayer) if f.name != "experts"})
     except (ValueError, RuntimeError):      # formats, or shapes torch.stack refuses
         return params
-    return LlamaParams(params.tok_embd, stacked, params.out_norm, params.output)
+    return replace(params, layers=stacked)
 
 
 def _qkv(h2d, layer: LlamaLayer, cfg: LlamaConfig, wl, prenorm=None):
@@ -463,6 +557,14 @@ def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
     return x * (c(0.5) * (c(1.0) + torch.tanh(inner)))
 
 
+def gelu_erf(x: torch.Tensor) -> torch.Tensor:
+    """jax.nn.gelu(x, approximate=False) as the reference computes it, op by
+    op in x's dtype with sqrt(1/2) rounded to that dtype:
+    (0.5 * x) * erfc(-x * sqrt(1/2))."""
+    c = lambda v: torch.tensor(v, dtype=x.dtype, device=x.device)
+    return (c(0.5) * x) * torch.special.erfc(-x * c(math.sqrt(0.5)))
+
+
 _DEVICE_IDS = {}
 
 
@@ -483,13 +585,21 @@ def _ffn(h2d, layer: LlamaLayer, cfg: LlamaConfig, wl, prenorm=None):
     fused kernel call at M = 1 for an interleaved q4b gate|up of stacked
     layers (wl the layer id), otherwise gate|up (or gate and up), silu(g) *
     u, down (the reference's _ffn_core: the unrolled path never fuses); a
-    GELU FFN (cfg.ffn_gelu) always the latter with gelu_tanh(g). The
-    products' dtype carries through, so bf16 q4b outputs at M >= 256 meet
-    the activation and the product in bf16."""
+    gated GELU FFN (cfg.ffn_gelu) always the latter with gelu_tanh(g); a
+    gateless FFN (the LayerNorm families) up, + b_up, gelu_erf, down. Then
+    + b_down. The products' dtype carries through, so bf16 q4b outputs at
+    M >= 256 meet the activation and the product in bf16 (an f32 b_up
+    promotes the up product to f32 first, as JAX promotes)."""
     if cfg.n_experts > 0 and layer.experts is not None:
         if prenorm is not None:
             h2d = rmsnorm(h2d, *prenorm)
         return moe_ffn(h2d, layer, cfg, li=wl)
+    if layer.w_gate is None and layer.w_gate_up is None:
+        u = qmatmul(h2d, layer.w_up, wl, prenorm=prenorm)
+        if layer.b_up is not None:
+            u = u + layer.b_up
+        f = qmatmul(gelu_erf(u), layer.w_down, wl)
+        return f if layer.b_down is None else f + layer.b_down
     if layer.w_gate_up is not None:
         if (h2d.shape[0] == 1 and wl is not None and layer.w_gate_up.il and not cfg.ffn_gelu
                 and moe_fusable(layer.w_gate_up, layer.w_down, cfg.d_model, cfg.d_ff)):
@@ -503,7 +613,8 @@ def _ffn(h2d, layer: LlamaLayer, cfg: LlamaConfig, wl, prenorm=None):
         g = qmatmul(h2d, layer.w_gate, wl, prenorm=prenorm)
         u = qmatmul(h2d, layer.w_up, wl, prenorm=prenorm)
     act = gelu_tanh(g) if cfg.ffn_gelu else silu(g)
-    return qmatmul(act * u, layer.w_down, wl)
+    f = qmatmul(act * u, layer.w_down, wl)
+    return f if layer.b_down is None else f + layer.b_down
 
 
 # ---------------------------------------------------------------------------
@@ -671,6 +782,35 @@ def layer_window(cfg: LlamaConfig, li: int) -> Optional[int]:
     return None
 
 
+def _finish_layer(x, h, o2d, layer: LlamaLayer, cfg: LlamaConfig, wl=None, pick=None):
+    """Close a layer given the attention norm's output h and the o product
+    o2d [M, d] (the reference's _finish_layer and _unrolled_ffn): + bo,
+    gemma's post norm; then the parallel residual x + (o + f), f from the
+    FFN norm of x or, with no ffn_norm, from h itself; or the sequential
+    one, the RMSNorm of an rms layer folded into the FFN's products (unless
+    PRENORM is off), any other norm applied first. wl / pick index stacked
+    weights."""
+    b, t, d = x.shape
+    pick = pick or (lambda a: a)
+    if layer.bo is not None:
+        o2d = o2d + layer.bo
+    if cfg.post_norms:
+        o2d = rmsnorm(o2d, pick(layer.attn_post_norm), cfg.rms_eps)
+    if cfg.parallel_residual:
+        hm = h if layer.ffn_norm is None else norm_fn(x, layer.ffn_norm, cfg, layer.ffn_norm_b)
+        f = _ffn(hm.reshape(b * t, d), layer, cfg, wl)
+        return x + (o2d + f).reshape(b, t, d)
+    x = x + o2d.reshape(b, t, d)
+    if cfg.norm_type == "rms" and layer.ffn_norm_b is None:
+        h2d, pn = _prenormed(x.reshape(b * t, d), pick(layer.ffn_norm), cfg.rms_eps)
+    else:
+        h2d, pn = norm_fn(x, layer.ffn_norm, cfg, layer.ffn_norm_b).reshape(b * t, d), None
+    f = _ffn(h2d, layer, cfg, wl, pn)
+    if cfg.post_norms:
+        f = rmsnorm(f, pick(layer.ffn_post_norm), cfg.rms_eps)
+    return x + f.reshape(b, t, d)
+
+
 def _layer_fwd(x, layer: LlamaLayer, cfg: LlamaConfig, rope, pos, t_pos,
                scale, cache: KVCache, attn_len, fresh: bool, li: int,
                stacked: bool):
@@ -679,7 +819,9 @@ def _layer_fwd(x, layer: LlamaLayer, cfg: LlamaConfig, rope, pos, t_pos,
     scanned _layer_fwd); else `layer` is layer li's own (its unrolled loop).
 
     Both fold the RMSNorms into the products' activation prep (unless
-    PRENORM is off) and write the new K/V rows first, except where the
+    PRENORM is off; never a LayerNorm, nor the attention norm of a parallel
+    residual, whose output the FFN may read) and write the new K/V rows
+    first, except where the
     fused decode kernel writes them (T = 1 on a bf16, f16 or f32 cache,
     unless ops.attention.FLASH_DECODE is off). An int8 cache decodes through the flash_decode
     kernel, except on stacked layers of a windowed model: there the
@@ -695,15 +837,19 @@ def _layer_fwd(x, layer: LlamaLayer, cfg: LlamaConfig, rope, pos, t_pos,
     (cos, sin), swa_rope = rope
     if win is not None and swa_rope is not None:
         cos, sin = swa_rope
-    h2d, pn = _prenormed(x.reshape(b * t, d), pick(layer.attn_norm), cfg.rms_eps)
+    if cfg.norm_type == "rms" and not cfg.parallel_residual:
+        h = None
+        h2d, pn = _prenormed(x.reshape(b * t, d), pick(layer.attn_norm), cfg.rms_eps)
+    else:
+        h, pn = norm_fn(x, pick(layer.attn_norm), cfg, layer.attn_norm_b), None
+        h2d = h.reshape(b * t, d)
     q, k, v = _qkv(h2d, layer, cfg, wl, pn)
     q = q.reshape(b, t, cfg.n_heads, cfg.head_dim)
     k = k.reshape(b, t, cfg.n_kv_heads, cfg.head_dim)
     if cfg.qk_norm:                     # gemma3, qwen3: each head's RMSNorm before rope
         q = rmsnorm(q, pick(layer.q_norm), cfg.rms_eps)
         k = rmsnorm(k, pick(layer.k_norm), cfg.rms_eps)
-    q = apply_rope(q, cos, sin, cfg.rope_neox)
-    k = apply_rope(k, cos, sin, cfg.rope_neox)
+    q, k = _rope_qk(q, k, cos, sin, cfg)
     v = v.reshape(b, t, cfg.n_kv_heads, cfg.head_dim)
     alen = attn_len if (attn_len is not None and attn_len < s) else s
     if t == 1 and not fresh and not cache.quantized and _attention.FLASH_DECODE:
@@ -737,14 +883,7 @@ def _layer_fwd(x, layer: LlamaLayer, cfg: LlamaConfig, rope, pos, t_pos,
             attn = attention(q, kci[:, :alen], vci[:, :alen], pos, t_pos, scale,
                              window=win, softcap=cap)
     o = qmatmul(attn.reshape(b * t, cfg.n_heads * cfg.head_dim), layer.wo, wl)
-    if cfg.post_norms:
-        o = rmsnorm(o, pick(layer.attn_post_norm), cfg.rms_eps)
-    x = x + o.reshape(b, t, d)
-    h2d, pn = _prenormed(x.reshape(b * t, d), pick(layer.ffn_norm), cfg.rms_eps)
-    f = _ffn(h2d, layer, cfg, wl, pn)
-    if cfg.post_norms:
-        f = rmsnorm(f, pick(layer.ffn_post_norm), cfg.rms_eps)
-    return x + f.reshape(b, t, d)
+    return _finish_layer(x, h, o, layer, cfg, wl, pick)
 
 
 @torch.no_grad()
@@ -764,8 +903,8 @@ def forward(params: LlamaParams, cfg: LlamaConfig, tokens: torch.Tensor,
     b, t = tokens.shape
     dev = tokens.device
     t_pos = torch.arange(t, device=dev)
-    cos, sin = rope_cos_sin(pos.long()[:, None] + t_pos[None, :], cfg.head_dim,
-                            cfg.rope_theta, cfg.rope_scale, cfg)  # [B, T, D/2]
+    cos, sin = rope_cos_sin(pos.long()[:, None] + t_pos[None, :], cfg.rope_dim or cfg.head_dim,
+                            cfg.rope_theta, cfg.rope_scale, cfg)  # [B, T, rd/2]
     rope = ((cos[:, :, None, :], sin[:, :, None, :]), None)
     if cfg.swa_rope_theta and cfg.swa_rope_theta != cfg.rope_theta:
         # gemma3: the windowed layers' table, base swa_rope_theta, scale 1
@@ -784,17 +923,21 @@ def forward(params: LlamaParams, cfg: LlamaConfig, tokens: torch.Tensor,
         if tracing.TRAP:
             tracing.check_finite(x, "forward", li, pos)
     if return_hidden:
-        return rmsnorm(x, params.out_norm, cfg.rms_eps), cache
+        return norm_fn(x, params.out_norm, cfg, params.out_norm_b), cache
     t_out = t
     if last_idx is not None:
         # only the next-token logits: slice before the lm head
         x = x[torch.arange(b, device=dev), last_idx.long()][:, None]
         t_out = 1
-    h2d, pn = _prenormed(x.reshape(b * t_out, cfg.d_model), params.out_norm, cfg.rms_eps)
+    if cfg.norm_type == "rms" and params.out_norm_b is None:
+        h2d, pn = _prenormed(x.reshape(b * t_out, cfg.d_model), params.out_norm, cfg.rms_eps)
+    else:
+        h2d = norm_fn(x, params.out_norm, cfg, params.out_norm_b).reshape(b * t_out, cfg.d_model)
+        pn = None
     logits = qmatmul(h2d, params.output, prenorm=pn)
-    if cfg.final_softcap:
-        logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
-    logits = logits.reshape(b, t_out, -1)
+    if params.out_b is not None:        # phi2's head bias
+        logits = logits + params.out_b
+    logits = _finish_logits(logits, cfg).reshape(b, t_out, -1)
     if tracing.TRAP:
         tracing.check_finite(logits, "forward", "logits",
                              pos if last_idx is None else pos + last_idx.to(pos.device))
@@ -811,14 +954,16 @@ def forward_paged_decode(params: LlamaParams, cfg: LlamaConfig,
     Counterpart of the llama/mistral and gemma branches of the JAX
     package's forward_paged_decode (gemma: the embedding times sqrt(d), the
     GELU FFN; qwen2's q/k/v biases; qwen3's per-head q/k norms before rope;
-    a window, softcaps or post norms raise). tok/pos
+    the LayerNorm families' norms, biases, partial rope, parallel residual,
+    head bias and logit scale; a window, softcaps or post norms raise). tok/pos
     int32 [R]; paged a runtime.paged.PagedKV, updated IN PLACE (each row's
     new K/V at page tables[r, pos // ps], offset pos % ps); tables int32
     [R, MAXP]. Each row attends to its
     pos + 1 positions through the paged_attention kernel, which reads layer
     li of the pool by pointer (`pool[li]` is a view). As in the reference,
     the attention norm runs before the products; the FFN norm does too on
-    stacked layers and folds into the FFN's products on unrolled ones.
+    stacked layers, and unrolled ones close through _finish_layer (an
+    RMSNorm there folds into the FFN's products).
     Returns (logits f32 [R, V], paged)."""
     from ..runtime.paged import paged_attend, write_token_kv
     for name in ("swa_window", "attn_softcap", "final_softcap", "post_norms",
@@ -833,8 +978,8 @@ def forward_paged_decode(params: LlamaParams, cfg: LlamaConfig,
     x = params.tok_embd[tok.long()].float()                       # [R, d]
     if cfg.embd_scale != 1.0:
         x = x * cfg.embd_scale
-    cos, sin = rope_cos_sin(p64[:, None], cfg.head_dim, cfg.rope_theta,
-                            cfg.rope_scale, cfg)                  # [R, 1, D/2]
+    cos, sin = rope_cos_sin(p64[:, None], cfg.rope_dim or cfg.head_dim, cfg.rope_theta,
+                            cfg.rope_scale, cfg)                  # [R, 1, rd/2]
     pages = torch.gather(tables.long(), 1, (p64 // ps)[:, None])[:, 0]
     offs = p64 % ps
     lengths = (pos + 1).to(torch.int32).to(dev)
@@ -845,15 +990,14 @@ def forward_paged_decode(params: LlamaParams, cfg: LlamaConfig,
         layer = params.layers if stacked else params.layers[li]
         wl = li if stacked else None
         pick = (lambda a: a[li]) if stacked else (lambda a: a)
-        h = rmsnorm(x, pick(layer.attn_norm), cfg.rms_eps)
+        h = norm_fn(x, pick(layer.attn_norm), cfg, layer.attn_norm_b)
         q, k, v = _qkv(h, layer, cfg, wl)
         q = q.reshape(r, cfg.n_heads, cfg.head_dim)
         k = k.reshape(r, cfg.n_kv_heads, cfg.head_dim)
         if cfg.qk_norm:
             q = rmsnorm(q, pick(layer.q_norm), cfg.rms_eps)
             k = rmsnorm(k, pick(layer.k_norm), cfg.rms_eps)
-        q = apply_rope(q, cos, sin, cfg.rope_neox)
-        k = apply_rope(k, cos, sin, cfg.rope_neox)
+        q, k = _rope_qk(q, k, cos, sin, cfg)
         v = v.reshape(r, cfg.n_kv_heads, cfg.head_dim)
         ksl = paged.k_scale[li] if quant else None
         vsl = paged.v_scale[li] if quant else None
@@ -862,16 +1006,18 @@ def forward_paged_decode(params: LlamaParams, cfg: LlamaConfig,
         attn = paged_attend((q * scale).float(), paged.k_pages[li],
                             paged.v_pages[li], lengths, tables,
                             k_scale_l=ksl, v_scale_l=vsl)
-        x = x + qmatmul(attn.reshape(r, cfg.n_heads * cfg.head_dim), layer.wo, wl)
+        o = qmatmul(attn.reshape(r, cfg.n_heads * cfg.head_dim), layer.wo, wl)
         if stacked:
-            f = _ffn(rmsnorm(x, pick(layer.ffn_norm), cfg.rms_eps), layer, cfg, wl)
+            x = x + o
+            x = x + _ffn(rmsnorm(x, pick(layer.ffn_norm), cfg.rms_eps), layer, cfg, wl)
         else:
-            h, pn = _prenormed(x, layer.ffn_norm, cfg.rms_eps)
-            f = _ffn(h, layer, cfg, None, pn)
-        x = x + f
+            x = _finish_layer(x[:, None], h[:, None], o, layer, cfg)[:, 0]
         if tracing.TRAP:
             tracing.check_finite(x, "forward_paged_decode", li, pos)
-    logits = qmatmul(rmsnorm(x, params.out_norm, cfg.rms_eps), params.output)
+    logits = qmatmul(norm_fn(x, params.out_norm, cfg, params.out_norm_b), params.output)
+    if params.out_b is not None:        # phi2's head bias
+        logits = logits + params.out_b
+    logits = _finish_logits(logits, cfg)
     if tracing.TRAP:
         tracing.check_finite(logits, "forward_paged_decode", "logits", pos)
     return logits, paged

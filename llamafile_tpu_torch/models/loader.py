@@ -1,7 +1,10 @@
 """GGUF -> device parameters for the port (llama / mistral, dense FFN or
 Mixtral-style routed experts; gemma, gemma2 and gemma3, with their heads
 tied to the embedding, gemma2/3's sandwich norms and gemma3's per-head q/k
-norms; qwen2 with its q/k/v biases, qwen3 with its per-head q/k norms).
+norms; qwen2 with its q/k/v biases, qwen3 with its per-head q/k norms; the
+LayerNorm families gptneox, falcon, starcoder2, phi2 and command-r with
+their norm and projection biases, a pre-fused attn_qkv kept fused, the
+gateless FFN, and no ffn_norm under a shared-norm parallel residual).
 
 Counterpart of llamafile_tpu/models/loader.py: tensor bytes flow mmap ->
 repack (numpy) -> device; `fuse_projections` then builds the fused qkv and
@@ -22,7 +25,7 @@ from ..device import resolve_device
 from ..gguf.reader import GGUFReader
 from ..gguf.quants import TYPE_BY_ID
 from ..ops.repack import (QTensor, concat_qtensors, interleave_gateup, repack,
-                          stack_experts)
+                          slice_qtensor_cols, stack_experts)
 from ..runtime.tokenizer import Tokenizer
 from .llama import LlamaConfig, LlamaLayer, LlamaParams
 
@@ -35,6 +38,13 @@ def _load_qtensor(reader: GGUFReader, name: str, device) -> QTensor:
 
 def _load_vec(reader: GGUFReader, name: str, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(reader.tensor_f32(name))).to(device)
+
+
+def _load_norm(reader: GGUFReader, name: str, d: int, device) -> torch.Tensor:
+    """A norm weight, or ones where the file has none (the reference's)."""
+    if name in reader:
+        return _load_vec(reader, name, device)
+    return torch.ones(d, dtype=torch.float32, device=device)
 
 
 def _load_experts(reader: GGUFReader, p: str, cfg: LlamaConfig, fuse: bool,
@@ -70,8 +80,9 @@ def fuse_projections(params: LlamaParams, cfg: LlamaConfig) -> LlamaParams:
     FFN kernel's layout) and LLAMAFILE_TPU_ILGU is not "0" (read at every
     call, as the reference reads it), plainly concatenated otherwise: a
     stacked M = 1 FFN then runs the gate|up and down products, not the
-    fused kernel. qwen2's q/k/v biases stay separate f32 vectors (the
-    forward adds them after the fused product), as in the reference."""
+    fused kernel. q/k/v biases stay separate f32 vectors (the forward adds
+    them after the fused product), as in the reference; a gateless FFN has
+    nothing to fuse."""
     layers = []
     for layer in params.layers:
         kw = {}
@@ -100,56 +111,79 @@ def fuse_projections(params: LlamaParams, cfg: LlamaConfig) -> LlamaParams:
 
 
 def load_llama(path: str, device="cuda", fuse: bool = True):
-    """Load a llama/mistral/gemma/gemma2/gemma3/qwen2/qwen3 GGUF into (config, params,
-    tokenizer, reader) on `device`. Every GGML tensor type loads but Q8_1,
-    which raises NotImplementedError naming it (gguf/quants.py). Files whose
-    layers mix formats (Q4_K_M, Q4_K_S, Q5_K_M) give per-layer weights that
-    the forward runs unrolled. A MoE file (expert_count > 0) loads its router
-    and experts; shared experts (ffn_*_shexp) raise."""
+    """Load a llama/mistral/gemma/gemma2/gemma3/qwen2/qwen3/gptneox/falcon/
+    starcoder2/phi2/command-r GGUF into (config, params, tokenizer, reader)
+    on `device`. Every GGML tensor type loads but Q8_1, which raises
+    NotImplementedError naming it (gguf/quants.py). Files whose layers mix
+    formats (Q4_K_M, Q4_K_S, Q5_K_M) give per-layer weights that the
+    forward runs unrolled. A MoE file (expert_count > 0) loads its router
+    and experts; shared experts (ffn_*_shexp) raise. A pre-fused attn_qkv
+    (gptneox, falcon) stays fused as wqkv (split by columns when not fuse),
+    its bias split into bq, bk, bv."""
     dev = resolve_device(device)
     reader = GGUFReader(path)
     cfg = LlamaConfig.from_gguf(reader)
     tok = Tokenizer(reader.metadata)
+    d = cfg.d_model
+    nq, nkv = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
     layers = []
     for i in range(cfg.n_layers):
         p = f"blk.{i}."
         moe = cfg.n_experts > 0 and p + "ffn_gate_inp.weight" in reader
-        if not moe and p + "ffn_gate.weight" not in reader:
-            raise NotImplementedError(f"{p}: only the gated dense FFN (SwiGLU, "
-                                      "gemma's GELU) and routed experts of "
-                                      "llama/mistral are ported")
-        for unported in ("attn_qkv.weight", "attn_norm.bias", "attn_output.bias",
-                         "ffn_gate_shexp.weight", "ffn_gate_inp_shexp.weight"):
+        for unported in ("ffn_gate_shexp.weight", "ffn_gate_inp_shexp.weight"):
             if p + unported in reader:
                 raise NotImplementedError(f"{p}{unported} is not ported yet")
         opt = lambda nm: _load_vec(reader, p + nm, dev) if p + nm in reader else None
-        ffn = (dict(gate_inp=_load_qtensor(reader, p + "ffn_gate_inp.weight", dev),
-                    experts=_load_experts(reader, p, cfg, fuse, dev)) if moe else dict(
-            w_gate=_load_qtensor(reader, p + "ffn_gate.weight", dev),
-            w_up=_load_qtensor(reader, p + "ffn_up.weight", dev),
-            w_down=_load_qtensor(reader, p + "ffn_down.weight", dev)))
+        qt = lambda nm: _load_qtensor(reader, p + nm, dev)
+        if moe:
+            ffn = dict(gate_inp=qt("ffn_gate_inp.weight"),
+                       experts=_load_experts(reader, p, cfg, fuse, dev))
+        elif p + "ffn_gate.weight" in reader:
+            ffn = dict(w_gate=qt("ffn_gate.weight"), w_up=qt("ffn_up.weight"),
+                       w_down=qt("ffn_down.weight"))
+        elif reader.tensors[p + "ffn_up.weight"].shape[0] == 2 * cfg.d_ff:
+            raise NotImplementedError(f"{p}ffn_up.weight: a fused gate|up (phi3) is not "
+                                      "ported yet")
+        else:                               # the gateless FFN of the LayerNorm families
+            ffn = dict(w_up=qt("ffn_up.weight"), w_down=qt("ffn_down.weight"))
+        if p + "attn_qkv.weight" in reader:
+            # gptneox's and falcon's q|k|v in one tensor: kept fused (split
+            # by columns for an unfused load), a bias split into bq, bk, bv
+            wqkv = qt("attn_qkv.weight")
+            attn = (dict(wqkv=wqkv) if fuse else dict(
+                wq=slice_qtensor_cols(wqkv, 0, nq), wk=slice_qtensor_cols(wqkv, nq, nq + nkv),
+                wv=slice_qtensor_cols(wqkv, nq + nkv, nq + 2 * nkv)))
+            bqkv = opt("attn_qkv.bias")
+            if bqkv is not None:
+                attn.update(bq=bqkv[:nq], bk=bqkv[nq:nq + nkv], bv=bqkv[nq + nkv:nq + 2 * nkv])
+        else:
+            attn = dict(wq=qt("attn_q.weight"), wk=qt("attn_k.weight"), wv=qt("attn_v.weight"),
+                        bq=opt("attn_q.bias"), bk=opt("attn_k.bias"), bv=opt("attn_v.bias"))
+        # a parallel layer with no ffn_norm (falcon-7B-style, phi2,
+        # command-r) feeds its FFN the attention norm's output: None, not ones
+        has_ffn_norm = p + "ffn_norm.weight" in reader or not cfg.parallel_residual
         layers.append(LlamaLayer(
-            attn_norm=_load_vec(reader, p + "attn_norm.weight", dev),
-            ffn_norm=_load_vec(reader, p + "ffn_norm.weight", dev),
-            wq=_load_qtensor(reader, p + "attn_q.weight", dev),
-            wk=_load_qtensor(reader, p + "attn_k.weight", dev),
-            wv=_load_qtensor(reader, p + "attn_v.weight", dev),
-            wo=_load_qtensor(reader, p + "attn_output.weight", dev),
-            # gemma2/3's sandwich norms, gemma3/qwen3's per-head q/k norms,
-            # qwen2's q/k/v biases
+            attn_norm=_load_norm(reader, p + "attn_norm.weight", d, dev),
+            ffn_norm=_load_norm(reader, p + "ffn_norm.weight", d, dev) if has_ffn_norm else None,
+            wo=qt("attn_output.weight"),
+            # gemma2/3's sandwich norms, gemma3/qwen3's per-head q/k norms;
+            # the LayerNorm families' norm and output biases
             attn_post_norm=opt("post_attention_norm.weight"),
             ffn_post_norm=opt("post_ffw_norm.weight"),
             q_norm=opt("attn_q_norm.weight"),
             k_norm=opt("attn_k_norm.weight"),
-            bq=opt("attn_q.bias"), bk=opt("attn_k.bias"), bv=opt("attn_v.bias"),
-            **ffn))
+            attn_norm_b=opt("attn_norm.bias"), ffn_norm_b=opt("ffn_norm.bias"),
+            bo=opt("attn_output.bias"), b_up=opt("ffn_up.bias"), b_down=opt("ffn_down.bias"),
+            **attn, **ffn))
     embd = torch.from_numpy(reader.tensor_f32("token_embd.weight")).to(
         dev).to(torch.bfloat16)
     out_name = "output.weight" if "output.weight" in reader else "token_embd.weight"
+    opt = lambda nm: _load_vec(reader, nm, dev) if nm in reader else None
     params = LlamaParams(
         tok_embd=embd, layers=layers,
-        out_norm=_load_vec(reader, "output_norm.weight", dev),
-        output=_load_qtensor(reader, out_name, dev))
+        out_norm=_load_norm(reader, "output_norm.weight", d, dev),
+        output=_load_qtensor(reader, out_name, dev),
+        out_norm_b=opt("output_norm.bias"), out_b=opt("output.bias"))
     if fuse:
         params = fuse_projections(params, cfg)
     return cfg, params, tok, reader

@@ -64,6 +64,71 @@ QWEN3_32B = dict(d_model=5120, n_heads=64, n_kv_heads=8, head_dim=128, d_ff=2560
                  n_vocab=151936, rms_eps=1e-6, max_context=40960, rope_neox=True,
                  rope_theta=1e6, qk_norm=True, head_quant="Q6_K", centered=True)
 
+# The LayerNorm families (the reference's norm_type "ln" branches). Each
+# names, besides its LlamaConfig fields, its layout: `ln_layout` gateless
+# (up and down, no gate), fused_qkv (one attn_qkv tensor, as gptneox and
+# falcon ship it), shared_norm (no ffn_norm: the FFN reads the attention
+# norm's output) and the biases drawn: "norm" (every LayerNorm's, the
+# output norm's too), "qkv", "o", "ffn" (up and down), "head". Norm weights
+# are ones, biases random (the norms' std 0.1, the products' std 1). The
+# weights are drawn at a trained checkpoint's spread (trained: an RMS near
+# 0.03, mean near zero; with the other presets' draw a layer's outputs
+# reach the tens of thousands and its attention is near one-hot, so that
+# a bf16 step of one score moves a layer's output by percents), with a
+# separate random Q6_K head (falcon-7b: a Q8_0 one, as d 4544 holds no
+# 256-block).
+#
+# StarCoder2-7B (bigcode/starcoder2-7b's config.json: 32 layers, d 4608, 36
+# query heads over 4 KV heads of head_dim 128, a head group of 9, d_ff
+# 18432, vocab 49152, rope_theta 1e6, norm eps 1e-5, 16K context): biases
+# on every norm and projection, the gateless FFN, the sequential residual;
+# its sliding window of 4096 is not written by the reference's converter
+STARCODER2_7B = dict(d_model=4608, n_heads=36, n_kv_heads=4, head_dim=128, d_ff=18432,
+                     n_vocab=49152, rms_eps=1e-5, max_context=16384, rope_theta=1e6,
+                     rope_neox=True, attn_qkv_bias=True, norm_type="ln", ffn_gelu=True,
+                     head_quant="Q6_K", trained=True,
+                     ln_layout=dict(gateless=True, biases=("norm", "qkv", "o", "ffn")))
+# Command-R v01 (CohereForAI/c4ai-command-r-v01's config.json: 40 layers, d
+# 8192, 64 query heads over 64 KV heads of head_dim 128, d_ff 22528 SwiGLU,
+# vocab 256000, rope_theta 8e6, layer norm eps 1e-5, logit_scale 0.0625,
+# context 8192): LayerNorm without bias, one shared norm under the
+# parallel residual, interleaved rope pairs, logits times 0.0625
+# (logit_scale 16 divides them)
+COMMAND_R_V01 = dict(d_model=8192, n_heads=64, n_kv_heads=64, head_dim=128, d_ff=22528,
+                     n_vocab=256000, rms_eps=1e-5, max_context=8192, rope_theta=8e6,
+                     norm_type="ln", parallel_residual=True,
+                     logit_scale=1 / 0.0625, head_quant="Q6_K", trained=True,
+                     ln_layout=dict(shared_norm=True, biases=()))
+# Pythia-6.9B (EleutherAI/pythia-6.9b's config.json: d 4096, 32 heads of
+# 128, d_ff 16384, vocab 50432, rotary_pct 0.25: rope on 32 dims, parallel
+# residual with its own FFN norm, eps 1e-5, context 2048): the fused qkv
+# with its bias, biases everywhere but the head
+PYTHIA_6_9B = dict(d_model=4096, n_heads=32, n_kv_heads=32, head_dim=128, d_ff=16384,
+                   n_vocab=50432, rms_eps=1e-5, max_context=2048, rope_neox=True,
+                   attn_qkv_bias=True, norm_type="ln", parallel_residual=True, rope_dim=32,
+                   head_quant="Q6_K", trained=True,
+                   ln_layout=dict(gateless=True, fused_qkv=True,
+                                  biases=("norm", "qkv", "o", "ffn")))
+# Phi-2 (microsoft/phi-2's config.json: d 2560, 32 heads of 80,
+# partial_rotary_factor 0.4: rope on 32 dims, d_ff 10240, vocab 51200, eps
+# 1e-5, context 2048): one shared norm under the parallel residual, biases
+# everywhere, the head's too. Head_dim 80 decodes on the einsum and gather
+PHI_2 = dict(d_model=2560, n_heads=32, n_kv_heads=32, head_dim=80, d_ff=10240,
+             n_vocab=51200, rms_eps=1e-5, max_context=2048, rope_neox=True,
+             norm_type="ln", parallel_residual=True, rope_dim=32, head_quant="Q6_K",
+             trained=True, ln_layout=dict(gateless=True, shared_norm=True,
+                                           biases=("norm", "qkv", "o", "ffn", "head")))
+# Falcon-7B (tiiuae/falcon-7b's config.json: d 4544, 71 query heads over 1
+# KV head (multi_query) of head_dim 64, d_ff 4 x 4544 = 18176, vocab 65024,
+# eps 1e-5, context 2048, no projection biases): the fused qkv, one shared
+# norm (with its bias) under the parallel residual. K = 4544 is no whole
+# number of 256-blocks: no K-quant holds it, so it runs Q8_0, head too
+FALCON_7B = dict(d_model=4544, n_heads=71, n_kv_heads=1, head_dim=64, d_ff=18176,
+                 n_vocab=65024, rms_eps=1e-5, max_context=2048, rope_neox=True,
+                 norm_type="ln", parallel_residual=True, head_quant="Q8_0", trained=True,
+                 ln_layout=dict(gateless=True, fused_qkv=True, shared_norm=True,
+                                biases=("norm",)))
+
 # named configs (shapes follow the public model cards; weights random)
 PRESETS = {
     "tiny": dict(n_layers=2, d_model=256, n_heads=4, n_kv_heads=2, d_ff=512,
@@ -142,6 +207,15 @@ PRESETS = {
     "qwen2.5-7b-2l": dict(n_layers=2, **QWEN2_5_7B),
     "qwen3-32b": dict(n_layers=64, **QWEN3_32B),
     "qwen3-32b-2l": dict(n_layers=2, **QWEN3_32B),
+    # StarCoder2-7B and Command-R v01 at full depth and at two layers; two
+    # layers of Pythia-6.9B, Phi-2 and Falcon-7B (card-vs-plain checks)
+    "starcoder2-7b": dict(n_layers=32, **STARCODER2_7B),
+    "starcoder2-7b-2l": dict(n_layers=2, **STARCODER2_7B),
+    "command-r-v01": dict(n_layers=40, **COMMAND_R_V01),
+    "command-r-v01-2l": dict(n_layers=2, **COMMAND_R_V01),
+    "pythia-6.9b-2l": dict(n_layers=2, **PYTHIA_6_9B),
+    "phi-2-2l": dict(n_layers=2, **PHI_2),
+    "falcon-7b-2l": dict(n_layers=2, **FALCON_7B),
     "tiny-moe": dict(n_layers=2, d_model=256, n_heads=4, n_kv_heads=2, d_ff=512,
                      n_vocab=1024, max_context=2048, n_experts=4,
                      n_experts_used=2, moe_norm_topk=True),
@@ -149,11 +223,21 @@ PRESETS = {
 
 
 def _rand_qtensor(gen: Optional[torch.Generator], n: int, k: int, quant: str,
-                  device, centered: bool = False) -> QTensor:
+                  device, centered: bool = False, trained: bool = False) -> QTensor:
     """Random QTensor in the production layout (storage N padded to 2048);
     on the meta device (gen None) the layout without data. centered: a Q4_K
     group's bias is -(6.5 .. 8.5) times its scale, so that its weights have
-    a mean near zero."""
+    a mean near zero. trained: weights of a trained checkpoint's spread, an
+    RMS near 0.03 (write_synthetic_gguf's blocks spread alike), mean near
+    zero: Q8_0 and Q6_K scales of 1e-4 .. 1e-3; Q4_K groups of
+    q * a + b with a in 2e-3 .. 1.1e-2 and b = -(6.5 .. 8.5) a, the hi
+    plane's groups stored as its codes 16q - 128 need (a / 16, b + 8a).
+    Without it the draw's scales give an RMS near 0.9 (q8b) and 0.6 (q4b:
+    the hi plane's codes are 16 times the lo plane's): products of
+    outputs near 1e4 and attention near one-hot. The llama-family presets
+    keep that draw: at a trained spread their int8 activation codes turn
+    the f32-order partings of kernel and plain version into steps that two
+    SwiGLU layers grow past the checks' 2e-2 (PERF.md §6)."""
     if quant in ("F16", "BF16", "F32"):
         qs = torch.randn((k, n), generator=gen, device=device) * 0.02
         return QTensor("dense", (n, k), 0, qs.to(torch.bfloat16))
@@ -166,7 +250,7 @@ def _rand_qtensor(gen: Optional[torch.Generator], n: int, k: int, quant: str,
         qs = torch.randint(lo, hi, (k, ns), generator=gen, device=device,
                            dtype=torch.int8)
         scales = torch.empty((k // g, ns), device=device).uniform_(
-            1e-3, 2e-2, generator=gen)
+            *((1e-4, 1e-3) if trained else (1e-3, 2e-2)), generator=gen)
         bias = None
         if quant == "Q5_K":
             bias = torch.empty((k // g, ns), device=device).uniform_(
@@ -178,13 +262,17 @@ def _rand_qtensor(gen: Optional[torch.Generator], n: int, k: int, quant: str,
     qs = torch.randint(0, 256, (k // 2, ns), generator=gen, device=device,
                        dtype=torch.uint8)
     scales = torch.empty((k // 32, ns), device=device).uniform_(
-        1e-3, 2e-2, generator=gen)
-    if centered:
+        *((2e-3, 1.1e-2) if trained else (1e-3, 2e-2)), generator=gen)
+    if centered or trained:
         bias = -scales * torch.empty((k // 32, ns), device=device).uniform_(
             6.5, 8.5, generator=gen)
     else:
         bias = torch.empty((k // 32, ns), device=device).uniform_(
             -0.1, 0.0, generator=gen)
+    if trained:                     # groups 4-7 of each 256 rows: the hi plane
+        hi_plane = (torch.arange(k // 32, device=device) % 8 >= 4)[:, None]
+        bias = torch.where(hi_plane, bias + 8 * scales, bias)
+        scales = torch.where(hi_plane, scales / 16, scales)
     return QTensor("q4b", (n, k), 32, qs, scales.to(torch.bfloat16),
                    bias.to(torch.bfloat16))
 
@@ -206,6 +294,9 @@ def make_synthetic_llama(preset: str = "tiny", quant: str = "Q4_K",
     share_layers = kw.pop("share_layers", False)
     head_quant = kw.pop("head_quant", quant)
     centered = kw.pop("centered", False)
+    trained = kw.pop("trained", False)
+    ln = kw.pop("ln_layout", None) or {}
+    biases = ln.get("biases", ())
     kw.setdefault("head_dim", kw["d_model"] // kw["n_heads"])
     cfg = LlamaConfig(rope_theta=rope_theta, **kw)
     gen = None
@@ -213,11 +304,13 @@ def make_synthetic_llama(preset: str = "tiny", quant: str = "Q4_K",
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
     d, h, kvh, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    rq = lambda n, k: _rand_qtensor(gen, n, k, quant, dev, centered)
+    rq = lambda n, k: _rand_qtensor(gen, n, k, quant, dev, centered, trained)
+    rvec = lambda n, std: torch.randn(n, generator=gen, device=dev) * std
     layers = []
     for _ in range(1 if share_layers else cfg.n_layers):
-        attn = dict(wq=rq(h * hd, d), wk=rq(kvh * hd, d), wv=rq(kvh * hd, d),
-                    wo=rq(d, h * hd))
+        attn = (dict(wqkv=rq((h + 2 * kvh) * hd, d)) if ln.get("fused_qkv") else
+                dict(wq=rq(h * hd, d), wk=rq(kvh * hd, d), wv=rq(kvh * hd, d)))
+        attn["wo"] = rq(d, h * hd)
         if cfg.n_experts:
             ex = {}
             for e in range(cfg.n_experts):
@@ -225,6 +318,8 @@ def make_synthetic_llama(preset: str = "tiny", quant: str = "Q4_K",
                 ex[f"down.{e}"] = rq(d, cfg.d_ff)
             ffn = dict(experts=stack_experts(ex, cfg.n_experts, fuse_gate_up=fuse),
                        gate_inp=_rand_qtensor(gen, cfg.n_experts, d, "F16", dev))
+        elif ln.get("gateless"):            # the LayerNorm families' up and down
+            ffn = dict(w_up=rq(cfg.d_ff, d), w_down=rq(d, cfg.d_ff))
         else:
             ffn = dict(w_gate=rq(cfg.d_ff, d), w_up=rq(cfg.d_ff, d),
                        w_down=rq(d, cfg.d_ff))
@@ -234,11 +329,19 @@ def make_synthetic_llama(preset: str = "tiny", quant: str = "Q4_K",
         if cfg.qk_norm:                     # gemma3/qwen3's per-head q/k norms, drawn alike
             attn.update({f: torch.empty(hd, device=dev).uniform_(0.5, 1.5, generator=gen)
                          for f in ("q_norm", "k_norm")})
-        if cfg.attn_qkv_bias:               # qwen2's q/k/v biases, at the products' scale
-            attn.update({f: torch.randn(n, generator=gen, device=dev)
+        if cfg.attn_qkv_bias or "qkv" in biases:   # q/k/v biases, at the products' scale
+            attn.update({f: rvec(n, 1.0)
                          for f, n in (("bq", h * hd), ("bk", kvh * hd), ("bv", kvh * hd))})
+        if "o" in biases:
+            attn["bo"] = rvec(d, 1.0)
+        if "ffn" in biases:
+            ffn.update(b_up=rvec(cfg.d_ff, 1.0), b_down=rvec(d, 1.0))
+        shared = ln.get("shared_norm", False)
+        if "norm" in biases:
+            attn.update(attn_norm_b=rvec(d, 0.1), ffn_norm_b=None if shared else rvec(d, 0.1))
         layers.append(LlamaLayer(attn_norm=torch.ones(d, device=dev),
-                                 ffn_norm=torch.ones(d, device=dev), **attn, **ffn))
+                                 ffn_norm=None if shared else torch.ones(d, device=dev),
+                                 **attn, **ffn))
     if share_layers:
         layers = layers * cfg.n_layers       # the same buffers in every layer
     embd = (torch.randn((cfg.n_vocab, d), generator=gen, device=dev)
@@ -248,7 +351,10 @@ def make_synthetic_llama(preset: str = "tiny", quant: str = "Q4_K",
     # model's do; at 1 most of them saturate it and the greedy token is a tie
     out_norm = torch.full((d,), 0.125 if cfg.final_softcap else 1.0, device=dev)
     params = LlamaParams(tok_embd=embd, layers=layers, out_norm=out_norm,
-                         output=_rand_qtensor(gen, cfg.n_vocab, d, head_quant, dev))
+                         output=_rand_qtensor(gen, cfg.n_vocab, d, head_quant, dev,
+                                              trained=trained),
+                         out_norm_b=rvec(d, 0.1) if "norm" in biases else None,
+                         out_b=rvec(cfg.n_vocab, 1.0) if "head" in biases else None)
     if fuse:
         from .loader import fuse_projections
         params = fuse_projections(params, cfg)
@@ -258,7 +364,8 @@ def make_synthetic_llama(preset: str = "tiny", quant: str = "Q4_K",
 def _leaves(params: LlamaParams):
     """Every weight tensor, a layer's shared buffers once for each layer."""
     layers = params.layers if isinstance(params.layers, list) else [params.layers]
-    out = [params.tok_embd, params.out_norm]
+    out = [t for t in (params.tok_embd, params.out_norm, params.out_norm_b, params.out_b)
+           if t is not None]
     vals = [getattr(l, f) for l in layers for f in LlamaLayer.__dataclass_fields__]
     vals += [qt for l in layers if l.experts for qt in l.experts.values()]
     for qt in [params.output] + vals:
@@ -277,7 +384,8 @@ def decode_read_bytes(params: LlamaParams, cfg: LlamaConfig) -> int:
     """Weight bytes one decode step reads from device memory: every byte but
     the embedding table (one row gather), and of a routed MoE layer's expert
     stacks only the top-k share, n_experts_used / n_experts (the reference's
-    count). The decode roofline's numerator."""
+    count). A gateless FFN reads its two matrices (and the biases). The
+    decode roofline's numerator."""
     total = param_bytes(params) - params.tok_embd.numel() * params.tok_embd.element_size()
     if cfg.n_experts and cfg.n_experts_used:
         frac = 1.0 - cfg.n_experts_used / cfg.n_experts
@@ -360,8 +468,8 @@ def write_synthetic_gguf(path: str, preset: str = "llama3-8b", quant: str = "Q4_
     from ..gguf.quants import TYPE_BY_NAME
     from ..gguf.writer import GGUFWriter
     kw = dict(PRESETS[preset])
-    if kw.get("n_experts"):
-        raise ValueError(f"{preset}: write_synthetic_gguf writes dense presets")
+    if kw.get("n_experts") or kw.get("ln_layout"):
+        raise ValueError(f"{preset}: write_synthetic_gguf writes dense llama presets")
     layers = n_layers if n_layers is not None else kw["n_layers"]
     vocab = n_vocab if n_vocab is not None else kw["n_vocab"]
     d, h, kvh, dff = kw["d_model"], kw["n_heads"], kw["n_kv_heads"], kw["d_ff"]

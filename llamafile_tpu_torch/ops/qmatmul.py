@@ -238,16 +238,17 @@ def planes_bf16_out(m: int) -> bool:
     return -(-m // 8) * 8 >= 256
 
 
-def qmm_planes_plain(x: torch.Tensor, qs: torch.Tensor,
-                     scales: torch.Tensor) -> torch.Tensor:
+def qmm_planes_plain(x: torch.Tensor, qs: torch.Tensor, scales: torch.Tensor,
+                     bf16_out: Optional[bool] = None) -> torch.Tensor:
     """Plain two-plane product (_qmm_kernel_planes): x_even @ W_lo + x_odd @
     W_hi, with x_even/x_odd the even and odd 128-wide K chunks of each
     256-superblock of bf16(x), W_lo = bf16(lo * s_lo), W_hi = bf16(hi * s_hi)
     from the nibble planes of qs uint8 [K/2, Ns] and the scale rows r % 8 < 4
     (lo) and r % 8 >= 4 (hi) of scales [K/32, Ns]. Two f32 products summed;
-    f32 [M, Ns], or bf16 when planes_bf16_out(M)."""
+    f32 [M, Ns], or bf16 when bf16_out (default planes_bf16_out(M))."""
     y = _planes_f32(x, qs, scales)
-    return y.to(torch.bfloat16) if planes_bf16_out(x.shape[0]) else y
+    bf = planes_bf16_out(x.shape[0]) if bf16_out is None else bf16_out
+    return y.to(torch.bfloat16) if bf else y
 
 
 def _planes_f32(x: torch.Tensor, qs: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
@@ -664,15 +665,16 @@ qmm_dequant.launches = 0
 
 
 def qmm_planes(x: torch.Tensor, qs: torch.Tensor, scales: torch.Tensor,
-               stacked: bool = False) -> torch.Tensor:
+               stacked: bool = False, bf16_out: Optional[bool] = None) -> torch.Tensor:
     """q4b two-plane GEMM (kernel qmm_planes): x float [M, K] (rounded to
     bf16 here), one q4b weight (qs uint8 [K/2, Ns], bf16 scales [K/32, Ns])
-    -> f32 [M, Ns], or bf16 when planes_bf16_out(M), rounded in the kernel.
-    The bias term stays with the caller (qmatmul). stacked: qs and scales
-    are layer li's views of a stack (_qmm_call_planes_stacked); such
-    launches are also counted in stacked_launches."""
+    -> f32 [M, Ns], or bf16 when bf16_out (default planes_bf16_out(M)),
+    rounded in the kernel. The bias term stays with the caller (qmatmul).
+    stacked: qs and scales are layer li's views of a stack
+    (_qmm_call_planes_stacked); such launches are also counted in
+    stacked_launches."""
     if x.device.type == "cpu":
-        return qmm_planes_plain(x, qs, scales)
+        return qmm_planes_plain(x, qs, scales, bf16_out)
     xb = x.to(torch.bfloat16).contiguous()
     _check_tensors(x.device, (("x", xb, torch.bfloat16), ("qs", qs, torch.uint8),
                               ("scales", scales, torch.bfloat16)))
@@ -683,7 +685,7 @@ def qmm_planes(x: torch.Tensor, qs: torch.Tensor, scales: torch.Tensor,
         raise ValueError(f"qmm_planes shapes: x {tuple(xb.shape)}, qs "
                          f"{tuple(qs.shape)}, scales {tuple(scales.shape)} "
                          "(K % 256 == 0, Ns % 16 == 0, g 32)")
-    bf = planes_bf16_out(m)
+    bf = planes_bf16_out(m) if bf16_out is None else bf16_out
     y = torch.empty((m, ns), dtype=torch.bfloat16 if bf else torch.float32,
                     device=x.device)
     f = _build.fn("qmm_planes", "qmm_planes", [P] * 4 + [I] * 4 + [P])
@@ -965,7 +967,8 @@ def qmatmul(x: torch.Tensor, qt: QTensor, li=None, prenorm=None) -> torch.Tensor
     to a multiple of 8 outside "txn": q4b under "int8" at padded M <= 32 ->
     qmm_int8; q4b under "int8" or "planes", or unstacked under "txn" ->
     qmm_planes; everything else -> qmm_dequant. These add the bias term
-    on the f32 group sums of that x in the product's dtype."""
+    on the f32 group sums of that x in f32; qmm_planes' sum is then rounded
+    to bf16 once, where the reference's output is bf16."""
     if qt.kind == "dense":
         w = _layer(qt.qs, li)
         if prenorm is not None:
@@ -993,14 +996,17 @@ def qmatmul(x: torch.Tensor, qt: QTensor, li=None, prenorm=None) -> torch.Tensor
         if route == "qmm_int8":
             y = qmm_int8(*quantize_activations_g32(xn), qs, sc)
         elif route == "qmm_planes":
-            y = qmm_planes(xn, qs, sc, stacked=li is not None)
+            # f32 out: the bias term joins the product before its one
+            # rounding to bf16 (the reference rounds each, ROADMAP C.11)
+            y = qmm_planes(xn, qs, sc, stacked=li is not None, bf16_out=False)
         else:
             y = qmm_dequant(xn, qs, sc)
         if b is not None:
             # outside the kernel, as the reference: f32 sums of the
-            # un-rounded normed x against the bias rows, in y's dtype
-            bias = xn.reshape(xn.shape[0], k // qt.g, qt.g).sum(-1) @ b.float()
-            y = y + bias.to(y.dtype)
+            # un-rounded normed x against the bias rows
+            y = y + xn.reshape(xn.shape[0], k // qt.g, qt.g).sum(-1) @ b.float()
+        if route == "qmm_planes" and planes_bf16_out(xn.shape[0]):
+            y = y.to(torch.bfloat16)
         y = y[:m]
     n = qt.shape[0]
     return y[:, :n] if y.shape[1] > n else y

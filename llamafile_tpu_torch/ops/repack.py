@@ -439,6 +439,14 @@ def dequant_qtensor(qt: QTensor) -> torch.Tensor:
     return w.reshape(k, ns)[:, :n].t()
 
 
+def slice_qtensor_cols(qt: QTensor, a: int, b: int) -> QTensor:
+    """The exact column slice [a, b) of the logical N axis (storage axis
+    -1), a copy: splits a pre-fused projection without requantizing."""
+    cut = lambda t: None if t is None else t[..., a:b].contiguous()
+    return QTensor(qt.kind, (b - a, qt.shape[1]), qt.g, cut(qt.qs), cut(qt.scales),
+                   cut(qt.bias))
+
+
 def concat_qtensors(qts) -> QTensor:
     """Fuse column-parallel projections along N (storage axis -1). Storage
     padding is stripped to each tensor's logical N first; missing biases

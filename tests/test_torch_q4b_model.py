@@ -34,7 +34,7 @@ from llamafile_tpu_torch.runtime.engine import load_engine
 from llamafile_tpu_torch.runtime.sampling import SamplingParams as TSP
 from llamafile_tpu_torch.server.batcher import Batcher as TBatcher
 from tests.test_torch_batcher import _prompt, _serve
-from tests.test_torch_q4km import _one_torch_thread  # noqa: F401
+from tests.test_torch_q4km import _exact_planes, _one_torch_thread  # noqa: F401
 from tests.test_torch_moe_model import _interpreted
 from tests.test_torch_q4b import flavour, rel
 from tests.util_models import make_tiny_llama_gguf
@@ -92,7 +92,7 @@ def test_forward_matches_jax(gguf, flav, n_prompt):
                            jnp.asarray([n_prompt], jnp.int32), jc, attn_len=MAX_LEN)
         return [np.asarray(lg)[0, -1], np.asarray(lg2)[0, -1]]
     with flavour(flav):
-        want = _interpreted(run_jax)
+        want = _interpreted(lambda: _exact_planes(run_jax))
         tc = TL.init_cache(tcfg, 1, MAX_LEN, device="cpu")
         lg, tc = TL.forward(tp, tcfg, torch.from_numpy(toks[:, :bucket]),
                             torch.zeros(1, dtype=torch.int32), tc, fresh_prefill=True,

@@ -142,6 +142,38 @@ def _interpreted(fn):
         jax.clear_caches()
 
 
+def _exact_planes(fn):
+    """fn() with the JAX package's two-plane product summed exactly: its
+    kernel 128 rows a call (below 256 rows its output is f32), the bias term
+    added in f32, and the sum rounded once to bf16 where the reference's
+    output is bf16 (from 256 rows). The reference instead rounds the
+    kernel's output to bf16 and adds the bias term in bf16, which on a
+    down product's input of large mean parts from the exact product by
+    several percent (ROADMAP C.11); the port sums as this witness does.
+    Trace inside it with the caches cleared (_interpreted clears them)."""
+    mp = pytest.MonkeyPatch()
+    flat, stacked, product = JQM._qmm_call_planes, JQM._qmm_call_planes_stacked, JL.qmatmul
+    wide = []                   # a planes call of this product from 256 rows
+
+    def rows(call, x, *a, **kw):
+        wide.append(x.shape[0] >= 256)
+        return jnp.concatenate([call(x[i:i + 128], *a, **kw)
+                                for i in range(0, x.shape[0], 128)])
+
+    def qmatmul(*a, **kw):
+        wide.clear()
+        y = product(*a, **kw)
+        return y.astype(jnp.bfloat16) if any(wide) else y
+    mp.setattr(JQM, "_qmm_call_planes", lambda x, *a, **kw: rows(flat, x, *a, **kw))
+    mp.setattr(JQM, "_qmm_call_planes_stacked",
+               lambda x, *a, **kw: rows(stacked, x, *a, **kw))
+    mp.setattr(JL, "qmatmul", qmatmul)
+    try:
+        return fn()
+    finally:
+        mp.undo()
+
+
 def _jax_generate(path, prompt, n=16, **kw):
     def run():
         cfg, params, tok, _ = j_load_llama(path)
@@ -180,7 +212,7 @@ def test_unrolled_forward_matches_jax(gguf, n_prompt):
                                jnp.asarray([n_prompt + i], jnp.int32), jc, attn_len=256)
             out.append(np.asarray(lg)[0, -1])
         return out
-    want = _interpreted(run_jax)
+    want = _interpreted(lambda: _exact_planes(run_jax))
     tc = TL.init_cache(tcfg, 1, MAX_LEN, device="cpu")
     lg, _ = TL.forward(tp, tcfg, torch.from_numpy(toks[:, :bucket]),
                        torch.zeros(1, dtype=torch.int32), tc, fresh_prefill=True,
